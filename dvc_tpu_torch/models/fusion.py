@@ -1,0 +1,81 @@
+"""Audio-visual fusion model, the reference's ``NewModel`` (port of
+``dvc_tpu/models/fusion.py``).
+
+Clip features pass through a self-attention block, then an audio->visual
+cross-attention block (audio features are the queries, the visual stream
+the keys and values), and the fused sequence feeds PDVC.  Parameter names
+are the reference state_dict's: ``mha1``/``ln1``/``mlp_seq1`` (visual),
+``mha2``/``ln2``/``mlp_seq2`` (sound), ``pdvcModel.*``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .deformable_transformer import LN_EPS, MultiheadAttention
+from .pdvc import PDVC, PDVCConfig, init_mha_, lecun_normal_
+
+
+def fusion_heads(opt) -> int:
+    """The 32-head default, halved until it divides feature_dim."""
+    heads = int(getattr(opt, 'fusion_heads', 32) or 32)
+    while opt.feature_dim % heads:
+        heads //= 2
+    return heads
+
+
+class FusionPDVC(nn.Module):
+    def __init__(self, cfg: PDVCConfig, fusion_dim: int = 768,
+                 fusion_heads: int = 32):
+        super().__init__()
+        for i in (1, 2):
+            setattr(self, f'mha{i}', MultiheadAttention(fusion_dim,
+                                                        fusion_heads))
+            setattr(self, f'ln{i}', nn.LayerNorm(fusion_dim, eps=LN_EPS))
+            setattr(self, f'mlp_seq{i}', nn.Sequential(
+                nn.Linear(fusion_dim, fusion_dim),
+                nn.LayerNorm(fusion_dim, eps=LN_EPS)))
+        self.pdvcModel = PDVC(cfg)
+
+    def _block(self, i, query, kv):
+        """MHA -> LayerNorm -> + kv, then Linear -> LayerNorm -> + residual."""
+        x = getattr(self, f'ln{i}')(getattr(self, f'mha{i}')(query, kv, kv))
+        x = x + kv
+        return getattr(self, f'mlp_seq{i}')(x) + x
+
+    def forward(self, batch):
+        """batch as PDVC's plus an optional 'sound_tensor' (B, T, C) aligned
+        with the clips (zeros where audio is missing)."""
+        clips = batch['video_tensor']
+        fused = self._block(1, clips, clips)
+        if batch.get('sound_tensor') is not None:
+            fused = self._block(2, batch['sound_tensor'], fused)
+        inner = {k: v for k, v in batch.items() if k != 'sound_tensor'}
+        inner['video_tensor'] = fused
+        return self.pdvcModel(inner)
+
+    @torch.no_grad()
+    def init_parameters_(self, gen: torch.Generator):
+        self.pdvcModel.init_parameters_(gen)
+        for i in (1, 2):
+            init_mha_(getattr(self, f'mha{i}'), gen)
+            for norm in (getattr(self, f'ln{i}'), getattr(self, f'mlp_seq{i}')[1]):
+                nn.init.ones_(norm.weight)
+                nn.init.zeros_(norm.bias)
+            fc = getattr(self, f'mlp_seq{i}')[0]
+            lecun_normal_(fc.weight, gen)
+            nn.init.zeros_(fc.bias)
+
+
+def make_fusion_model(opt, device='cpu', seed: int = 0) -> FusionPDVC:
+    """The FusionPDVC of ``opt`` on ``device`` in eval mode, with seeded
+    random weights drawn on the CPU from a ``torch.Generator`` (so the same
+    seed gives the same weights on any device); load a checkpoint over them
+    with ``load_state_dict(strict=True)``."""
+    with torch.device('meta'):
+        model = FusionPDVC(PDVCConfig.from_opt(opt), fusion_dim=opt.feature_dim,
+                           fusion_heads=fusion_heads(opt))
+    model.to_empty(device='cpu')
+    model.init_parameters_(torch.Generator().manual_seed(seed))
+    return model.to(device).eval()

@@ -1,0 +1,344 @@
+"""PDVC eval forward (port of ``dvc_tpu/models/pdvc.py``).
+
+A conv pyramid feeds the deformable encoder; Nq learned event queries are
+decoded with iterative box refinement; each query gets class logits, a
+(center, length) box and a share of the event-count logits, and the last
+decoder layer's queries are captioned greedily.
+
+The port covers the serving path: ``transformer_input_type='queries'`` and
+the LSTM-DSA ('standard') caption head.  The JAX eval forward also runs the
+matcher and criterion; the served outputs do not depend on them (only
+``matched_indices`` does, which no serving consumer reads), so they wait
+for the training slice.
+
+Batch (dict of tensors), as in the JAX package:
+  video_tensor (B, T, C) f32, video_mask (B, T) bool (True = valid frame),
+  video_length (B, 3) f32 [feature length, duration (s), gt count].
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from ..utils.box_ops import inverse_sigmoid
+from .base_encoder import BaseEncoder
+from .caption_heads import CaptionHeadConfig, DSACaptionHead, truncate_levels
+from .deformable_transformer import (DecoderLayer, EncoderLayer,
+                                     MSDeformAttn, MultiheadAttention,
+                                     encoder_reference_points,
+                                     msda_offset_bias)
+
+
+@dataclasses.dataclass(frozen=True)
+class PDVCConfig:
+    num_classes: int = 1
+    num_queries: int = 100
+    num_feature_levels: int = 4
+    hidden_dim: int = 512
+    nheads: int = 8
+    enc_layers: int = 2
+    dec_layers: int = 2
+    transformer_ff_dim: int = 2048
+    enc_n_points: int = 4
+    dec_n_points: int = 4
+    with_box_refine: bool = True
+    share_caption_head: bool = True
+    caption_decoder_type: str = 'standard'
+    max_eseq_length: int = 10
+    feature_dim: int = 512
+    transformer_input_type: str = 'queries'
+    caption: CaptionHeadConfig = None
+
+    @classmethod
+    def from_opt(cls, opt):
+        cap = CaptionHeadConfig(
+            vocab_size=opt.vocab_size,
+            input_encoding_size=opt.input_encoding_size,
+            rnn_size=opt.rnn_size, num_layers=opt.num_layers,
+            max_caption_len=opt.max_caption_len, hidden_dim=opt.hidden_dim,
+            att_hid_size=opt.att_hid_size, cap_nheads=opt.cap_nheads,
+            cap_dec_n_points=opt.cap_dec_n_points,
+            cap_num_feature_levels=min(opt.cap_num_feature_levels,
+                                       opt.num_feature_levels))
+        return cls(
+            num_classes=opt.num_classes, num_queries=opt.num_queries,
+            num_feature_levels=opt.num_feature_levels,
+            hidden_dim=opt.hidden_dim, nheads=opt.nheads,
+            enc_layers=opt.enc_layers, dec_layers=opt.dec_layers,
+            transformer_ff_dim=opt.transformer_ff_dim,
+            enc_n_points=opt.enc_n_points, dec_n_points=opt.dec_n_points,
+            with_box_refine=bool(opt.with_box_refine),
+            share_caption_head=bool(opt.share_caption_head),
+            caption_decoder_type=opt.caption_decoder_type,
+            max_eseq_length=opt.max_eseq_length,
+            feature_dim=opt.feature_dim,
+            transformer_input_type=opt.transformer_input_type,
+            caption=cap)
+
+
+class BBoxHead(nn.Module):
+    """3-layer MLP -> (center delta, length logit)."""
+
+    def __init__(self, d):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [nn.Linear(d, d), nn.Linear(d, d), nn.Linear(d, 2)])
+
+    def forward(self, x):
+        x = torch.relu(self.layers[0](x))
+        x = torch.relu(self.layers[1](x))
+        return self.layers[2](x)
+
+
+class _Layers(nn.Module):
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+class DeformableTransformer(nn.Module):
+    def __init__(self, c: PDVCConfig):
+        super().__init__()
+        d, L = c.hidden_dim, c.num_feature_levels
+        self.level_embed = nn.Parameter(torch.empty(L, d))
+        self.reference_points = nn.Linear(d, 1)
+        self.encoder = _Layers(
+            EncoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.enc_n_points)
+            for _ in range(c.enc_layers))
+        self.decoder = _Layers(
+            DecoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.dec_n_points)
+            for _ in range(c.dec_layers))
+
+
+class PDVC(nn.Module):
+    def __init__(self, cfg: PDVCConfig):
+        super().__init__()
+        if cfg.transformer_input_type != 'queries':
+            raise NotImplementedError("the port serves 'queries' mode only")
+        if cfg.caption_decoder_type != 'standard':
+            raise NotImplementedError(
+                "the port serves the 'standard' (LSTM-DSA) caption head only")
+        self.cfg = cfg
+        d, D = cfg.hidden_dim, cfg.dec_layers
+        self.base_encoder = BaseEncoder(cfg.num_feature_levels,
+                                        cfg.feature_dim, d)
+        self.transformer = DeformableTransformer(cfg)
+        self.query_embed = nn.Embedding(cfg.num_queries, 2 * d)
+
+        def per_layer(make):
+            # shared heads alias one module D times, which is how the
+            # reference's ModuleList serializes them
+            if cfg.with_box_refine:
+                return nn.ModuleList(make() for _ in range(D))
+            return nn.ModuleList([make()] * D)
+
+        self.class_head = per_layer(lambda: nn.Linear(d, cfg.num_classes))
+        self.count_head = per_layer(
+            lambda: nn.Linear(d, cfg.max_eseq_length + 1))
+        self.bbox_head = per_layer(lambda: BBoxHead(d))
+        if cfg.share_caption_head:
+            self.caption_head = nn.ModuleList(
+                [DSACaptionHead(cfg.caption)] * D)
+        else:
+            self.caption_head = nn.ModuleList(
+                DSACaptionHead(cfg.caption) for _ in range(D))
+
+    # ------------------------------------------------------------------
+    def encode(self, batch):
+        srcs, masks, poses = self.base_encoder(
+            batch['video_tensor'], ~batch['video_mask'],
+            batch['video_length'][:, 1])
+        shapes = tuple(s.shape[1] for s in srcs)
+        level_embed = self.transformer.level_embed
+        src_flat = torch.cat(srcs, dim=1)
+        mask_flat = torch.cat(masks, dim=1)
+        pos_flat = torch.cat([p + level_embed[l][None, None, :]
+                              for l, p in enumerate(poses)], dim=1)
+        valid_ratios = torch.stack(
+            [(~m).float().sum(1) / m.shape[1] for m in masks], dim=1)
+        memory = src_flat
+        ref = encoder_reference_points(shapes, valid_ratios)
+        for layer in self.transformer.encoder.layers:
+            memory = layer(memory, pos_flat, ref, shapes, mask_flat)
+        return memory, shapes, valid_ratios, mask_flat
+
+    def decode(self, memory, shapes, valid_ratios, mask_flat, init_reference,
+               tgt, query_pos):
+        """Decoder stack with iterative box refinement.  Returns the last
+        layer's (output, input reference, bbox-head delta): the eval path
+        reads only the last layer."""
+        output, reference_points = tgt, init_reference
+        last = len(self.transformer.decoder.layers) - 1
+        for lid, layer in enumerate(self.transformer.decoder.layers):
+            if reference_points.shape[-1] == 2:
+                ref_input = (reference_points[:, :, None]
+                             * torch.stack([valid_ratios, valid_ratios],
+                                           -1)[:, None])
+            else:
+                ref_input = (reference_points[:, :, None]
+                             * valid_ratios[:, None, :, None])
+            output = layer(output, query_pos, ref_input, memory, shapes,
+                           mask_flat)
+            if lid == last:
+                return output, reference_points, self.bbox_head[lid](output)
+            if self.cfg.with_box_refine:
+                tmp = self.bbox_head[lid](output)
+                if reference_points.shape[-1] == 2:
+                    reference_points = torch.sigmoid(
+                        tmp + inverse_sigmoid(reference_points))
+                else:
+                    reference_points = torch.sigmoid(torch.cat(
+                        [tmp[..., :1] + inverse_sigmoid(reference_points),
+                         tmp[..., 1:]], -1))
+
+    def prepare_decoder_queries(self, B):
+        query_pos, tgt = self.query_embed.weight.chunk(2, dim=1)
+        query_pos = query_pos[None].expand(B, -1, -1)
+        tgt = tgt[None].expand(B, -1, -1)
+        init_reference = torch.sigmoid(
+            self.transformer.reference_points(query_pos))
+        return init_reference, tgt, query_pos
+
+    def head_outputs(self, hs, reference, delta):
+        """Class/count/box predictions of the last decoder layer.  A 1-d
+        reference is added to both box dims (the reference's eval-path
+        quirk, kept for parity)."""
+        l_id = self.cfg.dec_layers - 1
+        return (self.class_head[l_id](hs),
+                self.count_head[l_id](hs.max(dim=1).values),
+                torch.sigmoid(delta + inverse_sigmoid(reference)))
+
+    def caption_reference(self, reference, valid_ratios, shapes):
+        """Caption-head sampling geometry as (center, scale), each
+        (B, Nq, L): 1-d references give scale 1/T_l, boxes give
+        length * valid ratio * 0.5 / n_points."""
+        center = reference[:, :, None, 0] * valid_ratios[:, None, :]
+        if reference.shape[-1] == 2:
+            scale = (reference[:, :, None, 1] * valid_ratios[:, None, :]
+                     * 0.5 / self.cfg.caption.cap_dec_n_points)
+        else:
+            T = torch.tensor(shapes, dtype=torch.float32,
+                             device=reference.device)
+            scale = (1.0 / T)[None, None, :].expand_as(center)
+        return center, scale
+
+    def forward(self, batch):
+        """Eval forward.  Returns the last decoder layer's pred_logits
+        (B, Nq, C), pred_count (B, Ne+1), pred_boxes (B, Nq, 2), seq and
+        cap_prob_eval (B, Nq, max_caption_len)."""
+        c = self.cfg
+        memory, shapes, valid_ratios, mask_flat = self.encode(batch)
+        B = memory.shape[0]
+        init_reference, tgt, query_pos = self.prepare_decoder_queries(B)
+        hs, reference, delta = self.decode(memory, shapes, valid_ratios,
+                                           mask_flat, init_reference, tgt,
+                                           query_pos)
+        logits, count, boxes = self.head_outputs(hs, reference, delta)
+        center, scale = self.caption_reference(reference, valid_ratios,
+                                               shapes)
+        shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
+            c.caption, shapes, memory, mask_flat, center, scale)
+        seq, lp = self.caption_head[c.dec_layers - 1](
+            hs, center_t, scale_t, mem_t, shapes_t, mask_t)
+        Nq = hs.shape[1]
+        return {'pred_logits': logits, 'pred_count': count,
+                'pred_boxes': boxes, 'seq': seq.reshape(B, Nq, -1),
+                'cap_prob_eval': lp.reshape(B, Nq, -1)}
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def init_parameters_(self, gen: torch.Generator):
+        """Seeded init with the distributions of the JAX package's flax
+        initializers (random weights for smoke runs; served checkpoints
+        overwrite them)."""
+        c = self.cfg
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                lecun_normal_(m.weight, gen)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.Conv1d):
+                xavier_uniform_(m.weight, gen)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+        # then the modules whose init differs from their Linears' default
+        for m in self.modules():
+            if isinstance(m, MultiheadAttention):
+                init_mha_(m, gen)
+            elif isinstance(m, MSDeformAttn):
+                init_msda_(m, gen, center=False)
+        tr = self.transformer
+        tr.level_embed.normal_(0.0, 1.0, generator=gen)
+        self.query_embed.weight.normal_(0.0, 1.0, generator=gen)
+        xavier_uniform_(tr.reference_points.weight, gen)
+        prior = 0.01
+        for i in range(c.dec_layers):
+            self.class_head[i].bias.fill_(-math.log((1 - prior) / prior))
+            last = self.bbox_head[i].layers[2]
+            nn.init.zeros_(last.weight)
+            last.bias.copy_(torch.tensor(
+                [0.0, -2.0 if i == 0 or not c.with_box_refine else 0.0]))
+        for head in dict.fromkeys(self.caption_head):   # shared: once
+            init_caption_head_(head, gen)
+
+
+# ----------------------------------------------------------------------
+# flax initializers with an explicit generator
+# ----------------------------------------------------------------------
+
+def lecun_normal_(w, gen, fan_in=None):
+    """flax lecun_normal: truncated normal (2 std), variance 1/fan_in."""
+    fan_in = fan_in or w.shape[1]
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+def xavier_uniform_(w, gen):
+    nn.init.xavier_uniform_(w, generator=gen)
+
+
+def init_mha_(m: MultiheadAttention, gen):
+    for w in m.in_proj_weight.chunk(3):
+        lecun_normal_(w, gen)
+    nn.init.zeros_(m.in_proj_bias)
+    lecun_normal_(m.out_proj.weight, gen)
+    nn.init.zeros_(m.out_proj.bias)
+
+
+def init_msda_(m: MSDeformAttn, gen, center=False):
+    """Zero offset/attention kernels, directional offset bias, xavier
+    value/output projections."""
+    nn.init.zeros_(m.sampling_offsets.weight)
+    m.sampling_offsets.bias.copy_(torch.from_numpy(msda_offset_bias(
+        m.n_heads, m.n_levels, m.n_points, center)))
+    nn.init.zeros_(m.attention_weights.weight)
+    nn.init.zeros_(m.attention_weights.bias)
+    for lin in (m.value_proj, m.output_proj):
+        xavier_uniform_(lin.weight, gen)
+        nn.init.zeros_(lin.bias)
+
+
+def init_caption_head_(head: DSACaptionHead, gen):
+    cfg = head.cfg
+    core = head.core
+    head.embed.weight.uniform_(-0.1, 0.1, generator=gen)
+    head.logit.weight.uniform_(-0.1, 0.1, generator=gen)
+    nn.init.zeros_(head.logit.bias)
+    bound = 1.0 / math.sqrt(cfg.rnn_size)
+    core.rnn.weight_ih_l0.uniform_(-bound, bound, generator=gen)
+    core.rnn.weight_hh_l0.uniform_(-bound, bound, generator=gen)
+    att = core.deformable_att
+    nn.init.zeros_(att.sampling_offsets.weight)
+    att.sampling_offsets.bias.copy_(torch.from_numpy(msda_offset_bias(
+        cfg.cap_nheads, cfg.cap_num_feature_levels, cfg.cap_dec_n_points,
+        center=True)))
+    xavier_uniform_(att.value_proj.weight, gen)
+    nn.init.zeros_(att.value_proj.bias)
+    for lin in (core.ctx2att, core.h2att, core.alpha_net):
+        lecun_normal_(lin.weight, gen)
+        nn.init.zeros_(lin.bias)

@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels of ``dvc_tpu_torch/csrc``.
+
+The sources have a plain C interface (no PyTorch headers), so ``nvcc``
+compiles them in seconds into one shared library that is loaded with
+``ctypes``.  The build runs at first use, never at import, into
+``dvc_tpu_torch/_build/<hash of sources and flags>/`` (listed in
+``.gitignore``); a later call in the same checkout reuses it.
+
+Each C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()`` of its launch; :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_ROOT = os.path.join(_PKG, '_build')
+SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu')
+# sm_90a: Hopper.  No -use_fast_math: tanhf/expf/logf stay exact, as the
+# JAX kernels' f32 transcendentals; -Xptxas -v records registers and spills
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of each entry point (see the extern "C" signatures in csrc/)
+_SIGNATURES = {
+    'dvc_msda_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    'dvc_dsa_greedy': [_P] * 20 + [_I] * 12 + [_P],
+}
+
+
+class KernelLib:
+    """The loaded library plus how it was built."""
+
+    def __init__(self, cdll, path, build_seconds, build_log):
+        self.cdll = cdll
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+
+
+_LIB: KernelLib | None = None
+
+
+def _nvcc():
+    for cand in (os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                              'bin', 'nvcc'), shutil.which('nvcc')):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError('nvcc not found (set CUDA_HOME or put nvcc on PATH)')
+
+
+def _digest():
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name), 'rb') as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
+def build():
+    """Compile the kernels if this checkout has no build of the current
+    sources yet; returns (library path, build seconds, compiler output)."""
+    out_dir = os.path.join(BUILD_ROOT, _digest())
+    path = os.path.join(out_dir, 'libdvc_kernels.so')
+    log_path = os.path.join(out_dir, 'build.log')
+    if os.path.exists(path):
+        with open(log_path) as f:
+            return path, 0.0, f.read()
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f'{path}.{os.getpid()}.tmp'
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+           *(os.path.join(CSRC, s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
+    with open(log_path, 'w') as f:
+        f.write(log)
+    os.replace(tmp, path)
+    return path, seconds, log
+
+
+def lib() -> KernelLib:
+    """The kernel library, built and loaded on first call."""
+    global _LIB
+    if _LIB is None:
+        path, seconds, log = build()
+        cdll = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = KernelLib(cdll, path, seconds, log)
+    return _LIB
+
+
+def check(code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f'{what}: CUDA error {code} at launch')
+
+
+def levels_array(temporal_shapes):
+    """Level lengths as a C int array (copied into the launch arguments)."""
+    return (ctypes.c_int * len(temporal_shapes))(*map(int, temporal_shapes))
+
+
+def stream_ptr(device):
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,157 @@
+"""Batch inference / serving API of the port (counterpart of
+``dvc_tpu/serve.py``).
+
+Load a FusionPDVC run once, then caption feature tensors:
+
+    from dvc_tpu_torch.serve import DenseCaptioner
+    dc = DenseCaptioner('save/yc2_run', device='cuda')
+    events = dc.caption_features(feats, duration=120.0, sound=audio_feats)
+    # [{'timestamp': [t0, t1], 'sentence': ..., 'proposal_score': ...}, ...]
+
+A run folder is what the JAX trainer writes (``info.json`` and
+``model-{best,last}.ckpt``); its flax params are converted with
+:func:`dvc_tpu_torch.models.convert.from_jax_params`.  ``DenseCaptioner``
+also takes ``(opt, state_dict)`` directly.  Features are rescaled to the
+model's frame budget as in the training pipeline; the model runs under
+``torch.inference_mode()`` on ``device``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from .data import Translator, resize_feature
+from .models import (from_jax_params, make_fusion_model, postprocess,
+                     to_dvc_records)
+from .utils.config import load_config
+
+_SAFE_BUILTINS = {'complex', 'set', 'frozenset', 'slice', 'range',
+                  'bytearray', 'bytes', 'tuple', 'list', 'dict', 'int',
+                  'float', 'bool', 'str'}
+
+
+class _Stub:
+    """Stands in for a class the checkpoint names but serving never reads
+    (optax optimizer states, JAX arrays): accepts and drops its state."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    """Reads a ``save_checkpoint`` pickle without importing JAX or optax:
+    numpy, a few builtins and ``collections`` load; every other class
+    becomes a :class:`_Stub`."""
+
+    def find_class(self, module, name):
+        root = module.split('.')[0]
+        if (root == 'numpy' or (root == 'collections' and name == 'OrderedDict')
+                or (module == 'builtins' and name in _SAFE_BUILTINS)):
+            return super().find_class(module, name)
+        return type(name, (_Stub,), {'__module__': module})
+
+
+def load_checkpoint(path: str) -> dict:
+    """The payload of a JAX ``model-*.ckpt`` pickle; only numpy-backed
+    entries (``params``, ``epoch``) are meaningful."""
+    with open(path, 'rb') as f:
+        return _CheckpointUnpickler(f).load()
+
+
+def load_info_json(save_dir: str):
+    path = os.path.join(save_dir, 'info.json')
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+class DenseCaptioner:
+    def __init__(self, run_folder: str | None = None, which: str = 'best',
+                 dict_file: str | None = None, opt=None, state_dict=None,
+                 device='cpu'):
+        if state_dict is None:
+            if opt is None:
+                info = load_info_json(run_folder)
+                if info is None:
+                    raise FileNotFoundError(f'no info.json in {run_folder}')
+                opt = load_config(**info[which]['opt'])
+            params = load_checkpoint(
+                os.path.join(run_folder, f'model-{which}.ckpt'))['params']
+            if 'visual_sa' not in params.get('params', params):
+                raise NotImplementedError(
+                    'the port serves FusionPDVC runs (newTrain.py) only')
+            state_dict = from_jax_params(params)
+        elif opt is None:
+            raise ValueError('a state_dict needs the opt it was built with')
+        self.opt = opt
+        self.device = torch.device(device)
+        self.model = make_fusion_model(opt, self.device)
+        self.model.load_state_dict(
+            {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+             else v for k, v in state_dict.items()}, strict=True)
+        self.translator = Translator(dict_file or opt.dict_file,
+                                     opt.vocab_size)
+
+    def _make_batch(self, feats_list, durations, sound_list=None):
+        opt = self.opt
+        T, C, B = opt.frame_embedding_num, opt.feature_dim, len(feats_list)
+        video = np.zeros((B, T, C), np.float32)
+        vmask = np.zeros((B, T), bool)
+        vlen = np.zeros((B, 3), np.float32)
+        sound = np.zeros((B, T, C), np.float32)
+        for b, f in enumerate(feats_list):
+            if opt.data_rescale and f.shape[0] != T:
+                f = resize_feature(f, T, opt.sample_method)
+            L = min(len(f), T)
+            video[b, :L] = f[:L]
+            vmask[b, :L] = True
+            vlen[b] = [L, durations[b], 1]
+        # audio clip features aligned with the visual stream; zeros when a
+        # video has none
+        for b, s in enumerate(sound_list or []):
+            if s is None:
+                continue
+            s = np.asarray(s, np.float32)
+            if opt.data_rescale and s.shape[0] != T:
+                s = resize_feature(s, T, opt.sample_method)
+            L = min(len(s), T)
+            sound[b, :L] = s[:L]
+        batch = {'video_tensor': video, 'video_mask': vmask,
+                 'video_length': vlen, 'sound_tensor': sound}
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch.items()}
+
+    def caption_features(self, feats, duration: float, top_k: int | None = None,
+                         sound=None):
+        """feats (T, feature_dim) clip features of one video; ``sound``
+        optional (T, feature_dim) audio features."""
+        return self.caption_batch([np.asarray(feats)], [duration],
+                                  top_k=top_k, sound_list=[sound])[0]
+
+    def caption_batch(self, feats_list, durations, top_k: int | None = None,
+                      sound_list=None):
+        batch = self._make_batch(feats_list, durations, sound_list)
+        with torch.inference_mode():
+            out = self.model(batch)
+            post = postprocess(out, torch.tensor(durations, dtype=torch.float32,
+                                                 device=self.device))
+        records = to_dvc_records(
+            post, [str(i) for i in range(len(feats_list))], durations,
+            self.translator)
+        results = []
+        for i in range(len(feats_list)):
+            events = records[str(i)]
+            k = top_k or int(events[0]['pred_event_count']) if events else 0
+            events = sorted(events, key=lambda e: e['proposal_score'],
+                            reverse=True)[:k]
+            results.append(sorted(events, key=lambda e: e['timestamp']))
+        return results

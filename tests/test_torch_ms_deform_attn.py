@@ -1,0 +1,74 @@
+"""Port parity: trunk MSDA forward of ``dvc_tpu_torch`` vs the JAX package.
+
+The plain PyTorch version (what the port's wrapper runs on CPU tensors) is
+held against the JAX gather oracle and against the Pallas kernel run in
+interpret mode, at tolerance 1e-5 (f32; the two sides sum the L*P taps in
+the same order, so differences are a few ulps).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from torch_port import to_numpy, to_torch  # noqa: I100 (sets torch threads)
+
+from dvc_tpu.ops.ms_deform_attn import ms_deform_attn as jax_msda
+from dvc_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_ref
+
+LEVEL_TABLES = [(8, 4, 2, 1), (12, 6, 3), (7,), (25, 13, 7, 4)]
+
+
+def make_inputs(seed, shapes, B=2, Q=5, H=3, D=8, P=3):
+    rng = np.random.default_rng(seed)
+    S, L = sum(shapes), len(shapes)
+    value = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    # locations straddle [0, 1] so out-of-range taps are exercised
+    loc = rng.uniform(-0.3, 1.3, (B, Q, H, L, P)).astype(np.float32)
+    attn = rng.uniform(0, 1, (B, Q, H, L, P)).astype(np.float32)
+    attn /= attn.sum(axis=(3, 4), keepdims=True)
+    return value, loc, attn
+
+
+@pytest.mark.parametrize('impl', ['ref', 'pallas_interpret'])
+@pytest.mark.parametrize('shapes', LEVEL_TABLES)
+def test_plain_port_matches_jax_zeros_mode(shapes, impl):
+    value, loc, attn = make_inputs(len(shapes), shapes)
+    want = jax_msda(jnp.asarray(value), shapes, jnp.asarray(loc),
+                    jnp.asarray(attn), mode='zeros', impl=impl)
+    calls = ms_deform_attn_ref.calls
+    launches = ms_deform_attn.launches
+    got = ms_deform_attn(to_torch(value), shapes, to_torch(loc),
+                         to_torch(attn))
+    # CPU tensors go to the plain version, never to the kernel
+    assert ms_deform_attn_ref.calls == calls + 1
+    assert ms_deform_attn.launches == launches
+    assert tuple(got.shape) == (2, 5, 3 * 8)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_plain_port_matches_jax_at_exact_tap_boundaries():
+    """Locations k/T and (k + 0.5)/T put pos = loc*T - 0.5 on a half or a
+    whole integer, where floor() decides the tap; both edges of each level
+    and one step past them are included."""
+    shapes = (8, 4, 2)
+    value, loc, attn = make_inputs(11, shapes)
+    rng = np.random.default_rng(12)
+    for l, T in enumerate(shapes):
+        grid = np.arange(-1, T + 2, 0.5, dtype=np.float32) / np.float32(T)
+        loc[:, :, :, l, :] = rng.choice(grid, loc[:, :, :, l, :].shape)
+    want = jax_msda(jnp.asarray(value), shapes, jnp.asarray(loc),
+                    jnp.asarray(attn), mode='zeros', impl='ref')
+    got = ms_deform_attn(to_torch(value), shapes, to_torch(loc),
+                         to_torch(attn))
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_out_of_range_taps_contribute_zero():
+    """Every location far outside [0, 1]: zeros mode gives exactly 0."""
+    shapes = (8, 4)
+    value, loc, attn = make_inputs(3, shapes)
+    loc = np.where(loc > 0.5, 1.5, -0.5).astype(np.float32)
+    got = ms_deform_attn(to_torch(value), shapes, to_torch(loc),
+                         to_torch(attn))
+    assert np.all(to_numpy(got) == 0.0)

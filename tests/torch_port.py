@@ -1,0 +1,68 @@
+"""Shared helpers of the ``dvc_tpu_torch`` parity tests (tests/test_torch_*).
+
+Importing this module caps PyTorch's intra-op threads: the suite runs under
+several xdist workers, and each torch process would otherwise start one
+thread per core.
+"""
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+
+
+def to_torch(x):
+    """numpy / JAX array -> CPU torch tensor (a copy)."""
+    return torch.from_numpy(np.array(x))
+
+
+def to_numpy(x):
+    return x.detach().cpu().numpy()
+
+
+def tiny_opt(**kw):
+    """tests/test_model.py::tiny_opt with the LSTM-DSA caption head and a
+    4-head fusion block."""
+    from dvc_tpu.utils.config import load_config
+    d = dict(hidden_dim=64, nheads=4, enc_layers=2, dec_layers=2,
+             transformer_ff_dim=64, num_queries=10, vocab_size=20,
+             input_encoding_size=32, rnn_size=64, att_hid_size=32,
+             max_caption_len=8, feature_dim=16, frame_embedding_num=24,
+             num_feature_levels=4, with_box_refine=True,
+             caption_decoder_type='standard', max_eseq_length=10,
+             cap_num_feature_levels=4, cap_nheads=2, msda_impl='ref',
+             fusion_heads=4)
+    d.update(kw)
+    return load_config(**d)
+
+
+def fusion_batch(seed, B=2, T=24, C=16, G=3, Lc=8):
+    """Eval batch of the JAX FusionPDVC (numpy); video 1 has 19 valid
+    frames of 24."""
+    rng = np.random.default_rng(seed)
+    mask = np.ones((B, T), bool)
+    mask[1, 19:] = False
+    return {
+        'video_tensor': rng.standard_normal((B, T, C)).astype(np.float32),
+        'sound_tensor': rng.standard_normal((B, T, C)).astype(np.float32),
+        'video_mask': mask,
+        'video_length': np.array([[T, 30.0, G], [19, 47.5, G]],
+                                 np.float32)[:B],
+        'gt_boxes': np.zeros((B, G, 2), np.float32),
+        'gt_boxes_mask': np.zeros((B, G), bool),
+        'gt_labels': np.zeros((B, G), np.int32),
+        'cap_tensor': np.zeros((B, G, Lc), np.int32),
+        'cap_mask': np.zeros((B, G, Lc), bool),
+    }
+
+
+def jax_fusion_params(opt, batch, seed=0):
+    """Flax FusionPDVC params (numpy leaves) of ``opt``, initialised on
+    ``batch`` under jit (an eager init of the whole eval forward is ~5x
+    slower on the CPU)."""
+    import jax
+    import jax.numpy as jnp
+    from dvc_tpu.models.fusion import make_fusion_model
+    model = make_fusion_model(opt)
+    params = jax.jit(lambda r, b: model.init(r, b, eval_mode=True))(
+        jax.random.PRNGKey(seed), {k: jnp.asarray(v) for k, v in batch.items()})
+    return jax.tree_util.tree_map(np.asarray, params)
