@@ -3,19 +3,25 @@
 The JAX package ``dvc_tpu`` is the reference; this package mirrors its
 module names so the counterpart of each module is easy to find:
 
-  ops/       hand-written CUDA kernels (``csrc/``) behind thin wrappers, each
-             beside its plain PyTorch version: trunk multi-scale deformable
-             attention and the fused greedy caption decode
-  models/    FusionPDVC eval forward (fusion blocks, conv pyramid,
-             deformable transformer, LSTM-DSA greedy head), postprocessing,
-             and the flax -> torch ``state_dict`` converter
-  data/      the feature rescale and the shared vocabulary ``Translator``
-  utils/     box ops and the shared config loader
-  serve.py   ``DenseCaptioner``, the serving API
+  ops/          hand-written CUDA kernels (``csrc/``) behind thin wrappers,
+                each beside its plain PyTorch version: trunk multi-scale
+                deformable attention (forward and backward), the fused
+                greedy caption decode, and the teacher-forcing word scan
+                (forward and backward)
+  models/       FusionPDVC eval and train forwards (fusion blocks, conv
+                pyramid, deformable transformer, LSTM-DSA head), matcher,
+                criterion, postprocessing, and the flax -> torch
+                ``state_dict`` converter
+  data/         feature datasets, static collation, the vocabulary
+  train/        ``Trainer``: AdamW/Adam step, LR schedule, checkpoints
+  utils/        box ops and the config system (``cfgs/*.yml``)
+  new_train.py  the training driver (``python -m dvc_tpu_torch.new_train``)
+  serve.py      ``DenseCaptioner``, the serving API
 
-This package imports ``torch`` and ``numpy`` and never ``jax`` nor the
-``dvc_tpu`` package: the few framework-free files it shares with
-``dvc_tpu`` (the config system, the vocabulary) are loaded by their paths.
+This package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``
+nor the ``dvc_tpu`` package: it keeps its own copies of the framework-free
+code it shares with ``dvc_tpu`` (the config system, the vocabulary).  Its
+entry points run on the card unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -35,77 +35,37 @@
 // equals the lerp of a precomputed value Wc, which a later version can
 // hoist out of the loop.
 //
-// Positions stay level-relative f32 and base_pos + off*scale_t is computed
-// with __fmul_rn/__fadd_rn: an FMA would round differently from the
-// reference, and floor() would then pick another tap at exact boundaries.
-// The transcendentals are the exact tanhf/expf/logf (no fast-math).
+// Steps 1-5 (hvec, taps, scores, softmax, ctx) live in dsa_common.cuh,
+// shared with the teacher-forcing scan.  The transcendentals are the exact
+// tanhf/expf/logf (no fast-math).
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
 #include <math.h>
 
+#include "dsa_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQT = 8;         // queries per block
-constexpr int kMaxLevels = 8;
-constexpr int kRed = 3 * kQT;  // per-warp floats of block reductions
-// scoring product (tap rows x Dh) . (Dh x A) as a tiled GEMM: kBM rows x
-// kBN columns per tile, kBK-wide reduction slices of both operands staged
-// in shared memory; thread (tid / 64, tid % 64) owns 4 rows x 8 columns
-constexpr int kBM = 32;
-constexpr int kBN = 512;
-constexpr int kBK = 16;
-constexpr int kLC = 4;         // vocab columns per thread per pass
-static_assert(kBM * kBK == kThreads && (kBM / 4) * 64 == kThreads, "tiling");
+using namespace dsa;
 
-struct Levels {
-  int n;
-  int T[kMaxLevels];
-  int start[kMaxLevels];
-};
+constexpr int kLC = 4;         // vocab columns per thread per pass
 
 struct GreedyArgs {
-  const float* value;     // (B, H, S, Dh)
-  const float* base_pos;  // (B, H, Q, LP)
-  const float* scale;     // (B, Q, LP)
+  AttendArgs at;          // value, base_pos, scale, off_w, h2att, cw, cb, aw
   const float* const_z;   // (B, Q, 4R)
   const float* embed;     // (V1, E)
   const float* token_w;   // (E, 4R)
   const float* logit_w;   // (R, V1)
   const float* logit_b;   // (V1)
-  const float* off_w;     // (H, R, LP)
-  const float* h2att_w;   // (R, A)
-  const float* h2att_b;   // (A)
-  const float* cw;        // (Dh, A)
-  const float* cb;        // (A)
-  const float* aw;        // (A)
   const float* ctx_w3;    // (H*Dh, 4R)
   const float* w_hh;      // (R, 4R)
   const float* ab;        // (1): read on the card, so the host never waits
   int* tok;               // (B, K, Q)
   float* lp;              // (B, K, Q)
-  int B, H, S, Dh, Q, LP, P, A, R, E, V1, K;
-  Levels lv;
+  int E, V1, K;
 };
-
-__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // merge (m2, s2, i2) into the running (max, sum of exp(x - max), first-max
 // index); s == 0 marks an empty partial
@@ -123,34 +83,6 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, int& i, float m2,
   } else {
     s = s + s2 * expf(m2 - m);
     if (m2 == m && i2 < i) i = i2;
-  }
-}
-
-// acc[n] += sum_{j < len} x[n*ld + j] * W[j*stride + col] for N rows x in
-// shared memory (rows 16-byte aligned, ld a multiple of 4), W row-major
-template <int N>
-__device__ __forceinline__ void rows_dot_col(const float* x, int ld, int len,
-                                             const float* __restrict__ W,
-                                             int stride, int col,
-                                             float (&acc)[N]) {
-  const float* w = W + col;
-  const int len4 = len & ~3;
-  for (int j = 0; j < len4; j += 4) {
-    const float w0 = w[(size_t)j * stride], w1 = w[(size_t)(j + 1) * stride];
-    const float w2 = w[(size_t)(j + 2) * stride], w3 = w[(size_t)(j + 3) * stride];
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const float4 v = ld4(x + n * ld + j);
-      acc[n] = fmaf(v.x, w0, acc[n]);
-      acc[n] = fmaf(v.y, w1, acc[n]);
-      acc[n] = fmaf(v.z, w2, acc[n]);
-      acc[n] = fmaf(v.w, w3, acc[n]);
-    }
-  }
-  for (int j = len4; j < len; ++j) {
-    const float wj = w[(size_t)j * stride];
-#pragma unroll
-    for (int n = 0; n < N; ++n) acc[n] = fmaf(x[n * ld + j], wj, acc[n]);
   }
 }
 
@@ -193,41 +125,6 @@ __device__ __forceinline__ void cols_dot_rows(const float* x, int ld, int len,
   }
 }
 
-// z[q, g*R + r] += sum_j x[q, j] * W[j, g*R + r] for the 4 gates g of
-// hidden unit r; x (kQT, len) in shared memory with row stride ld, W
-// (len, 4R) row-major
-__device__ __forceinline__ void add_gates(const float* x, int ld, int len,
-                                          const float* __restrict__ W, int r,
-                                          int R, float (&z)[4][kQT]) {
-  const int len4 = len & ~3;
-  for (int j = 0; j < len4; j += 4) {
-    float w[4][4];  // [j offset][gate]
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) w[u][g] = W[(size_t)(j + u) * 4 * R + g * R + r];
-#pragma unroll
-    for (int q = 0; q < kQT; ++q) {
-      const float4 v = ld4(x + q * ld + j);
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        z[g][q] = fmaf(v.x, w[0][g], z[g][q]);
-        z[g][q] = fmaf(v.y, w[1][g], z[g][q]);
-        z[g][q] = fmaf(v.z, w[2][g], z[g][q]);
-        z[g][q] = fmaf(v.w, w[3][g], z[g][q]);
-      }
-    }
-  }
-  for (int j = len4; j < len; ++j) {
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float wg = W[(size_t)j * 4 * R + g * R + r];
-#pragma unroll
-      for (int q = 0; q < kQT; ++q) z[g][q] = fmaf(x[q * ld + j], wg, z[g][q]);
-    }
-  }
-}
-
 // shared-memory layout (floats, then ints), shared by host and device; every
 // row of a (rows, len) region starts 16-byte aligned (stride pad4(len))
 struct Layout {
@@ -261,175 +158,50 @@ struct Layout {
 __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
+  const AttendArgs& at = a.at;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, q0 = blockIdx.x * kQT;
-  const int R = a.R, A = a.A, E = a.E, H = a.H, Dh = a.Dh, LP = a.LP;
-  const int HD = H * Dh, R4 = 4 * R, HLP = H * LP, NR = kQT * HLP;
-  const int ldR = pad4(R), ldA = pad4(A), ldE = pad4(E), ldHD = pad4(HD);
+  const int R = at.R, A = at.A, E = a.E, H = at.H, Dh = at.Dh;
+  const int HD = H * Dh, R4 = 4 * R, NR = kQT * H * at.LP;
+  const int ldR = pad4(R), ldE = pad4(E), ldHD = pad4(HD);
   const Layout L(R, A, E, HD, NR);
-  float* h_s = smem + L.h;
   float* hn_s = smem + L.hn;
   float* c_s = smem + L.c;
-  float* hvec_s = smem + L.hvec;
   float* emb_s = smem + L.emb;
-  float* ctx_s = smem + L.ctx;
-  float* taps_s = smem + L.taps;
-  float* wc_s = smem + L.wc;
-  float* wlo_s = smem + L.wlo;
-  float* whi_s = smem + L.whi;
-  float* d_s = smem + L.d;
   float* red_s = smem + L.red;
   int* ints = reinterpret_cast<int*>(smem + L.floats);
-  int* lo_s = ints + L.lo;
-  int* hi_s = ints + L.hi;
   int* tok_s = ints + L.tok;
+  AttendSmem sm;
+  sm.h = smem + L.h; sm.hvec = smem + L.hvec; sm.ctx = smem + L.ctx;
+  sm.taps = smem + L.taps; sm.wc = smem + L.wc; sm.wlo = smem + L.wlo;
+  sm.whi = smem + L.whi; sm.d = smem + L.d; sm.red = red_s;
+  sm.lo = ints + L.lo; sm.hi = ints + L.hi;
 
   // queries past the end of the ragged last tile compute on a copy of the
   // last query and write nothing
   int qg[kQT];
 #pragma unroll
-  for (int q = 0; q < kQT; ++q) qg[q] = min(q0 + q, a.Q - 1);
+  for (int q = 0; q < kQT; ++q) qg[q] = min(q0 + q, at.Q - 1);
 
   // zero h and c, padding included (the float4 reads never use it)
-  for (int i = tid; i < kQT * ldR; i += kThreads) { h_s[i] = 0.f; c_s[i] = 0.f; }
+  for (int i = tid; i < kQT * ldR; i += kThreads) { sm.h[i] = 0.f; c_s[i] = 0.f; }
   if (tid < kQT) tok_s[tid] = 0;  // BOS
   __syncthreads();
 
-  const float* value_b = a.value + (size_t)b * H * a.S * Dh;
+  const float* value_b = at.value + (size_t)b * H * at.S * Dh;
   const float ab = __ldg(a.ab);
 
   for (int k = 0; k < a.K; ++k) {
-    // ---- 1. hvec = h W_h2att + b
-    for (int col = tid; col < A; col += kThreads) {
-      float acc[kQT] = {};
-      rows_dot_col<kQT>(h_s, ldR, R, a.h2att_w, A, col, acc);
-      const float bias = a.h2att_b[col];
-#pragma unroll
-      for (int q = 0; q < kQT; ++q) hvec_s[q * ldA + col] = acc[q] + bias;
-    }
-    // ---- 2. sampling offsets -> border-mode tap table; rows (q, hh, p)
-    for (int row = tid; row < NR; row += kThreads) {
-      const int q = row / HLP, hh = (row / LP) % H, p = row % LP;
-      float off[1] = {};
-      rows_dot_col<1>(h_s + q * ldR, ldR, R, a.off_w + (size_t)hh * R * LP,
-                      LP, p, off);
-      const int qq = min(q0 + q, a.Q - 1);
-      const float base = a.base_pos[(((size_t)b * H + hh) * a.Q + qq) * LP + p];
-      const float sc = a.scale[((size_t)b * a.Q + qq) * LP + p];
-      const float pos = __fadd_rn(base, __fmul_rn(off[0], sc));
-      const int l = p / a.P;
-      const float hib = (float)(a.lv.T[l] - 1);
-      const float f_lo = floorf(pos);
-      const float w_hi = __fsub_rn(pos, f_lo);
-      wlo_s[row] = __fsub_rn(1.f, w_hi);
-      whi_s[row] = w_hi;
-      lo_s[row] = (int)fminf(fmaxf(f_lo, 0.f), hib) + a.lv.start[l];
-      hi_s[row] = (int)fminf(fmaxf(f_lo + 1.f, 0.f), hib) + a.lv.start[l];
-    }
-    // ---- embedding rows of the fed-back tokens
+    // ---- 1-2. hvec and the tap table; embedding rows of the fed-back tokens
+    attend_hvec_taps(at, sm, b, q0, nullptr);
     for (int i = tid; i < kQT * E; i += kThreads) {
       const int q = i / E, e = i % E;
       emb_s[q * ldE + e] = a.embed[(size_t)tok_s[q] * E + e];
     }
     __syncthreads();
-
-    // ---- 3. attention scores d = tanh(taps Wc + cb + hvec) . aw + ab:
-    //         tiles of kBM tap rows x kBN columns, kBK-slices of the taps
-    //         (lerped from value on the fly) and of Wc in shared memory
-    {
-      const int rg = tid / 64, cg = tid % 64;  // rows rg*4.., cols cg*4.., 256+cg*4..
-      for (int r0 = 0; r0 < NR; r0 += kBM) {
-        float part[4] = {};
-        for (int n0 = 0; n0 < A; n0 += kBN) {
-          float acc[4][8] = {};
-          for (int k0 = 0; k0 < Dh; k0 += kBK) {
-            {  // one tap value per thread, stored k-major
-              const int kk = tid / kBM, rr = tid % kBM, row = r0 + rr, dh = k0 + kk;
-              float t = 0.f;
-              if (row < NR && dh < Dh) {
-                const float* v = value_b + (size_t)((row / LP) % H) * a.S * Dh + dh;
-                t = wlo_s[row] * v[(size_t)lo_s[row] * Dh]
-                    + whi_s[row] * v[(size_t)hi_s[row] * Dh];
-              }
-              taps_s[kk * kBM + rr] = t;
-            }
-            for (int i = tid; i < kBK * kBN; i += kThreads) {
-              const int dh = k0 + i / kBN, col = n0 + i % kBN;
-              wc_s[i] = (dh < Dh && col < A) ? a.cw[(size_t)dh * A + col] : 0.f;
-            }
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < kBK; ++kk) {
-              const float4 t4 = ld4(taps_s + kk * kBM + rg * 4);
-              const float4 u4 = ld4(wc_s + kk * kBN + cg * 4);
-              const float4 v4 = ld4(wc_s + kk * kBN + 256 + cg * 4);
-              const float t[4] = {t4.x, t4.y, t4.z, t4.w};
-              const float w[8] = {u4.x, u4.y, u4.z, u4.w, v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(t[i], w[j], acc[i][j]);
-            }
-            __syncthreads();
-          }
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int col = n0 + (j < 4 ? cg * 4 + j : 256 + cg * 4 + j - 4);
-            if (col >= A) continue;
-            const float cbv = a.cb[col], awv = a.aw[col];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int q = min(r0 + rg * 4 + i, NR - 1) / HLP;
-              part[i] += tanhf((acc[i][j] + cbv) + hvec_s[q * ldA + col]) * awv;
-            }
-          }
-        }
-        // the 64 threads of a row group are warps 2*rg and 2*rg + 1
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float v = warp_sum(part[i]);
-          if (lane == 0) red_s[warp * kRed + i] = v;
-        }
-        __syncthreads();
-        if (tid < kBM && r0 + tid < NR) {
-          const int g = tid / 4, i = tid % 4;
-          d_s[r0 + tid] = (red_s[2 * g * kRed + i] + red_s[(2 * g + 1) * kRed + i])
-                          + ab;
-        }
-        __syncthreads();
-      }
-    }
-
-    // ---- 4. softmax over the LP taps of each (q, head)
-    for (int g = tid; g < kQT * H; g += kThreads) {
-      float* dg = d_s + g * LP;
-      float m = -INFINITY;
-      for (int p = 0; p < LP; ++p) m = fmaxf(m, dg[p]);
-      float sum = 0.f;
-      for (int p = 0; p < LP; ++p) {
-        const float e = expf(dg[p] - m);
-        dg[p] = e;
-        sum += e;
-      }
-      for (int p = 0; p < LP; ++p) dg[p] = dg[p] / sum;
-    }
-    __syncthreads();
-
-    // ---- 5. ctx[q, hh*Dh + dh] = sum_p wts * taps
-    for (int i = tid; i < kQT * HD; i += kThreads) {
-      const int q = i / HD, hd = i % HD, hh = hd / Dh, dh = hd % Dh;
-      const float* v = value_b + (size_t)hh * a.S * Dh + dh;
-      const int r0 = (q * H + hh) * LP;
-      float acc = 0.f;
-      for (int p = 0; p < LP; ++p) {
-        const int row = r0 + p;
-        const float t = wlo_s[row] * v[(size_t)lo_s[row] * Dh]
-                        + whi_s[row] * v[(size_t)hi_s[row] * Dh];
-        acc = fmaf(d_s[row], t, acc);
-      }
-      ctx_s[q * ldHD + hd] = acc;
-    }
-    __syncthreads();
+    // ---- 3-5. scores, softmax over the LP taps, ctx
+    attend_scores(at, sm, value_b, ab);
+    attend_softmax_ctx(at, sm, value_b);
 
     // ---- 6. z = const_z + emb token_w + h W_hh + ctx ctx_w3, then the LSTM
     //         cell; a thread owns hidden unit r (its 4 gate columns)
@@ -437,13 +209,13 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
       float z[4][kQT];
 #pragma unroll
       for (int q = 0; q < kQT; ++q) {
-        const float* cz = a.const_z + ((size_t)b * a.Q + qg[q]) * R4 + r;
+        const float* cz = a.const_z + ((size_t)b * at.Q + qg[q]) * R4 + r;
 #pragma unroll
         for (int g = 0; g < 4; ++g) z[g][q] = cz[g * R];
       }
       add_gates(emb_s, ldE, E, a.token_w, r, R, z);
-      add_gates(h_s, ldR, R, a.w_hh, r, R, z);
-      add_gates(ctx_s, ldHD, HD, a.ctx_w3, r, R, z);
+      add_gates(sm.h, ldR, R, a.w_hh, r, R, z);
+      add_gates(sm.ctx, ldHD, HD, a.ctx_w3, r, R, z);
 #pragma unroll
       for (int q = 0; q < kQT; ++q) {
         const float c = sigmoidf_(z[1][q]) * c_s[q * ldR + r]
@@ -453,7 +225,7 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
       }
     }
     __syncthreads();
-    { float* t = h_s; h_s = hn_s; hn_s = t; }
+    { float* t = sm.h; sm.h = hn_s; hn_s = t; }
 
     // ---- 7. logits with an online (max, sum-exp, first-max index)
     float m[kQT], s[kQT];
@@ -464,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
       // columns n0, n0 + kThreads, ... in increasing order, so a tie keeps
       // the first index as jnp.argmax does
       float acc[kLC][kQT] = {};
-      cols_dot_rows(h_s, ldR, R, a.logit_w, a.V1, n0, acc);
+      cols_dot_rows(sm.h, ldR, R, a.logit_w, a.V1, n0, acc);
 #pragma unroll
       for (int c = 0; c < kLC; ++c) {
         const int n = n0 + c * kThreads;
@@ -496,8 +268,8 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
         lse_merge(mm, ss, ii, red_s[w * kRed + 3 * tid], red_s[w * kRed + 3 * tid + 1],
                   __float_as_int(red_s[w * kRed + 3 * tid + 2]));
       tok_s[tid] = ii;
-      if (q0 + tid < a.Q) {
-        const size_t o = ((size_t)b * a.K + k) * a.Q + q0 + tid;
+      if (q0 + tid < at.Q) {
+        const size_t o = ((size_t)b * a.K + k) * at.Q + q0 + tid;
         const float lse = mm + logf(ss);
         a.tok[o] = ii;
         a.lp[o] = mm - lse;
@@ -527,21 +299,17 @@ extern "C" int dvc_dsa_greedy(
     void* stream) {
   if (L < 1 || L > kMaxLevels || LP % L != 0) return (int)cudaErrorInvalidValue;
   GreedyArgs a;
-  a.value = value_t; a.base_pos = base_pos; a.scale = scale_t;
+  AttendArgs& at = a.at;
+  at.value = value_t; at.base_pos = base_pos; at.scale = scale_t;
+  at.off_w = off_w_h; at.h2att_w = h2att_w; at.h2att_b = h2att_b;
+  at.cw = cw; at.cb = cb; at.aw = aw;
+  at.H = H; at.S = S; at.Dh = Dh; at.Q = Q; at.LP = LP; at.P = LP / L;
+  at.A = A; at.R = R;
+  if (!make_levels(L, shapes, S, &at.lv)) return (int)cudaErrorInvalidValue;
   a.const_z = const_z; a.embed = embed; a.token_w = token_w;
-  a.logit_w = logit_w; a.logit_b = logit_b; a.off_w = off_w_h;
-  a.h2att_w = h2att_w; a.h2att_b = h2att_b; a.cw = cw; a.cb = cb; a.aw = aw;
+  a.logit_w = logit_w; a.logit_b = logit_b;
   a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab; a.tok = tok; a.lp = lp;
-  a.B = B; a.H = H; a.S = S; a.Dh = Dh; a.Q = Q; a.LP = LP; a.P = LP / L;
-  a.A = A; a.R = R; a.E = E; a.V1 = V1; a.K = K;
-  a.lv.n = L;
-  int acc = 0;
-  for (int l = 0; l < L; ++l) {
-    a.lv.T[l] = shapes[l];
-    a.lv.start[l] = acc;
-    acc += shapes[l];
-  }
-  if (acc != S) return (int)cudaErrorInvalidValue;
+  a.E = E; a.V1 = V1; a.K = K;
   if (B == 0 || Q == 0 || K == 0) return 0;
   const Layout lay(R, A, E, H * Dh, kQT * H * LP);
   const size_t smem = lay.bytes();

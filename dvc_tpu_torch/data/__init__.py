@@ -1,8 +1,10 @@
-"""Host-side data helpers of the serving path (counterpart of
-``dvc_tpu/data``): the feature rescale and the vocabulary ``Translator``.
-Neither imports the ``dvc_tpu`` package."""
+"""Host-side data of the port (counterpart of ``dvc_tpu/data``, numpy
+only): feature reading and rescale, the caption datasets and their static
+collation, and the vocabulary ``Translator``."""
 
-from .dataset import resize_feature
+from .dataset import DenseCaptionDataset, collate, resize_feature
+from .fusion_dataset import FusionBatchLoader, FusionDataset, fusion_collate
 from .vocabulary import Translator
 
-__all__ = ['Translator', 'resize_feature']
+__all__ = ['DenseCaptionDataset', 'FusionBatchLoader', 'FusionDataset',
+           'Translator', 'collate', 'fusion_collate', 'resize_feature']

@@ -1,9 +1,56 @@
-"""Feature rescale of the serving path (port of
-``dvc_tpu/data/dataset.py::resize_feature``, its numpy path)."""
+"""Feature-mode dataset and static-shape collation (port of
+``dvc_tpu/data/dataset.py``, numpy only; reference
+``data/video_dataset.py``).
+
+Per-video ``.npy`` features are rescaled to ``frame_embedding_num`` rows,
+gt events subsampled to ``gt_proposal_sample_num``, captions tokenized, and
+a batch collated to static shapes: video (B, T, C), gt (B, G, 2), captions
+(B, G, Lc), with masks.  A missing feature file degrades to zeros, and
+invalid-video lists filter keys, as in the reference.
+"""
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
+
+from .vocabulary import Translator
+
+# per-type feature dims / normalization / filename patterns
+# (reference get_feats, video_dataset.py:337-383); the port reads .npy only
+FEATURE_SPECS = {
+    'c3d': dict(dim=500, mean=-0.001915027447565527, var=1.9239444588254049,
+                path=lambda folder, key: os.path.join(folder, key[0:13] + '.npy')),
+    'resnet': dict(dim=2048, mean=0.41634243404998694, var=0.2569392081183313,
+                   path=lambda folder, key: os.path.join(folder, key[2:13] + '_resnet.npy')),
+    'bn': dict(dim=1024, mean=0.8945046635916155, var=3.6579982046018844,
+               path=lambda folder, key: os.path.join(folder, key[2:13] + '_bn.npy')),
+    'i3d_rgb': dict(dim=1024, mean=0., var=1.,
+                    path=lambda folder, key: os.path.join(folder, key[:13] + '_rgb.npy')),
+    'i3d_flow': dict(dim=1024, mean=0., var=1.,
+                     path=lambda folder, key: os.path.join(folder, key[:13] + '_flow.npy')),
+    'tsp': dict(dim=512, mean=0., var=1.,
+                path=lambda folder, key: os.path.join(folder, key[0:13] + '.npy')),
+    'tsp_mvit': dict(dim=768, mean=0., var=1.,
+                     path=lambda folder, key: os.path.join(folder, key[0:13] + '.npy')),
+    'vggish': dict(dim=128, mean=0., var=1.,
+                   path=lambda folder, key: os.path.join(folder, key[0:13] + '.npy')),
+}
+
+
+def read_feature_file(path: str, feat_dim: int, mean=0., var=1.,
+                      data_norm=False):
+    """Load one ``.npy`` feature file as f32; (100, feat_dim) zeros when
+    missing."""
+    if os.path.exists(path):
+        feats = np.load(path)
+    else:
+        feats = np.zeros((100, feat_dim), np.float32)
+    if data_norm:
+        feats = (feats - mean) / np.sqrt(var)
+    return feats.astype(np.float32)
 
 
 def resize_feature(feats: np.ndarray, new_size: int,
@@ -25,3 +72,120 @@ def resize_feature(feats: np.ndarray, new_size: int,
     hi = np.clip(lo + 1, 0, orig - 1)
     w = (x_new - lo)[:, None].astype(np.float32)
     return feats[lo] * (1 - w) + feats[hi] * w
+
+
+class DenseCaptionDataset:
+    """PropSeqDataset equivalent (reference video_dataset.py:183-293)."""
+
+    def __init__(self, anno_file: str, feature_folder, translator_json: str,
+                 opt, seed: int = 0):
+        with open(anno_file) as f:
+            self.anno = json.load(f)
+        self.translator = Translator(translator_json, opt.vocab_size)
+        self.keys = list(self.anno.keys())
+        for json_path in opt.invalid_video_json:
+            with open(json_path) as f:
+                invalid = json.load(f)
+            self.keys = [k for k in self.keys if k[:13] not in invalid]
+        self.feature_folder = feature_folder
+        self.opt = opt
+        self.rng = np.random.default_rng(seed)
+        self.max_caption_len = opt.max_caption_len
+        self.gt_proposal_sample_num = opt.gt_proposal_sample_num
+
+    def __len__(self):
+        return len(self.keys)
+
+    def load_feats(self, key: str) -> np.ndarray:
+        opt = self.opt
+        vf_types = opt.visual_feature_type
+        if not isinstance(vf_types, (list, tuple)):
+            vf_types, folders = [vf_types], [self.feature_folder]
+        else:
+            folders = self.feature_folder
+            if len(folders) != len(vf_types):
+                raise ValueError('one feature folder per feature type')
+        parts = []
+        for vf_type, folder in zip(vf_types, folders):
+            spec = FEATURE_SPECS[vf_type]
+            # zero-pad dim for a missing file: the configured total dim when
+            # a single feature type is used, else the type's own dim
+            pad_dim = opt.feature_dim if len(vf_types) == 1 else spec['dim']
+            feats = read_feature_file(
+                spec['path'](folder, key), pad_dim, spec['mean'],
+                spec['var'], data_norm=bool(opt.data_norm))
+            if opt.data_rescale:
+                if feats.shape[0] != opt.frame_embedding_num:
+                    feats = resize_feature(feats, opt.frame_embedding_num,
+                                           opt.sample_method)
+            else:
+                feats = feats[::opt.feature_sample_rate]
+            parts.append(feats)
+        out = np.concatenate(parts, axis=-1)
+        if out.shape[1] != opt.feature_dim:
+            raise ValueError(f'feature_dim mismatch: {out.shape[1]} != '
+                             f'{opt.feature_dim}')
+        return out
+
+    def __getitem__(self, idx: int):
+        key = str(self.keys[idx])
+        feats = self.load_feats(key)
+        entry = self.anno[key]
+        captions = entry['sentences']
+        gt_timestamps = entry['timestamps']
+        action_labels = entry.get('action_labels', [0] * len(gt_timestamps))
+
+        # random gt subsample to the static budget, order-preserving
+        # (reference video_dataset.py:276-282, applied in train and eval)
+        n = len(gt_timestamps)
+        g = min(n, self.gt_proposal_sample_num)
+        keep = (set(self.rng.choice(n, g, replace=False).tolist()) if n > g
+                else set(range(n)))
+        captions = [captions[i] for i in range(n) if i in keep]
+        gt_timestamps = [gt_timestamps[i] for i in range(n) if i in keep]
+        action_labels = [action_labels[i] for i in range(n) if i in keep]
+        cap_ids = [self.translator.translate(s, self.max_caption_len)
+                   for s in captions]
+        return dict(feats=feats, gt_timestamps=gt_timestamps,
+                    labels=action_labels, cap_ids=cap_ids,
+                    duration=entry['duration'], key=key)
+
+
+def collate(samples, T: int, G: int, Lc: int):
+    """Static-shape collation (reference collate_fn, video_dataset.py:15-149).
+    T/G/Lc: static pads for frames / gt events / caption length."""
+    B = len(samples)
+    C = samples[0]['feats'].shape[1]
+    video = np.zeros((B, T, C), np.float32)
+    vmask = np.zeros((B, T), bool)
+    vlen = np.zeros((B, 3), np.float32)
+    boxes = np.zeros((B, G, 2), np.float32)
+    gmask = np.zeros((B, G), bool)
+    labels = np.zeros((B, G), np.int64)
+    caps = np.zeros((B, G, Lc), np.int64)
+    cmask = np.zeros((B, G, Lc), bool)
+    keys = []
+    for b, s in enumerate(samples):
+        f = s['feats']
+        L = min(len(f), T)
+        video[b, :L] = f[:L]
+        vmask[b, :L] = True
+        dur = float(s['duration'])
+        g = min(len(s['gt_timestamps']), G)
+        vlen[b] = [L, dur, g]
+        for j in range(g):
+            ts = s['gt_timestamps'][j]
+            boxes[b, j] = [(ts[1] + ts[0]) / (2 * dur), (ts[1] - ts[0]) / dur]
+            gmask[b, j] = True
+            labels[b, j] = s['labels'][j]
+            ids = s['cap_ids'][j][:Lc]
+            caps[b, j, :len(ids)] = ids
+            cmask[b, j, :len(ids)] = True
+        keys.append(s['key'])
+    batch = {
+        'video_tensor': video, 'video_mask': vmask, 'video_length': vlen,
+        'gt_boxes': boxes, 'gt_boxes_mask': gmask,
+        'gt_labels': labels.astype(np.int32),
+        'cap_tensor': caps.astype(np.int32), 'cap_mask': cmask,
+    }
+    return batch, {'keys': keys}

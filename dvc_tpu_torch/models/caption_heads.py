@@ -1,12 +1,15 @@
-"""LSTM-DSA caption head, greedy decode (port of the fused greedy path of
-``dvc_tpu/models/caption_heads.py::DSACaptionHead``).
+"""LSTM-DSA caption head: greedy decode and teacher forcing (port of the
+fused paths of ``dvc_tpu/models/caption_heads.py::DSACaptionHead``).
 
-The slice ports only what ``sample_max=1, greedy_fuse=1, num_layers=1,
-att_hid_size>0`` selects: everything step-invariant (the value projection,
-the event query's share of the sampling offsets folded into ``base_pos``,
-``scale_t`` and the query's share of the LSTM preactivation ``const_z``)
-is computed here with plain tensor ops, and the K word steps run in
-:func:`dvc_tpu_torch.ops.dsa_greedy_scan`.
+The port covers what ``num_layers=1, att_hid_size>0`` with the fused
+greedy decode (``sample_max=1``) and the fused teacher-forcing scan
+(scheduled sampling off) select.  Everything step-invariant (the value
+projection, the event query's share of the sampling offsets folded into
+``base_pos``, ``scale_t`` and the query's share of the LSTM preactivation)
+is computed here with plain tensor ops; the K word steps run in
+:func:`dvc_tpu_torch.ops.dsa_greedy_scan` (decode) or
+:func:`dvc_tpu_torch.ops.dsa_teacher_scan` (training), and the vocab
+projection and log-softmax of teacher forcing follow the scan.
 
 Parameter names follow the reference state_dict
 (``caption_head.{i}.embed``, ``.logit``, ``.core.rnn.weight_ih_l0``,
@@ -22,7 +25,16 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..ops import dsa_greedy_scan, greedy_mask_outputs
+from ..ops import dsa_greedy_scan, dsa_teacher_scan, greedy_mask_outputs
+from .deformable_transformer import dropout
+
+
+def caption_nll(logprobs, target, mask):
+    """Masked NLL per caption (reference ``LSTM.py:51-55``): logprobs
+    (..., L, V+1), target/mask (..., L) -> -sum(logprob[target]) / len."""
+    picked = torch.gather(logprobs, -1, target.long()[..., None])[..., 0]
+    m = mask.to(logprobs.dtype)
+    return -(picked * m).sum(-1) / (m.sum(-1) + 1e-6)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +45,7 @@ class CaptionHeadConfig:
     num_layers: int
     max_caption_len: int
     hidden_dim: int
+    drop_prob: float = 0.0
     att_hid_size: int = 512
     cap_nheads: int = 8
     cap_dec_n_points: int = 4
@@ -69,7 +82,8 @@ class _DSACore(nn.Module):
 
 
 class DSACaptionHead(nn.Module):
-    """'standard' head, LSTM-DSA: greedy decode of every event query."""
+    """'standard' head, LSTM-DSA: greedy decode of every event query, and
+    teacher forcing of the matched ones in training."""
 
     def __init__(self, cfg: CaptionHeadConfig):
         super().__init__()
@@ -83,17 +97,16 @@ class DSACaptionHead(nn.Module):
         self.logit = nn.Linear(cfg.rnn_size, V1)
         self.core = _DSACore(cfg)
 
-    def forward(self, query, ref_center, offset_scale, memory,
-                temporal_shapes, pad_mask):
-        """query (B, Pq, d); ref_center/offset_scale (B, Pq, L): sampling
-        location = center + offset * scale per level; memory (B, S, d);
-        pad_mask (B, S) True = pad.  Returns (seq, logprobs), each
-        (B*Pq, max_caption_len)."""
+    def _hoist(self, query, ref_center, offset_scale, memory,
+               temporal_shapes, pad_mask):
+        """Step-invariant operands of both scans.  query (B, Pq, d);
+        ref_center/offset_scale (B, Pq, L): sampling location = center +
+        offset * scale per level; memory (B, S, d); pad_mask (B, S) True =
+        pad."""
         cfg = self.cfg
         B, Pq, d = query.shape
         H, L, P = cfg.cap_nheads, cfg.cap_num_feature_levels, cfg.cap_dec_n_points
         Dh, R, E = d // H, cfg.rnn_size, cfg.input_encoding_size
-        K = cfg.max_caption_len
         core = self.core
         att = core.deformable_att
 
@@ -120,16 +133,51 @@ class DSACaptionHead(nn.Module):
         const_z = (query.reshape(B * Pq, d) @ w_ih[:, E + d:].T
                    ).reshape(B, Pq, 4 * R)
         off_w_h = off_w[:, :R].T.reshape(R, H, L * P).permute(1, 0, 2)
+        step_args = (off_w_h, core.h2att.weight.T, core.h2att.bias,
+                     core.ctx2att.weight.T, core.ctx2att.bias,
+                     core.alpha_net.weight[0], core.alpha_net.bias[0],
+                     w_ih[:, E:E + d].T.reshape(H, Dh, 4 * R),
+                     core.rnn.weight_hh_l0.T)
+        return value_t, base_pos, scale_t, const_z, w_ih[:, :E].T, step_args
+
+    def forward(self, query, ref_center, offset_scale, memory,
+                temporal_shapes, pad_mask):
+        """Greedy decode.  Arguments as :meth:`_hoist`.  Returns (seq,
+        logprobs), each (B*Pq, max_caption_len)."""
+        B, Pq, _ = query.shape
+        K = self.cfg.max_caption_len
+        value_t, base_pos, scale_t, const_z, token_w, (
+            off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh) = \
+            self._hoist(query, ref_center, offset_scale, memory,
+                        temporal_shapes, pad_mask)
         tok, lp = dsa_greedy_scan(
-            value_t, base_pos, scale_t, const_z, self.embed.weight,
-            w_ih[:, :E].T, self.logit.weight.T, self.logit.bias, off_w_h,
-            core.h2att.weight.T, core.h2att.bias, core.ctx2att.weight.T,
-            core.ctx2att.bias, core.alpha_net.weight[0],
-            core.alpha_net.bias[0], w_ih[:, E:E + d].T.reshape(H, Dh, 4 * R),
-            core.rnn.weight_hh_l0.T, tuple(temporal_shapes), K)  # (B, K, Pq)
+            value_t, base_pos, scale_t, const_z, self.embed.weight, token_w,
+            self.logit.weight.T, self.logit.bias, off_w_h, h2att_w, h2att_b,
+            cw, cb, aw, ab, ctx_w3, w_hh, tuple(temporal_shapes),
+            K)                                                # (B, K, Pq)
         seq, lps = greedy_mask_outputs(tok, lp)
         return (seq.permute(0, 2, 1).reshape(B * Pq, K),
                 lps.permute(0, 2, 1).reshape(B * Pq, K))
+
+    def teacher_forcing(self, query, ref_center, offset_scale, memory,
+                        temporal_shapes, pad_mask, seq, gen=None):
+        """Teacher-forced word scan over the gt tokens seq (B*Pq, Lc) with
+        scheduled sampling off; other arguments as :meth:`_hoist`.  With
+        ``gen`` the hidden states get dropout (drop_prob) before the vocab
+        projection.  Returns log-probabilities (B*Pq, Lc - 1, V+1)."""
+        B, Pq, _ = query.shape
+        K = seq.shape[-1] - 1
+        value_t, base_pos, scale_t, const_z, token_w, step_args = \
+            self._hoist(query, ref_center, offset_scale, memory,
+                        temporal_shapes, pad_mask)
+        # z_all directly in the scan's (B, K, Pq, 4R) order
+        tokens = seq[:, :-1].reshape(B, Pq, K).transpose(1, 2)
+        z_all = self.embed(tokens.long()) @ token_w + const_z[:, None]
+        hs = dsa_teacher_scan(value_t, base_pos, scale_t, z_all, *step_args,
+                              tuple(temporal_shapes))         # (B, K, Pq, R)
+        hs = hs.transpose(1, 2).reshape(B * Pq, K, -1)
+        hs = dropout(hs, self.cfg.drop_prob, gen)
+        return torch.log_softmax(self.logit(hs), dim=-1)
 
 
 def truncate_levels(cfg: CaptionHeadConfig, temporal_shapes, memory,

@@ -6,6 +6,11 @@ Parameter names follow the reference torch ``state_dict`` layout that
 (``transformer.encoder.layers.{i}.self_attn.sampling_offsets``, ...).
 LayerNorms use eps 1e-6, the flax default the JAX package trains with
 (torch's default is 1e-5).
+
+Train mode is a ``gen`` argument: with a ``torch.Generator`` the layers
+apply dropout where the JAX layers do (the FFN's hidden activation, every
+residual branch, the decoder self-attention's weights), drawing the masks
+from that generator; with ``gen=None`` they are deterministic.
 """
 
 from __future__ import annotations
@@ -19,6 +24,17 @@ from torch import nn
 from ..ops import ms_deform_attn
 
 LN_EPS = 1e-6
+
+
+def dropout(x, p: float, gen, shape=None):
+    """Inverted dropout with keep probability 1 - p and masks drawn from
+    ``gen`` (flax ``nn.Dropout``); identity when ``gen`` is None or p is 0.
+    ``shape`` (broadcastable to x) shares one mask along its unit axes."""
+    if gen is None or p <= 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(shape or x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def msda_offset_bias(n_heads: int, n_levels: int, n_points: int,
@@ -87,15 +103,18 @@ class MultiheadAttention(nn.Module):
     layout of ``torch.nn.MultiheadAttention`` (what the reference state_dict
     holds); q is scaled by 1/sqrt(head_dim) as in flax's attention."""
 
-    def __init__(self, dim, num_heads):
+    def __init__(self, dim, num_heads, dropout_rate=0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, query, key, value, key_mask=None):
-        """(B, T, C) inputs; key_mask (B, Tk) True = attend."""
+    def forward(self, query, key, value, key_mask=None, gen=None):
+        """(B, T, C) inputs; key_mask (B, Tk) True = attend.  With ``gen``
+        the attention weights get dropout, one mask shared by the batch
+        and the heads (flax's ``broadcast_dropout``)."""
         B, Tq, C = query.shape
         nh = self.num_heads
         wq, wk, wv = self.in_proj_weight.chunk(3)
@@ -112,33 +131,41 @@ class MultiheadAttention(nn.Module):
         if key_mask is not None:
             logits = logits.masked_fill(~key_mask[:, None, None, :],
                                         torch.finfo(logits.dtype).min)
-        out = torch.softmax(logits, dim=-1) @ v               # (B, nh, Tq, hd)
+        weights = dropout(torch.softmax(logits, dim=-1), self.dropout_rate,
+                          gen, (1, 1) + logits.shape[2:])
+        out = weights @ v                                     # (B, nh, Tq, hd)
         return self.out_proj(out.transpose(1, 2).reshape(B, Tq, C))
 
 
 class EncoderLayer(nn.Module):
     """MS-deform self-attention + FFN."""
 
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points):
+    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points,
+                 dropout=0.0):
         super().__init__()
+        self.p = dropout
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, src, pos, reference_points, temporal_shapes, pad_mask):
-        src = self.norm1(src + self.self_attn(src + pos, reference_points,
-                                              src, temporal_shapes, pad_mask))
-        return self.norm2(src + self.linear2(torch.relu(self.linear1(src))))
+    def forward(self, src, pos, reference_points, temporal_shapes, pad_mask,
+                gen=None):
+        src2 = self.self_attn(src + pos, reference_points, src,
+                              temporal_shapes, pad_mask)
+        src = self.norm1(src + dropout(src2, self.p, gen))
+        return self.norm2(src + ffn(self, src, gen))
 
 
 class DecoderLayer(nn.Module):
     """Query self-attention + deformable cross-attention + FFN."""
 
-    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points):
+    def __init__(self, d_model, d_ffn, n_levels, n_heads, n_points,
+                 dropout=0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, n_heads)
+        self.p = dropout
+        self.self_attn = MultiheadAttention(d_model, n_heads, dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -147,13 +174,21 @@ class DecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, tgt, query_pos, reference_points, src, temporal_shapes,
-                src_pad_mask, query_mask=None):
+                src_pad_mask, query_mask=None, gen=None):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, query_mask))
-        tgt = self.norm1(tgt + self.cross_attn(
-            tgt + query_pos, reference_points, src, temporal_shapes,
-            src_pad_mask))
-        return self.norm3(tgt + self.linear2(torch.relu(self.linear1(tgt))))
+        tgt2 = self.self_attn(q, q, tgt, query_mask, gen)
+        tgt = self.norm2(tgt + dropout(tgt2, self.p, gen))
+        tgt2 = self.cross_attn(tgt + query_pos, reference_points, src,
+                               temporal_shapes, src_pad_mask)
+        tgt = self.norm1(tgt + dropout(tgt2, self.p, gen))
+        return self.norm3(tgt + ffn(self, tgt, gen))
+
+
+def ffn(layer, x, gen):
+    """The FFN branch of a layer: linear2(dropout(relu(linear1(x)))),
+    dropped out again before the residual add."""
+    h = dropout(torch.relu(layer.linear1(x)), layer.p, gen)
+    return dropout(layer.linear2(h), layer.p, gen)
 
 
 def encoder_reference_points(temporal_shapes, valid_ratios):

@@ -44,16 +44,24 @@ class FusionPDVC(nn.Module):
         x = x + kv
         return getattr(self, f'mlp_seq{i}')(x) + x
 
-    def forward(self, batch):
-        """batch as PDVC's plus an optional 'sound_tensor' (B, T, C) aligned
-        with the clips (zeros where audio is missing)."""
+    def _fuse(self, batch):
         clips = batch['video_tensor']
         fused = self._block(1, clips, clips)
         if batch.get('sound_tensor') is not None:
             fused = self._block(2, batch['sound_tensor'], fused)
         inner = {k: v for k, v in batch.items() if k != 'sound_tensor'}
         inner['video_tensor'] = fused
-        return self.pdvcModel(inner)
+        return inner
+
+    def forward(self, batch):
+        """Eval forward.  batch as PDVC's plus an optional 'sound_tensor'
+        (B, T, C) aligned with the clips (zeros where audio is missing)."""
+        return self.pdvcModel(self._fuse(batch))
+
+    def forward_train(self, batch, gen=None, ss_prob=0.0):
+        """Train forward (:meth:`PDVC.forward_train`); the fusion blocks
+        have no dropout, as in the reference."""
+        return self.pdvcModel.forward_train(self._fuse(batch), gen, ss_prob)
 
     @torch.no_grad()
     def init_parameters_(self, gen: torch.Generator):
@@ -68,8 +76,9 @@ class FusionPDVC(nn.Module):
             nn.init.zeros_(fc.bias)
 
 
-def make_fusion_model(opt, device='cpu', seed: int = 0) -> FusionPDVC:
-    """The FusionPDVC of ``opt`` on ``device`` in eval mode, with seeded
+def make_fusion_model(opt, device='cuda', seed: int = 0) -> FusionPDVC:
+    """The FusionPDVC of ``opt`` on ``device`` (the card unless the caller
+    asks for the CPU) in eval mode, with seeded
     random weights drawn on the CPU from a ``torch.Generator`` (so the same
     seed gives the same weights on any device); load a checkpoint over them
     with ``load_state_dict(strict=True)``."""

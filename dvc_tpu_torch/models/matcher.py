@@ -1,0 +1,82 @@
+"""Hungarian set matcher (port of ``dvc_tpu/models/matcher.py`` and
+``dvc_tpu/ops/assignment.py::masked_assignment``).
+
+The focal-class + L1 + gIoU cost matrix is built on the device exactly as
+the reference (``pdvc/matcher.py:84-100``); the assignment is solved on the
+host with scipy's ``linear_sum_assignment``, the reference PDVC's own
+choice (``matcher.py:115-119``).  Gt events are padded to G slots with a
+validity mask: the real rows get their optimal queries, and each padded row
+gets a distinct unused query, which callers mask out (the contract of the
+JAX ``masked_assignment``).  Matching is not differentiated.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from scipy.optimize import linear_sum_assignment
+
+from ..utils.box_ops import box_cl_to_xy, generalized_box_iou
+
+
+@dataclasses.dataclass(frozen=True)
+class MatcherConfig:
+    cost_class: float = 1.0
+    cost_bbox: float = 5.0
+    cost_giou: float = 2.0
+    cost_alpha: float = 0.25
+    cost_gamma: float = 2.0
+
+    @classmethod
+    def from_opt(cls, opt):
+        return cls(cost_class=opt.set_cost_class, cost_bbox=opt.set_cost_bbox,
+                   cost_giou=opt.set_cost_giou, cost_alpha=opt.cost_alpha,
+                   cost_gamma=opt.cost_gamma)
+
+
+def match_cost_matrix(cfg: MatcherConfig, pred_logits, pred_boxes, gt_labels,
+                      gt_boxes):
+    """Per-video cost matrix (B, Nq, G)."""
+    alpha, gamma = cfg.cost_alpha, cfg.cost_gamma
+    prob = torch.sigmoid(pred_logits)                       # (B, Nq, K)
+    neg = (1 - alpha) * (prob ** gamma) * (-torch.log(1 - prob + 1e-8))
+    pos = alpha * ((1 - prob) ** gamma) * (-torch.log(prob + 1e-8))
+    lab = gt_labels.long()[:, None, :].expand(-1, prob.shape[1], -1)
+    cost_class = torch.gather(pos, 2, lab) - torch.gather(neg, 2, lab)
+    cost_bbox = (pred_boxes[:, :, None, :]
+                 - gt_boxes[:, None, :, :]).abs().sum(-1)   # L1 cdist
+    cost_giou = -generalized_box_iou(box_cl_to_xy(pred_boxes),
+                                     box_cl_to_xy(gt_boxes))
+    return (cfg.cost_bbox * cost_bbox + cfg.cost_class * cost_class
+            + cfg.cost_giou * cost_giou)
+
+
+def masked_assignment(cost: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
+    """cost (R, C) with R <= C, row_mask (R,): col4row (R,) int64, optimal
+    over the real rows; padded rows get distinct unused columns in order."""
+    R, C = cost.shape
+    cost = np.nan_to_num(cost, nan=1e9, posinf=1e9, neginf=-1e9)
+    rows = np.flatnonzero(row_mask)
+    col4row = np.full(R, -1, np.int64)
+    if len(rows):
+        r, c = linear_sum_assignment(cost[rows])
+        col4row[rows[r]] = c
+    free = np.setdiff1d(np.arange(C), col4row[rows])
+    pad = np.flatnonzero(~row_mask)
+    col4row[pad] = free[:len(pad)]
+    return col4row
+
+
+@torch.no_grad()
+def hungarian_match(cfg: MatcherConfig, pred_logits, pred_boxes, gt_labels,
+                    gt_boxes, gt_mask):
+    """Match gt events to queries.  Returns col4row (B, G) int64 on the
+    predictions' device: the query assigned to each gt slot (meaningless
+    where ``gt_mask`` is False)."""
+    C = match_cost_matrix(cfg, pred_logits, pred_boxes, gt_labels, gt_boxes)
+    C = C.transpose(1, 2).float().cpu().numpy()              # (B, G, Nq)
+    mask = gt_mask.cpu().numpy().astype(bool)
+    idx = np.stack([masked_assignment(c, m) for c, m in zip(C, mask)])
+    return torch.from_numpy(idx).to(pred_logits.device)

@@ -1,19 +1,25 @@
-"""PDVC eval forward (port of ``dvc_tpu/models/pdvc.py``).
+"""PDVC eval and train forwards (port of ``dvc_tpu/models/pdvc.py``).
 
 A conv pyramid feeds the deformable encoder; Nq learned event queries are
 decoded with iterative box refinement; each query gets class logits, a
-(center, length) box and a share of the event-count logits, and the last
-decoder layer's queries are captioned greedily.
+(center, length) box and a share of the event-count logits.  Eval
+(:meth:`PDVC.forward`) captions the last decoder layer's queries greedily;
+train (:meth:`PDVC.forward_train`) matches every layer's predictions to
+the gt events, runs the criterion, and teacher-forces the captions of the
+matched queries of every layer.
 
-The port covers the serving path: ``transformer_input_type='queries'`` and
-the LSTM-DSA ('standard') caption head.  The JAX eval forward also runs the
-matcher and criterion; the served outputs do not depend on them (only
-``matched_indices`` does, which no serving consumer reads), so they wait
-for the training slice.
+The port covers ``transformer_input_type='queries'`` and the LSTM-DSA
+('standard') caption head.  The JAX eval forward also runs the matcher and
+criterion; the served outputs do not depend on them (only
+``matched_indices`` does, which no serving consumer reads), so the eval
+forward here does not.
 
 Batch (dict of tensors), as in the JAX package:
   video_tensor (B, T, C) f32, video_mask (B, T) bool (True = valid frame),
-  video_length (B, 3) f32 [feature length, duration (s), gt count].
+  video_length (B, 3) f32 [feature length, duration (s), gt count];
+  for training also gt_boxes (B, G, 2) (center, length), gt_boxes_mask
+  (B, G) bool, gt_labels (B, G) int, cap_tensor (B, G, Lc) int (BOS/EOS =
+  0), cap_mask (B, G, Lc) bool.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ from torch import nn
 
 from ..utils.box_ops import inverse_sigmoid
 from .base_encoder import BaseEncoder
-from .caption_heads import CaptionHeadConfig, DSACaptionHead, truncate_levels
+from .caption_heads import (CaptionHeadConfig, DSACaptionHead, caption_nll,
+                            truncate_levels)
+from .criterion import CriterionConfig, criterion_forward
 from .deformable_transformer import (DecoderLayer, EncoderLayer,
                                      MSDeformAttn, MultiheadAttention,
                                      encoder_reference_points,
@@ -43,15 +51,18 @@ class PDVCConfig:
     enc_layers: int = 2
     dec_layers: int = 2
     transformer_ff_dim: int = 2048
+    transformer_dropout_prob: float = 0.1
     enc_n_points: int = 4
     dec_n_points: int = 4
     with_box_refine: bool = True
+    aux_loss: bool = True
     share_caption_head: bool = True
     caption_decoder_type: str = 'standard'
     max_eseq_length: int = 10
     feature_dim: int = 512
     transformer_input_type: str = 'queries'
     caption: CaptionHeadConfig = None
+    criterion: CriterionConfig = None
 
     @classmethod
     def from_opt(cls, opt):
@@ -60,7 +71,7 @@ class PDVCConfig:
             input_encoding_size=opt.input_encoding_size,
             rnn_size=opt.rnn_size, num_layers=opt.num_layers,
             max_caption_len=opt.max_caption_len, hidden_dim=opt.hidden_dim,
-            att_hid_size=opt.att_hid_size, cap_nheads=opt.cap_nheads,
+            drop_prob=opt.drop_prob, att_hid_size=opt.att_hid_size, cap_nheads=opt.cap_nheads,
             cap_dec_n_points=opt.cap_dec_n_points,
             cap_num_feature_levels=min(opt.cap_num_feature_levels,
                                        opt.num_feature_levels))
@@ -70,14 +81,16 @@ class PDVCConfig:
             hidden_dim=opt.hidden_dim, nheads=opt.nheads,
             enc_layers=opt.enc_layers, dec_layers=opt.dec_layers,
             transformer_ff_dim=opt.transformer_ff_dim,
+            transformer_dropout_prob=opt.transformer_dropout_prob,
             enc_n_points=opt.enc_n_points, dec_n_points=opt.dec_n_points,
             with_box_refine=bool(opt.with_box_refine),
+            aux_loss=bool(opt.aux_loss),
             share_caption_head=bool(opt.share_caption_head),
             caption_decoder_type=opt.caption_decoder_type,
             max_eseq_length=opt.max_eseq_length,
             feature_dim=opt.feature_dim,
             transformer_input_type=opt.transformer_input_type,
-            caption=cap)
+            caption=cap, criterion=CriterionConfig.from_opt(opt))
 
 
 class BBoxHead(nn.Module):
@@ -106,12 +119,13 @@ class DeformableTransformer(nn.Module):
         d, L = c.hidden_dim, c.num_feature_levels
         self.level_embed = nn.Parameter(torch.empty(L, d))
         self.reference_points = nn.Linear(d, 1)
+        p = c.transformer_dropout_prob
         self.encoder = _Layers(
-            EncoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.enc_n_points)
-            for _ in range(c.enc_layers))
+            EncoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.enc_n_points,
+                         p) for _ in range(c.enc_layers))
         self.decoder = _Layers(
-            DecoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.dec_n_points)
-            for _ in range(c.dec_layers))
+            DecoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.dec_n_points,
+                         p) for _ in range(c.dec_layers))
 
 
 class PDVC(nn.Module):
@@ -148,7 +162,7 @@ class PDVC(nn.Module):
                 DSACaptionHead(cfg.caption) for _ in range(D))
 
     # ------------------------------------------------------------------
-    def encode(self, batch):
+    def encode(self, batch, gen=None):
         srcs, masks, poses = self.base_encoder(
             batch['video_tensor'], ~batch['video_mask'],
             batch['video_length'][:, 1])
@@ -163,15 +177,16 @@ class PDVC(nn.Module):
         memory = src_flat
         ref = encoder_reference_points(shapes, valid_ratios)
         for layer in self.transformer.encoder.layers:
-            memory = layer(memory, pos_flat, ref, shapes, mask_flat)
+            memory = layer(memory, pos_flat, ref, shapes, mask_flat, gen)
         return memory, shapes, valid_ratios, mask_flat
 
     def decode(self, memory, shapes, valid_ratios, mask_flat, init_reference,
-               tgt, query_pos):
-        """Decoder stack with iterative box refinement.  Returns the last
-        layer's (output, input reference, bbox-head delta): the eval path
-        reads only the last layer."""
+               tgt, query_pos, gen=None):
+        """Decoder stack with iterative box refinement.  Returns per-layer
+        lists (outputs, input references, bbox-head deltas); the refined
+        reference fed to the next layer is detached, as in the reference."""
         output, reference_points = tgt, init_reference
+        hs, refs, deltas = [], [], []
         last = len(self.transformer.decoder.layers) - 1
         for lid, layer in enumerate(self.transformer.decoder.layers):
             if reference_points.shape[-1] == 2:
@@ -182,18 +197,21 @@ class PDVC(nn.Module):
                 ref_input = (reference_points[:, :, None]
                              * valid_ratios[:, None, :, None])
             output = layer(output, query_pos, ref_input, memory, shapes,
-                           mask_flat)
-            if lid == last:
-                return output, reference_points, self.bbox_head[lid](output)
-            if self.cfg.with_box_refine:
-                tmp = self.bbox_head[lid](output)
+                           mask_flat, gen=gen)
+            delta = self.bbox_head[lid](output)
+            hs.append(output)
+            refs.append(reference_points)
+            deltas.append(delta)
+            if self.cfg.with_box_refine and lid < last:
                 if reference_points.shape[-1] == 2:
-                    reference_points = torch.sigmoid(
-                        tmp + inverse_sigmoid(reference_points))
+                    new_ref = torch.sigmoid(delta
+                                            + inverse_sigmoid(reference_points))
                 else:
-                    reference_points = torch.sigmoid(torch.cat(
-                        [tmp[..., :1] + inverse_sigmoid(reference_points),
-                         tmp[..., 1:]], -1))
+                    new_ref = torch.sigmoid(torch.cat(
+                        [delta[..., :1] + inverse_sigmoid(reference_points),
+                         delta[..., 1:]], -1))
+                reference_points = new_ref.detach()
+        return hs, refs, deltas
 
     def prepare_decoder_queries(self, B):
         query_pos, tgt = self.query_embed.weight.chunk(2, dim=1)
@@ -203,14 +221,19 @@ class PDVC(nn.Module):
             self.transformer.reference_points(query_pos))
         return init_reference, tgt, query_pos
 
-    def head_outputs(self, hs, reference, delta):
-        """Class/count/box predictions of the last decoder layer.  A 1-d
-        reference is added to both box dims (the reference's eval-path
-        quirk, kept for parity)."""
-        l_id = self.cfg.dec_layers - 1
+    def head_outputs(self, l_id, hs, reference, delta, train_path=False):
+        """Class/count/box predictions of decoder layer ``l_id``.  A 1-d
+        reference is added to both box dims on the eval path and to the
+        center only on the train path (the reference's two branches,
+        ``pdvc.py:202-211`` and ``:257-266``, kept for parity)."""
+        ref_inv = inverse_sigmoid(reference)
+        if reference.shape[-1] == 1 and train_path:
+            coord = torch.sigmoid(torch.cat([delta[..., :1] + ref_inv,
+                                             delta[..., 1:]], -1))
+        else:
+            coord = torch.sigmoid(delta + ref_inv)
         return (self.class_head[l_id](hs),
-                self.count_head[l_id](hs.max(dim=1).values),
-                torch.sigmoid(delta + inverse_sigmoid(reference)))
+                self.count_head[l_id](hs.max(dim=1).values), coord)
 
     def caption_reference(self, reference, valid_ratios, shapes):
         """Caption-head sampling geometry as (center, scale), each
@@ -234,20 +257,111 @@ class PDVC(nn.Module):
         memory, shapes, valid_ratios, mask_flat = self.encode(batch)
         B = memory.shape[0]
         init_reference, tgt, query_pos = self.prepare_decoder_queries(B)
-        hs, reference, delta = self.decode(memory, shapes, valid_ratios,
-                                           mask_flat, init_reference, tgt,
-                                           query_pos)
-        logits, count, boxes = self.head_outputs(hs, reference, delta)
-        center, scale = self.caption_reference(reference, valid_ratios,
+        hs, refs, deltas = self.decode(memory, shapes, valid_ratios,
+                                       mask_flat, init_reference, tgt,
+                                       query_pos)
+        l_id = c.dec_layers - 1
+        logits, count, boxes = self.head_outputs(l_id, hs[-1], refs[-1],
+                                                 deltas[-1])
+        center, scale = self.caption_reference(refs[-1], valid_ratios,
                                                shapes)
         shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
             c.caption, shapes, memory, mask_flat, center, scale)
-        seq, lp = self.caption_head[c.dec_layers - 1](
-            hs, center_t, scale_t, mem_t, shapes_t, mask_t)
-        Nq = hs.shape[1]
+        seq, lp = self.caption_head[l_id](
+            hs[-1], center_t, scale_t, mem_t, shapes_t, mask_t)
+        Nq = hs[-1].shape[1]
         return {'pred_logits': logits, 'pred_count': count,
                 'pred_boxes': boxes, 'seq': seq.reshape(B, Nq, -1),
                 'cap_prob_eval': lp.reshape(B, Nq, -1)}
+
+    def forward_train(self, batch, gen=None, ss_prob=0.0):
+        """Train forward: (outputs, losses).  With ``gen`` (a
+        ``torch.Generator`` on the model's device) dropout is on and its
+        masks come from it; without, the forward is deterministic.  outputs
+        holds the last layer's pred_logits, pred_count, pred_boxes and
+        matched_indices (B, G); losses every loss of the criterion and the
+        caption losses, with the ``_{i}`` suffixes of the aux layers."""
+        if ss_prob > 0:
+            raise NotImplementedError(
+                'scheduled sampling needs the stepwise caption path, which '
+                'the port does not have yet')
+        c = self.cfg
+        memory, shapes, valid_ratios, mask_flat = self.encode(batch, gen)
+        B = memory.shape[0]
+        init_reference, tgt, query_pos = self.prepare_decoder_queries(B)
+        hs, refs, deltas = self.decode(memory, shapes, valid_ratios,
+                                       mask_flat, init_reference, tgt,
+                                       query_pos, gen)
+        heads = [self.head_outputs(l, hs[l], refs[l], deltas[l], True)
+                 for l in range(c.dec_layers)]
+        outputs = {k: torch.stack([h[i] for h in heads]) for i, k in
+                   enumerate(('pred_logits', 'pred_count', 'pred_boxes'))}
+        losses, last_idx, aux_idx = criterion_forward(
+            c.criterion, outputs, batch['gt_labels'], batch['gt_boxes'],
+            batch['gt_boxes_mask'], aux_loss=c.aux_loss)
+        losses.update(self.caption_train_losses(
+            hs, refs, memory, shapes, valid_ratios, mask_flat, batch,
+            last_idx, aux_idx, gen))
+        out = {'pred_logits': outputs['pred_logits'][-1],
+               'pred_count': outputs['pred_count'][-1],
+               'pred_boxes': outputs['pred_boxes'][-1],
+               'matched_indices': last_idx}
+        return out, losses
+
+    def caption_train_losses(self, hs, refs, memory, shapes, valid_ratios,
+                             mask_flat, batch, last_idx, aux_idx, gen):
+        """Per-layer teacher-forced caption losses on the matched pairs
+        (reference pdvc.py:294-304).  A shared caption head runs the D
+        layers' pairs as one scan over a (B, D*G) pair axis."""
+        c = self.cfg
+        D = c.dec_layers
+        gt_mask = batch['gt_boxes_mask']
+        B, G = gt_mask.shape
+        cap, cap_mask = batch['cap_tensor'], batch['cap_mask']
+        m = gt_mask.float()
+        layers = list(range(D)) if c.aux_loss else [D - 1]
+
+        def layer_inputs(l_id):
+            idx = last_idx if l_id == D - 1 else aux_idx[l_id]
+            feats = torch.gather(hs[l_id], 1,
+                                 idx[..., None].expand(-1, -1, hs[l_id].shape[2]))
+            ref = torch.gather(refs[l_id], 1,
+                               idx[..., None].expand(-1, -1, refs[l_id].shape[2]))
+            center, scale = self.caption_reference(ref, valid_ratios, shapes)
+            return feats, center, scale
+
+        def run(head, feats, center, scale, caps):
+            shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
+                c.caption, shapes, memory, mask_flat, center, scale)
+            return head.teacher_forcing(feats, center_t, scale_t, mem_t,
+                                        shapes_t, mask_t,
+                                        caps.reshape(-1, caps.shape[-1]), gen)
+
+        def loss_key(l_id):
+            return 'loss_caption' if l_id == D - 1 else f'loss_caption_{l_id}'
+
+        losses = {}
+        if c.share_caption_head and len(layers) > 1:
+            parts = [layer_inputs(l) for l in layers]
+            nL = len(layers)
+            caps_all = cap.repeat(1, nL, 1)
+            lp = run(self.caption_head[0],
+                     *(torch.cat([p[i] for p in parts], 1) for i in range(3)),
+                     caps_all)
+            per_cap = caption_nll(
+                lp.reshape(B, nL * G, *lp.shape[1:]), caps_all[..., 1:],
+                cap_mask.repeat(1, nL, 1)[..., 1:]).reshape(B, nL, G)
+            for i, l_id in enumerate(layers):
+                losses[loss_key(l_id)] = ((per_cap[:, i] * m).sum()
+                                          / m.sum().clamp(min=1.0))
+            return losses
+        for l_id in layers:
+            lp = run(self.caption_head[l_id], *layer_inputs(l_id), cap)
+            per_cap = caption_nll(lp.reshape(B, G, *lp.shape[1:]),
+                                  cap[..., 1:], cap_mask[..., 1:])
+            losses[loss_key(l_id)] = ((per_cap * m).sum()
+                                      / m.sum().clamp(min=1.0))
+        return losses
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -1,0 +1,138 @@
+"""Audio-visual fusion training driver of the port (counterpart of
+``newTrain.py``; reference ``newTrain.py:74-544``).
+
+    python -m dvc_tpu_torch.new_train --cfg_path cfgs/yc2_newModel_sound.yml
+
+The same flags as ``newTrain.py`` (the port's own ``parse_opts``).  It
+trains on the card unless ``--device cpu`` is given, and keeps the
+reference's restarts: visited video keys are checkpointed every
+``--ckpt_every_batches`` batches and skipped after ``--start_from``.
+``--debug`` caps an epoch at 5 batches.  Every ``save_checkpoint_every``
+epochs the run folder gets ``model-last.pth`` and ``info.json``, which the
+port's ``DenseCaptioner(run_folder, which='last')`` serves.  Validation
+scoring is not ported yet: no score is computed, and no ``best``
+checkpoint is written.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .data import FusionBatchLoader, FusionDataset
+from .serve import load_info_json
+from .train import (Trainer, load_checkpoint, multistep_lr, save_checkpoint,
+                    ss_prob_for_epoch)
+from .utils.config import parse_opts
+
+
+def build_folder(opt) -> str:
+    """save_dir/id, renamed id_v_N on a collision, or the folder of
+    ``--start_from`` (reference ``misc/utils.py:105-126``)."""
+    if opt.start_from:
+        save_folder = os.path.join(opt.save_dir, opt.start_from)
+        if not os.path.exists(save_folder):
+            raise FileNotFoundError(f'the folder {save_folder} does not exist')
+        return save_folder
+    save_folder = os.path.join(opt.save_dir, opt.id)
+    n = 1
+    while os.path.exists(save_folder):
+        opt.id = f'{opt.id.split("_v_")[0]}_v_{n}'
+        save_folder = os.path.join(opt.save_dir, opt.id)
+        n += 1
+    os.makedirs(save_folder)
+    return save_folder
+
+
+def create_logger(folder: str) -> logging.Logger:
+    logger = logging.getLogger('dvc_tpu_torch')
+    logger.setLevel(logging.DEBUG)
+    logger.handlers.clear()
+    fmt = logging.Formatter('[%(asctime)s] %(message)s',
+                            datefmt='%m-%d %H:%M:%S')
+    for handler in (logging.StreamHandler(sys.stdout),
+                    logging.FileHandler(os.path.join(folder, 'train.log'))):
+        handler.setFormatter(fmt)
+        logger.addHandler(handler)
+    return logger
+
+
+def save_info_json(save_dir: str, info: dict):
+    with open(os.path.join(save_dir, 'info.json'), 'w') as f:
+        json.dump(info, f, indent=1, default=str)
+
+
+def main(opt, device=None):
+    """Train ``opt``'s FusionPDVC.  Returns (run folder, the last epoch's
+    mean losses).  ``device`` defaults to ``opt.device`` (the card unless
+    it says 'cpu')."""
+    if opt.pretrain:
+        raise NotImplementedError('--pretrain is not ported yet')
+    device = device or ('cpu' if opt.device == 'cpu' else 'cuda')
+    save_folder = build_folder(opt)
+    logger = create_logger(save_folder)
+    train_ds = FusionDataset(opt.train_caption_file, opt.visual_feature_folder,
+                             opt.dict_file, opt, seed=opt.seed)
+    trainer = Trainer(opt, device=device)
+    visited, epoch = set(), 0
+    best_val_score, val_history = -1e9, {}
+
+    info = load_info_json(save_folder) if opt.start_from else None
+    if opt.start_from and info is not None:
+        ck = load_checkpoint(
+            os.path.join(save_folder, f'model-{opt.start_from_mode}.pth'),
+            device)
+        trainer.load_state(ck)
+        epoch = int(ck['epoch'])
+        visited = set(ck.get('visited_videos', []))
+        best_val_score = info.get('best_val_score', -1e9)
+        val_history = info.get('val_history', {})
+        logger.info(f'resumed epoch {epoch}, {len(visited)} videos visited')
+
+    ckpt_every = getattr(opt, 'ckpt_every_batches', 100)
+    loss_avg = {}
+    while epoch < opt.epoch:
+        lr = multistep_lr(opt, epoch)
+        ss_prob = ss_prob_for_epoch(opt, epoch)
+        loader = FusionBatchLoader(train_ds, opt.batch_size, True, opt,
+                                   seed=opt.seed + epoch, skip_keys=visited)
+        n, loss_sum, t0 = 0, {}, time.time()
+        for batch, meta in loader:
+            if opt.debug and n >= 5:
+                break
+            losses = trainer.train_step(batch, lr, ss_prob)
+            visited.update(meta['keys'])
+            for k, v in losses.items():
+                loss_sum[k] = loss_sum.get(k, 0.0) + float(v)
+            n += 1
+            if n % ckpt_every == 0:
+                save_checkpoint(save_folder, 'last', trainer, epoch,
+                                extra={'visited_videos': sorted(visited)})
+        visited.clear()  # full epoch done
+        loss_avg = {k: v / max(n, 1) for k, v in loss_sum.items()}
+        logger.info(f'epoch {epoch}: {n} steps, '
+                    f'{ {k: round(v, 3) for k, v in loss_avg.items()} } '
+                    f'({time.time() - t0:.1f}s)')
+        epoch += 1
+        if epoch % opt.save_checkpoint_every == 0:
+            logger.warning('no validation score computed: the port has no '
+                           'evaluation loop yet; saving model-last only')
+            save_checkpoint(save_folder, 'last', trainer, epoch)
+            save_info_json(save_folder, {
+                'best_val_score': best_val_score, 'val_history': val_history,
+                'last': {'epoch': epoch, 'opt': opt.to_dict()}})
+    logger.info('Training done.')
+    return save_folder, loss_avg
+
+
+if __name__ == '__main__':
+    opt = parse_opts()
+    np.random.seed(opt.seed)
+    torch.manual_seed(opt.seed)
+    main(opt)

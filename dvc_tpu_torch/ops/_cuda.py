@@ -23,7 +23,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_ROOT = os.path.join(_PKG, '_build')
-SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu')
+SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu', 'dsa_scan.cu')
 # sm_90a: Hopper.  No -use_fast_math: tanhf/expf/logf stay exact, as the
 # JAX kernels' f32 transcendentals; -Xptxas -v records registers and spills
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -34,7 +34,10 @@ _I = ctypes.c_int
 # argtypes of each entry point (see the extern "C" signatures in csrc/)
 _SIGNATURES = {
     'dvc_msda_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    'dvc_msda_bwd': [_P] * 7 + [_I] * 7 + [_P, _P],
     'dvc_dsa_greedy': [_P] * 20 + [_I] * 12 + [_P],
+    'dvc_dsa_scan_fwd': [_P] * 16 + [_I] * 10 + [_P],
+    'dvc_dsa_scan_bwd': [_P] * 33 + [_I] * 10 + [_P],
 }
 
 

@@ -46,6 +46,35 @@ def lstm_cell(z, c_prev):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
+def attend_step(h, value_t, base_pos, scale_t, off_w_h, h2att_w, h2att_b,
+                cw, cb, aw, ab, hib, s0):
+    """One word step's deformable sampling and additive attention from the
+    hidden state h (B, Q, R), shared by the greedy decode and the
+    teacher-forcing scan: border-mode taps at pos = base_pos + (h off_w_h)
+    * scale_t (level-relative f32), scores tanh(taps cw + cb + hvec) . aw +
+    ab, softmax over the LP taps.  Returns ctx (B, H, Q, Dh)."""
+    B, H, S, Dh = value_t.shape
+    Q, LP = base_pos.shape[2], base_pos.shape[3]
+    zero = torch.zeros((), device=value_t.device)
+    hvec = h @ h2att_w + h2att_b                              # (B, Q, A)
+    off = torch.einsum('bqr,hrp->bhqp', h, off_w_h)           # (B, H, Q, LP)
+    pos = base_pos + off * scale_t[:, None]
+    i_lo = torch.floor(pos)
+    w_hi = pos - i_lo
+    w_lo = 1.0 - w_hi
+    idx_lo = torch.minimum(torch.maximum(i_lo, zero), hib).long() + s0
+    idx_hi = torch.minimum(torch.maximum(i_lo + 1.0, zero), hib).long() + s0
+
+    def gather(idx):  # (B, H, Q, LP) -> (B, H, Q, LP, Dh)
+        i = idx.reshape(B, H, Q * LP, 1).expand(B, H, Q * LP, Dh)
+        return torch.gather(value_t, 2, i).reshape(B, H, Q, LP, Dh)
+
+    taps = w_lo[..., None] * gather(idx_lo) + w_hi[..., None] * gather(idx_hi)
+    u = torch.tanh(taps @ cw + cb + hvec[:, None, :, None, :])
+    wts = torch.softmax(u @ aw + ab, dim=-1)                  # (B, H, Q, LP)
+    return torch.einsum('bhqp,bhqpd->bhqd', wts, taps)
+
+
 def dsa_greedy_scan_ref(value_t, base_pos, scale_t, const_z, embed, token_w,
                         logit_w, logit_b, off_w_h, h2att_w, h2att_b, cw, cb,
                         aw, ab, ctx_w3, w_hh, temporal_shapes, K,
@@ -60,31 +89,14 @@ def dsa_greedy_scan_ref(value_t, base_pos, scale_t, const_z, embed, token_w,
     LP = scale_t.shape[-1]
     P = LP // len(temporal_shapes)
     hib, s0 = _level_bounds(temporal_shapes, P, value_t.device)
-    zero = torch.zeros((), device=value_t.device)
 
     h = value_t.new_zeros((B, Q, R))
     c = value_t.new_zeros((B, Q, R))
     it = torch.zeros((B, Q), dtype=torch.long, device=value_t.device)
     toks, lps, margins = [], [], []
     for _ in range(K):
-        hvec = h @ h2att_w + h2att_b                          # (B, Q, A)
-        off = torch.einsum('bqr,hrp->bhqp', h, off_w_h)       # (B, H, Q, LP)
-        pos = base_pos + off * scale_t[:, None]
-        i_lo = torch.floor(pos)
-        w_hi = pos - i_lo
-        w_lo = 1.0 - w_hi
-        idx_lo = torch.minimum(torch.maximum(i_lo, zero), hib).long() + s0
-        idx_hi = torch.minimum(torch.maximum(i_lo + 1.0, zero),
-                               hib).long() + s0
-
-        def gather(idx):  # (B, H, Q, LP) -> (B, H, Q, LP, Dh)
-            i = idx.reshape(B, H, Q * LP, 1).expand(B, H, Q * LP, Dh)
-            return torch.gather(value_t, 2, i).reshape(B, H, Q, LP, Dh)
-
-        taps = w_lo[..., None] * gather(idx_lo) + w_hi[..., None] * gather(idx_hi)
-        u = torch.tanh(taps @ cw + cb + hvec[:, None, :, None, :])
-        wts = torch.softmax(u @ aw + ab, dim=-1)              # (B, H, Q, LP)
-        ctx = torch.einsum('bhqp,bhqpd->bhqd', wts, taps)
+        ctx = attend_step(h, value_t, base_pos, scale_t, off_w_h, h2att_w,
+                          h2att_b, cw, cb, aw, ab, hib, s0)
         z = (const_z + embed[it] @ token_w + h @ w_hh
              + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3))
         h, c = lstm_cell(z, c)

@@ -1,11 +1,16 @@
-"""1-D multi-scale deformable attention, forward (port of
+"""1-D multi-scale deformable attention, forward and backward (port of
 ``dvc_tpu/ops/ms_deform_attn.py``).
 
 * :func:`ms_deform_attn_ref` — the plain PyTorch gather/lerp version, a
-  line-for-line port of the JAX ``ms_deform_attn_ref``.
+  line-for-line port of the JAX ``ms_deform_attn_ref``; its backward is
+  autograd through it (:func:`ms_deform_attn_bwd_ref`).
 * :func:`ms_deform_attn` — the wrapper the trunk calls: CUDA tensors go to
-  the hand-written kernel ``csrc/ms_deform_attn.cu`` (zeros mode); CPU
-  tensors go to the plain version.
+  :class:`MSDeformAttnFunction`, whose forward is the hand-written kernel
+  ``dvc_msda_fwd`` and whose backward is ``dvc_msda_bwd``
+  (``csrc/ms_deform_attn.cu``, zeros mode); CPU tensors go to the plain
+  version.
+* :func:`ms_deform_attn_bwd` — the backward kernel alone: (dvalue, dloc,
+  dattn) for an output cotangent, on CUDA tensors only.
 
 Layout, as in the JAX package: value (B, S, H, D) with S = sum of the level
 lengths; sampling locations and attention weights (B, Q, H, L, P); output
@@ -71,29 +76,33 @@ def ms_deform_attn_ref(value, temporal_shapes, sampling_locations,
 ms_deform_attn_ref.calls = 0
 
 
-def ms_deform_attn(value, temporal_shapes, sampling_locations,
-                   attention_weights):
-    """Trunk MSDA forward (zeros mode).  CPU tensors: the plain version.
-    CUDA tensors: the kernel (f32, forward only) or an error."""
+def _check_kernel_args(value, temporal_shapes, sampling_locations,
+                       attention_weights, *extra):
+    tensors = (value, sampling_locations, attention_weights, *extra)
     if not value.is_cuda:
-        return ms_deform_attn_ref(value, temporal_shapes, sampling_locations,
-                                  attention_weights)
-    args = (value, sampling_locations, attention_weights)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise RuntimeError('the MSDA kernel is forward only (no backward yet)')
+        raise ValueError('the MSDA kernels take CUDA tensors; the plain '
+                         'versions are ms_deform_attn_ref and '
+                         'ms_deform_attn_bwd_ref')
     if any(t.dtype != torch.float32 or t.device != value.device
-           for t in args):
-        raise TypeError('the MSDA kernel takes float32 tensors on one device')
+           for t in tensors):
+        raise TypeError('the MSDA kernels take float32 tensors on one device')
     B, S, H, D = value.shape
     _, Q, _, L, P = sampling_locations.shape
     if (sampling_locations.shape != (B, Q, H, L, P)
             or attention_weights.shape != (B, Q, H, L, P)
+            or any(t.shape != (B, Q, H * D) for t in extra)
             or len(temporal_shapes) != L or sum(temporal_shapes) != S):
         raise ValueError('MSDA kernel: inconsistent shapes')
-    value, loc, attn = (t.contiguous() for t in args)
+    return (B, S, Q, H, D, L, P), [t.contiguous() for t in tensors]
+
+
+def _msda_fwd_kernel(value, temporal_shapes, sampling_locations,
+                     attention_weights):
+    dims, (value, loc, attn) = _check_kernel_args(
+        value, temporal_shapes, sampling_locations, attention_weights)
+    B, S, Q, H, D, L, P = dims
     out = torch.empty((B, Q, H * D), dtype=torch.float32, device=value.device)
-    lib = _cuda.lib()
-    _cuda.check(lib.cdll.dvc_msda_fwd(
+    _cuda.check(_cuda.lib().cdll.dvc_msda_fwd(
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
         B, S, Q, H, D, L, P, _cuda.levels_array(temporal_shapes),
         _cuda.stream_ptr(value.device)), 'dvc_msda_fwd')
@@ -101,4 +110,70 @@ def ms_deform_attn(value, temporal_shapes, sampling_locations,
     return out
 
 
+class MSDeformAttnFunction(torch.autograd.Function):
+    """The trunk MSDA on the card: forward ``dvc_msda_fwd``, backward
+    ``dvc_msda_bwd`` (no gradient for the level table)."""
+
+    @staticmethod
+    def forward(ctx, value, temporal_shapes, sampling_locations,
+                attention_weights):
+        ctx.temporal_shapes = temporal_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return _msda_fwd_kernel(value, temporal_shapes, sampling_locations,
+                                attention_weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        value, loc, attn = ctx.saved_tensors
+        dvalue, dloc, dattn = ms_deform_attn_bwd(
+            value, ctx.temporal_shapes, loc, attn, g)
+        return dvalue, None, dloc, dattn
+
+
+def ms_deform_attn(value, temporal_shapes, sampling_locations,
+                   attention_weights):
+    """Trunk MSDA (zeros mode), differentiable.  CPU tensors: the plain
+    version (autograd through it).  CUDA tensors: the kernels (f32) or an
+    error."""
+    if not value.is_cuda:
+        return ms_deform_attn_ref(value, temporal_shapes, sampling_locations,
+                                  attention_weights)
+    return MSDeformAttnFunction.apply(value, tuple(temporal_shapes),
+                                      sampling_locations, attention_weights)
+
+
 ms_deform_attn.launches = 0
+
+
+def ms_deform_attn_bwd_ref(value, temporal_shapes, sampling_locations,
+                           attention_weights, g):
+    """Plain backward: autograd through :func:`ms_deform_attn_ref`.
+    Returns (dvalue, dloc, dattn)."""
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_() for t in
+                (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_ref(args[0], temporal_shapes, args[1], args[2])
+        return torch.autograd.grad(out, args, g)
+
+
+def ms_deform_attn_bwd(value, temporal_shapes, sampling_locations,
+                       attention_weights, g):
+    """(dvalue, dloc, dattn) of the trunk MSDA for the output cotangent g
+    (B, Q, H*D), by the kernel ``dvc_msda_bwd`` (CUDA tensors), or an
+    error."""
+    dims, (value, loc, attn, g) = _check_kernel_args(
+        value, temporal_shapes, sampling_locations, attention_weights, g)
+    B, S, Q, H, D, L, P = dims
+    dvalue = torch.zeros_like(value)
+    dloc = torch.empty_like(loc)
+    dattn = torch.empty_like(attn)
+    _cuda.check(_cuda.lib().cdll.dvc_msda_bwd(
+        value.data_ptr(), loc.data_ptr(), attn.data_ptr(), g.data_ptr(),
+        dvalue.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
+        B, S, Q, H, D, L, P, _cuda.levels_array(temporal_shapes),
+        _cuda.stream_ptr(value.device)), 'dvc_msda_bwd')
+    ms_deform_attn_bwd.launches += 1
+    return dvalue, dloc, dattn
+
+
+ms_deform_attn_bwd.launches = 0

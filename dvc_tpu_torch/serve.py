@@ -8,12 +8,15 @@ Load a FusionPDVC run once, then caption feature tensors:
     events = dc.caption_features(feats, duration=120.0, sound=audio_feats)
     # [{'timestamp': [t0, t1], 'sentence': ..., 'proposal_score': ...}, ...]
 
-A run folder is what the JAX trainer writes (``info.json`` and
-``model-{best,last}.ckpt``); its flax params are converted with
-:func:`dvc_tpu_torch.models.convert.from_jax_params`.  ``DenseCaptioner``
+A run folder is what either trainer writes: the port's
+(``dvc_tpu_torch.new_train``: ``info.json`` and ``model-last.pth``, a torch
+``state_dict``) or the JAX package's (``info.json`` and
+``model-{best,last}.ckpt``, whose flax params are converted with
+:func:`dvc_tpu_torch.models.convert.from_jax_params`).  ``DenseCaptioner``
 also takes ``(opt, state_dict)`` directly.  Features are rescaled to the
 model's frame budget as in the training pipeline; the model runs under
-``torch.inference_mode()`` on ``device``.
+``torch.inference_mode()`` on ``device``, the card unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from .data import Translator, resize_feature
 from .models import (from_jax_params, make_fusion_model, postprocess,
                      to_dvc_records)
-from .utils.config import load_config
+from .utils.config import Config, load_config
 
 _SAFE_BUILTINS = {'complex', 'set', 'frozenset', 'slice', 'range',
                   'bytearray', 'bytes', 'tuple', 'list', 'dict', 'int',
@@ -77,19 +80,27 @@ def load_info_json(save_dir: str):
 class DenseCaptioner:
     def __init__(self, run_folder: str | None = None, which: str = 'best',
                  dict_file: str | None = None, opt=None, state_dict=None,
-                 device='cpu'):
+                 device='cuda'):
         if state_dict is None:
             if opt is None:
                 info = load_info_json(run_folder)
                 if info is None:
                     raise FileNotFoundError(f'no info.json in {run_folder}')
-                opt = load_config(**info[which]['opt'])
-            params = load_checkpoint(
-                os.path.join(run_folder, f'model-{which}.ckpt'))['params']
-            if 'visual_sa' not in params.get('params', params):
-                raise NotImplementedError(
-                    'the port serves FusionPDVC runs (newTrain.py) only')
-            state_dict = from_jax_params(params)
+                # the stored options over the defaults; the recipe file
+                # they name is not read again
+                opt = Config({**load_config().to_dict(),
+                              **info[which]['opt']})
+            pth = os.path.join(run_folder, f'model-{which}.pth')
+            if os.path.exists(pth):
+                state_dict = torch.load(pth, map_location='cpu',
+                                        weights_only=True)['model']
+            else:
+                params = load_checkpoint(
+                    os.path.join(run_folder, f'model-{which}.ckpt'))['params']
+                if 'visual_sa' not in params.get('params', params):
+                    raise NotImplementedError(
+                        'the port serves FusionPDVC runs (newTrain.py) only')
+                state_dict = from_jax_params(params)
         elif opt is None:
             raise ValueError('a state_dict needs the opt it was built with')
         self.opt = opt

@@ -1,0 +1,159 @@
+"""Training step, optimizer, LR schedule and checkpoints (port of
+``dvc_tpu/train/trainer.py``; reference ``train.py:32-317``).
+
+Adam/AdamW with global-norm gradient clipping and the epoch-level
+MultiStepLR.  The JAX package runs optax's AdamW at lr 1 and scales the
+update by lr; ``torch.optim.AdamW(lr=lr)`` gives the same update (decoupled
+decay lr * wd * p, then lr * m_hat / (sqrt(v_hat) + 1e-8)), and the 'adam'
+branch's ``add_decayed_weights`` before Adam is ``torch.optim.Adam``'s
+``weight_decay``.  Clipping follows ``optax.clip_by_global_norm`` exactly
+(gradients scaled by max_norm / norm when norm >= max_norm; torch's
+``clip_grad_norm_`` would add 1e-6 to the norm).
+
+Checkpoints are ``model-{tag}.pth``: the model's ``state_dict`` in the
+reference layout (``load_state_dict(strict=True)`` reads it; the serving
+``DenseCaptioner`` too), the optimizer state, the epoch and step, and any
+extra entries (the visited videos of a mid-epoch save).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..models import make_fusion_model
+from ..models.criterion import build_weight_dict
+
+
+def multistep_lr(opt, epoch: int) -> float:
+    """MultiStepLR(milestones=start + every*k, gamma) (reference train.py:128)."""
+    start = opt.learning_rate_decay_start
+    every = opt.learning_rate_decay_every
+    gamma = opt.learning_rate_decay_rate
+    n_milestones = int((opt.epoch - start) / every) if every > 0 else 0
+    milestones = [start + every * k for k in range(max(n_milestones, 0))]
+    passed = sum(1 for m in milestones if epoch >= m)
+    return opt.lr * (gamma ** passed)
+
+
+def ss_prob_for_epoch(opt, epoch: int) -> float:
+    """Scheduled-sampling ramp (reference train.py:152-156)."""
+    if opt.scheduled_sampling_start >= 0 and epoch > opt.scheduled_sampling_start:
+        frac = ((epoch - opt.scheduled_sampling_start)
+                // opt.scheduled_sampling_increase_every)
+        return min(opt.basic_ss_prob
+                   + opt.scheduled_sampling_increase_prob * frac,
+                   opt.scheduled_sampling_max_prob)
+    return 0.0
+
+
+def make_optimizer(opt, params):
+    if opt.optimizer_type == 'adamw':
+        return torch.optim.AdamW(params, lr=opt.lr, eps=1e-8,
+                                 weight_decay=opt.weight_decay)
+    return torch.optim.Adam(params, lr=opt.lr, eps=1e-8,
+                            weight_decay=opt.weight_decay)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float):
+    """optax.clip_by_global_norm in place, without a host sync."""
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    torch._foreach_mul_(grads, torch.where(norm < max_norm, 1.0,
+                                           max_norm / norm))
+
+
+def bucket_caption_length(batch, multiple: int = 8):
+    """Slice the caption tensors to the batch's longest caption rounded up
+    to ``multiple``: the teacher-forcing scan then runs only as many word
+    steps as needed, and a few lengths recur.  Exactly equivalent: the
+    dropped steps are fully masked."""
+    cap_mask = np.asarray(batch['cap_mask'])
+    Lc = cap_mask.shape[-1]
+    longest = int(cap_mask.sum(-1).max()) if cap_mask.size else Lc
+    bucket = min(max(-(-max(longest, 2) // multiple) * multiple, 2), Lc)
+    if bucket == Lc:
+        return batch
+    out = dict(batch)
+    out['cap_tensor'] = np.asarray(batch['cap_tensor'])[..., :bucket]
+    out['cap_mask'] = cap_mask[..., :bucket]
+    return out
+
+
+class Trainer:
+    """One FusionPDVC, its optimizer and the dropout generator, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+
+    def __init__(self, opt, device='cuda'):
+        self.opt = opt
+        self.device = torch.device(device)
+        self.model = make_fusion_model(opt, self.device, seed=opt.seed).train()
+        self.params = list(self.model.parameters())   # aliases once
+        self.weight_dict = build_weight_dict(opt)
+        self.optimizer = make_optimizer(opt, self.params)
+        # dropout masks come from the trainer's own generator
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            opt.seed + 1)
+        self.step = 0
+
+    def prepare_batch(self, batch):
+        """Caption-length bucketing, then the arrays as tensors on the
+        device."""
+        if getattr(self.opt, 'caption_len_bucketing', 1):
+            batch = bucket_caption_length(batch)
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                for k, v in batch.items()}
+
+    def total_loss(self, losses):
+        return sum(losses[k] * w for k, w in self.weight_dict.items()
+                   if k in losses and w)
+
+    def train_step(self, batch, lr: float, ss_prob: float = 0.0):
+        """One optimizer step on a collated numpy batch.  Returns the
+        losses (detached device tensors) with 'total_loss'."""
+        for group in self.optimizer.param_groups:
+            group['lr'] = lr
+        batch = self.prepare_batch(batch)
+        _, losses = self.model.forward_train(batch, self.gen, ss_prob)
+        total = self.total_loss(losses)
+        self.optimizer.zero_grad(set_to_none=False)
+        total.backward()
+        for p in self.params:
+            # an unused parameter still decays, as under optax
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        clip_by_global_norm_([p.grad for p in self.params], self.opt.grad_clip)
+        self.optimizer.step()
+        self.step += 1
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses['total_loss'] = total.detach()
+        return losses
+
+    def state(self):
+        return {'model': self.model.state_dict(),
+                'optimizer': self.optimizer.state_dict(), 'step': self.step}
+
+    def load_state(self, ck):
+        self.model.load_state_dict(ck['model'], strict=True)
+        self.optimizer.load_state_dict(ck['optimizer'])
+        self.step = int(ck.get('step', 0))
+
+
+def save_checkpoint(save_dir: str, tag: str, trainer: Trainer, epoch: int,
+                    extra: dict | None = None) -> str:
+    """``model-{tag}.pth`` in save_dir, written atomically."""
+    os.makedirs(save_dir, exist_ok=True)
+    payload = {**trainer.state(), 'epoch': epoch, **(extra or {})}
+    path = os.path.join(save_dir, f'model-{tag}.pth')
+    torch.save(payload, path + '.tmp')
+    os.replace(path + '.tmp', path)
+    return path
+
+
+def load_checkpoint(path: str, device='cpu') -> dict:
+    """A checkpoint written by :func:`save_checkpoint` (tensors, numbers and
+    strings only, so it loads with ``weights_only``)."""
+    return torch.load(path, map_location=device, weights_only=True)

@@ -26,7 +26,7 @@ def test_from_jax_params_matches_export_fusion(refine):
         assert got[k].shape == want[k].shape, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
-    model = make_fusion_model(opt)
+    model = make_fusion_model(opt, device='cpu')
     model.load_state_dict({k: torch.from_numpy(np.array(v))
                            for k, v in got.items()}, strict=True)
     loaded = model.state_dict()

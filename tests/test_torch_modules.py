@@ -38,7 +38,7 @@ SHAPES = (24, 12, 6, 3)          # pyramid of T = 24
 def models():
     opt = tiny_opt()
     params = jax_fusion_params(opt, fusion_batch(0))
-    model = make_fusion_model(opt)
+    model = make_fusion_model(opt, device='cpu')
     model.load_state_dict({k: to_torch(v) for k, v in
                            from_jax_params(params).items()}, strict=True)
     return opt, params['params'], model

@@ -1,18 +1,30 @@
-"""Port parity: trunk MSDA forward of ``dvc_tpu_torch`` vs the JAX package.
+"""Port parity: trunk MSDA forward and backward of ``dvc_tpu_torch`` vs the
+JAX package.
 
 The plain PyTorch version (what the port's wrapper runs on CPU tensors) is
 held against the JAX gather oracle and against the Pallas kernel run in
 interpret mode, at tolerance 1e-5 (f32; the two sides sum the L*P taps in
-the same order, so differences are a few ulps).
+the same order, so differences are a few ulps).  Its backward (autograd
+through it, the plain version of the CUDA backward kernel) is held against
+the three JAX backwards: the VJP of the gather oracle, the VJP of the dense
+one-hot form (the TPU default, ``DVC_MSDA_BWD=dense``) and the analytic
+Pallas backward ``_msda_bwd_kernel`` in interpret mode; tolerance 2e-5
+(dvalue sums up to Q*L*P contributions per row in another order).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_port import to_numpy, to_torch  # noqa: I100 (sets torch threads)
 
+from dvc_tpu.ops.ms_deform_attn import _msda_pallas_bwd_impl
 from dvc_tpu.ops.ms_deform_attn import ms_deform_attn as jax_msda
-from dvc_tpu_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_ref
+from dvc_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                              ms_deform_attn_bwd,
+                                              ms_deform_attn_bwd_ref,
+                                              ms_deform_attn_ref)
 
 LEVEL_TABLES = [(8, 4, 2, 1), (12, 6, 3), (7,), (25, 13, 7, 4)]
 
@@ -72,3 +84,52 @@ def test_out_of_range_taps_contribute_zero():
     got = ms_deform_attn(to_torch(value), shapes, to_torch(loc),
                          to_torch(attn))
     assert np.all(to_numpy(got) == 0.0)
+
+
+def _jax_vjp(impl, value, shapes, loc, attn, g):
+    _, vjp = jax.vjp(lambda v, l, a: jax_msda(v, shapes, l, a, mode='zeros',
+                                              impl=impl),
+                     jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn))
+    return vjp(jnp.asarray(g))
+
+
+@pytest.mark.parametrize('shapes', LEVEL_TABLES)
+def test_plain_backward_matches_every_jax_backward(shapes):
+    value, loc, attn = make_inputs(20 + len(shapes), shapes)
+    g = np.random.default_rng(30).standard_normal((2, 5, 3 * 8)).astype(
+        np.float32)
+    calls = ms_deform_attn_ref.calls
+    launches = ms_deform_attn_bwd.launches
+    tensors = [to_torch(x) for x in (value, loc, attn, g)]
+    # the backward kernel takes CUDA tensors only; the plain version is
+    # autograd through the plain forward
+    with pytest.raises(ValueError):
+        ms_deform_attn_bwd(tensors[0], shapes, *tensors[1:])
+    got = ms_deform_attn_bwd_ref(tensors[0], shapes, *tensors[1:])
+    assert ms_deform_attn_ref.calls == calls + 1
+    assert ms_deform_attn_bwd.launches == launches
+    wants = {impl: _jax_vjp(impl, value, shapes, loc, attn, g)
+             for impl in ('ref', 'dense')}
+    wants['pallas_bwd'] = _msda_pallas_bwd_impl(
+        jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn),
+        'zeros', True, jnp.asarray(g))
+    for impl, want in wants.items():
+        for name, a, b in zip(('dvalue', 'dloc', 'dattn'), got, want):
+            np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=2e-5,
+                                       atol=2e-5, err_msg=f'{impl} {name}')
+
+
+def test_wrapper_gradients_are_the_plain_backward():
+    """Autograd through the wrapper on CPU tensors gives the same gradients
+    as ``ms_deform_attn_bwd_ref``, out-of-range taps and padding included."""
+    shapes = (8, 4, 2)
+    value, loc, attn = make_inputs(40, shapes)
+    g = to_torch(np.random.default_rng(41).standard_normal(
+        (2, 5, 24)).astype(np.float32))
+    leaves = [to_torch(x).requires_grad_() for x in (value, loc, attn)]
+    (ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2]) * g).sum() \
+        .backward()
+    want = ms_deform_attn_bwd_ref(to_torch(value), shapes, to_torch(loc),
+                                  to_torch(attn), g)
+    for leaf, w in zip(leaves, want):
+        torch.testing.assert_close(leaf.grad, w, rtol=0, atol=0)

@@ -69,7 +69,7 @@ def test_eval_forward_and_postprocess(run):
         params, {k: jnp.asarray(v) for k, v in batch.items()})
     want_post = jax_postprocess(out, jnp.asarray(durations))
 
-    model = make_fusion_model(opt)
+    model = make_fusion_model(opt, device='cpu')
     model.load_state_dict({k: to_torch(v) for k, v in
                            from_jax_params(params).items()}, strict=True)
     tbatch = {k: to_torch(batch[k]) for k in
@@ -118,7 +118,7 @@ def _assert_same_events(got, want):
 def test_dense_captioner_matches_jax(run):
     _, _, folder = run
     feats, durs, sounds = _requests()
-    jdc, dc = JaxDenseCaptioner(folder), DenseCaptioner(folder)
+    jdc, dc = JaxDenseCaptioner(folder), DenseCaptioner(folder, device='cpu')
     for f, d, s in zip(feats, durs, sounds):
         _assert_same_events(dc.caption_features(f, d, sound=s),
                             jdc.caption_features(f, d, sound=s))
@@ -135,7 +135,7 @@ from dvc_tpu_torch.serve import DenseCaptioner, load_checkpoint
 folder = sys.argv[1]
 ck = load_checkpoint(folder + '/model-best.ckpt')
 assert 'visual_sa' in ck['params']['params'], sorted(ck['params'])
-events = DenseCaptioner(folder).caption_features(
+events = DenseCaptioner(folder, device='cpu').caption_features(
     [[0.1 * ((i * 7 + j) % 5) for j in range(16)] for i in range(20)], 33.0)
 loaded = [m for m in sys.modules if m in ('jax', 'flax', 'optax', 'dvc_tpu')
           or m.startswith('dvc_tpu.')]

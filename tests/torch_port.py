@@ -66,3 +66,22 @@ def jax_fusion_params(opt, batch, seed=0):
     params = jax.jit(lambda r, b: model.init(r, b, eval_mode=True))(
         jax.random.PRNGKey(seed), {k: jnp.asarray(v) for k, v in batch.items()})
     return jax.tree_util.tree_map(np.asarray, params)
+
+
+def train_batch(seed, B=2, T=24, C=16, G=3, Lc=8, vocab=20):
+    """fusion_batch with gt events: video 0 has 3 captioned events, video 1
+    has 2 (its third gt slot is padding); captions of 1-6 words."""
+    b = fusion_batch(seed, B, T, C, G, Lc)
+    rng = np.random.default_rng(seed + 100)
+    counts = [min(3, G), min(2, G)][:B]
+    for i, n in enumerate(counts):
+        centers = np.sort(rng.uniform(0.15, 0.85, n))
+        b['gt_boxes'][i, :n] = np.stack(
+            [centers, rng.uniform(0.05, 0.3, n)], -1)
+        b['gt_boxes_mask'][i, :n] = True
+        for j in range(n):
+            L = int(rng.integers(3, Lc + 1))
+            b['cap_tensor'][i, j, 1:L - 1] = rng.integers(1, vocab + 1, L - 2)
+            b['cap_mask'][i, j, :L] = True
+    b['video_length'][:, 2] = counts
+    return b
