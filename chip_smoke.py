@@ -9,10 +9,13 @@ Phases (one or more lines each; the last line is the JSON verdict):
    no CUDA device is an error (there is no CPU carry-on).
 2. build  — compile the hand-written kernels of ``dvc_tpu_torch/csrc`` with
    nvcc (sm_90a) and print the build time and ptxas resource lines.
-3. kernels vs plain — each of the five kernels against its plain PyTorch
+3. kernels vs plain — each of the nine kernels against its plain PyTorch
    version on the card at the serving and training paths' shapes (TF32
    off), with errors, CUDA-event times and each kernel's bound (bytes over
-   the HBM rate or f32 operations over the CUDA cores' peak).  Tolerances:
+   the HBM rate or f32 operations over the CUDA cores' peak); the scan
+   also at cap_nheads 8, the word-step kernels (K7-K10) at the stepwise
+   path's train (B=1, Q=90) and serve (B=16, Q=100, H=1 and 8) shapes, to
+   the scan's tolerances (``check_step``).  Tolerances:
    MSDA forward max abs error <= 1e-4 * max|out|, and each of its
    gradients <= 1e-4 * its max |ref|; greedy tokens equal and log-probs
    within 1e-3 on every (video, step, query) whose plain-version top-2
@@ -26,21 +29,31 @@ Phases (one or more lines each; the last line is the JSON verdict):
    requests of different lengths and durations, with and without sound,
    checked for well-formed events; one B=16 batch timed (videos/s) and one
    traced with ``torch.profiler`` (each kernel's share of the batch, the
-   card's idle share).  Both kernels' launch counters must rise and no
-   plain version may run.
+   card's idle share).  Both kernels' launch counters must rise, no
+   word-step kernel may launch and no plain version may run.
 5. agreement — the same model's raw outputs on the card against the CPU
    run of the plain versions on one video.
 6. train — ``dvc_tpu_torch.new_train.main`` for one ``--debug`` epoch (5
    steps at B=1) of the same recipe on a synthetic run written to a temp
    dir: finite losses, the launch counters of the MSDA forward and
-   backward and of the scan forward and backward must rise and no plain
-   version may run; the checkpoint it wrote serves one request on the
+   backward and of the scan forward and backward must rise, no word-step
+   kernel may launch and no plain version may run; the checkpoint it wrote
+   serves one request on the
    card; the total loss falls on a repeated batch; the train step timed at
    B=1 and B=16 and one B=16 step traced.
 7. train agreement — one train step's losses and gradients on the card
-   against the CPU plain path (same weights and batch, dropout off); then
-   a check that neither JAX nor any module of the JAX package ``dvc_tpu``
-   (by name or by file) was imported.
+   against the CPU plain path (same weights and batch, dropout off).
+8. stepwise — the stepwise caption path: ``new_train.main`` for two
+   --debug epochs with scheduled sampling from epoch 1 (ss_prob 0.25),
+   once through K7/K8 and once with --dsa_lstm_fuse 1 through K9/K10 (the
+   fused scan K4/K5 in epoch 0; one launch per word step; no plain
+   version; tokens fed by scheduled sampling), the step timed at B=1 and
+   B=16; the second run's checkpoint served with --dsa_greedy_fuse 0
+   through K7 and K9 against the fused greedy kernel (>= 90% of the
+   captions identical); the train agreement of phase 7 with
+   --dsa_scan_fuse 0 for both pairs.  Then a check that neither JAX nor
+   any module of the JAX package ``dvc_tpu`` (by name or by file) was
+   imported.
 
 Nothing catches a phase's failure: any failure exits non-zero and the last
 line ``{"ok": true, ...}`` is printed only when every phase passed.
@@ -56,6 +69,10 @@ import tempfile
 import time
 
 MSDA_LEVELS = (200, 100, 50, 25)      # T = 200 frames, 4 levels, S = 375
+# the word-step kernels of the stepwise caption path, which the default
+# flags (fused scan and greedy decode) never launch
+STEP_KERNELS = ('dsa_step_fwd', 'dsa_step_bwd', 'dsa_lstm_fwd',
+                'dsa_lstm_bwd')
 CFG = 'cfgs/yc2_newModel_sound.yml'
 DEVICE = 'cuda'                       # of the train phases (a CPU rehearsal
                                       # at a tiny size sets 'cpu')
@@ -423,11 +440,136 @@ def check_scan(gen, B, Q, K, H):
              'bound_by': bwd_bound[1]})
 
 
+def step_inputs(gen, B, Q, H, lstm, R=512, A=512, d=512, P=4):
+    """Random operands of one word step (K7, or with ``lstm`` K9) at the
+    caption head's widths: positions over each level's range and past its
+    ends, weights scaled like fan-in-normalised ones."""
+    import torch
+    dev = 'cuda'
+    Dh = d // H
+    L, S = len(MSDA_LEVELS), sum(MSDA_LEVELS)
+    LP = L * P
+
+    def w(*shape, fan_in):
+        return torch.randn(shape, generator=gen, device=dev) / fan_in ** 0.5
+
+    T = torch.tensor(MSDA_LEVELS, dtype=torch.float32, device=dev)
+    pos = ((torch.rand((B, H, Q, L, P), generator=gen, device=dev) * 1.2
+            - 0.1) * T[:, None] - 0.5).reshape(B, H, Q, LP)
+    head = (torch.randn((B, H, S, Dh), generator=gen, device=dev), pos,
+            w(B, Q, A, fan_in=4))
+    tail = (w(Dh, A, fan_in=Dh), w(A, fan_in=100), w(A, fan_in=A),
+            torch.tensor(0.05, device=dev))
+    if not lstm:
+        return head + tail
+    return head + (w(B, Q, 4 * R, fan_in=4), torch.tanh(w(B, Q, R, fan_in=1)),
+                   w(B, Q, R, fan_in=1), w(H, Dh, 4 * R, fan_in=d),
+                   w(R, 4 * R, fan_in=R)) + tail
+
+
+def word_step_macs(args, lstm):
+    """Least MACs of one word-step kernel over its B*Q queries: the scores'
+    taps . Wc (``lerp_rows_macs``) and . aw, the context (a lerp of two
+    value rows and a weighted sum per tap, 3*Dh); with the LSTM cell also
+    h . W_hh and ctx . ctx_w3 (4R*(R + H*Dh)).  hvec and the offsets are
+    computed outside the kernels; elementwise work is left out."""
+    value_t, pos, hvec = args[:3]
+    B, H, S, Dh = value_t.shape
+    Q, LP = pos.shape[2], pos.shape[3]
+    A, n = hvec.shape[-1], B * Q
+    macs = (lerp_rows_macs(n, B, H, S, LP, Dh, A, True)
+            + n * H * LP * (A + 3 * Dh))
+    if lstm:
+        R = args[4].shape[-1]
+        macs += n * 4 * R * (R + H * Dh)
+    return macs
+
+
+def check_step(gen, B, Q, H, lstm):
+    """K7 and K8 (or, with ``lstm``, K9 and K10) against the plain word step
+    and autograd through it.  Tolerances: outputs max abs error <= 1e-4 *
+    max|ref|; each gradient <= 1e-3 * its max |ref| + 1e-5 (f32 sums in
+    another order, atomics in dvalue, dWc and the bias sums).  d alpha_b is
+    zero in exact arithmetic, so both sides hold only the rounding of a sum
+    of N = B*Q*H*LP terms in no fixed order: its floor is check_scan's
+    max(5e-5, 2.5e-10 * N), or 64 unit roundoffs times sqrt(N) times the
+    terms' mean magnitude where that is larger (a unit-scale random
+    cotangent of ctx makes the terms larger than a train step's).  Bound:
+    ``word_step_macs`` at the f32 peak, the backward three times the
+    forward; bytes at the HBM rate."""
+    import torch
+    from dvc_tpu_torch.ops import dsa_step as ds
+    args = step_inputs(gen, B, Q, H, lstm)
+    if lstm:
+        names, fwd, bwd = ds.LSTM_NAMES, ds.dsa_lstm_step_fwd, \
+            ds.dsa_lstm_step_bwd
+        ref, bwd_ref = ds.lstm_step_ref, ds.lstm_step_bwd_ref
+    else:
+        names, fwd, bwd = ds.STEP_NAMES, ds.dsa_sample_attend_fwd, \
+            ds.dsa_sample_attend_bwd
+        ref, bwd_ref = ds.sample_attend_ref, ds.sample_attend_bwd_ref
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    outs, want = tup(fwd(*args, MSDA_LEVELS)), tup(ref(*args, MSDA_LEVELS))
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(outs, want))
+    fwd_tol = 1e-4 * max(float(b.abs().max()) for b in want)
+    cot = tuple(torch.randn(o.shape, generator=gen, device='cuda')
+                for o in outs)
+    grads = bwd(*args, MSDA_LEVELS, *cot)
+    wgrads = bwd_ref(*args, MSDA_LEVELS, *cot)
+    # d alpha_b's N terms, one per tap row: its gradient with alpha_b
+    # broadcast to every row; their sum is zero in exact arithmetic
+    rows = args[-1].expand(args[1].shape).clone().requires_grad_()
+    with torch.enable_grad():
+        terms = torch.autograd.grad(tup(ref(*args[:-1], rows, MSDA_LEVELS)),
+                                    rows, cot)[0]
+    N = terms.numel()
+    atol = {n: 1e-5 for n in names}
+    atol['ab'] = max(5e-5, 2.5e-10 * N,
+                     2.0 ** -18 * N ** 0.5 * float(terms.abs().mean()))
+    rel = {n: float((a - b).abs().max())
+           / (float(b.abs().max()) + atol[n] / 1e-3)
+           for n, a, b in zip(names, grads, wgrads)}
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads, wgrads))
+    fwd_ms = cuda_ms(lambda: fwd(*args, MSDA_LEVELS), 20)
+    fwd_plain = cuda_ms(lambda: ref(*args, MSDA_LEVELS), 5)
+    bwd_ms = cuda_ms(lambda: bwd(*args, MSDA_LEVELS, *cot), 20)
+    bwd_plain = cuda_ms(lambda: bwd_ref(*args, MSDA_LEVELS, *cot), 5)
+    macs = word_step_macs(args, lstm)
+    inputs = [t for t in args if torch.is_tensor(t)]
+    fwd_bound = bound(nbytes(*inputs, *outs), 2.0 * macs)
+    bwd_bound = bound(nbytes(*inputs, *cot, *grads), 6.0 * macs)
+    kind = 'dsa_lstm' if lstm else 'dsa_step'
+    shape = (f'B={B} Q={Q} H={H} Dh={512 // H} S=375 LP=16 A=512'
+             + (' R=512' if lstm else ''))
+    print(f'[kernels] {kind}_fwd {shape}: max_abs_err {fwd_err:.3e} (tol '
+          f'{fwd_tol:.3e}) kernel {fwd_ms:.4f} ms plain {fwd_plain:.4f} ms '
+          f'bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})')
+    print(f'[kernels] {kind}_bwd {shape}: max_abs_err {bwd_err:.3e}, worst '
+          f'relative {max(rel, key=rel.get)} {max(rel.values()):.2e} (tol '
+          f'1e-3, floor 1e-5, d alpha_b {atol["ab"]:.2e}) kernel '
+          f'{bwd_ms:.4f} ms plain {bwd_plain:.4f} ms bound '
+          f'{bwd_bound[0]:.4f} ms ({bwd_bound[1]})')
+    if not fwd_err <= fwd_tol or not max(rel.values()) <= 1e-3:
+        raise AssertionError(f'{kind} B={B} H={H}: forward error {fwd_err}, '
+                             f'gradient relative errors {rel}')
+    return ({'B': B, 'Q': Q, 'H': H, 'max_abs_err': fwd_err, 'ms': fwd_ms,
+             'plain_ms': fwd_plain, 'bound_ms': fwd_bound[0],
+             'bound_by': fwd_bound[1]},
+            {'B': B, 'Q': Q, 'H': H, 'max_abs_err': bwd_err, 'ms': bwd_ms,
+             'plain_ms': bwd_plain, 'bound_ms': bwd_bound[0],
+             'bound_by': bwd_bound[1]})
+
+
 def phase_kernels():
     """Every kernel against its plain version at the main paths' shapes:
     serving (MSDA forward and greedy at B=16) and training (MSDA forward and
     backward at B=1, scan at B=1 and B=16 with Q = 3 layers x 30 gt pairs
-    and K = 29 word steps).  Returns {kernel: [result per shape]}."""
+    and K = 29 word steps, and at B=1 with cap_nheads 8); the word-step
+    kernels at the stepwise path's train shape (B=1, Q=90, H=1) and serve
+    shape (B=16, Q=100, H=1 and 8).  Returns {kernel: [result per shape]}."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -438,9 +580,16 @@ def phase_kernels():
                'dsa_greedy': [check_greedy(gen, 16, 100, 1),
                               check_greedy(gen, 16, 100, 8)]}
     res['msda_bwd'] = [check_msda_bwd(gen, 1, 375), check_msda_bwd(gen, 1, 100)]
-    scans = [check_scan(gen, 1, 90, 29, 1), check_scan(gen, 16, 90, 29, 1)]
+    scans = [check_scan(gen, 1, 90, 29, 1), check_scan(gen, 16, 90, 29, 1),
+             check_scan(gen, 1, 90, 29, 8)]
     res['dsa_scan_fwd'] = [f for f, _ in scans]
     res['dsa_scan_bwd'] = [b for _, b in scans]
+    for lstm, kind in ((False, 'dsa_step'), (True, 'dsa_lstm')):
+        steps = [check_step(gen, 1, 90, 1, lstm),
+                 check_step(gen, 16, 100, 1, lstm),
+                 check_step(gen, 16, 100, 8, lstm)]
+        res[f'{kind}_fwd'] = [f for f, _ in steps]
+        res[f'{kind}_bwd'] = [b for _, b in steps]
     return res
 
 
@@ -557,7 +706,8 @@ def phase_serve(dc):
     trace('B=16 caption_batch', lambda: dc.caption_batch(batch16, durs16))
     launches, plain = read_counts()
     print(f'[serve] kernel launches {launches}, plain-version calls {plain}')
-    if min(launches['msda_fwd'], launches['dsa_greedy']) < 1 or plain:
+    if (min(launches['msda_fwd'], launches['dsa_greedy']) < 1 or plain
+            or any(launches[k] for k in STEP_KERNELS)):
         raise AssertionError(f'serve path did not run on the kernels: '
                              f'launches {launches}, plain calls {plain}')
     return launches
@@ -660,31 +810,37 @@ def write_synthetic_run(root, opt, n_videos=TRAIN_VIDEOS, seed=0):
     return recipe
 
 
+def _counted():
+    """(kernel wrappers by name, plain versions) of every counted kernel."""
+    from dvc_tpu_torch import ops
+    kernels = {'msda_fwd': ops.ms_deform_attn,
+               'msda_bwd': ops.ms_deform_attn_bwd,
+               'dsa_scan_fwd': ops.dsa_teacher_scan_fwd,
+               'dsa_scan_bwd': ops.dsa_teacher_scan_bwd,
+               'dsa_greedy': ops.dsa_greedy_scan,
+               'dsa_step_fwd': ops.dsa_sample_attend_fwd,
+               'dsa_step_bwd': ops.dsa_sample_attend_bwd,
+               'dsa_lstm_fwd': ops.dsa_lstm_step_fwd,
+               'dsa_lstm_bwd': ops.dsa_lstm_step_bwd}
+    plain = (ops.ms_deform_attn_ref, ops.dsa_teacher_scan_ref,
+             ops.dsa_greedy_scan_ref, ops.sample_attend_ref,
+             ops.lstm_step_ref)
+    return kernels, plain
+
+
 def reset_counts():
-    from dvc_tpu_torch.ops import (dsa_greedy_scan, dsa_greedy_scan_ref,
-                                   dsa_teacher_scan_bwd, dsa_teacher_scan_fwd,
-                                   dsa_teacher_scan_ref, ms_deform_attn,
-                                   ms_deform_attn_bwd, ms_deform_attn_ref)
-    for fn in (ms_deform_attn, ms_deform_attn_bwd, dsa_teacher_scan_fwd,
-               dsa_teacher_scan_bwd, dsa_greedy_scan):
+    kernels, plain = _counted()
+    for fn in kernels.values():
         fn.launches = 0
-    for fn in (ms_deform_attn_ref, dsa_teacher_scan_ref, dsa_greedy_scan_ref):
+    for fn in plain:
         fn.calls = 0
 
 
 def read_counts():
-    from dvc_tpu_torch.ops import (dsa_greedy_scan, dsa_greedy_scan_ref,
-                                   dsa_teacher_scan_bwd, dsa_teacher_scan_fwd,
-                                   dsa_teacher_scan_ref, ms_deform_attn,
-                                   ms_deform_attn_bwd, ms_deform_attn_ref)
-    launches = {'msda_fwd': ms_deform_attn.launches,
-                'msda_bwd': ms_deform_attn_bwd.launches,
-                'dsa_scan_fwd': dsa_teacher_scan_fwd.launches,
-                'dsa_scan_bwd': dsa_teacher_scan_bwd.launches,
-                'dsa_greedy': dsa_greedy_scan.launches}
-    plain = (ms_deform_attn_ref.calls + dsa_teacher_scan_ref.calls
-             + dsa_greedy_scan_ref.calls)
-    return launches, plain
+    """({kernel: launches}, plain-version calls) since reset_counts()."""
+    kernels, plain = _counted()
+    return ({k: fn.launches for k, fn in kernels.items()},
+            sum(fn.calls for fn in plain))
 
 
 def train_batch(opt, B):
@@ -698,15 +854,15 @@ def train_batch(opt, B):
     return batch
 
 
-def time_steps(trainer, batch, lr, reps):
+def time_steps(trainer, batch, lr, reps, ss_prob=0.0):
     """Host-clock ms of one train step (after one warm-up step), and the
     last step's losses."""
     import torch
-    trainer.train_step(batch, lr)
+    trainer.train_step(batch, lr, ss_prob)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        losses = trainer.train_step(batch, lr)
+        losses = trainer.train_step(batch, lr, ss_prob)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3, losses
 
@@ -740,7 +896,8 @@ def phase_train(tmp):
     if bad or 'loss_caption' not in losses:
         raise AssertionError(f'train losses not finite: {bad}')
     if (min(launches[k] for k in ('msda_fwd', 'msda_bwd', 'dsa_scan_fwd',
-                                  'dsa_scan_bwd')) < 1 or plain):
+                                  'dsa_scan_bwd')) < 1 or plain
+            or any(launches[k] for k in STEP_KERNELS)):
         raise AssertionError(f'train path did not run on the kernels: '
                              f'launches {launches}, plain calls {plain}')
 
@@ -781,7 +938,7 @@ def phase_train(tmp):
 # 7. train agreement
 # --------------------------------------------------------------------------
 
-def phase_train_agreement(opt):
+def phase_train_agreement(opt, label='train-agreement'):
     """One train step's forward and backward on the card (kernels) against
     the CPU plain path, same weights and batch, dropout off: the same
     matching; every loss within 1e-4 relative (f32 on both, summation orders
@@ -814,7 +971,7 @@ def phase_train_agreement(opt):
     ranked = sorted(grad_err, key=grad_err.get, reverse=True)
     worst = ranked[0]
     same = bool((gi == ci).all())
-    print(f'[train-agreement] card vs CPU plain, one B=1 step: matching '
+    print(f'[{label}] card vs CPU plain, one B=1 step: matching '
           f'identical {same}; worst loss relative error {loss_err:.2e}; '
           f'worst gradient relative L2 errors over {len(cg)} parameters: '
           + ', '.join(f'{n} {grad_err[n]:.2e} (|grad| '
@@ -822,6 +979,183 @@ def phase_train_agreement(opt):
     if not same or loss_err > 1e-4 or grad_err[worst] > 1e-3 \
             or sorted(gg) != sorted(cg):
         raise AssertionError('card and CPU disagree on the train step')
+
+
+# --------------------------------------------------------------------------
+# 8. the stepwise caption path
+# --------------------------------------------------------------------------
+
+SS_PROB = 0.25
+STEPWISE = {False: ('dsa_step_fwd', 'dsa_step_bwd'),
+            True: ('dsa_lstm_fwd', 'dsa_lstm_bwd')}
+
+
+def stepwise_opt(tmp, lstm_fuse):
+    """The synthetic run's recipe for two --debug epochs with scheduled
+    sampling from epoch 1 (ss_prob 0 in epoch 0, SS_PROB in epoch 1)."""
+    from dvc_tpu_torch.utils.config import parse_opts
+    opt = parse_opts(['--cfg_path', os.path.join(tmp, 'smoke.yml'), '--debug',
+                      '--device', DEVICE, '--epoch', '2',
+                      '--scheduled_sampling_start', '0',
+                      '--basic_ss_prob', str(SS_PROB),
+                      '--dsa_lstm_fuse', str(int(lstm_fuse))], root=ROOT)
+    opt.epoch = 2                 # the recipe file's epoch (1) overlays it
+    return opt
+
+
+def word_steps(batch):
+    """The word steps of one train step on ``batch`` (after the trainer's
+    caption-length bucketing)."""
+    from dvc_tpu_torch.train import bucket_caption_length
+    return bucket_caption_length(batch)['cap_tensor'].shape[-1] - 1
+
+
+def phase_stepwise_train(tmp):
+    """``new_train.main`` for two --debug epochs (5 steps each at B=1) with
+    scheduled sampling from epoch 1, once with each word-step kernel pair
+    (--dsa_lstm_fuse 0: K7/K8, 1: K9/K10), with the counts set to 0 just
+    before each run and read just after: epoch 0 runs the fused scan (one
+    K4 and one K5 launch per step), epoch 1 the stepwise path; then one
+    step checked for one launch of each kernel of the pair per word step,
+    and the step timed at B=1 and B=16 at ss_prob SS_PROB, and one B=16
+    step traced.  Returns
+    ({pair: launches}, the lstm-fuse run's folder)."""
+    import math
+    import torch
+    from dvc_tpu_torch.models.caption_heads import DSACaptionHead
+    from dvc_tpu_torch.new_train import main as train_main
+    from dvc_tpu_torch.train import Trainer, ss_prob_for_epoch
+    out, folder = {}, None
+    for lstm_fuse in (False, True):
+        fwd, bwd = STEPWISE[lstm_fuse]
+        opt = stepwise_opt(tmp, lstm_fuse)
+        assert [ss_prob_for_epoch(opt, e) for e in (0, 1)] == [0.0, SS_PROB]
+        reset_counts()
+        DSACaptionHead.fed_samples.clear()
+        t0 = time.perf_counter()
+        folder, losses = train_main(opt)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = read_counts()
+        fed = DSACaptionHead.fed_sample_count()
+        other = STEPWISE[not lstm_fuse]
+        print(f'[stepwise] new_train.main --debug --epoch 2 '
+              f'--scheduled_sampling_start 0 --basic_ss_prob {SS_PROB} '
+              f'--dsa_lstm_fuse {int(lstm_fuse)}, B=1: {seconds:.1f} s; '
+              f'epoch 1 mean losses '
+              f'{json.dumps({k: round(v, 4) for k, v in losses.items()})}')
+        print(f'[stepwise] kernel launches {launches}, plain-version calls '
+              f'{plain}, scheduled-sampling tokens fed {fed}')
+        bad = [k for k, v in losses.items() if not math.isfinite(v)]
+        if (bad or plain or fed < 1
+                or launches['dsa_scan_fwd'] != 5
+                or launches['dsa_scan_bwd'] != 5
+                or launches[fwd] < 5 or launches[fwd] != launches[bwd]
+                or launches[other[0]] or launches[other[1]]
+                or min(launches['msda_fwd'], launches['msda_bwd']) < 1):
+            raise AssertionError(f'stepwise train path: losses {losses}, '
+                                 f'launches {launches}, plain {plain}, fed '
+                                 f'{fed}')
+        out[lstm_fuse] = launches
+
+        trainer = Trainer(opt, device=DEVICE)
+        batch = train_batch(opt, 1)
+        reset_counts()
+        trainer.train_step(batch, opt.lr, SS_PROB)
+        launches, plain = read_counts()
+        K = word_steps(batch)
+        print(f'[stepwise] one B=1 step at ss_prob {SS_PROB}: {K} word '
+              f'steps, {fwd} {launches[fwd]} and {bwd} {launches[bwd]} '
+              f'launches, plain-version calls {plain}')
+        if launches[fwd] != K or launches[bwd] != K or plain:
+            raise AssertionError(f'stepwise step: {launches}, K={K}')
+        ms1, _ = time_steps(trainer, batch, opt.lr, 3, SS_PROB)
+        batch16 = train_batch(opt, 16)
+        ms16, losses16 = time_steps(trainer, batch16, opt.lr, 2, SS_PROB)
+        if not all(math.isfinite(float(v)) for v in losses16.values()):
+            raise AssertionError('B=16 stepwise train losses not finite')
+        print(f'[stepwise] train step at ss_prob {SS_PROB} through '
+              f'{fwd}/{bwd} (host clock, after a warm-up): B=1 {ms1:.1f} ms '
+              f'({word_steps(batch)} word steps); B=16 {ms16:.1f} ms '
+              f'({word_steps(batch16)} word steps); peak device memory '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+        trace(f'B=16 stepwise train_step ({fwd}/{bwd})',
+              lambda: trainer.train_step(batch16, opt.lr, SS_PROB))
+        del trainer
+    return out, folder
+
+
+def phase_stepwise_serve(folder):
+    """The lstm-fuse run's checkpoint served with --dsa_greedy_fuse 0 on a
+    B=16 batch, through K7 (--dsa_lstm_fuse 0) and through K9 (1), against
+    the fused greedy kernel on the same weights: the raw outputs' captions
+    must be identical token for token on at least 90% of the queries (the
+    rule of ``phase_agreement``), every launch of the stepwise kernel one
+    per decode step, no plain version; each path's caption_batch timed."""
+    import numpy as np
+    import torch
+    from dvc_tpu_torch.serve import DenseCaptioner
+    from dvc_tpu_torch.utils.config import Config
+    fused = DenseCaptioner(folder, which='last', device=DEVICE)
+    C, K = fused.opt.feature_dim, fused.opt.max_caption_len
+    rng = np.random.default_rng(4)
+    feats = [rng.standard_normal((int(n), C)).astype(np.float32)
+             for n in rng.integers(60, 400, 16)]
+    durs = [float(d) for d in rng.uniform(10, 300, 16)]
+    batch = fused._make_batch(feats, durs)
+
+    def timed(dc):
+        dc.caption_batch(feats, durs)                     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dc.caption_batch(feats, durs)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    with torch.inference_mode():
+        want = fused.model(batch)
+    fused_ms = timed(fused)
+    print(f'[stepwise-serve] fused greedy kernel, B=16 caption_batch: '
+          f'{fused_ms:.1f} ms')
+    for lstm_fuse in (False, True):
+        fwd = STEPWISE[lstm_fuse][0]
+        opt = Config({**fused.opt.to_dict(), 'dsa_greedy_fuse': 0,
+                      'dsa_lstm_fuse': int(lstm_fuse)})
+        dc = DenseCaptioner(opt=opt, state_dict=fused.model.state_dict(),
+                            device=DEVICE)
+        reset_counts()
+        with torch.inference_mode():
+            got = dc.model(batch)
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        same = (got['seq'] == want['seq']).all(-1)
+        rows = float(same.float().mean())
+        lp_err = (float((got['cap_prob_eval'] - want['cap_prob_eval'])
+                        .abs()[same].max()) if same.any() else float('inf'))
+        ms = timed(dc)
+        print(f'[stepwise-serve] --dsa_greedy_fuse 0 --dsa_lstm_fuse '
+              f'{int(lstm_fuse)}: {fwd} launches {launches[fwd]}, greedy '
+              f'kernel {launches["dsa_greedy"]}, plain-version calls '
+              f'{plain}; captions identical to the fused kernel\'s {rows:.3f}'
+              f', cap_prob_eval max abs diff on those {lp_err:.2e}; B=16 '
+              f'caption_batch {ms:.1f} ms')
+        if (launches[fwd] != K or launches['dsa_greedy'] or plain
+                or rows < 0.9 or lp_err > 1e-3):
+            raise AssertionError('stepwise serving disagrees with the fused '
+                                 'greedy decode')
+
+
+def phase_stepwise_agreement(opt):
+    """``phase_train_agreement`` with --dsa_scan_fuse 0 (ss_prob 0), so the
+    caption head runs the stepwise path: K7/K8 and then K9/K10 on the card
+    against the plain word step on the CPU."""
+    from dvc_tpu_torch.utils.config import Config
+    for lstm_fuse in (0, 1):
+        phase_train_agreement(
+            Config({**opt.to_dict(), 'dsa_scan_fuse': 0,
+                    'dsa_lstm_fuse': lstm_fuse}),
+            label=f'stepwise-agreement lstm_fuse={lstm_fuse}')
 
 
 def main():
@@ -838,6 +1172,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, train_opt = phase_train(tmp)
         phase_train_agreement(train_opt)
+        step_launches, folder = phase_stepwise_train(tmp)
+        phase_stepwise_serve(folder)
+        phase_stepwise_agreement(train_opt)
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))
@@ -848,18 +1185,25 @@ def main():
         raise AssertionError(f'the port imported {foreign}')
     # the first shape of each kernel: MSDA forward at the encoder shape
     # (B=16, Q=375), greedy at H=1 (the recipe's cap_nheads), the training
-    # kernels at B=1; the [kernels] lines above give every shape.  launches:
-    # the serve path's run for msda_fwd and dsa_greedy, the train path's for
-    # the others
+    # kernels at B=1, the word-step kernels at the train shape (B=1, Q=90,
+    # H=1); the [kernels] lines above give every shape.  launches: the serve
+    # path's run for msda_fwd and dsa_greedy, the train path's for the
+    # others, the stepwise train runs' for the word-step kernels
     launches = {'msda_fwd': serve_launches['msda_fwd'],
                 'dsa_greedy': serve_launches['dsa_greedy'],
                 **{k: train_launches[k] for k in
-                   ('msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd')}}
+                   ('msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd')},
+                **{k: step_launches[lstm][k]
+                   for lstm, names in STEPWISE.items() for k in names}}
     sources = {'msda_fwd': ('ms_deform_attn.cu', 'ms_deform_attn.py:309'),
                'msda_bwd': ('ms_deform_attn.cu', 'ms_deform_attn.py:551'),
                'dsa_scan_fwd': ('dsa_scan.cu', 'dsa_scan.py:149'),
                'dsa_scan_bwd': ('dsa_scan.cu', 'dsa_scan.py:182'),
-               'dsa_greedy': ('dsa_greedy.cu', 'dsa_greedy.py:131')}
+               'dsa_greedy': ('dsa_greedy.cu', 'dsa_greedy.py:131'),
+               'dsa_step_fwd': ('dsa_step.cu', 'dsa_step.py:311'),
+               'dsa_step_bwd': ('dsa_step.cu', 'dsa_step.py:324'),
+               'dsa_lstm_fwd': ('dsa_step.cu', 'dsa_step.py:545'),
+               'dsa_lstm_bwd': ('dsa_step.cu', 'dsa_step.py:566')}
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda',
          'source': f'dvc_tpu_torch/csrc/{src}',

@@ -193,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
 
   for (int k = 0; k < a.K; ++k) {
     // ---- 1-2. hvec and the tap table; embedding rows of the fed-back tokens
-    attend_hvec_taps(at, sm, b, q0, nullptr);
+    attend_hvec_taps(at, sm, b, q0);
     for (int i = tid; i < kQT * E; i += kThreads) {
       const int q = i / E, e = i % E;
       emb_s[q * ldE + e] = a.embed[(size_t)tok_s[q] * E + e];

@@ -43,9 +43,15 @@
 // the FP32 peak; the backward adds the atomics into dvalue and G (2*(Dh + A)
 // per tap row and step).  dvalue, G (so dWc) and the atomically summed
 // vectors vary by a few ulps from run to run; the outer sums are
-// deterministic.  Limits: A <= 512 and R <= 512 in the backward (a du tile
-// row and the staged dz of a tile fit one kBM x kBN buffer), and the shared
-// memory of a block (checked at launch).
+// deterministic.  The attention half of the backward (attend_backward), the
+// cell backward and dz W^T live in dsa_common.cuh, shared with the single
+// word-step backwards of dsa_step.cu.  Shared memory of a block: 207,376
+// bytes at cap_nheads 1 and 228,880 at cap_nheads 8 (R = A = 512, LP = 16;
+// the card allows 232,448): the sampling offsets are recomputed in the sampling
+// backward instead of kept, and dpos takes the softmax weights' buffer row
+// tile by row tile.  Limits: A <= 512 and R <= 512 in the backward (a du
+// tile row and the staged dz of a tile fit one kBM x kBN buffer), and the
+// shared memory of a block (checked at launch).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -127,7 +133,7 @@ scan_fwd_kernel(ScanArgs a, float* __restrict__ hs, float* __restrict__ cs) {
   const float ab = __ldg(a.ab);
 
   for (int k = 0; k < a.K; ++k) {
-    attend_hvec_taps(at, sm, b, q0, nullptr);
+    attend_hvec_taps(at, sm, b, q0);
     __syncthreads();
     attend_scores(at, sm, value_b, ab);
     attend_softmax_ctx(at, sm, value_b);
@@ -186,7 +192,7 @@ struct BwdOut {
 
 struct BwdLayout {
   int h, dh, dc, hvec, cx, dctx, taps, wc, big;  // float offsets
-  int wlo, whi, d, ddot, off, dpos, red, dcb, daw, dab;
+  int wlo, whi, d, ddot, red, dcb, daw, dab;
   int lo, hi;                                    // int offsets
   int floats, ints;
   __host__ __device__ BwdLayout(int R, int A, int HD, int NR) {
@@ -203,10 +209,9 @@ struct BwdLayout {
     big = o;  o += kBM * kBN;         // staged dz (kQT, 4R), then du tiles
     wlo = o;  o += pad4(NR);
     whi = o;  o += pad4(NR);
-    d = o;    o += pad4(NR);          // softmax weights
+    d = o;    o += pad4(NR);          // softmax weights, then dpos, then
+                                      // dpos * offset
     ddot = o; o += pad4(NR);          // dwts, then ddot, then doff
-    off = o;  o += pad4(NR);
-    dpos = o; o += pad4(NR);
     red = o;  o += kWarps * kRed;
     dcb = o;  o += pad4(A);
     daw = o;  o += pad4(A);
@@ -225,7 +230,6 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
   float* smem = reinterpret_cast<float*>(smem4);
   const AttendArgs& at = a.at;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rg = tid / 64;
   const int b = blockIdx.y, q0 = blockIdx.x * kQT;
   const int R = at.R, A = at.A, H = at.H, Dh = at.Dh, Q = at.Q, LP = at.LP;
   const int S = at.S, K = a.K;
@@ -238,9 +242,6 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
   float* dctx_s = smem + L.dctx;
   float* big_s = smem + L.big;
   float* ddot_s = smem + L.ddot;
-  float* off_s = smem + L.off;
-  float* dpos_s = smem + L.dpos;
-  float* red_s = smem + L.red;
   float* dcb_s = smem + L.dcb;
   float* daw_s = smem + L.daw;
   float* dab_s = smem + L.dab;
@@ -248,8 +249,11 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
   AttendSmem sm;
   sm.h = smem + L.h; sm.hvec = smem + L.hvec; sm.ctx = cx_s;
   sm.taps = smem + L.taps; sm.wc = smem + L.wc; sm.wlo = smem + L.wlo;
-  sm.whi = smem + L.whi; sm.d = smem + L.d; sm.red = red_s;
+  sm.whi = smem + L.whi; sm.d = smem + L.d; sm.red = smem + L.red;
   sm.lo = ints + L.lo; sm.hi = ints + L.hi;
+  AttendGradSmem gs;
+  gs.dctx = dctx_s; gs.dhvec = cx_s; gs.ddot = ddot_s; gs.du = big_s;
+  gs.dcb = dcb_s; gs.daw = daw_s; gs.dab = dab_s;
 
   // a query past the end of the ragged last tile runs on a copy of the
   // last query with a zero cotangent: every gradient it adds is exactly 0,
@@ -275,7 +279,7 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
     __syncthreads();
 
     // ---- recompute the step's attention: hvec, taps, softmax weights, ctx
-    attend_hvec_taps(at, sm, b, q0, off_s);
+    attend_hvec_taps(at, sm, b, q0);
     __syncthreads();
     attend_scores(at, sm, value_b, ab);
     attend_softmax_ctx(at, sm, value_b);
@@ -303,201 +307,58 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
         const float c_prev = o.cs_prev[row * R + r];
         const float gh = valid ? o.g[row * R + r] + dh_s[q * ldR + r] : 0.f;
         const float gc = valid ? dc_s[q * ldR + r] : 0.f;
-        const float si = sigmoidf_(z[0][q]), sf = sigmoidf_(z[1][q]);
-        const float tg = tanhf(z[2][q]), so = sigmoidf_(z[3][q]);
-        const float c_new = sf * c_prev + si * tg;
-        const float th = tanhf(c_new);
-        const float dc_tot = gc + gh * so * (1.f - th * th);
-        const float dzg[4] = {dc_tot * tg * si * (1.f - si),
-                              dc_tot * c_prev * sf * (1.f - sf),
-                              dc_tot * si * (1.f - tg * tg),
-                              gh * th * so * (1.f - so)};
+        float dzg[4];
+        const float dc_prev = cell_bwd(z[0][q], z[1][q], z[2][q], z[3][q],
+                                       c_prev, gh, gc, dzg);
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           big_s[q * R4 + g * R + r] = dzg[g];
           if (valid) o.dz[row * R4 + g * R + r] = dzg[g];
         }
-        dc_s[q * ldR + r] = dc_tot * sf;
+        dc_s[q * ldR + r] = dc_prev;
       }
     }
     __syncthreads();
 
-    // ---- dh_{k-1} = dz W_hh^T and dctx = dz ctx_w3^T: a warp per output
-    //      unit, lanes along the 4R gate columns (coalesced weight rows)
-    for (int u = warp; u < R + HD; u += kWarps) {
-      const float* w = u < R ? a.w_hh + (size_t)u * R4 : a.ctx_w3 + (size_t)(u - R) * R4;
-      float acc[kQT] = {};
-      for (int j = lane; j < R4; j += 32) {
-        const float wj = w[j];
-#pragma unroll
-        for (int q = 0; q < kQT; ++q) acc[q] = fmaf(big_s[q * R4 + j], wj, acc[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < kQT; ++q) {
-        const float v = warp_sum(acc[q]);
-        if (lane == 0) {
-          if (u < R) dh_s[q * ldR + u] = v;
-          else dctx_s[q * ldHD + u - R] = v;
-        }
-      }
-    }
+    // ---- dh_{k-1} = dz W_hh^T and dctx = dz ctx_w3^T
+    gates_backprop(big_s, R, HD, a.w_hh, a.ctx_w3, [&](int q, int u, float v) {
+      if (u < R) dh_s[q * ldR + u] = v;
+      else dctx_s[q * ldHD + u - R] = v;
+    });
     __syncthreads();
 
-    // ---- attention backward: dwts = taps . dctx (a warp per tap row),
-    //      then ddot = wts * (dwts - sum_p wts * dwts) per (q, head)
-    for (int row = warp; row < NR; row += kWarps) {
-      const int q = row / HLP, hh = (row / LP) % H;
-      const float* v = value_b + (size_t)hh * S * Dh;
-      const float* dc = dctx_s + q * ldHD + hh * Dh;
-      const float wl = sm.wlo[row], wh = sm.whi[row];
-      const size_t il = (size_t)sm.lo[row] * Dh, ih = (size_t)sm.hi[row] * Dh;
-      float acc = 0.f;
-      for (int dh = lane; dh < Dh; dh += 32)
-        acc = fmaf(wl * v[il + dh] + wh * v[ih + dh], dc[dh], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) ddot_s[row] = acc;
-    }
-    for (int i = tid; i < kQT * ldA; i += kThreads) cx_s[i] = 0.f;  // dhvec
-    __syncthreads();
-    for (int gi = tid; gi < kQT * H; gi += kThreads) {
-      float* dw = ddot_s + gi * LP;
-      const float* wts = sm.d + gi * LP;
-      float sum = 0.f;
-      for (int p = 0; p < LP; ++p) sum += wts[p] * dw[p];
-      float tot = 0.f;
-      for (int p = 0; p < LP; ++p) {
-        const float dd = wts[p] * (dw[p] - sum);
-        dw[p] = dd;
-        tot += dd;
-      }
-      atomicAdd(dab_s, tot);
-    }
-    __syncthreads();
+    // ---- attention and sampling backward of the step; sm.d then holds
+    //      dpos and cx_s dhvec
+    attend_backward(at, sm, gs, value_b, o.dvalue + (size_t)b * H * S * Dh,
+                    o.G + (size_t)b * H * S * A);
 
-    // ---- scores again, tile by tile: du = ddot * aw * (1 - tanh^2), then
-    //      dtaps = wts * dctx + du Wc^T, dvalue, G and dpos
-    for (int r0 = 0; r0 < NR; r0 += kBM) {
-      float acc[4][8];
-      score_tile(at, sm, value_b, r0, 0, acc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tile_col(0, j);
-        if (col >= A) continue;
-        const float cbv = a.at.cb[col], awv = a.at.aw[col];
-        float dcb_p = 0.f, daw_p = 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int rr = rg * 4 + i, row = r0 + rr;
-          float du = 0.f;
-          if (row < NR) {
-            const int q = row / HLP, hh = (row / LP) % H;
-            const float t = tanhf((acc[i][j] + cbv) + sm.hvec[q * ldA + col]);
-            const float dd = ddot_s[row];
-            du = dd * awv * (1.f - t * t);
-            daw_p += dd * t;
-            dcb_p += du;
-            atomicAdd(cx_s + q * ldA + col, du);
-            float* Gb = o.G + ((size_t)b * H + hh) * S * A + col;
-            atomicAdd(Gb + (size_t)sm.lo[row] * A, sm.wlo[row] * du);
-            atomicAdd(Gb + (size_t)sm.hi[row] * A, sm.whi[row] * du);
-          }
-          big_s[rr * kBN + col] = du;
-        }
-        atomicAdd(dcb_s + col, dcb_p);
-        atomicAdd(daw_s + col, daw_p);
-      }
-      __syncthreads();
-
-      float dpos_p[4] = {};
-      for (int n0 = 0; n0 < Dh; n0 += kBN) {
-        float dt[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) dt[i][j] = 0.f;
-        for (int a0 = 0; a0 < A; a0 += kBK) {
-          for (int i = tid; i < kBK * kBN; i += kThreads) {  // Wc^T slice
-            const int kk = i / kBN, dh = n0 + i % kBN;
-            sm.wc[i] = (a0 + kk < A && dh < Dh) ? a.at.cw[(size_t)dh * A + a0 + kk] : 0.f;
-          }
-          __syncthreads();
-          const int kmax = min(kBK, A - a0);
-          for (int kk = 0; kk < kmax; ++kk) {
-            float du[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) du[i] = big_s[(rg * 4 + i) * kBN + a0 + kk];
-            const float4 u4 = ld4(sm.wc + kk * kBN + (threadIdx.x % 64) * 4);
-            const float4 v4 = ld4(sm.wc + kk * kBN + 256 + (threadIdx.x % 64) * 4);
-            const float w[8] = {u4.x, u4.y, u4.z, u4.w, v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 8; ++j) dt[i][j] = fmaf(du[i], w[j], dt[i][j]);
-          }
-          __syncthreads();
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = r0 + rg * 4 + i;
-          if (row >= NR) continue;
-          const int q = row / HLP, hh = (row / LP) % H;
-          const float wts = sm.d[row], wl = sm.wlo[row], wh = sm.whi[row];
-          const size_t vrow = ((size_t)b * H + hh) * S;
-          const float* v = at.value + vrow * Dh;
-          float* dv = o.dvalue + vrow * Dh;
-          const size_t il = (size_t)sm.lo[row] * Dh, ih = (size_t)sm.hi[row] * Dh;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int dh = tile_col(n0, j);
-            if (dh >= Dh) continue;
-            const float t = dt[i][j] + wts * dctx_s[q * ldHD + hh * Dh + dh];
-            atomicAdd(dv + il + dh, wl * t);
-            atomicAdd(dv + ih + dh, wh * t);
-            dpos_p[i] += t * (v[ih + dh] - v[il + dh]);
-          }
-        }
-      }
-      // the 64 threads of a row group are warps 2*rg and 2*rg + 1
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float v = warp_sum(dpos_p[i]);
-        if (lane == 0) red_s[warp * kRed + i] = v;
-      }
-      __syncthreads();
-      if (tid < kBM && r0 + tid < NR) {
-        const int g = tid / 4, i = tid % 4;
-        dpos_s[r0 + tid] = red_s[2 * g * kRed + i] + red_s[(2 * g + 1) * kRed + i];
-      }
-      __syncthreads();
-    }
-
-    // ---- sampling backward: dbase += dpos, dscale += sum_hh dpos * off,
-    //      doff = dpos * scale (ddot_s is free now and holds doff)
+    // ---- sampling backward: dbase += dpos, doff = dpos * scale (ddot_s is
+    //      free now and holds doff), dscale += sum_hh dpos * off with the
+    //      offsets h_{k-1} . off_w recomputed rather than kept (at
+    //      cap_nheads 8 that keeps the block under the card's 227 KB)
     for (int row = tid; row < NR; row += kThreads) {
       const int q = row / HLP, hh = (row / LP) % H, p = row % LP;
-      const float dp = dpos_s[row];
+      const float dp = sm.d[row];
       const float sc = at.scale[((size_t)b * Q + qg[q]) * LP + p];
       ddot_s[row] = dp * sc;
       if (q0 + q < Q) {
         o.dbase[(((size_t)b * H + hh) * Q + q0 + q) * LP + p] += dp;
         o.doff_all[(bk * Q + q0 + q) * HLP + hh * LP + p] = dp * sc;
       }
-    }
-    for (int i = tid; i < kQT * LP; i += kThreads) {
-      const int q = i / LP, p = i % LP;
-      if (q0 + q >= Q) continue;
-      float acc = 0.f;
-      for (int hh = 0; hh < H; ++hh) {
-        const int row = (q * H + hh) * LP + p;
-        acc += dpos_s[row] * off_s[row];
-      }
-      o.dscale[((size_t)b * Q + q0 + q) * LP + p] += acc;
+      sm.d[row] = dp * row_offset(at, sm.h, row);
     }
     for (int i = tid; i < kQT * A; i += kThreads) {
       const int q = i / A, col = i % A;
       if (q0 + q < Q) o.dhvec_all[(bk * Q + q0 + q) * A + col] = cx_s[q * ldA + col];
     }
     __syncthreads();
+    for (int i = tid; i < kQT * LP; i += kThreads) {
+      const int q = i / LP, p = i % LP;
+      if (q0 + q >= Q) continue;
+      float acc = 0.f;
+      for (int hh = 0; hh < H; ++hh) acc += sm.d[(q * H + hh) * LP + p];
+      o.dscale[((size_t)b * Q + q0 + q) * LP + p] += acc;
+    }
 
     // ---- dh_{k-1} += dhvec W_h2att^T + doff off_w^T (a warp per unit r)
     for (int r = warp; r < R; r += kWarps) {
@@ -529,79 +390,17 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
   if (tid == 0) atomicAdd(o.dab, dab_s[0]);
 }
 
-// ----------------------------------------------------------------------------
-// out (m, n) = X^T Y over N rows: X (N, m), Y (N, n), row-major with leading
-// dimensions ldx, ldy.  64 x 64 output tiles, 256 threads of 4 x 4 outputs,
-// 16-row slices of X and Y staged in shared memory.
-// ----------------------------------------------------------------------------
-
-constexpr int kOT = 64, kOK = 16, kOThreads = 256;
-
-__global__ void __launch_bounds__(kOThreads)
-outer_sum_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y,
-                 int ldy, int N, int m, int n, float* __restrict__ out) {
-  __shared__ float xs[kOK][kOT];
-  __shared__ float ys[kOK][kOT];
-  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
-  const int i0 = blockIdx.y * kOT, j0 = blockIdx.x * kOT;
-  float acc[4][4] = {};
-  for (int t0 = 0; t0 < N; t0 += kOK) {
-    for (int e = tid; e < kOK * kOT; e += kOThreads) {
-      const int t = e / kOT, c = e % kOT;
-      xs[t][c] = (t0 + t < N && i0 + c < m) ? X[(size_t)(t0 + t) * ldx + i0 + c] : 0.f;
-      ys[t][c] = (t0 + t < N && j0 + c < n) ? Y[(size_t)(t0 + t) * ldy + j0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kOK; ++t) {
-      float x[4], y[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) { x[u] = xs[t][ti * 4 + u]; y[u] = ys[t][tj * 4 + u]; }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(x[u], y[v], acc[u][v]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int i = i0 + ti * 4 + u, j = j0 + tj * 4 + v;
-      if (i < m && j < n) out[(size_t)i * n + j] = acc[u][v];
-    }
-}
-
-cudaError_t outer_sum(const float* X, int ldx, const float* Y, int ldy, int N,
-                      int m, int n, float* out, cudaStream_t stream) {
-  const dim3 grid((n + kOT - 1) / kOT, (m + kOT - 1) / kOT);
-  outer_sum_kernel<<<grid, kOThreads, 0, stream>>>(X, ldx, Y, ldy, N, m, n, out);
-  return cudaGetLastError();
-}
-
-bool fill_attend(AttendArgs* at, const float* value_t, const float* base_pos,
-                 const float* scale_t, const float* off_w_h, const float* h2att_w,
-                 const float* h2att_b, const float* cw, const float* cb,
-                 const float* aw, const int* shapes, int H, int S, int Dh, int Q,
-                 int LP, int L, int A, int R) {
-  if (L < 1 || LP % L != 0) return false;
-  at->value = value_t; at->base_pos = base_pos; at->scale = scale_t;
-  at->off_w = off_w_h; at->h2att_w = h2att_w; at->h2att_b = h2att_b;
-  at->cw = cw; at->cb = cb; at->aw = aw;
-  at->H = H; at->S = S; at->Dh = Dh; at->Q = Q; at->LP = LP; at->P = LP / L;
-  at->A = A; at->R = R;
-  return make_levels(L, shapes, S, &at->lv);
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+// dsa::fill_attend plus the operands of a step that starts from h
+bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_pos,
+                        const float* scale_t, const float* off_w_h, const float* h2att_w,
+                        const float* h2att_b, const float* cw, const float* cb,
+                        const float* aw, const int* shapes, int H, int S, int Dh, int Q,
+                        int LP, int L, int A, int R) {
+  if (!fill_attend(at, value_t, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
+    return false;
+  at->base_pos = base_pos; at->scale = scale_t; at->off_w = off_w_h;
+  at->h2att_w = h2att_w; at->h2att_b = h2att_b;
+  return true;
 }
 
 }  // namespace
@@ -622,8 +421,8 @@ extern "C" int dvc_dsa_scan_fwd(
     float* hs, float* cs, int B, int H, int S, int Dh, int Q, int LP, int L,
     int A, int R, int K, void* stream) {
   ScanArgs a;
-  if (!fill_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w, h2att_b,
-                   cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
+  if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
+                          h2att_b, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
   a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab;
   a.B = B; a.K = K;
@@ -656,8 +455,8 @@ extern "C" int dvc_dsa_scan_bwd(
     float* doff_all, int B, int H, int S, int Dh, int Q, int LP, int L, int A,
     int R, int K, void* stream) {
   ScanArgs a;
-  if (!fill_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w, h2att_b,
-                   cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
+  if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
+                          h2att_b, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
   if (A > kBN || kQT * 4 * R > kBM * kBN) return (int)cudaErrorInvalidValue;
   a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab;

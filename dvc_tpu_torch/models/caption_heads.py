@@ -1,15 +1,21 @@
-"""LSTM-DSA caption head: greedy decode and teacher forcing (port of the
-fused paths of ``dvc_tpu/models/caption_heads.py::DSACaptionHead``).
+"""LSTM-DSA caption head: greedy decode and teacher forcing (port of
+``dvc_tpu/models/caption_heads.py::DSACaptionHead`` for ``num_layers=1,
+att_hid_size>0`` and greedy decoding, ``sample_max=1``).
 
-The port covers what ``num_layers=1, att_hid_size>0`` with the fused
-greedy decode (``sample_max=1``) and the fused teacher-forcing scan
-(scheduled sampling off) select.  Everything step-invariant (the value
-projection, the event query's share of the sampling offsets folded into
-``base_pos``, ``scale_t`` and the query's share of the LSTM preactivation)
-is computed here with plain tensor ops; the K word steps run in
-:func:`dvc_tpu_torch.ops.dsa_greedy_scan` (decode) or
-:func:`dvc_tpu_torch.ops.dsa_teacher_scan` (training), and the vocab
-projection and log-softmax of teacher forcing follow the scan.
+Everything step-invariant (the value projection, the event query's share
+of the sampling offsets folded into ``base_pos``, ``scale_t`` and the
+query's share of the LSTM preactivation) is computed once with plain tensor
+ops (:meth:`DSACaptionHead._hoist`).  The word steps then run, as the JAX
+head dispatches them:
+
+* fused, one launch for all K steps: :func:`dvc_tpu_torch.ops.dsa_greedy_scan`
+  (decode, ``greedy_fuse``) and :func:`dvc_tpu_torch.ops.dsa_teacher_scan`
+  (teacher forcing, ``scan_fuse`` with scheduled sampling off);
+* stepwise, one launch per step (``_step``): scheduled sampling, or either
+  flag off.  Each step's sampling positions and hvec come from h here; the
+  step itself is :func:`dvc_tpu_torch.ops.dsa_sample_attend_core` with the
+  LSTM cell in tensor ops, or with ``lstm_fuse``
+  :func:`dvc_tpu_torch.ops.dsa_lstm_step_core`, the cell included.
 
 Parameter names follow the reference state_dict
 (``caption_head.{i}.embed``, ``.logit``, ``.core.rnn.weight_ih_l0``,
@@ -25,7 +31,9 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..ops import dsa_greedy_scan, dsa_teacher_scan, greedy_mask_outputs
+from ..ops import (dsa_greedy_scan, dsa_lstm_step_core,
+                   dsa_sample_attend_core, dsa_teacher_scan, greedy_mask_outputs,
+                   greedy_pick, lstm_cell, step_pos_hvec)
 from .deformable_transformer import dropout
 
 
@@ -50,6 +58,13 @@ class CaptionHeadConfig:
     cap_nheads: int = 8
     cap_dec_n_points: int = 4
     cap_num_feature_levels: int = 4
+    # --dsa_scan_fuse, --dsa_greedy_fuse, --dsa_lstm_fuse (the JAX head's
+    # attributes): the fused teacher-forcing scan (when scheduled sampling
+    # is off), the fused greedy decode, and the LSTM cell inside the
+    # stepwise path's word-step kernel
+    scan_fuse: bool = True
+    greedy_fuse: bool = True
+    lstm_fuse: bool = False
 
 
 class _LSTMWeights(nn.Module):
@@ -85,12 +100,20 @@ class DSACaptionHead(nn.Module):
     """'standard' head, LSTM-DSA: greedy decode of every event query, and
     teacher forcing of the matched ones in training."""
 
+    # the tokens that scheduled sampling fed in place of the gt token,
+    # summed per device without a host sync; read with fed_sample_count()
+    # and reset (clear()) like the kernels' launch counts
+    fed_samples: dict = {}
+
+    @classmethod
+    def fed_sample_count(cls) -> int:
+        return sum(int(v) for v in cls.fed_samples.values())
+
     def __init__(self, cfg: CaptionHeadConfig):
         super().__init__()
         if cfg.num_layers != 1 or cfg.att_hid_size <= 0:
             raise NotImplementedError(
-                'the port decodes with the fused greedy path, which needs '
-                'num_layers == 1 and att_hid_size > 0')
+                'the port covers num_layers == 1 and att_hid_size > 0')
         self.cfg = cfg
         V1 = cfg.vocab_size + 1
         self.embed = nn.Embedding(V1, cfg.input_encoding_size)
@@ -140,44 +163,145 @@ class DSACaptionHead(nn.Module):
                      core.rnn.weight_hh_l0.T)
         return value_t, base_pos, scale_t, const_z, w_ih[:, :E].T, step_args
 
+    def _step(self, hoisted, z0, h, c, temporal_shapes):
+        """One word step of the stepwise path (the JAX ``_make_core``'s
+        ``run``): z0 (B, Pq, 4R) the token's and query's share of the
+        preactivation, (h, c) (B, Pq, R) the state.  Returns (h, c)."""
+        value_t, base_pos, scale_t, _, _, (
+            off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh) = hoisted
+        pos, hvec = step_pos_hvec(h, base_pos, scale_t, off_w_h, h2att_w,
+                                  h2att_b)
+        if self.cfg.lstm_fuse:
+            return dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3,
+                                      w_hh, cw, cb, aw, ab, temporal_shapes)
+        ctx = dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
+                                     temporal_shapes)         # (B, H, Pq, Dh)
+        return lstm_cell(z0 + h @ w_hh
+                         + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3), c)
+
     def forward(self, query, ref_center, offset_scale, memory,
                 temporal_shapes, pad_mask):
         """Greedy decode.  Arguments as :meth:`_hoist`.  Returns (seq,
         logprobs), each (B*Pq, max_caption_len)."""
         B, Pq, _ = query.shape
         K = self.cfg.max_caption_len
+        hoisted = self._hoist(query, ref_center, offset_scale, memory,
+                              temporal_shapes, pad_mask)
         value_t, base_pos, scale_t, const_z, token_w, (
-            off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh) = \
-            self._hoist(query, ref_center, offset_scale, memory,
-                        temporal_shapes, pad_mask)
-        tok, lp = dsa_greedy_scan(
-            value_t, base_pos, scale_t, const_z, self.embed.weight, token_w,
-            self.logit.weight.T, self.logit.bias, off_w_h, h2att_w, h2att_b,
-            cw, cb, aw, ab, ctx_w3, w_hh, tuple(temporal_shapes),
-            K)                                                # (B, K, Pq)
+            off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh) = hoisted
+        temporal_shapes = tuple(temporal_shapes)
+        if self.cfg.greedy_fuse:
+            tok, lp = dsa_greedy_scan(
+                value_t, base_pos, scale_t, const_z, self.embed.weight,
+                token_w, self.logit.weight.T, self.logit.bias, off_w_h,
+                h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh,
+                temporal_shapes, K)                           # (B, K, Pq)
+        else:
+            tok, lp = self._greedy_stepwise(hoisted, temporal_shapes)
         seq, lps = greedy_mask_outputs(tok, lp)
         return (seq.permute(0, 2, 1).reshape(B * Pq, K),
                 lps.permute(0, 2, 1).reshape(B * Pq, K))
 
+    def _greedy_stepwise(self, hoisted, temporal_shapes):
+        """The JAX ``_greedy_sample``: BOS feeds step 0, each step feeds its
+        first-max argmax to the next, lp = max - logsumexp; the token
+        embedding's share of the preactivation is one (V+1, 4R) table.
+        Returns the raw (tok, lp) streams, each (B, K, Pq)."""
+        value_t, _, _, const_z, token_w, _ = hoisted
+        B, Pq, R4 = const_z.shape
+        token_z = self.embed.weight @ token_w                 # (V+1, 4R)
+        h = value_t.new_zeros((B, Pq, R4 // 4))
+        c = torch.zeros_like(h)
+        it = torch.zeros((B, Pq), dtype=torch.long, device=value_t.device)
+        toks, lps = [], []
+        for _ in range(self.cfg.max_caption_len):
+            h, c = self._step(hoisted, token_z[it] + const_z, h, c,
+                              temporal_shapes)
+            it, lp = greedy_pick(self.logit(h))
+            toks.append(it.to(torch.int32))
+            lps.append(lp)
+        return torch.stack(toks, 1), torch.stack(lps, 1)
+
+    @staticmethod
+    def scheduled_tokens(lp, tok, u, gumbel, ss_prob):
+        """Scheduled sampling's input tokens at a step i >= 1: where
+        u < ss_prob a sample of the previous step's distribution lp,
+        argmax(lp + gumbel) (``jax.random.categorical``), else the gt token
+        tok.  No gradient flows through the sampled index."""
+        return torch.where(u < ss_prob,
+                           torch.argmax(lp.detach() + gumbel, dim=-1), tok)
+
     def teacher_forcing(self, query, ref_center, offset_scale, memory,
-                        temporal_shapes, pad_mask, seq, gen=None):
-        """Teacher-forced word scan over the gt tokens seq (B*Pq, Lc) with
-        scheduled sampling off; other arguments as :meth:`_hoist`.  With
-        ``gen`` the hidden states get dropout (drop_prob) before the vocab
-        projection.  Returns log-probabilities (B*Pq, Lc - 1, V+1)."""
+                        temporal_shapes, pad_mask, seq, gen=None, ss_prob=0.0,
+                        noise=None):
+        """Teacher-forced word scan over the gt tokens seq (B*Pq, Lc); other
+        arguments as :meth:`_hoist`.  With ``gen`` (a ``torch.Generator`` on
+        the device) the hidden states get dropout (drop_prob) before the
+        vocab projection.  With ``ss_prob > 0`` (scheduled sampling) step
+        i >= 1 is fed, where u_i < ss_prob, a sample of step i-1's
+        distribution in place of the gt token: argmax(lp + Gumbel noise), as
+        ``jax.random.categorical``.  The uniforms u (K, B*Pq) and the Gumbel
+        noise (K, B*Pq, V+1) are drawn from ``gen`` step by step, or taken
+        from ``noise = (u, gumbel)``.  Returns log-probabilities
+        (B*Pq, Lc - 1, V+1)."""
+        cfg = self.cfg
         B, Pq, _ = query.shape
-        K = seq.shape[-1] - 1
-        value_t, base_pos, scale_t, const_z, token_w, step_args = \
-            self._hoist(query, ref_center, offset_scale, memory,
-                        temporal_shapes, pad_mask)
-        # z_all directly in the scan's (B, K, Pq, 4R) order
-        tokens = seq[:, :-1].reshape(B, Pq, K).transpose(1, 2)
-        z_all = self.embed(tokens.long()) @ token_w + const_z[:, None]
-        hs = dsa_teacher_scan(value_t, base_pos, scale_t, z_all, *step_args,
-                              tuple(temporal_shapes))         # (B, K, Pq, R)
-        hs = hs.transpose(1, 2).reshape(B * Pq, K, -1)
-        hs = dropout(hs, self.cfg.drop_prob, gen)
-        return torch.log_softmax(self.logit(hs), dim=-1)
+        n, K, R = B * Pq, seq.shape[-1] - 1, cfg.rnn_size
+        temporal_shapes = tuple(temporal_shapes)
+        hoisted = self._hoist(query, ref_center, offset_scale, memory,
+                              temporal_shapes, pad_mask)
+        value_t, base_pos, scale_t, const_z, token_w, step_args = hoisted
+        if cfg.scan_fuse and ss_prob == 0:
+            # z_all directly in the scan's (B, K, Pq, 4R) order
+            tokens = seq[:, :-1].reshape(B, Pq, K).transpose(1, 2)
+            z_all = self.embed(tokens.long()) @ token_w + const_z[:, None]
+            hs = dsa_teacher_scan(value_t, base_pos, scale_t, z_all,
+                                  *step_args, temporal_shapes)  # (B, K, Pq, R)
+            hs = hs.transpose(1, 2).reshape(n, K, R)
+            hs = dropout(hs, cfg.drop_prob, gen)
+            return torch.log_softmax(self.logit(hs), dim=-1)
+
+        h = value_t.new_zeros((B, Pq, R))
+        c = torch.zeros_like(h)
+        if ss_prob == 0:
+            # the gt tokens are known: their share of the preactivation is
+            # one product, and dropout and the vocab projection run once
+            z_all = (self.embed(seq[:, :-1].long()) @ token_w
+                     + const_z.reshape(n, 1, 4 * R)).reshape(B, Pq, K, -1)
+            hs = []
+            for k in range(K):
+                h, c = self._step(hoisted, z_all[:, :, k], h, c,
+                                  temporal_shapes)
+                hs.append(h)
+            hs = dropout(torch.stack(hs, 2).reshape(n, K, R), cfg.drop_prob,
+                         gen)
+            return torch.log_softmax(self.logit(hs), dim=-1)
+
+        # without gen (no dropout) the draws come from a fixed seed, as the
+        # JAX head's PRNGKey(0) when deterministic
+        draw = gen if gen is not None else torch.Generator(
+            device=value_t.device).manual_seed(0)
+        const_n = const_z.reshape(n, 4 * R)
+        lps, lp = [], None
+        for i in range(K):
+            tok = seq[:, i].long()
+            if i >= 1:
+                if noise is None:
+                    u = torch.rand((n,), generator=draw, device=tok.device)
+                    gumbel = -torch.log(-torch.log(torch.rand(
+                        lp.shape, generator=draw, device=tok.device
+                    ).clamp_min(torch.finfo(torch.float32).tiny)))
+                else:
+                    u, gumbel = noise[0][i], noise[1][i]
+                tok = self.scheduled_tokens(lp, tok, u, gumbel, ss_prob)
+                fed = DSACaptionHead.fed_samples
+                fed[tok.device] = fed.get(tok.device, 0) + (u < ss_prob).sum()
+            z0 = (self.embed(tok) @ token_w + const_n).reshape(B, Pq, -1)
+            h, c = self._step(hoisted, z0, h, c, temporal_shapes)
+            out = dropout(h.reshape(n, R), cfg.drop_prob, gen)
+            lp = torch.log_softmax(self.logit(out), dim=-1)
+            lps.append(lp)
+        return torch.stack(lps, 1)
 
 
 def truncate_levels(cfg: CaptionHeadConfig, temporal_shapes, memory,

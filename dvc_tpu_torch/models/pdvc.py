@@ -74,7 +74,10 @@ class PDVCConfig:
             drop_prob=opt.drop_prob, att_hid_size=opt.att_hid_size, cap_nheads=opt.cap_nheads,
             cap_dec_n_points=opt.cap_dec_n_points,
             cap_num_feature_levels=min(opt.cap_num_feature_levels,
-                                       opt.num_feature_levels))
+                                       opt.num_feature_levels),
+            scan_fuse=bool(opt.dsa_scan_fuse),
+            greedy_fuse=bool(opt.dsa_greedy_fuse),
+            lstm_fuse=bool(opt.dsa_lstm_fuse))
         return cls(
             num_classes=opt.num_classes, num_queries=opt.num_queries,
             num_feature_levels=opt.num_feature_levels,
@@ -280,11 +283,9 @@ class PDVC(nn.Module):
         masks come from it; without, the forward is deterministic.  outputs
         holds the last layer's pred_logits, pred_count, pred_boxes and
         matched_indices (B, G); losses every loss of the criterion and the
-        caption losses, with the ``_{i}`` suffixes of the aux layers."""
-        if ss_prob > 0:
-            raise NotImplementedError(
-                'scheduled sampling needs the stepwise caption path, which '
-                'the port does not have yet')
+        caption losses, with the ``_{i}`` suffixes of the aux layers.
+        ``ss_prob > 0`` turns scheduled sampling on in the caption head
+        (its draws come from ``gen``)."""
         c = self.cfg
         memory, shapes, valid_ratios, mask_flat = self.encode(batch, gen)
         B = memory.shape[0]
@@ -301,7 +302,7 @@ class PDVC(nn.Module):
             batch['gt_boxes_mask'], aux_loss=c.aux_loss)
         losses.update(self.caption_train_losses(
             hs, refs, memory, shapes, valid_ratios, mask_flat, batch,
-            last_idx, aux_idx, gen))
+            last_idx, aux_idx, gen, ss_prob))
         out = {'pred_logits': outputs['pred_logits'][-1],
                'pred_count': outputs['pred_count'][-1],
                'pred_boxes': outputs['pred_boxes'][-1],
@@ -309,7 +310,8 @@ class PDVC(nn.Module):
         return out, losses
 
     def caption_train_losses(self, hs, refs, memory, shapes, valid_ratios,
-                             mask_flat, batch, last_idx, aux_idx, gen):
+                             mask_flat, batch, last_idx, aux_idx, gen,
+                             ss_prob=0.0):
         """Per-layer teacher-forced caption losses on the matched pairs
         (reference pdvc.py:294-304).  A shared caption head runs the D
         layers' pairs as one scan over a (B, D*G) pair axis."""
@@ -335,7 +337,8 @@ class PDVC(nn.Module):
                 c.caption, shapes, memory, mask_flat, center, scale)
             return head.teacher_forcing(feats, center_t, scale_t, mem_t,
                                         shapes_t, mask_t,
-                                        caps.reshape(-1, caps.shape[-1]), gen)
+                                        caps.reshape(-1, caps.shape[-1]), gen,
+                                        ss_prob)
 
         def loss_key(l_id):
             return 'loss_caption' if l_id == D - 1 else f'loss_caption_{l_id}'

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``dvc_tpu_torch/csrc``.
 
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
-compiles them in seconds into one shared library that is loaded with
-``ctypes``.  The build runs at first use, never at import, into
+compiles them in seconds: one ``nvcc`` per source, all started together,
+then one link into a shared library that is loaded with ``ctypes``.  The
+build runs at first use, never at import, into
 ``dvc_tpu_torch/_build/<hash of sources and flags>/`` (listed in
 ``.gitignore``); a later call in the same checkout reuses it.
 
@@ -23,11 +24,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_ROOT = os.path.join(_PKG, '_build')
-SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu', 'dsa_scan.cu')
+SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu', 'dsa_scan.cu', 'dsa_step.cu')
 # sm_90a: Hopper.  No -use_fast_math: tanhf/expf/logf stay exact, as the
 # JAX kernels' f32 transcendentals; -Xptxas -v records registers and spills
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,10 @@ _SIGNATURES = {
     'dvc_dsa_greedy': [_P] * 20 + [_I] * 12 + [_P],
     'dvc_dsa_scan_fwd': [_P] * 16 + [_I] * 10 + [_P],
     'dvc_dsa_scan_bwd': [_P] * 33 + [_I] * 10 + [_P],
+    'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 8 + [_P],
+    'dvc_dsa_step_bwd': [_P] * 17 + [_I] * 8 + [_P],
+    'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 9 + [_P],
+    'dvc_dsa_lstm_bwd': [_P] * 29 + [_I] * 9 + [_P],
 }
 
 
@@ -80,18 +85,30 @@ def build():
         with open(log_path) as f:
             return path, 0.0, f.read()
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f'{path}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [os.path.join(out_dir, f'{s}.{tag}.o') for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, '-c', '-o', o,
+                               os.path.join(CSRC, s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(SOURCES, objs)]
+    logs = [(s, p.communicate()[0], p.returncode)
+            for s, p in zip(SOURCES, procs)]
+    log = ''.join(f'== {s}\n{out}' for s, out, _ in logs)
+    if any(rc != 0 for _, _, rc in logs):
+        raise RuntimeError(f'nvcc failed:\n{log}')
+    tmp = f'{path}.{tag}.tmp'
+    proc = subprocess.run([nvcc, '-shared', '-o', tmp, *objs],
+                          capture_output=True, text=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
+        raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n{log}')
     with open(log_path, 'w') as f:
         f.write(log)
     os.replace(tmp, path)
+    for o in objs:
+        os.remove(o)
     return path, seconds, log
 
 

@@ -46,19 +46,24 @@ def lstm_cell(z, c_prev):
     return torch.sigmoid(o) * torch.tanh(c), c
 
 
-def attend_step(h, value_t, base_pos, scale_t, off_w_h, h2att_w, h2att_b,
-                cw, cb, aw, ab, hib, s0):
-    """One word step's deformable sampling and additive attention from the
-    hidden state h (B, Q, R), shared by the greedy decode and the
-    teacher-forcing scan: border-mode taps at pos = base_pos + (h off_w_h)
-    * scale_t (level-relative f32), scores tanh(taps cw + cb + hvec) . aw +
-    ab, softmax over the LP taps.  Returns ctx (B, H, Q, Dh)."""
-    B, H, S, Dh = value_t.shape
-    Q, LP = base_pos.shape[2], base_pos.shape[3]
-    zero = torch.zeros((), device=value_t.device)
-    hvec = h @ h2att_w + h2att_b                              # (B, Q, A)
+def step_pos_hvec(h, base_pos, scale_t, off_w_h, h2att_w, h2att_b):
+    """The hidden state's share of a word step: the level-relative f32
+    sampling positions pos = base_pos + (h off_w_h) * scale_t (B, H, Q, LP)
+    and hvec = h h2att_w + h2att_b (B, Q, A)."""
     off = torch.einsum('bqr,hrp->bhqp', h, off_w_h)           # (B, H, Q, LP)
-    pos = base_pos + off * scale_t[:, None]
+    return base_pos + off * scale_t[:, None], h @ h2att_w + h2att_b
+
+
+def attend(value_t, pos, hvec, cw, cb, aw, ab, hib, s0):
+    """Deformable sampling and additive attention of one word step at the
+    level-relative positions pos (B, H, Q, LP) with hvec (B, Q, A):
+    border-mode taps (each index clamped into its level, the lerp weights
+    kept), scores tanh(taps cw + cb + hvec) . aw + ab, softmax over the LP
+    taps.  hib (LP,) is each tap's bound T_l - 1, s0 its level start.
+    Returns ctx (B, H, Q, Dh)."""
+    B, H, S, Dh = value_t.shape
+    Q, LP = pos.shape[2], pos.shape[3]
+    zero = torch.zeros((), device=value_t.device)
     i_lo = torch.floor(pos)
     w_hi = pos - i_lo
     w_lo = 1.0 - w_hi
@@ -73,6 +78,25 @@ def attend_step(h, value_t, base_pos, scale_t, off_w_h, h2att_w, h2att_b,
     u = torch.tanh(taps @ cw + cb + hvec[:, None, :, None, :])
     wts = torch.softmax(u @ aw + ab, dim=-1)                  # (B, H, Q, LP)
     return torch.einsum('bhqp,bhqpd->bhqd', wts, taps)
+
+
+def attend_step(h, value_t, base_pos, scale_t, off_w_h, h2att_w, h2att_b,
+                cw, cb, aw, ab, hib, s0):
+    """One word step's attention from the hidden state h (B, Q, R), shared
+    by the greedy decode and the teacher-forcing scan.  Returns ctx
+    (B, H, Q, Dh)."""
+    pos, hvec = step_pos_hvec(h, base_pos, scale_t, off_w_h, h2att_w,
+                              h2att_b)
+    return attend(value_t, pos, hvec, cw, cb, aw, ab, hib, s0)
+
+
+def greedy_pick(logits):
+    """A greedy step's choice from its raw logits (..., V+1): the first-max
+    argmax and its log-probability max - logsumexp (the (..., V+1)
+    log-softmax is never formed)."""
+    m = logits.max(dim=-1).values
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), -1))
+    return torch.argmax(logits, dim=-1), m - lse
 
 
 def dsa_greedy_scan_ref(value_t, base_pos, scale_t, const_z, embed, token_w,
@@ -101,11 +125,9 @@ def dsa_greedy_scan_ref(value_t, base_pos, scale_t, const_z, embed, token_w,
              + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3))
         h, c = lstm_cell(z, c)
         logits = h @ logit_w + logit_b                        # (B, Q, V+1)
-        m = logits.max(dim=-1).values
-        it = torch.argmax(logits, dim=-1)                     # first max
-        lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), -1))
+        it, lp = greedy_pick(logits)
         toks.append(it.to(torch.int32))
-        lps.append(m - lse)
+        lps.append(lp)
         if with_margin:
             top2 = torch.topk(logits, 2, dim=-1).values
             margins.append(top2[..., 0] - top2[..., 1])

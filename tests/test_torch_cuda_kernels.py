@@ -15,13 +15,25 @@ legitimately differ); teacher-forcing scan hs and cs within 1e-4 * max|ref|
 and each of its 13 gradients within 1e-3 * max|ref| + 1e-5 (K recurrent
 steps of f32 sums in another order, atomics in dvalue, dWc and the bias
 sums; the floor is for d alpha_b, which is zero in exact arithmetic since
-the softmax's gradients sum to zero, so both sides hold only rounding).
+the softmax's gradients sum to zero, so both sides hold only rounding);
+the word-step kernels (K7-K10) to the same: outputs within 1e-4 * max|ref|,
+gradients within 1e-3 * max|ref| + 1e-5; in these newer cases d alpha_b
+has the floor 5e-5 (``_grad_close``), the rounding of a sum of every tap
+row's term in no fixed order.
 """
 import numpy as np
 import pytest
 import torch
 
 from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan, dsa_greedy_scan_ref
+from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, STEP_NAMES,
+                                        dsa_lstm_step_bwd, dsa_lstm_step_core,
+                                        dsa_lstm_step_fwd,
+                                        dsa_sample_attend_bwd,
+                                        dsa_sample_attend_core,
+                                        dsa_sample_attend_fwd, lstm_step_bwd_ref,
+                                        lstm_step_ref, sample_attend_bwd_ref,
+                                        sample_attend_ref)
 from dvc_tpu_torch.ops.dsa_scan import (NAMES, dsa_teacher_scan,
                                         dsa_teacher_scan_bwd,
                                         dsa_teacher_scan_bwd_ref,
@@ -190,3 +202,121 @@ def test_scan_kernels_match_plain(cuda, H, Q, K):
     (dsa_teacher_scan(*leaves, ts) * g).sum().backward()
     for name, a, b in zip(NAMES, leaves, want):
         assert _close(a.grad, b, 1e-3, 1e-5)[0], name
+
+
+def _grad_close(name, got, want):
+    """1e-3 relative + 1e-5; d alpha_b (zero in exact arithmetic: the
+    softmax's gradients sum to zero) only rounding, so its floor is 5e-5."""
+    return _close(got, want, 1e-3, 5e-5 if name == 'ab' else 1e-5)
+
+
+def test_scan_backward_kernel_at_eight_heads(cuda):
+    """K5 at cap_nheads 8 with R = A = 512 and LP = 16: its block fits the
+    card's shared memory; small B, Q, K."""
+    rng = np.random.default_rng(8)
+    ts = (200, 100, 50, 25)
+    args = scan_args(cuda, rng, B=1, H=8, Q=11, K=2, Dh=64, A=512, R=512,
+                     P=4, ts=ts)
+    hs, cs = dsa_teacher_scan_fwd(*args, ts)
+    g = torch.sin(3.0 * hs)
+    grads = dsa_teacher_scan_bwd(*args, ts, hs, cs, g)
+    torch.cuda.synchronize()
+    want = dsa_teacher_scan_bwd_ref(*args, ts, hs, cs, g)
+    for name, a, b in zip(NAMES, grads, want):
+        ok, err = _grad_close(name, a, b)
+        assert ok, (name, err, float(b.abs().max()))
+
+
+def step_args(dev, rng, B=2, H=2, Q=13, Dh=8, A=16, R=24, P=2, ts=(12, 6),
+              lstm=False):
+    """Operands of K7 (and with ``lstm`` of K9) at the kernels' boundary;
+    positions drawn over each level's range and past its ends."""
+    S, LP = sum(ts), len(ts) * P
+
+    def f(*s, scale=1.0):
+        return _t((rng.standard_normal(s) * scale).astype(np.float32), dev)
+
+    T = np.repeat(np.asarray(ts, np.float32), P)
+    pos = rng.uniform(-0.1, 1.1, (B, H, Q, LP)) * T - 0.5
+    head = (f(B, H, S, Dh), _t(pos.astype(np.float32), dev),
+            f(B, Q, A, scale=0.5))
+    tail = (f(Dh, A, scale=0.3), f(A, scale=0.1), f(A, scale=0.3),
+            torch.tensor(0.05, device=dev))
+    if not lstm:
+        return head + tail
+    return head + (f(B, Q, 4 * R, scale=0.5), f(B, Q, R, scale=0.5),
+                   f(B, Q, R, scale=0.5), f(H, Dh, 4 * R, scale=0.2),
+                   f(R, 4 * R, scale=0.2)) + tail
+
+
+@pytest.mark.parametrize('H,Q', [(1, 13), (2, 13), (2, 8), (8, 3)])
+def test_step_kernels_match_plain(cuda, H, Q):
+    """K7 and K8 (ctx and its 7 gradients), and autograd through the
+    wrapper; Q = 13 spans a full and a ragged query tile."""
+    rng = np.random.default_rng(200 + 10 * H + Q)
+    ts = (12, 6)
+    args = step_args(cuda, rng, H=H, Q=Q, ts=ts)
+    launches = (dsa_sample_attend_fwd.launches, dsa_sample_attend_bwd.launches)
+    ctx = dsa_sample_attend_fwd(*args, ts)
+    g = torch.sin(3.0 * ctx)
+    grads = dsa_sample_attend_bwd(*args, ts, g)
+    torch.cuda.synchronize()
+    assert (dsa_sample_attend_fwd.launches, dsa_sample_attend_bwd.launches) \
+        == (launches[0] + 1, launches[1] + 1)
+    assert _close(ctx, sample_attend_ref(*args, ts), 1e-4)[0]
+    want = sample_attend_bwd_ref(*args, ts, g)
+    for name, a, b in zip(STEP_NAMES, grads, want):
+        assert a.shape == b.shape, name
+        ok, err = _grad_close(name, a, b)
+        assert ok, (name, err, float(b.abs().max()))
+    leaves = [t.clone().requires_grad_() for t in args]
+    (dsa_sample_attend_core(*leaves, ts) * g).sum().backward()
+    for name, a, b in zip(STEP_NAMES, leaves, want):
+        assert _grad_close(name, a.grad, b)[0], name
+
+
+@pytest.mark.parametrize('H,Q', [(1, 13), (2, 8), (8, 3)])
+def test_lstm_step_kernels_match_plain(cuda, H, Q):
+    """K9 and K10 ((h', c') and their 12 gradients for both cotangents),
+    and autograd through the wrapper."""
+    rng = np.random.default_rng(300 + 10 * H + Q)
+    ts = (12, 6)
+    args = step_args(cuda, rng, H=H, Q=Q, ts=ts, lstm=True)
+    launches = (dsa_lstm_step_fwd.launches, dsa_lstm_step_bwd.launches)
+    h_new, c_new = dsa_lstm_step_fwd(*args, ts)
+    gh, gc = torch.sin(3.0 * h_new), torch.cos(2.0 * c_new)
+    grads = dsa_lstm_step_bwd(*args, ts, gh, gc)
+    torch.cuda.synchronize()
+    assert (dsa_lstm_step_fwd.launches, dsa_lstm_step_bwd.launches) \
+        == (launches[0] + 1, launches[1] + 1)
+    ref_h, ref_c = lstm_step_ref(*args, ts)
+    assert _close(h_new, ref_h, 1e-4)[0] and _close(c_new, ref_c, 1e-4)[0]
+    want = lstm_step_bwd_ref(*args, ts, gh, gc)
+    for name, a, b in zip(LSTM_NAMES, grads, want):
+        assert a.shape == b.shape, name
+        ok, err = _grad_close(name, a, b)
+        assert ok, (name, err, float(b.abs().max()))
+    leaves = [t.clone().requires_grad_() for t in args]
+    h2, c2 = dsa_lstm_step_core(*leaves, ts)
+    ((h2 * gh).sum() + (c2 * gc).sum()).backward()
+    for name, a, b in zip(LSTM_NAMES, leaves, want):
+        assert _grad_close(name, a.grad, b)[0], name
+
+
+def test_step_kernels_at_the_recipe_width(cuda):
+    """K7-K10 at R = A = 512, Dh = 512, S = 375, LP = 16 on a few queries."""
+    rng = np.random.default_rng(400)
+    ts = (200, 100, 50, 25)
+    args = step_args(cuda, rng, B=1, H=1, Q=10, Dh=512, A=512, R=512, P=4,
+                     ts=ts, lstm=True)
+    h_new, c_new = dsa_lstm_step_fwd(*args, ts)
+    ref_h, ref_c = lstm_step_ref(*args, ts)
+    assert _close(h_new, ref_h, 1e-4)[0] and _close(c_new, ref_c, 1e-4)[0]
+    gh, gc = torch.sin(3.0 * h_new), torch.cos(2.0 * c_new)
+    want = lstm_step_bwd_ref(*args, ts, gh, gc)
+    for name, a, b in zip(LSTM_NAMES, dsa_lstm_step_bwd(*args, ts, gh, gc),
+                          want):
+        assert _grad_close(name, a, b)[0], name
+    step = args[:3] + args[8:]
+    ctx = dsa_sample_attend_fwd(*step, ts)
+    assert _close(ctx, sample_attend_ref(*step, ts), 1e-4)[0]

@@ -85,3 +85,26 @@ def train_batch(seed, B=2, T=24, C=16, G=3, Lc=8, vocab=20):
             b['cap_mask'][i, j, :L] = True
     b['video_length'][:, 2] = counts
     return b
+
+
+def caption_head_state_dict(head):
+    """Flax DSACaptionHead params (one head's subtree) -> the state_dict of
+    the port's ``DSACaptionHead`` (numpy), as ``from_jax_params`` maps a
+    whole model's heads."""
+    sd = {'embed.weight': np.asarray(head['embed']),
+          'logit.weight': np.asarray(head['logit_w']).T,
+          'logit.bias': np.asarray(head['logit_b'])}
+    for k, v in head.items():
+        if k.startswith('rnn_w_'):          # rnn_w_ih_l0 -> weight_ih_l0
+            sd[f'core.rnn.weight_{k[len("rnn_w_"):]}'] = np.asarray(v).T
+    dsa = 'core.deformable_att'
+    sd[f'{dsa}.sampling_offsets.weight'] = np.asarray(
+        head['dsa_sampling_offsets_w']).T
+    sd[f'{dsa}.sampling_offsets.bias'] = np.asarray(
+        head['dsa_sampling_offsets_b'])
+    sd[f'{dsa}.value_proj.weight'] = np.asarray(head['dsa_value_w']).T
+    sd[f'{dsa}.value_proj.bias'] = np.asarray(head['dsa_value_b'])
+    for name in ('ctx2att', 'h2att', 'alpha_net'):
+        sd[f'core.{name}.weight'] = np.asarray(head[f'{name}_w']).T
+        sd[f'core.{name}.bias'] = np.asarray(head[f'{name}_b'])
+    return sd
