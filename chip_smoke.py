@@ -440,6 +440,35 @@ def check_scan(gen, B, Q, K, H):
              'bound_by': bwd_bound[1]})
 
 
+def check_table_gemm(gen, N, k, n, label):
+    """The tables' GEMM (``table_gemm``, the kernel that K5 and K6 run
+    first in every launch) against torch.einsum on the same inputs: max abs
+    error <= 1e-5 * sqrt(k) * max|ref| (f32 sums of k terms in another
+    order, TF32 off); torch.matmul timed beside it as a yardstick
+    (library_ms), used nowhere in the port."""
+    import torch
+    from dvc_tpu_torch.ops.dsa_tables import table_gemm
+    x = torch.randn((N, k), generator=gen, device='cuda')
+    w = torch.randn((k, n), generator=gen, device='cuda') / k ** 0.5
+    got = table_gemm(x, w)
+    want = torch.einsum('nk,km->nm', x, w)
+    err = float((got - want).abs().max())
+    tol = 1e-5 * k ** 0.5 * float(want.abs().max())
+    ms = cuda_ms(lambda: table_gemm(x, w), 20)
+    plain_ms = cuda_ms(lambda: torch.einsum('nk,km->nm', x, w), 20)
+    library_ms = cuda_ms(lambda: torch.matmul(x, w), 20)
+    bound_ms, bound_by = bound(nbytes(x, w, got), 2.0 * N * k * n)
+    print(f'[kernels] table_gemm {label} ({N} x {k}) . ({k} x {n}): max_abs_err '
+          f'{err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain (einsum) '
+          f'{plain_ms:.4f} ms library (torch.matmul) {library_ms:.4f} ms bound '
+          f'{bound_ms:.4f} ms ({bound_by})')
+    if not err <= tol:
+        raise AssertionError(f'table_gemm {label}: error {err} > {tol}')
+    return {'N': N, 'k': k, 'n': n, 'max_abs_err': err, 'ms': ms,
+            'plain_ms': plain_ms, 'library_ms': library_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by}
+
+
 def step_inputs(gen, B, Q, H, lstm, R=512, A=512, d=512, P=4):
     """Random operands of one word step (K7, or with ``lstm`` K9) at the
     caption head's widths: positions over each level's range and past its
@@ -579,6 +608,11 @@ def phase_kernels():
                             check_msda(gen, 1, 375)],
                'dsa_greedy': [check_greedy(gen, 16, 100, 1),
                               check_greedy(gen, 16, 100, 8)]}
+    with torch.inference_mode():
+        res['table_gemm'] = [
+            check_table_gemm(gen, 16 * 375, 512, 512, 'value . Wc, B=16 H=1'),
+            check_table_gemm(gen, 16 * 8 * 375, 64, 512, 'value . Wc, B=16 H=8'),
+            check_table_gemm(gen, 1608, 512, 2048, 'embed . token_w')]
     res['msda_bwd'] = [check_msda_bwd(gen, 1, 375), check_msda_bwd(gen, 1, 100)]
     scans = [check_scan(gen, 1, 90, 29, 1), check_scan(gen, 16, 90, 29, 1),
              check_scan(gen, 1, 90, 29, 8)]
@@ -591,6 +625,256 @@ def phase_kernels():
         res[f'{kind}_fwd'] = [f for f, _ in steps]
         res[f'{kind}_bwd'] = [b for _, b in steps]
     return res
+
+
+# The phase split of K5 and K6: each kernel timed as built from the
+# sources, then as built with one phase's code taken out (a textual edit of
+# a copy of csrc/ in dvc_tpu_torch/_build/phases/, never of the sources);
+# full minus the variant is that phase's share.  A variant computes on
+# stale operands, so only its time means anything.  SPLITS[spec][kernel] =
+# (source, [(phase, [(file, old text, new text)])]); 'pr3' splits the
+# kernels as they were before the per-video tables (run it from a checkout
+# of that tree: python3 chip_smoke.py --split pr3).
+_SCAN_BWD_SCORES = ('    __syncthreads();\n    attend_scores(at, sm, value_b, ab);\n'
+                    '    attend_softmax_ctx(at, sm, value_b);\n    for (int i')
+SPLITS = {
+    'pr3': {
+        'dsa_greedy': ('dsa_greedy.cu', [
+            ('scores taps.Wc', [('dsa_greedy.cu',
+                                 '    attend_scores(at, sm, value_b, ab);\n', '')]),
+            ('ctx', [('dsa_greedy.cu', 'attend_softmax_ctx(at, sm, value_b);',
+                      'attend_softmax(at, sm);')]),
+            ('token gates emb.token_w', [('dsa_greedy.cu',
+                                          'add_gates(emb_s, ldE, E, a.token_w, r, R, z);', '')]),
+            ('h.W_hh + ctx.ctx_w3', [('dsa_greedy.cu',
+                                      'add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n'
+                                      '      add_gates(sm.ctx, ldHD, HD, a.ctx_w3, r, R, z);',
+                                      '')]),
+            ('logits', [('dsa_greedy.cu',
+                         'cols_dot_rows(sm.h, ldR, R, a.logit_w, a.V1, n0, acc);', '')]),
+        ]),
+        'dsa_scan_bwd': ('dsa_scan.cu', [
+            ('scores (softmax recompute)', [('dsa_scan.cu', _SCAN_BWD_SCORES,
+                                             _SCAN_BWD_SCORES.replace(
+                                                 'attend_scores(at, sm, value_b, ab);', ''))]),
+            ('scores (du recompute)', [('dsa_common.cuh',
+                                        'score_tile(a, s, value_b, r0, 0, acc);',
+                                        'for (int i = 0; i < 4; ++i) for (int j = 0; j < 8; ++j)'
+                                        ' acc[i][j] = 0.f;')]),
+            ('dtaps = du.Wc^T', [('dsa_common.cuh', 'for (int a0 = 0; a0 < A; a0 += kBK) {',
+                                  'for (int a0 = A; a0 < A; a0 += kBK) {')]),
+            ('G atomics', [('dsa_common.cuh',
+                            '          atomicAdd(Gh + (size_t)s.lo[row] * A, s.wlo[row] * du);\n'
+                            '          atomicAdd(Gh + (size_t)s.hi[row] * A, s.whi[row] * du);\n',
+                            '')]),
+            ('dvalue atomics', [('dsa_common.cuh',
+                                 '          atomicAdd(dv + il + dh, wl * t);\n'
+                                 '          atomicAdd(dv + ih + dh, wh * t);\n', '')]),
+            ('gates + cell bwd', [('dsa_scan.cu',
+                                   'add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n'
+                                   '      add_gates(cx_s, ldHD, HD, a.ctx_w3, r, R, z);', '')]),
+            ('dz.W^T', [('dsa_scan.cu', 'gates_backprop(big_s, R, HD,',
+                         'gates_backprop(big_s, R, -R,')]),
+            ('dh += dhvec.W_h2att^T + doff.off_w^T', [
+                ('dsa_scan.cu', 'for (int r = warp; r < R; r += kWarps) {\n      const float* w2',
+                 'for (int r = R; r < R; r += kWarps) {\n      const float* w2')]),
+            ('outer sums', [('dsa_scan.cu', 'const int N = B * K * Q, HD',
+                             'const int N = 0, HD'),
+                            ('dsa_scan.cu', 'G, A, B * H * S, Dh', 'G, A, 0, Dh')]),
+        ]),
+    },
+    'current': {
+        'dsa_greedy': ('dsa_greedy.cu', [
+            ('tables VW, TW', [('dsa_greedy.cu', '(e = row_table(value_t, cw, B * H * S, Dh, A, vw, st)) != cudaSuccess ||\n'
+                                '      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st)) != cudaSuccess',
+                                'false')]),
+            ('scores from VW', [('dsa_greedy.cu', '    attend_scores_table<QT>(at, sm, vw_b, ab);\n', '')]),
+            ('ctx', [('dsa_greedy.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);',
+                      'attend_softmax<QT>(at, sm);')]),
+            ('h.W_hh + ctx.ctx_w3', [('dsa_greedy.cu',
+                                      'add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n'
+                                      '      add_gates(sm.ctx, ldHD, HD, a.ctx_w3, r, R, z);', '')]),
+            ('logits', [('dsa_greedy.cu',
+                         'cols_dot_rows<QT, LC>(sm.h, ldR, R, a.logit_w, a.V1, n0, acc);', '')]),
+        ]),
+        'dsa_scan_bwd': ('dsa_scan.cu', [
+            ('table VW', [('dsa_scan.cu', 'if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st)) != cudaSuccess) return (int)e;', '')]),
+            ('scores from VW', [('dsa_scan.cu', '    attend_scores_table<QT>(at, sm, vw_b, ab);\n', '')]),
+            ('gates + cell bwd', [('dsa_scan.cu',
+                                   'add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n'
+                                   '      add_gates(cx_s, ldHD, HD, a.ctx_w3, r, R, z);', '')]),
+            ('dz.W^T', [('dsa_scan.cu', 'gates_backprop_rows<QT>(dz_s, R, HD,',
+                         'gates_backprop_rows<QT>(dz_s, R, -R,')]),
+            ('context term', [('dsa_common.cuh', 'for (int c = lane * 4; c < Dh; c += 128) {',
+                               'for (int c = Dh; c < Dh; c += 128) {')]),
+            ('dvalue atomics', [('dsa_common.cuh',
+                                 '      atomic_add4(dv + il + c, mul4(wl, t));\n'
+                                 '      atomic_add4(dv + ih + c, mul4(wh, t));\n', '')]),
+            ('scores term', [('dsa_common.cuh',
+                              'for (int row = q * HLP; row < (q + 1) * HLP; ++row) {',
+                              'for (int row = (q + 1) * HLP; row < (q + 1) * HLP; ++row) {')]),
+            ('G atomics', [('dsa_common.cuh',
+                            '      atomic_add4(G_b + ol + c, mul4(wl, du));\n'
+                            '      atomic_add4(G_b + oh + c, mul4(wh, du));\n', '')]),
+            ('dh += dhvec.W_h2att^T + doff.off_w^T', [
+                ('dsa_scan.cu', 'for (int r0 = tid * 2; r0 < R;', 'for (int r0 = R; r0 < R;')]),
+            ('dvalue += G.Wc^T', [('dsa_scan.cu', 'BHS, Dh, A, true,', '0, Dh, A, true,')]),
+            ('outer sums', [('dsa_scan.cu', 'const int N = B * K * Q, HD',
+                             'const int N = 0, HD'),
+                            ('dsa_scan.cu', 'G, A, BHS, Dh, A, dcw', 'G, A, 0, Dh, A, dcw')]),
+        ]),
+    },
+}
+
+
+def build_variants(csrc, source, variants):
+    """One library of ``source`` per variant {name: [(file, old, new)]}
+    (the empty edit list builds the kernel as it is), compiled together;
+    returns {name: loaded KernelLib}."""
+    import ctypes
+    import hashlib
+    import shutil
+    from dvc_tpu_torch.ops import _cuda
+    jobs = {}
+    for name, edits in variants.items():
+        digest = hashlib.sha256(repr((source, edits)).encode())
+        for f in sorted(os.listdir(csrc)):
+            with open(os.path.join(csrc, f), 'rb') as fh:
+                digest.update(fh.read())
+        out = os.path.join(_cuda.BUILD_ROOT, 'phases', digest.hexdigest()[:16])
+        lib = os.path.join(out, 'lib.so')
+        if not os.path.exists(lib):
+            shutil.rmtree(out, ignore_errors=True)
+            shutil.copytree(csrc, out)
+            for f, old, new in edits:
+                path = os.path.join(out, f)
+                with open(path) as fh:
+                    text = fh.read()
+                if text.count(old) != 1:
+                    raise AssertionError(f'split {name}: {old!r} occurs '
+                                         f'{text.count(old)} times in {f}')
+                with open(path, 'w') as fh:
+                    fh.write(text.replace(old, new))
+        jobs[name] = (lib, None if os.path.exists(lib) else subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-shared', '-o', lib,
+             os.path.join(out, source)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        if proc is not None and proc.wait() != 0:
+            raise RuntimeError(f'split {name}: nvcc failed:\n'
+                               f'{proc.stdout.read()}')
+        cdll = ctypes.CDLL(lib)
+        for fn, argtypes in _cuda._SIGNATURES.items():
+            if hasattr(cdll, fn):
+                getattr(cdll, fn).argtypes = argtypes
+                getattr(cdll, fn).restype = ctypes.c_int
+        libs[name] = _cuda.KernelLib(cdll, lib, 0.0, '')
+    return libs
+
+
+def split_cases():
+    """(kernel, shape label, call) of each split: K6 at the serving shape
+    (B=16, Q=100, H=1 and 8), K5 at the train shapes (Q=90, K=29; B=1 and
+    16 at H=1, B=1 at H=8)."""
+    import torch
+    from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
+    from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
+                                            dsa_teacher_scan_fwd)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    cases = []
+    for H in (1, 8):
+        args = greedy_inputs(gen, 16, 100, H)
+        cases.append(('dsa_greedy', f'B=16 Q=100 H={H}',
+                      lambda args=args: dsa_greedy_scan(*args, MSDA_LEVELS, 30)))
+    for B, H in ((1, 1), (16, 1), (1, 8)):
+        args = scan_inputs(gen, B, 90, 29, H)
+        hs, cs = dsa_teacher_scan_fwd(*args, MSDA_LEVELS)
+        g = torch.randn(hs.shape, generator=gen, device='cuda')
+        cases.append(('dsa_scan_bwd', f'B={B} Q=90 K=29 H={H}',
+                      lambda args=args, hs=hs, cs=cs, g=g:
+                      dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g)))
+    return cases
+
+
+def phase_split(spec):
+    """Print one line per kernel and shape: its time as built, and each
+    phase's share (as built minus the variant without that phase; CUDA
+    events, mean of 3 after a warm-up).  Returns {kernel: [lines]}."""
+    import torch
+    from dvc_tpu_torch.ops import _cuda
+    csrc = _cuda.CSRC
+    libs = {kernel: build_variants(csrc, source,
+                                   {'as built': [], **dict(phases)})
+            for kernel, (source, phases) in SPLITS[spec].items()}
+    saved, out = _cuda._LIB, {}
+    try:
+        with torch.inference_mode():
+            for kernel, shape, call in split_cases():
+                times = {}
+                for name, lib in libs[kernel].items():
+                    _cuda._LIB = lib
+                    times[name] = cuda_ms(call, 3)
+                full = times.pop('as built')
+                line = (f'[split] {kernel} {shape} ({spec}): as built '
+                        f'{full:.3f} ms; without each phase, its share: '
+                        + '; '.join(f'{n} {full - t:.3f} ms'
+                                    for n, t in times.items()))
+                print(line)
+                out.setdefault(kernel, []).append(line)
+    finally:
+        _cuda._LIB = saved
+    return out
+
+
+def ab_times():
+    """Kernel-only CUDA-event times (ms) of every kernel at the phase-3
+    shapes, plus the greedy decode at B=1 (a single caption_features
+    request), as one JSON line: the half of an A/B of two trees in one
+    call.  Run ``python3 chip_smoke.py --ab`` from each tree's root in turns
+    (old, new, new, old)."""
+    import torch
+    from dvc_tpu_torch import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    out = {}
+    with torch.inference_mode():
+        for B, Q in ((16, 375), (16, 100), (1, 375)):
+            value, loc, attn = msda_inputs(gen, B, Q)
+            out[f'msda_fwd B={B} Q={Q}'] = cuda_ms(
+                lambda: ops.ms_deform_attn(value, MSDA_LEVELS, loc, attn), 50)
+        for B, H in ((16, 1), (16, 8), (1, 1), (1, 8)):
+            args = greedy_inputs(gen, B, 100, H)
+            out[f'dsa_greedy B={B} Q=100 H={H}'] = cuda_ms(
+                lambda: ops.dsa_greedy_scan(*args, MSDA_LEVELS, 30), 3)
+        for Q in (375, 100):
+            value, loc, attn = msda_inputs(gen, 1, Q)
+            g = torch.randn((1, Q, 512), generator=gen, device='cuda')
+            out[f'msda_bwd B=1 Q={Q}'] = cuda_ms(lambda: ops.ms_deform_attn_bwd(
+                value, MSDA_LEVELS, loc, attn, g), 50)
+        for B, H in ((1, 1), (16, 1), (1, 8)):
+            args = scan_inputs(gen, B, 90, 29, H)
+            hs, cs = ops.dsa_teacher_scan_fwd(*args, MSDA_LEVELS)
+            g = torch.randn(hs.shape, generator=gen, device='cuda')
+            out[f'dsa_scan_fwd B={B} Q=90 H={H}'] = cuda_ms(
+                lambda: ops.dsa_teacher_scan_fwd(*args, MSDA_LEVELS), 3)
+            out[f'dsa_scan_bwd B={B} Q=90 H={H}'] = cuda_ms(
+                lambda: ops.dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g), 3)
+        for lstm, kind in ((False, 'dsa_step'), (True, 'dsa_lstm')):
+            fwd = ops.dsa_lstm_step_fwd if lstm else ops.dsa_sample_attend_fwd
+            bwd = ops.dsa_lstm_step_bwd if lstm else ops.dsa_sample_attend_bwd
+            for B, Q, H in ((1, 90, 1), (16, 100, 1), (16, 100, 8)):
+                args = step_inputs(gen, B, Q, H, lstm)
+                outs = fwd(*args, MSDA_LEVELS)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                cot = tuple(torch.randn(o.shape, generator=gen, device='cuda')
+                            for o in outs)
+                out[f'{kind}_fwd B={B} Q={Q} H={H}'] = cuda_ms(
+                    lambda: fwd(*args, MSDA_LEVELS), 20)
+                out[f'{kind}_bwd B={B} Q={Q} H={H}'] = cuda_ms(
+                    lambda: bwd(*args, MSDA_LEVELS, *cot), 20)
+    print(json.dumps({'ab': out}))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1162,6 +1446,7 @@ def main():
     device = phase_device()
     phase_build()
     kernels = phase_kernels()
+    phase_split('current')
     from dvc_tpu_torch.utils.config import load_config
     opt = load_config(CFG, root=ROOT)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1219,4 +1504,11 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--split']:
+        phase_device()
+        phase_split(sys.argv[2] if len(sys.argv) > 2 else 'current')
+    elif sys.argv[1:2] == ['--ab']:
+        phase_device()
+        ab_times()
+    else:
+        main()

@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
 namespace dsa {
 
 constexpr int kThreads = 512;
@@ -104,9 +106,10 @@ __device__ __forceinline__ void rows_dot_col(const float* x, int ld, int len,
 // z[q, g*R + r] += sum_j x[q, j] * W[j, g*R + r] for the 4 gates g of
 // hidden unit r; x (kQT, len) in shared memory with row stride ld, W
 // (len, 4R) row-major
+template <int QT = kQT>
 __device__ __forceinline__ void add_gates(const float* x, int ld, int len,
                                           const float* __restrict__ W, int r,
-                                          int R, float (&z)[4][kQT]) {
+                                          int R, float (&z)[4][QT]) {
   const int len4 = len & ~3;
   for (int j = 0; j < len4; j += 4) {
     float w[4][4];  // [j offset][gate]
@@ -115,7 +118,7 @@ __device__ __forceinline__ void add_gates(const float* x, int ld, int len,
 #pragma unroll
       for (int g = 0; g < 4; ++g) w[u][g] = W[(size_t)(j + u) * 4 * R + g * R + r];
 #pragma unroll
-    for (int q = 0; q < kQT; ++q) {
+    for (int q = 0; q < QT; ++q) {
       const float4 v = ld4(x + q * ld + j);
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
@@ -131,7 +134,7 @@ __device__ __forceinline__ void add_gates(const float* x, int ld, int len,
     for (int g = 0; g < 4; ++g) {
       const float wg = W[(size_t)j * 4 * R + g * R + r];
 #pragma unroll
-      for (int q = 0; q < kQT; ++q) z[g][q] = fmaf(x[q * ld + j], wg, z[g][q]);
+      for (int q = 0; q < QT; ++q) z[g][q] = fmaf(x[q * ld + j], wg, z[g][q]);
     }
   }
 }
@@ -196,17 +199,18 @@ __device__ __forceinline__ float row_offset(const AttendArgs& a,
 
 // phases 1 and 2 from the hidden state: hvec, and the tap table of every
 // row at pos = base_pos + (h . off_w) * scale_t.  No barrier at the end.
+template <int QT = kQT>
 __device__ __forceinline__ void attend_hvec_taps(const AttendArgs& a,
                                                  const AttendSmem& s, int b,
                                                  int q0) {
   const int tid = threadIdx.x, R = a.R, A = a.A, H = a.H, LP = a.LP;
-  const int HLP = H * LP, NR = kQT * HLP, ldR = pad4(R), ldA = pad4(A);
+  const int HLP = H * LP, NR = QT * HLP, ldR = pad4(R), ldA = pad4(A);
   for (int col = tid; col < A; col += kThreads) {
-    float acc[kQT] = {};
-    rows_dot_col<kQT>(s.h, ldR, R, a.h2att_w, A, col, acc);
+    float acc[QT] = {};
+    rows_dot_col<QT>(s.h, ldR, R, a.h2att_w, A, col, acc);
     const float bias = a.h2att_b[col];
 #pragma unroll
-    for (int q = 0; q < kQT; ++q) s.hvec[q * ldA + col] = acc[q] + bias;
+    for (int q = 0; q < QT; ++q) s.hvec[q * ldA + col] = acc[q] + bias;
   }
   for (int row = tid; row < NR; row += kThreads) {
     const int q = row / HLP, hh = (row / LP) % H, p = row % LP;
@@ -329,10 +333,11 @@ __device__ __forceinline__ void attend_scores(const AttendArgs& a,
 
 // phase 4: softmax over the LP taps of each (q, head), in place in s.d.
 // Ends with a barrier.
+template <int QT = kQT>
 __device__ __forceinline__ void attend_softmax(const AttendArgs& a,
                                                const AttendSmem& s) {
   const int tid = threadIdx.x, LP = a.LP;
-  for (int g = tid; g < kQT * a.H; g += kThreads) {
+  for (int g = tid; g < QT * a.H; g += kThreads) {
     float* dg = s.d + g * LP;
     float m = -INFINITY;
     for (int p = 0; p < LP; ++p) m = fmaxf(m, dg[p]);
@@ -349,13 +354,14 @@ __device__ __forceinline__ void attend_softmax(const AttendArgs& a,
 
 // phases 4 and 5: the softmax, then ctx[q, hh*Dh + dh] = sum_p wts * taps.
 // Ends with a barrier.
+template <int QT = kQT>
 __device__ __forceinline__ void attend_softmax_ctx(const AttendArgs& a,
                                                    const AttendSmem& s,
                                                    const float* value_b) {
   const int tid = threadIdx.x, H = a.H, LP = a.LP, Dh = a.Dh, HD = H * Dh;
   const int ldHD = pad4(HD);
-  attend_softmax(a, s);
-  for (int i = tid; i < kQT * HD; i += kThreads) {
+  attend_softmax<QT>(a, s);
+  for (int i = tid; i < QT * HD; i += kThreads) {
     const int q = i / HD, hd = i % HD, hh = hd / Dh, dh = hd % Dh;
     const float* v = value_b + (size_t)hh * a.S * Dh + dh;
     const int r0 = (q * H + hh) * LP;
@@ -579,60 +585,443 @@ __device__ __forceinline__ void attend_backward(const AttendArgs& a,
 }
 
 // ----------------------------------------------------------------------------
-// host side
+// the attention from the per-video table VW = value . Wc (B, H, S, A), for
+// the greedy decode (dsa_greedy.cu) and the scan backward (dsa_scan.cu).  A
+// tap is the lerp of two value rows, so taps . Wc is the same lerp of two VW
+// rows: a score costs 2A loads and A tanh, and no Dh x A product.  The scan
+// forward and the word-step kernels keep the product form above
+// (attend_scores, score_tile, attend_backward).
 // ----------------------------------------------------------------------------
 
-// out (m, n) = X^T Y over N rows: X (N, m), Y (N, n), row-major with leading
-// dimensions ldx, ldy.  64 x 64 output tiles, 256 threads of 4 x 4 outputs,
-// 16-row slices of X and Y staged in shared memory.  Deterministic: the
-// weight gradients' reductions over (video, step, query) rows.  The
-// kernel and the host helpers below are static: one copy per translation
-// unit (nvcc's stubs do not tell a nested anonymous namespace from the
-// file's own).
-constexpr int kOT = 64, kOK = 16, kOThreads = 256;
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
 
-static __global__ void __launch_bounds__(kOThreads)
-outer_sum_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y,
-                 int ldy, int N, int m, int n, float* __restrict__ out) {
-  __shared__ float xs[kOK][kOT];
-  __shared__ float ys[kOK][kOT];
-  const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
-  const int i0 = blockIdx.y * kOT, j0 = blockIdx.x * kOT;
-  float acc[4][4] = {};
-  for (int t0 = 0; t0 < N; t0 += kOK) {
-    for (int e = tid; e < kOK * kOT; e += kOThreads) {
-      const int t = e / kOT, c = e % kOT;
-      xs[t][c] = (t0 + t < N && i0 + c < m) ? X[(size_t)(t0 + t) * ldx + i0 + c] : 0.f;
-      ys[t][c] = (t0 + t < N && j0 + c < n) ? Y[(size_t)(t0 + t) * ldy + j0 + c] : 0.f;
+// one vector atomic (sm_90) adding v to the 4 floats at p (16-byte aligned)
+__device__ __forceinline__ void atomic_add4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
+// the score preactivation of one column from the two VW entries of a tap
+__device__ __forceinline__ float score_pre(float wl, float xl, float wh,
+                                           float xh, float cb, float hv) {
+  return ((wl * xl + wh * xh) + cb) + hv;
+}
+
+// phase 3 from the table: d[row] = tanh(wlo VW[lo] + whi VW[hi] + cb +
+// hvec[q]) . aw + ab, a warp per tap row, lanes along A.  Ends with a
+// barrier.
+template <int QT = kQT>
+__device__ __forceinline__ void attend_scores_table(const AttendArgs& a,
+                                                    const AttendSmem& s,
+                                                    const float* vw_b, float ab) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int H = a.H, LP = a.LP, A = a.A, HLP = H * LP, NR = QT * HLP;
+  const int ldA = pad4(A);
+  for (int row = warp; row < NR; row += kWarps) {
+    const int q = row / HLP, hh = (row / LP) % H;
+    const float* vw = vw_b + (size_t)hh * a.S * A;
+    const float* xl = vw + (size_t)s.lo[row] * A;
+    const float* xh = vw + (size_t)s.hi[row] * A;
+    const float* hv = s.hvec + q * ldA;
+    const float wl = s.wlo[row], wh = s.whi[row];
+    float acc = 0.f;
+    for (int c = lane; c < A; c += 32)
+      acc = fmaf(tanhf(score_pre(wl, __ldg(xl + c), wh, __ldg(xh + c),
+                                 __ldg(a.cb + c), hv[c])),
+                 __ldg(a.aw + c), acc);
+    acc = warp_sum(acc);
+    if (lane == 0) s.d[row] = acc + ab;
+  }
+  __syncthreads();
+}
+
+// shared buffers of the table-form attention backward
+struct TableGradSmem {
+  float* dctx;   // (QT, pad4(H*Dh)) in: d ctx of the tile
+  float* dhvec;  // (QT, pad4(A)) out: d hvec
+  float* ddot;   // (NR) d wts, then d of the scores
+  float* dpos;   // (NR) out: d pos of every tap row
+  float* dab;    // (1) block partial sum, added to
+};
+
+// a lane's columns of the score backward: with QT queries a block, warp w
+// owns query w / (kWarps / QT) and the part w % (kWarps / QT) of the A
+// columns; a lane the float4 groups part*Ap + lane*4 + 128*j (j <
+// kColGroups) below the part's end, Ap = the part's width
+constexpr int kColGroups = 2;
+
+struct ColGroups {
+  int c[kColGroups];
+  bool ok[kColGroups];
+  __device__ ColGroups(int A, int parts) {
+    const int part = (threadIdx.x >> 5) % parts, lane = threadIdx.x & 31;
+    const int Ap = pad4((A + parts - 1) / parts), end = min(A, (part + 1) * Ap);
+#pragma unroll
+    for (int j = 0; j < kColGroups; ++j) {
+      c[j] = part * Ap + lane * 4 + 128 * j;
+      ok[j] = c[j] < end;
     }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kOK; ++t) {
-      float x[4], y[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) { x[u] = xs[t][ti * 4 + u]; y[u] = ys[t][tj * 4 + u]; }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(x[u], y[v], acc[u][v]);
+  }
+};
+
+__device__ __forceinline__ float4 f4(float v) { return make_float4(v, v, v, v); }
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 mul4(float s, float4 a) {
+  return make_float4(s * a.x, s * a.y, s * a.z, s * a.w);
+}
+
+// backward of phases 3-5 for the cotangent g.dctx, in the table form.  On
+// entry (after a barrier): the tap table, hvec and the softmax weights (in
+// s.d) of the tile.  Adds to dvalue_b (H, S, Dh) only the context's term,
+// the lerp-scatter of wts * dctx (the scores' term, du . Wc^T scattered the
+// same way, is G . Wc^T, one product per launch); to G_b (H, S, A) the
+// lerp-scatter of du = ddot * aw * (1 - tanh^2), from which dWc = value^T G;
+// and to the lane's column sums dcb, daw (kColGroups float4 each, kept in
+// registers across steps; see ColGroups).  Writes g.dhvec and g.dpos (the
+// context's term (v[hi] - v[lo]) . wts dctx plus the scores' (VW[hi] -
+// VW[lo]) . du).  Every atomic into global memory is a float4.  Ends with a
+// barrier.  A query whose d ctx is zero adds exactly zero everywhere.
+template <int QT>
+__device__ __forceinline__ void attend_backward_table(
+    const AttendArgs& a, const AttendSmem& s, const TableGradSmem& g,
+    const float* value_b, const float* vw_b, float* dvalue_b, float* G_b,
+    const ColGroups& cols, float4 (&dcb)[kColGroups], float4 (&daw)[kColGroups]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = a.H, Dh = a.Dh, LP = a.LP, S = a.S, A = a.A;
+  const int HLP = H * LP, NR = QT * HLP, ldA = pad4(A), ldHD = pad4(H * Dh);
+
+  // the context's term, a warp per tap row: dwts = taps . dctx, dvalue +=
+  // the lerp of wts * dctx, dpos = wts (v[hi] - v[lo]) . dctx
+  for (int row = warp; row < NR; row += kWarps) {
+    const int q = row / HLP, hh = (row / LP) % H;
+    const float* v = value_b + (size_t)hh * S * Dh;
+    float* dv = dvalue_b + (size_t)hh * S * Dh;
+    const float* dc = g.dctx + q * ldHD + hh * Dh;
+    const float wl = s.wlo[row], wh = s.whi[row], w = s.d[row];
+    const size_t il = (size_t)s.lo[row] * Dh, ih = (size_t)s.hi[row] * Dh;
+    float dw = 0.f, dp = 0.f;
+    for (int c = lane * 4; c < Dh; c += 128) {
+      const float4 vl = ldg4(v + il + c), vh = ldg4(v + ih + c), d4 = ld4(dc + c);
+      dw = fmaf(wl * vl.x + wh * vh.x, d4.x, dw);
+      dw = fmaf(wl * vl.y + wh * vh.y, d4.y, dw);
+      dw = fmaf(wl * vl.z + wh * vh.z, d4.z, dw);
+      dw = fmaf(wl * vl.w + wh * vh.w, d4.w, dw);
+      dp = fmaf(vh.x - vl.x, d4.x, dp);
+      dp = fmaf(vh.y - vl.y, d4.y, dp);
+      dp = fmaf(vh.z - vl.z, d4.z, dp);
+      dp = fmaf(vh.w - vl.w, d4.w, dp);
+      const float4 t = mul4(w, d4);
+      atomic_add4(dv + il + c, mul4(wl, t));
+      atomic_add4(dv + ih + c, mul4(wh, t));
     }
-    __syncthreads();
+    dw = warp_sum(dw);
+    dp = warp_sum(dp);
+    if (lane == 0) {
+      g.ddot[row] = dw;
+      g.dpos[row] = w * dp;
+    }
+  }
+  __syncthreads();
+  // ddot = wts * (dwts - sum_p wts * dwts) per (q, head)
+  for (int gi = tid; gi < QT * H; gi += kThreads) {
+    float* dw = g.ddot + gi * LP;
+    const float* wts = s.d + gi * LP;
+    float sum = 0.f;
+    for (int p = 0; p < LP; ++p) sum += wts[p] * dw[p];
+    float tot = 0.f;
+    for (int p = 0; p < LP; ++p) {
+      const float dd = wts[p] * (dw[p] - sum);
+      dw[p] = dd;
+      tot += dd;
+    }
+    atomicAdd(g.dab, tot);
+  }
+  __syncthreads();
+
+  // the scores' term, a warp per (query, column part) over the query's tap
+  // rows: the scores again from the table, du, and its scatters
+  const int q = warp / (kWarps / QT);
+  float4 cbv[kColGroups], awv[kColGroups], hv[kColGroups], dhv[kColGroups];
+#pragma unroll
+  for (int j = 0; j < kColGroups; ++j) {
+    dhv[j] = f4(0.f);
+    if (!cols.ok[j]) continue;
+    cbv[j] = ldg4(a.cb + cols.c[j]);
+    awv[j] = ldg4(a.aw + cols.c[j]);
+    hv[j] = ld4(s.hvec + q * ldA + cols.c[j]);
+  }
+  for (int row = q * HLP; row < (q + 1) * HLP; ++row) {
+    const int hh = (row / LP) % H;
+    const size_t ol = ((size_t)hh * S + s.lo[row]) * A, oh = ((size_t)hh * S + s.hi[row]) * A;
+    const float wl = s.wlo[row], wh = s.whi[row], dd = g.ddot[row];
+    float dp = 0.f;
+#pragma unroll
+    for (int j = 0; j < kColGroups; ++j) {
+      if (!cols.ok[j]) continue;
+      const int c = cols.c[j];
+      const float4 xl = ldg4(vw_b + ol + c), xh = ldg4(vw_b + oh + c);
+      const float u[4] = {tanhf(score_pre(wl, xl.x, wh, xh.x, cbv[j].x, hv[j].x)),
+                          tanhf(score_pre(wl, xl.y, wh, xh.y, cbv[j].y, hv[j].y)),
+                          tanhf(score_pre(wl, xl.z, wh, xh.z, cbv[j].z, hv[j].z)),
+                          tanhf(score_pre(wl, xl.w, wh, xh.w, cbv[j].w, hv[j].w))};
+      const float4 du = make_float4(dd * awv[j].x * (1.f - u[0] * u[0]),
+                                    dd * awv[j].y * (1.f - u[1] * u[1]),
+                                    dd * awv[j].z * (1.f - u[2] * u[2]),
+                                    dd * awv[j].w * (1.f - u[3] * u[3]));
+      daw[j] = add4(daw[j], make_float4(dd * u[0], dd * u[1], dd * u[2], dd * u[3]));
+      dcb[j] = add4(dcb[j], du);
+      dhv[j] = add4(dhv[j], du);
+      dp = fmaf(du.x, xh.x - xl.x, dp);
+      dp = fmaf(du.y, xh.y - xl.y, dp);
+      dp = fmaf(du.z, xh.z - xl.z, dp);
+      dp = fmaf(du.w, xh.w - xl.w, dp);
+      atomic_add4(G_b + ol + c, mul4(wl, du));
+      atomic_add4(G_b + oh + c, mul4(wh, du));
+    }
+    dp = warp_sum(dp);
+    if (lane == 0) atomicAdd(g.dpos + row, dp);   // the column parts
   }
 #pragma unroll
-  for (int u = 0; u < 4; ++u)
+  for (int j = 0; j < kColGroups; ++j)
+    if (cols.ok[j]) *reinterpret_cast<float4*>(g.dhvec + q * ldA + cols.c[j]) = dhv[j];
+  __syncthreads();
+}
+
+// acc[i][q] += sum_{j < len} x[q*ldx + j] * W[(u0 + i)*ldw + j] for the QT
+// rows of x in shared memory and U consecutive rows of W (both 16-byte
+// aligned, ldx and ldw multiples of 4); rows past n_rows read the last one
+// (the caller drops them).  A thread owns U output units: each weight is
+// read once per block and used for the QT queries, each activation is a
+// shared-memory broadcast used for U units.
+template <int U, int QT>
+__device__ __forceinline__ void rows_dot_rows(const float* x, int ldx, int len,
+                                              const float* __restrict__ W, int ldw,
+                                              int u0, int n_rows, float (&acc)[U][QT]) {
+  const float* w[U];
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int i = i0 + ti * 4 + u, j = j0 + tj * 4 + v;
-      if (i < m && j < n) out[(size_t)i * n + j] = acc[u][v];
+  for (int i = 0; i < U; ++i) w[i] = W + (size_t)min(u0 + i, n_rows - 1) * ldw;
+  const int len8 = len & ~7;
+  for (int j = 0; j < len8; j += 8) {
+    float4 wa[U], wb[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) { wa[i] = ldg4(w[i] + j); wb[i] = ldg4(w[i] + j + 4); }
+#pragma unroll
+    for (int q = 0; q < QT; ++q) {
+      const float4 xa = ld4(x + q * ldx + j), xb = ld4(x + q * ldx + j + 4);
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        float t = acc[i][q];
+        t = fmaf(xa.x, wa[i].x, t); t = fmaf(xa.y, wa[i].y, t);
+        t = fmaf(xa.z, wa[i].z, t); t = fmaf(xa.w, wa[i].w, t);
+        t = fmaf(xb.x, wb[i].x, t); t = fmaf(xb.y, wb[i].y, t);
+        t = fmaf(xb.z, wb[i].z, t); t = fmaf(xb.w, wb[i].w, t);
+        acc[i][q] = t;
+      }
+    }
+  }
+  for (int j = len8; j < len; ++j)
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const float wj = __ldg(w[i] + j);
+#pragma unroll
+      for (int q = 0; q < QT; ++q) acc[i][q] = fmaf(x[q * ldx + j], wj, acc[i][q]);
     }
 }
 
+// gates_backprop with a thread per two output units (rows_dot_rows): for
+// u < R, store(q, u, dz[q] . W_hh[u]) (d h); for u = R + i, store(q, u,
+// dz[q] . ctx_w3[i]) (d ctx).  dz (QT, 4R) in shared memory; R even.  No
+// barrier.
+template <int QT, typename Store>
+__device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int HD,
+                                                    const float* __restrict__ w_hh,
+                                                    const float* __restrict__ ctx_w3,
+                                                    Store store) {
+  constexpr int U = 2;
+  const int R4 = 4 * R;
+  for (int u0 = threadIdx.x * U; u0 < R + HD; u0 += kThreads * U) {
+    float acc[U][QT] = {};
+    const bool hid = u0 < R;
+    const int n = hid ? R : HD;
+    rows_dot_rows<U, QT>(dz, R4, R4, hid ? w_hh : ctx_w3, R4, hid ? u0 : u0 - R, n, acc);
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      if ((hid ? u0 + i : u0 + i - R) >= n) continue;
+#pragma unroll
+      for (int q = 0; q < QT; ++q) store(q, u0 + i, acc[i][q]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------------------
+// host side
+// ----------------------------------------------------------------------------
+
+// The tiled f32 GEMM of the per-video tables, of dvalue's G . Wc^T and of
+// the weight gradients' outer sums: out (M, N) (+)= X' Y' summed over T
+// terms, X' (M, T) and Y' (T, N).  An operand is stored either along its
+// output axis (X (M, T) or Y (N, T): element (i, t) at p[i*ld + t]) or
+// along the terms (X (T, M) or Y (T, N): element (t, i) at p[t*ld + i]);
+// the callers use three of the four pairs (X along the terms goes with Y
+// along the terms only).
+// 128 x 128 output tiles, 256 threads of 8 x 8 outputs, 8-term slices of
+// both operands staged in shared memory while the next slice is fetched into
+// registers.  With a workspace, T is cut into fixed chunks (split-K) whose
+// partial tiles a second kernel adds in chunk order: deterministic.  The
+// kernels and the host helpers below are static: one copy per translation
+// unit (nvcc's stubs do not tell a nested anonymous namespace from the
+// file's own).
+constexpr int kGT = 128, kGK = 8, kGThreads = 256, kGSplitMax = 8;
+
+struct Operand {
+  const float* p;
+  int ld;
+  bool by_term;  // element (t, i) at p[t*ld + i]; else (i, t) at p[i*ld + t]
+};
+
+template <bool ByTerm>
+__device__ __forceinline__ float gemm_fetch(const float* __restrict__ p, int ld,
+                                            int e, int i0, int t0, int M, int t_end) {
+  const int t = ByTerm ? e / kGT : e % kGK, i = ByTerm ? e % kGT : e / kGK;
+  if (i0 + i >= M || t0 + t >= t_end) return 0.f;
+  return __ldg(p + (ByTerm ? (size_t)(t0 + t) * ld + i0 + i : (size_t)(i0 + i) * ld + t0 + t));
+}
+
+template <bool XByTerm, bool YByTerm>
+static __global__ void __launch_bounds__(kGThreads, 2)
+gemm_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, int ldy,
+            int M, int N, int T, int chunk, int accumulate, float* __restrict__ out) {
+  __shared__ __align__(16) float xs[kGK][kGT + 4];
+  __shared__ __align__(16) float ys[kGK][kGT + 4];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int i0 = blockIdx.y * kGT, j0 = blockIdx.x * kGT;
+  const int t_begin = blockIdx.z * chunk, t_end = min(T, t_begin + chunk);
+  constexpr int kPer = kGT * kGK / kGThreads;
+  float xr[kPer], yr[kPer], acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    xr[u] = gemm_fetch<XByTerm>(X, ldx, tid + u * kGThreads, i0, t_begin, M, t_end);
+    yr[u] = gemm_fetch<YByTerm>(Y, ldy, tid + u * kGThreads, j0, t_begin, N, t_end);
+  }
+  for (int t0 = t_begin; t0 < t_end; t0 += kGK) {
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int e = tid + u * kGThreads;
+      xs[XByTerm ? e / kGT : e % kGK][XByTerm ? e % kGT : e / kGK] = xr[u];
+      ys[YByTerm ? e / kGT : e % kGK][YByTerm ? e % kGT : e / kGK] = yr[u];
+    }
+    __syncthreads();
+    if (t0 + kGK < t_end) {
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        xr[u] = gemm_fetch<XByTerm>(X, ldx, tid + u * kGThreads, i0, t0 + kGK, M, t_end);
+        yr[u] = gemm_fetch<YByTerm>(Y, ldy, tid + u * kGThreads, j0, t0 + kGK, N, t_end);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGK; ++k) {
+      const float4 a0 = ld4(&xs[k][ty * 4]), a1 = ld4(&xs[k][64 + ty * 4]);
+      const float4 b0 = ld4(&ys[k][tx * 4]), b1 = ld4(&ys[k][64 + tx * 4]);
+      const float x[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float y[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* o = out + (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = i0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = j0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (c >= N) continue;
+      const size_t at = (size_t)r * N + c;
+      o[at] = accumulate ? o[at] + acc[i][j] : acc[i][j];
+    }
+  }
+}
+
+// out[i] (+)= sum_z part[z][i] in chunk order
+static __global__ void split_sum_kernel(const float* __restrict__ part, int splits,
+                                        size_t n, int accumulate,
+                                        float* __restrict__ out) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = accumulate ? out[i] : 0.f;
+    for (int z = 0; z < splits; ++z) s += part[(size_t)z * n + i];
+    out[i] = s;
+  }
+}
+
+// out (M, N) row-major (+)= X' Y' over T terms (see gemm_kernel).  work, if
+// not null, holds work_floats floats for split-K partial tiles: the terms
+// are cut into up to kGSplitMax chunks, as many as keep the grid within one
+// wave of two blocks per SM.
+static cudaError_t gemm(Operand x, Operand y, int M, int N, int T, bool accumulate,
+                        float* out, float* work, size_t work_floats,
+                        cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  const int tiles = ((M + kGT - 1) / kGT) * ((N + kGT - 1) / kGT);
+  int splits = 1;
+  if (work != nullptr && T > 0) {
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    splits = std::min(2 * sms / tiles, kGSplitMax);
+    splits = std::min(splits, std::max(1, T / (32 * kGK)));
+    splits = (int)std::min((size_t)splits, work_floats / ((size_t)M * N));
+    splits = std::max(splits, 1);
+  }
+  int chunk = ((T + splits - 1) / splits + kGK - 1) / kGK * kGK;
+  if (chunk == 0) chunk = kGK;
+  splits = T > 0 ? (T + chunk - 1) / chunk : 1;
+  const dim3 grid((N + kGT - 1) / kGT, (M + kGT - 1) / kGT, splits);
+  float* dst = splits > 1 ? work : out;
+  const int acc = splits > 1 ? 0 : (int)accumulate;
+  if (x.by_term && !y.by_term) return cudaErrorInvalidValue;  // no caller
+  if (x.by_term)
+    gemm_kernel<true, true><<<grid, kGThreads, 0, stream>>>(x.p, x.ld, y.p, y.ld, M, N, T, chunk, acc, dst);
+  else if (y.by_term)
+    gemm_kernel<false, true><<<grid, kGThreads, 0, stream>>>(x.p, x.ld, y.p, y.ld, M, N, T, chunk, acc, dst);
+  else
+    gemm_kernel<false, false><<<grid, kGThreads, 0, stream>>>(x.p, x.ld, y.p, y.ld, M, N, T, chunk, acc, dst);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const size_t n = (size_t)M * N;
+  const int blocks = (int)std::min((n + 255) / 256, (size_t)4096);
+  split_sum_kernel<<<blocks, 256, 0, stream>>>(work, splits, n, (int)accumulate, out);
+  return cudaGetLastError();
+}
+
+// out (m, n) = X^T Y over N rows: X (N, m), Y (N, n), row-major with leading
+// dimensions ldx, ldy (the weight gradients' reductions over (video, step,
+// query) rows); deterministic
 static cudaError_t outer_sum(const float* X, int ldx, const float* Y, int ldy,
                              int N, int m, int n, float* out,
-                             cudaStream_t stream) {
-  const dim3 grid((n + kOT - 1) / kOT, (m + kOT - 1) / kOT);
-  outer_sum_kernel<<<grid, kOThreads, 0, stream>>>(X, ldx, Y, ldy, N, m, n, out);
-  return cudaGetLastError();
+                             cudaStream_t stream, float* work = nullptr,
+                             size_t work_floats = 0) {
+  return gemm(Operand{X, ldx, true}, Operand{Y, ldy, true}, m, n, N, false, out,
+              work, work_floats, stream);
+}
+
+// table (N, n) = X (N, k) W (k, n), both row-major: the per-video table
+// value . Wc (N = B*H*S rows) and the vocabulary's embed . token_w
+static cudaError_t row_table(const float* X, const float* W, int N, int k, int n,
+                             float* table, cudaStream_t stream) {
+  return gemm(Operand{X, k, false}, Operand{W, n, true}, N, n, k, false, table,
+              nullptr, 0, stream);
 }
 
 // the attention operands that every kernel takes; base_pos, scale, off_w

@@ -403,13 +403,14 @@ extern "C" int dvc_dsa_step_fwd(
 // K7's gradients for the cotangent g (B, H, Q, Dh) of ctx.  dvalue
 // (B, H, S, Dh), dcb (A), daw (A), dab (1) and the scratch G (B, H, S, A)
 // zeroed by the caller; dpos (B, H, Q, LP), dhvec (B, Q, A), dcw (Dh, A)
-// fully written.
+// fully written.  work (work_floats floats) holds the outer sum's split-K
+// partial tiles (see dsa::gemm).
 extern "C" int dvc_dsa_step_bwd(
     const float* value_t, const float* pos, const float* hvec, const float* cw,
     const float* cb, const float* aw, const float* ab, const float* g,
     const int* shapes, float* dvalue, float* dpos, float* dhvec, float* dcw,
-    float* dcb, float* daw, float* dab, float* G, int B, int H, int S, int Dh,
-    int Q, int LP, int L, int A, void* stream) {
+    float* dcb, float* daw, float* dab, float* G, float* work, int B, int H,
+    int S, int Dh, int Q, int LP, int L, int A, int work_floats, void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cw, cb, aw, ab, shapes, H, S, Dh, Q,
                  LP, L, A, 0) || A > kBN)
@@ -420,7 +421,8 @@ extern "C" int dvc_dsa_step_bwd(
   cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = BwdLayout(0, A, H * Dh, kQT * H * LP).bytes();
   cudaError_t e = launch(step_bwd_kernel, smem, B, Q, st, a, o);
-  if (e == cudaSuccess) e = outer_sum(value_t, Dh, G, A, B * H * S, Dh, A, dcw, st);
+  if (e == cudaSuccess)
+    e = outer_sum(value_t, Dh, G, A, B * H * S, Dh, A, dcw, st, work, work_floats);
   return (int)e;
 }
 
@@ -445,7 +447,8 @@ extern "C" int dvc_dsa_lstm_fwd(
 // K9's gradients for the cotangents gh, gc (B, Q, R) of (h_new, c_new).
 // dvalue, dcb, daw, dab and the scratch G zeroed by the caller; dpos, dhvec,
 // dz0 (B, Q, 4R), dh, dc (B, Q, R), dctx_w3 (H*Dh, 4R), dwhh (R, 4R) and
-// dcw fully written; scratch ctx_all (B, Q, H*Dh).
+// dcw fully written; scratch ctx_all (B, Q, H*Dh) and work (work_floats
+// floats, the outer sums' split-K partial tiles).
 extern "C" int dvc_dsa_lstm_bwd(
     const float* value_t, const float* pos, const float* hvec, const float* z0,
     const float* h, const float* c, const float* ctx_w3, const float* w_hh,
@@ -453,8 +456,8 @@ extern "C" int dvc_dsa_lstm_bwd(
     const float* gh, const float* gc, const int* shapes, float* dvalue,
     float* dpos, float* dhvec, float* dz0, float* dh, float* dc,
     float* dctx_w3, float* dwhh, float* dcw, float* dcb, float* daw,
-    float* dab, float* G, float* ctx_all, int B, int H, int S, int Dh, int Q,
-    int LP, int L, int A, int R, void* stream) {
+    float* dab, float* G, float* ctx_all, float* work, int B, int H, int S,
+    int Dh, int Q, int LP, int L, int A, int R, int work_floats, void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cw, cb, aw, ab, shapes, H, S, Dh, Q,
                  LP, L, A, R) || A > kBN || kQT * 4 * R > kBM * kBN)
@@ -468,8 +471,11 @@ extern "C" int dvc_dsa_lstm_bwd(
   const size_t smem = BwdLayout(R, A, H * Dh, kQT * H * LP).bytes();
   const int N = B * Q, HD = H * Dh;
   cudaError_t e = launch(lstm_bwd_kernel, smem, B, Q, st, a, o);
-  if (e == cudaSuccess) e = outer_sum(h, R, dz0, 4 * R, N, R, 4 * R, dwhh, st);
-  if (e == cudaSuccess) e = outer_sum(ctx_all, HD, dz0, 4 * R, N, HD, 4 * R, dctx_w3, st);
-  if (e == cudaSuccess) e = outer_sum(value_t, Dh, G, A, B * H * S, Dh, A, dcw, st);
+  const size_t wf = work_floats;
+  if (e == cudaSuccess) e = outer_sum(h, R, dz0, 4 * R, N, R, 4 * R, dwhh, st, work, wf);
+  if (e == cudaSuccess)
+    e = outer_sum(ctx_all, HD, dz0, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf);
+  if (e == cudaSuccess)
+    e = outer_sum(value_t, Dh, G, A, B * H * S, Dh, A, dcw, st, work, wf);
   return (int)e;
 }

@@ -24,25 +24,30 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_ROOT = os.path.join(_PKG, '_build')
-SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu', 'dsa_scan.cu', 'dsa_step.cu')
+SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu', 'dsa_scan.cu', 'dsa_step.cu',
+           'dsa_tables.cu')
 # sm_90a: Hopper.  No -use_fast_math: tanhf/expf/logf stay exact, as the
 # JAX kernels' f32 transcendentals; -Xptxas -v records registers and spills
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
+# split-K chunks of the backwards' outer sums: their workspace holds up to
+# this many partial tiles (kGSplitMax in dsa_common.cuh)
+WORK_SPLITS = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of each entry point (see the extern "C" signatures in csrc/)
 _SIGNATURES = {
     'dvc_msda_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     'dvc_msda_bwd': [_P] * 7 + [_I] * 7 + [_P, _P],
-    'dvc_dsa_greedy': [_P] * 20 + [_I] * 12 + [_P],
+    'dvc_dsa_greedy': [_P] * 22 + [_I] * 12 + [_P],
     'dvc_dsa_scan_fwd': [_P] * 16 + [_I] * 10 + [_P],
-    'dvc_dsa_scan_bwd': [_P] * 33 + [_I] * 10 + [_P],
+    'dvc_dsa_scan_bwd': [_P] * 35 + [_I] * 11 + [_P],
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 8 + [_P],
-    'dvc_dsa_step_bwd': [_P] * 17 + [_I] * 8 + [_P],
+    'dvc_dsa_step_bwd': [_P] * 18 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 9 + [_P],
-    'dvc_dsa_lstm_bwd': [_P] * 29 + [_I] * 9 + [_P],
+    'dvc_dsa_lstm_bwd': [_P] * 30 + [_I] * 10 + [_P],
+    'dvc_dsa_table_gemm': [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -6,7 +6,8 @@
   f32 positions, additive attention, bias-free LSTM cell, first-max
   argmax, ``lp = max - logsumexp``).
 * :func:`dsa_greedy_scan` — the wrapper the caption head calls: CUDA
-  tensors go to the hand-written kernel ``csrc/dsa_greedy.cu``; CPU
+  tensors go to the hand-written kernel ``csrc/dsa_greedy.cu`` (which
+  first builds the tables ``value_t . cw`` and ``embed . token_w``); CPU
   tensors go to the plain version.
 * :func:`greedy_mask_outputs` — EOS masking, applied outside the kernel as
   in the JAX package.
@@ -183,13 +184,17 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
     if ab.numel() != 1:
         raise ValueError('greedy kernel: ab must hold one value')
     ptrs = [t.contiguous() for t in (*tensors, ab.reshape(1))]   # kept alive
-    tok = torch.empty((B, K, Q), dtype=torch.int32, device=value_t.device)
-    lp = torch.empty((B, K, Q), dtype=torch.float32, device=value_t.device)
+    dev = value_t.device
+    tok = torch.empty((B, K, Q), dtype=torch.int32, device=dev)
+    lp = torch.empty((B, K, Q), dtype=torch.float32, device=dev)
+    # scratch of the per-launch tables value_t . cw and embed . token_w
+    vw = torch.empty((B, H, S, A), dtype=torch.float32, device=dev)
+    tw = torch.empty((V1, 4 * R), dtype=torch.float32, device=dev)
     lib = _cuda.lib()
     _cuda.check(lib.cdll.dvc_dsa_greedy(
         *(t.data_ptr() for t in ptrs),
         _cuda.levels_array(temporal_shapes), tok.data_ptr(), lp.data_ptr(),
-        B, H, S, Dh, Q, LP, L, A, R, E, V1, K,
+        vw.data_ptr(), tw.data_ptr(), B, H, S, Dh, Q, LP, L, A, R, E, V1, K,
         _cuda.stream_ptr(value_t.device)), 'dvc_dsa_greedy')
     dsa_greedy_scan.launches += 1
     return tok, lp

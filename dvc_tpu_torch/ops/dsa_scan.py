@@ -9,7 +9,8 @@ backward (port of ``dvc_tpu/ops/dsa_scan.py``).
 * :func:`dsa_teacher_scan` — the wrapper the caption head calls: CUDA
   tensors go to :class:`DSATeacherScanFunction` (forward kernel
   ``dvc_dsa_scan_fwd``, backward kernel ``dvc_dsa_scan_bwd`` in
-  ``csrc/dsa_scan.cu``); CPU tensors go to the plain version.
+  ``csrc/dsa_scan.cu``, which builds the table ``value_t . cw`` first and
+  adds ``G . cw^T`` to dvalue last); CPU tensors go to the plain version.
 * :func:`dsa_teacher_scan_fwd` / :func:`dsa_teacher_scan_bwd` — the two
   kernels alone: they take CUDA tensors only.
 
@@ -98,7 +99,11 @@ def _kernel_operands(args, temporal_shapes):
            if tuple(t.shape) != s]
     if bad or LP % L or sum(temporal_shapes) != S:
         raise ValueError(f'scan kernel: inconsistent shapes of {bad}')
-    return (B, H, S, Dh, Q, LP, L, A, R, K), [t.contiguous() for t in tensors]
+    # the backward reads rows as float4: a view's storage offset may leave
+    # them unaligned, a copy does not
+    tensors = [t.contiguous() for t in tensors]
+    tensors = [t.clone() if t.data_ptr() % 16 else t for t in tensors]
+    return (B, H, S, Dh, Q, LP, L, A, R, K), tensors
 
 
 def dsa_teacher_scan_fwd(*args):
@@ -149,14 +154,17 @@ def dsa_teacher_scan_bwd(*args):
         empty(R, A), empty(Dh, A)
     dcb, daw, dab = zeros(A), zeros(A), zeros(1)
     dctx_w3, dwhh = empty(H * Dh, 4 * R), empty(R, 4 * R)
+    # G, the weight gradients' rows, the table value_t . cw, and the outer
+    # sums' split-K partial tiles (WORK_SPLITS times the largest gradient)
+    work = empty(_cuda.WORK_SPLITS * max(R, H * Dh) * max(4 * R, A))
     scratch = (zeros(B, H, S, A), empty(B, K, Q, H * Dh), empty(B, K, Q, A),
-               empty(B, K, Q, H * LP))
+               empty(B, K, Q, H * LP), empty(B, H, S, A), work)
     outs = (dvalue, dbase, dscale, dz, doffw, dh2w, dcw, dcb, daw, dab,
             dctx_w3, dwhh)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_bwd(
         *(t.data_ptr() for t in ops), hs_prev.data_ptr(), cs_prev.data_ptr(),
         g.data_ptr(), _cuda.levels_array(temporal_shapes),
-        *(t.data_ptr() for t in outs + scratch), *dims,
+        *(t.data_ptr() for t in outs + scratch), *dims, work.numel(),
         _cuda.stream_ptr(dev)), 'dvc_dsa_scan_bwd')
     dsa_teacher_scan_bwd.launches += 1
     return (dvalue, dbase, dscale, dz,

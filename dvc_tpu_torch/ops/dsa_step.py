@@ -212,12 +212,13 @@ def dsa_sample_attend_bwd(value_t, pos, hvec, cw, cb, aw, ab,
     outs = (_zeros(dev, B, H, S, Dh), _empty(dev, B, H, Q, LP),
             _empty(dev, B, Q, A), _empty(dev, Dh, A), _zeros(dev, A),
             _zeros(dev, A), _zeros(dev, 1))
-    G = _zeros(dev, B, H, S, A)
+    G, work = _zeros(dev, B, H, S, A), _empty(dev, _cuda.WORK_SPLITS * Dh * A)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_step_bwd(
         *(t.data_ptr() for t in ops), g.data_ptr(),
         _cuda.levels_array(temporal_shapes),
-        *(t.data_ptr() for t in outs), G.data_ptr(),
-        B, H, S, Dh, Q, LP, L, A, _cuda.stream_ptr(dev)), 'dvc_dsa_step_bwd')
+        *(t.data_ptr() for t in outs), G.data_ptr(), work.data_ptr(),
+        B, H, S, Dh, Q, LP, L, A, work.numel(), _cuda.stream_ptr(dev)),
+        'dvc_dsa_step_bwd')
     dsa_sample_attend_bwd.launches += 1
     return (*outs[:6], outs[6].reshape(ab_shape))
 
@@ -265,12 +266,13 @@ def dsa_lstm_step_bwd(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
             _empty(dev, H, Dh, 4 * R), _empty(dev, R, 4 * R),
             _empty(dev, Dh, A), _zeros(dev, A), _zeros(dev, A),
             _zeros(dev, 1))
-    scratch = (_zeros(dev, B, H, S, A), _empty(dev, B, Q, H * Dh))
+    work = _empty(dev, _cuda.WORK_SPLITS * max(R, H * Dh) * max(4 * R, A))
+    scratch = (_zeros(dev, B, H, S, A), _empty(dev, B, Q, H * Dh), work)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_lstm_bwd(
         *(t.data_ptr() for t in ops), gh.data_ptr(), gc.data_ptr(),
         _cuda.levels_array(temporal_shapes),
         *(t.data_ptr() for t in outs + scratch),
-        B, H, S, Dh, Q, LP, L, A, R, _cuda.stream_ptr(dev)),
+        B, H, S, Dh, Q, LP, L, A, R, work.numel(), _cuda.stream_ptr(dev)),
         'dvc_dsa_lstm_bwd')
     dsa_lstm_step_bwd.launches += 1
     return (*outs[:11], outs[11].reshape(ab_shape))

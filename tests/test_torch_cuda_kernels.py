@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan, dsa_greedy_scan_ref
+from dvc_tpu_torch.ops.dsa_tables import table_gemm
 from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, STEP_NAMES,
                                         dsa_lstm_step_bwd, dsa_lstm_step_core,
                                         dsa_lstm_step_fwd,
@@ -320,3 +321,113 @@ def test_step_kernels_at_the_recipe_width(cuda):
     step = args[:3] + args[8:]
     ctx = dsa_sample_attend_fwd(*step, ts)
     assert _close(ctx, sample_attend_ref(*step, ts), 1e-4)[0]
+
+
+def _wide_args(dev, rng, B, H, Q, greedy, K=29, d=512, R=512, A=512, E=512,
+               V1=1608, P=4, ts=(200, 100, 50, 25)):
+    """Operands of K6 (``greedy``) or the scan at the caption head's
+    widths, scaled like fan-in-normalised weights; positions over each
+    level's range and past both its ends."""
+    Dh, L, S = d // H, len(ts), sum(ts)
+    LP = L * P
+
+    def w(*s, fan_in):
+        return _t((rng.standard_normal(s) / fan_in ** 0.5).astype(np.float32),
+                  dev)
+
+    T = np.repeat(np.asarray(ts, np.float32), P)
+    pos = (rng.uniform(-0.1, 1.1, (B, H, Q, LP)) * T - 0.5).astype(np.float32)
+    head = (_t(rng.standard_normal((B, H, S, Dh)).astype(np.float32), dev),
+            _t(pos, dev),
+            _t(rng.uniform(0.2, 2.2, (B, Q, LP)).astype(np.float32), dev))
+    attn = (w(H, R, LP, fan_in=R), w(R, A, fan_in=R), w(A, fan_in=100),
+            w(Dh, A, fan_in=Dh), w(A, fan_in=100), w(A, fan_in=A),
+            torch.tensor(0.05, device=dev))
+    tail = (w(H, Dh, 4 * R, fan_in=d), w(R, 4 * R, fan_in=R))
+    if not greedy:
+        return head + (w(B, K, Q, 4 * R, fan_in=4),) + attn + tail
+    return (head + (w(B, Q, 4 * R, fan_in=4), w(V1, E, fan_in=4),
+                    w(E, 4 * R, fan_in=E), w(R, V1, fan_in=R / 4),
+                    w(V1, fan_in=100)) + attn + tail)
+
+
+@pytest.mark.parametrize('B,H', [(1, 1), (16, 1), (1, 8), (16, 8)])
+def test_greedy_kernel_at_the_serving_width(cuda, B, H):
+    """K6 (tables value . Wc and embed . token_w, then the decode) at
+    R = A = E = 512, V+1 = 1608, S = 375, LP = 16, Q = 100 (a ragged tile),
+    K = 30: B = 16 takes the 16-query tiles, B = 1 the 8-query ones."""
+    rng = np.random.default_rng(500 + 10 * B + H)
+    ts = (200, 100, 50, 25)
+    args = _wide_args(cuda, rng, B, H, 100, greedy=True)
+    with torch.inference_mode():
+        tok, lp = dsa_greedy_scan(*args, ts, 30)
+        ref_tok, ref_lp, margin = dsa_greedy_scan_ref(*args, ts, 30,
+                                                      with_margin=True)
+    ok = torch.cumprod((margin > 1e-3).to(torch.int32), dim=1).bool()
+    assert float(ok.float().mean()) > 0.5
+    assert not bool(((tok != ref_tok) & ok).any())
+    assert float(((lp - ref_lp).abs() * ok).max()) <= 1e-3
+
+
+def _off_boundary(args, hs, g):
+    """g with zero rows for every query that has, at any step, a tap
+    position within 2e-6 + 2^-23 |pos| of a level-relative integer (from
+    the trajectory hs, in float64), and the share of queries so dropped.
+    There the tap pair, and so the gradient with respect to the position,
+    jumps, and the kernel's and the plain version's sums of h . off_w may
+    round to either side (ROADMAP C): at B=16, H=8 one tap 5e-7 below an
+    integer moves its query's dbase by 0.3 and, through dh, every earlier
+    step of that query.  A query with a zero cotangent adds exactly zero
+    to every gradient on both sides."""
+    base_pos, scale_t, off_w_h = args[1], args[2], args[4]
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1).double()
+    off = torch.einsum('bkqr,hrp->bkhqp', h_prev, off_w_h.double())
+    pos = base_pos.double()[:, None] + off * scale_t.double()[:, None, None]
+    near = (pos - pos.round()).abs() <= 2e-6 + pos.abs() * 2.0 ** -23
+    drop = near.any(dim=4).any(dim=2).any(dim=1)                    # (B, Q)
+    return g * (~drop)[:, None, :, None], float(drop.float().mean())
+
+
+@pytest.mark.parametrize('B,H', [(1, 1), (16, 1), (1, 8), (16, 8)])
+def test_scan_backward_kernel_at_the_train_width(cuda, B, H):
+    """K5 (table value . Wc, the reverse scan, G . Wc^T into dvalue, the
+    split-K outer sums) at R = A = 512, S = 375, LP = 16, Q = 90 (a ragged
+    tile), K = 29, to check_scan's tolerances: each gradient within 1e-3 *
+    max|ref| + 1e-5, d alpha_b's floor max(5e-5, 2.5e-10 * B*K*Q*H*LP);
+    queries with a tap on a level-relative integer get a zero cotangent
+    (``_off_boundary``; at most a tenth of them)."""
+    rng = np.random.default_rng(600 + 10 * B + H)
+    ts = (200, 100, 50, 25)
+    Q, K, LP = 90, 29, 16
+    args = _wide_args(cuda, rng, B, H, Q, greedy=False, K=K)
+    hs, cs = dsa_teacher_scan_fwd(*args, ts)
+    g = _t(rng.standard_normal(tuple(hs.shape)).astype(np.float32), cuda)
+    g, dropped = _off_boundary(args, hs, g)
+    assert dropped <= 0.1, dropped
+    launches = dsa_teacher_scan_bwd.launches
+    grads = dsa_teacher_scan_bwd(*args, ts, hs, cs, g)
+    torch.cuda.synchronize()
+    assert dsa_teacher_scan_bwd.launches == launches + 1
+    want = dsa_teacher_scan_bwd_ref(*args, ts, hs, cs, g)
+    floor = max(5e-5, 2.5e-10 * B * K * Q * H * LP)
+    for name, a, b in zip(NAMES, grads, want):
+        ok, err = _close(a, b, 1e-3, floor if name == 'ab' else 1e-5)
+        assert ok, (name, err, float(b.abs().max()))
+
+
+@pytest.mark.parametrize('N,k,n', [(375, 512, 512), (6000, 64, 512),
+                                   (1608, 512, 2048), (37, 5, 3)])
+def test_table_gemm_matches_einsum(cuda, N, k, n):
+    """The tables' GEMM (value . Wc at B*H*S rows, embed . token_w) against
+    torch.einsum, f32 with TF32 off: within 1e-5 * sqrt(k) of the largest
+    product (sums of k terms in another order)."""
+    rng = np.random.default_rng(N + k + n)
+    x = _t(rng.standard_normal((N, k)).astype(np.float32), cuda)
+    w = _t(rng.standard_normal((k, n)).astype(np.float32), cuda)
+    launches = table_gemm.launches
+    got = table_gemm(x, w)
+    torch.cuda.synchronize()
+    assert table_gemm.launches == launches + 1
+    want = torch.einsum('nk,km->nm', x, w)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * k ** 0.5 * float(want.abs().max()), err
