@@ -15,7 +15,10 @@ Phases (one or more lines each; the last line is the JSON verdict):
    the HBM rate or f32 operations over the CUDA cores' peak); the scan
    also at cap_nheads 8, the word-step kernels (K7-K10) at the stepwise
    path's train (B=1, Q=90) and serve (B=16, Q=100, H=1 and 8) shapes, to
-   the scan's tolerances (``check_step``).  Tolerances:
+   the scan's tolerances (``check_step``); then the phase split of the
+   kernels redesigned around per-video tables (K4, K5, K6, K8;
+   ``SPLITS['current']``, one ``[split]`` line per kernel and shape).
+   Tolerances:
    MSDA forward max abs error <= 1e-4 * max|out|, and each of its
    gradients <= 1e-4 * its max |ref|; greedy tokens equal and log-probs
    within 1e-3 on every (video, step, query) whose plain-version top-2
@@ -378,6 +381,107 @@ def scan_macs(args):
     return fwd, 3 * fwd
 
 
+def scan_positions(args, hs):
+    """The tap positions (B, K, H, Q, LP) of the scan on the trajectory hs,
+    in float64: base_pos + (h_{k-1} . off_w) * scale_t, h_{-1} = 0."""
+    import torch
+    base_pos, scale_t, off_w_h = args[1], args[2], args[4]
+    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1).double()
+    off = torch.einsum('bkqr,hrp->bkhqp', h_prev, off_w_h.double())
+    return base_pos.double()[:, None] + off * scale_t.double()[:, None, None]
+
+
+def on_integer(pos):
+    """Mask of the tap positions pos (float64) within 2e-6 + 2^-23 |pos|
+    of a level-relative integer."""
+    return (pos - pos.round()).abs() <= 2e-6 + pos.abs() * 2.0 ** -23
+
+
+def near_integer(pos):
+    """(B, Q) mask of the queries with a tap position, at any step, within
+    an ulp of a level-relative integer (``on_integer``); pos
+    (B, [K,] H, Q, LP) in float64."""
+    near = on_integer(pos).any(dim=-1)
+    while near.dim() > 2:
+        near = near.any(dim=1)
+    return near
+
+
+def plain_scan_bwd_on(*args):
+    """The plain backward on a given trajectory: ``args`` = the 13
+    operands, temporal_shapes, hs, cs, g, as for
+    ``dsa_teacher_scan_bwd_ref``, which recomputes hs and cs.  Here each
+    plain step's output h becomes hs[:, k] + (h - h.detach()), which has
+    hs's value and h's gradient (c likewise).  So the scan backward is held
+    to its own function on the kernel forward's trajectory; ``check_scan``
+    holds that trajectory to the plain forward's separately."""
+    import torch
+    from dvc_tpu_torch.ops.dsa_greedy import (_level_bounds, attend_step,
+                                              lstm_cell)
+    *ops, temporal_shapes, hs, cs, g = args
+    with torch.enable_grad():
+        ops = [t.detach().requires_grad_() for t in ops]
+        (value_t, base_pos, scale_t, z_all, off_w_h, h2att_w, h2att_b, cw,
+         cb, aw, ab, ctx_w3, w_hh) = ops
+        B, K, Q = z_all.shape[:3]
+        P = scale_t.shape[-1] // len(temporal_shapes)
+        hib, s0 = _level_bounds(temporal_shapes, P, value_t.device)
+        h = c = value_t.new_zeros((B, Q, w_hh.shape[0]))
+        out = []
+        for k in range(K):
+            ctx = attend_step(h, value_t, base_pos, scale_t, off_w_h, h2att_w,
+                              h2att_b, cw, cb, aw, ab, hib, s0)
+            z = (z_all[:, k] + h @ w_hh
+                 + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3))
+            h, c = lstm_cell(z, c)
+            h = hs[:, k] + (h - h.detach())
+            c = cs[:, k] + (c - c.detach())
+            out.append(h)
+        return torch.autograd.grad(torch.stack(out, 1), ops, g)
+
+
+def boundary_report(args, hs, ref_hs, g, got, want):
+    """What taps near a level-relative integer do to the scan backward's
+    comparison with the plain one, under the cotangent g: the taps within
+    an ulp of an integer (``near_integer``) on K4's trajectory hs, the taps
+    on another side of one on the plain forward's trajectory ref_hs, and
+    the worst relative error of the per-query gradients (base_pos, scale_t,
+    z_all) of ``got`` (K5's) on the queries those taps touch and on the
+    rest, against ``want`` (the plain backward on hs) and against the plain
+    backward on its own trajectory.  There the tap pair, and so the
+    gradient with respect to the position, jumps, and two sums of
+    h . off_w that round differently may land on two sides (ROADMAP C)."""
+    from dvc_tpu_torch.ops.dsa_scan import dsa_teacher_scan_bwd_ref
+    pos, ref_pos = scan_positions(args, hs), scan_positions(args, ref_hs)
+    on = on_integer(pos)
+    across = pos.floor() != ref_pos.floor()
+    near, crossed = near_integer(pos), across.any(4).any(2).any(1)
+
+    def split(want, odd):
+        errs = []
+        for i, qdim in ((1, 2), (2, 1), (3, 2)):   # base_pos, scale_t, z_all
+            shape = [1] * got[i].dim()
+            shape[0], shape[qdim] = odd.shape
+            m = odd.view(shape)
+            err = (got[i] - want[i]).abs() / (float(want[i].abs().max())
+                                             + 1e-2)
+            errs.append((float((err * m).max()), float((err * ~m).max())))
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+
+    mine = split(want, near)
+    own = split(dsa_teacher_scan_bwd_ref(*args, MSDA_LEVELS, ref_hs, None, g),
+                near | crossed)
+    return (f'{int(on.sum())} taps within an ulp of an integer '
+            f'({int(near.sum())} queries), {int(across.sum())} on another '
+            f'side of one than in the plain forward\'s trajectory '
+            f'({int(crossed.sum())} queries); worst relative error of '
+            f'base_pos, scale_t, z_all against the plain backward on the '
+            f'kernel\'s trajectory: {mine[0]:.2e} on the queries near an '
+            f'integer, {mine[1]:.2e} on the rest; on its own trajectory: '
+            f'{own[0]:.2e} on the queries near or across one, {own[1]:.2e} '
+            f'on the rest')
+
+
 def check_scan(gen, B, Q, K, H):
     """K4 and K5 against the plain scan and autograd through it.
     Tolerances: hs and cs max abs error <= 1e-4 * max|ref|; each of the 13
@@ -387,7 +491,12 @@ def check_scan(gen, B, Q, K, H):
     max(5e-5, 2.5e-10 * B*K*Q*H*LP) in place of 1e-5: it is zero in exact
     arithmetic because the softmax's gradients sum to zero, so both sides
     hold only the rounding of a sum of B*K*Q*H*LP terms in no fixed order
-    (up to about 1e-5 at B=1 and 3e-5 at B=16 in the runs so far)."""
+    (up to about 1e-5 at B=1 and 3e-5 at B=16 in the runs so far).  K5
+    is held to the plain backward on K4's trajectory (``plain_scan_bwd_on``;
+    the forward is held to the plain one above, and K5 recomputes its tap
+    positions from K4's); ``boundary_report`` prints what the taps near a
+    level-relative integer do to that comparison and to one with the plain
+    backward on its own trajectory."""
     import torch
     from dvc_tpu_torch.ops.dsa_scan import (NAMES, dsa_teacher_scan_bwd,
                                             dsa_teacher_scan_bwd_ref,
@@ -401,7 +510,8 @@ def check_scan(gen, B, Q, K, H):
     fwd_tol = 1e-4 * max(float(ref_hs.abs().max()), float(ref_cs.abs().max()))
     g = torch.randn(hs.shape, generator=gen, device='cuda')
     grads = dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g)
-    want = dsa_teacher_scan_bwd_ref(*args, MSDA_LEVELS, ref_hs, ref_cs, g)
+    want = plain_scan_bwd_on(*args, MSDA_LEVELS, hs, cs, g)
+    boundary = boundary_report(args, hs, ref_hs, g, grads, want)
     H, LP = args[1].shape[1], args[1].shape[3]
     atol = {n: 1e-5 for n in NAMES}
     atol['ab'] = max(5e-5, 2.5e-10 * B * K * Q * H * LP)
@@ -429,6 +539,8 @@ def check_scan(gen, B, Q, K, H):
           f'{atol["ab"]:.2e}) kernel '
           f'{bwd_ms:.3f} ms plain '
           f'{bwd_plain:.3f} ms bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})')
+    print(f'[kernels] dsa_scan_bwd B={B} Q={Q} K={K} H={H} boundary: '
+          f'{boundary}')
     if not fwd_err <= fwd_tol or not max(rel.values()) <= 1e-3:
         raise AssertionError(f'dsa_scan B={B}: forward error {fwd_err}, '
                              f'gradient relative errors {rel}')
@@ -627,42 +739,56 @@ def phase_kernels():
     return res
 
 
-# The phase split of K5 and K6: each kernel timed as built from the
-# sources, then as built with one phase's code taken out (a textual edit of
-# a copy of csrc/ in dvc_tpu_torch/_build/phases/, never of the sources);
-# full minus the variant is that phase's share.  A variant computes on
-# stale operands, so only its time means anything.  SPLITS[spec][kernel] =
-# (source, [(phase, [(file, old text, new text)])]); 'pr3' splits the
-# kernels as they were before the per-video tables (run it from a checkout
-# of that tree: python3 chip_smoke.py --split pr3).
-_SCAN_BWD_SCORES = ('    __syncthreads();\n    attend_scores(at, sm, value_b, ab);\n'
-                    '    attend_softmax_ctx(at, sm, value_b);\n    for (int i')
+# The phase split of the redesigned kernels: each kernel timed as built from
+# the sources, then as built with one phase's code taken out (a textual edit
+# of a copy of csrc/ in dvc_tpu_torch/_build/phases/, never of the
+# sources); full minus the variant is that phase's share.  A variant
+# computes on stale operands, so only its time means anything.
+# SPLITS[spec][kernel] = (source, [(phase, [(file, old text, new text)])]);
+# 'pr4' splits K4 and K8 as they were before their tables (run it from a
+# checkout of that tree: python3 chip_smoke.py --split pr4).
+_CELL = ('        const float c = sigmoidf_(z[1][q]) * c_s[q * ldR + r]\n'
+         '                        + sigmoidf_(z[0][q]) * tanhf(z[2][q]);\n'
+         '        const float h = sigmoidf_(z[3][q]) * tanhf(c);')
+_NO_CELL = ('        const float c = z[1][q] + z[0][q] + z[2][q];\n'
+            '        const float h = z[3][q] + c;')
+_GATES_H = ('add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n      add_gates(sm.ctx,',
+            'add_gates(sm.ctx,')
+_GATES_CTX = ('add_gates(sm.ctx, ldHD, HD, a.ctx_w3, r, R, z);', '')
+# the table form's attention backward (dsa_common.cuh), shared by K5 and K8
+_TABLE_BWD = [
+    ('context term', [('dsa_common.cuh', 'for (int c = lane * 4; c < Dh; c += 128) {',
+                       'for (int c = Dh; c < Dh; c += 128) {')]),
+    ('dvalue atomics', [('dsa_common.cuh',
+                         '      atomic_add4(dv + il + c, mul4(wl, t));\n'
+                         '      atomic_add4(dv + ih + c, mul4(wh, t));\n', '')]),
+    ('scores term', [('dsa_common.cuh',
+                      'for (int row = q * HLP; row < (q + 1) * HLP; ++row) {',
+                      'for (int row = (q + 1) * HLP; row < (q + 1) * HLP; ++row) {')]),
+    ('G atomics', [('dsa_common.cuh',
+                    '      atomic_add4(G_b + ol + c, mul4(wl, du));\n'
+                    '      atomic_add4(G_b + oh + c, mul4(wh, du));\n', '')]),
+]
 SPLITS = {
-    'pr3': {
-        'dsa_greedy': ('dsa_greedy.cu', [
-            ('scores taps.Wc', [('dsa_greedy.cu',
-                                 '    attend_scores(at, sm, value_b, ab);\n', '')]),
-            ('ctx', [('dsa_greedy.cu', 'attend_softmax_ctx(at, sm, value_b);',
-                      'attend_softmax(at, sm);')]),
-            ('token gates emb.token_w', [('dsa_greedy.cu',
-                                          'add_gates(emb_s, ldE, E, a.token_w, r, R, z);', '')]),
-            ('h.W_hh + ctx.ctx_w3', [('dsa_greedy.cu',
-                                      'add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n'
-                                      '      add_gates(sm.ctx, ldHD, HD, a.ctx_w3, r, R, z);',
-                                      '')]),
-            ('logits', [('dsa_greedy.cu',
-                         'cols_dot_rows(sm.h, ldR, R, a.logit_w, a.V1, n0, acc);', '')]),
+    'pr4': {
+        'dsa_scan_fwd': ('dsa_scan.cu', [
+            ('scores taps.Wc', [('dsa_scan.cu', '    attend_scores(at, sm, value_b, ab);\n', '')]),
+            ('softmax + ctx', [('dsa_scan.cu', '    attend_softmax_ctx(at, sm, value_b);\n', '')]),
+            ('h.W_hh', [('dsa_scan.cu', *_GATES_H)]),
+            ('ctx.ctx_w3', [('dsa_scan.cu', *_GATES_CTX)]),
+            ('cell', [('dsa_scan.cu', _CELL, _NO_CELL)]),
         ]),
-        'dsa_scan_bwd': ('dsa_scan.cu', [
-            ('scores (softmax recompute)', [('dsa_scan.cu', _SCAN_BWD_SCORES,
-                                             _SCAN_BWD_SCORES.replace(
-                                                 'attend_scores(at, sm, value_b, ab);', ''))]),
-            ('scores (du recompute)', [('dsa_common.cuh',
-                                        'score_tile(a, s, value_b, r0, 0, acc);',
-                                        'for (int i = 0; i < 4; ++i) for (int j = 0; j < 8; ++j)'
-                                        ' acc[i][j] = 0.f;')]),
-            ('dtaps = du.Wc^T', [('dsa_common.cuh', 'for (int a0 = 0; a0 < A; a0 += kBK) {',
-                                  'for (int a0 = A; a0 < A; a0 += kBK) {')]),
+        'dsa_step_bwd': ('dsa_step.cu', [
+            ('scores recompute (softmax)', [('dsa_step.cu',
+                                             'attend_scores(at, sm, value_b, __ldg(a.ab));\n'
+                                             '  attend_softmax(at, sm);',
+                                             'attend_softmax(at, sm);')]),
+            ('du recompute', [('dsa_common.cuh',
+                               'score_tile(a, s, value_b, r0, 0, acc);',
+                               'for (int i = 0; i < 4; ++i) for (int j = 0; j < 8; ++j)'
+                               ' acc[i][j] = 0.f;')]),
+            ('du.Wc^T', [('dsa_common.cuh', 'for (int a0 = 0; a0 < A; a0 += kBK) {',
+                          'for (int a0 = A; a0 < A; a0 += kBK) {')]),
             ('G atomics', [('dsa_common.cuh',
                             '          atomicAdd(Gh + (size_t)s.lo[row] * A, s.wlo[row] * du);\n'
                             '          atomicAdd(Gh + (size_t)s.hi[row] * A, s.whi[row] * du);\n',
@@ -670,17 +796,8 @@ SPLITS = {
             ('dvalue atomics', [('dsa_common.cuh',
                                  '          atomicAdd(dv + il + dh, wl * t);\n'
                                  '          atomicAdd(dv + ih + dh, wh * t);\n', '')]),
-            ('gates + cell bwd', [('dsa_scan.cu',
-                                   'add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n'
-                                   '      add_gates(cx_s, ldHD, HD, a.ctx_w3, r, R, z);', '')]),
-            ('dz.W^T', [('dsa_scan.cu', 'gates_backprop(big_s, R, HD,',
-                         'gates_backprop(big_s, R, -R,')]),
-            ('dh += dhvec.W_h2att^T + doff.off_w^T', [
-                ('dsa_scan.cu', 'for (int r = warp; r < R; r += kWarps) {\n      const float* w2',
-                 'for (int r = R; r < R; r += kWarps) {\n      const float* w2')]),
-            ('outer sums', [('dsa_scan.cu', 'const int N = B * K * Q, HD',
-                             'const int N = 0, HD'),
-                            ('dsa_scan.cu', 'G, A, B * H * S, Dh', 'G, A, 0, Dh')]),
+            ('outer sum', [('dsa_step.cu', 'G, A, B * H * S, Dh, A, dcw, st, work, work_floats',
+                            'G, A, 0, Dh, A, dcw, st, work, work_floats')]),
         ]),
     },
     'current': {
@@ -699,23 +816,16 @@ SPLITS = {
         ]),
         'dsa_scan_bwd': ('dsa_scan.cu', [
             ('table VW', [('dsa_scan.cu', 'if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st)) != cudaSuccess) return (int)e;', '')]),
-            ('scores from VW', [('dsa_scan.cu', '    attend_scores_table<QT>(at, sm, vw_b, ab);\n', '')]),
+            ('scores from VW', [('dsa_scan.cu',
+                                 '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
+                                 '    attend_softmax_ctx<QT>(at, sm, value_b);\n    for (int i',
+                                 '    attend_softmax_ctx<QT>(at, sm, value_b);\n    for (int i')]),
             ('gates + cell bwd', [('dsa_scan.cu',
                                    'add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n'
                                    '      add_gates(cx_s, ldHD, HD, a.ctx_w3, r, R, z);', '')]),
             ('dz.W^T', [('dsa_scan.cu', 'gates_backprop_rows<QT>(dz_s, R, HD,',
                          'gates_backprop_rows<QT>(dz_s, R, -R,')]),
-            ('context term', [('dsa_common.cuh', 'for (int c = lane * 4; c < Dh; c += 128) {',
-                               'for (int c = Dh; c < Dh; c += 128) {')]),
-            ('dvalue atomics', [('dsa_common.cuh',
-                                 '      atomic_add4(dv + il + c, mul4(wl, t));\n'
-                                 '      atomic_add4(dv + ih + c, mul4(wh, t));\n', '')]),
-            ('scores term', [('dsa_common.cuh',
-                              'for (int row = q * HLP; row < (q + 1) * HLP; ++row) {',
-                              'for (int row = (q + 1) * HLP; row < (q + 1) * HLP; ++row) {')]),
-            ('G atomics', [('dsa_common.cuh',
-                            '      atomic_add4(G_b + ol + c, mul4(wl, du));\n'
-                            '      atomic_add4(G_b + oh + c, mul4(wh, du));\n', '')]),
+            *_TABLE_BWD,
             ('dh += dhvec.W_h2att^T + doff.off_w^T', [
                 ('dsa_scan.cu', 'for (int r0 = tid * 2; r0 < R;', 'for (int r0 = R; r0 < R;')]),
             ('dvalue += G.Wc^T', [('dsa_scan.cu', 'BHS, Dh, A, true,', '0, Dh, A, true,')]),
@@ -723,27 +833,57 @@ SPLITS = {
                              'const int N = 0, HD'),
                             ('dsa_scan.cu', 'G, A, BHS, Dh, A, dcw', 'G, A, 0, Dh, A, dcw')]),
         ]),
+        'dsa_scan_fwd': ('dsa_scan.cu', [
+            ('table VW', [('dsa_scan.cu', '  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st);\n', '')]),
+            ('scores from VW', [('dsa_scan.cu',
+                                 '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
+                                 '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
+                                 '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n')]),
+            ('ctx', [('dsa_scan.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);\n\n    // ---- z',
+                      'attend_softmax<QT>(at, sm);\n\n    // ---- z')]),
+            ('h.W_hh', [('dsa_scan.cu', *_GATES_H)]),
+            ('ctx.ctx_w3', [('dsa_scan.cu', *_GATES_CTX)]),
+            ('cell', [('dsa_scan.cu', _CELL, _NO_CELL)]),
+        ]),
+        'dsa_step_bwd': ('dsa_step.cu', [
+            ('table VW', [('dsa_step.cu',
+                           '    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st);\n',
+                           '')]),
+            ('scores from VW', [('dsa_step.cu',
+                                 '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n', '')]),
+            *_TABLE_BWD,
+            ('dvalue += G.Wc^T', [('dsa_step.cu', 'BHS, Dh, A, true, dvalue,',
+                                   '0, Dh, A, true, dvalue,')]),
+            ('outer sum', [('dsa_step.cu', 'G, A, BHS, Dh, A, dcw', 'G, A, 0, Dh, A, dcw')]),
+        ]),
     },
 }
 
 
-def build_variants(csrc, source, variants):
-    """One library of ``source`` per variant {name: [(file, old, new)]}
-    (the empty edit list builds the kernel as it is), compiled together;
-    returns {name: loaded KernelLib}."""
+def build_variants(csrc, specs):
+    """One library per kernel and variant, specs = {kernel: (source,
+    {variant: [(file, old, new)]})} (the empty edit list builds the kernel
+    as it is): every nvcc started together, a variant that two kernels share
+    (the same source and edits) built once; returns {kernel: {variant:
+    loaded KernelLib}}."""
     import ctypes
     import hashlib
     import shutil
     from dvc_tpu_torch.ops import _cuda
-    jobs = {}
-    for name, edits in variants.items():
-        digest = hashlib.sha256(repr((source, edits)).encode())
-        for f in sorted(os.listdir(csrc)):
-            with open(os.path.join(csrc, f), 'rb') as fh:
-                digest.update(fh.read())
-        out = os.path.join(_cuda.BUILD_ROOT, 'phases', digest.hexdigest()[:16])
-        lib = os.path.join(out, 'lib.so')
-        if not os.path.exists(lib):
+    jobs, where = {}, {}
+    for kernel, (source, variants) in specs.items():
+        for name, edits in variants.items():
+            digest = hashlib.sha256(repr((source, edits)).encode())
+            for f in sorted(os.listdir(csrc)):
+                with open(os.path.join(csrc, f), 'rb') as fh:
+                    digest.update(fh.read())
+            out = os.path.join(_cuda.BUILD_ROOT, 'phases',
+                               digest.hexdigest()[:16])
+            lib = os.path.join(out, 'lib.so')
+            where[kernel, name] = lib
+            if lib in jobs or os.path.exists(lib):
+                jobs.setdefault(lib, None)
+                continue
             shutil.rmtree(out, ignore_errors=True)
             shutil.copytree(csrc, out)
             for f, old, new in edits:
@@ -751,49 +891,70 @@ def build_variants(csrc, source, variants):
                 with open(path) as fh:
                     text = fh.read()
                 if text.count(old) != 1:
-                    raise AssertionError(f'split {name}: {old!r} occurs '
-                                         f'{text.count(old)} times in {f}')
+                    raise AssertionError(f'split {kernel} {name}: {old!r} '
+                                         f'occurs {text.count(old)} times '
+                                         f'in {f}')
                 with open(path, 'w') as fh:
                     fh.write(text.replace(old, new))
-        jobs[name] = (lib, None if os.path.exists(lib) else subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-shared', '-o', lib,
-             os.path.join(out, source)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in jobs.items():
+            jobs[lib] = subprocess.Popen(
+                [_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-shared', '-o', lib,
+                 os.path.join(out, source)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+    loaded = {}
+    for lib, proc in jobs.items():
         if proc is not None and proc.wait() != 0:
-            raise RuntimeError(f'split {name}: nvcc failed:\n'
+            raise RuntimeError(f'split {lib}: nvcc failed:\n'
                                f'{proc.stdout.read()}')
         cdll = ctypes.CDLL(lib)
         for fn, argtypes in _cuda._SIGNATURES.items():
             if hasattr(cdll, fn):
                 getattr(cdll, fn).argtypes = argtypes
                 getattr(cdll, fn).restype = ctypes.c_int
-        libs[name] = _cuda.KernelLib(cdll, lib, 0.0, '')
+        loaded[lib] = _cuda.KernelLib(cdll, lib, 0.0, '')
+    libs = {}
+    for (kernel, name), lib in where.items():
+        libs.setdefault(kernel, {})[name] = loaded[lib]
     return libs
 
 
-def split_cases():
-    """(kernel, shape label, call) of each split: K6 at the serving shape
-    (B=16, Q=100, H=1 and 8), K5 at the train shapes (Q=90, K=29; B=1 and
-    16 at H=1, B=1 at H=8)."""
+def split_cases(kernels):
+    """(kernel, shape label, call) of each split of ``kernels``: K6 at the
+    serving shape (B=16, Q=100, H=1 and 8); K4 and K5 at the train shapes
+    (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8); K8 at the word-step shapes
+    of ``check_step`` (B=1, Q=90, H=1; B=16, Q=100, H=1 and 8)."""
     import torch
     from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
     from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
                                             dsa_teacher_scan_fwd)
+    from dvc_tpu_torch.ops.dsa_step import dsa_sample_attend_bwd
     gen = torch.Generator(device='cuda').manual_seed(0)
     cases = []
-    for H in (1, 8):
-        args = greedy_inputs(gen, 16, 100, H)
-        cases.append(('dsa_greedy', f'B=16 Q=100 H={H}',
-                      lambda args=args: dsa_greedy_scan(*args, MSDA_LEVELS, 30)))
+    if 'dsa_greedy' in kernels:
+        for H in (1, 8):
+            args = greedy_inputs(gen, 16, 100, H)
+            cases.append(('dsa_greedy', f'B=16 Q=100 H={H}',
+                          lambda args=args: dsa_greedy_scan(*args, MSDA_LEVELS, 30)))
     for B, H in ((1, 1), (16, 1), (1, 8)):
+        if not {'dsa_scan_fwd', 'dsa_scan_bwd'} & set(kernels):
+            break
         args = scan_inputs(gen, B, 90, 29, H)
-        hs, cs = dsa_teacher_scan_fwd(*args, MSDA_LEVELS)
-        g = torch.randn(hs.shape, generator=gen, device='cuda')
-        cases.append(('dsa_scan_bwd', f'B={B} Q=90 K=29 H={H}',
-                      lambda args=args, hs=hs, cs=cs, g=g:
-                      dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g)))
+        shape = f'B={B} Q=90 K=29 H={H}'
+        if 'dsa_scan_fwd' in kernels:
+            cases.append(('dsa_scan_fwd', shape, lambda args=args:
+                          dsa_teacher_scan_fwd(*args, MSDA_LEVELS)))
+        if 'dsa_scan_bwd' in kernels:
+            hs, cs = dsa_teacher_scan_fwd(*args, MSDA_LEVELS)
+            g = torch.randn(hs.shape, generator=gen, device='cuda')
+            cases.append(('dsa_scan_bwd', shape,
+                          lambda args=args, hs=hs, cs=cs, g=g:
+                          dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g)))
+    if 'dsa_step_bwd' in kernels:
+        for B, Q, H in ((1, 90, 1), (16, 100, 1), (16, 100, 8)):
+            args = step_inputs(gen, B, Q, H, False)
+            g = torch.randn((B, H, Q, 512 // H), generator=gen, device='cuda')
+            cases.append(('dsa_step_bwd', f'B={B} Q={Q} H={H}',
+                          lambda args=args, g=g:
+                          dsa_sample_attend_bwd(*args, MSDA_LEVELS, g)))
     return cases
 
 
@@ -803,14 +964,16 @@ def phase_split(spec):
     events, mean of 3 after a warm-up).  Returns {kernel: [lines]}."""
     import torch
     from dvc_tpu_torch.ops import _cuda
-    csrc = _cuda.CSRC
-    libs = {kernel: build_variants(csrc, source,
-                                   {'as built': [], **dict(phases)})
-            for kernel, (source, phases) in SPLITS[spec].items()}
+    t0 = time.perf_counter()
+    libs = build_variants(_cuda.CSRC, {
+        kernel: (source, {'as built': [], **dict(phases)})
+        for kernel, (source, phases) in SPLITS[spec].items()})
+    print(f'[split] {sum(map(len, libs.values()))} variants of '
+          f'{len(libs)} kernels built in {time.perf_counter() - t0:.1f} s')
     saved, out = _cuda._LIB, {}
     try:
         with torch.inference_mode():
-            for kernel, shape, call in split_cases():
+            for kernel, shape, call in split_cases(libs):
                 times = {}
                 for name, lib in libs[kernel].items():
                     _cuda._LIB = lib

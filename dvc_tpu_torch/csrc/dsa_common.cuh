@@ -225,13 +225,14 @@ __device__ __forceinline__ void attend_hvec_taps(const AttendArgs& a,
 // phases 1 and 2 from given operands, for the single word-step kernels:
 // hvec (B, Q, A) and the level-relative positions pos (B, H, Q, LP) of the
 // tile's queries (one past Q reads the last query).  No barrier at the end.
+template <int QT = kQT>
 __device__ __forceinline__ void attend_given(const AttendArgs& a,
                                              const AttendSmem& s, int b,
                                              int q0, const float* pos,
                                              const float* hvec) {
   const int tid = threadIdx.x, A = a.A, H = a.H, LP = a.LP, Q = a.Q;
-  const int HLP = H * LP, NR = kQT * HLP, ldA = pad4(A);
-  for (int i = tid; i < kQT * A; i += kThreads) {
+  const int HLP = H * LP, NR = QT * HLP, ldA = pad4(A);
+  for (int i = tid; i < QT * A; i += kThreads) {
     const int q = i / A, col = i % A, qq = min(q0 + q, Q - 1);
     s.hvec[q * ldA + col] = hvec[((size_t)b * Q + qq) * A + col];
   }
@@ -586,11 +587,12 @@ __device__ __forceinline__ void attend_backward(const AttendArgs& a,
 
 // ----------------------------------------------------------------------------
 // the attention from the per-video table VW = value . Wc (B, H, S, A), for
-// the greedy decode (dsa_greedy.cu) and the scan backward (dsa_scan.cu).  A
-// tap is the lerp of two value rows, so taps . Wc is the same lerp of two VW
-// rows: a score costs 2A loads and A tanh, and no Dh x A product.  The scan
-// forward and the word-step kernels keep the product form above
-// (attend_scores, score_tile, attend_backward).
+// the greedy decode (dsa_greedy.cu), the scan and its backward (dsa_scan.cu)
+// and the word-step backward K8 (dsa_step.cu).  A tap is the lerp of two
+// value rows, so taps . Wc is the same lerp of two VW rows: a score costs 2A
+// loads and A tanh, and no Dh x A product.  The other word-step kernels (K7,
+// K9, K10) keep the product form above (attend_scores, score_tile,
+// attend_backward).
 // ----------------------------------------------------------------------------
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -1047,6 +1049,22 @@ static cudaError_t set_smem(Kernel kernel, size_t smem) {
   if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
+}
+
+// the query tile of a (video, query tile) grid: kQT (8) queries; `largest`
+// (16) where kQT-query tiles would take more than one wave, so that each
+// weight read serves twice the queries; on a small grid (B = 1) the smallest
+// tile of 2 or 4 queries, at least `smallest`, whose grid still fits half
+// the SMs, so that more SMs share the fixed work of a step
+static int query_tile(int B, int Q, int smallest, int largest) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int QT = (size_t)B * ((Q + kQT - 1) / kQT) > (size_t)sms ? largest : kQT;
+  for (int qt : {2, 4})
+    if (QT == kQT && qt >= smallest && 2 * (size_t)B * ((Q + qt - 1) / qt) <= (size_t)sms)
+      QT = qt;
+  return QT;
 }
 
 }  // namespace dsa

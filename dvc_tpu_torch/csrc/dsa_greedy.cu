@@ -311,17 +311,7 @@ extern "C" int dvc_dsa_greedy(
   a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab; a.tok = tok; a.lp = lp;
   a.V1 = V1; a.K = K;
   if (B == 0 || Q == 0 || K == 0) return 0;
-  // the query tile: 16 queries where 8-query tiles would not fit on the
-  // card in one wave (the weights' L2 reads per query halve); on a small
-  // grid (a single request) the smallest tile of 2 or 4 queries whose grid
-  // still fits half the SMs, so that more SMs share the decode's fixed work
-  // per step
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int QT = (size_t)B * ((Q + kQT - 1) / kQT) > (size_t)sms ? 16 : kQT;
-  for (int qt : {2, 4})
-    if (QT == kQT && 2 * (size_t)B * ((Q + qt - 1) / qt) <= (size_t)sms) QT = qt;
+  const int QT = query_tile(B, Q, 2, 16);
   const size_t smem = Layout(QT, R, A, H * Dh, QT * H * LP).bytes();
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = QT == 2 ? set_smem(greedy_kernel<2>, smem)

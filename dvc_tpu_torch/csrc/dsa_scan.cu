@@ -12,8 +12,14 @@
 //
 // The TPU grid (B, K) runs k in order on one core with h and c in VMEM
 // scratch.  On Hopper the queries are independent, so one block owns
-// (b, a tile of kQT queries) and loops over the K steps with h, c, hvec,
-// ctx and the tap table in shared memory, as the greedy kernel does.
+// (b, a tile of QT queries) and loops over the K steps with h, c, hvec, ctx
+// and the tap table in shared memory, as the greedy kernel does.  The launch
+// first builds the per-video table VW = value_t Wc (B, H, S, A) (see below),
+// so a step's scores cost 2A loads and A tanh per tap row
+// (attend_scores_table) and no Dh x A product.  The host picks the tile from
+// B, Q and the SM count (query_tile): 4 queries where that grid fits half
+// the SMs (a B = 1 step: 23 blocks), 16 where 8-query tiles would take more
+// than a wave (B = 16: 96 blocks), else 8.
 //
 // Backward replaces `_make_scan_bwd_kernel` (same file), the reverse-time
 // scan.  One block per (b, query tile) walks k from K-1 down to 0 (8
@@ -49,12 +55,14 @@
 // their weights (4 MB each at R = 512) from L2, so L2 bandwidth and the
 // FP32 issue rate bound them.  dvalue, G (so dWc) and the atomically summed
 // vectors vary by a few ulps from run to run; the GEMMs are deterministic.
-// The cell backward lives in dsa_common.cuh, shared with the single
-// word-step backwards of dsa_step.cu, which keep the product form.  Shared
-// memory of a block of 8 queries (R = A = 512, LP = 16): 167,440 bytes at
-// cap_nheads 1 and 192,528 at cap_nheads 8 (the card allows 232,448).  Limits: A <= 512
-// (two float4 column groups per lane and column half), A, Dh and R
-// multiples of 4, and the shared memory of a block (checked at launch).
+// The same products bound the forward, once per step.  The cell backward
+// lives in dsa_common.cuh, shared with the word-step backward K10 of
+// dsa_step.cu.  Shared memory at R = A = 512, LP = 16: the backward's block
+// of 8 queries 167,440 bytes at cap_nheads 1 and 192,528 at cap_nheads 8,
+// the forward's of 16 queries 168,960 and 204,800 (the card allows
+// 232,448).  Limits of the backward: A <= 512 (two float4 column groups per
+// lane and column half), A, Dh and R multiples of 4; of both, the shared
+// memory of a block (checked at launch).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,23 +86,22 @@ struct ScanArgs {
 // forward
 // ----------------------------------------------------------------------------
 
+// shared memory of the forward: h, the next h, c, hvec and ctx of the tile
+// (QT rows each) and its tap table
 struct FwdLayout {
-  int h, hn, c, hvec, ctx, taps, wc, wlo, whi, d, red;  // float offsets
-  int lo, hi;                                           // int offsets
+  int h, hn, c, hvec, ctx, wlo, whi, d;  // float offsets
+  int lo, hi;                            // int offsets
   int floats, ints;
-  __host__ __device__ FwdLayout(int R, int A, int HD, int NR) {
+  __host__ __device__ FwdLayout(int QT, int R, int A, int HD, int NR) {
     int o = 0;
-    h = o;    o += kQT * pad4(R);
-    hn = o;   o += kQT * pad4(R);
-    c = o;    o += kQT * pad4(R);
-    hvec = o; o += kQT * pad4(A);
-    ctx = o;  o += kQT * pad4(HD);
-    taps = o; o += kBK * kBM;
-    wc = o;   o += kBK * kBN;
+    h = o;    o += QT * pad4(R);
+    hn = o;   o += QT * pad4(R);
+    c = o;    o += QT * pad4(R);
+    hvec = o; o += QT * pad4(A);
+    ctx = o;  o += QT * pad4(HD);
     wlo = o;  o += pad4(NR);
     whi = o;  o += pad4(NR);
     d = o;    o += pad4(NR);
-    red = o;  o += kWarps * kRed;
     floats = o;
     lo = 0;
     hi = NR;
@@ -103,50 +110,54 @@ struct FwdLayout {
   size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
 };
 
+template <int QT>
 __global__ void __launch_bounds__(kThreads)
-scan_fwd_kernel(ScanArgs a, float* __restrict__ hs, float* __restrict__ cs) {
+scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs,
+                float* __restrict__ cs) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const AttendArgs& at = a.at;
   const int tid = threadIdx.x;
-  const int b = blockIdx.y, q0 = blockIdx.x * kQT;
+  const int b = blockIdx.y, q0 = blockIdx.x * QT;
   const int R = at.R, A = at.A, H = at.H, Dh = at.Dh, Q = at.Q;
-  const int HD = H * Dh, R4 = 4 * R, NR = kQT * H * at.LP;
+  const int HD = H * Dh, R4 = 4 * R, NR = QT * H * at.LP;
   const int ldR = pad4(R), ldHD = pad4(HD);
-  const FwdLayout L(R, A, HD, NR);
+  const FwdLayout L(QT, R, A, HD, NR);
   float* hn_s = smem + L.hn;
   float* c_s = smem + L.c;
   int* ints = reinterpret_cast<int*>(smem + L.floats);
-  AttendSmem sm;
+  AttendSmem sm{};
   sm.h = smem + L.h; sm.hvec = smem + L.hvec; sm.ctx = smem + L.ctx;
-  sm.taps = smem + L.taps; sm.wc = smem + L.wc; sm.wlo = smem + L.wlo;
-  sm.whi = smem + L.whi; sm.d = smem + L.d; sm.red = smem + L.red;
+  sm.wlo = smem + L.wlo; sm.whi = smem + L.whi; sm.d = smem + L.d;
   sm.lo = ints + L.lo; sm.hi = ints + L.hi;
 
   // queries past the end of the ragged last tile compute on a copy of the
   // last query and write nothing
-  int qg[kQT];
+  int qg[QT];
 #pragma unroll
-  for (int q = 0; q < kQT; ++q) qg[q] = min(q0 + q, Q - 1);
+  for (int q = 0; q < QT; ++q) qg[q] = min(q0 + q, Q - 1);
 
-  for (int i = tid; i < kQT * ldR; i += kThreads) { sm.h[i] = 0.f; c_s[i] = 0.f; }
+  for (int i = tid; i < QT * ldR; i += kThreads) { sm.h[i] = 0.f; c_s[i] = 0.f; }
   __syncthreads();
 
   const float* value_b = at.value + (size_t)b * H * at.S * Dh;
+  const float* vw_b = vw + (size_t)b * H * at.S * A;
   const float ab = __ldg(a.ab);
 
   for (int k = 0; k < a.K; ++k) {
-    attend_hvec_taps(at, sm, b, q0);
+    // ---- hvec and the tap table from h_{k-1}; the scores from the table,
+    //      the softmax over the LP taps and ctx
+    attend_hvec_taps<QT>(at, sm, b, q0);
     __syncthreads();
-    attend_scores(at, sm, value_b, ab);
-    attend_softmax_ctx(at, sm, value_b);
+    attend_scores_table<QT>(at, sm, vw_b, ab);
+    attend_softmax_ctx<QT>(at, sm, value_b);
 
-    // z = z_all[b, k] + h W_hh + ctx ctx_w3, then the LSTM cell; a thread
-    // owns hidden unit r (its 4 gate columns)
+    // ---- z = z_all[b, k] + h W_hh + ctx ctx_w3, then the LSTM cell; a
+    //      thread owns hidden unit r (its 4 gate columns)
     for (int r = tid; r < R; r += kThreads) {
-      float z[4][kQT];
+      float z[4][QT];
 #pragma unroll
-      for (int q = 0; q < kQT; ++q) {
+      for (int q = 0; q < QT; ++q) {
         const float* zk = a.z_all + (((size_t)b * a.K + k) * Q + qg[q]) * R4 + r;
 #pragma unroll
         for (int g = 0; g < 4; ++g) z[g][q] = zk[g * R];
@@ -154,7 +165,7 @@ scan_fwd_kernel(ScanArgs a, float* __restrict__ hs, float* __restrict__ cs) {
       add_gates(sm.h, ldR, R, a.w_hh, r, R, z);
       add_gates(sm.ctx, ldHD, HD, a.ctx_w3, r, R, z);
 #pragma unroll
-      for (int q = 0; q < kQT; ++q) {
+      for (int q = 0; q < QT; ++q) {
         const float c = sigmoidf_(z[1][q]) * c_s[q * ldR + r]
                         + sigmoidf_(z[0][q]) * tanhf(z[2][q]);
         const float h = sigmoidf_(z[3][q]) * tanhf(c);
@@ -411,17 +422,18 @@ bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_
 // (B, H, S, Dh), base_pos (B, H, Q, LP), scale_t (B, Q, LP), z_all
 // (B, K, Q, 4R), off_w_h (H, R, LP), h2att_w (R, A), h2att_b (A), cw
 // (Dh, A), cb (A), aw (A), ab one float in device memory, ctx_w3
-// (H*Dh, 4R), w_hh (R, 4R); hs and cs (B, K, Q, R) are written.  All f32,
+// (H*Dh, 4R), w_hh (R, 4R); hs and cs (B, K, Q, R) are written.  Scratch:
+// vw (B, H, S, A), the table value . Wc built here first.  All f32,
 // contiguous, on the current device; shapes is a host array of the L level
-// lengths.  Returns cudaGetLastError() of the launch, or
+// lengths.  Returns cudaGetLastError() of the launches, or
 // cudaErrorInvalidValue for shapes the kernel does not take.
 extern "C" int dvc_dsa_scan_fwd(
     const float* value_t, const float* base_pos, const float* scale_t,
     const float* z_all, const float* off_w_h, const float* h2att_w,
     const float* h2att_b, const float* cw, const float* cb, const float* aw,
     const float* ab, const float* ctx_w3, const float* w_hh, const int* shapes,
-    float* hs, float* cs, int B, int H, int S, int Dh, int Q, int LP, int L,
-    int A, int R, int K, void* stream) {
+    float* hs, float* cs, float* vw, int B, int H, int S, int Dh, int Q, int LP,
+    int L, int A, int R, int K, void* stream) {
   ScanArgs a;
   if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
                           h2att_b, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
@@ -429,11 +441,25 @@ extern "C" int dvc_dsa_scan_fwd(
   a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab;
   a.B = B; a.K = K;
   if (B == 0 || Q == 0 || K == 0) return 0;
-  const size_t smem = FwdLayout(R, A, H * Dh, kQT * H * LP).bytes();
-  cudaError_t e = set_smem(scan_fwd_kernel, smem);
+  // 4 queries at least: on a B = 1 grid 2-query tiles (45 blocks) lose to
+  // 4-query ones (23), whose gate products read the weights half as often
+  const int QT = query_tile(B, Q, 4, 16);
+  const size_t smem = FwdLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = QT == 4 ? set_smem(scan_fwd_kernel<4>, smem)
+                  : QT == 16 ? set_smem(scan_fwd_kernel<16>, smem)
+                             : set_smem(scan_fwd_kernel<kQT>, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Q + kQT - 1) / kQT, B);
-  scan_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a, hs, cs);
+  // the table value . Wc, once per launch
+  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Q + QT - 1) / QT, B);
+  if (QT == 4)
+    scan_fwd_kernel<4><<<grid, kThreads, smem, st>>>(a, vw, hs, cs);
+  else if (QT == 16)
+    scan_fwd_kernel<16><<<grid, kThreads, smem, st>>>(a, vw, hs, cs);
+  else
+    scan_fwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, vw, hs, cs);
   return (int)cudaGetLastError();
 }
 
@@ -477,16 +503,9 @@ extern "C" int dvc_dsa_scan_bwd(
   o.dvalue = dvalue; o.G = G; o.dbase = dbase; o.dscale = dscale; o.dz = dz;
   o.ctx_all = ctx_all; o.dhvec_all = dhvec_all; o.doff_all = doff_all;
   o.dcb = dcb; o.daw = daw; o.dab = dab;
-  // the query tile: 8 queries where the grid of 8-query tiles fills the
-  // card (the weights' L2 reads per query are then fewest); on a small grid
-  // the smallest tile of 2 or 4 queries whose grid still fits half the
-  // SMs, so that more SMs share the scan's fixed work per step
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int QT = kQT;
-  for (int qt : {2, 4})
-    if (QT == kQT && 2 * (size_t)B * ((Q + qt - 1) / qt) <= (size_t)sms) QT = qt;
+  // 8 queries a tile at most: a warp of the score backward owns a
+  // (query, column part), and A <= 512 needs two parts
+  const int QT = query_tile(B, Q, 2, kQT);
   const size_t smem = BwdLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = QT == 2 ? set_smem(scan_bwd_kernel<2>, smem)

@@ -15,26 +15,40 @@
 //
 // The offsets -> pos chain and h2att stay outside, under autograd, as in the
 // JAX package.  The TPU kernels' grid runs over B alone with all Q queries in
-// one VMEM block; here a block owns (video b, a tile of kQT queries), so a
-// step at B = 1, Q = 90 runs 12 blocks instead of one.  The attention phases
-// are those of the fused scan and greedy kernels (dsa_common.cuh), entered
-// through attend_given; K9's gate products and cell are K4's (add_gates), and
-// the backwards are one reverse step of K5 with the incoming (dh, dc) given:
-// cell_bwd, gates_backprop and attend_backward.  On the TPU the weight
-// gradients accumulate in revisited blocks over the sequential grid; here
-// blocks run in parallel, so (as in K5) dvalue and G, the lerp-weighted
-// scatter of du onto the value rows, take atomics, dWc = sum_b value^T G,
-// dW_hh = h^T dz and dctx_w3 = ctx^T dz are reduced by the tiled outer_sum
-// kernel, and dcb, d alpha_w, d alpha_b are per-block partial sums added with
-// one atomic per column.
+// one VMEM block; here a block owns (video b, a tile of queries).  The
+// attention phases are those of the fused scan and greedy kernels
+// (dsa_common.cuh), entered through attend_given.  K7, K9 and K10 keep the
+// product form (taps . Wc per tap row, attend_scores) with 8-query tiles;
+// K9's gate products and cell are K4's (add_gates), and K10 is one reverse
+// step of the old product-form K5 with the incoming (dh, dc) given:
+// cell_bwd, gates_backprop and attend_backward.
+//
+// K8 is one reverse step of the scan backward K5 in its table form: the
+// launch first builds VW = value_t Wc (B, H, S, A) with the tiled GEMM of
+// dsa_common.cuh; the kernel recomputes the scores from VW
+// (attend_scores_table: 2A loads and A tanh per tap row), forms du once per
+// (query, column part) from it (attend_backward_table) and writes dpos
+// directly; a GEMM adds the scores' share of dvalue, G . Wc^T, and another
+// reduces dWc = value^T G.  Its tile is picked on the host from B, Q and the
+// SM count (query_tile: 2 or 4 queries on a small grid such as a B = 1
+// step's, else 8).
+//
+// On the TPU the weight gradients accumulate in revisited blocks over the
+// sequential grid; here blocks run in parallel, so (as in K5) dvalue and G,
+// the lerp-weighted scatter of du onto the value rows, take atomics (float4
+// in K8), dWc = sum_b value^T G, dW_hh = h^T dz and dctx_w3 = ctx^T dz are
+// reduced by the tiled outer_sum GEMM, and dcb, d alpha_w, d alpha_b are
+// per-block (K8: per-lane) partial sums added with atomics.
 //
 // Bound on this card: f32 operations (the scores' taps . Wc, H*LP*Dh*A MACs
-// per query, and in K9/K10 h W_hh and ctx ctx_w3, 4R*(R + H*Dh) per query);
-// as in the scan kernels the products read activations from shared memory
-// and weights from L2, so shared-load issue and L2 bandwidth limit them.
+// per query in the product form, 2A a tap row from the table, and in K9/K10
+// h W_hh and ctx ctx_w3, 4R*(R + H*Dh) per query); as in the scan kernels
+// the products read activations from shared memory and weights from L2, so
+// shared-load issue and L2 bandwidth limit them; K8's table reads (B*H*S*A
+// floats, 98 MB at B = 16, H = 8) come from L2 or HBM.
 // Limits: A <= 512 in the backwards, R <= 512 in K10 (a du tile row and the
-// staged dz of a tile fit one kBM x kBN buffer), and the shared memory of a
-// block (checked at launch).
+// staged dz of a tile fit one kBM x kBN buffer), A and Dh multiples of 4 in
+// K8, and the shared memory of a block (checked at launch).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -98,7 +112,7 @@ struct FwdLayout {
   size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
 };
 
-// shared memory of the backwards; h only in K10
+// shared memory of K10 (the product form)
 struct BwdLayout {
   int h, hvec, cx, dctx, taps, wc, big, wlo, whi, d, ddot, red, dcb, daw, dab;
   int lo, hi;
@@ -168,8 +182,8 @@ __device__ __forceinline__ void gate_preact(const StepArgs& a,
   add_gates(sm.ctx, pad4(HD), HD, a.ctx_w3, r, R, z);
 }
 
-// after attend_backward: the tile's dpos (in sm.d) and dhvec rows, and the
-// block's partial sums of dcb, d alpha_w, d alpha_b
+// after attend_backward (K10): the tile's dpos (in sm.d) and dhvec rows, and
+// the block's partial sums of dcb, d alpha_w, d alpha_b
 __device__ __forceinline__ void store_attend_grads(const AttendArgs& at,
                                                    const AttendSmem& sm,
                                                    const AttendGradSmem& gs,
@@ -254,38 +268,91 @@ lstm_fwd_kernel(StepArgs a, float* __restrict__ h_out, float* __restrict__ c_out
 // backwards
 // ----------------------------------------------------------------------------
 
+// shared memory of K8 (the table form): hvec, dhvec and dctx of the tile
+// (QT rows each), its tap table, the softmax weights, d wts and dpos
+struct TableBwdLayout {
+  int hvec, dhvec, dctx, wlo, whi, d, ddot, dpos, dab;  // float offsets
+  int lo, hi;                                          // int offsets
+  int floats, ints;
+  __host__ __device__ TableBwdLayout(int QT, int A, int HD, int NR) {
+    int o = 0;
+    hvec = o;  o += QT * pad4(A);
+    dhvec = o; o += QT * pad4(A);
+    dctx = o;  o += QT * pad4(HD);
+    wlo = o;   o += pad4(NR);
+    whi = o;   o += pad4(NR);
+    d = o;     o += pad4(NR);
+    ddot = o;  o += pad4(NR);
+    dpos = o;  o += pad4(NR);
+    dab = o;   o += 4;
+    floats = o;
+    lo = 0;
+    hi = NR;
+    ints = 2 * NR;
+  }
+  size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
+};
+
+// K8: one reverse step of the scan backward (K5) from the given pos and
+// hvec, with the scores and du from the table VW = value . Wc
+template <int QT>
 __global__ void __launch_bounds__(kThreads)
-step_bwd_kernel(StepArgs a, StepGrads o) {
+step_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
+  static_assert(kWarps % QT == 0, "warps per query");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const AttendArgs& at = a.at;
-  const int tid = threadIdx.x, b = blockIdx.y, q0 = blockIdx.x * kQT;
-  const int H = at.H, Dh = at.Dh, Q = at.Q, S = at.S, A = at.A, HD = H * Dh;
-  const int ldHD = pad4(HD);
-  const BwdLayout L(0, A, HD, kQT * H * at.LP);
-  const AttendSmem sm = bind_smem(smem, L, smem + L.cx);
-  AttendGradSmem gs;
-  gs.dctx = smem + L.dctx; gs.dhvec = smem + L.cx; gs.ddot = smem + L.ddot;
-  gs.du = smem + L.big; gs.dcb = smem + L.dcb; gs.daw = smem + L.daw;
-  gs.dab = smem + L.dab;
+  const int tid = threadIdx.x, b = blockIdx.y, q0 = blockIdx.x * QT;
+  const int H = at.H, Dh = at.Dh, Q = at.Q, S = at.S, A = at.A, LP = at.LP;
+  const int HD = H * Dh, HLP = H * LP, NR = QT * HLP;
+  const int ldA = pad4(A), ldHD = pad4(HD);
+  const TableBwdLayout L(QT, A, HD, NR);
+  int* ints = reinterpret_cast<int*>(smem + L.floats);
+  AttendSmem sm{};
+  sm.hvec = smem + L.hvec; sm.wlo = smem + L.wlo; sm.whi = smem + L.whi;
+  sm.d = smem + L.d; sm.lo = ints + L.lo; sm.hi = ints + L.hi;
+  TableGradSmem gs;
+  gs.dctx = smem + L.dctx; gs.dhvec = smem + L.dhvec; gs.ddot = smem + L.ddot;
+  gs.dpos = smem + L.dpos; gs.dab = smem + L.dab;
+  const ColGroups cols(A, kWarps / QT);
+  float4 dcb[kColGroups], daw[kColGroups];
+#pragma unroll
+  for (int j = 0; j < kColGroups; ++j) { dcb[j] = f4(0.f); daw[j] = f4(0.f); }
   const float* value_b = at.value + (size_t)b * H * S * Dh;
+  const float* vw_b = vw + (size_t)b * H * S * A;
 
-  for (int i = tid; i < pad4(A); i += kThreads) { gs.dcb[i] = 0.f; gs.daw[i] = 0.f; }
   if (tid == 0) gs.dab[0] = 0.f;
-  attend_given(at, sm, b, q0, a.pos, a.hvec);
+  attend_given<QT>(at, sm, b, q0, a.pos, a.hvec);
   // d ctx of the tile; a query past Q gets a zero cotangent, so every
   // gradient it adds is exactly 0
-  for (int i = tid; i < kQT * HD; i += kThreads) {
+  for (int i = tid; i < QT * HD; i += kThreads) {
     const int q = i / HD, hd = i % HD, hh = hd / Dh, dh = hd % Dh;
     gs.dctx[q * ldHD + hd] =
         q0 + q < Q ? o.g[(((size_t)b * H + hh) * Q + q0 + q) * Dh + dh] : 0.f;
   }
   __syncthreads();
-  attend_scores(at, sm, value_b, __ldg(a.ab));
-  attend_softmax(at, sm);
-  attend_backward(at, sm, gs, value_b, o.dvalue + (size_t)b * H * S * Dh,
-                  o.G + (size_t)b * H * S * A);
-  store_attend_grads(at, sm, gs, b, q0, o);
+  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));
+  attend_softmax<QT>(at, sm);
+  attend_backward_table<QT>(at, sm, gs, value_b, vw_b, o.dvalue + (size_t)b * H * S * Dh,
+                            o.G + (size_t)b * H * S * A, cols, dcb, daw);
+
+  // the tile's dpos and dhvec rows, the lane's column sums of dcb and
+  // d alpha_w and the block's d alpha_b
+  for (int row = tid; row < NR; row += kThreads) {
+    const int q = row / HLP, hh = (row / LP) % H, p = row % LP;
+    if (q0 + q < Q) o.dpos[(((size_t)b * H + hh) * Q + q0 + q) * LP + p] = gs.dpos[row];
+  }
+  for (int i = tid; i < QT * A; i += kThreads) {
+    const int q = i / A, col = i % A;
+    if (q0 + q < Q) o.dhvec[((size_t)b * Q + q0 + q) * A + col] = gs.dhvec[q * ldA + col];
+  }
+#pragma unroll
+  for (int j = 0; j < kColGroups; ++j) {
+    if (!cols.ok[j]) continue;
+    atomic_add4(o.dcb + cols.c[j], dcb[j]);
+    atomic_add4(o.daw + cols.c[j], daw[j]);
+  }
+  if (tid == 0) atomicAdd(o.dab, gs.dab[0]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -403,27 +470,55 @@ extern "C" int dvc_dsa_step_fwd(
 // K7's gradients for the cotangent g (B, H, Q, Dh) of ctx.  dvalue
 // (B, H, S, Dh), dcb (A), daw (A), dab (1) and the scratch G (B, H, S, A)
 // zeroed by the caller; dpos (B, H, Q, LP), dhvec (B, Q, A), dcw (Dh, A)
-// fully written.  work (work_floats floats) holds the outer sum's split-K
-// partial tiles (see dsa::gemm).
+// fully written.  Scratch: vw (B, H, S, A), the table value . Wc built here
+// first, and work (work_floats floats) for the outer sum's split-K partial
+// tiles (see dsa::gemm).  A <= 512, A and Dh multiples of 4; value_t, cb
+// and aw 16-byte aligned (read as float4).
 extern "C" int dvc_dsa_step_bwd(
     const float* value_t, const float* pos, const float* hvec, const float* cw,
     const float* cb, const float* aw, const float* ab, const float* g,
     const int* shapes, float* dvalue, float* dpos, float* dhvec, float* dcw,
-    float* dcb, float* daw, float* dab, float* G, float* work, int B, int H,
-    int S, int Dh, int Q, int LP, int L, int A, int work_floats, void* stream) {
+    float* dcb, float* daw, float* dab, float* G, float* vw, float* work, int B,
+    int H, int S, int Dh, int Q, int LP, int L, int A, int work_floats,
+    void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cw, cb, aw, ab, shapes, H, S, Dh, Q,
-                 LP, L, A, 0) || A > kBN)
+                 LP, L, A, 0) ||
+      A > 256 * kColGroups || A % 4 != 0 || Dh % 4 != 0 ||
+      reinterpret_cast<size_t>(value_t) % 16 != 0 ||
+      reinterpret_cast<size_t>(cb) % 16 != 0 || reinterpret_cast<size_t>(aw) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   StepGrads o{};
   o.g = g; o.dvalue = dvalue; o.G = G; o.dpos = dpos; o.dhvec = dhvec;
   o.dcb = dcb; o.daw = daw; o.dab = dab;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = BwdLayout(0, A, H * Dh, kQT * H * LP).bytes();
-  cudaError_t e = launch(step_bwd_kernel, smem, B, Q, st, a, o);
-  if (e == cudaSuccess)
-    e = outer_sum(value_t, Dh, G, A, B * H * S, Dh, A, dcw, st, work, work_floats);
-  return (int)e;
+  const int BHS = B * H * S;
+  cudaError_t e = cudaSuccess;
+  if (B > 0 && Q > 0) {
+    // at most 8 queries a tile: a warp of the score backward owns a
+    // (query, column part), and A <= 512 needs two parts
+    const int QT = query_tile(B, Q, 2, kQT);
+    const size_t smem = TableBwdLayout(QT, A, H * Dh, QT * H * LP).bytes();
+    e = QT == 2 ? set_smem(step_bwd_kernel<2>, smem)
+        : QT == 4 ? set_smem(step_bwd_kernel<4>, smem)
+                  : set_smem(step_bwd_kernel<kQT>, smem);
+    // the table value . Wc, once per launch
+    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((Q + QT - 1) / QT, B);
+    if (QT == 2)
+      step_bwd_kernel<2><<<grid, kThreads, smem, st>>>(a, o, vw);
+    else if (QT == 4)
+      step_bwd_kernel<4><<<grid, kThreads, smem, st>>>(a, o, vw);
+    else
+      step_bwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, o, vw);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    // the scores' share of dvalue: dvalue += G . Wc^T
+    e = gemm(Operand{G, A, false}, Operand{cw, A, false}, BHS, Dh, A, true, dvalue,
+             nullptr, 0, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, work_floats);
 }
 
 // K9: as dvc_dsa_step_fwd plus z0 (B, Q, 4R), h and c (B, Q, R), ctx_w3

@@ -41,10 +41,10 @@ _SIGNATURES = {
     'dvc_msda_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     'dvc_msda_bwd': [_P] * 7 + [_I] * 7 + [_P, _P],
     'dvc_dsa_greedy': [_P] * 22 + [_I] * 12 + [_P],
-    'dvc_dsa_scan_fwd': [_P] * 16 + [_I] * 10 + [_P],
+    'dvc_dsa_scan_fwd': [_P] * 17 + [_I] * 10 + [_P],
     'dvc_dsa_scan_bwd': [_P] * 35 + [_I] * 11 + [_P],
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 8 + [_P],
-    'dvc_dsa_step_bwd': [_P] * 18 + [_I] * 9 + [_P],
+    'dvc_dsa_step_bwd': [_P] * 19 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_bwd': [_P] * 30 + [_I] * 10 + [_P],
     'dvc_dsa_table_gemm': [_P] * 3 + [_I] * 3 + [_P],

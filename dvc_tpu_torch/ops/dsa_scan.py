@@ -9,8 +9,9 @@ backward (port of ``dvc_tpu/ops/dsa_scan.py``).
 * :func:`dsa_teacher_scan` — the wrapper the caption head calls: CUDA
   tensors go to :class:`DSATeacherScanFunction` (forward kernel
   ``dvc_dsa_scan_fwd``, backward kernel ``dvc_dsa_scan_bwd`` in
-  ``csrc/dsa_scan.cu``, which builds the table ``value_t . cw`` first and
-  adds ``G . cw^T`` to dvalue last); CPU tensors go to the plain version.
+  ``csrc/dsa_scan.cu``; both build the table ``value_t . cw`` first, and
+  the backward adds ``G . cw^T`` to dvalue last); CPU tensors go to the
+  plain version.
 * :func:`dsa_teacher_scan_fwd` / :func:`dsa_teacher_scan_bwd` — the two
   kernels alone: they take CUDA tensors only.
 
@@ -114,9 +115,11 @@ def dsa_teacher_scan_fwd(*args):
     B, H, S, Dh, Q, LP, L, A, R, K = dims
     hs = torch.empty((B, K, Q, R), dtype=torch.float32, device=ops[0].device)
     cs = torch.empty_like(hs)
+    # scratch: the table value_t . cw that the kernel scores from
+    vw = torch.empty((B, H, S, A), dtype=torch.float32, device=hs.device)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_fwd(
         *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
-        hs.data_ptr(), cs.data_ptr(), *dims,
+        hs.data_ptr(), cs.data_ptr(), vw.data_ptr(), *dims,
         _cuda.stream_ptr(hs.device)), 'dvc_dsa_scan_fwd')
     dsa_teacher_scan_fwd.launches += 1
     return hs, cs

@@ -165,8 +165,11 @@ def _operands(names, args, temporal_shapes):
     bad = [n for n, t in ops.items() if tuple(t.shape) != expect[n]]
     if bad or LP % L or sum(temporal_shapes) != S:
         raise ValueError(f'word-step kernel: inconsistent shapes of {bad}')
+    # K8 reads rows as float4: a view's storage offset may leave them
+    # unaligned, a copy does not
+    tensors = [ops[n].contiguous() for n in names]
     return ((B, H, S, Dh, Q, LP, L, A, R),
-            [ops[n].contiguous() for n in names])
+            [t.clone() if t.data_ptr() % 16 else t for t in tensors])
 
 
 def _zeros(dev, *shape):
@@ -212,13 +215,15 @@ def dsa_sample_attend_bwd(value_t, pos, hvec, cw, cb, aw, ab,
     outs = (_zeros(dev, B, H, S, Dh), _empty(dev, B, H, Q, LP),
             _empty(dev, B, Q, A), _empty(dev, Dh, A), _zeros(dev, A),
             _zeros(dev, A), _zeros(dev, 1))
-    G, work = _zeros(dev, B, H, S, A), _empty(dev, _cuda.WORK_SPLITS * Dh * A)
+    # scratch: G, the table value_t . cw, the outer sum's partial tiles
+    G, vw = _zeros(dev, B, H, S, A), _empty(dev, B, H, S, A)
+    work = _empty(dev, _cuda.WORK_SPLITS * Dh * A)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_step_bwd(
         *(t.data_ptr() for t in ops), g.data_ptr(),
         _cuda.levels_array(temporal_shapes),
-        *(t.data_ptr() for t in outs), G.data_ptr(), work.data_ptr(),
-        B, H, S, Dh, Q, LP, L, A, work.numel(), _cuda.stream_ptr(dev)),
-        'dvc_dsa_step_bwd')
+        *(t.data_ptr() for t in outs), G.data_ptr(), vw.data_ptr(),
+        work.data_ptr(), B, H, S, Dh, Q, LP, L, A, work.numel(),
+        _cuda.stream_ptr(dev)), 'dvc_dsa_step_bwd')
     dsa_sample_attend_bwd.launches += 1
     return (*outs[:6], outs[6].reshape(ab_shape))
 

@@ -19,12 +19,14 @@ the softmax's gradients sum to zero, so both sides hold only rounding);
 the word-step kernels (K7-K10) to the same: outputs within 1e-4 * max|ref|,
 gradients within 1e-3 * max|ref| + 1e-5; in these newer cases d alpha_b
 has the floor 5e-5 (``_grad_close``), the rounding of a sum of every tap
-row's term in no fixed order.
+row's term in no fixed order, and at the train widths the floors of
+chip_smoke's ``check_scan`` and ``check_step``.
 """
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import near_integer, scan_positions
 from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan, dsa_greedy_scan_ref
 from dvc_tpu_torch.ops.dsa_tables import table_gemm
 from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, STEP_NAMES,
@@ -372,19 +374,15 @@ def test_greedy_kernel_at_the_serving_width(cuda, B, H):
 def _off_boundary(args, hs, g):
     """g with zero rows for every query that has, at any step, a tap
     position within 2e-6 + 2^-23 |pos| of a level-relative integer (from
-    the trajectory hs, in float64), and the share of queries so dropped.
+    the trajectory hs, in float64; chip_smoke's ``scan_positions`` and
+    ``near_integer``), and the share of queries so dropped.
     There the tap pair, and so the gradient with respect to the position,
     jumps, and the kernel's and the plain version's sums of h . off_w may
     round to either side (ROADMAP C): at B=16, H=8 one tap 5e-7 below an
     integer moves its query's dbase by 0.3 and, through dh, every earlier
     step of that query.  A query with a zero cotangent adds exactly zero
     to every gradient on both sides."""
-    base_pos, scale_t, off_w_h = args[1], args[2], args[4]
-    h_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1).double()
-    off = torch.einsum('bkqr,hrp->bkhqp', h_prev, off_w_h.double())
-    pos = base_pos.double()[:, None] + off * scale_t.double()[:, None, None]
-    near = (pos - pos.round()).abs() <= 2e-6 + pos.abs() * 2.0 ** -23
-    drop = near.any(dim=4).any(dim=2).any(dim=1)                    # (B, Q)
+    drop = near_integer(scan_positions(args, hs))                  # (B, Q)
     return g * (~drop)[:, None, :, None], float(drop.float().mean())
 
 
@@ -413,6 +411,118 @@ def test_scan_backward_kernel_at_the_train_width(cuda, B, H):
     for name, a, b in zip(NAMES, grads, want):
         ok, err = _close(a, b, 1e-3, floor if name == 'ab' else 1e-5)
         assert ok, (name, err, float(b.abs().max()))
+
+
+@pytest.mark.parametrize('B,H', [(1, 1), (2, 1), (8, 1), (16, 1), (1, 8)])
+def test_scan_forward_kernel_at_the_train_width(cuda, B, H):
+    """K4 (table value . Wc, then the K-step scan) at R = A = 512, S = 375,
+    LP = 16, Q = 90, K = 29, at each query tile the host picks on a 132-SM
+    card: 4 queries (B = 1: 23 blocks with a ragged last tile, at H = 1 and
+    8; B = 2: 46), 8 (B = 8), 16 (B = 16): hs and cs within 1e-4 *
+    max|ref|."""
+    rng = np.random.default_rng(650 + 10 * B + H)
+    ts = (200, 100, 50, 25)
+    args = _wide_args(cuda, rng, B, H, 90, greedy=False, K=29)
+    launches = dsa_teacher_scan_fwd.launches
+    hs, cs = dsa_teacher_scan_fwd(*args, ts)
+    torch.cuda.synchronize()
+    assert dsa_teacher_scan_fwd.launches == launches + 1
+    ref_hs, ref_cs = dsa_teacher_scan_ref(*args, ts)
+    for name, a, b in (('hs', hs, ref_hs), ('cs', cs, ref_cs)):
+        ok, err = _close(a, b, 1e-4)
+        assert ok, (name, err, float(b.abs().max()))
+
+
+def _wide_step_args(dev, rng, B, H, Q, d=512, A=512, P=4,
+                    ts=(200, 100, 50, 25)):
+    """K7's operands at the caption head's widths (as chip_smoke's
+    ``step_inputs``): positions over each level's range and past both its
+    ends, weights scaled like fan-in-normalised ones."""
+    Dh, S = d // H, sum(ts)
+    LP = len(ts) * P
+
+    def w(*s, fan_in):
+        return _t((rng.standard_normal(s) / fan_in ** 0.5).astype(np.float32),
+                  dev)
+
+    T = np.repeat(np.asarray(ts, np.float32), P)
+    pos = (rng.uniform(-0.1, 1.1, (B, H, Q, LP)) * T - 0.5).astype(np.float32)
+    return (_t(rng.standard_normal((B, H, S, Dh)).astype(np.float32), dev),
+            _t(pos, dev), w(B, Q, A, fan_in=4), w(Dh, A, fan_in=Dh),
+            w(A, fan_in=100), w(A, fan_in=A), torch.tensor(0.05, device=dev))
+
+
+@pytest.mark.parametrize('B,Q,H', [(1, 90, 1), (16, 100, 1), (16, 100, 8)])
+def test_step_backward_kernel_at_the_word_step_widths(cuda, B, Q, H):
+    """K8 (table value . Wc, the step's backward from it, G . Wc^T into
+    dvalue, dWc = value^T G) at A = 512, Dh = 512 / H, S = 375, LP = 16 and
+    the stepwise path's shapes (B = 1 takes 2-query tiles, B = 16 8-query
+    ones; Q = 90 and 100 leave a ragged tile), to check_step's tolerances:
+    each gradient within 1e-3 * max|ref| + 1e-5, d alpha_b's floor
+    max(5e-5, 2.5e-10 * N, 2^-18 * sqrt(N) * the mean |term|) over its
+    N = B*H*Q*LP terms; queries with a tap within an ulp of a
+    level-relative integer get a zero cotangent (chip_smoke's
+    ``near_integer``, as ``_off_boundary`` does for the scan; at most a
+    tenth of them)."""
+    rng = np.random.default_rng(700 + 10 * B + H)
+    ts = (200, 100, 50, 25)
+    args = _wide_step_args(cuda, rng, B, H, Q)
+    g = _t(rng.standard_normal((B, H, Q, 512 // H)).astype(np.float32), cuda)
+    drop = near_integer(args[1].double())
+    assert float(drop.float().mean()) <= 0.1
+    g = g * (~drop)[:, None, :, None]
+    launches = dsa_sample_attend_bwd.launches
+    grads = dsa_sample_attend_bwd(*args, ts, g)
+    torch.cuda.synchronize()
+    assert dsa_sample_attend_bwd.launches == launches + 1
+    want = sample_attend_bwd_ref(*args, ts, g)
+    # d alpha_b's terms, one per tap row (alpha_b broadcast to every row)
+    rows = args[6].expand(args[1].shape).clone().requires_grad_()
+    terms, = torch.autograd.grad(sample_attend_ref(*args[:6], rows, ts),
+                                 rows, g)
+    N = terms.numel()
+    floor = max(5e-5, 2.5e-10 * N,
+                2.0 ** -18 * N ** 0.5 * float(terms.abs().mean()))
+    for name, a, b in zip(STEP_NAMES, grads, want):
+        assert a.shape == b.shape, name
+        ok, err = _close(a, b, 1e-3, floor if name == 'ab' else 1e-5)
+        assert ok, (name, err, float(b.abs().max()))
+
+
+def test_step_backward_copies_a_misaligned_operand(cuda):
+    """K8 reads value rows, cb and alpha_w as float4: the wrapper copies a
+    view whose storage is not 16-byte aligned (the gradients still match
+    the plain version's), and the entry point refuses such a pointer with
+    cudaErrorInvalidValue."""
+    from dvc_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(800)
+    ts = (12, 6)
+    B, H, Q, Dh, A, S, LP = 2, 2, 13, 8, 16, 18, 4
+    args = list(step_args(cuda, rng, B=B, H=H, Q=Q, Dh=Dh, A=A, ts=ts))
+    g = _t(rng.standard_normal((B, H, Q, Dh)).astype(np.float32), cuda)
+    want = sample_attend_bwd_ref(*args, ts, g)
+    for i in (0, 4, 5):                                 # value_t, cb, aw
+        buf = torch.empty(args[i].numel() + 1, device=cuda)
+        view = buf[1:].view(args[i].shape)
+        view.copy_(args[i])
+        assert view.data_ptr() % 16
+        args[i] = view
+    for name, a, b in zip(STEP_NAMES, dsa_sample_attend_bwd(*args, ts, g),
+                          want):
+        assert _grad_close(name, a, b)[0], name
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=cuda)
+
+    outs = (zeros(B, H, S, Dh), zeros(B, H, Q, LP), zeros(B, Q, A),
+            zeros(Dh, A), zeros(A), zeros(A), zeros(1))
+    scratch = (zeros(B, H, S, A), zeros(B, H, S, A),
+               zeros(_cuda.WORK_SPLITS * Dh * A))
+    code = _cuda.lib().cdll.dvc_dsa_step_bwd(
+        *(t.data_ptr() for t in args), g.data_ptr(), _cuda.levels_array(ts),
+        *(t.data_ptr() for t in outs + scratch), B, H, S, Dh, Q, LP, len(ts),
+        A, scratch[2].numel(), _cuda.stream_ptr(cuda))
+    assert code == 1                                    # cudaErrorInvalidValue
 
 
 @pytest.mark.parametrize('N,k,n', [(375, 512, 512), (6000, 64, 512),

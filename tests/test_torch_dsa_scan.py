@@ -109,3 +109,44 @@ def test_wrapper_gradients_are_the_plain_backward():
     for name, leaf, w in zip(NAMES, leaves, want):
         torch.testing.assert_close(leaf.grad, w, rtol=1e-6, atol=1e-7,
                                    msg=name)
+
+
+@pytest.mark.parametrize('shapes', [dict(K=3), dict(Q=5, K=2, seed=2)])
+def test_plain_backward_on_a_given_trajectory(shapes):
+    """chip_smoke's ``plain_scan_bwd_on`` (the plain backward with every
+    step's state taken from a given trajectory, to which chip_smoke holds
+    the scan backward kernel): on the plain forward's own trajectory it is
+    ``dsa_teacher_scan_bwd_ref``; on another, its d z_all at the last step
+    is autograd through that step alone from the given state."""
+    import chip_smoke
+    from dvc_tpu_torch.ops.dsa_greedy import (_level_bounds, attend_step,
+                                              lstm_cell)
+    args, ts = make_args(**shapes)
+    targs = [to_torch(a) for a in args]
+    hs, cs = dsa_teacher_scan_ref(*targs, ts)
+    rng = np.random.default_rng(7)
+    g = to_torch(rng.standard_normal(tuple(hs.shape)).astype(np.float32))
+    want = dsa_teacher_scan_bwd_ref(*targs, ts, hs, cs, g)
+    got = chip_smoke.plain_scan_bwd_on(*targs, ts, hs, cs, g)
+    for name, a, b in zip(NAMES, got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=name)
+
+    def moved(x):
+        return x + to_torch(0.05 * rng.standard_normal(tuple(x.shape))
+                            .astype(np.float32))
+
+    hs2, cs2 = moved(hs), moved(cs)
+    got = chip_smoke.plain_scan_bwd_on(*targs, ts, hs2, cs2, g)
+    (value_t, base_pos, scale_t, z_all, off_w_h, h2att_w, h2att_b, cw, cb,
+     aw, ab, ctx_w3, w_hh) = targs
+    K = hs.shape[1]
+    z_in = z_all[:, K - 1].clone().requires_grad_()
+    hib, s0 = _level_bounds(ts, scale_t.shape[-1] // len(ts), 'cpu')
+    h, c = hs2[:, K - 2], cs2[:, K - 2]
+    ctx = attend_step(h, value_t, base_pos, scale_t, off_w_h, h2att_w,
+                      h2att_b, cw, cb, aw, ab, hib, s0)
+    h, _ = lstm_cell(z_in + h @ w_hh
+                     + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3), c)
+    dz, = torch.autograd.grad(h, z_in, g[:, K - 1])
+    torch.testing.assert_close(got[3][:, K - 1], dz, rtol=1e-6, atol=1e-7)
+    assert not torch.allclose(got[3][:, K - 1], want[3][:, K - 1])

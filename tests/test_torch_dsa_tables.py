@@ -1,6 +1,6 @@
 """The per-video table form of the LSTM-DSA attention, which the CUDA kernels
-K5 (scan backward) and K6 (greedy decode) use, held against the JAX package
-on the CPU.
+K4 and K5 (the scan and its backward), K6 (greedy decode) and K8 (the word
+step's backward) use, held against the JAX package on the CPU.
 
 A plain-PyTorch mirror of the kernels' decomposition lives here (never on
 the port's path):
@@ -17,10 +17,12 @@ the port's path):
 
 The teacher-forcing scan built on that step is held against the JAX oracle
 ``dsa_teacher_scan_ref`` (forward) and ``jax.vjp`` of it (the 13
-gradients); the greedy loop against ``dsa_greedy_scan_ref``.  numpy inputs
-from a seed, H = 1 and 2, LP = 4, ragged Q, positions past both borders of
-each level (where the two taps clamp to one row).  Tolerance rtol 2e-4,
-atol 1e-6 (f32, sums in another order).
+gradients); the greedy loop against ``dsa_greedy_scan_ref``; one step's
+backward (K8's function) against ``jax.vjp`` of the JAX word step's custom
+VJP with its Pallas kernels in interpret mode.  numpy inputs from a seed,
+H = 1, 2 and 8, LP = 4, ragged Q, positions past both borders of each level
+(where the two taps clamp to one row).  Tolerance rtol 2e-4, atol 1e-6
+(f32, sums in another order).
 """
 import jax
 import jax.numpy as jnp
@@ -32,6 +34,7 @@ from torch_port import to_numpy, to_torch  # noqa: I100 (sets torch threads)
 
 from dvc_tpu.ops.dsa_greedy import dsa_greedy_scan_ref as jax_greedy_ref
 from dvc_tpu.ops.dsa_scan import dsa_teacher_scan_ref as jax_scan_ref
+from dvc_tpu.ops.dsa_step import _dsa_core
 from dvc_tpu_torch.ops.dsa_greedy import (_level_bounds, greedy_pick,
                                           lstm_cell, step_pos_hvec)
 from dvc_tpu_torch.ops.dsa_scan import NAMES
@@ -228,6 +231,56 @@ def test_table_backward_terms_are_the_kernels_decomposition():
                                    atol=ATOL, err_msg=name)
 
 
+@pytest.mark.parametrize('H,Q', [(1, 5), (2, 9), (8, 3)])
+def test_table_step_backward_matches_jax_kernel_vjp(H, Q):
+    """K8's function in the kernel's table form (``TableAttend``: the scores
+    and du from VW = value . Wc, G scattered onto the value rows, dvalue's
+    G . Wc^T, dWc = value^T G, dpos from the tap rows directly) at the
+    kernels' boundary against ``jax.vjp`` of the JAX word step's custom VJP
+    (``_dsa_core``, its Pallas kernels in interpret mode) for a unit-scale
+    cotangent of ctx; Q ragged against the card's query tiles.  d alpha_b
+    is zero in exact arithmetic (the softmax's gradients sum to zero), so
+    both sides hold only the rounding of a sum of N = B*H*Q*LP terms: its
+    atol is chip_smoke.check_step's floor, 64 unit roundoffs times sqrt(N)
+    times the terms' mean magnitude, where that exceeds 1e-6."""
+    rng = np.random.default_rng(30 + 10 * H + Q)
+    B, Dh, A, P = 2, 8, 16, 2
+    LP = len(TS) * P
+
+    def f(*s, scale=1.0):
+        return (rng.standard_normal(s) * scale).astype(np.float32)
+
+    pos = _base_pos(rng, B, H, Q, P)
+    below, above = _clamped_rows(pos)
+    assert below > 0 and above > 0
+    args = (f(B, H, sum(TS), Dh), pos, f(B, Q, A, scale=0.5),
+            f(Dh, A, scale=0.3), f(A, scale=0.1), f(A, scale=0.3),
+            np.float32(0.05))
+    dctx = f(B, H, Q, Dh)
+    hib, s0 = _level_bounds(TS, P, 'cpu')
+    leaves = [to_torch(a).requires_grad_() for a in args]
+    ctx = TableAttend.apply(*leaves, hib, s0)
+    got = torch.autograd.grad(ctx, leaves, to_torch(dctx))
+    jops = [jnp.asarray(a) for a in args]
+    jops[1] = jops[1].reshape(B, H, Q * LP)
+    want_ctx, vjp = jax.vjp(lambda *a: _dsa_core(*a, TS, Q, True, 'float32'),
+                            *jops)
+    np.testing.assert_allclose(to_numpy(ctx), np.asarray(want_ctx),
+                               rtol=RTOL, atol=ATOL)
+    # d alpha_b's terms, one per tap row (alpha_b broadcast to every row)
+    from dvc_tpu_torch.ops.dsa_greedy import attend
+    rows = to_torch(args[6]).expand(B, H, Q, LP).clone().requires_grad_()
+    terms, = torch.autograd.grad(
+        attend(*map(to_torch, args[:6]), rows, hib, s0), rows, to_torch(dctx))
+    atol = {'ab': max(ATOL, 2.0 ** -18 * terms.numel() ** 0.5
+                      * float(terms.abs().mean()))}
+    for name, a, b in zip(('value', 'pos', 'hvec', 'cw', 'cb', 'aw', 'ab'),
+                          got, vjp(jnp.asarray(dctx))):
+        np.testing.assert_allclose(to_numpy(a).reshape(np.shape(b)),
+                                   np.asarray(b), rtol=RTOL,
+                                   atol=atol.get(name, ATOL), err_msg=name)
+
+
 def greedy_args(H, seed, B=2, Dh=8, Q=5, A=16, R=8, V=130, E=12, P=2):
     rng = np.random.default_rng(seed)
 
@@ -279,9 +332,9 @@ def test_table_gemm_takes_the_plain_product_on_the_cpu(N, k, n):
 
 
 def test_phase_split_edits_match_the_sources():
-    """Each edit of chip_smoke.py's phase split of the current K5 and K6
-    (one phase's code taken out of a copy of csrc/) finds its text exactly
-    once in the sources, so the split's variants build."""
+    """Each edit of chip_smoke.py's phase split of the redesigned kernels
+    (K4, K5, K6, K8; one phase's code taken out of a copy of csrc/) finds
+    its text exactly once in the sources, so the split's variants build."""
     import os
     import chip_smoke
     from dvc_tpu_torch.ops import _cuda
