@@ -12,12 +12,15 @@ Phases (one or more lines each; the last line is the JSON verdict):
 3. kernels vs plain — each of the nine kernels against its plain PyTorch
    version on the card at the serving and training paths' shapes (TF32
    off), with errors, CUDA-event times and each kernel's bound (bytes over
-   the HBM rate or f32 operations over the CUDA cores' peak); the scan
-   also at cap_nheads 8, the word-step kernels (K7-K10) at the stepwise
-   path's train (B=1, Q=90) and serve (B=16, Q=100, H=1 and 8) shapes, to
-   the scan's tolerances (``check_step``); then the phase split of the
-   kernels redesigned around per-video tables (K4, K5, K6, K8;
-   ``SPLITS['current']``, one ``[split]`` line per kernel and shape).
+   the HBM rate or f32 operations over the CUDA cores' peak); the tables'
+   GEMM and its backward (the table VW = value . Wc of K9 and K10) against
+   torch.einsum; the scan also at cap_nheads 8, the word-step kernels
+   (K7-K10; K9 and K10 with VW given, K10's gradients composed with the
+   table's backward) at the stepwise path's train (B=1, Q=90) and serve
+   (B=16, Q=100, H=1 and 8) shapes, to the scan's tolerances
+   (``check_step``); then the phase split of the kernels redesigned around
+   per-video tables (K4, K5, K6, K8, K9, K10; ``SPLITS['current']``, one
+   ``[split]`` line per kernel and shape).
    Tolerances:
    MSDA forward max abs error <= 1e-4 * max|out|, and each of its
    gradients <= 1e-4 * its max |ref|; greedy tokens equal and log-probs
@@ -49,10 +52,11 @@ Phases (one or more lines each; the last line is the JSON verdict):
 8. stepwise — the stepwise caption path: ``new_train.main`` for two
    --debug epochs with scheduled sampling from epoch 1 (ss_prob 0.25),
    once through K7/K8 and once with --dsa_lstm_fuse 1 through K9/K10 (the
-   fused scan K4/K5 in epoch 0; one launch per word step; no plain
-   version; tokens fed by scheduled sampling), the step timed at B=1 and
-   B=16; the second run's checkpoint served with --dsa_greedy_fuse 0
-   through K7 and K9 against the fused greedy kernel (>= 90% of the
+   fused scan K4/K5 in epoch 0; one launch per word step, and with
+   --dsa_lstm_fuse 1 one table VW and one table backward per train step;
+   no plain version; tokens fed by scheduled sampling), the step timed at
+   B=1 and B=16; the second run's checkpoint served with --dsa_greedy_fuse
+   0 through K7 and K9 against the fused greedy kernel (>= 90% of the
    captions identical); the train agreement of phase 7 with
    --dsa_scan_fuse 0 for both pairs.  Then a check that neither JAX nor
    any module of the JAX package ``dvc_tpu`` (by name or by file) was
@@ -72,10 +76,11 @@ import tempfile
 import time
 
 MSDA_LEVELS = (200, 100, 50, 25)      # T = 200 frames, 4 levels, S = 375
-# the word-step kernels of the stepwise caption path, which the default
-# flags (fused scan and greedy decode) never launch
+# the word-step kernels of the stepwise caption path and the table of K9
+# and K10 (built by the caption head), which the default flags (fused scan
+# and greedy decode) never launch
 STEP_KERNELS = ('dsa_step_fwd', 'dsa_step_bwd', 'dsa_lstm_fwd',
-                'dsa_lstm_bwd')
+                'dsa_lstm_bwd', 'table_gemm', 'table_gemm_bwd')
 CFG = 'cfgs/yc2_newModel_sound.yml'
 DEVICE = 'cuda'                       # of the train phases (a CPU rehearsal
                                       # at a tiny size sets 'cpu')
@@ -553,11 +558,12 @@ def check_scan(gen, B, Q, K, H):
 
 
 def check_table_gemm(gen, N, k, n, label):
-    """The tables' GEMM (``table_gemm``, the kernel that K5 and K6 run
-    first in every launch) against torch.einsum on the same inputs: max abs
-    error <= 1e-5 * sqrt(k) * max|ref| (f32 sums of k terms in another
-    order, TF32 off); torch.matmul timed beside it as a yardstick
-    (library_ms), used nowhere in the port."""
+    """The tables' GEMM (``table_gemm``: the kernel that K4-K6 and K8 run
+    first in every launch, and that builds K9's and K10's VW once per
+    forward pass) against torch.einsum on the same inputs: max abs error
+    <= 1e-5 * sqrt(k) * max|ref| (f32 sums of k terms in another order,
+    TF32 off); torch.matmul timed beside it as a yardstick (library_ms),
+    used nowhere in the port."""
     import torch
     from dvc_tpu_torch.ops.dsa_tables import table_gemm
     x = torch.randn((N, k), generator=gen, device='cuda')
@@ -579,6 +585,46 @@ def check_table_gemm(gen, N, k, n, label):
     return {'N': N, 'k': k, 'n': n, 'max_abs_err': err, 'ms': ms,
             'plain_ms': plain_ms, 'library_ms': library_ms,
             'bound_ms': bound_ms, 'bound_by': bound_by}
+
+
+def check_table_gemm_bwd(gen, N, k, n, label):
+    """The table GEMM's backward (``table_gemm_bwd``: dx = g . w^T and
+    dw = x^T . g, once per backward pass of the fused LSTM word steps)
+    against torch.einsum on the same inputs: each output's max abs error
+    <= 1e-5 * sqrt(terms) * its max|ref| (f32 sums of n, respectively N,
+    terms in another order, TF32 off).  Beside it, as a yardstick used
+    nowhere in the port, the two torch.matmul calls of the same products
+    (no single PyTorch call computes both, so library_ms is null)."""
+    import torch
+    from dvc_tpu_torch.ops.dsa_tables import table_gemm_bwd
+    x = torch.randn((N, k), generator=gen, device='cuda')
+    w = torch.randn((k, n), generator=gen, device='cuda') / k ** 0.5
+    g = torch.randn((N, n), generator=gen, device='cuda')
+    got = table_gemm_bwd(x, w, g)
+
+    def plain():
+        return (torch.einsum('nm,km->nk', g, w),
+                torch.einsum('nk,nm->km', x, g))
+
+    want = plain()
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    tols = [1e-5 * t ** 0.5 * float(b.abs().max())
+            for t, b in zip((n, N), want)]
+    ms = cuda_ms(lambda: table_gemm_bwd(x, w, g), 20)
+    plain_ms = cuda_ms(plain, 20)
+    matmul_ms = cuda_ms(lambda: (torch.matmul(g, w.T), torch.matmul(x.T, g)),
+                        20)
+    bound_ms, bound_by = bound(nbytes(x, w, g, *got), 4.0 * N * k * n)
+    print(f'[kernels] table_gemm_bwd {label} ({N} x {k}) . ({k} x {n}): '
+          f'max_abs_err dx {errs[0]:.3e} (tol {tols[0]:.3e}) dw '
+          f'{errs[1]:.3e} (tol {tols[1]:.3e}) kernel {ms:.4f} ms plain '
+          f'(einsum) {plain_ms:.4f} ms two torch.matmul {matmul_ms:.4f} ms '
+          f'bound {bound_ms:.4f} ms ({bound_by})')
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise AssertionError(f'table_gemm_bwd {label}: errors {errs} > {tols}')
+    return {'N': N, 'k': k, 'n': n, 'max_abs_err': max(errs), 'ms': ms,
+            'plain_ms': plain_ms, 'library_ms': None, 'bound_ms': bound_ms,
+            'bound_by': bound_by}
 
 
 def step_inputs(gen, B, Q, H, lstm, R=512, A=512, d=512, P=4):
@@ -608,9 +654,11 @@ def step_inputs(gen, B, Q, H, lstm, R=512, A=512, d=512, P=4):
                    w(R, 4 * R, fan_in=R)) + tail
 
 
-def word_step_macs(args, lstm):
-    """Least MACs of one word-step kernel over its B*Q queries: the scores'
-    taps . Wc (``lerp_rows_macs``) and . aw, the context (a lerp of two
+def word_step_macs(args, lstm, table_given=False):
+    """Least MACs of one word-step kernel over its B*Q queries (``args``:
+    ``step_inputs``'s): the scores' taps . Wc (``lerp_rows_macs``; with
+    ``table_given``, K9 and K10 alone with VW = value . Wc an operand, a
+    lerp of two VW rows, 2A per tap) and . aw, the context (a lerp of two
     value rows and a weighted sum per tap, 3*Dh); with the LSTM cell also
     h . W_hh and ctx . ctx_w3 (4R*(R + H*Dh)).  hvec and the offsets are
     computed outside the kernels; elementwise work is left out."""
@@ -618,7 +666,8 @@ def word_step_macs(args, lstm):
     B, H, S, Dh = value_t.shape
     Q, LP = pos.shape[2], pos.shape[3]
     A, n = hvec.shape[-1], B * Q
-    macs = (lerp_rows_macs(n, B, H, S, LP, Dh, A, True)
+    macs = ((n * H * LP * 2 * A if table_given
+             else lerp_rows_macs(n, B, H, S, LP, Dh, A, True))
             + n * H * LP * (A + 3 * Dh))
     if lstm:
         R = args[4].shape[-1]
@@ -628,37 +677,46 @@ def word_step_macs(args, lstm):
 
 def check_step(gen, B, Q, H, lstm):
     """K7 and K8 (or, with ``lstm``, K9 and K10) against the plain word step
-    and autograd through it.  Tolerances: outputs max abs error <= 1e-4 *
-    max|ref|; each gradient <= 1e-3 * its max |ref| + 1e-5 (f32 sums in
-    another order, atomics in dvalue, dWc and the bias sums).  d alpha_b is
-    zero in exact arithmetic, so both sides hold only the rounding of a sum
-    of N = B*Q*H*LP terms in no fixed order: its floor is check_scan's
-    max(5e-5, 2.5e-10 * N), or 64 unit roundoffs times sqrt(N) times the
-    terms' mean magnitude where that is larger (a unit-scale random
-    cotangent of ctx makes the terms larger than a train step's).  Bound:
-    ``word_step_macs`` at the f32 peak, the backward three times the
-    forward; bytes at the HBM rate."""
+    and autograd through it, at the JAX boundary.  K9 and K10 take the table
+    VW = value_t . cw (``lstm_kernel_args``); K10's 12 gradients at the JAX
+    boundary are composed with the table's backward
+    (``dsa_lstm_step_grads``), and their times are the kernels' alone with
+    VW given (the table's forward and backward have their own lines:
+    ``check_table_gemm``, ``check_table_gemm_bwd``).  Tolerances: outputs
+    max abs error <= 1e-4 * max|ref|; each gradient <= 1e-3 * its max |ref|
+    + 1e-5 (f32 sums in another order, atomics in dvalue, G, dWc and the
+    bias sums).  d alpha_b is zero in exact arithmetic, so both sides hold
+    only the rounding of a sum of N = B*Q*H*LP terms in no fixed order: its
+    floor is check_scan's max(5e-5, 2.5e-10 * N), or 64 unit roundoffs
+    times sqrt(N) times the terms' mean magnitude where that is larger (a
+    unit-scale random cotangent of ctx makes the terms larger than a train
+    step's).  Bound: ``word_step_macs`` at the f32 peak, the backward three
+    times the forward; bytes at the HBM rate."""
     import torch
     from dvc_tpu_torch.ops import dsa_step as ds
     args = step_inputs(gen, B, Q, H, lstm)
     if lstm:
+        kargs = lstm_kernel_args(args)
         names, fwd, bwd = ds.LSTM_NAMES, ds.dsa_lstm_step_fwd, \
             ds.dsa_lstm_step_bwd
         ref, bwd_ref = ds.lstm_step_ref, ds.lstm_step_bwd_ref
+        grads_of = ds.dsa_lstm_step_grads
     else:
+        kargs = args
         names, fwd, bwd = ds.STEP_NAMES, ds.dsa_sample_attend_fwd, \
             ds.dsa_sample_attend_bwd
         ref, bwd_ref = ds.sample_attend_ref, ds.sample_attend_bwd_ref
+        grads_of = bwd
 
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
 
-    outs, want = tup(fwd(*args, MSDA_LEVELS)), tup(ref(*args, MSDA_LEVELS))
+    outs, want = tup(fwd(*kargs, MSDA_LEVELS)), tup(ref(*args, MSDA_LEVELS))
     fwd_err = max(float((a - b).abs().max()) for a, b in zip(outs, want))
     fwd_tol = 1e-4 * max(float(b.abs().max()) for b in want)
     cot = tuple(torch.randn(o.shape, generator=gen, device='cuda')
                 for o in outs)
-    grads = bwd(*args, MSDA_LEVELS, *cot)
+    grads = grads_of(*args, MSDA_LEVELS, *cot)
     wgrads = bwd_ref(*args, MSDA_LEVELS, *cot)
     # d alpha_b's N terms, one per tap row: its gradient with alpha_b
     # broadcast to every row; their sum is zero in exact arithmetic
@@ -674,17 +732,17 @@ def check_step(gen, B, Q, H, lstm):
            / (float(b.abs().max()) + atol[n] / 1e-3)
            for n, a, b in zip(names, grads, wgrads)}
     bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads, wgrads))
-    fwd_ms = cuda_ms(lambda: fwd(*args, MSDA_LEVELS), 20)
+    fwd_ms = cuda_ms(lambda: fwd(*kargs, MSDA_LEVELS), 20)
     fwd_plain = cuda_ms(lambda: ref(*args, MSDA_LEVELS), 5)
-    bwd_ms = cuda_ms(lambda: bwd(*args, MSDA_LEVELS, *cot), 20)
+    bwd_ms = cuda_ms(lambda: bwd(*kargs, MSDA_LEVELS, *cot), 20)
     bwd_plain = cuda_ms(lambda: bwd_ref(*args, MSDA_LEVELS, *cot), 5)
-    macs = word_step_macs(args, lstm)
-    inputs = [t for t in args if torch.is_tensor(t)]
+    macs = word_step_macs(args, lstm, table_given=lstm)
+    inputs = [t for t in kargs if torch.is_tensor(t)]
     fwd_bound = bound(nbytes(*inputs, *outs), 2.0 * macs)
     bwd_bound = bound(nbytes(*inputs, *cot, *grads), 6.0 * macs)
     kind = 'dsa_lstm' if lstm else 'dsa_step'
     shape = (f'B={B} Q={Q} H={H} Dh={512 // H} S=375 LP=16 A=512'
-             + (' R=512' if lstm else ''))
+             + (' R=512, VW given' if lstm else ''))
     print(f'[kernels] {kind}_fwd {shape}: max_abs_err {fwd_err:.3e} (tol '
           f'{fwd_tol:.3e}) kernel {fwd_ms:.4f} ms plain {fwd_plain:.4f} ms '
           f'bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})')
@@ -721,10 +779,17 @@ def phase_kernels():
                'dsa_greedy': [check_greedy(gen, 16, 100, 1),
                               check_greedy(gen, 16, 100, 8)]}
     with torch.inference_mode():
+        # value . Wc at the word-step shapes (the stepwise path trains at
+        # B=1, H=1), then embed . token_w
         res['table_gemm'] = [
+            check_table_gemm(gen, 375, 512, 512, 'value . Wc, B=1 H=1'),
             check_table_gemm(gen, 16 * 375, 512, 512, 'value . Wc, B=16 H=1'),
             check_table_gemm(gen, 16 * 8 * 375, 64, 512, 'value . Wc, B=16 H=8'),
             check_table_gemm(gen, 1608, 512, 2048, 'embed . token_w')]
+        res['table_gemm_bwd'] = [
+            check_table_gemm_bwd(gen, 375, 512, 512, 'value . Wc, B=1 H=1'),
+            check_table_gemm_bwd(gen, 16 * 375, 512, 512, 'value . Wc, B=16 H=1'),
+            check_table_gemm_bwd(gen, 16 * 8 * 375, 64, 512, 'value . Wc, B=16 H=8')]
     res['msda_bwd'] = [check_msda_bwd(gen, 1, 375), check_msda_bwd(gen, 1, 100)]
     scans = [check_scan(gen, 1, 90, 29, 1), check_scan(gen, 16, 90, 29, 1),
              check_scan(gen, 1, 90, 29, 8)]
@@ -745,8 +810,8 @@ def phase_kernels():
 # sources); full minus the variant is that phase's share.  A variant
 # computes on stale operands, so only its time means anything.
 # SPLITS[spec][kernel] = (source, [(phase, [(file, old text, new text)])]);
-# 'pr4' splits K4 and K8 as they were before their tables (run it from a
-# checkout of that tree: python3 chip_smoke.py --split pr4).
+# 'pr5' splits K9 and K10 as they were before their table (run it from a
+# checkout of that tree: python3 chip_smoke.py --split pr5).
 _CELL = ('        const float c = sigmoidf_(z[1][q]) * c_s[q * ldR + r]\n'
          '                        + sigmoidf_(z[0][q]) * tanhf(z[2][q]);\n'
          '        const float h = sigmoidf_(z[3][q]) * tanhf(c);')
@@ -755,7 +820,8 @@ _NO_CELL = ('        const float c = z[1][q] + z[0][q] + z[2][q];\n'
 _GATES_H = ('add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n      add_gates(sm.ctx,',
             'add_gates(sm.ctx,')
 _GATES_CTX = ('add_gates(sm.ctx, ldHD, HD, a.ctx_w3, r, R, z);', '')
-# the table form's attention backward (dsa_common.cuh), shared by K5 and K8
+# the table form's attention backward (dsa_common.cuh), shared by K5, K8
+# and K10
 _TABLE_BWD = [
     ('context term', [('dsa_common.cuh', 'for (int c = lane * 4; c < Dh; c += 128) {',
                        'for (int c = Dh; c < Dh; c += 128) {')]),
@@ -769,20 +835,55 @@ _TABLE_BWD = [
                     '      atomic_add4(G_b + ol + c, mul4(wl, du));\n'
                     '      atomic_add4(G_b + oh + c, mul4(wh, du));\n', '')]),
 ]
+# the product-form word step that the 'pr5' spec splits: its gate products
+# (shared by K9 and K10's recompute) and the K10 recompute's attention
+_PR5_GATES_H = ('  add_gates(sm.h, pad4(R), R, a.w_hh, r, R, z);\n', '')
+_PR5_GATES_CTX = ('  add_gates(sm.ctx, pad4(HD), HD, a.ctx_w3, r, R, z);\n', '')
+_PR5_BWD_CTX = ('  for (int i = tid; i < kQT * HD; i += kThreads) {\n'
+                '    const int q = i / HD, hd = i % HD;\n')
+# the cell backward of K10 (both trees) and the cell of K9
+_CELL_BWD = ('      const float dc_prev = cell_bwd(z[0][q], z[1][q], z[2][q], z[3][q],\n'
+             '                                     a.c[row * R + r],\n'
+             '                                     valid ? o.gh[row * R + r] : 0.f,\n'
+             '                                     valid ? o.gc[row * R + r] : 0.f, dzg);',
+             '      const float dc_prev = a.c[row * R + r]\n'
+             '          + (valid ? o.gh[row * R + r] + o.gc[row * R + r] : 0.f);\n'
+             '      for (int g = 0; g < 4; ++g) dzg[g] = z[g][q];')
+_STEP_CELL = ('      const float c = sigmoidf_(z[1][q]) * a.c[o] + '
+              'sigmoidf_(z[0][q]) * tanhf(z[2][q]);\n'
+              '      h_out[o] = sigmoidf_(z[3][q]) * tanhf(c);',
+              '      const float c = z[1][q] + z[0][q] + z[2][q];\n'
+              '      h_out[o] = z[3][q] + c;')
+# the gate products of K9 and of K10's recompute (gate_preact)
+_STEP_GATES_H = ('  add_gates<QT>(h, pad4(R), R, a.w_hh, r, R, z);\n', '')
+_STEP_GATES_CTX = ('  add_gates<QT>(ctx, pad4(HD), HD, a.ctx_w3, r, R, z);\n', '')
 SPLITS = {
-    'pr4': {
-        'dsa_scan_fwd': ('dsa_scan.cu', [
-            ('scores taps.Wc', [('dsa_scan.cu', '    attend_scores(at, sm, value_b, ab);\n', '')]),
-            ('softmax + ctx', [('dsa_scan.cu', '    attend_softmax_ctx(at, sm, value_b);\n', '')]),
-            ('h.W_hh', [('dsa_scan.cu', *_GATES_H)]),
-            ('ctx.ctx_w3', [('dsa_scan.cu', *_GATES_CTX)]),
-            ('cell', [('dsa_scan.cu', _CELL, _NO_CELL)]),
+    'pr5': {
+        'dsa_lstm_fwd': ('dsa_step.cu', [
+            ('scores taps.Wc', [('dsa_step.cu',
+                                 '  attend_scores(at, sm, value_b, __ldg(a.ab));\n'
+                                 '  attend_softmax_ctx(at, sm, value_b);\n\n  // a thread',
+                                 '  attend_softmax_ctx(at, sm, value_b);\n\n  // a thread')]),
+            ('softmax + ctx', [('dsa_step.cu',
+                                '  attend_softmax_ctx(at, sm, value_b);\n\n  // a thread',
+                                '\n  // a thread')]),
+            ('h.W_hh', [('dsa_step.cu', *_PR5_GATES_H)]),
+            ('ctx.ctx_w3', [('dsa_step.cu', *_PR5_GATES_CTX)]),
+            ('cell', [('dsa_step.cu', *_STEP_CELL)]),
         ]),
-        'dsa_step_bwd': ('dsa_step.cu', [
-            ('scores recompute (softmax)', [('dsa_step.cu',
-                                             'attend_scores(at, sm, value_b, __ldg(a.ab));\n'
-                                             '  attend_softmax(at, sm);',
-                                             'attend_softmax(at, sm);')]),
+        'dsa_lstm_bwd': ('dsa_step.cu', [
+            ('scores taps.Wc', [('dsa_step.cu',
+                                 '  attend_scores(at, sm, value_b, __ldg(a.ab));\n'
+                                 '  attend_softmax_ctx(at, sm, value_b);\n' + _PR5_BWD_CTX,
+                                 '  attend_softmax_ctx(at, sm, value_b);\n' + _PR5_BWD_CTX)]),
+            ('softmax + ctx', [('dsa_step.cu',
+                                '  attend_softmax_ctx(at, sm, value_b);\n' + _PR5_BWD_CTX,
+                                _PR5_BWD_CTX)]),
+            ('h.W_hh', [('dsa_step.cu', *_PR5_GATES_H)]),
+            ('ctx.ctx_w3', [('dsa_step.cu', *_PR5_GATES_CTX)]),
+            ('cell_bwd', [('dsa_step.cu', *_CELL_BWD)]),
+            ('dz.W^T', [('dsa_step.cu', 'gates_backprop(dz_s, R, HD,',
+                         'gates_backprop(dz_s, R, -R,')]),
             ('du recompute', [('dsa_common.cuh',
                                'score_tile(a, s, value_b, r0, 0, acc);',
                                'for (int i = 0; i < 4; ++i) for (int j = 0; j < 8; ++j)'
@@ -796,8 +897,10 @@ SPLITS = {
             ('dvalue atomics', [('dsa_common.cuh',
                                  '          atomicAdd(dv + il + dh, wl * t);\n'
                                  '          atomicAdd(dv + ih + dh, wh * t);\n', '')]),
-            ('outer sum', [('dsa_step.cu', 'G, A, B * H * S, Dh, A, dcw, st, work, work_floats',
-                            'G, A, 0, Dh, A, dcw, st, work, work_floats')]),
+            ('outer sums h^T dz, ctx^T dz', [('dsa_step.cu', 'const int N = B * Q, HD = H * Dh;',
+                                              'const int N = 0, HD = H * Dh;')]),
+            ('outer sum value^T G', [('dsa_step.cu', 'G, A, B * H * S, Dh, A, dcw, st, work, wf)',
+                                      'G, A, 0, Dh, A, dcw, st, work, wf)')]),
         ]),
     },
     'current': {
@@ -850,11 +953,40 @@ SPLITS = {
                            '    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st);\n',
                            '')]),
             ('scores from VW', [('dsa_step.cu',
-                                 '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n', '')]),
+                                 '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
+                                 '  attend_softmax<QT>(at, sm);\n',
+                                 '  attend_softmax<QT>(at, sm);\n')]),
             *_TABLE_BWD,
             ('dvalue += G.Wc^T', [('dsa_step.cu', 'BHS, Dh, A, true, dvalue,',
                                    '0, Dh, A, true, dvalue,')]),
             ('outer sum', [('dsa_step.cu', 'G, A, BHS, Dh, A, dcw', 'G, A, 0, Dh, A, dcw')]),
+        ]),
+        'dsa_lstm_fwd': ('dsa_step.cu', [
+            ('scores from VW', [('dsa_step.cu',
+                                 '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
+                                 '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
+                                 '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n')]),
+            ('ctx', [('dsa_step.cu', '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
+                      '  attend_softmax<QT>(at, sm);\n\n')]),
+            ('h.W_hh', [('dsa_step.cu', *_STEP_GATES_H)]),
+            ('ctx.ctx_w3', [('dsa_step.cu', *_STEP_GATES_CTX)]),
+            ('cell', [('dsa_step.cu', *_STEP_CELL)]),
+        ]),
+        'dsa_lstm_bwd': ('dsa_step.cu', [
+            ('scores from VW', [('dsa_step.cu',
+                                 '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
+                                 '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for',
+                                 '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for')]),
+            ('ctx', [('dsa_step.cu', '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for',
+                      '  attend_softmax<QT>(at, sm);\n  for')]),
+            ('h.W_hh', [('dsa_step.cu', *_STEP_GATES_H)]),
+            ('ctx.ctx_w3', [('dsa_step.cu', *_STEP_GATES_CTX)]),
+            ('cell_bwd', [('dsa_step.cu', *_CELL_BWD)]),
+            ('dz.W^T', [('dsa_step.cu', 'gates_backprop_rows<QT>(dz_s, R, HD, a.w_hh,',
+                         'gates_backprop_rows<QT>(dz_s, R, -R, a.w_hh,')]),
+            *_TABLE_BWD,
+            ('outer sums', [('dsa_step.cu', 'const int N = B * Q, HD = H * Dh;',
+                             'const int N = 0, HD = H * Dh;')]),
         ]),
     },
 }
@@ -917,16 +1049,34 @@ def build_variants(csrc, specs):
     return libs
 
 
+def lstm_kernel_args(args):
+    """The operands of K9 and K10 alone from ``step_inputs``'s (those of
+    the JAX boundary): value_t, the table VW = value_t . cw, then the rest
+    without cw.  A tree from before the table form (the ``pr5`` split) takes
+    ``args`` as they are."""
+    from dvc_tpu_torch.ops import dsa_step
+    if not hasattr(dsa_step, 'lstm_step_table_ref'):
+        return args
+    from dvc_tpu_torch.ops.dsa_tables import table_gemm
+    value_t, cw = args[0], args[8]
+    B, H, S, Dh = value_t.shape
+    vw = table_gemm(value_t.reshape(-1, Dh), cw).reshape(B, H, S, -1)
+    return (value_t, vw) + tuple(args[1:8]) + tuple(args[9:])
+
+
 def split_cases(kernels):
     """(kernel, shape label, call) of each split of ``kernels``: K6 at the
     serving shape (B=16, Q=100, H=1 and 8); K4 and K5 at the train shapes
-    (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8); K8 at the word-step shapes
-    of ``check_step`` (B=1, Q=90, H=1; B=16, Q=100, H=1 and 8)."""
+    (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8); K8, K9 and K10 (alone,
+    with VW given) at the word-step shapes of ``check_step`` (B=1, Q=90,
+    H=1; B=16, Q=100, H=1 and 8)."""
     import torch
     from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
     from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
                                             dsa_teacher_scan_fwd)
-    from dvc_tpu_torch.ops.dsa_step import dsa_sample_attend_bwd
+    from dvc_tpu_torch.ops.dsa_step import (dsa_lstm_step_bwd,
+                                            dsa_lstm_step_fwd,
+                                            dsa_sample_attend_bwd)
     gen = torch.Generator(device='cuda').manual_seed(0)
     cases = []
     if 'dsa_greedy' in kernels:
@@ -955,6 +1105,20 @@ def split_cases(kernels):
             cases.append(('dsa_step_bwd', f'B={B} Q={Q} H={H}',
                           lambda args=args, g=g:
                           dsa_sample_attend_bwd(*args, MSDA_LEVELS, g)))
+    for B, Q, H in ((1, 90, 1), (16, 100, 1), (16, 100, 8)):
+        if not {'dsa_lstm_fwd', 'dsa_lstm_bwd'} & set(kernels):
+            break
+        args = lstm_kernel_args(step_inputs(gen, B, Q, H, True))
+        shape = f'B={B} Q={Q} H={H}'
+        if 'dsa_lstm_fwd' in kernels:
+            cases.append(('dsa_lstm_fwd', shape, lambda args=args:
+                          dsa_lstm_step_fwd(*args, MSDA_LEVELS)))
+        if 'dsa_lstm_bwd' in kernels:
+            gh, gc = (torch.randn((B, Q, 512), generator=gen, device='cuda')
+                      for _ in range(2))
+            cases.append(('dsa_lstm_bwd', shape,
+                          lambda args=args, gh=gh, gc=gc:
+                          dsa_lstm_step_bwd(*args, MSDA_LEVELS, gh, gc)))
     return cases
 
 
@@ -998,6 +1162,7 @@ def ab_times():
     (old, new, new, old)."""
     import torch
     from dvc_tpu_torch import ops
+    from dvc_tpu_torch.ops import dsa_tables
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(0)
     out = {}
@@ -1028,6 +1193,8 @@ def ab_times():
             bwd = ops.dsa_lstm_step_bwd if lstm else ops.dsa_sample_attend_bwd
             for B, Q, H in ((1, 90, 1), (16, 100, 1), (16, 100, 8)):
                 args = step_inputs(gen, B, Q, H, lstm)
+                if lstm:        # K9 and K10 alone, with VW given
+                    args = lstm_kernel_args(args)
                 outs = fwd(*args, MSDA_LEVELS)
                 outs = outs if isinstance(outs, tuple) else (outs,)
                 cot = tuple(torch.randn(o.shape, generator=gen, device='cuda')
@@ -1036,6 +1203,18 @@ def ab_times():
                     lambda: fwd(*args, MSDA_LEVELS), 20)
                 out[f'{kind}_bwd B={B} Q={Q} H={H}'] = cuda_ms(
                     lambda: bwd(*args, MSDA_LEVELS, *cot), 20)
+        # the table VW = value . Wc of K9 and K10 and its backward (a tree
+        # from before the table form has no backward)
+        for N, k, label in ((375, 512, 'B=1 H=1'), (16 * 375, 512, 'B=16 H=1'),
+                            (16 * 8 * 375, 64, 'B=16 H=8')):
+            x = torch.randn((N, k), generator=gen, device='cuda')
+            w = torch.randn((k, 512), generator=gen, device='cuda')
+            g = torch.randn((N, 512), generator=gen, device='cuda')
+            out[f'table_gemm value . Wc {label}'] = cuda_ms(
+                lambda: ops.table_gemm(x, w), 20)
+            if hasattr(dsa_tables, 'table_gemm_bwd'):
+                out[f'table_gemm_bwd value . Wc {label}'] = cuda_ms(
+                    lambda: dsa_tables.table_gemm_bwd(x, w, g), 20)
     print(json.dumps({'ab': out}))
     return out
 
@@ -1260,6 +1439,7 @@ def write_synthetic_run(root, opt, n_videos=TRAIN_VIDEOS, seed=0):
 def _counted():
     """(kernel wrappers by name, plain versions) of every counted kernel."""
     from dvc_tpu_torch import ops
+    from dvc_tpu_torch.ops import dsa_step, dsa_tables
     kernels = {'msda_fwd': ops.ms_deform_attn,
                'msda_bwd': ops.ms_deform_attn_bwd,
                'dsa_scan_fwd': ops.dsa_teacher_scan_fwd,
@@ -1268,10 +1448,13 @@ def _counted():
                'dsa_step_fwd': ops.dsa_sample_attend_fwd,
                'dsa_step_bwd': ops.dsa_sample_attend_bwd,
                'dsa_lstm_fwd': ops.dsa_lstm_step_fwd,
-               'dsa_lstm_bwd': ops.dsa_lstm_step_bwd}
+               'dsa_lstm_bwd': ops.dsa_lstm_step_bwd,
+               'table_gemm': dsa_tables.table_gemm,
+               'table_gemm_bwd': dsa_tables.table_gemm_bwd}
     plain = (ops.ms_deform_attn_ref, ops.dsa_teacher_scan_ref,
              ops.dsa_greedy_scan_ref, ops.sample_attend_ref,
-             ops.lstm_step_ref)
+             ops.lstm_step_ref, dsa_step.lstm_step_table_ref,
+             dsa_tables.table_gemm_ref, dsa_tables.table_gemm_bwd_ref)
     return kernels, plain
 
 
@@ -1494,11 +1677,16 @@ def phase_stepwise_train(tmp):
         print(f'[stepwise] kernel launches {launches}, plain-version calls '
               f'{plain}, scheduled-sampling tokens fed {fed}')
         bad = [k for k, v in losses.items() if not math.isfinite(v)]
+        # with lstm_fuse one table VW and one table backward per stepwise
+        # train step (epoch 1's 5), else none
+        tables = 5 * lstm_fuse
         if (bad or plain or fed < 1
                 or launches['dsa_scan_fwd'] != 5
                 or launches['dsa_scan_bwd'] != 5
                 or launches[fwd] < 5 or launches[fwd] != launches[bwd]
                 or launches[other[0]] or launches[other[1]]
+                or launches['table_gemm'] != tables
+                or launches['table_gemm_bwd'] != tables
                 or min(launches['msda_fwd'], launches['msda_bwd']) < 1):
             raise AssertionError(f'stepwise train path: losses {losses}, '
                                  f'launches {launches}, plain {plain}, fed '
@@ -1513,8 +1701,12 @@ def phase_stepwise_train(tmp):
         K = word_steps(batch)
         print(f'[stepwise] one B=1 step at ss_prob {SS_PROB}: {K} word '
               f'steps, {fwd} {launches[fwd]} and {bwd} {launches[bwd]} '
-              f'launches, plain-version calls {plain}')
-        if launches[fwd] != K or launches[bwd] != K or plain:
+              f'launches, table_gemm {launches["table_gemm"]} and '
+              f'table_gemm_bwd {launches["table_gemm_bwd"]}, plain-version '
+              f'calls {plain}')
+        if (launches[fwd] != K or launches[bwd] != K or plain
+                or launches['table_gemm'] != lstm_fuse
+                or launches['table_gemm_bwd'] != lstm_fuse):
             raise AssertionError(f'stepwise step: {launches}, K={K}')
         ms1, _ = time_steps(trainer, batch, opt.lr, 3, SS_PROB)
         batch16 = train_batch(opt, 16)
@@ -1582,12 +1774,14 @@ def phase_stepwise_serve(folder):
                         .abs()[same].max()) if same.any() else float('inf'))
         ms = timed(dc)
         print(f'[stepwise-serve] --dsa_greedy_fuse 0 --dsa_lstm_fuse '
-              f'{int(lstm_fuse)}: {fwd} launches {launches[fwd]}, greedy '
-              f'kernel {launches["dsa_greedy"]}, plain-version calls '
-              f'{plain}; captions identical to the fused kernel\'s {rows:.3f}'
-              f', cap_prob_eval max abs diff on those {lp_err:.2e}; B=16 '
+              f'{int(lstm_fuse)}: {fwd} launches {launches[fwd]}, table_gemm '
+              f'{launches["table_gemm"]}, greedy kernel '
+              f'{launches["dsa_greedy"]}, plain-version calls {plain}; '
+              f'captions identical to the fused kernel\'s {rows:.3f}, '
+              f'cap_prob_eval max abs diff on those {lp_err:.2e}; B=16 '
               f'caption_batch {ms:.1f} ms')
         if (launches[fwd] != K or launches['dsa_greedy'] or plain
+                or launches['table_gemm'] != lstm_fuse
                 or rows < 0.9 or lp_err > 1e-3):
             raise AssertionError('stepwise serving disagrees with the fused '
                                  'greedy decode')
@@ -1634,15 +1828,20 @@ def main():
     # the first shape of each kernel: MSDA forward at the encoder shape
     # (B=16, Q=375), greedy at H=1 (the recipe's cap_nheads), the training
     # kernels at B=1, the word-step kernels at the train shape (B=1, Q=90,
-    # H=1); the [kernels] lines above give every shape.  launches: the serve
-    # path's run for msda_fwd and dsa_greedy, the train path's for the
-    # others, the stepwise train runs' for the word-step kernels
+    # H=1; K9 and K10 alone with VW given), the table of K9 and K10 and its
+    # backward at B=1, H=1 (its products lie inside the TPU kernels'
+    # bodies); the [kernels] lines above give every shape.  launches: the
+    # serve path's run for msda_fwd and dsa_greedy, the train path's for the
+    # others, the stepwise train runs' for the word-step kernels and the
+    # table
     launches = {'msda_fwd': serve_launches['msda_fwd'],
                 'dsa_greedy': serve_launches['dsa_greedy'],
                 **{k: train_launches[k] for k in
                    ('msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd')},
                 **{k: step_launches[lstm][k]
-                   for lstm, names in STEPWISE.items() for k in names}}
+                   for lstm, names in STEPWISE.items() for k in names},
+                **{k: step_launches[True][k]
+                   for k in ('table_gemm', 'table_gemm_bwd')}}
     sources = {'msda_fwd': ('ms_deform_attn.cu', 'ms_deform_attn.py:309'),
                'msda_bwd': ('ms_deform_attn.cu', 'ms_deform_attn.py:551'),
                'dsa_scan_fwd': ('dsa_scan.cu', 'dsa_scan.py:149'),
@@ -1651,7 +1850,9 @@ def main():
                'dsa_step_fwd': ('dsa_step.cu', 'dsa_step.py:311'),
                'dsa_step_bwd': ('dsa_step.cu', 'dsa_step.py:324'),
                'dsa_lstm_fwd': ('dsa_step.cu', 'dsa_step.py:545'),
-               'dsa_lstm_bwd': ('dsa_step.cu', 'dsa_step.py:566')}
+               'dsa_lstm_bwd': ('dsa_step.cu', 'dsa_step.py:566'),
+               'table_gemm': ('dsa_tables.cu', 'dsa_step.py:545'),
+               'table_gemm_bwd': ('dsa_tables.cu', 'dsa_step.py:566')}
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda',
          'source': f'dvc_tpu_torch/csrc/{src}',
@@ -1660,7 +1861,8 @@ def main():
          'max_abs_err': max(r['max_abs_err'] for r in kernels[name]),
          'ms': kernels[name][0]['ms'], 'plain_ms': kernels[name][0]['plain_ms'],
          'bound_ms': kernels[name][0]['bound_ms'],
-         'bound_by': kernels[name][0]['bound_by'], 'library_ms': None}
+         'bound_by': kernels[name][0]['bound_by'],
+         'library_ms': kernels[name][0].get('library_ms')}
         for name, (src, tpu) in sources.items()]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': device['kind'], 'count': device['count']}}))

@@ -401,198 +401,13 @@ __device__ __forceinline__ float cell_bwd(float zi, float zf, float zg,
   return dc_tot * sf;
 }
 
-// dz (kQT, 4R) in shared memory times the transposed gate weights: for
-// u < R, store(q, u, dz[q] . W_hh[u]) (d h); for u = R + i, store(q, u,
-// dz[q] . ctx_w3[i]) (d ctx).  A warp per output unit, lanes along the 4R
-// gate columns (coalesced weight rows).  No barrier.
-template <typename Store>
-__device__ __forceinline__ void gates_backprop(const float* dz, int R, int HD,
-                                               const float* __restrict__ w_hh,
-                                               const float* __restrict__ ctx_w3,
-                                               Store store) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, R4 = 4 * R;
-  for (int u = warp; u < R + HD; u += kWarps) {
-    const float* w = u < R ? w_hh + (size_t)u * R4 : ctx_w3 + (size_t)(u - R) * R4;
-    float acc[kQT] = {};
-    for (int j = lane; j < R4; j += 32) {
-      const float wj = w[j];
-#pragma unroll
-      for (int q = 0; q < kQT; ++q) acc[q] = fmaf(dz[q * R4 + j], wj, acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < kQT; ++q) {
-      const float v = warp_sum(acc[q]);
-      if (lane == 0) store(q, u, v);
-    }
-  }
-}
-
-// shared buffers of the attention backward
-struct AttendGradSmem {
-  float* dctx;   // (kQT, pad4(H*Dh)) in: d ctx of the tile
-  float* dhvec;  // (kQT, pad4(A)) out: d hvec (zeroed here)
-  float* ddot;   // (NR) d wts, then d of the scores
-  float* du;     // (kBM, kBN) one row tile's d of the score preactivations
-  float* dcb;    // (A) block partial sums, added to
-  float* daw;    // (A)
-  float* dab;    // (1)
-};
-
-// backward of phases 3-5 for the cotangent g.dctx.  On entry: the tap
-// table, hvec and the softmax weights (in s.d) of the tile, after a barrier.
-// The value rows of video b receive atomics: dvalue_b (H, S, Dh), and G_b
-// (H, S, A), the lerp-weighted scatter of du onto the value rows, from which
-// dWc = value^T G (a tap is a lerp of two value rows, so sum taps^T du
-// equals it).  The scores are recomputed tile by tile to form
-// du = ddot * alpha_w * (1 - tanh^2) without storing the (rows, A) tanh
-// activations.  On return s.d holds d pos of every tap row; ends with a
-// barrier.  A query whose d ctx is zero adds exactly zero everywhere.
-__device__ __forceinline__ void attend_backward(const AttendArgs& a,
-                                                const AttendSmem& s,
-                                                const AttendGradSmem& g,
-                                                const float* value_b,
-                                                float* dvalue_b, float* G_b) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, rg = tid / 64;
-  const int H = a.H, Dh = a.Dh, LP = a.LP, S = a.S, A = a.A;
-  const int HLP = H * LP, NR = kQT * HLP, ldA = pad4(A), ldHD = pad4(H * Dh);
-
-  // dwts = taps . dctx (a warp per tap row), then
-  // ddot = wts * (dwts - sum_p wts * dwts) per (q, head)
-  for (int row = warp; row < NR; row += kWarps) {
-    const int q = row / HLP, hh = (row / LP) % H;
-    const float* v = value_b + (size_t)hh * S * Dh;
-    const float* dc = g.dctx + q * ldHD + hh * Dh;
-    const float wl = s.wlo[row], wh = s.whi[row];
-    const size_t il = (size_t)s.lo[row] * Dh, ih = (size_t)s.hi[row] * Dh;
-    float acc = 0.f;
-    for (int dh = lane; dh < Dh; dh += 32)
-      acc = fmaf(wl * v[il + dh] + wh * v[ih + dh], dc[dh], acc);
-    acc = warp_sum(acc);
-    if (lane == 0) g.ddot[row] = acc;
-  }
-  for (int i = tid; i < kQT * ldA; i += kThreads) g.dhvec[i] = 0.f;
-  __syncthreads();
-  for (int gi = tid; gi < kQT * H; gi += kThreads) {
-    float* dw = g.ddot + gi * LP;
-    const float* wts = s.d + gi * LP;
-    float sum = 0.f;
-    for (int p = 0; p < LP; ++p) sum += wts[p] * dw[p];
-    float tot = 0.f;
-    for (int p = 0; p < LP; ++p) {
-      const float dd = wts[p] * (dw[p] - sum);
-      dw[p] = dd;
-      tot += dd;
-    }
-    atomicAdd(g.dab, tot);
-  }
-  __syncthreads();
-
-  // the scores again, tile by tile: du, then dtaps = wts * dctx + du Wc^T,
-  // dvalue, G and dpos
-  for (int r0 = 0; r0 < NR; r0 += kBM) {
-    float acc[4][8];
-    score_tile(a, s, value_b, r0, 0, acc);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = tile_col(0, j);
-      if (col >= A) continue;
-      const float cbv = a.cb[col], awv = a.aw[col];
-      float dcb_p = 0.f, daw_p = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rr = rg * 4 + i, row = r0 + rr;
-        float du = 0.f;
-        if (row < NR) {
-          const int q = row / HLP, hh = (row / LP) % H;
-          const float t = tanhf((acc[i][j] + cbv) + s.hvec[q * ldA + col]);
-          const float dd = g.ddot[row];
-          du = dd * awv * (1.f - t * t);
-          daw_p += dd * t;
-          dcb_p += du;
-          atomicAdd(g.dhvec + q * ldA + col, du);
-          float* Gh = G_b + (size_t)hh * S * A + col;
-          atomicAdd(Gh + (size_t)s.lo[row] * A, s.wlo[row] * du);
-          atomicAdd(Gh + (size_t)s.hi[row] * A, s.whi[row] * du);
-        }
-        g.du[rr * kBN + col] = du;
-      }
-      atomicAdd(g.dcb + col, dcb_p);
-      atomicAdd(g.daw + col, daw_p);
-    }
-    __syncthreads();
-
-    float dpos_p[4] = {};
-    for (int n0 = 0; n0 < Dh; n0 += kBN) {
-      float dt[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dt[i][j] = 0.f;
-      for (int a0 = 0; a0 < A; a0 += kBK) {
-        for (int i = tid; i < kBK * kBN; i += kThreads) {  // Wc^T slice
-          const int kk = i / kBN, dh = n0 + i % kBN;
-          s.wc[i] = (a0 + kk < A && dh < Dh) ? a.cw[(size_t)dh * A + a0 + kk] : 0.f;
-        }
-        __syncthreads();
-        const int kmax = min(kBK, A - a0);
-        for (int kk = 0; kk < kmax; ++kk) {
-          float du[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) du[i] = g.du[(rg * 4 + i) * kBN + a0 + kk];
-          const float4 u4 = ld4(s.wc + kk * kBN + (threadIdx.x % 64) * 4);
-          const float4 v4 = ld4(s.wc + kk * kBN + 256 + (threadIdx.x % 64) * 4);
-          const float w[8] = {u4.x, u4.y, u4.z, u4.w, v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) dt[i][j] = fmaf(du[i], w[j], dt[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = r0 + rg * 4 + i;
-        if (row >= NR) continue;
-        const int q = row / HLP, hh = (row / LP) % H;
-        const float wts = s.d[row], wl = s.wlo[row], wh = s.whi[row];
-        const float* v = value_b + (size_t)hh * S * Dh;
-        float* dv = dvalue_b + (size_t)hh * S * Dh;
-        const size_t il = (size_t)s.lo[row] * Dh, ih = (size_t)s.hi[row] * Dh;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int dh = tile_col(n0, j);
-          if (dh >= Dh) continue;
-          const float t = dt[i][j] + wts * g.dctx[q * ldHD + hh * Dh + dh];
-          atomicAdd(dv + il + dh, wl * t);
-          atomicAdd(dv + ih + dh, wh * t);
-          dpos_p[i] += t * (v[ih + dh] - v[il + dh]);
-        }
-      }
-    }
-    // the 64 threads of a row group are warps 2*rg and 2*rg + 1; every read
-    // of this tile's softmax weights is done, so s.d takes its dpos
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float v = warp_sum(dpos_p[i]);
-      if (lane == 0) s.red[warp * kRed + i] = v;
-    }
-    __syncthreads();
-    if (tid < kBM && r0 + tid < NR) {
-      const int gr = tid / 4, i = tid % 4;
-      s.d[r0 + tid] = s.red[2 * gr * kRed + i] + s.red[(2 * gr + 1) * kRed + i];
-    }
-    __syncthreads();
-  }
-}
-
 // ----------------------------------------------------------------------------
 // the attention from the per-video table VW = value . Wc (B, H, S, A), for
 // the greedy decode (dsa_greedy.cu), the scan and its backward (dsa_scan.cu)
-// and the word-step backward K8 (dsa_step.cu).  A tap is the lerp of two
-// value rows, so taps . Wc is the same lerp of two VW rows: a score costs 2A
-// loads and A tanh, and no Dh x A product.  The other word-step kernels (K7,
-// K9, K10) keep the product form above (attend_scores, score_tile,
-// attend_backward).
+// and the word-step kernels K8, K9 and K10 (dsa_step.cu).  A tap is the lerp
+// of two value rows, so taps . Wc is the same lerp of two VW rows: a score
+// costs 2A loads and A tanh, and no Dh x A product.  The word step's forward
+// K7 keeps the product form above (attend_scores, score_tile).
 // ----------------------------------------------------------------------------
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -833,10 +648,10 @@ __device__ __forceinline__ void rows_dot_rows(const float* x, int ldx, int len,
     }
 }
 
-// gates_backprop with a thread per two output units (rows_dot_rows): for
-// u < R, store(q, u, dz[q] . W_hh[u]) (d h); for u = R + i, store(q, u,
-// dz[q] . ctx_w3[i]) (d ctx).  dz (QT, 4R) in shared memory; R even.  No
-// barrier.
+// dz (QT, 4R) in shared memory times the transposed gate weights, a thread
+// per two output units (rows_dot_rows): for u < R, store(q, u, dz[q] .
+// W_hh[u]) (d h); for u = R + i, store(q, u, dz[q] . ctx_w3[i]) (d ctx).
+// R even.  No barrier.
 template <int QT, typename Store>
 __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int HD,
                                                     const float* __restrict__ w_hh,
@@ -969,11 +784,11 @@ static __global__ void split_sum_kernel(const float* __restrict__ part, int spli
 
 // out (M, N) row-major (+)= X' Y' over T terms (see gemm_kernel).  work, if
 // not null, holds work_floats floats for split-K partial tiles: the terms
-// are cut into up to kGSplitMax chunks, as many as keep the grid within one
+// are cut into up to max_splits chunks, as many as keep the grid within one
 // wave of two blocks per SM.
 static cudaError_t gemm(Operand x, Operand y, int M, int N, int T, bool accumulate,
                         float* out, float* work, size_t work_floats,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int max_splits = kGSplitMax) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const int tiles = ((M + kGT - 1) / kGT) * ((N + kGT - 1) / kGT);
   int splits = 1;
@@ -981,7 +796,7 @@ static cudaError_t gemm(Operand x, Operand y, int M, int N, int T, bool accumula
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    splits = std::min(2 * sms / tiles, kGSplitMax);
+    splits = std::min(2 * sms / tiles, max_splits);
     splits = std::min(splits, std::max(1, T / (32 * kGK)));
     splits = (int)std::min((size_t)splits, work_floats / ((size_t)M * N));
     splits = std::max(splits, 1);
@@ -1013,9 +828,9 @@ static cudaError_t gemm(Operand x, Operand y, int M, int N, int T, bool accumula
 static cudaError_t outer_sum(const float* X, int ldx, const float* Y, int ldy,
                              int N, int m, int n, float* out,
                              cudaStream_t stream, float* work = nullptr,
-                             size_t work_floats = 0) {
+                             size_t work_floats = 0, int max_splits = kGSplitMax) {
   return gemm(Operand{X, ldx, true}, Operand{Y, ldy, true}, m, n, N, false, out,
-              work, work_floats, stream);
+              work, work_floats, stream, max_splits);
 }
 
 // table (N, n) = X (N, k) W (k, n), both row-major: the per-video table

@@ -15,7 +15,11 @@ head dispatches them:
   flag off.  Each step's sampling positions and hvec come from h here; the
   step itself is :func:`dvc_tpu_torch.ops.dsa_sample_attend_core` with the
   LSTM cell in tensor ops, or with ``lstm_fuse``
-  :func:`dvc_tpu_torch.ops.dsa_lstm_step_core`, the cell included.
+  :func:`dvc_tpu_torch.ops.dsa_step.dsa_lstm_step_table_core`, the cell
+  included, from the table ``VW = value_t . Wc`` that the head builds once
+  per forward pass (:func:`dvc_tpu_torch.ops.dsa_tables.dsa_value_table`;
+  its backward then runs once per backward pass, on the sum of the steps'
+  gradients).
 
 Parameter names follow the reference state_dict
 (``caption_head.{i}.embed``, ``.logit``, ``.core.rnn.weight_ih_l0``,
@@ -31,9 +35,10 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..ops import (dsa_greedy_scan, dsa_lstm_step_core,
-                   dsa_sample_attend_core, dsa_teacher_scan, greedy_mask_outputs,
-                   greedy_pick, lstm_cell, step_pos_hvec)
+from ..ops import (dsa_greedy_scan, dsa_sample_attend_core, dsa_teacher_scan,
+                   greedy_mask_outputs, greedy_pick, lstm_cell, step_pos_hvec)
+from ..ops.dsa_step import dsa_lstm_step_table_core
+from ..ops.dsa_tables import dsa_value_table
 from .deformable_transformer import dropout
 
 
@@ -163,17 +168,28 @@ class DSACaptionHead(nn.Module):
                      core.rnn.weight_hh_l0.T)
         return value_t, base_pos, scale_t, const_z, w_ih[:, :E].T, step_args
 
-    def _step(self, hoisted, z0, h, c, temporal_shapes):
+    def _value_table(self, hoisted):
+        """The stepwise path's per-video table VW = value_t . Wc
+        (B, H, S, A), built once per forward pass for the fused LSTM step
+        (``lstm_fuse``; else None)."""
+        if not self.cfg.lstm_fuse:
+            return None
+        value_t, _, _, _, _, (_, _, _, cw, *_) = hoisted
+        return dsa_value_table(value_t, cw)
+
+    def _step(self, hoisted, vw, z0, h, c, temporal_shapes):
         """One word step of the stepwise path (the JAX ``_make_core``'s
-        ``run``): z0 (B, Pq, 4R) the token's and query's share of the
-        preactivation, (h, c) (B, Pq, R) the state.  Returns (h, c)."""
+        ``run``): vw the table of ``_value_table``, z0 (B, Pq, 4R) the
+        token's and query's share of the preactivation, (h, c) (B, Pq, R)
+        the state.  Returns (h, c)."""
         value_t, base_pos, scale_t, _, _, (
             off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh) = hoisted
         pos, hvec = step_pos_hvec(h, base_pos, scale_t, off_w_h, h2att_w,
                                   h2att_b)
         if self.cfg.lstm_fuse:
-            return dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3,
-                                      w_hh, cw, cb, aw, ab, temporal_shapes)
+            return dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c,
+                                            ctx_w3, w_hh, cb, aw, ab,
+                                            temporal_shapes)
         ctx = dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
                                      temporal_shapes)         # (B, H, Pq, Dh)
         return lstm_cell(z0 + h @ w_hh
@@ -210,12 +226,13 @@ class DSACaptionHead(nn.Module):
         value_t, _, _, const_z, token_w, _ = hoisted
         B, Pq, R4 = const_z.shape
         token_z = self.embed.weight @ token_w                 # (V+1, 4R)
+        vw = self._value_table(hoisted)
         h = value_t.new_zeros((B, Pq, R4 // 4))
         c = torch.zeros_like(h)
         it = torch.zeros((B, Pq), dtype=torch.long, device=value_t.device)
         toks, lps = [], []
         for _ in range(self.cfg.max_caption_len):
-            h, c = self._step(hoisted, token_z[it] + const_z, h, c,
+            h, c = self._step(hoisted, vw, token_z[it] + const_z, h, c,
                               temporal_shapes)
             it, lp = greedy_pick(self.logit(h))
             toks.append(it.to(torch.int32))
@@ -261,6 +278,7 @@ class DSACaptionHead(nn.Module):
             hs = dropout(hs, cfg.drop_prob, gen)
             return torch.log_softmax(self.logit(hs), dim=-1)
 
+        vw = self._value_table(hoisted)
         h = value_t.new_zeros((B, Pq, R))
         c = torch.zeros_like(h)
         if ss_prob == 0:
@@ -270,7 +288,7 @@ class DSACaptionHead(nn.Module):
                      + const_z.reshape(n, 1, 4 * R)).reshape(B, Pq, K, -1)
             hs = []
             for k in range(K):
-                h, c = self._step(hoisted, z_all[:, :, k], h, c,
+                h, c = self._step(hoisted, vw, z_all[:, :, k], h, c,
                                   temporal_shapes)
                 hs.append(h)
             hs = dropout(torch.stack(hs, 2).reshape(n, K, R), cfg.drop_prob,
@@ -297,7 +315,7 @@ class DSACaptionHead(nn.Module):
                 fed = DSACaptionHead.fed_samples
                 fed[tok.device] = fed.get(tok.device, 0) + (u < ss_prob).sum()
             z0 = (self.embed(tok) @ token_w + const_n).reshape(B, Pq, -1)
-            h, c = self._step(hoisted, z0, h, c, temporal_shapes)
+            h, c = self._step(hoisted, vw, z0, h, c, temporal_shapes)
             out = dropout(h.reshape(n, R), cfg.drop_prob, gen)
             lp = torch.log_softmax(self.logit(out), dim=-1)
             lps.append(lp)

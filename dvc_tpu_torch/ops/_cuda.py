@@ -32,8 +32,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 # split-K chunks of the backwards' outer sums: their workspace holds up to
-# this many partial tiles (kGSplitMax in dsa_common.cuh)
+# this many partial tiles (kGSplitMax in dsa_common.cuh); the table GEMM's
+# backward up to TABLE_SPLITS (kTableSplits in dsa_tables.cu)
 WORK_SPLITS = 8
+TABLE_SPLITS = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of each entry point (see the extern "C" signatures in csrc/)
@@ -46,8 +48,9 @@ _SIGNATURES = {
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 8 + [_P],
     'dvc_dsa_step_bwd': [_P] * 19 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 9 + [_P],
-    'dvc_dsa_lstm_bwd': [_P] * 30 + [_I] * 10 + [_P],
+    'dvc_dsa_lstm_bwd': [_P] * 29 + [_I] * 10 + [_P],
     'dvc_dsa_table_gemm': [_P] * 3 + [_I] * 3 + [_P],
+    'dvc_dsa_table_gemm_bwd': [_P] * 6 + [_I] * 4 + [_P],
 }
 
 

@@ -14,13 +14,24 @@ LSTM cell (``dsa_lstm_step``), each with its backward.
   ab a 0-d tensor; the LSTM step adds z0 (B, Q, 4R), h and c (B, Q, R),
   ctx_w3 (H, Dh, 4R) and w_hh (R, 4R).  Their backwards are autograd
   through them (:func:`sample_attend_bwd_ref`, :func:`lstm_step_bwd_ref`).
-* :func:`dsa_sample_attend_core` / :func:`dsa_lstm_step_core` — the
+* :func:`lstm_step_table_ref` — the plain fused LSTM step in the kernels'
+  table form: vw = value_t . cw (B, H, S, A) in place of cw, each tap's
+  scores a lerp of two vw rows.  The caption head builds vw once per
+  forward pass (:func:`dvc_tpu_torch.ops.dsa_tables.dsa_value_table`), so
+  a step's gradient with respect to vw, G, is summed over the word steps
+  before the table's backward turns it into value_t's and cw's.
+* :func:`dsa_sample_attend_core` / :func:`dsa_lstm_step_table_core` — the
   differentiable wrappers the caption head calls: CUDA tensors go to the
   autograd Functions over the hand-written kernels of ``csrc/dsa_step.cu``
   (K7 ``dvc_dsa_step_fwd``, K8 ``dvc_dsa_step_bwd``, K9 ``dvc_dsa_lstm_fwd``,
   K10 ``dvc_dsa_lstm_bwd``); CPU tensors go to the plain versions.
+  :func:`dsa_lstm_step_core` is the fused step at the JAX boundary (cw
+  given): the table, then K9/K10, on the card; ``lstm_step_ref`` on the
+  CPU.
 * :func:`dsa_sample_attend_fwd` and the other three — the kernels alone:
   they take CUDA tensors only and count their launches.
+  :func:`dsa_lstm_step_grads` composes the table, K10 and the table's
+  backward into the 12 gradients at the JAX boundary.
 
 The sampling and attention arithmetic is the greedy decode's and the scan's
 (:func:`dvc_tpu_torch.ops.dsa_greedy.attend`).
@@ -32,10 +43,14 @@ import torch
 
 from . import _cuda
 from .dsa_greedy import _level_bounds, attend, lstm_cell
+from .dsa_tables import dsa_value_table, table_gemm, table_gemm_bwd
 
 STEP_NAMES = ('value_t', 'pos', 'hvec', 'cw', 'cb', 'aw', 'ab')
 LSTM_NAMES = ('value_t', 'pos', 'hvec', 'z0', 'h', 'c', 'ctx_w3', 'w_hh',
               'cw', 'cb', 'aw', 'ab')
+# the operands of K9 and K10 (and of lstm_step_table_ref)
+LSTM_TABLE_NAMES = ('value_t', 'vw', 'pos', 'hvec', 'z0', 'h', 'c', 'ctx_w3',
+                    'w_hh', 'cb', 'aw', 'ab')
 
 
 def level_pos(loc, temporal_shapes):
@@ -87,6 +102,49 @@ def lstm_step_ref(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw, ab,
 lstm_step_ref.calls = 0
 
 
+def _lerp_rows(table, pos, hib, s0):
+    """The border-mode lerp of two rows of table (B, H, S, W) at each
+    level-relative position of pos (B, H, Q, LP), as ``attend`` forms its
+    taps: (B, H, Q, LP, W)."""
+    B, H, S, W = table.shape
+    Q, LP = pos.shape[2], pos.shape[3]
+    zero = torch.zeros((), device=table.device)
+    i_lo = torch.floor(pos)
+    w_hi = pos - i_lo
+    idx_lo = torch.minimum(torch.maximum(i_lo, zero), hib).long() + s0
+    idx_hi = torch.minimum(torch.maximum(i_lo + 1.0, zero), hib).long() + s0
+
+    def gather(idx):
+        i = idx.reshape(B, H, Q * LP, 1).expand(B, H, Q * LP, W)
+        return torch.gather(table, 2, i).reshape(B, H, Q, LP, W)
+
+    return (1.0 - w_hi)[..., None] * gather(idx_lo) \
+        + w_hi[..., None] * gather(idx_hi)
+
+
+def lstm_step_table_ref(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
+                        aw, ab, temporal_shapes):
+    """Plain K9 in the table form: :func:`lstm_step_ref` with the table
+    vw = value_t . cw (B, H, S, A) in place of cw, so a tap's scores are
+    tanh(lerp of two vw rows + cb + hvec) . aw + ab.  Returns (h_new,
+    c_new).  Autograd through it gives K10's gradients: value_t's is the
+    context's term only, vw's is G."""
+    lstm_step_table_ref.calls += 1
+    hib, s0 = _level_bounds(temporal_shapes,
+                            pos.shape[-1] // len(temporal_shapes),
+                            value_t.device)
+    u = torch.tanh(_lerp_rows(vw, pos, hib, s0) + cb
+                   + hvec[:, None, :, None, :])
+    wts = torch.softmax(u @ aw + ab, dim=-1)                  # (B, H, Q, LP)
+    ctx = torch.einsum('bhqp,bhqpd->bhqd', wts,
+                       _lerp_rows(value_t, pos, hib, s0))
+    z = z0 + h @ w_hh + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3)
+    return lstm_cell(z, c)
+
+
+lstm_step_table_ref.calls = 0
+
+
 def _grads_ref(fn, ops, temporal_shapes, cotangents):
     with torch.enable_grad():
         ops = [torch.as_tensor(t).detach().requires_grad_() for t in ops]
@@ -108,6 +166,13 @@ def lstm_step_bwd_ref(*args):
     operands, temporal_shapes, gh, gc.  Returns the 12 gradients."""
     *ops, temporal_shapes, gh, gc = args
     return _grads_ref(lstm_step_ref, ops, temporal_shapes, (gh, gc))
+
+
+def lstm_step_table_bwd_ref(*args):
+    """Plain K10: autograd through :func:`lstm_step_table_ref`.  ``args`` =
+    its 12 operands, temporal_shapes, gh, gc.  Returns the 12 gradients."""
+    *ops, temporal_shapes, gh, gc = args
+    return _grads_ref(lstm_step_table_ref, ops, temporal_shapes, (gh, gc))
 
 
 def dsa_sample_attend_ref(value, offsets, ref_center, offset_scale, hvec,
@@ -140,14 +205,16 @@ def dsa_lstm_step_ref(value, offsets, ref_center, offset_scale, hvec, z0, h,
 # the kernels
 # ----------------------------------------------------------------------------
 
-def _operands(names, args, temporal_shapes):
+def _operands(names, args, temporal_shapes, table=False):
     """Check the operands of a kernel launch; returns (dims, contiguous
-    operands with ab as a one-element device tensor)."""
+    operands with ab as a one-element device tensor).  ``table``: the
+    limits of the table-form kernels (K8, K9, K10)."""
     ops = dict(zip(names, args))
     dev = ops['value_t'].device
     if dev.type != 'cuda':
         raise ValueError('the word-step kernels take CUDA tensors; the plain '
-                         'versions are sample_attend_ref and lstm_step_ref')
+                         'versions are sample_attend_ref, lstm_step_ref and '
+                         'lstm_step_table_ref')
     ops['ab'] = torch.as_tensor(ops['ab'], dtype=torch.float32,
                                 device=dev).reshape(1)
     if any(t.dtype != torch.float32 or t.device != dev for t in ops.values()):
@@ -158,15 +225,19 @@ def _operands(names, args, temporal_shapes):
     A = ops['hvec'].shape[-1]
     R = ops['h'].shape[-1] if 'h' in ops else 0
     L = len(temporal_shapes)
-    expect = {'value_t': (B, H, S, Dh), 'pos': (B, H, Q, LP),
-              'hvec': (B, Q, A), 'cw': (Dh, A), 'cb': (A,), 'aw': (A,),
-              'ab': (1,), 'z0': (B, Q, 4 * R), 'h': (B, Q, R), 'c': (B, Q, R),
-              'ctx_w3': (H, Dh, 4 * R), 'w_hh': (R, 4 * R)}
+    expect = {'value_t': (B, H, S, Dh), 'vw': (B, H, S, A),
+              'pos': (B, H, Q, LP), 'hvec': (B, Q, A), 'cw': (Dh, A),
+              'cb': (A,), 'aw': (A,), 'ab': (1,), 'z0': (B, Q, 4 * R),
+              'h': (B, Q, R), 'c': (B, Q, R), 'ctx_w3': (H, Dh, 4 * R),
+              'w_hh': (R, 4 * R)}
     bad = [n for n, t in ops.items() if tuple(t.shape) != expect[n]]
     if bad or LP % L or sum(temporal_shapes) != S:
         raise ValueError(f'word-step kernel: inconsistent shapes of {bad}')
-    # K8 reads rows as float4: a view's storage offset may leave them
-    # unaligned, a copy does not
+    if table and (A > 512 or A % 4 or Dh % 4 or R % 4):
+        raise ValueError(f'word-step kernel: A = {A} must be at most 512, '
+                         f'and A, Dh = {Dh} and R = {R} multiples of 4')
+    # the table-form kernels read rows as float4: a view's storage offset
+    # may leave them unaligned, a copy does not
     tensors = [ops[n].contiguous() for n in names]
     return ((B, H, S, Dh, Q, LP, L, A, R),
             [t.clone() if t.data_ptr() % 16 else t for t in tensors])
@@ -206,7 +277,7 @@ def dsa_sample_attend_bwd(value_t, pos, hvec, cw, cb, aw, ab,
     the kernel ``dvc_dsa_step_bwd`` (K8), or an error."""
     ab_shape = torch.as_tensor(ab).shape
     dims, ops = _operands(STEP_NAMES, (value_t, pos, hvec, cw, cb, aw, ab),
-                          temporal_shapes)
+                          temporal_shapes, table=True)
     B, H, S, Dh, Q, LP, L, A, _ = dims
     dev = ops[0].device
     if tuple(g.shape) != (B, H, Q, Dh):
@@ -231,12 +302,13 @@ def dsa_sample_attend_bwd(value_t, pos, hvec, cw, cb, aw, ab,
 dsa_sample_attend_bwd.launches = 0
 
 
-def dsa_lstm_step_fwd(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
-                      ab, temporal_shapes):
-    """(h_new, c_new) by the kernel ``dvc_dsa_lstm_fwd`` (K9), or an
-    error."""
-    dims, ops = _operands(LSTM_NAMES, (value_t, pos, hvec, z0, h, c, ctx_w3,
-                                       w_hh, cw, cb, aw, ab), temporal_shapes)
+def dsa_lstm_step_fwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
+                      aw, ab, temporal_shapes):
+    """(h_new, c_new) of :func:`lstm_step_table_ref` by the kernel
+    ``dvc_dsa_lstm_fwd`` (K9), or an error."""
+    dims, ops = _operands(LSTM_TABLE_NAMES, (value_t, vw, pos, hvec, z0, h, c,
+                                             ctx_w3, w_hh, cb, aw, ab),
+                          temporal_shapes, table=True)
     B, H, S, Dh, Q, LP, L, A, R = dims
     dev = ops[0].device
     h_new, c_new = _empty(dev, B, Q, R), _empty(dev, B, Q, R)
@@ -251,28 +323,30 @@ def dsa_lstm_step_fwd(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
 dsa_lstm_step_fwd.launches = 0
 
 
-def dsa_lstm_step_bwd(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
-                      ab, temporal_shapes, gh, gc):
+def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
+                      aw, ab, temporal_shapes, gh, gc):
     """The 12 gradients of K9 for the cotangents gh, gc (B, Q, R) of
-    (h_new, c_new), by the kernel ``dvc_dsa_lstm_bwd`` (K10), or an
+    (h_new, c_new), in the order of its operands (value_t's the context's
+    term only; vw's G), by the kernel ``dvc_dsa_lstm_bwd`` (K10), or an
     error."""
     ab_shape = torch.as_tensor(ab).shape
-    dims, ops = _operands(LSTM_NAMES, (value_t, pos, hvec, z0, h, c, ctx_w3,
-                                       w_hh, cw, cb, aw, ab), temporal_shapes)
+    dims, ops = _operands(LSTM_TABLE_NAMES, (value_t, vw, pos, hvec, z0, h, c,
+                                             ctx_w3, w_hh, cb, aw, ab),
+                          temporal_shapes, table=True)
     B, H, S, Dh, Q, LP, L, A, R = dims
     dev = ops[0].device
     if tuple(gh.shape) != (B, Q, R) or tuple(gc.shape) != (B, Q, R):
         raise ValueError('word-step kernel: gh and gc must be (B, Q, R)')
     gh = gh.to(torch.float32).contiguous()
     gc = gc.to(torch.float32).contiguous()
-    outs = (_zeros(dev, B, H, S, Dh), _empty(dev, B, H, Q, LP),
-            _empty(dev, B, Q, A), _empty(dev, B, Q, 4 * R),
-            _empty(dev, B, Q, R), _empty(dev, B, Q, R),
-            _empty(dev, H, Dh, 4 * R), _empty(dev, R, 4 * R),
-            _empty(dev, Dh, A), _zeros(dev, A), _zeros(dev, A),
+    outs = (_zeros(dev, B, H, S, Dh), _zeros(dev, B, H, S, A),
+            _empty(dev, B, H, Q, LP), _empty(dev, B, Q, A),
+            _empty(dev, B, Q, 4 * R), _empty(dev, B, Q, R),
+            _empty(dev, B, Q, R), _empty(dev, H, Dh, 4 * R),
+            _empty(dev, R, 4 * R), _zeros(dev, A), _zeros(dev, A),
             _zeros(dev, 1))
-    work = _empty(dev, _cuda.WORK_SPLITS * max(R, H * Dh) * max(4 * R, A))
-    scratch = (_zeros(dev, B, H, S, A), _empty(dev, B, Q, H * Dh), work)
+    work = _empty(dev, _cuda.WORK_SPLITS * max(R, H * Dh) * 4 * R)
+    scratch = (_empty(dev, B, Q, H * Dh), work)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_lstm_bwd(
         *(t.data_ptr() for t in ops), gh.data_ptr(), gc.data_ptr(),
         _cuda.levels_array(temporal_shapes),
@@ -284,6 +358,22 @@ def dsa_lstm_step_bwd(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
 
 
 dsa_lstm_step_bwd.launches = 0
+
+
+def dsa_lstm_step_grads(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb,
+                        aw, ab, temporal_shapes, gh, gc):
+    """The 12 gradients at the JAX boundary (the operands of
+    :func:`lstm_step_ref`) for the cotangents gh, gc, on the card: the
+    table VW = value_t . cw (``table_gemm``), K10, and the table's backward
+    (``table_gemm_bwd``) for value_t's scores' term and cw's gradient."""
+    B, H, S, Dh = value_t.shape
+    rows = value_t.reshape(-1, Dh)
+    vw = table_gemm(rows, cw).reshape(B, H, S, -1)
+    dvalue, G, *rest = dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c,
+                                         ctx_w3, w_hh, cb, aw, ab,
+                                         temporal_shapes, gh, gc)
+    dx, dcw = table_gemm_bwd(rows, cw, G.reshape(-1, G.shape[-1]))
+    return (dvalue + dx.reshape(dvalue.shape), *rest[:7], dcw, *rest[7:])
 
 
 class DSASampleAttendFunction(torch.autograd.Function):
@@ -303,7 +393,8 @@ class DSASampleAttendFunction(torch.autograd.Function):
 
 
 class DSALSTMStepFunction(torch.autograd.Function):
-    """K9 forward, K10 backward; the last argument is the level table."""
+    """K9 forward, K10 backward, over the operands of
+    :func:`lstm_step_table_ref`; the last argument is the level table."""
 
     @staticmethod
     def forward(fctx, *args):
@@ -332,15 +423,30 @@ def dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
         tuple(temporal_shapes))
 
 
+def dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh,
+                             cb, aw, ab, temporal_shapes):
+    """One fused word step (sampling, attention, LSTM cell) from the table
+    vw = value_t . cw, differentiable (vw's gradient is G).  Returns
+    (h_new, c_new).  CPU tensors: the plain version
+    (:func:`lstm_step_table_ref`).  CUDA tensors: K9/K10 (f32) or an
+    error."""
+    if not value_t.is_cuda:
+        return lstm_step_table_ref(value_t, vw, pos, hvec, z0, h, c, ctx_w3,
+                                   w_hh, cb, aw, ab, temporal_shapes)
+    return DSALSTMStepFunction.apply(
+        value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb, aw,
+        torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
+
+
 def dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
                        ab, temporal_shapes):
-    """One fused word step (sampling, attention, LSTM cell) at the kernels'
-    boundary, differentiable.  Returns (h_new, c_new).  CPU tensors: the
-    plain version.  CUDA tensors: K9/K10 (f32) or an error."""
+    """One fused word step at the kernels' boundary with cw given,
+    differentiable.  Returns (h_new, c_new).  CPU tensors: the plain
+    version (:func:`lstm_step_ref`).  CUDA tensors: the table
+    (:func:`dsa_value_table`), then K9/K10 (f32), or an error."""
     if not value_t.is_cuda:
         return lstm_step_ref(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw,
                              cb, aw, ab, temporal_shapes)
-    return DSALSTMStepFunction.apply(
-        value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
-        torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
-
+    return dsa_lstm_step_table_core(value_t, dsa_value_table(value_t, cw), pos,
+                                    hvec, z0, h, c, ctx_w3, w_hh, cb, aw, ab,
+                                    temporal_shapes)

@@ -20,7 +20,12 @@ the word-step kernels (K7-K10) to the same: outputs within 1e-4 * max|ref|,
 gradients within 1e-3 * max|ref| + 1e-5; in these newer cases d alpha_b
 has the floor 5e-5 (``_grad_close``), the rounding of a sum of every tap
 row's term in no fixed order, and at the train widths the floors of
-chip_smoke's ``check_scan`` and ``check_step``.
+chip_smoke's ``check_scan`` and ``check_step``.  K9 and K10 take the table
+VW = value . Wc: they are held against the plain table-form step
+(``lstm_step_table_ref``) and, composed with the table GEMM and its
+backward, against the plain step at the JAX boundary; the table GEMM's
+backward against torch.einsum within 1e-5 * sqrt(terms) of each output's
+largest value.
 """
 import numpy as np
 import pytest
@@ -28,14 +33,19 @@ import torch
 
 from chip_smoke import near_integer, scan_positions
 from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan, dsa_greedy_scan_ref
-from dvc_tpu_torch.ops.dsa_tables import table_gemm
-from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, STEP_NAMES,
-                                        dsa_lstm_step_bwd, dsa_lstm_step_core,
-                                        dsa_lstm_step_fwd,
+from dvc_tpu_torch.ops.dsa_tables import (dsa_value_table, table_gemm,
+                                          table_gemm_bwd)
+from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, LSTM_TABLE_NAMES,
+                                        STEP_NAMES, dsa_lstm_step_bwd,
+                                        dsa_lstm_step_core, dsa_lstm_step_fwd,
+                                        dsa_lstm_step_grads,
+                                        dsa_lstm_step_table_core,
                                         dsa_sample_attend_bwd,
                                         dsa_sample_attend_core,
                                         dsa_sample_attend_fwd, lstm_step_bwd_ref,
-                                        lstm_step_ref, sample_attend_bwd_ref,
+                                        lstm_step_ref, lstm_step_table_bwd_ref,
+                                        lstm_step_table_ref,
+                                        sample_attend_bwd_ref,
                                         sample_attend_ref)
 from dvc_tpu_torch.ops.dsa_scan import (NAMES, dsa_teacher_scan,
                                         dsa_teacher_scan_bwd,
@@ -278,24 +288,42 @@ def test_step_kernels_match_plain(cuda, H, Q):
         assert _grad_close(name, a.grad, b)[0], name
 
 
+def _table_args(args):
+    """K9's and K10's operands from the JAX boundary's (``step_args`` with
+    ``lstm``): value_t, VW = value_t . cw (torch.einsum), then the rest
+    without cw."""
+    vw = torch.einsum('bhsd,da->bhsa', args[0], args[8])
+    return (args[0], vw) + tuple(args[1:8]) + tuple(args[9:])
+
+
 @pytest.mark.parametrize('H,Q', [(1, 13), (2, 8), (8, 3)])
 def test_lstm_step_kernels_match_plain(cuda, H, Q):
-    """K9 and K10 ((h', c') and their 12 gradients for both cotangents),
-    and autograd through the wrapper."""
+    """K9 and K10 with VW given ((h', c') and their 12 gradients, G among
+    them, for both cotangents) against the plain table-form step; K10
+    composed with the table and its backward (the 12 gradients at the JAX
+    boundary) and autograd through the wrapper, against the plain step."""
     rng = np.random.default_rng(300 + 10 * H + Q)
     ts = (12, 6)
     args = step_args(cuda, rng, H=H, Q=Q, ts=ts, lstm=True)
+    kargs = _table_args(args)
     launches = (dsa_lstm_step_fwd.launches, dsa_lstm_step_bwd.launches)
-    h_new, c_new = dsa_lstm_step_fwd(*args, ts)
+    h_new, c_new = dsa_lstm_step_fwd(*kargs, ts)
     gh, gc = torch.sin(3.0 * h_new), torch.cos(2.0 * c_new)
-    grads = dsa_lstm_step_bwd(*args, ts, gh, gc)
+    grads = dsa_lstm_step_bwd(*kargs, ts, gh, gc)
     torch.cuda.synchronize()
     assert (dsa_lstm_step_fwd.launches, dsa_lstm_step_bwd.launches) \
         == (launches[0] + 1, launches[1] + 1)
-    ref_h, ref_c = lstm_step_ref(*args, ts)
-    assert _close(h_new, ref_h, 1e-4)[0] and _close(c_new, ref_c, 1e-4)[0]
+    for ref_h, ref_c in (lstm_step_table_ref(*kargs, ts),
+                         lstm_step_ref(*args, ts)):
+        assert _close(h_new, ref_h, 1e-4)[0] and _close(c_new, ref_c, 1e-4)[0]
+    want = lstm_step_table_bwd_ref(*kargs, ts, gh, gc)
+    for name, a, b in zip(LSTM_TABLE_NAMES, grads, want):
+        assert a.shape == b.shape, name
+        ok, err = _grad_close(name, a, b)
+        assert ok, (name, err, float(b.abs().max()))
     want = lstm_step_bwd_ref(*args, ts, gh, gc)
-    for name, a, b in zip(LSTM_NAMES, grads, want):
+    for name, a, b in zip(LSTM_NAMES, dsa_lstm_step_grads(*args, ts, gh, gc),
+                          want):
         assert a.shape == b.shape, name
         ok, err = _grad_close(name, a, b)
         assert ok, (name, err, float(b.abs().max()))
@@ -306,18 +334,97 @@ def test_lstm_step_kernels_match_plain(cuda, H, Q):
         assert _grad_close(name, a.grad, b)[0], name
 
 
+def test_lstm_steps_share_one_table(cuda):
+    """Three fused steps on one VW (``dsa_value_table``, as the caption head
+    builds it once per forward pass): one table launch, one table backward
+    on the summed G, and the gradients of the plain steps on the table."""
+    rng = np.random.default_rng(350)
+    ts = (12, 6)
+    args = step_args(cuda, rng, H=2, Q=13, ts=ts, lstm=True)
+    launches = (table_gemm.launches, table_gemm_bwd.launches)
+
+    def run(table, step):
+        leaves = [t.clone().requires_grad_() for t in args]
+        value_t, cw = leaves[0], leaves[8]
+        vw = table(value_t, cw)
+        h, c = leaves[4], leaves[5]
+        for _ in range(3):
+            h, c = step(value_t, vw, *leaves[1:4], h, c, *leaves[6:8],
+                        *leaves[9:], ts)
+        ((h * torch.sin(3.0 * h.detach())).sum() + c.sum()).backward()
+        return [t.grad for t in leaves]
+
+    got = run(dsa_value_table, dsa_lstm_step_table_core)
+    torch.cuda.synchronize()
+    assert (table_gemm.launches, table_gemm_bwd.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    want = run(lambda v, w: torch.einsum('bhsd,da->bhsa', v, w),
+               lstm_step_table_ref)
+    for name, a, b in zip(LSTM_NAMES, got, want):
+        assert _grad_close(name, a, b)[0], name
+
+
+def test_lstm_step_kernels_refuse_what_they_do_not_implement(cuda):
+    """K9 and K10 take A <= 512 and A, Dh, R multiples of 4: their
+    wrappers raise outside those limits; K10 reads the gate weights' rows
+    as float4, so its wrapper copies a misaligned view (the gradients still
+    match) and its entry point refuses a misaligned pointer."""
+    from dvc_tpu_torch.ops import _cuda
+    rng = np.random.default_rng(360)
+    ts = (12, 6)
+    for kw in ({'A': 18}, {'Dh': 6}, {'R': 6}):
+        kargs = _table_args(step_args(cuda, rng, ts=ts, lstm=True, **kw))
+        with pytest.raises(ValueError):
+            dsa_lstm_step_fwd(*kargs, ts)
+    B, H, Q, Dh, A, R, S, LP = 2, 2, 13, 8, 16, 24, 18, 4
+    kargs = list(_table_args(step_args(cuda, rng, ts=ts, lstm=True)))
+    gh, gc = (_t(rng.standard_normal((B, Q, R)).astype(np.float32), cuda)
+              for _ in range(2))
+    want = lstm_step_table_bwd_ref(*kargs, ts, gh, gc)
+    buf = torch.empty(kargs[8].numel() + 1, device=cuda)      # w_hh
+    view = buf[1:].view(kargs[8].shape)
+    view.copy_(kargs[8])
+    assert view.data_ptr() % 16
+    kargs[8] = view
+    for name, a, b in zip(LSTM_TABLE_NAMES,
+                          dsa_lstm_step_bwd(*kargs, ts, gh, gc), want):
+        assert _grad_close(name, a, b)[0], name
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=cuda)
+
+    outs = (zeros(B, H, S, Dh), zeros(B, H, S, A), zeros(B, H, Q, LP),
+            zeros(B, Q, A), zeros(B, Q, 4 * R), zeros(B, Q, R), zeros(B, Q, R),
+            zeros(H, Dh, 4 * R), zeros(R, 4 * R), zeros(A), zeros(A), zeros(1),
+            zeros(B, Q, H * Dh), zeros(_cuda.WORK_SPLITS * R * 4 * R))
+    ab = kargs[11].reshape(1)
+    code = _cuda.lib().cdll.dvc_dsa_lstm_bwd(
+        *(t.data_ptr() for t in kargs[:11]), ab.data_ptr(), gh.data_ptr(),
+        gc.data_ptr(), _cuda.levels_array(ts),
+        *(t.data_ptr() for t in outs), B, H, S, Dh, Q, LP, len(ts), A, R,
+        outs[-1].numel(), _cuda.stream_ptr(cuda))
+    assert code == 1                                    # cudaErrorInvalidValue
+
+
 def test_step_kernels_at_the_recipe_width(cuda):
-    """K7-K10 at R = A = 512, Dh = 512, S = 375, LP = 16 on a few queries."""
+    """K7-K10 at R = A = 512, Dh = 512, S = 375, LP = 16 on a few queries
+    (K9 and K10 with VW given, and K10 composed with the table's
+    backward)."""
     rng = np.random.default_rng(400)
     ts = (200, 100, 50, 25)
     args = step_args(cuda, rng, B=1, H=1, Q=10, Dh=512, A=512, R=512, P=4,
                      ts=ts, lstm=True)
-    h_new, c_new = dsa_lstm_step_fwd(*args, ts)
+    kargs = _table_args(args)
+    h_new, c_new = dsa_lstm_step_fwd(*kargs, ts)
     ref_h, ref_c = lstm_step_ref(*args, ts)
     assert _close(h_new, ref_h, 1e-4)[0] and _close(c_new, ref_c, 1e-4)[0]
     gh, gc = torch.sin(3.0 * h_new), torch.cos(2.0 * c_new)
+    want = lstm_step_table_bwd_ref(*kargs, ts, gh, gc)
+    for name, a, b in zip(LSTM_TABLE_NAMES,
+                          dsa_lstm_step_bwd(*kargs, ts, gh, gc), want):
+        assert _grad_close(name, a, b)[0], name
     want = lstm_step_bwd_ref(*args, ts, gh, gc)
-    for name, a, b in zip(LSTM_NAMES, dsa_lstm_step_bwd(*args, ts, gh, gc),
+    for name, a, b in zip(LSTM_NAMES, dsa_lstm_step_grads(*args, ts, gh, gc),
                           want):
         assert _grad_close(name, a, b)[0], name
     step = args[:3] + args[8:]
@@ -541,3 +648,23 @@ def test_table_gemm_matches_einsum(cuda, N, k, n):
     want = torch.einsum('nk,km->nm', x, w)
     err = float((got - want).abs().max())
     assert err <= 1e-5 * k ** 0.5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize('N,k,n', [(375, 512, 512), (6000, 64, 512),
+                                   (37, 5, 3)])
+def test_table_gemm_backward_matches_einsum(cuda, N, k, n):
+    """The table GEMM's backward (dx = g . w^T, dw = x^T . g: the table VW's
+    backward, once per backward pass of the fused LSTM steps) against
+    torch.einsum, f32 with TF32 off: each within 1e-5 * sqrt(terms) of its
+    largest value."""
+    rng = np.random.default_rng(N + k + n + 1)
+    x, w, g = (_t(rng.standard_normal(s).astype(np.float32), cuda)
+               for s in ((N, k), (k, n), (N, n)))
+    launches = table_gemm_bwd.launches
+    dx, dw = table_gemm_bwd(x, w, g)
+    torch.cuda.synchronize()
+    assert table_gemm_bwd.launches == launches + 1
+    for got, want, terms in ((dx, torch.einsum('nm,km->nk', g, w), n),
+                             (dw, torch.einsum('nk,nm->km', x, g), N)):
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * terms ** 0.5 * float(want.abs().max()), err

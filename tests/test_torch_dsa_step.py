@@ -34,10 +34,11 @@ from dvc_tpu.ops.dsa_step import dsa_sample_attend as jax_sample_attend
 from dvc_tpu.ops.dsa_step import dsa_sample_attend_ref as jax_sample_ref
 from dvc_tpu_torch.ops.dsa_step import (
     LSTM_NAMES, STEP_NAMES, dsa_lstm_step_bwd, dsa_lstm_step_core,
-    dsa_lstm_step_fwd, dsa_lstm_step_ref, dsa_sample_attend_bwd,
-    dsa_sample_attend_core, dsa_sample_attend_fwd, dsa_sample_attend_ref,
-    level_pos, lstm_step_bwd_ref, lstm_step_ref, sample_attend_bwd_ref,
-    sample_attend_ref)
+    dsa_lstm_step_fwd, dsa_lstm_step_ref, dsa_lstm_step_table_core,
+    dsa_sample_attend_bwd, dsa_sample_attend_core, dsa_sample_attend_fwd,
+    dsa_sample_attend_ref, level_pos, lstm_step_bwd_ref, lstm_step_ref,
+    lstm_step_table_ref, sample_attend_bwd_ref, sample_attend_ref)
+from dvc_tpu_torch.ops.dsa_tables import dsa_value_table
 
 TS = (12, 6)
 FWD = dict(rtol=1e-5, atol=1e-5)
@@ -163,8 +164,10 @@ def test_lstm_step_backward_matches_jax_kernel_vjp(H):
     h_new, c_new = lstm_step_ref(*targs, TS)
     gh = np.sin(3.0 * to_numpy(h_new)).astype(np.float32)
     gc = np.cos(2.0 * to_numpy(c_new)).astype(np.float32)
-    with pytest.raises(ValueError):
-        dsa_lstm_step_bwd(*targs, TS, to_torch(gh), to_torch(gc))
+    vw = dsa_value_table(targs[0], targs[8])
+    with pytest.raises(ValueError):         # the kernel takes CUDA tensors
+        dsa_lstm_step_bwd(targs[0], vw, *targs[1:8], *targs[9:], TS,
+                          to_torch(gh), to_torch(gc))
     got = lstm_step_bwd_ref(*targs, TS, to_torch(gh), to_torch(gc))
     jops = [jnp.asarray(a) for a in ops]
     jops[1] = jops[1].reshape(B, Hh, Q * LP)
@@ -224,15 +227,22 @@ def test_border_taps_out_of_range():
 
 def test_core_wrappers_are_the_plain_versions_on_the_cpu():
     """dsa_*_core on CPU tensors run the plain versions (autograd through
-    them), so the caption head's stepwise path is the plain step there."""
+    them), so the caption head's stepwise path is the plain step there; the
+    table form's wrapper runs the plain table-form step, never K9."""
     ops = [to_torch(a) for a in boundary(make_inputs(seed=7, R=8),
                                          lstm=True)]
     step = ops[:3] + ops[8:]
-    calls = (sample_attend_ref.calls, lstm_step_ref.calls)
+    calls = (sample_attend_ref.calls, lstm_step_ref.calls,
+             lstm_step_table_ref.calls, dsa_lstm_step_fwd.launches)
     np.testing.assert_array_equal(
         to_numpy(dsa_sample_attend_core(*step, TS)),
         to_numpy(sample_attend_ref(*step, TS)))
     for a, b in zip(dsa_lstm_step_core(*ops, TS), lstm_step_ref(*ops, TS)):
         np.testing.assert_array_equal(to_numpy(a), to_numpy(b))
-    assert (sample_attend_ref.calls, lstm_step_ref.calls) == \
-        (calls[0] + 2, calls[1] + 2)
+    table_ops = [ops[0], dsa_value_table(ops[0], ops[8])] + ops[1:8] + ops[9:]
+    for a, b in zip(dsa_lstm_step_table_core(*table_ops, TS),
+                    lstm_step_table_ref(*table_ops, TS)):
+        np.testing.assert_array_equal(to_numpy(a), to_numpy(b))
+    assert (sample_attend_ref.calls, lstm_step_ref.calls,
+            lstm_step_table_ref.calls, dsa_lstm_step_fwd.launches) == \
+        (calls[0] + 2, calls[1] + 2, calls[2] + 2, calls[3])

@@ -1,6 +1,7 @@
 """The per-video table form of the LSTM-DSA attention, which the CUDA kernels
-K4 and K5 (the scan and its backward), K6 (greedy decode) and K8 (the word
-step's backward) use, held against the JAX package on the CPU.
+K4 and K5 (the scan and its backward), K6 (greedy decode), K8 (the word
+step's backward) and K9/K10 (the fused LSTM word step) use, held against
+the JAX package on the CPU.
 
 A plain-PyTorch mirror of the kernels' decomposition lives here (never on
 the port's path):
@@ -19,7 +20,11 @@ The teacher-forcing scan built on that step is held against the JAX oracle
 ``dsa_teacher_scan_ref`` (forward) and ``jax.vjp`` of it (the 13
 gradients); the greedy loop against ``dsa_greedy_scan_ref``; one step's
 backward (K8's function) against ``jax.vjp`` of the JAX word step's custom
-VJP with its Pallas kernels in interpret mode.  numpy inputs from a seed,
+VJP with its Pallas kernels in interpret mode.  The port's own table form of
+the fused LSTM step (``lstm_step_table_ref`` on ``dsa_value_table``, the
+caption head's CPU route) is held against ``jax.vjp`` of the JAX fused
+step's custom VJP in interpret mode, and the table GEMM's plain backward
+against autograd.  numpy inputs from a seed,
 H = 1, 2 and 8, LP = 4, ragged Q, positions past both borders of each level
 (where the two taps clamp to one row).  Tolerance rtol 2e-4, atol 1e-6
 (f32, sums in another order).
@@ -34,11 +39,15 @@ from torch_port import to_numpy, to_torch  # noqa: I100 (sets torch threads)
 
 from dvc_tpu.ops.dsa_greedy import dsa_greedy_scan_ref as jax_greedy_ref
 from dvc_tpu.ops.dsa_scan import dsa_teacher_scan_ref as jax_scan_ref
-from dvc_tpu.ops.dsa_step import _dsa_core
+from dvc_tpu.ops.dsa_step import _dsa_core, _dsa_lstm_core
 from dvc_tpu_torch.ops.dsa_greedy import (_level_bounds, greedy_pick,
                                           lstm_cell, step_pos_hvec)
 from dvc_tpu_torch.ops.dsa_scan import NAMES
-from dvc_tpu_torch.ops.dsa_tables import table_gemm, table_gemm_ref
+from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, lstm_step_ref,
+                                        lstm_step_table_ref)
+from dvc_tpu_torch.ops.dsa_tables import (dsa_value_table, table_gemm,
+                                          table_gemm_bwd, table_gemm_bwd_ref,
+                                          table_gemm_ref)
 
 RTOL, ATOL = 2e-4, 1e-6
 TS = (12, 6)       # two levels; P = 2, so LP = 4
@@ -281,6 +290,60 @@ def test_table_step_backward_matches_jax_kernel_vjp(H, Q):
                                    atol=atol.get(name, ATOL), err_msg=name)
 
 
+@pytest.mark.parametrize('H,Q', [(1, 5), (2, 9), (8, 3)])
+def test_table_lstm_step_matches_jax_kernel_vjp(H, Q):
+    """K9's and K10's function in the table form: ``lstm_step_table_ref``
+    on VW = value . Wc from ``dsa_value_table`` (the plain table under
+    autograd, one call) against ``jax.vjp`` of the JAX fused word step's
+    custom VJP (``_dsa_lstm_core``, its Pallas kernels in interpret mode):
+    (h', c') and the 12 gradients at the JAX boundary, value's and Wc's
+    through the table's chain rule (the context's term of value plus
+    G . Wc^T, and value^T G).  Unit-scale cotangents of (h', c'); d alpha_b
+    has the floor of ``test_table_step_backward_matches_jax_kernel_vjp``
+    over its terms' rounding."""
+    rng = np.random.default_rng(60 + 10 * H + Q)
+    B, Dh, A, P, R = 2, 8, 16, 2, 12
+    LP = len(TS) * P
+
+    def f(*s, scale=1.0):
+        return (rng.standard_normal(s) * scale).astype(np.float32)
+
+    pos = _base_pos(rng, B, H, Q, P)
+    below, above = _clamped_rows(pos)
+    assert below > 0 and above > 0
+    args = (f(B, H, sum(TS), Dh), pos, f(B, Q, A, scale=0.5),
+            f(B, Q, 4 * R, scale=0.5), f(B, Q, R, scale=0.5),
+            f(B, Q, R, scale=0.5), f(H, Dh, 4 * R, scale=0.2),
+            f(R, 4 * R, scale=0.2), f(Dh, A, scale=0.3), f(A, scale=0.1),
+            f(A, scale=0.3), np.float32(0.05))
+    leaves = [to_torch(a).requires_grad_() for a in args]
+    calls = (table_gemm_ref.calls, lstm_step_table_ref.calls)
+    vw = dsa_value_table(leaves[0], leaves[8])
+    out = lstm_step_table_ref(leaves[0], vw, *leaves[1:8], *leaves[9:], TS)
+    assert (table_gemm_ref.calls, lstm_step_table_ref.calls) == \
+        (calls[0] + 1, calls[1] + 1)
+    jops = [jnp.asarray(a) for a in args]
+    jops[1] = jops[1].reshape(B, H, Q * LP)
+    want_out, vjp = jax.vjp(
+        lambda *a: _dsa_lstm_core(*a, TS, Q, True, 'float32'), *jops)
+    for a, b in zip(out, want_out):
+        np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=RTOL,
+                                   atol=ATOL)
+    cot = (f(B, Q, R), f(B, Q, R))
+    got = torch.autograd.grad(out, leaves, [to_torch(c) for c in cot])
+    # d alpha_b's terms, one per tap row (alpha_b broadcast to every row)
+    rows = to_torch(args[11]).expand(B, H, Q, LP).clone().requires_grad_()
+    terms, = torch.autograd.grad(
+        lstm_step_ref(*map(to_torch, args[:11]), rows, TS), rows,
+        [to_torch(c) for c in cot])
+    atol = {'ab': max(ATOL, 2.0 ** -18 * terms.numel() ** 0.5
+                      * float(terms.abs().mean()))}
+    for name, a, b in zip(LSTM_NAMES, got, vjp(tuple(map(jnp.asarray, cot)))):
+        np.testing.assert_allclose(to_numpy(a).reshape(np.shape(b)),
+                                   np.asarray(b), rtol=RTOL,
+                                   atol=atol.get(name, ATOL), err_msg=name)
+
+
 def greedy_args(H, seed, B=2, Dh=8, Q=5, A=16, R=8, V=130, E=12, P=2):
     rng = np.random.default_rng(seed)
 
@@ -331,10 +394,39 @@ def test_table_gemm_takes_the_plain_product_on_the_cpu(N, k, n):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize('N,k,n', [(37, 8, 16), (131, 12, 32), (1, 5, 3)])
+def test_table_gemm_backward_matches_autograd(N, k, n):
+    """The table GEMM's backward, (g . w^T, x^T . g), takes its plain
+    version on the CPU, never the kernel, and equals autograd through the
+    plain product; ``dsa_value_table``'s gradients on the CPU are the
+    same."""
+    rng = np.random.default_rng(N + 1)
+    x = rng.standard_normal((N, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    g = rng.standard_normal((N, n)).astype(np.float32)
+    calls, launches = table_gemm_bwd_ref.calls, table_gemm_bwd.launches
+    got = table_gemm_bwd(to_torch(x), to_torch(w), to_torch(g))
+    assert (table_gemm_bwd_ref.calls, table_gemm_bwd.launches) == \
+        (calls + 1, launches)
+    leaves = [to_torch(a).requires_grad_() for a in (x, w)]
+    want = torch.autograd.grad(torch.einsum('nk,km->nm', *leaves), leaves,
+                               to_torch(g))
+    value = to_torch(x).reshape(1, 1, N, k).requires_grad_()
+    cw = to_torch(w).requires_grad_()
+    table = torch.autograd.grad(dsa_value_table(value, cw), (value, cw),
+                                to_torch(g).reshape(1, 1, N, n))
+    for a, b, c in zip(got, want, table):
+        np.testing.assert_allclose(to_numpy(a), to_numpy(b), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(to_numpy(c).reshape(a.shape), to_numpy(b),
+                                   rtol=RTOL, atol=ATOL)
+
+
 def test_phase_split_edits_match_the_sources():
     """Each edit of chip_smoke.py's phase split of the redesigned kernels
-    (K4, K5, K6, K8; one phase's code taken out of a copy of csrc/) finds
-    its text exactly once in the sources, so the split's variants build."""
+    (K4, K5, K6, K8, K9, K10; one phase's code taken out of a copy of
+    csrc/) finds its text exactly once in the sources, so the split's
+    variants build."""
     import os
     import chip_smoke
     from dvc_tpu_torch.ops import _cuda
