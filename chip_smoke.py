@@ -13,8 +13,14 @@ Phases (one or more lines each; the last line is the JSON verdict):
    version on the card at the serving and training paths' shapes (TF32
    off), with errors, CUDA-event times and each kernel's bound (bytes over
    the HBM rate or f32 operations over the CUDA cores' peak); the tables'
-   GEMM and its backward (the table VW = value . Wc of K9 and K10) against
-   torch.einsum; the scan also at cap_nheads 8, the word-step kernels
+   GEMM and its backward (the table VW = value . Wc of K9 and K10, and
+   embed . token_w) and the weight gradients' outer sums that K5, K8 and
+   K10 run inside their launches (``[kernels] outer_sum``, through the
+   library's ``dvc_dsa_gemm``) against torch.einsum, each beside
+   torch.matmul and bounded at 3xTF32 on the tensor cores (the GEMM's
+   design; the f32 bound printed beside it), the outer sums also in units
+   of their products' size against one-pass TF32; the scan also at
+   cap_nheads 8, the word-step kernels
    (K7-K10; K9 and K10 with VW given, K10's gradients composed with the
    table's backward) at the stepwise path's train (B=1, Q=90) and serve
    (B=16, Q=100, H=1 and 8) shapes, to the scan's tolerances
@@ -100,6 +106,21 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean milliseconds of device time of ``fn()``: its kernels' durations
+    under ``torch.profiler`` (1 warm-up), apart from the host's time to
+    launch them, which ``cuda_ms`` includes where the host is the slower."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
 
 
 # --------------------------------------------------------------------------
@@ -195,6 +216,7 @@ def greedy_agreement(tok, lp, ref_tok, ref_lp, margin, thr=1e-3):
 # full 700 W): HBM bytes/s and float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12     # dense, on the tensor cores
 
 
 def bound(n_bytes, flops):
@@ -203,6 +225,15 @@ def bound(n_bytes, flops):
     and its operations over the f32 peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def tc_bound(n_bytes, flops):
+    """(least ms, what bounds it) of a GEMM on the tensor cores at f32
+    accuracy (3xTF32: three TF32 products for each f32 one): the larger of
+    the bytes over the HBM rate and 3 x its operations over the TF32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOP_PER_S * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -573,18 +604,22 @@ def check_table_gemm(gen, N, k, n, label):
     err = float((got - want).abs().max())
     tol = 1e-5 * k ** 0.5 * float(want.abs().max())
     ms = cuda_ms(lambda: table_gemm(x, w), 20)
+    dev_ms = device_ms(lambda: table_gemm(x, w), 20)
     plain_ms = cuda_ms(lambda: torch.einsum('nk,km->nm', x, w), 20)
     library_ms = cuda_ms(lambda: torch.matmul(x, w), 20)
+    lib_dev_ms = device_ms(lambda: torch.matmul(x, w), 20)
     bound_ms, bound_by = bound(nbytes(x, w, got), 2.0 * N * k * n)
+    tc_ms, tc_by = tc_bound(nbytes(x, w, got), 2.0 * N * k * n)
     print(f'[kernels] table_gemm {label} ({N} x {k}) . ({k} x {n}): max_abs_err '
-          f'{err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms plain (einsum) '
-          f'{plain_ms:.4f} ms library (torch.matmul) {library_ms:.4f} ms bound '
-          f'{bound_ms:.4f} ms ({bound_by})')
+          f'{err:.3e} (tol {tol:.3e}) kernel {ms:.4f} ms (device {dev_ms:.4f}) '
+          f'plain (einsum) {plain_ms:.4f} ms library (torch.matmul) '
+          f'{library_ms:.4f} ms (device {lib_dev_ms:.4f}) bound 3xTF32 '
+          f'{tc_ms:.4f} ms ({tc_by}; f32 {bound_ms:.4f} ms, {bound_by})')
     if not err <= tol:
         raise AssertionError(f'table_gemm {label}: error {err} > {tol}')
     return {'N': N, 'k': k, 'n': n, 'max_abs_err': err, 'ms': ms,
             'plain_ms': plain_ms, 'library_ms': library_ms,
-            'bound_ms': bound_ms, 'bound_by': bound_by}
+            'bound_ms': tc_ms, 'bound_by': tc_by, 'f32_bound_ms': bound_ms}
 
 
 def check_table_gemm_bwd(gen, N, k, n, label):
@@ -611,20 +646,216 @@ def check_table_gemm_bwd(gen, N, k, n, label):
     tols = [1e-5 * t ** 0.5 * float(b.abs().max())
             for t, b in zip((n, N), want)]
     ms = cuda_ms(lambda: table_gemm_bwd(x, w, g), 20)
+    dev_ms = device_ms(lambda: table_gemm_bwd(x, w, g), 20)
     plain_ms = cuda_ms(plain, 20)
-    matmul_ms = cuda_ms(lambda: (torch.matmul(g, w.T), torch.matmul(x.T, g)),
-                        20)
+
+    def matmuls():
+        return torch.matmul(g, w.T), torch.matmul(x.T, g)
+
+    matmul_ms, matmul_dev_ms = cuda_ms(matmuls, 20), device_ms(matmuls, 20)
     bound_ms, bound_by = bound(nbytes(x, w, g, *got), 4.0 * N * k * n)
+    tc_ms, tc_by = tc_bound(nbytes(x, w, g, *got), 4.0 * N * k * n)
     print(f'[kernels] table_gemm_bwd {label} ({N} x {k}) . ({k} x {n}): '
           f'max_abs_err dx {errs[0]:.3e} (tol {tols[0]:.3e}) dw '
-          f'{errs[1]:.3e} (tol {tols[1]:.3e}) kernel {ms:.4f} ms plain '
-          f'(einsum) {plain_ms:.4f} ms two torch.matmul {matmul_ms:.4f} ms '
-          f'bound {bound_ms:.4f} ms ({bound_by})')
+          f'{errs[1]:.3e} (tol {tols[1]:.3e}) kernel {ms:.4f} ms (device '
+          f'{dev_ms:.4f}) plain (einsum) {plain_ms:.4f} ms two torch.matmul '
+          f'{matmul_ms:.4f} ms (device {matmul_dev_ms:.4f}) bound 3xTF32 '
+          f'{tc_ms:.4f} ms ({tc_by}; f32 {bound_ms:.4f} ms, {bound_by})')
     if not all(e <= t for e, t in zip(errs, tols)):
         raise AssertionError(f'table_gemm_bwd {label}: errors {errs} > {tols}')
     return {'N': N, 'k': k, 'n': n, 'max_abs_err': max(errs), 'ms': ms,
-            'plain_ms': plain_ms, 'library_ms': None, 'bound_ms': bound_ms,
-            'bound_by': bound_by}
+            'plain_ms': plain_ms, 'library_ms': None, 'bound_ms': tc_ms,
+            'bound_by': tc_by, 'f32_bound_ms': bound_ms}
+
+
+# dsa::gemm reached directly: the outer sums and G . Wc^T run inside K5, K8
+# and K10, which have no entry point of their own for them, so the library
+# exports dsa::gemm as dvc_dsa_gemm.  A tree from before that export (the
+# parent's, in an A/B) gets a probe of the same signature, built from that
+# tree's csrc/ into dvc_tpu_torch/_build/probe/<hash>/.
+_PROBE_SRC = r"""
+#include "dsa_common.cuh"
+extern "C" int dvc_probe_gemm(const float* x, int ldx, int x_by_term, const float* y,
+                              int ldy, int y_by_term, int M, int N, int T, int accumulate,
+                              float* out, float* work, long long work_floats,
+                              void* stream) {
+  return (int)dsa::gemm(dsa::Operand{x, ldx, x_by_term != 0},
+                        dsa::Operand{y, ldy, y_by_term != 0}, M, N, T, accumulate != 0,
+                        out, work, (size_t)work_floats, (cudaStream_t)stream);
+}
+"""
+_PROBE = {}
+
+
+def gemm_probe():
+    """dsa::gemm behind ``dvc_probe_gemm`` (the signature of
+    ``dvc_dsa_gemm``), built from this checkout's csrc/ at first call."""
+    import ctypes
+    import hashlib
+    from dvc_tpu_torch.ops import _cuda
+    if 'fn' not in _PROBE:
+        h = hashlib.sha256((_PROBE_SRC + ' '.join(_cuda.NVCC_FLAGS)).encode())
+        for f in sorted(os.listdir(_cuda.CSRC)):
+            with open(os.path.join(_cuda.CSRC, f), 'rb') as fh:
+                h.update(f.encode() + fh.read())
+        out = os.path.join(_cuda.BUILD_ROOT, 'probe', h.hexdigest()[:16])
+        lib = os.path.join(out, 'libprobe.so')
+        if not os.path.exists(lib):
+            os.makedirs(out, exist_ok=True)
+            src, tmp = os.path.join(out, 'probe.cu'), f'{lib}.{os.getpid()}.tmp'
+            with open(src, 'w') as f:
+                f.write(_PROBE_SRC)
+            proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-shared',
+                                   '-I', _cuda.CSRC, '-o', tmp, src],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f'gemm probe: nvcc failed:\n{proc.stdout}'
+                                   f'{proc.stderr}')
+            os.replace(tmp, lib)
+        fn = ctypes.CDLL(lib).dvc_probe_gemm
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, I, I, P, I, I, I, I, I, I, P, P, ctypes.c_longlong, P]
+        fn.restype = I
+        _PROBE['fn'] = fn
+    return _PROBE['fn']
+
+
+def gemm_fn():
+    """The C function (x, ldx, x_by_term, y, ldy, y_by_term, M, N, T,
+    accumulate, out, work, work_floats, stream) -> CUDA error code that runs
+    dsa::gemm (csrc/dsa_gemm.cuh): the library's ``dvc_dsa_gemm``, else
+    the probe."""
+    from dvc_tpu_torch.ops import _cuda
+    cdll = _cuda.lib().cdll
+    return cdll.dvc_dsa_gemm if hasattr(cdll, 'dvc_dsa_gemm') else gemm_probe()
+
+
+def outer_sum_work(X, Y):
+    """The split-K workspace that the kernels give out (m, n) = X^T Y: the
+    GEMM's own rule (an older tree: the 8 partial tiles it allowed)."""
+    import torch
+    from dvc_tpu_torch.ops import _cuda
+    (rows, m), n = X.shape, Y.shape[1]
+    if hasattr(_cuda, 'gemm_work'):
+        return _cuda.gemm_work(X.device, (m, n, rows))
+    return torch.empty(_cuda.WORK_SPLITS * m * n, device=X.device)
+
+
+def run_outer_sum(X, Y, out, work):
+    """out (m, n) = X (rows, m)^T Y (rows, n) by dsa::gemm's outer_sum, as
+    K5, K8 and K10 run it (both operands along the terms), on the current
+    stream; raises on a refused launch."""
+    import torch
+    (rows, m), n = X.shape, Y.shape[1]
+    code = gemm_fn()(X.data_ptr(), X.stride(0), 1, Y.data_ptr(), Y.stride(0), 1,
+                     m, n, rows, 0, out.data_ptr(), work.data_ptr(),
+                     work.numel(), torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f'dsa::gemm outer sum: CUDA error {code}')
+    return out
+
+
+# the error of an f32 GEMM in units of each output's products: |out - X'Y'|
+# (the product in f64) over the root-sum-square of its T products
+# X'[i, t] Y'[t, j].  One-pass TF32 rounds each operand to 10 mantissa bits
+# (2^-11 of its value), so each product errs by ~4e-4 of itself and the
+# largest element's sum by ~1e-3 of this unit at every T; 3xTF32 keeps
+# 2^-21 an operand and errs by its f32 accumulation, which grows with the
+# length of a split-K chunk (gemm_plan caps it at 2,048 terms).  The limit
+# lies between the two (PERF.md, the shared GEMM's findings).
+GEMM_PRODUCT_TOL = 2e-4
+
+
+def product_err(got, xp, yp):
+    """Largest error of ``got`` = xp (M, T) @ yp (T, N) in units of its
+    products (``GEMM_PRODUCT_TOL``), against the f64 product on the card."""
+    x, y = xp.double(), yp.double()
+    rss = ((x * x) @ (y * y)).sqrt()
+    return float(((got.double() - x @ y).abs() / rss.clamp_min(1e-30)).max())
+
+
+def tf32_matmul(xp, yp):
+    """xp @ yp by torch.matmul with TF32 allowed (one pass): the control
+    that the GEMM checks must tell from f32."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return torch.matmul(xp, yp)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# the weight gradients' outer sums at the phase-3 shapes: (label, rows, m,
+# n, sums of that shape a launch); K5 at B=16, Q=90, K=29 (41,760 rows;
+# value^T G over B*S = 6,000, as K8's at B=16, Q=100, H=1), K10 at B=16,
+# Q=100 (1,600 rows)
+OUTER_SUMS = (('K5 hs_prev^T dz, ctx^T dz', 41760, 512, 2048, 2),
+              ('K5 hs_prev^T dhvec', 41760, 512, 512, 1),
+              ('K5 hs_prev^T doff', 41760, 512, 16, 1),
+              ('K5 value^T G, K8 value^T G', 6000, 512, 512, 1),
+              ('K10 h^T dz, ctx^T dz', 1600, 512, 2048, 2))
+
+
+def check_outer_sum(gen, rows, m, n, label):
+    """One outer sum out (m, n) = X^T Y over ``rows`` rows by dsa::gemm as
+    the kernels run it (``run_outer_sum``), against torch.einsum on the
+    same inputs: max abs error <= 1e-5 * sqrt(rows) * max|ref| (the
+    tolerance of ``check_table_gemm_bwd``), and in units of its products
+    (``product_err``) within GEMM_PRODUCT_TOL, which torch.matmul with
+    one-pass TF32 on the same operands must exceed; torch.matmul(X.T, Y)
+    timed beside it as a yardstick (library_ms, TF32 off), used nowhere in
+    the port."""
+    import torch
+    X = torch.randn((rows, m), generator=gen, device='cuda')
+    Y = torch.randn((rows, n), generator=gen, device='cuda')
+    out = torch.empty((m, n), device='cuda')
+    work = outer_sum_work(X, Y)
+    run_outer_sum(X, Y, out, work)
+    want = torch.einsum('nk,nm->km', X, Y)
+    err = float((out - want).abs().max())
+    tol = 1e-5 * rows ** 0.5 * float(want.abs().max())
+    unit_err = product_err(out, X.T, Y)
+    tf32_err = product_err(tf32_matmul(X.T, Y), X.T, Y)
+    ms = cuda_ms(lambda: run_outer_sum(X, Y, out, work), 10)
+    plain_ms = cuda_ms(lambda: torch.einsum('nk,nm->km', X, Y), 10)
+    library_ms = cuda_ms(lambda: torch.matmul(X.T, Y), 10)
+    bound_ms, bound_by = bound(nbytes(X, Y, out), 2.0 * rows * m * n)
+    tc_ms, tc_by = tc_bound(nbytes(X, Y, out), 2.0 * rows * m * n)
+    print(f'[kernels] outer_sum {label} ({rows} x {m})^T ({rows} x {n}): '
+          f'max_abs_err {err:.3e} (tol {tol:.3e}), in product units '
+          f'{unit_err:.2e} (tol {GEMM_PRODUCT_TOL:.0e}; one-pass TF32 '
+          f'{tf32_err:.2e}) kernel {ms:.4f} ms plain (einsum) {plain_ms:.4f} '
+          f'ms library (torch.matmul) {library_ms:.4f} ms bound 3xTF32 '
+          f'{tc_ms:.4f} ms ({tc_by}; f32 {bound_ms:.4f} ms, {bound_by})')
+    if not err <= tol or not unit_err <= GEMM_PRODUCT_TOL < tf32_err:
+        raise AssertionError(f'outer_sum {label}: error {err} > {tol}, or in '
+                             f'product units {unit_err} against TF32\'s '
+                             f'{tf32_err} (limit {GEMM_PRODUCT_TOL})')
+    return {'rows': rows, 'm': m, 'n': n, 'max_abs_err': err, 'ms': ms,
+            'plain_ms': plain_ms, 'library_ms': library_ms,
+            'bound_ms': tc_ms, 'bound_by': tc_by, 'f32_bound_ms': bound_ms}
+
+
+def check_outer_sums(gen):
+    """Every shape of OUTER_SUMS, then K5's five sums at B=16 together;
+    raises after the last line if any shape failed its checks."""
+    res, failed = [], []
+    for label, rows, m, n, _ in OUTER_SUMS:
+        try:
+            res.append(check_outer_sum(gen, rows, m, n, label))
+        except AssertionError as e:
+            failed.append(str(e))
+    if failed:
+        raise AssertionError('; '.join(failed))
+    k5 = [(r, c) for r, (label, *_, c) in zip(res, OUTER_SUMS)
+          if label.startswith('K5')]
+    total = {key: sum(c * r[key] for r, c in k5)
+             for key in ('ms', 'library_ms', 'bound_ms', 'f32_bound_ms')}
+    print(f'[kernels] outer_sum K5 B=16, its five sums: kernel '
+          f'{total["ms"]:.4f} ms library (torch.matmul) '
+          f'{total["library_ms"]:.4f} ms bound 3xTF32 {total["bound_ms"]:.4f} '
+          f'ms (f32 {total["f32_bound_ms"]:.4f} ms)')
+    return res
 
 
 def step_inputs(gen, B, Q, H, lstm, R=512, A=512, d=512, P=4):
@@ -762,13 +993,37 @@ def check_step(gen, B, Q, H, lstm):
              'bound_by': bwd_bound[1]})
 
 
+def phase_gemm(gen=None):
+    """The GEMM's lines of phase 3 (alone: ``python3 chip_smoke.py --gemm``):
+    value . Wc at the word-step shapes (the stepwise path trains at B=1,
+    H=1), embed . token_w, the table's backward, and the outer sums."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if gen is None:
+        gen = torch.Generator(device='cuda').manual_seed(0)
+    with torch.inference_mode():
+        return {
+            'table_gemm': [
+                check_table_gemm(gen, 375, 512, 512, 'value . Wc, B=1 H=1'),
+                check_table_gemm(gen, 16 * 375, 512, 512, 'value . Wc, B=16 H=1'),
+                check_table_gemm(gen, 16 * 8 * 375, 64, 512, 'value . Wc, B=16 H=8'),
+                check_table_gemm(gen, 1608, 512, 2048, 'embed . token_w')],
+            'table_gemm_bwd': [
+                check_table_gemm_bwd(gen, 375, 512, 512, 'value . Wc, B=1 H=1'),
+                check_table_gemm_bwd(gen, 16 * 375, 512, 512, 'value . Wc, B=16 H=1'),
+                check_table_gemm_bwd(gen, 16 * 8 * 375, 64, 512, 'value . Wc, B=16 H=8')],
+            'outer_sum': check_outer_sums(gen)}
+
+
 def phase_kernels():
     """Every kernel against its plain version at the main paths' shapes:
     serving (MSDA forward and greedy at B=16) and training (MSDA forward and
     backward at B=1, scan at B=1 and B=16 with Q = 3 layers x 30 gt pairs
     and K = 29 word steps, and at B=1 with cap_nheads 8); the word-step
     kernels at the stepwise path's train shape (B=1, Q=90, H=1) and serve
-    shape (B=16, Q=100, H=1 and 8).  Returns {kernel: [result per shape]}."""
+    shape (B=16, Q=100, H=1 and 8); the tables' GEMM, its backward and the
+    weight gradients' outer sums at those paths' shapes.  Returns {kernel:
+    [result per shape]}."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -778,18 +1033,7 @@ def phase_kernels():
                             check_msda(gen, 1, 375)],
                'dsa_greedy': [check_greedy(gen, 16, 100, 1),
                               check_greedy(gen, 16, 100, 8)]}
-    with torch.inference_mode():
-        # value . Wc at the word-step shapes (the stepwise path trains at
-        # B=1, H=1), then embed . token_w
-        res['table_gemm'] = [
-            check_table_gemm(gen, 375, 512, 512, 'value . Wc, B=1 H=1'),
-            check_table_gemm(gen, 16 * 375, 512, 512, 'value . Wc, B=16 H=1'),
-            check_table_gemm(gen, 16 * 8 * 375, 64, 512, 'value . Wc, B=16 H=8'),
-            check_table_gemm(gen, 1608, 512, 2048, 'embed . token_w')]
-        res['table_gemm_bwd'] = [
-            check_table_gemm_bwd(gen, 375, 512, 512, 'value . Wc, B=1 H=1'),
-            check_table_gemm_bwd(gen, 16 * 375, 512, 512, 'value . Wc, B=16 H=1'),
-            check_table_gemm_bwd(gen, 16 * 8 * 375, 64, 512, 'value . Wc, B=16 H=8')]
+    res.update(phase_gemm(gen))
     res['msda_bwd'] = [check_msda_bwd(gen, 1, 375), check_msda_bwd(gen, 1, 100)]
     scans = [check_scan(gen, 1, 90, 29, 1), check_scan(gen, 16, 90, 29, 1),
              check_scan(gen, 1, 90, 29, 8)]
@@ -905,8 +1149,8 @@ SPLITS = {
     },
     'current': {
         'dsa_greedy': ('dsa_greedy.cu', [
-            ('tables VW, TW', [('dsa_greedy.cu', '(e = row_table(value_t, cw, B * H * S, Dh, A, vw, st)) != cudaSuccess ||\n'
-                                '      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st)) != cudaSuccess',
+            ('tables VW, TW', [('dsa_greedy.cu', '(e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf)) != cudaSuccess ||\n'
+                                '      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf)) != cudaSuccess',
                                 'false')]),
             ('scores from VW', [('dsa_greedy.cu', '    attend_scores_table<QT>(at, sm, vw_b, ab);\n', '')]),
             ('ctx', [('dsa_greedy.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);',
@@ -918,7 +1162,7 @@ SPLITS = {
                          'cols_dot_rows<QT, LC>(sm.h, ldR, R, a.logit_w, a.V1, n0, acc);', '')]),
         ]),
         'dsa_scan_bwd': ('dsa_scan.cu', [
-            ('table VW', [('dsa_scan.cu', 'if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st)) != cudaSuccess) return (int)e;', '')]),
+            ('table VW', [('dsa_scan.cu', 'if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf)) != cudaSuccess) return (int)e;', '')]),
             ('scores from VW', [('dsa_scan.cu',
                                  '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
                                  '    attend_softmax_ctx<QT>(at, sm, value_b);\n    for (int i',
@@ -937,7 +1181,7 @@ SPLITS = {
                             ('dsa_scan.cu', 'G, A, BHS, Dh, A, dcw', 'G, A, 0, Dh, A, dcw')]),
         ]),
         'dsa_scan_fwd': ('dsa_scan.cu', [
-            ('table VW', [('dsa_scan.cu', '  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st);\n', '')]),
+            ('table VW', [('dsa_scan.cu', '  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, work_floats);\n', '')]),
             ('scores from VW', [('dsa_scan.cu',
                                  '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
                                  '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
@@ -950,7 +1194,7 @@ SPLITS = {
         ]),
         'dsa_step_bwd': ('dsa_step.cu', [
             ('table VW', [('dsa_step.cu',
-                           '    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st);\n',
+                           '    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf);\n',
                            '')]),
             ('scores from VW', [('dsa_step.cu',
                                  '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
@@ -1157,7 +1401,8 @@ def phase_split(spec):
 def ab_times():
     """Kernel-only CUDA-event times (ms) of every kernel at the phase-3
     shapes, plus the greedy decode at B=1 (a single caption_features
-    request), as one JSON line: the half of an A/B of two trees in one
+    request), and of the GEMM at every shape of ``phase_gemm``, as one JSON
+    line: the half of an A/B of two trees in one
     call.  Run ``python3 chip_smoke.py --ab`` from each tree's root in turns
     (old, new, new, old)."""
     import torch
@@ -1204,17 +1449,33 @@ def ab_times():
                 out[f'{kind}_bwd B={B} Q={Q} H={H}'] = cuda_ms(
                     lambda: bwd(*args, MSDA_LEVELS, *cot), 20)
         # the table VW = value . Wc of K9 and K10 and its backward (a tree
-        # from before the table form has no backward)
-        for N, k, label in ((375, 512, 'B=1 H=1'), (16 * 375, 512, 'B=16 H=1'),
-                            (16 * 8 * 375, 64, 'B=16 H=8')):
+        # from before the table form has no backward), embed . token_w, and
+        # the outer sums that K5, K8 and K10 run inside their launches
+        for N, k, n, label in ((375, 512, 512, 'value . Wc B=1 H=1'),
+                               (16 * 375, 512, 512, 'value . Wc B=16 H=1'),
+                               (16 * 8 * 375, 64, 512, 'value . Wc B=16 H=8'),
+                               (1608, 512, 2048, 'embed . token_w')):
             x = torch.randn((N, k), generator=gen, device='cuda')
-            w = torch.randn((k, 512), generator=gen, device='cuda')
-            g = torch.randn((N, 512), generator=gen, device='cuda')
-            out[f'table_gemm value . Wc {label}'] = cuda_ms(
+            w = torch.randn((k, n), generator=gen, device='cuda')
+            g = torch.randn((N, n), generator=gen, device='cuda')
+            out[f'table_gemm {label}'] = cuda_ms(
                 lambda: ops.table_gemm(x, w), 20)
-            if hasattr(dsa_tables, 'table_gemm_bwd'):
-                out[f'table_gemm_bwd value . Wc {label}'] = cuda_ms(
+            if hasattr(dsa_tables, 'table_gemm_bwd') and label[0] == 'v':
+                out[f'table_gemm_bwd {label}'] = cuda_ms(
                     lambda: dsa_tables.table_gemm_bwd(x, w, g), 20)
+            if N == 375:
+                # at B=1 the event times are the host's; the device's too
+                out[f'table_gemm {label} (device)'] = device_ms(
+                    lambda: ops.table_gemm(x, w), 20)
+                if hasattr(dsa_tables, 'table_gemm_bwd'):
+                    out[f'table_gemm_bwd {label} (device)'] = device_ms(
+                        lambda: dsa_tables.table_gemm_bwd(x, w, g), 20)
+        for label, rows, m, n, _ in OUTER_SUMS:
+            X = torch.randn((rows, m), generator=gen, device='cuda')
+            Y = torch.randn((rows, n), generator=gen, device='cuda')
+            res, work = torch.empty((m, n), device='cuda'), outer_sum_work(X, Y)
+            out[f'outer_sum {label}'] = cuda_ms(
+                lambda: run_outer_sum(X, Y, res, work), 10)
     print(json.dumps({'ab': out}))
     return out
 
@@ -1291,6 +1552,13 @@ def trace(label, fn):
     for name, us in top:
         print(f'[trace]   {us / 1e3:9.3f} ms  {us / window:.4f} of window  '
               f'{name[:90]}')
+    gemm = {n: us for n, us in per_name.items()
+            if 'gemm_kernel' in n or 'split_sum_kernel' in n}
+    if gemm:
+        outer = sum(us for n, us in gemm.items() if 'true, true>' in n)
+        print(f'[trace]   {sum(gemm.values()) / 1e3:9.3f} ms  dsa::gemm in all '
+              f'(tables, G . Wc^T, outer sums, split sums); the outer sums\' '
+              f'kernels (both operands along the terms) {outer / 1e3:.3f} ms')
 
 
 def phase_serve(dc):
@@ -1830,7 +2098,8 @@ def main():
     # kernels at B=1, the word-step kernels at the train shape (B=1, Q=90,
     # H=1; K9 and K10 alone with VW given), the table of K9 and K10 and its
     # backward at B=1, H=1 (its products lie inside the TPU kernels'
-    # bodies); the [kernels] lines above give every shape.  launches: the
+    # bodies; their bound is the 3xTF32 one that the GEMM is built for);
+    # the [kernels] lines above give every shape.  launches: the
     # serve path's run for msda_fwd and dsa_greedy, the train path's for the
     # others, the stepwise train runs' for the word-step kernels and the
     # table
@@ -1875,5 +2144,9 @@ if __name__ == '__main__':
     elif sys.argv[1:2] == ['--ab']:
         phase_device()
         ab_times()
+    elif sys.argv[1:2] == ['--gemm']:
+        phase_device()
+        phase_build()
+        phase_gemm()
     else:
         main()

@@ -12,7 +12,8 @@
 //   d    = tanh(taps Wc + cb + hvec) . alpha_w + alpha_b; wts = softmax_LP(d)
 //   ctx  = sum_p wts * taps                                      (Q, H*Dh)
 //
-// Every product is written here (no cuBLAS).  Activations are read from
+// Every product is written here (no cuBLAS); the GEMM of the tables and the
+// weight gradients is dsa_gemm.cuh's.  Activations are read from
 // shared memory as float4 (rows padded to 16 bytes); weights come from global
 // memory, where they stay L2-resident.  Positions stay level-relative f32 and
 // base_pos + off*scale_t is computed with __fmul_rn/__fadd_rn: an FMA would
@@ -24,6 +25,8 @@
 #include <math.h>
 
 #include <algorithm>
+
+#include "dsa_gemm.cuh"
 
 namespace dsa {
 
@@ -677,170 +680,6 @@ __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int 
 // host side
 // ----------------------------------------------------------------------------
 
-// The tiled f32 GEMM of the per-video tables, of dvalue's G . Wc^T and of
-// the weight gradients' outer sums: out (M, N) (+)= X' Y' summed over T
-// terms, X' (M, T) and Y' (T, N).  An operand is stored either along its
-// output axis (X (M, T) or Y (N, T): element (i, t) at p[i*ld + t]) or
-// along the terms (X (T, M) or Y (T, N): element (t, i) at p[t*ld + i]);
-// the callers use three of the four pairs (X along the terms goes with Y
-// along the terms only).
-// 128 x 128 output tiles, 256 threads of 8 x 8 outputs, 8-term slices of
-// both operands staged in shared memory while the next slice is fetched into
-// registers.  With a workspace, T is cut into fixed chunks (split-K) whose
-// partial tiles a second kernel adds in chunk order: deterministic.  The
-// kernels and the host helpers below are static: one copy per translation
-// unit (nvcc's stubs do not tell a nested anonymous namespace from the
-// file's own).
-constexpr int kGT = 128, kGK = 8, kGThreads = 256, kGSplitMax = 8;
-
-struct Operand {
-  const float* p;
-  int ld;
-  bool by_term;  // element (t, i) at p[t*ld + i]; else (i, t) at p[i*ld + t]
-};
-
-template <bool ByTerm>
-__device__ __forceinline__ float gemm_fetch(const float* __restrict__ p, int ld,
-                                            int e, int i0, int t0, int M, int t_end) {
-  const int t = ByTerm ? e / kGT : e % kGK, i = ByTerm ? e % kGT : e / kGK;
-  if (i0 + i >= M || t0 + t >= t_end) return 0.f;
-  return __ldg(p + (ByTerm ? (size_t)(t0 + t) * ld + i0 + i : (size_t)(i0 + i) * ld + t0 + t));
-}
-
-template <bool XByTerm, bool YByTerm>
-static __global__ void __launch_bounds__(kGThreads, 2)
-gemm_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, int ldy,
-            int M, int N, int T, int chunk, int accumulate, float* __restrict__ out) {
-  __shared__ __align__(16) float xs[kGK][kGT + 4];
-  __shared__ __align__(16) float ys[kGK][kGT + 4];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int i0 = blockIdx.y * kGT, j0 = blockIdx.x * kGT;
-  const int t_begin = blockIdx.z * chunk, t_end = min(T, t_begin + chunk);
-  constexpr int kPer = kGT * kGK / kGThreads;
-  float xr[kPer], yr[kPer], acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    xr[u] = gemm_fetch<XByTerm>(X, ldx, tid + u * kGThreads, i0, t_begin, M, t_end);
-    yr[u] = gemm_fetch<YByTerm>(Y, ldy, tid + u * kGThreads, j0, t_begin, N, t_end);
-  }
-  for (int t0 = t_begin; t0 < t_end; t0 += kGK) {
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int e = tid + u * kGThreads;
-      xs[XByTerm ? e / kGT : e % kGK][XByTerm ? e % kGT : e / kGK] = xr[u];
-      ys[YByTerm ? e / kGT : e % kGK][YByTerm ? e % kGT : e / kGK] = yr[u];
-    }
-    __syncthreads();
-    if (t0 + kGK < t_end) {
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        xr[u] = gemm_fetch<XByTerm>(X, ldx, tid + u * kGThreads, i0, t0 + kGK, M, t_end);
-        yr[u] = gemm_fetch<YByTerm>(Y, ldy, tid + u * kGThreads, j0, t0 + kGK, N, t_end);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kGK; ++k) {
-      const float4 a0 = ld4(&xs[k][ty * 4]), a1 = ld4(&xs[k][64 + ty * 4]);
-      const float4 b0 = ld4(&ys[k][tx * 4]), b1 = ld4(&ys[k][64 + tx * 4]);
-      const float x[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float y[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* o = out + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = i0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = j0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (c >= N) continue;
-      const size_t at = (size_t)r * N + c;
-      o[at] = accumulate ? o[at] + acc[i][j] : acc[i][j];
-    }
-  }
-}
-
-// out[i] (+)= sum_z part[z][i] in chunk order
-static __global__ void split_sum_kernel(const float* __restrict__ part, int splits,
-                                        size_t n, int accumulate,
-                                        float* __restrict__ out) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = accumulate ? out[i] : 0.f;
-    for (int z = 0; z < splits; ++z) s += part[(size_t)z * n + i];
-    out[i] = s;
-  }
-}
-
-// out (M, N) row-major (+)= X' Y' over T terms (see gemm_kernel).  work, if
-// not null, holds work_floats floats for split-K partial tiles: the terms
-// are cut into up to max_splits chunks, as many as keep the grid within one
-// wave of two blocks per SM.
-static cudaError_t gemm(Operand x, Operand y, int M, int N, int T, bool accumulate,
-                        float* out, float* work, size_t work_floats,
-                        cudaStream_t stream, int max_splits = kGSplitMax) {
-  if (M <= 0 || N <= 0) return cudaSuccess;
-  const int tiles = ((M + kGT - 1) / kGT) * ((N + kGT - 1) / kGT);
-  int splits = 1;
-  if (work != nullptr && T > 0) {
-    int dev = 0, sms = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    splits = std::min(2 * sms / tiles, max_splits);
-    splits = std::min(splits, std::max(1, T / (32 * kGK)));
-    splits = (int)std::min((size_t)splits, work_floats / ((size_t)M * N));
-    splits = std::max(splits, 1);
-  }
-  int chunk = ((T + splits - 1) / splits + kGK - 1) / kGK * kGK;
-  if (chunk == 0) chunk = kGK;
-  splits = T > 0 ? (T + chunk - 1) / chunk : 1;
-  const dim3 grid((N + kGT - 1) / kGT, (M + kGT - 1) / kGT, splits);
-  float* dst = splits > 1 ? work : out;
-  const int acc = splits > 1 ? 0 : (int)accumulate;
-  if (x.by_term && !y.by_term) return cudaErrorInvalidValue;  // no caller
-  if (x.by_term)
-    gemm_kernel<true, true><<<grid, kGThreads, 0, stream>>>(x.p, x.ld, y.p, y.ld, M, N, T, chunk, acc, dst);
-  else if (y.by_term)
-    gemm_kernel<false, true><<<grid, kGThreads, 0, stream>>>(x.p, x.ld, y.p, y.ld, M, N, T, chunk, acc, dst);
-  else
-    gemm_kernel<false, false><<<grid, kGThreads, 0, stream>>>(x.p, x.ld, y.p, y.ld, M, N, T, chunk, acc, dst);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return e;
-  const size_t n = (size_t)M * N;
-  const int blocks = (int)std::min((n + 255) / 256, (size_t)4096);
-  split_sum_kernel<<<blocks, 256, 0, stream>>>(work, splits, n, (int)accumulate, out);
-  return cudaGetLastError();
-}
-
-// out (m, n) = X^T Y over N rows: X (N, m), Y (N, n), row-major with leading
-// dimensions ldx, ldy (the weight gradients' reductions over (video, step,
-// query) rows); deterministic
-static cudaError_t outer_sum(const float* X, int ldx, const float* Y, int ldy,
-                             int N, int m, int n, float* out,
-                             cudaStream_t stream, float* work = nullptr,
-                             size_t work_floats = 0, int max_splits = kGSplitMax) {
-  return gemm(Operand{X, ldx, true}, Operand{Y, ldy, true}, m, n, N, false, out,
-              work, work_floats, stream, max_splits);
-}
-
-// table (N, n) = X (N, k) W (k, n), both row-major: the per-video table
-// value . Wc (N = B*H*S rows) and the vocabulary's embed . token_w
-static cudaError_t row_table(const float* X, const float* W, int N, int k, int n,
-                             float* table, cudaStream_t stream) {
-  return gemm(Operand{X, k, false}, Operand{W, n, true}, N, n, k, false, table,
-              nullptr, 0, stream);
-}
-
 // the attention operands that every kernel takes; base_pos, scale, off_w
 // and h2att are set by the kernels that start from the hidden state
 static bool fill_attend(AttendArgs* at, const float* value_t, const float* cw,
@@ -853,17 +692,6 @@ static bool fill_attend(AttendArgs* at, const float* value_t, const float* cw,
   at->H = H; at->S = S; at->Dh = Dh; at->Q = Q; at->LP = LP; at->P = LP / L;
   at->A = A; at->R = R;
   return make_levels(L, shapes, S, &at->lv);
-}
-
-// opt a kernel into `smem` bytes of dynamic shared memory, or refuse
-template <typename Kernel>
-static cudaError_t set_smem(Kernel kernel, size_t smem) {
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > (size_t)max_smem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 // the query tile of a (video, query tile) grid: kQT (8) queries; `largest`

@@ -19,7 +19,7 @@
 //   logits = h logit_w + logit_b;  tok = first argmax;  lp = max - logsumexp
 //
 // Two products are hoisted out of the step into per-launch tables, built
-// first by the tiled GEMM of dsa_common.cuh: VW = value_t Wc (B, H, S, A),
+// first by the 3xTF32 GEMM of dsa_gemm.cuh: VW = value_t Wc (B, H, S, A),
 // since a tap is the lerp of two value rows and so taps Wc is the same lerp
 // of two VW rows (attend_scores_table: 2A loads and A tanh per tap row, no
 // Dh x A product); and TW = embed token_w (V+1, 4R), so the fed-back
@@ -288,7 +288,8 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
 // (H, Dh, 4R) = (H*Dh, 4R) row-major; ab is one float in device memory.
 // All f32 and contiguous on the current device; tok (int32) and lp are
 // (B, K, Q).  Scratch: vw (B, H, S, A) and tw (V1, 4R), the tables built
-// here first.  shapes: host array of the L level lengths of value's S
+// here first, and work (work_floats floats) for their split-K partial tiles
+// (see dsa::gemm_as).  shapes: host array of the L level lengths of value's S
 // axis; LP = L * P.  Returns cudaGetLastError() of the launches, or
 // cudaErrorInvalidValue for shapes the kernel does not take.
 extern "C" int dvc_dsa_greedy(
@@ -298,8 +299,8 @@ extern "C" int dvc_dsa_greedy(
     const float* h2att_w, const float* h2att_b, const float* cw,
     const float* cb, const float* aw, const float* ctx_w3, const float* w_hh,
     const float* ab, const int* shapes, int* tok, float* lp, float* vw,
-    float* tw, int B, int H, int S, int Dh, int Q, int LP, int L, int A, int R,
-    int E, int V1, int K, void* stream) {
+    float* tw, float* work, int B, int H, int S, int Dh, int Q, int LP, int L, int A,
+    int R, int E, int V1, int K, int work_floats, void* stream) {
   GreedyArgs a;
   AttendArgs& at = a.at;
   if (!fill_attend(&at, value_t, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
@@ -320,8 +321,9 @@ extern "C" int dvc_dsa_greedy(
                              : set_smem(greedy_kernel<kQT>, smem);
   if (e != cudaSuccess) return (int)e;
   // the tables, once per launch
-  if ((e = row_table(value_t, cw, B * H * S, Dh, A, vw, st)) != cudaSuccess ||
-      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st)) != cudaSuccess)
+  const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
+  if ((e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf)) != cudaSuccess ||
+      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf)) != cudaSuccess)
     return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 2)

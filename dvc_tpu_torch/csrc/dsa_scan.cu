@@ -28,7 +28,7 @@
 // recomputes step k's attention and gates from (h_{k-1}, c_{k-1}) (the
 // caller passes hs and cs shifted by one step, zeros first), carries dh and
 // dc in shared memory, and writes dz.  The launch first builds the per-video
-// table VW = value_t Wc (B, H, S, A) with the tiled GEMM of dsa_common.cuh:
+// table VW = value_t Wc (B, H, S, A) with the 3xTF32 GEMM of dsa_gemm.cuh:
 // a tap is a lerp of two value rows, so taps Wc is the same lerp of two VW
 // rows, and the scores are recomputed from it (attend_scores_table, then
 // again per (query, column half) in attend_backward_table to form
@@ -40,8 +40,8 @@
 // per launch after the scan, and dpos takes it as (VW[hi] - VW[lo]) . du.
 // dbase and dscale belong to one block.  The per-step rows that the weight
 // gradients need (h_{k-1}, dz, ctx, dhvec, doff) are written out, and the
-// same tiled GEMM reduces them (split along the rows into fixed chunks
-// added in order, so deterministic):
+// same GEMM reduces them (split along the rows into fixed chunks added in
+// order, so deterministic):
 //
 //   dW_hh = h_prev^T dz    dctx_w3 = ctx^T dz    dh2att_w = h_prev^T dhvec
 //   doff_w = h_prev^T doff    dWc = value^T G     (sums over rows b, k, q)
@@ -423,7 +423,8 @@ bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_
 // (B, K, Q, 4R), off_w_h (H, R, LP), h2att_w (R, A), h2att_b (A), cw
 // (Dh, A), cb (A), aw (A), ab one float in device memory, ctx_w3
 // (H*Dh, 4R), w_hh (R, 4R); hs and cs (B, K, Q, R) are written.  Scratch:
-// vw (B, H, S, A), the table value . Wc built here first.  All f32,
+// vw (B, H, S, A), the table value . Wc built here first, and work
+// (work_floats floats) for its split-K partial tiles (see dsa::gemm_as).  All f32,
 // contiguous, on the current device; shapes is a host array of the L level
 // lengths.  Returns cudaGetLastError() of the launches, or
 // cudaErrorInvalidValue for shapes the kernel does not take.
@@ -432,8 +433,8 @@ extern "C" int dvc_dsa_scan_fwd(
     const float* z_all, const float* off_w_h, const float* h2att_w,
     const float* h2att_b, const float* cw, const float* cb, const float* aw,
     const float* ab, const float* ctx_w3, const float* w_hh, const int* shapes,
-    float* hs, float* cs, float* vw, int B, int H, int S, int Dh, int Q, int LP,
-    int L, int A, int R, int K, void* stream) {
+    float* hs, float* cs, float* vw, float* work, int B, int H, int S, int Dh, int Q,
+    int LP, int L, int A, int R, int K, int work_floats, void* stream) {
   ScanArgs a;
   if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
                           h2att_b, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
@@ -451,7 +452,7 @@ extern "C" int dvc_dsa_scan_fwd(
                              : set_smem(scan_fwd_kernel<kQT>, smem);
   if (e != cudaSuccess) return (int)e;
   // the table value . Wc, once per launch
-  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st);
+  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, work_floats);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 4)
@@ -471,8 +472,8 @@ extern "C" int dvc_dsa_scan_fwd(
 // dctx_w3 (H*Dh, 4R), dwhh (R, 4R) fully written.  Scratch: G (B, H, S, A)
 // zeroed by the caller, ctx_all (B, K, Q, H*Dh), dhvec_all (B, K, Q, A),
 // doff_all (B, K, Q, H*LP), vw (B, H, S, A) for the table value . Wc, and
-// work (work_floats floats, at most kGSplitMax (8) times the largest weight
-// gradient are used) for the outer sums' partial tiles.  dh2att_b equals
+// work (work_floats floats: dsa::gemm_plan's splits times the output of
+// each GEMM here, the largest of them) for split-K partial tiles.  dh2att_b equals
 // dcb.  A, Dh, R multiples of 4, A <= 512; every operand 16-byte aligned.
 extern "C" int dvc_dsa_scan_bwd(
     const float* value_t, const float* base_pos, const float* scale_t,
@@ -514,7 +515,8 @@ extern "C" int dvc_dsa_scan_bwd(
   if (e != cudaSuccess) return (int)e;
   const int BHS = B * H * S;
   // the table value . Wc, once per launch
-  if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st)) != cudaSuccess) return (int)e;
+  const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
+  if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf)) != cudaSuccess) return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 2)
     scan_bwd_kernel<2><<<grid, kThreads, smem, st>>>(a, o);
@@ -525,16 +527,14 @@ extern "C" int dvc_dsa_scan_bwd(
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   // the scores' share of dvalue, once per launch: dvalue += G . Wc^T
   if ((e = gemm(Operand{G, A, false}, Operand{cw, A, false}, BHS, Dh, A, true,
-                dvalue, nullptr, 0, st)) != cudaSuccess)
+                dvalue, work, wf, st)) != cudaSuccess)
     return (int)e;
   const int N = B * K * Q, HD = H * Dh, HLP = H * LP;
-  const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
-  float* w = wf > 0 ? work : nullptr;
-  if ((e = outer_sum(hs_prev, R, dz, 4 * R, N, R, 4 * R, dwhh, st, w, wf)) != cudaSuccess ||
-      (e = outer_sum(ctx_all, HD, dz, 4 * R, N, HD, 4 * R, dctx_w3, st, w, wf)) != cudaSuccess ||
-      (e = outer_sum(hs_prev, R, dhvec_all, A, N, R, A, dh2w, st, w, wf)) != cudaSuccess ||
-      (e = outer_sum(hs_prev, R, doff_all, HLP, N, R, HLP, doffw, st, w, wf)) != cudaSuccess ||
-      (e = outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, w, wf)) != cudaSuccess)
+  if ((e = outer_sum(hs_prev, R, dz, 4 * R, N, R, 4 * R, dwhh, st, work, wf)) != cudaSuccess ||
+      (e = outer_sum(ctx_all, HD, dz, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf)) != cudaSuccess ||
+      (e = outer_sum(hs_prev, R, dhvec_all, A, N, R, A, dh2w, st, work, wf)) != cudaSuccess ||
+      (e = outer_sum(hs_prev, R, doff_all, HLP, N, R, HLP, doffw, st, work, wf)) != cudaSuccess ||
+      (e = outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, wf)) != cudaSuccess)
     return (int)e;
   return 0;
 }

@@ -23,8 +23,8 @@
 // K8, K9 and K10 score from the per-video table VW = value_t Wc
 // (B, H, S, A): a tap is a lerp of two value rows, so taps . Wc is the same
 // lerp of two VW rows (attend_scores_table: 2A loads and A tanh per tap
-// row, no Dh x A product).  K8 builds VW in every launch with the tiled GEMM
-// of dsa_common.cuh.  K9 and K10 take it as an operand: VW does not change
+// row, no Dh x A product).  K8 builds VW in every launch with the 3xTF32 GEMM
+// of dsa_gemm.cuh.  K9 and K10 take it as an operand: VW does not change
 // across the word steps of one forward pass, so the caller builds it once
 // per pass (dvc_dsa_table_gemm, dsa_tables.cu) and its backward, G . Wc^T
 // into dvalue and dWc = value^T G (dvc_dsa_table_gemm_bwd), runs once per
@@ -44,7 +44,7 @@
 // sequential grid; here blocks run in parallel, so (as in K5) dvalue and G,
 // the lerp-weighted scatter of du onto the value rows, take float4 atomics;
 // dW_hh = h^T dz and dctx_w3 = ctx^T dz (K10) and dWc = sum_b value^T G (K8)
-// are reduced by the tiled outer_sum GEMM, and dcb, d alpha_w, d alpha_b are
+// are reduced by the GEMM's outer_sum (dsa_gemm.cuh), and dcb, d alpha_w, d alpha_b are
 // per-lane partial sums added with atomics.
 //
 // Bound on this card: f32 operations (the scores' taps . Wc, H*LP*Dh*A MACs
@@ -505,8 +505,8 @@ extern "C" int dvc_dsa_step_fwd(
 // (B, H, S, Dh), dcb (A), daw (A), dab (1) and the scratch G (B, H, S, A)
 // zeroed by the caller; dpos (B, H, Q, LP), dhvec (B, Q, A), dcw (Dh, A)
 // fully written.  Scratch: vw (B, H, S, A), the table value . Wc built here
-// first, and work (work_floats floats) for the outer sum's split-K partial
-// tiles (see dsa::gemm).  A <= 512, A and Dh multiples of 4; value_t, cb
+// first, and work (work_floats floats) for its GEMMs' split-K partial tiles
+// (see dsa::gemm_as).  A <= 512, A and Dh multiples of 4; value_t, cb
 // and aw 16-byte aligned (read as float4).
 extern "C" int dvc_dsa_step_bwd(
     const float* value_t, const float* pos, const float* hvec, const float* cw,
@@ -525,6 +525,7 @@ extern "C" int dvc_dsa_step_bwd(
   o.dcb = dcb; o.daw = daw; o.dab = dab;
   cudaStream_t st = (cudaStream_t)stream;
   const int BHS = B * H * S;
+  const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
   cudaError_t e = cudaSuccess;
   if (B > 0 && Q > 0) {
     // at most 8 queries a tile: a warp of the score backward owns a
@@ -535,7 +536,7 @@ extern "C" int dvc_dsa_step_bwd(
         : QT == 4 ? set_smem(step_bwd_kernel<4>, smem)
                   : set_smem(step_bwd_kernel<kQT>, smem);
     // the table value . Wc, once per launch
-    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st);
+    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((Q + QT - 1) / QT, B);
     if (QT == 2)
@@ -547,10 +548,10 @@ extern "C" int dvc_dsa_step_bwd(
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     // the scores' share of dvalue: dvalue += G . Wc^T
     e = gemm(Operand{G, A, false}, Operand{cw, A, false}, BHS, Dh, A, true, dvalue,
-             nullptr, 0, st);
+             work, wf, st);
     if (e != cudaSuccess) return (int)e;
   }
-  return (int)outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, work_floats);
+  return (int)outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, wf);
 }
 
 // K9: as dvc_dsa_step_fwd with vw (B, H, S, A), the table value_t . cw, in
@@ -618,7 +619,7 @@ extern "C" int dvc_dsa_lstm_bwd(
   o.dh = dh; o.dc = dc; o.ctx_all = ctx_all;
   cudaStream_t st = (cudaStream_t)stream;
   const int N = B * Q, HD = H * Dh;
-  const size_t wf = work_floats;
+  const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
   cudaError_t e = cudaSuccess;
   if (B > 0 && Q > 0) {
     // as K5: at most 8 queries a tile (a warp of the score backward owns a

@@ -15,6 +15,7 @@ non-zero code.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,33 +26,34 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_ROOT = os.path.join(_PKG, '_build')
 SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu', 'dsa_scan.cu', 'dsa_step.cu',
-           'dsa_tables.cu')
+           'dsa_tables.cu', 'dsa_gemm_plan.cc')
 # sm_90a: Hopper.  No -use_fast_math: tanhf/expf/logf stay exact, as the
 # JAX kernels' f32 transcendentals; -Xptxas -v records registers and spills
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
-# split-K chunks of the backwards' outer sums: their workspace holds up to
-# this many partial tiles (kGSplitMax in dsa_common.cuh); the table GEMM's
-# backward up to TABLE_SPLITS (kTableSplits in dsa_tables.cu)
-WORK_SPLITS = 8
-TABLE_SPLITS = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # argtypes of each entry point (see the extern "C" signatures in csrc/)
 _SIGNATURES = {
     'dvc_msda_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     'dvc_msda_bwd': [_P] * 7 + [_I] * 7 + [_P, _P],
-    'dvc_dsa_greedy': [_P] * 22 + [_I] * 12 + [_P],
-    'dvc_dsa_scan_fwd': [_P] * 17 + [_I] * 10 + [_P],
+    'dvc_dsa_greedy': [_P] * 23 + [_I] * 13 + [_P],
+    'dvc_dsa_scan_fwd': [_P] * 18 + [_I] * 11 + [_P],
     'dvc_dsa_scan_bwd': [_P] * 35 + [_I] * 11 + [_P],
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 8 + [_P],
     'dvc_dsa_step_bwd': [_P] * 19 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_bwd': [_P] * 29 + [_I] * 10 + [_P],
-    'dvc_dsa_table_gemm': [_P] * 3 + [_I] * 3 + [_P],
+    'dvc_dsa_table_gemm': [_P] * 4 + [_I] * 4 + [_P],
     'dvc_dsa_table_gemm_bwd': [_P] * 6 + [_I] * 4 + [_P],
+    'dvc_dsa_gemm': [_P, _I, _I, _P] + [_I] * 6 + [_P, _P, _LL, _P],
+    'dvc_dsa_gemm_work_floats': [_I] * 4,
+    'dvc_dsa_gemm_plan': [_I] * 4 + [_P],
 }
+# the entry points that do not return a CUDA error code (int)
+_RESTYPES = {'dvc_dsa_gemm_work_floats': _LL, 'dvc_dsa_gemm_plan': None}
 
 
 class KernelLib:
@@ -125,13 +127,18 @@ def lib() -> KernelLib:
     global _LIB
     if _LIB is None:
         path, seconds, log = build()
-        cdll = ctypes.CDLL(path)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(cdll, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = KernelLib(cdll, path, seconds, log)
+        _LIB = KernelLib(bind(ctypes.CDLL(path), _SIGNATURES), path, seconds,
+                         log)
     return _LIB
+
+
+def bind(cdll, names):
+    """Give the entry points ``names`` of ``cdll`` their C signatures."""
+    for name in names:
+        fn = getattr(cdll, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return cdll
 
 
 def check(code: int, what: str):
@@ -144,6 +151,44 @@ def levels_array(temporal_shapes):
     return (ctypes.c_int * len(temporal_shapes))(*map(int, temporal_shapes))
 
 
-def stream_ptr(device):
+@functools.lru_cache(maxsize=None)
+def gemm_work_floats(sms, *shapes):
+    """Floats of the workspace that one launch's GEMMs (each (M, N, T),
+    run one after another on one stream) need for their split-K partial
+    tiles on ``sms`` SMs, by the C rule itself
+    (``dvc_dsa_gemm_work_floats``, csrc/dsa_gemm_plan.h); at least 1, so
+    that the pointer is never null."""
+    fn = lib().cdll.dvc_dsa_gemm_work_floats
+    return max([1] + [fn(M, N, T, sms) for M, N, T in shapes])
+
+
+_SMS = {}
+_WORK = {}
+
+
+def gemm_work(device, *shapes):
+    """A workspace of at least :func:`gemm_work_floats` floats on CUDA
+    ``device``, kept for the current stream and reused: the launches of
+    one stream run in order, so one buffer serves each in turn, and a
+    launch costs no allocation (microseconds of host time at B=1).  It
+    grows to the largest launch's need and is never freed."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    floats = gemm_work_floats(_SMS[device], *shapes)
+    key = (device, stream_ptr(device))
+    work = _WORK.get(key)
+    if work is None or work.numel() < floats:
+        work = _WORK[key] = torch.empty(floats, dtype=torch.float32,
+                                        device=device)
+    return work
+
+
+def stream_ptr(device):
+    """The current stream of CUDA ``device`` as an int (PyTorch's raw
+    accessor: a Stream object costs microseconds a launch)."""
+    import torch
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

@@ -187,15 +187,18 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
     dev = value_t.device
     tok = torch.empty((B, K, Q), dtype=torch.int32, device=dev)
     lp = torch.empty((B, K, Q), dtype=torch.float32, device=dev)
-    # scratch of the per-launch tables value_t . cw and embed . token_w
+    # scratch of the per-launch tables value_t . cw and embed . token_w,
+    # and of their GEMMs' split-K partial tiles
     vw = torch.empty((B, H, S, A), dtype=torch.float32, device=dev)
     tw = torch.empty((V1, 4 * R), dtype=torch.float32, device=dev)
+    work = _cuda.gemm_work(dev, (B * H * S, A, Dh), (V1, 4 * R, E))
     lib = _cuda.lib()
     _cuda.check(lib.cdll.dvc_dsa_greedy(
         *(t.data_ptr() for t in ptrs),
         _cuda.levels_array(temporal_shapes), tok.data_ptr(), lp.data_ptr(),
-        vw.data_ptr(), tw.data_ptr(), B, H, S, Dh, Q, LP, L, A, R, E, V1, K,
-        _cuda.stream_ptr(value_t.device)), 'dvc_dsa_greedy')
+        vw.data_ptr(), tw.data_ptr(), work.data_ptr(), B, H, S, Dh, Q, LP, L,
+        A, R, E, V1, K, work.numel(), _cuda.stream_ptr(value_t.device)),
+        'dvc_dsa_greedy')
     dsa_greedy_scan.launches += 1
     return tok, lp
 

@@ -115,12 +115,14 @@ def dsa_teacher_scan_fwd(*args):
     B, H, S, Dh, Q, LP, L, A, R, K = dims
     hs = torch.empty((B, K, Q, R), dtype=torch.float32, device=ops[0].device)
     cs = torch.empty_like(hs)
-    # scratch: the table value_t . cw that the kernel scores from
+    # scratch: the table value_t . cw that the kernel scores from, and its
+    # GEMM's split-K partial tiles
     vw = torch.empty((B, H, S, A), dtype=torch.float32, device=hs.device)
+    work = _cuda.gemm_work(hs.device, (B * H * S, A, Dh))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_fwd(
         *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
-        hs.data_ptr(), cs.data_ptr(), vw.data_ptr(), *dims,
-        _cuda.stream_ptr(hs.device)), 'dvc_dsa_scan_fwd')
+        hs.data_ptr(), cs.data_ptr(), vw.data_ptr(), work.data_ptr(), *dims,
+        work.numel(), _cuda.stream_ptr(hs.device)), 'dvc_dsa_scan_fwd')
     dsa_teacher_scan_fwd.launches += 1
     return hs, cs
 
@@ -157,9 +159,13 @@ def dsa_teacher_scan_bwd(*args):
         empty(R, A), empty(Dh, A)
     dcb, daw, dab = zeros(A), zeros(A), zeros(1)
     dctx_w3, dwhh = empty(H * Dh, 4 * R), empty(R, 4 * R)
-    # G, the weight gradients' rows, the table value_t . cw, and the outer
-    # sums' split-K partial tiles (WORK_SPLITS times the largest gradient)
-    work = empty(_cuda.WORK_SPLITS * max(R, H * Dh) * max(4 * R, A))
+    # G, the weight gradients' rows, the table value_t . cw, and the
+    # split-K partial tiles of its GEMMs: the table, G . cw^T and the five
+    # outer sums
+    N, BHS = B * K * Q, B * H * S
+    work = _cuda.gemm_work(dev, (BHS, A, Dh), (BHS, Dh, A), (R, 4 * R, N),
+                           (H * Dh, 4 * R, N), (R, A, N), (R, H * LP, N),
+                           (Dh, A, BHS))
     scratch = (zeros(B, H, S, A), empty(B, K, Q, H * Dh), empty(B, K, Q, A),
                empty(B, K, Q, H * LP), empty(B, H, S, A), work)
     outs = (dvalue, dbase, dscale, dz, doffw, dh2w, dcw, dcb, daw, dab,

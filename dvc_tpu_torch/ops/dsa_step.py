@@ -286,9 +286,11 @@ def dsa_sample_attend_bwd(value_t, pos, hvec, cw, cb, aw, ab,
     outs = (_zeros(dev, B, H, S, Dh), _empty(dev, B, H, Q, LP),
             _empty(dev, B, Q, A), _empty(dev, Dh, A), _zeros(dev, A),
             _zeros(dev, A), _zeros(dev, 1))
-    # scratch: G, the table value_t . cw, the outer sum's partial tiles
+    # scratch: G, the table value_t . cw, the split-K partial tiles of the
+    # table, G . cw^T and the outer sum
     G, vw = _zeros(dev, B, H, S, A), _empty(dev, B, H, S, A)
-    work = _empty(dev, _cuda.WORK_SPLITS * Dh * A)
+    BHS = B * H * S
+    work = _cuda.gemm_work(dev, (BHS, A, Dh), (BHS, Dh, A), (Dh, A, BHS))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_step_bwd(
         *(t.data_ptr() for t in ops), g.data_ptr(),
         _cuda.levels_array(temporal_shapes),
@@ -345,7 +347,8 @@ def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
             _empty(dev, B, Q, R), _empty(dev, H, Dh, 4 * R),
             _empty(dev, R, 4 * R), _zeros(dev, A), _zeros(dev, A),
             _zeros(dev, 1))
-    work = _empty(dev, _cuda.WORK_SPLITS * max(R, H * Dh) * 4 * R)
+    # the outer sums' split-K partial tiles
+    work = _cuda.gemm_work(dev, (R, 4 * R, B * Q), (H * Dh, 4 * R, B * Q))
     scratch = (_empty(dev, B, Q, H * Dh), work)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_lstm_bwd(
         *(t.data_ptr() for t in ops), gh.data_ptr(), gc.data_ptr(),

@@ -1,5 +1,5 @@
 """The per-video tables of the LSTM-DSA word steps: ``table = x . w`` by the
-hand-written tiled GEMM of ``csrc/dsa_common.cuh``, and its backward.
+hand-written 3xTF32 GEMM of ``csrc/dsa_gemm.cuh``, and its backward.
 
 ``dvc_dsa_greedy``, ``dvc_dsa_scan_fwd``/``_bwd`` and ``dvc_dsa_step_bwd``
 build their tables (``value_t . Wc`` and ``embed . token_w``) with it inside
@@ -50,11 +50,12 @@ def table_gemm(x, w):
         raise ValueError(f'table GEMM: shapes {tuple(x.shape)} and '
                          f'{tuple(w.shape)} do not chain')
     x, w = x.contiguous(), w.contiguous()
-    table = torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
-                        device=x.device)
+    (N, k), n = x.shape, w.shape[1]
+    table = torch.empty((N, n), dtype=torch.float32, device=x.device)
+    work = _cuda.gemm_work(x.device, (N, n, k))     # split-K partial tiles
     _cuda.check(_cuda.lib().cdll.dvc_dsa_table_gemm(
-        x.data_ptr(), w.data_ptr(), table.data_ptr(), x.shape[0], x.shape[1],
-        w.shape[1], _cuda.stream_ptr(x.device)), 'dvc_dsa_table_gemm')
+        x.data_ptr(), w.data_ptr(), table.data_ptr(), work.data_ptr(), N, k,
+        n, work.numel(), _cuda.stream_ptr(x.device)), 'dvc_dsa_table_gemm')
     table_gemm.launches += 1
     return table
 
@@ -86,12 +87,8 @@ def table_gemm_bwd(x, w, g):
     x, w, g = x.contiguous(), w.contiguous(), g.contiguous()
     dx = torch.empty((N, k), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, n), dtype=torch.float32, device=x.device)
-    # dw's split-K partial tiles: as many chunks of the N terms as fill two
-    # blocks an SM with its 128 x 128 tiles, at most TABLE_SPLITS
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tiles = -(-k // 128) * -(-n // 128)
-    splits = max(1, min(_cuda.TABLE_SPLITS, 2 * sms // tiles))
-    work = torch.empty(splits * k * n, dtype=torch.float32, device=x.device)
+    # the split-K partial tiles of dx = g . w^T and dw = x^T . g
+    work = _cuda.gemm_work(x.device, (N, k, n), (k, n, N))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_table_gemm_bwd(
         x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), work.data_ptr(), N, k, n, work.numel(),

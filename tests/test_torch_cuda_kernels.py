@@ -25,13 +25,19 @@ VW = value . Wc: they are held against the plain table-form step
 (``lstm_step_table_ref``) and, composed with the table GEMM and its
 backward, against the plain step at the JAX boundary; the table GEMM's
 backward against torch.einsum within 1e-5 * sqrt(terms) of each output's
-largest value.
+largest value.  The shared GEMM itself (``dsa::gemm``, 3xTF32 on the tensor
+cores, through the library's ``dvc_dsa_gemm``) is held to torch.einsum at
+the same tolerance on every operand layout, ragged edges, a strided operand
+and accumulation, at a long term axis also in units of its products
+(``chip_smoke.product_err``) against one-pass TF32, and its outputs are
+bitwise equal from run to run.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import near_integer, scan_positions
+from chip_smoke import (GEMM_PRODUCT_TOL, near_integer, product_err,
+                        scan_positions, tf32_matmul)
 from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan, dsa_greedy_scan_ref
 from dvc_tpu_torch.ops.dsa_tables import (dsa_value_table, table_gemm,
                                           table_gemm_bwd)
@@ -396,7 +402,8 @@ def test_lstm_step_kernels_refuse_what_they_do_not_implement(cuda):
     outs = (zeros(B, H, S, Dh), zeros(B, H, S, A), zeros(B, H, Q, LP),
             zeros(B, Q, A), zeros(B, Q, 4 * R), zeros(B, Q, R), zeros(B, Q, R),
             zeros(H, Dh, 4 * R), zeros(R, 4 * R), zeros(A), zeros(A), zeros(1),
-            zeros(B, Q, H * Dh), zeros(_cuda.WORK_SPLITS * R * 4 * R))
+            zeros(B, Q, H * Dh),
+            _cuda.gemm_work(cuda, (R, 4 * R, B * Q), (H * Dh, 4 * R, B * Q)))
     ab = kargs[11].reshape(1)
     code = _cuda.lib().cdll.dvc_dsa_lstm_bwd(
         *(t.data_ptr() for t in kargs[:11]), ab.data_ptr(), gh.data_ptr(),
@@ -623,8 +630,9 @@ def test_step_backward_copies_a_misaligned_operand(cuda):
 
     outs = (zeros(B, H, S, Dh), zeros(B, H, Q, LP), zeros(B, Q, A),
             zeros(Dh, A), zeros(A), zeros(A), zeros(1))
+    BHS = B * H * S
     scratch = (zeros(B, H, S, A), zeros(B, H, S, A),
-               zeros(_cuda.WORK_SPLITS * Dh * A))
+               _cuda.gemm_work(cuda, (BHS, A, Dh), (BHS, Dh, A), (Dh, A, BHS)))
     code = _cuda.lib().cdll.dvc_dsa_step_bwd(
         *(t.data_ptr() for t in args), g.data_ptr(), _cuda.levels_array(ts),
         *(t.data_ptr() for t in outs + scratch), B, H, S, Dh, Q, LP, len(ts),
@@ -668,3 +676,155 @@ def test_table_gemm_backward_matches_einsum(cuda, N, k, n):
                              (dw, torch.einsum('nk,nm->km', x, g), N)):
         err = float((got - want).abs().max())
         assert err <= 1e-5 * terms ** 0.5 * float(want.abs().max()), err
+
+
+# dsa::gemm's three operand layouts: (X along the terms, Y along the terms)
+# as the tables (False, True), G . Wc^T (False, False), the outer sums
+# (True, True)
+GEMM_LAYOUTS = [(False, True), (False, False), (True, True)]
+
+
+def _gemm(x, x_by_term, y, y_by_term, M, N, T, out, accumulate=False,
+          work=None):
+    """out (M, N) (+)= X' Y' by dsa::gemm; x and y may be strided views
+    (their row stride is the leading dimension).  Returns the C code."""
+    from dvc_tpu_torch.ops import _cuda
+    if work is None:
+        work = _cuda.gemm_work(out.device, (M, N, T))
+    code = _cuda.lib().cdll.dvc_dsa_gemm(
+        x.data_ptr(), x.stride(0), int(x_by_term), y.data_ptr(), y.stride(0),
+        int(y_by_term), M, N, T, int(accumulate), out.data_ptr(),
+        work.data_ptr(), work.numel(), _cuda.stream_ptr(out.device))
+    torch.cuda.synchronize()
+    return code
+
+
+def _gemm_operands(dev, rng, M, N, T, x_by_term, y_by_term, pad=0):
+    """X' (M, T) and Y' (T, N) stored in the given layouts, each inside a
+    buffer ``pad`` columns wider than its row; with their plain values."""
+    def stored(rows, cols):
+        buf = _t(rng.standard_normal((rows, cols + pad)).astype(np.float32),
+                 dev)
+        return buf[:, :cols]
+    x = stored(T, M) if x_by_term else stored(M, T)
+    y = stored(T, N) if y_by_term else stored(N, T)
+    return x, y, (x.T if x_by_term else x), (y if y_by_term else y.T)
+
+
+def _gemm_close(got, want, T):
+    err = float((got - want).abs().max())
+    return err <= 1e-5 * max(T, 1) ** 0.5 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize('layout', GEMM_LAYOUTS, ids=str)
+@pytest.mark.parametrize('M,N,T', [(129, 129, 31), (65, 65, 1), (129, 65, 100),
+                                   (37, 5, 3), (5, 3, 0)])
+def test_gemm_ragged_shapes(cuda, layout, M, N, T):
+    """Shapes that are no multiple of a tile or a slice: T below one slice
+    of 32 terms (and none at all: zeros), M and N one past a tile of 128 or
+    64; aligned rows (16-byte copies) and rows of odd length (4-byte ones)
+    against torch.einsum within 1e-5 * sqrt(T) of the largest value."""
+    rng = np.random.default_rng(M * N + T)
+    for pad in (0, 1):
+        x, y, xp, yp = _gemm_operands(cuda, rng, M, N, T, *layout, pad=pad)
+        out = torch.full((M, N), float('nan'), device=cuda)
+        assert _gemm(x, layout[0], y, layout[1], M, N, T, out) == 0
+        ok, err = _gemm_close(out, xp @ yp if T else torch.zeros_like(out), T)
+        assert ok, (pad, err)
+
+
+def _plan(cuda, M, N, T):
+    """(128 x 128 tiles, chunks, terms a chunk) of the C rule on this card."""
+    import ctypes
+    from dvc_tpu_torch.ops import _cuda
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    out = (ctypes.c_int * 3)()
+    _cuda.lib().cdll.dvc_dsa_gemm_plan(M, N, T, sms, out)
+    return tuple(out)
+
+
+def test_gemm_accumulates_as_dvalue_takes_g_wc(cuda):
+    """accumulate=True as K5 and K8 add G . Wc^T into dvalue (both along
+    their rows): out0 + G Wc^T, with split-K at the B=1 table's shape (the
+    partial tiles' sum adds out0 once) and without at a small one."""
+    rng = np.random.default_rng(11)
+    for M, N, T in ((375, 512, 512), (37, 8, 16)):
+        G, wc, Gp, wcp = _gemm_operands(cuda, rng, M, N, T, False, False)
+        out0 = _t(rng.standard_normal((M, N)).astype(np.float32), cuda)
+        out = out0.clone()
+        assert _gemm(G, False, wc, False, M, N, T, out, accumulate=True) == 0
+        ok, err = _gemm_close(out - out0, Gp @ wcp, T)
+        assert ok, (M, N, T, err, _plan(cuda, M, N, T))
+
+
+@pytest.mark.parametrize('pad', [4, 3])
+def test_gemm_outer_sum_of_a_strided_operand(cuda, pad):
+    """The outer sums take X and Y along the terms with a leading dimension
+    above the width (a column block of a wider buffer, as hs_prev would be
+    inside (B, K, Q, R + pad)): aligned (pad 4) and not (pad 3)."""
+    rng = np.random.default_rng(pad)
+    M, N, T = 96, 200, 3000
+    x, y, xp, yp = _gemm_operands(cuda, rng, M, N, T, True, True, pad=pad)
+    assert x.stride(0) == M + pad and y.stride(0) == N + pad
+    out = torch.empty((M, N), device=cuda)
+    assert _gemm(x, True, y, True, M, N, T, out) == 0
+    ok, err = _gemm_close(out, xp @ yp, T)
+    assert ok, err
+
+
+@pytest.mark.parametrize('layout', GEMM_LAYOUTS, ids=str)
+def test_gemm_is_bitwise_deterministic(cuda, layout):
+    """Two runs on the same inputs give equal bits: split-K partial tiles
+    are added in chunk order (6000 terms: 16 chunks of the outer sum)."""
+    rng = np.random.default_rng(5)
+    M, N, T = (512, 512, 6000) if layout[0] else (2000, 512, 512)
+    x, y, _, _ = _gemm_operands(cuda, rng, M, N, T, *layout)
+    a, b = (torch.empty((M, N), device=cuda) for _ in range(2))
+    assert _gemm(x, layout[0], y, layout[1], M, N, T, a) == 0
+    assert _gemm(x, layout[0], y, layout[1], M, N, T, b) == 0
+    assert torch.equal(a, b)
+
+
+def test_table_gemm_splits_at_the_b1_shape(cuda):
+    """The table at B=1 (375 x 512 . 512 x 512) is split into chunks of the
+    terms (its 64 x 64 tiles alone fill a third of the SMs); the wrapper's
+    workspace is exactly what the C rule takes, and one float less is
+    refused (cudaErrorInvalidValue) rather than cut into fewer chunks."""
+    from dvc_tpu_torch.ops import _cuda
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    N, k, n = 375, 512, 512
+    assert _plan(cuda, N, n, k)[1] > 1
+    rng = np.random.default_rng(375)
+    x = _t(rng.standard_normal((N, k)).astype(np.float32), cuda)
+    w = _t(rng.standard_normal((k, n)).astype(np.float32), cuda)
+    got = table_gemm(x, w)
+    ok, err = _gemm_close(got, torch.einsum('nk,km->nm', x, w), k)
+    assert ok, err
+    need = _cuda.gemm_work_floats(sms, (N, n, k))
+    work = torch.empty(need, device=cuda)
+    table = torch.empty((N, n), device=cuda)
+    fn = _cuda.lib().cdll.dvc_dsa_table_gemm
+    for floats, code in ((need, 0), (need - 1, 1)):
+        assert fn(x.data_ptr(), w.data_ptr(), table.data_ptr(),
+                  work.data_ptr(), N, k, n, floats,
+                  _cuda.stream_ptr(cuda)) == code
+    torch.cuda.synchronize()
+
+
+def test_gemm_outer_sum_at_a_long_term_axis_is_f32(cuda):
+    """The outer sums' 128 x 128 tiles over 6,144 terms (four chunks), as
+    K5's hs_prev^T dz at 512 x 2048: against torch.einsum within 1e-5 *
+    sqrt(T) of the largest value, and in units of each output's products
+    within GEMM_PRODUCT_TOL, which one-pass TF32 (torch.matmul with TF32
+    allowed, same operands) exceeds."""
+    rng = np.random.default_rng(6144)
+    M, N, T = 512, 2048, 6144
+    assert _plan(cuda, M, N, T)[:2] == (1, 4)
+    x, y, xp, yp = _gemm_operands(cuda, rng, M, N, T, True, True)
+    out = torch.empty((M, N), device=cuda)
+    assert _gemm(x, True, y, True, M, N, T, out) == 0
+    ok, err = _gemm_close(out, torch.einsum('tm,tn->mn', x, y), T)
+    assert ok, err
+    unit_err, tf32_err = (product_err(got, xp, yp)
+                          for got in (out, tf32_matmul(xp, yp)))
+    assert unit_err <= GEMM_PRODUCT_TOL < tf32_err, (unit_err, tf32_err)
