@@ -9,23 +9,23 @@ Phases (one or more lines each; the last line is the JSON verdict):
    no CUDA device is an error (there is no CPU carry-on).
 2. build  — compile the hand-written kernels of ``dvc_tpu_torch/csrc`` with
    nvcc (sm_90a) and print the build time and ptxas resource lines.
-3. kernels vs plain — each of the nine kernels against its plain PyTorch
+3. kernels vs plain — each kernel against its plain PyTorch
    version on the card at the serving and training paths' shapes (TF32
    off), with errors, CUDA-event times and each kernel's bound (bytes over
    the HBM rate or f32 operations over the CUDA cores' peak); the tables'
-   GEMM and its backward (the table VW = value . Wc of K9 and K10, and
-   embed . token_w) and the weight gradients' outer sums that K5, K8 and
-   K10 run inside their launches (``[kernels] outer_sum``, through the
+   GEMM and its backward (the table VW = value . Wc of K7-K10, and
+   embed . token_w) and the weight gradients' outer sums that K5 and K10
+   run inside their launches (``[kernels] outer_sum``, through the
    library's ``dvc_dsa_gemm``) against torch.einsum, each beside
    torch.matmul and bounded at 3xTF32 on the tensor cores (the GEMM's
    design; the f32 bound printed beside it), the outer sums also in units
-   of their products' size against one-pass TF32; the scan also at
-   cap_nheads 8, the word-step kernels
-   (K7-K10; K9 and K10 with VW given, K10's gradients composed with the
-   table's backward) at the stepwise path's train (B=1, Q=90) and serve
-   (B=16, Q=100, H=1 and 8) shapes, to the scan's tolerances
-   (``check_step``); then the phase split of the kernels redesigned around
-   per-video tables (K4, K5, K6, K8, K9, K10; ``SPLITS['current']``, one
+   of their products' size against one-pass TF32; the MSDA backward at
+   B=1 and at the B=16 train step's shapes; the scan also at cap_nheads 8,
+   the word-step kernels (K7-K10, each with VW given; K8's and K10's
+   gradients composed with the table's backward) at the stepwise path's
+   train (B=1, Q=90) and serve (B=16, Q=100, H=1 and 8) shapes, to the
+   scan's tolerances (``check_step``); then the phase split of the kernels
+   redesigned for the card (K1/K2, K4-K10; ``SPLITS['current']``, one
    ``[split]`` line per kernel and shape).
    Tolerances:
    MSDA forward max abs error <= 1e-4 * max|out|, and each of its
@@ -58,9 +58,9 @@ Phases (one or more lines each; the last line is the JSON verdict):
 8. stepwise — the stepwise caption path: ``new_train.main`` for two
    --debug epochs with scheduled sampling from epoch 1 (ss_prob 0.25),
    once through K7/K8 and once with --dsa_lstm_fuse 1 through K9/K10 (the
-   fused scan K4/K5 in epoch 0; one launch per word step, and with
-   --dsa_lstm_fuse 1 one table VW and one table backward per train step;
-   no plain version; tokens fed by scheduled sampling), the step timed at
+   fused scan K4/K5 in epoch 0; one launch per word step, and under either
+   flag one table VW and one table backward per train step; no plain
+   version; tokens fed by scheduled sampling), the step timed at
    B=1 and B=16; the second run's checkpoint served with --dsa_greedy_fuse
    0 through K7 and K9 against the fused greedy kernel (>= 90% of the
    captions identical); the train agreement of phase 7 with
@@ -82,9 +82,9 @@ import tempfile
 import time
 
 MSDA_LEVELS = (200, 100, 50, 25)      # T = 200 frames, 4 levels, S = 375
-# the word-step kernels of the stepwise caption path and the table of K9
-# and K10 (built by the caption head), which the default flags (fused scan
-# and greedy decode) never launch
+# the word-step kernels of the stepwise caption path and their table VW
+# (built by the caption head), which the default flags (fused scan and
+# greedy decode) never launch
 STEP_KERNELS = ('dsa_step_fwd', 'dsa_step_bwd', 'dsa_lstm_fwd',
                 'dsa_lstm_bwd', 'table_gemm', 'table_gemm_bwd')
 CFG = 'cfgs/yc2_newModel_sound.yml'
@@ -265,16 +265,20 @@ def check_msda(gen, B, Q):
     err = float((out - ref).abs().max())
     tol = 1e-4 * float(ref.abs().max())
     ms = cuda_ms(lambda: ms_deform_attn(value, MSDA_LEVELS, loc, attn), 50)
+    dev_ms = device_ms(lambda: ms_deform_attn(value, MSDA_LEVELS, loc, attn),
+                       50)
     plain_ms = cuda_ms(
         lambda: ms_deform_attn_ref(value, MSDA_LEVELS, loc, attn), 10)
     bound_ms, bound_by = msda_bound(value, loc, attn, out)
     print(f'[kernels] msda_fwd B={B} Q={Q} S={value.shape[1]} H=8 D=64 '
           f'L=4 P=4: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} '
-          f'ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})')
+          f'ms (device {dev_ms:.4f}) plain {plain_ms:.4f} ms bound '
+          f'{bound_ms:.4f} ms ({bound_by})')
     if not err <= tol:
         raise AssertionError(f'msda_fwd Q={Q}: error {err} > {tol}')
     return {'B': B, 'Q': Q, 'max_abs_err': err, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by}
+            'device_ms': dev_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by}
 
 
 def check_msda_bwd(gen, B, Q):
@@ -589,8 +593,8 @@ def check_scan(gen, B, Q, K, H):
 
 
 def check_table_gemm(gen, N, k, n, label):
-    """The tables' GEMM (``table_gemm``: the kernel that K4-K6 and K8 run
-    first in every launch, and that builds K9's and K10's VW once per
+    """The tables' GEMM (``table_gemm``: the kernel that K4-K6 run first in
+    every launch, and that builds the word-step kernels' VW once per
     forward pass) against torch.einsum on the same inputs: max abs error
     <= 1e-5 * sqrt(k) * max|ref| (f32 sums of k terms in another order,
     TF32 off); torch.matmul timed beside it as a yardstick (library_ms),
@@ -668,7 +672,7 @@ def check_table_gemm_bwd(gen, N, k, n, label):
             'bound_by': tc_by, 'f32_bound_ms': bound_ms}
 
 
-# dsa::gemm reached directly: the outer sums and G . Wc^T run inside K5, K8
+# dsa::gemm reached directly: the outer sums and G . Wc^T run inside K5
 # and K10, which have no entry point of their own for them, so the library
 # exports dsa::gemm as dvc_dsa_gemm.  A tree from before that export (the
 # parent's, in an A/B) gets a probe of the same signature, built from that
@@ -743,7 +747,7 @@ def outer_sum_work(X, Y):
 
 def run_outer_sum(X, Y, out, work):
     """out (m, n) = X (rows, m)^T Y (rows, n) by dsa::gemm's outer_sum, as
-    K5, K8 and K10 run it (both operands along the terms), on the current
+    K5 and K10 run it (both operands along the terms), on the current
     stream; raises on a refused launch."""
     import torch
     (rows, m), n = X.shape, Y.shape[1]
@@ -787,12 +791,13 @@ def tf32_matmul(xp, yp):
 
 # the weight gradients' outer sums at the phase-3 shapes: (label, rows, m,
 # n, sums of that shape a launch); K5 at B=16, Q=90, K=29 (41,760 rows;
-# value^T G over B*S = 6,000, as K8's at B=16, Q=100, H=1), K10 at B=16,
-# Q=100 (1,600 rows)
+# value^T G over B*S = 6,000, as the table backward's at B=16, H=1), K10
+# at B=16, Q=100 (1,600 rows)
 OUTER_SUMS = (('K5 hs_prev^T dz, ctx^T dz', 41760, 512, 2048, 2),
               ('K5 hs_prev^T dhvec', 41760, 512, 512, 1),
               ('K5 hs_prev^T doff', 41760, 512, 16, 1),
-              ('K5 value^T G, K8 value^T G', 6000, 512, 512, 1),
+              ('K5 value^T G, the table backward value^T G', 6000, 512, 512,
+               1),
               ('K10 h^T dz, ctx^T dz', 1600, 512, 2048, 2))
 
 
@@ -888,7 +893,7 @@ def step_inputs(gen, B, Q, H, lstm, R=512, A=512, d=512, P=4):
 def word_step_macs(args, lstm, table_given=False):
     """Least MACs of one word-step kernel over its B*Q queries (``args``:
     ``step_inputs``'s): the scores' taps . Wc (``lerp_rows_macs``; with
-    ``table_given``, K9 and K10 alone with VW = value . Wc an operand, a
+    ``table_given``, the kernels alone with VW = value . Wc an operand, a
     lerp of two VW rows, 2A per tap) and . aw, the context (a lerp of two
     value rows and a weighted sum per tap, 3*Dh); with the LSTM cell also
     h . W_hh and ctx . ctx_w3 (4R*(R + H*Dh)).  hvec and the offsets are
@@ -908,12 +913,13 @@ def word_step_macs(args, lstm, table_given=False):
 
 def check_step(gen, B, Q, H, lstm):
     """K7 and K8 (or, with ``lstm``, K9 and K10) against the plain word step
-    and autograd through it, at the JAX boundary.  K9 and K10 take the table
-    VW = value_t . cw (``lstm_kernel_args``); K10's 12 gradients at the JAX
-    boundary are composed with the table's backward
-    (``dsa_lstm_step_grads``), and their times are the kernels' alone with
-    VW given (the table's forward and backward have their own lines:
-    ``check_table_gemm``, ``check_table_gemm_bwd``).  Tolerances: outputs
+    and autograd through it, at the JAX boundary.  The kernels take the
+    table VW = value_t . cw (``kernel_args``); K8's 7 (K10's 12) gradients
+    at the JAX boundary are composed with the table's backward
+    (``dsa_sample_attend_grads``, ``dsa_lstm_step_grads``), and their times
+    and bounds are the kernels' alone with VW given (the table's forward and
+    backward have their own lines: ``check_table_gemm``,
+    ``check_table_gemm_bwd``).  Tolerances: outputs
     max abs error <= 1e-4 * max|ref|; each gradient <= 1e-3 * its max |ref|
     + 1e-5 (f32 sums in another order, atomics in dvalue, G, dWc and the
     bias sums).  d alpha_b is zero in exact arithmetic, so both sides hold
@@ -926,18 +932,17 @@ def check_step(gen, B, Q, H, lstm):
     import torch
     from dvc_tpu_torch.ops import dsa_step as ds
     args = step_inputs(gen, B, Q, H, lstm)
+    kargs = kernel_args(args, lstm)
     if lstm:
-        kargs = lstm_kernel_args(args)
         names, fwd, bwd = ds.LSTM_NAMES, ds.dsa_lstm_step_fwd, \
             ds.dsa_lstm_step_bwd
         ref, bwd_ref = ds.lstm_step_ref, ds.lstm_step_bwd_ref
         grads_of = ds.dsa_lstm_step_grads
     else:
-        kargs = args
         names, fwd, bwd = ds.STEP_NAMES, ds.dsa_sample_attend_fwd, \
             ds.dsa_sample_attend_bwd
         ref, bwd_ref = ds.sample_attend_ref, ds.sample_attend_bwd_ref
-        grads_of = bwd
+        grads_of = ds.dsa_sample_attend_grads
 
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
@@ -967,13 +972,13 @@ def check_step(gen, B, Q, H, lstm):
     fwd_plain = cuda_ms(lambda: ref(*args, MSDA_LEVELS), 5)
     bwd_ms = cuda_ms(lambda: bwd(*kargs, MSDA_LEVELS, *cot), 20)
     bwd_plain = cuda_ms(lambda: bwd_ref(*args, MSDA_LEVELS, *cot), 5)
-    macs = word_step_macs(args, lstm, table_given=lstm)
+    macs = word_step_macs(args, lstm, table_given=True)
     inputs = [t for t in kargs if torch.is_tensor(t)]
     fwd_bound = bound(nbytes(*inputs, *outs), 2.0 * macs)
     bwd_bound = bound(nbytes(*inputs, *cot, *grads), 6.0 * macs)
     kind = 'dsa_lstm' if lstm else 'dsa_step'
     shape = (f'B={B} Q={Q} H={H} Dh={512 // H} S=375 LP=16 A=512'
-             + (' R=512, VW given' if lstm else ''))
+             + (' R=512' if lstm else '') + ', VW given')
     print(f'[kernels] {kind}_fwd {shape}: max_abs_err {fwd_err:.3e} (tol '
           f'{fwd_tol:.3e}) kernel {fwd_ms:.4f} ms plain {fwd_plain:.4f} ms '
           f'bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})')
@@ -1018,8 +1023,9 @@ def phase_gemm(gen=None):
 def phase_kernels():
     """Every kernel against its plain version at the main paths' shapes:
     serving (MSDA forward and greedy at B=16) and training (MSDA forward and
-    backward at B=1, scan at B=1 and B=16 with Q = 3 layers x 30 gt pairs
-    and K = 29 word steps, and at B=1 with cap_nheads 8); the word-step
+    backward at B=1, the backward also at B=16, scan at B=1 and B=16 with
+    Q = 3 layers x 30 gt pairs and K = 29 word steps, and at B=1 with
+    cap_nheads 8); the word-step
     kernels at the stepwise path's train shape (B=1, Q=90, H=1) and serve
     shape (B=16, Q=100, H=1 and 8); the tables' GEMM, its backward and the
     weight gradients' outer sums at those paths' shapes.  Returns {kernel:
@@ -1034,7 +1040,8 @@ def phase_kernels():
                'dsa_greedy': [check_greedy(gen, 16, 100, 1),
                               check_greedy(gen, 16, 100, 8)]}
     res.update(phase_gemm(gen))
-    res['msda_bwd'] = [check_msda_bwd(gen, 1, 375), check_msda_bwd(gen, 1, 100)]
+    res['msda_bwd'] = [check_msda_bwd(gen, B, Q)
+                       for B in (1, 16) for Q in (375, 100)]
     scans = [check_scan(gen, 1, 90, 29, 1), check_scan(gen, 16, 90, 29, 1),
              check_scan(gen, 1, 90, 29, 8)]
     res['dsa_scan_fwd'] = [f for f, _ in scans]
@@ -1051,7 +1058,8 @@ def phase_kernels():
 # The phase split of the redesigned kernels: each kernel timed as built from
 # the sources, then as built with one phase's code taken out (a textual edit
 # of a copy of csrc/ in dvc_tpu_torch/_build/phases/, never of the
-# sources); full minus the variant is that phase's share.  A variant
+# sources, built with the GEMM's plan, csrc/dsa_gemm_plan.cc, where the tree
+# has one); full minus the variant is that phase's share.  A variant
 # computes on stale operands, so only its time means anything.
 # SPLITS[spec][kernel] = (source, [(phase, [(file, old text, new text)])]);
 # 'pr5' splits K9 and K10 as they were before their table (run it from a
@@ -1101,6 +1109,10 @@ _STEP_CELL = ('      const float c = sigmoidf_(z[1][q]) * a.c[o] + '
 # the gate products of K9 and of K10's recompute (gate_preact)
 _STEP_GATES_H = ('  add_gates<QT>(h, pad4(R), R, a.w_hh, r, R, z);\n', '')
 _STEP_GATES_CTX = ('  add_gates<QT>(ctx, pad4(HD), HD, a.ctx_w3, r, R, z);\n', '')
+_MSDA_GATHERS = ('        for (; j + 4 <= n; j += 4)\n'
+                 '          gather_points<V, 4>(col, D, P, wl, wh, at, rows, j, left, lvl, acc);\n'
+                 '        for (; j < n; ++j)\n'
+                 '          gather_points<V, 1>(col, D, P, wl, wh, at, rows, j, left, lvl, acc);\n')
 SPLITS = {
     'pr5': {
         'dsa_lstm_fwd': ('dsa_step.cu', [
@@ -1148,6 +1160,13 @@ SPLITS = {
         ]),
     },
     'current': {
+        'msda_fwd': ('ms_deform_attn.cu', [
+            ('staging', [('ms_deform_attn.cu',
+                          '  if (copy == 16) stage_rows<16>(sv, src, S, D, HD);\n'
+                          '  else if (copy == 8) stage_rows<8>(sv, src, S, D, HD);\n'
+                          '  else stage_rows<4>(sv, src, S, D, HD);\n', '')]),
+            ('gathers', [('ms_deform_attn.cu', _MSDA_GATHERS, '')]),
+        ]),
         'dsa_greedy': ('dsa_greedy.cu', [
             ('tables VW, TW', [('dsa_greedy.cu', '(e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf)) != cudaSuccess ||\n'
                                 '      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf)) != cudaSuccess',
@@ -1192,18 +1211,18 @@ SPLITS = {
             ('ctx.ctx_w3', [('dsa_scan.cu', *_GATES_CTX)]),
             ('cell', [('dsa_scan.cu', _CELL, _NO_CELL)]),
         ]),
+        'dsa_step_fwd': ('dsa_step.cu', [
+            ('scores from VW', [('dsa_step.cu',
+                                 '  attend_scores_table4<QT>(at, sm, vw_b, __ldg(a.ab));\n', '')]),
+            ('ctx', [('dsa_step.cu', '  attend_softmax_ctx<QT>(at, sm, value_b);\n  // the tile',
+                      '  attend_softmax<QT>(at, sm);\n  // the tile')]),
+        ]),
         'dsa_step_bwd': ('dsa_step.cu', [
-            ('table VW', [('dsa_step.cu',
-                           '    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf);\n',
-                           '')]),
             ('scores from VW', [('dsa_step.cu',
                                  '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
                                  '  attend_softmax<QT>(at, sm);\n',
                                  '  attend_softmax<QT>(at, sm);\n')]),
             *_TABLE_BWD,
-            ('dvalue += G.Wc^T', [('dsa_step.cu', 'BHS, Dh, A, true, dvalue,',
-                                   '0, Dh, A, true, dvalue,')]),
-            ('outer sum', [('dsa_step.cu', 'G, A, BHS, Dh, A, dcw', 'G, A, 0, Dh, A, dcw')]),
         ]),
         'dsa_lstm_fwd': ('dsa_step.cu', [
             ('scores from VW', [('dsa_step.cu',
@@ -1272,10 +1291,12 @@ def build_variants(csrc, specs):
                                          f'in {f}')
                 with open(path, 'w') as fh:
                     fh.write(text.replace(old, new))
+            plan = os.path.join(out, 'dsa_gemm_plan.cc')
             jobs[lib] = subprocess.Popen(
                 [_cuda._nvcc(), *_cuda.NVCC_FLAGS, '-shared', '-o', lib,
-                 os.path.join(out, source)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)
+                 os.path.join(out, source),
+                 *([plan] if os.path.exists(plan) else [])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     loaded = {}
     for lib, proc in jobs.items():
         if proc is not None and proc.wait() != 0:
@@ -1293,36 +1314,46 @@ def build_variants(csrc, specs):
     return libs
 
 
-def lstm_kernel_args(args):
-    """The operands of K9 and K10 alone from ``step_inputs``'s (those of
-    the JAX boundary): value_t, the table VW = value_t . cw, then the rest
-    without cw.  A tree from before the table form (the ``pr5`` split) takes
-    ``args`` as they are."""
+def kernel_args(args, lstm):
+    """The operands of the word-step kernels alone from ``step_inputs``'s
+    (those of the JAX boundary): value_t, the table VW = value_t . cw, then
+    the rest without cw.  A tree whose kernels take cw (an older tree, from
+    before their table form) gets ``args`` as they are."""
     from dvc_tpu_torch.ops import dsa_step
-    if not hasattr(dsa_step, 'lstm_step_table_ref'):
+    if not hasattr(dsa_step, 'lstm_step_table_ref' if lstm
+                   else 'STEP_TABLE_NAMES'):
         return args
     from dvc_tpu_torch.ops.dsa_tables import table_gemm
-    value_t, cw = args[0], args[8]
+    i = 8 if lstm else 3
+    value_t, cw = args[0], args[i]
     B, H, S, Dh = value_t.shape
     vw = table_gemm(value_t.reshape(-1, Dh), cw).reshape(B, H, S, -1)
-    return (value_t, vw) + tuple(args[1:8]) + tuple(args[9:])
+    return (value_t, vw) + tuple(args[1:i]) + tuple(args[i + 1:])
 
 
 def split_cases(kernels):
-    """(kernel, shape label, call) of each split of ``kernels``: K6 at the
-    serving shape (B=16, Q=100, H=1 and 8); K4 and K5 at the train shapes
-    (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8); K8, K9 and K10 (alone,
-    with VW given) at the word-step shapes of ``check_step`` (B=1, Q=90,
-    H=1; B=16, Q=100, H=1 and 8)."""
+    """(kernel, shape label, call) of each split of ``kernels``: K1/K2 at
+    the MSDA shapes of ``phase_kernels`` ((B, Q) = (16, 375), (16, 100),
+    (1, 375)); K6 at the serving shape (B=16, Q=100, H=1 and 8); K4 and K5
+    at the train shapes (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8); K7-K10
+    (alone, with VW given) at the word-step shapes of ``check_step`` (B=1,
+    Q=90, H=1; B=16, Q=100, H=1 and 8)."""
     import torch
     from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
     from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
                                             dsa_teacher_scan_fwd)
     from dvc_tpu_torch.ops.dsa_step import (dsa_lstm_step_bwd,
                                             dsa_lstm_step_fwd,
-                                            dsa_sample_attend_bwd)
+                                            dsa_sample_attend_bwd,
+                                            dsa_sample_attend_fwd)
+    from dvc_tpu_torch.ops.ms_deform_attn import ms_deform_attn
     gen = torch.Generator(device='cuda').manual_seed(0)
     cases = []
+    if 'msda_fwd' in kernels:
+        for B, Q in ((16, 375), (16, 100), (1, 375)):
+            args = msda_inputs(gen, B, Q)
+            cases.append(('msda_fwd', f'B={B} Q={Q}', lambda args=args:
+                          ms_deform_attn(args[0], MSDA_LEVELS, *args[1:])))
     if 'dsa_greedy' in kernels:
         for H in (1, 8):
             args = greedy_inputs(gen, 16, 100, H)
@@ -1342,17 +1373,22 @@ def split_cases(kernels):
             cases.append(('dsa_scan_bwd', shape,
                           lambda args=args, hs=hs, cs=cs, g=g:
                           dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g)))
-    if 'dsa_step_bwd' in kernels:
-        for B, Q, H in ((1, 90, 1), (16, 100, 1), (16, 100, 8)):
-            args = step_inputs(gen, B, Q, H, False)
+    for B, Q, H in ((1, 90, 1), (16, 100, 1), (16, 100, 8)):
+        if not {'dsa_step_fwd', 'dsa_step_bwd'} & set(kernels):
+            break
+        args = kernel_args(step_inputs(gen, B, Q, H, False), False)
+        shape = f'B={B} Q={Q} H={H}'
+        if 'dsa_step_fwd' in kernels:
+            cases.append(('dsa_step_fwd', shape, lambda args=args:
+                          dsa_sample_attend_fwd(*args, MSDA_LEVELS)))
+        if 'dsa_step_bwd' in kernels:
             g = torch.randn((B, H, Q, 512 // H), generator=gen, device='cuda')
-            cases.append(('dsa_step_bwd', f'B={B} Q={Q} H={H}',
-                          lambda args=args, g=g:
+            cases.append(('dsa_step_bwd', shape, lambda args=args, g=g:
                           dsa_sample_attend_bwd(*args, MSDA_LEVELS, g)))
     for B, Q, H in ((1, 90, 1), (16, 100, 1), (16, 100, 8)):
         if not {'dsa_lstm_fwd', 'dsa_lstm_bwd'} & set(kernels):
             break
-        args = lstm_kernel_args(step_inputs(gen, B, Q, H, True))
+        args = kernel_args(step_inputs(gen, B, Q, H, True), True)
         shape = f'B={B} Q={Q} H={H}'
         if 'dsa_lstm_fwd' in kernels:
             cases.append(('dsa_lstm_fwd', shape, lambda args=args:
@@ -1402,9 +1438,15 @@ def ab_times():
     """Kernel-only CUDA-event times (ms) of every kernel at the phase-3
     shapes, plus the greedy decode at B=1 (a single caption_features
     request), and of the GEMM at every shape of ``phase_gemm``, as one JSON
-    line: the half of an A/B of two trees in one
-    call.  Run ``python3 chip_smoke.py --ab`` from each tree's root in turns
-    (old, new, new, old)."""
+    line: the half of an A/B of two trees in one call.  The MSDA forward
+    also in device time (the profiler's; the event time of a small launch
+    is the wrapper's host time); the word-step kernels alone (with VW given
+    where the tree's kernels take it), and K7 and K8 also with 1/29 of the
+    table's forward or backward at their shape (``+table/29``: the share of
+    one table per 29-step pass; a tree whose K7 and K8 take cw has no
+    table, so there the key is the kernel alone).  Run ``python3
+    chip_smoke.py --ab`` from each tree's root in turns (old, new, new,
+    old)."""
     import torch
     from dvc_tpu_torch import ops
     from dvc_tpu_torch.ops import dsa_tables
@@ -1416,15 +1458,18 @@ def ab_times():
             value, loc, attn = msda_inputs(gen, B, Q)
             out[f'msda_fwd B={B} Q={Q}'] = cuda_ms(
                 lambda: ops.ms_deform_attn(value, MSDA_LEVELS, loc, attn), 50)
+            out[f'msda_fwd B={B} Q={Q} (device)'] = device_ms(
+                lambda: ops.ms_deform_attn(value, MSDA_LEVELS, loc, attn), 50)
         for B, H in ((16, 1), (16, 8), (1, 1), (1, 8)):
             args = greedy_inputs(gen, B, 100, H)
             out[f'dsa_greedy B={B} Q=100 H={H}'] = cuda_ms(
                 lambda: ops.dsa_greedy_scan(*args, MSDA_LEVELS, 30), 3)
-        for Q in (375, 100):
-            value, loc, attn = msda_inputs(gen, 1, Q)
-            g = torch.randn((1, Q, 512), generator=gen, device='cuda')
-            out[f'msda_bwd B=1 Q={Q}'] = cuda_ms(lambda: ops.ms_deform_attn_bwd(
-                value, MSDA_LEVELS, loc, attn, g), 50)
+        for B, Q in ((1, 375), (1, 100), (16, 375), (16, 100)):
+            value, loc, attn = msda_inputs(gen, B, Q)
+            g = torch.randn((B, Q, 512), generator=gen, device='cuda')
+            out[f'msda_bwd B={B} Q={Q}'] = cuda_ms(
+                lambda: ops.ms_deform_attn_bwd(value, MSDA_LEVELS, loc, attn,
+                                               g), 50)
         for B, H in ((1, 1), (16, 1), (1, 8)):
             args = scan_inputs(gen, B, 90, 29, H)
             hs, cs = ops.dsa_teacher_scan_fwd(*args, MSDA_LEVELS)
@@ -1437,20 +1482,33 @@ def ab_times():
             fwd = ops.dsa_lstm_step_fwd if lstm else ops.dsa_sample_attend_fwd
             bwd = ops.dsa_lstm_step_bwd if lstm else ops.dsa_sample_attend_bwd
             for B, Q, H in ((1, 90, 1), (16, 100, 1), (16, 100, 8)):
-                args = step_inputs(gen, B, Q, H, lstm)
-                if lstm:        # K9 and K10 alone, with VW given
-                    args = lstm_kernel_args(args)
+                full = step_inputs(gen, B, Q, H, lstm)
+                args = kernel_args(full, lstm)      # with VW where taken
                 outs = fwd(*args, MSDA_LEVELS)
                 outs = outs if isinstance(outs, tuple) else (outs,)
                 cot = tuple(torch.randn(o.shape, generator=gen, device='cuda')
                             for o in outs)
-                out[f'{kind}_fwd B={B} Q={Q} H={H}'] = cuda_ms(
+                shape = f'B={B} Q={Q} H={H}'
+                out[f'{kind}_fwd {shape}'] = cuda_ms(
                     lambda: fwd(*args, MSDA_LEVELS), 20)
-                out[f'{kind}_bwd B={B} Q={Q} H={H}'] = cuda_ms(
+                out[f'{kind}_bwd {shape}'] = cuda_ms(
                     lambda: bwd(*args, MSDA_LEVELS, *cot), 20)
-        # the table VW = value . Wc of K9 and K10 and its backward (a tree
-        # from before the table form has no backward), embed . token_w, and
-        # the outer sums that K5, K8 and K10 run inside their launches
+                if lstm:
+                    continue
+                table = {'fwd': 0.0, 'bwd': 0.0}
+                if args is not full:        # the table's share of a pass
+                    rows = full[0].reshape(-1, full[0].shape[-1])
+                    cw, G = full[3], torch.randn_like(args[1])
+                    table['fwd'] = cuda_ms(
+                        lambda: dsa_tables.table_gemm(rows, cw), 20)
+                    table['bwd'] = cuda_ms(lambda: dsa_tables.table_gemm_bwd(
+                        rows, cw, G.reshape(rows.shape[0], -1)), 20)
+                for d in ('fwd', 'bwd'):
+                    out[f'{kind}_{d} {shape} +table/29'] = \
+                        out[f'{kind}_{d} {shape}'] + table[d] / 29
+        # the table VW = value . Wc of K7-K10 and its backward (a tree from
+        # before the table form has no backward), embed . token_w, and the
+        # outer sums that K5 and K10 run inside their launches
         for N, k, n, label in ((375, 512, 512, 'value . Wc B=1 H=1'),
                                (16 * 375, 512, 512, 'value . Wc B=16 H=1'),
                                (16 * 8 * 375, 64, 512, 'value . Wc B=16 H=8'),
@@ -1721,8 +1779,9 @@ def _counted():
                'table_gemm_bwd': dsa_tables.table_gemm_bwd}
     plain = (ops.ms_deform_attn_ref, ops.dsa_teacher_scan_ref,
              ops.dsa_greedy_scan_ref, ops.sample_attend_ref,
-             ops.lstm_step_ref, dsa_step.lstm_step_table_ref,
-             dsa_tables.table_gemm_ref, dsa_tables.table_gemm_bwd_ref)
+             dsa_step.sample_attend_table_ref, ops.lstm_step_ref,
+             dsa_step.lstm_step_table_ref, dsa_tables.table_gemm_ref,
+             dsa_tables.table_gemm_bwd_ref)
     return kernels, plain
 
 
@@ -1945,9 +2004,9 @@ def phase_stepwise_train(tmp):
         print(f'[stepwise] kernel launches {launches}, plain-version calls '
               f'{plain}, scheduled-sampling tokens fed {fed}')
         bad = [k for k, v in losses.items() if not math.isfinite(v)]
-        # with lstm_fuse one table VW and one table backward per stepwise
-        # train step (epoch 1's 5), else none
-        tables = 5 * lstm_fuse
+        # one table VW and one table backward per stepwise train step
+        # (epoch 1's 5) under either flag
+        tables = 5
         if (bad or plain or fed < 1
                 or launches['dsa_scan_fwd'] != 5
                 or launches['dsa_scan_bwd'] != 5
@@ -1973,8 +2032,8 @@ def phase_stepwise_train(tmp):
               f'table_gemm_bwd {launches["table_gemm_bwd"]}, plain-version '
               f'calls {plain}')
         if (launches[fwd] != K or launches[bwd] != K or plain
-                or launches['table_gemm'] != lstm_fuse
-                or launches['table_gemm_bwd'] != lstm_fuse):
+                or launches['table_gemm'] != 1
+                or launches['table_gemm_bwd'] != 1):
             raise AssertionError(f'stepwise step: {launches}, K={K}')
         ms1, _ = time_steps(trainer, batch, opt.lr, 3, SS_PROB)
         batch16 = train_batch(opt, 16)
@@ -2049,7 +2108,7 @@ def phase_stepwise_serve(folder):
               f'cap_prob_eval max abs diff on those {lp_err:.2e}; B=16 '
               f'caption_batch {ms:.1f} ms')
         if (launches[fwd] != K or launches['dsa_greedy'] or plain
-                or launches['table_gemm'] != lstm_fuse
+                or launches['table_gemm'] != 1
                 or rows < 0.9 or lp_err > 1e-3):
             raise AssertionError('stepwise serving disagrees with the fused '
                                  'greedy decode')
@@ -2096,20 +2155,20 @@ def main():
     # the first shape of each kernel: MSDA forward at the encoder shape
     # (B=16, Q=375), greedy at H=1 (the recipe's cap_nheads), the training
     # kernels at B=1, the word-step kernels at the train shape (B=1, Q=90,
-    # H=1; K9 and K10 alone with VW given), the table of K9 and K10 and its
+    # H=1; alone with VW given), the table of K7-K10 and its
     # backward at B=1, H=1 (its products lie inside the TPU kernels'
     # bodies; their bound is the 3xTF32 one that the GEMM is built for);
     # the [kernels] lines above give every shape.  launches: the
     # serve path's run for msda_fwd and dsa_greedy, the train path's for the
-    # others, the stepwise train runs' for the word-step kernels and the
-    # table
+    # others, the stepwise train runs' for the word-step kernels, and both
+    # stepwise runs' for the table
     launches = {'msda_fwd': serve_launches['msda_fwd'],
                 'dsa_greedy': serve_launches['dsa_greedy'],
                 **{k: train_launches[k] for k in
                    ('msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd')},
                 **{k: step_launches[lstm][k]
                    for lstm, names in STEPWISE.items() for k in names},
-                **{k: step_launches[True][k]
+                **{k: step_launches[False][k] + step_launches[True][k]
                    for k in ('table_gemm', 'table_gemm_bwd')}}
     sources = {'msda_fwd': ('ms_deform_attn.cu', 'ms_deform_attn.py:309'),
                'msda_bwd': ('ms_deform_attn.cu', 'ms_deform_attn.py:551'),

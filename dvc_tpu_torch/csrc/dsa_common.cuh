@@ -34,14 +34,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQT = 8;         // queries per block
 constexpr int kMaxLevels = 8;
-constexpr int kRed = 3 * kQT;  // per-warp floats of block reductions
-// scoring product (tap rows x Dh) . (Dh x A) as a tiled GEMM: kBM rows x
-// kBN columns per tile, kBK-wide reduction slices of both operands staged
-// in shared memory; thread (tid / 64, tid % 64) owns 4 rows x 8 columns
-constexpr int kBM = 32;
-constexpr int kBN = 512;
-constexpr int kBK = 16;
-static_assert(kBM * kBK == kThreads && (kBM / 4) * 64 == kThreads, "tiling");
 
 struct Levels {
   int n;
@@ -150,7 +142,6 @@ struct AttendArgs {
   const float* off_w;     // (H, R, LP)
   const float* h2att_w;   // (R, A)
   const float* h2att_b;   // (A)
-  const float* cw;        // (Dh, A)
   const float* cb;        // (A)
   const float* aw;        // (A)
   int H, S, Dh, Q, LP, P, A, R;
@@ -163,12 +154,9 @@ struct AttendSmem {
   float* h;     // (kQT, pad4(R)) hidden state the step starts from
   float* hvec;  // (kQT, pad4(A))
   float* ctx;   // (kQT, pad4(H*Dh))
-  float* taps;  // (kBK, kBM) GEMM staging
-  float* wc;    // (kBK, kBN) GEMM staging
   float* wlo;   // (NR) lerp weights of the two taps
   float* whi;
   float* d;     // (NR) scores, then softmax weights
-  float* red;   // (kWarps, kRed)
   int* lo;      // (NR) flat S indices of the two taps
   int* hi;
 };
@@ -246,95 +234,6 @@ __device__ __forceinline__ void attend_given(const AttendArgs& a,
   }
 }
 
-// acc[i][j] = sum_dh taps[r0 + rg*4 + i, dh] * Wc[dh, col_j] for the
-// thread's 4 rows and its 8 columns col_j = n0 + cg*4 + j (j < 4) and
-// n0 + 256 + cg*4 + j - 4, with (rg, cg) = (tid / 64, tid % 64); the taps
-// are lerped from value on the fly.  Barriers inside; all threads call it.
-__device__ __forceinline__ void score_tile(const AttendArgs& a,
-                                           const AttendSmem& s,
-                                           const float* value_b, int r0,
-                                           int n0, float (&acc)[4][8]) {
-  const int tid = threadIdx.x, rg = tid / 64, cg = tid % 64;
-  const int NR = kQT * a.H * a.LP, Dh = a.Dh, A = a.A;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < Dh; k0 += kBK) {
-    {  // one tap value per thread, stored k-major
-      const int kk = tid / kBM, rr = tid % kBM, row = r0 + rr, dh = k0 + kk;
-      float t = 0.f;
-      if (row < NR && dh < Dh) {
-        const float* v = value_b + (size_t)((row / a.LP) % a.H) * a.S * Dh + dh;
-        t = s.wlo[row] * v[(size_t)s.lo[row] * Dh] + s.whi[row] * v[(size_t)s.hi[row] * Dh];
-      }
-      s.taps[kk * kBM + rr] = t;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int dh = k0 + i / kBN, col = n0 + i % kBN;
-      s.wc[i] = (dh < Dh && col < A) ? a.cw[(size_t)dh * A + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 t4 = ld4(s.taps + kk * kBM + rg * 4);
-      const float4 u4 = ld4(s.wc + kk * kBN + cg * 4);
-      const float4 v4 = ld4(s.wc + kk * kBN + 256 + cg * 4);
-      const float t[4] = {t4.x, t4.y, t4.z, t4.w};
-      const float w[8] = {u4.x, u4.y, u4.z, u4.w, v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(t[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ int tile_col(int n0, int j) {
-  const int cg = threadIdx.x % 64;
-  return n0 + (j < 4 ? cg * 4 + j : 256 + cg * 4 + j - 4);
-}
-
-// phase 3: d[row] = tanh(taps Wc + cb + hvec) . aw + ab for every row.
-// Barriers inside; ends with one.
-__device__ __forceinline__ void attend_scores(const AttendArgs& a,
-                                              const AttendSmem& s,
-                                              const float* value_b, float ab) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, rg = tid / 64;
-  const int HLP = a.H * a.LP, NR = kQT * HLP, A = a.A, ldA = pad4(A);
-  for (int r0 = 0; r0 < NR; r0 += kBM) {
-    float part[4] = {};
-    for (int n0 = 0; n0 < A; n0 += kBN) {
-      float acc[4][8];
-      score_tile(a, s, value_b, r0, n0, acc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tile_col(n0, j);
-        if (col >= A) continue;
-        const float cbv = a.cb[col], awv = a.aw[col];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int q = min(r0 + rg * 4 + i, NR - 1) / HLP;
-          part[i] += tanhf((acc[i][j] + cbv) + s.hvec[q * ldA + col]) * awv;
-        }
-      }
-    }
-    // the 64 threads of a row group are warps 2*rg and 2*rg + 1
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float v = warp_sum(part[i]);
-      if (lane == 0) s.red[warp * kRed + i] = v;
-    }
-    __syncthreads();
-    if (tid < kBM && r0 + tid < NR) {
-      const int g = tid / 4, i = tid % 4;
-      s.d[r0 + tid] = (s.red[2 * g * kRed + i] + s.red[(2 * g + 1) * kRed + i]) + ab;
-    }
-    __syncthreads();
-  }
-}
-
 // phase 4: softmax over the LP taps of each (q, head), in place in s.d.
 // Ends with a barrier.
 template <int QT = kQT>
@@ -407,10 +306,9 @@ __device__ __forceinline__ float cell_bwd(float zi, float zf, float zg,
 // ----------------------------------------------------------------------------
 // the attention from the per-video table VW = value . Wc (B, H, S, A), for
 // the greedy decode (dsa_greedy.cu), the scan and its backward (dsa_scan.cu)
-// and the word-step kernels K8, K9 and K10 (dsa_step.cu).  A tap is the lerp
-// of two value rows, so taps . Wc is the same lerp of two VW rows: a score
-// costs 2A loads and A tanh, and no Dh x A product.  The word step's forward
-// K7 keeps the product form above (attend_scores, score_tile).
+// and the word-step kernels K7-K10 (dsa_step.cu).  A tap is the lerp of two
+// value rows, so taps . Wc is the same lerp of two VW rows: a score costs 2A
+// loads and A tanh, and no Dh x A product.
 // ----------------------------------------------------------------------------
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -450,6 +348,41 @@ __device__ __forceinline__ void attend_scores_table(const AttendArgs& a,
       acc = fmaf(tanhf(score_pre(wl, __ldg(xl + c), wh, __ldg(xh + c),
                                  __ldg(a.cb + c), hv[c])),
                  __ldg(a.aw + c), acc);
+    acc = warp_sum(acc);
+    if (lane == 0) s.d[row] = acc + ab;
+  }
+  __syncthreads();
+}
+
+// phase 3 from the table as attend_scores_table, each lane on float4 column
+// groups (A a multiple of 4; VW rows, cb, aw and hvec rows 16-byte aligned)
+// with a row's loads issued ahead of its tanh: the word step's forward K7,
+// whose scores are nearly all it computes, so the L2 latency of a row's
+// 2A loads is not hidden behind other work.  Ends with a barrier.
+template <int QT>
+__device__ __forceinline__ void attend_scores_table4(const AttendArgs& a,
+                                                     const AttendSmem& s,
+                                                     const float* vw_b, float ab) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int H = a.H, LP = a.LP, A = a.A, HLP = H * LP, NR = QT * HLP;
+  const int ldA = pad4(A);
+  for (int row = warp; row < NR; row += kWarps) {
+    const int q = row / HLP, hh = (row / LP) % H;
+    const float* vw = vw_b + (size_t)hh * a.S * A;
+    const float* xl = vw + (size_t)s.lo[row] * A;
+    const float* xh = vw + (size_t)s.hi[row] * A;
+    const float* hv = s.hvec + q * ldA;
+    const float wl = s.wlo[row], wh = s.whi[row];
+    float acc = 0.f;
+#pragma unroll 4
+    for (int c = lane * 4; c < A; c += 128) {
+      const float4 l = ldg4(xl + c), h = ldg4(xh + c), cb = ldg4(a.cb + c);
+      const float4 aw = ldg4(a.aw + c), hq = ld4(hv + c);
+      acc = fmaf(tanhf(score_pre(wl, l.x, wh, h.x, cb.x, hq.x)), aw.x, acc);
+      acc = fmaf(tanhf(score_pre(wl, l.y, wh, h.y, cb.y, hq.y)), aw.y, acc);
+      acc = fmaf(tanhf(score_pre(wl, l.z, wh, h.z, cb.z, hq.z)), aw.z, acc);
+      acc = fmaf(tanhf(score_pre(wl, l.w, wh, h.w, cb.w, hq.w)), aw.w, acc);
+    }
     acc = warp_sum(acc);
     if (lane == 0) s.d[row] = acc + ab;
   }
@@ -682,13 +615,13 @@ __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int 
 
 // the attention operands that every kernel takes; base_pos, scale, off_w
 // and h2att are set by the kernels that start from the hidden state
-static bool fill_attend(AttendArgs* at, const float* value_t, const float* cw,
+static bool fill_attend(AttendArgs* at, const float* value_t,
                         const float* cb, const float* aw, const int* shapes,
                         int H, int S, int Dh, int Q, int LP, int L, int A,
                         int R) {
   if (L < 1 || LP % L != 0) return false;
   *at = AttendArgs{};
-  at->value = value_t; at->cw = cw; at->cb = cb; at->aw = aw;
+  at->value = value_t; at->cb = cb; at->aw = aw;
   at->H = H; at->S = S; at->Dh = Dh; at->Q = Q; at->LP = LP; at->P = LP / L;
   at->A = A; at->R = R;
   return make_levels(L, shapes, S, &at->lv);

@@ -10,7 +10,7 @@
 // its rows, Y along the terms), dvalue's G . Wc^T and the table backward's
 // g . w^T (both along their rows), and the outer sums X^T Y over (video,
 // step, query) rows (outer_sum: both along the terms).  These products lie
-// inside the TPU kernels' bodies: K4-K6 and K8-K10 in dvc_tpu/ops/dsa_scan.py,
+// inside the TPU kernels' bodies: K4-K10 in dvc_tpu/ops/dsa_scan.py,
 // dsa_greedy.py and dsa_step.py, which multiply in f32.
 //
 // What bounds it on the H100: f32 operations at the outer sums' and the

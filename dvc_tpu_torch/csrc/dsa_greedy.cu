@@ -60,7 +60,7 @@ using namespace dsa;
 
 
 struct GreedyArgs {
-  AttendArgs at;          // value, base_pos, scale, off_w, h2att, cw, cb, aw
+  AttendArgs at;          // value, base_pos, scale, off_w, h2att, cb, aw
   const float* const_z;   // (B, Q, 4R)
   const float* vw;        // (B, H, S, A) the table value_t Wc
   const float* tw;        // (V1, 4R) the table embed token_w
@@ -181,7 +181,7 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
   AttendSmem sm{};
   sm.h = smem + L.h; sm.hvec = smem + L.hvec; sm.ctx = smem + L.ctx;
   sm.wlo = smem + L.wlo; sm.whi = smem + L.whi; sm.d = smem + L.d;
-  sm.red = red_s; sm.lo = ints + L.lo; sm.hi = ints + L.hi;
+  sm.lo = ints + L.lo; sm.hi = ints + L.hi;
 
   // queries past the end of the ragged last tile compute on a copy of the
   // last query and write nothing
@@ -303,7 +303,7 @@ extern "C" int dvc_dsa_greedy(
     int R, int E, int V1, int K, int work_floats, void* stream) {
   GreedyArgs a;
   AttendArgs& at = a.at;
-  if (!fill_attend(&at, value_t, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
+  if (!fill_attend(&at, value_t, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
   at.base_pos = base_pos; at.scale = scale_t;
   at.off_w = off_w_h; at.h2att_w = h2att_w; at.h2att_b = h2att_b;

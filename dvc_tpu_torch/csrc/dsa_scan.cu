@@ -88,11 +88,11 @@ struct ScanArgs {
 
 // shared memory of the forward: h, the next h, c, hvec and ctx of the tile
 // (QT rows each) and its tap table
-struct FwdLayout {
+struct ForwardLayout {
   int h, hn, c, hvec, ctx, wlo, whi, d;  // float offsets
   int lo, hi;                            // int offsets
   int floats, ints;
-  __host__ __device__ FwdLayout(int QT, int R, int A, int HD, int NR) {
+  __host__ __device__ ForwardLayout(int QT, int R, int A, int HD, int NR) {
     int o = 0;
     h = o;    o += QT * pad4(R);
     hn = o;   o += QT * pad4(R);
@@ -122,7 +122,7 @@ scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs
   const int R = at.R, A = at.A, H = at.H, Dh = at.Dh, Q = at.Q;
   const int HD = H * Dh, R4 = 4 * R, NR = QT * H * at.LP;
   const int ldR = pad4(R), ldHD = pad4(HD);
-  const FwdLayout L(QT, R, A, HD, NR);
+  const ForwardLayout L(QT, R, A, HD, NR);
   float* hn_s = smem + L.hn;
   float* c_s = smem + L.c;
   int* ints = reinterpret_cast<int*>(smem + L.floats);
@@ -409,7 +409,7 @@ bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_
                         const float* h2att_b, const float* cw, const float* cb,
                         const float* aw, const int* shapes, int H, int S, int Dh, int Q,
                         int LP, int L, int A, int R) {
-  if (!fill_attend(at, value_t, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
+  if (!fill_attend(at, value_t, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return false;
   at->base_pos = base_pos; at->scale = scale_t; at->off_w = off_w_h;
   at->h2att_w = h2att_w; at->h2att_b = h2att_b;
@@ -445,7 +445,7 @@ extern "C" int dvc_dsa_scan_fwd(
   // 4 queries at least: on a B = 1 grid 2-query tiles (45 blocks) lose to
   // 4-query ones (23), whose gate products read the weights half as often
   const int QT = query_tile(B, Q, 4, 16);
-  const size_t smem = FwdLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
+  const size_t smem = ForwardLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = QT == 4 ? set_smem(scan_fwd_kernel<4>, smem)
                   : QT == 16 ? set_smem(scan_fwd_kernel<16>, smem)

@@ -17,47 +17,48 @@
 // JAX package.  The TPU kernels' grid runs over B alone with all Q queries in
 // one VMEM block; here a block owns (video b, a tile of queries).  The
 // attention phases are those of the fused scan and greedy kernels
-// (dsa_common.cuh), entered through attend_given.  K7 keeps the product form
-// (taps . Wc per tap row, attend_scores) with 8-query tiles.
+// (dsa_common.cuh), entered through attend_given.
 //
-// K8, K9 and K10 score from the per-video table VW = value_t Wc
-// (B, H, S, A): a tap is a lerp of two value rows, so taps . Wc is the same
+// All four score from the per-video table VW = value_t Wc (B, H, S, A),
+// an operand: a tap is a lerp of two value rows, so taps . Wc is the same
 // lerp of two VW rows (attend_scores_table: 2A loads and A tanh per tap
-// row, no Dh x A product).  K8 builds VW in every launch with the 3xTF32 GEMM
-// of dsa_gemm.cuh.  K9 and K10 take it as an operand: VW does not change
-// across the word steps of one forward pass, so the caller builds it once
-// per pass (dvc_dsa_table_gemm, dsa_tables.cu) and its backward, G . Wc^T
-// into dvalue and dWc = value^T G (dvc_dsa_table_gemm_bwd), runs once per
-// backward pass on G summed over the steps.  K9 is one step of the scan
-// forward K4 (attend_scores_table, attend_softmax_ctx, add_gates, the cell)
-// with the given pos and hvec; K10 one reverse step of the scan backward K5
-// with the incoming (dh, dc) given: the recompute from VW, cell_bwd,
-// gates_backprop_rows, attend_backward_table (du formed once per (query,
-// column part) from VW, dpos written directly); it writes G = dL/dVW and only
-// the context's term of dvalue.  K8 does the same backward for a given
-// d ctx and then the two GEMMs itself.  The host picks their query tile
-// from B, Q and the SM count (query_tile): K9 as K4 (4 queries on a small
-// grid such as a B = 1 step's, 16 where 8-query tiles would take more than a
-// wave), K8 and K10 as K5 (2 or 4 on a small grid, else 8).
+// row, no Dh x A product).  VW does not change across the word steps of one
+// forward pass, so the caller builds it once per pass (dvc_dsa_table_gemm,
+// dsa_tables.cu) and its backward, G . Wc^T into dvalue and dWc = value^T G
+// (dvc_dsa_table_gemm_bwd), runs once per backward pass on G summed over
+// the steps.  K7 is K9 without the gates and the cell: attend_given, the
+// scores from VW with float4 lanes (attend_scores_table4), then
+// attend_softmax_ctx.  K9 is one step of the scan forward K4
+// (attend_scores_table, attend_softmax_ctx, then add_gates and the cell)
+// with the given pos and hvec; K8 and K10 one reverse step of the scan backward K5 with the
+// incoming d ctx (K8) or (dh, dc) (K10) given: the recompute from VW
+// (cell_bwd and gates_backprop_rows in K10), attend_backward_table (du
+// formed once per (query, column part) from VW, dpos written directly);
+// they write G = dL/dVW and only the context's term of dvalue.  The host
+// picks their query tile from B, Q and the SM count (query_tile): K7 2 or 4
+// (it has no weight product for a larger tile to share, so more blocks and
+// more warps in flight hide more of its L2 latency), K9 as K4 (4 queries
+// on a small grid such as a B = 1 step's, 16 where 8-query tiles would take
+// more than a wave), K8 and K10 as K5 (2 or 4 on a small grid, else 8).
 //
 // On the TPU the weight gradients accumulate in revisited blocks over the
 // sequential grid; here blocks run in parallel, so (as in K5) dvalue and G,
 // the lerp-weighted scatter of du onto the value rows, take float4 atomics;
-// dW_hh = h^T dz and dctx_w3 = ctx^T dz (K10) and dWc = sum_b value^T G (K8)
-// are reduced by the GEMM's outer_sum (dsa_gemm.cuh), and dcb, d alpha_w, d alpha_b are
-// per-lane partial sums added with atomics.
+// dW_hh = h^T dz and dctx_w3 = ctx^T dz (K10) are reduced by the GEMM's
+// outer_sum (dsa_gemm.cuh), and dcb, d alpha_w, d alpha_b are per-lane
+// partial sums added with atomics.
 //
-// Bound on this card: f32 operations (the scores' taps . Wc, H*LP*Dh*A MACs
-// per query in K7's product form, 2A a tap row from the table, and in K9/K10
-// h W_hh and ctx ctx_w3, 4R*(R + H*Dh) per query, with their transposes in
-// K10); as in the scan kernels the gate products read activations from
-// shared memory and weights (8 MB at R = 512) from L2 once per query tile,
-// so L2 bandwidth and the FP32 issue rate bound them; the table reads
-// (B*H*S*A floats, 98 MB at B = 16, H = 8) come from L2 or HBM.
-// Limits of K8, K9 and K10: A <= 512 (two float4 column groups per lane and
-// column part), A and Dh multiples of 4 (K9, K10 also R), and the shared
-// memory of a block (checked at launch: K10's staged dz, QT x 4R floats,
-// takes most of it).
+// Bound on this card: K7 and K8 the bytes of VW and value (B*H*S*A and
+// B*H*S*Dh floats, 12 MB each at B = 16, H = 1) and the scores' 2A loads
+// and A tanh per tap row from L2; K9 and K10 f32 operations, h W_hh and
+// ctx ctx_w3, 4R*(R + H*Dh) per query, with their transposes in K10: as in
+// the scan kernels the gate products read activations from shared memory
+// and weights (8 MB at R = 512) from L2 once per query tile, so L2
+// bandwidth and the FP32 issue rate bound them.
+// Limits of K7-K10: A <= 512 (two float4 column groups per lane and column
+// part in the backwards), A and Dh multiples of 4 (K9, K10 also R), and the
+// shared memory of a block (checked at launch: K10's staged dz, QT x 4R
+// floats, takes most of it).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,7 +72,7 @@ namespace {
 using namespace dsa;
 
 struct StepArgs {
-  AttendArgs at;        // value, cw (K7), cb, aw and the shapes
+  AttendArgs at;        // value, cb, aw and the shapes
   const float* pos;     // (B, H, Q, LP) level-relative positions
   const float* hvec;    // (B, Q, A)
   const float* ab;      // (1): read on the card, so the host never waits
@@ -97,29 +98,6 @@ struct StepGrads {
   float* dh;        // (B, Q, R)
   float* dc;        // (B, Q, R)
   float* ctx_all;   // (B, Q, H*Dh) rows for dctx_w3
-};
-
-// shared memory of K7 (the product form)
-struct FwdLayout {
-  int hvec, ctx, taps, wc, wlo, whi, d, red;  // float offsets
-  int lo, hi;                                 // int offsets
-  int floats, ints;
-  __host__ __device__ FwdLayout(int A, int HD, int NR) {
-    int o = 0;
-    hvec = o; o += kQT * pad4(A);
-    ctx = o;  o += kQT * pad4(HD);
-    taps = o; o += kBK * kBM;
-    wc = o;   o += kBK * kBN;
-    wlo = o;  o += pad4(NR);
-    whi = o;  o += pad4(NR);
-    d = o;    o += pad4(NR);
-    red = o;  o += kWarps * kRed;
-    floats = o;
-    lo = 0;
-    hi = NR;
-    ints = 2 * NR;
-  }
-  size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
 };
 
 // the tile's hidden states h (B, Q, R) into sm.h; a query past Q reads the
@@ -181,39 +159,13 @@ __device__ __forceinline__ void store_table_grads(
 // forwards
 // ----------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-step_fwd_kernel(StepArgs a, float* __restrict__ ctx_out) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const AttendArgs& at = a.at;
-  const int tid = threadIdx.x, b = blockIdx.y, q0 = blockIdx.x * kQT;
-  const int H = at.H, Dh = at.Dh, Q = at.Q, HD = H * Dh, ldHD = pad4(HD);
-  const FwdLayout L(at.A, HD, kQT * H * at.LP);
-  int* ints = reinterpret_cast<int*>(smem + L.floats);
-  AttendSmem sm{};
-  sm.hvec = smem + L.hvec; sm.ctx = smem + L.ctx; sm.taps = smem + L.taps;
-  sm.wc = smem + L.wc; sm.wlo = smem + L.wlo; sm.whi = smem + L.whi;
-  sm.d = smem + L.d; sm.red = smem + L.red; sm.lo = ints + L.lo; sm.hi = ints + L.hi;
-  const float* value_b = at.value + (size_t)b * H * at.S * Dh;
-
-  attend_given(at, sm, b, q0, a.pos, a.hvec);
-  __syncthreads();
-  attend_scores(at, sm, value_b, __ldg(a.ab));
-  attend_softmax_ctx(at, sm, value_b);
-  for (int i = tid; i < kQT * HD; i += kThreads) {
-    const int q = i / HD, hd = i % HD, hh = hd / Dh, dh = hd % Dh;
-    if (q0 + q < Q)
-      ctx_out[(((size_t)b * H + hh) * Q + q0 + q) * Dh + dh] = sm.ctx[q * ldHD + hd];
-  }
-}
-
-// shared memory of K9: h, hvec and ctx of the tile (QT rows each) and its
-// tap table
-struct LstmFwdLayout {
+// shared memory of K7 and K9: h (K9; R = 0 for K7), hvec and ctx of the
+// tile (QT rows each) and its tap table
+struct ForwardLayout {
   int h, hvec, ctx, wlo, whi, d;  // float offsets
   int lo, hi;                     // int offsets
   int floats, ints;
-  __host__ __device__ LstmFwdLayout(int QT, int R, int A, int HD, int NR) {
+  __host__ __device__ ForwardLayout(int QT, int R, int A, int HD, int NR) {
     int o = 0;
     h = o;    o += QT * pad4(R);
     hvec = o; o += QT * pad4(A);
@@ -229,6 +181,37 @@ struct LstmFwdLayout {
   size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
 };
 
+// K7: the attention of one word step from the given pos and hvec, with the
+// scores from the table VW = value . Wc (K9 without the gates and the cell)
+template <int QT>
+__global__ void __launch_bounds__(kThreads)
+step_fwd_kernel(StepArgs a, const float* __restrict__ vw, float* __restrict__ ctx_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const AttendArgs& at = a.at;
+  const int tid = threadIdx.x, b = blockIdx.y, q0 = blockIdx.x * QT;
+  const int H = at.H, Dh = at.Dh, Q = at.Q, S = at.S, HD = H * Dh, ldHD = pad4(HD);
+  const ForwardLayout L(QT, 0, at.A, HD, QT * H * at.LP);
+  int* ints = reinterpret_cast<int*>(smem + L.floats);
+  AttendSmem sm{};
+  sm.hvec = smem + L.hvec; sm.ctx = smem + L.ctx;
+  sm.wlo = smem + L.wlo; sm.whi = smem + L.whi; sm.d = smem + L.d;
+  sm.lo = ints + L.lo; sm.hi = ints + L.hi;
+  const float* value_b = at.value + (size_t)b * H * S * Dh;
+  const float* vw_b = vw + (size_t)b * H * S * at.A;
+
+  attend_given<QT>(at, sm, b, q0, a.pos, a.hvec);
+  __syncthreads();
+  attend_scores_table4<QT>(at, sm, vw_b, __ldg(a.ab));
+  attend_softmax_ctx<QT>(at, sm, value_b);
+  // the tile's ctx rows
+  for (int i = tid; i < QT * HD; i += kThreads) {
+    const int q = i / HD, hd = i % HD, hh = hd / Dh, dh = hd % Dh;
+    if (q0 + q < Q)
+      ctx_out[(((size_t)b * H + hh) * Q + q0 + q) * Dh + dh] = sm.ctx[q * ldHD + hd];
+  }
+}
+
 // K9: one step of the scan forward (K4) from the given pos and hvec, with
 // the scores from the table VW = value . Wc
 template <int QT>
@@ -240,7 +223,7 @@ lstm_fwd_kernel(StepArgs a, const float* __restrict__ vw, float* __restrict__ h_
   const AttendArgs& at = a.at;
   const int tid = threadIdx.x, b = blockIdx.y, q0 = blockIdx.x * QT;
   const int H = at.H, Dh = at.Dh, Q = at.Q, R = at.R, S = at.S;
-  const LstmFwdLayout L(QT, R, at.A, H * Dh, QT * H * at.LP);
+  const ForwardLayout L(QT, R, at.A, H * Dh, QT * H * at.LP);
   int* ints = reinterpret_cast<int*>(smem + L.floats);
   AttendSmem sm{};
   sm.h = smem + L.h; sm.hvec = smem + L.hvec; sm.ctx = smem + L.ctx;
@@ -456,18 +439,16 @@ lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
 }
 
 bool fill_step(StepArgs* a, const float* value_t, const float* pos,
-               const float* hvec, const float* cw, const float* cb,
-               const float* aw, const float* ab, const int* shapes, int H,
-               int S, int Dh, int Q, int LP, int L, int A, int R) {
+               const float* hvec, const float* cb, const float* aw,
+               const float* ab, const int* shapes, int H, int S, int Dh, int Q,
+               int LP, int L, int A, int R) {
   *a = StepArgs{};
   a->pos = pos; a->hvec = hvec; a->ab = ab;
-  return fill_attend(&a->at, value_t, cw, cb, aw, shapes, H, S, Dh, Q, LP, L,
-                     A, R);
+  return fill_attend(&a->at, value_t, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R);
 }
 
-// the limits of the table-form kernels K8, K9 and K10 (see the top) and
-// their float4 reads: value rows, VW rows, cb, alpha_w, and the gate
-// weights' rows in K10
+// the limits of K7-K10 (see the top) and their float4 reads: value rows,
+// VW rows, cb, alpha_w, and the gate weights' rows in K10
 bool table_limits(int A, int Dh, std::initializer_list<const float*> f4) {
   if (A > 256 * kColGroups || A % 4 != 0 || Dh % 4 != 0) return false;
   for (const float* p : f4)
@@ -478,84 +459,87 @@ bool table_limits(int A, int Dh, std::initializer_list<const float*> f4) {
 }  // namespace
 
 // Shapes as in the JAX kernels' operands (dvc_tpu/ops/dsa_step.py): value_t
-// (B, H, S, Dh), pos (B, H, Q, LP) level-relative, hvec (B, Q, A), cw
-// (Dh, A), cb (A), aw (A), ab one float in device memory; ctx (B, H, Q, Dh)
-// is written.  All f32, contiguous, on the current device; shapes is a host
-// array of the L level lengths.  Each entry point returns cudaGetLastError()
-// of its launches, or cudaErrorInvalidValue for shapes it does not take.
+// (B, H, S, Dh), pos (B, H, Q, LP) level-relative, hvec (B, Q, A), cb (A),
+// aw (A), ab one float in device memory, and in place of the JAX kernels' cw
+// (Dh, A) the table vw (B, H, S, A) = value_t . cw.  All f32, contiguous, on
+// the current device; shapes is a host array of the L level lengths.  Each
+// entry point returns cudaGetLastError() of its launches, or
+// cudaErrorInvalidValue for shapes it does not take.
+//
+// K7: ctx (B, H, Q, Dh) is written.  A <= 512, A and Dh multiples of 4;
+// vw, cb and aw 16-byte aligned (read as float4).
 extern "C" int dvc_dsa_step_fwd(
-    const float* value_t, const float* pos, const float* hvec, const float* cw,
+    const float* value_t, const float* vw, const float* pos, const float* hvec,
     const float* cb, const float* aw, const float* ab, const int* shapes,
     float* ctx, int B, int H, int S, int Dh, int Q, int LP, int L, int A,
     void* stream) {
   StepArgs a;
-  if (!fill_step(&a, value_t, pos, hvec, cw, cb, aw, ab, shapes, H, S, Dh, Q,
-                 LP, L, A, 0))
+  if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
+                 A, 0) ||
+      !table_limits(A, Dh, {vw, cb, aw}))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Q == 0) return 0;
-  const size_t smem = FwdLayout(A, H * Dh, kQT * H * LP).bytes();
-  cudaError_t e = set_smem(step_fwd_kernel, smem);
+  // no weight product to share, so the most blocks: 2 or 4 queries where
+  // that grid fits half the SMs (B = 1), 4 where 8-query tiles would take
+  // more than a wave (B = 16), else 8
+  const int QT = query_tile(B, Q, 2, 4);
+  const size_t smem = ForwardLayout(QT, 0, A, H * Dh, QT * H * LP).bytes();
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = QT == 2 ? set_smem(step_fwd_kernel<2>, smem)
+                  : QT == 4 ? set_smem(step_fwd_kernel<4>, smem)
+                            : set_smem(step_fwd_kernel<kQT>, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Q + kQT - 1) / kQT, B);
-  step_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a, ctx);
+  const dim3 grid((Q + QT - 1) / QT, B);
+  if (QT == 2)
+    step_fwd_kernel<2><<<grid, kThreads, smem, st>>>(a, vw, ctx);
+  else if (QT == 4)
+    step_fwd_kernel<4><<<grid, kThreads, smem, st>>>(a, vw, ctx);
+  else
+    step_fwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, vw, ctx);
   return (int)cudaGetLastError();
 }
 
-// K7's gradients for the cotangent g (B, H, Q, Dh) of ctx.  dvalue
-// (B, H, S, Dh), dcb (A), daw (A), dab (1) and the scratch G (B, H, S, A)
-// zeroed by the caller; dpos (B, H, Q, LP), dhvec (B, Q, A), dcw (Dh, A)
-// fully written.  Scratch: vw (B, H, S, A), the table value . Wc built here
-// first, and work (work_floats floats) for its GEMMs' split-K partial tiles
-// (see dsa::gemm_as).  A <= 512, A and Dh multiples of 4; value_t, cb
-// and aw 16-byte aligned (read as float4).
+// K7's gradients for the cotangent g (B, H, Q, Dh) of ctx, with respect to
+// its operands: dvalue (B, H, S, Dh), the context's term only (the scores'
+// reach value through vw), and G (B, H, S, A) = dL/dvw, both zeroed by the
+// caller with dcb (A), daw (A) and dab (1) (atomics); dpos (B, H, Q, LP) and
+// dhvec (B, Q, A) fully written.  A <= 512, A and Dh multiples of 4;
+// value_t, vw, cb and aw 16-byte aligned (read as float4).
 extern "C" int dvc_dsa_step_bwd(
-    const float* value_t, const float* pos, const float* hvec, const float* cw,
+    const float* value_t, const float* vw, const float* pos, const float* hvec,
     const float* cb, const float* aw, const float* ab, const float* g,
-    const int* shapes, float* dvalue, float* dpos, float* dhvec, float* dcw,
-    float* dcb, float* daw, float* dab, float* G, float* vw, float* work, int B,
-    int H, int S, int Dh, int Q, int LP, int L, int A, int work_floats,
-    void* stream) {
+    const int* shapes, float* dvalue, float* G, float* dpos, float* dhvec,
+    float* dcb, float* daw, float* dab, int B, int H, int S, int Dh, int Q,
+    int LP, int L, int A, void* stream) {
   StepArgs a;
-  if (!fill_step(&a, value_t, pos, hvec, cw, cb, aw, ab, shapes, H, S, Dh, Q,
-                 LP, L, A, 0) ||
-      !table_limits(A, Dh, {value_t, cb, aw}))
+  if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
+                 A, 0) ||
+      !table_limits(A, Dh, {value_t, vw, cb, aw}))
     return (int)cudaErrorInvalidValue;
+  if (B == 0 || Q == 0) return 0;
   StepGrads o{};
   o.g = g; o.dvalue = dvalue; o.G = G; o.dpos = dpos; o.dhvec = dhvec;
   o.dcb = dcb; o.daw = daw; o.dab = dab;
+  // at most 8 queries a tile: a warp of the score backward owns a (query,
+  // column part), and A <= 512 needs two parts
+  const int QT = query_tile(B, Q, 2, kQT);
+  const size_t smem = TableBwdLayout(QT, A, H * Dh, QT * H * LP).bytes();
   cudaStream_t st = (cudaStream_t)stream;
-  const int BHS = B * H * S;
-  const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
-  cudaError_t e = cudaSuccess;
-  if (B > 0 && Q > 0) {
-    // at most 8 queries a tile: a warp of the score backward owns a
-    // (query, column part), and A <= 512 needs two parts
-    const int QT = query_tile(B, Q, 2, kQT);
-    const size_t smem = TableBwdLayout(QT, A, H * Dh, QT * H * LP).bytes();
-    e = QT == 2 ? set_smem(step_bwd_kernel<2>, smem)
-        : QT == 4 ? set_smem(step_bwd_kernel<4>, smem)
-                  : set_smem(step_bwd_kernel<kQT>, smem);
-    // the table value . Wc, once per launch
-    if (e == cudaSuccess) e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((Q + QT - 1) / QT, B);
-    if (QT == 2)
-      step_bwd_kernel<2><<<grid, kThreads, smem, st>>>(a, o, vw);
-    else if (QT == 4)
-      step_bwd_kernel<4><<<grid, kThreads, smem, st>>>(a, o, vw);
-    else
-      step_bwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, o, vw);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    // the scores' share of dvalue: dvalue += G . Wc^T
-    e = gemm(Operand{G, A, false}, Operand{cw, A, false}, BHS, Dh, A, true, dvalue,
-             work, wf, st);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, wf);
+  cudaError_t e = QT == 2 ? set_smem(step_bwd_kernel<2>, smem)
+                  : QT == 4 ? set_smem(step_bwd_kernel<4>, smem)
+                            : set_smem(step_bwd_kernel<kQT>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Q + QT - 1) / QT, B);
+  if (QT == 2)
+    step_bwd_kernel<2><<<grid, kThreads, smem, st>>>(a, o, vw);
+  else if (QT == 4)
+    step_bwd_kernel<4><<<grid, kThreads, smem, st>>>(a, o, vw);
+  else
+    step_bwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, o, vw);
+  return (int)cudaGetLastError();
 }
 
-// K9: as dvc_dsa_step_fwd with vw (B, H, S, A), the table value_t . cw, in
-// place of cw, plus z0 (B, Q, 4R), h and c (B, Q, R), ctx_w3 (H*Dh, 4R)
+// K9: as dvc_dsa_step_fwd, plus z0 (B, Q, 4R), h and c (B, Q, R), ctx_w3 (H*Dh, 4R)
 // and w_hh (R, 4R); h_new and c_new (B, Q, R) are written.  A <= 512; A,
 // Dh and R multiples of 4.
 extern "C" int dvc_dsa_lstm_fwd(
@@ -565,8 +549,8 @@ extern "C" int dvc_dsa_lstm_fwd(
     const int* shapes, float* h_new, float* c_new, int B, int H, int S, int Dh,
     int Q, int LP, int L, int A, int R, void* stream) {
   StepArgs a;
-  if (!fill_step(&a, value_t, pos, hvec, nullptr, cb, aw, ab, shapes, H, S, Dh,
-                 Q, LP, L, A, R) ||
+  if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
+                 A, R) ||
       !table_limits(A, Dh, {}) || R % 4 != 0)
     return (int)cudaErrorInvalidValue;
   a.z0 = z0; a.h = h; a.c = c; a.ctx_w3 = ctx_w3; a.w_hh = w_hh;
@@ -574,7 +558,7 @@ extern "C" int dvc_dsa_lstm_fwd(
   // as K4: 4 queries at least, 16 where 8-query tiles would take more than
   // a wave
   const int QT = query_tile(B, Q, 4, 16);
-  const size_t smem = LstmFwdLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
+  const size_t smem = ForwardLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = QT == 4 ? set_smem(lstm_fwd_kernel<4>, smem)
                   : QT == 16 ? set_smem(lstm_fwd_kernel<16>, smem)
@@ -608,8 +592,8 @@ extern "C" int dvc_dsa_lstm_bwd(
     float* ctx_all, float* work, int B, int H, int S, int Dh, int Q, int LP,
     int L, int A, int R, int work_floats, void* stream) {
   StepArgs a;
-  if (!fill_step(&a, value_t, pos, hvec, nullptr, cb, aw, ab, shapes, H, S, Dh,
-                 Q, LP, L, A, R) ||
+  if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
+                 A, R) ||
       !table_limits(A, Dh, {value_t, vw, cb, aw, ctx_w3, w_hh}) || R % 4 != 0)
     return (int)cudaErrorInvalidValue;
   a.z0 = z0; a.h = h; a.c = c; a.ctx_w3 = ctx_w3; a.w_hh = w_hh;

@@ -1,13 +1,13 @@
 // The per-video tables on their own: table (N, n) = x (N, k) w (k, n) and
-// its backward, by dsa::gemm (dsa_gemm.cuh), the GEMM that dvc_dsa_greedy,
-// dvc_dsa_scan_fwd/_bwd and dvc_dsa_step_bwd also run inside every launch
-// (value_t Wc, embed token_w, G Wc^T and the weight gradients' outer sums).
-// The word-step kernels K9 and K10 (dsa_step.cu) take VW = value_t Wc as an
-// operand: the caption head builds it here once per forward pass, and its
-// backward runs here once per backward pass on the cotangent G summed over
-// the word steps.  These products lie inside the TPU kernels' bodies
-// (`_make_lstm_fwd_kernel` and `_make_lstm_bwd_kernel`,
-// dvc_tpu/ops/dsa_step.py), which multiply in f32.  Bound: f32 operations
+// its backward, by dsa::gemm (dsa_gemm.cuh), the GEMM that dvc_dsa_greedy
+// and dvc_dsa_scan_fwd/_bwd also run inside every launch (value_t Wc, embed
+// token_w, G Wc^T and the weight gradients' outer sums).  The word-step
+// kernels K7-K10 (dsa_step.cu) take VW = value_t Wc as an operand: the
+// caption head builds it here once per forward pass, and its backward runs
+// here once per backward pass on the cotangent G summed over the word
+// steps.  These products lie inside the TPU kernels' bodies
+// (`_make_fwd_kernel`, `_make_bwd_kernel`, `_make_lstm_fwd_kernel` and
+// `_make_lstm_bwd_kernel`, dvc_tpu/ops/dsa_step.py), which multiply in f32.  Bound: f32 operations
 // (2 N k n each product; 3xTF32 on the tensor cores does three TF32 ones)
 // at B = 16, H = 1, and the bytes of x (N, 64) w and the table at H = 8.
 // At B = 1 (375 rows) the 64 x 64 tiles and their split-K chunks fill the

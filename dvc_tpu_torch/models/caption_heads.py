@@ -13,13 +13,13 @@ head dispatches them:
   (teacher forcing, ``scan_fuse`` with scheduled sampling off);
 * stepwise, one launch per step (``_step``): scheduled sampling, or either
   flag off.  Each step's sampling positions and hvec come from h here; the
-  step itself is :func:`dvc_tpu_torch.ops.dsa_sample_attend_core` with the
-  LSTM cell in tensor ops, or with ``lstm_fuse``
-  :func:`dvc_tpu_torch.ops.dsa_step.dsa_lstm_step_table_core`, the cell
-  included, from the table ``VW = value_t . Wc`` that the head builds once
-  per forward pass (:func:`dvc_tpu_torch.ops.dsa_tables.dsa_value_table`;
+  step itself reads the table ``VW = value_t . Wc`` that the head builds
+  once per forward pass (:func:`dvc_tpu_torch.ops.dsa_tables.dsa_value_table`;
   its backward then runs once per backward pass, on the sum of the steps'
-  gradients).
+  gradients): :func:`dvc_tpu_torch.ops.dsa_step.dsa_sample_attend_table_core`
+  with the LSTM cell in tensor ops, or with ``lstm_fuse``
+  :func:`dvc_tpu_torch.ops.dsa_step.dsa_lstm_step_table_core`, the cell
+  included.
 
 Parameter names follow the reference state_dict
 (``caption_head.{i}.embed``, ``.logit``, ``.core.rnn.weight_ih_l0``,
@@ -35,9 +35,10 @@ import dataclasses
 import torch
 from torch import nn
 
-from ..ops import (dsa_greedy_scan, dsa_sample_attend_core, dsa_teacher_scan,
-                   greedy_mask_outputs, greedy_pick, lstm_cell, step_pos_hvec)
-from ..ops.dsa_step import dsa_lstm_step_table_core
+from ..ops import (dsa_greedy_scan, dsa_teacher_scan, greedy_mask_outputs,
+                   greedy_pick, lstm_cell, step_pos_hvec)
+from ..ops.dsa_step import (dsa_lstm_step_table_core,
+                            dsa_sample_attend_table_core)
 from ..ops.dsa_tables import dsa_value_table
 from .deformable_transformer import dropout
 
@@ -170,10 +171,8 @@ class DSACaptionHead(nn.Module):
 
     def _value_table(self, hoisted):
         """The stepwise path's per-video table VW = value_t . Wc
-        (B, H, S, A), built once per forward pass for the fused LSTM step
-        (``lstm_fuse``; else None)."""
-        if not self.cfg.lstm_fuse:
-            return None
+        (B, H, S, A), built once per forward pass for all its word
+        steps."""
         value_t, _, _, _, _, (_, _, _, cw, *_) = hoisted
         return dsa_value_table(value_t, cw)
 
@@ -183,15 +182,15 @@ class DSACaptionHead(nn.Module):
         token's and query's share of the preactivation, (h, c) (B, Pq, R)
         the state.  Returns (h, c)."""
         value_t, base_pos, scale_t, _, _, (
-            off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh) = hoisted
+            off_w_h, h2att_w, h2att_b, _, cb, aw, ab, ctx_w3, w_hh) = hoisted
         pos, hvec = step_pos_hvec(h, base_pos, scale_t, off_w_h, h2att_w,
                                   h2att_b)
         if self.cfg.lstm_fuse:
             return dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c,
                                             ctx_w3, w_hh, cb, aw, ab,
                                             temporal_shapes)
-        ctx = dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
-                                     temporal_shapes)         # (B, H, Pq, Dh)
+        ctx = dsa_sample_attend_table_core(value_t, vw, pos, hvec, cb, aw, ab,
+                                           temporal_shapes)   # (B, H, Pq, Dh)
         return lstm_cell(z0 + h @ w_hh
                          + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3), c)
 

@@ -9,7 +9,8 @@ from .dsa_tables import table_gemm, table_gemm_ref
 from .dsa_step import (dsa_lstm_step_bwd, dsa_lstm_step_core,
                        dsa_lstm_step_fwd, dsa_sample_attend_bwd,
                        dsa_sample_attend_core, dsa_sample_attend_fwd,
-                       lstm_step_ref, sample_attend_ref)
+                       dsa_sample_attend_table_core, lstm_step_ref,
+                       sample_attend_ref, sample_attend_table_ref)
 
 __all__ = ['ms_deform_attn', 'ms_deform_attn_bwd', 'ms_deform_attn_ref',
            'dsa_greedy_scan', 'dsa_greedy_scan_ref', 'greedy_mask_outputs',
@@ -18,5 +19,6 @@ __all__ = ['ms_deform_attn', 'ms_deform_attn_bwd', 'ms_deform_attn_ref',
            'dsa_teacher_scan_ref',
            'dsa_lstm_step_bwd', 'dsa_lstm_step_core', 'dsa_lstm_step_fwd',
            'dsa_sample_attend_bwd', 'dsa_sample_attend_core',
-           'dsa_sample_attend_fwd', 'lstm_step_ref', 'sample_attend_ref',
+           'dsa_sample_attend_fwd', 'dsa_sample_attend_table_core',
+           'lstm_step_ref', 'sample_attend_ref', 'sample_attend_table_ref',
            'table_gemm', 'table_gemm_ref']

@@ -43,7 +43,7 @@ _SIGNATURES = {
     'dvc_dsa_scan_fwd': [_P] * 18 + [_I] * 11 + [_P],
     'dvc_dsa_scan_bwd': [_P] * 35 + [_I] * 11 + [_P],
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 8 + [_P],
-    'dvc_dsa_step_bwd': [_P] * 19 + [_I] * 9 + [_P],
+    'dvc_dsa_step_bwd': [_P] * 16 + [_I] * 8 + [_P],
     'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_bwd': [_P] * 29 + [_I] * 10 + [_P],
     'dvc_dsa_table_gemm': [_P] * 4 + [_I] * 4 + [_P],

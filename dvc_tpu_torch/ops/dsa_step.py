@@ -14,24 +14,26 @@ LSTM cell (``dsa_lstm_step``), each with its backward.
   ab a 0-d tensor; the LSTM step adds z0 (B, Q, 4R), h and c (B, Q, R),
   ctx_w3 (H, Dh, 4R) and w_hh (R, 4R).  Their backwards are autograd
   through them (:func:`sample_attend_bwd_ref`, :func:`lstm_step_bwd_ref`).
-* :func:`lstm_step_table_ref` — the plain fused LSTM step in the kernels'
-  table form: vw = value_t . cw (B, H, S, A) in place of cw, each tap's
-  scores a lerp of two vw rows.  The caption head builds vw once per
-  forward pass (:func:`dvc_tpu_torch.ops.dsa_tables.dsa_value_table`), so
-  a step's gradient with respect to vw, G, is summed over the word steps
-  before the table's backward turns it into value_t's and cw's.
-* :func:`dsa_sample_attend_core` / :func:`dsa_lstm_step_table_core` — the
-  differentiable wrappers the caption head calls: CUDA tensors go to the
-  autograd Functions over the hand-written kernels of ``csrc/dsa_step.cu``
-  (K7 ``dvc_dsa_step_fwd``, K8 ``dvc_dsa_step_bwd``, K9 ``dvc_dsa_lstm_fwd``,
-  K10 ``dvc_dsa_lstm_bwd``); CPU tensors go to the plain versions.
-  :func:`dsa_lstm_step_core` is the fused step at the JAX boundary (cw
-  given): the table, then K9/K10, on the card; ``lstm_step_ref`` on the
-  CPU.
-* :func:`dsa_sample_attend_fwd` and the other three — the kernels alone:
-  they take CUDA tensors only and count their launches.
-  :func:`dsa_lstm_step_grads` composes the table, K10 and the table's
-  backward into the 12 gradients at the JAX boundary.
+* :func:`sample_attend_table_ref` / :func:`lstm_step_table_ref` — the same
+  in the kernels' table form: vw = value_t . cw (B, H, S, A) in place of
+  cw, each tap's scores a lerp of two vw rows.  The caption head builds vw
+  once per forward pass (:func:`dvc_tpu_torch.ops.dsa_tables.dsa_value_table`),
+  so a step's gradient with respect to vw, G, is summed over the word
+  steps before the table's backward turns it into value_t's and cw's.
+* :func:`dsa_sample_attend_table_core` / :func:`dsa_lstm_step_table_core`
+  — the differentiable wrappers the caption head calls: CUDA tensors go to
+  the autograd Functions over the hand-written kernels of
+  ``csrc/dsa_step.cu`` (K7 ``dvc_dsa_step_fwd``, K8 ``dvc_dsa_step_bwd``,
+  K9 ``dvc_dsa_lstm_fwd``, K10 ``dvc_dsa_lstm_bwd``); CPU tensors go to the
+  plain table-form versions.  :func:`dsa_sample_attend_core` /
+  :func:`dsa_lstm_step_core` are the steps at the JAX boundary (cw given):
+  the table, then the kernels, on the card; ``sample_attend_ref`` /
+  ``lstm_step_ref`` on the CPU.
+* :func:`dsa_sample_attend_fwd` and the other three — the kernels alone,
+  with vw given: they take CUDA tensors only and count their launches.
+  :func:`dsa_sample_attend_grads` / :func:`dsa_lstm_step_grads` compose
+  the table, K8 or K10 and the table's backward into the 7 or 12
+  gradients at the JAX boundary.
 
 The sampling and attention arithmetic is the greedy decode's and the scan's
 (:func:`dvc_tpu_torch.ops.dsa_greedy.attend`).
@@ -46,6 +48,8 @@ from .dsa_greedy import _level_bounds, attend, lstm_cell
 from .dsa_tables import dsa_value_table, table_gemm, table_gemm_bwd
 
 STEP_NAMES = ('value_t', 'pos', 'hvec', 'cw', 'cb', 'aw', 'ab')
+# the operands of K7 and K8 (and of sample_attend_table_ref)
+STEP_TABLE_NAMES = ('value_t', 'vw', 'pos', 'hvec', 'cb', 'aw', 'ab')
 LSTM_NAMES = ('value_t', 'pos', 'hvec', 'z0', 'h', 'c', 'ctx_w3', 'w_hh',
               'cw', 'cb', 'aw', 'ab')
 # the operands of K9 and K10 (and of lstm_step_table_ref)
@@ -122,22 +126,40 @@ def _lerp_rows(table, pos, hib, s0):
         + w_hi[..., None] * gather(idx_hi)
 
 
-def lstm_step_table_ref(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
-                        aw, ab, temporal_shapes):
-    """Plain K9 in the table form: :func:`lstm_step_ref` with the table
-    vw = value_t . cw (B, H, S, A) in place of cw, so a tap's scores are
-    tanh(lerp of two vw rows + cb + hvec) . aw + ab.  Returns (h_new,
-    c_new).  Autograd through it gives K10's gradients: value_t's is the
-    context's term only, vw's is G."""
-    lstm_step_table_ref.calls += 1
+def _attend_table(value_t, vw, pos, hvec, cb, aw, ab, temporal_shapes):
+    """ctx (B, H, Q, Dh) of one step with a tap's scores tanh(lerp of two
+    vw rows + cb + hvec) . aw + ab."""
     hib, s0 = _level_bounds(temporal_shapes,
                             pos.shape[-1] // len(temporal_shapes),
                             value_t.device)
     u = torch.tanh(_lerp_rows(vw, pos, hib, s0) + cb
                    + hvec[:, None, :, None, :])
     wts = torch.softmax(u @ aw + ab, dim=-1)                  # (B, H, Q, LP)
-    ctx = torch.einsum('bhqp,bhqpd->bhqd', wts,
-                       _lerp_rows(value_t, pos, hib, s0))
+    return torch.einsum('bhqp,bhqpd->bhqd', wts,
+                        _lerp_rows(value_t, pos, hib, s0))
+
+
+def sample_attend_table_ref(value_t, vw, pos, hvec, cb, aw, ab,
+                            temporal_shapes):
+    """Plain K7 in the table form: :func:`sample_attend_ref` with the table
+    vw = value_t . cw (B, H, S, A) in place of cw.  Returns ctx
+    (B, H, Q, Dh).  Autograd through it gives K8's gradients: value_t's is
+    the context's term only, vw's is G."""
+    sample_attend_table_ref.calls += 1
+    return _attend_table(value_t, vw, pos, hvec, cb, aw, ab, temporal_shapes)
+
+
+sample_attend_table_ref.calls = 0
+
+
+def lstm_step_table_ref(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
+                        aw, ab, temporal_shapes):
+    """Plain K9 in the table form: :func:`lstm_step_ref` with the table
+    vw = value_t . cw (B, H, S, A) in place of cw.  Returns (h_new,
+    c_new).  Autograd through it gives K10's gradients: value_t's is the
+    context's term only, vw's is G."""
+    lstm_step_table_ref.calls += 1
+    ctx = _attend_table(value_t, vw, pos, hvec, cb, aw, ab, temporal_shapes)
     z = z0 + h @ w_hh + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3)
     return lstm_cell(z, c)
 
@@ -159,6 +181,13 @@ def sample_attend_bwd_ref(*args):
     in argument order."""
     *ops, temporal_shapes, g = args
     return _grads_ref(sample_attend_ref, ops, temporal_shapes, (g,))
+
+
+def sample_attend_table_bwd_ref(*args):
+    """Plain K8: autograd through :func:`sample_attend_table_ref`.  ``args``
+    = its 7 operands, temporal_shapes, g.  Returns the 7 gradients."""
+    *ops, temporal_shapes, g = args
+    return _grads_ref(sample_attend_table_ref, ops, temporal_shapes, (g,))
 
 
 def lstm_step_bwd_ref(*args):
@@ -205,15 +234,15 @@ def dsa_lstm_step_ref(value, offsets, ref_center, offset_scale, hvec, z0, h,
 # the kernels
 # ----------------------------------------------------------------------------
 
-def _operands(names, args, temporal_shapes, table=False):
-    """Check the operands of a kernel launch; returns (dims, contiguous
-    operands with ab as a one-element device tensor).  ``table``: the
-    limits of the table-form kernels (K8, K9, K10)."""
+def _operands(names, args, temporal_shapes):
+    """Check the operands of a kernel launch, and the limits of the
+    kernels' float4 reads; returns (dims, contiguous operands with ab as a
+    one-element device tensor)."""
     ops = dict(zip(names, args))
     dev = ops['value_t'].device
     if dev.type != 'cuda':
         raise ValueError('the word-step kernels take CUDA tensors; the plain '
-                         'versions are sample_attend_ref, lstm_step_ref and '
+                         'versions are sample_attend_table_ref and '
                          'lstm_step_table_ref')
     ops['ab'] = torch.as_tensor(ops['ab'], dtype=torch.float32,
                                 device=dev).reshape(1)
@@ -226,18 +255,17 @@ def _operands(names, args, temporal_shapes, table=False):
     R = ops['h'].shape[-1] if 'h' in ops else 0
     L = len(temporal_shapes)
     expect = {'value_t': (B, H, S, Dh), 'vw': (B, H, S, A),
-              'pos': (B, H, Q, LP), 'hvec': (B, Q, A), 'cw': (Dh, A),
-              'cb': (A,), 'aw': (A,), 'ab': (1,), 'z0': (B, Q, 4 * R),
-              'h': (B, Q, R), 'c': (B, Q, R), 'ctx_w3': (H, Dh, 4 * R),
-              'w_hh': (R, 4 * R)}
+              'pos': (B, H, Q, LP), 'hvec': (B, Q, A), 'cb': (A,),
+              'aw': (A,), 'ab': (1,), 'z0': (B, Q, 4 * R), 'h': (B, Q, R),
+              'c': (B, Q, R), 'ctx_w3': (H, Dh, 4 * R), 'w_hh': (R, 4 * R)}
     bad = [n for n, t in ops.items() if tuple(t.shape) != expect[n]]
     if bad or LP % L or sum(temporal_shapes) != S:
         raise ValueError(f'word-step kernel: inconsistent shapes of {bad}')
-    if table and (A > 512 or A % 4 or Dh % 4 or R % 4):
+    if A > 512 or A % 4 or Dh % 4 or R % 4:
         raise ValueError(f'word-step kernel: A = {A} must be at most 512, '
                          f'and A, Dh = {Dh} and R = {R} multiples of 4')
-    # the table-form kernels read rows as float4: a view's storage offset
-    # may leave them unaligned, a copy does not
+    # the kernels read rows as float4: a view's storage offset may leave
+    # them unaligned, a copy does not
     tensors = [ops[n].contiguous() for n in names]
     return ((B, H, S, Dh, Q, LP, L, A, R),
             [t.clone() if t.data_ptr() % 16 else t for t in tensors])
@@ -251,12 +279,12 @@ def _empty(dev, *shape):
     return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
-def dsa_sample_attend_fwd(value_t, pos, hvec, cw, cb, aw, ab,
+def dsa_sample_attend_fwd(value_t, vw, pos, hvec, cb, aw, ab,
                           temporal_shapes):
-    """ctx (B, H, Q, Dh) by the kernel ``dvc_dsa_step_fwd`` (K7), or an
-    error."""
-    dims, ops = _operands(STEP_NAMES, (value_t, pos, hvec, cw, cb, aw, ab),
-                          temporal_shapes)
+    """ctx (B, H, Q, Dh) of :func:`sample_attend_table_ref` by the kernel
+    ``dvc_dsa_step_fwd`` (K7), or an error."""
+    dims, ops = _operands(STEP_TABLE_NAMES, (value_t, vw, pos, hvec, cb, aw,
+                                             ab), temporal_shapes)
     B, H, S, Dh, Q, LP, L, A, _ = dims
     dev = ops[0].device
     ctx = _empty(dev, B, H, Q, Dh)
@@ -271,31 +299,26 @@ def dsa_sample_attend_fwd(value_t, pos, hvec, cw, cb, aw, ab,
 dsa_sample_attend_fwd.launches = 0
 
 
-def dsa_sample_attend_bwd(value_t, pos, hvec, cw, cb, aw, ab,
+def dsa_sample_attend_bwd(value_t, vw, pos, hvec, cb, aw, ab,
                           temporal_shapes, g):
-    """The 7 gradients of K7 for the cotangent g (B, H, Q, Dh) of ctx, by
-    the kernel ``dvc_dsa_step_bwd`` (K8), or an error."""
+    """The 7 gradients of K7 for the cotangent g (B, H, Q, Dh) of ctx, in
+    the order of its operands (value_t's the context's term only; vw's G),
+    by the kernel ``dvc_dsa_step_bwd`` (K8), or an error."""
     ab_shape = torch.as_tensor(ab).shape
-    dims, ops = _operands(STEP_NAMES, (value_t, pos, hvec, cw, cb, aw, ab),
-                          temporal_shapes, table=True)
+    dims, ops = _operands(STEP_TABLE_NAMES, (value_t, vw, pos, hvec, cb, aw,
+                                             ab), temporal_shapes)
     B, H, S, Dh, Q, LP, L, A, _ = dims
     dev = ops[0].device
     if tuple(g.shape) != (B, H, Q, Dh):
         raise ValueError('word-step kernel: g must be (B, H, Q, Dh)')
     g = g.to(torch.float32).contiguous()
-    outs = (_zeros(dev, B, H, S, Dh), _empty(dev, B, H, Q, LP),
-            _empty(dev, B, Q, A), _empty(dev, Dh, A), _zeros(dev, A),
+    outs = (_zeros(dev, B, H, S, Dh), _zeros(dev, B, H, S, A),
+            _empty(dev, B, H, Q, LP), _empty(dev, B, Q, A), _zeros(dev, A),
             _zeros(dev, A), _zeros(dev, 1))
-    # scratch: G, the table value_t . cw, the split-K partial tiles of the
-    # table, G . cw^T and the outer sum
-    G, vw = _zeros(dev, B, H, S, A), _empty(dev, B, H, S, A)
-    BHS = B * H * S
-    work = _cuda.gemm_work(dev, (BHS, A, Dh), (BHS, Dh, A), (Dh, A, BHS))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_step_bwd(
         *(t.data_ptr() for t in ops), g.data_ptr(),
         _cuda.levels_array(temporal_shapes),
-        *(t.data_ptr() for t in outs), G.data_ptr(), vw.data_ptr(),
-        work.data_ptr(), B, H, S, Dh, Q, LP, L, A, work.numel(),
+        *(t.data_ptr() for t in outs), B, H, S, Dh, Q, LP, L, A,
         _cuda.stream_ptr(dev)), 'dvc_dsa_step_bwd')
     dsa_sample_attend_bwd.launches += 1
     return (*outs[:6], outs[6].reshape(ab_shape))
@@ -310,7 +333,7 @@ def dsa_lstm_step_fwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
     ``dvc_dsa_lstm_fwd`` (K9), or an error."""
     dims, ops = _operands(LSTM_TABLE_NAMES, (value_t, vw, pos, hvec, z0, h, c,
                                              ctx_w3, w_hh, cb, aw, ab),
-                          temporal_shapes, table=True)
+                          temporal_shapes)
     B, H, S, Dh, Q, LP, L, A, R = dims
     dev = ops[0].device
     h_new, c_new = _empty(dev, B, Q, R), _empty(dev, B, Q, R)
@@ -334,7 +357,7 @@ def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
     ab_shape = torch.as_tensor(ab).shape
     dims, ops = _operands(LSTM_TABLE_NAMES, (value_t, vw, pos, hvec, z0, h, c,
                                              ctx_w3, w_hh, cb, aw, ab),
-                          temporal_shapes, table=True)
+                          temporal_shapes)
     B, H, S, Dh, Q, LP, L, A, R = dims
     dev = ops[0].device
     if tuple(gh.shape) != (B, Q, R) or tuple(gc.shape) != (B, Q, R):
@@ -363,24 +386,46 @@ def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
 dsa_lstm_step_bwd.launches = 0
 
 
-def dsa_lstm_step_grads(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb,
-                        aw, ab, temporal_shapes, gh, gc):
-    """The 12 gradients at the JAX boundary (the operands of
-    :func:`lstm_step_ref`) for the cotangents gh, gc, on the card: the
-    table VW = value_t . cw (``table_gemm``), K10, and the table's backward
-    (``table_gemm_bwd``) for value_t's scores' term and cw's gradient."""
+def _boundary_grads(bwd, value_t, cw, *args):
+    """(dvalue, the rest of ``bwd``'s gradients, dcw) at the JAX boundary,
+    on the card: the table VW = value_t . cw (``table_gemm``), ``bwd(value_t,
+    VW, *args)`` (K8 or K10: value_t's context term and G first), and the
+    table's backward (``table_gemm_bwd``) for value_t's scores' term and
+    cw's gradient."""
     B, H, S, Dh = value_t.shape
     rows = value_t.reshape(-1, Dh)
     vw = table_gemm(rows, cw).reshape(B, H, S, -1)
-    dvalue, G, *rest = dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c,
-                                         ctx_w3, w_hh, cb, aw, ab,
-                                         temporal_shapes, gh, gc)
+    dvalue, G, *rest = bwd(value_t, vw, *args)
     dx, dcw = table_gemm_bwd(rows, cw, G.reshape(-1, G.shape[-1]))
-    return (dvalue + dx.reshape(dvalue.shape), *rest[:7], dcw, *rest[7:])
+    return dvalue + dx.reshape(dvalue.shape), rest, dcw
+
+
+def dsa_sample_attend_grads(value_t, pos, hvec, cw, cb, aw, ab,
+                            temporal_shapes, g):
+    """The 7 gradients at the JAX boundary (the operands of
+    :func:`sample_attend_ref`) for the cotangent g, by the table, K8 and
+    the table's backward."""
+    dvalue, rest, dcw = _boundary_grads(dsa_sample_attend_bwd, value_t, cw,
+                                        pos, hvec, cb, aw, ab,
+                                        temporal_shapes, g)
+    return (dvalue, *rest[:2], dcw, *rest[2:])
+
+
+def dsa_lstm_step_grads(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb,
+                        aw, ab, temporal_shapes, gh, gc):
+    """The 12 gradients at the JAX boundary (the operands of
+    :func:`lstm_step_ref`) for the cotangents gh, gc, by the table, K10 and
+    the table's backward."""
+    dvalue, rest, dcw = _boundary_grads(dsa_lstm_step_bwd, value_t, cw, pos,
+                                        hvec, z0, h, c, ctx_w3, w_hh, cb, aw,
+                                        ab, temporal_shapes, gh, gc)
+    return (dvalue, *rest[:7], dcw, *rest[7:])
 
 
 class DSASampleAttendFunction(torch.autograd.Function):
-    """K7 forward, K8 backward; the last argument is the level table."""
+    """K7 forward, K8 backward, over the operands of
+    :func:`sample_attend_table_ref`; the last argument is the level
+    table."""
 
     @staticmethod
     def forward(fctx, *args):
@@ -412,18 +457,33 @@ class DSALSTMStepFunction(torch.autograd.Function):
                                    gh, gc), None)
 
 
+def dsa_sample_attend_table_core(value_t, vw, pos, hvec, cb, aw, ab,
+                                 temporal_shapes):
+    """One word step's sampling and attention from the table vw =
+    value_t . cw, differentiable (vw's gradient is G).  Returns ctx
+    (B, H, Q, Dh).  CPU tensors: the plain version
+    (:func:`sample_attend_table_ref`).  CUDA tensors: K7/K8 (f32) or an
+    error."""
+    if not value_t.is_cuda:
+        return sample_attend_table_ref(value_t, vw, pos, hvec, cb, aw, ab,
+                                       temporal_shapes)
+    return DSASampleAttendFunction.apply(
+        value_t, vw, pos, hvec, cb, aw, torch.as_tensor(ab, device=pos.device),
+        tuple(temporal_shapes))
+
+
 def dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
                            temporal_shapes):
-    """One word step's sampling and attention at the kernels' boundary,
-    differentiable.  Returns ctx (B, H, Q, Dh).  CPU tensors: the plain
-    version (autograd through it).  CUDA tensors: K7/K8 (f32) or an
-    error."""
+    """One word step's sampling and attention at the kernels' boundary with
+    cw given, differentiable.  Returns ctx (B, H, Q, Dh).  CPU tensors: the
+    plain version (:func:`sample_attend_ref`).  CUDA tensors: the table
+    (:func:`dsa_value_table`), then K7/K8 (f32), or an error."""
     if not value_t.is_cuda:
         return sample_attend_ref(value_t, pos, hvec, cw, cb, aw, ab,
                                  temporal_shapes)
-    return DSASampleAttendFunction.apply(
-        value_t, pos, hvec, cw, cb, aw, torch.as_tensor(ab, device=pos.device),
-        tuple(temporal_shapes))
+    return dsa_sample_attend_table_core(value_t, dsa_value_table(value_t, cw),
+                                        pos, hvec, cb, aw, ab,
+                                        temporal_shapes)
 
 
 def dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh,

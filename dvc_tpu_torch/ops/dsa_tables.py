@@ -1,12 +1,12 @@
 """The per-video tables of the LSTM-DSA word steps: ``table = x . w`` by the
 hand-written 3xTF32 GEMM of ``csrc/dsa_gemm.cuh``, and its backward.
 
-``dvc_dsa_greedy``, ``dvc_dsa_scan_fwd``/``_bwd`` and ``dvc_dsa_step_bwd``
-build their tables (``value_t . Wc`` and ``embed . token_w``) with it inside
-every launch, so their launch counts are its count on those paths.  The
-fused LSTM word step (K9/K10) takes ``VW = value_t . Wc`` as an operand:
-the caption head builds it once per forward pass with
-:func:`dsa_value_table`, and its backward runs once per backward pass.
+``dvc_dsa_greedy`` and ``dvc_dsa_scan_fwd``/``_bwd`` build their tables
+(``value_t . Wc`` and ``embed . token_w``) with it inside every launch, so
+their launch counts are its count on those paths.  The word-step kernels
+(K7-K10) take ``VW = value_t . Wc`` as an operand: the caption head builds
+it once per stepwise forward pass with :func:`dsa_value_table`, and its
+backward runs once per backward pass.
 
 * :func:`table_gemm` / :func:`table_gemm_bwd` — the kernels
   (``dvc_dsa_table_gemm``, ``dvc_dsa_table_gemm_bwd`` in

@@ -7,8 +7,9 @@ test here skips.  On a machine with one (JAX is not needed there, hence
         tests/test_torch_cuda_kernels.py -q
 
 Tolerances: MSDA max abs error <= 1e-4 * max|out| (f32, same taps summed in
-another order), and the same for each of its gradients (dvalue is summed
-with atomics in no fixed order); greedy tokens equal and log-probs within
+another order; the forward at every lane width, copy width and query tile
+edge of its staged head slice), and the same for each of its gradients
+(dvalue is summed with atomics in no fixed order); greedy tokens equal and log-probs within
 1e-3 wherever the plain version's top-2 logit margin exceeded 1e-3 at that
 step and every earlier one (past a near-tie the fed-back tokens may
 legitimately differ); teacher-forcing scan hs and cs within 1e-4 * max|ref|
@@ -20,10 +21,11 @@ the word-step kernels (K7-K10) to the same: outputs within 1e-4 * max|ref|,
 gradients within 1e-3 * max|ref| + 1e-5; in these newer cases d alpha_b
 has the floor 5e-5 (``_grad_close``), the rounding of a sum of every tap
 row's term in no fixed order, and at the train widths the floors of
-chip_smoke's ``check_scan`` and ``check_step``.  K9 and K10 take the table
-VW = value . Wc: they are held against the plain table-form step
-(``lstm_step_table_ref``) and, composed with the table GEMM and its
-backward, against the plain step at the JAX boundary; the table GEMM's
+chip_smoke's ``check_scan`` and ``check_step``.  K7-K10 take the table
+VW = value . Wc: they are held against the plain table-form steps
+(``sample_attend_table_ref``, ``lstm_step_table_ref``) and, composed with
+the table GEMM and its backward, against the plain steps at the JAX
+boundary; the table GEMM's
 backward against torch.einsum within 1e-5 * sqrt(terms) of each output's
 largest value.  The shared GEMM itself (``dsa::gemm``, 3xTF32 on the tensor
 cores, through the library's ``dvc_dsa_gemm``) is held to torch.einsum at
@@ -42,17 +44,23 @@ from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan, dsa_greedy_scan_ref
 from dvc_tpu_torch.ops.dsa_tables import (dsa_value_table, table_gemm,
                                           table_gemm_bwd)
 from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, LSTM_TABLE_NAMES,
-                                        STEP_NAMES, dsa_lstm_step_bwd,
+                                        STEP_NAMES, STEP_TABLE_NAMES,
+                                        dsa_lstm_step_bwd,
                                         dsa_lstm_step_core, dsa_lstm_step_fwd,
                                         dsa_lstm_step_grads,
                                         dsa_lstm_step_table_core,
                                         dsa_sample_attend_bwd,
                                         dsa_sample_attend_core,
-                                        dsa_sample_attend_fwd, lstm_step_bwd_ref,
+                                        dsa_sample_attend_fwd,
+                                        dsa_sample_attend_grads,
+                                        dsa_sample_attend_table_core,
+                                        lstm_step_bwd_ref,
                                         lstm_step_ref, lstm_step_table_bwd_ref,
                                         lstm_step_table_ref,
                                         sample_attend_bwd_ref,
-                                        sample_attend_ref)
+                                        sample_attend_ref,
+                                        sample_attend_table_bwd_ref,
+                                        sample_attend_table_ref)
 from dvc_tpu_torch.ops.dsa_scan import (NAMES, dsa_teacher_scan,
                                         dsa_teacher_scan_bwd,
                                         dsa_teacher_scan_bwd_ref,
@@ -270,21 +278,33 @@ def step_args(dev, rng, B=2, H=2, Q=13, Dh=8, A=16, R=24, P=2, ts=(12, 6),
 
 @pytest.mark.parametrize('H,Q', [(1, 13), (2, 13), (2, 8), (8, 3)])
 def test_step_kernels_match_plain(cuda, H, Q):
-    """K7 and K8 (ctx and its 7 gradients), and autograd through the
-    wrapper; Q = 13 spans a full and a ragged query tile."""
+    """K7 and K8 with VW given (ctx and its 7 gradients, G among them)
+    against the plain table-form step; K8 composed with the table and its
+    backward (the 7 gradients at the JAX boundary) and autograd through the
+    wrapper, against the plain step; Q = 13 spans a full and a ragged query
+    tile."""
     rng = np.random.default_rng(200 + 10 * H + Q)
     ts = (12, 6)
     args = step_args(cuda, rng, H=H, Q=Q, ts=ts)
+    kargs = _table_args(args)
     launches = (dsa_sample_attend_fwd.launches, dsa_sample_attend_bwd.launches)
-    ctx = dsa_sample_attend_fwd(*args, ts)
+    ctx = dsa_sample_attend_fwd(*kargs, ts)
     g = torch.sin(3.0 * ctx)
-    grads = dsa_sample_attend_bwd(*args, ts, g)
+    grads = dsa_sample_attend_bwd(*kargs, ts, g)
     torch.cuda.synchronize()
     assert (dsa_sample_attend_fwd.launches, dsa_sample_attend_bwd.launches) \
         == (launches[0] + 1, launches[1] + 1)
-    assert _close(ctx, sample_attend_ref(*args, ts), 1e-4)[0]
+    for ref in (sample_attend_table_ref(*kargs, ts),
+                sample_attend_ref(*args, ts)):
+        assert _close(ctx, ref, 1e-4)[0]
+    want = sample_attend_table_bwd_ref(*kargs, ts, g)
+    for name, a, b in zip(STEP_TABLE_NAMES, grads, want):
+        assert a.shape == b.shape, name
+        ok, err = _grad_close(name, a, b)
+        assert ok, (name, err, float(b.abs().max()))
     want = sample_attend_bwd_ref(*args, ts, g)
-    for name, a, b in zip(STEP_NAMES, grads, want):
+    for name, a, b in zip(STEP_NAMES, dsa_sample_attend_grads(*args, ts, g),
+                          want):
         assert a.shape == b.shape, name
         ok, err = _grad_close(name, a, b)
         assert ok, (name, err, float(b.abs().max()))
@@ -295,11 +315,46 @@ def test_step_kernels_match_plain(cuda, H, Q):
 
 
 def _table_args(args):
-    """K9's and K10's operands from the JAX boundary's (``step_args`` with
-    ``lstm``): value_t, VW = value_t . cw (torch.einsum), then the rest
-    without cw."""
-    vw = torch.einsum('bhsd,da->bhsa', args[0], args[8])
-    return (args[0], vw) + tuple(args[1:8]) + tuple(args[9:])
+    """The kernels' operands from the JAX boundary's (``step_args``, with
+    ``lstm`` or without): value_t, VW = value_t . cw (torch.einsum), then
+    the rest without cw."""
+    i = 8 if len(args) == len(LSTM_NAMES) else 3
+    vw = torch.einsum('bhsd,da->bhsa', args[0], args[i])
+    return (args[0], vw) + tuple(args[1:i]) + tuple(args[i + 1:])
+
+
+def test_sample_attend_steps_share_one_table(cuda):
+    """Three word steps through K7/K8 on one VW (``dsa_value_table``, as
+    the caption head builds it once per forward pass, each step's hvec fed
+    by the last one's ctx): one table launch, one table backward on the
+    summed G, and the gradients of the plain steps on the table."""
+    rng = np.random.default_rng(351)
+    ts = (12, 6)
+    args = step_args(cuda, rng, H=2, Q=13, ts=ts)
+    launches = (table_gemm.launches, table_gemm_bwd.launches,
+                dsa_sample_attend_fwd.launches, dsa_sample_attend_bwd.launches)
+
+    def run(table, step):
+        leaves = [t.clone().requires_grad_() for t in args]
+        value_t, pos, hvec, cw = leaves[:4]
+        vw = table(value_t, cw)
+        out = 0.0
+        for _ in range(3):
+            ctx = step(value_t, vw, pos, hvec, *leaves[4:], ts)
+            hvec = hvec + torch.tanh(ctx).sum((1, 3))[..., None]
+            out = out + (ctx * torch.sin(3.0 * ctx.detach())).sum()
+        out.backward()
+        return [t.grad for t in leaves]
+
+    got = run(dsa_value_table, dsa_sample_attend_table_core)
+    torch.cuda.synchronize()
+    assert (table_gemm.launches, table_gemm_bwd.launches,
+            dsa_sample_attend_fwd.launches, dsa_sample_attend_bwd.launches) \
+        == (launches[0] + 1, launches[1] + 1, launches[2] + 3, launches[3] + 3)
+    want = run(lambda v, w: torch.einsum('bhsd,da->bhsa', v, w),
+               sample_attend_table_ref)
+    for name, a, b in zip(STEP_NAMES, got, want):
+        assert _grad_close(name, a, b)[0], name
 
 
 @pytest.mark.parametrize('H,Q', [(1, 13), (2, 8), (8, 3)])
@@ -415,8 +470,7 @@ def test_lstm_step_kernels_refuse_what_they_do_not_implement(cuda):
 
 def test_step_kernels_at_the_recipe_width(cuda):
     """K7-K10 at R = A = 512, Dh = 512, S = 375, LP = 16 on a few queries
-    (K9 and K10 with VW given, and K10 composed with the table's
-    backward)."""
+    (with VW given, and K10 composed with the table's backward)."""
     rng = np.random.default_rng(400)
     ts = (200, 100, 50, 25)
     args = step_args(cuda, rng, B=1, H=1, Q=10, Dh=512, A=512, R=512, P=4,
@@ -435,7 +489,7 @@ def test_step_kernels_at_the_recipe_width(cuda):
                           want):
         assert _grad_close(name, a, b)[0], name
     step = args[:3] + args[8:]
-    ctx = dsa_sample_attend_fwd(*step, ts)
+    ctx = dsa_sample_attend_fwd(*_table_args(step), ts)
     assert _close(ctx, sample_attend_ref(*step, ts), 1e-4)[0]
 
 
@@ -567,29 +621,52 @@ def _wide_step_args(dev, rng, B, H, Q, d=512, A=512, P=4,
 
 
 @pytest.mark.parametrize('B,Q,H', [(1, 90, 1), (16, 100, 1), (16, 100, 8)])
+def test_step_forward_kernel_at_the_word_step_widths(cuda, B, Q, H):
+    """K7 with VW given at A = 512, Dh = 512 / H, S = 375, LP = 16 and the
+    stepwise path's shapes (B = 1 takes 4-query tiles, B = 16 16-query
+    ones; Q = 90 and 100 leave a ragged tile), to check_step's tolerance:
+    ctx within 1e-4 * max|ref| of the plain table-form step and of the
+    plain step (their scores differ only in rounding)."""
+    rng = np.random.default_rng(650 + 10 * B + H)
+    ts = (200, 100, 50, 25)
+    args = _wide_step_args(cuda, rng, B, H, Q)
+    kargs = _table_args(args)
+    launches = dsa_sample_attend_fwd.launches
+    ctx = dsa_sample_attend_fwd(*kargs, ts)
+    torch.cuda.synchronize()
+    assert dsa_sample_attend_fwd.launches == launches + 1
+    for ref in (sample_attend_table_ref(*kargs, ts),
+                sample_attend_ref(*args, ts)):
+        ok, err = _close(ctx, ref, 1e-4)
+        assert ok, (err, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize('B,Q,H', [(1, 90, 1), (16, 100, 1), (16, 100, 8)])
 def test_step_backward_kernel_at_the_word_step_widths(cuda, B, Q, H):
-    """K8 (table value . Wc, the step's backward from it, G . Wc^T into
-    dvalue, dWc = value^T G) at A = 512, Dh = 512 / H, S = 375, LP = 16 and
-    the stepwise path's shapes (B = 1 takes 2-query tiles, B = 16 8-query
-    ones; Q = 90 and 100 leave a ragged tile), to check_step's tolerances:
-    each gradient within 1e-3 * max|ref| + 1e-5, d alpha_b's floor
-    max(5e-5, 2.5e-10 * N, 2^-18 * sqrt(N) * the mean |term|) over its
-    N = B*H*Q*LP terms; queries with a tap within an ulp of a
+    """K8 with VW given (the step's backward from VW; dvalue's context term
+    and G = dL/dVW) at A = 512, Dh = 512 / H, S = 375, LP = 16 and the
+    stepwise path's shapes (B = 1 takes 2-query tiles, B = 16 8-query
+    ones; Q = 90 and 100 leave a ragged tile), against the plain table-form
+    step, and composed with the table and its backward
+    (``dsa_sample_attend_grads``) against the plain step, to check_step's
+    tolerances: each gradient within 1e-3 * max|ref| + 1e-5, d alpha_b's
+    floor max(5e-5, 2.5e-10 * N, 2^-18 * sqrt(N) * the mean |term|) over
+    its N = B*H*Q*LP terms; queries with a tap within an ulp of a
     level-relative integer get a zero cotangent (chip_smoke's
     ``near_integer``, as ``_off_boundary`` does for the scan; at most a
     tenth of them)."""
     rng = np.random.default_rng(700 + 10 * B + H)
     ts = (200, 100, 50, 25)
     args = _wide_step_args(cuda, rng, B, H, Q)
+    kargs = _table_args(args)
     g = _t(rng.standard_normal((B, H, Q, 512 // H)).astype(np.float32), cuda)
     drop = near_integer(args[1].double())
     assert float(drop.float().mean()) <= 0.1
     g = g * (~drop)[:, None, :, None]
     launches = dsa_sample_attend_bwd.launches
-    grads = dsa_sample_attend_bwd(*args, ts, g)
+    grads = dsa_sample_attend_bwd(*kargs, ts, g)
     torch.cuda.synchronize()
     assert dsa_sample_attend_bwd.launches == launches + 1
-    want = sample_attend_bwd_ref(*args, ts, g)
     # d alpha_b's terms, one per tap row (alpha_b broadcast to every row)
     rows = args[6].expand(args[1].shape).clone().requires_grad_()
     terms, = torch.autograd.grad(sample_attend_ref(*args[:6], rows, ts),
@@ -597,47 +674,107 @@ def test_step_backward_kernel_at_the_word_step_widths(cuda, B, Q, H):
     N = terms.numel()
     floor = max(5e-5, 2.5e-10 * N,
                 2.0 ** -18 * N ** 0.5 * float(terms.abs().mean()))
-    for name, a, b in zip(STEP_NAMES, grads, want):
-        assert a.shape == b.shape, name
-        ok, err = _close(a, b, 1e-3, floor if name == 'ab' else 1e-5)
-        assert ok, (name, err, float(b.abs().max()))
+    for names, got, want in (
+            (STEP_TABLE_NAMES, grads, sample_attend_table_bwd_ref(*kargs, ts, g)),
+            (STEP_NAMES, dsa_sample_attend_grads(*args, ts, g),
+             sample_attend_bwd_ref(*args, ts, g))):
+        for name, a, b in zip(names, got, want):
+            assert a.shape == b.shape, name
+            ok, err = _close(a, b, 1e-3, floor if name == 'ab' else 1e-5)
+            assert ok, (name, err, float(b.abs().max()))
 
 
 def test_step_backward_copies_a_misaligned_operand(cuda):
-    """K8 reads value rows, cb and alpha_w as float4: the wrapper copies a
-    view whose storage is not 16-byte aligned (the gradients still match
-    the plain version's), and the entry point refuses such a pointer with
-    cudaErrorInvalidValue."""
+    """K8 reads value rows, VW rows, cb and alpha_w as float4: the wrapper
+    copies a view whose storage is not 16-byte aligned (the gradients still
+    match the plain version's), and the entry point refuses such a pointer
+    with cudaErrorInvalidValue."""
     from dvc_tpu_torch.ops import _cuda
     rng = np.random.default_rng(800)
     ts = (12, 6)
     B, H, Q, Dh, A, S, LP = 2, 2, 13, 8, 16, 18, 4
-    args = list(step_args(cuda, rng, B=B, H=H, Q=Q, Dh=Dh, A=A, ts=ts))
+    args = list(_table_args(step_args(cuda, rng, B=B, H=H, Q=Q, Dh=Dh, A=A,
+                                      ts=ts)))
     g = _t(rng.standard_normal((B, H, Q, Dh)).astype(np.float32), cuda)
-    want = sample_attend_bwd_ref(*args, ts, g)
-    for i in (0, 4, 5):                                 # value_t, cb, aw
+    want = sample_attend_table_bwd_ref(*args, ts, g)
+    for i in (0, 1, 4, 5):                              # value_t, vw, cb, aw
         buf = torch.empty(args[i].numel() + 1, device=cuda)
         view = buf[1:].view(args[i].shape)
         view.copy_(args[i])
         assert view.data_ptr() % 16
         args[i] = view
-    for name, a, b in zip(STEP_NAMES, dsa_sample_attend_bwd(*args, ts, g),
-                          want):
+    for name, a, b in zip(STEP_TABLE_NAMES,
+                          dsa_sample_attend_bwd(*args, ts, g), want):
         assert _grad_close(name, a, b)[0], name
 
     def zeros(*shape):
         return torch.zeros(shape, device=cuda)
 
-    outs = (zeros(B, H, S, Dh), zeros(B, H, Q, LP), zeros(B, Q, A),
-            zeros(Dh, A), zeros(A), zeros(A), zeros(1))
-    BHS = B * H * S
-    scratch = (zeros(B, H, S, A), zeros(B, H, S, A),
-               _cuda.gemm_work(cuda, (BHS, A, Dh), (BHS, Dh, A), (Dh, A, BHS)))
+    outs = (zeros(B, H, S, Dh), zeros(B, H, S, A), zeros(B, H, Q, LP),
+            zeros(B, Q, A), zeros(A), zeros(A), zeros(1))
+    ab = args[6].reshape(1)
     code = _cuda.lib().cdll.dvc_dsa_step_bwd(
-        *(t.data_ptr() for t in args), g.data_ptr(), _cuda.levels_array(ts),
-        *(t.data_ptr() for t in outs + scratch), B, H, S, Dh, Q, LP, len(ts),
-        A, scratch[2].numel(), _cuda.stream_ptr(cuda))
+        *(t.data_ptr() for t in args[:6]), ab.data_ptr(), g.data_ptr(),
+        _cuda.levels_array(ts), *(t.data_ptr() for t in outs), B, H, S, Dh,
+        Q, LP, len(ts), A, _cuda.stream_ptr(cuda))
     assert code == 1                                    # cudaErrorInvalidValue
+
+
+def _msda_args(dev, rng, B, Q, H, D, P, shapes):
+    value = _t(rng.standard_normal((B, sum(shapes), H, D), np.float32), dev)
+    loc = _t(rng.uniform(-0.3, 1.3, (B, Q, H, len(shapes), P))
+             .astype(np.float32), dev)
+    attn = rng.uniform(0, 1, (B, Q, H, len(shapes), P)).astype(np.float32)
+    attn = _t(attn / attn.sum(axis=(3, 4), keepdims=True), dev)
+    return value, loc, attn
+
+
+@pytest.mark.parametrize('B,Q,H,D,P', [(1, 375, 8, 64, 4), (1, 1, 8, 64, 4),
+                                       (1, 41, 8, 64, 4), (16, 100, 8, 64, 4),
+                                       (3, 53, 2, 5, 3), (2, 29, 3, 66, 2),
+                                       (2, 17, 2, 128, 9)])
+def test_msda_forward_kernel_at_one_video_and_tile_edges(cuda, B, Q, H, D,
+                                                          P):
+    """The forward on its staged head slice at the recipe's widths (S = 375,
+    H = 8, D = 64, L = P = 4) at B = 1 (8 (b, h) pairs, so the tile rule
+    splits Q into many tiles; Q = 1 and 41 leave ragged tiles) and at the
+    decoder's B = 16, Q = 100; and at widths that take the other lane and
+    copy widths: D = 5 (one float a lane, 4-byte copies), D = 66 (two
+    column chunks of float2, 8-byte copies), D = 128 (float4), and L*P = 36
+    points (two chunks of 32 lanes)."""
+    rng = np.random.default_rng(900 + B + Q + D)
+    shapes = (200, 100, 50, 25)
+    value, loc, attn = _msda_args(cuda, rng, B, Q, H, D, P, shapes)
+    launches = ms_deform_attn.launches
+    out = ms_deform_attn(value, shapes, loc, attn)
+    torch.cuda.synchronize()
+    assert ms_deform_attn.launches == launches + 1
+    ref = ms_deform_attn_ref(value, shapes, loc, attn)
+    ok, err = _close(out, ref, 1e-4)
+    assert ok, (err, float(ref.abs().max()))
+
+
+def test_msda_forward_kernel_stages_a_misaligned_slice(cuda):
+    """A value view whose storage starts 4 bytes past a 16-byte boundary
+    (the slice's rows then copy 4 bytes at a time), and the refusal of a
+    head slice above the card's opt-in shared memory of a block (S*D*4
+    bytes)."""
+    rng = np.random.default_rng(950)
+    shapes = (40, 20)
+    value, loc, attn = _msda_args(cuda, rng, 2, 23, 3, 20, 3, shapes)
+    buf = torch.empty(value.numel() + 1, device=cuda)
+    view = buf[1:].view(value.shape)
+    view.copy_(value)
+    assert view.data_ptr() % 16
+    out = ms_deform_attn(view, shapes, loc, attn)
+    ok, err = _close(out, ms_deform_attn_ref(value, shapes, loc, attn), 1e-4)
+    assert ok, err
+    optin = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    S = optin // (4 * 64) + 1
+    value, loc, attn = _msda_args(cuda, rng, 1, 3, 1, 64, 1, (S,))
+    with pytest.raises(RuntimeError):
+        ms_deform_attn(value, (S,), loc, attn)
 
 
 @pytest.mark.parametrize('N,k,n', [(375, 512, 512), (6000, 64, 512),

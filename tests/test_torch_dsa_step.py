@@ -11,6 +11,10 @@ of the CUDA kernels K7-K10) against the JAX package's
 * Through the JAX signature: autograd of the port's plain
   ``dsa_sample_attend_ref`` / ``dsa_lstm_step_ref`` against ``jax.grad`` of
   the JAX ops in interpret mode, offsets and references included.
+* The table form of K7 (``sample_attend_table_ref`` on
+  ``dsa_value_table``, the caption head's CPU route) through the JAX
+  signature against the JAX ``dsa_sample_attend`` in interpret mode (its
+  gradients: ``tests/test_torch_dsa_tables.py``).
 
 Tiny shapes as in ``tests/test_dsa_step.py`` (S = 18 over 2 levels, Q = 3,
 H in {1, 2}, A = 16), sampling points drawn off tap boundaries.
@@ -36,8 +40,9 @@ from dvc_tpu_torch.ops.dsa_step import (
     LSTM_NAMES, STEP_NAMES, dsa_lstm_step_bwd, dsa_lstm_step_core,
     dsa_lstm_step_fwd, dsa_lstm_step_ref, dsa_lstm_step_table_core,
     dsa_sample_attend_bwd, dsa_sample_attend_core, dsa_sample_attend_fwd,
-    dsa_sample_attend_ref, level_pos, lstm_step_bwd_ref, lstm_step_ref,
-    lstm_step_table_ref, sample_attend_bwd_ref, sample_attend_ref)
+    dsa_sample_attend_ref, dsa_sample_attend_table_core, level_pos,
+    lstm_step_bwd_ref, lstm_step_ref, lstm_step_table_ref,
+    sample_attend_bwd_ref, sample_attend_ref, sample_attend_table_ref)
 from dvc_tpu_torch.ops.dsa_tables import dsa_value_table
 
 TS = (12, 6)
@@ -142,8 +147,10 @@ def test_sample_attend_backward_matches_jax_kernel_vjp(H):
     targs = [to_torch(a) for a in ops]
     ctx = sample_attend_ref(*targs, TS)
     g = np.sin(3.0 * to_numpy(ctx)).astype(np.float32)
+    vw = dsa_value_table(targs[0], targs[3])
     with pytest.raises(ValueError):         # the kernel takes CUDA tensors
-        dsa_sample_attend_bwd(*targs, TS, to_torch(g))
+        dsa_sample_attend_bwd(targs[0], vw, *targs[1:3], *targs[4:], TS,
+                              to_torch(g))
     got = sample_attend_bwd_ref(*targs, TS, to_torch(g))
     jops = [jnp.asarray(a) for a in ops]
     jops[1] = jops[1].reshape(B, Hh, Q * LP)
@@ -228,21 +235,51 @@ def test_border_taps_out_of_range():
 def test_core_wrappers_are_the_plain_versions_on_the_cpu():
     """dsa_*_core on CPU tensors run the plain versions (autograd through
     them), so the caption head's stepwise path is the plain step there; the
-    table form's wrapper runs the plain table-form step, never K9."""
+    table form's wrappers run the plain table-form steps, never K7 or
+    K9."""
     ops = [to_torch(a) for a in boundary(make_inputs(seed=7, R=8),
                                          lstm=True)]
     step = ops[:3] + ops[8:]
     calls = (sample_attend_ref.calls, lstm_step_ref.calls,
-             lstm_step_table_ref.calls, dsa_lstm_step_fwd.launches)
+             lstm_step_table_ref.calls, sample_attend_table_ref.calls,
+             dsa_lstm_step_fwd.launches, dsa_sample_attend_fwd.launches)
     np.testing.assert_array_equal(
         to_numpy(dsa_sample_attend_core(*step, TS)),
         to_numpy(sample_attend_ref(*step, TS)))
     for a, b in zip(dsa_lstm_step_core(*ops, TS), lstm_step_ref(*ops, TS)):
         np.testing.assert_array_equal(to_numpy(a), to_numpy(b))
-    table_ops = [ops[0], dsa_value_table(ops[0], ops[8])] + ops[1:8] + ops[9:]
+    vw = dsa_value_table(ops[0], ops[8])
+    table_ops = [ops[0], vw] + ops[1:8] + ops[9:]
     for a, b in zip(dsa_lstm_step_table_core(*table_ops, TS),
                     lstm_step_table_ref(*table_ops, TS)):
         np.testing.assert_array_equal(to_numpy(a), to_numpy(b))
+    step_table = [ops[0], vw] + ops[1:3] + ops[9:]
+    np.testing.assert_array_equal(
+        to_numpy(dsa_sample_attend_table_core(*step_table, TS)),
+        to_numpy(sample_attend_table_ref(*step_table, TS)))
     assert (sample_attend_ref.calls, lstm_step_ref.calls,
-            lstm_step_table_ref.calls, dsa_lstm_step_fwd.launches) == \
-        (calls[0] + 2, calls[1] + 2, calls[2] + 2, calls[3])
+            lstm_step_table_ref.calls, sample_attend_table_ref.calls,
+            dsa_lstm_step_fwd.launches, dsa_sample_attend_fwd.launches) == \
+        (calls[0] + 2, calls[1] + 2, calls[2] + 2, calls[3] + 2, calls[4],
+         calls[5])
+
+
+@pytest.mark.parametrize('H', [1, 2])
+def test_sample_attend_table_form_matches_jax_kernel(H):
+    """K7's function in the table form, as the caption head runs it on the
+    CPU: ``sample_attend_table_ref`` on VW = value . Wc from
+    ``dsa_value_table``, its operands from the JAX signature's (offsets,
+    references, scales), against the JAX ``dsa_sample_attend`` with its
+    Pallas kernel in interpret mode.  The table form sums a tap's scores in
+    another order (a lerp of Wc products, not a product of lerps), so the
+    tolerance is FWD."""
+    args = make_inputs(seed=8, H=H)
+    kernel = np.asarray(jax_sample_attend(*map(jnp.asarray, args), TS,
+                                          impl='pallas_interpret'))
+    value_t, pos, hvec, cw, cb, aw, ab = map(to_torch, boundary(args))
+    calls = sample_attend_table_ref.calls
+    ctx = sample_attend_table_ref(value_t, dsa_value_table(value_t, cw), pos,
+                                  hvec, cb, aw, ab, TS)
+    assert sample_attend_table_ref.calls == calls + 1
+    np.testing.assert_allclose(to_numpy(ctx.permute(0, 2, 1, 3)), kernel,
+                               **FWD)

@@ -20,10 +20,11 @@ The teacher-forcing scan built on that step is held against the JAX oracle
 ``dsa_teacher_scan_ref`` (forward) and ``jax.vjp`` of it (the 13
 gradients); the greedy loop against ``dsa_greedy_scan_ref``; one step's
 backward (K8's function) against ``jax.vjp`` of the JAX word step's custom
-VJP with its Pallas kernels in interpret mode.  The port's own table form of
-the fused LSTM step (``lstm_step_table_ref`` on ``dsa_value_table``, the
-caption head's CPU route) is held against ``jax.vjp`` of the JAX fused
-step's custom VJP in interpret mode, and the table GEMM's plain backward
+VJP with its Pallas kernels in interpret mode.  The port's own table forms of
+the word step and of the fused LSTM step (``sample_attend_table_ref`` and
+``lstm_step_table_ref`` on ``dsa_value_table``, the caption head's CPU
+route under either ``lstm_fuse``) are held against ``jax.vjp`` of the JAX
+steps' custom VJPs in interpret mode, and the table GEMM's plain backward
 against autograd.  numpy inputs from a seed,
 H = 1, 2 and 8, LP = 4, ragged Q, positions past both borders of each level
 (where the two taps clamp to one row).  Tolerance rtol 2e-4, atol 1e-6
@@ -43,8 +44,10 @@ from dvc_tpu.ops.dsa_step import _dsa_core, _dsa_lstm_core
 from dvc_tpu_torch.ops.dsa_greedy import (_level_bounds, greedy_pick,
                                           lstm_cell, step_pos_hvec)
 from dvc_tpu_torch.ops.dsa_scan import NAMES
-from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, lstm_step_ref,
-                                        lstm_step_table_ref)
+from dvc_tpu_torch.ops.dsa_step import (LSTM_NAMES, STEP_NAMES,
+                                        lstm_step_ref, lstm_step_table_ref,
+                                        sample_attend_ref,
+                                        sample_attend_table_ref)
 from dvc_tpu_torch.ops.dsa_tables import (dsa_value_table, table_gemm,
                                           table_gemm_bwd, table_gemm_bwd_ref,
                                           table_gemm_ref)
@@ -344,6 +347,58 @@ def test_table_lstm_step_matches_jax_kernel_vjp(H, Q):
                                    atol=atol.get(name, ATOL), err_msg=name)
 
 
+@pytest.mark.parametrize('H,Q', [(1, 5), (2, 9), (8, 3)])
+def test_table_sample_attend_matches_jax_kernel_vjp(H, Q):
+    """K7's and K8's function in the table form: ``sample_attend_table_ref``
+    on VW = value . Wc from ``dsa_value_table`` (the plain table under
+    autograd, one call) against ``jax.vjp`` of the JAX word step's custom
+    VJP (``_dsa_core``, its Pallas kernels in interpret mode): ctx and the
+    7 gradients at the JAX boundary, value's and Wc's through the table's
+    chain rule.  Positions past both borders of each level; a unit-scale
+    cotangent of ctx; d alpha_b has the floor of
+    ``test_table_step_backward_matches_jax_kernel_vjp`` over its terms'
+    rounding."""
+    rng = np.random.default_rng(80 + 10 * H + Q)
+    B, Dh, A, P = 2, 8, 16, 2
+    LP = len(TS) * P
+
+    def f(*s, scale=1.0):
+        return (rng.standard_normal(s) * scale).astype(np.float32)
+
+    pos = _base_pos(rng, B, H, Q, P)
+    below, above = _clamped_rows(pos)
+    assert below > 0 and above > 0
+    args = (f(B, H, sum(TS), Dh), pos, f(B, Q, A, scale=0.5),
+            f(Dh, A, scale=0.3), f(A, scale=0.1), f(A, scale=0.3),
+            np.float32(0.05))
+    leaves = [to_torch(a).requires_grad_() for a in args]
+    calls = (table_gemm_ref.calls, sample_attend_table_ref.calls)
+    vw = dsa_value_table(leaves[0], leaves[3])
+    ctx = sample_attend_table_ref(leaves[0], vw, *leaves[1:3], *leaves[4:],
+                                  TS)
+    assert (table_gemm_ref.calls, sample_attend_table_ref.calls) == \
+        (calls[0] + 1, calls[1] + 1)
+    jops = [jnp.asarray(a) for a in args]
+    jops[1] = jops[1].reshape(B, H, Q * LP)
+    want_ctx, vjp = jax.vjp(lambda *a: _dsa_core(*a, TS, Q, True, 'float32'),
+                            *jops)
+    np.testing.assert_allclose(to_numpy(ctx), np.asarray(want_ctx),
+                               rtol=RTOL, atol=ATOL)
+    dctx = f(B, H, Q, Dh)
+    got = torch.autograd.grad(ctx, leaves, to_torch(dctx))
+    # d alpha_b's terms, one per tap row (alpha_b broadcast to every row)
+    rows = to_torch(args[6]).expand(B, H, Q, LP).clone().requires_grad_()
+    terms, = torch.autograd.grad(
+        sample_attend_ref(*map(to_torch, args[:6]), rows, TS), rows,
+        to_torch(dctx))
+    atol = {'ab': max(ATOL, 2.0 ** -18 * terms.numel() ** 0.5
+                      * float(terms.abs().mean()))}
+    for name, a, b in zip(STEP_NAMES, got, vjp(jnp.asarray(dctx))):
+        np.testing.assert_allclose(to_numpy(a).reshape(np.shape(b)),
+                                   np.asarray(b), rtol=RTOL,
+                                   atol=atol.get(name, ATOL), err_msg=name)
+
+
 def greedy_args(H, seed, B=2, Dh=8, Q=5, A=16, R=8, V=130, E=12, P=2):
     rng = np.random.default_rng(seed)
 
@@ -424,9 +479,8 @@ def test_table_gemm_backward_matches_autograd(N, k, n):
 
 def test_phase_split_edits_match_the_sources():
     """Each edit of chip_smoke.py's phase split of the redesigned kernels
-    (K4, K5, K6, K8, K9, K10; one phase's code taken out of a copy of
-    csrc/) finds its text exactly once in the sources, so the split's
-    variants build."""
+    (K1/K2, K4-K10; one phase's code taken out of a copy of csrc/) finds its
+    text exactly once in the sources, so the split's variants build."""
     import os
     import chip_smoke
     from dvc_tpu_torch.ops import _cuda

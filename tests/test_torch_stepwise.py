@@ -5,9 +5,9 @@ JAX head with the same weights, the port's stepwise paths against its fused
 ones, the scheduled-sampling token choice against the JAX formula, and the
 train forward and ``new_train`` with scheduled sampling on.
 
-On the CPU the head's word steps run the plain versions of the kernels
-K7/K8 (``lstm_fuse`` off) and K9/K10 (on: the table form, with the table
-``VW = value . Wc`` built once per forward pass by the plain table GEMM);
+On the CPU the head's word steps run the plain table-form versions of the
+kernels K7/K8 (``lstm_fuse`` off) and K9/K10 (on), with the table
+``VW = value . Wc`` built once per forward pass by the plain table GEMM;
 the JAX head runs its jnp oracle (``att_impl='ref'``).  Tolerances:
 log-probabilities rtol/atol 1e-5 and each weight gradient within a
 relative L2 error of 1e-4 plus 1e-6 absolute (f32; K recurrent steps
@@ -32,9 +32,9 @@ from dvc_tpu.models.caption_heads import DSACaptionHead as JaxHead
 from dvc_tpu_torch.models import make_fusion_model
 from dvc_tpu_torch.models.caption_heads import (CaptionHeadConfig,
                                                 DSACaptionHead)
-from dvc_tpu_torch.ops import (dsa_greedy_scan_ref, dsa_teacher_scan_ref,
-                               sample_attend_ref)
-from dvc_tpu_torch.ops.dsa_step import lstm_step_table_ref
+from dvc_tpu_torch.ops import dsa_greedy_scan_ref, dsa_teacher_scan_ref
+from dvc_tpu_torch.ops.dsa_step import (lstm_step_table_ref,
+                                        sample_attend_table_ref)
 from dvc_tpu_torch.ops.dsa_tables import table_gemm_ref
 
 CFG = dict(vocab_size=23, input_encoding_size=12, rnn_size=16, num_layers=1,
@@ -105,17 +105,17 @@ def test_stepwise_teacher_forcing_matches_jax(weights, lstm_fuse):
 
     (_, want), jgrads = jax.value_and_grad(loss, has_aux=True)(weights)
     head = port_head(weights, scan_fuse=False, lstm_fuse=lstm_fuse)
-    calls = (sample_attend_ref.calls, lstm_step_table_ref.calls,
+    calls = (sample_attend_table_ref.calls, lstm_step_table_ref.calls,
              table_gemm_ref.calls, dsa_teacher_scan_ref.calls)
     tin = [to_torch(a) for a in inputs]
     lp = head.teacher_forcing(*tin[:4], SHAPES, tin[4], to_torch(seq))
     (lp * to_torch(wts)).sum().backward()
     K = seq.shape[1] - 1
-    # K plain steps; with lstm_fuse one table for the K steps
-    assert (sample_attend_ref.calls, lstm_step_table_ref.calls,
+    # K plain steps on one table for the K steps, under either flag
+    assert (sample_attend_table_ref.calls, lstm_step_table_ref.calls,
             table_gemm_ref.calls, dsa_teacher_scan_ref.calls) == (
         calls[0] + (0 if lstm_fuse else K), calls[1] + (K if lstm_fuse else 0),
-        calls[2] + lstm_fuse, calls[3])
+        calls[2] + 1, calls[3])
     np.testing.assert_allclose(to_numpy(lp), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
     want_g = caption_head_state_dict(jax.tree_util.tree_map(np.asarray,
@@ -135,16 +135,16 @@ def test_stepwise_greedy_matches_jax(weights, lstm_fuse):
         {'params': weights}, *map(jnp.asarray, inputs[:4]), SHAPES,
         jnp.asarray(inputs[4]), mode='sample')
     head = port_head(weights, greedy_fuse=False, lstm_fuse=lstm_fuse)
-    calls = (dsa_greedy_scan_ref.calls, sample_attend_ref.calls,
+    calls = (dsa_greedy_scan_ref.calls, sample_attend_table_ref.calls,
              lstm_step_table_ref.calls, table_gemm_ref.calls)
     with torch.no_grad():
         seq, lp = head(*map(to_torch, inputs[:4]), SHAPES,
                        to_torch(inputs[4]))
     K = CFG['max_caption_len']
-    assert (dsa_greedy_scan_ref.calls, sample_attend_ref.calls,
+    assert (dsa_greedy_scan_ref.calls, sample_attend_table_ref.calls,
             lstm_step_table_ref.calls, table_gemm_ref.calls) == (
         calls[0], calls[1] + (0 if lstm_fuse else K),
-        calls[2] + (K if lstm_fuse else 0), calls[3] + lstm_fuse)
+        calls[2] + (K if lstm_fuse else 0), calls[3] + 1)
     np.testing.assert_array_equal(to_numpy(seq), np.asarray(want_seq))
     np.testing.assert_allclose(to_numpy(lp), np.asarray(want_lp), rtol=1e-5,
                                atol=1e-5)
@@ -294,12 +294,12 @@ def test_new_train_with_scheduled_sampling(tmp_path):
                       '--basic_ss_prob', '0.25'], root=REPO)
     opt.epoch = 2               # the recipe file's epoch: 1 overlays the flag
     assert [ss_prob_for_epoch(opt, e) for e in (0, 1)] == [0.0, 0.25]
-    calls = (dsa_teacher_scan_ref.calls, sample_attend_ref.calls)
+    calls = (dsa_teacher_scan_ref.calls, sample_attend_table_ref.calls)
     DSACaptionHead.fed_samples.clear()
     _, losses = train_main(opt)
     assert all(np.isfinite(v) for v in losses.values())
     assert dsa_teacher_scan_ref.calls > calls[0]      # epoch 0: fused scan
-    assert sample_attend_ref.calls > calls[1]         # epoch 1: stepwise
+    assert sample_attend_table_ref.calls > calls[1]   # epoch 1: stepwise
     assert DSACaptionHead.fed_sample_count() > 0
 
 
