@@ -19,14 +19,20 @@ Phases (one or more lines each; the last line is the JSON verdict):
    library's ``dvc_dsa_gemm``) against torch.einsum, each beside
    torch.matmul and bounded at 3xTF32 on the tensor cores (the GEMM's
    design; the f32 bound printed beside it), the outer sums also in units
-   of their products' size against one-pass TF32; the MSDA backward at
-   B=1 and at the B=16 train step's shapes; the scan also at cap_nheads 8,
+   of their products' size against one-pass TF32; the MSDA backward (K3:
+   a block per (query tile, head, video) adds into the head's dvalue slice
+   in shared memory, its value slice staged beside it where it fits, and
+   stores the slice once, or adds it into dvalue where the queries of a
+   (video, head) pair take several tiles) at B=1 and at the B=16 train
+   step's shapes and on the encoder's locations, each also in the
+   profiler's device time; the scan also at cap_nheads 8,
    the word-step kernels (K7-K10, each with VW given; K8's and K10's
    gradients composed with the table's backward) at the stepwise path's
    train (B=1, Q=90) and serve (B=16, Q=100, H=1 and 8) shapes, to the
    scan's tolerances (``check_step``); then the phase split of the kernels
-   redesigned for the card (K1/K2, K4-K10; ``SPLITS['current']``, one
-   ``[split]`` line per kernel and shape).
+   redesigned for the card (K1-K10; ``SPLITS['current']``, one
+   ``[split]`` line per kernel and shape; K3's also times its value rows
+   read through L2 in place of the staged slice).
    Tolerances:
    MSDA forward max abs error <= 1e-4 * max|out|, and each of its
    gradients <= 1e-4 * its max |ref|; greedy tokens equal and log-probs
@@ -175,6 +181,28 @@ def msda_inputs(gen, B, Q, H=8, D=64, P=4):
     return value, loc, attn
 
 
+def msda_encoder_inputs(gen, B, H=8, D=64, P=4, frames=3.0):
+    """The encoder's self-attention operands (Q = S = 375): each query
+    samples near its reference point (``encoder_reference_points``, valid
+    ratios 1) at offsets of up to ``frames`` frames of each level, so the
+    taps of neighbouring queries land on the same value rows."""
+    import torch
+    from dvc_tpu_torch.models.deformable_transformer import \
+        encoder_reference_points
+    L, S = len(MSDA_LEVELS), sum(MSDA_LEVELS)
+    dev = 'cuda'
+    ref = encoder_reference_points(MSDA_LEVELS,
+                                   torch.ones((B, L), device=dev))
+    T = torch.tensor(MSDA_LEVELS, dtype=torch.float32, device=dev)
+    off = (torch.rand((B, S, H, L, P), generator=gen, device=dev) * 2 - 1
+           ) * frames
+    loc = ref[:, :, None, :, None, 0] + off / T[:, None]
+    value = torch.randn((B, S, H, D), generator=gen, device=dev)
+    attn = torch.softmax(torch.randn((B, S, H, L * P), generator=gen,
+                                     device=dev), -1).reshape(B, S, H, L, P)
+    return value, loc, attn
+
+
 def greedy_inputs(gen, B, Q, H, d=512, R=512, A=512, E=512, V1=1608, P=4):
     """Random operands at the caption head's serving shapes, scaled like
     fan-in-normalised weights so activations and logits are O(1)."""
@@ -281,14 +309,18 @@ def check_msda(gen, B, Q):
             'bound_by': bound_by}
 
 
-def check_msda_bwd(gen, B, Q):
-    """K3 against autograd through the plain version; tolerance per
-    gradient 1e-4 * its max |value| (dvalue is summed with atomics in no
-    fixed order, the reductions over D in another order)."""
+def check_msda_bwd(gen, B, Q, encoder=False):
+    """K3 against autograd through the plain version, on uniform locations
+    (``msda_inputs``) or, with ``encoder``, on the encoder's (Q = S,
+    ``msda_encoder_inputs``); tolerance per gradient 1e-4 * its max |value|
+    (dvalue is summed with atomics in no fixed order, the reductions over D
+    in another order)."""
     import torch
     from dvc_tpu_torch.ops.ms_deform_attn import (ms_deform_attn_bwd,
                                                   ms_deform_attn_bwd_ref)
-    value, loc, attn = msda_inputs(gen, B, Q)
+    value, loc, attn = (msda_encoder_inputs(gen, B) if encoder
+                        else msda_inputs(gen, B, Q))
+    Q = loc.shape[1]
     g = torch.randn((B, Q, value.shape[2] * value.shape[3]), generator=gen,
                     device='cuda')
     got = ms_deform_attn_bwd(value, MSDA_LEVELS, loc, attn, g)
@@ -298,17 +330,22 @@ def check_msda_bwd(gen, B, Q):
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     ms = cuda_ms(lambda: ms_deform_attn_bwd(value, MSDA_LEVELS, loc, attn, g),
                  50)
+    dev_ms = device_ms(
+        lambda: ms_deform_attn_bwd(value, MSDA_LEVELS, loc, attn, g), 50)
     plain_ms = cuda_ms(
         lambda: ms_deform_attn_bwd_ref(value, MSDA_LEVELS, loc, attn, g), 10)
     bound_ms, bound_by = msda_bwd_bound(value, loc, attn, g, got)
-    print(f'[kernels] msda_bwd B={B} Q={Q} S={value.shape[1]} H=8 D=64 L=4 '
-          f'P=4: max_abs_err {err:.3e}, relative (dvalue, dloc, dattn) '
-          f'{[f"{e:.2e}" for e in errs]} (tol 1e-4) kernel {ms:.4f} ms '
-          f'plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by})')
+    where = ' encoder locations' if encoder else ''
+    print(f'[kernels] msda_bwd B={B} Q={Q}{where} S={value.shape[1]} H=8 '
+          f'D=64 L=4 P=4: max_abs_err {err:.3e}, relative (dvalue, dloc, '
+          f'dattn) {[f"{e:.2e}" for e in errs]} (tol 1e-4) kernel {ms:.4f} '
+          f'ms (device {dev_ms:.4f}) plain {plain_ms:.4f} ms bound '
+          f'{bound_ms:.4f} ms ({bound_by})')
     if not max(errs) <= 1e-4:
-        raise AssertionError(f'msda_bwd Q={Q}: relative errors {errs}')
-    return {'B': B, 'Q': Q, 'max_abs_err': err, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by}
+        raise AssertionError(f'msda_bwd Q={Q}{where}: relative errors {errs}')
+    return {'B': B, 'Q': Q, 'encoder': encoder, 'max_abs_err': err,
+            'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
 def lerp_rows_macs(n, B, H, S, LP, Dh, W, per_tap):
@@ -1023,7 +1060,8 @@ def phase_gemm(gen=None):
 def phase_kernels():
     """Every kernel against its plain version at the main paths' shapes:
     serving (MSDA forward and greedy at B=16) and training (MSDA forward and
-    backward at B=1, the backward also at B=16, scan at B=1 and B=16 with
+    backward at B=1, the backward, on its shared dvalue slice, also at B=16
+    and on the encoder's locations, scan at B=1 and B=16 with
     Q = 3 layers x 30 gt pairs and K = 29 word steps, and at B=1 with
     cap_nheads 8); the word-step
     kernels at the stepwise path's train shape (B=1, Q=90, H=1) and serve
@@ -1042,6 +1080,7 @@ def phase_kernels():
     res.update(phase_gemm(gen))
     res['msda_bwd'] = [check_msda_bwd(gen, B, Q)
                        for B in (1, 16) for Q in (375, 100)]
+    res['msda_bwd'].append(check_msda_bwd(gen, 16, 375, encoder=True))
     scans = [check_scan(gen, 1, 90, 29, 1), check_scan(gen, 16, 90, 29, 1),
              check_scan(gen, 1, 90, 29, 8)]
     res['dsa_scan_fwd'] = [f for f, _ in scans]
@@ -1113,6 +1152,17 @@ _MSDA_GATHERS = ('        for (; j + 4 <= n; j += 4)\n'
                  '          gather_points<V, 4>(col, D, P, wl, wh, at, rows, j, left, lvl, acc);\n'
                  '        for (; j < n; ++j)\n'
                  '          gather_points<V, 1>(col, D, P, wl, wh, at, rows, j, left, lvl, acc);\n')
+_MSDA_BWD_POINTS = ('          if (j / G < n)   // the group\'s first point\n'
+                    '            scatter_points<V, G, STAGED>(vrows, ld, sdv, D, c, in, gv, tap, aw, j, lane, x);\n')
+_MSDA_BWD_ATOMICS = '  add_shared<V, G>(p, add, on);\n'
+# the half-warps' reduce-scatter of the 16 sums replaced by a lane's own sum
+_MSDA_BWD_REDUCE = ('const float lo = reduce_halves(x, lane);',
+                    'float lo = 0.f;\n      for (int i = 0; i < kChunk; ++i) lo += x[i];')
+_MSDA_BWD_FLUSH = ('  if (a.flush == 16) flush_rows<16>(dst, sdv, S, D, HD, a.add);\n'
+                   '  else if (a.flush == 8) flush_rows<8>(dst, sdv, S, D, HD, a.add);\n'
+                   '  else flush_rows<4>(dst, sdv, S, D, HD, a.add);\n')
+_MSDA_BWD_L2 = ('ms_deform_attn.cu', 'const bool stage = 2 * slice <= (size_t)optin;',
+                'const bool stage = false;')
 SPLITS = {
     'pr5': {
         'dsa_lstm_fwd': ('dsa_step.cu', [
@@ -1160,6 +1210,31 @@ SPLITS = {
         ]),
     },
     'current': {
+        'msda_bwd': ('ms_deform_attn.cu', [
+            ('staging', [('ms_deform_attn.cu',
+                          '    if (a.copy == 16) stage_rows<16>(sv, vrows, S, D, HD);\n'
+                          '    else if (a.copy == 8) stage_rows<8>(sv, vrows, S, D, HD);\n'
+                          '    else stage_rows<4>(sv, vrows, S, D, HD);\n', '')]),
+            ('zeroing', [('ms_deform_attn.cu', '  zero_floats(sdv, S * D);\n', '')]),
+            ('point loop', [('ms_deform_attn.cu', _MSDA_BWD_POINTS, '          ;\n')]),
+            ('shared adds', [('ms_deform_attn.cu', _MSDA_BWD_ATOMICS, '')]),
+            ('reduce-scatter', [('ms_deform_attn.cu', *_MSDA_BWD_REDUCE)]),
+            ('flush', [('ms_deform_attn.cu', _MSDA_BWD_FLUSH, '')]),
+            # not phases: the shared adds as float atomicAdds (each a
+            # compare-and-swap loop of one float, waiting for the last), in
+            # place of the batched vector compare-and-swaps; the value rows read
+            # through L2 in place of the staged slice, at every shape, and
+            # so with two blocks an SM
+            ('float atomicAdd', [('ms_deform_attn.cu', _MSDA_BWD_ATOMICS,
+                                  '  for (int t = 0; t < G; ++t)\n'
+                                  '    for (int k = 0; k < V; ++k)\n'
+                                  '      if (on[t]) atomicAdd(p[t] + k, add[t][k]);\n')]),
+            ('value through L2', [_MSDA_BWD_L2]),
+            ('value through L2, two blocks an SM', [
+                _MSDA_BWD_L2, ('ms_deform_attn.cu',
+                               '__launch_bounds__(kThreads, 1)\nmsda_bwd_kernel',
+                               '__launch_bounds__(kThreads, 2)\nmsda_bwd_kernel')]),
+        ]),
         'msda_fwd': ('ms_deform_attn.cu', [
             ('staging', [('ms_deform_attn.cu',
                           '  if (copy == 16) stage_rows<16>(sv, src, S, D, HD);\n'
@@ -1332,7 +1407,9 @@ def kernel_args(args, lstm):
 
 
 def split_cases(kernels):
-    """(kernel, shape label, call) of each split of ``kernels``: K1/K2 at
+    """(kernel, shape label, call) of each split of ``kernels``: K3 at
+    (B, Q) = (16, 375), (16, 100), (1, 375) and at (16, 375) on encoder
+    locations; K1/K2 at
     the MSDA shapes of ``phase_kernels`` ((B, Q) = (16, 375), (16, 100),
     (1, 375)); K6 at the serving shape (B=16, Q=100, H=1 and 8); K4 and K5
     at the train shapes (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8); K7-K10
@@ -1346,9 +1423,19 @@ def split_cases(kernels):
                                             dsa_lstm_step_fwd,
                                             dsa_sample_attend_bwd,
                                             dsa_sample_attend_fwd)
-    from dvc_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from dvc_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
+                                                  ms_deform_attn_bwd)
     gen = torch.Generator(device='cuda').manual_seed(0)
     cases = []
+    if 'msda_bwd' in kernels:
+        for B, Q, enc in ((16, 375, False), (16, 100, False), (1, 375, False),
+                          (16, 375, True)):
+            value, loc, attn = (msda_encoder_inputs(gen, B) if enc
+                                else msda_inputs(gen, B, Q))
+            g = torch.randn((B, Q, 512), generator=gen, device='cuda')
+            cases.append(('msda_bwd', f'B={B} Q={Q}' + ' encoder' * enc,
+                          lambda a=(value, loc, attn, g):
+                          ms_deform_attn_bwd(a[0], MSDA_LEVELS, *a[1:])))
     if 'msda_fwd' in kernels:
         for B, Q in ((16, 375), (16, 100), (1, 375)):
             args = msda_inputs(gen, B, Q)
@@ -1402,16 +1489,20 @@ def split_cases(kernels):
     return cases
 
 
-def phase_split(spec):
-    """Print one line per kernel and shape: its time as built, and each
+def phase_split(spec, kernels=None):
+    """Print one line per kernel (of ``kernels``, default every kernel of
+    the spec) and shape: its time as built, and each
     phase's share (as built minus the variant without that phase; CUDA
-    events, mean of 3 after a warm-up).  Returns {kernel: [lines]}."""
+    events, mean of 3 after a warm-up; the MSDA kernels, whose small
+    launches the host's time would hide, in device time, mean of 20).
+    Returns {kernel: [lines]}."""
     import torch
     from dvc_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     libs = build_variants(_cuda.CSRC, {
         kernel: (source, {'as built': [], **dict(phases)})
-        for kernel, (source, phases) in SPLITS[spec].items()})
+        for kernel, (source, phases) in SPLITS[spec].items()
+        if kernels is None or kernel in kernels})
     print(f'[split] {sum(map(len, libs.values()))} variants of '
           f'{len(libs)} kernels built in {time.perf_counter() - t0:.1f} s')
     saved, out = _cuda._LIB, {}
@@ -1421,7 +1512,8 @@ def phase_split(spec):
                 times = {}
                 for name, lib in libs[kernel].items():
                     _cuda._LIB = lib
-                    times[name] = cuda_ms(call, 3)
+                    times[name] = (device_ms(call, 20) if kernel[:4] == 'msda'
+                                   else cuda_ms(call, 3))
                 full = times.pop('as built')
                 line = (f'[split] {kernel} {shape} ({spec}): as built '
                         f'{full:.3f} ms; without each phase, its share: '
@@ -1439,8 +1531,9 @@ def ab_times():
     shapes, plus the greedy decode at B=1 (a single caption_features
     request), and of the GEMM at every shape of ``phase_gemm``, as one JSON
     line: the half of an A/B of two trees in one call.  The MSDA forward
-    also in device time (the profiler's; the event time of a small launch
-    is the wrapper's host time); the word-step kernels alone (with VW given
+    and backward also in device time (the profiler's; the event time of a
+    small launch is the wrapper's host time), the backward also at B=16 on
+    the encoder's locations; the word-step kernels alone (with VW given
     where the tree's kernels take it), and K7 and K8 also with 1/29 of the
     table's forward or backward at their shape (``+table/29``: the share of
     one table per 29-step pass; a tree whose K7 and K8 take cw has no
@@ -1464,10 +1557,15 @@ def ab_times():
             args = greedy_inputs(gen, B, 100, H)
             out[f'dsa_greedy B={B} Q=100 H={H}'] = cuda_ms(
                 lambda: ops.dsa_greedy_scan(*args, MSDA_LEVELS, 30), 3)
-        for B, Q in ((1, 375), (1, 100), (16, 375), (16, 100)):
-            value, loc, attn = msda_inputs(gen, B, Q)
+        for B, Q, enc in ((1, 375, ''), (1, 100, ''), (16, 375, ''),
+                          (16, 100, ''), (16, 375, ' encoder')):
+            value, loc, attn = (msda_encoder_inputs(gen, B) if enc
+                                else msda_inputs(gen, B, Q))
             g = torch.randn((B, Q, 512), generator=gen, device='cuda')
-            out[f'msda_bwd B={B} Q={Q}'] = cuda_ms(
+            out[f'msda_bwd B={B} Q={Q}{enc}'] = cuda_ms(
+                lambda: ops.ms_deform_attn_bwd(value, MSDA_LEVELS, loc, attn,
+                                               g), 50)
+            out[f'msda_bwd B={B} Q={Q}{enc} (device)'] = device_ms(
                 lambda: ops.ms_deform_attn_bwd(value, MSDA_LEVELS, loc, attn,
                                                g), 50)
         for B, H in ((1, 1), (16, 1), (1, 8)):
@@ -1598,11 +1696,12 @@ def trace(label, fn):
         print('[trace] the profiler recorded no device activity: kernel '
               'shares and idle share not measured')
         return
-    busy, covered, per_name = 0.0, win.start, {}
+    busy, covered, per_name, count = 0.0, win.start, {}, {}
     for t0, t1, name in spans:     # union of the spans inside the window
         busy += max(min(t1, win.end) - max(t0, covered), 0.0)
         covered = max(covered, min(t1, win.end))
         per_name[name] = per_name.get(name, 0.0) + (t1 - t0)
+        count[name] = count.get(name, 0) + 1
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     print(f'[trace] {label} under the profiler: window {window / 1e3:.3f} '
           f'ms, device busy {busy / 1e3:.3f} ms, idle share '
@@ -1617,6 +1716,13 @@ def trace(label, fn):
         print(f'[trace]   {sum(gemm.values()) / 1e3:9.3f} ms  dsa::gemm in all '
               f'(tables, G . Wc^T, outer sums, split sums); the outer sums\' '
               f'kernels (both operands along the terms) {outer / 1e3:.3f} ms')
+    msda = {d: [(us, count[n]) for n, us in per_name.items()
+                if f'msda_{d}_kernel' in n] for d in ('fwd', 'bwd')}
+    us = {d: sum(u for u, _ in v) for d, v in msda.items()}
+    n = {d: sum(c for _, c in v) for d, v in msda.items()}
+    print(f'[trace]   {(us["fwd"] + us["bwd"]) / 1e3:9.3f} ms  msda in all: '
+          f'forward (K1/K2) {us["fwd"] / 1e3:.3f} ms in {n["fwd"]} launches, '
+          f'backward (K3) {us["bwd"] / 1e3:.3f} ms in {n["bwd"]} launches')
 
 
 def phase_serve(dc):
@@ -2197,9 +2303,10 @@ def main():
 
 
 if __name__ == '__main__':
-    if sys.argv[1:2] == ['--split']:
+    if sys.argv[1:2] == ['--split']:    # [spec [kernel ...]]
         phase_device()
-        phase_split(sys.argv[2] if len(sys.argv) > 2 else 'current')
+        phase_split(sys.argv[2] if len(sys.argv) > 2 else 'current',
+                    sys.argv[3:] or None)
     elif sys.argv[1:2] == ['--ab']:
         phase_device()
         ab_times()

@@ -164,7 +164,9 @@ def ms_deform_attn_bwd(value, temporal_shapes, sampling_locations,
     dims, (value, loc, attn, g) = _check_kernel_args(
         value, temporal_shapes, sampling_locations, attention_weights, g)
     B, S, Q, H, D, L, P = dims
-    dvalue = torch.zeros_like(value)
+    # written in full by the library (it zeroes dvalue itself where its
+    # query tiles add into it)
+    dvalue = torch.empty_like(value)
     dloc = torch.empty_like(loc)
     dattn = torch.empty_like(attn)
     _cuda.check(_cuda.lib().cdll.dvc_msda_bwd(

@@ -9,10 +9,12 @@ test here skips.  On a machine with one (JAX is not needed there, hence
 Tolerances: MSDA max abs error <= 1e-4 * max|out| (f32, same taps summed in
 another order; the forward at every lane width, copy width and query tile
 edge of its staged head slice), and the same for each of its gradients
-(dvalue is summed with atomics in no fixed order); greedy tokens equal and log-probs within
-1e-3 wherever the plain version's top-2 logit margin exceeded 1e-3 at that
-step and every earlier one (past a near-tie the fed-back tokens may
-legitimately differ); teacher-forcing scan hs and cs within 1e-4 * max|ref|
+(dvalue is summed with atomics in no fixed order; the backward on its
+shared dvalue slice at the same widths and edges, on encoder locations,
+and at the shared-memory limit that both passes share); greedy tokens
+equal and log-probs within 1e-3 wherever the plain version's top-2 logit
+margin exceeded 1e-3 at that step and every earlier one (past a near-tie
+the fed-back tokens may legitimately differ); teacher-forcing scan hs and cs within 1e-4 * max|ref|
 and each of its 13 gradients within 1e-3 * max|ref| + 1e-5 (K recurrent
 steps of f32 sums in another order, atomics in dvalue, dWc and the bias
 sums; the floor is for d alpha_b, which is zero in exact arithmetic since
@@ -40,6 +42,8 @@ import torch
 
 from chip_smoke import (GEMM_PRODUCT_TOL, near_integer, product_err,
                         scan_positions, tf32_matmul)
+from dvc_tpu_torch.models.deformable_transformer import \
+    encoder_reference_points
 from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan, dsa_greedy_scan_ref
 from dvc_tpu_torch.ops.dsa_tables import (dsa_value_table, table_gemm,
                                           table_gemm_bwd)
@@ -775,6 +779,103 @@ def test_msda_forward_kernel_stages_a_misaligned_slice(cuda):
     value, loc, attn = _msda_args(cuda, rng, 1, 3, 1, 64, 1, (S,))
     with pytest.raises(RuntimeError):
         ms_deform_attn(value, (S,), loc, attn)
+
+
+def _msda_bwd_close(got, value, shapes, loc, attn, g):
+    """Each of the kernel's (dvalue, dloc, dattn) within 1e-4 of its max
+    |ref| of the plain backward (dvalue summed by atomics in no fixed
+    order)."""
+    want = ms_deform_attn_bwd_ref(value, shapes, loc, attn, g)
+    for name, a, b in zip(('dvalue', 'dloc', 'dattn'), got, want):
+        ok, err = _close(a, b, 1e-4)
+        assert ok, (name, err, float(b.abs().max()))
+
+
+@pytest.mark.parametrize('B,Q,H,D,P', [(1, 375, 8, 64, 4), (1, 41, 8, 64, 4),
+                                       (1, 1, 8, 64, 4), (16, 100, 8, 64, 4),
+                                       (16, 375, 8, 64, 4), (3, 53, 2, 5, 3),
+                                       (2, 29, 3, 66, 2), (2, 17, 2, 128, 9)])
+def test_msda_backward_kernel_at_one_video_and_tile_edges(cuda, B, Q, H, D,
+                                                           P):
+    """K3 on its shared dvalue slice at the recipe's widths (S = 375, H = 8,
+    D = 64, L = P = 4): at B = 1 (8 (b, h) pairs, so Q is split into tiles
+    whose slices are added into dvalue; Q = 41 leaves a ragged tile, Q = 1
+    one tile) and at the train step's B = 16, Q = 100 and 375 (one tile a
+    pair, the slice stored); and at widths that take the other lane widths
+    and copies: D = 5 (one column a lane, 4-byte copies and stores), D = 66
+    (two column chunks, 8-byte ones), D = 128 (four columns a lane), and
+    L*P = 36 points (three chunks of 16)."""
+    rng = np.random.default_rng(1900 + B + Q + D)
+    shapes = (200, 100, 50, 25)
+    value, loc, attn = _msda_args(cuda, rng, B, Q, H, D, P, shapes)
+    g = _t(rng.standard_normal((B, Q, H * D), np.float32), cuda)
+    launches = ms_deform_attn_bwd.launches
+    got = ms_deform_attn_bwd(value, shapes, loc, attn, g)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_bwd.launches == launches + 1
+    _msda_bwd_close(got, value, shapes, loc, attn, g)
+
+
+def test_msda_backward_kernel_stages_a_misaligned_slice(cuda):
+    """value and g as views whose storage starts 4 bytes past a 16-byte
+    boundary: the value slice is staged 4 bytes at a time."""
+    rng = np.random.default_rng(1950)
+    shapes = (40, 20)
+    value, loc, attn = _msda_args(cuda, rng, 2, 23, 3, 20, 3, shapes)
+    g = _t(rng.standard_normal((2, 23, 60), np.float32), cuda)
+    views = []
+    for t in (value, g):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        views.append(buf[1:].view(t.shape))
+        views[-1].copy_(t)
+        assert views[-1].data_ptr() % 16
+    got = ms_deform_attn_bwd(views[0], shapes, loc, attn, views[1])
+    _msda_bwd_close(got, value, shapes, loc, attn, g)
+
+
+@pytest.mark.parametrize('D', [64, 5, 128])
+def test_msda_kernels_share_the_shared_memory_limit(cuda, D):
+    """Both passes take a head slice of S*D floats up to the card's opt-in
+    shared memory of a block and refuse one float row more.  Just under the
+    limit the backward's value rows do not fit beside its dvalue slice, so
+    it reads them through L2; at B = 1 its 40 queries are split into tiles
+    whose slices are added into dvalue."""
+    rng = np.random.default_rng(1970 + D)
+    optin = torch.cuda.get_device_properties(cuda) \
+        .shared_memory_per_block_optin
+    S = optin // (4 * D)
+    value, loc, attn = _msda_args(cuda, rng, 1, 40, 1, D, 2, (S,))
+    g = _t(rng.standard_normal((1, 40, D), np.float32), cuda)
+    out = ms_deform_attn(value, (S,), loc, attn)
+    ok, err = _close(out, ms_deform_attn_ref(value, (S,), loc, attn), 1e-4)
+    assert ok, err
+    got = ms_deform_attn_bwd(value, (S,), loc, attn, g)
+    _msda_bwd_close(got, value, (S,), loc, attn, g)
+    value, loc, attn = _msda_args(cuda, rng, 1, 40, 1, D, 2, (S + 1,))
+    with pytest.raises(RuntimeError):
+        ms_deform_attn(value, (S + 1,), loc, attn)
+    with pytest.raises(RuntimeError):
+        ms_deform_attn_bwd(value, (S + 1,), loc, attn, g)
+
+
+@pytest.mark.parametrize('B', [1, 16])
+def test_msda_backward_kernel_on_encoder_locations(cuda, B):
+    """The encoder's self-attention at the recipe's widths: a query per
+    position (Q = S = 375) samples near its reference point
+    (``encoder_reference_points``) at offsets of up to 3 frames, so the
+    taps of neighbouring queries collide on the same dvalue rows of the
+    shared slice."""
+    rng = np.random.default_rng(1990 + B)
+    shapes, H, D, P = (200, 100, 50, 25), 8, 64, 4
+    S, L = sum(shapes), len(shapes)
+    ref = encoder_reference_points(shapes, torch.ones((B, L), device=cuda))
+    off = _t(rng.uniform(-3, 3, (B, S, H, L, P)).astype(np.float32), cuda)
+    T = torch.tensor(shapes, dtype=torch.float32, device=cuda)
+    loc = ref[:, :, None, :, None, 0] + off / T[:, None]
+    value, _, attn = _msda_args(cuda, rng, B, S, H, D, P, shapes)
+    g = _t(rng.standard_normal((B, S, H * D), np.float32), cuda)
+    got = ms_deform_attn_bwd(value, shapes, loc, attn, g)
+    _msda_bwd_close(got, value, shapes, loc, attn, g)
 
 
 @pytest.mark.parametrize('N,k,n', [(375, 512, 512), (6000, 64, 512),

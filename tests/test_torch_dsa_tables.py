@@ -479,7 +479,7 @@ def test_table_gemm_backward_matches_autograd(N, k, n):
 
 def test_phase_split_edits_match_the_sources():
     """Each edit of chip_smoke.py's phase split of the redesigned kernels
-    (K1/K2, K4-K10; one phase's code taken out of a copy of csrc/) finds its
+    (K1-K10; one phase's code taken out of a copy of csrc/) finds its
     text exactly once in the sources, so the split's variants build."""
     import os
     import chip_smoke

@@ -9,7 +9,8 @@ through it, the plain version of the CUDA backward kernel) is held against
 the three JAX backwards: the VJP of the gather oracle, the VJP of the dense
 one-hot form (the TPU default, ``DVC_MSDA_BWD=dense``) and the analytic
 Pallas backward ``_msda_bwd_kernel`` in interpret mode; tolerance 2e-5
-(dvalue sums up to Q*L*P contributions per row in another order).
+(dvalue sums up to Q*L*P contributions per row in another order), also on
+the encoder's locations, where the taps of many queries share a row.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,8 @@ from torch_port import to_numpy, to_torch  # noqa: I100 (sets torch threads)
 
 from dvc_tpu.ops.ms_deform_attn import _msda_pallas_bwd_impl
 from dvc_tpu.ops.ms_deform_attn import ms_deform_attn as jax_msda
+from dvc_tpu_torch.models.deformable_transformer import \
+    encoder_reference_points
 from dvc_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
                                               ms_deform_attn_bwd,
                                               ms_deform_attn_bwd_ref,
@@ -113,6 +116,41 @@ def test_plain_backward_matches_every_jax_backward(shapes):
     wants['pallas_bwd'] = _msda_pallas_bwd_impl(
         jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(attn),
         'zeros', True, jnp.asarray(g))
+    for impl, want in wants.items():
+        for name, a, b in zip(('dvalue', 'dloc', 'dattn'), got, want):
+            np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=2e-5,
+                                       atol=2e-5, err_msg=f'{impl} {name}')
+
+
+@pytest.mark.parametrize('shapes', [(25, 13, 7, 4), (12, 6, 3)])
+def test_plain_backward_matches_jax_on_encoder_locations(shapes):
+    """The encoder's self-attention: a query per position of the flattened
+    pyramid (Q = S) samples near its reference point
+    (``encoder_reference_points``) at offsets of up to 3 frames of each
+    level, so the taps of neighbouring queries land on the same value rows,
+    the pattern that the card's backward adds into its shared dvalue slice
+    on the main path."""
+    rng = np.random.default_rng(60 + len(shapes))
+    B, H, D, P, L, S = 2, 3, 8, 3, len(shapes), sum(shapes)
+    ref = to_numpy(encoder_reference_points(shapes, torch.ones((B, L))))
+    off = rng.uniform(-3, 3, (B, S, H, L, P)).astype(np.float32)
+    loc = (ref[:, :, None, :, None, 0]
+           + off / np.asarray(shapes, np.float32)[:, None]).astype(np.float32)
+    value = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    attn = rng.uniform(0, 1, (B, S, H, L, P)).astype(np.float32)
+    attn /= attn.sum(axis=(3, 4), keepdims=True)
+    g = rng.standard_normal((B, S, H * D)).astype(np.float32)
+    # the premise: many taps on each row that any tap reaches
+    pos = np.floor(loc * np.asarray(shapes, np.float32)[:, None] - 0.5)
+    starts = np.cumsum((0,) + shapes[:-1])[:, None]
+    rows = (pos + starts)[(pos >= 0) & (pos < np.asarray(shapes)[:, None])]
+    assert rows.size >= 4 * np.unique(rows).size
+    got = ms_deform_attn_bwd_ref(to_torch(value), shapes, to_torch(loc),
+                                 to_torch(attn), to_torch(g))
+    wants = {'ref': _jax_vjp('ref', value, shapes, loc, attn, g),
+             'pallas_bwd': _msda_pallas_bwd_impl(
+                 jnp.asarray(value), shapes, jnp.asarray(loc),
+                 jnp.asarray(attn), 'zeros', True, jnp.asarray(g))}
     for impl, want in wants.items():
         for name, a, b in zip(('dvalue', 'dloc', 'dattn'), got, want):
             np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=2e-5,
