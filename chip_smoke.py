@@ -53,12 +53,16 @@ Phases (one or more lines each; the last line is the JSON verdict):
    run of the plain versions on one video.
 6. train — ``dvc_tpu_torch.new_train.main`` for one ``--debug`` epoch (5
    steps at B=1) of the same recipe on a synthetic run written to a temp
-   dir: finite losses, the launch counters of the MSDA forward and
-   backward and of the scan forward and backward must rise, no word-step
-   kernel may launch and no plain version may run; the checkpoint it wrote
-   serves one request on the
-   card; the total loss falls on a repeated batch; the train step timed at
-   B=1 and B=16 and one B=16 step traced.
+   dir (16 training videos, a held-out val set of 16 and its paragraph
+   ground truth), which validates after the epoch (6 val videos): finite
+   losses, the launch counters of the MSDA forward and backward, of the
+   scan forward and backward and of the greedy decode must rise, no
+   word-step kernel may launch and no plain version may run;
+   ``epoch1.json`` with finite METEOR and soda_c, ``val_history`` in
+   ``info.json`` and ``model-best.pth``, which ``DenseCaptioner(folder)``
+   (``which='best'``) serves for one request on the card; the total loss
+   falls on a repeated batch; the train step timed at B=1 and B=16 and one
+   B=16 step traced.
 7. train agreement — one train step's losses and gradients on the card
    against the CPU plain path (same weights and batch, dropout off).
 8. stepwise — the stepwise caption path: ``new_train.main`` for two
@@ -66,13 +70,28 @@ Phases (one or more lines each; the last line is the JSON verdict):
    once through K7/K8 and once with --dsa_lstm_fuse 1 through K9/K10 (the
    fused scan K4/K5 in epoch 0; one launch per word step, and under either
    flag one table VW and one table backward per train step; no plain
-   version; tokens fed by scheduled sampling), the step timed at
-   B=1 and B=16; the second run's checkpoint served with --dsa_greedy_fuse
+   version; tokens fed by scheduled sampling; each epoch validated, with
+   ``model-best.pth`` written), the step timed at B=1 and B=16; the second
+   run's checkpoint served with --dsa_greedy_fuse
    0 through K7 and K9 against the fused greedy kernel (>= 90% of the
    captions identical); the train agreement of phase 7 with
-   --dsa_scan_fuse 0 for both pairs.  Then a check that neither JAX nor
-   any module of the JAX package ``dvc_tpu`` (by name or by file) was
-   imported.
+   --dsa_scan_fuse 0 for both pairs.
+9. eval — ``dvc_tpu_torch.run_eval`` on phase 6's run folder over the 16
+   val videos at --eval_batch_size 16 and 1, counters set to 0 before each
+   run and read after: at least 6 K1/K2 launches and exactly one K6 launch
+   per batch, no word-step kernel, no plain version; ``eval_results.json``
+   well formed (timestamps in [0, duration], string sentences, 16 videos)
+   with finite METEOR, soda_c, para_METEOR, Recall and Precision;
+   ``--eval_mode test`` writes ``dvc_results.json`` without scores; the
+   B=16 run's time split by part (the eval step with a synchronize around
+   it, the matcher's host syncs in it, postprocess, records, and the
+   metric stack's dvc, SODA and paragraph parts), with the card's name and
+   power limit; one B=16 eval step traced; two val videos evaluated on the
+   CPU (plain versions) and on the card, held to phase 5's gates (>= 90%
+   of captions identical, timestamps and proposal scores within 1e-3
+   relative where they agree), with both runs' METEOR and soda_c printed
+   (not gated).  Then a check that neither JAX nor any module of the JAX
+   package ``dvc_tpu`` (by name or by file) was imported.
 
 Nothing catches a phase's failure: any failure exits non-zero and the last
 line ``{"ok": true, ...}`` is printed only when every phase passed.
@@ -1811,38 +1830,84 @@ def phase_agreement(dc):
 # --------------------------------------------------------------------------
 
 TRAIN_VIDEOS = 16
+VAL_VIDEOS = 16
+
+
+def letter_words(n):
+    """n distinct words of letters only ('wa', 'wb', ..., 'wz', 'waa',
+    ...): the paragraph metric keeps only letters (``para_eval.parse_sent``),
+    so words that differ in digits would all become one word there."""
+    def word(i):
+        out = ''
+        while i:
+            i, r = divmod(i - 1, 26)
+            out = chr(ord('a') + r) + out
+        return 'w' + out
+    return [word(i) for i in range(1, n + 1)]
 
 
 def write_synthetic_run(root, opt, n_videos=TRAIN_VIDEOS, seed=0):
-    """A YouCook2-shaped training set at the recipe's widths: clip features
-    (feature_dim wide, 150-400 clips), cached sound features for every
-    other video (the rest fall back to zeros), a vocabulary of vocab_size
-    words, and 3-40 captioned events per video (captions of 3-27 words, so
-    after BOS/EOS at most 29 word steps).  Returns the recipe file that
+    """A YouCook2-shaped training set at the recipe's widths, and a
+    held-out val set of VAL_VIDEOS videos from the same generator (another
+    seed) with its paragraph ground truth.  Returns the recipe file that
     inherits the model from CFG and points at this data."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
     feat_dir = os.path.join(root, 'features')
     sound_dir = os.path.join(root, 'sound')
     os.makedirs(feat_dir)
     os.makedirs(sound_dir)
-    words = [f'word{i}' for i in range(1, opt.vocab_size + 1)]
+    words = letter_words(opt.vocab_size)
     vocab = os.path.join(root, 'vocab.json')
     with open(vocab, 'w') as f:
         json.dump({'word_to_ix': {w: i for i, w in enumerate(words, 1)},
                    'ix_to_word': {str(i): w for i, w in enumerate(words, 1)}},
                   f)
+    paths = {}
+    for name, prefix, n, s in (('train', 'v_smoke', n_videos, seed),
+                               ('val', 'v_valid', VAL_VIDEOS, seed + 1)):
+        anno = write_videos(root, prefix, n, s, opt.feature_dim, words)
+        paths[name] = os.path.join(root, f'{name}.json')
+        with open(paths[name], 'w') as f:
+            json.dump(anno, f)
+    paths['para'] = os.path.join(root, 'para_val.json')
+    with open(paths['para'], 'w') as f:
+        json.dump({k: ' '.join(v['sentences']) for k, v in anno.items()}, f)
+    recipe = os.path.join(root, 'smoke.yml')
+    with open(recipe, 'w') as f:
+        json.dump({'base_cfg_path': CFG, 'id': 'smoke',
+                   'save_dir': os.path.join(root, 'save'),
+                   'train_caption_file': paths['train'],
+                   'val_caption_file': paths['val'],
+                   'gt_file_for_eval': [paths['val']],
+                   'gt_file_for_para_eval': [paths['para']],
+                   'dict_file': vocab,
+                   'visual_feature_folder': [feat_dir],
+                   'invalid_video_json': [],
+                   'sound_feature_folder': sound_dir, 'epoch': 1}, f)
+    return recipe
+
+
+def write_videos(root, prefix, n_videos, seed, feature_dim, words):
+    """n_videos YouCook2-shaped videos keyed ``prefix`` + 6 digits: clip
+    features (feature_dim wide, 150-400 clips) in root/features, cached
+    sound features for every other video in root/sound (the rest fall back
+    to zeros), and 3-40 captioned events per video (captions of 3-27
+    words, so after BOS/EOS at most 29 word steps).  Returns their
+    annotations."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    feat_dir = os.path.join(root, 'features')
+    sound_dir = os.path.join(root, 'sound')
     anno = {}
     for v in range(n_videos):
-        key = f'v_smoke{v:06d}'
+        key = f'{prefix}{v:06d}'
         n_clips = int(rng.integers(150, 400))
         duration = float(rng.uniform(60, 600))
         np.save(os.path.join(feat_dir, key[:13] + '.npy'),
-                rng.standard_normal((n_clips, opt.feature_dim))
+                rng.standard_normal((n_clips, feature_dim))
                 .astype(np.float32))
         if v % 2 == 0:
             np.save(os.path.join(sound_dir, key[:13] + '.npy'),
-                    rng.standard_normal((n_clips, opt.feature_dim))
+                    rng.standard_normal((n_clips, feature_dim))
                     .astype(np.float32))
         n_events = int(rng.integers(3, 41))
         starts = np.sort(rng.uniform(0, 0.9, n_events)) * duration
@@ -1853,19 +1918,7 @@ def write_synthetic_run(root, opt, n_videos=TRAIN_VIDEOS, seed=0):
             'timestamps': [[float(a), float(b)] for a, b in zip(starts, ends)],
             'sentences': [' '.join(rng.choice(words, int(rng.integers(3, 28))))
                           for _ in range(n_events)]}
-    anno_path = os.path.join(root, 'train.json')
-    with open(anno_path, 'w') as f:
-        json.dump(anno, f)
-    recipe = os.path.join(root, 'smoke.yml')
-    with open(recipe, 'w') as f:
-        json.dump({'base_cfg_path': CFG, 'id': 'smoke',
-                   'save_dir': os.path.join(root, 'save'),
-                   'train_caption_file': anno_path,
-                   'val_caption_file': anno_path, 'dict_file': vocab,
-                   'visual_feature_folder': [feat_dir],
-                   'invalid_video_json': [],
-                   'sound_feature_folder': sound_dir, 'epoch': 1}, f)
-    return recipe
+    return anno
 
 
 def _counted():
@@ -1930,11 +1983,34 @@ def time_steps(trainer, batch, lr, reps, ss_prob=0.0):
     return (time.perf_counter() - t0) / reps * 1e3, losses
 
 
+EVAL_SCORES = ('METEOR', 'soda_c', 'para_METEOR', 'Recall', 'Precision')
+
+
+def check_validation(folder, epochs):
+    """The validation that new_train ran after each epoch: epoch{N}.json
+    with finite METEOR and soda_c, its scores in info.json's val_history,
+    and model-best.pth."""
+    import math
+    with open(os.path.join(folder, 'info.json')) as f:
+        info = json.load(f)
+    for epoch in epochs:
+        with open(os.path.join(folder, f'epoch{epoch}.json')) as f:
+            scores = json.load(f)
+        if not all(math.isfinite(scores[k]) for k in ('METEOR', 'soda_c')) \
+                or str(epoch) not in info['val_history']:
+            raise AssertionError(f'validation of epoch {epoch}: {info}')
+    if not os.path.exists(os.path.join(folder, 'model-best.pth')):
+        raise AssertionError(f'no model-best.pth in {folder}')
+    history = info['val_history'][str(epochs[-1])]
+    return ', '.join(f'{k} {history[k]:.4f}' for k in EVAL_SCORES)
+
+
 def phase_train(tmp):
     """The port's training driver (``dvc_tpu_torch.new_train.main``) for
     one --debug epoch (5 steps at B=1) of the full-width recipe on the
-    synthetic run, with the launch counts set to 0 just before and read
-    just after; then its checkpoint served on the card, a repeated-batch
+    synthetic run, which validates after it (6 val videos at B=1, K1/K2
+    and K6), with the launch counts set to 0 just before and read just
+    after; then its best checkpoint served on the card, a repeated-batch
     check, and the step's time at B=1 and B=16."""
     import math
     import numpy as np
@@ -1953,24 +2029,26 @@ def phase_train(tmp):
     seconds = time.perf_counter() - t0
     launches, plain = read_counts()
     print(f'[train] new_train.main --debug, B=1: {seconds:.1f} s (setup, '
-          f'5 steps, checkpoint); mean losses {json.dumps({k: round(v, 4) for k, v in losses.items()})}')
+          f'5 steps, validation, checkpoints); mean losses {json.dumps({k: round(v, 4) for k, v in losses.items()})}')
     print(f'[train] kernel launches {launches}, plain-version calls {plain}')
     bad = [k for k, v in losses.items() if not math.isfinite(v)]
     if bad or 'loss_caption' not in losses:
         raise AssertionError(f'train losses not finite: {bad}')
     if (min(launches[k] for k in ('msda_fwd', 'msda_bwd', 'dsa_scan_fwd',
-                                  'dsa_scan_bwd')) < 1 or plain
+                                  'dsa_scan_bwd', 'dsa_greedy')) < 1 or plain
             or any(launches[k] for k in STEP_KERNELS)):
         raise AssertionError(f'train path did not run on the kernels: '
                              f'launches {launches}, plain calls {plain}')
+    print(f'[train] validation of epoch 1: {check_validation(folder, [1])}')
 
-    dc = DenseCaptioner(folder, which='last', device=DEVICE)
+    dc = DenseCaptioner(folder, device=DEVICE)             # which='best'
+
     rng = np.random.default_rng(3)
     events = dc.caption_features(
         rng.standard_normal((240, opt.feature_dim)).astype(np.float32), 150.0,
         sound=rng.standard_normal((240, opt.feature_dim)).astype(np.float32))
     check_events(events, 150.0)
-    print(f'[train] the checkpoint served one request on the card: '
+    print(f'[train] the best checkpoint served one request on the card: '
           f'{len(events)} events, first {events[0]["timestamp"]}')
 
     # the total falls on a repeated batch (dropout on, as in training)
@@ -1994,7 +2072,7 @@ def phase_train(tmp):
           f'{16e3 / ms16:.2f} videos/s; peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     trace('B=16 train_step', lambda: trainer.train_step(batch16, opt.lr))
-    return launches, opt
+    return launches, opt, folder
 
 
 # --------------------------------------------------------------------------
@@ -2125,6 +2203,8 @@ def phase_stepwise_train(tmp):
                                  f'launches {launches}, plain {plain}, fed '
                                  f'{fed}')
         out[lstm_fuse] = launches
+        print(f'[stepwise] validation of epochs 1 and 2 (fused greedy '
+              f'decode): {check_validation(folder, [1, 2])}')
 
         trainer = Trainer(opt, device=DEVICE)
         batch = train_batch(opt, 1)
@@ -2232,6 +2312,218 @@ def phase_stepwise_agreement(opt):
             label=f'stepwise-agreement lstm_fuse={lstm_fuse}')
 
 
+# --------------------------------------------------------------------------
+# 9. eval: run_eval on the card
+# --------------------------------------------------------------------------
+
+def check_eval_json(path, n_videos, scored):
+    """eval_results.json / dvc_results.json: every record's timestamp in
+    [0, duration], sentences strings, n_videos videos; finite scores where
+    the metrics ran, none where they did not."""
+    import math
+    with open(path) as f:
+        out = json.load(f)
+    bad = [e for events in out['results'].values() for e in events
+           if not (0.0 <= e['timestamp'][0] <= e['timestamp'][1]
+                   <= e['vid_duration'] * (1 + 1e-6))
+           or not isinstance(e['sentence'], str)]
+    if out['valid_video_num'] != n_videos or bad:
+        raise AssertionError(f'{path}: {out["valid_video_num"]} videos, '
+                             f'bad records {bad[:3]}')
+    if scored != all(k in out for k in EVAL_SCORES) or (
+            scored and not all(math.isfinite(out[k]) for k in EVAL_SCORES)):
+        raise AssertionError(f'{path}: scores {[out.get(k) for k in EVAL_SCORES]}')
+    return out
+
+
+class CallTimer:
+    """Patches named functions (module or class attributes) to add up the
+    host-clock seconds and calls of each while active; with ``sync`` a
+    function's time is taken between two ``torch.cuda.synchronize``."""
+
+    def __init__(self, targets):
+        self.targets = targets          # label: (owner, name, sync)
+        self.seconds = {k: 0.0 for k in targets}
+        self.calls = {k: 0 for k in targets}
+
+    def __enter__(self):
+        import torch
+        self.saved = {}
+        for label, (owner, name, sync) in self.targets.items():
+            fn = getattr(owner, name)
+            self.saved[label] = fn
+
+            def timed(*a, _fn=fn, _label=label, _sync=sync, **k):
+                if _sync and DEVICE != 'cpu':
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                if _sync and DEVICE != 'cpu':
+                    torch.cuda.synchronize()
+                self.seconds[_label] += time.perf_counter() - t0
+                self.calls[_label] += 1
+                return out
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (owner, name, _) in self.targets.items():
+            setattr(owner, name, self.saved[label])
+
+
+def eval_timer():
+    from dvc_tpu_torch.eval import eval_utils
+    from dvc_tpu_torch.models import criterion
+    from dvc_tpu_torch.train import Trainer
+    return CallTimer({
+        'eval_step': (Trainer, 'eval_step', True),
+        'matcher': (criterion, 'hungarian_match', False),
+        'postprocess': (eval_utils, 'postprocess', True),
+        'to_dvc_records': (eval_utils, 'to_dvc_records', False),
+        'rerank': (eval_utils, 'reranking', False),
+        'dvc': (eval_utils, 'eval_dvc', False),
+        'soda': (eval_utils, 'eval_soda', False),
+        'para': (eval_utils, 'eval_para', False)})
+
+
+def run_eval_counted(args, timer=None):
+    """``run_eval.main(args)`` with the launch counts set to 0 just before
+    and read just after: (json path, scores, launches, plain calls,
+    seconds)."""
+    import contextlib
+    import torch
+    from dvc_tpu_torch import run_eval
+    reset_counts()
+    t0 = time.perf_counter()
+    with timer or contextlib.nullcontext():
+        path, scores = run_eval.main(args)
+    if DEVICE != 'cpu':
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = read_counts()
+    return path, scores, launches, plain, seconds
+
+
+def phase_eval(tmp, folder, card):
+    """``dvc_tpu_torch.run_eval`` on phase 6's run folder (its best
+    checkpoint) over the VAL_VIDEOS synthetic val videos on the card, at
+    --eval_batch_size 16 and 1, each timed by part, with the launch counts set
+    to 0 before each run and read after: a K1/K2 launch per trunk layer (6)
+    and one K6 launch a batch, no word-step kernel, no plain version; well-formed
+    eval_results.json with finite scores; --eval_mode test writes
+    dvc_results.json without them; one B=16 eval step traced; then two val
+    videos evaluated on the CPU (plain versions) and on the card, their
+    records held to phase 5's gates.  Returns the B=16 run's launches."""
+    import math
+    import torch
+    from dvc_tpu_torch import run_eval
+    from dvc_tpu_torch.serve import run_options
+    ropt = run_options(folder)
+    layers = ropt.enc_layers + ropt.dec_layers       # K1/K2 a forward
+    out = {}
+    for bs in (16, 1):
+        timer = eval_timer()
+        path, scores, launches, plain, seconds = run_eval_counted(
+            ['--eval_save_dir', folder, '--eval_batch_size', str(bs),
+             '--eval_device', DEVICE], timer)
+        batches = -(-VAL_VIDEOS // bs)
+        check_eval_json(path, VAL_VIDEOS, scored=True)
+        print(f'[eval] run_eval --eval_batch_size {bs}: {seconds:.2f} s; '
+              f'{", ".join(f"{k} {scores[k]:.4f}" for k in EVAL_SCORES)}; '
+              f'kernel launches {launches}, plain-version calls {plain}')
+        if (launches['msda_fwd'] < layers * batches
+                or launches['dsa_greedy'] != batches or plain
+                or any(launches[k] for k in STEP_KERNELS + (
+                    'msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd'))):
+            raise AssertionError(f'eval path at B={bs} did not run on the '
+                                 f'kernels: {launches}, plain {plain}')
+        out[bs] = launches
+        t = timer.seconds
+        rest = seconds - sum(v for k, v in t.items() if k != 'matcher')
+        print(f'[eval] where the time of the B={bs} run goes ({card}), '
+              f'host-clock s: eval_step {t["eval_step"]:.3f} in '
+              f'{timer.calls["eval_step"]} calls (synchronized; of it the '
+              f'matcher {t["matcher"]:.3f} in {timer.calls["matcher"]} '
+              f'calls, each waiting for the card and solving on the host); '
+              f'postprocess {t["postprocess"]:.3f}; to_dvc_records '
+              f'{t["to_dvc_records"]:.3f}; eval_metrics: rerank '
+              f'{t["rerank"]:.3f}, dvc {t["dvc"]:.3f}, SODA {t["soda"]:.3f}, '
+              f'paragraph {t["para"]:.3f}; the rest (model build, weights, '
+              f'data, json) {rest:.3f}; total {seconds:.3f}')
+
+    path, scores, launches, plain, _ = run_eval_counted(
+        ['--eval_save_dir', folder, '--eval_batch_size', '16',
+         '--eval_mode', 'test', '--eval_device', DEVICE])
+    check_eval_json(path, VAL_VIDEOS, scored=False)
+    if scores is not None or not path.endswith('dvc_results.json') or plain:
+        raise AssertionError(f'test mode: {path}, {scores}, plain {plain}')
+    print(f'[eval] --eval_mode test: {os.path.basename(path)} written, no '
+          f'scores; launches msda_fwd {launches["msda_fwd"]}, dsa_greedy '
+          f'{launches["dsa_greedy"]}')
+
+    # one B=16 eval step traced: the card's idle share
+    from dvc_tpu_torch.data import FusionBatchLoader, FusionDataset
+    from dvc_tpu_torch.serve import load_run
+    from dvc_tpu_torch.train import Trainer
+    opt, state_dict = load_run(folder)
+    trainer = Trainer(opt, device=DEVICE)
+    trainer.model.load_state_dict(state_dict)
+    ds = FusionDataset(opt.val_caption_file, opt.visual_feature_folder,
+                       opt.dict_file, opt)
+    batch, _ = next(iter(FusionBatchLoader(ds, 16, False, opt)))
+    trainer.eval_step(batch)                              # warm-up
+    if DEVICE != 'cpu':
+        # synchronized inside the window: the greedy decode, launched
+        # last, runs after the host has returned
+        trace('B=16 eval_step', lambda: (trainer.eval_step(batch),
+                                         torch.cuda.synchronize()))
+    del trainer
+
+    # agreement: two val videos on the CPU (plain versions) and the card
+    with open(opt.val_caption_file) as f:
+        two = dict(list(json.load(f).items())[:2])
+    val2 = os.path.join(tmp, 'val2.json')
+    with open(val2, 'w') as f:
+        json.dump(two, f)
+    runs = {}
+    for dev in ('cpu', DEVICE):
+        save = os.path.join(tmp, f'agree_{dev}')
+        os.makedirs(save, exist_ok=True)
+        path, scores = run_eval.main(
+            ['--eval_save_dir', save, '--eval_checkpoint_path',
+             os.path.join(folder, 'model-best.pth'), '--eval_caption_file',
+             val2, '--eval_batch_size', '2', '--eval_device', dev])
+        runs[dev] = (check_eval_json(path, 2, scored=True)['results'], scores)
+    (got, gs), (want, ws) = runs[DEVICE], runs['cpu']
+    same = total = 0
+    err = 0.0
+    for key, events in want.items():
+        by_query = {e['query_id']: e for e in got[key]}
+        for w in events:
+            g = by_query[w['query_id']]
+            total += 1
+            if g['sentence'] != w['sentence']:
+                continue
+            same += 1
+            dur = w['vid_duration']
+            err = max(err, *(abs(a - b) / dur for a, b in
+                             zip(g['timestamp'], w['timestamp'])),
+                      abs(g['proposal_score'] - w['proposal_score'])
+                      / abs(w['proposal_score']))
+            if g['pred_event_count'] != w['pred_event_count']:
+                raise AssertionError(f'event counts differ on {key}')
+    print(f'[eval-agreement] two val videos, card vs CPU plain: captions '
+          f'identical {same}/{total}; timestamps (relative to the duration) '
+          f'and proposal scores (relative) on those, worst {err:.2e}; '
+          f'METEOR {gs["METEOR"]:.6f} vs {ws["METEOR"]:.6f}, soda_c '
+          f'{gs["soda_c"]:.6f} vs {ws["soda_c"]:.6f} (not gated)')
+    if same < 0.9 * total or not err <= 1e-3 or not math.isfinite(err):
+        raise AssertionError('card and CPU disagree on the eval records')
+    if DEVICE != 'cpu':
+        torch.cuda.synchronize()
+    return out[16]
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -2241,15 +2533,16 @@ def main():
     opt = load_config(CFG, root=ROOT)
     with tempfile.TemporaryDirectory() as tmp:
         dc = make_captioner(opt, tmp)
-    serve_launches = phase_serve(dc)
+    phase_serve(dc)
     phase_agreement(dc)
     del dc
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, train_opt = phase_train(tmp)
+        train_launches, train_opt, train_folder = phase_train(tmp)
         phase_train_agreement(train_opt)
         step_launches, folder = phase_stepwise_train(tmp)
         phase_stepwise_serve(folder)
         phase_stepwise_agreement(train_opt)
+        eval_launches = phase_eval(tmp, train_folder, device['smi'])
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))
@@ -2264,12 +2557,13 @@ def main():
     # H=1; alone with VW given), the table of K7-K10 and its
     # backward at B=1, H=1 (its products lie inside the TPU kernels'
     # bodies; their bound is the 3xTF32 one that the GEMM is built for);
-    # the [kernels] lines above give every shape.  launches: the
-    # serve path's run for msda_fwd and dsa_greedy, the train path's for the
+    # the [kernels] lines above give every shape.  launches: the eval
+    # path's B=16 run_eval for msda_fwd and dsa_greedy (the serve path's
+    # counts are in its [serve] line), the train path's for the
     # others, the stepwise train runs' for the word-step kernels, and both
     # stepwise runs' for the table
-    launches = {'msda_fwd': serve_launches['msda_fwd'],
-                'dsa_greedy': serve_launches['dsa_greedy'],
+    launches = {'msda_fwd': eval_launches['msda_fwd'],
+                'dsa_greedy': eval_launches['dsa_greedy'],
                 **{k: train_launches[k] for k in
                    ('msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd')},
                 **{k: step_launches[lstm][k]

@@ -13,15 +13,23 @@ module names so the counterpart of each module is easy to find:
                 criterion, postprocessing, and the flax -> torch
                 ``state_dict`` converter
   data/         feature datasets, static collation, the vocabulary
-  train/        ``Trainer``: AdamW/Adam step, LR schedule, checkpoints
+  eval/         the metric stack (pure-Python BLEU/METEOR/ROUGE-L/CIDEr,
+                dense-captioning 2018/2021, SODA, paragraph) and the
+                evaluation loop ``evaluate``
+  train/        ``Trainer``: AdamW/Adam step, eval step, LR schedule,
+                checkpoints
   utils/        box ops and the config system (``cfgs/*.yml``)
-  new_train.py  the training driver (``python -m dvc_tpu_torch.new_train``)
-  serve.py      ``DenseCaptioner``, the serving API
+  new_train.py  training with validation
+                (``python -m dvc_tpu_torch.new_train``)
+  run_eval.py   evaluation, the counterpart of the root ``eval.py``
+                (``python -m dvc_tpu_torch.run_eval``)
+  serve.py      ``DenseCaptioner``, the serving API, and ``load_run``
 
 This package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``
 nor the ``dvc_tpu`` package: it keeps its own copies of the framework-free
-code it shares with ``dvc_tpu`` (the config system, the vocabulary).  Its
-entry points run on the card unless the caller asks for the CPU.
+code it shares with ``dvc_tpu`` (the config system, the vocabulary, the
+metric stack).  Its entry points run on the card unless the caller asks
+for the CPU.
 """
 
 __version__ = "0.1.0"

@@ -153,7 +153,9 @@ class DenseCaptionDataset:
 
 def collate(samples, T: int, G: int, Lc: int):
     """Static-shape collation (reference collate_fn, video_dataset.py:15-149).
-    T/G/Lc: static pads for frames / gt events / caption length."""
+    T/G/Lc: static pads for frames / gt events / caption length.  Returns
+    (batch, meta); meta holds the video keys, their durations (s) and
+    their gt timestamps."""
     B = len(samples)
     C = samples[0]['feats'].shape[1]
     video = np.zeros((B, T, C), np.float32)
@@ -164,7 +166,7 @@ def collate(samples, T: int, G: int, Lc: int):
     labels = np.zeros((B, G), np.int64)
     caps = np.zeros((B, G, Lc), np.int64)
     cmask = np.zeros((B, G, Lc), bool)
-    keys = []
+    keys, durations, raw_ts = [], [], []
     for b, s in enumerate(samples):
         f = s['feats']
         L = min(len(f), T)
@@ -182,10 +184,13 @@ def collate(samples, T: int, G: int, Lc: int):
             caps[b, j, :len(ids)] = ids
             cmask[b, j, :len(ids)] = True
         keys.append(s['key'])
+        durations.append(dur)
+        raw_ts.append(s['gt_timestamps'])
     batch = {
         'video_tensor': video, 'video_mask': vmask, 'video_length': vlen,
         'gt_boxes': boxes, 'gt_boxes_mask': gmask,
         'gt_labels': labels.astype(np.int32),
         'cap_tensor': caps.astype(np.int32), 'cap_mask': cmask,
     }
-    return batch, {'keys': keys}
+    return batch, {'keys': keys, 'durations': durations,
+                   'raw_timestamps': raw_ts}

@@ -54,9 +54,14 @@ class FusionPDVC(nn.Module):
         return inner
 
     def forward(self, batch):
-        """Eval forward.  batch as PDVC's plus an optional 'sound_tensor'
+        """Serving forward.  batch as PDVC's plus an optional 'sound_tensor'
         (B, T, C) aligned with the clips (zeros where audio is missing)."""
         return self.pdvcModel(self._fuse(batch))
+
+    def forward_eval(self, batch):
+        """Eval forward on a batch with gt events (:meth:`PDVC.forward_eval`):
+        (outputs, losses)."""
+        return self.pdvcModel.forward_eval(self._fuse(batch))
 
     def forward_train(self, batch, gen=None, ss_prob=0.0):
         """Train forward (:meth:`PDVC.forward_train`); the fusion blocks

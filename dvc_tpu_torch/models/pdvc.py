@@ -1,18 +1,19 @@
-"""PDVC eval and train forwards (port of ``dvc_tpu/models/pdvc.py``).
+"""PDVC serving, eval and train forwards (port of
+``dvc_tpu/models/pdvc.py``).
 
 A conv pyramid feeds the deformable encoder; Nq learned event queries are
 decoded with iterative box refinement; each query gets class logits, a
-(center, length) box and a share of the event-count logits.  Eval
+(center, length) box and a share of the event-count logits.  Serving
 (:meth:`PDVC.forward`) captions the last decoder layer's queries greedily;
-train (:meth:`PDVC.forward_train`) matches every layer's predictions to
-the gt events, runs the criterion, and teacher-forces the captions of the
-matched queries of every layer.
+eval (:meth:`PDVC.forward_eval`, the JAX ``__call__(eval_mode=True)``) also
+matches every layer's predictions to the gt events and runs the criterion;
+train (:meth:`PDVC.forward_train`) matches, runs the criterion, and
+teacher-forces the captions of the matched queries of every layer.
 
 The port covers ``transformer_input_type='queries'`` and the LSTM-DSA
-('standard') caption head.  The JAX eval forward also runs the matcher and
-criterion; the served outputs do not depend on them (only
-``matched_indices`` does, which no serving consumer reads), so the eval
-forward here does not.
+('standard') caption head.  Requests carry no ground truth, so the serving
+forward runs neither matcher nor criterion; the served outputs do not
+depend on them.
 
 Batch (dict of tensors), as in the JAX package:
   video_tensor (B, T, C) f32, video_mask (B, T) bool (True = valid frame),
@@ -252,30 +253,66 @@ class PDVC(nn.Module):
             scale = (1.0 / T)[None, None, :].expand_as(center)
         return center, scale
 
-    def forward(self, batch):
-        """Eval forward.  Returns the last decoder layer's pred_logits
-        (B, Nq, C), pred_count (B, Ne+1), pred_boxes (B, Nq, 2), seq and
+    def trunk(self, batch, gen=None):
+        """Encoder and decoder stack: ((memory, shapes, valid_ratios,
+        mask_flat), per-layer outputs, input references, bbox deltas)."""
+        enc = self.encode(batch, gen)
+        init_reference, tgt, query_pos = self.prepare_decoder_queries(
+            enc[0].shape[0])
+        hs, refs, deltas = self.decode(*enc, init_reference, tgt, query_pos,
+                                       gen)
+        return enc, hs, refs, deltas
+
+    def layer_outputs(self, hs, refs, deltas, train_path):
+        """Every decoder layer's class/count/box predictions, stacked
+        (D, B, ...), as the criterion takes them."""
+        heads = [self.head_outputs(l, hs[l], refs[l], deltas[l], train_path)
+                 for l in range(self.cfg.dec_layers)]
+        return {k: torch.stack([h[i] for h in heads]) for i, k in
+                enumerate(('pred_logits', 'pred_count', 'pred_boxes'))}
+
+    def caption_greedy(self, hs, reference, memory, shapes, valid_ratios,
+                       mask_flat):
+        """Greedy captions of the last decoder layer's queries: seq and
         cap_prob_eval (B, Nq, max_caption_len)."""
         c = self.cfg
-        memory, shapes, valid_ratios, mask_flat = self.encode(batch)
-        B = memory.shape[0]
-        init_reference, tgt, query_pos = self.prepare_decoder_queries(B)
-        hs, refs, deltas = self.decode(memory, shapes, valid_ratios,
-                                       mask_flat, init_reference, tgt,
-                                       query_pos)
-        l_id = c.dec_layers - 1
-        logits, count, boxes = self.head_outputs(l_id, hs[-1], refs[-1],
-                                                 deltas[-1])
-        center, scale = self.caption_reference(refs[-1], valid_ratios,
+        center, scale = self.caption_reference(reference, valid_ratios,
                                                shapes)
         shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
             c.caption, shapes, memory, mask_flat, center, scale)
-        seq, lp = self.caption_head[l_id](
-            hs[-1], center_t, scale_t, mem_t, shapes_t, mask_t)
-        Nq = hs[-1].shape[1]
-        return {'pred_logits': logits, 'pred_count': count,
-                'pred_boxes': boxes, 'seq': seq.reshape(B, Nq, -1),
+        seq, lp = self.caption_head[c.dec_layers - 1](
+            hs, center_t, scale_t, mem_t, shapes_t, mask_t)
+        B, Nq = hs.shape[:2]
+        return {'seq': seq.reshape(B, Nq, -1),
                 'cap_prob_eval': lp.reshape(B, Nq, -1)}
+
+    def forward(self, batch):
+        """Serving forward.  Returns the last decoder layer's pred_logits
+        (B, Nq, C), pred_count (B, Ne+1), pred_boxes (B, Nq, 2), seq and
+        cap_prob_eval (B, Nq, max_caption_len)."""
+        enc, hs, refs, deltas = self.trunk(batch)
+        logits, count, boxes = self.head_outputs(self.cfg.dec_layers - 1,
+                                                 hs[-1], refs[-1], deltas[-1])
+        return {'pred_logits': logits, 'pred_count': count,
+                'pred_boxes': boxes,
+                **self.caption_greedy(hs[-1], refs[-1], *enc)}
+
+    def forward_eval(self, batch):
+        """Eval forward on a batch with gt events: (outputs, losses).
+        outputs are :meth:`forward`'s plus matched_indices (B, G); losses
+        the criterion's over every decoder layer (with ``aux_loss``), on
+        the eval path's boxes (a 1-d reference added to both box dims);
+        no caption losses."""
+        c = self.cfg
+        enc, hs, refs, deltas = self.trunk(batch)
+        outputs = self.layer_outputs(hs, refs, deltas, train_path=False)
+        losses, last_idx, _ = criterion_forward(
+            c.criterion, outputs, batch['gt_labels'], batch['gt_boxes'],
+            batch['gt_boxes_mask'], aux_loss=c.aux_loss)
+        out = {k: v[-1] for k, v in outputs.items()}
+        out['matched_indices'] = last_idx
+        out.update(self.caption_greedy(hs[-1], refs[-1], *enc))
+        return out, losses
 
     def forward_train(self, batch, gen=None, ss_prob=0.0):
         """Train forward: (outputs, losses).  With ``gen`` (a
@@ -287,26 +324,17 @@ class PDVC(nn.Module):
         ``ss_prob > 0`` turns scheduled sampling on in the caption head
         (its draws come from ``gen``)."""
         c = self.cfg
-        memory, shapes, valid_ratios, mask_flat = self.encode(batch, gen)
-        B = memory.shape[0]
-        init_reference, tgt, query_pos = self.prepare_decoder_queries(B)
-        hs, refs, deltas = self.decode(memory, shapes, valid_ratios,
-                                       mask_flat, init_reference, tgt,
-                                       query_pos, gen)
-        heads = [self.head_outputs(l, hs[l], refs[l], deltas[l], True)
-                 for l in range(c.dec_layers)]
-        outputs = {k: torch.stack([h[i] for h in heads]) for i, k in
-                   enumerate(('pred_logits', 'pred_count', 'pred_boxes'))}
+        enc, hs, refs, deltas = self.trunk(batch, gen)
+        memory, shapes, valid_ratios, mask_flat = enc
+        outputs = self.layer_outputs(hs, refs, deltas, train_path=True)
         losses, last_idx, aux_idx = criterion_forward(
             c.criterion, outputs, batch['gt_labels'], batch['gt_boxes'],
             batch['gt_boxes_mask'], aux_loss=c.aux_loss)
         losses.update(self.caption_train_losses(
             hs, refs, memory, shapes, valid_ratios, mask_flat, batch,
             last_idx, aux_idx, gen, ss_prob))
-        out = {'pred_logits': outputs['pred_logits'][-1],
-               'pred_count': outputs['pred_count'][-1],
-               'pred_boxes': outputs['pred_boxes'][-1],
-               'matched_indices': last_idx}
+        out = {k: v[-1] for k, v in outputs.items()}
+        out['matched_indices'] = last_idx
         return out, losses
 
     def caption_train_losses(self, hs, refs, memory, shapes, valid_ratios,

@@ -7,11 +7,14 @@ The same flags as ``newTrain.py`` (the port's own ``parse_opts``).  It
 trains on the card unless ``--device cpu`` is given, and keeps the
 reference's restarts: visited video keys are checkpointed every
 ``--ckpt_every_batches`` batches and skipped after ``--start_from``.
-``--debug`` caps an epoch at 5 batches.  Every ``save_checkpoint_every``
-epochs the run folder gets ``model-last.pth`` and ``info.json``, which the
-port's ``DenseCaptioner(run_folder, which='last')`` serves.  Validation
-scoring is not ported yet: no score is computed, and no ``best``
-checkpoint is written.
+``--debug`` caps an epoch at 5 batches (and a validation at 6 videos).
+Every ``save_checkpoint_every`` epochs it validates as ``newTrain.py``
+does: the greedy captions of ``val_caption_file`` into ``epoch{N}.json``,
+scored against ``gt_file_for_eval`` and ``gt_file_for_para_eval``
+(``dvc_tpu_torch.eval``); ``model-best.pth`` when METEOR + soda_c beats
+the best so far, then ``model-last.pth`` and ``info.json`` (with
+``val_history`` and ``best_val_score``).  ``DenseCaptioner(run_folder)``
+serves the best.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from .data import FusionBatchLoader, FusionDataset
+from .eval import evaluate
 from .serve import load_info_json
 from .train import (Trainer, load_checkpoint, multistep_lr, save_checkpoint,
                     ss_prob_for_epoch)
@@ -50,14 +54,14 @@ def build_folder(opt) -> str:
     return save_folder
 
 
-def create_logger(folder: str) -> logging.Logger:
+def create_logger(folder: str, filename: str = 'train.log') -> logging.Logger:
     logger = logging.getLogger('dvc_tpu_torch')
     logger.setLevel(logging.DEBUG)
     logger.handlers.clear()
     fmt = logging.Formatter('[%(asctime)s] %(message)s',
                             datefmt='%m-%d %H:%M:%S')
     for handler in (logging.StreamHandler(sys.stdout),
-                    logging.FileHandler(os.path.join(folder, 'train.log'))):
+                    logging.FileHandler(os.path.join(folder, filename))):
         handler.setFormatter(fmt)
         logger.addHandler(handler)
     return logger
@@ -79,6 +83,9 @@ def main(opt, device=None):
     logger = create_logger(save_folder)
     train_ds = FusionDataset(opt.train_caption_file, opt.visual_feature_folder,
                              opt.dict_file, opt, seed=opt.seed)
+    val_ds = FusionDataset(opt.val_caption_file, opt.visual_feature_folder,
+                           opt.dict_file, opt)
+    val_loader = FusionBatchLoader(val_ds, opt.batch_size_for_eval, False, opt)
     trainer = Trainer(opt, device=device)
     visited, epoch = set(), 0
     best_val_score, val_history = -1e9, {}
@@ -121,12 +128,31 @@ def main(opt, device=None):
                     f'({time.time() - t0:.1f}s)')
         epoch += 1
         if epoch % opt.save_checkpoint_every == 0:
-            logger.warning('no validation score computed: the port has no '
-                           'evaluation loop yet; saving model-last only')
+            dvc_json_path = os.path.join(save_folder, f'epoch{epoch}.json')
+            try:
+                scores, _ = evaluate(trainer, val_loader, dvc_json_path,
+                                     logger=logger, alpha=opt.ec_alpha,
+                                     dvc_eval_version=opt.eval_tool_version,
+                                     debug=opt.debug)
+            except FileNotFoundError as e:
+                logger.warning(f'skipping metric eval: {e}')
+                scores = None
+            if scores is not None:
+                current = scores.get('METEOR', 0) + scores.get('soda_c', 0)
+                val_history[epoch] = {k: float(v) for k, v in scores.items()
+                                      if np.isscalar(v)}
+                logger.info(f'epoch {epoch} validation: METEOR + soda_c '
+                            f'{current:.4f} (best {best_val_score:.4f})')
+                if current > best_val_score:
+                    best_val_score = current
+                    save_checkpoint(save_folder, 'best', trainer, epoch)
             save_checkpoint(save_folder, 'last', trainer, epoch)
+            # 'best' names the current epoch at every save, as newTrain.py
+            # writes it
             save_info_json(save_folder, {
                 'best_val_score': best_val_score, 'val_history': val_history,
-                'last': {'epoch': epoch, 'opt': opt.to_dict()}})
+                'last': {'epoch': epoch, 'opt': opt.to_dict()},
+                'best': {'epoch': epoch, 'opt': opt.to_dict()}})
     logger.info('Training done.')
     return save_folder, loss_avg
 

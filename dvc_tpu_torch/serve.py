@@ -9,14 +9,15 @@ Load a FusionPDVC run once, then caption feature tensors:
     # [{'timestamp': [t0, t1], 'sentence': ..., 'proposal_score': ...}, ...]
 
 A run folder is what either trainer writes: the port's
-(``dvc_tpu_torch.new_train``: ``info.json`` and ``model-last.pth``, a torch
-``state_dict``) or the JAX package's (``info.json`` and
+(``dvc_tpu_torch.new_train``: ``info.json`` and ``model-{best,last}.pth``,
+a torch ``state_dict``) or the JAX package's (``info.json`` and
 ``model-{best,last}.ckpt``, whose flax params are converted with
 :func:`dvc_tpu_torch.models.convert.from_jax_params`).  ``DenseCaptioner``
-also takes ``(opt, state_dict)`` directly.  Features are rescaled to the
-model's frame budget as in the training pipeline; the model runs under
-``torch.inference_mode()`` on ``device``, the card unless the caller asks
-for the CPU.
+also takes ``(opt, state_dict)`` directly; :func:`load_run` reads a run
+folder for it and for ``dvc_tpu_torch.run_eval``.
+Features are rescaled to the model's frame budget as in the training
+pipeline; the model runs under ``torch.inference_mode()`` on ``device``,
+the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -77,30 +78,50 @@ def load_info_json(save_dir: str):
         return json.load(f)
 
 
+def load_weights(path: str) -> dict:
+    """The FusionPDVC ``state_dict`` (CPU tensors) of a checkpoint file:
+    the port's ``.pth`` or the JAX package's ``.ckpt`` (flax params
+    converted with :func:`from_jax_params`)."""
+    if path.endswith('.pth'):
+        return torch.load(path, map_location='cpu',
+                          weights_only=True)['model']
+    params = load_checkpoint(path)['params']
+    if 'visual_sa' not in params.get('params', params):
+        raise NotImplementedError(
+            'the port takes FusionPDVC runs (newTrain.py) only')
+    return {k: torch.as_tensor(np.asarray(v))
+            for k, v in from_jax_params(params).items()}
+
+
+def run_options(folder: str, which: str = 'best') -> Config:
+    """The options of a run folder's ``info.json[which]`` over the
+    defaults (the recipe file they name is not read again)."""
+    info = load_info_json(folder)
+    if info is None:
+        raise FileNotFoundError(f'no info.json in {folder}')
+    return Config({**load_config().to_dict(), **info[which]['opt']})
+
+
+def load_run(folder: str, which: str = 'best', checkpoint=None, opt=None):
+    """(opt, state_dict) of a run folder that either trainer wrote: the
+    options of :func:`run_options` unless ``opt`` is given, and the
+    weights of ``checkpoint``, else of ``model-{which}.pth``, else of
+    ``model-{which}.ckpt``."""
+    if opt is None:
+        opt = run_options(folder, which)
+    if checkpoint is None:
+        checkpoint = os.path.join(folder, f'model-{which}.pth')
+        if not os.path.exists(checkpoint):
+            checkpoint = checkpoint[:-len('.pth')] + '.ckpt'
+    return opt, load_weights(checkpoint)
+
+
 class DenseCaptioner:
     def __init__(self, run_folder: str | None = None, which: str = 'best',
                  dict_file: str | None = None, opt=None, state_dict=None,
                  device='cuda'):
         if state_dict is None:
-            if opt is None:
-                info = load_info_json(run_folder)
-                if info is None:
-                    raise FileNotFoundError(f'no info.json in {run_folder}')
-                # the stored options over the defaults; the recipe file
-                # they name is not read again
-                opt = Config({**load_config().to_dict(),
-                              **info[which]['opt']})
-            pth = os.path.join(run_folder, f'model-{which}.pth')
-            if os.path.exists(pth):
-                state_dict = torch.load(pth, map_location='cpu',
-                                        weights_only=True)['model']
-            else:
-                params = load_checkpoint(
-                    os.path.join(run_folder, f'model-{which}.ckpt'))['params']
-                if 'visual_sa' not in params.get('params', params):
-                    raise NotImplementedError(
-                        'the port serves FusionPDVC runs (newTrain.py) only')
-                state_dict = from_jax_params(params)
+            opt, state_dict = load_run(run_folder, which, opt=opt)
         elif opt is None:
             raise ValueError('a state_dict needs the opt it was built with')
         self.opt = opt

@@ -104,8 +104,19 @@ class Trainer:
         device."""
         if getattr(self.opt, 'caption_len_bucketing', 1):
             batch = bucket_caption_length(batch)
+        return self.prepare_eval_batch(batch)
+
+    def prepare_eval_batch(self, batch):
+        """The arrays as tensors on the device, with no caption-length
+        bucketing (eval decodes a fixed length)."""
         return {k: torch.as_tensor(np.asarray(v)).to(self.device)
                 for k, v in batch.items()}
+
+    def eval_step(self, batch):
+        """The eval forward (no dropout) on a collated numpy batch:
+        (outputs, losses) as device tensors (:meth:`PDVC.forward_eval`)."""
+        with torch.inference_mode():
+            return self.model.forward_eval(self.prepare_eval_batch(batch))
 
     def total_loss(self, losses):
         return sum(losses[k] * w for k, w in self.weight_dict.items()
