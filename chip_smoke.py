@@ -90,8 +90,35 @@ Phases (one or more lines each; the last line is the JSON verdict):
    CPU (plain versions) and on the card, held to phase 5's gates (>= 90%
    of captions identical, timestamps and proposal scores within 1e-3
    relative where they agree), with both runs' METEOR and soda_c printed
-   (not gated).  Then a check that neither JAX nor any module of the JAX
-   package ``dvc_tpu`` (by name or by file) was imported.
+   (not gated).  Each run's matcher makes one device-to-host copy a batch
+   (the matcher's ``copies`` count; phase 6's run one a step and a val
+   batch).
+10. pipeline — the input layer's costs at B=16 (collation, pageable and
+   pinned uploads, host clock); then ``new_train.main`` for one epoch at
+   B=16 over 320 synthetic training videos (20 steps, no validation), five
+   times with the same seed: --device_prefetch 1 (batches collated in a
+   worker thread, uploaded from pinned memory on the trainer's copy stream
+   one step ahead), 0, 0, 1, and 1 with the epoch collated before its
+   first step (the loop without collation): the same videos at every
+   step, the first step's losses within 1e-6 relative, every loss finite,
+   the same launch counts, no plain version, one matcher copy a step;
+   each run's ms per step of the loop (host clock, steps 2-11, collation
+   and upload included) and the idle share of a profiler trace over
+   steps 12-14, with the card's name and power limit.
+11. sampling — phase 6's ``model-best.pth`` served with
+   --caption_sample_max 0 on a B=16 batch at temperatures 1.0 and 0.5
+   through K7, and 1.0 through K9 (--dsa_lstm_fuse 1): one word-step
+   launch a decode step and one table, no K6 launch, no plain version;
+   tokens in the vocabulary, log-probs finite and <= 0; two videos'
+   sampled tokens teacher-forced on the CPU plain path (dropout off),
+   log-probs within 1e-3 of the card's up to each caption's first EOS;
+   each sampled ``caption_batch`` timed beside the greedy one.
+12. pretrain — --pretrain encoder from phase 6's ``model-best.pth`` into a
+   fresh Trainer on the card (``new_train.pretrain``, what
+   ``new_train.main`` calls): the encoder's parameters equal the source's,
+   the rest the fresh initialisation.
+Then a check that neither JAX nor any module of the JAX package
+``dvc_tpu`` (by name or by file) was imported.
 
 Nothing catches a phase's failure: any failure exits non-zero and the last
 line ``{"ok": true, ...}`` is printed only when every phase passed.
@@ -99,6 +126,7 @@ line ``{"ok": true, ...}`` is printed only when every phase passed.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1693,16 +1721,27 @@ def make_captioner(opt, tmp):
 
 
 def trace(label, fn):
-    """``fn()`` under ``torch.profiler``: the device time of each kernel as
-    a share of the call's host-clock window, and the share of that window
-    in which no kernel or copy ran on the card."""
+    """``fn()`` under ``torch.profiler`` (:func:`traced`)."""
+    with traced(label) as result:
+        fn()
+    return result
+
+
+@contextlib.contextmanager
+def traced(label):
+    """The body under ``torch.profiler``: the device time of each kernel as
+    a share of the body's host-clock window, and the share of that window
+    in which no kernel or copy ran on the card.  Yields a dict that gets
+    ``window_ms``, ``busy_ms`` and ``idle`` (empty when the profiler saw
+    no device activity)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    result = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(label):
-            fn()
+            yield result
         torch.cuda.synchronize()
     events = prof.events()
     win = next(e.time_range for e in events if e.name == label
@@ -1721,6 +1760,8 @@ def trace(label, fn):
         covered = max(covered, min(t1, win.end))
         per_name[name] = per_name.get(name, 0.0) + (t1 - t0)
         count[name] = count.get(name, 0) + 1
+    result.update(window_ms=window / 1e3, busy_ms=busy / 1e3,
+                  idle=1 - busy / window)
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     print(f'[trace] {label} under the profiler: window {window / 1e3:.3f} '
           f'ms, device busy {busy / 1e3:.3f} ms, idle share '
@@ -1945,11 +1986,21 @@ def _counted():
 
 
 def reset_counts():
+    """Sets every kernel's launch count, every plain version's call count
+    and the matcher's device-to-host copy count to 0."""
+    from dvc_tpu_torch.models.matcher import hungarian_match
     kernels, plain = _counted()
     for fn in kernels.values():
         fn.launches = 0
     for fn in plain:
         fn.calls = 0
+    hungarian_match.copies = 0
+
+
+def matcher_copies():
+    """The matcher's device-to-host copies since reset_counts()."""
+    from dvc_tpu_torch.models.matcher import hungarian_match
+    return hungarian_match.copies
 
 
 def read_counts():
@@ -2028,12 +2079,16 @@ def phase_train(tmp):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, plain = read_counts()
+    copies = matcher_copies()
     print(f'[train] new_train.main --debug, B=1: {seconds:.1f} s (setup, '
           f'5 steps, validation, checkpoints); mean losses {json.dumps({k: round(v, 4) for k, v in losses.items()})}')
-    print(f'[train] kernel launches {launches}, plain-version calls {plain}')
+    print(f'[train] kernel launches {launches}, plain-version calls {plain}, '
+          f'matcher device-to-host copies {copies} (5 steps, 6 val batches)')
     bad = [k for k, v in losses.items() if not math.isfinite(v)]
     if bad or 'loss_caption' not in losses:
         raise AssertionError(f'train losses not finite: {bad}')
+    if copies != 5 + 6:
+        raise AssertionError(f'{copies} matcher copies, not one a step')
     if (min(launches[k] for k in ('msda_fwd', 'msda_bwd', 'dsa_scan_fwd',
                                   'dsa_scan_bwd', 'dsa_greedy')) < 1 or plain
             or any(launches[k] for k in STEP_KERNELS)):
@@ -2426,12 +2481,15 @@ def phase_eval(tmp, folder, card):
         path, scores, launches, plain, seconds = run_eval_counted(
             ['--eval_save_dir', folder, '--eval_batch_size', str(bs),
              '--eval_device', DEVICE], timer)
+        copies = matcher_copies()
         batches = -(-VAL_VIDEOS // bs)
         check_eval_json(path, VAL_VIDEOS, scored=True)
         print(f'[eval] run_eval --eval_batch_size {bs}: {seconds:.2f} s; '
               f'{", ".join(f"{k} {scores[k]:.4f}" for k in EVAL_SCORES)}; '
-              f'kernel launches {launches}, plain-version calls {plain}')
+              f'kernel launches {launches}, plain-version calls {plain}, '
+              f'matcher device-to-host copies {copies} in {batches} batches')
         if (launches['msda_fwd'] < layers * batches
+                or copies != batches or timer.calls['matcher'] != batches
                 or launches['dsa_greedy'] != batches or plain
                 or any(launches[k] for k in STEP_KERNELS + (
                     'msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd'))):
@@ -2524,6 +2582,382 @@ def phase_eval(tmp, folder, card):
     return out[16]
 
 
+# --------------------------------------------------------------------------
+# 10. the input pipeline: new_train with and without the device prefetch
+# --------------------------------------------------------------------------
+
+# 20 steps at B=16; both windows end before the prefetch's worker, which
+# runs up to 4 batches ahead, has the epoch's last batch collated
+PIPELINE_VIDEOS = 320
+TIMED_STEPS = (2, 12)                 # ms per step: entries of steps 2..12
+TRACED_STEPS = (12, 15)               # the profiler: entries of steps 12..15
+# (--device_prefetch, the epoch collated before its first step), in turns;
+# the last run shows the loop with no collation left in it
+PIPELINE_RUNS = ((1, False), (0, False), (0, False), (1, False), (1, True))
+
+
+class StepRecorder:
+    """Patches ``Trainer.train_step`` while active to note, for each step,
+    the host clock at its entry and the durations of its batch's videos
+    (which name the videos), the first step's losses, and to run the
+    profiler (:func:`traced`) from the entry of step TRACED_STEPS[0] to
+    that of TRACED_STEPS[1], so it sees whole iterations of new_train's
+    loop: collation wait, upload, step and loss read."""
+
+    def __init__(self, label):
+        self.label = label
+        self.trace_steps = DEVICE != 'cpu'
+        self.entries, self.durations, self.first = [], [], None
+        self.trace, self._ctx = {}, None
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from dvc_tpu_torch.train import Trainer
+        self.saved = Trainer.train_step
+        original = self.saved
+
+        def train_step(trainer, batch, *args, **kwargs):
+            step = len(self.entries)
+            self.entries.append(time.perf_counter())
+            if self.trace_steps and step == TRACED_STEPS[0]:
+                self._ctx = traced(self.label)
+                self.trace = self._ctx.__enter__()
+            elif self._ctx is not None and step == TRACED_STEPS[1]:
+                self._ctx.__exit__(None, None, None)
+                self._ctx = None
+            losses = original(trainer, batch, *args, **kwargs)
+            lengths = batch['video_length']
+            lengths = (lengths.cpu().numpy() if torch.is_tensor(lengths)
+                       else np.asarray(lengths))
+            self.durations.append(tuple(float(d) for d in lengths[:, 1]))
+            if self.first is None:
+                self.first = {k: float(v) for k, v in losses.items()}
+            return losses
+        Trainer.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        from dvc_tpu_torch.train import Trainer
+        Trainer.train_step = self.saved
+        if self._ctx is not None:
+            self._ctx.__exit__(None, None, None)
+
+    def step_ms(self):
+        """Host-clock ms of each iteration from one step's entry to the
+        next's."""
+        return [(b - a) * 1e3 for a, b in zip(self.entries, self.entries[1:])]
+
+    def ms_per_step(self):
+        a, b = TIMED_STEPS
+        return (self.entries[b] - self.entries[a]) / (b - a) * 1e3
+
+
+def input_costs(opt, reps=4):
+    """Host-clock ms of the input layer at B=16 on this machine: collating
+    one batch (``FusionBatchLoader``), uploading it as the trainer did
+    before the prefetch (pageable arrays, a blocking ``.to`` each), and
+    ``Trainer.prepare_batch`` (pinned host tensors, copies on the copy
+    stream), each ended by a synchronize; means over ``reps``."""
+    import numpy as np
+    import torch
+    from dvc_tpu_torch.data import FusionBatchLoader, FusionDataset
+    from dvc_tpu_torch.train import Trainer, bucket_caption_length
+    ds = FusionDataset(opt.train_caption_file, opt.visual_feature_folder,
+                       opt.dict_file, opt, seed=opt.seed)
+    batches, collate = [], []
+    it = iter(FusionBatchLoader(ds, 16, True, opt, seed=1))
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        batches.append(next(it)[0])
+        collate.append(time.perf_counter() - t0)
+    trainer = Trainer(opt, device=DEVICE)
+    pageable, pinned = [], []
+    for batch in batches:
+        for out, prepare in (
+                (pageable, lambda b: {
+                    k: torch.as_tensor(np.asarray(v)).to(trainer.device)
+                    for k, v in bucket_caption_length(b).items()}),
+                (pinned, trainer.prepare_batch)):
+            t0 = time.perf_counter()
+            prepare(batch)
+            if DEVICE != 'cpu':
+                torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+    mb = sum(np.asarray(v).nbytes
+             for v in bucket_caption_length(batches[0]).values()) / 2**20
+    return {k: float(np.mean(v[1:]) * 1e3) for k, v in
+            (('collate', collate), ('pageable', pageable),
+             ('pinned', pinned))}, mb
+
+
+def phase_pipeline(tmp, card):
+    """``new_train.main`` for one epoch (not --debug, no validation: the
+    recipe validates every 5) at B=16 over PIPELINE_VIDEOS synthetic
+    videos, 20 steps, five times with the same seed as PIPELINE_RUNS says,
+    the counts set to 0 before each run and
+    read after: the same videos in the same order at every step, the first
+    step's losses within 1e-6 relative, every loss finite, the same launch
+    counts, no plain version, one matcher copy a step.  The last run
+    collates the whole epoch before its first step (:class:`Precollated`),
+    so its loop holds the uploads, steps and loss reads only.  Prints each
+    run's ms per step of the whole loop (host clock between the entries of
+    steps 2 and 12; each step ends in the loss read, a synchronize) with
+    every iteration's ms, the idle share of a profiler trace over steps
+    12-14, and the input layer's own costs (:func:`input_costs`)."""
+    import math
+    import numpy as np
+    import torch
+    from dvc_tpu_torch import new_train
+    from dvc_tpu_torch.data import FusionBatchLoader
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+
+    class Precollated(FusionBatchLoader):
+        """Collates the whole epoch when its iteration starts."""
+
+        def __iter__(self):
+            return iter(list(super().__iter__()))
+
+    root = os.path.join(tmp, 'pipeline')
+    os.makedirs(root)
+    recipe = write_synthetic_run(root, load_config(CFG, root=ROOT),
+                                 n_videos=PIPELINE_VIDEOS, seed=5)
+    with open(os.path.join(root, 'train.json')) as f:
+        anno = json.load(f)
+    keys = sorted(anno)
+    durations = np.array([anno[k]['duration'] for k in keys])
+
+    def key_of(duration):         # the video of a batch row, by duration
+        i = int(np.abs(durations - duration).argmin())
+        return keys[i] if abs(durations[i] - duration) < 1e-3 else None
+
+    def options(prefetch):
+        opt = parse_opts(['--cfg_path', recipe, '--device', DEVICE,
+                          '--device_prefetch', str(prefetch)], root=ROOT)
+        opt.batch_size = 16           # the recipe file's (1) overlays it
+        return opt
+
+    costs, mb = input_costs(options(1))
+    print(f'[pipeline] input layer at B=16 ({mb:.1f} MiB a batch after '
+          f'bucketing; host clock, {card}): collation {costs["collate"]:.1f} '
+          f'ms, pageable upload {costs["pageable"]:.2f} ms, pinned upload on '
+          f'the copy stream (Trainer.prepare_batch) {costs["pinned"]:.2f} ms')
+    runs = []
+    for prefetch, ahead in PIPELINE_RUNS:
+        opt = options(prefetch)
+        how = (f'--device_prefetch {prefetch}'
+               + (', the epoch collated before it' if ahead else ''))
+        reset_counts()
+        t0 = time.perf_counter()
+        new_train.FusionBatchLoader = Precollated if ahead else \
+            FusionBatchLoader
+        try:
+            with StepRecorder(f'new_train loop, {how}, steps '
+                              f'{TRACED_STEPS[0]}-{TRACED_STEPS[1] - 1}'
+                              ) as rec:
+                _, losses = new_train.main(opt)
+        finally:
+            new_train.FusionBatchLoader = FusionBatchLoader
+        if DEVICE != 'cpu':
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = read_counts()
+        copies = matcher_copies()
+        order = [[key_of(d) for d in step] for step in rec.durations]
+        steps = len(rec.entries)
+        ms = rec.ms_per_step() if steps > TIMED_STEPS[1] else float('nan')
+        print(f'[pipeline] new_train.main, one epoch at B=16, {how}: '
+              f'{steps} steps, {seconds:.1f} s in all; {ms:.1f} ms per step '
+              f'of the loop (host clock, steps {TIMED_STEPS[0]}-'
+              f'{TIMED_STEPS[1] - 1}, collation, upload, step and loss read; '
+              f'{card}); each iteration '
+              f'{[round(t, 1) for t in rec.step_ms()]} ms; idle share of the '
+              f'traced steps {rec.trace.get("idle", float("nan")):.4f}; '
+              f'kernel launches {launches}, plain-version calls {plain}, '
+              f'matcher copies {copies}')
+        bad = [k for k, v in {**losses, **rec.first}.items()
+               if not math.isfinite(v)]
+        if (bad or plain or copies != steps
+                or steps != PIPELINE_VIDEOS // 16
+                or any(None in row for row in order)
+                or min(launches[k] for k in ('msda_fwd', 'msda_bwd',
+                                             'dsa_scan_fwd', 'dsa_scan_bwd')) < 1
+                or any(launches[k] for k in STEP_KERNELS)):
+            raise AssertionError(f'pipeline run, {how}: '
+                                 f'{steps} steps, losses {losses}, launches '
+                                 f'{launches}, plain {plain}, copies {copies}')
+        runs.append(dict(prefetch=prefetch, ahead=ahead, order=order,
+                         first=rec.first, launches=launches, ms=ms,
+                         idle=rec.trace.get('idle', float('nan'))))
+    ref = runs[0]
+    err = max(abs(r['first'][k] - ref['first'][k])
+              / max(abs(ref['first'][k]), 1e-12)
+              for r in runs for k in ref['first'])
+    same = all(r['order'] == ref['order'] and r['launches'] == ref['launches']
+               and sorted(r['first']) == sorted(ref['first']) for r in runs)
+
+    def summary(prefetch, ahead=False):
+        mine = [r for r in runs
+                if (r['prefetch'], r['ahead']) == (prefetch, ahead)]
+        return (', '.join(f'{r["ms"]:.1f}' for r in mine) + ' ms a step, '
+                'idle ' + ', '.join(f'{r["idle"]:.4f}' for r in mine))
+    print(f'[pipeline] runs in the order (--device_prefetch, collated '
+          f'before) {PIPELINE_RUNS}: batch order and launch counts identical '
+          f'{same}, first step\'s losses worst relative difference '
+          f'{err:.2e}; prefetch on: {summary(1)}; off: {summary(0)}; on, '
+          f'the epoch collated before it: {summary(1, True)} ({card})')
+    if not same or err > 1e-6:
+        raise AssertionError('the prefetch changed what new_train computed')
+    return runs
+
+
+# --------------------------------------------------------------------------
+# 11. sampling: --caption_sample_max 0 on the card
+# --------------------------------------------------------------------------
+
+SAMPLED = ((0, 1.0), (0, 0.5), (1, 1.0))     # (--dsa_lstm_fuse, temperature)
+
+
+def sampled_agreement(cpu, batch, tokens, lps):
+    """The CPU plain path's teacher-forced log-probabilities of the card's
+    sampled ``tokens`` (B, Nq, K) on the videos of ``batch`` (dropout
+    off), against the card's emitted ``lps``, on each caption's positions
+    up to and including its first EOS.  Returns (worst abs difference,
+    positions compared)."""
+    import torch
+    from dvc_tpu_torch.models.caption_heads import truncate_levels
+    pdvc = cpu.pdvcModel
+    c = pdvc.cfg
+    with torch.inference_mode():
+        enc, hs, refs, _ = pdvc.trunk(cpu._fuse(batch))
+        memory, shapes, valid_ratios, mask_flat = enc
+        center, scale = pdvc.caption_reference(refs[-1], valid_ratios, shapes)
+        shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
+            c.caption, shapes, memory, mask_flat, center, scale)
+        n, K = tokens.shape[0] * tokens.shape[1], tokens.shape[2]
+        seq = tokens.reshape(n, K).long()
+        tf = torch.cat([torch.zeros((n, 1), dtype=torch.long), seq], 1)
+        lp = pdvc.caption_head[c.dec_layers - 1].teacher_forcing(
+            hs[-1], center_t, scale_t, mem_t, shapes_t, mask_t, tf)
+    want = torch.gather(lp, -1, seq[..., None])[..., 0]
+    alive = torch.cumprod((seq > 0).long(), 1)
+    valid = torch.cat([torch.ones((n, 1), dtype=torch.long), alive[:, :-1]],
+                      1) > 0
+    diff = (want - lps.reshape(n, K)).abs()[valid]
+    return float(diff.max()), int(valid.sum())
+
+
+def phase_sampling(folder):
+    """Phase 6's model-best.pth served with --caption_sample_max 0 on a B=16
+    batch at temperatures 1.0 and 0.5 through K7 (--dsa_lstm_fuse 0), and
+    1.0 through K9 (1), counts set to 0 before each decode and read after:
+    one launch of the word-step kernel per decode step and one table, no
+    K6 launch, no plain version; tokens in the vocabulary, log-probs
+    finite and <= 0; two videos' sampled tokens teacher-forced on the CPU
+    plain path, their log-probs within 1e-3 of the card's; each decode's
+    caption_batch timed beside the greedy (fused K6) one."""
+    import math
+    import numpy as np
+    import torch
+    from dvc_tpu_torch.models import make_fusion_model
+    from dvc_tpu_torch.serve import DenseCaptioner, load_run
+    from dvc_tpu_torch.utils.config import Config
+    opt, state_dict = load_run(folder)                        # the best
+    greedy = DenseCaptioner(opt=opt, state_dict=state_dict, device=DEVICE)
+    C, K, V = opt.feature_dim, opt.max_caption_len, opt.vocab_size
+    rng = np.random.default_rng(6)
+    feats = [rng.standard_normal((int(n), C)).astype(np.float32)
+             for n in rng.integers(60, 400, 16)]
+    durs = [float(d) for d in rng.uniform(10, 300, 16)]
+    batch = greedy._make_batch(feats, durs)
+    cpu_batch = {k: v[:2].cpu() for k, v in batch.items()}
+
+    def timed(dc):
+        dc.caption_batch(feats, durs)                     # warm-up
+        if DEVICE != 'cpu':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dc.caption_batch(feats, durs)
+        if DEVICE != 'cpu':
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    greedy_ms = timed(greedy)
+    del greedy
+    cpu = make_fusion_model(opt, 'cpu')
+    cpu.load_state_dict(state_dict, strict=True)
+    for lstm_fuse, temperature in SAMPLED:
+        fwd = STEPWISE[bool(lstm_fuse)][0]
+        sopt = Config({**opt.to_dict(), 'caption_sample_max': 0,
+                       'caption_sample_temperature': temperature,
+                       'dsa_lstm_fuse': lstm_fuse})
+        dc = DenseCaptioner(opt=sopt, state_dict=state_dict, device=DEVICE)
+        reset_counts()
+        with torch.inference_mode():
+            out = dc.model(batch, dc.gen)
+        if DEVICE != 'cpu':
+            torch.cuda.synchronize()
+        launches, plain = read_counts()
+        seq, lps = out['seq'].cpu(), out['cap_prob_eval'].cpu()
+        ok_values = bool(seq.min() >= 0 and seq.max() <= V
+                         and torch.isfinite(lps).all() and (lps <= 0).all())
+        err, compared = sampled_agreement(cpu, cpu_batch, seq[:2], lps[:2])
+        ms = timed(dc)
+        print(f'[sampling] --caption_sample_max 0 --caption_sample_temperature '
+              f'{temperature} --dsa_lstm_fuse {lstm_fuse}, B=16: {fwd} '
+              f'launches {launches[fwd]}, table_gemm {launches["table_gemm"]}, '
+              f'greedy kernel {launches["dsa_greedy"]}, plain-version calls '
+              f'{plain}; tokens in [0, {V}] and log-probs finite and <= 0 '
+              f'{ok_values}; mean caption length '
+              f'{float((seq > 0).sum(-1).float().mean()):.2f}; two videos\' '
+              f'tokens teacher-forced on the CPU: worst log-prob difference '
+              f'{err:.2e} over {compared} positions; caption_batch {ms:.1f} ms '
+              f'(greedy, fused K6: {greedy_ms:.1f} ms)')
+        if (launches[fwd] != K or launches['table_gemm'] != 1
+                or launches['dsa_greedy'] or plain or not ok_values
+                or not math.isfinite(err) or err > 1e-3):
+            raise AssertionError('the sampling decode did not run on the '
+                                 'word-step kernel or disagrees')
+        del dc
+    return greedy_ms
+
+
+# --------------------------------------------------------------------------
+# 12. --pretrain on the card
+# --------------------------------------------------------------------------
+
+def phase_pretrain(opt, folder):
+    """--pretrain encoder from phase 6's model-best.pth into a fresh
+    Trainer on the card, through ``new_train.pretrain`` (what
+    ``new_train.main`` calls when not resuming): the encoder's parameters
+    equal the source's, every other one the fresh initialisation."""
+    import torch
+    from dvc_tpu_torch.new_train import pretrain
+    from dvc_tpu_torch.train import Trainer, is_encoder_param, load_checkpoint
+    from dvc_tpu_torch.utils.config import Config
+    path = os.path.join(folder, 'model-best.pth')
+    popt = Config({**opt.to_dict(), 'pretrain': 'encoder',
+                   'pretrain_path': path})
+    trainer = Trainer(popt, device=DEVICE)
+    fresh = {k: v.cpu().clone() for k, v in
+             trainer.model.state_dict().items()}
+    taken = set(pretrain(trainer, popt))
+    source = load_checkpoint(path)['model']
+    encoder = {k for k in fresh if k.startswith('pdvcModel.')
+               and is_encoder_param(k[len('pdvcModel.'):])}
+    wrong = [k for k, v in trainer.model.state_dict().items()
+             if not torch.equal(v.cpu(), source[k] if k in encoder
+                                else fresh[k])]
+    moved = sum(not torch.equal(source[k], fresh[k]) for k in encoder)
+    print(f'[pretrain] --pretrain encoder from {os.path.basename(path)} on '
+          f'the card: {len(taken)} encoder parameters restored ({moved} of '
+          f'them differ from the fresh ones), {len(fresh) - len(taken)} '
+          f'others kept; mismatches {wrong[:3]}')
+    if taken != encoder or wrong or not moved:
+        raise AssertionError('--pretrain encoder restored the wrong set')
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -2543,6 +2977,9 @@ def main():
         phase_stepwise_serve(folder)
         phase_stepwise_agreement(train_opt)
         eval_launches = phase_eval(tmp, train_folder, device['smi'])
+        phase_pipeline(tmp, device['smi'])
+        phase_sampling(train_folder)
+        phase_pretrain(train_opt, train_folder)
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))

@@ -1,10 +1,12 @@
 """Host-side data of the port (counterpart of ``dvc_tpu/data``, numpy
 only): feature reading and rescale, the caption datasets and their static
-collation, and the vocabulary ``Translator``."""
+collation, the vocabulary ``Translator``, and the prefetching loaders."""
 
 from .dataset import DenseCaptionDataset, collate, resize_feature
 from .fusion_dataset import FusionBatchLoader, FusionDataset, fusion_collate
+from .prefetch import DevicePrefetchLoader, PrefetchLoader
 from .vocabulary import Translator
 
-__all__ = ['DenseCaptionDataset', 'FusionBatchLoader', 'FusionDataset',
-           'Translator', 'collate', 'fusion_collate', 'resize_feature']
+__all__ = ['DenseCaptionDataset', 'DevicePrefetchLoader', 'FusionBatchLoader',
+           'FusionDataset', 'PrefetchLoader', 'Translator', 'collate',
+           'fusion_collate', 'resize_feature']

@@ -18,6 +18,7 @@ import json
 import numpy as np
 import torch
 
+from ..data.prefetch import DevicePrefetchLoader
 from ..models import postprocess, to_dvc_records
 from ..models.criterion import build_weight_dict
 from .dvc_eval import eval_dvc
@@ -117,8 +118,9 @@ def evaluate(trainer, loader, dvc_json_path, logger=None, score_threshold=0,
              alpha=0.3, dvc_eval_version='2018', debug=False,
              skip_lang_eval=False):
     """Model evaluation loop (reference eval_utils.py:160-230): the eval
-    step of the port's ``Trainer`` on every batch of ``loader`` (its
-    losses, weighted as in training, and the greedy captions), the
+    step of the port's ``Trainer`` on every batch of ``loader``
+    (prefetched under ``--device_prefetch 1``; its losses, weighted as in
+    training, and the captions), the
     postprocessed records into ``dvc_json_path``, then the metrics.
     Returns (scores, mean losses), or (None, None) with
     ``skip_lang_eval``."""
@@ -130,7 +132,11 @@ def evaluate(trainer, loader, dvc_json_path, logger=None, score_threshold=0,
     n_batches = 0
     translator = loader.ds.translator
 
-    for batch, meta in loader:
+    # collation in a worker thread, the next batch's upload during this
+    # step (dvc_tpu/eval/eval_utils.py:125-127)
+    iter_loader = (DevicePrefetchLoader(loader, trainer.prepare_eval_batch)
+                   if opt.device_prefetch else loader)
+    for batch, meta in iter_loader:
         out, losses = trainer.eval_step(batch)
         n_batches += 1
         # one copy to the host for all the losses

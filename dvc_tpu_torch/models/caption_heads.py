@@ -1,6 +1,6 @@
-"""LSTM-DSA caption head: greedy decode and teacher forcing (port of
-``dvc_tpu/models/caption_heads.py::DSACaptionHead`` for ``num_layers=1,
-att_hid_size>0`` and greedy decoding, ``sample_max=1``).
+"""LSTM-DSA caption head: greedy and temperature-sampling decode and
+teacher forcing (port of ``dvc_tpu/models/caption_heads.py::DSACaptionHead``
+for ``num_layers=1, att_hid_size>0``).
 
 Everything step-invariant (the value projection, the event query's share
 of the sampling offsets folded into ``base_pos``, ``scale_t`` and the
@@ -11,9 +11,10 @@ head dispatches them:
 * fused, one launch for all K steps: :func:`dvc_tpu_torch.ops.dsa_greedy_scan`
   (decode, ``greedy_fuse``) and :func:`dvc_tpu_torch.ops.dsa_teacher_scan`
   (teacher forcing, ``scan_fuse`` with scheduled sampling off);
-* stepwise, one launch per step (``_step``): scheduled sampling, or either
-  flag off.  Each step's sampling positions and hvec come from h here; the
-  step itself reads the table ``VW = value_t . Wc`` that the head builds
+* stepwise, one launch per step (``_step``): scheduled sampling, the
+  sampling decode (``--caption_sample_max 0``), or either flag off.  Each
+  step's sampling positions and hvec come from h here; the step itself
+  reads the table ``VW = value_t . Wc`` that the head builds
   once per forward pass (:func:`dvc_tpu_torch.ops.dsa_tables.dsa_value_table`;
   its backward then runs once per backward pass, on the sum of the steps'
   gradients): :func:`dvc_tpu_torch.ops.dsa_step.dsa_sample_attend_table_core`
@@ -49,6 +50,23 @@ def caption_nll(logprobs, target, mask):
     picked = torch.gather(logprobs, -1, target.long()[..., None])[..., 0]
     m = mask.to(logprobs.dtype)
     return -(picked * m).sum(-1) / (m.sum(-1) + 1e-6)
+
+
+def gumbel_noise(shape, gen, device):
+    """Standard Gumbel noise drawn from ``gen``: argmax(lp + noise) is a
+    sample of the distribution exp(lp), as ``jax.random.categorical``."""
+    u = torch.rand(shape, generator=gen, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def sample_pick(logits, temperature, gen):
+    """A sampling step's choice from its raw logits (..., V+1) (the JAX
+    ``_stochastic_sample``'s ``pick``): a token drawn from
+    exp(logprobs / temperature), and its unscaled log-probability."""
+    lp = torch.log_softmax(logits, dim=-1)
+    it = torch.argmax(lp / temperature
+                      + gumbel_noise(lp.shape, gen, lp.device), dim=-1)
+    return it, torch.gather(lp, -1, it[..., None])[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,9 +213,18 @@ class DSACaptionHead(nn.Module):
                          + torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3), c)
 
     def forward(self, query, ref_center, offset_scale, memory,
-                temporal_shapes, pad_mask):
-        """Greedy decode.  Arguments as :meth:`_hoist`.  Returns (seq,
-        logprobs), each (B*Pq, max_caption_len)."""
+                temporal_shapes, pad_mask, sample_max=True, temperature=1.0,
+                gen=None):
+        """Caption decode of every query.  Arguments as :meth:`_hoist`.
+        Greedy by default: the fused kernel (``greedy_fuse``) or the
+        stepwise word steps.  ``sample_max=False`` (``--caption_sample_max
+        0``) samples each token from exp(logprobs / ``temperature``) on the
+        stepwise word steps, never the fused greedy kernel (the JAX head's
+        routing), drawing from ``gen`` (a ``torch.Generator`` on the
+        device; without one a fixed seed, so the decode repeats).  Returns
+        (seq, logprobs), each (B*Pq, max_caption_len): the tokens, zero
+        after the first EOS, and the log-probability of each chosen
+        token."""
         B, Pq, _ = query.shape
         K = self.cfg.max_caption_len
         hoisted = self._hoist(query, ref_center, offset_scale, memory,
@@ -205,23 +232,32 @@ class DSACaptionHead(nn.Module):
         value_t, base_pos, scale_t, const_z, token_w, (
             off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh) = hoisted
         temporal_shapes = tuple(temporal_shapes)
-        if self.cfg.greedy_fuse:
+        if sample_max and self.cfg.greedy_fuse:
             tok, lp = dsa_greedy_scan(
                 value_t, base_pos, scale_t, const_z, self.embed.weight,
                 token_w, self.logit.weight.T, self.logit.bias, off_w_h,
                 h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh,
                 temporal_shapes, K)                           # (B, K, Pq)
+        elif sample_max:
+            tok, lp = self._decode_stepwise(hoisted, temporal_shapes,
+                                            greedy_pick)
         else:
-            tok, lp = self._greedy_stepwise(hoisted, temporal_shapes)
+            draw = gen if gen is not None else torch.Generator(
+                device=value_t.device).manual_seed(0)
+            tok, lp = self._decode_stepwise(
+                hoisted, temporal_shapes,
+                lambda logits: sample_pick(logits, temperature, draw))
         seq, lps = greedy_mask_outputs(tok, lp)
         return (seq.permute(0, 2, 1).reshape(B * Pq, K),
                 lps.permute(0, 2, 1).reshape(B * Pq, K))
 
-    def _greedy_stepwise(self, hoisted, temporal_shapes):
-        """The JAX ``_greedy_sample``: BOS feeds step 0, each step feeds its
-        first-max argmax to the next, lp = max - logsumexp; the token
-        embedding's share of the preactivation is one (V+1, 4R) table.
-        Returns the raw (tok, lp) streams, each (B, K, Pq)."""
+    def _decode_stepwise(self, hoisted, temporal_shapes, pick):
+        """The JAX ``_greedy_sample`` (``pick`` = :func:`greedy_pick`) and
+        ``_stochastic_sample`` (:func:`sample_pick`) as K word steps: BOS
+        feeds step 0, each step feeds the token that ``pick`` chose from
+        its logits to the next; the token embedding's share of the
+        preactivation is one (V+1, 4R) table.  Returns the raw (tok, lp)
+        streams, each (B, K, Pq)."""
         value_t, _, _, const_z, token_w, _ = hoisted
         B, Pq, R4 = const_z.shape
         token_z = self.embed.weight @ token_w                 # (V+1, 4R)
@@ -233,7 +269,7 @@ class DSACaptionHead(nn.Module):
         for _ in range(self.cfg.max_caption_len):
             h, c = self._step(hoisted, vw, token_z[it] + const_z, h, c,
                               temporal_shapes)
-            it, lp = greedy_pick(self.logit(h))
+            it, lp = pick(self.logit(h))
             toks.append(it.to(torch.int32))
             lps.append(lp)
         return torch.stack(toks, 1), torch.stack(lps, 1)
@@ -305,9 +341,7 @@ class DSACaptionHead(nn.Module):
             if i >= 1:
                 if noise is None:
                     u = torch.rand((n,), generator=draw, device=tok.device)
-                    gumbel = -torch.log(-torch.log(torch.rand(
-                        lp.shape, generator=draw, device=tok.device
-                    ).clamp_min(torch.finfo(torch.float32).tiny)))
+                    gumbel = gumbel_noise(lp.shape, draw, tok.device)
                 else:
                     u, gumbel = noise[0][i], noise[1][i]
                 tok = self.scheduled_tokens(lp, tok, u, gumbel, ss_prob)

@@ -135,9 +135,10 @@ def criterion_forward(cfg: CriterionConfig, outputs, gt_labels, gt_boxes,
     D = outputs['pred_logits'].shape[0]
     num_boxes = gt_mask.sum().float().clamp(min=1.0)
     layer_ids = list(range(D)) if aux_loss else [D - 1]
-    idx = {l: hungarian_match(cfg.matcher, outputs['pred_logits'][l],
-                              outputs['pred_boxes'][l], gt_labels, gt_boxes,
-                              gt_mask) for l in layer_ids}
+    # every layer's matching in one round trip to the host
+    idx = dict(zip(layer_ids, hungarian_match(
+        cfg.matcher, outputs['pred_logits'][layer_ids],
+        outputs['pred_boxes'][layer_ids], gt_labels, gt_boxes, gt_mask)))
 
     def losses_of(l):
         return layer_losses(cfg, outputs['pred_logits'][l],

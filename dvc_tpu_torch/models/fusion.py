@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from .deformable_transformer import LN_EPS, MultiheadAttention
-from .pdvc import PDVC, PDVCConfig, init_mha_, lecun_normal_
+from .pdvc import PDVC, PDVCConfig, init_mha_, lecun_normal_, refuse_bf16
 
 
 def fusion_heads(opt) -> int:
@@ -53,15 +53,16 @@ class FusionPDVC(nn.Module):
         inner['video_tensor'] = fused
         return inner
 
-    def forward(self, batch):
+    def forward(self, batch, gen=None):
         """Serving forward.  batch as PDVC's plus an optional 'sound_tensor'
-        (B, T, C) aligned with the clips (zeros where audio is missing)."""
-        return self.pdvcModel(self._fuse(batch))
+        (B, T, C) aligned with the clips (zeros where audio is missing);
+        ``gen`` feeds a sampling decode (:meth:`PDVC.forward`)."""
+        return self.pdvcModel(self._fuse(batch), gen)
 
-    def forward_eval(self, batch):
+    def forward_eval(self, batch, gen=None):
         """Eval forward on a batch with gt events (:meth:`PDVC.forward_eval`):
         (outputs, losses)."""
-        return self.pdvcModel.forward_eval(self._fuse(batch))
+        return self.pdvcModel.forward_eval(self._fuse(batch), gen)
 
     def forward_train(self, batch, gen=None, ss_prob=0.0):
         """Train forward (:meth:`PDVC.forward_train`); the fusion blocks
@@ -86,7 +87,9 @@ def make_fusion_model(opt, device='cuda', seed: int = 0) -> FusionPDVC:
     asks for the CPU) in eval mode, with seeded
     random weights drawn on the CPU from a ``torch.Generator`` (so the same
     seed gives the same weights on any device); load a checkpoint over them
-    with ``load_state_dict(strict=True)``."""
+    with ``load_state_dict(strict=True)``.  The fusion blocks compute in
+    f32 like the rest: ``--fusion_dtype bfloat16`` raises."""
+    refuse_bf16(opt, 'fusion_dtype')
     with torch.device('meta'):
         model = FusionPDVC(PDVCConfig.from_opt(opt), fusion_dim=opt.feature_dim,
                            fusion_heads=fusion_heads(opt))

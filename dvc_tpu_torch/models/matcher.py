@@ -7,7 +7,9 @@ host with scipy's ``linear_sum_assignment``, the reference PDVC's own
 choice (``matcher.py:115-119``).  Gt events are padded to G slots with a
 validity mask: the real rows get their optimal queries, and each padded row
 gets a distinct unused query, which callers mask out (the contract of the
-JAX ``masked_assignment``).  Matching is not differentiated.
+JAX ``masked_assignment``).  Every decoder layer is matched in one call, as
+the JAX criterion's vmapped matcher: one copy to the host and one upload a
+step.  Matching is not differentiated.
 """
 
 from __future__ import annotations
@@ -53,6 +55,16 @@ def match_cost_matrix(cfg: MatcherConfig, pred_logits, pred_boxes, gt_labels,
             + cfg.cost_giou * cost_giou)
 
 
+def stacked_cost_matrices(cfg: MatcherConfig, pred_logits, pred_boxes,
+                          gt_labels, gt_boxes):
+    """Every layer's :func:`match_cost_matrix`, stacked (D', B, Nq, G):
+    each computed from its own layer's tensors, as a single layer's call
+    computes it, so bit for bit the same on any device."""
+    return torch.stack([match_cost_matrix(cfg, logits, boxes, gt_labels,
+                                          gt_boxes)
+                        for logits, boxes in zip(pred_logits, pred_boxes)])
+
+
 def masked_assignment(cost: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
     """cost (R, C) with R <= C, row_mask (R,): col4row (R,) int64, optimal
     over the real rows; padded rows get distinct unused columns in order."""
@@ -72,11 +84,29 @@ def masked_assignment(cost: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
 @torch.no_grad()
 def hungarian_match(cfg: MatcherConfig, pred_logits, pred_boxes, gt_labels,
                     gt_boxes, gt_mask):
-    """Match gt events to queries.  Returns col4row (B, G) int64 on the
-    predictions' device: the query assigned to each gt slot (meaningless
-    where ``gt_mask`` is False)."""
-    C = match_cost_matrix(cfg, pred_logits, pred_boxes, gt_labels, gt_boxes)
-    C = C.transpose(1, 2).float().cpu().numpy()              # (B, G, Nq)
-    mask = gt_mask.cpu().numpy().astype(bool)
-    idx = np.stack([masked_assignment(c, m) for c, m in zip(C, mask)])
+    """Match gt events to queries in every given decoder layer with one
+    round trip to the host.  pred_logits (D', B, Nq, K) and pred_boxes
+    (D', B, Nq, 2) stack the layers; gt_* are (B, G, ...).  Each layer's
+    (B, Nq, G) cost matrix is computed as a single layer's would be (so
+    bit for bit the same), the D' of them and the mask come to the host in
+    one copy, scipy solves each (layer, video), and the indices go back in
+    one upload.  Returns col4row (D', B, G) int64 on the predictions'
+    device: the query assigned to each gt slot (meaningless where
+    ``gt_mask`` is False)."""
+    D, B, Nq, _ = pred_logits.shape
+    G = gt_mask.shape[-1]
+    costs = stacked_cost_matrices(cfg, pred_logits, pred_boxes, gt_labels,
+                                  gt_boxes)
+    packed = torch.cat([costs.transpose(2, 3).float().reshape(-1),
+                        gt_mask.float().reshape(-1)]).cpu().numpy()
+    hungarian_match.copies += 1
+    C = packed[:D * B * G * Nq].reshape(D, B, G, Nq)
+    mask = packed[D * B * G * Nq:].reshape(B, G) > 0
+    idx = np.stack([[masked_assignment(C[l, b], mask[b]) for b in range(B)]
+                    for l in range(D)])
     return torch.from_numpy(idx).to(pred_logits.device)
+
+
+# device-to-host copies made (one a call), read and reset like the kernels'
+# launch counts
+hungarian_match.copies = 0

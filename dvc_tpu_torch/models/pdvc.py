@@ -4,7 +4,8 @@
 A conv pyramid feeds the deformable encoder; Nq learned event queries are
 decoded with iterative box refinement; each query gets class logits, a
 (center, length) box and a share of the event-count logits.  Serving
-(:meth:`PDVC.forward`) captions the last decoder layer's queries greedily;
+(:meth:`PDVC.forward`) captions the last decoder layer's queries, greedily
+or (``--caption_sample_max 0``) by temperature sampling;
 eval (:meth:`PDVC.forward_eval`, the JAX ``__call__(eval_mode=True)``) also
 matches every layer's predictions to the gt events and runs the criterion;
 train (:meth:`PDVC.forward_train`) matches, runs the criterion, and
@@ -64,9 +65,15 @@ class PDVCConfig:
     transformer_input_type: str = 'queries'
     caption: CaptionHeadConfig = None
     criterion: CriterionConfig = None
+    # --caption_sample_max 0 samples each token from
+    # exp(logprobs / caption_sample_temperature) in place of the greedy
+    # decode
+    sample_max: bool = True
+    sample_temperature: float = 1.0
 
     @classmethod
     def from_opt(cls, opt):
+        refuse_bf16(opt, 'tpu_compute_dtype')
         cap = CaptionHeadConfig(
             vocab_size=opt.vocab_size,
             input_encoding_size=opt.input_encoding_size,
@@ -94,7 +101,20 @@ class PDVCConfig:
             max_eseq_length=opt.max_eseq_length,
             feature_dim=opt.feature_dim,
             transformer_input_type=opt.transformer_input_type,
-            caption=cap, criterion=CriterionConfig.from_opt(opt))
+            caption=cap, criterion=CriterionConfig.from_opt(opt),
+            sample_max=bool(opt.caption_sample_max),
+            sample_temperature=float(opt.caption_sample_temperature))
+
+
+def refuse_bf16(opt, flag: str):
+    """The port computes in f32 only: a ``--tpu_compute_dtype`` or
+    ``--fusion_dtype`` other than float32 raises rather than being
+    ignored."""
+    value = getattr(opt, flag, 'float32')
+    if value != 'float32':
+        raise NotImplementedError(
+            f'--{flag} {value}: the port computes in float32 only; a bf16 '
+            'path needs bf16 variants of the kernels (ROADMAP A3)')
 
 
 class BBoxHead(nn.Module):
@@ -271,38 +291,43 @@ class PDVC(nn.Module):
         return {k: torch.stack([h[i] for h in heads]) for i, k in
                 enumerate(('pred_logits', 'pred_count', 'pred_boxes'))}
 
-    def caption_greedy(self, hs, reference, memory, shapes, valid_ratios,
-                       mask_flat):
-        """Greedy captions of the last decoder layer's queries: seq and
-        cap_prob_eval (B, Nq, max_caption_len)."""
+    def caption_sample(self, hs, reference, memory, shapes, valid_ratios,
+                       mask_flat, gen=None):
+        """Captions of the last decoder layer's queries, greedy or (with
+        ``sample_max`` off) sampled at ``sample_temperature`` from ``gen``:
+        seq and cap_prob_eval (B, Nq, max_caption_len)."""
         c = self.cfg
         center, scale = self.caption_reference(reference, valid_ratios,
                                                shapes)
         shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
             c.caption, shapes, memory, mask_flat, center, scale)
         seq, lp = self.caption_head[c.dec_layers - 1](
-            hs, center_t, scale_t, mem_t, shapes_t, mask_t)
+            hs, center_t, scale_t, mem_t, shapes_t, mask_t,
+            sample_max=c.sample_max, temperature=c.sample_temperature,
+            gen=gen)
         B, Nq = hs.shape[:2]
         return {'seq': seq.reshape(B, Nq, -1),
                 'cap_prob_eval': lp.reshape(B, Nq, -1)}
 
-    def forward(self, batch):
+    def forward(self, batch, gen=None):
         """Serving forward.  Returns the last decoder layer's pred_logits
         (B, Nq, C), pred_count (B, Ne+1), pred_boxes (B, Nq, 2), seq and
-        cap_prob_eval (B, Nq, max_caption_len)."""
+        cap_prob_eval (B, Nq, max_caption_len).  ``gen`` (a
+        ``torch.Generator`` on the model's device) feeds a sampling
+        decode's draws."""
         enc, hs, refs, deltas = self.trunk(batch)
         logits, count, boxes = self.head_outputs(self.cfg.dec_layers - 1,
                                                  hs[-1], refs[-1], deltas[-1])
         return {'pred_logits': logits, 'pred_count': count,
                 'pred_boxes': boxes,
-                **self.caption_greedy(hs[-1], refs[-1], *enc)}
+                **self.caption_sample(hs[-1], refs[-1], *enc, gen=gen)}
 
-    def forward_eval(self, batch):
+    def forward_eval(self, batch, gen=None):
         """Eval forward on a batch with gt events: (outputs, losses).
         outputs are :meth:`forward`'s plus matched_indices (B, G); losses
         the criterion's over every decoder layer (with ``aux_loss``), on
         the eval path's boxes (a 1-d reference added to both box dims);
-        no caption losses."""
+        no caption losses.  ``gen`` as in :meth:`forward`."""
         c = self.cfg
         enc, hs, refs, deltas = self.trunk(batch)
         outputs = self.layer_outputs(hs, refs, deltas, train_path=False)
@@ -311,7 +336,7 @@ class PDVC(nn.Module):
             batch['gt_boxes_mask'], aux_loss=c.aux_loss)
         out = {k: v[-1] for k, v in outputs.items()}
         out['matched_indices'] = last_idx
-        out.update(self.caption_greedy(hs[-1], refs[-1], *enc))
+        out.update(self.caption_sample(hs[-1], refs[-1], *enc, gen=gen))
         return out, losses
 
     def forward_train(self, batch, gen=None, ss_prob=0.0):

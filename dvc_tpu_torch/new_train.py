@@ -8,6 +8,10 @@ trains on the card unless ``--device cpu`` is given, and keeps the
 reference's restarts: visited video keys are checkpointed every
 ``--ckpt_every_batches`` batches and skipped after ``--start_from``.
 ``--debug`` caps an epoch at 5 batches (and a validation at 6 videos).
+Under ``--device_prefetch 1`` (the default) batches are collated in a
+worker thread and uploaded one step ahead (``data.DevicePrefetchLoader``).
+``--pretrain full|encoder|decoder`` warm-starts the PDVC from the
+plain-PDVC checkpoint ``--pretrain_path`` when not resuming.
 Every ``save_checkpoint_every`` epochs it validates as ``newTrain.py``
 does: the greedy captions of ``val_caption_file`` into ``epoch{N}.json``,
 scored against ``gt_file_for_eval`` and ``gt_file_for_para_eval``
@@ -28,11 +32,11 @@ import time
 import numpy as np
 import torch
 
-from .data import FusionBatchLoader, FusionDataset
+from .data import DevicePrefetchLoader, FusionBatchLoader, FusionDataset
 from .eval import evaluate
-from .serve import load_info_json
-from .train import (Trainer, load_checkpoint, multistep_lr, save_checkpoint,
-                    ss_prob_for_epoch)
+from .serve import load_info_json, load_pdvc_weights
+from .train import (Trainer, filtered_restore, load_checkpoint, multistep_lr,
+                    save_checkpoint, ss_prob_for_epoch)
 from .utils.config import parse_opts
 
 
@@ -72,12 +76,23 @@ def save_info_json(save_dir: str, info: dict):
         json.dump(info, f, indent=1, default=str)
 
 
+def pretrain(trainer, opt, logger=None):
+    """``--pretrain full|encoder|decoder``: warm-start the FusionPDVC's PDVC
+    from the plain-PDVC checkpoint ``--pretrain_path`` (newTrain.py:65-77;
+    :func:`dvc_tpu_torch.serve.load_pdvc_weights`,
+    :func:`dvc_tpu_torch.train.filtered_restore`).  Returns the restored
+    keys."""
+    if logger:
+        logger.info(f'loading pretrained PDVC ({opt.pretrain}) from '
+                    f'{opt.pretrain_path}')
+    return filtered_restore(trainer.model, load_pdvc_weights(
+        opt.pretrain_path), opt.pretrain)
+
+
 def main(opt, device=None):
     """Train ``opt``'s FusionPDVC.  Returns (run folder, the last epoch's
     mean losses).  ``device`` defaults to ``opt.device`` (the card unless
     it says 'cpu')."""
-    if opt.pretrain:
-        raise NotImplementedError('--pretrain is not ported yet')
     device = device or ('cpu' if opt.device == 'cpu' else 'cuda')
     save_folder = build_folder(opt)
     logger = create_logger(save_folder)
@@ -89,6 +104,8 @@ def main(opt, device=None):
     trainer = Trainer(opt, device=device)
     visited, epoch = set(), 0
     best_val_score, val_history = -1e9, {}
+    if opt.pretrain and not opt.start_from:
+        pretrain(trainer, opt, logger)
 
     info = load_info_json(save_folder) if opt.start_from else None
     if opt.start_from and info is not None:
@@ -109,14 +126,20 @@ def main(opt, device=None):
         ss_prob = ss_prob_for_epoch(opt, epoch)
         loader = FusionBatchLoader(train_ds, opt.batch_size, True, opt,
                                    seed=opt.seed + epoch, skip_keys=visited)
+        if opt.device_prefetch:
+            # collation in a worker thread, the next batch's upload during
+            # this step (newTrain.py:97-99)
+            loader = DevicePrefetchLoader(loader, trainer.prepare_batch)
         n, loss_sum, t0 = 0, {}, time.time()
         for batch, meta in loader:
             if opt.debug and n >= 5:
                 break
             losses = trainer.train_step(batch, lr, ss_prob)
             visited.update(meta['keys'])
-            for k, v in losses.items():
-                loss_sum[k] = loss_sum.get(k, 0.0) + float(v)
+            # one copy to the host for all the losses
+            for k, v in zip(losses, torch.stack(
+                    [v.float() for v in losses.values()]).tolist()):
+                loss_sum[k] = loss_sum.get(k, 0.0) + v
             n += 1
             if n % ckpt_every == 0:
                 save_checkpoint(save_folder, 'last', trainer, epoch,

@@ -12,7 +12,11 @@ writes ``eval_results.json`` with the scores; ``test`` writes
 ``dvc_results.json`` and skips the language metrics, with a fake caption
 file built from ``--test_video_meta_data_csv_path`` where given.  It runs
 on the card unless ``--eval_device cpu`` is given, and takes FusionPDVC
-runs (``newTrain.py``, ``dvc_tpu_torch.new_train``) only.
+runs (``newTrain.py``, ``dvc_tpu_torch.new_train``) only.  The captions
+are the run's (``caption_sample_max``, ``caption_sample_temperature``),
+or sampled at a temperature with ``--caption_sample_max 0
+[--caption_sample_temperature T]``; the draws come from a generator
+seeded with the run's ``seed``.
 """
 
 from __future__ import annotations
@@ -85,6 +89,12 @@ def build_parser():
     parser.add_argument('--eval_tool_version', type=str, default=None,
                         choices=['2018', '2021'])
     parser.add_argument('--skip_lang_eval', action='store_true')
+    parser.add_argument('--caption_sample_max', type=int, default=None,
+                        help='override the run\'s: 1 greedy captions, 0 '
+                             'sampled from exp(logprobs / '
+                             'caption_sample_temperature)')
+    parser.add_argument('--caption_sample_temperature', type=float,
+                        default=None, help='override the run\'s')
     parser.add_argument('--eval_device', type=str, default='cuda',
                         choices=['cuda', 'cpu'],
                         help='the card (default) or the CPU')
@@ -129,6 +139,9 @@ def main(argv=None):
         opt.transformer_input_type = args.eval_transformer_input_type
     if args.eval_tool_version:
         opt.eval_tool_version = args.eval_tool_version
+    for flag in ('caption_sample_max', 'caption_sample_temperature'):
+        if getattr(args, flag) is not None:
+            setattr(opt, flag, getattr(args, flag))
     if not getattr(opt, 'sound_feature_folder', None):
         if getattr(opt, 'streaming_features', 0) and not args.eval_feature_folder:
             raise NotImplementedError('streaming (in-process TSP) runs are '

@@ -32,6 +32,7 @@ import torch
 from .data import Translator, resize_feature
 from .models import (from_jax_params, make_fusion_model, postprocess,
                      to_dvc_records)
+from .models.convert import pdvc_state_dict
 from .utils.config import Config, load_config
 
 _SAFE_BUILTINS = {'complex', 'set', 'frozenset', 'slice', 'range',
@@ -93,6 +94,30 @@ def load_weights(path: str) -> dict:
             for k, v in from_jax_params(params).items()}
 
 
+def load_pdvc_weights(path: str) -> dict:
+    """The PDVC ``state_dict`` (reference layout, CPU tensors) that
+    ``--pretrain`` warm-starts from: a plain-PDVC run's JAX ``.ckpt``
+    (flax params converted with :func:`pdvc_state_dict`), or a ``.pth``
+    holding a PDVC state_dict (bare, or under 'model' or 'state_dict';
+    'module.' prefixes dropped, as the JAX package's ``convert_pdvc``
+    drops them), or the PDVC of a FusionPDVC ``.pth`` (``pdvcModel.*``:
+    the port's own checkpoints)."""
+    if path.endswith('.pth'):
+        sd = torch.load(path, map_location='cpu', weights_only=True)
+        for k in ('model', 'state_dict'):
+            if isinstance(sd, dict) and k in sd:
+                sd = sd[k]
+        sd = {k[len('module.'):] if k.startswith('module.') else k: v
+              for k, v in sd.items()}
+        if any(k.startswith('pdvcModel.') for k in sd):
+            sd = {k[len('pdvcModel.'):]: v for k, v in sd.items()
+                  if k.startswith('pdvcModel.')}
+        return sd
+    params = load_checkpoint(path)['params']
+    return {k: torch.as_tensor(np.asarray(v))
+            for k, v in pdvc_state_dict(params).items()}
+
+
 def run_options(folder: str, which: str = 'best') -> Config:
     """The options of a run folder's ``info.json[which]`` over the
     defaults (the recipe file they name is not read again)."""
@@ -130,6 +155,8 @@ class DenseCaptioner:
         self.model.load_state_dict(
             {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
              else v for k, v in state_dict.items()}, strict=True)
+        # the draws of a sampling decode (--caption_sample_max 0)
+        self.gen = torch.Generator(device=self.device).manual_seed(opt.seed)
         self.translator = Translator(dict_file or opt.dict_file,
                                      opt.vocab_size)
 
@@ -173,7 +200,7 @@ class DenseCaptioner:
                       sound_list=None):
         batch = self._make_batch(feats_list, durations, sound_list)
         with torch.inference_mode():
-            out = self.model(batch)
+            out = self.model(batch, self.gen)
             post = postprocess(out, torch.tensor(durations, dtype=torch.float32,
                                                  device=self.device))
         records = to_dvc_records(

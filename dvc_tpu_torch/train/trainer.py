@@ -10,10 +10,17 @@ branch's ``add_decayed_weights`` before Adam is ``torch.optim.Adam``'s
 (gradients scaled by max_norm / norm when norm >= max_norm; torch's
 ``clip_grad_norm_`` would add 1e-6 to the norm).
 
+Batches reach the device through :meth:`Trainer.prepare_batch` (on a
+CUDA device: pinned host tensors copied on the trainer's copy stream, an
+event the step waits on), which ``data.DevicePrefetchLoader`` calls one
+batch ahead.
+
 Checkpoints are ``model-{tag}.pth``: the model's ``state_dict`` in the
 reference layout (``load_state_dict(strict=True)`` reads it; the serving
 ``DenseCaptioner`` too), the optimizer state, the epoch and step, and any
 extra entries (the visited videos of a mid-epoch save).
+:func:`filtered_restore` warm-starts the PDVC from a plain-PDVC
+``state_dict`` (``--pretrain``).
 """
 
 from __future__ import annotations
@@ -94,40 +101,83 @@ class Trainer:
         self.params = list(self.model.parameters())   # aliases once
         self.weight_dict = build_weight_dict(opt)
         self.optimizer = make_optimizer(opt, self.params)
-        # dropout masks come from the trainer's own generator
+        # dropout masks come from the trainer's own generator, the eval
+        # decode's draws (--caption_sample_max 0) from another
         self.gen = torch.Generator(device=self.device).manual_seed(
             opt.seed + 1)
+        self.sample_gen = torch.Generator(device=self.device).manual_seed(
+            opt.seed)
+        # uploads run on a stream of their own, so that the next batch's
+        # copy overlaps the current step
+        self.copy_stream = (torch.cuda.Stream(self.device)
+                            if self.device.type == 'cuda' else None)
         self.step = 0
 
     def prepare_batch(self, batch):
-        """Caption-length bucketing, then the arrays as tensors on the
-        device."""
+        """Caption-length bucketing, then :meth:`prepare_eval_batch`."""
         if getattr(self.opt, 'caption_len_bucketing', 1):
             batch = bucket_caption_length(batch)
         return self.prepare_eval_batch(batch)
 
     def prepare_eval_batch(self, batch):
-        """The arrays as tensors on the device, with no caption-length
-        bucketing (eval decodes a fixed length)."""
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        """The arrays of a collated numpy batch as tensors on the device,
+        with no caption-length bucketing (eval decodes a fixed length),
+        marked ``_prepared``.  On a CUDA device they are copied from pinned
+        host tensors without blocking, on the trainer's copy stream, and
+        ``_ready`` holds the event that the step waits on before it reads
+        them; each device tensor is recorded on the compute stream, so the
+        caching allocator keeps its memory until the step is done.  On the
+        CPU the arrays are wrapped as they are."""
+        if self.copy_stream is None:
+            out = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+        else:
+            host = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                    for k, v in batch.items()}
+            compute = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.copy_stream):
+                out = {k: v.to(self.device, non_blocking=True)
+                       for k, v in host.items()}
+                ready = torch.cuda.Event()
+                ready.record(self.copy_stream)
+            for v in out.values():
+                v.record_stream(compute)
+            out['_ready'] = ready
+        out['_prepared'] = True
+        return out
+
+    def _device_batch(self, batch, prepare):
+        """A batch of ``prepare`` (given one that is not prepared yet)
+        without its marks, with the compute stream waiting for its
+        upload."""
+        batch = dict(batch)
+        if not batch.pop('_prepared', False):
+            batch = prepare(batch)
+            batch.pop('_prepared')
+        ready = batch.pop('_ready', None)
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        return batch
 
     def eval_step(self, batch):
-        """The eval forward (no dropout) on a collated numpy batch:
-        (outputs, losses) as device tensors (:meth:`PDVC.forward_eval`)."""
+        """The eval forward (no dropout) on a collated numpy batch or one
+        of :meth:`prepare_eval_batch`: (outputs, losses) as device tensors
+        (:meth:`PDVC.forward_eval`; a sampling decode draws from the
+        trainer's ``sample_gen``)."""
+        batch = self._device_batch(batch, self.prepare_eval_batch)
         with torch.inference_mode():
-            return self.model.forward_eval(self.prepare_eval_batch(batch))
+            return self.model.forward_eval(batch, self.sample_gen)
 
     def total_loss(self, losses):
         return sum(losses[k] * w for k, w in self.weight_dict.items()
                    if k in losses and w)
 
     def train_step(self, batch, lr: float, ss_prob: float = 0.0):
-        """One optimizer step on a collated numpy batch.  Returns the
-        losses (detached device tensors) with 'total_loss'."""
+        """One optimizer step on a collated numpy batch or one of
+        :meth:`prepare_batch`.  Returns the losses (detached device
+        tensors) with 'total_loss'."""
         for group in self.optimizer.param_groups:
             group['lr'] = lr
-        batch = self.prepare_batch(batch)
+        batch = self._device_batch(batch, self.prepare_batch)
         _, losses = self.model.forward_train(batch, self.gen, ss_prob)
         total = self.total_loss(losses)
         self.optimizer.zero_grad(set_to_none=False)
@@ -168,3 +218,48 @@ def load_checkpoint(path: str, device='cpu') -> dict:
     """A checkpoint written by :func:`save_checkpoint` (tensors, numbers and
     strings only, so it loads with ``weights_only``)."""
     return torch.load(path, map_location=device, weights_only=True)
+
+
+# The parameters of a partial restore (reference pdvc.py:103-108): the JAX
+# package's ENCODER_KEYS ('base_encoder', 'encoder_layer_', 'level_embed',
+# 'input_proj'; the last lies inside the base encoder) in this package's
+# module names.
+ENCODER_KEYS = ('base_encoder.', 'transformer.encoder.',
+                'transformer.level_embed')
+
+
+def is_encoder_param(name: str) -> bool:
+    """Whether a PDVC state_dict key is an encoder parameter."""
+    return name.startswith(ENCODER_KEYS)
+
+
+@torch.no_grad()
+def filtered_restore(model, pdvc_state: dict, which: str):
+    """Warm-start the FusionPDVC ``model``'s PDVC (``pdvcModel.*``) from a
+    plain PDVC state_dict (reference train.py:101-118): ``which`` 'full'
+    takes every PDVC parameter (each must be in the source), 'encoder' the
+    encoder's (:func:`is_encoder_param`) and 'decoder' the rest, each where
+    the source has it.  Returns the restored keys."""
+    if which not in ('full', 'encoder', 'decoder'):
+        raise ValueError(f'--pretrain {which!r}: full, encoder or decoder')
+    state = model.state_dict()
+    taken = []
+    for key in state:
+        if not key.startswith('pdvcModel.'):
+            continue
+        name = key[len('pdvcModel.'):]
+        if which != 'full' and is_encoder_param(name) != (which == 'encoder'):
+            continue
+        if name not in pdvc_state:
+            if which == 'full':
+                raise KeyError(f'--pretrain full: {name} is not in the '
+                               'source checkpoint')
+            continue
+        value = torch.as_tensor(np.asarray(pdvc_state[name]))
+        if value.shape != state[key].shape:
+            raise ValueError(f'--pretrain: {name} is {tuple(value.shape)} in '
+                             f'the source, {tuple(state[key].shape)} here')
+        state[key] = value
+        taken.append(key)
+    model.load_state_dict(state, strict=True)
+    return taken

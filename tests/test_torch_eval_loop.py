@@ -276,6 +276,31 @@ def test_run_eval_on_a_port_run(port_run, mode):
         assert scores is None
 
 
+def test_run_eval_samples_under_the_sampling_flags(port_run):
+    """--caption_sample_max 0 --caption_sample_temperature T: the captions
+    come from the stepwise word steps (never the fused greedy decode),
+    from a generator seeded with the run's seed, so a second run repeats
+    them."""
+    from dvc_tpu_torch.ops import dsa_greedy_scan_ref
+    from dvc_tpu_torch.ops.dsa_step import sample_attend_table_ref
+    args = ['--eval_save_dir', port_run, '--eval_mode', 'test',
+            '--eval_device', 'cpu']
+    sampled = ['--caption_sample_max', '0', '--caption_sample_temperature',
+               '0.5']
+    calls = (dsa_greedy_scan_ref.calls, sample_attend_table_ref.calls)
+    runs = [_check_dvc_json(run_eval.main(args + sampled)[0], scored=False)
+            for _ in range(2)]
+    assert dsa_greedy_scan_ref.calls == calls[0]
+    assert sample_attend_table_ref.calls > calls[1]
+    greedy = _check_dvc_json(run_eval.main(args)[0], scored=False)
+    assert runs[0]['results'] == runs[1]['results']
+
+    def sentences(out):
+        return sorted(e['sentence'] for v in out['results'].values()
+                      for e in v)
+    assert sentences(runs[0]) != sentences(greedy)
+
+
 @pytest.fixture(scope='module')
 def jax_run(val, tmp_path_factory):
     """A run folder as the JAX trainer writes it, of ``val``'s weights."""

@@ -106,7 +106,10 @@ def test_matcher_total_cost_matches_jax(seed):
     arrays = _predictions(seed)
     C = jax_cost(cfg_j, *(jnp.asarray(a) for a in arrays[:4]))
     _close(match_cost_matrix(cfg_t, *(to_torch(a) for a in arrays[:4])), C)
-    got = to_numpy(hungarian_match(cfg_t, *(to_torch(a) for a in arrays)))
+    # one decoder layer, stacked as the matcher takes the layers
+    got = to_numpy(hungarian_match(
+        cfg_t, to_torch(arrays[0])[None], to_torch(arrays[1])[None],
+        *(to_torch(a) for a in arrays[2:])))[0]
     want = np.asarray(jax_match(cfg_j, *(jnp.asarray(a) for a in arrays)))
     mask = arrays[4]
     C = np.asarray(C)
