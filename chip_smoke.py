@@ -117,6 +117,29 @@ Phases (one or more lines each; the last line is the JSON verdict):
    fresh Trainer on the card (``new_train.pretrain``, what
    ``new_train.main`` calls): the encoder's parameters equal the source's,
    the rest the fresh initialisation.
+13. plain PDVC — ``dvc_tpu_torch.run_train`` at four recipes' full widths
+   on synthetic features of their own types (16 train and 16 val videos
+   each), counters set to 0 before each run and read after: (a)
+   ``cfgs/yc2_tsp_pdvc.yml`` (LSTM-DSA) one --debug epoch with validation
+   (K1-K6 launched, no K7-K10, no plain version; ``epoch1.json`` scored,
+   ``model-best.pth``), ``run_eval`` at B=16 (one K6 launch) and
+   ``DenseCaptioner(folder)``; (b) ``yc2_tsn_pdvcl.yml`` (light head,
+   3072-d, 100 queries) the same with K1-K3 only, the light head's word
+   loop timed at B=1 and 16, and two val videos' records on the card
+   against the CPU (phase 9's gates); (c) ``yc2_tsn_pdvcl_gt.yml``
+   (two-stage): every layer's boxes equal to the gt boxes within 1e-6,
+   the ce, bbox and giou weights 0, finite losses of a train step, and
+   ``run_eval`` writing one record a gt slot; (d) ``anet_c3d_props.yml``
+   (no caption head): no caption kernel, empty sentences, finite Recall
+   and Precision; (e) the standard recipe at --num_layers 2 (one K7 a
+   decode step, one K7 and one K8 a training word step, one table and its
+   backward, no K4-K6 or K9/K10, also under --dsa_lstm_fuse 1) and at
+   --att_hid_size 0 (no word-step kernel); (f) phase 7's agreement for
+   (a), (b) and --num_layers 2, the card taking the CPU's matching
+   (Hungarian near-ties flip on ulps); (g) ``Trainer.train_steps`` of two
+   batches against two single steps (phase 7's tolerance on the
+   parameters, one loss copy) and ``run_train --steps_per_dispatch 2``
+   (one device-to-host loss copy per two steps).
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -1927,26 +1950,30 @@ def write_synthetic_run(root, opt, n_videos=TRAIN_VIDEOS, seed=0):
     return recipe
 
 
-def write_videos(root, prefix, n_videos, seed, feature_dim, words):
+def write_videos(root, prefix, n_videos, seed, feature_dim, words,
+                 features=None, sound=True):
     """n_videos YouCook2-shaped videos keyed ``prefix`` + 6 digits: clip
-    features (feature_dim wide, 150-400 clips) in root/features, cached
-    sound features for every other video in root/sound (the rest fall back
-    to zeros), and 3-40 captioned events per video (captions of 3-27
-    words, so after BOS/EOS at most 29 word steps).  Returns their
-    annotations."""
+    features (feature_dim wide, 150-400 clips) in root/features, or, with
+    ``features`` [(path of a key, width)], one file of each; with
+    ``sound``, cached sound features for every other video in root/sound
+    (the rest fall back to zeros); and 3-40 captioned events per video
+    (captions of 3-27 words, so after BOS/EOS at most 29 word steps).
+    Returns their annotations."""
     import numpy as np
     rng = np.random.default_rng(seed)
     feat_dir = os.path.join(root, 'features')
     sound_dir = os.path.join(root, 'sound')
+    features = features or [
+        (lambda key: os.path.join(feat_dir, key[:13] + '.npy'), feature_dim)]
     anno = {}
     for v in range(n_videos):
         key = f'{prefix}{v:06d}'
         n_clips = int(rng.integers(150, 400))
         duration = float(rng.uniform(60, 600))
-        np.save(os.path.join(feat_dir, key[:13] + '.npy'),
-                rng.standard_normal((n_clips, feature_dim))
-                .astype(np.float32))
-        if v % 2 == 0:
+        for path, width in features:
+            np.save(path(key), rng.standard_normal((n_clips, width))
+                    .astype(np.float32))
+        if sound and v % 2 == 0:
             np.save(os.path.join(sound_dir, key[:13] + '.npy'),
                     rng.standard_normal((n_clips, feature_dim))
                     .astype(np.float32))
@@ -2010,14 +2037,17 @@ def read_counts():
             sum(fn.calls for fn in plain))
 
 
-def train_batch(opt, B):
-    """One collated batch of the first B synthetic videos."""
-    from dvc_tpu_torch.data import FusionDataset, fusion_collate
-    ds = FusionDataset(opt.train_caption_file, opt.visual_feature_folder,
-                       opt.dict_file, opt, seed=opt.seed)
-    batch, _ = fusion_collate([ds[i % len(ds)] for i in range(B)],
-                              opt.frame_embedding_num,
-                              opt.gt_proposal_sample_num, opt.max_caption_len)
+def train_batch(opt, B, plain=False):
+    """One collated batch of the first B synthetic videos, for FusionPDVC
+    or (``plain``) for a plain PDVC."""
+    from dvc_tpu_torch.data import (DenseCaptionDataset, FusionDataset,
+                                    collate, fusion_collate)
+    ds = (DenseCaptionDataset if plain else FusionDataset)(
+        opt.train_caption_file, opt.visual_feature_folder, opt.dict_file,
+        opt, seed=opt.seed)
+    batch, _ = (collate if plain else fusion_collate)(
+        [ds[i % len(ds)] for i in range(B)], opt.frame_embedding_num,
+        opt.gt_proposal_sample_num, opt.max_caption_len)
     return batch
 
 
@@ -2134,25 +2164,48 @@ def phase_train(tmp):
 # 7. train agreement
 # --------------------------------------------------------------------------
 
-def phase_train_agreement(opt, label='train-agreement'):
+def phase_train_agreement(opt, label='train-agreement', plain=False,
+                          pin_matching=False):
     """One train step's forward and backward on the card (kernels) against
     the CPU plain path, same weights and batch, dropout off: the same
     matching; every loss within 1e-4 relative (f32 on both, summation orders
     differ); every parameter's gradient within a relative L2 error of 1e-3
     + 1e-5 absolute (atomics and summation order), except alpha_net's bias,
     whose gradient is zero in exact arithmetic (as in ``check_scan``) and
-    whose floor is 5e-5."""
+    whose floor is 5e-5.  ``plain``: a plain PDVC (``run_train``'s
+    model) in place of the FusionPDVC.  ``pin_matching``: the card's step
+    takes the CPU step's matching of every layer, so that a Hungarian
+    near-tie, which a few ulps of the trunk flip (ROADMAP C; at the plain
+    recipe's G = 30 an aux layer's does), cannot move the losses;
+    whether the card's own matching agreed is printed, not gated."""
     import torch
-    from dvc_tpu_torch.models import make_fusion_model
+    from dvc_tpu_torch.models import criterion, make_fusion_model, \
+        make_pdvc_model
     from dvc_tpu_torch.models.criterion import build_weight_dict
     from dvc_tpu_torch.train import bucket_caption_length
-    batch = bucket_caption_length(train_batch(opt, 1))
+    batch = bucket_caption_length(train_batch(opt, 1, plain))
     weights = build_weight_dict(opt)
+    make = make_pdvc_model if plain else make_fusion_model
+    real, pinned, own = criterion.hungarian_match, [], []
+
+    def record(*args):
+        pinned.append(real(*args))
+        return pinned[-1]
+
+    def replay(*args):
+        own.append(real(*args).cpu())
+        return pinned[len(own) - 1].to(args[1].device)
+
     results = {}
-    for dev in (DEVICE, 'cpu'):
-        model = make_fusion_model(opt, dev, seed=0).train()
+    for dev in ('cpu', DEVICE):
+        model = make(opt, dev, seed=0).train()
         tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        out, losses = model.forward_train(tb)
+        if pin_matching:
+            criterion.hungarian_match = record if dev == 'cpu' else replay
+        try:
+            out, losses = model.forward_train(tb)
+        finally:
+            criterion.hungarian_match = real
         sum(losses[k] * w for k, w in weights.items()
             if k in losses and w).backward()
         results[dev] = (out['matched_indices'].cpu(),
@@ -2167,6 +2220,10 @@ def phase_train_agreement(opt, label='train-agreement'):
     ranked = sorted(grad_err, key=grad_err.get, reverse=True)
     worst = ranked[0]
     same = bool((gi == ci).all())
+    if pin_matching:
+        agree = all(torch.equal(a, b) for a, b in zip(own, pinned))
+        print(f'[{label}] the card ran the CPU\'s matching; its own, every '
+              f'layer: identical {agree} (not gated)')
     print(f'[{label}] card vs CPU plain, one B=1 step: matching '
           f'identical {same}; worst loss relative error {loss_err:.2e}; '
           f'worst gradient relative L2 errors over {len(cg)} parameters: '
@@ -2469,9 +2526,7 @@ def phase_eval(tmp, folder, card):
     dvc_results.json without them; one B=16 eval step traced; then two val
     videos evaluated on the CPU (plain versions) and on the card, their
     records held to phase 5's gates.  Returns the B=16 run's launches."""
-    import math
     import torch
-    from dvc_tpu_torch import run_eval
     from dvc_tpu_torch.serve import run_options
     ropt = run_options(folder)
     layers = ropt.enc_layers + ropt.dec_layers       # K1/K2 a forward
@@ -2537,15 +2592,28 @@ def phase_eval(tmp, folder, card):
                                          torch.cuda.synchronize()))
     del trainer
 
-    # agreement: two val videos on the CPU (plain versions) and the card
+    eval_agreement(tmp, folder, opt, 'eval-agreement')
+    if DEVICE != 'cpu':
+        torch.cuda.synchronize()
+    return out[16]
+
+
+def eval_agreement(tmp, folder, opt, label):
+    """Two val videos of the run in ``folder`` evaluated by run_eval on the
+    CPU (plain versions) and on the card, held to phase 5's gates: >= 90%
+    of the captions identical, and where they are, timestamps (relative to
+    the duration) and proposal scores (relative) within 1e-3; the same
+    event counts."""
+    import math
+    from dvc_tpu_torch import run_eval
     with open(opt.val_caption_file) as f:
         two = dict(list(json.load(f).items())[:2])
-    val2 = os.path.join(tmp, 'val2.json')
+    val2 = os.path.join(tmp, f'val2_{label}.json')
     with open(val2, 'w') as f:
         json.dump(two, f)
     runs = {}
     for dev in ('cpu', DEVICE):
-        save = os.path.join(tmp, f'agree_{dev}')
+        save = os.path.join(tmp, f'agree_{label}_{dev}')
         os.makedirs(save, exist_ok=True)
         path, scores = run_eval.main(
             ['--eval_save_dir', save, '--eval_checkpoint_path',
@@ -2570,16 +2638,13 @@ def phase_eval(tmp, folder, card):
                       / abs(w['proposal_score']))
             if g['pred_event_count'] != w['pred_event_count']:
                 raise AssertionError(f'event counts differ on {key}')
-    print(f'[eval-agreement] two val videos, card vs CPU plain: captions '
+    print(f'[{label}] two val videos, card vs CPU plain: captions '
           f'identical {same}/{total}; timestamps (relative to the duration) '
           f'and proposal scores (relative) on those, worst {err:.2e}; '
           f'METEOR {gs["METEOR"]:.6f} vs {ws["METEOR"]:.6f}, soda_c '
           f'{gs["soda_c"]:.6f} vs {ws["soda_c"]:.6f} (not gated)')
     if same < 0.9 * total or not err <= 1e-3 or not math.isfinite(err):
         raise AssertionError('card and CPU disagree on the eval records')
-    if DEVICE != 'cpu':
-        torch.cuda.synchronize()
-    return out[16]
 
 
 # --------------------------------------------------------------------------
@@ -2958,6 +3023,395 @@ def phase_pretrain(opt, folder):
         raise AssertionError('--pretrain encoder restored the wrong set')
 
 
+# --------------------------------------------------------------------------
+# 13. plain PDVC: run_train, run_eval and serving of the plain recipes
+# --------------------------------------------------------------------------
+
+PLAIN = {'standard': 'cfgs/yc2_tsp_pdvc.yml', 'light': 'cfgs/yc2_tsn_pdvcl.yml',
+         'two_stage': 'cfgs/yc2_tsn_pdvcl_gt.yml',
+         'none': 'cfgs/anet_c3d_props.yml'}
+TRUNK = ('msda_fwd', 'msda_bwd')
+CAPTION_KERNELS = ('dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy') \
+    + STEP_KERNELS + ('table_gemm', 'table_gemm_bwd')
+FUSED = ('dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy', 'dsa_lstm_fwd',
+         'dsa_lstm_bwd')
+
+
+def event_ms(fn):
+    """(fn(), the ms between two CUDA events around it, synchronized; the
+    host clock on the CPU)."""
+    import torch
+    if DEVICE == 'cpu':
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def write_plain_run(tmp, name, **over):
+    """The synthetic train (TRAIN_VIDEOS) and val (VAL_VIDEOS) sets of
+    ``PLAIN[name]`` at its feature types and widths (one file per type
+    and video, where the dataset reads it; no sound), its vocabulary, the
+    metrics' gt files, and a recipe that inherits it with ``over``.
+    Returns the run's --debug options on DEVICE."""
+    from dvc_tpu_torch.data.dataset import FEATURE_SPECS
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+    recipe = PLAIN[name]
+    base = load_config(recipe, root=ROOT)
+    root = os.path.join(tmp, f'plain_{name}')
+    vtype = base.visual_feature_type
+    types = list(vtype) if isinstance(vtype, (list, tuple)) else [vtype]
+    folders = [os.path.join(root, f'features_{t}') for t in types]
+    for folder in folders:
+        os.makedirs(folder)
+    features = [(lambda key, t=t, f=f: FEATURE_SPECS[t]['path'](f, key),
+                 base.feature_dim if len(types) == 1
+                 else FEATURE_SPECS[t]['dim'])
+                for t, f in zip(types, folders)]
+    words = letter_words(base.vocab_size)
+    vocab = os.path.join(root, 'vocab.json')
+    with open(vocab, 'w') as f:
+        json.dump({'word_to_ix': {w: i for i, w in enumerate(words, 1)},
+                   'ix_to_word': {str(i): w for i, w in enumerate(words, 1)}},
+                  f)
+    paths = {}
+    for split, prefix, n, seed in (('train', 'v_plntr', TRAIN_VIDEOS, 0),
+                                   ('val', 'v_plnvl', VAL_VIDEOS, 1)):
+        anno = write_videos(root, prefix, n, seed, base.feature_dim, words,
+                            features, sound=False)
+        paths[split] = os.path.join(root, f'{split}.json')
+        with open(paths[split], 'w') as f:
+            json.dump(anno, f)
+    para = os.path.join(root, 'para_val.json')
+    with open(para, 'w') as f:
+        json.dump({k: ' '.join(v['sentences']) for k, v in anno.items()}, f)
+    path = os.path.join(root, 'plain.yml')
+    with open(path, 'w') as f:
+        json.dump({'base_cfg_path': recipe, 'id': name,
+                   'save_dir': os.path.join(root, 'save'),
+                   'train_caption_file': paths['train'],
+                   'val_caption_file': paths['val'],
+                   'gt_file_for_eval': [paths['val']],
+                   'gt_file_for_para_eval': [para], 'dict_file': vocab,
+                   'visual_feature_folder': (folders if isinstance(
+                       vtype, (list, tuple)) else folders[0]),
+                   'invalid_video_json': [], 'epoch': 1, **over}, f)
+    return parse_opts(['--cfg_path', path, '--debug', '--device', DEVICE],
+                      root=ROOT)
+
+
+def check_launches(label, launches, plain, want, zero, exact=None):
+    """Every kernel of ``want`` launched, none of ``zero``, each of
+    ``exact`` {kernel: launches} as often as it says, no plain version."""
+    if (min(launches[k] for k in want) < 1 or plain
+            or any(launches[k] for k in zero)
+            or any(launches[k] != v for k, v in (exact or {}).items())):
+        raise AssertionError(f'[{label}] did not run on the kernels: '
+                             f'launches {launches}, plain calls {plain}')
+
+
+def plain_train(opt, label, want, zero, card):
+    """``run_train.main`` (one --debug epoch: 5 steps at B=1, then the
+    validation of 6 val videos at B=1) with the launch counts set to 0
+    just before and read just after; finite losses, the kernels of
+    ``want`` launched and none of ``zero``, no plain version, the
+    validation's files.  Returns (run folder, launches)."""
+    import math
+    from dvc_tpu_torch import run_train
+    reset_counts()
+    (folder, losses), ms = event_ms(lambda: run_train.main(opt))
+    launches, plain = read_counts()
+    print(f'[{label}] run_train.main --debug, B=1, {opt.caption_decoder_type}'
+          f' head, {opt.transformer_input_type} ({card}): {ms:.0f} ms (CUDA events; '
+          f'setup, 5 steps, validation, checkpoints); mean losses '
+          f'{json.dumps(losses)}; kernel launches {launches}, plain-version '
+          f'calls {plain}')
+    if not all(math.isfinite(v) for v in losses.values()) or (
+            ('loss_caption' in losses) != (opt.caption_decoder_type != 'none')):
+        raise AssertionError(f'[{label}] losses {losses}')
+    check_launches(label, launches, plain, want, zero)
+    print(f'[{label}] validation of epoch 1: '
+          f'{check_validation(folder, [1])}')
+    return folder, launches
+
+
+def plain_eval_and_serve(folder, label, want, zero, greedy, card):
+    """run_eval on the run folder at --eval_batch_size 16 (one batch of
+    the VAL_VIDEOS val videos), counted: ``greedy`` K6 launches, the
+    kernels of ``want`` launched, none of ``zero``; then
+    ``DenseCaptioner(folder)`` answers one request."""
+    import numpy as np
+    from dvc_tpu_torch.serve import DenseCaptioner
+    path, scores, launches, plain, seconds = run_eval_counted(
+        ['--eval_save_dir', folder, '--eval_batch_size', '16',
+         '--eval_device', DEVICE])
+    check_eval_json(path, VAL_VIDEOS, scored=True)
+    print(f'[{label}] run_eval --eval_batch_size 16 ({card}): {seconds:.2f} s '
+          f'(host clock); '
+          f'{", ".join(f"{k} {scores[k]:.4f}" for k in EVAL_SCORES)}; '
+          f'kernel launches {launches}, plain-version calls {plain}')
+    check_launches(label, launches, plain, want, zero,
+                   exact={'dsa_greedy': greedy})
+    dc = DenseCaptioner(folder, device=DEVICE)
+    rng = np.random.default_rng(4)
+    events, ms = event_ms(lambda: dc.caption_features(
+        rng.standard_normal((240, dc.opt.feature_dim)).astype(np.float32),
+        150.0))
+    check_events(events, 150.0)
+    print(f'[{label}] DenseCaptioner(folder) served one request ({card}) in '
+          f'{ms:.1f} ms (CUDA events): {len(events)} events, first '
+          f'{events[0]["timestamp"]}')
+    return dc
+
+
+def light_decode_times(dc, card):
+    """The light head's word loop alone on the card (K word steps of small
+    GEMMs, no kernel of its own), at B=1 and B=16 over the recipe's
+    queries (``cuda_ms``)."""
+    import torch
+    head = dc.model.caption_head[-1]
+    opt = dc.opt
+    gen = torch.Generator(device=dc.device).manual_seed(5)
+    out = []
+    for B in (1, 16):
+        feats = torch.randn((B * opt.num_queries, opt.hidden_dim),
+                            generator=gen, device=dc.device)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: head(feats), 3)
+        out.append(f'B={B} ({B * opt.num_queries} queries x '
+                   f'{opt.max_caption_len} steps) {ms:.2f} ms')
+    print(f'[plain-light] the light head\'s greedy word loop alone ({card}), '
+          f'mean of 3 after a warm-up (CUDA events): {"; ".join(out)}')
+
+
+def plain_two_stage(tmp, card):
+    """(c) two-stage light head on gt proposals: every layer's boxes equal
+    the gt boxes where gt_boxes_mask holds (within 1e-6), the weighted
+    loss_ce, loss_bbox and loss_giou are 0, the losses finite, one train
+    step on the card; then its checkpoint through run_eval (test mode):
+    G records a video."""
+    import math
+    import torch
+    from dvc_tpu_torch.models import make_pdvc_model
+    from dvc_tpu_torch.models.criterion import build_weight_dict
+    from dvc_tpu_torch.new_train import save_info_json
+    from dvc_tpu_torch.train import Trainer, save_checkpoint
+    opt = write_plain_run(tmp, 'two_stage')
+    trainer = Trainer(opt, device=DEVICE,
+                      model=make_pdvc_model(opt, DEVICE, seed=0))
+    batch = train_batch(opt, 2, plain=True)
+    tb = trainer._device_batch(batch, trainer.prepare_batch)
+    reset_counts()
+    with torch.no_grad():
+        _, hs, refs, deltas = trainer.model.trunk(tb)
+        boxes = trainer.model.layer_outputs(hs, refs, deltas,
+                                            train_path=True)['pred_boxes']
+    mask = tb['gt_boxes_mask']
+    err = float((boxes[:, mask] - tb['gt_boxes'][mask]).abs().max())
+    weights = build_weight_dict(opt)
+    zeroed = {k: w for k, w in weights.items()
+              if k.split('_')[1] in ('ce', 'bbox', 'giou')}
+    losses, ms = event_ms(lambda: trainer.train_step(batch, opt.lr))
+    losses = {k: float(v) for k, v in losses.items()}
+    launches, plain = read_counts()
+    print(f'[plain-two-stage] {PLAIN["two_stage"]} ({card}): G = '
+          f'{opt.gt_proposal_sample_num} queries from the gt boxes; every '
+          f'layer\'s boxes vs the gt boxes where masked, max abs diff '
+          f'{err:.2e}; weights of {sorted(zeroed)} all 0: '
+          f'{not any(zeroed.values())}; one B=2 train step {ms:.1f} ms, '
+          f'losses {json.dumps(losses)}; launches {launches}, plain {plain}')
+    if (err > 1e-6 or any(zeroed.values()) or len(zeroed) != 3 * opt.dec_layers
+            or not all(math.isfinite(v) for v in losses.values())):
+        raise AssertionError('two-stage boxes, weights or losses wrong')
+    check_launches('plain-two-stage', launches, plain, TRUNK,
+                   CAPTION_KERNELS)
+    folder = os.path.join(tmp, 'plain_two_stage', 'run')
+    save_checkpoint(folder, 'best', trainer, 1)
+    save_info_json(folder, {'best': {'epoch': 1, 'opt': opt.to_dict()}})
+    path, _, launches, plain, seconds = run_eval_counted(
+        ['--eval_save_dir', folder, '--eval_mode', 'test',
+         '--eval_batch_size', '16', '--eval_device', DEVICE])
+    out = check_eval_json(path, VAL_VIDEOS, scored=False)
+    counts = {len(v) for v in out['results'].values()}
+    print(f'[plain-two-stage] run_eval --eval_mode test over the val set\'s '
+          f'gt boxes: {seconds:.2f} s, records a video {counts}; launches '
+          f'{launches}, plain {plain}')
+    check_launches('plain-two-stage', launches, plain, ('msda_fwd',),
+                   CAPTION_KERNELS)
+    if counts != {opt.gt_proposal_sample_num}:
+        raise AssertionError('two-stage records are not one a gt slot')
+
+
+def plain_none(tmp, card):
+    """(d) the 'none' head (localisation only): no caption kernel, empty
+    sentences, finite Recall and Precision."""
+    import math
+    opt = write_plain_run(tmp, 'none')
+    folder, _ = plain_train(opt, 'plain-none', TRUNK, CAPTION_KERNELS, card)
+    with open(os.path.join(folder, 'epoch1.json')) as f:
+        sentences = {e['sentence'] for v in json.load(f)['results'].values()
+                     for e in v}
+    with open(os.path.join(folder, 'info.json')) as f:
+        history = json.load(f)['val_history']['1']
+    print(f'[plain-none] sentences {sentences}; Recall {history["Recall"]}, '
+          f'Precision {history["Precision"]}')
+    if sentences != {''} or not all(math.isfinite(history[k])
+                                    for k in ('Recall', 'Precision')):
+        raise AssertionError('the none head wrote captions or no scores')
+
+
+def plain_cores(opt, card):
+    """(e) the LSTM-DSA core beyond the fused kernels' case, one train step
+    and one eval step each on a B=1 batch, counted: at num_layers 2 one K7
+    per word step of the decode and one K7 and one K8 per word step of
+    training, one table and one table backward a step, and no K4, K5, K6,
+    K9 or K10, under --dsa_lstm_fuse 0 and 1; at att_hid_size 0 (one
+    layer) no word-step kernel at all and the trunk kernels."""
+    from dvc_tpu_torch.models import make_pdvc_model
+    from dvc_tpu_torch.train import Trainer, bucket_caption_length
+    from dvc_tpu_torch.utils.config import Config
+    batch = train_batch(opt, 1, plain=True)
+    steps = bucket_caption_length(batch)['cap_tensor'].shape[-1] - 1
+    for over in ({'num_layers': 2}, {'num_layers': 2, 'dsa_lstm_fuse': 1},
+                 {'att_hid_size': 0}):
+        copt = Config({**opt.to_dict(), **over})
+        trainer = Trainer(copt, device=DEVICE,
+                          model=make_pdvc_model(copt, DEVICE, seed=0))
+        reset_counts()
+        _, train_ms = event_ms(lambda: trainer.train_step(batch, copt.lr))
+        train, tplain = read_counts()
+        reset_counts()
+        _, eval_ms = event_ms(lambda: trainer.eval_step(batch))
+        evals, eplain = read_counts()
+        print(f'[plain-core] {over} ({card}, CUDA events): train step '
+          f'{train_ms:.1f} ms, launches '
+              f'{train}; eval step {eval_ms:.1f} ms, launches {evals} '
+              f'({steps} teacher-forced word steps, {copt.max_caption_len} '
+              f'decode steps)')
+        if 'num_layers' in over:
+            check_launches('plain-core', train, tplain, TRUNK, FUSED,
+                           exact=dict(dsa_step_fwd=steps, dsa_step_bwd=steps,
+                                      table_gemm=1, table_gemm_bwd=1))
+            check_launches('plain-core', evals, eplain, ('msda_fwd',),
+                           FUSED + ('msda_bwd', 'dsa_step_bwd'),
+                           exact=dict(dsa_step_fwd=copt.max_caption_len,
+                                      table_gemm=1))
+        else:
+            check_launches('plain-core', train, tplain, TRUNK,
+                           CAPTION_KERNELS)
+            check_launches('plain-core', evals, eplain, ('msda_fwd',),
+                           CAPTION_KERNELS)
+        del trainer
+
+
+def plain_steps_per_dispatch(opt, card):
+    """(g) --steps_per_dispatch 2: ``Trainer.train_steps`` on two batches
+    against two ``train_step`` calls from the same weights (dropout off):
+    the same first losses, the parameters within phase 7's tolerance
+    (relative L2 error 1e-3 + 1e-5), except where the gradient is zero in
+    exact arithmetic and Adam turns its rounding into steps of +-lr
+    (alpha_net's bias; the key third of the self-attention's
+    in_proj_bias), as tests/test_torch_train.py; then ``run_train.main``
+    --steps_per_dispatch 2 for a --debug epoch (6 steps, no validation):
+    one device-to-host loss copy per two steps."""
+    import torch
+    from dvc_tpu_torch import run_train
+    from dvc_tpu_torch.data import BatchLoader, DenseCaptionDataset
+    from dvc_tpu_torch.models import make_pdvc_model
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import Config
+    gopt = Config({**opt.to_dict(), 'drop_prob': 0.0,
+                   'transformer_dropout_prob': 0.0})
+    loader = iter(BatchLoader(DenseCaptionDataset(
+        gopt.train_caption_file, gopt.visual_feature_folder, gopt.dict_file,
+        gopt), 1, False, gopt))
+    batches = [next(loader)[0] for _ in range(2)]
+    pair = [Trainer(gopt, device=DEVICE,
+                    model=make_pdvc_model(gopt, DEVICE, seed=0))
+            for _ in range(2)]
+    copies = run_train.host_losses.copies
+    stacked, ms2 = event_ms(lambda: run_train.host_losses(
+        pair[0].train_steps(batches, gopt.lr)))
+    one_copy = run_train.host_losses.copies - copies == 1
+    singles = [float(pair[1].train_step(b, gopt.lr)['total_loss'])
+               for b in batches]
+    worst, name = 0.0, ''
+    for (n, p), q in zip(pair[0].model.named_parameters(),
+                         pair[1].model.parameters()):
+        a, b = p.detach().cpu(), q.detach().cpu()
+        if n.endswith('alpha_net.bias'):
+            continue
+        if n.endswith('in_proj_bias'):
+            E = len(a) // 3
+            a, b = torch.cat([a[:E], a[2 * E:]]), torch.cat([b[:E], b[2 * E:]])
+        err = float((a - b).norm() / (b.norm() + 1e-5 / 1e-3))
+        if err > worst:
+            worst, name = err, n
+    print(f'[plain-dispatch] train_steps of 2 batches in {ms2:.1f} ms ({card}, '
+          f'CUDA events; one '
+          f'loss copy: {one_copy}) vs 2 train_step: summed total loss '
+          f'{stacked["total_loss"]:.6f} vs {sum(singles):.6f}; worst '
+          f'parameter relative L2 error {worst:.2e} ({name})')
+    if not one_copy or worst > 1e-3 or abs(
+            stacked['total_loss'] - sum(singles)) > 1e-4 * abs(sum(singles)):
+        raise AssertionError('stacked steps disagree with single steps')
+    dopt = Config({**opt.to_dict(), 'steps_per_dispatch': 2,
+                   'save_checkpoint_every': 99, 'id': 'dispatch'})
+    copies = run_train.host_losses.copies
+    _, losses = run_train.main(dopt)
+    n = run_train.host_losses.copies - copies
+    print(f'[plain-dispatch] run_train --steps_per_dispatch 2 --debug: '
+          f'{n} device-to-host loss copies; mean losses {json.dumps(losses)}')
+    if n != 3:
+        raise AssertionError(f'{n} loss copies for 6 steps, not 3')
+
+
+def phase_plain(tmp, card):
+    """Phase 13: plain PDVC through ``run_train`` and ``run_eval`` at full
+    width on synthetic features, each check failing the run.  Returns the
+    launches of the standard recipe's training run."""
+    import torch
+    # f32 throughout, as phase 3 sets it (cuDNN's convolutions would take
+    # TF32 by default, and the agreements are held at f32's tolerances)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # (a) the README's first recipe, the LSTM-DSA head
+    opt_a = write_plain_run(tmp, 'standard')
+    no_step = STEP_KERNELS + ('table_gemm', 'table_gemm_bwd')
+    folder, launches = plain_train(
+        opt_a, 'plain-standard', TRUNK + ('dsa_scan_fwd', 'dsa_scan_bwd',
+                                          'dsa_greedy'), no_step, card)
+    plain_eval_and_serve(folder, 'plain-standard', ('msda_fwd',), no_step,
+                         1, card)
+    # (b) the light head, 3072-d features, 100 queries
+    opt_b = write_plain_run(tmp, 'light')
+    folder_b, _ = plain_train(opt_b, 'plain-light', TRUNK, CAPTION_KERNELS,
+                              card)
+    dc = plain_eval_and_serve(folder_b, 'plain-light', ('msda_fwd',),
+                              CAPTION_KERNELS, 0, card)
+    light_decode_times(dc, card)
+    del dc
+    eval_agreement(tmp, folder_b, opt_b, 'plain-light-agreement')
+    # (c) two-stage, (d) no caption head, (e) the cores
+    plain_two_stage(tmp, card)
+    plain_none(tmp, card)
+    plain_cores(opt_a, card)
+    # (f) train agreement, (g) stacked steps
+    from dvc_tpu_torch.utils.config import Config
+    for opt, label in ((opt_a, 'standard'), (opt_b, 'light'),
+                       (Config({**opt_a.to_dict(), 'num_layers': 2}),
+                        'two-layer')):
+        phase_train_agreement(opt, f'plain-{label}-train-agreement',
+                              plain=True, pin_matching=True)
+    plain_steps_per_dispatch(opt_a, card)
+    return launches
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -2980,6 +3434,7 @@ def main():
         phase_pipeline(tmp, device['smi'])
         phase_sampling(train_folder)
         phase_pretrain(train_opt, train_folder)
+        phase_plain(tmp, device['smi'])
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))

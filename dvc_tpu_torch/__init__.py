@@ -8,8 +8,9 @@ module names so the counterpart of each module is easy to find:
                 deformable attention (forward and backward), the fused
                 greedy caption decode, and the teacher-forcing word scan
                 (forward and backward)
-  models/       FusionPDVC eval and train forwards (fusion blocks, conv
-                pyramid, deformable transformer, LSTM-DSA head), matcher,
+  models/       PDVC and FusionPDVC eval and train forwards (fusion
+                blocks, conv pyramid, deformable transformer, two-stage
+                queries, the LSTM-DSA and light caption heads), matcher,
                 criterion, postprocessing, and the flax -> torch
                 ``state_dict`` converter
   data/         feature datasets, static collation, the vocabulary
@@ -19,8 +20,11 @@ module names so the counterpart of each module is easy to find:
   train/        ``Trainer``: AdamW/Adam step, eval step, LR schedule,
                 checkpoints
   utils/        box ops and the config system (``cfgs/*.yml``)
-  new_train.py  training with validation
+  new_train.py  FusionPDVC training with validation
                 (``python -m dvc_tpu_torch.new_train``)
+  run_train.py  plain PDVC training with validation, the counterpart of
+                the root ``train.py``
+                (``python -m dvc_tpu_torch.run_train``)
   run_eval.py   evaluation, the counterpart of the root ``eval.py``
                 (``python -m dvc_tpu_torch.run_eval``)
   serve.py      ``DenseCaptioner``, the serving API, and ``load_run``

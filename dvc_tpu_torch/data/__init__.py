@@ -2,11 +2,12 @@
 only): feature reading and rescale, the caption datasets and their static
 collation, the vocabulary ``Translator``, and the prefetching loaders."""
 
-from .dataset import DenseCaptionDataset, collate, resize_feature
+from .dataset import (BatchLoader, DenseCaptionDataset, collate,
+                      resize_feature)
 from .fusion_dataset import FusionBatchLoader, FusionDataset, fusion_collate
 from .prefetch import DevicePrefetchLoader, PrefetchLoader
 from .vocabulary import Translator
 
-__all__ = ['DenseCaptionDataset', 'DevicePrefetchLoader', 'FusionBatchLoader',
+__all__ = ['BatchLoader', 'DenseCaptionDataset', 'DevicePrefetchLoader', 'FusionBatchLoader',
            'FusionDataset', 'PrefetchLoader', 'Translator', 'collate',
            'fusion_collate', 'resize_feature']

@@ -5,7 +5,8 @@
 Per-video ``.npy`` features are rescaled to ``frame_embedding_num`` rows,
 gt events subsampled to ``gt_proposal_sample_num``, captions tokenized, and
 a batch collated to static shapes: video (B, T, C), gt (B, G, 2), captions
-(B, G, Lc), with masks.  A missing feature file degrades to zeros, and
+(B, G, Lc), with masks.  :class:`BatchLoader` shuffles and batches a
+dataset, as the JAX ``BatchLoader`` does in one process.  A missing feature file degrades to zeros, and
 invalid-video lists filter keys, as in the reference.
 """
 
@@ -148,14 +149,14 @@ class DenseCaptionDataset:
                    for s in captions]
         return dict(feats=feats, gt_timestamps=gt_timestamps,
                     labels=action_labels, cap_ids=cap_ids,
-                    duration=entry['duration'], key=key)
+                    duration=entry['duration'], captions=captions, key=key)
 
 
 def collate(samples, T: int, G: int, Lc: int):
     """Static-shape collation (reference collate_fn, video_dataset.py:15-149).
     T/G/Lc: static pads for frames / gt events / caption length.  Returns
-    (batch, meta); meta holds the video keys, their durations (s) and
-    their gt timestamps."""
+    (batch, meta); meta holds the video keys, their durations (s), their
+    gt timestamps and their captions."""
     B = len(samples)
     C = samples[0]['feats'].shape[1]
     video = np.zeros((B, T, C), np.float32)
@@ -166,7 +167,7 @@ def collate(samples, T: int, G: int, Lc: int):
     labels = np.zeros((B, G), np.int64)
     caps = np.zeros((B, G, Lc), np.int64)
     cmask = np.zeros((B, G, Lc), bool)
-    keys, durations, raw_ts = [], [], []
+    keys, durations, raw_ts, raw_caps = [], [], [], []
     for b, s in enumerate(samples):
         f = s['feats']
         L = min(len(f), T)
@@ -186,6 +187,7 @@ def collate(samples, T: int, G: int, Lc: int):
         keys.append(s['key'])
         durations.append(dur)
         raw_ts.append(s['gt_timestamps'])
+        raw_caps.append(s.get('captions'))
     batch = {
         'video_tensor': video, 'video_mask': vmask, 'video_length': vlen,
         'gt_boxes': boxes, 'gt_boxes_mask': gmask,
@@ -193,4 +195,58 @@ def collate(samples, T: int, G: int, Lc: int):
         'cap_tensor': caps.astype(np.int32), 'cap_mask': cmask,
     }
     return batch, {'keys': keys, 'durations': durations,
-                   'raw_timestamps': raw_ts}
+                   'raw_timestamps': raw_ts, 'raw_captions': raw_caps}
+
+
+class BatchLoader:
+    """Shuffling static-pad batch iterator over a
+    :class:`DenseCaptionDataset` (the JAX ``BatchLoader`` in one process:
+    the same batches in the same order for the same seed).  Epoch e's order
+    is a permutation drawn from ``seed + 1000003 * e``; call
+    :meth:`set_epoch` each epoch (a loader that never has advances its
+    epoch on each pass).  ``drop_last`` (default: ``shuffle``) drops a
+    short last batch; otherwise the last sample is repeated to the static
+    batch size, and ``meta['n_real']`` says how many are real."""
+
+    def __init__(self, dataset: DenseCaptionDataset, batch_size: int,
+                 shuffle: bool, opt, drop_last: bool | None = None,
+                 seed: int = 0):
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self._epoch_pinned = False
+        self.T = opt.frame_embedding_num
+        self.G = opt.gt_proposal_sample_num
+        self.Lc = opt.max_caption_len
+        self.drop_last = shuffle if drop_last is None else drop_last
+
+    def set_epoch(self, epoch: int):
+        self.epoch = int(epoch)
+        self._epoch_pinned = True
+
+    def __len__(self):
+        n = len(self.ds)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        epoch = self.epoch
+        if not self._epoch_pinned:
+            self.epoch += 1
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.default_rng(self.seed + 1000003 * epoch).shuffle(order)
+        for i in range(len(self)):
+            idxs = order[i * self.batch_size:(i + 1) * self.batch_size]
+            n_real = len(idxs)
+            if n_real < self.batch_size:
+                # repeat the last sample to keep the static batch shape
+                idxs = np.concatenate(
+                    [idxs, np.repeat(idxs[-1:], self.batch_size - n_real)])
+            batch, meta = collate([self.ds[int(j)] for j in idxs], self.T,
+                                  self.G, self.Lc)
+            meta['n_real'] = n_real
+            yield batch, meta

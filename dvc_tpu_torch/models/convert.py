@@ -1,11 +1,14 @@
-"""Weights carried across: flax FusionPDVC params -> this package's
-``state_dict``.
+"""Weights carried across: flax PDVC and FusionPDVC params -> this
+package's ``state_dict``.
 
 Pure numpy (no JAX needed to read a checkpoint's params tree).  The result
 has the reference torch layout that ``dvc_tpu/models/pdvc_converter.py``
-``export_fusion`` emits, which is also this package's module layout, so
-``model.load_state_dict(from_jax_params(params), strict=True)`` is the
-bridge.  Flax ``Dense`` kernels are (in, out) and torch ``Linear`` weights
+``export_pdvc`` / ``export_fusion`` emit, which is also this package's
+module layout, so ``model.load_state_dict(pdvc_from_jax_params(params),
+strict=True)`` (plain PDVC) or ``from_jax_params`` (FusionPDVC) is the
+bridge.  Every variant the port builds converts: the light, LSTM-DSA and
+no caption head, multi-layer LSTMs, the attention-free DSA core, and the
+two-stage ``pos_trans`` in place of ``reference_points``.  Flax ``Dense`` kernels are (in, out) and torch ``Linear`` weights
 (out, in); flax ``Conv`` kernels are (k, in, out) and torch ``Conv1d``
 weights (out, in, k).  Shared heads are written once per decoder layer, as
 the reference's aliased ``ModuleList`` serializes them.
@@ -41,9 +44,14 @@ def _mha(mha, dst):
     }
 
 
-def pdvc_state_dict(flax_params):
-    """Flax PDVC params (``queries`` input mode, LSTM-DSA caption head) ->
-    reference-layout PDVC state_dict (numpy)."""
+def pdvc_from_jax_params(flax_params):
+    """Flax ``PDVC`` params (numpy leaves, with or without the 'params'
+    level) -> state_dict of :class:`dvc_tpu_torch.models.pdvc.PDVC` in the
+    reference layout (numpy arrays), for any input type and caption head.
+    The flax tree holds only the branches its model runs:
+    ``reference_points`` for queries, ``pos_trans(_norm)`` two-stage; the
+    DSA head's attention only where att_hid_size > 0; no caption head for
+    'none'."""
     p = _unwrap(flax_params, 'decoder_layer_0')
     dec_layers = 0
     while f'decoder_layer_{dec_layers}' in p:
@@ -71,7 +79,11 @@ def pdvc_state_dict(flax_params):
         i += 1
 
     sd['transformer.level_embed'] = np.asarray(p['level_embed'])
-    lin(p['reference_points'], 'transformer.reference_points')
+    if 'reference_points' in p:
+        lin(p['reference_points'], 'transformer.reference_points')
+    if 'pos_trans' in p:
+        lin(p['pos_trans'], 'transformer.pos_trans')
+        norm(p['pos_trans_norm'], 'transformer.pos_trans_norm')
 
     def msda(node, dst):
         for m in ('sampling_offsets', 'attention_weights', 'value_proj',
@@ -116,6 +128,8 @@ def pdvc_state_dict(flax_params):
         for k, v in head.items():
             if k.startswith('rnn_w_'):          # rnn_w_ih_l0 -> weight_ih_l0
                 sd[f'{base}.core.rnn.weight_{k[len("rnn_w_"):]}'] = _t(v)
+        if 'dsa_sampling_offsets_w' not in head:   # the light head
+            return
         dsa = f'{base}.core.deformable_att'
         sd[f'{dsa}.sampling_offsets.weight'] = _t(
             head['dsa_sampling_offsets_w'])
@@ -124,8 +138,9 @@ def pdvc_state_dict(flax_params):
         sd[f'{dsa}.value_proj.weight'] = _t(head['dsa_value_w'])
         sd[f'{dsa}.value_proj.bias'] = np.asarray(head['dsa_value_b'])
         for name in ('ctx2att', 'h2att', 'alpha_net'):
-            sd[f'{base}.core.{name}.weight'] = _t(head[f'{name}_w'])
-            sd[f'{base}.core.{name}.bias'] = np.asarray(head[f'{name}_b'])
+            if f'{name}_w' in head:             # absent at att_hid_size 0
+                sd[f'{base}.core.{name}.weight'] = _t(head[f'{name}_w'])
+                sd[f'{base}.core.{name}.bias'] = np.asarray(head[f'{name}_b'])
 
     if 'caption_head' in p:                     # shared: once per layer
         for li in range(dec_layers):
@@ -143,7 +158,7 @@ def from_jax_params(flax_params):
     :class:`dvc_tpu_torch.models.fusion.FusionPDVC` (numpy arrays)."""
     p = _unwrap(flax_params, 'visual_sa')
     sd = {f'pdvcModel.{k}': v
-          for k, v in pdvc_state_dict(p['pdvc']).items()}
+          for k, v in pdvc_from_jax_params(p['pdvc']).items()}
     for src, ln, mha, mlp in (('visual_sa', 'ln1', 'mha1', 'mlp_seq1'),
                               ('sound_ca', 'ln2', 'mha2', 'mlp_seq2')):
         blk = p[src]

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.box_ops import box_cl_to_xy, box_iou, generalized_box_iou
-from .matcher import MatcherConfig, hungarian_match
+from .matcher import MatcherConfig, hungarian_match, matched_mask
 
 # Empirical event-count prior (reference criterion.py:37-44, hard-coded).
 COUNTER_CLASS_RATE = np.array([
@@ -86,9 +86,12 @@ def counter_loss(cfg: CriterionConfig, pred_count, gt_count):
 
 def layer_losses(cfg: CriterionConfig, pred_logits, pred_count, pred_boxes,
                  gt_labels, gt_boxes, gt_mask, num_boxes, col4row):
-    """Losses of one decoder layer for the matching ``col4row`` (B, G)."""
+    """Losses of one decoder layer for the matching ``col4row`` (B, G):
+    the pair losses over the matched gt slots (:func:`matched_mask`), the
+    event count over every real one, each normalised by ``num_boxes``."""
     B, Nq, K = pred_logits.shape
-    m = gt_mask.to(pred_logits.dtype)
+    m = matched_mask(col4row, gt_mask).to(pred_logits.dtype)
+    col4row = col4row.clamp(min=0)
     # target_classes_onehot (B, Nq, K): 1 at (matched query, its label)
     q_onehot = F.one_hot(col4row, Nq).to(m.dtype) * m[..., None]   # (B,G,Nq)
     l_onehot = F.one_hot(gt_labels.long(), K).to(m.dtype)          # (B,G,K)
@@ -155,8 +158,11 @@ def criterion_forward(cfg: CriterionConfig, outputs, gt_labels, gt_boxes,
 
 
 def build_weight_dict(opt):
-    """Loss-weight table incl. aux suffixes (reference pdvc.py:583-595), of
-    the 'queries' input mode (the port's only one)."""
+    """Loss-weight table incl. aux suffixes (reference pdvc.py:583-595).
+    Two-stage on gt proposals the localisation losses are off: every
+    ``loss_length``, ``loss_ce``, ``loss_bbox`` and ``loss_giou`` weight,
+    aux ones included, is 0 (reference decide_two_stage,
+    misc/utils.py:31-49)."""
     weight_dict = {'loss_ce': opt.cls_loss_coef,
                    'loss_bbox': opt.bbox_loss_coef,
                    'loss_giou': opt.giou_loss_coef,
@@ -167,4 +173,9 @@ def build_weight_dict(opt):
         for i in range(opt.dec_layers - 1):
             aux.update({f'{k}_{i}': v for k, v in weight_dict.items()})
         weight_dict.update(aux)
+    if opt.transformer_input_type == 'gt_proposals':
+        for key in weight_dict:
+            if any(q in key for q in ('loss_length', 'loss_ce', 'loss_bbox',
+                                      'loss_giou')):
+                weight_dict[key] = 0
     return weight_dict

@@ -66,8 +66,13 @@ def stacked_cost_matrices(cfg: MatcherConfig, pred_logits, pred_boxes,
 
 
 def masked_assignment(cost: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
-    """cost (R, C) with R <= C, row_mask (R,): col4row (R,) int64, optimal
-    over the real rows; padded rows get distinct unused columns in order."""
+    """cost (R, C), row_mask (R,): col4row (R,) int64, optimal over the
+    real rows; padded rows get distinct unused columns in order while
+    there are any.  With more real rows than columns (more gt events than
+    queries) C of them are matched, as the reference's scipy solve on the
+    (Nq, n_gt) matrix matches them, and the rest keep -1, as do padded
+    rows left without a free column (the JAX solver refuses R > C; where
+    R <= C the two agree)."""
     R, C = cost.shape
     cost = np.nan_to_num(cost, nan=1e9, posinf=1e9, neginf=-1e9)
     rows = np.flatnonzero(row_mask)
@@ -76,7 +81,7 @@ def masked_assignment(cost: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
         r, c = linear_sum_assignment(cost[rows])
         col4row[rows[r]] = c
     free = np.setdiff1d(np.arange(C), col4row[rows])
-    pad = np.flatnonzero(~row_mask)
+    pad = np.flatnonzero(~row_mask)[:len(free)]
     col4row[pad] = free[:len(pad)]
     return col4row
 
@@ -92,7 +97,8 @@ def hungarian_match(cfg: MatcherConfig, pred_logits, pred_boxes, gt_labels,
     one copy, scipy solves each (layer, video), and the indices go back in
     one upload.  Returns col4row (D', B, G) int64 on the predictions'
     device: the query assigned to each gt slot (meaningless where
-    ``gt_mask`` is False)."""
+    ``gt_mask`` is False; -1 for a gt event left unmatched, see
+    :func:`matched_mask`)."""
     D, B, Nq, _ = pred_logits.shape
     G = gt_mask.shape[-1]
     costs = stacked_cost_matrices(cfg, pred_logits, pred_boxes, gt_labels,
@@ -110,3 +116,10 @@ def hungarian_match(cfg: MatcherConfig, pred_logits, pred_boxes, gt_labels,
 # device-to-host copies made (one a call), read and reset like the kernels'
 # launch counts
 hungarian_match.copies = 0
+
+
+def matched_mask(col4row, gt_mask):
+    """The gt slots with a matched query, (B, G) bool: the real ones,
+    less those left unmatched where a video has more gt events than
+    queries (col4row -1); with G <= Nq, ``gt_mask`` itself."""
+    return gt_mask & (col4row >= 0)

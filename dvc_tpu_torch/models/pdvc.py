@@ -1,9 +1,12 @@
 """PDVC serving, eval and train forwards (port of
 ``dvc_tpu/models/pdvc.py``).
 
-A conv pyramid feeds the deformable encoder; Nq learned event queries are
-decoded with iterative box refinement; each query gets class logits, a
-(center, length) box and a share of the event-count logits.  Serving
+A conv pyramid feeds the deformable encoder; Nq learned event queries
+(``transformer_input_type`` 'queries' or 'learnt_proposals', which JAX runs
+alike) are decoded with iterative box refinement, or, two-stage
+('gt_proposals'), G queries built from the gt boxes with no refinement;
+each query gets class logits, a (center, length) box and a share of the
+event-count logits.  Serving
 (:meth:`PDVC.forward`) captions the last decoder layer's queries, greedily
 or (``--caption_sample_max 0``) by temperature sampling;
 eval (:meth:`PDVC.forward_eval`, the JAX ``__call__(eval_mode=True)``) also
@@ -11,10 +14,11 @@ matches every layer's predictions to the gt events and runs the criterion;
 train (:meth:`PDVC.forward_train`) matches, runs the criterion, and
 teacher-forces the captions of the matched queries of every layer.
 
-The port covers ``transformer_input_type='queries'`` and the LSTM-DSA
-('standard') caption head.  Requests carry no ground truth, so the serving
-forward runs neither matcher nor criterion; the served outputs do not
-depend on them.
+The caption head is the LSTM-DSA one ('standard'), the light LSTM
+('light') or none ('none': localisation only, no caption loss and no
+``seq``).  Requests carry no ground truth, so the serving forward runs
+neither matcher nor criterion; the served outputs do not depend on them
+(a two-stage model needs the gt boxes, so it is not served).
 
 Batch (dict of tensors), as in the JAX package:
   video_tensor (B, T, C) f32, video_mask (B, T) bool (True = valid frame),
@@ -34,13 +38,19 @@ from torch import nn
 
 from ..utils.box_ops import inverse_sigmoid
 from .base_encoder import BaseEncoder
-from .caption_heads import (CaptionHeadConfig, DSACaptionHead, caption_nll,
-                            truncate_levels)
+from .caption_heads import (CaptionHeadConfig, DSACaptionHead,
+                            LightCaptionHead, caption_nll, truncate_levels)
 from .criterion import CriterionConfig, criterion_forward
+from .matcher import matched_mask
 from .deformable_transformer import (DecoderLayer, EncoderLayer,
-                                     MSDeformAttn, MultiheadAttention,
+                                     LN_EPS, MSDeformAttn,
+                                     MultiheadAttention,
                                      encoder_reference_points,
                                      msda_offset_bias)
+
+# the two-stage query embedding: 256 sine frequencies per box coordinate
+# (reference deformable_transformer.py get_proposal_pos_embed)
+POS_FEATS = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +152,12 @@ class DeformableTransformer(nn.Module):
         super().__init__()
         d, L = c.hidden_dim, c.num_feature_levels
         self.level_embed = nn.Parameter(torch.empty(L, d))
-        self.reference_points = nn.Linear(d, 1)
+        # only the branch of the input type exists, as in the flax tree
+        if c.transformer_input_type == 'gt_proposals':
+            self.pos_trans = nn.Linear(2 * POS_FEATS, 2 * d)
+            self.pos_trans_norm = nn.LayerNorm(2 * d, eps=LN_EPS)
+        else:
+            self.reference_points = nn.Linear(d, 1)
         p = c.transformer_dropout_prob
         self.encoder = _Layers(
             EncoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.enc_n_points,
@@ -152,15 +167,24 @@ class DeformableTransformer(nn.Module):
                          p) for _ in range(c.dec_layers))
 
 
+INPUT_TYPES = ('queries', 'learnt_proposals', 'gt_proposals')
+CAPTION_HEADS = {'standard': DSACaptionHead, 'light': LightCaptionHead,
+                 'none': None}
+
+
 class PDVC(nn.Module):
     def __init__(self, cfg: PDVCConfig):
         super().__init__()
-        if cfg.transformer_input_type != 'queries':
-            raise NotImplementedError("the port serves 'queries' mode only")
-        if cfg.caption_decoder_type != 'standard':
+        if cfg.transformer_input_type not in INPUT_TYPES:
             raise NotImplementedError(
-                "the port serves the 'standard' (LSTM-DSA) caption head only")
+                f'transformer_input_type {cfg.transformer_input_type!r}: the '
+                f'port takes {INPUT_TYPES}')
+        if cfg.caption_decoder_type not in CAPTION_HEADS:
+            raise NotImplementedError(
+                f'caption_decoder_type {cfg.caption_decoder_type!r}: the '
+                f'port takes {tuple(CAPTION_HEADS)}')
         self.cfg = cfg
+        self.two_stage = cfg.transformer_input_type == 'gt_proposals'
         d, D = cfg.hidden_dim, cfg.dec_layers
         self.base_encoder = BaseEncoder(cfg.num_feature_levels,
                                         cfg.feature_dim, d)
@@ -178,12 +202,14 @@ class PDVC(nn.Module):
         self.count_head = per_layer(
             lambda: nn.Linear(d, cfg.max_eseq_length + 1))
         self.bbox_head = per_layer(lambda: BBoxHead(d))
-        if cfg.share_caption_head:
-            self.caption_head = nn.ModuleList(
-                [DSACaptionHead(cfg.caption)] * D)
+        head = CAPTION_HEADS[cfg.caption_decoder_type]
+        if head is None:
+            self.caption_head = nn.ModuleList()
+        elif cfg.share_caption_head:
+            self.caption_head = nn.ModuleList([head(cfg.caption)] * D)
         else:
-            self.caption_head = nn.ModuleList(
-                DSACaptionHead(cfg.caption) for _ in range(D))
+            self.caption_head = nn.ModuleList(head(cfg.caption)
+                                              for _ in range(D))
 
     # ------------------------------------------------------------------
     def encode(self, batch, gen=None):
@@ -205,10 +231,12 @@ class PDVC(nn.Module):
         return memory, shapes, valid_ratios, mask_flat
 
     def decode(self, memory, shapes, valid_ratios, mask_flat, init_reference,
-               tgt, query_pos, gen=None):
-        """Decoder stack with iterative box refinement.  Returns per-layer
-        lists (outputs, input references, bbox-head deltas); the refined
-        reference fed to the next layer is detached, as in the reference."""
+               tgt, query_pos, gen=None, query_mask=None):
+        """Decoder stack with iterative box refinement (off two-stage).
+        Returns per-layer lists (outputs, input references, bbox-head
+        deltas); the refined reference fed to the next layer is detached,
+        as in the reference.  query_mask (B, Nq) True = a query the
+        self-attention attends to (two-stage: the real gt boxes)."""
         output, reference_points = tgt, init_reference
         hs, refs, deltas = [], [], []
         last = len(self.transformer.decoder.layers) - 1
@@ -221,12 +249,13 @@ class PDVC(nn.Module):
                 ref_input = (reference_points[:, :, None]
                              * valid_ratios[:, None, :, None])
             output = layer(output, query_pos, ref_input, memory, shapes,
-                           mask_flat, gen=gen)
+                           mask_flat, query_mask, gen=gen)
             delta = self.bbox_head[lid](output)
             hs.append(output)
             refs.append(reference_points)
             deltas.append(delta)
-            if self.cfg.with_box_refine and lid < last:
+            if self.cfg.with_box_refine and not self.two_stage \
+                    and lid < last:
                 if reference_points.shape[-1] == 2:
                     new_ref = torch.sigmoid(delta
                                             + inverse_sigmoid(reference_points))
@@ -245,11 +274,35 @@ class PDVC(nn.Module):
             self.transformer.reference_points(query_pos))
         return init_reference, tgt, query_pos
 
+    def prepare_decoder_proposals(self, gt_boxes):
+        """Two-stage queries from the gt boxes (B, G, 2) (the JAX
+        ``prepare_decoder_proposals``, reference pdvc.py:136-142): a sine
+        embedding of sigmoid(inverse_sigmoid(box)) * 2 pi at POS_FEATS
+        frequencies, ``pos_trans`` and ``pos_trans_norm``, split into
+        (query_pos, tgt); the boxes themselves are the references.  The
+        clamped ``inverse_sigmoid`` keeps padded zero boxes finite."""
+        dim_t = torch.arange(POS_FEATS, dtype=torch.float32,
+                             device=gt_boxes.device)
+        dim_t = 10000 ** (2 * torch.div(dim_t, 2, rounding_mode='floor')
+                          / POS_FEATS)
+        proposals = torch.sigmoid(inverse_sigmoid(gt_boxes)) * (2 * math.pi)
+        pos = proposals[:, :, :, None] / dim_t                # (B, G, 2, F)
+        pos = torch.stack((torch.sin(pos[..., 0::2]),
+                           torch.cos(pos[..., 1::2])), dim=4).reshape(
+            pos.shape[0], pos.shape[1], -1)
+        out = self.transformer.pos_trans_norm(self.transformer.pos_trans(pos))
+        query_pos, tgt = out.chunk(2, dim=2)
+        return gt_boxes, tgt, query_pos
+
     def head_outputs(self, l_id, hs, reference, delta, train_path=False):
         """Class/count/box predictions of decoder layer ``l_id``.  A 1-d
         reference is added to both box dims on the eval path and to the
         center only on the train path (the reference's two branches,
-        ``pdvc.py:202-211`` and ``:257-266``, kept for parity)."""
+        ``pdvc.py:202-211`` and ``:257-266``, kept for parity).  Two-stage
+        the box is the reference itself (refinement is off)."""
+        if self.two_stage:
+            return (self.class_head[l_id](hs),
+                    self.count_head[l_id](hs.max(dim=1).values), reference)
         ref_inv = inverse_sigmoid(reference)
         if reference.shape[-1] == 1 and train_path:
             coord = torch.sigmoid(torch.cat([delta[..., :1] + ref_inv,
@@ -275,12 +328,17 @@ class PDVC(nn.Module):
 
     def trunk(self, batch, gen=None):
         """Encoder and decoder stack: ((memory, shapes, valid_ratios,
-        mask_flat), per-layer outputs, input references, bbox deltas)."""
+        mask_flat), per-layer outputs, input references, bbox deltas).
+        Two-stage the queries are the batch's gt boxes, masked by
+        ``gt_boxes_mask``."""
         enc = self.encode(batch, gen)
-        init_reference, tgt, query_pos = self.prepare_decoder_queries(
-            enc[0].shape[0])
-        hs, refs, deltas = self.decode(*enc, init_reference, tgt, query_pos,
-                                       gen)
+        if self.two_stage:
+            queries = self.prepare_decoder_proposals(batch['gt_boxes'])
+            query_mask = batch['gt_boxes_mask']
+        else:
+            queries = self.prepare_decoder_queries(enc[0].shape[0])
+            query_mask = None
+        hs, refs, deltas = self.decode(*enc, *queries, gen, query_mask)
         return enc, hs, refs, deltas
 
     def layer_outputs(self, hs, refs, deltas, train_path):
@@ -295,26 +353,33 @@ class PDVC(nn.Module):
                        mask_flat, gen=None):
         """Captions of the last decoder layer's queries, greedy or (with
         ``sample_max`` off) sampled at ``sample_temperature`` from ``gen``:
-        seq and cap_prob_eval (B, Nq, max_caption_len)."""
+        seq and cap_prob_eval (B, Nq, max_caption_len); nothing with the
+        'none' head.  The light head reads the query features only."""
         c = self.cfg
-        center, scale = self.caption_reference(reference, valid_ratios,
-                                               shapes)
-        shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
-            c.caption, shapes, memory, mask_flat, center, scale)
-        seq, lp = self.caption_head[c.dec_layers - 1](
-            hs, center_t, scale_t, mem_t, shapes_t, mask_t,
-            sample_max=c.sample_max, temperature=c.sample_temperature,
-            gen=gen)
-        B, Nq = hs.shape[:2]
+        B, Nq, d = hs.shape
+        if c.caption_decoder_type == 'none':
+            return {}
+        head = self.caption_head[c.dec_layers - 1]
+        sample = dict(sample_max=c.sample_max,
+                      temperature=c.sample_temperature, gen=gen)
+        if c.caption_decoder_type == 'light':
+            seq, lp = head(hs.reshape(B * Nq, d), **sample)
+        else:
+            center, scale = self.caption_reference(reference, valid_ratios,
+                                                   shapes)
+            shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
+                c.caption, shapes, memory, mask_flat, center, scale)
+            seq, lp = head(hs, center_t, scale_t, mem_t, shapes_t, mask_t,
+                           **sample)
         return {'seq': seq.reshape(B, Nq, -1),
                 'cap_prob_eval': lp.reshape(B, Nq, -1)}
 
     def forward(self, batch, gen=None):
         """Serving forward.  Returns the last decoder layer's pred_logits
         (B, Nq, C), pred_count (B, Ne+1), pred_boxes (B, Nq, 2), seq and
-        cap_prob_eval (B, Nq, max_caption_len).  ``gen`` (a
-        ``torch.Generator`` on the model's device) feeds a sampling
-        decode's draws."""
+        cap_prob_eval (B, Nq, max_caption_len) (none of the two with the
+        'none' head).  ``gen`` (a ``torch.Generator`` on the model's
+        device) feeds a sampling decode's draws."""
         enc, hs, refs, deltas = self.trunk(batch)
         logits, count, boxes = self.head_outputs(self.cfg.dec_layers - 1,
                                                  hs[-1], refs[-1], deltas[-1])
@@ -351,13 +416,17 @@ class PDVC(nn.Module):
         c = self.cfg
         enc, hs, refs, deltas = self.trunk(batch, gen)
         memory, shapes, valid_ratios, mask_flat = enc
-        outputs = self.layer_outputs(hs, refs, deltas, train_path=True)
+        # the 'none' head takes the eval path's boxes, as in JAX
+        # (train_path = not eval_mode and a caption head)
+        captions = c.caption_decoder_type != 'none'
+        outputs = self.layer_outputs(hs, refs, deltas, train_path=captions)
         losses, last_idx, aux_idx = criterion_forward(
             c.criterion, outputs, batch['gt_labels'], batch['gt_boxes'],
             batch['gt_boxes_mask'], aux_loss=c.aux_loss)
-        losses.update(self.caption_train_losses(
-            hs, refs, memory, shapes, valid_ratios, mask_flat, batch,
-            last_idx, aux_idx, gen, ss_prob))
+        if captions:
+            losses.update(self.caption_train_losses(
+                hs, refs, memory, shapes, valid_ratios, mask_flat, batch,
+                last_idx, aux_idx, gen, ss_prob))
         out = {k: v[-1] for k, v in outputs.items()}
         out['matched_indices'] = last_idx
         return out, losses
@@ -366,26 +435,41 @@ class PDVC(nn.Module):
                              mask_flat, batch, last_idx, aux_idx, gen,
                              ss_prob=0.0):
         """Per-layer teacher-forced caption losses on the matched pairs
-        (reference pdvc.py:294-304).  A shared caption head runs the D
-        layers' pairs as one scan over a (B, D*G) pair axis."""
+        (reference pdvc.py:294-304), each the mean over the layer's matched
+        gt slots (:func:`matched_mask`).  A shared caption head runs the D
+        layers' pairs as one scan over a (B, D*G) pair axis.  The light
+        head reads the matched queries' features only."""
         c = self.cfg
         D = c.dec_layers
         gt_mask = batch['gt_boxes_mask']
         B, G = gt_mask.shape
         cap, cap_mask = batch['cap_tensor'], batch['cap_mask']
-        m = gt_mask.float()
         layers = list(range(D)) if c.aux_loss else [D - 1]
+        light = c.caption_decoder_type == 'light'
+
+        def index(l_id):
+            return last_idx if l_id == D - 1 else aux_idx[l_id]
+
+        def mean(per_cap, l_id):
+            m = matched_mask(index(l_id), gt_mask).float()
+            return (per_cap * m).sum() / m.sum().clamp(min=1.0)
 
         def layer_inputs(l_id):
-            idx = last_idx if l_id == D - 1 else aux_idx[l_id]
+            idx = index(l_id).clamp(min=0)
             feats = torch.gather(hs[l_id], 1,
                                  idx[..., None].expand(-1, -1, hs[l_id].shape[2]))
+            if light:
+                return feats, None, None
             ref = torch.gather(refs[l_id], 1,
                                idx[..., None].expand(-1, -1, refs[l_id].shape[2]))
             center, scale = self.caption_reference(ref, valid_ratios, shapes)
             return feats, center, scale
 
         def run(head, feats, center, scale, caps):
+            if light:
+                return head.teacher_forcing(
+                    feats.reshape(-1, feats.shape[-1]),
+                    caps.reshape(-1, caps.shape[-1]), gen, ss_prob)
             shapes_t, mem_t, mask_t, center_t, scale_t = truncate_levels(
                 c.caption, shapes, memory, mask_flat, center, scale)
             return head.teacher_forcing(feats, center_t, scale_t, mem_t,
@@ -402,21 +486,20 @@ class PDVC(nn.Module):
             nL = len(layers)
             caps_all = cap.repeat(1, nL, 1)
             lp = run(self.caption_head[0],
-                     *(torch.cat([p[i] for p in parts], 1) for i in range(3)),
-                     caps_all)
+                     *(None if p0 is None else torch.cat([p[i] for p in parts],
+                                                         1)
+                       for i, p0 in enumerate(parts[0])), caps_all)
             per_cap = caption_nll(
                 lp.reshape(B, nL * G, *lp.shape[1:]), caps_all[..., 1:],
                 cap_mask.repeat(1, nL, 1)[..., 1:]).reshape(B, nL, G)
             for i, l_id in enumerate(layers):
-                losses[loss_key(l_id)] = ((per_cap[:, i] * m).sum()
-                                          / m.sum().clamp(min=1.0))
+                losses[loss_key(l_id)] = mean(per_cap[:, i], l_id)
             return losses
         for l_id in layers:
             lp = run(self.caption_head[l_id], *layer_inputs(l_id), cap)
             per_cap = caption_nll(lp.reshape(B, G, *lp.shape[1:]),
                                   cap[..., 1:], cap_mask[..., 1:])
-            losses[loss_key(l_id)] = ((per_cap * m).sum()
-                                      / m.sum().clamp(min=1.0))
+            losses[loss_key(l_id)] = mean(per_cap, l_id)
         return losses
 
     # ------------------------------------------------------------------
@@ -445,7 +528,8 @@ class PDVC(nn.Module):
         tr = self.transformer
         tr.level_embed.normal_(0.0, 1.0, generator=gen)
         self.query_embed.weight.normal_(0.0, 1.0, generator=gen)
-        xavier_uniform_(tr.reference_points.weight, gen)
+        if not self.two_stage:
+            xavier_uniform_(tr.reference_points.weight, gen)
         prior = 0.01
         for i in range(c.dec_layers):
             self.class_head[i].bias.fill_(-math.log((1 - prior) / prior))
@@ -455,6 +539,20 @@ class PDVC(nn.Module):
                 [0.0, -2.0 if i == 0 or not c.with_box_refine else 0.0]))
         for head in dict.fromkeys(self.caption_head):   # shared: once
             init_caption_head_(head, gen)
+
+
+def make_pdvc_model(opt, device='cuda', seed: int = 0) -> PDVC:
+    """The plain PDVC of ``opt`` on ``device`` (the card unless the caller
+    asks for the CPU) in eval mode, with seeded random weights drawn on the
+    CPU from a ``torch.Generator``, as :func:`make_fusion_model` builds
+    FusionPDVC; load a checkpoint over them with
+    ``load_state_dict(strict=True)``.  ``--tpu_compute_dtype bfloat16``
+    raises."""
+    with torch.device('meta'):
+        model = PDVC(PDVCConfig.from_opt(opt))
+    model.to_empty(device='cpu')
+    model.init_parameters_(torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
 
 
 # ----------------------------------------------------------------------
@@ -493,15 +591,20 @@ def init_msda_(m: MSDeformAttn, gen, center=False):
         nn.init.zeros_(lin.bias)
 
 
-def init_caption_head_(head: DSACaptionHead, gen):
+def init_caption_head_(head, gen):
+    """The JAX heads' distributions: embed and logit U(-0.1, 0.1), logit
+    bias 0, every LSTM weight U(-1/sqrt(R), 1/sqrt(R)); the DSA head's
+    sampler and attention as ``_dsa_params``."""
     cfg = head.cfg
     core = head.core
     head.embed.weight.uniform_(-0.1, 0.1, generator=gen)
     head.logit.weight.uniform_(-0.1, 0.1, generator=gen)
     nn.init.zeros_(head.logit.bias)
     bound = 1.0 / math.sqrt(cfg.rnn_size)
-    core.rnn.weight_ih_l0.uniform_(-bound, bound, generator=gen)
-    core.rnn.weight_hh_l0.uniform_(-bound, bound, generator=gen)
+    for w in core.rnn.parameters():
+        w.uniform_(-bound, bound, generator=gen)
+    if isinstance(head, LightCaptionHead):
+        return
     att = core.deformable_att
     nn.init.zeros_(att.sampling_offsets.weight)
     att.sampling_offsets.bias.copy_(torch.from_numpy(msda_offset_bias(
@@ -509,6 +612,7 @@ def init_caption_head_(head: DSACaptionHead, gen):
         center=True)))
     xavier_uniform_(att.value_proj.weight, gen)
     nn.init.zeros_(att.value_proj.bias)
-    for lin in (core.ctx2att, core.h2att, core.alpha_net):
-        lecun_normal_(lin.weight, gen)
-        nn.init.zeros_(lin.bias)
+    if cfg.att_hid_size > 0:
+        for lin in (core.ctx2att, core.h2att, core.alpha_net):
+            lecun_normal_(lin.weight, gen)
+            nn.init.zeros_(lin.bias)

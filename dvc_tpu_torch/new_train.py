@@ -77,8 +77,9 @@ def save_info_json(save_dir: str, info: dict):
 
 
 def pretrain(trainer, opt, logger=None):
-    """``--pretrain full|encoder|decoder``: warm-start the FusionPDVC's PDVC
-    from the plain-PDVC checkpoint ``--pretrain_path`` (newTrain.py:65-77;
+    """``--pretrain full|encoder|decoder``: warm-start the trainer's PDVC
+    (a FusionPDVC's, or a plain one's in ``run_train``) from the
+    plain-PDVC checkpoint ``--pretrain_path`` (newTrain.py:65-77;
     :func:`dvc_tpu_torch.serve.load_pdvc_weights`,
     :func:`dvc_tpu_torch.train.filtered_restore`).  Returns the restored
     keys."""

@@ -32,17 +32,21 @@ def _level_starts(temporal_shapes):
     return starts
 
 
-def _tap_indices_weights(loc, T):
-    """Zeros-mode linear-interp taps for normalized locations at a level of
-    length T: (idx_lo, idx_hi, w_lo, w_hi), indices clamped in range and
-    weights of out-of-range taps zeroed."""
+def _tap_indices_weights(loc, T, mode='zeros'):
+    """Linear-interp taps for normalized locations at a level of length T:
+    (idx_lo, idx_hi, w_lo, w_hi), indices clamped in range; ``mode``
+    'zeros' zeroes the weights of out-of-range taps, 'border' keeps them
+    (the clamped index realizes border padding)."""
     pos = loc * T - 0.5
     i_lo = torch.floor(pos)
     w_hi = pos - i_lo
     w_lo = 1.0 - w_hi
     i_hi = i_lo + 1.0
-    w_lo = torch.where((i_lo >= 0) & (i_lo <= T - 1), w_lo, 0.0)
-    w_hi = torch.where((i_hi >= 0) & (i_hi <= T - 1), w_hi, 0.0)
+    if mode == 'zeros':
+        w_lo = torch.where((i_lo >= 0) & (i_lo <= T - 1), w_lo, 0.0)
+        w_hi = torch.where((i_hi >= 0) & (i_hi <= T - 1), w_hi, 0.0)
+    elif mode != 'border':
+        raise ValueError(f'unknown boundary mode: {mode}')
     idx_lo = i_lo.clamp(0, T - 1).long()
     idx_hi = i_hi.clamp(0, T - 1).long()
     return idx_lo, idx_hi, w_lo, w_hi
@@ -74,6 +78,31 @@ def ms_deform_attn_ref(value, temporal_shapes, sampling_locations,
 
 
 ms_deform_attn_ref.calls = 0
+
+
+def ms_deform_attn_sample_values(value, temporal_shapes, sampling_locations):
+    """The raw border-mode taps of the caption head's deformable sampling
+    (the JAX ``ms_deform_attn_sample_values``, the attention-free DSA
+    core's): value (B, S, H, D), sampling locations (B, Q, H, L, P) ->
+    (B, Q, H, L, P, D), no attention reduction.  A plain gather in JAX too
+    (no Pallas kernel); its backward is autograd through it."""
+    B, S, H, D = value.shape
+    _, Q, _, L, P = sampling_locations.shape
+    samples = []
+    for l, (T, s0) in enumerate(zip(temporal_shapes,
+                                    _level_starts(temporal_shapes))):
+        v_l = value[:, s0:s0 + T].permute(0, 2, 1, 3)          # (B, H, T, D)
+        idx_lo, idx_hi, w_lo, w_hi = _tap_indices_weights(
+            sampling_locations[:, :, :, l, :], T, 'border')
+
+        def gather(idx):  # (B, Q, H, P) -> (B, Q, H, P, D)
+            i = idx.permute(0, 2, 1, 3).reshape(B, H, Q * P, 1)
+            g = torch.gather(v_l, 2, i.expand(B, H, Q * P, D))
+            return g.reshape(B, H, Q, P, D).permute(0, 2, 1, 3, 4)
+
+        samples.append(gather(idx_lo) * w_lo[..., None]
+                       + gather(idx_hi) * w_hi[..., None])
+    return torch.stack(samples, dim=3)
 
 
 def _check_kernel_args(value, temporal_shapes, sampling_locations,

@@ -11,8 +11,13 @@ or ``.ckpt`` of a JAX run (``serve.load_run``).  ``--eval_mode eval``
 writes ``eval_results.json`` with the scores; ``test`` writes
 ``dvc_results.json`` and skips the language metrics, with a fake caption
 file built from ``--test_video_meta_data_csv_path`` where given.  It runs
-on the card unless ``--eval_device cpu`` is given, and takes FusionPDVC
-runs (``newTrain.py``, ``dvc_tpu_torch.new_train``) only.  The captions
+on the card unless ``--eval_device cpu`` is given.  It takes FusionPDVC
+runs (``newTrain.py``, ``dvc_tpu_torch.new_train``) and plain PDVC runs
+(``train.py``, ``dvc_tpu_torch.run_train``), told apart by the weights'
+keys as the JAX ``load_checkpoint`` does (a FusionPDVC's carry
+``pdvcModel.``), not by the recipe; a two-stage run (``gt_proposals``,
+also as ``--eval_transformer_input_type``) takes its queries from the val
+set's gt boxes.  Streaming (in-process TSP) runs are refused.  The captions
 are the run's (``caption_sample_max``, ``caption_sample_temperature``),
 or sampled at a temperature with ``--caption_sample_max 0
 [--caption_sample_temperature T]``; the draws come from a generator
@@ -26,10 +31,12 @@ import json
 import os
 import sys
 
-from .data import FusionBatchLoader, FusionDataset
+from .data import (BatchLoader, DenseCaptionDataset, FusionBatchLoader,
+                   FusionDataset)
 from .eval import evaluate
 from .new_train import create_logger
-from .serve import load_info_json, load_run, run_options
+from .serve import (is_fusion_state, load_info_json, load_run, make_model,
+                    run_options)
 from .train import Trainer
 from .utils.config import load_config
 
@@ -142,14 +149,12 @@ def main(argv=None):
     for flag in ('caption_sample_max', 'caption_sample_temperature'):
         if getattr(args, flag) is not None:
             setattr(opt, flag, getattr(args, flag))
-    if not getattr(opt, 'sound_feature_folder', None):
-        if getattr(opt, 'streaming_features', 0) and not args.eval_feature_folder:
-            raise NotImplementedError('streaming (in-process TSP) runs are '
-                                      'not ported')
-        raise NotImplementedError('the port evaluates FusionPDVC runs '
-                                  '(newTrain.py) only, not plain PDVC')
+    if getattr(opt, 'streaming_features', 0) and not args.eval_feature_folder:
+        raise NotImplementedError('streaming (in-process TSP) runs are not '
+                                  'ported (ROADMAP A5)')
     _, state_dict = load_run(run_dir, args.eval_model, checkpoint=ckpt,
                              opt=opt)
+    fusion = is_fusion_state(state_dict)
 
     caption_file = args.eval_caption_file or opt.val_caption_file
     if args.eval_mode == 'test' and args.test_video_meta_data_csv_path:
@@ -166,11 +171,17 @@ def main(argv=None):
             feature_folder = ff[0]
     skip_lang = args.skip_lang_eval or args.eval_mode == 'test'
 
-    ds = FusionDataset(caption_file, feature_folder, opt.dict_file, opt)
-    loader = FusionBatchLoader(
-        ds, args.eval_batch_size or opt.batch_size_for_eval, False, opt)
-    trainer = Trainer(opt, device=args.eval_device)
-    trainer.model.load_state_dict(state_dict, strict=True)
+    batch_size = args.eval_batch_size or opt.batch_size_for_eval
+    if fusion:
+        loader = FusionBatchLoader(FusionDataset(
+            caption_file, feature_folder, opt.dict_file, opt), batch_size,
+            False, opt)
+    else:
+        loader = BatchLoader(DenseCaptionDataset(
+            caption_file, feature_folder, opt.dict_file, opt), batch_size,
+            False, opt)
+    trainer = Trainer(opt, device=args.eval_device,
+                      model=make_model(opt, state_dict, args.eval_device))
     logger.info(f'loaded the {args.eval_model} weights of {ckpt or run_dir}')
 
     # reference naming: test mode writes dvc_results.json (eval.py:135,

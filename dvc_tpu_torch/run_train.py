@@ -1,0 +1,194 @@
+"""Plain-PDVC training driver of the port (counterpart of the root
+``train.py``; reference ``train.py:32-317``).
+
+    python -m dvc_tpu_torch.run_train --cfg_path cfgs/yc2_tsp_pdvc.yml
+
+(named ``run_train`` because ``train`` is the package of the ``Trainer``).
+The same flags as ``train.py``; it trains on the card unless ``--device
+cpu`` is given.  Any recipe of ``cfgs/`` whose model is plain PDVC: the
+standard (LSTM-DSA), light or no caption head, 'queries',
+'learnt_proposals' or two-stage 'gt_proposals' input.  Per epoch: the
+batches of :class:`dvc_tpu_torch.data.BatchLoader` (``set_epoch`` reseeds
+the shuffle), ``--steps_per_dispatch K`` optimizer steps at a time
+(:meth:`Trainer.train_steps`, the trailing batches flushed one by one),
+else one step a batch prefetched one step ahead under ``--device_prefetch
+1``; the losses of a dispatch reach the host in one copy.  Every
+``save_checkpoint_every`` epochs (from ``min_epoch_when_save``) it
+validates: the captions of ``val_caption_file`` into ``epoch{N}.json``,
+scored by ``dvc_tpu_torch.eval``; ``model-best.pth`` when the score
+(``--criteria_for_best_ckpt dvc``: METEOR + soda_c; ``pc``: the paragraph
+METEOR + CIDEr + Bleu_4) beats the best so far, then ``model-last.pth``,
+``model-epoch{N}.pth`` under ``--save_all_checkpoint``, and ``info.json``
+with ``val_history`` and ``loss_history``.  ``--start_from <id>
+[--start_from_mode best|last]`` resumes a run; ``--pretrain
+full|encoder|decoder --pretrain_path`` warm-starts a new one.
+``--streaming_features`` (in-process TSP extraction) is not ported.
+``DenseCaptioner(run_folder)`` serves the best checkpoint and
+``dvc_tpu_torch.run_eval`` evaluates it.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .data import (BatchLoader, DenseCaptionDataset, DevicePrefetchLoader,
+                   PrefetchLoader)
+from .eval import evaluate
+from .models import make_pdvc_model
+from .new_train import build_folder, create_logger, pretrain, save_info_json
+from .serve import load_info_json
+from .train import (Trainer, load_checkpoint, multistep_lr, save_checkpoint,
+                    ss_prob_for_epoch)
+from .utils.config import parse_opts
+
+
+def host_losses(losses) -> dict:
+    """The device losses of a step ({name: scalar}) or of a dispatch
+    ({name: (K,)}) as host floats summed over the steps, in one
+    device-to-host copy (counted in ``host_losses.copies``)."""
+    host_losses.copies += 1
+    stacked = torch.stack([v.float().reshape(-1) for v in losses.values()])
+    return dict(zip(losses, stacked.sum(1).tolist()))
+
+
+host_losses.copies = 0
+
+
+def val_score(opt, scores) -> float:
+    """The validation score that picks model-best
+    (``--criteria_for_best_ckpt``, train.py:217-223)."""
+    if opt.criteria_for_best_ckpt == 'dvc':
+        return scores.get('METEOR', 0) + scores.get('soda_c', 0)
+    return (scores.get('para_METEOR', 0) + scores.get('para_CIDEr', 0)
+            + scores.get('para_Bleu_4', 0))
+
+
+def main(opt, device=None):
+    """Train ``opt``'s plain PDVC.  Returns (run folder, the last epoch's
+    mean losses).  ``device`` defaults to ``opt.device`` (the card unless
+    it says 'cpu')."""
+    if getattr(opt, 'streaming_features', 0):
+        raise NotImplementedError('--streaming_features: in-process TSP '
+                                  'extraction is not ported (ROADMAP A5)')
+    device = device or ('cpu' if opt.device == 'cpu' else 'cuda')
+    save_folder = build_folder(opt)
+    logger = create_logger(save_folder)
+    logger.info(f'save folder: {save_folder}')
+    epoch, best_val_score, best_epoch = 0, -1e9, 0
+    val_history, loss_history = {}, {}
+    if opt.start_from:
+        info = load_info_json(save_folder)
+        if info is not None:
+            epoch = info.get(opt.start_from_mode, {}).get('epoch', 0)
+            best_val_score = info.get('best_val_score', -1e9)
+            best_epoch = info.get('best', {}).get('epoch', epoch)
+            val_history = info.get('val_history', {})
+            loss_history = info.get('loss_history', {})
+
+    train_ds = DenseCaptionDataset(opt.train_caption_file,
+                                   opt.visual_feature_folder, opt.dict_file,
+                                   opt, seed=opt.seed)
+    val_ds = DenseCaptionDataset(opt.val_caption_file,
+                                 opt.visual_feature_folder, opt.dict_file,
+                                 opt, seed=opt.seed)
+    train_loader = BatchLoader(train_ds, opt.batch_size, True, opt,
+                               seed=opt.seed)
+    val_loader = BatchLoader(val_ds, opt.batch_size_for_eval, False, opt)
+    trainer = Trainer(opt, device=device,
+                      model=make_pdvc_model(opt, device, seed=opt.seed))
+    if opt.pretrain and not opt.start_from:
+        pretrain(trainer, opt, logger)
+    if opt.start_from:
+        ck = load_checkpoint(os.path.join(
+            save_folder, f'model-{opt.start_from_mode}.pth'), device)
+        trainer.load_state(ck)
+        epoch = int(ck['epoch'])
+        logger.info(f'resuming from epoch {epoch}')
+
+    K = max(int(getattr(opt, 'steps_per_dispatch', 1)), 1)
+    loss_avg = {}
+    while epoch < opt.epoch:
+        train_loader.set_epoch(epoch)
+        ss_prob = ss_prob_for_epoch(opt, epoch)
+        lr = multistep_lr(opt, epoch)
+        logger.info(f'epoch {epoch} lr {lr:.2e} ss_prob {ss_prob:.3f}')
+        if K == 1 and opt.device_prefetch:
+            # the next batch's upload during this step
+            loader = DevicePrefetchLoader(train_loader, trainer.prepare_batch)
+        else:
+            # K batches are stacked per dispatch: collation ahead only
+            loader = PrefetchLoader(train_loader)
+        loss_sum, n, pending, t0 = {}, 0, [], time.time()
+
+        def add(losses):
+            for k, v in host_losses(losses).items():
+                loss_sum[k] = loss_sum.get(k, 0.0) + v
+
+        for batch, _ in loader:
+            if opt.debug and n >= 5:
+                break
+            if K > 1:
+                pending.append(batch)
+                if len(pending) < K:
+                    continue
+                add(trainer.train_steps(pending, lr, ss_prob))
+                pending = []
+                n += K
+            else:
+                add(trainer.train_step(batch, lr, ss_prob))
+                n += 1
+        # the trailing batches of an epoch whose length is not a multiple
+        # of K, one step each (train.py:174-182)
+        for batch in pending:
+            add(trainer.train_step(batch, lr, ss_prob))
+            n += 1
+        dt = time.time() - t0
+        loss_avg = {k: round(v / max(n, 1), 3) for k, v in loss_sum.items()}
+        logger.info(f'epoch {epoch}: {loss_avg}, {dt:.1f}s '
+                    f'({n * opt.batch_size / max(dt, 1e-9):.2f} videos/s)')
+        loss_history[epoch] = loss_avg
+
+        epoch += 1
+        if epoch % opt.save_checkpoint_every or \
+                epoch < opt.min_epoch_when_save:
+            continue
+        dvc_json_path = os.path.join(save_folder, f'epoch{epoch}.json')
+        try:
+            scores, _ = evaluate(trainer, val_loader, dvc_json_path,
+                                 logger=logger, alpha=opt.ec_alpha,
+                                 dvc_eval_version=opt.eval_tool_version,
+                                 debug=opt.debug)
+        except FileNotFoundError as e:
+            logger.warning(f'skipping metric eval (missing gt): {e}')
+            scores = None
+        if scores is not None:
+            current = val_score(opt, scores)
+            val_history[epoch] = {k: float(v) for k, v in scores.items()
+                                  if np.isscalar(v)}
+            logger.info(f'epoch {epoch} val score {current:.4f} '
+                        f'(best {best_val_score:.4f})')
+            if current > best_val_score:
+                best_val_score, best_epoch = current, epoch
+                save_checkpoint(save_folder, 'best', trainer, epoch)
+                logger.info('new best checkpoint saved')
+        save_checkpoint(save_folder, 'last', trainer, epoch)
+        if opt.save_all_checkpoint:
+            save_checkpoint(save_folder, f'epoch{epoch}', trainer, epoch)
+        save_info_json(save_folder, {
+            'best_val_score': best_val_score,
+            'last': {'epoch': epoch, 'opt': opt.to_dict()},
+            'best': {'epoch': best_epoch, 'opt': opt.to_dict()},
+            'val_history': val_history, 'loss_history': loss_history})
+    logger.info('Training done.')
+    return save_folder, loss_avg
+
+
+if __name__ == '__main__':
+    opt = parse_opts()
+    np.random.seed(opt.seed)
+    torch.manual_seed(opt.seed)
+    main(opt)

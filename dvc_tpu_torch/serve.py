@@ -1,18 +1,21 @@
 """Batch inference / serving API of the port (counterpart of
 ``dvc_tpu/serve.py``).
 
-Load a FusionPDVC run once, then caption feature tensors:
+Load a run (FusionPDVC, or plain PDVC with any caption head) once, then
+caption feature tensors:
 
     from dvc_tpu_torch.serve import DenseCaptioner
     dc = DenseCaptioner('save/yc2_run', device='cuda')
     events = dc.caption_features(feats, duration=120.0, sound=audio_feats)
     # [{'timestamp': [t0, t1], 'sentence': ..., 'proposal_score': ...}, ...]
 
-A run folder is what either trainer writes: the port's
-(``dvc_tpu_torch.new_train``: ``info.json`` and ``model-{best,last}.pth``,
-a torch ``state_dict``) or the JAX package's (``info.json`` and
-``model-{best,last}.ckpt``, whose flax params are converted with
-:func:`dvc_tpu_torch.models.convert.from_jax_params`).  ``DenseCaptioner``
+A run folder is what any trainer of either package writes: the port's
+(``dvc_tpu_torch.new_train`` or ``run_train``: ``info.json`` and
+``model-{best,last}.pth``, a torch ``state_dict``) or the JAX package's
+(``info.json`` and ``model-{best,last}.ckpt``, whose flax params are
+converted with :func:`dvc_tpu_torch.models.convert.from_jax_params` or
+``pdvc_from_jax_params``).  The weights say which model it is: a
+FusionPDVC's keys carry the ``pdvcModel.`` prefix (:func:`make_model`).  ``DenseCaptioner``
 also takes ``(opt, state_dict)`` directly; :func:`load_run` reads a run
 folder for it and for ``dvc_tpu_torch.run_eval``.
 Features are rescaled to the model's frame budget as in the training
@@ -30,9 +33,8 @@ import numpy as np
 import torch
 
 from .data import Translator, resize_feature
-from .models import (from_jax_params, make_fusion_model, postprocess,
-                     to_dvc_records)
-from .models.convert import pdvc_state_dict
+from .models import (from_jax_params, make_fusion_model, make_pdvc_model,
+                     pdvc_from_jax_params, postprocess, to_dvc_records)
 from .utils.config import Config, load_config
 
 _SAFE_BUILTINS = {'complex', 'set', 'frozenset', 'slice', 'range',
@@ -80,24 +82,44 @@ def load_info_json(save_dir: str):
 
 
 def load_weights(path: str) -> dict:
-    """The FusionPDVC ``state_dict`` (CPU tensors) of a checkpoint file:
-    the port's ``.pth`` or the JAX package's ``.ckpt`` (flax params
-    converted with :func:`from_jax_params`)."""
+    """The model ``state_dict`` (CPU tensors) of a checkpoint file: the
+    port's ``.pth`` or the JAX package's ``.ckpt`` (flax params converted
+    with :func:`from_jax_params` for a FusionPDVC, whose tree has the
+    fusion blocks, else :func:`pdvc_from_jax_params`)."""
     if path.endswith('.pth'):
         return torch.load(path, map_location='cpu',
                           weights_only=True)['model']
     params = load_checkpoint(path)['params']
-    if 'visual_sa' not in params.get('params', params):
-        raise NotImplementedError(
-            'the port takes FusionPDVC runs (newTrain.py) only')
+    convert = (from_jax_params if 'visual_sa' in params.get('params', params)
+               else pdvc_from_jax_params)
     return {k: torch.as_tensor(np.asarray(v))
-            for k, v in from_jax_params(params).items()}
+            for k, v in convert(params).items()}
+
+
+def is_fusion_state(state_dict) -> bool:
+    """Whether a state_dict is a FusionPDVC's (its PDVC under
+    ``pdvcModel.``, as the JAX ``load_checkpoint`` tells them apart), not a
+    plain PDVC's."""
+    return any(k.startswith('pdvcModel.') for k in state_dict)
+
+
+def make_model(opt, state_dict, device='cuda'):
+    """The model of ``state_dict`` (FusionPDVC or plain PDVC, by its keys)
+    built from ``opt`` on ``device``, the weights loaded with
+    ``strict=True``, in eval mode."""
+    make = make_fusion_model if is_fusion_state(state_dict) else \
+        make_pdvc_model
+    model = make(opt, device)
+    model.load_state_dict(
+        {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+         else v for k, v in state_dict.items()}, strict=True)
+    return model
 
 
 def load_pdvc_weights(path: str) -> dict:
     """The PDVC ``state_dict`` (reference layout, CPU tensors) that
     ``--pretrain`` warm-starts from: a plain-PDVC run's JAX ``.ckpt``
-    (flax params converted with :func:`pdvc_state_dict`), or a ``.pth``
+    (flax params converted with :func:`pdvc_from_jax_params`), or a ``.pth``
     holding a PDVC state_dict (bare, or under 'model' or 'state_dict';
     'module.' prefixes dropped, as the JAX package's ``convert_pdvc``
     drops them), or the PDVC of a FusionPDVC ``.pth`` (``pdvcModel.*``:
@@ -115,7 +137,7 @@ def load_pdvc_weights(path: str) -> dict:
         return sd
     params = load_checkpoint(path)['params']
     return {k: torch.as_tensor(np.asarray(v))
-            for k, v in pdvc_state_dict(params).items()}
+            for k, v in pdvc_from_jax_params(params).items()}
 
 
 def run_options(folder: str, which: str = 'best') -> Config:
@@ -149,12 +171,14 @@ class DenseCaptioner:
             opt, state_dict = load_run(run_folder, which, opt=opt)
         elif opt is None:
             raise ValueError('a state_dict needs the opt it was built with')
+        if opt.transformer_input_type == 'gt_proposals':
+            raise ValueError('a two-stage (gt_proposals) run takes its '
+                             'queries from gt boxes, which requests do not '
+                             'carry: evaluate it with run_eval')
         self.opt = opt
         self.device = torch.device(device)
-        self.model = make_fusion_model(opt, self.device)
-        self.model.load_state_dict(
-            {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
-             else v for k, v in state_dict.items()}, strict=True)
+        self.model = make_model(opt, state_dict, self.device)
+        self.fusion = is_fusion_state(state_dict)
         # the draws of a sampling decode (--caption_sample_max 0)
         self.gen = torch.Generator(device=self.device).manual_seed(opt.seed)
         self.translator = Translator(dict_file or opt.dict_file,
@@ -185,14 +209,16 @@ class DenseCaptioner:
             L = min(len(s), T)
             sound[b, :L] = s[:L]
         batch = {'video_tensor': video, 'video_mask': vmask,
-                 'video_length': vlen, 'sound_tensor': sound}
+                 'video_length': vlen}
+        if self.fusion:
+            batch['sound_tensor'] = sound
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in batch.items()}
 
     def caption_features(self, feats, duration: float, top_k: int | None = None,
                          sound=None):
         """feats (T, feature_dim) clip features of one video; ``sound``
-        optional (T, feature_dim) audio features."""
+        optional (T, feature_dim) audio features (a FusionPDVC run's)."""
         return self.caption_batch([np.asarray(feats)], [duration],
                                   top_k=top_k, sound_list=[sound])[0]
 

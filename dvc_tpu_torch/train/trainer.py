@@ -10,17 +10,20 @@ branch's ``add_decayed_weights`` before Adam is ``torch.optim.Adam``'s
 (gradients scaled by max_norm / norm when norm >= max_norm; torch's
 ``clip_grad_norm_`` would add 1e-6 to the norm).
 
-Batches reach the device through :meth:`Trainer.prepare_batch` (on a
-CUDA device: pinned host tensors copied on the trainer's copy stream, an
-event the step waits on), which ``data.DevicePrefetchLoader`` calls one
-batch ahead.
+The model is a FusionPDVC by default (``new_train``) or the one passed in
+(``run_train``: a plain PDVC).  Batches reach the device through
+:meth:`Trainer.prepare_batch` (on a CUDA device: pinned host tensors copied
+on the trainer's copy stream, an event the step waits on), which
+``data.DevicePrefetchLoader`` calls one batch ahead.
+:meth:`Trainer.train_steps` runs K optimizer steps in a row with no host
+synchronisation between them (``--steps_per_dispatch K``).
 
 Checkpoints are ``model-{tag}.pth``: the model's ``state_dict`` in the
 reference layout (``load_state_dict(strict=True)`` reads it; the serving
 ``DenseCaptioner`` too), the optimizer state, the epoch and step, and any
 extra entries (the visited videos of a mid-epoch save).
-:func:`filtered_restore` warm-starts the PDVC from a plain-PDVC
-``state_dict`` (``--pretrain``).
+:func:`filtered_restore` warm-starts the (plain or fused) PDVC from a
+plain-PDVC ``state_dict`` (``--pretrain``).
 """
 
 from __future__ import annotations
@@ -73,14 +76,15 @@ def clip_by_global_norm_(grads, max_norm: float):
                                            max_norm / norm))
 
 
-def bucket_caption_length(batch, multiple: int = 8):
-    """Slice the caption tensors to the batch's longest caption rounded up
-    to ``multiple``: the teacher-forcing scan then runs only as many word
-    steps as needed, and a few lengths recur.  Exactly equivalent: the
-    dropped steps are fully masked."""
+def bucket_caption_length(batch, multiple: int = 8, floor: int = 0):
+    """Slice the caption tensors to the batch's longest caption (at least
+    ``floor``) rounded up to ``multiple``: the teacher-forcing scan then
+    runs only as many word steps as needed, and a few lengths recur.
+    Exactly equivalent: the dropped steps are fully masked."""
     cap_mask = np.asarray(batch['cap_mask'])
     Lc = cap_mask.shape[-1]
     longest = int(cap_mask.sum(-1).max()) if cap_mask.size else Lc
+    longest = max(longest, floor)
     bucket = min(max(-(-max(longest, 2) // multiple) * multiple, 2), Lc)
     if bucket == Lc:
         return batch
@@ -91,13 +95,17 @@ def bucket_caption_length(batch, multiple: int = 8):
 
 
 class Trainer:
-    """One FusionPDVC, its optimizer and the dropout generator, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    """One model, its optimizer and the dropout generator, on ``device``
+    (the card unless the caller asks for the CPU): ``model`` (moved to the
+    device, as the JAX ``Trainer(opt, model=...)`` takes one), else the
+    FusionPDVC of ``opt`` with seeded weights."""
 
-    def __init__(self, opt, device='cuda'):
+    def __init__(self, opt, device='cuda', model=None):
         self.opt = opt
         self.device = torch.device(device)
-        self.model = make_fusion_model(opt, self.device, seed=opt.seed).train()
+        if model is None:
+            model = make_fusion_model(opt, self.device, seed=opt.seed)
+        self.model = model.to(self.device).train()
         self.params = list(self.model.parameters())   # aliases once
         self.weight_dict = build_weight_dict(opt)
         self.optimizer = make_optimizer(opt, self.params)
@@ -193,6 +201,21 @@ class Trainer:
         losses['total_loss'] = total.detach()
         return losses
 
+    def train_steps(self, batches, lr: float, ss_prob: float = 0.0):
+        """K optimizer steps in a row on K collated numpy batches (the JAX
+        ``train_steps``, ``--steps_per_dispatch K``): one caption bucket
+        for the whole stack, the longest caption of the K batches, and no
+        host synchronisation between the steps.  Returns the losses of
+        :meth:`train_step`, each stacked (K,) on the device."""
+        if getattr(self.opt, 'caption_len_bucketing', 1):
+            floor = max(int(np.asarray(b['cap_mask']).sum(-1).max())
+                        for b in batches)
+            batches = [bucket_caption_length(b, floor=floor)
+                       for b in batches]
+        steps = [self.train_step(self.prepare_eval_batch(b), lr, ss_prob)
+                 for b in batches]
+        return {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+
     def state(self):
         return {'model': self.model.state_dict(),
                 'optimizer': self.optimizer.state_dict(), 'step': self.step}
@@ -235,19 +258,22 @@ def is_encoder_param(name: str) -> bool:
 
 @torch.no_grad()
 def filtered_restore(model, pdvc_state: dict, which: str):
-    """Warm-start the FusionPDVC ``model``'s PDVC (``pdvcModel.*``) from a
-    plain PDVC state_dict (reference train.py:101-118): ``which`` 'full'
-    takes every PDVC parameter (each must be in the source), 'encoder' the
-    encoder's (:func:`is_encoder_param`) and 'decoder' the rest, each where
-    the source has it.  Returns the restored keys."""
+    """Warm-start ``model``'s PDVC (a plain PDVC, or a FusionPDVC's
+    ``pdvcModel.*``) from a plain PDVC state_dict (reference
+    train.py:101-118): ``which`` 'full' takes every PDVC parameter (each
+    must be in the source), 'encoder' the encoder's
+    (:func:`is_encoder_param`) and 'decoder' the rest, each where the
+    source has it.  Returns the restored keys."""
     if which not in ('full', 'encoder', 'decoder'):
         raise ValueError(f'--pretrain {which!r}: full, encoder or decoder')
     state = model.state_dict()
+    prefix = ('pdvcModel.' if any(k.startswith('pdvcModel.') for k in state)
+              else '')
     taken = []
     for key in state:
-        if not key.startswith('pdvcModel.'):
+        if not key.startswith(prefix):
             continue
-        name = key[len('pdvcModel.'):]
+        name = key[len(prefix):]
         if which != 'full' and is_encoder_param(name) != (which == 'encoder'):
             continue
         if name not in pdvc_state:

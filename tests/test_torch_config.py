@@ -93,6 +93,7 @@ _LOADED = """
 import json, os, sys
 import dvc_tpu_torch.new_train, dvc_tpu_torch.serve, dvc_tpu_torch.train
 import dvc_tpu_torch.models, dvc_tpu_torch.ops, dvc_tpu_torch.data
+import dvc_tpu_torch.run_train, dvc_tpu_torch.run_eval
 pkg = os.path.join(sys.argv[1], 'dvc_tpu') + os.sep
 print(json.dumps(sorted(
     n for n, m in list(sys.modules.items())

@@ -323,10 +323,13 @@ def test_run_eval_on_a_jax_run_matches_jax_evaluate(val, jax_run):
 
 
 def test_run_eval_refuses_a_plain_pdvc_run(val, tmp_path):
+    """Plain PDVC runs evaluate (tests/test_torch_run_train.py); what is
+    still refused of them is a streaming (in-process TSP) run."""
     opt = val['opt'].to_dict()
     opt['sound_feature_folder'] = None
+    opt['streaming_features'] = 1
     (tmp_path / 'info.json').write_text(json.dumps({'best': {'opt': opt}}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match='streaming'):
         run_eval.main(['--eval_save_dir', str(tmp_path), '--eval_device',
                        'cpu'])
 
