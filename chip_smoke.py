@@ -140,6 +140,23 @@ Phases (one or more lines each; the last line is the JSON verdict):
    batches against two single steps (phase 7's tolerance on the
    parameters, one loss copy) and ``run_train --steps_per_dispatch 2``
    (one device-to-host loss copy per two steps).
+14. TSP — feature extraction and streaming (``--tsp`` runs it alone):
+   MViTv2-S (16x224x224) and R(2+1)D-34 (16x112x112) at full width with
+   seeded weights (no parameter left at 0 or 1), a batch of 32 clips in
+   float32 (TF32 off) and bfloat16: ms a clip (CUDA events), peak memory
+   and the bound (2 x the MACs of MViTv2-S's block table, or the flop
+   counter's count, at 67 TFLOP/s f32 and 989 bf16), one bf16 MViTv2-S
+   batch traced by kernel class; card f32 against CPU f32 on two clips
+   (relative L2 <= 1e-3) and card bf16 against card f32 (<= 5e-2);
+   ``python -m dvc_tpu_torch.extract_features`` on the card over three
+   synthetic 30 s videos (cv2-written mp4v), then on a 3 s video in
+   float32 on the card and on the CPU (<= 1e-3); a streaming
+   ``run_train --debug`` of ``cfgs/yc2_tsp_mvit_ete.yml`` at full width
+   (MViTv2-S bf16 features from a saved .pth, 3+3 layers, 100 queries,
+   LSTM-DSA) over 8 train and 16 val videos (K1-K6 launched, no word-step
+   kernel, no plain version, epoch 1 validated), then ``run_eval`` of its
+   run folder at B=16 (K1/K2 launched, one K6); each run's time split
+   into decode, backbone and PDVC steps.
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -151,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3412,6 +3430,402 @@ def phase_plain(tmp, card):
     return launches
 
 
+# --------------------------------------------------------------------------
+# 14. TSP extraction and streaming
+# --------------------------------------------------------------------------
+
+TSP_RECIPE = 'cfgs/yc2_tsp_mvit_ete.yml'
+TSP_BACKBONES = (('mvit_v2_s', None), ('r2plus1d_34', None))  # (name, MViT config)
+TSP_CLIP_LEN = 16
+TSP_BATCH = 32             # clips a backbone batch
+TSP_SECONDS = 30           # each synthetic video: 30 s at 30 fps, 27 clips
+TSP_TRAIN_VIDEOS = 8
+TSP_F32_TOL = 1e-3         # card f32 vs CPU f32, relative L2 of the features
+TSP_BF16_TOL = 5e-2        # card bf16 vs card f32, relative L2
+BF16_FLOP_PER_S = 989e12   # dense, on the tensor cores
+
+
+def noisy_tsp_model(name, seed, config=None):
+    """The TSP model of ``name`` (one head) on the CPU with seeded weights:
+    the flax-like init, then every tensor that it leaves at 0 or 1
+    (biases, the MViT's rel-pos tables and class token, the norms' scales,
+    the BatchNorm statistics) drawn from seeded noise, so that no path of
+    the forward is trivially zero."""
+    import torch
+    from dvc_tpu_torch.models.tsp import make_tsp_model
+    model = make_tsp_model(name, 'cpu', seed, config=config)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for k, t in model.state_dict().items():
+            if not t.is_floating_point():
+                continue
+            if k.endswith('running_var'):
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+            elif t.dim() == 1 and k.endswith('weight'):
+                t.copy_(1 + 0.1 * torch.randn(t.shape, generator=gen))
+            elif k.endswith(('bias', 'running_mean', 'rel_pos_h',
+                             'rel_pos_w', 'rel_pos_t', 'class_token')):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    return model
+
+
+def mvit_macs(cfg):
+    """Multiply-adds of one MViTv2 clip from its block table: the patchify
+    conv, and per block the qkv, depthwise pool, score, rel-pos bias,
+    attention-value, projection, skip-projection and MLP products."""
+    from dvc_tpu_torch.models.tsp.backbones import (mvit_block_specs,
+                                                    patch_grid, pooled)
+    thw = patch_grid(cfg)
+    n = thw[0] * thw[1] * thw[2]
+    macs = n * cfg.embed_dim * 3 * 3 * 7 * 7
+    for s in mvit_block_specs(cfg):
+        D = s.out_ch // s.heads
+        q, k = pooled(thw, s.q_stride), pooled(thw, s.kv_stride)
+        lq, lk = q[0] * q[1] * q[2], k[0] * k[1] * k[2]
+        macs += (1 + n) * s.in_ch * 3 * s.out_ch               # qkv
+        macs += s.heads * D * 27 * (lq + 2 * lk)                # pools
+        macs += 2 * s.heads * (1 + lq) * (1 + lk) * D           # q.k, a.v
+        macs += s.heads * lq * D * sum(k)                       # rel-pos
+        macs += (1 + lq) * s.out_ch * s.out_ch                  # project
+        if s.in_ch != s.out_ch:
+            macs += (1 + n) * s.in_ch * s.out_ch                # skip proj
+        macs += 2 * (1 + lq) * s.out_ch * int(s.out_ch * cfg.mlp_ratio)
+        thw, n = q, lq
+    return macs
+
+
+def counted_flops(model, x):
+    """torch.utils.flop_counter's count of one forward (its matmuls and
+    convolutions, 2 per multiply-add)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with torch.inference_mode(), counter:
+        model(x)
+    return counter.get_total_flops()
+
+
+def tsp_kernel_classes(model, x, card):
+    """One forward under torch.profiler: the kernels' device time by name
+    and by class (convolutions, matmuls, the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    per = {e.key: e.device_time_total for e in prof.key_averages()
+           if e.device_time_total > 0}
+    total = sum(per.values())
+    if not total:
+        print('[tsp] the profiler recorded no device time: kernel classes '
+              'not measured')
+        return
+    classes = {'convolutions': ('conv', 'depthwise', 'implicit', 'winograd'),
+               'matmuls': ('gemm', 'xmma', 'cutlass', 'sm90', 'matmul',
+                           'nvjet')}
+    sums = {c: 0.0 for c in (*classes, 'rest')}
+    for name, us in per.items():
+        c = next((c for c, keys in classes.items()
+                  if any(k in name.lower() for k in keys)), 'rest')
+        sums[c] += us
+    print(f'[tsp] one bf16 MViTv2-S batch under the profiler ({card}): '
+          f'device {total / 1e3:.2f} ms; by class: ' + ', '.join(
+              f'{c} {us / 1e3:.2f} ms ({us / total:.3f})'
+              for c, us in sums.items()))
+    for name, us in sorted(per.items(), key=lambda kv: -kv[1])[:10]:
+        print(f'[tsp]   {us / 1e3:9.3f} ms  {us / total:.4f}  {name[:100]}')
+
+
+def pool_layout_ab(ex, x, card):
+    """The MViT's pool convs and skip max-pools fed the contiguous grid
+    (``backbones._grid``, as built) against a channels-last view of the
+    tokens (no copy), in turns (contiguous, view, view, contiguous):
+    ms a batch, CUDA events."""
+    from dvc_tpu_torch.models.tsp import backbones
+    grid = backbones._grid
+
+    def view(t, B, thw, C):
+        return t.reshape(B, *thw, C).permute(0, 4, 1, 2, 3)
+    times = {'contiguous': [], 'channels-last view': []}
+    try:
+        for label in ('contiguous', 'channels-last view',
+                      'channels-last view', 'contiguous'):
+            backbones._grid = grid if label == 'contiguous' else view
+            times[label].append(cuda_ms(lambda: ex.features(x), 2))
+    finally:
+        backbones._grid = grid
+    print(f'[tsp] MViTv2-S bf16 B={TSP_BATCH}, pool input layout in turns '
+          f'({card}): ' + '; '.join(
+              f'{k} {", ".join(f"{t:.2f}" for t in v)} ms'
+              for k, v in times.items()))
+
+
+def tsp_backbones(card):
+    """The backbones at full width on the card, float32 and bfloat16:
+    ms per clip (CUDA events, a batch of TSP_BATCH clips after a warm-up),
+    peak memory and the bound; card f32 against CPU f32 on two clips and
+    card bf16 against card f32 on the batch."""
+    import torch
+    from dvc_tpu_torch.models.tsp import FeatureExtractor
+    from dvc_tpu_torch.models.tsp.backbones import MViTConfig
+    from dvc_tpu_torch.data.video_clips import BACKBONE_INPUT
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    for name, config in TSP_BACKBONES:
+        hw = BACKBONE_INPUT[name]['crop'][0]
+        sd = noisy_tsp_model(name, 0, config).state_dict()
+        x = torch.randn((TSP_BATCH, TSP_CLIP_LEN, hw, hw, 3), generator=gen,
+                        device=DEVICE)
+        feats, flops, count = {}, None, ''
+        for dtype, peak in (('float32', F32_FLOP_PER_S),
+                            ('bfloat16', BF16_FLOP_PER_S)):
+            ex = FeatureExtractor(name, clip_len=TSP_CLIP_LEN, dtype=dtype,
+                                  device=DEVICE, config=config, state_dict=sd)
+            if flops is None:
+                with ex.precision():
+                    flops = counted_flops(
+                        ex.model, x[:1].permute(0, 4, 1, 2, 3)) * TSP_BATCH
+                count = f'flop counter {flops / 1e12:.3f} TFLOP'
+                if name == 'mvit_v2_s':
+                    table = 2 * mvit_macs(config or MViTConfig()) * TSP_BATCH
+                    count = (f'block table {table / 1e12:.3f} TFLOP, '
+                             f'{count}')
+                    flops = table
+            torch.cuda.reset_peak_memory_stats()
+            feats[dtype] = ex.features(x)
+            ms = cuda_ms(lambda: ex.features(x), 3)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            weights = sum(v.numel() * v.element_size()
+                          for v in ex.model.state_dict().values())
+            t_bytes = (nbytes(x) + weights + TSP_BATCH * ex.feat_dim * 4) \
+                / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak * 1e3
+            bound_ms, by = max((t_bytes, 'bytes'), (t_ops, 'operations'))
+            print(f'[tsp] {name} {TSP_CLIP_LEN}x{hw}x{hw}, B={TSP_BATCH}, '
+                  f'{dtype} ({card}): {ms:.2f} ms a batch, '
+                  f'{ms / TSP_BATCH:.3f} ms a clip (CUDA events, mean of 3 '
+                  f'after a warm-up); peak memory {peak_gib:.2f} GiB; '
+                  f'2 x MACs: {count}; bound {bound_ms:.3f} ms ({by}, '
+                  f'{peak / 1e12:.0f} TFLOP/s), {bound_ms / ms:.3f} of it')
+            if name == 'mvit_v2_s' and dtype == 'bfloat16':
+                tsp_kernel_classes(ex.model, x.to(torch.bfloat16)
+                                   .permute(0, 4, 1, 2, 3), card)
+                pool_layout_ab(ex, x, card)
+            del ex
+        cpu = FeatureExtractor(name, clip_len=TSP_CLIP_LEN, dtype='float32',
+                               device='cpu', config=config, state_dict=sd)
+        ref = cpu.features(x[:2].cpu())
+        got = feats['float32'][:2].cpu()
+        f32_err = float((got - ref).norm() / ref.norm())
+        bf16_err = float((feats['bfloat16'] - feats['float32']).norm()
+                         / feats['float32'].norm())
+        print(f'[tsp] {name}: card f32 vs CPU f32 on 2 clips: relative L2 '
+              f'{f32_err:.2e} (max abs {float((got - ref).abs().max()):.2e}, '
+              f'tolerance {TSP_F32_TOL}); card bf16 vs card f32 on '
+              f'{TSP_BATCH} clips: relative L2 {bf16_err:.2e} (tolerance '
+              f'{TSP_BF16_TOL})')
+        if not (f32_err <= TSP_F32_TOL and bf16_err <= TSP_BF16_TOL
+                and torch.isfinite(feats['bfloat16']).all()):
+            raise AssertionError(f'[tsp] {name} features disagree')
+        del feats, x
+
+
+def write_tsp_videos(root, prefix, n, seed, words, seconds=None):
+    """n synthetic mp4v videos (160x120, 30 fps, ``seconds`` long: moving
+    seeded colour ramps) in root, keyed ``prefix`` + 6 digits, and their
+    annotations (3-10 captioned events each)."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    seconds = seconds or TSP_SECONDS
+    os.makedirs(root, exist_ok=True)
+    anno = {}
+    ramp = np.arange(160)[None, :, None] + np.arange(120)[:, None, None]
+    for v in range(n):
+        key = f'{prefix}{v:06d}'
+        w = cv2.VideoWriter(os.path.join(root, key + '.mp4'),
+                            cv2.VideoWriter_fourcc(*'mp4v'), 30.0, (160, 120))
+        base, speed = rng.integers(0, 255, 3), rng.integers(1, 6, 3)
+        for i in range(int(seconds * 30)):
+            w.write(((base + speed * i + ramp) % 255).astype(np.uint8))
+        w.release()
+        k = int(rng.integers(3, 11))
+        starts = np.sort(rng.uniform(0, 0.8, k)) * seconds
+        ends = np.minimum(starts + rng.uniform(0.05, 0.2, k) * seconds,
+                          seconds)
+        anno[key] = {'duration': float(seconds),
+                     'timestamps': [[float(a), float(b)]
+                                    for a, b in zip(starts, ends)],
+                     'sentences': [' '.join(rng.choice(words, int(
+                         rng.integers(3, 12)))) for _ in range(k)]}
+    return anno
+
+
+def tsp_extract(root, ckpt, backbone, card):
+    """``python -m dvc_tpu_torch.extract_features`` on the card over three
+    synthetic videos (bf16, its default), then on a fourth, of 3
+    s (2 clips), in float32 on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from dvc_tpu_torch import extract_features
+    write_tsp_videos(os.path.join(root, 'videos_a'), 'v_extra', 3, 20, ['w'])
+    write_tsp_videos(os.path.join(root, 'videos_b'), 'v_extrb', 1, 21, ['w'],
+                     seconds=3)
+    flags = ['--local-checkpoint', ckpt, '--backbone', backbone,
+             '--clip-len', str(TSP_CLIP_LEN)]
+    t0 = time.perf_counter()
+    written = extract_features.main(
+        ['--video-dir', os.path.join(root, 'videos_a'), '--output-dir',
+         os.path.join(root, 'features_a'), '--device', DEVICE] + flags)
+    seconds = time.perf_counter() - t0
+    shapes = [np.load(p).shape for p in written]
+    print(f'[tsp] extract_features --backbone {backbone} --device {DEVICE} '
+          f'(bf16) over 3 videos of '
+          f'{TSP_SECONDS} s ({card}): {seconds:.2f} s (host clock, the '
+          f'backbone\'s build and weights included), features {shapes}')
+    if len(written) != 3 or not all(np.isfinite(np.load(p)).all()
+                                    for p in written):
+        raise AssertionError('[tsp] extract_features wrote no features')
+    out = []
+    for i, device in enumerate((DEVICE, 'cpu')):
+        (path,) = extract_features.main(
+            ['--video-dir', os.path.join(root, 'videos_b'), '--output-dir',
+             os.path.join(root, f'features_b{i}'), '--device', device,
+             '--dtype', 'float32'] + flags)
+        out.append(torch.from_numpy(np.load(path)))
+    err = float((out[0] - out[1]).norm() / out[1].norm())
+    print(f'[tsp] extract_features --dtype float32 on a 3 s video, '
+          f'{tuple(out[1].shape)}: --device {DEVICE} vs cpu relative L2 '
+          f'{err:.2e} (tolerance {TSP_F32_TOL})')
+    if err > TSP_F32_TOL:
+        raise AssertionError('[tsp] the driver\'s card and CPU features '
+                             'disagree')
+
+
+@contextlib.contextmanager
+def extractors_made():
+    """Yields the list of every FeatureExtractor built in the body."""
+    from dvc_tpu_torch.models.tsp import extractor as module
+    made, init = [], module.FeatureExtractor.__init__
+
+    def record(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+    module.FeatureExtractor.__init__ = record
+    try:
+        yield made
+    finally:
+        module.FeatureExtractor.__init__ = init
+
+
+def tsp_split(label, extractors, timer, seconds, card):
+    ex = extractors[0]
+    steps = {k: (timer.seconds[k], timer.calls[k]) for k in timer.seconds}
+    print(f'[{label}] where the time goes ({card}, host clock; the parts '
+          f'overlap: decode runs in a worker thread, the backbone in the '
+          f'loader\'s): {ex.videos} videos, {ex.clips} clips featurized; '
+          f'decode {ex.decode_seconds:.2f} s '
+          f'({ex.decode_seconds / max(ex.videos, 1):.3f} s a video), '
+          f'backbone {ex.backbone_seconds:.2f} s '
+          f'({ex.backbone_seconds / max(ex.videos, 1):.3f} s a video, to the '
+          f'features on the host); PDVC ' + ', '.join(
+              f'{k} {s:.2f} s in {n} calls (synchronized)'
+              for k, (s, n) in steps.items() if n)
+          + f'; total {seconds:.2f} s')
+
+
+def phase_tsp(tmp, card):
+    """Phase 14: the TSP backbones at full width, the extraction driver,
+    and a streaming run_train and run_eval at the yc2_tsp_mvit_ete
+    recipe's full width, each check failing the run."""
+    import torch
+    from dvc_tpu_torch import run_train
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tsp_backbones(card)
+    root = os.path.join(tmp, 'tsp')
+    base = load_config(TSP_RECIPE, root=ROOT)
+    config = dict(TSP_BACKBONES).get(base.backbone_tsp)
+    ckpt = os.path.join(root, 'tsp.pth')
+    os.makedirs(root)
+    torch.save({'model': noisy_tsp_model(base.backbone_tsp, 3, config)
+                .state_dict()}, ckpt)
+    tsp_extract(root, ckpt, base.backbone_tsp, card)
+
+    words = letter_words(base.vocab_size)
+    vocab = os.path.join(root, 'vocab.json')
+    with open(vocab, 'w') as f:
+        json.dump({'word_to_ix': {w: i for i, w in enumerate(words, 1)},
+                   'ix_to_word': {str(i): w for i, w in enumerate(words, 1)}},
+                  f)
+    videos = os.path.join(root, 'videos')
+    paths = {}
+    for split, prefix, n, seed in (('train', 'v_tsptr', TSP_TRAIN_VIDEOS, 0),
+                                   ('val', 'v_tspvl', VAL_VIDEOS, 1)):
+        anno = write_tsp_videos(videos, prefix, n, seed, words)
+        paths[split] = os.path.join(root, f'{split}.json')
+        with open(paths[split], 'w') as f:
+            json.dump(anno, f)
+    para = os.path.join(root, 'para_val.json')
+    with open(para, 'w') as f:
+        json.dump({k: ' '.join(v['sentences']) for k, v in anno.items()}, f)
+    recipe = os.path.join(root, 'tsp.yml')
+    with open(recipe, 'w') as f:
+        json.dump({'base_cfg_path': TSP_RECIPE, 'id': 'tsp',
+                   'save_dir': os.path.join(root, 'save'),
+                   'train_caption_file': paths['train'],
+                   'val_caption_file': paths['val'],
+                   'gt_file_for_eval': [paths['val']],
+                   'gt_file_for_para_eval': [para], 'dict_file': vocab,
+                   'video_folder': videos, 'tsp_checkpoint': ckpt,
+                   'invalid_video_json': [], 'epoch': 1}, f)
+    opt = parse_opts(['--cfg_path', recipe, '--debug', '--device', DEVICE],
+                     root=ROOT)
+    timer = CallTimer({'train_step': (Trainer, 'train_step', True),
+                       'eval_step': (Trainer, 'eval_step', True)})
+    reset_counts()
+    t0 = time.perf_counter()
+    with extractors_made() as made, timer:
+        folder, losses = run_train.main(opt)
+    seconds = time.perf_counter() - t0
+    launches, plain = read_counts()
+    print(f'[tsp-train] run_train --streaming_features 1 --debug, '
+          f'{TSP_RECIPE} ({opt.backbone_tsp} {opt.extraction_dtype} '
+          f'features, {opt.enc_layers}+{opt.dec_layers} layers, '
+          f'{opt.num_queries} queries, {opt.caption_decoder_type} head; '
+          f'{card}): {seconds:.1f} s; mean losses {json.dumps(losses)}; '
+          f'kernel launches {launches}, plain-version calls {plain}')
+    if len(made) != 1 or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f'[tsp-train] {len(made)} extractors, losses '
+                             f'{losses}')
+    check_launches('tsp-train', launches, plain,
+                   TRUNK + ('dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy'),
+                   STEP_KERNELS)
+    print(f'[tsp-train] validation of epoch 1: '
+          f'{check_validation(folder, [1])}')
+    tsp_split('tsp-train', made, timer, seconds, card)
+
+    timer = CallTimer({'eval_step': (Trainer, 'eval_step', True)})
+    with extractors_made() as made:
+        path, scores, launches, plain, seconds = run_eval_counted(
+            ['--eval_save_dir', folder, '--eval_batch_size', '16',
+             '--eval_device', DEVICE], timer)
+    check_eval_json(path, VAL_VIDEOS, scored=True)
+    print(f'[tsp-eval] run_eval --eval_batch_size 16 of the streaming run '
+          f'({card}): {seconds:.2f} s; '
+          f'{", ".join(f"{k} {scores[k]:.4f}" for k in EVAL_SCORES)}; '
+          f'kernel launches {launches}, plain-version calls {plain}')
+    check_launches('tsp-eval', launches, plain, ('msda_fwd',),
+                   ('msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd')
+                   + STEP_KERNELS, exact={'dsa_greedy': 1})
+    tsp_split('tsp-eval', made, timer, seconds, card)
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -3435,6 +3849,7 @@ def main():
         phase_sampling(train_folder)
         phase_pretrain(train_opt, train_folder)
         phase_plain(tmp, device['smi'])
+        phase_tsp(tmp, device['smi'])
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))
@@ -3500,5 +3915,10 @@ if __name__ == '__main__':
         phase_device()
         phase_build()
         phase_gemm()
+    elif sys.argv[1:2] == ['--tsp']:
+        card = phase_device()['smi']
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_tsp(tmp, card)
     else:
         main()

@@ -17,7 +17,10 @@ runs (``newTrain.py``, ``dvc_tpu_torch.new_train``) and plain PDVC runs
 keys as the JAX ``load_checkpoint`` does (a FusionPDVC's carry
 ``pdvcModel.``), not by the recipe; a two-stage run (``gt_proposals``,
 also as ``--eval_transformer_input_type``) takes its queries from the val
-set's gt boxes.  Streaming (in-process TSP) runs are refused.  The captions
+set's gt boxes.  A streaming run (``--streaming_features 1``) featurizes
+the videos of its ``video_folder`` in process on the same device
+(``data/streaming.py``) unless ``--eval_feature_folder`` points at
+extracted features (``dvc_tpu_torch.eval_ete`` writes them).  The captions
 are the run's (``caption_sample_max``, ``caption_sample_temperature``),
 or sampled at a temperature with ``--caption_sample_max 0
 [--caption_sample_temperature T]``; the draws come from a generator
@@ -33,6 +36,7 @@ import sys
 
 from .data import (BatchLoader, DenseCaptionDataset, FusionBatchLoader,
                    FusionDataset)
+from .data.streaming import StreamingFeatureDataset
 from .eval import evaluate
 from .new_train import create_logger
 from .serve import (is_fusion_state, load_info_json, load_run, make_model,
@@ -149,9 +153,6 @@ def main(argv=None):
     for flag in ('caption_sample_max', 'caption_sample_temperature'):
         if getattr(args, flag) is not None:
             setattr(opt, flag, getattr(args, flag))
-    if getattr(opt, 'streaming_features', 0) and not args.eval_feature_folder:
-        raise NotImplementedError('streaming (in-process TSP) runs are not '
-                                  'ported (ROADMAP A5)')
     _, state_dict = load_run(run_dir, args.eval_model, checkpoint=ckpt,
                              opt=opt)
     fusion = is_fusion_state(state_dict)
@@ -176,6 +177,12 @@ def main(argv=None):
         loader = FusionBatchLoader(FusionDataset(
             caption_file, feature_folder, opt.dict_file, opt), batch_size,
             False, opt)
+    elif opt.streaming_features and not args.eval_feature_folder:
+        # decode + TSP in process, as the run trained (eval.py:149-160)
+        loader = BatchLoader(StreamingFeatureDataset(
+            caption_file, opt.video_folder, opt.dict_file, opt,
+            cache_size=opt.streaming_cache, device=args.eval_device),
+            batch_size, False, opt)
     else:
         loader = BatchLoader(DenseCaptionDataset(
             caption_file, feature_folder, opt.dict_file, opt), batch_size,

@@ -22,7 +22,11 @@ METEOR + CIDEr + Bleu_4) beats the best so far, then ``model-last.pth``,
 with ``val_history`` and ``loss_history``.  ``--start_from <id>
 [--start_from_mode best|last]`` resumes a run; ``--pretrain
 full|encoder|decoder --pretrain_path`` warm-starts a new one.
-``--streaming_features`` (in-process TSP extraction) is not ported.
+``--streaming_features 1 --video_folder <videos>`` featurizes the raw
+videos in process (``data/streaming.py``: decode, then the TSP backbone
+``--backbone_tsp`` with ``--tsp_checkpoint`` at ``--extraction_dtype`` on
+the trainer's device) in place of reading ``.npy`` files; the train and
+val sets share one extractor and its cache (``--streaming_cache``).
 ``DenseCaptioner(run_folder)`` serves the best checkpoint and
 ``dvc_tpu_torch.run_eval`` evaluates it.
 """
@@ -37,6 +41,7 @@ import torch
 
 from .data import (BatchLoader, DenseCaptionDataset, DevicePrefetchLoader,
                    PrefetchLoader)
+from .data.streaming import StreamingFeatureDataset
 from .eval import evaluate
 from .models import make_pdvc_model
 from .new_train import build_folder, create_logger, pretrain, save_info_json
@@ -71,10 +76,9 @@ def main(opt, device=None):
     """Train ``opt``'s plain PDVC.  Returns (run folder, the last epoch's
     mean losses).  ``device`` defaults to ``opt.device`` (the card unless
     it says 'cpu')."""
-    if getattr(opt, 'streaming_features', 0):
-        raise NotImplementedError('--streaming_features: in-process TSP '
-                                  'extraction is not ported (ROADMAP A5)')
     device = device or ('cpu' if opt.device == 'cpu' else 'cuda')
+    if opt.streaming_features and not opt.video_folder:
+        raise ValueError('--streaming_features requires --video_folder')
     save_folder = build_folder(opt)
     logger = create_logger(save_folder)
     logger.info(f'save folder: {save_folder}')
@@ -89,12 +93,23 @@ def main(opt, device=None):
             val_history = info.get('val_history', {})
             loss_history = info.get('loss_history', {})
 
-    train_ds = DenseCaptionDataset(opt.train_caption_file,
-                                   opt.visual_feature_folder, opt.dict_file,
-                                   opt, seed=opt.seed)
-    val_ds = DenseCaptionDataset(opt.val_caption_file,
-                                 opt.visual_feature_folder, opt.dict_file,
-                                 opt, seed=opt.seed)
+    if opt.streaming_features:
+        # decode -> TSP features -> PDVC in one process (train.py:54-71);
+        # validation shares the extractor and its cache
+        train_ds = StreamingFeatureDataset(
+            opt.train_caption_file, opt.video_folder, opt.dict_file, opt,
+            seed=opt.seed, cache_size=opt.streaming_cache, device=device)
+        val_ds = StreamingFeatureDataset(
+            opt.val_caption_file, opt.video_folder, opt.dict_file, opt,
+            seed=opt.seed, extractor=train_ds.extractor,
+            cache_size=opt.streaming_cache)
+    else:
+        train_ds = DenseCaptionDataset(opt.train_caption_file,
+                                       opt.visual_feature_folder,
+                                       opt.dict_file, opt, seed=opt.seed)
+        val_ds = DenseCaptionDataset(opt.val_caption_file,
+                                     opt.visual_feature_folder, opt.dict_file,
+                                     opt, seed=opt.seed)
     train_loader = BatchLoader(train_ds, opt.batch_size, True, opt,
                                seed=opt.seed)
     val_loader = BatchLoader(val_ds, opt.batch_size_for_eval, False, opt)
@@ -150,6 +165,12 @@ def main(opt, device=None):
         loss_avg = {k: round(v / max(n, 1), 3) for k, v in loss_sum.items()}
         logger.info(f'epoch {epoch}: {loss_avg}, {dt:.1f}s '
                     f'({n * opt.batch_size / max(dt, 1e-9):.2f} videos/s)')
+        if opt.streaming_features:
+            ex = train_ds.extractor
+            logger.info(f'streaming so far: {ex.videos} videos, {ex.clips} '
+                        f'clips; decode {ex.decode_seconds:.1f} s, backbone '
+                        f'{ex.backbone_seconds:.1f} s (host clock, '
+                        f'overlapping the steps)')
         loss_history[epoch] = loss_avg
 
         epoch += 1

@@ -94,6 +94,9 @@ import json, os, sys
 import dvc_tpu_torch.new_train, dvc_tpu_torch.serve, dvc_tpu_torch.train
 import dvc_tpu_torch.models, dvc_tpu_torch.ops, dvc_tpu_torch.data
 import dvc_tpu_torch.run_train, dvc_tpu_torch.run_eval
+import dvc_tpu_torch.models.tsp, dvc_tpu_torch.data.streaming
+import dvc_tpu_torch.data.video_clips, dvc_tpu_torch.extract_features
+import dvc_tpu_torch.eval_ete
 pkg = os.path.join(sys.argv[1], 'dvc_tpu') + os.sep
 print(json.dumps(sorted(
     n for n, m in list(sys.modules.items())

@@ -322,16 +322,36 @@ def test_run_eval_on_a_jax_run_matches_jax_evaluate(val, jax_run):
     _assert_same_scores(scores, val['scores'])
 
 
-def test_run_eval_refuses_a_plain_pdvc_run(val, tmp_path):
-    """Plain PDVC runs evaluate (tests/test_torch_run_train.py); what is
-    still refused of them is a streaming (in-process TSP) run."""
-    opt = val['opt'].to_dict()
-    opt['sound_feature_folder'] = None
-    opt['streaming_features'] = 1
-    (tmp_path / 'info.json').write_text(json.dumps({'best': {'opt': opt}}))
-    with pytest.raises(NotImplementedError, match='streaming'):
-        run_eval.main(['--eval_save_dir', str(tmp_path), '--eval_device',
-                       'cpu'])
+def test_run_eval_evaluates_a_streaming_run(tmp_path):
+    """A streaming run (``--streaming_features 1``, in-process TSP
+    extraction) evaluates: run_eval featurizes the videos of its
+    ``video_folder`` (R3D-18, clip_len 4, seeded random weights) on the
+    CPU and scores them, writing no feature file; the video without a
+    file gets zero features.  (Plain PDVC runs in general:
+    tests/test_torch_run_train.py; the streaming train path:
+    tests/test_torch_streaming.py.)"""
+    pytest.importorskip('cv2')
+    from torch_tsp_env import STREAM_PDVC, write_stream_env
+
+    from dvc_tpu_torch.models import make_pdvc_model
+    from dvc_tpu_torch.new_train import save_info_json
+    from dvc_tpu_torch.train import save_checkpoint
+    from dvc_tpu_torch.utils.config import load_config
+    over = dict(STREAM_PDVC, **write_stream_env(tmp_path), device='cpu')
+    opt = load_config(over.pop('base_cfg_path'), root=REPO, **over)
+    folder = str(tmp_path / 'run')
+    trainer = Trainer(opt, device='cpu',
+                      model=make_pdvc_model(opt, 'cpu', seed=0))
+    save_checkpoint(folder, 'best', trainer, 1)
+    save_info_json(folder, {'best': {'epoch': 1, 'opt': opt.to_dict()}})
+    path, scores = run_eval.main(['--eval_save_dir', folder, '--eval_device',
+                                  'cpu', '--eval_batch_size', '4'])
+    out = json.load(open(path))
+    assert sorted(out['results']) == sorted(
+        json.load(open(opt.val_caption_file)))
+    assert all(np.isfinite(scores[k]) for k in SCORES)
+    assert not [f for _, _, files in os.walk(tmp_path) for f in files
+                if f.endswith('.npy')]
 
 
 _NO_JAX = """
