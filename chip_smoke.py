@@ -157,6 +157,23 @@ Phases (one or more lines each; the last line is the JSON verdict):
    kernel, no plain version, epoch 1 validated), then ``run_eval`` of its
    run folder at B=16 (K1/K2 launched, one K6); each run's time split
    into decode, backbone and PDVC steps.
+15. TSP training (``--tsp-train`` runs it alone): ``TSPTrainer`` and
+   ``python -m dvc_tpu_torch.train_tsp`` at full width with seeded weights
+   in the three configurations of the launchers and the driver's default:
+   R(2+1)D-34 (16x112x112) in float32 at the YC2 launcher's B=32 and lrs,
+   MViTv2-S (16x224x224) in float32 and bfloat16, and R(2+1)D-34 under
+   --train-bn 1.  For each: ms a train step (CUDA events; upload, forward,
+   backward, SGD) on random clips, clips/s, peak memory and the bound (3 x
+   the forward's operations at 67 TFLOP/s f32 or 989 bf16), at B=32 or the
+   largest power of two that fits (stated); one step on 2 clips on the
+   card against the CPU in float32 (TF32 off: losses 1e-4 relative, each
+   updated tensor 1e-3 relative L2), bfloat16 against float32 on the card
+   (losses within 5e-2); then the driver over synthetic 12 s videos and a
+   groundtruth CSV (32 train segments x 2 clips, two steps an epoch at
+   B=32; 16 valid segments): epoch 0 validated, then ``--resume`` from
+   its ``tsp-last.pth`` for epoch 1, finite losses, no kernel of K1-K10
+   launched (none lies on this path); the R(2+1)D-34 run's
+   ``tsp-best.pth`` read by ``extract_features`` on the card.
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -3445,15 +3462,16 @@ TSP_BF16_TOL = 5e-2        # card bf16 vs card f32, relative L2
 BF16_FLOP_PER_S = 989e12   # dense, on the tensor cores
 
 
-def noisy_tsp_model(name, seed, config=None):
-    """The TSP model of ``name`` (one head) on the CPU with seeded weights:
-    the flax-like init, then every tensor that it leaves at 0 or 1
-    (biases, the MViT's rel-pos tables and class token, the norms' scales,
-    the BatchNorm statistics) drawn from seeded noise, so that no path of
-    the forward is trivially zero."""
+def noisy_tsp_model(name, seed, config=None, **heads):
+    """The TSP model of ``name`` (one head, or ``heads``' num_classes and
+    num_heads) on the CPU with seeded weights: the flax-like init, then
+    every tensor that it leaves at 0 or 1 (biases, the MViT's rel-pos
+    tables and class token, the norms' scales, the BatchNorm statistics)
+    drawn from seeded noise, so that no path of the forward is trivially
+    zero."""
     import torch
     from dvc_tpu_torch.models.tsp import make_tsp_model
-    model = make_tsp_model(name, 'cpu', seed, config=config)
+    model = make_tsp_model(name, 'cpu', seed, config=config, **heads)
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for k, t in model.state_dict().items():
@@ -3826,6 +3844,296 @@ def phase_tsp(tmp, card):
     tsp_split('tsp-eval', made, timer, seconds, card)
 
 
+# --------------------------------------------------------------------------
+# 15. TSP training
+# --------------------------------------------------------------------------
+
+# (backbone, --dtype, --train-bn): the YC2 launcher's R(2+1)D-34, train_tsp's
+# default MViTv2-S in float32 and bfloat16, and R(2+1)D-34 under --train-bn 1
+TSP_TRAIN = (('r2plus1d_34', 'float32', 0), ('mvit_v2_s', 'float32', 0),
+             ('mvit_v2_s', 'bfloat16', 0), ('r2plus1d_34', 'float32', 1))
+TSP_TRAIN_BATCH = 32        # scripts/train_tsp_on_yc2.sh --batch-size
+TSP_TRAIN_LRS = ('--backbone-lr', '0.0001', '--fc-lr', '0.002')  # its lrs
+TSP_TRAIN_SEGMENTS = 32     # x 2 clips: two steps an epoch at B=32
+TSP_VALID_SEGMENTS = 16     # one validation batch
+TSP_TRAIN_SECONDS = 12
+TSP_TRAIN_LOSS_TOL = 1e-4   # card f32 vs CPU f32, relative, each loss
+TSP_TRAIN_PARAM_TOL = 1e-3  # the updated tensors, relative L2 each
+TSP_TRAIN_CLASSES = (10, 2)
+
+
+def write_tsp_gt(root, n_segments, seed):
+    """A TSP groundtruth CSV of ``n_segments`` segments (1.5-4 s, four a
+    synthetic 12 s video; action labels 0-9, every fifth a background
+    segment: action -1, region 0)."""
+    import csv
+    import numpy as np
+    prefix = f'v_tg{seed}'              # + 6 digits: a 13-character key
+    write_tsp_videos(root, prefix, -(-n_segments // 4), seed, ['w'],
+                     seconds=TSP_TRAIN_SECONDS)
+    rng = np.random.default_rng(seed)
+    path = os.path.join(root, f'{prefix}.csv')
+    with open(path, 'w', newline='') as f:
+        w = csv.DictWriter(f, fieldnames=[
+            'filename', 'fps', 't-start', 't-end', 'video-duration',
+            'action-label', 'temporal-region-label'])
+        w.writeheader()
+        for i in range(n_segments):
+            t0 = float(rng.uniform(0, 8))
+            bg = i % 5 == 4
+            w.writerow({'filename': os.path.join(root,
+                                                  f'{prefix}{i // 4:06d}.mp4'),
+                        'fps': 30, 't-start': t0,
+                        't-end': t0 + float(rng.uniform(1.5, 4)),
+                        'video-duration': TSP_TRAIN_SECONDS,
+                        'action-label': -1 if bg else int(rng.integers(10)),
+                        'temporal-region-label': int(not bg)})
+    return path
+
+
+def tsp_train_opt(name, dtype, train_bn):
+    """The options ``train_tsp`` gives TSPTrainer for the YC2 launcher's
+    flags (two heads, its lrs, the default schedule at two steps an
+    epoch)."""
+    from dvc_tpu_torch.utils.config import load_config
+    opt = load_config(backbone_tsp=name, tsp_num_classes=TSP_TRAIN_CLASSES,
+                      tsp_num_heads=2, loss_alphas=[1.0, 1.0],
+                      backbone_lr=1e-4, fc_lr=2e-3, momentum=0.9,
+                      tsp_weight_decay=0.005, tsp_train_bn=train_bn,
+                      tsp_dtype=dtype, tpu_mesh_data=1)
+    opt.lr_milestones, opt.lr_gamma, opt.lr_warmup_iters = (8, 12), 0.01, 4
+    return opt
+
+
+def tsp_clip_batch(name, B, seed):
+    """A train batch of B random clips at the backbone's crop and seeded
+    labels (a few -1), pinned host tensors as the driver's."""
+    import torch
+    from dvc_tpu_torch.data.video_clips import BACKBONE_INPUT
+    gen = torch.Generator().manual_seed(seed)
+    hw = BACKBONE_INPUT[name]['crop'][0]
+    batch = {'clip': torch.randn((B, TSP_CLIP_LEN, hw, hw, 3),
+                                 generator=gen)}
+    for i, n in enumerate(TSP_TRAIN_CLASSES):
+        batch[f'label{i}'] = torch.randint(-1, n, (B,), generator=gen)
+    return {k: v.pin_memory() if DEVICE != 'cpu' else v
+            for k, v in batch.items()}
+
+
+def tsp_train_step(name, dtype, train_bn, sd, card):
+    """One train step at full width on the card at the launcher's B=32 (or
+    the largest power of two that fits): ms a step (CUDA events, mean of 3
+    after a warm-up), clips/s, peak memory and the bound (3 x the forward's
+    operations, at 67 TFLOP/s f32 or 989 bf16; or the bytes of the clips
+    and of 4 passes over the weights).  Returns the batch size."""
+    import torch
+    from dvc_tpu_torch.models.tsp.backbones import MViTConfig
+    from dvc_tpu_torch.train.tsp_trainer import TSPTrainer
+    trainer = TSPTrainer(tsp_train_opt(name, dtype, train_bn), DEVICE)
+    B = TSP_TRAIN_BATCH
+    while True:
+        state = trainer.init_state(state_dict=sd)
+        batch = tsp_clip_batch(name, B, 15)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: trainer.train_step(state, batch, 10), 3)
+            break
+        except torch.cuda.OutOfMemoryError:
+            del state, batch
+            torch.cuda.empty_cache()
+            if B == 1:
+                raise
+            B //= 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if name == 'mvit_v2_s':
+        fwd = 2 * mvit_macs(MViTConfig())
+    else:
+        model = state['model'].eval()
+        with trainer.precision():
+            fwd = counted_flops(model, batch['clip'][:1].to(
+                DEVICE, torch.float32).permute(0, 4, 1, 2, 3))
+    flops = 3 * fwd * B
+    peak_rate = BF16_FLOP_PER_S if dtype == 'bfloat16' else F32_FLOP_PER_S
+    weights = sum(v.numel() * 4 for v in sd.values())
+    t_bytes = (nbytes(batch['clip']) + 4 * weights) / HBM_BYTES_PER_S * 1e3
+    bound_ms, by = max((t_bytes, 'bytes'),
+                       (flops / peak_rate * 1e3, 'operations'))
+    cut = '' if B == TSP_TRAIN_BATCH else (
+        f' (B={TSP_TRAIN_BATCH} did not fit: cut to the largest power of '
+        'two that does)')
+    print(f'[tsp-train] {name} {TSP_CLIP_LEN}x'
+          f'{batch["clip"].shape[2]}x{batch["clip"].shape[3]} --dtype {dtype} '
+          f'--train-bn {train_bn}, B={B}{cut} ({card}): {ms:.2f} ms a train '
+          f'step (CUDA events, mean of 3 after a warm-up; upload, forward, '
+          f'backward, SGD), {B / ms * 1e3:.1f} clips/s; peak memory '
+          f'{peak:.2f} GiB; 3 x forward {flops / 1e12:.3f} TFLOP; bound '
+          f'{bound_ms:.3f} ms ({by}, {peak_rate / 1e12:.0f} TFLOP/s), '
+          f'{bound_ms / ms:.3f} of it')
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return B
+
+
+def tsp_one_step(name, dtype, train_bn, sd, batch, device, f64=False):
+    """One train step from ``sd`` (``f64``: the float32 options run in
+    float64, a referee on the CPU): (losses, floating state, momentum)."""
+    import torch
+    from dvc_tpu_torch.train.tsp_trainer import TSPTrainer
+    trainer = TSPTrainer(tsp_train_opt(name, dtype, train_bn), device)
+    state = trainer.init_state(state_dict=sd)
+    if f64:
+        trainer.dtype = torch.float64
+        state['model'].double()
+    # iteration 5: past the warmup, before the first milestone
+    state, m = trainer.train_step(state, batch, 5)
+    return ({k: float(v) for k, v in m.items()},
+            {k: v.detach().cpu() for k, v in
+             state['model'].state_dict().items() if v.is_floating_point()},
+            {k: v.cpu() for k, v in trainer.momentum_buffers(state).items()})
+
+
+def rel_errors(got, ref):
+    """Each tensor's relative L2 distance from ``ref``'s."""
+    return {k: float((got[k].double() - ref[k].double()).norm()
+                     / ref[k].double().norm().clamp(min=1e-30)) for k in ref}
+
+
+def tsp_train_agreement(name, dtype, train_bn, sd):
+    """One step on a 2-clip batch from the same weights: float32 on the
+    card (TF32 off) against the CPU (each loss, each updated tensor), and
+    for a VideoResNet both against a float64 step on the CPU (the SGD
+    momentum, i.e. the gradient: not gated); bfloat16 on the card against
+    float32 on the card (the losses)."""
+    batch = tsp_clip_batch(name, 2, 16)
+    got, got_sd, got_g = tsp_one_step(name, dtype, train_bn, sd, batch,
+                                      DEVICE)
+    ref, ref_sd, ref_g = tsp_one_step(
+        name, 'float32', train_bn, sd, batch,
+        DEVICE if dtype == 'bfloat16' else 'cpu')
+    loss_err = max(abs(got[k] - ref[k]) / abs(ref[k]) for k in ref)
+    label = f'{name} --dtype {dtype} --train-bn {train_bn}'
+    if dtype == 'bfloat16':
+        print(f'[tsp-train] {label}: card bf16 vs card f32, one step on 2 '
+              f'clips: losses within {loss_err:.2e} relative (tolerance '
+              f'{TSP_BF16_TOL}); {got}')
+        ok = loss_err <= TSP_BF16_TOL
+    else:
+        errs = rel_errors(got_sd, ref_sd)
+        grads = rel_errors(got_g, ref_g)
+        worst = max(errs, key=errs.get)
+        worst_g = max(grads, key=grads.get)
+        print(f'[tsp-train] {label}: card f32 (TF32 off) vs CPU f32, one '
+              f'step on 2 clips: losses within {loss_err:.2e} relative '
+              f'(tolerance {TSP_TRAIN_LOSS_TOL}); updated tensors within '
+              f'{errs[worst]:.2e} relative L2 ({worst}; tolerance '
+              f'{TSP_TRAIN_PARAM_TOL}); SGD momentum after the step (the '
+              f'gradient + weight decay) within {grads[worst_g]:.2e} '
+              f'relative L2 ({worst_g}; not gated)')
+        if name != 'mvit_v2_s':
+            g64 = tsp_one_step(name, 'float32', train_bn, sd, batch, 'cpu',
+                               f64=True)[2]
+            for side, g in (('card f32', got_g), ('CPU f32', ref_g)):
+                e = rel_errors(g, g64)
+                w = max(e, key=e.get)
+                print(f'[tsp-train] {label}: {side} SGD momentum vs a '
+                      f'float64 step on the CPU: within {e[w]:.2e} relative '
+                      f'L2 ({w}), median tensor '
+                      f'{sorted(e.values())[len(e) // 2]:.2e} (not gated)')
+        ok = (loss_err <= TSP_TRAIN_LOSS_TOL
+              and errs[worst] <= TSP_TRAIN_PARAM_TOL)
+    if not (ok and all(math.isfinite(v) for v in got.values())):
+        raise AssertionError(f'[tsp-train] {label}: the card and the '
+                             f'reference disagree: {got} vs {ref}')
+
+
+def tsp_train_driver(root, name, dtype, train_bn, B, gt, valid, card):
+    """``python -m dvc_tpu_torch.train_tsp`` on the card: epoch 0 from the
+    seeded weights (two steps, validated), then ``--resume`` from its
+    ``tsp-last.pth`` for epoch 1, counters set to 0 before and read after
+    (no kernel of K1-K10 lies on this path).  Returns the output folder."""
+    from dvc_tpu_torch import train_tsp
+    from dvc_tpu_torch.train.tsp_trainer import TSPTrainer
+    out = os.path.join(root, f'{name}-{dtype}-bn{train_bn}')
+    flags = ['--train-csv', gt, '--valid-csv', valid, '--backbone', name,
+             '--clip-len', str(TSP_CLIP_LEN), '--batch-size', str(B),
+             '--clips-per-segment', '2',
+             *TSP_TRAIN_LRS, '--dtype', dtype, '--train-bn', str(train_bn),
+             '--output-dir', out, '--device', DEVICE, '--print-freq', '0']
+    timer = CallTimer({'train_step': (TSPTrainer, 'train_step', True),
+                       'eval_step': (TSPTrainer, 'eval_step', True)})
+    reset_counts()
+    t0 = time.perf_counter()
+    with timer:
+        train_tsp.main(flags + ['--epochs', '1'])
+        train_tsp.main(flags + ['--epochs', '2', '--resume',
+                                os.path.join(out, 'tsp-last.pth')])
+    seconds = time.perf_counter() - t0
+    launches, plain = read_counts()
+    with open(os.path.join(out, 'metrics.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    with open(os.path.join(out, 'results.txt')) as f:
+        valid_lines = [l.strip() for l in f if l.startswith('** Valid')]
+    print(f'[tsp-train] train_tsp --backbone {name} --dtype {dtype} '
+          f'--train-bn {train_bn} --batch-size {B}, epoch 0 then --resume '
+          f'for epoch 1 ({card}): {seconds:.1f} s (host clock, model builds '
+          f'included); train_step {timer.seconds["train_step"]:.2f} s in '
+          f'{timer.calls["train_step"]} calls, eval_step '
+          f'{timer.seconds["eval_step"]:.2f} s in '
+          f'{timer.calls["eval_step"]} calls (synchronized); epochs '
+          + '; '.join(f'{r["epoch"]}: {json.dumps(r["train"])}, '
+                      f'{r["clips_per_sec"]} clips/s (decode included), '
+                      f'valid {r.get("valid_avg_accuracy")}' for r in recs)
+          + f'; kernel launches {launches}, plain-version calls {plain}')
+    for line in valid_lines:
+        print(f'[tsp-train]   {line}')
+    if (any(launches.values()) or plain or len(recs) != 2
+            or len(valid_lines) != 2
+            or [r['epoch'] for r in recs] != [0, 1]
+            or not all(math.isfinite(v) for r in recs
+                       for v in r['train'].values())
+            or not os.path.exists(os.path.join(out, 'tsp-best.pth'))):
+        raise AssertionError(f'[tsp-train] the {name} run failed: {recs}')
+    return out
+
+
+def phase_tsp_train(tmp, card):
+    """Phase 15: TSP training at full width on the card, each check failing
+    the run."""
+    import gc
+    import numpy as np
+    import torch
+    from dvc_tpu_torch import extract_features
+    gc.collect()
+    torch.cuda.empty_cache()            # the earlier phases' cached blocks
+    root = os.path.join(tmp, 'tsp_train')
+    os.makedirs(root)
+    gt = write_tsp_gt(os.path.join(root, 'videos'), TSP_TRAIN_SEGMENTS, 30)
+    valid = write_tsp_gt(os.path.join(root, 'videos'), TSP_VALID_SEGMENTS,
+                         31)
+    folders = {}
+    for name, dtype, train_bn in TSP_TRAIN:
+        sd = noisy_tsp_model(name, 0, num_classes=TSP_TRAIN_CLASSES,
+                             num_heads=2).state_dict()
+        B = tsp_train_step(name, dtype, train_bn, sd, card)
+        tsp_train_agreement(name, dtype, train_bn, sd)
+        folders[(name, dtype, train_bn)] = tsp_train_driver(
+            root, name, dtype, train_bn, B, gt, valid, card)
+        torch.cuda.empty_cache()
+    best = os.path.join(folders[TSP_TRAIN[0]], 'tsp-best.pth')
+    written = extract_features.main(
+        ['--video-dir', os.path.join(root, 'videos'), '--output-dir',
+         os.path.join(root, 'features'), '--local-checkpoint', best,
+         '--backbone', TSP_TRAIN[0][0], '--device', DEVICE])
+    shapes = {np.load(p).shape for p in written}
+    print(f'[tsp-train] extract_features --local-checkpoint tsp-best.pth of '
+          f'the {TSP_TRAIN[0][0]} run ({card}): {len(written)} videos, '
+          f'features {sorted(shapes)}')
+    if not written or not all(np.isfinite(np.load(p)).all()
+                              for p in written):
+        raise AssertionError('[tsp-train] extract_features did not read '
+                             'the trained checkpoint')
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -3850,6 +4158,7 @@ def main():
         phase_pretrain(train_opt, train_folder)
         phase_plain(tmp, device['smi'])
         phase_tsp(tmp, device['smi'])
+        phase_tsp_train(tmp, device['smi'])
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))
@@ -3920,5 +4229,9 @@ if __name__ == '__main__':
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
             phase_tsp(tmp, card)
+    elif sys.argv[1:2] == ['--tsp-train']:
+        card = phase_device()['smi']
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_tsp_train(tmp, card)
     else:
         main()

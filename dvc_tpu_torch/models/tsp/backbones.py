@@ -12,7 +12,10 @@
 
 Inputs are torch's channels-first clips (B, 3, T, H, W); the extractor
 permutes the decoder's channels-last (B, T, H, W, 3) batch on the device.
-Only eval mode (BatchNorm's running statistics) is ported.
+In training mode the VideoResNets' BatchNorm follows flax's
+``BatchNorm`` (:class:`BatchNorm3d`), as the JAX package's TSP training
+under ``--train-bn 1`` does; the MViT has no training-only path (the JAX
+package never enables its dropout).
 
 Under bfloat16 weights and inputs the attention's score tensors stay
 bfloat16 while its softmax denominator accumulates in float32, and the
@@ -43,6 +46,47 @@ def midplanes(in_planes: int, out_planes: int) -> int:
                                                      + 3 * out_planes)
 
 
+class BatchNorm3d(nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` (same names and buffers) with flax's
+    ``BatchNorm`` semantics, the JAX package's ``_bn``.
+
+    Eval mode normalises with the running statistics cast to the input's
+    dtype (the JAX mixed-precision step casts every variable).  Training
+    mode (``--train-bn 1``): the batch mean and the *biased* variance
+    E[x^2] - E[x]^2 in float32, clipped at 0, normalise the batch as
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32, cast
+    back to the input's dtype, and both update the running statistics as
+    ``keep * old + (1 - keep) * new`` with ``keep = 1 - momentum`` (torch's
+    ``nn.BatchNorm3d`` updates ``running_var`` with the unbiased variance).
+    ``old`` is taken in the input's dtype, as the JAX step casts it, so
+    under bfloat16 its term is rounded through bfloat16; the sum and the
+    buffers stay float32.  ``num_batches_tracked`` counts as in torch."""
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean.to(x.dtype),
+                                self.running_var.to(x.dtype), self.weight,
+                                self.bias, False, 0.0, self.eps)
+        # at least float32, as flax promotes (float64 stays float64)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = (0, 2, 3, 4)
+        mean = x32.mean(dims)
+        var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+        shape = (1, -1, 1, 1, 1)
+        y = (x32 - mean.view(shape)) * (
+            torch.rsqrt(var + self.eps) * self.weight).view(shape)
+        y = y + self.bias.view(shape)
+        keep = 1.0 - self.momentum
+        with torch.no_grad():
+            for buf, new in ((self.running_mean, mean),
+                             (self.running_var, var)):
+                old = buf.to(x.dtype) * torch.tensor(keep, dtype=x.dtype,
+                                                      device=buf.device)
+                buf.copy_(old.to(new.dtype) + (1 - keep) * new)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
 class Conv3DSimple(nn.Conv3d):
     """Full 3x3x3 conv (R3D blocks)."""
 
@@ -56,11 +100,13 @@ class Conv2Plus1D(nn.Sequential):
     (torchvision keys 0, 1 and 3)."""
 
     def __init__(self, in_planes: int, out_planes: int, mid: int,
-                 stride: int = 1, bn_eps: float = 1e-5):
+                 stride: int = 1, bn_eps: float = 1e-5,
+                 bn_momentum: float = 0.1):
         super().__init__(
             nn.Conv3d(in_planes, mid, (1, 3, 3), stride=(1, stride, stride),
                       padding=(0, 1, 1), bias=False),
-            nn.BatchNorm3d(mid, eps=bn_eps), nn.ReLU(inplace=True),
+            BatchNorm3d(mid, eps=bn_eps, momentum=bn_momentum),
+            nn.ReLU(inplace=True),
             nn.Conv3d(mid, out_planes, (3, 1, 1), stride=(stride, 1, 1),
                       padding=(1, 0, 0), bias=False))
 
@@ -76,24 +122,26 @@ class BasicBlock(nn.Module):
     They differ only in the first block of a stage that widens."""
 
     def __init__(self, in_planes: int, planes: int, conv_type: str,
-                 stride: int = 1, bn_eps: float = 1e-5, mids=(0, 0)):
+                 stride: int = 1, bn_eps: float = 1e-5, mids=(0, 0),
+                 bn_momentum: float = 0.1):
         super().__init__()
 
         def conv(in_p, mid, s):
             if conv_type == 'r3d':
                 return Conv3DSimple(in_p, planes, s)
-            return Conv2Plus1D(in_p, planes, mid, s, bn_eps)
+            return Conv2Plus1D(in_p, planes, mid, s, bn_eps, bn_momentum)
 
-        self.conv1 = nn.Sequential(conv(in_planes, mids[0], stride),
-                                   nn.BatchNorm3d(planes, eps=bn_eps),
+        def bn():
+            return BatchNorm3d(planes, eps=bn_eps, momentum=bn_momentum)
+
+        self.conv1 = nn.Sequential(conv(in_planes, mids[0], stride), bn(),
                                    nn.ReLU(inplace=True))
-        self.conv2 = nn.Sequential(conv(planes, mids[1], 1),
-                                   nn.BatchNorm3d(planes, eps=bn_eps))
+        self.conv2 = nn.Sequential(conv(planes, mids[1], 1), bn())
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv3d(in_planes, planes, 1, stride=stride, bias=False),
-                nn.BatchNorm3d(planes, eps=bn_eps))
+                bn())
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -105,30 +153,35 @@ class VideoResNet(nn.Module):
     blocks, then the mean over (T, H, W); the classifier is stripped, as
     TSP uses it (reference model.py:70-73).  ``mid_layout`` picks the
     (2+1)-D middle widths (:class:`BasicBlock`): 'block' (torchvision's,
-    of every ``.pth``) or 'conv' (the JAX package's)."""
+    of every ``.pth``) or 'conv' (the JAX package's).  ``bn_momentum`` is
+    the torch convention (the new batch statistic's weight)."""
 
     feature_size = 512
 
     def __init__(self, conv_type: str = 'r2plus1d',
                  layers: Sequence[int] = (3, 4, 6, 3), bn_eps: float = 1e-5,
-                 mid_layout: str = 'block'):
+                 mid_layout: str = 'block', bn_momentum: float = 0.1):
         super().__init__()
         if mid_layout not in ('block', 'conv'):
             raise ValueError(f'mid_layout {mid_layout!r}: block or conv')
         self.layers = tuple(layers)
         self.mid_layout = mid_layout
+
+        def bn(n):
+            return BatchNorm3d(n, eps=bn_eps, momentum=bn_momentum)
+
         if conv_type == 'r2plus1d':
             self.stem = nn.Sequential(
                 nn.Conv3d(3, 45, (1, 7, 7), stride=(1, 2, 2),
                           padding=(0, 3, 3), bias=False),
-                nn.BatchNorm3d(45, eps=bn_eps), nn.ReLU(inplace=True),
+                bn(45), nn.ReLU(inplace=True),
                 nn.Conv3d(45, 64, (3, 1, 1), padding=(1, 0, 0), bias=False),
-                nn.BatchNorm3d(64, eps=bn_eps), nn.ReLU(inplace=True))
+                bn(64), nn.ReLU(inplace=True))
         elif conv_type == 'r3d':
             self.stem = nn.Sequential(
                 nn.Conv3d(3, 64, (3, 7, 7), stride=(1, 2, 2),
                           padding=(1, 3, 3), bias=False),
-                nn.BatchNorm3d(64, eps=bn_eps), nn.ReLU(inplace=True))
+                bn(64), nn.ReLU(inplace=True))
         else:
             raise ValueError(f'conv_type {conv_type!r}: r3d or r2plus1d')
         in_planes = 64
@@ -140,7 +193,8 @@ class VideoResNet(nn.Module):
                 mids = (mid, mid if mid_layout == 'block'
                         else midplanes(planes, planes))
                 seq.append(BasicBlock(in_planes, planes, conv_type,
-                                      stride if b == 0 else 1, bn_eps, mids))
+                                      stride if b == 0 else 1, bn_eps, mids,
+                                      bn_momentum))
                 in_planes = planes
             self.add_module(f'layer{stage + 1}', nn.Sequential(*seq))
 
@@ -160,9 +214,10 @@ def r2plus1d_18(config=None, mid_layout='block'):
 
 
 def r2plus1d_34(config=None, mid_layout='block'):
-    # Caffe2 BN epsilon for the IG65M weights (reference backbone.py:25-28)
+    # Caffe2 BN epsilon for the IG65M weights (reference backbone.py:25-28);
+    # the JAX package's momentum 0.9 (torch convention) for them too
     return VideoResNet('r2plus1d', (3, 4, 6, 3), bn_eps=1e-3,
-                       mid_layout=mid_layout)
+                       mid_layout=mid_layout, bn_momentum=0.9)
 
 
 # ---------------------------------------------------------------------------
@@ -271,13 +326,16 @@ class PoolCls(nn.Module):
 @functools.lru_cache(maxsize=None)
 def _rel_idx(q_n: int, k_n: int):
     """Relative-distance table rows with asymmetric-size scaling
-    (torchvision ``_add_rel_pos``): the float index cast to int64."""
+    (torchvision ``_add_rel_pos``): the float index cast to int64.  Made
+    outside inference mode, so that the cached index can serve a training
+    forward after an inference one (on the CPU it is used as it is)."""
     ratio_q = max(k_n / q_n, 1.0)
     ratio_k = max(q_n / k_n, 1.0)
     qi = np.arange(q_n)[:, None] * ratio_q
     ki = np.arange(k_n)[None, :] * ratio_k
-    return torch.from_numpy(((qi - ki) + (k_n - 1) * ratio_k)
-                            .astype(np.int64))
+    with torch.inference_mode(False):
+        return torch.from_numpy(((qi - ki) + (k_n - 1) * ratio_k)
+                                .astype(np.int64))
 
 
 def attention_rel_pos(q, k, v, q_shape, k_shape, rel_h, rel_w, rel_t):

@@ -8,6 +8,9 @@ torch ``.pth`` checkpoints (counterpart of
   kt, kh, kw), Dense (in, out) -> (out, in), the MViT pool kernels (3, 3,
   3, D) -> (D, 1, 3, 3, 3), LayerNorm and BatchNorm scale -> weight and
   the BatchNorm statistics -> running_mean / running_var.
+* :func:`tsp_momentum_from_jax`: the SGD momentum of a JAX TSP training
+  checkpoint's ``opt_state`` -> ``momentum_buffer``s keyed like the
+  port's parameters, through the same names.
 * :func:`load_tsp_weights`: a TSP or torchvision ``.pth`` (its backbone
   under ``module.``, ``features.`` or ``backbone.``, the TSP heads ``fc``,
   ``fc1``, ``fc2`` beside it) or a JAX ``.ckpt`` (``pickle
@@ -88,33 +91,40 @@ def _resnet_from_jax(P, S, put):
     def bn(dst, p, s):
         put(dst + '.weight', p['scale'])
         put(dst + '.bias', p['bias'])
-        put(dst + '.running_mean', s['mean'])
-        put(dst + '.running_var', s['var'])
-        put(dst + '.num_batches_tracked', np.zeros((), np.int64))
+        if s is not None:
+            put(dst + '.running_mean', s['mean'])
+            put(dst + '.running_var', s['var'])
+            put(dst + '.num_batches_tracked', np.zeros((), np.int64))
 
     if 'stem_conv_s' in P:                       # R(2+1)D
         conv('stem.0', P['stem_conv_s'])
-        bn('stem.1', P['stem_bn_s'], S['stem_bn_s'])
+        bn('stem.1', P['stem_bn_s'], _sub(S, 'stem_bn_s'))
         conv('stem.3', P['stem_conv_t'])
-        bn('stem.4', P['stem_bn'], S['stem_bn'])
+        bn('stem.4', P['stem_bn'], _sub(S, 'stem_bn'))
     else:
         conv('stem.0', P['stem_conv'])
-        bn('stem.1', P['stem_bn'], S['stem_bn'])
+        bn('stem.1', P['stem_bn'], _sub(S, 'stem_bn'))
     for name in sorted(k for k in P if k.startswith('layer')):
         stage, b = name[len('layer'):].split('_')
-        dst, p, s = f'layer{stage}.{b}', P[name], S[name]
+        dst, p, s = f'layer{stage}.{b}', P[name], _sub(S, name)
         for ci in (1, 2):
-            c, cs = p[f'conv{ci}'], s.get(f'conv{ci}', {})
+            c, cs = p[f'conv{ci}'], _sub(s, f'conv{ci}')
             if 'conv_s' in c:
                 conv(f'{dst}.conv{ci}.0.0', c['conv_s'])
-                bn(f'{dst}.conv{ci}.0.1', c['bn_mid'], cs['bn_mid'])
+                bn(f'{dst}.conv{ci}.0.1', c['bn_mid'], _sub(cs, 'bn_mid'))
                 conv(f'{dst}.conv{ci}.0.3', c['conv_t'])
             else:
                 conv(f'{dst}.conv{ci}.0', c['conv'])
-            bn(f'{dst}.conv{ci}.1', p[f'bn{ci}'], s[f'bn{ci}'])
+            bn(f'{dst}.conv{ci}.1', p[f'bn{ci}'], _sub(s, f'bn{ci}'))
         if 'downsample_conv' in p:
             conv(f'{dst}.downsample.0', p['downsample_conv'])
-            bn(f'{dst}.downsample.1', p['downsample_bn'], s['downsample_bn'])
+            bn(f'{dst}.downsample.1', p['downsample_bn'],
+               _sub(s, 'downsample_bn'))
+
+
+def _sub(tree, key):
+    """``tree[key]``, or None for a missing statistics tree."""
+    return None if tree is None else tree.get(key)
 
 
 def tsp_from_jax_params(variables) -> dict:
@@ -123,9 +133,10 @@ def tsp_from_jax_params(variables) -> dict:
     backbone) -> a ``state_dict`` of CPU tensors keyed like the port's
     ``TSPModel`` (``features.`` + the backbone, and the heads) or
     backbone.  The VideoResNets' (2+1)-D middle widths are the JAX
-    package's ('conv' layout, :class:`~.backbones.BasicBlock`)."""
+    package's ('conv' layout, :class:`~.backbones.BasicBlock`).  A tree
+    without ``batch_stats`` gives the parameters alone."""
     P = variables['params']
-    S = variables.get('batch_stats', {})
+    S = variables.get('batch_stats')
     out = {}
     prefix = ''
     if 'features' in P:
@@ -134,7 +145,7 @@ def tsp_from_jax_params(variables) -> dict:
             if fc in P:
                 out[f'{fc}.weight'] = _lin(P[fc]['kernel'])
                 out[f'{fc}.bias'] = P[fc]['bias']
-        P, S = P['features'], S.get('features', {})
+        P, S = P['features'], _sub(S, 'features')
 
     def put(key, value):
         out[prefix + key] = value
@@ -144,6 +155,21 @@ def tsp_from_jax_params(variables) -> dict:
     else:
         _resnet_from_jax(P, S, put)
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def tsp_momentum_from_jax(opt_state) -> dict:
+    """The SGD momentum of a JAX TSP ``opt_state`` as ``momentum_buffer``
+    tensors keyed like the port's parameters.  The state is optax's chain
+    of ``add_decayed_weights`` (or ``identity``), ``trace`` and ``scale``;
+    its ``TraceState`` carries the momentum as a tree shaped like the
+    parameters (``serve.load_checkpoint`` reads it as that tree), which
+    goes through :func:`tsp_from_jax_params`'s names and layouts."""
+    for s in opt_state:
+        tree = getattr(s, 'trace', s)
+        if isinstance(tree, dict):
+            return tsp_from_jax_params({'params': tree})
+    raise ValueError('tsp_momentum_from_jax: no momentum trace in the '
+                     f'optimizer state {type(opt_state).__name__}')
 
 
 class TSPWeights(NamedTuple):

@@ -5,8 +5,11 @@ of ``dvc_tpu/models/tsp/model.py``; reference
 One or two Linear heads over the pooled clip features; the second head
 optionally reads them concatenated with a global video feature (GVF).
 ``return_features=True`` also returns the pooled features, the PDVC frame
-features (768-d for MViTv2, 512-d for the VideoResNets).  Eval mode only:
-the training dropout and ``tsp_cross_entropy`` belong to TSP training.
+features (768-d for MViTv2, 512-d for the VideoResNets).  In training mode
+only the VideoResNets' BatchNorm changes (batch statistics,
+:class:`~.backbones.BatchNorm3d`); the MViT's 0.5 dropout of the
+reference is never applied, since the JAX package's TSP step never turns
+it on.  :func:`tsp_cross_entropy` is the heads' loss.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .backbones import (MViTConfig, mvit_v2_s, r2plus1d_18, r2plus1d_34,
@@ -43,12 +47,13 @@ def make_backbone(backbone: str, config: MViTConfig | None = None,
 
 class TSPModel(nn.Module):
     """``features`` (the backbone) and ``fc`` (one head) or ``fc1`` /
-    ``fc2`` (two), the module names of a TSP ``.pth``."""
+    ``fc2`` (two), the module names of a TSP ``.pth``.  ``gvf_dim``: the
+    global video feature's width under ``concat_gvf``."""
 
     def __init__(self, backbone: str = 'mvit_v2_s',
                  num_classes: Sequence[int] = (1, 1), num_heads: int = 2,
                  concat_gvf: bool = False, config: MViTConfig | None = None,
-                 mid_layout: str = 'block'):
+                 mid_layout: str = 'block', gvf_dim: int = GVF_DIM):
         super().__init__()
         if len(num_classes) != num_heads or num_heads not in (1, 2):
             raise ValueError(f'{num_heads} heads, num_classes {num_classes}')
@@ -61,7 +66,7 @@ class TSPModel(nn.Module):
         else:
             self.fc1 = nn.Linear(self.feature_size, num_classes[0])
             self.fc2 = nn.Linear(self.feature_size
-                                 + (GVF_DIM if concat_gvf else 0),
+                                 + (gvf_dim if concat_gvf else 0),
                                  num_classes[1])
 
     def forward(self, x, gvf=None, return_features=False):
@@ -94,6 +99,17 @@ class TSPModel(nn.Module):
                 nn.init.zeros_(fc.bias)
 
 
+def tsp_cross_entropy(logits, labels):
+    """The mean cross entropy over the labels that are not -1
+    (reference TSP/train/train.py:65-76), 0 where every label is -1 (a
+    background or padded batch), where ``F.cross_entropy(ignore_index=-1)``
+    would give NaN: the JAX package divides by max(count, 1)."""
+    valid = labels >= 0
+    logp = F.log_softmax(logits, dim=-1)
+    picked = logp.gather(-1, labels.clamp(min=0)[:, None])[:, 0]
+    return -(picked * valid).sum() / valid.sum().clamp(min=1)
+
+
 def _lecun_normal_(w, gen):
     """flax lecun_normal: a truncated normal (2 std) of variance
     1/fan_in, fan_in = the input channels times the kernel's taps."""
@@ -123,14 +139,15 @@ def init_backbone_(model: nn.Module, gen: torch.Generator):
 def make_tsp_model(backbone: str, device='cuda', seed: int = 0,
                    num_classes: Sequence[int] = (1,), num_heads: int = 1,
                    config: MViTConfig | None = None,
-                   mid_layout: str = 'block') -> TSPModel:
+                   mid_layout: str = 'block', concat_gvf: bool = False,
+                   gvf_dim: int = GVF_DIM) -> TSPModel:
     """A TSP model on ``device`` (the card unless the caller asks for the
     CPU) in eval mode, with seeded random weights drawn on the CPU from a
     ``torch.Generator``; load a checkpoint over them with
     ``load_state_dict(strict=True)``."""
     with torch.device('meta'):
-        model = TSPModel(backbone, num_classes, num_heads, config=config,
-                         mid_layout=mid_layout)
+        model = TSPModel(backbone, num_classes, num_heads, concat_gvf,
+                         config, mid_layout, gvf_dim)
     model.to_empty(device='cpu')
     model.init_parameters_(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -53,16 +53,27 @@ class _Stub:
         pass
 
 
+class _TraceTree:
+    """Stands in for optax's ``TraceState`` namedtuple: unpickles as its
+    ``trace`` tree (the SGD momentum of a TSP checkpoint)."""
+
+    def __new__(cls, trace):
+        return trace
+
+
 class _CheckpointUnpickler(pickle.Unpickler):
     """Reads a ``save_checkpoint`` pickle without importing JAX or optax:
-    numpy, a few builtins and ``collections`` load; every other class
-    becomes a :class:`_Stub`."""
+    numpy, a few builtins and ``collections`` load; optax's
+    ``TraceState`` becomes its trace tree (:class:`_TraceTree`); every
+    other class becomes a :class:`_Stub`."""
 
     def find_class(self, module, name):
         root = module.split('.')[0]
         if (root == 'numpy' or (root == 'collections' and name == 'OrderedDict')
                 or (module == 'builtins' and name in _SAFE_BUILTINS)):
             return super().find_class(module, name)
+        if root == 'optax' and name == 'TraceState':
+            return _TraceTree
         return type(name, (_Stub,), {'__module__': module})
 
 
