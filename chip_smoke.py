@@ -174,6 +174,31 @@ Phases (one or more lines each; the last line is the JSON verdict):
    its ``tsp-last.pth`` for epoch 1, finite losses, no kernel of K1-K10
    launched (none lies on this path); the R(2+1)D-34 run's
    ``tsp-best.pth`` read by ``extract_features`` on the card.
+16. bf16 (``--bf16`` runs it alone; after phase 12 in the full run) —
+   ``--tpu_compute_dtype bfloat16 --fusion_dtype bfloat16`` on the main
+   path: ``dsa::gemm``'s bf16 mode on two outer-sum shapes against the
+   float64 product of the bf16-rounded operands (``GEMM_PRODUCT_TOL``);
+   K6-bf16 at B=16 and B=1, cap_nheads 1 and 8, and K4-bf16 / K5-bf16 at
+   the scan's shapes, each against its plain bf16 version (the TPU
+   kernels' bf16 products), its distance held to BF16_FWD_SHARE (outputs)
+   or BF16_BWD_SHARE (each gradient) of the plain f32 version's (greedy:
+   the diverged share and the log-probs' relative L2 before a near-tie;
+   scan: hs/cs and each gradient's relative L2, zero cotangent on queries
+   near a tap boundary), and its output at least BF16_ROUNDS of the plain
+   bf16 version's distance from the plain f32 version (the kernel
+   rounds); the table form's plain mirror printed beside, bf16 and f32
+   kernel times side by side; a B=16 ``caption_batch`` in bf16 and f32 in
+   turns (K1/K2 and K6-bf16 launched, no f32 K6); ``new_train.main
+   --debug`` with the bf16 flags (five steps and a validation; K1-K3 f32,
+   K4-, K5- and K6-bf16 launched, no f32 K4-K6), the B=1 and B=16 step in
+   bf16 and f32 in turns and one B=16 step of each traced; the card
+   against the CPU on one bf16 step under the CPU's matching
+   (``bf16_train_agreement``: losses 1e-2 relative; each parameter's
+   gradient within BF16_GRAD_SHARE x the larger of its f32 and its
+   f32-ulp-noise distances + BF16_GRAD_FLOOR, the median of card over
+   f32 at most 1.5, and the card's gradients as far from f32 as the
+   CPU's, at least BF16_ROUNDS); ``run_eval`` of that run at B=16 (one
+   K6-bf16 a batch).
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -483,6 +508,14 @@ def greedy_bound(args, K):
     """The greedy decode's B*Q*K steps (``step_macs``), plus the token's
     input share embed[it] . W_ih (E*4R per step, or once per vocabulary
     row, (V+1)*E*4R, whichever is less) and the logits R*(V+1) per step."""
+    macs, n = greedy_macs(args, K)
+    import torch
+    inputs = [t for t in args if torch.is_tensor(t)]
+    return bound(nbytes(*inputs) + 8 * n, 2.0 * macs)
+
+
+def greedy_macs(args, K):
+    """(MACs, B*Q*K steps) of ``greedy_bound``."""
     value_t, base_pos, _, const_z, embed = args[:5]
     B, H, S, Dh = value_t.shape
     Q, LP = base_pos.shape[2], base_pos.shape[3]
@@ -490,11 +523,8 @@ def greedy_bound(args, K):
     R = const_z.shape[2] // 4
     A = args[9].shape[1]
     n = B * Q * K
-    macs = (step_macs(n, B, H, S, LP, Dh, R, A)
-            + min(n, V1) * E * 4 * R + n * R * V1)
-    import torch
-    inputs = [t for t in args if torch.is_tensor(t)]
-    return bound(nbytes(*inputs) + 8 * n, 2.0 * macs)
+    return (step_macs(n, B, H, S, LP, Dh, R, A)
+            + min(n, V1) * E * 4 * R + n * R * V1), n
 
 
 def check_greedy(gen, B, Q, H, K=30):
@@ -823,8 +853,9 @@ _PROBE_SRC = r"""
 #include "dsa_common.cuh"
 extern "C" int dvc_probe_gemm(const float* x, int ldx, int x_by_term, const float* y,
                               int ldy, int y_by_term, int M, int N, int T, int accumulate,
-                              float* out, float* work, long long work_floats,
+                              float* out, float* work, long long work_floats, int bf16,
                               void* stream) {
+  if (bf16) return (int)cudaErrorNotSupported;
   return (int)dsa::gemm(dsa::Operand{x, ldx, x_by_term != 0},
                         dsa::Operand{y, ldy, y_by_term != 0}, M, N, T, accumulate != 0,
                         out, work, (size_t)work_floats, (cudaStream_t)stream);
@@ -860,7 +891,8 @@ def gemm_probe():
             os.replace(tmp, lib)
         fn = ctypes.CDLL(lib).dvc_probe_gemm
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, I, P, I, I, I, I, I, I, P, P, ctypes.c_longlong, P]
+        fn.argtypes = [P, I, I, P, I, I, I, I, I, I, P, P, ctypes.c_longlong, I,
+                       P]
         fn.restype = I
         _PROBE['fn'] = fn
     return _PROBE['fn']
@@ -868,7 +900,8 @@ def gemm_probe():
 
 def gemm_fn():
     """The C function (x, ldx, x_by_term, y, ldy, y_by_term, M, N, T,
-    accumulate, out, work, work_floats, stream) -> CUDA error code that runs
+    accumulate, out, work, work_floats, bf16, stream) -> CUDA error code
+    that runs
     dsa::gemm (csrc/dsa_gemm.cuh): the library's ``dvc_dsa_gemm``, else
     the probe."""
     from dvc_tpu_torch.ops import _cuda
@@ -887,15 +920,16 @@ def outer_sum_work(X, Y):
     return torch.empty(_cuda.WORK_SPLITS * m * n, device=X.device)
 
 
-def run_outer_sum(X, Y, out, work):
+def run_outer_sum(X, Y, out, work, bf16=0):
     """out (m, n) = X (rows, m)^T Y (rows, n) by dsa::gemm's outer_sum, as
-    K5 and K10 run it (both operands along the terms), on the current
-    stream; raises on a refused launch."""
+    K5 and K10 run it (both operands along the terms; ``bf16``: in the
+    bf16-operand mode, as K5-bf16 runs it), on the current stream; raises
+    on a refused launch."""
     import torch
     (rows, m), n = X.shape, Y.shape[1]
     code = gemm_fn()(X.data_ptr(), X.stride(0), 1, Y.data_ptr(), Y.stride(0), 1,
                      m, n, rows, 0, out.data_ptr(), work.data_ptr(),
-                     work.numel(), torch.cuda.current_stream().cuda_stream)
+                     work.numel(), bf16, torch.cuda.current_stream().cuda_stream)
     if code != 0:
         raise RuntimeError(f'dsa::gemm outer sum: CUDA error {code}')
     return out
@@ -1228,8 +1262,8 @@ _TABLE_BWD = [
                       'for (int row = q * HLP; row < (q + 1) * HLP; ++row) {',
                       'for (int row = (q + 1) * HLP; row < (q + 1) * HLP; ++row) {')]),
     ('G atomics', [('dsa_common.cuh',
-                    '      atomic_add4(G_b + ol + c, mul4(wl, du));\n'
-                    '      atomic_add4(G_b + oh + c, mul4(wh, du));\n', '')]),
+                    '      atomic_add4(G_b + ol + c, mul4(wl, ub));\n'
+                    '      atomic_add4(G_b + oh + c, mul4(wh, ub));\n', '')]),
 ]
 # the product-form word step that the 'pr5' spec splits: its gate products
 # (shared by K9 and K10's recompute) and the K10 recompute's attention
@@ -1348,8 +1382,9 @@ SPLITS = {
             ('gathers', [('ms_deform_attn.cu', _MSDA_GATHERS, '')]),
         ]),
         'dsa_greedy': ('dsa_greedy.cu', [
-            ('tables VW, TW', [('dsa_greedy.cu', '(e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf)) != cudaSuccess ||\n'
-                                '      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf)) != cudaSuccess',
+            ('tables VW, TW', [('dsa_greedy.cu', '(e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf, at.bf16)) !=\n'
+                                '          cudaSuccess ||\n'
+                                '      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf, at.bf16)) != cudaSuccess',
                                 'false')]),
             ('scores from VW', [('dsa_greedy.cu', '    attend_scores_table<QT>(at, sm, vw_b, ab);\n', '')]),
             ('ctx', [('dsa_greedy.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);',
@@ -1361,7 +1396,8 @@ SPLITS = {
                          'cols_dot_rows<QT, LC>(sm.h, ldR, R, a.logit_w, a.V1, n0, acc);', '')]),
         ]),
         'dsa_scan_bwd': ('dsa_scan.cu', [
-            ('table VW', [('dsa_scan.cu', 'if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf)) != cudaSuccess) return (int)e;', '')]),
+            ('table VW', [('dsa_scan.cu', 'if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf, rb)) != cudaSuccess)\n'
+                           '    return (int)e;', '')]),
             ('scores from VW', [('dsa_scan.cu',
                                  '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
                                  '    attend_softmax_ctx<QT>(at, sm, value_b);\n    for (int i',
@@ -1380,7 +1416,7 @@ SPLITS = {
                             ('dsa_scan.cu', 'G, A, BHS, Dh, A, dcw', 'G, A, 0, Dh, A, dcw')]),
         ]),
         'dsa_scan_fwd': ('dsa_scan.cu', [
-            ('table VW', [('dsa_scan.cu', '  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, work_floats);\n', '')]),
+            ('table VW', [('dsa_scan.cu', '  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, work_floats, a.at.bf16);\n', '')]),
             ('scores from VW', [('dsa_scan.cu',
                                  '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
                                  '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
@@ -1830,7 +1866,7 @@ def traced(label):
     gemm = {n: us for n, us in per_name.items()
             if 'gemm_kernel' in n or 'split_sum_kernel' in n}
     if gemm:
-        outer = sum(us for n, us in gemm.items() if 'true, true>' in n)
+        outer = sum(us for n, us in gemm.items() if 'true, true, ' in n)
         print(f'[trace]   {sum(gemm.values()) / 1e3:9.3f} ms  dsa::gemm in all '
               f'(tables, G . Wc^T, outer sums, split sums); the outer sums\' '
               f'kernels (both operands along the terms) {outer / 1e3:.3f} ms')
@@ -2047,13 +2083,21 @@ def _counted():
     return kernels, plain
 
 
+# the kernels with a bf16-operand variant (K4-bf16, K5-bf16, K6-bf16): each
+# wrapper counts those launches apart, read here as '<kernel>_bf16'
+BF16_VARIANTS = ('dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy')
+
+
 def reset_counts():
-    """Sets every kernel's launch count, every plain version's call count
-    and the matcher's device-to-host copy count to 0."""
+    """Sets every kernel's launch count (the bf16 variants' included),
+    every plain version's call count and the matcher's device-to-host copy
+    count to 0."""
     from dvc_tpu_torch.models.matcher import hungarian_match
     kernels, plain = _counted()
     for fn in kernels.values():
         fn.launches = 0
+    for k in BF16_VARIANTS:
+        kernels[k].launches_bf16 = 0
     for fn in plain:
         fn.calls = 0
     hungarian_match.copies = 0
@@ -2066,10 +2110,13 @@ def matcher_copies():
 
 
 def read_counts():
-    """({kernel: launches}, plain-version calls) since reset_counts()."""
+    """({kernel: launches}, plain-version calls) since reset_counts(); the
+    bf16 variants as '<kernel>_bf16'."""
     kernels, plain = _counted()
-    return ({k: fn.launches for k, fn in kernels.items()},
-            sum(fn.calls for fn in plain))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches.update({f'{k}_bf16': kernels[k].launches_bf16
+                     for k in BF16_VARIANTS})
+    return launches, sum(fn.calls for fn in plain)
 
 
 def train_batch(opt, B, plain=False):
@@ -4134,6 +4181,644 @@ def phase_tsp_train(tmp, card):
                              'the trained checkpoint')
 
 
+# --------------------------------------------------------------------------
+# 16. bf16
+# --------------------------------------------------------------------------
+
+BF16 = 'bfloat16'
+BF16_FLAGS = ['--tpu_compute_dtype', BF16, '--fusion_dtype', BF16]
+BF16_MARGIN = 1e-3    # a greedy step's top-2 logit margin that is no near-tie
+# K4-K6-bf16 against their plain bf16 versions, as a share of how far the
+# plain f32 version lies from those (forward outputs; each gradient of
+# K5-bf16), and the least share of the plain bf16 version's distance from
+# the plain f32 version at which a kernel's output lies from it.  Readings
+# (H100, phase 16): forward 0.50-0.55, gradients 0.05-0.37, from f32
+# 0.96-1.02 (PERF.md section 6).
+BF16_FWD_SHARE, BF16_BWD_SHARE, BF16_ROUNDS = 0.75, 0.5, 0.5
+
+
+def rel_l2(got, want):
+    """Relative L2 distance of two tensors, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def bf16_bound(n_bytes, macs):
+    """(least ms, what bounds it) of the same work on bf16 operands: the
+    bytes over the HBM rate (``n_bytes`` counts each operand of a product
+    at 2 bytes) and 2 x the MACs over the tensor cores' bf16 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * macs / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def bf16_bytes(args, operands, others=()):
+    """Bytes of the inputs ``args``: the tensors at the indices
+    ``operands`` (value and the weights: operands of products) at 2 bytes
+    an element, the rest (positions, scales, biases, z) as stored, plus the
+    tensors ``others`` (outputs) as stored."""
+    import torch
+    return (sum(t.numel() * (2 if i in operands else t.element_size())
+                for i, t in enumerate(args) if torch.is_tensor(t))
+            + nbytes(*others))
+
+
+def greedy_divergence(tok, ref_tok, ok):
+    """Share of the comparable (b, k, q) (``ok``) at or after a query's
+    first token that differs from ``ref_tok``."""
+    import torch
+    diverged = ~torch.cumprod((tok == ref_tok).int(), dim=1).bool()
+    return float((diverged & ok).sum()) / max(1, int(ok.sum()))
+
+
+def check_greedy_bf16(gen, B, Q, H, K=30):
+    """K6-bf16 against its plain bf16 version (the TPU kernel's bf16
+    products, ``dsa_greedy_scan_ref(precision='bfloat16')``), held to how
+    far that lies from the plain f32 version on the same inputs: on the
+    (b, k, q) before a query's first plain-bf16 near-tie (top-2 margin
+    under 1e-3), the share past a first differing token, and the log-probs'
+    relative L2 where all three decodes agree, each at most BF16_FWD_SHARE
+    of f32's.  And the kernel rounds: its log-probs lie at least
+    BF16_ROUNDS of the plain bf16 version's distance from the plain f32
+    version (a kernel that skipped the bf16 rounding would lie at f32
+    noise from it, and at f32's distance from the plain bf16 version).
+    The table form's plain mirror (``dsa_bf16.greedy_scan(table=True)``,
+    what the kernel computes) is printed beside it; the f32 kernel is
+    timed on the same inputs."""
+    import torch
+    from dvc_tpu_torch.ops import dsa_bf16
+    from dvc_tpu_torch.ops.dsa_greedy import (dsa_greedy_scan,
+                                              dsa_greedy_scan_ref)
+    args = greedy_inputs(gen, B, Q, H)
+    L = MSDA_LEVELS
+    tok, lp = dsa_greedy_scan(*args, L, K, precision=BF16)
+    ref_tok, ref_lp, margin = dsa_greedy_scan_ref(*args, L, K,
+                                                  with_margin=True,
+                                                  precision=BF16)
+    f_tok, f_lp = dsa_greedy_scan_ref(*args, L, K)
+    t_tok, t_lp = dsa_bf16.greedy_scan(*args, L, K, table=True)
+    ok = torch.cumprod((margin > BF16_MARGIN).int(), dim=1).bool()
+    div = {n: greedy_divergence(t, ref_tok, ok)
+           for n, t in (('kernel', tok), ('f32', f_tok), ('mirror', t_tok))}
+    same = ok & torch.cumprod(((tok == ref_tok) & (f_tok == ref_tok)
+                               & (t_tok == ref_tok)).int(), dim=1).bool()
+    dist = {n: rel_l2(x[same], ref_lp[same])
+            for n, x in (('kernel', lp), ('f32', f_lp), ('mirror', t_lp))}
+    mirror = rel_l2(lp[same], t_lp[same])
+    rounds = (rel_l2(lp[same], f_lp[same]), rel_l2(ref_lp[same], f_lp[same]))
+    ms = cuda_ms(lambda: dsa_greedy_scan(*args, L, K, precision=BF16), 3)
+    f32_ms = cuda_ms(lambda: dsa_greedy_scan(*args, L, K), 3)
+    plain_ms = cuda_ms(lambda: dsa_greedy_scan_ref(*args, L, K,
+                                                   precision=BF16), 3)
+    macs, n = greedy_macs(args, K)
+    bound_ms, bound_by = bf16_bound(
+        bf16_bytes(args, (0, 4, 5, 6, 8, 9, 11, 15, 16)) + 8 * n, macs)
+    print(f'[bf16] dsa_greedy_bf16 B={B} Q={Q} H={H} K={K}: compared '
+          f'{float(same.float().mean()):.3f} of (b,k,q); against the plain '
+          f'bf16 version, diverged share kernel {div["kernel"]:.4f} / plain '
+          f'f32 {div["f32"]:.4f} / table mirror {div["mirror"]:.4f}, lp '
+          f'relative L2 kernel {dist["kernel"]:.3e} / plain f32 '
+          f'{dist["f32"]:.3e} / table mirror {dist["mirror"]:.3e} (limit '
+          f'{BF16_FWD_SHARE} x plain f32); kernel vs table mirror '
+          f'{mirror:.3e}; lp relative L2 from the plain f32 version: kernel '
+          f'{rounds[0]:.3e} / plain bf16 {rounds[1]:.3e} (at least '
+          f'{BF16_ROUNDS} x); kernel bf16 {ms:.3f} ms, f32 '
+          f'{f32_ms:.3f} ms, plain bf16 {plain_ms:.3f} ms, bound '
+          f'{bound_ms:.4f} ms ({bound_by})')
+    if (div['kernel'] > BF16_FWD_SHARE * div['f32']
+            or dist['kernel'] > BF16_FWD_SHARE * dist['f32']
+            or rounds[0] < BF16_ROUNDS * rounds[1]
+            or float(same.float().mean()) < 0.5):
+        raise AssertionError(f'dsa_greedy_bf16 B={B} H={H}: {div}, {dist}, '
+                             f'from f32 {rounds}')
+    return {'B': B, 'Q': Q, 'H': H,
+            'max_abs_err': float((lp - ref_lp)[same].abs().max()),
+            'ms': ms, 'f32_ms': f32_ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by}
+
+
+def scan_positions_bf16(args, hs):
+    """``scan_positions`` with the bf16 offsets of K4-bf16 and K5-bf16:
+    base_pos + (bf16(h_{k-1}) . bf16(off_w)) * scale_t, in float64."""
+    from dvc_tpu_torch.ops.dsa_bf16 import bf16
+    rounded = list(args)
+    rounded[4] = bf16(args[4])
+    return scan_positions(rounded, bf16(hs))
+
+
+def check_scan_bf16(gen, B, Q, K, H):
+    """K4-bf16 and K5-bf16 against their plain bf16 versions
+    (``dsa_bf16.scan_fwd`` / ``scan_bwd``, the TPU kernels' bf16 products;
+    the backward on K4-bf16's trajectory), each held to how far that lies
+    from the plain f32 version on the same inputs: hs and cs, and each of
+    the 13 gradients (but d alpha_b, zero in exact arithmetic), in relative
+    L2, the kernel's distance at most BF16_FWD_SHARE (forward) or
+    BF16_BWD_SHARE (each gradient) of f32's; and each lies at least
+    BF16_ROUNDS of the plain bf16 version's distance from the plain f32
+    version, so the kernel rounds (``check_greedy_bf16``).  The cotangent is zero on
+    the queries with a tap within an ulp of a level-relative integer on the
+    kernel's trajectory (``near_integer`` of the bf16 positions), where the
+    position's gradient jumps (ROADMAP C).  The table form's plain mirror
+    is printed beside each; the f32 kernels are timed on the same inputs."""
+    import torch
+    from dvc_tpu_torch.ops import dsa_bf16
+    from dvc_tpu_torch.ops.dsa_scan import (NAMES, dsa_teacher_scan_bwd,
+                                            dsa_teacher_scan_bwd_ref,
+                                            dsa_teacher_scan_fwd,
+                                            dsa_teacher_scan_ref)
+    args = scan_inputs(gen, B, Q, K, H)
+    L = MSDA_LEVELS
+    hs, cs = dsa_teacher_scan_fwd(*args, L, precision=BF16)
+    ref_hs, ref_cs = dsa_teacher_scan_ref(*args, L, precision=BF16)
+    f_hs, f_cs = dsa_teacher_scan_ref(*args, L)
+    t_hs, _ = dsa_bf16.scan_fwd(*args, L, table=True)
+    fwd = {n: max(rel_l2(a, ref_hs), rel_l2(b, ref_cs))
+           for n, a, b in (('kernel', hs, cs), ('f32', f_hs, f_cs))}
+    fwd['mirror'] = rel_l2(t_hs, ref_hs)
+    fwd_rounds = (min(rel_l2(hs, f_hs), rel_l2(cs, f_cs)),
+                  max(rel_l2(ref_hs, f_hs), rel_l2(ref_cs, f_cs)))
+    near = near_integer(scan_positions_bf16(args, hs))
+    g = torch.randn(hs.shape, generator=gen, device='cuda') \
+        * (~near)[:, None, :, None]
+    grads = dsa_teacher_scan_bwd(*args, L, hs, cs, g, precision=BF16)
+    want = dsa_bf16.scan_bwd(*args, L, hs, cs, g)
+    mirror = dsa_bf16.scan_bwd(*args, L, hs, cs, g, table=True)
+    f32 = dsa_teacher_scan_bwd_ref(*args, L, f_hs, f_cs, g)
+    bwd = {n: (rel_l2(a, w), rel_l2(f, w), rel_l2(m, w), rel_l2(a, f),
+               rel_l2(w, f))
+           for n, a, w, f, m in zip(NAMES, grads, want, f32, mirror)
+           if n != 'ab'}
+    worst = max(bwd, key=lambda n: bwd[n][0] / bwd[n][1])
+    least = min(bwd, key=lambda n: bwd[n][3] / bwd[n][4])
+    fwd_ms = cuda_ms(lambda: dsa_teacher_scan_fwd(*args, L, precision=BF16),
+                     3)
+    fwd_f32 = cuda_ms(lambda: dsa_teacher_scan_fwd(*args, L), 3)
+    fwd_plain = cuda_ms(lambda: dsa_teacher_scan_ref(*args, L,
+                                                     precision=BF16), 3)
+    bwd_ms = cuda_ms(lambda: dsa_teacher_scan_bwd(*args, L, hs, cs, g,
+                                                  precision=BF16), 3)
+    bwd_f32 = cuda_ms(lambda: dsa_teacher_scan_bwd(*args, L, hs, cs, g), 3)
+    bwd_plain = cuda_ms(lambda: dsa_bf16.scan_bwd(*args, L, hs, cs, g), 3)
+    fwd_macs, bwd_macs = scan_macs(args)
+    weights = (0, 4, 5, 7, 11, 12)          # value and the products' weights
+    fwd_bound = bf16_bound(bf16_bytes(args, weights, (hs, cs)), fwd_macs)
+    bwd_bound = bf16_bound(bf16_bytes(args, weights, (hs, cs, g, *grads)),
+                           bwd_macs)
+    print(f'[bf16] dsa_scan_fwd_bf16 B={B} Q={Q} K={K} H={H}: against the '
+          f'plain bf16 version, hs/cs relative L2 kernel {fwd["kernel"]:.3e} '
+          f'/ plain f32 {fwd["f32"]:.3e} / table mirror {fwd["mirror"]:.3e} '
+          f'(limit {BF16_FWD_SHARE} x plain f32); from the plain f32 '
+          f'version, kernel {fwd_rounds[0]:.3e} / plain bf16 '
+          f'{fwd_rounds[1]:.3e} (at least {BF16_ROUNDS} x); '
+          f'kernel bf16 {fwd_ms:.3f} ms, f32 {fwd_f32:.3f} ms, plain bf16 '
+          f'{fwd_plain:.3f} ms, bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})')
+    print(f'[bf16] dsa_scan_bwd_bf16 B={B} Q={Q} K={K} H={H}: '
+          f'{int(near.sum())} queries near a tap boundary get a zero '
+          f'cotangent; gradients against the plain bf16 backward, relative '
+          f'L2 kernel / plain f32 / table mirror: '
+          + ', '.join(f'{n} {a:.2e}/{f:.2e}/{m:.2e}'
+                      for n, (a, f, m, _, _) in bwd.items())
+          + f' (limit {BF16_BWD_SHARE} x plain f32); closest to its f32 '
+          f'distance {worst}; from the plain f32 backward, kernel / plain '
+          f'bf16: ' + ', '.join(f'{n} {k:.2e}/{w:.2e}'
+                                for n, (_, _, _, k, w) in bwd.items())
+          + f' (at least {BF16_ROUNDS} x), least {least}; kernel bf16 '
+          f'{bwd_ms:.3f} ms, f32 {bwd_f32:.3f} ms, plain bf16 '
+          f'{bwd_plain:.3f} ms, bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})')
+    if (fwd['kernel'] > BF16_FWD_SHARE * fwd['f32']
+            or fwd_rounds[0] < BF16_ROUNDS * fwd_rounds[1]
+            or bwd[worst][0] > BF16_BWD_SHARE * bwd[worst][1]
+            or bwd[least][3] < BF16_ROUNDS * bwd[least][4]):
+        raise AssertionError(f'dsa_scan_bf16 B={B} H={H}: forward {fwd} '
+                             f'{fwd_rounds}, {worst} {bwd[worst]}, {least} '
+                             f'{bwd[least]}')
+    return ({'B': B, 'Q': Q, 'K': K, 'H': H,
+             'max_abs_err': float((hs - ref_hs).abs().max()), 'ms': fwd_ms,
+             'f32_ms': fwd_f32, 'plain_ms': fwd_plain,
+             'bound_ms': fwd_bound[0], 'bound_by': fwd_bound[1]},
+            {'B': B, 'Q': Q, 'K': K, 'H': H,
+             'max_abs_err': max(float((a - w).abs().max()) for a, w in
+                                zip(grads, want)), 'ms': bwd_ms,
+             'f32_ms': bwd_f32, 'plain_ms': bwd_plain,
+             'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1]})
+
+
+def check_gemm_bf16(gen, rows, m, n, label):
+    """dsa::gemm's bf16-operand mode (``dvc_dsa_gemm``'s bf16, the outer sums
+    of K5-bf16 and the tables of K4-K6-bf16) on one outer sum out (m, n) =
+    X^T Y: against the float64 product of the operands rounded to bf16
+    (their products are exact in f32, so what remains is the f32
+    accumulation), in units of its products within GEMM_PRODUCT_TOL; timed
+    beside the f32 mode (3xTF32) on the same inputs and torch.matmul of
+    the bf16 operands (library_ms, a yardstick used nowhere)."""
+    import torch
+    from dvc_tpu_torch.ops import _cuda
+    from dvc_tpu_torch.ops.dsa_bf16 import bf16
+    X = torch.randn((rows, m), generator=gen, device='cuda')
+    Y = torch.randn((rows, n), generator=gen, device='cuda')
+    out = torch.empty((m, n), device='cuda')
+    work = outer_sum_work(X, Y)
+    run_outer_sum(X, Y, out, work, bf16=1)
+    err = product_err(out, bf16(X).T, bf16(Y))
+    ms = cuda_ms(lambda: run_outer_sum(X, Y, out, work, bf16=1), 10)
+    f32_ms = cuda_ms(lambda: run_outer_sum(X, Y, torch.empty_like(out), work),
+                     10)
+    xb, yb = X.bfloat16(), Y.bfloat16()
+    library_ms = cuda_ms(lambda: torch.matmul(xb.T, yb), 10)
+    bound_ms, bound_by = bf16_bound(2 * (X.numel() + Y.numel())
+                                    + nbytes(out), rows * m * n)
+    print(f'[bf16] gemm_bf16 {label} ({rows} x {m})^T ({rows} x {n}): '
+          f'in product units {err:.2e} (tol {GEMM_PRODUCT_TOL:.0e}); bf16 '
+          f'mode {ms:.4f} ms, f32 mode (3xTF32) {f32_ms:.4f} ms, library '
+          f'(torch.matmul, bf16) {library_ms:.4f} ms, bound {bound_ms:.4f} '
+          f'ms ({bound_by})')
+    if not err <= GEMM_PRODUCT_TOL:
+        raise AssertionError(f'gemm_bf16 {label}: {err} in product units')
+
+
+def bf16_kernels():
+    """K6-bf16 at the serving shapes (B=16 and B=1, Q=100, cap_nheads 1
+    and 8) and K4-bf16 / K5-bf16 at the training shapes (Q=90, K=29: B=1
+    and B=16 at H=1, B=1 at H=8).  Returns {'<kernel>_bf16': [result per
+    shape]}."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    with torch.inference_mode():
+        for label, rows, m, n, _ in OUTER_SUMS[:2]:
+            check_gemm_bf16(gen, rows, m, n, label)
+        res = {'dsa_greedy_bf16': [check_greedy_bf16(gen, B, 100, H)
+                                   for B, H in ((16, 1), (16, 8), (1, 1),
+                                                (1, 8))]}
+    scans = [check_scan_bf16(gen, B, 90, 29, H)
+             for B, H in ((1, 1), (16, 1), (1, 8))]
+    res['dsa_scan_fwd_bf16'] = [f for f, _ in scans]
+    res['dsa_scan_bwd_bf16'] = [b for _, b in scans]
+    return res
+
+
+def bf16_opt(opt):
+    """A copy of ``opt`` with --tpu_compute_dtype and --fusion_dtype
+    bfloat16."""
+    import copy
+    opt = copy.deepcopy(opt)
+    opt.tpu_compute_dtype = opt.fusion_dtype = BF16
+    return opt
+
+
+def bf16_serve(opt, tmp, card):
+    """A B=16 request set through ``DenseCaptioner.caption_batch`` with
+    seeded weights at full width, bf16 and f32 in turns (f32, bf16, bf16,
+    f32; host clock, 3 batches each after a warm-up): 16 results of
+    well-formed events, and in the bf16 runs K1/K2 (f32) and K6-bf16
+    launched, no f32 K6, no plain version.  Returns the bf16 launches of
+    one timed batch."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    C = opt.feature_dim
+    feats = [rng.standard_normal((int(n), C)).astype(np.float32)
+             for n in rng.integers(60, 400, 16)]
+    sounds = [rng.standard_normal(f.shape).astype(np.float32) for f in feats]
+    durs = [float(d) for d in rng.uniform(10, 300, 16)]
+    dcs = {'f32': make_captioner(opt, tmp), 'bf16':
+           make_captioner(bf16_opt(opt), tmp)}
+    times, launches = {'f32': [], 'bf16': []}, None
+    for name in ('f32', 'bf16', 'bf16', 'f32'):
+        dc = dcs[name]
+        dc.caption_batch(feats, durs, sound_list=sounds)      # warm-up
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            results = dc.caption_batch(feats, durs, sound_list=sounds)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / 3 * 1e3)
+        counts, plain = read_counts()
+        if len(results) != 16:
+            raise AssertionError(f'{len(results)} results for 16 requests')
+        for events, dur in zip(results, durs):
+            check_events(events, dur)
+        if name == 'bf16':
+            check_launches('bf16-serve', counts, plain,
+                           ('msda_fwd', 'dsa_greedy_bf16'),
+                           ('dsa_greedy',) + STEP_KERNELS)
+            launches = {k: v // 3 for k, v in counts.items()}
+    print(f'[bf16] B=16 caption_batch ({card}), host clock, ms per batch '
+          f'in the order f32, bf16, bf16, f32: f32 '
+          f'{times["f32"][0]:.1f} / {times["f32"][1]:.1f}, bf16 '
+          f'{times["bf16"][0]:.1f} / {times["bf16"][1]:.1f}; 16 results, '
+          f'first "{results[0][0]["sentence"][:40]}..."; bf16 launches a '
+          f'batch {launches}')
+    return launches
+
+
+def bf16_train(tmp, card):
+    """``new_train.main --debug`` (5 steps at B=1, then the validation of 6
+    val videos) with the bf16 flags on a synthetic full-width run: finite
+    losses, K1-K3 (f32) and K4-bf16, K5-bf16 and K6-bf16 launched, no f32
+    K4-K6, no word-step kernel, no plain version; the train step at B=1 and
+    B=16 in bf16 and f32 in turns; the card against the CPU on one step
+    (``bf16_train_agreement``).  Returns (launches, opt, run folder)."""
+    import math
+    import torch
+    from dvc_tpu_torch.new_train import main as train_main
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+    root = os.path.join(tmp, 'bf16')
+    os.makedirs(root)
+    recipe = write_synthetic_run(root, load_config(CFG, root=ROOT))
+    opt = parse_opts(['--cfg_path', recipe, '--debug', '--device', DEVICE,
+                      *BF16_FLAGS], root=ROOT)
+    reset_counts()
+    t0 = time.perf_counter()
+    folder, losses = train_main(opt)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = read_counts()
+    print(f'[bf16] new_train.main --debug {" ".join(BF16_FLAGS)}, B=1: '
+          f'{seconds:.1f} s; mean losses '
+          f'{json.dumps({k: round(v, 4) for k, v in losses.items()})}; '
+          f'kernel launches {launches}, plain-version calls {plain}')
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f'bf16 train losses not finite: {losses}')
+    check_launches('bf16-train', launches, plain,
+                   ('msda_fwd', 'msda_bwd', 'dsa_scan_fwd_bf16',
+                    'dsa_scan_bwd_bf16', 'dsa_greedy_bf16'),
+                   ('dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy')
+                   + STEP_KERNELS)
+    ms, traces = {}, {}
+    for dtype in ('f32', 'bf16', 'bf16', 'f32'):
+        o = opt if dtype == 'bf16' else parse_opts(
+            ['--cfg_path', recipe, '--debug', '--device', DEVICE], root=ROOT)
+        trainer = Trainer(o, device=DEVICE)
+        for B, reps in ((1, 5), (16, 3)):
+            batch = train_batch(o, B)
+            ms.setdefault((dtype, B), []).append(
+                time_steps(trainer, batch, o.lr, reps)[0])
+            if B == 16 and dtype not in traces:
+                traces[dtype] = trace(
+                    f'B=16 {dtype} train step',
+                    lambda: trainer.train_step(batch, o.lr))
+        del trainer
+    print(f'[bf16] train step ({card}), host clock ms after a warm-up, in '
+          f'the order f32, bf16, bf16, f32: '
+          + '; '.join(f'B={B} {d} ' + ' / '.join(f'{t:.1f}' for t in ms[d, B])
+                      for B in (1, 16) for d in ('f32', 'bf16'))
+          + '; traced B=16 step, device busy / window ms: '
+          + ', '.join(f'{d} {t.get("busy_ms", float("nan")):.1f} / '
+                      f'{t.get("window_ms", float("nan")):.1f}'
+                      for d, t in traces.items()))
+    bf16_train_agreement(opt, parse_opts(
+        ['--cfg_path', recipe, '--device', DEVICE], root=ROOT))
+    return launches, opt, folder
+
+
+BF16_LOSS_GROUPS = ('loss_caption', 'loss_ce', 'loss_bbox', 'loss_giou',
+                    'loss_counter')
+# bf16_train_agreement's limits on a parameter's card-to-CPU gradient
+# distance: BF16_GRAD_SHARE x the larger of its f32 and its f32-noise
+# distances, plus BF16_GRAD_FLOOR
+BF16_GRAD_SHARE, BF16_GRAD_FLOOR = 3.0, 1e-3
+
+
+def bf16_step_grads(opt, dev, batch, weights, table=False, noise=None):
+    """One train step of ``opt``'s model (seed 0, dropout off) on ``dev``
+    and ``batch``: (losses, {loss group: {parameter: gradient}}, {loss
+    group: gradient of the decoder's initial reference logits (Nq,)},
+    the count of channels whose maximum over the queries, which the count
+    head pools, is tied, summed over the decoder layers), one backward
+    per group of BF16_LOSS_GROUPS (each loss times its weight), the
+    gradients on the CPU.  ``table``: the CPU's bf16 caption
+    scan in the card kernels' table form (``dsa_bf16``'s ``table=True``).
+    ``noise``: a generator that moves each input feature by about an f32
+    ulp (a relative normal draw of 2^-23)."""
+    import functools
+    import torch
+    from dvc_tpu_torch.models import make_fusion_model
+    from dvc_tpu_torch.ops import dsa_bf16
+    model = make_fusion_model(opt, dev, seed=0).train()
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    if noise is not None:
+        for k in ('video_tensor', 'sound_tensor'):
+            tb[k] = tb[k] * (1 + 2.0 ** -23 * torch.randn(tb[k].shape,
+                                                          generator=noise))
+    tb = {k: v.to(dev) for k, v in tb.items()}
+    refs = []
+
+    def keep(module, inputs, out):
+        out.retain_grad()
+        refs.append(out)
+
+    ties = []
+
+    def count_ties(module, inputs, out):
+        hs = out.detach()
+        ties.append(int(((hs == hs.amax(dim=1, keepdim=True)).sum(1) > 1)
+                        .sum()))
+
+    hooks = [model.pdvcModel.transformer.reference_points
+             .register_forward_hook(keep)] + [
+        layer.register_forward_hook(count_ties)
+        for layer in model.pdvcModel.transformer.decoder.layers]
+    fwd, bwd = dsa_bf16.scan_fwd, dsa_bf16.scan_bwd
+    if table:
+        dsa_bf16.scan_fwd = functools.partial(fwd, table=True)
+        dsa_bf16.scan_bwd = functools.partial(bwd, table=True)
+    try:
+        _, losses = model.forward_train(tb)
+        params = dict(model.named_parameters())
+        grads, ref_grads = {}, {}
+        prev = {n: 0.0 for n in params}
+        prev_ref = 0.0
+        for group in BF16_LOSS_GROUPS:
+            loss = sum(losses[k] * w for k, w in weights.items()
+                       if k.startswith(group) and k in losses and w)
+            if torch.is_tensor(loss):
+                loss.backward(retain_graph=True)
+            now = {n: p.grad.cpu().clone() for n, p in params.items()
+                   if p.grad is not None}
+            grads[group] = {n: g - prev[n] for n, g in now.items()}
+            prev.update(now)
+            ref = (refs[0].grad.cpu().flatten().clone()
+                   if refs[0].grad is not None else prev_ref)
+            ref_grads[group] = ref - prev_ref
+            prev_ref = ref
+    finally:
+        dsa_bf16.scan_fwd, dsa_bf16.scan_bwd = fwd, bwd
+        for hook in hooks:
+            hook.remove()
+    return ({k: float(v.detach()) for k, v in losses.items()}, grads,
+            ref_grads, sum(ties))
+
+
+def bf16_train_agreement(opt, opt32):
+    """One bf16 train step (``opt``) on the card against the same step on
+    the CPU, same weights and batch, dropout off, all on the CPU bf16
+    step's matching (bf16 rounding flips Hungarian near-ties more often
+    than f32's ulps do, ROADMAP C; whether the card's own matching agreed
+    is printed, not gated).  The CPU runs the step four ways: bf16 with
+    the TPU kernels' rounding points (the plain bf16 versions: the
+    reference), the same on input features moved by about an f32 ulp
+    (how far f32-sized differences, such as the card's other summation
+    orders, carry through bf16 rounding: ``noise``), bf16 with the card
+    kernels' table form (``dsa_bf16``'s ``table=True``), and f32 (how far
+    bf16 rounding moves each gradient).  Gates: every loss within 1e-2
+    relative; each parameter's card-to-CPU gradient distance (relative
+    L2, alpha_net's bias, zero in exact arithmetic, floored at 5e-5 as in
+    ``check_scan``) at most BF16_GRAD_SHARE x the larger of its f32 and
+    noise distances + BF16_GRAD_FLOOR; the median over the parameters of
+    card over f32 distance at most 1.5; and the card rounds: all its
+    gradients together lie from the f32 step at least BF16_ROUNDS of the
+    CPU bf16 step's distance.  Printed for the parameters closest to
+    their limit: each loss group's share of the gap, and the decoder's
+    initial reference logits' gradient per query."""
+    import math
+    import torch
+    from dvc_tpu_torch.models import criterion
+    from dvc_tpu_torch.models.criterion import build_weight_dict
+    from dvc_tpu_torch.train import bucket_caption_length
+    batch = bucket_caption_length(train_batch(opt, 1))
+    weights = build_weight_dict(opt)
+    real, pinned, own = criterion.hungarian_match, [], []
+
+    def record(*args):
+        pinned.append(real(*args))
+        return pinned[-1]
+
+    def replay(*args):
+        own.append(real(*args).cpu())
+        return pinned[(len(own) - 1) % len(pinned)].to(args[1].device)
+
+    runs, card_own = {}, None
+    for name, o, dev, table, noise in (
+            ('cpu', opt, 'cpu', False, None),
+            ('noise', opt, 'cpu', False, torch.Generator().manual_seed(1)),
+            ('table', opt, 'cpu', True, None),
+            ('card', opt, DEVICE, False, None),
+            ('f32', opt32, 'cpu', False, None)):
+        criterion.hungarian_match = record if name == 'cpu' else replay
+        try:
+            runs[name] = bf16_step_grads(o, dev, batch, weights, table, noise)
+        finally:
+            criterion.hungarian_match = real
+        if name == 'card':
+            card_own = list(own)
+        own.clear()
+    total = {k: {n: sum(g[n] for g in r[1].values()) for n in r[1][
+        BF16_LOSS_GROUPS[0]]} for k, r in runs.items()}
+    cl, cg = runs['cpu'][0], total['cpu']
+    agree = all(torch.equal(a, b) for a, b in zip(card_own, pinned))
+    loss_errs = {k: max(abs(r[0][n] - cl[n]) / max(abs(cl[n]), 1e-6)
+                        for n in cl) for k, r in runs.items() if k != 'cpu'}
+    loss_err = loss_errs['card']
+
+    def dist(a, b, n):
+        floor = 5e-5 if n.endswith('alpha_net.bias') else 1e-5
+        return float((a[n] - b[n]).norm() / (b[n].norm() + floor / 1e-3))
+
+    d = {k: {n: dist(total[k], cg, n) for n in cg}
+         for k in total if k != 'cpu'}
+    limit = {n: BF16_GRAD_SHARE * max(d['f32'][n], d['noise'][n])
+             + BF16_GRAD_FLOOR for n in cg}
+    ranked = sorted(cg, key=lambda n: d['card'][n] / limit[n], reverse=True)
+    q = sorted(d['card'][n] / max(d['f32'][n], 1e-3) for n in cg)
+    median = q[len(q) // 2]
+
+    def rms(x):
+        return math.sqrt(sum(v ** 2 for v in x) / len(x))
+
+    together = {k: rms(d[k].values()) for k in d}
+    rounds = (rms([dist(total['card'], total['f32'], n) for n in cg]),
+              together['f32'])
+    print(f'[bf16-train-agreement] card vs CPU, one bf16 B=1 step on the '
+          f'CPU\'s matching (the card\'s own identical {agree}, not gated): '
+          f'worst loss relative error {loss_err:.2e} (tol 1e-2; '
+          + ', '.join(f'{k} {v:.2e}' for k, v in loss_errs.items()
+                      if k != 'card')
+          + f'); gradients\' '
+          f'relative L2 from the CPU bf16 step, RMS over {len(cg)} '
+          f'parameters: ' + ', '.join(f'{k} {v:.3e}'
+                                      for k, v in together.items())
+          + f'; card / f32 ratio quantiles 0.1/0.5/0.9 {q[len(q) // 10]:.3f}/'
+          f'{median:.3f}/{q[9 * len(q) // 10]:.3f} (median tol 1.5); from '
+          f'the f32 step, card {rounds[0]:.3e} / CPU bf16 {rounds[1]:.3e} '
+          f'(at least {BF16_ROUNDS} x); per parameter at most '
+          f'{BF16_GRAD_SHARE} x max(f32, noise) + {BF16_GRAD_FLOOR}, '
+          f'closest: {ranked[0]} {d["card"][ranked[0]]:.3e} of '
+          f'{limit[ranked[0]]:.3e}')
+    bias = 'pdvcModel.transformer.reference_points.bias'
+    for n in ranked[:3] + [bias] * (bias not in ranked[:3]):
+        print(f'[bf16-train-agreement]   {n} |grad| '
+              f'{float(cg[n].norm()):.3e}; from the CPU bf16 step: '
+              + ', '.join(f'{k} {d[k][n]:.2e}' for k in d)
+              + '; by loss group, |run - CPU| for ' + '/'.join(d)
+              + ' (|CPU|): ' + ', '.join(
+                  f'{g[5:]} ' + '/'.join(
+                      f'{float((runs[k][1][g][n] - runs["cpu"][1][g][n]).norm()):.1e}'
+                      for k in d)
+                  + f' ({float(runs["cpu"][1][g][n].norm()):.1e})'
+                  for g in BF16_LOSS_GROUPS))
+    refs = {k: sum(r[2].values()) for k, r in runs.items()}
+    print('[bf16-train-agreement]   the initial reference logits\' gradient '
+          '(Nq), |run - CPU| / |CPU|: '
+          + ', '.join(f'{k} {float((refs[k] - refs["cpu"]).norm()):.2e}'
+                      for k in d)
+          + f' / {float(refs["cpu"].norm()):.2e}; its sum (the bias\' '
+          f'gradient) ' + ', '.join(f'{k} {float(v.sum()):.4e}'
+                                     for k, v in refs.items())
+          + '; channels tied at the count head\'s maximum over the '
+          'queries, all decoder layers: '
+          + ', '.join(f'{k} {r[3]}' for k, r in runs.items()))
+    if (loss_err > 1e-2 or sorted(total['card']) != sorted(cg)
+            or d['card'][ranked[0]] > limit[ranked[0]] or median > 1.5
+            or rounds[0] < BF16_ROUNDS * rounds[1]):
+        raise AssertionError('card and CPU disagree on the bf16 train step')
+
+
+def bf16_eval(folder, card):
+    """``run_eval`` on the bf16 run's folder at --eval_batch_size 16 (the
+    run's saved options carry the bf16 flags): K1/K2 (f32) a trunk layer
+    and one K6-bf16 a batch, no f32 K6, finite scores.  Returns the
+    launches."""
+    from dvc_tpu_torch.serve import run_options
+    ropt = run_options(folder)
+    if (ropt.tpu_compute_dtype, ropt.fusion_dtype) != (BF16, BF16):
+        raise AssertionError('the run did not save the bf16 flags')
+    batches = -(-VAL_VIDEOS // 16)
+    path, scores, launches, plain, seconds = run_eval_counted(
+        ['--eval_save_dir', folder, '--eval_batch_size', '16',
+         '--eval_device', DEVICE])
+    check_eval_json(path, VAL_VIDEOS, scored=True)
+    print(f'[bf16] run_eval --eval_batch_size 16 of the bf16 run ({card}): '
+          f'{seconds:.2f} s; '
+          f'{", ".join(f"{k} {scores[k]:.4f}" for k in EVAL_SCORES)}; '
+          f'kernel launches {launches}, plain-version calls {plain}')
+    check_launches('bf16-eval', launches, plain, ('msda_fwd',),
+                   ('dsa_greedy', 'msda_bwd', 'dsa_scan_fwd_bf16')
+                   + STEP_KERNELS,
+                   {'dsa_greedy_bf16': batches})
+    return launches
+
+
+def phase_bf16(tmp, card):
+    """Phase 16 (``--bf16`` runs it alone): the bf16 kernels against their
+    plain versions (``bf16_kernels``), a bf16 B=16 caption_batch
+    (``bf16_serve``), five bf16 train steps, the step times and the card's
+    agreement with the CPU (``bf16_train``), and run_eval of that run
+    (``bf16_eval``).  Returns (kernel results, launches: K4-bf16 and
+    K5-bf16 from the train run, K6-bf16 from run_eval)."""
+    from dvc_tpu_torch.utils.config import load_config
+    kernels = bf16_kernels()
+    bf16_serve(load_config(CFG, root=ROOT), tmp, card)
+    train_launches, _, folder = bf16_train(tmp, card)
+    eval_launches = bf16_eval(folder, card)
+    launches = {'dsa_scan_fwd_bf16': train_launches['dsa_scan_fwd_bf16'],
+                'dsa_scan_bwd_bf16': train_launches['dsa_scan_bwd_bf16'],
+                'dsa_greedy_bf16': eval_launches['dsa_greedy_bf16']}
+    return kernels, launches
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -4156,6 +4841,7 @@ def main():
         phase_pipeline(tmp, device['smi'])
         phase_sampling(train_folder)
         phase_pretrain(train_opt, train_folder)
+        bf16_results, bf16_launches = phase_bf16(tmp, device['smi'])
         phase_plain(tmp, device['smi'])
         phase_tsp(tmp, device['smi'])
         phase_tsp_train(tmp, device['smi'])
@@ -4177,8 +4863,11 @@ def main():
     # path's B=16 run_eval for msda_fwd and dsa_greedy (the serve path's
     # counts are in its [serve] line), the train path's for the
     # others, the stepwise train runs' for the word-step kernels, and both
-    # stepwise runs' for the table
-    launches = {'msda_fwd': eval_launches['msda_fwd'],
+    # stepwise runs' for the table; the bf16 variants': phase 16's bf16
+    # train run for K4-bf16 and K5-bf16, its run_eval at B=16 for K6-bf16
+    # (their first shapes: K6-bf16 at B=16, H=1, K4/K5-bf16 at B=1, H=1)
+    kernels.update(bf16_results)
+    launches = {**bf16_launches,'msda_fwd': eval_launches['msda_fwd'],
                 'dsa_greedy': eval_launches['dsa_greedy'],
                 **{k: train_launches[k] for k in
                    ('msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd')},
@@ -4196,7 +4885,10 @@ def main():
                'dsa_lstm_fwd': ('dsa_step.cu', 'dsa_step.py:545'),
                'dsa_lstm_bwd': ('dsa_step.cu', 'dsa_step.py:566'),
                'table_gemm': ('dsa_tables.cu', 'dsa_step.py:545'),
-               'table_gemm_bwd': ('dsa_tables.cu', 'dsa_step.py:566')}
+               'table_gemm_bwd': ('dsa_tables.cu', 'dsa_step.py:566'),
+               'dsa_scan_fwd_bf16': ('dsa_scan.cu', 'dsa_scan.py:149'),
+               'dsa_scan_bwd_bf16': ('dsa_scan.cu', 'dsa_scan.py:182'),
+               'dsa_greedy_bf16': ('dsa_greedy.cu', 'dsa_greedy.py:131')}
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda',
          'source': f'dvc_tpu_torch/csrc/{src}',
@@ -4229,6 +4921,11 @@ if __name__ == '__main__':
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
             phase_tsp(tmp, card)
+    elif sys.argv[1:2] == ['--bf16']:
+        card = phase_device()['smi']
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_bf16(tmp, card)
     elif sys.argv[1:2] == ['--tsp-train']:
         card = phase_device()['smi']
         with tempfile.TemporaryDirectory() as tmp:

@@ -19,6 +19,17 @@
 // base_pos + off*scale_t is computed with __fmul_rn/__fadd_rn: an FMA would
 // round differently from the reference, and floor() would then pick another
 // tap at exact boundaries.  tanhf/expf are exact (no fast-math).
+//
+// The bf16-operand mode (AttendArgs::bf16, the bf16 variants of K4-K6): the
+// TPU kernels round both operands of every product to bf16 and accumulate
+// in f32 (dvc_tpu/ops/dsa_step.py::_make_dot('bfloat16')).  Here the wrapper
+// rounds value and the step's weights once per launch (they enter products
+// only), the GEMM rounds its operands (dsa_gemm.cuh), and the activations
+// that a product reads from shared memory are stored rounded: h, ctx, the
+// lerp weights (where both taps clamp to one row, that row's weight is
+// bf16(w_lo + w_hi), as the TPU kernel's one-hot matrix M holds it), and in
+// the backwards dz, dhvec, doff and the scattered wts * dctx and du.
+// Positions, gates, tanh and the softmax stay f32, as there.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,6 +66,18 @@ inline bool make_levels(int L, const int* shapes, int S, Levels* lv) {
 }
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// x rounded to bf16 where on (the bf16-operand mode), else x
+__device__ __forceinline__ float round_if(bool on, float x) {
+  return on ? __uint_as_float(bf16_bits(x)) : x;
+}
+
+// round_if on each of x's four lanes
+__device__ __forceinline__ float4 round4_if(bool on, float4 x) {
+  return on ? make_float4(round_if(true, x.x), round_if(true, x.y), round_if(true, x.z),
+                          round_if(true, x.w))
+            : x;
+}
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.f / (1.f + expf(-x));
@@ -145,6 +168,7 @@ struct AttendArgs {
   const float* cb;        // (A)
   const float* aw;        // (A)
   int H, S, Dh, Q, LP, P, A, R;
+  int bf16;               // the bf16-operand mode (see the top of this file)
   Levels lv;
 };
 
@@ -170,10 +194,18 @@ __device__ __forceinline__ void tap_row(const AttendArgs& a,
   const float hib = (float)(a.lv.T[l] - 1);
   const float f_lo = floorf(pos);
   const float w_hi = __fsub_rn(pos, f_lo);
-  s.wlo[row] = __fsub_rn(1.f, w_hi);
-  s.whi[row] = w_hi;
-  s.lo[row] = (int)fminf(fmaxf(f_lo, 0.f), hib) + a.lv.start[l];
-  s.hi[row] = (int)fminf(fmaxf(f_lo + 1.f, 0.f), hib) + a.lv.start[l];
+  const float w_lo = __fsub_rn(1.f, w_hi);
+  const int lo = (int)fminf(fmaxf(f_lo, 0.f), hib) + a.lv.start[l];
+  const int hi = (int)fminf(fmaxf(f_lo + 1.f, 0.f), hib) + a.lv.start[l];
+  s.lo[row] = lo;
+  s.hi[row] = hi;
+  if (a.bf16 && lo == hi) {
+    s.wlo[row] = round_if(true, __fadd_rn(w_lo, w_hi));
+    s.whi[row] = 0.f;
+  } else {
+    s.wlo[row] = round_if(a.bf16, w_lo);
+    s.whi[row] = round_if(a.bf16, w_hi);
+  }
 }
 
 // the sampling offset h[q] . off_w[hh][:, p] of tap row (q, hh, p), from
@@ -275,7 +307,7 @@ __device__ __forceinline__ void attend_softmax_ctx(const AttendArgs& a,
                       + s.whi[row] * v[(size_t)s.hi[row] * Dh];
       acc = fmaf(s.d[row], t, acc);
     }
-    s.ctx[q * ldHD + hd] = acc;
+    s.ctx[q * ldHD + hd] = round_if(a.bf16, acc);
   }
   __syncthreads();
 }
@@ -436,7 +468,10 @@ __device__ __forceinline__ float4 mul4(float s, float4 a) {
 // registers across steps; see ColGroups).  Writes g.dhvec and g.dpos (the
 // context's term (v[hi] - v[lo]) . wts dctx plus the scores' (VW[hi] -
 // VW[lo]) . du).  Every atomic into global memory is a float4.  Ends with a
-// barrier.  A query whose d ctx is zero adds exactly zero everywhere.
+// barrier.  A query whose d ctx is zero adds exactly zero everywhere.  In
+// the bf16-operand mode the scattered wts * dctx and du, du in dpos's
+// scores term, and dhvec are rounded to bf16 (they are operands of the TPU
+// kernel's products); dcb and daw take du in f32.
 template <int QT>
 __device__ __forceinline__ void attend_backward_table(
     const AttendArgs& a, const AttendSmem& s, const TableGradSmem& g,
@@ -445,6 +480,7 @@ __device__ __forceinline__ void attend_backward_table(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int H = a.H, Dh = a.Dh, LP = a.LP, S = a.S, A = a.A;
   const int HLP = H * LP, NR = QT * HLP, ldA = pad4(A), ldHD = pad4(H * Dh);
+  const bool rb = a.bf16;
 
   // the context's term, a warp per tap row: dwts = taps . dctx, dvalue +=
   // the lerp of wts * dctx, dpos = wts (v[hi] - v[lo]) . dctx
@@ -466,7 +502,7 @@ __device__ __forceinline__ void attend_backward_table(
       dp = fmaf(vh.y - vl.y, d4.y, dp);
       dp = fmaf(vh.z - vl.z, d4.z, dp);
       dp = fmaf(vh.w - vl.w, d4.w, dp);
-      const float4 t = mul4(w, d4);
+      const float4 t = round4_if(rb, mul4(w, d4));
       atomic_add4(dv + il + c, mul4(wl, t));
       atomic_add4(dv + ih + c, mul4(wh, t));
     }
@@ -527,19 +563,21 @@ __device__ __forceinline__ void attend_backward_table(
       daw[j] = add4(daw[j], make_float4(dd * u[0], dd * u[1], dd * u[2], dd * u[3]));
       dcb[j] = add4(dcb[j], du);
       dhv[j] = add4(dhv[j], du);
-      dp = fmaf(du.x, xh.x - xl.x, dp);
-      dp = fmaf(du.y, xh.y - xl.y, dp);
-      dp = fmaf(du.z, xh.z - xl.z, dp);
-      dp = fmaf(du.w, xh.w - xl.w, dp);
-      atomic_add4(G_b + ol + c, mul4(wl, du));
-      atomic_add4(G_b + oh + c, mul4(wh, du));
+      const float4 ub = round4_if(rb, du);
+      dp = fmaf(ub.x, xh.x - xl.x, dp);
+      dp = fmaf(ub.y, xh.y - xl.y, dp);
+      dp = fmaf(ub.z, xh.z - xl.z, dp);
+      dp = fmaf(ub.w, xh.w - xl.w, dp);
+      atomic_add4(G_b + ol + c, mul4(wl, ub));
+      atomic_add4(G_b + oh + c, mul4(wh, ub));
     }
     dp = warp_sum(dp);
     if (lane == 0) atomicAdd(g.dpos + row, dp);   // the column parts
   }
 #pragma unroll
   for (int j = 0; j < kColGroups; ++j)
-    if (cols.ok[j]) *reinterpret_cast<float4*>(g.dhvec + q * ldA + cols.c[j]) = dhv[j];
+    if (cols.ok[j])
+      *reinterpret_cast<float4*>(g.dhvec + q * ldA + cols.c[j]) = round4_if(rb, dhv[j]);
   __syncthreads();
 }
 

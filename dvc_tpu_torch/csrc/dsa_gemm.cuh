@@ -25,6 +25,13 @@
 //   from shared memory, so each slice of Y is split once into big and small
 //   tiles, K-major with 128-byte swizzled rows, whatever Y's layout in
 //   device memory; X's fragments are split in registers (A from registers);
+// * the bf16-operand mode (Bf16: the caption kernels' bf16 variants K4-K6,
+//   whose TPU kernels round both operands of every product to bf16 and
+//   accumulate in f32, dsa_step.py::_make_dot('bfloat16')): each element is
+//   rounded to bf16 (to nearest even), and each 16 terms are one bf16
+//   wgmma (k16, f32 accumulate); Y's slice is rounded once into
+//   one tile, K-major with 64-byte swizzled rows (kGemmBK bf16), X's
+//   fragments are rounded and paired in registers;
 // * a ring of kGemmStages shared-memory slices of kGemmBK terms of both raw
 //   operands, filled by cp.async (16 bytes a thread where every row is
 //   16-byte aligned, else 4) with zero fill past the edges, so that the
@@ -47,6 +54,7 @@
 // also reads (dvc_dsa_gemm_work_floats).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +111,17 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// x rounded to bf16 (to nearest even) as f32 bits
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __float_as_uint(__bfloat162float(__float2bfloat16_rn(x)));
+}
+
+// lo and hi rounded to bf16 (to nearest even), packed: lo in the low half
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
 }
 
 // A stage's tile of one operand: Rows output-axis rows x kGemmBK terms,
@@ -222,6 +241,64 @@ __device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// K-major operand of 8-row groups of 64-byte rows, 64-byte swizzle, at
+// shared address saddr (512-byte aligned, plus 32 bytes a k16 step)
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// d (64 x 128, this warpgroup) += a (64 x 16 bf16, registers) b (16 x 128
+// bf16, desc, K-major)
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d (64 x 64, this warpgroup) += a (64 x 16 bf16, registers) b (16 x 64
+// bf16, desc, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[BN / 2], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  if constexpr (BN == 128)
+    wgmma_m64n128k16_bf16(d, a, desc);
+  else
+    wgmma_m64n64k16_bf16(d, a, desc);
+}
+
 template <int BN>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], const uint32_t (&a)[4],
                                            uint64_t desc) {
@@ -235,8 +312,10 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2], const uint32_t (&
 // each owning 64 rows x BN columns: its X fragments in registers, Y's split
 // tiles (BN rows x kGemmBK terms, 16-byte chunk c of row j at c ^ (j % 8))
 // by descriptor.  chunk: terms per blockIdx.z; out is the tile's
-// destination, at blockIdx.z * M * N for split-K partial tiles.
-template <int BM, int BN, bool XByTerm, bool YByTerm>
+// destination, at blockIdx.z * M * N for split-K partial tiles.  Bf16: the
+// bf16-operand mode, Y's one bf16 tile (BN rows x kGemmBK terms, 16-byte
+// chunk c of row j at c ^ (j / 2 % 4)) in place of the split tiles.
+template <int BM, int BN, bool XByTerm, bool YByTerm, bool Bf16>
 static __global__ void __launch_bounds__(2 * BM, BM == 128 ? 2 : 4)
 gemm_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, int ldy,
             int vec, int M, int N, int T, int chunk, int accumulate,
@@ -280,34 +359,58 @@ gemm_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, i
     __syncthreads();
     const float* xt = xs + (k % kGemmStages) * LX::kFloats;
     const float* yt = ys + (k % kGemmStages) * LY::kFloats;
-    // Y's slice into the big and small tiles: (row j, 4 terms from 4c)
+    // Y's slice into the big and small tiles: (row j, 4 terms from 4c); in
+    // the bf16-operand mode into the bf16 tile: (row j, 8 terms from 8c)
+    constexpr int kTerms = Bf16 ? 8 : 4;
 #pragma unroll
-    for (int u = 0; u < BN * kGemmBK / 4 / kThr; ++u) {
+    for (int u = 0; u < BN * kGemmBK / kTerms / kThr; ++u) {
       const int p = threadIdx.x + u * kThr, j = p % BN, c = p / BN;
-      float v[4];
+      float v[kTerms];
       if (YByTerm) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = yt[LY::at(j, 4 * c + e)];
+        for (int e = 0; e < kTerms; ++e) v[e] = yt[LY::at(j, kTerms * c + e)];
       } else {
-        const float4 f = *reinterpret_cast<const float4*>(yt + LY::at(j, 4 * c));
-        v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-      }
-      uint4 hi, lo;
-      split_tf32(v[0], hi.x, lo.x);
-      split_tf32(v[1], hi.y, lo.y);
-      split_tf32(v[2], hi.z, lo.z);
-      split_tf32(v[3], hi.w, lo.w);
-      const int at = j * kGemmBK + ((c ^ (j & 7)) * 4);
-      *reinterpret_cast<uint4*>(bbig + at) = hi;
-      *reinterpret_cast<uint4*>(bsmall + at) = lo;
-    }
-    uint32_t ab[kGemmBK / 8][4], as[kGemmBK / 8][4];
 #pragma unroll
-    for (int kk = 0; kk < kGemmBK / 8; ++kk) {
-      split_tf32(xt[LX::at(row0, 8 * kk + q)], ab[kk][0], as[kk][0]);
-      split_tf32(xt[LX::at(row0 + 8, 8 * kk + q)], ab[kk][1], as[kk][1]);
-      split_tf32(xt[LX::at(row0, 8 * kk + q + 4)], ab[kk][2], as[kk][2]);
-      split_tf32(xt[LX::at(row0 + 8, 8 * kk + q + 4)], ab[kk][3], as[kk][3]);
+        for (int e = 0; e < kTerms; e += 4) {
+          const float4 f = *reinterpret_cast<const float4*>(yt + LY::at(j, kTerms * c + e));
+          v[e] = f.x; v[e + 1] = f.y; v[e + 2] = f.z; v[e + 3] = f.w;
+        }
+      }
+      if constexpr (Bf16) {
+        const uint4 w = make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                                   bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+        *reinterpret_cast<uint4*>(bbig + j * (kGemmBK / 2) + ((c ^ ((j >> 1) & 3)) * 4)) = w;
+      } else {
+        uint4 hi, lo;
+        split_tf32(v[0], hi.x, lo.x);
+        split_tf32(v[1], hi.y, lo.y);
+        split_tf32(v[2], hi.z, lo.z);
+        split_tf32(v[3], hi.w, lo.w);
+        const int at = j * kGemmBK + ((c ^ (j & 7)) * 4);
+        *reinterpret_cast<uint4*>(bbig + at) = hi;
+        *reinterpret_cast<uint4*>(bsmall + at) = lo;
+      }
+    }
+    // X's fragments: TF32 k8 (row, term) (g, q), (g + 8, q), (g, q + 4),
+    // (g + 8, q + 4); bf16 k16 the pairs of terms (2q, 2q + 1) and
+    // (2q + 8, 2q + 9) of the same rows
+    uint32_t ab[kGemmBK / 8][4], as[kGemmBK / 8][4];
+    if constexpr (Bf16) {
+#pragma unroll
+      for (int kk = 0; kk < kGemmBK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = row0 + 8 * (r & 1), t = 16 * kk + 2 * q + 8 * (r >> 1);
+          ab[kk][r] = bf16_pair(xt[LX::at(i, t)], xt[LX::at(i, t + 1)]);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kGemmBK / 8; ++kk) {
+        split_tf32(xt[LX::at(row0, 8 * kk + q)], ab[kk][0], as[kk][0]);
+        split_tf32(xt[LX::at(row0 + 8, 8 * kk + q)], ab[kk][1], as[kk][1]);
+        split_tf32(xt[LX::at(row0, 8 * kk + q + 4)], ab[kk][2], as[kk][2]);
+        split_tf32(xt[LX::at(row0 + 8, 8 * kk + q + 4)], ab[kk][3], as[kk][3]);
+      }
     }
     // the split tiles are complete, and every thread has read slice k's
     // raw stage: refill it
@@ -318,12 +421,18 @@ gemm_kernel(const float* __restrict__ X, int ldx, const float* __restrict__ Y, i
 #pragma unroll
     for (int r = 0; r < kAcc; ++r) pin(acc[r]);
     wgmma_fence();
+    if constexpr (Bf16) {
 #pragma unroll
-    for (int kk = 0; kk < kGemmBK / 8; ++kk) {
-      const uint64_t db = sw128_desc(big_addr + 32 * kk), ds = sw128_desc(small_addr + 32 * kk);
-      wgmma_tf32<BN>(acc, as[kk], db);
-      wgmma_tf32<BN>(acc, ab[kk], ds);
-      wgmma_tf32<BN>(acc, ab[kk], db);
+      for (int kk = 0; kk < kGemmBK / 16; ++kk)
+        wgmma_bf16<BN>(acc, ab[kk], sw64_desc(big_addr + 32 * kk));
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kGemmBK / 8; ++kk) {
+        const uint64_t db = sw128_desc(big_addr + 32 * kk), ds = sw128_desc(small_addr + 32 * kk);
+        wgmma_tf32<BN>(acc, as[kk], db);
+        wgmma_tf32<BN>(acc, ab[kk], ds);
+        wgmma_tf32<BN>(acc, ab[kk], db);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -369,7 +478,7 @@ static int device_sms(int dev) {
   return sms[dev];
 }
 
-template <int BM, int BN, bool XByTerm, bool YByTerm>
+template <int BM, int BN, bool XByTerm, bool YByTerm, bool Bf16>
 static cudaError_t launch_gemm(Operand x, Operand y, bool vec, int M, int N, int T,
                                int chunk, int splits, int accumulate, float* dst,
                                int dev, cudaStream_t stream) {
@@ -379,12 +488,12 @@ static cudaError_t launch_gemm(Operand x, Operand y, bool vec, int M, int N, int
                                                              GemmTile<YByTerm, BN>::kFloats));
   static int opted_on = -1;  // the device this kernel was opted in on
   if (opted_on != dev) {
-    cudaError_t e = set_smem(gemm_kernel<BM, BN, XByTerm, YByTerm>, smem);
+    cudaError_t e = set_smem(gemm_kernel<BM, BN, XByTerm, YByTerm, Bf16>, smem);
     if (e != cudaSuccess) return e;
     opted_on = dev;
   }
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  gemm_kernel<BM, BN, XByTerm, YByTerm><<<grid, 2 * BM, smem, stream>>>(
+  gemm_kernel<BM, BN, XByTerm, YByTerm, Bf16><<<grid, 2 * BM, smem, stream>>>(
       x.p, x.ld, y.p, y.ld, (int)vec, M, N, T, chunk, accumulate, dst);
   return cudaGetLastError();
 }
@@ -392,11 +501,12 @@ static cudaError_t launch_gemm(Operand x, Operand y, bool vec, int M, int N, int
 // out (M, N) row-major (+)= X' Y' over T terms with the operands' layouts
 // fixed at compile time.  work, if not null, holds work_floats floats for
 // split-K partial tiles: gemm_plan's splits need splits * M * N of them,
-// and a shorter workspace is refused (cudaErrorInvalidValue).
+// and a shorter workspace is refused (cudaErrorInvalidValue).  bf16: the
+// bf16-operand mode (see the top of this file).
 template <bool XByTerm, bool YByTerm>
 static cudaError_t gemm_as(Operand x, Operand y, int M, int N, int T, bool accumulate,
                            float* out, float* work, size_t work_floats,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, bool bf16 = false) {
   static_assert(!XByTerm || YByTerm, "X along the terms goes with Y along the terms");
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (T < 0 || x.by_term != XByTerm || y.by_term != YByTerm) return cudaErrorInvalidValue;
@@ -411,11 +521,17 @@ static cudaError_t gemm_as(Operand x, Operand y, int M, int N, int T, bool accum
                    reinterpret_cast<size_t>(y.p) % 16 == 0;
   float* dst = plan.splits > 1 ? work : out;
   const int acc = plan.splits > 1 ? 0 : (int)accumulate;
-  cudaError_t e =
-      plan.large ? launch_gemm<128, 128, XByTerm, YByTerm>(x, y, vec, M, N, T, plan.chunk,
-                                                           plan.splits, acc, dst, dev, stream)
-                 : launch_gemm<64, 64, XByTerm, YByTerm>(x, y, vec, M, N, T, plan.chunk,
-                                                         plan.splits, acc, dst, dev, stream);
+  cudaError_t e;
+  if (bf16)
+    e = plan.large ? launch_gemm<128, 128, XByTerm, YByTerm, true>(
+                         x, y, vec, M, N, T, plan.chunk, plan.splits, acc, dst, dev, stream)
+                   : launch_gemm<64, 64, XByTerm, YByTerm, true>(
+                         x, y, vec, M, N, T, plan.chunk, plan.splits, acc, dst, dev, stream);
+  else
+    e = plan.large ? launch_gemm<128, 128, XByTerm, YByTerm, false>(
+                         x, y, vec, M, N, T, plan.chunk, plan.splits, acc, dst, dev, stream)
+                   : launch_gemm<64, 64, XByTerm, YByTerm, false>(
+                         x, y, vec, M, N, T, plan.chunk, plan.splits, acc, dst, dev, stream);
   if (e != cudaSuccess || plan.splits == 1) return e;
   const size_t n = (size_t)M * N;
   const int blocks = (int)std::min((n + 255) / 256, (size_t)4096);
@@ -426,13 +542,16 @@ static cudaError_t gemm_as(Operand x, Operand y, int M, int N, int T, bool accum
 // gemm_as with the layouts given at run time
 static cudaError_t gemm(Operand x, Operand y, int M, int N, int T, bool accumulate,
                         float* out, float* work, size_t work_floats,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, bool bf16 = false) {
   if (x.by_term && !y.by_term) return cudaErrorInvalidValue;  // no caller
   if (x.by_term)
-    return gemm_as<true, true>(x, y, M, N, T, accumulate, out, work, work_floats, stream);
+    return gemm_as<true, true>(x, y, M, N, T, accumulate, out, work, work_floats, stream,
+                               bf16);
   if (y.by_term)
-    return gemm_as<false, true>(x, y, M, N, T, accumulate, out, work, work_floats, stream);
-  return gemm_as<false, false>(x, y, M, N, T, accumulate, out, work, work_floats, stream);
+    return gemm_as<false, true>(x, y, M, N, T, accumulate, out, work, work_floats, stream,
+                                bf16);
+  return gemm_as<false, false>(x, y, M, N, T, accumulate, out, work, work_floats, stream,
+                               bf16);
 }
 
 // out (m, n) = X^T Y over N rows: X (N, m), Y (N, n), row-major with leading
@@ -440,18 +559,19 @@ static cudaError_t gemm(Operand x, Operand y, int M, int N, int T, bool accumula
 // query) rows); deterministic
 static cudaError_t outer_sum(const float* X, int ldx, const float* Y, int ldy,
                              int N, int m, int n, float* out,
-                             cudaStream_t stream, float* work, size_t work_floats) {
+                             cudaStream_t stream, float* work, size_t work_floats,
+                             bool bf16 = false) {
   return gemm_as<true, true>(Operand{X, ldx, true}, Operand{Y, ldy, true}, m, n, N,
-                             false, out, work, work_floats, stream);
+                             false, out, work, work_floats, stream, bf16);
 }
 
 // table (N, n) = X (N, k) W (k, n), both row-major: the per-video table
 // value . Wc (N = B*H*S rows) and the vocabulary's embed . token_w
 static cudaError_t row_table(const float* X, const float* W, int N, int k, int n,
                              float* table, cudaStream_t stream, float* work,
-                             size_t work_floats) {
+                             size_t work_floats, bool bf16 = false) {
   return gemm_as<false, true>(Operand{X, k, false}, Operand{W, n, true}, N, n, k,
-                              false, table, work, work_floats, stream);
+                              false, table, work, work_floats, stream, bf16);
 }
 
 }  // namespace dsa

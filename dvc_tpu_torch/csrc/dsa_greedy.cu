@@ -46,6 +46,18 @@
 // Steps 1-5 (hvec, taps, scores, softmax, ctx) live in dsa_common.cuh,
 // shared with the teacher-forcing scan.  The transcendentals are the exact
 // tanhf/expf/logf (no fast-math).
+//
+// K6-bf16 (bf16 != 0, --tpu_compute_dtype bfloat16) is the same kernel in
+// the bf16-operand mode of dsa_common.cuh: the TPU kernel's bf16 variant
+// rounds both operands of hvec, the offsets, the taps, taps Wc, the token
+// share, the gates and the logits to bf16 and accumulates in f32
+// (_make_dot('bfloat16')).  The wrapper passes value and the weights
+// rounded, the tables come from dsa::gemm's bf16 mode, and h and ctx are
+// stored rounded.  One rounding point moves with the table form: the TPU
+// kernel scores bf16(sum_t bf16(w_t) bf16(v_t)) . bf16(Wc), the taps rounded
+// after the lerp; here sum_t bf16(w_t) (bf16(v_t) . bf16(Wc)), a lerp of
+// two rows of the bf16 table, so the taps are never rounded (the gap is
+// measured by tests/test_torch_bf16_kernels.py and chip_smoke.py --bf16).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -224,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
         const float c = sigmoidf_(z[1][q]) * c_s[q * ldR + r]
                         + sigmoidf_(z[0][q]) * tanhf(z[2][q]);
         c_s[q * ldR + r] = c;
-        hn_s[q * ldR + r] = sigmoidf_(z[3][q]) * tanhf(c);
+        hn_s[q * ldR + r] = round_if(at.bf16, sigmoidf_(z[3][q]) * tanhf(c));
       }
     }
     __syncthreads();
@@ -290,7 +302,9 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
 // (B, K, Q).  Scratch: vw (B, H, S, A) and tw (V1, 4R), the tables built
 // here first, and work (work_floats floats) for their split-K partial tiles
 // (see dsa::gemm_as).  shapes: host array of the L level lengths of value's S
-// axis; LP = L * P.  Returns cudaGetLastError() of the launches, or
+// axis; LP = L * P.  bf16: K6-bf16, with value_t, off_w_h, h2att_w,
+// ctx_w3, w_hh and logit_w given rounded to bf16 (the tables' GEMMs round
+// their own operands).  Returns cudaGetLastError() of the launches, or
 // cudaErrorInvalidValue for shapes the kernel does not take.
 extern "C" int dvc_dsa_greedy(
     const float* value_t, const float* base_pos, const float* scale_t,
@@ -300,13 +314,14 @@ extern "C" int dvc_dsa_greedy(
     const float* cb, const float* aw, const float* ctx_w3, const float* w_hh,
     const float* ab, const int* shapes, int* tok, float* lp, float* vw,
     float* tw, float* work, int B, int H, int S, int Dh, int Q, int LP, int L, int A,
-    int R, int E, int V1, int K, int work_floats, void* stream) {
+    int R, int E, int V1, int K, int work_floats, int bf16, void* stream) {
   GreedyArgs a;
   AttendArgs& at = a.at;
   if (!fill_attend(&at, value_t, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
   at.base_pos = base_pos; at.scale = scale_t;
   at.off_w = off_w_h; at.h2att_w = h2att_w; at.h2att_b = h2att_b;
+  at.bf16 = bf16 != 0;
   a.const_z = const_z; a.vw = vw; a.tw = tw;
   a.logit_w = logit_w; a.logit_b = logit_b;
   a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab; a.tok = tok; a.lp = lp;
@@ -322,8 +337,9 @@ extern "C" int dvc_dsa_greedy(
   if (e != cudaSuccess) return (int)e;
   // the tables, once per launch
   const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
-  if ((e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf)) != cudaSuccess ||
-      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf)) != cudaSuccess)
+  if ((e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf, at.bf16)) !=
+          cudaSuccess ||
+      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf, at.bf16)) != cudaSuccess)
     return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 2)

@@ -57,7 +57,23 @@
 // vectors vary by a few ulps from run to run; the GEMMs are deterministic.
 // The same products bound the forward, once per step.  The cell backward
 // lives in dsa_common.cuh, shared with the word-step backward K10 of
-// dsa_step.cu.  Shared memory at R = A = 512, LP = 16: the backward's block
+// dsa_step.cu.
+//
+// K4-bf16 and K5-bf16 (bf16 != 0, --tpu_compute_dtype bfloat16) are the same
+// kernels in the bf16-operand mode of dsa_common.cuh: the TPU kernels' bf16
+// variants round both operands of every product of the step and of its
+// backward (the transposed products and the weight gradients' outer sums
+// included) to bf16 and accumulate in f32 (_make_dot('bfloat16')).  The
+// wrapper passes value and the weights rounded, every GEMM here runs in its
+// bf16 mode, and the activations that the step's products read from shared
+// memory are stored rounded (h, ctx; in the backward dz, dhvec and doff);
+// hs, cs and dz are written in f32.  The table form moves rounding points:
+// the scores are a lerp of two rows of bf16(v) . bf16(Wc) where the TPU
+// kernel rounds the lerped taps before its product with Wc, and the
+// backward forms dvalue's scores term as bf16(G) . bf16(Wc)^T and dWc as
+// bf16(value)^T bf16(G), G the lerp-scatter of bf16(du), where the TPU
+// kernel rounds the taps and their gradients (measured in
+// tests/test_torch_bf16_kernels.py and chip_smoke.py --bf16).  Shared memory at R = A = 512, LP = 16: the backward's block
 // of 8 queries 167,440 bytes at cap_nheads 1 and 192,528 at cap_nheads 8,
 // the forward's of 16 queries 168,960 and 204,800 (the card allows
 // 232,448).  Limits of the backward: A <= 512 (two float4 column groups per
@@ -170,7 +186,7 @@ scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs
                         + sigmoidf_(z[0][q]) * tanhf(z[2][q]);
         const float h = sigmoidf_(z[3][q]) * tanhf(c);
         c_s[q * ldR + r] = c;
-        hn_s[q * ldR + r] = h;
+        hn_s[q * ldR + r] = round_if(at.bf16, h);
         if (q0 + q < Q) {
           const size_t o = (((size_t)b * a.K + k) * Q + q0 + q) * R + r;
           hs[o] = h;
@@ -286,7 +302,7 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
     // ---- h_{k-1} of the tile
     for (int i = tid; i < QT * R; i += kThreads) {
       const int q = i / R, r = i % R;
-      sm.h[q * ldR + r] = o.hs_prev[(bk * Q + qg[q]) * R + r];
+      sm.h[q * ldR + r] = round_if(at.bf16, o.hs_prev[(bk * Q + qg[q]) * R + r]);
     }
     __syncthreads();
 
@@ -325,7 +341,7 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
                                        c_prev, gh, gc, dzg);
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
-          dz_s[q * R4 + g * R + r] = dzg[g];
+          dz_s[q * R4 + g * R + r] = round_if(at.bf16, dzg[g]);
           if (valid) o.dz[row * R4 + g * R + r] = dzg[g];
         }
         dc_s[q * ldR + r] = dc_prev;
@@ -352,7 +368,7 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
       const int q = row / HLP, hh = (row / LP) % H, p = row % LP;
       const float dp = dpos_s[row];
       const float sc = at.scale[((size_t)b * Q + qg[q]) * LP + p];
-      ddot_s[row] = dp * sc;
+      ddot_s[row] = round_if(at.bf16, dp * sc);
       if (q0 + q < Q) {
         o.dbase[(((size_t)b * H + hh) * Q + q0 + q) * LP + p] += dp;
         o.doff_all[(bk * Q + q0 + q) * HLP + hh * LP + p] = dp * sc;
@@ -426,7 +442,8 @@ bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_
 // vw (B, H, S, A), the table value . Wc built here first, and work
 // (work_floats floats) for its split-K partial tiles (see dsa::gemm_as).  All f32,
 // contiguous, on the current device; shapes is a host array of the L level
-// lengths.  Returns cudaGetLastError() of the launches, or
+// lengths.  bf16: K4-bf16, with value_t, off_w_h, h2att_w, ctx_w3 and w_hh
+// given rounded to bf16.  Returns cudaGetLastError() of the launches, or
 // cudaErrorInvalidValue for shapes the kernel does not take.
 extern "C" int dvc_dsa_scan_fwd(
     const float* value_t, const float* base_pos, const float* scale_t,
@@ -434,11 +451,12 @@ extern "C" int dvc_dsa_scan_fwd(
     const float* h2att_b, const float* cw, const float* cb, const float* aw,
     const float* ab, const float* ctx_w3, const float* w_hh, const int* shapes,
     float* hs, float* cs, float* vw, float* work, int B, int H, int S, int Dh, int Q,
-    int LP, int L, int A, int R, int K, int work_floats, void* stream) {
+    int LP, int L, int A, int R, int K, int work_floats, int bf16, void* stream) {
   ScanArgs a;
   if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
                           h2att_b, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
+  a.at.bf16 = bf16 != 0;
   a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab;
   a.B = B; a.K = K;
   if (B == 0 || Q == 0 || K == 0) return 0;
@@ -452,7 +470,7 @@ extern "C" int dvc_dsa_scan_fwd(
                              : set_smem(scan_fwd_kernel<kQT>, smem);
   if (e != cudaSuccess) return (int)e;
   // the table value . Wc, once per launch
-  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, work_floats);
+  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, work_floats, a.at.bf16);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 4)
@@ -475,6 +493,7 @@ extern "C" int dvc_dsa_scan_fwd(
 // work (work_floats floats: dsa::gemm_plan's splits times the output of
 // each GEMM here, the largest of them) for split-K partial tiles.  dh2att_b equals
 // dcb.  A, Dh, R multiples of 4, A <= 512; every operand 16-byte aligned.
+// bf16: K5-bf16, operands as for dvc_dsa_scan_fwd.
 extern "C" int dvc_dsa_scan_bwd(
     const float* value_t, const float* base_pos, const float* scale_t,
     const float* z_all, const float* off_w_h, const float* h2att_w,
@@ -485,11 +504,13 @@ extern "C" int dvc_dsa_scan_bwd(
     float* doffw, float* dh2w, float* dcw, float* dcb, float* daw, float* dab,
     float* dctx_w3, float* dwhh, float* G, float* ctx_all, float* dhvec_all,
     float* doff_all, float* vw, float* work, int B, int H, int S, int Dh, int Q,
-    int LP, int L, int A, int R, int K, int work_floats, void* stream) {
+    int LP, int L, int A, int R, int K, int work_floats, int bf16, void* stream) {
   ScanArgs a;
   if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
                           h2att_b, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
+  const bool rb = bf16 != 0;
+  a.at.bf16 = rb;
   if (A > 256 * kColGroups || A % 4 != 0 || Dh % 4 != 0 || R % 4 != 0 ||
       reinterpret_cast<size_t>(value_t) % 16 != 0 ||
       reinterpret_cast<size_t>(w_hh) % 16 != 0 || reinterpret_cast<size_t>(ctx_w3) % 16 != 0 ||
@@ -516,7 +537,8 @@ extern "C" int dvc_dsa_scan_bwd(
   const int BHS = B * H * S;
   // the table value . Wc, once per launch
   const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
-  if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf)) != cudaSuccess) return (int)e;
+  if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf, rb)) != cudaSuccess)
+    return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 2)
     scan_bwd_kernel<2><<<grid, kThreads, smem, st>>>(a, o);
@@ -527,14 +549,18 @@ extern "C" int dvc_dsa_scan_bwd(
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   // the scores' share of dvalue, once per launch: dvalue += G . Wc^T
   if ((e = gemm(Operand{G, A, false}, Operand{cw, A, false}, BHS, Dh, A, true,
-                dvalue, work, wf, st)) != cudaSuccess)
+                dvalue, work, wf, st, rb)) != cudaSuccess)
     return (int)e;
   const int N = B * K * Q, HD = H * Dh, HLP = H * LP;
-  if ((e = outer_sum(hs_prev, R, dz, 4 * R, N, R, 4 * R, dwhh, st, work, wf)) != cudaSuccess ||
-      (e = outer_sum(ctx_all, HD, dz, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf)) != cudaSuccess ||
-      (e = outer_sum(hs_prev, R, dhvec_all, A, N, R, A, dh2w, st, work, wf)) != cudaSuccess ||
-      (e = outer_sum(hs_prev, R, doff_all, HLP, N, R, HLP, doffw, st, work, wf)) != cudaSuccess ||
-      (e = outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, wf)) != cudaSuccess)
+  if ((e = outer_sum(hs_prev, R, dz, 4 * R, N, R, 4 * R, dwhh, st, work, wf, rb)) !=
+          cudaSuccess ||
+      (e = outer_sum(ctx_all, HD, dz, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf, rb)) !=
+          cudaSuccess ||
+      (e = outer_sum(hs_prev, R, dhvec_all, A, N, R, A, dh2w, st, work, wf, rb)) !=
+          cudaSuccess ||
+      (e = outer_sum(hs_prev, R, doff_all, HLP, N, R, HLP, doffw, st, work, wf, rb)) !=
+          cudaSuccess ||
+      (e = outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, wf, rb)) != cudaSuccess)
     return (int)e;
   return 0;
 }

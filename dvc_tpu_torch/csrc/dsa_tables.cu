@@ -54,13 +54,16 @@ extern "C" int dvc_dsa_table_gemm_bwd(const float* x, const float* w,
 // along the terms goes with Y along the terms) with leading dimension ld,
 // as the kernels' outer sums (both along the terms) and G . Wc^T (both
 // along their rows) run it inside their launches; work as
-// dvc_dsa_table_gemm (dvc_dsa_gemm_work_floats of the shape).  Returns
+// dvc_dsa_table_gemm (dvc_dsa_gemm_work_floats of the shape); bf16 != 0:
+// the bf16-operand mode (both operands rounded to bf16, one pass, f32
+// accumulation), as the bf16 variants of K4-K6 run it.  Returns
 // cudaGetLastError() of the launches.
 extern "C" int dvc_dsa_gemm(const float* x, int ldx, int x_by_term, const float* y, int ldy,
                             int y_by_term, int M, int N, int T, int accumulate, float* out,
-                            float* work, long long work_floats, void* stream) {
+                            float* work, long long work_floats, int bf16, void* stream) {
   if (work_floats < 0) return (int)cudaErrorInvalidValue;
   return (int)dsa::gemm(dsa::Operand{x, ldx, x_by_term != 0},
                         dsa::Operand{y, ldy, y_by_term != 0}, M, N, T, accumulate != 0,
-                        out, work, (size_t)work_floats, (cudaStream_t)stream);
+                        out, work, (size_t)work_floats, (cudaStream_t)stream, bf16 != 0);
 }
+

@@ -104,6 +104,10 @@ class CaptionHeadConfig:
     scan_fuse: bool = True
     greedy_fuse: bool = True
     lstm_fuse: bool = False
+    # --tpu_compute_dtype: the fused kernels' products on bf16 operands
+    # under 'bfloat16' (the JAX head's att_precision); the hoisted products
+    # stay f32, since the head's query and memory arrive in f32
+    precision: str = 'float32'
 
 
 class _LSTMWeights(nn.Module):
@@ -445,6 +449,10 @@ class DSACaptionHead(_CaptionHead):
         return lstm_step_pre(self.core.rnn.layers(), z0 + ctx, h, c)
 
     def _stepper(self, hoisted, temporal_shapes):
+        if self.cfg.precision != 'float32' and self.cfg.att_hid_size > 0:
+            raise NotImplementedError(
+                'the stepwise caption path has no bf16 variant of its '
+                'word-step kernels K7-K10 yet (ROADMAP A3b)')
         vw = self._value_table(hoisted)
         return lambda z0, state: self._step(hoisted, vw, z0, state,
                                             temporal_shapes)
@@ -475,7 +483,8 @@ class DSACaptionHead(_CaptionHead):
                 value_t, base_pos, scale_t, const_z, self.embed.weight,
                 token_w, self.logit.weight.T, self.logit.bias, off_w_h,
                 h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh,
-                temporal_shapes, K)                           # (B, K, Pq)
+                temporal_shapes, K,
+                precision=self.cfg.precision)                 # (B, K, Pq)
         else:
             tok, lp = self._decode_steps(
                 self._stepper(hoisted, temporal_shapes), token_w, const_z,
@@ -510,7 +519,8 @@ class DSACaptionHead(_CaptionHead):
             tokens = seq[:, :-1].reshape(B, Pq, K).transpose(1, 2)
             z_all = self.embed(tokens.long()) @ token_w + const_z[:, None]
             hs = dsa_teacher_scan(value_t, base_pos, scale_t, z_all,
-                                  *step_args, temporal_shapes)  # (B, K, Pq, R)
+                                  *step_args, temporal_shapes,
+                                  precision=cfg.precision)    # (B, K, Pq, R)
             hs = hs.transpose(1, 2).reshape(n, K, R)
             hs = dropout(hs, cfg.drop_prob, gen)
             return torch.log_softmax(self.logit(hs), dim=-1)

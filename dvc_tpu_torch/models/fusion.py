@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .deformable_transformer import LN_EPS, MultiheadAttention
-from .pdvc import PDVC, PDVCConfig, init_mha_, lecun_normal_, refuse_bf16
+from .deformable_transformer import LN_EPS, MultiheadAttention, dense
+from .pdvc import DTYPES, PDVC, PDVCConfig, init_mha_, lecun_normal_
 
 
 def fusion_heads(opt) -> int:
@@ -26,12 +26,17 @@ def fusion_heads(opt) -> int:
 
 
 class FusionPDVC(nn.Module):
+    """``fusion_dtype`` 'bfloat16' (``--fusion_dtype``) runs each block's
+    attention and ``mlp_fc`` in bf16 on f32 weights; its LayerNorms and
+    residual adds stay f32 (the JAX ``AttentionBlock``)."""
+
     def __init__(self, cfg: PDVCConfig, fusion_dim: int = 768,
-                 fusion_heads: int = 32):
+                 fusion_heads: int = 32, fusion_dtype: str = 'float32'):
         super().__init__()
+        self.fusion_dtype = DTYPES[fusion_dtype]
         for i in (1, 2):
-            setattr(self, f'mha{i}', MultiheadAttention(fusion_dim,
-                                                        fusion_heads))
+            setattr(self, f'mha{i}', MultiheadAttention(
+                fusion_dim, fusion_heads, dtype=self.fusion_dtype))
             setattr(self, f'ln{i}', nn.LayerNorm(fusion_dim, eps=LN_EPS))
             setattr(self, f'mlp_seq{i}', nn.Sequential(
                 nn.Linear(fusion_dim, fusion_dim),
@@ -39,10 +44,13 @@ class FusionPDVC(nn.Module):
         self.pdvcModel = PDVC(cfg)
 
     def _block(self, i, query, kv):
-        """MHA -> LayerNorm -> + kv, then Linear -> LayerNorm -> + residual."""
-        x = getattr(self, f'ln{i}')(getattr(self, f'mha{i}')(query, kv, kv))
+        """MHA -> LayerNorm -> + kv, then Linear -> LayerNorm -> + residual;
+        the MHA and the Linear in ``fusion_dtype``, the rest in f32."""
+        x = getattr(self, f'ln{i}')(
+            getattr(self, f'mha{i}')(query, kv, kv).float())
         x = x + kv
-        return getattr(self, f'mlp_seq{i}')(x) + x
+        fc, ln = getattr(self, f'mlp_seq{i}')
+        return ln(dense(fc, x, self.fusion_dtype).float()) + x
 
     def _fuse(self, batch):
         clips = batch['video_tensor']
@@ -87,12 +95,12 @@ def make_fusion_model(opt, device='cuda', seed: int = 0) -> FusionPDVC:
     asks for the CPU) in eval mode, with seeded
     random weights drawn on the CPU from a ``torch.Generator`` (so the same
     seed gives the same weights on any device); load a checkpoint over them
-    with ``load_state_dict(strict=True)``.  The fusion blocks compute in
-    f32 like the rest: ``--fusion_dtype bfloat16`` raises."""
-    refuse_bf16(opt, 'fusion_dtype')
+    with ``load_state_dict(strict=True)``.  The weights are f32 under either
+    ``--fusion_dtype`` and ``--tpu_compute_dtype``."""
     with torch.device('meta'):
         model = FusionPDVC(PDVCConfig.from_opt(opt), fusion_dim=opt.feature_dim,
-                           fusion_heads=fusion_heads(opt))
+                           fusion_heads=fusion_heads(opt),
+                           fusion_dtype=opt.fusion_dtype)
     model.to_empty(device='cpu')
     model.init_parameters_(torch.Generator().manual_seed(seed))
     return model.to(device).eval()

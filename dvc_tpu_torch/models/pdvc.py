@@ -26,6 +26,15 @@ Batch (dict of tensors), as in the JAX package:
   for training also gt_boxes (B, G, 2) (center, length), gt_boxes_mask
   (B, G) bool, gt_labels (B, G) int, cap_tensor (B, G, Lc) int (BOS/EOS =
   0), cap_mask (B, G, Lc) bool.
+
+``--tpu_compute_dtype bfloat16`` (``PDVCConfig.compute_dtype``) runs the
+trunk's linears, the decoder's self-attention and the residual adds in
+bf16 on f32 weights, as the flax layers' ``dtype`` does (see
+:mod:`.deformable_transformer`); the encoder hands f32 memory on and each
+decoder layer's output is cast to f32, so the heads compute in f32; and the
+fused caption kernels take bf16 operands (K4-bf16, K5-bf16, K6-bf16; the
+trunk MSDA kernels K1-K3 stay f32, as in JAX).  The stepwise caption
+routes under bf16 raise (:func:`refuse_bf16`).
 """
 
 from __future__ import annotations
@@ -80,10 +89,16 @@ class PDVCConfig:
     # decode
     sample_max: bool = True
     sample_temperature: float = 1.0
+    # --tpu_compute_dtype: 'float32' or 'bfloat16'
+    compute_dtype: str = 'float32'
+
+    @property
+    def dtype(self):
+        return DTYPES[self.compute_dtype]
 
     @classmethod
     def from_opt(cls, opt):
-        refuse_bf16(opt, 'tpu_compute_dtype')
+        refuse_bf16(opt)
         cap = CaptionHeadConfig(
             vocab_size=opt.vocab_size,
             input_encoding_size=opt.input_encoding_size,
@@ -95,7 +110,8 @@ class PDVCConfig:
                                        opt.num_feature_levels),
             scan_fuse=bool(opt.dsa_scan_fuse),
             greedy_fuse=bool(opt.dsa_greedy_fuse),
-            lstm_fuse=bool(opt.dsa_lstm_fuse))
+            lstm_fuse=bool(opt.dsa_lstm_fuse),
+            precision=opt.tpu_compute_dtype)
         return cls(
             num_classes=opt.num_classes, num_queries=opt.num_queries,
             num_feature_levels=opt.num_feature_levels,
@@ -113,18 +129,47 @@ class PDVCConfig:
             transformer_input_type=opt.transformer_input_type,
             caption=cap, criterion=CriterionConfig.from_opt(opt),
             sample_max=bool(opt.caption_sample_max),
-            sample_temperature=float(opt.caption_sample_temperature))
+            sample_temperature=float(opt.caption_sample_temperature),
+            compute_dtype=opt.tpu_compute_dtype)
 
 
-def refuse_bf16(opt, flag: str):
-    """The port computes in f32 only: a ``--tpu_compute_dtype`` or
-    ``--fusion_dtype`` other than float32 raises rather than being
-    ignored."""
-    value = getattr(opt, flag, 'float32')
-    if value != 'float32':
-        raise NotImplementedError(
-            f'--{flag} {value}: the port computes in float32 only; a bf16 '
-            'path needs bf16 variants of the kernels (ROADMAP A3)')
+DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def bf16_stepwise_routes(opt):
+    """The options of ``opt`` that would run the LSTM-DSA head's stepwise
+    word steps (K7-K10, or the sampling decode), which have no bf16
+    variant: scheduled sampling, ``--dsa_scan_fuse 0``, ``--dsa_greedy_fuse
+    0``, ``--dsa_lstm_fuse 1``, ``--caption_sample_max 0``, or a core of
+    more than one layer."""
+    if opt.caption_decoder_type != 'standard' or opt.att_hid_size <= 0:
+        return []
+    routes = {'--scheduled_sampling_start >= 0':
+              opt.scheduled_sampling_start >= 0,
+              '--dsa_scan_fuse 0': not opt.dsa_scan_fuse,
+              '--dsa_greedy_fuse 0': not opt.dsa_greedy_fuse,
+              '--dsa_lstm_fuse 1': bool(opt.dsa_lstm_fuse),
+              '--caption_sample_max 0': not opt.caption_sample_max,
+              '--num_layers > 1': opt.num_layers > 1}
+    return [flag for flag, on in routes.items() if on]
+
+
+def refuse_bf16(opt):
+    """Checks ``--tpu_compute_dtype`` and ``--fusion_dtype``: each is
+    float32 or bfloat16, and under bf16 compute no stepwise caption route
+    is asked for (:func:`bf16_stepwise_routes`): those raise
+    ``NotImplementedError`` rather than running in f32."""
+    for flag in ('tpu_compute_dtype', 'fusion_dtype'):
+        value = getattr(opt, flag, 'float32')
+        if value not in DTYPES:
+            raise ValueError(f'--{flag} {value!r}: one of {tuple(DTYPES)}')
+    if getattr(opt, 'tpu_compute_dtype', 'float32') == 'bfloat16':
+        routes = bf16_stepwise_routes(opt)
+        if routes:
+            raise NotImplementedError(
+                f'--tpu_compute_dtype bfloat16 with {", ".join(routes)}: the '
+                'stepwise caption path has no bf16 variant of its word-step '
+                'kernels K7-K10 yet (ROADMAP A3b)')
 
 
 class BBoxHead(nn.Module):
@@ -158,13 +203,13 @@ class DeformableTransformer(nn.Module):
             self.pos_trans_norm = nn.LayerNorm(2 * d, eps=LN_EPS)
         else:
             self.reference_points = nn.Linear(d, 1)
-        p = c.transformer_dropout_prob
+        p, dt = c.transformer_dropout_prob, c.dtype
         self.encoder = _Layers(
             EncoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.enc_n_points,
-                         p) for _ in range(c.enc_layers))
+                         p, dt) for _ in range(c.enc_layers))
         self.decoder = _Layers(
             DecoderLayer(d, c.transformer_ff_dim, L, c.nheads, c.dec_n_points,
-                         p) for _ in range(c.dec_layers))
+                         p, dt) for _ in range(c.dec_layers))
 
 
 INPUT_TYPES = ('queries', 'learnt_proposals', 'gt_proposals')
@@ -227,8 +272,9 @@ class PDVC(nn.Module):
         memory = src_flat
         ref = encoder_reference_points(shapes, valid_ratios)
         for layer in self.transformer.encoder.layers:
-            memory = layer(memory, pos_flat, ref, shapes, mask_flat, gen)
-        return memory, shapes, valid_ratios, mask_flat
+            memory = layer(memory, pos_flat.to(memory.dtype), ref, shapes,
+                           mask_flat, gen)
+        return memory.float(), shapes, valid_ratios, mask_flat
 
     def decode(self, memory, shapes, valid_ratios, mask_flat, init_reference,
                tgt, query_pos, gen=None, query_mask=None):
@@ -249,7 +295,7 @@ class PDVC(nn.Module):
                 ref_input = (reference_points[:, :, None]
                              * valid_ratios[:, None, :, None])
             output = layer(output, query_pos, ref_input, memory, shapes,
-                           mask_flat, query_mask, gen=gen)
+                           mask_flat, query_mask, gen=gen).float()
             delta = self.bbox_head[lid](output)
             hs.append(output)
             refs.append(reference_points)
@@ -302,7 +348,7 @@ class PDVC(nn.Module):
         the box is the reference itself (refinement is off)."""
         if self.two_stage:
             return (self.class_head[l_id](hs),
-                    self.count_head[l_id](hs.max(dim=1).values), reference)
+                    self.count_head[l_id](hs.amax(dim=1)), reference)
         ref_inv = inverse_sigmoid(reference)
         if reference.shape[-1] == 1 and train_path:
             coord = torch.sigmoid(torch.cat([delta[..., :1] + ref_inv,
@@ -310,7 +356,7 @@ class PDVC(nn.Module):
         else:
             coord = torch.sigmoid(delta + ref_inv)
         return (self.class_head[l_id](hs),
-                self.count_head[l_id](hs.max(dim=1).values), coord)
+                self.count_head[l_id](hs.amax(dim=1)), coord)
 
     def caption_reference(self, reference, valid_ratios, shapes):
         """Caption-head sampling geometry as (center, scale), each
@@ -546,8 +592,8 @@ def make_pdvc_model(opt, device='cuda', seed: int = 0) -> PDVC:
     asks for the CPU) in eval mode, with seeded random weights drawn on the
     CPU from a ``torch.Generator``, as :func:`make_fusion_model` builds
     FusionPDVC; load a checkpoint over them with
-    ``load_state_dict(strict=True)``.  ``--tpu_compute_dtype bfloat16``
-    raises."""
+    ``load_state_dict(strict=True)``.  The weights are f32 under either
+    ``--tpu_compute_dtype``."""
     with torch.device('meta'):
         model = PDVC(PDVCConfig.from_opt(opt))
     model.to_empty(device='cpu')

@@ -39,16 +39,16 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     'dvc_msda_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     'dvc_msda_bwd': [_P] * 7 + [_I] * 7 + [_P, _P],
-    'dvc_dsa_greedy': [_P] * 23 + [_I] * 13 + [_P],
-    'dvc_dsa_scan_fwd': [_P] * 18 + [_I] * 11 + [_P],
-    'dvc_dsa_scan_bwd': [_P] * 35 + [_I] * 11 + [_P],
+    'dvc_dsa_greedy': [_P] * 23 + [_I] * 14 + [_P],
+    'dvc_dsa_scan_fwd': [_P] * 18 + [_I] * 12 + [_P],
+    'dvc_dsa_scan_bwd': [_P] * 35 + [_I] * 12 + [_P],
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 8 + [_P],
     'dvc_dsa_step_bwd': [_P] * 16 + [_I] * 8 + [_P],
     'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_bwd': [_P] * 29 + [_I] * 10 + [_P],
     'dvc_dsa_table_gemm': [_P] * 4 + [_I] * 4 + [_P],
     'dvc_dsa_table_gemm_bwd': [_P] * 6 + [_I] * 4 + [_P],
-    'dvc_dsa_gemm': [_P, _I, _I, _P] + [_I] * 6 + [_P, _P, _LL, _P],
+    'dvc_dsa_gemm': [_P, _I, _I, _P] + [_I] * 6 + [_P, _P, _LL, _I, _P],
     'dvc_dsa_gemm_work_floats': [_I] * 4,
     'dvc_dsa_gemm_plan': [_I] * 4 + [_P],
 }

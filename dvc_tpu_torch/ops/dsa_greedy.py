@@ -12,6 +12,13 @@
 * :func:`greedy_mask_outputs` — EOS masking, applied outside the kernel as
   in the JAX package.
 
+``precision='bfloat16'`` (``--tpu_compute_dtype bfloat16``) is the TPU
+kernel's bf16 variant: every in-kernel product on bf16-rounded operands
+with f32 accumulation.  Its plain version is
+:func:`dvc_tpu_torch.ops.dsa_bf16.greedy_scan`; on the card the same
+kernel runs in its bf16-operand mode (K6-bf16), counted apart in
+``dsa_greedy_scan.launches_bf16``.
+
 Arguments, as in the JAX package: value_t (B, H, S, Dh); base_pos
 (B, H, Q, LP) level-relative base positions; scale_t (B, Q, LP); const_z
 (B, Q, 4R); embed (V+1, E); token_w (E, 4R); logit_w (R, V+1); logit_b
@@ -27,6 +34,14 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+
+PRECISIONS = ('float32', 'bfloat16')
+
+
+def check_precision(precision):
+    if precision not in PRECISIONS:
+        raise ValueError(f'precision {precision!r}: one of {PRECISIONS}')
+    return precision == 'bfloat16'
 
 
 def _level_bounds(temporal_shapes, P, device):
@@ -103,11 +118,18 @@ def greedy_pick(logits):
 def dsa_greedy_scan_ref(value_t, base_pos, scale_t, const_z, embed, token_w,
                         logit_w, logit_b, off_w_h, h2att_w, h2att_b, cw, cb,
                         aw, ab, ctx_w3, w_hh, temporal_shapes, K,
-                        with_margin=False):
+                        with_margin=False, precision='float32'):
     """Plain K-step greedy loop.  ``with_margin=True`` also returns each
     step's top-2 logit margin (B, K, Q), which says where an argmax is a
-    near-tie that another summation order may flip."""
+    near-tie that another summation order may flip.  ``precision``
+    'bfloat16': the bf16-operand products (:mod:`.dsa_bf16`)."""
     dsa_greedy_scan_ref.calls += 1
+    if check_precision(precision):
+        from .dsa_bf16 import greedy_scan
+        return greedy_scan(value_t, base_pos, scale_t, const_z, embed,
+                           token_w, logit_w, logit_b, off_w_h, h2att_w,
+                           h2att_b, cw, cb, aw, ab, ctx_w3, w_hh,
+                           temporal_shapes, K, with_margin=with_margin)
     B, H, S, Dh = value_t.shape
     Q = const_z.shape[1]
     R = w_hh.shape[0]
@@ -149,14 +171,17 @@ def greedy_mask_outputs(tok, lp):
 
 def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
                     logit_w, logit_b, off_w_h, h2att_w, h2att_b, cw, cb, aw,
-                    ab, ctx_w3, w_hh, temporal_shapes, K):
+                    ab, ctx_w3, w_hh, temporal_shapes, K,
+                    precision='float32'):
     """Whole greedy decode.  CPU tensors: the plain version.  CUDA
-    tensors: the kernel (f32, forward only) or an error."""
+    tensors: the kernel (forward only; f32, or K6-bf16 under
+    ``precision='bfloat16'``) or an error."""
+    rb = check_precision(precision)
     tensors = (value_t, base_pos, scale_t, const_z, embed, token_w, logit_w,
                logit_b, off_w_h, h2att_w, h2att_b, cw, cb, aw, ctx_w3, w_hh)
     if not value_t.is_cuda:
         return dsa_greedy_scan_ref(*tensors[:14], ab, ctx_w3, w_hh,
-                                   temporal_shapes, K)
+                                   temporal_shapes, K, precision=precision)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError('the greedy kernel is forward only')
     if any(t.dtype != torch.float32 or t.device != value_t.device
@@ -183,6 +208,12 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
     ab = torch.as_tensor(ab, dtype=torch.float32, device=value_t.device)
     if ab.numel() != 1:
         raise ValueError('greedy kernel: ab must hold one value')
+    if rb:
+        # the operands of the step's products, rounded once (the tables'
+        # GEMMs round cw, embed and token_w themselves)
+        from .dsa_bf16 import bf16
+        tensors = tuple(bf16(t) if i in (0, 6, 8, 9, 14, 15) else t
+                        for i, t in enumerate(tensors))
     ptrs = [t.contiguous() for t in (*tensors, ab.reshape(1))]   # kept alive
     dev = value_t.device
     tok = torch.empty((B, K, Q), dtype=torch.int32, device=dev)
@@ -197,10 +228,14 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
         *(t.data_ptr() for t in ptrs),
         _cuda.levels_array(temporal_shapes), tok.data_ptr(), lp.data_ptr(),
         vw.data_ptr(), tw.data_ptr(), work.data_ptr(), B, H, S, Dh, Q, LP, L,
-        A, R, E, V1, K, work.numel(), _cuda.stream_ptr(value_t.device)),
+        A, R, E, V1, K, work.numel(), int(rb), _cuda.stream_ptr(value_t.device)),
         'dvc_dsa_greedy')
-    dsa_greedy_scan.launches += 1
+    if rb:
+        dsa_greedy_scan.launches_bf16 += 1
+    else:
+        dsa_greedy_scan.launches += 1
     return tok, lp
 
 
 dsa_greedy_scan.launches = 0
+dsa_greedy_scan.launches_bf16 = 0

@@ -22,14 +22,22 @@ preactivation; off_w_h (H, R, LP); h2att_w (R, A); h2att_b (A,); cw
 (Dh, A); cb (A,); aw (A,); ab a 0-d tensor; ctx_w3 (H, Dh, 4R); w_hh
 (R, 4R).  The scan returns hs (B, K, Q, R), the hidden state after each
 word step.
+
+``precision='bfloat16'`` (``--tpu_compute_dtype bfloat16``) is the TPU
+kernels' bf16 variant: every product of the step and of its backward on
+bf16-rounded operands with f32 accumulation.  Its plain versions are
+:func:`dvc_tpu_torch.ops.dsa_bf16.scan_fwd` and ``scan_bwd`` (on the CPU
+:class:`~dvc_tpu_torch.ops.dsa_bf16.PlainScanBf16` joins them for
+autograd); on the card the same kernels run in their bf16-operand mode
+(K4-bf16, K5-bf16), counted apart in ``launches_bf16``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _cuda
-from .dsa_greedy import _level_bounds, attend_step, lstm_cell
+from . import _cuda, dsa_bf16
+from .dsa_greedy import _level_bounds, attend_step, check_precision, lstm_cell
 
 NAMES = ('value_t', 'base_pos', 'scale_t', 'z_all', 'off_w_h', 'h2att_w',
          'h2att_b', 'cw', 'cb', 'aw', 'ab', 'ctx_w3', 'w_hh')
@@ -37,9 +45,14 @@ NAMES = ('value_t', 'base_pos', 'scale_t', 'z_all', 'off_w_h', 'h2att_w',
 
 def dsa_teacher_scan_ref(value_t, base_pos, scale_t, z_all, off_w_h,
                          h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh,
-                         temporal_shapes):
-    """Plain K-step scan.  Returns (hs, cs), each (B, K, Q, R)."""
+                         temporal_shapes, precision='float32'):
+    """Plain K-step scan.  Returns (hs, cs), each (B, K, Q, R).
+    ``precision`` 'bfloat16': the bf16-operand products (:mod:`.dsa_bf16`)."""
     dsa_teacher_scan_ref.calls += 1
+    if check_precision(precision):
+        return dsa_bf16.scan_fwd(value_t, base_pos, scale_t, z_all, off_w_h,
+                                 h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3,
+                                 w_hh, temporal_shapes)
     B, K, Q = z_all.shape[:3]
     R = w_hh.shape[0]
     P = scale_t.shape[-1] // len(temporal_shapes)
@@ -61,10 +74,14 @@ def dsa_teacher_scan_ref(value_t, base_pos, scale_t, z_all, off_w_h,
 dsa_teacher_scan_ref.calls = 0
 
 
-def dsa_teacher_scan_bwd_ref(*args):
+def dsa_teacher_scan_bwd_ref(*args, precision='float32'):
     """Plain backward: autograd through :func:`dsa_teacher_scan_ref`.
     ``args`` = the 13 operands, temporal_shapes, hs, cs, g (hs and cs are
-    recomputed, not read).  Returns the 13 gradients in argument order."""
+    recomputed, not read).  Returns the 13 gradients in argument order.
+    ``precision`` 'bfloat16': the TPU kernel's bf16 backward
+    (:func:`dvc_tpu_torch.ops.dsa_bf16.scan_bwd`, which reads hs and cs)."""
+    if check_precision(precision):
+        return dsa_bf16.scan_bwd(*args)
     *ops, temporal_shapes, _hs, _cs, g = args
     with torch.enable_grad():
         ops = [torch.as_tensor(t).detach().requires_grad_() for t in ops]
@@ -72,9 +89,10 @@ def dsa_teacher_scan_bwd_ref(*args):
         return torch.autograd.grad(hs, ops, g)
 
 
-def _kernel_operands(args, temporal_shapes):
+def _kernel_operands(args, temporal_shapes, rb=False):
     """Check the operands of a kernel launch; returns (dims, contiguous
-    operands, ab as a one-element device tensor)."""
+    operands, ab as a one-element device tensor), value_t and the weights
+    of the step's products rounded to bf16 where ``rb`` (K4-bf16, K5-bf16)."""
     (value_t, base_pos, scale_t, z_all, off_w_h, h2att_w, h2att_b, cw, cb,
      aw, ab, ctx_w3, w_hh) = args
     dev = value_t.device
@@ -100,6 +118,9 @@ def _kernel_operands(args, temporal_shapes):
            if tuple(t.shape) != s]
     if bad or LP % L or sum(temporal_shapes) != S:
         raise ValueError(f'scan kernel: inconsistent shapes of {bad}')
+    if rb:
+        tensors = [dsa_bf16.bf16(t) if n in dsa_bf16.ROUNDED else t
+                   for n, t in zip(NAMES, tensors)]
     # the backward reads rows as float4: a view's storage offset may leave
     # them unaligned, a copy does not
     tensors = [t.contiguous() for t in tensors]
@@ -107,11 +128,13 @@ def _kernel_operands(args, temporal_shapes):
     return (B, H, S, Dh, Q, LP, L, A, R, K), tensors
 
 
-def dsa_teacher_scan_fwd(*args):
-    """(hs, cs) of the scan by the kernel ``dvc_dsa_scan_fwd``, or an error.
-    ``args`` = the 13 operands (CUDA tensors), temporal_shapes."""
+def dsa_teacher_scan_fwd(*args, precision='float32'):
+    """(hs, cs) of the scan by the kernel ``dvc_dsa_scan_fwd`` (K4, or
+    K4-bf16 under ``precision='bfloat16'``), or an error.  ``args`` = the
+    13 operands (CUDA tensors), temporal_shapes."""
+    rb = check_precision(precision)
     *ops, temporal_shapes = args
-    dims, ops = _kernel_operands(ops, temporal_shapes)
+    dims, ops = _kernel_operands(ops, temporal_shapes, rb)
     B, H, S, Dh, Q, LP, L, A, R, K = dims
     hs = torch.empty((B, K, Q, R), dtype=torch.float32, device=ops[0].device)
     cs = torch.empty_like(hs)
@@ -122,21 +145,27 @@ def dsa_teacher_scan_fwd(*args):
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_fwd(
         *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
         hs.data_ptr(), cs.data_ptr(), vw.data_ptr(), work.data_ptr(), *dims,
-        work.numel(), _cuda.stream_ptr(hs.device)), 'dvc_dsa_scan_fwd')
-    dsa_teacher_scan_fwd.launches += 1
+        work.numel(), int(rb), _cuda.stream_ptr(hs.device)), 'dvc_dsa_scan_fwd')
+    if rb:
+        dsa_teacher_scan_fwd.launches_bf16 += 1
+    else:
+        dsa_teacher_scan_fwd.launches += 1
     return hs, cs
 
 
 dsa_teacher_scan_fwd.launches = 0
+dsa_teacher_scan_fwd.launches_bf16 = 0
 
 
-def dsa_teacher_scan_bwd(*args):
+def dsa_teacher_scan_bwd(*args, precision='float32'):
     """The 13 gradients of the scan for the cotangent g (B, K, Q, R) of hs,
-    by the kernel ``dvc_dsa_scan_bwd``, or an error.  ``args`` = the 13
-    operands (CUDA tensors), temporal_shapes, hs, cs, g."""
+    by the kernel ``dvc_dsa_scan_bwd`` (K5, or K5-bf16 under
+    ``precision='bfloat16'``), or an error.  ``args`` = the 13 operands
+    (CUDA tensors), temporal_shapes, hs, cs, g."""
+    rb = check_precision(precision)
     *ops, temporal_shapes, hs, cs, g = args
     ab_shape = torch.as_tensor(ops[10]).shape
-    dims, ops = _kernel_operands(ops, temporal_shapes)
+    dims, ops = _kernel_operands(ops, temporal_shapes, rb)
     B, H, S, Dh, Q, LP, L, A, R, K = dims
     if (hs.shape != (B, K, Q, R) or cs.shape != hs.shape
             or g.shape != hs.shape):
@@ -173,9 +202,12 @@ def dsa_teacher_scan_bwd(*args):
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_bwd(
         *(t.data_ptr() for t in ops), hs_prev.data_ptr(), cs_prev.data_ptr(),
         g.data_ptr(), _cuda.levels_array(temporal_shapes),
-        *(t.data_ptr() for t in outs + scratch), *dims, work.numel(),
+        *(t.data_ptr() for t in outs + scratch), *dims, work.numel(), int(rb),
         _cuda.stream_ptr(dev)), 'dvc_dsa_scan_bwd')
-    dsa_teacher_scan_bwd.launches += 1
+    if rb:
+        dsa_teacher_scan_bwd.launches_bf16 += 1
+    else:
+        dsa_teacher_scan_bwd.launches += 1
     return (dvalue, dbase, dscale, dz,
             doffw.reshape(R, H, LP).permute(1, 0, 2), dh2w, dcb.clone(),
             dcw, dcb, daw, dab.reshape(ab_shape),
@@ -183,35 +215,46 @@ def dsa_teacher_scan_bwd(*args):
 
 
 dsa_teacher_scan_bwd.launches = 0
+dsa_teacher_scan_bwd.launches_bf16 = 0
 
 
 class DSATeacherScanFunction(torch.autograd.Function):
     """The scan on the card: forward ``dvc_dsa_scan_fwd``, backward
-    ``dvc_dsa_scan_bwd``; the last argument is the level table."""
+    ``dvc_dsa_scan_bwd``; the last two arguments are the level table and
+    the precision."""
 
     @staticmethod
     def forward(ctx, *args):
-        *ops, temporal_shapes = args
-        hs, cs = dsa_teacher_scan_fwd(*ops, temporal_shapes)
-        ctx.temporal_shapes = temporal_shapes
+        *ops, temporal_shapes, precision = args
+        hs, cs = dsa_teacher_scan_fwd(*ops, temporal_shapes,
+                                      precision=precision)
+        ctx.temporal_shapes, ctx.precision = temporal_shapes, precision
         ctx.save_for_backward(*ops, hs, cs)
         return hs
 
     @staticmethod
     def backward(ctx, g):
         *ops, hs, cs = ctx.saved_tensors
-        grads = dsa_teacher_scan_bwd(*ops, ctx.temporal_shapes, hs, cs, g)
-        return (*grads, None)
+        grads = dsa_teacher_scan_bwd(*ops, ctx.temporal_shapes, hs, cs, g,
+                                     precision=ctx.precision)
+        return (*grads, None, None)
 
 
 def dsa_teacher_scan(value_t, base_pos, scale_t, z_all, off_w_h, h2att_w,
-                     h2att_b, cw, cb, aw, ab, ctx_w3, w_hh, temporal_shapes):
+                     h2att_b, cw, cb, aw, ab, ctx_w3, w_hh, temporal_shapes,
+                     precision='float32'):
     """Whole teacher-forcing scan, differentiable.  Returns hs (B, K, Q, R).
-    CPU tensors: the plain version (autograd through it).  CUDA tensors:
-    the kernels (f32) or an error."""
+    CPU tensors: the plain version (f32: autograd through it; bf16: the
+    plain bf16 forward and backward).  CUDA tensors: the kernels (f32, or
+    K4-bf16 and K5-bf16 under ``precision='bfloat16'``) or an error."""
+    rb = check_precision(precision)
     args = (value_t, base_pos, scale_t, z_all, off_w_h, h2att_w, h2att_b,
             cw, cb, aw, ab, ctx_w3, w_hh)
     if not value_t.is_cuda:
+        if rb:
+            dsa_teacher_scan_ref.calls += 1
+            return dsa_bf16.PlainScanBf16.apply(*args, tuple(temporal_shapes))
         hs, _ = dsa_teacher_scan_ref(*args, temporal_shapes)
         return hs
-    return DSATeacherScanFunction.apply(*args, tuple(temporal_shapes))
+    return DSATeacherScanFunction.apply(*args, tuple(temporal_shapes),
+                                        precision)

@@ -24,7 +24,9 @@ extracted features (``dvc_tpu_torch.eval_ete`` writes them).  The captions
 are the run's (``caption_sample_max``, ``caption_sample_temperature``),
 or sampled at a temperature with ``--caption_sample_max 0
 [--caption_sample_temperature T]``; the draws come from a generator
-seeded with the run's ``seed``.
+seeded with the run's ``seed``.  A run trained under
+``--tpu_compute_dtype bfloat16`` or ``--fusion_dtype bfloat16``
+evaluates so, from its saved options.
 """
 
 from __future__ import annotations

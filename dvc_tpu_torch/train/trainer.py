@@ -18,6 +18,12 @@ on the trainer's copy stream, an event the step waits on), which
 :meth:`Trainer.train_steps` runs K optimizer steps in a row with no host
 synchronisation between them (``--steps_per_dispatch K``).
 
+Under ``--tpu_compute_dtype bfloat16`` / ``--fusion_dtype bfloat16`` the
+step is the same: the parameters, their gradients and the optimizer state
+stay f32, and the modules cast to bf16 where the flax layers' ``dtype``
+does, so autograd carries the gradients back to the f32 parameters (no
+``torch.autocast``, whose per-op rules round at other points).
+
 Checkpoints are ``model-{tag}.pth``: the model's ``state_dict`` in the
 reference layout (``load_state_dict(strict=True)`` reads it; the serving
 ``DenseCaptioner`` too), the optimizer state, the epoch and step, and any

@@ -932,7 +932,7 @@ def _gemm(x, x_by_term, y, y_by_term, M, N, T, out, accumulate=False,
     code = _cuda.lib().cdll.dvc_dsa_gemm(
         x.data_ptr(), x.stride(0), int(x_by_term), y.data_ptr(), y.stride(0),
         int(y_by_term), M, N, T, int(accumulate), out.data_ptr(),
-        work.data_ptr(), work.numel(), _cuda.stream_ptr(out.device))
+        work.data_ptr(), work.numel(), 0, _cuda.stream_ptr(out.device))
     torch.cuda.synchronize()
     return code
 

@@ -1,6 +1,7 @@
 """Temperature sampling (``--caption_sample_max 0``, the JAX head's
-``_stochastic_sample``) in the port's LSTM-DSA head, and the refusal of
-the bf16 flags.
+``_stochastic_sample``) in the port's LSTM-DSA head, and the bf16 flags:
+accepted on the fused caption routes, refused on the stepwise ones, which
+have no bf16 word-step kernels yet.
 
 The sampling decode runs the stepwise word steps (on the CPU the plain
 table-form versions of K7, or K9 under ``lstm_fuse``), never the fused
@@ -177,9 +178,52 @@ def test_the_model_samples_under_the_flags():
 
 @pytest.mark.parametrize('flag', ['tpu_compute_dtype', 'fusion_dtype'])
 def test_bf16_flags_raise(flag):
-    opt = tiny_opt(**{flag: 'bfloat16'})
-    with pytest.raises(NotImplementedError, match='A3'):
+    """Each bf16 flag builds a model on the fused routes (the defaults),
+    with bf16 where it says; with bf16 compute and a stepwise route it
+    raises, naming the ROADMAP item, rather than running in f32."""
+    model = make_fusion_model(tiny_opt(**{flag: 'bfloat16'}), 'cpu')
+    assert (model.pdvcModel.cfg.compute_dtype == 'bfloat16') \
+        == (flag == 'tpu_compute_dtype')
+    assert (model.fusion_dtype == torch.bfloat16) == (flag == 'fusion_dtype')
+    assert model.pdvcModel.caption_head[0].cfg.precision \
+        == model.pdvcModel.cfg.compute_dtype
+    opt = tiny_opt(**{flag: 'bfloat16', 'tpu_compute_dtype': 'bfloat16'},
+                   dsa_greedy_fuse=0)
+    with pytest.raises(NotImplementedError, match='A3b'):
         make_fusion_model(opt, 'cpu')
-    if flag == 'tpu_compute_dtype':
-        with pytest.raises(NotImplementedError, match='float32 only'):
-            PDVCConfig.from_opt(opt)
+    with pytest.raises(NotImplementedError, match='A3b'):
+        PDVCConfig.from_opt(opt)
+
+
+STEPWISE_ROUTES = {'scheduled_sampling': dict(scheduled_sampling_start=0),
+                   'scan_fuse_0': dict(dsa_scan_fuse=0),
+                   'greedy_fuse_0': dict(dsa_greedy_fuse=0),
+                   'lstm_fuse_1': dict(dsa_lstm_fuse=1),
+                   'sample_max_0': dict(caption_sample_max=0),
+                   'two_layers': dict(num_layers=2)}
+
+
+@pytest.mark.parametrize('route', sorted(STEPWISE_ROUTES))
+def test_bf16_raises_on_each_stepwise_route(route):
+    """Under --tpu_compute_dtype bfloat16 every option that would run the
+    stepwise word steps raises NotImplementedError naming ROADMAP A3b; in
+    f32 the same options build."""
+    over = STEPWISE_ROUTES[route]
+    make_fusion_model(tiny_opt(**over), 'cpu')
+    with pytest.raises(NotImplementedError, match='A3b') as err:
+        PDVCConfig.from_opt(tiny_opt(tpu_compute_dtype='bfloat16', **over))
+    assert '--' + next(iter(over)) in str(err.value)
+
+
+def test_bf16_head_refuses_the_stepwise_path(weights):
+    """A bf16 head asked for a stepwise decode directly (not through the
+    flags) raises as well."""
+    head = port_head(weights, precision='bfloat16')
+    with pytest.raises(NotImplementedError, match='A3b'):
+        _sample(head, head_inputs(0), 1.0)
+
+
+def test_unknown_dtypes_raise():
+    for flag in ('tpu_compute_dtype', 'fusion_dtype'):
+        with pytest.raises(ValueError, match=flag):
+            PDVCConfig.from_opt(tiny_opt(**{flag: 'float16'}))
