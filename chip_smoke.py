@@ -198,7 +198,25 @@ Phases (one or more lines each; the last line is the JSON verdict):
    f32-ulp-noise distances + BF16_GRAD_FLOOR, the median of card over
    f32 at most 1.5, and the card's gradients as far from f32 as the
    CPU's, at least BF16_ROUNDS); ``run_eval`` of that run at B=16 (one
-   K6-bf16 a batch).
+   K6-bf16 a batch).  Then the stepwise caption routes in bf16: the table
+   GEMM's bf16 mode and K7-bf16 to K10-bf16 at B=1 (Q=90) and B=16
+   (Q=100), cap_nheads 1 and 8, each against its plain bf16 table form
+   (within BF16_MIRROR_FWD / BF16_MIRROR_BWD of plain f32's distance; K7's
+   ctx and K8's and K10's dpos and dhvec not rounded to bf16,
+   BF16_EXACT_MAX) and its plain product form (the forward within
+   BF16_FWD_SHARE, each gradient within BF16_STEP_GAP of plain f32's
+   distance), rounding (BF16_ROUNDS),
+   zero cotangent on queries near a tap boundary, bf16 and f32 kernel times
+   side by side; ``new_train.main --debug`` with the bf16 flags and
+   --dsa_scan_fuse 0 --dsa_greedy_fuse 0 (K7-bf16/K8-bf16), the same with
+   --dsa_lstm_fuse 1 (K9-bf16/K10-bf16) and with scheduled sampling from
+   epoch 1 (--scheduled_sampling_start 0 --basic_ss_prob 0.25, two epochs:
+   K4/K5-bf16, then K7/K8-bf16), each with the table's bf16 mode and no
+   f32 word step or table; the B=16 stepwise step in f32 and bf16 in turns
+   and traced (device activities); the card against the CPU on one bf16
+   stepwise step (``bf16_train_agreement``); ``run_eval`` of the
+   --dsa_greedy_fuse 0 run greedy and with --caption_sample_max 0 (K7-bf16
+   a decode step, one table a batch).
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -223,6 +241,8 @@ MSDA_LEVELS = (200, 100, 50, 25)      # T = 200 frames, 4 levels, S = 375
 # greedy decode) never launch
 STEP_KERNELS = ('dsa_step_fwd', 'dsa_step_bwd', 'dsa_lstm_fwd',
                 'dsa_lstm_bwd', 'table_gemm', 'table_gemm_bwd')
+# the same in their bf16-operand mode (K7-bf16 to K10-bf16, the table's)
+STEP_KERNELS_BF16 = tuple(f'{k}_bf16' for k in STEP_KERNELS)
 CFG = 'cfgs/yc2_newModel_sound.yml'
 DEVICE = 'cuda'                       # of the train phases (a CPU rehearsal
                                       # at a tiny size sets 'cpu')
@@ -1855,7 +1875,7 @@ def traced(label):
         per_name[name] = per_name.get(name, 0.0) + (t1 - t0)
         count[name] = count.get(name, 0) + 1
     result.update(window_ms=window / 1e3, busy_ms=busy / 1e3,
-                  idle=1 - busy / window)
+                  idle=1 - busy / window, activities=len(spans))
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     print(f'[trace] {label} under the profiler: window {window / 1e3:.3f} '
           f'ms, device busy {busy / 1e3:.3f} ms, idle share '
@@ -2083,9 +2103,10 @@ def _counted():
     return kernels, plain
 
 
-# the kernels with a bf16-operand variant (K4-bf16, K5-bf16, K6-bf16): each
-# wrapper counts those launches apart, read here as '<kernel>_bf16'
-BF16_VARIANTS = ('dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy')
+# the kernels with a bf16-operand variant (K4-bf16 to K10-bf16 and the
+# table's): each wrapper counts those launches apart, read here as
+# '<kernel>_bf16'
+BF16_VARIANTS = ('dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy') + STEP_KERNELS
 
 
 def reset_counts():
@@ -4502,7 +4523,7 @@ def bf16_serve(opt, tmp, card):
         if name == 'bf16':
             check_launches('bf16-serve', counts, plain,
                            ('msda_fwd', 'dsa_greedy_bf16'),
-                           ('dsa_greedy',) + STEP_KERNELS)
+                           ('dsa_greedy',) + STEP_KERNELS + STEP_KERNELS_BF16)
             launches = {k: v // 3 for k, v in counts.items()}
     print(f'[bf16] B=16 caption_batch ({card}), host clock, ms per batch '
           f'in the order f32, bf16, bf16, f32: f32 '
@@ -4519,7 +4540,8 @@ def bf16_train(tmp, card):
     losses, K1-K3 (f32) and K4-bf16, K5-bf16 and K6-bf16 launched, no f32
     K4-K6, no word-step kernel, no plain version; the train step at B=1 and
     B=16 in bf16 and f32 in turns; the card against the CPU on one step
-    (``bf16_train_agreement``).  Returns (launches, opt, run folder)."""
+    (``bf16_train_agreement``).  Returns (launches, opt, run folder,
+    recipe)."""
     import math
     import torch
     from dvc_tpu_torch.new_train import main as train_main
@@ -4546,7 +4568,7 @@ def bf16_train(tmp, card):
                    ('msda_fwd', 'msda_bwd', 'dsa_scan_fwd_bf16',
                     'dsa_scan_bwd_bf16', 'dsa_greedy_bf16'),
                    ('dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy')
-                   + STEP_KERNELS)
+                   + STEP_KERNELS + STEP_KERNELS_BF16)
     ms, traces = {}, {}
     for dtype in ('f32', 'bf16', 'bf16', 'f32'):
         o = opt if dtype == 'bf16' else parse_opts(
@@ -4571,7 +4593,7 @@ def bf16_train(tmp, card):
                       for d, t in traces.items()))
     bf16_train_agreement(opt, parse_opts(
         ['--cfg_path', recipe, '--device', DEVICE], root=ROOT))
-    return launches, opt, folder
+    return launches, opt, folder, recipe
 
 
 BF16_LOSS_GROUPS = ('loss_caption', 'loss_ce', 'loss_bbox', 'loss_giou',
@@ -4590,7 +4612,8 @@ def bf16_step_grads(opt, dev, batch, weights, table=False, noise=None):
     head pools, is tied, summed over the decoder layers), one backward
     per group of BF16_LOSS_GROUPS (each loss times its weight), the
     gradients on the CPU.  ``table``: the CPU's bf16 caption
-    scan in the card kernels' table form (``dsa_bf16``'s ``table=True``).
+    scan and word steps in the card kernels' table form (``dsa_bf16``'s
+    ``table=True``).
     ``noise``: a generator that moves each input feature by about an f32
     ulp (a relative normal draw of 2^-23)."""
     import functools
@@ -4621,10 +4644,12 @@ def bf16_step_grads(opt, dev, batch, weights, table=False, noise=None):
              .register_forward_hook(keep)] + [
         layer.register_forward_hook(count_ties)
         for layer in model.pdvcModel.transformer.decoder.layers]
-    fwd, bwd = dsa_bf16.scan_fwd, dsa_bf16.scan_bwd
+    plain = ('scan_fwd', 'scan_bwd', 'sample_attend_fwd', 'sample_attend_bwd',
+             'lstm_step_fwd', 'lstm_step_bwd')
+    saved = {n: getattr(dsa_bf16, n) for n in plain}
     if table:
-        dsa_bf16.scan_fwd = functools.partial(fwd, table=True)
-        dsa_bf16.scan_bwd = functools.partial(bwd, table=True)
+        for n, fn in saved.items():
+            setattr(dsa_bf16, n, functools.partial(fn, table=True))
     try:
         _, losses = model.forward_train(tb)
         params = dict(model.named_parameters())
@@ -4645,7 +4670,8 @@ def bf16_step_grads(opt, dev, batch, weights, table=False, noise=None):
             ref_grads[group] = ref - prev_ref
             prev_ref = ref
     finally:
-        dsa_bf16.scan_fwd, dsa_bf16.scan_bwd = fwd, bwd
+        for n, fn in saved.items():
+            setattr(dsa_bf16, n, fn)
         for hook in hooks:
             hook.remove()
     return ({k: float(v.detach()) for k, v in losses.items()}, grads,
@@ -4796,26 +4822,474 @@ def bf16_eval(folder, card):
           f'kernel launches {launches}, plain-version calls {plain}')
     check_launches('bf16-eval', launches, plain, ('msda_fwd',),
                    ('dsa_greedy', 'msda_bwd', 'dsa_scan_fwd_bf16')
-                   + STEP_KERNELS,
+                   + STEP_KERNELS + STEP_KERNELS_BF16,
                    {'dsa_greedy_bf16': batches})
     return launches
 
 
+def check_table_bf16(gen, N, k, n, label):
+    """The table GEMM's bf16-operand mode (``table_gemm`` /
+    ``table_gemm_bwd`` at precision='bfloat16': VW = bf16(value) .
+    bf16(Wc) of K7-K10-bf16, once per stepwise forward pass, and its
+    backward bf16(G) . bf16(Wc)^T and bf16(value)^T bf16(G), once per
+    backward pass) against the float64 products of the bf16-rounded
+    operands (their plain versions), in units of their products within
+    GEMM_PRODUCT_TOL; timed beside the f32 mode (3xTF32) on the same inputs
+    and torch.matmul of the bf16 operands (library_ms of the forward, a
+    yardstick used nowhere; no single call computes the backward's two
+    products).  Returns the forward's and the backward's results."""
+    import torch
+    from dvc_tpu_torch.ops.dsa_bf16 import bf16
+    from dvc_tpu_torch.ops.dsa_tables import (table_gemm, table_gemm_bwd,
+                                              table_gemm_bwd_ref,
+                                              table_gemm_ref)
+    x = torch.randn((N, k), generator=gen, device='cuda')
+    w = torch.randn((k, n), generator=gen, device='cuda') / k ** 0.5
+    g = torch.randn((N, n), generator=gen, device='cuda')
+    xb, wb, gb = bf16(x), bf16(w), bf16(g)
+    got = table_gemm(x, w, BF16)
+    dx, dw = table_gemm_bwd(x, w, g, BF16)
+    errs = (product_err(got, xb, wb), product_err(dx, gb, wb.T),
+            product_err(dw, xb.T, gb))
+    rounds = (rel_l2(got, x @ w), rel_l2(dw, x.T @ g))
+    ms = cuda_ms(lambda: table_gemm(x, w, BF16), 20)
+    f32_ms = cuda_ms(lambda: table_gemm(x, w), 20)
+    plain_ms = cuda_ms(lambda: table_gemm_ref(x, w, BF16), 20)
+    xh, wh = x.bfloat16(), w.bfloat16()
+    library_ms = cuda_ms(lambda: torch.matmul(xh, wh), 20)
+    bwd_ms = cuda_ms(lambda: table_gemm_bwd(x, w, g, BF16), 20)
+    bwd_f32 = cuda_ms(lambda: table_gemm_bwd(x, w, g), 20)
+    bwd_plain = cuda_ms(lambda: table_gemm_bwd_ref(x, w, g, BF16), 20)
+    fwd_bound = bf16_bound(2 * (x.numel() + w.numel()) + nbytes(got),
+                           N * k * n)
+    bwd_bound = bf16_bound(2 * (x.numel() + w.numel() + g.numel())
+                           + nbytes(dx, dw), 2 * N * k * n)
+    print(f'[bf16] table_gemm_bf16 {label} ({N} x {k}) . ({k} x {n}): in '
+          f'product units {errs[0]:.2e} (tol {GEMM_PRODUCT_TOL:.0e}), '
+          f'relative L2 from the f32 product {rounds[0]:.2e}; bf16 mode '
+          f'{ms:.4f} ms, f32 mode (3xTF32) {f32_ms:.4f} ms, plain bf16 '
+          f'{plain_ms:.4f} ms, library (torch.matmul, bf16) '
+          f'{library_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms '
+          f'({fwd_bound[1]})')
+    print(f'[bf16] table_gemm_bwd_bf16 {label}: dx, dw in product units '
+          f'{errs[1]:.2e}, {errs[2]:.2e} (tol {GEMM_PRODUCT_TOL:.0e}), dw '
+          f'relative L2 from the f32 product {rounds[1]:.2e}; bf16 mode '
+          f'{bwd_ms:.4f} ms, f32 mode {bwd_f32:.4f} ms, plain bf16 '
+          f'{bwd_plain:.4f} ms, bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})')
+    # rounding bf16's operands moves a product by ~2^-9 of itself
+    if not max(errs) <= GEMM_PRODUCT_TOL or min(rounds) < 1e-4:
+        raise AssertionError(f'table_gemm_bf16 {label}: {errs}, {rounds}')
+    abs_err = max(float((a - b).abs().max()) for a, b in
+                  ((got, xb.double() @ wb.double()),
+                   (dx, gb.double() @ wb.double().T),
+                   (dw, xb.double().T @ gb.double())))
+    return ({'N': N, 'k': k, 'n': n, 'max_abs_err': abs_err, 'ms': ms,
+             'f32_ms': f32_ms, 'plain_ms': plain_ms,
+             'library_ms': library_ms, 'bound_ms': fwd_bound[0],
+             'bound_by': fwd_bound[1]},
+            {'N': N, 'k': k, 'n': n, 'max_abs_err': abs_err, 'ms': bwd_ms,
+             'f32_ms': bwd_f32, 'plain_ms': bwd_plain, 'library_ms': None,
+             'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1]})
+
+
+# the word steps' gradients in the table form against the product form:
+# nearer than the plain f32 version (a single step's table form lies from
+# the product form at up to 0.85 of f32's distance, value_t's gradient;
+# the scan's sum over K steps at up to 0.37, PERF.md section 6)
+BF16_STEP_GAP = 1.0
+# the word-step kernels against their table mirror, which computes the same
+# rounding points: the outputs within BF16_MIRROR_FWD and each gradient
+# within BF16_MIRROR_BWD of the plain f32 version's distance from the
+# mirror (read on an H100: outputs at most 2e-3 x, gradients 8.4e-2 x,
+# cw's, whose bf16(G) flips where f32 sums differ in the last bit); and
+# K7's ctx and K8's and K10's dpos and dhvec, which JAX leaves unrounded
+# for the f32 products outside the kernels, with at most BF16_EXACT_MAX of
+# their nonzero elements on a bf16 value (an f32 sum lands on one with odds
+# of about 2^-16; a rounded output, every time)
+BF16_MIRROR_FWD, BF16_MIRROR_BWD, BF16_EXACT_MAX = 0.1, 0.2, 0.01
+
+
+def bf16_exact_share(x):
+    """The share of x's nonzero elements that bf16 holds exactly."""
+    from dvc_tpu_torch.ops.dsa_bf16 import bf16
+    nz = x != 0
+    return float(((bf16(x) == x) & nz).sum()) / max(int(nz.sum()), 1)
+
+
+def check_step_bf16(gen, B, Q, H, lstm):
+    """K7-bf16 and K8-bf16 (or, with ``lstm``, K9-bf16 and K10-bf16)
+    against their plain bf16 versions (``dsa_bf16``'s word steps) at the
+    JAX boundary, in both forms, each held to how far the plain f32
+    version lies from it: the output(s) and each gradient (but d alpha_b)
+    in relative L2.  Against the table form (``table=True``, the rounding
+    points the kernels compute) the kernel's distance is at most
+    BF16_FWD_SHARE (forward) or BF16_BWD_SHARE (each gradient) of f32's;
+    against the product form (the TPU kernels' bf16 products) at most
+    BF16_FWD_SHARE of f32's forward and BF16_STEP_GAP of it for each
+    gradient; and the kernel lies at least BF16_ROUNDS of the product
+    form's distance from f32 (the kernel rounds).  Against the table mirror
+    alone the limits are BF16_MIRROR_FWD and BF16_MIRROR_BWD, and K7's ctx
+    and the backward kernel's dpos and dhvec must not be rounded to bf16
+    (``bf16_exact_share`` at most BF16_EXACT_MAX).  The kernels take
+    value_t (K9/K10 also ctx_w3 and w_hh) rounded to bf16 and VW from the
+    table's bf16 mode; the 7 (12) gradients at the JAX boundary are
+    composed with the table's bf16 backward (``dsa_*_grads``).  The
+    cotangent is zero on the queries with a tap within an ulp of a
+    level-relative integer (``near_integer``), where the position's
+    gradient jumps.  The table form's plain mirror (``table=True``, what
+    the kernels compute) is printed beside it; times: the kernels alone
+    (VW given) in bf16 and in f32 on the same inputs, and the plain bf16
+    version (the product form).  Returns the forward's and the backward's
+    results."""
+    import torch
+    from dvc_tpu_torch.ops import dsa_bf16
+    from dvc_tpu_torch.ops import dsa_step as ds
+    from dvc_tpu_torch.ops.dsa_tables import table_gemm
+    args = step_inputs(gen, B, Q, H, lstm)
+    L = MSDA_LEVELS
+    if lstm:
+        kind, names, cw_i, rounded = 'dsa_lstm', ds.LSTM_NAMES, 8, (0, 6, 7)
+        fwd, bwd = ds.dsa_lstm_step_fwd, ds.dsa_lstm_step_bwd
+        pf, pb = dsa_bf16.lstm_step_fwd, dsa_bf16.lstm_step_bwd
+        ref, bwd_ref = ds.lstm_step_ref, ds.lstm_step_bwd_ref
+        grads_of = ds.dsa_lstm_step_grads
+    else:
+        kind, names, cw_i, rounded = 'dsa_step', ds.STEP_NAMES, 3, (0,)
+        fwd, bwd = ds.dsa_sample_attend_fwd, ds.dsa_sample_attend_bwd
+        pf, pb = dsa_bf16.sample_attend_fwd, dsa_bf16.sample_attend_bwd
+        ref, bwd_ref = ds.sample_attend_ref, ds.sample_attend_bwd_ref
+        grads_of = ds.dsa_sample_attend_grads
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    # the kernels' own operands: (value_t, VW, the rest without cw)
+    ops = [dsa_bf16.bf16(a) if i in rounded else a
+           for i, a in enumerate(args)]
+    Dh = args[0].shape[-1]
+    vw = table_gemm(ops[0].reshape(-1, Dh), args[cw_i], BF16).reshape(
+        *args[0].shape[:3], -1)
+    kargs = [ops[0], vw] + ops[1:cw_i] + ops[cw_i + 1:]
+    kargs32 = kernel_args(args, lstm)
+    outs = tup(fwd(*kargs, L, precision=BF16))
+    want, mirror = tup(pf(*args, L)), tup(pf(*args, L, table=True))
+    f32 = tup(ref(*args, L))
+    fwd_d = {n: max(rel_l2(a, w) for a, w in zip(x, want))
+             for n, x in (('kernel', outs), ('f32', f32), ('mirror', mirror))}
+    fwd_d['kernel-mirror'] = max(rel_l2(a, m) for a, m in zip(outs, mirror))
+    fwd_d['f32-mirror'] = min(rel_l2(f, m) for f, m in zip(f32, mirror))
+    fwd_rounds = (min(rel_l2(a, f) for a, f in zip(outs, f32)),
+                  max(rel_l2(w, f) for w, f in zip(want, f32)))
+    keep = ~near_integer(args[1].double())                 # (B, Q)
+    mask = keep[:, :, None] if lstm else keep[:, None, :, None]
+    cot = tuple(torch.randn(o.shape, generator=gen, device='cuda') * mask
+                for o in outs)
+    grads = grads_of(*args, L, *cot, precision=BF16)
+    kgrads = bwd(*kargs, L, *cot, precision=BF16)
+    # the outputs that stay f32: K7's ctx, the kernel's dpos and dhvec
+    exact = {'dpos': bf16_exact_share(kgrads[2]),
+             'dhvec': bf16_exact_share(kgrads[3])}
+    if not lstm:
+        exact['ctx'] = bf16_exact_share(outs[0])
+    wgrads, mgrads = pb(*args, L, *cot), pb(*args, L, *cot, table=True)
+    fgrads = bwd_ref(*args, L, *cot)
+    # per gradient: kernel, f32, table mirror against the product form;
+    # kernel, product form against f32; kernel, f32 against the mirror
+    bwd_d = {n: (rel_l2(a, w), rel_l2(f, w), rel_l2(m, w), rel_l2(a, f),
+                 rel_l2(w, f), rel_l2(a, m), rel_l2(f, m))
+             for n, a, w, f, m in zip(names, grads, wgrads, fgrads, mgrads)
+             if n != 'ab'}
+    worst = max(bwd_d, key=lambda n: bwd_d[n][0] / bwd_d[n][1])
+    least = min(bwd_d, key=lambda n: bwd_d[n][3] / bwd_d[n][4])
+    off = max(bwd_d, key=lambda n: bwd_d[n][5] / bwd_d[n][6])
+    fwd_ms = cuda_ms(lambda: fwd(*kargs, L, precision=BF16), 20)
+    fwd_f32 = cuda_ms(lambda: fwd(*kargs32, L), 20)
+    fwd_plain = cuda_ms(lambda: pf(*args, L), 5)
+    bwd_ms = cuda_ms(lambda: bwd(*kargs, L, *cot, precision=BF16), 20)
+    bwd_f32 = cuda_ms(lambda: bwd(*kargs32, L, *cot), 20)
+    bwd_plain = cuda_ms(lambda: pb(*args, L, *cot), 5)
+    macs = word_step_macs(args, lstm, table_given=True)
+    # value_t, ctx_w3 and w_hh enter products (2 bytes); VW is the table's
+    # f32 output, lerped
+    narrow = (0, 7, 8) if lstm else (0,)
+    fwd_bound = bf16_bound(bf16_bytes(kargs, narrow, outs), macs)
+    bwd_bound = bf16_bound(bf16_bytes(kargs, narrow, (*cot, *kgrads)),
+                           3 * macs)
+    shape = (f'B={B} Q={Q} H={H} Dh={Dh} S=375 LP=16 A=512'
+             + (' R=512' if lstm else '') + ', VW given')
+    print(f'[bf16] {kind}_fwd_bf16 {shape}: against the plain bf16 version, '
+          f'relative L2 kernel {fwd_d["kernel"]:.3e} / plain f32 '
+          f'{fwd_d["f32"]:.3e} / table mirror {fwd_d["mirror"]:.3e} (limit '
+          f'{BF16_FWD_SHARE} x plain f32); against the table mirror, '
+          f'kernel {fwd_d["kernel-mirror"]:.3e} / plain f32 '
+          f'{fwd_d["f32-mirror"]:.3e} (limit {BF16_MIRROR_FWD} x); on a bf16 '
+          f'value: ' + ', '.join(f'{k} {v:.1e}' for k, v in exact.items())
+          + f' of the nonzero elements (at most {BF16_EXACT_MAX}); from the '
+          f'plain f32 version, kernel '
+          f'{fwd_rounds[0]:.3e} / plain bf16 {fwd_rounds[1]:.3e} (at least '
+          f'{BF16_ROUNDS} x); kernel bf16 {fwd_ms:.4f} ms, f32 {fwd_f32:.4f} '
+          f'ms, plain bf16 {fwd_plain:.4f} ms, bound {fwd_bound[0]:.4f} ms '
+          f'({fwd_bound[1]})')
+    print(f'[bf16] {kind}_bwd_bf16 {shape}: {int((~keep).sum())} queries '
+          f'near a tap boundary get a zero cotangent; gradients against the '
+          f'plain bf16 backward, relative L2 kernel / plain f32 / table '
+          f'mirror (kernel vs mirror): '
+          + ', '.join(f'{n} {a:.2e}/{f:.2e}/{m:.2e} ({km:.1e})'
+                      for n, (a, f, m, _, _, km, _) in bwd_d.items())
+          + f' (limit {BF16_STEP_GAP} x plain f32); closest to its f32 '
+          f'distance {worst} {bwd_d[worst][0] / bwd_d[worst][1]:.2f} x; '
+          f'against the table mirror, kernel / plain f32 at most '
+          f'{bwd_d[off][5] / bwd_d[off][6]:.1e} x ({off}; limit '
+          f'{BF16_MIRROR_BWD} x); from the plain f32 backward, kernel / '
+          f'plain bf16: ' + ', '.join(f'{n} {a:.2e}/{w:.2e}' for n, (
+              _, _, _, a, w, _, _) in bwd_d.items())
+          + f' (at least {BF16_ROUNDS} x), least {least}; kernel bf16 '
+          f'{bwd_ms:.4f} ms, f32 {bwd_f32:.4f} ms, plain bf16 '
+          f'{bwd_plain:.4f} ms, bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})')
+    if (fwd_d['kernel'] > BF16_FWD_SHARE * fwd_d['f32']
+            or fwd_d['kernel-mirror'] > BF16_MIRROR_FWD * fwd_d['f32-mirror']
+            or fwd_rounds[0] < BF16_ROUNDS * fwd_rounds[1]
+            or bwd_d[worst][0] > BF16_STEP_GAP * bwd_d[worst][1]
+            or bwd_d[off][5] > BF16_MIRROR_BWD * bwd_d[off][6]
+            or bwd_d[least][3] < BF16_ROUNDS * bwd_d[least][4]
+            or max(exact.values()) > BF16_EXACT_MAX):
+        raise AssertionError(f'{kind}_bf16 B={B} H={H}: forward {fwd_d} '
+                             f'{fwd_rounds}, {worst} {bwd_d[worst]}, {off} '
+                             f'{bwd_d[off]}, {least} {bwd_d[least]}, on a '
+                             f'bf16 value {exact}')
+    return ({'B': B, 'Q': Q, 'H': H,
+             'max_abs_err': max(float((a - w).abs().max())
+                                for a, w in zip(outs, want)),
+             'ms': fwd_ms, 'f32_ms': fwd_f32, 'plain_ms': fwd_plain,
+             'bound_ms': fwd_bound[0], 'bound_by': fwd_bound[1]},
+            {'B': B, 'Q': Q, 'H': H,
+             'max_abs_err': max(float((a - w).abs().max())
+                                for a, w in zip(grads, wgrads)),
+             'ms': bwd_ms, 'f32_ms': bwd_f32, 'plain_ms': bwd_plain,
+             'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1]})
+
+
+# the stepwise path's kernel shapes in bf16: the train step's (B=1, Q=90)
+# and a serving batch's (B=16, Q=100), at cap_nheads 1 (the recipe's) and 8
+STEP_BF16_SHAPES = ((1, 90, 1), (16, 100, 1), (16, 100, 8), (1, 90, 8))
+
+
+def bf16_step_kernels():
+    """The table GEMM's bf16 mode and K7-bf16 to K10-bf16 at
+    STEP_BF16_SHAPES (``check_table_bf16``, ``check_step_bf16``).
+    Returns {'<kernel>_bf16': [result per shape]}, the first shape
+    first."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(16)
+    res = {}
+    with torch.inference_mode():
+        for B, _, H in STEP_BF16_SHAPES:
+            f, b = check_table_bf16(gen, B * H * 375, 512 // H, 512,
+                                    f'value . Wc, B={B} H={H}')
+            res.setdefault('table_gemm_bf16', []).append(f)
+            res.setdefault('table_gemm_bwd_bf16', []).append(b)
+    for lstm in (False, True):
+        kind = 'dsa_lstm' if lstm else 'dsa_step'
+        for B, Q, H in STEP_BF16_SHAPES:
+            f, b = check_step_bf16(gen, B, Q, H, lstm)
+            res.setdefault(f'{kind}_fwd_bf16', []).append(f)
+            res.setdefault(f'{kind}_bwd_bf16', []).append(b)
+    return res
+
+
+# the stepwise bf16 train runs: (label, flags, epochs, the word-step pair
+# that runs); the scheduled-sampling run trains epoch 0 on the fused scan
+# (ss_prob 0) and epoch 1 stepwise at SS_PROB
+BF16_STEPWISE_RUNS = (
+    ('unfused', ['--dsa_scan_fuse', '0', '--dsa_greedy_fuse', '0'], 1,
+     False),
+    ('lstm_fuse', ['--dsa_scan_fuse', '0', '--dsa_greedy_fuse', '0',
+                   '--dsa_lstm_fuse', '1'], 1, True),
+    ('scheduled_sampling', ['--scheduled_sampling_start', '0',
+                            '--basic_ss_prob', str(SS_PROB)], 2, False))
+
+
+def bf16_stepwise_train(recipe, card):
+    """``new_train.main --debug`` with the bf16 flags on the stepwise caption
+    routes of BF16_STEPWISE_RUNS (5 train steps an epoch at B=1, a
+    validation each epoch), with the counts set to 0 just before each run
+    and read just after: finite losses; the run's word-step pair in its
+    bf16 mode (K7-bf16/K8-bf16, or K9-bf16/K10-bf16) as often forward as
+    backward, and the table's bf16 mode, launched; no f32 word-step or
+    table launch, none of the other pair, no plain version; the unfused
+    runs validate through the bf16 word steps (one table a val batch), the
+    scheduled-sampling run trains epoch 0 on K4-bf16/K5-bf16 (5 each),
+    epoch 1 stepwise (5 tables), feeds sampled tokens and validates on
+    K6-bf16.  Returns {label: (launches, opt, run folder)}."""
+    import math
+    import torch
+    from dvc_tpu_torch.models.caption_heads import DSACaptionHead
+    from dvc_tpu_torch.new_train import main as train_main
+    from dvc_tpu_torch.train import ss_prob_for_epoch
+    from dvc_tpu_torch.utils.config import parse_opts
+    runs = {}
+    for label, flags, epochs, lstm in BF16_STEPWISE_RUNS:
+        opt = parse_opts(['--cfg_path', recipe, '--debug', '--device', DEVICE,
+                          *BF16_FLAGS, *flags], root=ROOT)
+        opt.epoch = epochs        # the recipe file's epoch (1) overlays it
+        fwd, bwd = STEPWISE[lstm]
+        other = STEPWISE[not lstm]
+        reset_counts()
+        DSACaptionHead.fed_samples.clear()
+        t0 = time.perf_counter()
+        folder, losses = train_main(opt)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = read_counts()
+        fed = DSACaptionHead.fed_sample_count()
+        print(f'[bf16-stepwise] new_train.main --debug {" ".join(flags)} '
+              f'--epoch {epochs} with the bf16 flags, B=1: {seconds:.1f} s; '
+              f'mean losses '
+              f'{json.dumps({k: round(v, 4) for k, v in losses.items()})}; '
+              f'kernel launches {launches}, plain-version calls {plain}, '
+              f'scheduled-sampling tokens fed {fed}')
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f'bf16 stepwise train losses: {losses}')
+        want = ('msda_fwd', 'msda_bwd', f'{fwd}_bf16', 'table_gemm_bf16',
+                'table_gemm_bwd_bf16')
+        zero = STEP_KERNELS + (f'{other[0]}_bf16', f'{other[1]}_bf16',
+                               'dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy')
+        f, b = launches[f'{fwd}_bf16'], launches[f'{bwd}_bf16']
+        if epochs == 1:
+            # 5 train steps, then the validation's stepwise decodes: more
+            # forward launches than backward ones, a table a val batch
+            check_launches(f'bf16-stepwise {label}', launches, plain, want,
+                           zero + ('dsa_scan_fwd_bf16', 'dsa_scan_bwd_bf16',
+                                   'dsa_greedy_bf16'),
+                           {'table_gemm_bwd_bf16': 5})
+            ok = b >= 5 and f > b and launches['table_gemm_bf16'] > 5
+        else:
+            assert [ss_prob_for_epoch(opt, e) for e in (0, 1)] == \
+                [0.0, SS_PROB]
+            check_launches(f'bf16-stepwise {label}', launches, plain,
+                           want + ('dsa_greedy_bf16',), zero,
+                           {'dsa_scan_fwd_bf16': 5, 'dsa_scan_bwd_bf16': 5,
+                            'table_gemm_bf16': 5, 'table_gemm_bwd_bf16': 5})
+            ok = b >= 5 and f == b and fed > 0
+        if not ok:
+            raise AssertionError(f'[bf16-stepwise {label}] launches '
+                                 f'{launches}, tokens fed {fed}')
+        runs[label] = (launches, opt, folder)
+    return runs
+
+
+def bf16_stepwise_eval(folder, card):
+    """``run_eval`` at --eval_batch_size 16 of the unfused bf16 run (its
+    saved options: --dsa_greedy_fuse 0 and the bf16 flags), greedy and with
+    --caption_sample_max 0: max_caption_len K7-bf16 launches and one table
+    (bf16 mode) a batch, no K6 of either mode, no f32 word step, no plain
+    version, finite scores."""
+    from dvc_tpu_torch.serve import run_options
+    ropt = run_options(folder)
+    if (ropt.tpu_compute_dtype, ropt.dsa_greedy_fuse) != (BF16, 0):
+        raise AssertionError('the run did not save its flags')
+    batches = -(-VAL_VIDEOS // 16)
+    for extra in ([], ['--caption_sample_max', '0']):
+        path, scores, launches, plain, seconds = run_eval_counted(
+            ['--eval_save_dir', folder, '--eval_batch_size', '16',
+             '--eval_device', DEVICE, *extra])
+        check_eval_json(path, VAL_VIDEOS, scored=True)
+        print(f'[bf16-stepwise] run_eval --eval_batch_size 16 '
+              f'{" ".join(extra)} of the --dsa_greedy_fuse 0 run ({card}): '
+              f'{seconds:.2f} s; '
+              f'{", ".join(f"{k} {scores[k]:.4f}" for k in EVAL_SCORES)}; '
+              f'kernel launches {launches}, plain-version calls {plain}')
+        check_launches('bf16-stepwise-eval', launches, plain, ('msda_fwd',),
+                       ('dsa_greedy', 'dsa_greedy_bf16', 'msda_bwd')
+                       + STEP_KERNELS + ('dsa_step_bwd_bf16',
+                                         'dsa_lstm_fwd_bf16',
+                                         'dsa_lstm_bwd_bf16',
+                                         'table_gemm_bwd_bf16'),
+                       {'dsa_step_fwd_bf16': ropt.max_caption_len * batches,
+                        'table_gemm_bf16': batches})
+
+
+def bf16_stepwise(recipe, card):
+    """The stepwise caption routes in bf16 (phase 16's second part): the
+    train runs (``bf16_stepwise_train``); the B=16 train step through
+    K7/K8 (--dsa_scan_fuse 0) in f32 and bf16 in turns (f32, bf16, bf16,
+    f32; host clock) and one step of each traced (device time, device
+    activities, idle share); one bf16 step of that route on the card
+    against the CPU (``bf16_train_agreement``); ``run_eval`` of the unfused
+    run greedy and sampled (``bf16_stepwise_eval``).  Returns the launches
+    of the kernels line: K7/K8-bf16 from the unfused run, K9/K10-bf16 from
+    the lstm_fuse run, the tables' from both."""
+    import torch
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import parse_opts
+    runs = bf16_stepwise_train(recipe, card)
+    opts = {d: parse_opts(['--cfg_path', recipe, '--device', DEVICE,
+                           '--dsa_scan_fuse', '0']
+                          + (BF16_FLAGS if d == 'bf16' else []), root=ROOT)
+            for d in ('f32', 'bf16')}
+    ms, traces = {}, {}
+    for dtype in ('f32', 'bf16', 'bf16', 'f32'):
+        o = opts[dtype]
+        trainer = Trainer(o, device=DEVICE)
+        batch = train_batch(o, 16)
+        ms.setdefault(dtype, []).append(time_steps(trainer, batch, o.lr,
+                                                   2)[0])
+        if dtype not in traces:
+            traces[dtype] = trace(
+                f'B=16 {dtype} stepwise train step (K7/K8)',
+                lambda: trainer.train_step(batch, o.lr))
+        del trainer
+    print(f'[bf16-stepwise] B=16 train step through K7/K8 '
+          f'(--dsa_scan_fuse 0, {word_steps(train_batch(opts["f32"], 16))} '
+          f'word steps; {card}), host clock ms after a warm-up, in the order '
+          f'f32, bf16, bf16, f32: '
+          + '; '.join(f'{d} ' + ' / '.join(f'{t:.1f}' for t in ms[d])
+                      for d in ('f32', 'bf16'))
+          + '; traced step, device busy / window ms, device activities, '
+          'idle share: '
+          + ', '.join(f'{d} {t.get("busy_ms", float("nan")):.1f} / '
+                      f'{t.get("window_ms", float("nan")):.1f}, '
+                      f'{t.get("activities", 0)}, '
+                      f'{t.get("idle", float("nan")):.3f}'
+                      for d, t in traces.items()))
+    bf16_train_agreement(opts['bf16'], opts['f32'])
+    bf16_stepwise_eval(runs['unfused'][2], card)
+    unfused, fused = runs['unfused'][0], runs['lstm_fuse'][0]
+    return {**{k: unfused[k] for k in ('dsa_step_fwd_bf16',
+                                       'dsa_step_bwd_bf16')},
+            **{k: fused[k] for k in ('dsa_lstm_fwd_bf16',
+                                     'dsa_lstm_bwd_bf16')},
+            **{k: unfused[k] + fused[k] for k in ('table_gemm_bf16',
+                                                  'table_gemm_bwd_bf16')}}
+
+
 def phase_bf16(tmp, card):
     """Phase 16 (``--bf16`` runs it alone): the bf16 kernels against their
-    plain versions (``bf16_kernels``), a bf16 B=16 caption_batch
-    (``bf16_serve``), five bf16 train steps, the step times and the card's
-    agreement with the CPU (``bf16_train``), and run_eval of that run
-    (``bf16_eval``).  Returns (kernel results, launches: K4-bf16 and
-    K5-bf16 from the train run, K6-bf16 from run_eval)."""
+    plain versions (``bf16_kernels``, ``bf16_step_kernels``), a bf16 B=16
+    caption_batch (``bf16_serve``), five bf16 train steps, the step times
+    and the card's agreement with the CPU (``bf16_train``), run_eval of
+    that run (``bf16_eval``), then the stepwise routes
+    (``bf16_stepwise``).  Returns (kernel results, launches: K4-bf16 and
+    K5-bf16 from the train run, K6-bf16 from run_eval, K7-bf16 to K10-bf16
+    and the table's from the stepwise runs)."""
     from dvc_tpu_torch.utils.config import load_config
+    t0 = time.perf_counter()
     kernels = bf16_kernels()
+    kernels.update(bf16_step_kernels())
+    t1 = time.perf_counter()
     bf16_serve(load_config(CFG, root=ROOT), tmp, card)
-    train_launches, _, folder = bf16_train(tmp, card)
+    train_launches, _, folder, recipe = bf16_train(tmp, card)
     eval_launches = bf16_eval(folder, card)
+    t2 = time.perf_counter()
+    step_launches = bf16_stepwise(recipe, card)
+    print(f'[bf16] phase 16 in {time.perf_counter() - t0:.1f} s: the kernel '
+          f'checks {t1 - t0:.1f} s, the fused routes {t2 - t1:.1f} s, the '
+          f'stepwise routes {time.perf_counter() - t2:.1f} s')
     launches = {'dsa_scan_fwd_bf16': train_launches['dsa_scan_fwd_bf16'],
                 'dsa_scan_bwd_bf16': train_launches['dsa_scan_bwd_bf16'],
-                'dsa_greedy_bf16': eval_launches['dsa_greedy_bf16']}
+                'dsa_greedy_bf16': eval_launches['dsa_greedy_bf16'],
+                **step_launches}
     return kernels, launches
 
 
@@ -4864,8 +5338,11 @@ def main():
     # counts are in its [serve] line), the train path's for the
     # others, the stepwise train runs' for the word-step kernels, and both
     # stepwise runs' for the table; the bf16 variants': phase 16's bf16
-    # train run for K4-bf16 and K5-bf16, its run_eval at B=16 for K6-bf16
-    # (their first shapes: K6-bf16 at B=16, H=1, K4/K5-bf16 at B=1, H=1)
+    # train run for K4-bf16 and K5-bf16, its run_eval at B=16 for K6-bf16,
+    # its unfused stepwise run for K7-bf16 and K8-bf16, its lstm_fuse run
+    # for K9-bf16 and K10-bf16, both for the table's bf16 mode (their first
+    # shapes: K6-bf16 at B=16, H=1, K4/K5-bf16 at B=1, H=1, K7-K10-bf16
+    # and the table at B=1, Q=90, H=1)
     kernels.update(bf16_results)
     launches = {**bf16_launches,'msda_fwd': eval_launches['msda_fwd'],
                 'dsa_greedy': eval_launches['dsa_greedy'],
@@ -4888,7 +5365,13 @@ def main():
                'table_gemm_bwd': ('dsa_tables.cu', 'dsa_step.py:566'),
                'dsa_scan_fwd_bf16': ('dsa_scan.cu', 'dsa_scan.py:149'),
                'dsa_scan_bwd_bf16': ('dsa_scan.cu', 'dsa_scan.py:182'),
-               'dsa_greedy_bf16': ('dsa_greedy.cu', 'dsa_greedy.py:131')}
+               'dsa_greedy_bf16': ('dsa_greedy.cu', 'dsa_greedy.py:131'),
+               'dsa_step_fwd_bf16': ('dsa_step.cu', 'dsa_step.py:311'),
+               'dsa_step_bwd_bf16': ('dsa_step.cu', 'dsa_step.py:324'),
+               'dsa_lstm_fwd_bf16': ('dsa_step.cu', 'dsa_step.py:545'),
+               'dsa_lstm_bwd_bf16': ('dsa_step.cu', 'dsa_step.py:566'),
+               'table_gemm_bf16': ('dsa_tables.cu', 'dsa_step.py:545'),
+               'table_gemm_bwd_bf16': ('dsa_tables.cu', 'dsa_step.py:566')}
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda',
          'source': f'dvc_tpu_torch/csrc/{src}',

@@ -29,7 +29,11 @@
 // lerp weights (where both taps clamp to one row, that row's weight is
 // bf16(w_lo + w_hi), as the TPU kernel's one-hot matrix M holds it), and in
 // the backwards dz, dhvec, doff and the scattered wts * dctx and du.
-// Positions, gates, tanh and the softmax stay f32, as there.
+// Positions, gates, tanh and the softmax stay f32, as there.  The word-step
+// kernels (K7-K10-bf16, dsa_step.cu) are given hvec and pos and return ctx,
+// dhvec and dpos to f32 products outside the kernel (h_top . h2att_w, the
+// offsets, ctx . ctx_w under K7), which the TPU kernels do not round: there
+// dhvec (hvec_given) and K7's ctx (ctx_f32) stay f32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -169,6 +173,9 @@ struct AttendArgs {
   const float* aw;        // (A)
   int H, S, Dh, Q, LP, P, A, R;
   int bf16;               // the bf16-operand mode (see the top of this file)
+  int hvec_given;         // hvec and pos are operands (the word steps): dhvec
+                          // stays f32 in the bf16 mode
+  int ctx_f32;            // ctx is an output (K7): stored f32 in the bf16 mode
   Levels lv;
 };
 
@@ -307,7 +314,7 @@ __device__ __forceinline__ void attend_softmax_ctx(const AttendArgs& a,
                       + s.whi[row] * v[(size_t)s.hi[row] * Dh];
       acc = fmaf(s.d[row], t, acc);
     }
-    s.ctx[q * ldHD + hd] = round_if(a.bf16, acc);
+    s.ctx[q * ldHD + hd] = round_if(a.bf16 && !a.ctx_f32, acc);
   }
   __syncthreads();
 }
@@ -470,8 +477,9 @@ __device__ __forceinline__ float4 mul4(float s, float4 a) {
 // VW[lo]) . du).  Every atomic into global memory is a float4.  Ends with a
 // barrier.  A query whose d ctx is zero adds exactly zero everywhere.  In
 // the bf16-operand mode the scattered wts * dctx and du, du in dpos's
-// scores term, and dhvec are rounded to bf16 (they are operands of the TPU
-// kernel's products); dcb and daw take du in f32.
+// scores term, and dhvec (but where hvec is given, a.hvec_given) are
+// rounded to bf16 (they are operands of the TPU kernel's products); dcb and
+// daw take du in f32.
 template <int QT>
 __device__ __forceinline__ void attend_backward_table(
     const AttendArgs& a, const AttendSmem& s, const TableGradSmem& g,
@@ -577,7 +585,8 @@ __device__ __forceinline__ void attend_backward_table(
 #pragma unroll
   for (int j = 0; j < kColGroups; ++j)
     if (cols.ok[j])
-      *reinterpret_cast<float4*>(g.dhvec + q * ldA + cols.c[j]) = round4_if(rb, dhv[j]);
+      *reinterpret_cast<float4*>(g.dhvec + q * ldA + cols.c[j]) =
+          round4_if(rb && !a.hvec_given, dhv[j]);
   __syncthreads();
 }
 

@@ -55,6 +55,26 @@
 // the scan kernels the gate products read activations from shared memory
 // and weights (8 MB at R = 512) from L2 once per query tile, so L2
 // bandwidth and the FP32 issue rate bound them.
+// K7-K10-bf16 (bf16 != 0, --tpu_compute_dtype bfloat16 on the stepwise
+// path) are the same kernels in the bf16-operand mode of dsa_common.cuh: the
+// TPU kernels' bf16 variants round both operands of every in-kernel product
+// to bf16 and accumulate in f32 (_make_dot('bfloat16')): the taps M . value
+// (M's lerp weights rounded), the scores taps . Wc, in K9 h . W_hh and
+// ctx . ctx_w3, and in K8 and K10 every transposed product and weight
+// gradient's outer sum.  Here the caller passes value_t, ctx_w3 and w_hh
+// rounded (once per forward pass, not per step) and VW from the table
+// GEMM's bf16 mode; the kernels store rounded the lerp weights, h (load_h),
+// the ctx that K9 and K10 multiply, dz, and the scattered wts * dctx and du;
+// the outer sums h^T dz and ctx^T dz run in the GEMM's bf16 mode.  Where the
+// word steps differ from the scan K4/K5-bf16: hvec, the offsets and ctx .
+// ctx_w (around K7) are f32 products outside the kernel in JAX too, so K7
+// writes ctx unrounded (ctx_f32) and K8 and K10 write dhvec and dpos
+// unrounded (hvec_given).  The table form moves rounding points as in K4-K6
+// (dsa_scan.cu): the taps are never rounded before their product with Wc,
+// and dvalue's scores term and dWc come from bf16(G) in the table's
+// backward (measured in tests/test_torch_bf16_step.py and chip_smoke.py
+// --bf16).
+//
 // Limits of K7-K10: A <= 512 (two float4 column groups per lane and column
 // part in the backwards), A and Dh multiples of 4 (K9, K10 also R), and the
 // shared memory of a block (checked at launch: K10's staged dz, QT x 4R
@@ -100,15 +120,17 @@ struct StepGrads {
   float* ctx_all;   // (B, Q, H*Dh) rows for dctx_w3
 };
 
-// the tile's hidden states h (B, Q, R) into sm.h; a query past Q reads the
-// last one.  No barrier.
+// the tile's hidden states h (B, Q, R) into sm.h, rounded to bf16 in the
+// bf16 mode (an operand of h . W_hh only); a query past Q reads the last
+// one.  No barrier.
 template <int QT>
 __device__ __forceinline__ void load_h(const StepArgs& a, const AttendSmem& sm,
                                        int b, int q0) {
   const int R = a.at.R, Q = a.at.Q, ldR = pad4(R);
   for (int i = threadIdx.x; i < QT * R; i += kThreads) {
     const int q = i / R, r = i % R;
-    sm.h[q * ldR + r] = a.h[((size_t)b * Q + min(q0 + q, Q - 1)) * R + r];
+    sm.h[q * ldR + r] =
+        round_if(a.at.bf16, a.h[((size_t)b * Q + min(q0 + q, Q - 1)) * R + r]);
   }
 }
 
@@ -416,7 +438,7 @@ lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
                                      valid ? o.gc[row * R + r] : 0.f, dzg);
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        dz_s[q * R4 + g * R + r] = dzg[g];
+        dz_s[q * R4 + g * R + r] = round_if(a.at.bf16, dzg[g]);
         if (valid) o.dz0[row * R4 + g * R + r] = dzg[g];
       }
       if (valid) o.dc[row * R + r] = dc_prev;
@@ -441,10 +463,14 @@ lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
 bool fill_step(StepArgs* a, const float* value_t, const float* pos,
                const float* hvec, const float* cb, const float* aw,
                const float* ab, const int* shapes, int H, int S, int Dh, int Q,
-               int LP, int L, int A, int R) {
+               int LP, int L, int A, int R, int bf16) {
   *a = StepArgs{};
   a->pos = pos; a->hvec = hvec; a->ab = ab;
-  return fill_attend(&a->at, value_t, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R);
+  if (!fill_attend(&a->at, value_t, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
+    return false;
+  a->at.bf16 = bf16 != 0;
+  a->at.hvec_given = 1;
+  return true;
 }
 
 // the limits of K7-K10 (see the top) and their float4 reads: value rows,
@@ -462,9 +488,12 @@ bool table_limits(int A, int Dh, std::initializer_list<const float*> f4) {
 // (B, H, S, Dh), pos (B, H, Q, LP) level-relative, hvec (B, Q, A), cb (A),
 // aw (A), ab one float in device memory, and in place of the JAX kernels' cw
 // (Dh, A) the table vw (B, H, S, A) = value_t . cw.  All f32, contiguous, on
-// the current device; shapes is a host array of the L level lengths.  Each
-// entry point returns cudaGetLastError() of its launches, or
-// cudaErrorInvalidValue for shapes it does not take.
+// the current device; shapes is a host array of the L level lengths.  bf16
+// != 0: the bf16-operand mode (K7-K10-bf16, see the top of this file), with
+// value_t, and for K9 and K10 ctx_w3 and w_hh, given rounded to bf16 and vw
+// the table of the bf16 mode (dvc_dsa_table_gemm's bf16).  Each entry point
+// returns cudaGetLastError() of its launches, or cudaErrorInvalidValue for
+// shapes it does not take.
 //
 // K7: ctx (B, H, Q, Dh) is written.  A <= 512, A and Dh multiples of 4;
 // vw, cb and aw 16-byte aligned (read as float4).
@@ -472,12 +501,13 @@ extern "C" int dvc_dsa_step_fwd(
     const float* value_t, const float* vw, const float* pos, const float* hvec,
     const float* cb, const float* aw, const float* ab, const int* shapes,
     float* ctx, int B, int H, int S, int Dh, int Q, int LP, int L, int A,
-    void* stream) {
+    int bf16, void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
-                 A, 0) ||
+                 A, 0, bf16) ||
       !table_limits(A, Dh, {vw, cb, aw}))
     return (int)cudaErrorInvalidValue;
+  a.at.ctx_f32 = 1;
   if (B == 0 || Q == 0) return 0;
   // no weight product to share, so the most blocks: 2 or 4 queries where
   // that grid fits half the SMs (B = 1), 4 where 8-query tiles would take
@@ -510,10 +540,10 @@ extern "C" int dvc_dsa_step_bwd(
     const float* cb, const float* aw, const float* ab, const float* g,
     const int* shapes, float* dvalue, float* G, float* dpos, float* dhvec,
     float* dcb, float* daw, float* dab, int B, int H, int S, int Dh, int Q,
-    int LP, int L, int A, void* stream) {
+    int LP, int L, int A, int bf16, void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
-                 A, 0) ||
+                 A, 0, bf16) ||
       !table_limits(A, Dh, {value_t, vw, cb, aw}))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Q == 0) return 0;
@@ -547,10 +577,10 @@ extern "C" int dvc_dsa_lstm_fwd(
     const float* z0, const float* h, const float* c, const float* ctx_w3,
     const float* w_hh, const float* cb, const float* aw, const float* ab,
     const int* shapes, float* h_new, float* c_new, int B, int H, int S, int Dh,
-    int Q, int LP, int L, int A, int R, void* stream) {
+    int Q, int LP, int L, int A, int R, int bf16, void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
-                 A, R) ||
+                 A, R, bf16) ||
       !table_limits(A, Dh, {}) || R % 4 != 0)
     return (int)cudaErrorInvalidValue;
   a.z0 = z0; a.h = h; a.c = c; a.ctx_w3 = ctx_w3; a.w_hh = w_hh;
@@ -590,10 +620,10 @@ extern "C" int dvc_dsa_lstm_bwd(
     float* G, float* dpos, float* dhvec, float* dz0, float* dh, float* dc,
     float* dctx_w3, float* dwhh, float* dcb, float* daw, float* dab,
     float* ctx_all, float* work, int B, int H, int S, int Dh, int Q, int LP,
-    int L, int A, int R, int work_floats, void* stream) {
+    int L, int A, int R, int work_floats, int bf16, void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
-                 A, R) ||
+                 A, R, bf16) ||
       !table_limits(A, Dh, {value_t, vw, cb, aw, ctx_w3, w_hh}) || R % 4 != 0)
     return (int)cudaErrorInvalidValue;
   a.z0 = z0; a.h = h; a.c = c; a.ctx_w3 = ctx_w3; a.w_hh = w_hh;
@@ -623,7 +653,8 @@ extern "C" int dvc_dsa_lstm_bwd(
       lstm_bwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, o, vw);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  if ((e = outer_sum(h, R, dz0, 4 * R, N, R, 4 * R, dwhh, st, work, wf)) != cudaSuccess)
+  const bool rb = a.at.bf16;
+  if ((e = outer_sum(h, R, dz0, 4 * R, N, R, 4 * R, dwhh, st, work, wf, rb)) != cudaSuccess)
     return (int)e;
-  return (int)outer_sum(ctx_all, HD, dz0, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf);
+  return (int)outer_sum(ctx_all, HD, dz0, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf, rb);
 }

@@ -33,6 +33,18 @@ steps then run, as the JAX head dispatches them:
   (:func:`dvc_tpu_torch.ops.ms_deform_attn_sample_values`, a plain gather
   as in JAX).
 
+Under ``--tpu_compute_dtype bfloat16`` (``precision``) each route runs its
+kernels' bf16-operand mode, as the JAX head passes ``att_precision`` to
+them: K4-K6, and on the stepwise path the table and K7/K8 or K9/K10.  On
+the card the stepwise path rounds the kernels' operands value_t (and, for
+K9/K10, ctx_w3 and w_hh) once per forward pass
+(:meth:`DSACaptionHead._stepper`); the products around the kernels
+(hvec, the offsets, ``ctx . ctx_w`` and the LSTM layers outside K9) stay
+f32, as in JAX.  On the CPU its plain bf16 word steps take Wc in place of
+the table: the TPU kernels' product form, as the fused scan's plain bf16
+version does, whose rounding points the tests hold to JAX (the card's
+table form lies apart by ROADMAP C's gap).
+
 The light head's word steps are plain tensor ops, as JAX runs them.
 
 Parameter names follow the reference state_dict
@@ -53,7 +65,9 @@ from torch import nn
 from ..ops import (dsa_greedy_scan, dsa_teacher_scan, greedy_mask_outputs,
                    greedy_pick, lstm_cell, ms_deform_attn_sample_values,
                    step_pos_hvec)
-from ..ops.dsa_step import (dsa_lstm_step_table_core,
+from ..ops.dsa_bf16 import RoundBf16
+from ..ops.dsa_step import (dsa_lstm_step_core, dsa_lstm_step_table_core,
+                            dsa_sample_attend_core,
                             dsa_sample_attend_table_core)
 from ..ops.dsa_tables import dsa_value_table
 from .deformable_transformer import dropout
@@ -104,9 +118,10 @@ class CaptionHeadConfig:
     scan_fuse: bool = True
     greedy_fuse: bool = True
     lstm_fuse: bool = False
-    # --tpu_compute_dtype: the fused kernels' products on bf16 operands
-    # under 'bfloat16' (the JAX head's att_precision); the hoisted products
-    # stay f32, since the head's query and memory arrive in f32
+    # --tpu_compute_dtype: the caption kernels' products on bf16 operands
+    # under 'bfloat16' (the JAX head's att_precision), on every route; the
+    # hoisted products stay f32, since the head's query and memory arrive
+    # in f32
     precision: str = 'float32'
 
 
@@ -404,9 +419,11 @@ class DSACaptionHead(_CaptionHead):
     def _value_table(self, hoisted):
         """The stepwise path's per-video table VW = value_t . Wc
         (B, H, S, A), built once per forward pass for all its word
-        steps; None for the attention-free core."""
+        steps (in the bf16 mode under ``precision``); None for the
+        attention-free core."""
         value_t, _, _, _, _, (_, _, _, cw, *_), _ = hoisted
-        return None if cw is None else dsa_value_table(value_t, cw)
+        return None if cw is None else dsa_value_table(value_t, cw,
+                                                       self.cfg.precision)
 
     def _mean_taps(self, geom, h_top, temporal_shapes):
         """The attention-free core's context (the JAX ``_make_core`` with
@@ -421,40 +438,70 @@ class DSACaptionHead(_CaptionHead):
         taps = ms_deform_attn_sample_values(value, temporal_shapes, loc)
         return taps.reshape(B, Pq, H, L * P, -1).mean(dim=3)
 
-    def _step(self, hoisted, vw, z0, state, temporal_shapes):
+    def _step(self, hoisted, kernel_ops, z0, state, temporal_shapes):
         """One word step of the stepwise path (the JAX ``_make_core``'s
-        ``run``): vw the table of ``_value_table``, z0 (B, Pq, 4R) the
-        token's and query's share of layer 0's preactivation, state
-        (h, c), each (num_layers, B, Pq, R).  The sampling positions and
-        hvec come from the top layer's h; the context joins layer 0's
-        preactivation.  Returns the new state."""
-        value_t, base_pos, scale_t, _, _, (
-            off_w_h, h2att_w, h2att_b, _, cb, aw, ab, ctx_w3, w_hh), geom = \
+        ``run``): kernel_ops the word-step kernels' own operands of
+        ``_stepper`` (value_t, the table VW or None, ctx_w3, w_hh), z0
+        (B, Pq, 4R) the token's and query's share of layer 0's
+        preactivation, state (h, c), each (num_layers, B, Pq, R).  The
+        sampling positions and hvec come from the top layer's h; the context
+        joins layer 0's preactivation.  Returns the new state."""
+        _, base_pos, scale_t, _, _, (
+            off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, _), geom = \
             hoisted
         h, c = state
+        precision = self.cfg.precision
         if geom is not None:
             ctx = torch.einsum('bqhd,hdr->bqr',
                                self._mean_taps(geom, h[-1], temporal_shapes),
                                ctx_w3)
-        else:
-            pos, hvec = step_pos_hvec(h[-1], base_pos, scale_t, off_w_h,
-                                      h2att_w, h2att_b)
-            if self.cfg.lstm_fuse and self.fusable:
+            return lstm_step_pre(self.core.rnn.layers(), z0 + ctx, h, c)
+        value_k, vw, ctx_w3_k, w_hh_k = kernel_ops
+        pos, hvec = step_pos_hvec(h[-1], base_pos, scale_t, off_w_h, h2att_w,
+                                  h2att_b)
+        if self.cfg.lstm_fuse and self.fusable:
+            if vw is None:
+                h1, c1 = dsa_lstm_step_core(
+                    value_k, pos, hvec, z0, h[0], c[0], ctx_w3_k, w_hh_k, cw,
+                    cb, aw, ab, temporal_shapes, precision)
+            else:
                 h1, c1 = dsa_lstm_step_table_core(
-                    value_t, vw, pos, hvec, z0, h[0], c[0], ctx_w3, w_hh, cb,
-                    aw, ab, temporal_shapes)
-                return h1[None], c1[None]
-            ctx = torch.einsum('bhqd,hdr->bqr', dsa_sample_attend_table_core(
-                value_t, vw, pos, hvec, cb, aw, ab, temporal_shapes), ctx_w3)
+                    value_k, vw, pos, hvec, z0, h[0], c[0], ctx_w3_k, w_hh_k,
+                    cb, aw, ab, temporal_shapes, precision)
+            return h1[None], c1[None]
+        if vw is None:
+            ctx = dsa_sample_attend_core(value_k, pos, hvec, cw, cb, aw, ab,
+                                         temporal_shapes, precision)
+        else:
+            ctx = dsa_sample_attend_table_core(value_k, vw, pos, hvec, cb, aw,
+                                               ab, temporal_shapes, precision)
+        ctx = torch.einsum('bhqd,hdr->bqr', ctx, ctx_w3)
         return lstm_step_pre(self.core.rnn.layers(), z0 + ctx, h, c)
 
     def _stepper(self, hoisted, temporal_shapes):
-        if self.cfg.precision != 'float32' and self.cfg.att_hid_size > 0:
-            raise NotImplementedError(
-                'the stepwise caption path has no bf16 variant of its '
-                'word-step kernels K7-K10 yet (ROADMAP A3b)')
-        vw = self._value_table(hoisted)
-        return lambda z0, state: self._step(hoisted, vw, z0, state,
+        """The word step of the stepwise path as ``step(z0, state)``, with
+        what its kernels read built once per forward pass: the table VW and,
+        under bf16 ``precision`` on the card, the kernels' operands value_t,
+        ctx_w3 and w_hh rounded to bf16 (:class:`~dvc_tpu_torch.ops.
+        dsa_bf16.RoundBf16`, the gradient passed through); ctx_w3 and w_hh
+        only where K9 multiplies them (``lstm_fuse``), since the unfused
+        step's ``ctx . ctx_w`` and LSTM layers are f32 products outside the
+        kernel.  On the CPU in bf16 no table and no rounding here: the plain
+        steps take Wc (the TPU kernels' product form) and round their
+        operands themselves."""
+        value_t, _, _, _, _, (*_, ctx_w3, w_hh), geom = hoisted
+        kernel_ops = None
+        if geom is None:
+            vw = None
+            if self.cfg.precision == 'float32' or value_t.is_cuda:
+                if self.cfg.precision == 'bfloat16':
+                    value_t = RoundBf16.apply(value_t)
+                    if self.cfg.lstm_fuse and self.fusable:
+                        ctx_w3, w_hh = (RoundBf16.apply(ctx_w3),
+                                        RoundBf16.apply(w_hh))
+                vw = self._value_table((value_t,) + hoisted[1:])
+            kernel_ops = (value_t, vw, ctx_w3, w_hh)
+        return lambda z0, state: self._step(hoisted, kernel_ops, z0, state,
                                             temporal_shapes)
 
     def forward(self, query, ref_center, offset_scale, memory,

@@ -32,9 +32,10 @@ trunk's linears, the decoder's self-attention and the residual adds in
 bf16 on f32 weights, as the flax layers' ``dtype`` does (see
 :mod:`.deformable_transformer`); the encoder hands f32 memory on and each
 decoder layer's output is cast to f32, so the heads compute in f32; and the
-fused caption kernels take bf16 operands (K4-bf16, K5-bf16, K6-bf16; the
-trunk MSDA kernels K1-K3 stay f32, as in JAX).  The stepwise caption
-routes under bf16 raise (:func:`refuse_bf16`).
+caption kernels take bf16 operands on every route (K4-bf16, K5-bf16,
+K6-bf16 fused, K7-bf16 to K10-bf16 and the table's bf16 mode stepwise; the
+trunk MSDA kernels K1-K3 stay f32, as in JAX).  :func:`check_dtypes`
+refuses any other dtype.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ class PDVCConfig:
 
     @classmethod
     def from_opt(cls, opt):
-        refuse_bf16(opt)
+        check_dtypes(opt)
         cap = CaptionHeadConfig(
             vocab_size=opt.vocab_size,
             input_encoding_size=opt.input_encoding_size,
@@ -136,40 +137,13 @@ class PDVCConfig:
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
-def bf16_stepwise_routes(opt):
-    """The options of ``opt`` that would run the LSTM-DSA head's stepwise
-    word steps (K7-K10, or the sampling decode), which have no bf16
-    variant: scheduled sampling, ``--dsa_scan_fuse 0``, ``--dsa_greedy_fuse
-    0``, ``--dsa_lstm_fuse 1``, ``--caption_sample_max 0``, or a core of
-    more than one layer."""
-    if opt.caption_decoder_type != 'standard' or opt.att_hid_size <= 0:
-        return []
-    routes = {'--scheduled_sampling_start >= 0':
-              opt.scheduled_sampling_start >= 0,
-              '--dsa_scan_fuse 0': not opt.dsa_scan_fuse,
-              '--dsa_greedy_fuse 0': not opt.dsa_greedy_fuse,
-              '--dsa_lstm_fuse 1': bool(opt.dsa_lstm_fuse),
-              '--caption_sample_max 0': not opt.caption_sample_max,
-              '--num_layers > 1': opt.num_layers > 1}
-    return [flag for flag, on in routes.items() if on]
-
-
-def refuse_bf16(opt):
+def check_dtypes(opt):
     """Checks ``--tpu_compute_dtype`` and ``--fusion_dtype``: each is
-    float32 or bfloat16, and under bf16 compute no stepwise caption route
-    is asked for (:func:`bf16_stepwise_routes`): those raise
-    ``NotImplementedError`` rather than running in f32."""
+    float32 or bfloat16 (a ``ValueError`` otherwise)."""
     for flag in ('tpu_compute_dtype', 'fusion_dtype'):
         value = getattr(opt, flag, 'float32')
         if value not in DTYPES:
             raise ValueError(f'--{flag} {value!r}: one of {tuple(DTYPES)}')
-    if getattr(opt, 'tpu_compute_dtype', 'float32') == 'bfloat16':
-        routes = bf16_stepwise_routes(opt)
-        if routes:
-            raise NotImplementedError(
-                f'--tpu_compute_dtype bfloat16 with {", ".join(routes)}: the '
-                'stepwise caption path has no bf16 variant of its word-step '
-                'kernels K7-K10 yet (ROADMAP A3b)')
 
 
 class BBoxHead(nn.Module):

@@ -36,7 +36,7 @@ from .data import DevicePrefetchLoader, FusionBatchLoader, FusionDataset
 from .eval import evaluate
 from .serve import load_info_json, load_pdvc_weights
 from .train import (Trainer, filtered_restore, load_checkpoint, multistep_lr,
-                    save_checkpoint, ss_prob_for_epoch)
+                    refuse_data_mesh, save_checkpoint, ss_prob_for_epoch)
 from .utils.config import parse_opts
 
 
@@ -95,6 +95,7 @@ def main(opt, device=None):
     mean losses).  ``device`` defaults to ``opt.device`` (the card unless
     it says 'cpu')."""
     device = device or ('cpu' if opt.device == 'cpu' else 'cuda')
+    refuse_data_mesh(opt)
     save_folder = build_folder(opt)
     logger = create_logger(save_folder)
     train_ds = FusionDataset(opt.train_caption_file, opt.visual_feature_folder,

@@ -230,10 +230,7 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
         vw.data_ptr(), tw.data_ptr(), work.data_ptr(), B, H, S, Dh, Q, LP, L,
         A, R, E, V1, K, work.numel(), int(rb), _cuda.stream_ptr(value_t.device)),
         'dvc_dsa_greedy')
-    if rb:
-        dsa_greedy_scan.launches_bf16 += 1
-    else:
-        dsa_greedy_scan.launches += 1
+    _cuda.count_launch(dsa_greedy_scan, rb)
     return tok, lp
 
 

@@ -146,10 +146,7 @@ def dsa_teacher_scan_fwd(*args, precision='float32'):
         *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
         hs.data_ptr(), cs.data_ptr(), vw.data_ptr(), work.data_ptr(), *dims,
         work.numel(), int(rb), _cuda.stream_ptr(hs.device)), 'dvc_dsa_scan_fwd')
-    if rb:
-        dsa_teacher_scan_fwd.launches_bf16 += 1
-    else:
-        dsa_teacher_scan_fwd.launches += 1
+    _cuda.count_launch(dsa_teacher_scan_fwd, rb)
     return hs, cs
 
 
@@ -204,10 +201,7 @@ def dsa_teacher_scan_bwd(*args, precision='float32'):
         g.data_ptr(), _cuda.levels_array(temporal_shapes),
         *(t.data_ptr() for t in outs + scratch), *dims, work.numel(), int(rb),
         _cuda.stream_ptr(dev)), 'dvc_dsa_scan_bwd')
-    if rb:
-        dsa_teacher_scan_bwd.launches_bf16 += 1
-    else:
-        dsa_teacher_scan_bwd.launches += 1
+    _cuda.count_launch(dsa_teacher_scan_bwd, rb)
     return (dvalue, dbase, dscale, dz,
             doffw.reshape(R, H, LP).permute(1, 0, 2), dh2w, dcb.clone(),
             dcw, dcb, daw, dab.reshape(ab_shape),

@@ -37,14 +37,29 @@ LSTM cell (``dsa_lstm_step``), each with its backward.
 
 The sampling and attention arithmetic is the greedy decode's and the scan's
 (:func:`dvc_tpu_torch.ops.dsa_greedy.attend`).
+
+``precision='bfloat16'`` (``--tpu_compute_dtype bfloat16`` on the stepwise
+path) is the TPU kernels' bf16 variant: every in-kernel product on
+bf16-rounded operands with f32 accumulation; hvec, the positions and what
+the step returns meet f32 products outside.  On CPU tensors the ``*_core``
+wrappers (cw given) run its plain version,
+:class:`~dvc_tpu_torch.ops.dsa_bf16.PlainWordStepBf16` (the TPU kernels'
+product form, which rounds its operands itself); the ``*_table_core``
+wrappers (vw given) have no CPU bf16 form.  On the card the same kernels
+run in their bf16-operand mode (K7-bf16 to K10-bf16), counted apart in
+``launches_bf16``, on the table's bf16 mode.  The kernels, and so the
+``*_table_core`` wrappers, take value_t (and K9/K10 ctx_w3 and w_hh)
+rounded to bf16 by the caller: the caption head once per forward pass
+(:class:`~dvc_tpu_torch.ops.dsa_bf16.RoundBf16`), the ``*_core`` and
+``dsa_*_grads`` wrappers at the JAX boundary in each call.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _cuda
-from .dsa_greedy import _level_bounds, attend, lstm_cell
+from . import _cuda, dsa_bf16
+from .dsa_greedy import _level_bounds, attend, check_precision, lstm_cell
 from .dsa_tables import dsa_value_table, table_gemm, table_gemm_bwd
 
 STEP_NAMES = ('value_t', 'pos', 'hvec', 'cw', 'cb', 'aw', 'ab')
@@ -280,9 +295,12 @@ def _empty(dev, *shape):
 
 
 def dsa_sample_attend_fwd(value_t, vw, pos, hvec, cb, aw, ab,
-                          temporal_shapes):
+                          temporal_shapes, precision='float32'):
     """ctx (B, H, Q, Dh) of :func:`sample_attend_table_ref` by the kernel
-    ``dvc_dsa_step_fwd`` (K7), or an error."""
+    ``dvc_dsa_step_fwd`` (K7, or K7-bf16 under ``precision='bfloat16'``:
+    value_t rounded to bf16 by the caller, vw the table's bf16 mode), or an
+    error."""
+    rb = check_precision(precision)
     dims, ops = _operands(STEP_TABLE_NAMES, (value_t, vw, pos, hvec, cb, aw,
                                              ab), temporal_shapes)
     B, H, S, Dh, Q, LP, L, A, _ = dims
@@ -290,20 +308,23 @@ def dsa_sample_attend_fwd(value_t, vw, pos, hvec, cb, aw, ab,
     ctx = _empty(dev, B, H, Q, Dh)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_step_fwd(
         *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
-        ctx.data_ptr(), B, H, S, Dh, Q, LP, L, A, _cuda.stream_ptr(dev)),
-        'dvc_dsa_step_fwd')
-    dsa_sample_attend_fwd.launches += 1
+        ctx.data_ptr(), B, H, S, Dh, Q, LP, L, A, int(rb),
+        _cuda.stream_ptr(dev)), 'dvc_dsa_step_fwd')
+    _cuda.count_launch(dsa_sample_attend_fwd, rb)
     return ctx
 
 
 dsa_sample_attend_fwd.launches = 0
+dsa_sample_attend_fwd.launches_bf16 = 0
 
 
 def dsa_sample_attend_bwd(value_t, vw, pos, hvec, cb, aw, ab,
-                          temporal_shapes, g):
+                          temporal_shapes, g, precision='float32'):
     """The 7 gradients of K7 for the cotangent g (B, H, Q, Dh) of ctx, in
     the order of its operands (value_t's the context's term only; vw's G),
-    by the kernel ``dvc_dsa_step_bwd`` (K8), or an error."""
+    by the kernel ``dvc_dsa_step_bwd`` (K8, or K8-bf16 under
+    ``precision='bfloat16'``, operands as K7-bf16's), or an error."""
+    rb = check_precision(precision)
     ab_shape = torch.as_tensor(ab).shape
     dims, ops = _operands(STEP_TABLE_NAMES, (value_t, vw, pos, hvec, cb, aw,
                                              ab), temporal_shapes)
@@ -318,19 +339,23 @@ def dsa_sample_attend_bwd(value_t, vw, pos, hvec, cb, aw, ab,
     _cuda.check(_cuda.lib().cdll.dvc_dsa_step_bwd(
         *(t.data_ptr() for t in ops), g.data_ptr(),
         _cuda.levels_array(temporal_shapes),
-        *(t.data_ptr() for t in outs), B, H, S, Dh, Q, LP, L, A,
+        *(t.data_ptr() for t in outs), B, H, S, Dh, Q, LP, L, A, int(rb),
         _cuda.stream_ptr(dev)), 'dvc_dsa_step_bwd')
-    dsa_sample_attend_bwd.launches += 1
+    _cuda.count_launch(dsa_sample_attend_bwd, rb)
     return (*outs[:6], outs[6].reshape(ab_shape))
 
 
 dsa_sample_attend_bwd.launches = 0
+dsa_sample_attend_bwd.launches_bf16 = 0
 
 
 def dsa_lstm_step_fwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
-                      aw, ab, temporal_shapes):
+                      aw, ab, temporal_shapes, precision='float32'):
     """(h_new, c_new) of :func:`lstm_step_table_ref` by the kernel
-    ``dvc_dsa_lstm_fwd`` (K9), or an error."""
+    ``dvc_dsa_lstm_fwd`` (K9, or K9-bf16 under ``precision='bfloat16'``:
+    value_t, ctx_w3 and w_hh rounded to bf16 by the caller, vw the table's
+    bf16 mode), or an error."""
+    rb = check_precision(precision)
     dims, ops = _operands(LSTM_TABLE_NAMES, (value_t, vw, pos, hvec, z0, h, c,
                                              ctx_w3, w_hh, cb, aw, ab),
                           temporal_shapes)
@@ -340,20 +365,23 @@ def dsa_lstm_step_fwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
     _cuda.check(_cuda.lib().cdll.dvc_dsa_lstm_fwd(
         *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
         h_new.data_ptr(), c_new.data_ptr(), B, H, S, Dh, Q, LP, L, A, R,
-        _cuda.stream_ptr(dev)), 'dvc_dsa_lstm_fwd')
-    dsa_lstm_step_fwd.launches += 1
+        int(rb), _cuda.stream_ptr(dev)), 'dvc_dsa_lstm_fwd')
+    _cuda.count_launch(dsa_lstm_step_fwd, rb)
     return h_new, c_new
 
 
 dsa_lstm_step_fwd.launches = 0
+dsa_lstm_step_fwd.launches_bf16 = 0
 
 
 def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
-                      aw, ab, temporal_shapes, gh, gc):
+                      aw, ab, temporal_shapes, gh, gc, precision='float32'):
     """The 12 gradients of K9 for the cotangents gh, gc (B, Q, R) of
     (h_new, c_new), in the order of its operands (value_t's the context's
-    term only; vw's G), by the kernel ``dvc_dsa_lstm_bwd`` (K10), or an
+    term only; vw's G), by the kernel ``dvc_dsa_lstm_bwd`` (K10, or
+    K10-bf16 under ``precision='bfloat16'``, operands as K9-bf16's), or an
     error."""
+    rb = check_precision(precision)
     ab_shape = torch.as_tensor(ab).shape
     dims, ops = _operands(LSTM_TABLE_NAMES, (value_t, vw, pos, hvec, z0, h, c,
                                              ctx_w3, w_hh, cb, aw, ab),
@@ -377,139 +405,188 @@ def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
         *(t.data_ptr() for t in ops), gh.data_ptr(), gc.data_ptr(),
         _cuda.levels_array(temporal_shapes),
         *(t.data_ptr() for t in outs + scratch),
-        B, H, S, Dh, Q, LP, L, A, R, work.numel(), _cuda.stream_ptr(dev)),
-        'dvc_dsa_lstm_bwd')
-    dsa_lstm_step_bwd.launches += 1
+        B, H, S, Dh, Q, LP, L, A, R, work.numel(), int(rb),
+        _cuda.stream_ptr(dev)), 'dvc_dsa_lstm_bwd')
+    _cuda.count_launch(dsa_lstm_step_bwd, rb)
     return (*outs[:11], outs[11].reshape(ab_shape))
 
 
 dsa_lstm_step_bwd.launches = 0
+dsa_lstm_step_bwd.launches_bf16 = 0
 
 
-def _boundary_grads(bwd, value_t, cw, *args):
+def _boundary_grads(bwd, value_t, cw, *args, precision='float32'):
     """(dvalue, the rest of ``bwd``'s gradients, dcw) at the JAX boundary,
     on the card: the table VW = value_t . cw (``table_gemm``), ``bwd(value_t,
     VW, *args)`` (K8 or K10: value_t's context term and G first), and the
     table's backward (``table_gemm_bwd``) for value_t's scores' term and
-    cw's gradient."""
+    cw's gradient; under ``precision='bfloat16'`` each in its bf16 mode,
+    on value_t rounded (``args`` carry ctx_w3 and w_hh rounded for K10)."""
+    if check_precision(precision):
+        value_t = dsa_bf16.bf16(value_t)
     B, H, S, Dh = value_t.shape
     rows = value_t.reshape(-1, Dh)
-    vw = table_gemm(rows, cw).reshape(B, H, S, -1)
-    dvalue, G, *rest = bwd(value_t, vw, *args)
-    dx, dcw = table_gemm_bwd(rows, cw, G.reshape(-1, G.shape[-1]))
+    vw = table_gemm(rows, cw, precision).reshape(B, H, S, -1)
+    dvalue, G, *rest = bwd(value_t, vw, *args, precision=precision)
+    dx, dcw = table_gemm_bwd(rows, cw, G.reshape(-1, G.shape[-1]), precision)
     return dvalue + dx.reshape(dvalue.shape), rest, dcw
 
 
 def dsa_sample_attend_grads(value_t, pos, hvec, cw, cb, aw, ab,
-                            temporal_shapes, g):
+                            temporal_shapes, g, precision='float32'):
     """The 7 gradients at the JAX boundary (the operands of
     :func:`sample_attend_ref`) for the cotangent g, by the table, K8 and
-    the table's backward."""
+    the table's backward (each in its bf16 mode under
+    ``precision='bfloat16'``)."""
     dvalue, rest, dcw = _boundary_grads(dsa_sample_attend_bwd, value_t, cw,
                                         pos, hvec, cb, aw, ab,
-                                        temporal_shapes, g)
+                                        temporal_shapes, g,
+                                        precision=precision)
     return (dvalue, *rest[:2], dcw, *rest[2:])
 
 
 def dsa_lstm_step_grads(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb,
-                        aw, ab, temporal_shapes, gh, gc):
+                        aw, ab, temporal_shapes, gh, gc, precision='float32'):
     """The 12 gradients at the JAX boundary (the operands of
     :func:`lstm_step_ref`) for the cotangents gh, gc, by the table, K10 and
-    the table's backward."""
+    the table's backward (each in its bf16 mode under
+    ``precision='bfloat16'``)."""
+    if check_precision(precision):
+        ctx_w3, w_hh = dsa_bf16.bf16(ctx_w3), dsa_bf16.bf16(w_hh)
     dvalue, rest, dcw = _boundary_grads(dsa_lstm_step_bwd, value_t, cw, pos,
                                         hvec, z0, h, c, ctx_w3, w_hh, cb, aw,
-                                        ab, temporal_shapes, gh, gc)
+                                        ab, temporal_shapes, gh, gc,
+                                        precision=precision)
     return (dvalue, *rest[:7], dcw, *rest[7:])
 
 
 class DSASampleAttendFunction(torch.autograd.Function):
     """K7 forward, K8 backward, over the operands of
-    :func:`sample_attend_table_ref`; the last argument is the level
-    table."""
+    :func:`sample_attend_table_ref`; the last arguments are the level
+    table and the precision."""
 
     @staticmethod
     def forward(fctx, *args):
-        *ops, temporal_shapes = args
-        fctx.temporal_shapes = temporal_shapes
+        *ops, temporal_shapes, precision = args
+        fctx.temporal_shapes, fctx.precision = temporal_shapes, precision
         fctx.save_for_backward(*ops)
-        return dsa_sample_attend_fwd(*ops, temporal_shapes)
+        return dsa_sample_attend_fwd(*ops, temporal_shapes,
+                                     precision=precision)
 
     @staticmethod
     def backward(fctx, g):
         return (*dsa_sample_attend_bwd(*fctx.saved_tensors,
-                                       fctx.temporal_shapes, g), None)
+                                       fctx.temporal_shapes, g,
+                                       precision=fctx.precision), None, None)
 
 
 class DSALSTMStepFunction(torch.autograd.Function):
     """K9 forward, K10 backward, over the operands of
-    :func:`lstm_step_table_ref`; the last argument is the level table."""
+    :func:`lstm_step_table_ref`; the last arguments are the level table
+    and the precision."""
 
     @staticmethod
     def forward(fctx, *args):
-        *ops, temporal_shapes = args
-        fctx.temporal_shapes = temporal_shapes
+        *ops, temporal_shapes, precision = args
+        fctx.temporal_shapes, fctx.precision = temporal_shapes, precision
         fctx.save_for_backward(*ops)
-        return dsa_lstm_step_fwd(*ops, temporal_shapes)
+        return dsa_lstm_step_fwd(*ops, temporal_shapes, precision=precision)
 
     @staticmethod
     def backward(fctx, gh, gc):
         return (*dsa_lstm_step_bwd(*fctx.saved_tensors, fctx.temporal_shapes,
-                                   gh, gc), None)
+                                   gh, gc, precision=fctx.precision),
+                None, None)
+
+
+def _table_core_precision(value_t, precision):
+    """The ``*_table_core`` wrappers' precision check: the plain bf16 word
+    steps on the CPU take cw (the ``*_core`` wrappers), not the table."""
+    if check_precision(precision) and not value_t.is_cuda:
+        raise NotImplementedError(
+            'a bf16 word step on CPU tensors takes cw, not the table: '
+            'dsa_sample_attend_core / dsa_lstm_step_core')
 
 
 def dsa_sample_attend_table_core(value_t, vw, pos, hvec, cb, aw, ab,
-                                 temporal_shapes):
+                                 temporal_shapes, precision='float32'):
     """One word step's sampling and attention from the table vw =
     value_t . cw, differentiable (vw's gradient is G).  Returns ctx
     (B, H, Q, Dh).  CPU tensors: the plain version
-    (:func:`sample_attend_table_ref`).  CUDA tensors: K7/K8 (f32) or an
-    error."""
+    (:func:`sample_attend_table_ref`; in bf16 an error).  CUDA tensors:
+    K7/K8 (f32, or K7-bf16/K8-bf16 under ``precision='bfloat16'``, value_t
+    given rounded) or an error."""
+    _table_core_precision(value_t, precision)
+    args = (value_t, vw, pos, hvec, cb, aw,
+            torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
     if not value_t.is_cuda:
-        return sample_attend_table_ref(value_t, vw, pos, hvec, cb, aw, ab,
-                                       temporal_shapes)
-    return DSASampleAttendFunction.apply(
-        value_t, vw, pos, hvec, cb, aw, torch.as_tensor(ab, device=pos.device),
-        tuple(temporal_shapes))
+        return sample_attend_table_ref(*args)
+    return DSASampleAttendFunction.apply(*args, precision)
 
 
 def dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
-                           temporal_shapes):
+                           temporal_shapes, precision='float32'):
     """One word step's sampling and attention at the kernels' boundary with
     cw given, differentiable.  Returns ctx (B, H, Q, Dh).  CPU tensors: the
-    plain version (:func:`sample_attend_ref`).  CUDA tensors: the table
-    (:func:`dsa_value_table`), then K7/K8 (f32), or an error."""
+    plain version (:func:`sample_attend_ref`; bf16: the plain bf16 product
+    form, K7-bf16's and K8-bf16's).  CUDA tensors: the table
+    (:func:`dsa_value_table`), then K7/K8 (each in its bf16 mode under
+    ``precision='bfloat16'``, on value_t rounded here), or an error."""
+    rb = check_precision(precision)
     if not value_t.is_cuda:
+        if rb:
+            sample_attend_ref.calls += 1
+            return dsa_bf16.PlainWordStepBf16.apply(
+                value_t, pos, hvec, cw, cb, aw,
+                torch.as_tensor(ab, device=pos.device),
+                tuple(temporal_shapes))
         return sample_attend_ref(value_t, pos, hvec, cw, cb, aw, ab,
                                  temporal_shapes)
-    return dsa_sample_attend_table_core(value_t, dsa_value_table(value_t, cw),
-                                        pos, hvec, cb, aw, ab,
-                                        temporal_shapes)
+    if rb:
+        value_t = dsa_bf16.RoundBf16.apply(value_t)
+    return dsa_sample_attend_table_core(
+        value_t, dsa_value_table(value_t, cw, precision), pos, hvec, cb, aw,
+        ab, temporal_shapes, precision)
 
 
 def dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh,
-                             cb, aw, ab, temporal_shapes):
+                             cb, aw, ab, temporal_shapes, precision='float32'):
     """One fused word step (sampling, attention, LSTM cell) from the table
     vw = value_t . cw, differentiable (vw's gradient is G).  Returns
     (h_new, c_new).  CPU tensors: the plain version
-    (:func:`lstm_step_table_ref`).  CUDA tensors: K9/K10 (f32) or an
-    error."""
+    (:func:`lstm_step_table_ref`; in bf16 an error).  CUDA tensors: K9/K10
+    (f32, or K9-bf16/K10-bf16 under ``precision='bfloat16'``, value_t,
+    ctx_w3 and w_hh given rounded) or an error."""
+    _table_core_precision(value_t, precision)
+    args = (value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb, aw,
+            torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
     if not value_t.is_cuda:
-        return lstm_step_table_ref(value_t, vw, pos, hvec, z0, h, c, ctx_w3,
-                                   w_hh, cb, aw, ab, temporal_shapes)
-    return DSALSTMStepFunction.apply(
-        value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb, aw,
-        torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
+        return lstm_step_table_ref(*args)
+    return DSALSTMStepFunction.apply(*args, precision)
 
 
 def dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
-                       ab, temporal_shapes):
+                       ab, temporal_shapes, precision='float32'):
     """One fused word step at the kernels' boundary with cw given,
     differentiable.  Returns (h_new, c_new).  CPU tensors: the plain
-    version (:func:`lstm_step_ref`).  CUDA tensors: the table
-    (:func:`dsa_value_table`), then K9/K10 (f32), or an error."""
+    version (:func:`lstm_step_ref`; bf16: the plain bf16 product form,
+    K9-bf16's and K10-bf16's).  CUDA tensors: the table
+    (:func:`dsa_value_table`), then K9/K10 (each in its bf16 mode under
+    ``precision='bfloat16'``, on value_t, ctx_w3 and w_hh rounded here), or
+    an error."""
+    rb = check_precision(precision)
     if not value_t.is_cuda:
+        if rb:
+            lstm_step_ref.calls += 1
+            return dsa_bf16.PlainWordStepBf16.apply(
+                value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
+                torch.as_tensor(ab, device=pos.device),
+                tuple(temporal_shapes))
         return lstm_step_ref(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw,
                              cb, aw, ab, temporal_shapes)
-    return dsa_lstm_step_table_core(value_t, dsa_value_table(value_t, cw), pos,
-                                    hvec, z0, h, c, ctx_w3, w_hh, cb, aw, ab,
-                                    temporal_shapes)
+    if rb:
+        value_t, ctx_w3, w_hh = (dsa_bf16.RoundBf16.apply(t)
+                                 for t in (value_t, ctx_w3, w_hh))
+    return dsa_lstm_step_table_core(
+        value_t, dsa_value_table(value_t, cw, precision), pos, hvec, z0, h, c,
+        ctx_w3, w_hh, cb, aw, ab, temporal_shapes, precision)

@@ -16,6 +16,15 @@ backward runs once per backward pass.
 * :func:`dsa_value_table` — ``VW`` (B, H, S, A), differentiable: on CUDA
   tensors an autograd Function over the two kernels, on CPU tensors the
   plain product under autograd.
+
+``precision='bfloat16'`` (the word steps under ``--tpu_compute_dtype
+bfloat16``, K7-K10-bf16): the GEMM's bf16-operand mode, every product on
+bf16-rounded operands with f32 accumulation, so VW = bf16(value_t) .
+bf16(cw) and its backward bf16(G) . bf16(cw)^T and bf16(value_t)^T .
+bf16(G); the kernels count these launches apart (``launches_bf16``), and
+on CPU tensors :func:`dsa_value_table` joins the plain bf16 products in an
+autograd Function (autograd through a rounded product would not round the
+backward's operands).
 """
 
 from __future__ import annotations
@@ -23,11 +32,16 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .dsa_bf16 import bf16
+from .dsa_greedy import check_precision
 
 
-def table_gemm_ref(x, w):
-    """Plain version: x (N, k) . w (k, n)."""
+def table_gemm_ref(x, w, precision='float32'):
+    """Plain version: x (N, k) . w (k, n), on bf16-rounded operands under
+    ``precision='bfloat16'``."""
     table_gemm_ref.calls += 1
+    if check_precision(precision):
+        x, w = bf16(x), bf16(w)
     return torch.einsum('nk,km->nm', x, w)
 
 
@@ -40,11 +54,13 @@ def _f32_on_one_device(*tensors):
         raise TypeError('the table GEMM takes float32 tensors on one device')
 
 
-def table_gemm(x, w):
-    """table (N, n) = x (N, k) . w (k, n), f32.  CPU tensors: the plain
-    version.  CUDA tensors: the kernel, or an error."""
+def table_gemm(x, w, precision='float32'):
+    """table (N, n) = x (N, k) . w (k, n), f32 (``precision='bfloat16'``:
+    on bf16-rounded operands).  CPU tensors: the plain version.  CUDA
+    tensors: the kernel, or an error."""
+    rb = check_precision(precision)
     if not x.is_cuda:
-        return table_gemm_ref(x, w)
+        return table_gemm_ref(x, w, precision)
     _f32_on_one_device(x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f'table GEMM: shapes {tuple(x.shape)} and '
@@ -55,29 +71,36 @@ def table_gemm(x, w):
     work = _cuda.gemm_work(x.device, (N, n, k))     # split-K partial tiles
     _cuda.check(_cuda.lib().cdll.dvc_dsa_table_gemm(
         x.data_ptr(), w.data_ptr(), table.data_ptr(), work.data_ptr(), N, k,
-        n, work.numel(), _cuda.stream_ptr(x.device)), 'dvc_dsa_table_gemm')
-    table_gemm.launches += 1
+        n, work.numel(), int(rb), _cuda.stream_ptr(x.device)),
+        'dvc_dsa_table_gemm')
+    _cuda.count_launch(table_gemm, rb)
     return table
 
 
 table_gemm.launches = 0
+table_gemm.launches_bf16 = 0
 
 
-def table_gemm_bwd_ref(x, w, g):
-    """Plain version of the backward: (g . w^T, x^T . g)."""
+def table_gemm_bwd_ref(x, w, g, precision='float32'):
+    """Plain version of the backward: (g . w^T, x^T . g), on bf16-rounded
+    operands under ``precision='bfloat16'``."""
     table_gemm_bwd_ref.calls += 1
+    if check_precision(precision):
+        x, w, g = bf16(x), bf16(w), bf16(g)
     return torch.einsum('nm,km->nk', g, w), torch.einsum('nk,nm->km', x, g)
 
 
 table_gemm_bwd_ref.calls = 0
 
 
-def table_gemm_bwd(x, w, g):
+def table_gemm_bwd(x, w, g, precision='float32'):
     """The gradients (dx (N, k), dw (k, n)) of table = x . w for its
-    cotangent g (N, n), f32.  CPU tensors: the plain version.  CUDA
-    tensors: the kernel, or an error."""
+    cotangent g (N, n), f32 (``precision='bfloat16'``: on bf16-rounded
+    operands).  CPU tensors: the plain version.  CUDA tensors: the kernel,
+    or an error."""
+    rb = check_precision(precision)
     if not x.is_cuda:
-        return table_gemm_bwd_ref(x, w, g)
+        return table_gemm_bwd_ref(x, w, g, precision)
     _f32_on_one_device(x, w, g)
     N, k = x.shape
     n = w.shape[1]
@@ -91,39 +114,44 @@ def table_gemm_bwd(x, w, g):
     work = _cuda.gemm_work(x.device, (N, k, n), (k, n, N))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_table_gemm_bwd(
         x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), work.data_ptr(), N, k, n, work.numel(),
+        dw.data_ptr(), work.data_ptr(), N, k, n, work.numel(), int(rb),
         _cuda.stream_ptr(x.device)), 'dvc_dsa_table_gemm_bwd')
-    table_gemm_bwd.launches += 1
+    _cuda.count_launch(table_gemm_bwd, rb)
     return dx, dw
 
 
 table_gemm_bwd.launches = 0
+table_gemm_bwd.launches_bf16 = 0
 
 
 class ValueTable(torch.autograd.Function):
     """VW = value_t . cw by the table GEMM; its backward by the table
-    GEMM's backward."""
+    GEMM's backward; the last argument is the precision."""
 
     @staticmethod
-    def forward(ctx, value_t, cw):
+    def forward(ctx, value_t, cw, precision):
         ctx.save_for_backward(value_t, cw)
+        ctx.precision = precision
         B, H, S, Dh = value_t.shape
-        return table_gemm(value_t.reshape(-1, Dh), cw).reshape(B, H, S, -1)
+        return table_gemm(value_t.reshape(-1, Dh), cw,
+                          precision).reshape(B, H, S, -1)
 
     @staticmethod
     def backward(ctx, g):
         value_t, cw = ctx.saved_tensors
         dx, dcw = table_gemm_bwd(value_t.reshape(-1, value_t.shape[-1]), cw,
-                                 g.reshape(-1, cw.shape[1]))
-        return dx.reshape(value_t.shape), dcw
+                                 g.reshape(-1, cw.shape[1]), ctx.precision)
+        return dx.reshape(value_t.shape), dcw, None
 
 
-def dsa_value_table(value_t, cw):
+def dsa_value_table(value_t, cw, precision='float32'):
     """The per-video table VW = value_t (B, H, S, Dh) . cw (Dh, A) ->
-    (B, H, S, A), differentiable.  CPU tensors: the plain product under
-    autograd.  CUDA tensors: the table GEMM and, in the backward, its
-    backward (each one launch), or an error."""
-    if not value_t.is_cuda:
+    (B, H, S, A), differentiable (``precision='bfloat16'``: on
+    bf16-rounded operands, forward and backward).  CPU tensors: the plain
+    product under autograd (bf16: the plain bf16 products in
+    :class:`ValueTable`).  CUDA tensors: the table GEMM and, in the
+    backward, its backward (each one launch), or an error."""
+    if not value_t.is_cuda and not check_precision(precision):
         B, H, S, Dh = value_t.shape
         return table_gemm_ref(value_t.reshape(-1, Dh), cw).reshape(B, H, S, -1)
-    return ValueTable.apply(value_t, cw)
+    return ValueTable.apply(value_t, cw, precision)

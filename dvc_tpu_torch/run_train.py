@@ -46,8 +46,8 @@ from .eval import evaluate
 from .models import make_pdvc_model
 from .new_train import build_folder, create_logger, pretrain, save_info_json
 from .serve import load_info_json
-from .train import (Trainer, load_checkpoint, multistep_lr, save_checkpoint,
-                    ss_prob_for_epoch)
+from .train import (Trainer, load_checkpoint, multistep_lr, refuse_data_mesh,
+                    save_checkpoint, ss_prob_for_epoch)
 from .utils.config import parse_opts
 
 
@@ -77,6 +77,7 @@ def main(opt, device=None):
     mean losses).  ``device`` defaults to ``opt.device`` (the card unless
     it says 'cpu')."""
     device = device or ('cpu' if opt.device == 'cpu' else 'cuda')
+    refuse_data_mesh(opt)
     if opt.streaming_features and not opt.video_folder:
         raise ValueError('--streaming_features requires --video_folder')
     save_folder = build_folder(opt)

@@ -100,6 +100,16 @@ def bucket_caption_length(batch, multiple: int = 8, floor: int = 0):
     return out
 
 
+def refuse_data_mesh(opt):
+    """The training drivers' check: a data mesh (``--tpu_mesh_data`` > 1,
+    the JAX Trainer's) is refused, since the port trains in one process.
+    Evaluation of a run trained on a mesh needs none and is not refused."""
+    if getattr(opt, 'tpu_mesh_data', 1) > 1:
+        raise NotImplementedError(
+            f'--tpu_mesh_data {opt.tpu_mesh_data}: the port trains PDVC in '
+            'one process; the data mesh is ROADMAP.md A6')
+
+
 class Trainer:
     """One model, its optimizer and the dropout generator, on ``device``
     (the card unless the caller asks for the CPU): ``model`` (moved to the

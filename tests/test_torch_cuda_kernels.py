@@ -468,7 +468,7 @@ def test_lstm_step_kernels_refuse_what_they_do_not_implement(cuda):
         *(t.data_ptr() for t in kargs[:11]), ab.data_ptr(), gh.data_ptr(),
         gc.data_ptr(), _cuda.levels_array(ts),
         *(t.data_ptr() for t in outs), B, H, S, Dh, Q, LP, len(ts), A, R,
-        outs[-1].numel(), _cuda.stream_ptr(cuda))
+        outs[-1].numel(), 0, _cuda.stream_ptr(cuda))
     assert code == 1                                    # cudaErrorInvalidValue
 
 
@@ -720,7 +720,7 @@ def test_step_backward_copies_a_misaligned_operand(cuda):
     code = _cuda.lib().cdll.dvc_dsa_step_bwd(
         *(t.data_ptr() for t in args[:6]), ab.data_ptr(), g.data_ptr(),
         _cuda.levels_array(ts), *(t.data_ptr() for t in outs), B, H, S, Dh,
-        Q, LP, len(ts), A, _cuda.stream_ptr(cuda))
+        Q, LP, len(ts), A, 0, _cuda.stream_ptr(cuda))
     assert code == 1                                    # cudaErrorInvalidValue
 
 
@@ -1044,7 +1044,7 @@ def test_table_gemm_splits_at_the_b1_shape(cuda):
     fn = _cuda.lib().cdll.dvc_dsa_table_gemm
     for floats, code in ((need, 0), (need - 1, 1)):
         assert fn(x.data_ptr(), w.data_ptr(), table.data_ptr(),
-                  work.data_ptr(), N, k, n, floats,
+                  work.data_ptr(), N, k, n, floats, 0,
                   _cuda.stream_ptr(cuda)) == code
     torch.cuda.synchronize()
 

@@ -14,6 +14,7 @@ score 1e-5.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -320,6 +321,23 @@ def test_run_eval_on_a_jax_run_matches_jax_evaluate(val, jax_run):
     out = _check_dvc_json(path)
     _assert_same_records(out['results'], val['records'])
     _assert_same_scores(scores, val['scores'])
+
+
+def test_run_eval_evaluates_a_run_trained_on_a_data_mesh(val, jax_run,
+                                                        tmp_path):
+    """A JAX run trained with ``--tpu_mesh_data 2`` evaluates on one
+    device: the mesh splits only training, which the port's training
+    drivers refuse (``refuse_data_mesh``); run_eval builds its Trainer
+    from the saved options all the same."""
+    folder = str(tmp_path / 'mesh_run')
+    shutil.copytree(jax_run, folder)
+    path = os.path.join(folder, 'info.json')
+    info = json.load(open(path))
+    info['best']['opt']['tpu_mesh_data'] = 2
+    json.dump(info, open(path, 'w'))
+    out = _check_dvc_json(run_eval.main(['--eval_save_dir', folder,
+                                         '--eval_device', 'cpu'])[0])
+    _assert_same_records(out['results'], val['records'])
 
 
 def test_run_eval_evaluates_a_streaming_run(tmp_path):

@@ -1,7 +1,7 @@
 """Temperature sampling (``--caption_sample_max 0``, the JAX head's
-``_stochastic_sample``) in the port's LSTM-DSA head, and the bf16 flags:
-accepted on the fused caption routes, refused on the stepwise ones, which
-have no bf16 word-step kernels yet.
+``_stochastic_sample``) in the port's LSTM-DSA head, and the bf16 flags,
+which run on the fused caption routes and on every stepwise one (the
+bf16 word steps; their parity with JAX: ``tests/test_torch_bf16_step.py``).
 
 The sampling decode runs the stepwise word steps (on the CPU the plain
 table-form versions of K7, or K9 under ``lstm_fuse``), never the fused
@@ -23,13 +23,14 @@ import torch
 
 from test_torch_stepwise import (B, CFG, PQ, SHAPES, head_inputs,  # noqa: I100
                                  port_head)
-from torch_port import fusion_batch, tiny_opt, to_numpy, to_torch
+from torch_port import fusion_batch, tiny_opt, to_numpy, to_torch, train_batch
 
 from dvc_tpu.models.caption_heads import CaptionHeadConfig as JaxHeadConfig
 from dvc_tpu.models.caption_heads import DSACaptionHead as JaxHead
 from dvc_tpu_torch.models import PDVCConfig, make_fusion_model
 from dvc_tpu_torch.ops import dsa_greedy_scan_ref
-from dvc_tpu_torch.ops.dsa_step import (lstm_step_table_ref,
+from dvc_tpu_torch.ops.dsa_step import (lstm_step_ref, lstm_step_table_ref,
+                                        sample_attend_ref,
                                         sample_attend_table_ref)
 
 K = CFG['max_caption_len']
@@ -179,8 +180,9 @@ def test_the_model_samples_under_the_flags():
 @pytest.mark.parametrize('flag', ['tpu_compute_dtype', 'fusion_dtype'])
 def test_bf16_flags_raise(flag):
     """Each bf16 flag builds a model on the fused routes (the defaults),
-    with bf16 where it says; with bf16 compute and a stepwise route it
-    raises, naming the ROADMAP item, rather than running in f32."""
+    with bf16 where it says; with bf16 compute and a stepwise route
+    (--dsa_greedy_fuse 0) the serving forward decodes through the bf16 word
+    steps (their plain versions on the CPU), never the fused decode."""
     model = make_fusion_model(tiny_opt(**{flag: 'bfloat16'}), 'cpu')
     assert (model.pdvcModel.cfg.compute_dtype == 'bfloat16') \
         == (flag == 'tpu_compute_dtype')
@@ -189,10 +191,10 @@ def test_bf16_flags_raise(flag):
         == model.pdvcModel.cfg.compute_dtype
     opt = tiny_opt(**{flag: 'bfloat16', 'tpu_compute_dtype': 'bfloat16'},
                    dsa_greedy_fuse=0)
-    with pytest.raises(NotImplementedError, match='A3b'):
-        make_fusion_model(opt, 'cpu')
-    with pytest.raises(NotImplementedError, match='A3b'):
-        PDVCConfig.from_opt(opt)
+    assert PDVCConfig.from_opt(opt).caption.precision == 'bfloat16'
+    out, calls = _bf16_forward('greedy_fuse_0', opt)
+    assert calls == (0, opt.max_caption_len, 0)
+    assert torch.isfinite(out['cap_prob_eval']).all()
 
 
 STEPWISE_ROUTES = {'scheduled_sampling': dict(scheduled_sampling_start=0),
@@ -201,26 +203,82 @@ STEPWISE_ROUTES = {'scheduled_sampling': dict(scheduled_sampling_start=0),
                    'lstm_fuse_1': dict(dsa_lstm_fuse=1),
                    'sample_max_0': dict(caption_sample_max=0),
                    'two_layers': dict(num_layers=2)}
+# the routes that train stepwise (at ss_prob 0.25 where scheduled sampling
+# or the fused LSTM step asks for it); the others decode stepwise
+TRAIN_SS = {'scheduled_sampling': 0.25, 'scan_fuse_0': 0.0,
+            'lstm_fuse_1': 0.25, 'two_layers': 0.0}
+
+
+def _bf16_forward(route, opt):
+    """One bf16 forward of ``opt``'s tiny FusionPDVC on the CPU: a train
+    forward and its backward for the routes of TRAIN_SS, else a serving
+    forward.  Returns (outputs, the plain calls of the fused decode, of
+    the word step and of the fused word step)."""
+    model = make_fusion_model(opt, 'cpu', seed=0)
+    counters = (dsa_greedy_scan_ref, sample_attend_ref, lstm_step_ref)
+    calls = [c.calls for c in counters]
+    gen = torch.Generator().manual_seed(1)
+    if route in TRAIN_SS:
+        batch = {k: to_torch(v) for k, v in train_batch(13).items()}
+        out, losses = model.train().forward_train(batch, gen,
+                                                  ss_prob=TRAIN_SS[route])
+        losses['loss_caption'].backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        assert grads and all(torch.isfinite(g).all() for g in grads)
+        assert all(torch.isfinite(v).all() for v in losses.values())
+    else:
+        batch = {k: to_torch(v) for k, v in fusion_batch(0).items()
+                 if k.startswith(('video', 'sound'))}
+        with torch.no_grad():
+            out = model(batch, gen)
+    return out, tuple(c.calls - n for c, n in zip(counters, calls))
 
 
 @pytest.mark.parametrize('route', sorted(STEPWISE_ROUTES))
 def test_bf16_raises_on_each_stepwise_route(route):
-    """Under --tpu_compute_dtype bfloat16 every option that would run the
-    stepwise word steps raises NotImplementedError naming ROADMAP A3b; in
-    f32 the same options build."""
+    """Under --tpu_compute_dtype bfloat16 every option that runs the
+    stepwise word steps builds and runs one bf16 forward on the CPU (and
+    for the train routes its backward): finite losses and gradients, or
+    finite caption log-probs, through the plain bf16 word steps (K9-bf16's
+    under --dsa_lstm_fuse 1), K of them a pass."""
     over = STEPWISE_ROUTES[route]
-    make_fusion_model(tiny_opt(**over), 'cpu')
-    with pytest.raises(NotImplementedError, match='A3b') as err:
-        PDVCConfig.from_opt(tiny_opt(tpu_compute_dtype='bfloat16', **over))
-    assert '--' + next(iter(over)) in str(err.value)
+    opt = tiny_opt(tpu_compute_dtype='bfloat16', **over)
+    assert PDVCConfig.from_opt(opt).caption.precision == 'bfloat16'
+    out, (greedy, step, fused) = _bf16_forward(route, opt)
+    assert greedy == 0
+    if route in TRAIN_SS:
+        # teacher forcing runs K - 1 steps (a bucketed length) per layer
+        assert (fused if route == 'lstm_fuse_1' else step) > 0
+    else:
+        assert (step, fused) == (opt.max_caption_len, 0)
+        assert torch.isfinite(out['cap_prob_eval']).all()
 
 
 def test_bf16_head_refuses_the_stepwise_path(weights):
-    """A bf16 head asked for a stepwise decode directly (not through the
-    flags) raises as well."""
+    """A bf16 head asked for a sampled decode directly (not through the
+    flags) runs the bf16 word steps: the log-probabilities it emits for its
+    tokens equal its own stepwise bf16 teacher forcing of them (the same
+    plain bf16 steps) up to each caption's first EOS, and differ from the
+    f32 head's."""
     head = port_head(weights, precision='bfloat16')
-    with pytest.raises(NotImplementedError, match='A3b'):
-        _sample(head, head_inputs(0), 1.0)
+    inputs = head_inputs(0)
+    calls = sample_attend_ref.calls
+    seq, lp = _sample(head, inputs, 1.0)
+    assert sample_attend_ref.calls == calls + K
+    seq, lp = to_numpy(seq), to_numpy(lp)
+    valid = _valid(seq)
+    tf = np.concatenate([np.zeros((len(seq), 1), np.int32), seq], 1)
+
+    def forced(h):
+        with torch.no_grad():
+            out = h.teacher_forcing(*map(to_torch, inputs[:4]), SHAPES,
+                                    to_torch(inputs[4]), to_torch(tf))
+        return np.take_along_axis(to_numpy(out), seq[..., None], -1)[..., 0]
+
+    bf16 = forced(port_head(weights, precision='bfloat16', scan_fuse=False))
+    np.testing.assert_allclose(lp[valid], bf16[valid], rtol=1e-6, atol=1e-6)
+    f32 = forced(port_head(weights, scan_fuse=False))
+    assert not np.allclose(lp[valid], f32[valid], rtol=1e-7, atol=0)
 
 
 def test_unknown_dtypes_raise():
