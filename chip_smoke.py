@@ -946,7 +946,10 @@ def run_outer_sum(X, Y, out, work, bf16=0):
     bf16-operand mode, as K5-bf16 runs it), on the current stream; raises
     on a refused launch."""
     import torch
+    from dvc_tpu_torch.ops import _cuda
     (rows, m), n = X.shape, Y.shape[1]
+    if bf16 and hasattr(_cuda, 'bf16_flags'):   # X, Y as stored: bf16 or f32
+        bf16 = _cuda.bf16_flags(X, Y)
     code = gemm_fn()(X.data_ptr(), X.stride(0), 1, Y.data_ptr(), Y.stride(0), 1,
                      m, n, rows, 0, out.data_ptr(), work.data_ptr(),
                      work.numel(), bf16, torch.cuda.current_stream().cuda_stream)
@@ -1307,6 +1310,16 @@ _STEP_CELL = ('      const float c = sigmoidf_(z[1][q]) * a.c[o] + '
 # the gate products of K9 and of K10's recompute (gate_preact)
 _STEP_GATES_H = ('  add_gates<QT>(h, pad4(R), R, a.w_hh, r, R, z);\n', '')
 _STEP_GATES_CTX = ('  add_gates<QT>(ctx, pad4(HD), HD, a.ctx_w3, r, R, z);\n', '')
+# K5-bf16's gates on the tensor cores (dsa_scan.cu, gates_bwd_bf16): the
+# recompute's and the backprop's products, and the cell backward replaced
+# by a pass-through of the preactivations
+_BF16_RECOMPUTE = '    gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);\n'
+_BF16_BACKPROP = '    gate_mma<QT, 1, 8>(wb, gg.Rp / 4, mt, dzb, gg.lddz, acc);\n'
+_BF16_GATES = 'template <int QT>\n__device__ __forceinline__ void gates_bwd_bf16('
+_CELL_PASS = ('__device__ __forceinline__ float cell_pass(float zi, float zf, float zg, '
+              'float zo, float c_prev, float gh, float gc, float (&dz)[4]) {\n'
+              '  dz[0] = zi; dz[1] = zf; dz[2] = zg; dz[3] = zo;\n'
+              '  return c_prev + gh + gc;\n}\n\n')
 _MSDA_GATHERS = ('        for (; j + 4 <= n; j += 4)\n'
                  '          gather_points<V, 4>(col, D, P, wl, wh, at, rows, j, left, lvl, acc);\n'
                  '        for (; j < n; ++j)\n'
@@ -1402,10 +1415,10 @@ SPLITS = {
             ('gathers', [('ms_deform_attn.cu', _MSDA_GATHERS, '')]),
         ]),
         'dsa_greedy': ('dsa_greedy.cu', [
-            ('tables VW, TW', [('dsa_greedy.cu', '(e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf, at.bf16)) !=\n'
-                                '          cudaSuccess ||\n'
-                                '      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf, at.bf16)) != cudaSuccess',
-                                'false')]),
+            ('tables VW, TW', [('dsa_greedy.cu', '  if (at.bf16) {\n    // value and cw in bf16',
+                                '  if (false) {\n    // value and cw in bf16'),
+                               ('dsa_greedy.cu', '} else if ((e = row_table(value_t,',
+                                '} else if (false && (e = row_table(value_t,')]),
             ('scores from VW', [('dsa_greedy.cu', '    attend_scores_table<QT>(at, sm, vw_b, ab);\n', '')]),
             ('ctx', [('dsa_greedy.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);',
                       'attend_softmax<QT>(at, sm);')]),
@@ -1416,8 +1429,9 @@ SPLITS = {
                          'cols_dot_rows<QT, LC>(sm.h, ldR, R, a.logit_w, a.V1, n0, acc);', '')]),
         ]),
         'dsa_scan_bwd': ('dsa_scan.cu', [
-            ('table VW', [('dsa_scan.cu', 'if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf, rb)) != cudaSuccess)\n'
-                           '    return (int)e;', '')]),
+            ('table VW', [('dsa_scan.cu', '  e = rb ? row_table16(op16(value16, Dh), op16(cw, A), BHS, Dh, A, vw, st, work, wf)\n'
+                           '         : row_table(value_t, cwf, BHS, Dh, A, vw, st, work, wf);\n',
+                           '  e = cudaSuccess;\n')]),
             ('scores from VW', [('dsa_scan.cu',
                                  '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
                                  '    attend_softmax_ctx<QT>(at, sm, value_b);\n    for (int i',
@@ -1435,8 +1449,31 @@ SPLITS = {
                              'const int N = 0, HD'),
                             ('dsa_scan.cu', 'G, A, BHS, Dh, A, dcw', 'G, A, 0, Dh, A, dcw')]),
         ]),
+        'dsa_scan_bwd_bf16': ('dsa_scan.cu', [
+            ('table VW', [('dsa_scan.cu', '  e = rb ? row_table16(op16(value16, Dh), op16(cw, A), BHS, Dh, A, vw, st, work, wf)\n'
+                           '         : row_table(value_t, cwf, BHS, Dh, A, vw, st, work, wf);\n',
+                           '  e = cudaSuccess;\n')]),
+            ('gate recompute', [('dsa_scan.cu', _BF16_RECOMPUTE, '')]),
+            ('cell backward', [('dsa_scan.cu', 'dc_s[qi * ldR + u] = cell_bwd(',
+                                'dc_s[qi * ldR + u] = cell_pass('),
+                               ('dsa_scan.cu', _BF16_GATES, _CELL_PASS + _BF16_GATES)]),
+            ('dz.W^T', [('dsa_scan.cu', _BF16_BACKPROP, '')]),
+            ('attention', [('dsa_scan.cu',
+                            '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
+                            '    attend_softmax_ctx<QT>(at, sm, value_b);\n    for (int i',
+                            '    attend_softmax_ctx<QT>(at, sm, value_b);\n    for (int i')]
+             + [edit for _, edits in _TABLE_BWD for edit in edits]),
+            ('dvalue += G.Wc^T', [('dsa_scan.cu', 'B * H * S, Dh, A, true, dvalue',
+                                   '0, Dh, A, true, dvalue')]),
+            ('outer sums', [('dsa_scan.cu', 'const int N = B * K * Q, HD',
+                             'const int N = 0, HD'),
+                            ('dsa_scan.cu', 'G16, BHS, Dh, A, dcw', 'G16, 0, Dh, A, dcw')]),
+        ]),
         'dsa_scan_fwd': ('dsa_scan.cu', [
-            ('table VW', [('dsa_scan.cu', '  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, work_floats, a.at.bf16);\n', '')]),
+            ('table VW', [('dsa_scan.cu', '  if (a.at.bf16)\n    e = row_table16(',
+                           '  if (false)\n    e = row_table16('),
+                          ('dsa_scan.cu', '  else\n    e = row_table(value_t, static_cast',
+                           '  else if (false)\n    e = row_table(value_t, static_cast')]),
             ('scores from VW', [('dsa_scan.cu',
                                  '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
                                  '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
@@ -1573,7 +1610,8 @@ def split_cases(kernels):
     locations; K1/K2 at
     the MSDA shapes of ``phase_kernels`` ((B, Q) = (16, 375), (16, 100),
     (1, 375)); K6 at the serving shape (B=16, Q=100, H=1 and 8); K4 and K5
-    at the train shapes (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8); K7-K10
+    at the train shapes (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8), K5-bf16
+    at the same shapes; K7-K10
     (alone, with VW given) at the word-step shapes of ``check_step`` (B=1,
     Q=90, H=1; B=16, Q=100, H=1 and 8)."""
     import torch
@@ -1607,6 +1645,16 @@ def split_cases(kernels):
             args = greedy_inputs(gen, 16, 100, H)
             cases.append(('dsa_greedy', f'B=16 Q=100 H={H}',
                           lambda args=args: dsa_greedy_scan(*args, MSDA_LEVELS, 30)))
+    for B, H in ((1, 1), (16, 1), (1, 8)):
+        if 'dsa_scan_bwd_bf16' not in kernels:
+            break
+        args = scan_inputs(gen, B, 90, 29, H)
+        hs, cs = dsa_teacher_scan_fwd(*args, MSDA_LEVELS, precision=BF16)
+        g = torch.randn(hs.shape, generator=gen, device='cuda')
+        cases.append(('dsa_scan_bwd_bf16', f'B={B} Q=90 K=29 H={H}',
+                      lambda args=args, hs=hs, cs=cs, g=g:
+                      dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g,
+                                           precision=BF16)))
     for B, H in ((1, 1), (16, 1), (1, 8)):
         if not {'dsa_scan_fwd', 'dsa_scan_bwd'} & set(kernels):
             break
@@ -1685,6 +1733,67 @@ def phase_split(spec, kernels=None):
     finally:
         _cuda._LIB = saved
     return out
+
+
+# the tables' shapes of the stepwise path (value . Wc: B*H*S rows, Dh, A)
+TABLE_SHAPES = (('B=1 H=1', 375, 512, 512), ('B=16 H=1', 6000, 512, 512),
+                ('B=16 H=8', 48000, 64, 512))
+
+
+def ab_bf16_times():
+    """Kernel-only CUDA-event times (ms) of K4-bf16 and K5-bf16 at the
+    train shapes (Q=90, K=29; (B, H) = (1, 1), (16, 1), (1, 8)) and of
+    dsa::gemm's bf16 mode at every shape of OUTER_SUMS and TABLE_SHAPES
+    (the table and its backward), as one JSON line: the half of an A/B of
+    two trees in one call (``--ab-bf16``; run it from each tree's root in
+    turns, old, new, new, old, as ``--ab``).  A tree whose GEMM reads f32
+    operands in its bf16 mode (no ``_cuda.bf16_flags``) is timed on f32
+    operands, a newer one on torch.bfloat16 ones, as each tree's kernels
+    hand them over.  The GEMM's and the tables' also in device time (the
+    profiler's; ``(device)`` keys: at B=1 the event time is the host's)."""
+    import torch
+    from dvc_tpu_torch.ops import _cuda
+    from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
+                                            dsa_teacher_scan_fwd)
+    from dvc_tpu_torch.ops.dsa_tables import table_gemm, table_gemm_bwd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    bf16_stored = hasattr(_cuda, 'bf16_flags')
+
+    def operand(*shape):
+        x = torch.randn(shape, generator=gen, device='cuda')
+        return x.bfloat16() if bf16_stored else x
+
+    out = {}
+    with torch.inference_mode():
+        for B, H in ((1, 1), (16, 1), (1, 8)):
+            args = scan_inputs(gen, B, 90, 29, H)
+            hs, cs = dsa_teacher_scan_fwd(*args, MSDA_LEVELS, precision=BF16)
+            g = torch.randn(hs.shape, generator=gen, device='cuda')
+            out[f'dsa_scan_fwd_bf16 B={B} H={H}'] = cuda_ms(
+                lambda: dsa_teacher_scan_fwd(*args, MSDA_LEVELS,
+                                             precision=BF16), 5)
+            out[f'dsa_scan_bwd_bf16 B={B} H={H}'] = cuda_ms(
+                lambda: dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g,
+                                             precision=BF16), 5)
+        calls = {}
+        for label, rows, m, n, _ in OUTER_SUMS:
+            X, Y = operand(rows, m), operand(rows, n)
+            o = torch.empty((m, n), device='cuda')
+            work = outer_sum_work(X, Y)
+            calls[f'gemm_bf16 {label}'] = (
+                lambda X=X, Y=Y, o=o, work=work:
+                run_outer_sum(X, Y, o, work, bf16=1))
+        for label, N, k, n in TABLE_SHAPES:
+            x, w, g = operand(N, k), operand(k, n), operand(N, n)
+            calls[f'table_gemm_bf16 {label}'] = (
+                lambda x=x, w=w: table_gemm(x, w, BF16))
+            calls[f'table_gemm_bwd_bf16 {label}'] = (
+                lambda x=x, w=w, g=g: table_gemm_bwd(x, w, g, BF16))
+        for key, call in calls.items():
+            out[key] = cuda_ms(call, 20)
+            out[f'{key} (device)'] = device_ms(call, 20)
+    print(json.dumps({'ab_bf16': out, 'bf16_stored': bf16_stored}))
 
 
 def ab_times():
@@ -1883,10 +1992,16 @@ def traced(label):
     for name, us in top:
         print(f'[trace]   {us / 1e3:9.3f} ms  {us / window:.4f} of window  '
               f'{name[:90]}')
+    k5 = sum(us for n, us in per_name.items() if 'scan_bwd_kernel' in n)
+    if k5:
+        print(f'[trace]   {k5 / 1e3:9.3f} ms  {k5 / window:.4f} of window  K5 '
+              f'(scan_bwd_kernel; its GEMMs below), {k5 / busy:.4f} of the '
+              f'device time')
     gemm = {n: us for n, us in per_name.items()
-            if 'gemm_kernel' in n or 'split_sum_kernel' in n}
+            if 'gemm_kernel' in n or 'gemm16_kernel' in n
+            or 'split_sum_kernel' in n or 'round_bf16_kernel' in n}
     if gemm:
-        outer = sum(us for n, us in gemm.items() if 'true, true, ' in n)
+        outer = sum(us for n, us in gemm.items() if 'true, true>' in n)
         print(f'[trace]   {sum(gemm.values()) / 1e3:9.3f} ms  dsa::gemm in all '
               f'(tables, G . Wc^T, outer sums, split sums); the outer sums\' '
               f'kernels (both operands along the terms) {outer / 1e3:.3f} ms')
@@ -4426,28 +4541,27 @@ def check_scan_bf16(gen, B, Q, K, H):
 
 def check_gemm_bf16(gen, rows, m, n, label):
     """dsa::gemm's bf16-operand mode (``dvc_dsa_gemm``'s bf16, the outer sums
-    of K5-bf16 and the tables of K4-K6-bf16) on one outer sum out (m, n) =
-    X^T Y: against the float64 product of the operands rounded to bf16
-    (their products are exact in f32, so what remains is the f32
-    accumulation), in units of its products within GEMM_PRODUCT_TOL; timed
-    beside the f32 mode (3xTF32) on the same inputs and torch.matmul of
-    the bf16 operands (library_ms, a yardstick used nowhere)."""
+    of K5-bf16 and K10-bf16) on one outer sum out (m, n) = X^T Y over bf16
+    operands (torch.bfloat16, as K5-bf16 writes its rows): against the
+    float64 product of the same values (their products are exact in f32,
+    so what remains is the f32 accumulation), in units of its products
+    within GEMM_PRODUCT_TOL; timed beside the f32 mode (3xTF32) on the same
+    values in f32 and torch.matmul of the bf16 tensors (library_ms, a
+    yardstick used nowhere).  Returns the result."""
     import torch
-    from dvc_tpu_torch.ops import _cuda
-    from dvc_tpu_torch.ops.dsa_bf16 import bf16
-    X = torch.randn((rows, m), generator=gen, device='cuda')
-    Y = torch.randn((rows, n), generator=gen, device='cuda')
+    X = torch.randn((rows, m), generator=gen, device='cuda').bfloat16()
+    Y = torch.randn((rows, n), generator=gen, device='cuda').bfloat16()
     out = torch.empty((m, n), device='cuda')
     work = outer_sum_work(X, Y)
     run_outer_sum(X, Y, out, work, bf16=1)
-    err = product_err(out, bf16(X).T, bf16(Y))
+    err = product_err(out, X.float().T, Y.float())
+    abs_err = float((out.double() - X.double().T @ Y.double()).abs().max())
     ms = cuda_ms(lambda: run_outer_sum(X, Y, out, work, bf16=1), 10)
-    f32_ms = cuda_ms(lambda: run_outer_sum(X, Y, torch.empty_like(out), work),
-                     10)
-    xb, yb = X.bfloat16(), Y.bfloat16()
-    library_ms = cuda_ms(lambda: torch.matmul(xb.T, yb), 10)
-    bound_ms, bound_by = bf16_bound(2 * (X.numel() + Y.numel())
-                                    + nbytes(out), rows * m * n)
+    Xf, Yf = X.float(), Y.float()
+    f32_ms = cuda_ms(lambda: run_outer_sum(Xf, Yf, torch.empty_like(out),
+                                           work), 10)
+    library_ms = cuda_ms(lambda: torch.matmul(X.T, Y), 10)
+    bound_ms, bound_by = bf16_bound(nbytes(X, Y, out), rows * m * n)
     print(f'[bf16] gemm_bf16 {label} ({rows} x {m})^T ({rows} x {n}): '
           f'in product units {err:.2e} (tol {GEMM_PRODUCT_TOL:.0e}); bf16 '
           f'mode {ms:.4f} ms, f32 mode (3xTF32) {f32_ms:.4f} ms, library '
@@ -4455,6 +4569,9 @@ def check_gemm_bf16(gen, rows, m, n, label):
           f'ms ({bound_by})')
     if not err <= GEMM_PRODUCT_TOL:
         raise AssertionError(f'gemm_bf16 {label}: {err} in product units')
+    return {'rows': rows, 'm': m, 'n': n, 'max_abs_err': abs_err, 'ms': ms,
+            'f32_ms': f32_ms, 'library_ms': library_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by}
 
 
 def bf16_kernels():
@@ -4466,7 +4583,7 @@ def bf16_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(0)
     with torch.inference_mode():
-        for label, rows, m, n, _ in OUTER_SUMS[:2]:
+        for label, rows, m, n, _ in OUTER_SUMS:
             check_gemm_bf16(gen, rows, m, n, label)
         res = {'dsa_greedy_bf16': [check_greedy_bf16(gen, B, 100, H)
                                    for B, H in ((16, 1), (16, 8), (1, 1),
@@ -4829,7 +4946,8 @@ def bf16_eval(folder, card):
 
 def check_table_bf16(gen, N, k, n, label):
     """The table GEMM's bf16-operand mode (``table_gemm`` /
-    ``table_gemm_bwd`` at precision='bfloat16': VW = bf16(value) .
+    ``table_gemm_bwd`` at precision='bfloat16', on bf16 tensors as the
+    caption head's ``ValueTable`` hands them over: VW = bf16(value) .
     bf16(Wc) of K7-K10-bf16, once per stepwise forward pass, and its
     backward bf16(G) . bf16(Wc)^T and bf16(value)^T bf16(G), once per
     backward pass) against the float64 products of the bf16-rounded
@@ -4847,17 +4965,19 @@ def check_table_bf16(gen, N, k, n, label):
     w = torch.randn((k, n), generator=gen, device='cuda') / k ** 0.5
     g = torch.randn((N, n), generator=gen, device='cuda')
     xb, wb, gb = bf16(x), bf16(w), bf16(g)
-    got = table_gemm(x, w, BF16)
-    dx, dw = table_gemm_bwd(x, w, g, BF16)
+    # the operands as the caption head hands them to the table's GEMMs:
+    # value_t, cw and G rounded once each, in torch.bfloat16
+    xh, wh, gh = x.bfloat16(), w.bfloat16(), g.bfloat16()
+    got = table_gemm(xh, wh, BF16)
+    dx, dw = table_gemm_bwd(xh, wh, gh, BF16)
     errs = (product_err(got, xb, wb), product_err(dx, gb, wb.T),
             product_err(dw, xb.T, gb))
     rounds = (rel_l2(got, x @ w), rel_l2(dw, x.T @ g))
-    ms = cuda_ms(lambda: table_gemm(x, w, BF16), 20)
+    ms = cuda_ms(lambda: table_gemm(xh, wh, BF16), 20)
     f32_ms = cuda_ms(lambda: table_gemm(x, w), 20)
     plain_ms = cuda_ms(lambda: table_gemm_ref(x, w, BF16), 20)
-    xh, wh = x.bfloat16(), w.bfloat16()
     library_ms = cuda_ms(lambda: torch.matmul(xh, wh), 20)
-    bwd_ms = cuda_ms(lambda: table_gemm_bwd(x, w, g, BF16), 20)
+    bwd_ms = cuda_ms(lambda: table_gemm_bwd(xh, wh, gh, BF16), 20)
     bwd_f32 = cuda_ms(lambda: table_gemm_bwd(x, w, g), 20)
     bwd_plain = cuda_ms(lambda: table_gemm_bwd_ref(x, w, g, BF16), 20)
     fwd_bound = bf16_bound(2 * (x.numel() + w.numel()) + nbytes(got),
@@ -5395,6 +5515,9 @@ if __name__ == '__main__':
     elif sys.argv[1:2] == ['--ab']:
         phase_device()
         ab_times()
+    elif sys.argv[1:2] == ['--ab-bf16']:
+        phase_device()
+        ab_bf16_times()
     elif sys.argv[1:2] == ['--gemm']:
         phase_device()
         phase_build()

@@ -76,6 +76,14 @@ __device__ __forceinline__ float round_if(bool on, float x) {
   return on ? __uint_as_float(bf16_bits(x)) : x;
 }
 
+// v stored at p[i]: in bf16 (to nearest even) where b16, else in f32
+__device__ __forceinline__ void store_row(void* p, size_t i, float v, bool b16) {
+  if (b16)
+    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(p)[i] = v;
+}
+
 // round_if on each of x's four lanes
 __device__ __forceinline__ float4 round4_if(bool on, float4 x) {
   return on ? make_float4(round_if(true, x.x), round_if(true, x.y), round_if(true, x.z),
@@ -652,6 +660,107 @@ __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int 
       if ((hid ? u0 + i : u0 + i - R) >= n) continue;
 #pragma unroll
       for (int q = 0; q < QT; ++q) store(q, u0 + i, acc[i][q]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------------------
+// the gate products of the bf16-operand mode on the tensor cores (K5-bf16)
+//
+// Transposed, the step's gate products are (gate or hidden units) x (units)
+// times (units) x (the tile's queries), so the tile's at most 8 queries are
+// the n8 side of mma.sync.m16n8k16 (bf16 in, f32 accumulate) and the
+// weights its 16-row A operand:
+//
+//   z^T (4R, QT)      += P^T (4R, KK) x^T (KK, QT),   x = [h | ctx]
+//   [dh | dctx]^T (KK, QT) = P (KK, 4R) dz^T (4R, QT)
+//
+// with KK = R + H*Dh and P = [W_hh; ctx_w3] (KK, 4R), its gate columns in
+// the order of unit blocks: block ub (8 hidden units) holds P's columns
+// ub*32 + gate*8 + j for gate (i, f, g, o) of unit ub*8 + j.  The wrapper
+// packs P once a launch in bf16 (ops/dsa_scan.py::pack_gate_weights),
+// zero-padded to GateGeom's Rp units and KKp terms, in the order in which
+// the fragments are read: 16 x 16 tiles of 512 bytes, lane l's 16 bytes
+// the A fragment {a0, a1, a2, a3} of its tile (rows l/4 and l/4 + 8, terms
+// 2(l%4) + {0, 1} and 2(l%4) + {8, 9}), first P^T's tiles (the recompute:
+// m-tiles 2ub and 2ub + 1 hold block ub's gates (i, f) and (g, o)), then
+// P's (the backprop).  A fragments come from L2 as one 16-byte load a lane
+// and a tile, with no shared memory; the activations' B fragments are
+// pairs of bf16 from shared memory (x and dz staged in bf16, rows padded
+// by 16 bytes so that the 32 lanes hit 32 banks).  After the recompute the
+// lane (g, q) of the warp holds all four gates of unit ub*8 + g for queries
+// 2q and 2q + 1, and the cell backward runs on the accumulators.
+// ----------------------------------------------------------------------------
+
+// the padded extents of the gate products: Rp units (a multiple of 32, so
+// that the backprop's 4Rp terms are whole batches of 8 k-tiles), KK = R +
+// HD terms of x padded to KKp (a multiple of 64: batches of 4 k-tiles), and
+// the bf16 row strides of the staged x and dz
+struct GateGeom {
+  int R, KK, Rp, KKp, ldx, lddz;
+  __host__ __device__ GateGeom(int R_, int HD) : R(R_), KK(R_ + HD) {
+    Rp = (R + 31) / 32 * 32;
+    KKp = (KK + 63) / 64 * 64;
+    ldx = KKp + 8;
+    lddz = 4 * Rp + 8;
+  }
+  // 16-byte A fragments of the recompute's P^T, which the backprop's follow
+  __host__ __device__ size_t recompute_frags() const { return (size_t)4 * Rp * KKp / 8; }
+};
+
+// d (16 x 8) += a (16 x 16) b (16 x 8): bf16 operands, f32 accumulate
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint4& a, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// x = [h | ctx] of the tile (rounded f32 in shared memory) into xb, QT rows
+// of gg.ldx bf16, zero past KK.  No barrier.
+template <int QT>
+__device__ __forceinline__ void stage_gate_inputs(const float* h, int ldR, const float* ctx,
+                                                  int ldHD, const GateGeom& gg,
+                                                  __nv_bfloat16* xb) {
+  const int half = gg.KKp / 2;
+  for (int i = threadIdx.x; i < QT * half; i += kThreads) {
+    const int q = i / half, k = 2 * (i % half);
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kk = k + e;
+      v[e] = kk < gg.R ? h[q * ldR + kk] : kk < gg.KK ? ctx[q * ldHD + kk - gg.R] : 0.f;
+    }
+    *reinterpret_cast<uint32_t*>(xb + q * gg.ldx + k) = bf16_pair(v[0], v[1]);
+  }
+}
+
+// acc[t] (D fragments) += the m-tile m0 + t of the packed operand frags
+// (nk k-tiles a row of tiles) times the staged activations act (QT rows of
+// ld bf16, the n8 side; rows past QT read as zero), for t < T.  Each lane
+// keeps kB k-tiles' A fragments in flight.
+template <int QT, int T, int kB>
+__device__ __forceinline__ void gate_mma(const uint4* __restrict__ frags, int nk, int m0,
+                                         const __nv_bfloat16* act, int ld,
+                                         float (&acc)[T][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const uint4* a0 = frags + (size_t)m0 * nk * 32 + lane;
+  const uint32_t* b = reinterpret_cast<const uint32_t*>(act + (g < QT ? g : 0) * ld) + q;
+  const bool on = g < QT;
+  for (int k0 = 0; k0 < nk; k0 += kB) {  // nk is a multiple of kB
+    uint4 a[kB][T];
+#pragma unroll
+    for (int j = 0; j < kB; ++j)
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+        a[j][t] = __ldg(a0 + ((size_t)t * nk + k0 + j) * 32);
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const uint32_t b0 = on ? b[(k0 + j) * 8] : 0u, b1 = on ? b[(k0 + j) * 8 + 4] : 0u;
+#pragma unroll
+      for (int t = 0; t < T; ++t) mma_bf16_16816(acc[t], a[j][t], b0, b1);
     }
   }
 }

@@ -303,14 +303,16 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
 // here first, and work (work_floats floats) for their split-K partial tiles
 // (see dsa::gemm_as).  shapes: host array of the L level lengths of value's S
 // axis; LP = L * P.  bf16: K6-bf16, with value_t, off_w_h, h2att_w,
-// ctx_w3, w_hh and logit_w given rounded to bf16 (the tables' GEMMs round
-// their own operands).  Returns cudaGetLastError() of the launches, or
+// ctx_w3, w_hh and logit_w given rounded to bf16, and value16 and cw in
+// bf16 (torch.bfloat16) for the table value . Wc (the table embed .
+// token_w rounds its f32 operands in the GEMM's producer); else value16 is
+// unused and cw f32.  Returns cudaGetLastError() of the launches, or
 // cudaErrorInvalidValue for shapes the kernel does not take.
 extern "C" int dvc_dsa_greedy(
-    const float* value_t, const float* base_pos, const float* scale_t,
+    const float* value_t, const void* value16, const float* base_pos, const float* scale_t,
     const float* const_z, const float* embed, const float* token_w,
     const float* logit_w, const float* logit_b, const float* off_w_h,
-    const float* h2att_w, const float* h2att_b, const float* cw,
+    const float* h2att_w, const float* h2att_b, const void* cw,
     const float* cb, const float* aw, const float* ctx_w3, const float* w_hh,
     const float* ab, const int* shapes, int* tok, float* lp, float* vw,
     float* tw, float* work, int B, int H, int S, int Dh, int Q, int LP, int L, int A,
@@ -337,10 +339,18 @@ extern "C" int dvc_dsa_greedy(
   if (e != cudaSuccess) return (int)e;
   // the tables, once per launch
   const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
-  if ((e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, wf, at.bf16)) !=
-          cudaSuccess ||
-      (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf, at.bf16)) != cudaSuccess)
+  if (at.bf16) {
+    // value and cw in bf16; embed and token_w f32, rounded by the GEMM's producer
+    if ((e = row_table16(op16(value16, Dh), op16(cw, A), B * H * S, Dh, A, vw, st, work,
+                         wf)) != cudaSuccess ||
+        (e = row_table16(op16(embed, E, true), op16(token_w, 4 * R, true), V1, E, 4 * R, tw,
+                         st, work, wf)) != cudaSuccess)
+      return (int)e;
+  } else if ((e = row_table(value_t, static_cast<const float*>(cw), B * H * S, Dh, A, vw, st,
+                            work, wf)) != cudaSuccess ||
+             (e = row_table(embed, token_w, V1, E, 4 * R, tw, st, work, wf)) != cudaSuccess) {
     return (int)e;
+  }
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 2)
     greedy_kernel<2><<<grid, kThreads, smem, st>>>(a);

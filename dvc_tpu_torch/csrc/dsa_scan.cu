@@ -50,10 +50,10 @@
 // whole scan, dab a per-block one, each added with atomics at the end.
 //
 // Bound on this card: the per-step products (the gates' recompute h W_hh,
-// ctx ctx_w3 and their transposes dz W_hh^T, dz ctx_w3^T, a thread per two
-// output units with the activations broadcast from shared memory) read
-// their weights (4 MB each at R = 512) from L2, so L2 bandwidth and the
-// FP32 issue rate bound them.  dvalue, G (so dWc) and the atomically summed
+// ctx ctx_w3 and their transposes dz W_hh^T, dz ctx_w3^T; in f32 a thread
+// per two output units with the activations broadcast from shared memory)
+// read their weights (4 MB each at R = 512 in f32) from L2, so L2
+// bandwidth and (f32) the FP32 issue rate bound them.  dvalue, G (so dWc) and the atomically summed
 // vectors vary by a few ulps from run to run; the GEMMs are deterministic.
 // The same products bound the forward, once per step.  The cell backward
 // lives in dsa_common.cuh, shared with the word-step backward K10 of
@@ -64,21 +64,46 @@
 // variants round both operands of every product of the step and of its
 // backward (the transposed products and the weight gradients' outer sums
 // included) to bf16 and accumulate in f32 (_make_dot('bfloat16')).  The
-// wrapper passes value and the weights rounded, every GEMM here runs in its
-// bf16 mode, and the activations that the step's products read from shared
-// memory are stored rounded (h, ctx; in the backward dz, dhvec and doff);
-// hs, cs and dz are written in f32.  The table form moves rounding points:
+// wrapper passes value rounded (f32 for the attention, bf16 for the GEMMs)
+// and the step's weights rounded; every GEMM here runs dsa::gemm's bf16
+// mode on bf16 operands (value, cw, and in the backward h_{k-1} (hs_prev,
+// made in bf16 by the wrapper), the rows that K5-bf16 writes in bf16 for
+// the outer sums (dz16, ctx_all, dhvec_all, doff_all) and G, summed in f32
+// and rounded once after the scan into the table's storage); the
+// activations that the step's products read are stored rounded (h, ctx;
+// in the backward dz, dhvec and doff); hs, cs and dz are written in f32.
+//
+// K5-bf16's gates run on the tensor cores (gates_bwd_bf16; the layout in
+// dsa_common.cuh, GateGeom): the recompute z = z_all + [h | ctx] P and the
+// backprop [dh | dctx] = dz P^T as mma.sync.m16n8k16 (bf16 in, f32
+// accumulate) with the tile's queries the n8 side (at B = 1 the tiles
+// hold 2 or 4 queries: 75% or 50% of the n8 columns are padding) and P =
+// [W_hh; ctx_w3] the 16-row A operand, packed once a launch by the wrapper
+// in bf16 in fragment order (ops/dsa_scan.py::pack_gate_weights, 8 MB at R
+// = H*Dh = 512: P^T's tiles, then P's), read as one 16-byte load a lane
+// and tile from L2: 8 MB a block and step, half the f32 weights' 16 MB,
+// and no FMA on the CUDA cores.  The recompute leaves all four gates of a
+// unit and two queries in one lane, so the cell backward runs on the
+// accumulators; x and dz are staged in bf16 (in place of the f32 dz tile,
+// 49,408 bytes for 65,536 at QT = 8, R = A = H*Dh = 512).  The recompute
+// sums in another order than K4-bf16's forward (CUDA-core FMAs on the f32
+// copies of the same bf16 weights), so it differs from it at f32 rounding.
+// A 16-query tile would halve the weight reads but does not fit: the score
+// backward's warps own a (query, column part), 8 queries at A = 512.
+//
+// The table form moves rounding points:
 // the scores are a lerp of two rows of bf16(v) . bf16(Wc) where the TPU
 // kernel rounds the lerped taps before its product with Wc, and the
 // backward forms dvalue's scores term as bf16(G) . bf16(Wc)^T and dWc as
 // bf16(value)^T bf16(G), G the lerp-scatter of bf16(du), where the TPU
 // kernel rounds the taps and their gradients (measured in
 // tests/test_torch_bf16_kernels.py and chip_smoke.py --bf16).  Shared memory at R = A = 512, LP = 16: the backward's block
-// of 8 queries 167,440 bytes at cap_nheads 1 and 192,528 at cap_nheads 8,
-// the forward's of 16 queries 168,960 and 204,800 (the card allows
-// 232,448).  Limits of the backward: A <= 512 (two float4 column groups per
-// lane and column half), A, Dh and R multiples of 4; of both, the shared
-// memory of a block (checked at launch).
+// of 8 queries 167,440 bytes at cap_nheads 1 and 192,528 at cap_nheads 8
+// in f32 (16,128 fewer in bf16), the forward's of 16 queries 168,960 and
+// 204,800 (the card allows 232,448).  Limits of the backward: A <= 512
+// (two float4 column groups per lane and column half), A, Dh and R
+// multiples of 4; of both, the shared memory of a block (checked at
+// launch).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,6 +119,7 @@ struct ScanArgs {
   const float* z_all;   // (B, K, Q, 4R)
   const float* ctx_w3;  // (H*Dh, 4R)
   const float* w_hh;    // (R, 4R)
+  const uint4* wpack;   // K5-bf16: [W_hh; ctx_w3] packed in bf16 (GateGeom)
   const float* ab;      // (1)
   int B, K;
 };
@@ -203,8 +229,11 @@ scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs
 // backward
 // ----------------------------------------------------------------------------
 
+// the rows that K5 writes for the outer sums (ctx_all, dhvec_all,
+// doff_all; in the bf16 mode also dz16) are bf16 in the bf16 mode, else
+// f32, as hs_prev is read
 struct BwdOut {
-  const float* hs_prev;  // (B, K, Q, R) h_{k-1}, zeros at k = 0
+  const void* hs_prev;   // (B, K, Q, R) h_{k-1}, zeros at k = 0
   const float* cs_prev;  // (B, K, Q, R)
   const float* g;        // (B, K, Q, R) cotangent of hs
   const float* vw;       // (B, H, S, A)    the table value . Wc
@@ -213,9 +242,10 @@ struct BwdOut {
   float* dbase;          // (B, H, Q, LP)   zeroed; block-owned
   float* dscale;         // (B, Q, LP)      zeroed; block-owned
   float* dz;             // (B, K, Q, 4R)
-  float* ctx_all;        // (B, K, Q, H*Dh) rows for dctx_w3
-  float* dhvec_all;      // (B, K, Q, A)    rows for dh2att_w
-  float* doff_all;       // (B, K, Q, H*LP) rows for doff_w
+  void* dz16;            // (B, K, Q, 4R)   bf16 copy of dz (the bf16 mode)
+  void* ctx_all;         // (B, K, Q, H*Dh) rows for dctx_w3
+  void* dhvec_all;       // (B, K, Q, A)    rows for dh2att_w
+  void* doff_all;        // (B, K, Q, H*LP) rows for doff_w
   float* dcb;            // (A)             zeroed; atomics
   float* daw;            // (A)             zeroed; atomics
   float* dab;            // (1)             zeroed; atomics
@@ -226,8 +256,9 @@ struct BwdLayout {
   int wlo, whi, d, ddot, dpos, dab;
   int lo, hi;                                 // int offsets
   int floats, ints;
-  __host__ __device__ BwdLayout(int QT, int R, int A, int HD, int NR) {
+  __host__ __device__ BwdLayout(int QT, int R, int A, int HD, int NR, bool b16) {
     const int CX = pad4(HD) > pad4(A) ? pad4(HD) : pad4(A);
+    const GateGeom gg(R, HD);
     int o = 0;
     h = o;    o += QT * pad4(R);
     dh = o;   o += QT * pad4(R);
@@ -235,7 +266,9 @@ struct BwdLayout {
     hvec = o; o += QT * pad4(A);
     cx = o;   o += QT * CX;          // ctx, then dhvec
     dctx = o; o += QT * pad4(HD);
-    dz = o;   o += QT * 4 * R;       // staged dz (QT, 4R)
+    dz = o;                          // staged dz (QT, 4R) f32; bf16 mode:
+    o += b16 ? pad4((QT * (gg.ldx + gg.lddz) + 1) / 2)  // x, then dz, bf16
+             : QT * 4 * R;
     wlo = o;  o += pad4(NR);
     whi = o;  o += pad4(NR);
     d = o;    o += pad4(NR);          // softmax weights, then dpos * offset
@@ -250,6 +283,81 @@ struct BwdLayout {
   size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
 };
 
+// K5-bf16's gates of step k (bk = b*K + k) on the tensor cores
+// (dsa_common.cuh, GateGeom): h and ctx (rounded f32 in shared memory)
+// staged in bf16 in xb; the recompute z = z_all + [h | ctx] P, a warp per
+// unit block; the LSTM cell backward on its accumulators (dz written out in
+// f32 and bf16, and staged in bf16 in dzb, zero for padded units); then
+// [dh | dctx] = dz P^T into dh_s and dctx, a warp per m-tile.  Barriers
+// inside, none at the end.
+template <int QT>
+__device__ __forceinline__ void gates_bwd_bf16(const ScanArgs& a, const BwdOut& o,
+                                               const GateGeom& gg, size_t bk, int q0,
+                                               __nv_bfloat16* xb, __nv_bfloat16* dzb,
+                                               float* dh_s, float* dc_s, float* dctx,
+                                               const float* h, const float* ctx) {
+  const AttendArgs& at = a.at;
+  const int R = at.R, Q = at.Q, R4 = 4 * R, HD = at.H * at.Dh;
+  const int ldR = pad4(R), ldHD = pad4(HD);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);
+  __syncthreads();
+  const uint4* wr = a.wpack;
+  const uint4* wb = a.wpack + gg.recompute_frags();
+  __nv_bfloat16* dz16 = static_cast<__nv_bfloat16*>(o.dz16);
+  for (int ub = warp; ub < gg.Rp / 8; ub += kWarps) {
+    float acc[2][4] = {};
+    gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);
+    const int u = ub * 8 + g;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int qi = 2 * q + j;
+      if (qi >= QT) continue;
+      float dzg[4] = {0.f, 0.f, 0.f, 0.f};
+      if (u < R) {
+        const bool valid = q0 + qi < Q;
+        const size_t row = bk * Q + min(q0 + qi, Q - 1);
+        const float* zk = a.z_all + row * R4 + u;
+        const float c_prev = o.cs_prev[row * R + u];
+        const float gh = valid ? o.g[row * R + u] + dh_s[qi * ldR + u] : 0.f;
+        const float gc = valid ? dc_s[qi * ldR + u] : 0.f;
+        dc_s[qi * ldR + u] = cell_bwd(acc[0][j] + zk[0], acc[0][2 + j] + zk[R],
+                                      acc[1][j] + zk[2 * R], acc[1][2 + j] + zk[3 * R],
+                                      c_prev, gh, gc, dzg);
+        if (valid) {
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt) {
+            o.dz[row * R4 + gt * R + u] = dzg[gt];
+            dz16[row * R4 + gt * R + u] = __float2bfloat16_rn(dzg[gt]);
+          }
+        }
+      }
+#pragma unroll
+      for (int gt = 0; gt < 4; ++gt)
+        dzb[qi * gg.lddz + ub * 32 + gt * 8 + g] = __float2bfloat16_rn(dzg[gt]);
+    }
+  }
+  __syncthreads();
+  for (int mt = warp; mt < gg.KKp / 16; mt += kWarps) {
+    float acc[1][4] = {};
+    gate_mma<QT, 1, 8>(wb, gg.Rp / 4, mt, dzb, gg.lddz, acc);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int uu = mt * 16 + g + 8 * hh;
+      if (uu >= gg.KK) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qi = 2 * q + j;
+        if (qi >= QT) continue;
+        if (uu < R)
+          dh_s[qi * ldR + uu] = acc[0][2 * hh + j];
+        else
+          dctx[qi * ldHD + uu - R] = acc[0][2 * hh + j];
+      }
+    }
+  }
+}
+
 template <int QT>
 __global__ void __launch_bounds__(kThreads)
 scan_bwd_kernel(ScanArgs a, BwdOut o) {
@@ -263,11 +371,14 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
   const int S = at.S, K = a.K;
   const int HD = H * Dh, R4 = 4 * R, HLP = H * LP, NR = QT * HLP;
   const int ldR = pad4(R), ldA = pad4(A), ldHD = pad4(HD);
-  const BwdLayout L(QT, R, A, HD, NR);
+  const BwdLayout L(QT, R, A, HD, NR, at.bf16);
+  const GateGeom gg(R, HD);
   float* dh_s = smem + L.dh;
   float* dc_s = smem + L.dc;
   float* cx_s = smem + L.cx;
   float* dz_s = smem + L.dz;
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(dz_s);  // the bf16 mode's staged
+  __nv_bfloat16* dzb = xb + QT * gg.ldx;                       // x and dz
   float* ddot_s = smem + L.ddot;
   float* dpos_s = smem + L.dpos;
   int* ints = reinterpret_cast<int*>(smem + L.floats);
@@ -302,7 +413,10 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
     // ---- h_{k-1} of the tile
     for (int i = tid; i < QT * R; i += kThreads) {
       const int q = i / R, r = i % R;
-      sm.h[q * ldR + r] = round_if(at.bf16, o.hs_prev[(bk * Q + qg[q]) * R + r]);
+      const size_t src = (bk * Q + qg[q]) * R + r;
+      sm.h[q * ldR + r] = at.bf16
+          ? __bfloat162float(static_cast<const __nv_bfloat16*>(o.hs_prev)[src])
+          : static_cast<const float*>(o.hs_prev)[src];
     }
     __syncthreads();
 
@@ -314,12 +428,14 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
     attend_softmax_ctx<QT>(at, sm, value_b);
     for (int i = tid; i < QT * HD; i += kThreads) {
       const int q = i / HD, hd = i % HD;
-      if (q0 + q < Q) o.ctx_all[(bk * Q + q0 + q) * HD + hd] = cx_s[q * ldHD + hd];
+      if (q0 + q < Q) store_row(o.ctx_all, (bk * Q + q0 + q) * HD + hd, cx_s[q * ldHD + hd], at.bf16);
     }
 
     // ---- gates from (h_{k-1}, c_{k-1}) and the LSTM cell backward; dz is
-    //      written out and staged in dz_s as (QT, 4R)
-    for (int r = tid; r < R; r += kThreads) {
+    //      written out and staged in dz_s as (QT, 4R) (K5-bf16: all of it
+    //      and dz W^T below on the tensor cores, gates_bwd_bf16)
+    if (at.bf16) gates_bwd_bf16<QT>(a, o, gg, bk, q0, xb, dzb, dh_s, dc_s, gs.dctx, sm.h, cx_s);
+    for (int r = tid; !at.bf16 && r < R; r += kThreads) {
       float z[4][QT];
 #pragma unroll
       for (int q = 0; q < QT; ++q) {
@@ -350,6 +466,7 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
     __syncthreads();
 
     // ---- dh_{k-1} = dz W_hh^T and dctx = dz ctx_w3^T
+    if (!at.bf16)
     gates_backprop_rows<QT>(dz_s, R, HD, a.w_hh, a.ctx_w3, [&](int q, int u, float v) {
       if (u < R) dh_s[q * ldR + u] = v;
       else gs.dctx[q * ldHD + u - R] = v;
@@ -371,13 +488,13 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
       ddot_s[row] = round_if(at.bf16, dp * sc);
       if (q0 + q < Q) {
         o.dbase[(((size_t)b * H + hh) * Q + q0 + q) * LP + p] += dp;
-        o.doff_all[(bk * Q + q0 + q) * HLP + hh * LP + p] = dp * sc;
+        store_row(o.doff_all, (bk * Q + q0 + q) * HLP + hh * LP + p, dp * sc, at.bf16);
       }
       sm.d[row] = dp * row_offset(at, sm.h, row);
     }
     for (int i = tid; i < QT * A; i += kThreads) {
       const int q = i / A, col = i % A;
-      if (q0 + q < Q) o.dhvec_all[(bk * Q + q0 + q) * A + col] = cx_s[q * ldA + col];
+      if (q0 + q < Q) store_row(o.dhvec_all, (bk * Q + q0 + q) * A + col, cx_s[q * ldA + col], at.bf16);
     }
     __syncthreads();
     for (int i = tid; i < QT * LP; i += kThreads) {
@@ -422,7 +539,7 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
 // dsa::fill_attend plus the operands of a step that starts from h
 bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_pos,
                         const float* scale_t, const float* off_w_h, const float* h2att_w,
-                        const float* h2att_b, const float* cw, const float* cb,
+                        const float* h2att_b, const float* cb,
                         const float* aw, const int* shapes, int H, int S, int Dh, int Q,
                         int LP, int L, int A, int R) {
   if (!fill_attend(at, value_t, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
@@ -446,18 +563,18 @@ bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_
 // given rounded to bf16.  Returns cudaGetLastError() of the launches, or
 // cudaErrorInvalidValue for shapes the kernel does not take.
 extern "C" int dvc_dsa_scan_fwd(
-    const float* value_t, const float* base_pos, const float* scale_t,
+    const float* value_t, const void* value16, const float* base_pos, const float* scale_t,
     const float* z_all, const float* off_w_h, const float* h2att_w,
-    const float* h2att_b, const float* cw, const float* cb, const float* aw,
+    const float* h2att_b, const void* cw, const float* cb, const float* aw,
     const float* ab, const float* ctx_w3, const float* w_hh, const int* shapes,
     float* hs, float* cs, float* vw, float* work, int B, int H, int S, int Dh, int Q,
     int LP, int L, int A, int R, int K, int work_floats, int bf16, void* stream) {
   ScanArgs a;
   if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
-                          h2att_b, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
+                          h2att_b, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
   a.at.bf16 = bf16 != 0;
-  a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab;
+  a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.wpack = nullptr; a.ab = ab;
   a.B = B; a.K = K;
   if (B == 0 || Q == 0 || K == 0) return 0;
   // 4 queries at least: on a B = 1 grid 2-query tiles (45 blocks) lose to
@@ -470,7 +587,12 @@ extern "C" int dvc_dsa_scan_fwd(
                              : set_smem(scan_fwd_kernel<kQT>, smem);
   if (e != cudaSuccess) return (int)e;
   // the table value . Wc, once per launch
-  e = row_table(value_t, cw, B * H * S, Dh, A, vw, st, work, work_floats, a.at.bf16);
+  if (a.at.bf16)
+    e = row_table16(op16(value16, Dh), op16(cw, A), B * H * S, Dh, A, vw, st, work,
+                    work_floats);
+  else
+    e = row_table(value_t, static_cast<const float*>(cw), B * H * S, Dh, A, vw, st, work,
+                  work_floats);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 4)
@@ -495,19 +617,19 @@ extern "C" int dvc_dsa_scan_fwd(
 // dcb.  A, Dh, R multiples of 4, A <= 512; every operand 16-byte aligned.
 // bf16: K5-bf16, operands as for dvc_dsa_scan_fwd.
 extern "C" int dvc_dsa_scan_bwd(
-    const float* value_t, const float* base_pos, const float* scale_t,
+    const float* value_t, const void* value16, const float* base_pos, const float* scale_t,
     const float* z_all, const float* off_w_h, const float* h2att_w,
-    const float* h2att_b, const float* cw, const float* cb, const float* aw,
-    const float* ab, const float* ctx_w3, const float* w_hh,
-    const float* hs_prev, const float* cs_prev, const float* g,
-    const int* shapes, float* dvalue, float* dbase, float* dscale, float* dz,
+    const float* h2att_b, const void* cw, const float* cb, const float* aw,
+    const float* ab, const float* ctx_w3, const float* w_hh, const void* wpack,
+    const void* hs_prev, const float* cs_prev, const float* g,
+    const int* shapes, float* dvalue, float* dbase, float* dscale, float* dz, void* dz16,
     float* doffw, float* dh2w, float* dcw, float* dcb, float* daw, float* dab,
-    float* dctx_w3, float* dwhh, float* G, float* ctx_all, float* dhvec_all,
-    float* doff_all, float* vw, float* work, int B, int H, int S, int Dh, int Q,
+    float* dctx_w3, float* dwhh, float* G, void* ctx_all, void* dhvec_all,
+    void* doff_all, float* vw, float* work, int B, int H, int S, int Dh, int Q,
     int LP, int L, int A, int R, int K, int work_floats, int bf16, void* stream) {
   ScanArgs a;
   if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
-                          h2att_b, cw, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
+                          h2att_b, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
   const bool rb = bf16 != 0;
   a.at.bf16 = rb;
@@ -515,20 +637,22 @@ extern "C" int dvc_dsa_scan_bwd(
       reinterpret_cast<size_t>(value_t) % 16 != 0 ||
       reinterpret_cast<size_t>(w_hh) % 16 != 0 || reinterpret_cast<size_t>(ctx_w3) % 16 != 0 ||
       reinterpret_cast<size_t>(h2att_w) % 16 != 0 || reinterpret_cast<size_t>(cb) % 16 != 0 ||
-      reinterpret_cast<size_t>(aw) % 16 != 0)
+      reinterpret_cast<size_t>(aw) % 16 != 0 ||
+      (rb && reinterpret_cast<size_t>(wpack) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab;
+  a.wpack = static_cast<const uint4*>(wpack);
   a.B = B; a.K = K;
   if (B == 0 || Q == 0 || K == 0) return 0;
   BwdOut o;
   o.hs_prev = hs_prev; o.cs_prev = cs_prev; o.g = g; o.vw = vw;
-  o.dvalue = dvalue; o.G = G; o.dbase = dbase; o.dscale = dscale; o.dz = dz;
+  o.dvalue = dvalue; o.G = G; o.dbase = dbase; o.dscale = dscale; o.dz = dz; o.dz16 = dz16;
   o.ctx_all = ctx_all; o.dhvec_all = dhvec_all; o.doff_all = doff_all;
   o.dcb = dcb; o.daw = daw; o.dab = dab;
   // 8 queries a tile at most: a warp of the score backward owns a
   // (query, column part), and A <= 512 needs two parts
   const int QT = query_tile(B, Q, 2, kQT);
-  const size_t smem = BwdLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
+  const size_t smem = BwdLayout(QT, R, A, H * Dh, QT * H * LP, rb).bytes();
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = QT == 2 ? set_smem(scan_bwd_kernel<2>, smem)
                   : QT == 4 ? set_smem(scan_bwd_kernel<4>, smem)
@@ -537,8 +661,10 @@ extern "C" int dvc_dsa_scan_bwd(
   const int BHS = B * H * S;
   // the table value . Wc, once per launch
   const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
-  if ((e = row_table(value_t, cw, BHS, Dh, A, vw, st, work, wf, rb)) != cudaSuccess)
-    return (int)e;
+  const float* cwf = static_cast<const float*>(cw);
+  e = rb ? row_table16(op16(value16, Dh), op16(cw, A), BHS, Dh, A, vw, st, work, wf)
+         : row_table(value_t, cwf, BHS, Dh, A, vw, st, work, wf);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
   if (QT == 2)
     scan_bwd_kernel<2><<<grid, kThreads, smem, st>>>(a, o);
@@ -547,20 +673,38 @@ extern "C" int dvc_dsa_scan_bwd(
   else
     scan_bwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, o);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  // the scores' share of dvalue, once per launch: dvalue += G . Wc^T
-  if ((e = gemm(Operand{G, A, false}, Operand{cw, A, false}, BHS, Dh, A, true,
-                dvalue, work, wf, st, rb)) != cudaSuccess)
-    return (int)e;
   const int N = B * K * Q, HD = H * Dh, HLP = H * LP;
-  if ((e = outer_sum(hs_prev, R, dz, 4 * R, N, R, 4 * R, dwhh, st, work, wf, rb)) !=
-          cudaSuccess ||
-      (e = outer_sum(ctx_all, HD, dz, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf, rb)) !=
-          cudaSuccess ||
-      (e = outer_sum(hs_prev, R, dhvec_all, A, N, R, A, dh2w, st, work, wf, rb)) !=
-          cudaSuccess ||
-      (e = outer_sum(hs_prev, R, doff_all, HLP, N, R, HLP, doffw, st, work, wf, rb)) !=
-          cudaSuccess ||
-      (e = outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, wf, rb)) != cudaSuccess)
+  if (rb) {
+    // the bf16 mode: hs_prev, the rows and dz16 in bf16, and G, summed in
+    // f32 by the scan, rounded once into vw's storage (the table is read
+    // no more); first the scores' share of dvalue, G . Wc^T
+    const Operand16 hp = op16(hs_prev, R), dzo = op16(dz16, 4 * R), G16 = op16(vw, A);
+    if ((e = round_bf16(G, vw, (size_t)BHS * A, st)) != cudaSuccess ||
+        (e = gemm16(G16, op16(cw, A), B * H * S, Dh, A, true, dvalue, work, wf, st)) !=
+            cudaSuccess ||
+        (e = outer_sum16(hp, dzo, N, R, 4 * R, dwhh, st, work, wf)) != cudaSuccess ||
+        (e = outer_sum16(op16(ctx_all, HD), dzo, N, HD, 4 * R, dctx_w3, st, work, wf)) !=
+            cudaSuccess ||
+        (e = outer_sum16(hp, op16(dhvec_all, A), N, R, A, dh2w, st, work, wf)) != cudaSuccess ||
+        (e = outer_sum16(hp, op16(doff_all, HLP), N, R, HLP, doffw, st, work, wf)) !=
+            cudaSuccess ||
+        (e = outer_sum16(op16(value16, Dh), G16, BHS, Dh, A, dcw, st, work, wf)) != cudaSuccess)
+      return (int)e;
+    return 0;
+  }
+  // the scores' share of dvalue, once per launch: dvalue += G . Wc^T
+  const float* hpf = static_cast<const float*>(hs_prev);
+  if ((e = gemm(Operand{G, A, false}, Operand{cwf, A, false}, BHS, Dh, A, true,
+                dvalue, work, wf, st)) != cudaSuccess)
+    return (int)e;
+  if ((e = outer_sum(hpf, R, dz, 4 * R, N, R, 4 * R, dwhh, st, work, wf)) != cudaSuccess ||
+      (e = outer_sum(static_cast<const float*>(ctx_all), HD, dz, 4 * R, N, HD, 4 * R, dctx_w3,
+                     st, work, wf)) != cudaSuccess ||
+      (e = outer_sum(hpf, R, static_cast<const float*>(dhvec_all), A, N, R, A, dh2w, st, work,
+                     wf)) != cudaSuccess ||
+      (e = outer_sum(hpf, R, static_cast<const float*>(doff_all), HLP, N, R, HLP, doffw, st,
+                     work, wf)) != cudaSuccess ||
+      (e = outer_sum(value_t, Dh, G, A, BHS, Dh, A, dcw, st, work, wf)) != cudaSuccess)
     return (int)e;
   return 0;
 }

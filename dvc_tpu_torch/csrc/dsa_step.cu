@@ -117,7 +117,7 @@ struct StepGrads {
   float* dz0;       // (B, Q, 4R)                                 K10
   float* dh;        // (B, Q, R)
   float* dc;        // (B, Q, R)
-  float* ctx_all;   // (B, Q, H*Dh) rows for dctx_w3
+  void* ctx_all;    // (B, Q, H*Dh) rows for dctx_w3 (bf16 in the bf16 mode)
 };
 
 // the tile's hidden states h (B, Q, R) into sm.h, rounded to bf16 in the
@@ -417,7 +417,8 @@ lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
   attend_softmax_ctx<QT>(at, sm, value_b);
   for (int i = tid; i < QT * HD; i += kThreads) {
     const int q = i / HD, hd = i % HD;
-    if (q0 + q < Q) o.ctx_all[((size_t)b * Q + q0 + q) * HD + hd] = cx_s[q * ldHD + hd];
+    if (q0 + q < Q)
+      store_row(o.ctx_all, ((size_t)b * Q + q0 + q) * HD + hd, cx_s[q * ldHD + hd], at.bf16);
   }
 
   // ---- gates and the LSTM cell backward with the given (gh, gc): a query
@@ -609,7 +610,7 @@ extern "C" int dvc_dsa_lstm_fwd(
 // only (the scores' reach value through vw), and G (B, H, S, A) = dL/dvw,
 // both zeroed by the caller with dcb, daw and dab; dpos, dhvec, dz0
 // (B, Q, 4R), dh, dc (B, Q, R), dctx_w3 (H*Dh, 4R) and dwhh (R, 4R) fully
-// written; scratch ctx_all (B, Q, H*Dh) and work (work_floats floats, the
+// written; scratch ctx_all (B, Q, H*Dh; bf16 in the bf16 mode) and work (work_floats floats, the
 // outer sums' split-K partial tiles).  A <= 512; A, Dh and R multiples of
 // 4; value_t, vw, cb, aw, ctx_w3 and w_hh 16-byte aligned (read as float4).
 extern "C" int dvc_dsa_lstm_bwd(
@@ -619,7 +620,7 @@ extern "C" int dvc_dsa_lstm_bwd(
     const float* gh, const float* gc, const int* shapes, float* dvalue,
     float* G, float* dpos, float* dhvec, float* dz0, float* dh, float* dc,
     float* dctx_w3, float* dwhh, float* dcb, float* daw, float* dab,
-    float* ctx_all, float* work, int B, int H, int S, int Dh, int Q, int LP,
+    void* ctx_all, float* work, int B, int H, int S, int Dh, int Q, int LP,
     int L, int A, int R, int work_floats, int bf16, void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
@@ -653,8 +654,16 @@ extern "C" int dvc_dsa_lstm_bwd(
       lstm_bwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, o, vw);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
-  const bool rb = a.at.bf16;
-  if ((e = outer_sum(h, R, dz0, 4 * R, N, R, 4 * R, dwhh, st, work, wf, rb)) != cudaSuccess)
+  if (a.at.bf16) {
+    // h and dz0 f32, rounded by the GEMM's producer; ctx_all written in bf16
+    if ((e = outer_sum16(op16(h, R, true), op16(dz0, 4 * R, true), N, R, 4 * R, dwhh, st,
+                         work, wf)) != cudaSuccess)
+      return (int)e;
+    return (int)outer_sum16(op16(ctx_all, HD), op16(dz0, 4 * R, true), N, HD, 4 * R,
+                            dctx_w3, st, work, wf);
+  }
+  const float* cx = static_cast<const float*>(ctx_all);
+  if ((e = outer_sum(h, R, dz0, 4 * R, N, R, 4 * R, dwhh, st, work, wf)) != cudaSuccess)
     return (int)e;
-  return (int)outer_sum(ctx_all, HD, dz0, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf, rb);
+  return (int)outer_sum(cx, HD, dz0, 4 * R, N, HD, 4 * R, dctx_w3, st, work, wf);
 }

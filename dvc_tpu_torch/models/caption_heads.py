@@ -65,7 +65,7 @@ from torch import nn
 from ..ops import (dsa_greedy_scan, dsa_teacher_scan, greedy_mask_outputs,
                    greedy_pick, lstm_cell, ms_deform_attn_sample_values,
                    step_pos_hvec)
-from ..ops.dsa_bf16 import RoundBf16
+from ..ops.dsa_bf16 import RoundBf16, bf16_operand
 from ..ops.dsa_step import (dsa_lstm_step_core, dsa_lstm_step_table_core,
                             dsa_sample_attend_core,
                             dsa_sample_attend_table_core)
@@ -416,14 +416,15 @@ class DSACaptionHead(_CaptionHead):
         return (value_t, base_pos, scale_t, const_z, w_ih[:, :E].T,
                 step_args, geom)
 
-    def _value_table(self, hoisted):
+    def _value_table(self, hoisted, value16=None):
         """The stepwise path's per-video table VW = value_t . Wc
         (B, H, S, A), built once per forward pass for all its word
-        steps (in the bf16 mode under ``precision``); None for the
-        attention-free core."""
+        steps (in the bf16 mode under ``precision``, from value16, value_t
+        in torch.bfloat16, where given); None for the attention-free
+        core."""
         value_t, _, _, _, _, (_, _, _, cw, *_), _ = hoisted
-        return None if cw is None else dsa_value_table(value_t, cw,
-                                                       self.cfg.precision)
+        return None if cw is None else dsa_value_table(
+            value_t, cw, self.cfg.precision, value16)
 
     def _mean_taps(self, geom, h_top, temporal_shapes):
         """The attention-free core's context (the JAX ``_make_core`` with
@@ -494,12 +495,16 @@ class DSACaptionHead(_CaptionHead):
         if geom is None:
             vw = None
             if self.cfg.precision == 'float32' or value_t.is_cuda:
+                value16 = None
                 if self.cfg.precision == 'bfloat16':
-                    value_t = RoundBf16.apply(value_t)
+                    # value_t in bf16 for the table's GEMM, and as f32 for
+                    # the word-step kernels (the same two roundings)
+                    value16 = bf16_operand(value_t.detach())
+                    value_t = RoundBf16.apply(value_t, value16)
                     if self.cfg.lstm_fuse and self.fusable:
                         ctx_w3, w_hh = (RoundBf16.apply(ctx_w3),
                                         RoundBf16.apply(w_hh))
-                vw = self._value_table((value_t,) + hoisted[1:])
+                vw = self._value_table((value_t,) + hoisted[1:], value16)
             kernel_ops = (value_t, vw, ctx_w3, w_hh)
         return lambda z0, state: self._step(hoisted, kernel_ops, z0, state,
                                             temporal_shapes)

@@ -39,9 +39,9 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     'dvc_msda_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     'dvc_msda_bwd': [_P] * 7 + [_I] * 7 + [_P, _P],
-    'dvc_dsa_greedy': [_P] * 23 + [_I] * 14 + [_P],
-    'dvc_dsa_scan_fwd': [_P] * 18 + [_I] * 12 + [_P],
-    'dvc_dsa_scan_bwd': [_P] * 35 + [_I] * 12 + [_P],
+    'dvc_dsa_greedy': [_P] * 24 + [_I] * 14 + [_P],
+    'dvc_dsa_scan_fwd': [_P] * 19 + [_I] * 12 + [_P],
+    'dvc_dsa_scan_bwd': [_P] * 38 + [_I] * 12 + [_P],
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 9 + [_P],
     'dvc_dsa_step_bwd': [_P] * 16 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 10 + [_P],
@@ -153,6 +153,15 @@ def count_launch(fn, bf16=False):
         fn.launches_bf16 += 1
     else:
         fn.launches += 1
+
+
+def bf16_flags(*tensors):
+    """The ``bf16`` argument of the GEMM entry points in the bf16-operand
+    mode: bit 0 set, and bit i + 1 where operand i is stored in bf16
+    (torch.bfloat16; else float32, which the GEMM's producer rounds)."""
+    import torch
+    return 1 | sum(2 << i for i, t in enumerate(tensors)
+                   if t.dtype == torch.bfloat16)
 
 
 def levels_array(temporal_shapes):

@@ -53,6 +53,26 @@ def bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def bf16_operand(x):
+    """x rounded to bf16 as a contiguous torch.bfloat16 tensor, its data
+    16-byte aligned: an operand that the kernels' GEMMs read in bf16 (one
+    device activity where x is f32; a bf16 x that is contiguous and aligned
+    as it is)."""
+    y = x.to(torch.bfloat16).contiguous()
+    return y.clone() if y.data_ptr() % 16 else y
+
+
+def shifted_bf16(hs):
+    """hs (B, K, Q, R) one step later in bf16: zeros at step 0, then
+    hs[:, :-1] rounded (the h_{k-1} that K5-bf16 recomputes step k from and
+    its outer sums read); contiguous and 16-byte aligned (two device
+    activities)."""
+    out = torch.empty(hs.shape, dtype=torch.bfloat16, device=hs.device)
+    out[:, 0].zero_()
+    out[:, 1:].copy_(hs[:, :-1])
+    return out
+
+
 def mm(a, b):
     """a @ b on bf16-rounded operands with f32 accumulation."""
     return bf16(a) @ bf16(b)
@@ -95,15 +115,16 @@ class RoundBf16(torch.autograd.Function):
     """x rounded to bf16 with the gradient passed through as it is: an
     operand that enters only the bf16-operand kernels, whose gradient with
     respect to the unrounded x is the kernel's own (as the TPU kernels
-    round their operands inside)."""
+    round their operands inside).  The optional second argument is x
+    already rounded, in torch.bfloat16 (it is returned as f32)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return bf16(x)
+    def forward(ctx, x, xb=None):
+        return bf16(x) if xb is None else xb.float()
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 def rounded_operands(ops):

@@ -208,12 +208,16 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
     ab = torch.as_tensor(ab, dtype=torch.float32, device=value_t.device)
     if ab.numel() != 1:
         raise ValueError('greedy kernel: ab must hold one value')
+    value16 = None
     if rb:
-        # the operands of the step's products, rounded once (the tables'
-        # GEMMs round cw, embed and token_w themselves)
-        from .dsa_bf16 import bf16
-        tensors = tuple(bf16(t) if i in (0, 6, 8, 9, 14, 15) else t
-                        for i, t in enumerate(tensors))
+        # the operands of the step's products, rounded once; value_t and cw
+        # in bf16 for the table value_t . cw (the table embed . token_w
+        # rounds its f32 operands in the GEMM's producer)
+        from .dsa_bf16 import bf16, bf16_operand
+        value16 = bf16_operand(value_t)
+        tensors = tuple(value16.float() if i == 0 else bf16_operand(t)
+                        if i == 11 else bf16(t) if i in (6, 8, 9, 14, 15)
+                        else t for i, t in enumerate(tensors))
     ptrs = [t.contiguous() for t in (*tensors, ab.reshape(1))]   # kept alive
     dev = value_t.device
     tok = torch.empty((B, K, Q), dtype=torch.int32, device=dev)
@@ -225,7 +229,8 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
     work = _cuda.gemm_work(dev, (B * H * S, A, Dh), (V1, 4 * R, E))
     lib = _cuda.lib()
     _cuda.check(lib.cdll.dvc_dsa_greedy(
-        *(t.data_ptr() for t in ptrs),
+        ptrs[0].data_ptr(), 0 if value16 is None else value16.data_ptr(),
+        *(t.data_ptr() for t in ptrs[1:]),
         _cuda.levels_array(temporal_shapes), tok.data_ptr(), lp.data_ptr(),
         vw.data_ptr(), tw.data_ptr(), work.data_ptr(), B, H, S, Dh, Q, LP, L,
         A, R, E, V1, K, work.numel(), int(rb), _cuda.stream_ptr(value_t.device)),

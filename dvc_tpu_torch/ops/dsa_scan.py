@@ -89,10 +89,147 @@ def dsa_teacher_scan_bwd_ref(*args, precision='float32'):
         return torch.autograd.grad(hs, ops, g)
 
 
-def _kernel_operands(args, temporal_shapes, rb=False):
+def gate_geometry(R, HD):
+    """(Rp, KKp): the units and the terms of the packed gate weights, R
+    padded to a multiple of 32 and R + HD to one of 64, as the kernel's
+    ``GateGeom`` (csrc/dsa_common.cuh)."""
+    return -(-R // 32) * 32, -(-(R + HD) // 64) * 64
+
+
+def _fragment_order(idx):
+    """idx (M, K), M and K multiples of 16, as (M/16, K/16, 32, 8): for each
+    16 x 16 tile the A fragment of mma.sync.m16n8k16 of each of the 32
+    lanes (lane l: rows l/4 and l/4 + 8, terms 2(l%4) + {0, 1, 8, 9}; pairs
+    a0 = (row l/4, terms 2(l%4), +1), a1 = (row l/4 + 8, same terms), a2 and
+    a3 the same rows at terms + 8)."""
+    M, K = idx.shape
+    t = idx.reshape(M // 16, 16, K // 16, 16).permute(0, 2, 1, 3)
+    lane = torch.arange(32, device=idx.device)
+    g, q = lane // 4, 2 * (lane % 4)
+    rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], 1)
+    cols = torch.stack([q, q + 1, q, q + 1, q + 8, q + 9, q + 8, q + 9], 1)
+    return t[:, :, rows, cols]
+
+
+_GATE_INDEX = {}
+
+
+def gate_index(R, HD, device):
+    """The source of each bf16 element of the packed gate weights
+    (``pack_gate_weights``) as an index into cat(w_hh.flatten(),
+    ctx_w3.flatten(), [0]) (the last element: the zero padding), made once
+    per (R, H*Dh, device).  P (KKp, 4Rp) holds [W_hh; ctx_w3] (KK = R + HD
+    rows, 4R gate columns) with its columns in unit-block order: column
+    ub*32 + gate*8 + j is gate (i, f, g, o) of unit ub*8 + j.  The packing is
+    P^T's fragments (the recompute, M = 4Rp) followed by P's (the
+    backprop, M = KKp)."""
+    key = (R, HD, str(device))
+    if key not in _GATE_INDEX:
+        with torch.inference_mode(False):      # a normal tensor, reused
+            _GATE_INDEX[key] = _gate_index(R, HD, device)
+    return _GATE_INDEX[key]
+
+
+def _gate_index(R, HD, device):
+    Rp, KKp = gate_geometry(R, HD)
+    rho = torch.arange(4 * Rp, device=device)
+    unit = rho // 32 * 8 + rho % 8
+    col = (rho % 32) // 8 * R + unit
+    k = torch.arange(KKp, device=device)
+    flat = torch.where((k[:, None] < R + HD) & (unit[None, :] < R),
+                       k[:, None] * 4 * R + col[None, :], (R + HD) * 4 * R)
+    return torch.cat([_fragment_order(flat.T).reshape(-1),
+                      _fragment_order(flat).reshape(-1)])
+
+
+_ZERO = {}
+
+
+def pack_gate_weights(w_hh, ctx_w3):
+    """The gate weights of K5-bf16, packed once a launch: W_hh (R, 4R) and
+    ctx_w3 (H, Dh, 4R) rounded to bf16 in the order in which the kernel
+    reads its A fragments (``gate_index``), a flat torch.bfloat16 tensor
+    of 2 x 4Rp x KKp elements (8 MB at R = H*Dh = 512).  Three device
+    activities: the concatenation, the rounding, the gather."""
+    R = w_hh.shape[0]
+    HD = ctx_w3.numel() // (4 * R)
+    dev = w_hh.device
+    if dev not in _ZERO:
+        with torch.inference_mode(False):
+            _ZERO[dev] = torch.zeros(1, dtype=torch.float32, device=dev)
+    with torch.no_grad():       # a kernel operand: its gradient is the kernel's
+        src = torch.cat([w_hh.reshape(-1), ctx_w3.reshape(-1), _ZERO[dev]])
+        return src.to(torch.bfloat16)[gate_index(R, HD, dev)]
+
+
+def unpack_gate_weights(packed, R, HD):
+    """(P^T, P) from ``pack_gate_weights``' output: the recompute's and
+    the backprop's operands (4Rp, KKp) and (KKp, 4Rp) in bf16, zero where
+    padded (the inverse of the fragment order)."""
+    Rp, KKp = gate_geometry(R, HD)
+    n = 4 * Rp * KKp
+    out = []
+    for part, (M, K) in ((packed[:n], (4 * Rp, KKp)),
+                         (packed[n:], (KKp, 4 * Rp))):
+        pos = _fragment_order(torch.arange(M * K, device=packed.device)
+                              .reshape(M, K)).reshape(-1)
+        flat = torch.empty(M * K, dtype=packed.dtype, device=packed.device)
+        flat[pos] = part
+        out.append(flat.reshape(M, K))
+    return tuple(out)
+
+
+def gate_products_tiles(packed, x, dz, R, HD):
+    """Plain mirror of K5-bf16's gate products as the kernel addresses
+    them: each 16 x 8 tile of z^T = P^T x^T (x (QT, KK) = [h | ctx]) and of
+    [dh | dctx]^T = P dz^T (dz (QT, 4R)) summed over the 16 x 16 A tiles
+    read from the packed fragments (lane l's 8 elements at their rows and
+    terms) and the activations' bf16 pairs, the tile's queries (at most 8)
+    the n8 side, in f32.  Returns (z (QT, 4R) without z_all, in the natural
+    gate order, and [dh | dctx] (QT, KK))."""
+    Rp, KKp = gate_geometry(R, HD)
+    QT = x.shape[0]
+    KK = R + HD
+    lane = torch.arange(32)
+    g, q = lane // 4, 2 * (lane % 4)
+    rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], 1)
+    cols = torch.stack([q, q + 1, q, q + 1, q + 8, q + 9, q + 8, q + 9], 1)
+    n = 4 * Rp * KKp
+
+    def product(frags, M, K, act):
+        tiles = frags.reshape(M // 16, K // 16, 32, 8).float()
+        b = torch.zeros((K, 8), dtype=torch.float32)
+        b[:act.shape[1], :QT] = act.to(torch.bfloat16).float().T
+        out = torch.zeros((M, 8), dtype=torch.float32)
+        for mt in range(M // 16):
+            d = torch.zeros((16, 8), dtype=torch.float32)
+            for kt in range(K // 16):
+                a = torch.zeros((16, 16), dtype=torch.float32)
+                a[rows, cols] = tiles[mt, kt]
+                d += a @ b[kt * 16:(kt + 1) * 16]
+            out[mt * 16:(mt + 1) * 16] = d
+        return out[:, :QT]
+
+    zt = product(packed[:n], 4 * Rp, KKp, x)              # rows: gate order
+    rho = torch.arange(4 * Rp)
+    unit = rho // 32 * 8 + rho % 8
+    keep = unit < R
+    z = torch.zeros((QT, 4 * R), dtype=torch.float32)
+    z[:, ((rho % 32) // 8 * R + unit)[keep]] = zt[keep].T
+    dzp = torch.zeros((QT, 4 * Rp), dtype=torch.float32)
+    dzp[:, keep] = dz[:, ((rho % 32) // 8 * R + unit)[keep]]
+    dxt = product(packed[n:], KKp, 4 * Rp, dzp)
+    return z, dxt[:KK].T
+
+
+def _kernel_operands(args, temporal_shapes, rb=False, pack=False):
     """Check the operands of a kernel launch; returns (dims, contiguous
-    operands, ab as a one-element device tensor), value_t and the weights
-    of the step's products rounded to bf16 where ``rb`` (K4-bf16, K5-bf16)."""
+    operands, ab as a one-element device tensor, extras).  Where ``rb``
+    (K4-bf16, K5-bf16): value_t and the weights of the step's products
+    rounded to bf16, cw in bf16 (the table's GEMM operand only), and extras
+    = (value_t in bf16, for the GEMMs; with ``pack``, K5-bf16, the packed
+    gate weights in place of the rounded w_hh and ctx_w3, which it then
+    leaves unread); else extras = (None, None)."""
     (value_t, base_pos, scale_t, z_all, off_w_h, h2att_w, h2att_b, cw, cb,
      aw, ab, ctx_w3, w_hh) = args
     dev = value_t.device
@@ -118,14 +255,26 @@ def _kernel_operands(args, temporal_shapes, rb=False):
            if tuple(t.shape) != s]
     if bad or LP % L or sum(temporal_shapes) != S:
         raise ValueError(f'scan kernel: inconsistent shapes of {bad}')
+    extras = (None, None)
     if rb:
-        tensors = [dsa_bf16.bf16(t) if n in dsa_bf16.ROUNDED else t
-                   for n, t in zip(NAMES, tensors)]
+        value16 = dsa_bf16.bf16_operand(value_t)
+        wpack = pack_gate_weights(w_hh, ctx_w3) if pack else None
+        kept = ('value_t', 'cw') + (('ctx_w3', 'w_hh') if pack else ())
+        tensors = [dsa_bf16.bf16(t) if n in dsa_bf16.ROUNDED and n not in kept
+                   else t for n, t in zip(NAMES, tensors)]
+        tensors[0] = value16.float()
+        tensors[7] = dsa_bf16.bf16_operand(cw)
+        extras = (value16, wpack)
     # the backward reads rows as float4: a view's storage offset may leave
     # them unaligned, a copy does not
     tensors = [t.contiguous() for t in tensors]
     tensors = [t.clone() if t.data_ptr() % 16 else t for t in tensors]
-    return (B, H, S, Dh, Q, LP, L, A, R, K), tensors
+    return (B, H, S, Dh, Q, LP, L, A, R, K), tensors, extras
+
+
+def _ptr(t):
+    """A tensor's device pointer, or 0 (NULL) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def dsa_teacher_scan_fwd(*args, precision='float32'):
@@ -134,7 +283,7 @@ def dsa_teacher_scan_fwd(*args, precision='float32'):
     13 operands (CUDA tensors), temporal_shapes."""
     rb = check_precision(precision)
     *ops, temporal_shapes = args
-    dims, ops = _kernel_operands(ops, temporal_shapes, rb)
+    dims, ops, (value16, _) = _kernel_operands(ops, temporal_shapes, rb)
     B, H, S, Dh, Q, LP, L, A, R, K = dims
     hs = torch.empty((B, K, Q, R), dtype=torch.float32, device=ops[0].device)
     cs = torch.empty_like(hs)
@@ -143,7 +292,8 @@ def dsa_teacher_scan_fwd(*args, precision='float32'):
     vw = torch.empty((B, H, S, A), dtype=torch.float32, device=hs.device)
     work = _cuda.gemm_work(hs.device, (B * H * S, A, Dh))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_fwd(
-        *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
+        ops[0].data_ptr(), _ptr(value16), *(t.data_ptr() for t in ops[1:]),
+        _cuda.levels_array(temporal_shapes),
         hs.data_ptr(), cs.data_ptr(), vw.data_ptr(), work.data_ptr(), *dims,
         work.numel(), int(rb), _cuda.stream_ptr(hs.device)), 'dvc_dsa_scan_fwd')
     _cuda.count_launch(dsa_teacher_scan_fwd, rb)
@@ -162,14 +312,17 @@ def dsa_teacher_scan_bwd(*args, precision='float32'):
     rb = check_precision(precision)
     *ops, temporal_shapes, hs, cs, g = args
     ab_shape = torch.as_tensor(ops[10]).shape
-    dims, ops = _kernel_operands(ops, temporal_shapes, rb)
+    dims, ops, (value16, wpack) = _kernel_operands(ops, temporal_shapes, rb,
+                                                   pack=True)
     B, H, S, Dh, Q, LP, L, A, R, K = dims
     if (hs.shape != (B, K, Q, R) or cs.shape != hs.shape
             or g.shape != hs.shape):
         raise ValueError('scan kernel: hs, cs and g must be (B, K, Q, R)')
     dev = hs.device
-    # step k's backward recomputes it from (h_{k-1}, c_{k-1})
-    hs_prev = torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1)
+    # step k's backward recomputes it from (h_{k-1}, c_{k-1}); K5-bf16
+    # reads h_{k-1} in bf16 (an operand of products only)
+    hs_prev = (dsa_bf16.shifted_bf16(hs) if rb else
+               torch.cat([torch.zeros_like(hs[:, :1]), hs[:, :-1]], 1))
     cs_prev = torch.cat([torch.zeros_like(cs[:, :1]), cs[:, :-1]], 1)
     g = g.to(torch.float32).contiguous()
 
@@ -185,21 +338,28 @@ def dsa_teacher_scan_bwd(*args, precision='float32'):
         empty(R, A), empty(Dh, A)
     dcb, daw, dab = zeros(A), zeros(A), zeros(1)
     dctx_w3, dwhh = empty(H * Dh, 4 * R), empty(R, 4 * R)
-    # G, the weight gradients' rows, the table value_t . cw, and the
-    # split-K partial tiles of its GEMMs: the table, G . cw^T and the five
-    # outer sums
+    # G, the weight gradients' rows (bf16 in K5-bf16, with a bf16 copy of
+    # dz), the table value_t . cw, and the split-K partial tiles of its
+    # GEMMs: the table, G . cw^T and the five outer sums
     N, BHS = B * K * Q, B * H * S
     work = _cuda.gemm_work(dev, (BHS, A, Dh), (BHS, Dh, A), (R, 4 * R, N),
                            (H * Dh, 4 * R, N), (R, A, N), (R, H * LP, N),
                            (Dh, A, BHS))
-    scratch = (zeros(B, H, S, A), empty(B, K, Q, H * Dh), empty(B, K, Q, A),
-               empty(B, K, Q, H * LP), empty(B, H, S, A), work)
-    outs = (dvalue, dbase, dscale, dz, doffw, dh2w, dcw, dcb, daw, dab,
-            dctx_w3, dwhh)
+    def rows(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.bfloat16 if rb
+                           else torch.float32)
+
+    dz16 = rows(B, K, Q, 4 * R) if rb else None
+    scratch = (zeros(B, H, S, A), rows(B, K, Q, H * Dh), rows(B, K, Q, A),
+               rows(B, K, Q, H * LP), empty(B, H, S, A), work)
+    outs = (dvalue, dbase, dscale, dz)
+    outs2 = (doffw, dh2w, dcw, dcb, daw, dab, dctx_w3, dwhh)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_bwd(
-        *(t.data_ptr() for t in ops), hs_prev.data_ptr(), cs_prev.data_ptr(),
+        ops[0].data_ptr(), _ptr(value16), *(t.data_ptr() for t in ops[1:]),
+        _ptr(wpack), hs_prev.data_ptr(), cs_prev.data_ptr(),
         g.data_ptr(), _cuda.levels_array(temporal_shapes),
-        *(t.data_ptr() for t in outs + scratch), *dims, work.numel(), int(rb),
+        *(t.data_ptr() for t in outs), _ptr(dz16),
+        *(t.data_ptr() for t in outs2 + scratch), *dims, work.numel(), int(rb),
         _cuda.stream_ptr(dev)), 'dvc_dsa_scan_bwd')
     _cuda.count_launch(dsa_teacher_scan_bwd, rb)
     return (dvalue, dbase, dscale, dz,

@@ -400,7 +400,10 @@ def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
             _zeros(dev, 1))
     # the outer sums' split-K partial tiles
     work = _cuda.gemm_work(dev, (R, 4 * R, B * Q), (H * Dh, 4 * R, B * Q))
-    scratch = (_empty(dev, B, Q, H * Dh), work)
+    # ctx's rows for the outer sum ctx^T dz: bf16 in K10-bf16
+    ctx_all = torch.empty((B, Q, H * Dh), device=dev, dtype=torch.bfloat16
+                          if rb else torch.float32)
+    scratch = (ctx_all, work)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_lstm_bwd(
         *(t.data_ptr() for t in ops), gh.data_ptr(), gc.data_ptr(),
         _cuda.levels_array(temporal_shapes),

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .dsa_bf16 import bf16
+from .dsa_bf16 import bf16, bf16_operand
 from .dsa_greedy import check_precision
 
 
@@ -48,20 +48,28 @@ def table_gemm_ref(x, w, precision='float32'):
 table_gemm_ref.calls = 0
 
 
-def _f32_on_one_device(*tensors):
+def _on_one_device(rb, *tensors):
+    """Refuse what the table GEMM does not take: float32 tensors on one
+    device, or under bf16 (``rb``) also torch.bfloat16 ones, which its bf16
+    mode reads as they are stored.  Returns the ``bf16`` flags of the C
+    entry (``_cuda.bf16_flags``; 0 in f32)."""
     dev = tensors[0].device
-    if any(t.dtype != torch.float32 or t.device != dev for t in tensors):
-        raise TypeError('the table GEMM takes float32 tensors on one device')
+    types = (torch.float32, torch.bfloat16) if rb else (torch.float32,)
+    if any(t.dtype not in types or t.device != dev for t in tensors):
+        raise TypeError('the table GEMM takes float32 tensors on one device '
+                        '(in bf16 also bfloat16 ones)')
+    return _cuda.bf16_flags(*tensors) if rb else 0
 
 
 def table_gemm(x, w, precision='float32'):
     """table (N, n) = x (N, k) . w (k, n), f32 (``precision='bfloat16'``:
-    on bf16-rounded operands).  CPU tensors: the plain version.  CUDA
-    tensors: the kernel, or an error."""
+    on bf16-rounded operands, each given as float32 or torch.bfloat16).
+    CPU tensors: the plain version.  CUDA tensors: the kernel, or an
+    error."""
     rb = check_precision(precision)
     if not x.is_cuda:
         return table_gemm_ref(x, w, precision)
-    _f32_on_one_device(x, w)
+    flags = _on_one_device(rb, x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f'table GEMM: shapes {tuple(x.shape)} and '
                          f'{tuple(w.shape)} do not chain')
@@ -71,7 +79,7 @@ def table_gemm(x, w, precision='float32'):
     work = _cuda.gemm_work(x.device, (N, n, k))     # split-K partial tiles
     _cuda.check(_cuda.lib().cdll.dvc_dsa_table_gemm(
         x.data_ptr(), w.data_ptr(), table.data_ptr(), work.data_ptr(), N, k,
-        n, work.numel(), int(rb), _cuda.stream_ptr(x.device)),
+        n, work.numel(), flags, _cuda.stream_ptr(x.device)),
         'dvc_dsa_table_gemm')
     _cuda.count_launch(table_gemm, rb)
     return table
@@ -101,7 +109,7 @@ def table_gemm_bwd(x, w, g, precision='float32'):
     rb = check_precision(precision)
     if not x.is_cuda:
         return table_gemm_bwd_ref(x, w, g, precision)
-    _f32_on_one_device(x, w, g)
+    flags = _on_one_device(rb, x, w, g)
     N, k = x.shape
     n = w.shape[1]
     if w.shape[0] != k or tuple(g.shape) != (N, n):
@@ -114,7 +122,7 @@ def table_gemm_bwd(x, w, g, precision='float32'):
     work = _cuda.gemm_work(x.device, (N, k, n), (k, n, N))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_table_gemm_bwd(
         x.data_ptr(), w.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), work.data_ptr(), N, k, n, work.numel(), int(rb),
+        dw.data_ptr(), work.data_ptr(), N, k, n, work.numel(), flags,
         _cuda.stream_ptr(x.device)), 'dvc_dsa_table_gemm_bwd')
     _cuda.count_launch(table_gemm_bwd, rb)
     return dx, dw
@@ -126,32 +134,45 @@ table_gemm_bwd.launches_bf16 = 0
 
 class ValueTable(torch.autograd.Function):
     """VW = value_t . cw by the table GEMM; its backward by the table
-    GEMM's backward; the last argument is the precision."""
+    GEMM's backward; the last arguments are the precision and value_t in
+    torch.bfloat16 or None.  In bf16 on the card the GEMMs read bf16:
+    value_t's given copy (else one made here), cw and the cotangent G
+    (summed in f32 over the word steps) rounded once each here."""
 
     @staticmethod
-    def forward(ctx, value_t, cw, precision):
-        ctx.save_for_backward(value_t, cw)
+    def forward(ctx, value_t, cw, precision, value16=None):
         ctx.precision = precision
         B, H, S, Dh = value_t.shape
-        return table_gemm(value_t.reshape(-1, Dh), cw,
-                          precision).reshape(B, H, S, -1)
+        x, w = value_t.reshape(-1, Dh), cw
+        if value_t.is_cuda and check_precision(precision):
+            x = (bf16_operand(x) if value16 is None
+                 else value16.reshape(-1, Dh))
+            w = bf16_operand(cw)
+        ctx.save_for_backward(x, w)
+        ctx.shape, ctx.dtypes = value_t.shape, (value_t.dtype, cw.dtype)
+        return table_gemm(x, w, precision).reshape(B, H, S, -1)
 
     @staticmethod
     def backward(ctx, g):
-        value_t, cw = ctx.saved_tensors
-        dx, dcw = table_gemm_bwd(value_t.reshape(-1, value_t.shape[-1]), cw,
-                                 g.reshape(-1, cw.shape[1]), ctx.precision)
-        return dx.reshape(value_t.shape), dcw, None
+        x, w = ctx.saved_tensors
+        g = g.reshape(-1, w.shape[1])
+        if x.dtype == torch.bfloat16:
+            g = bf16_operand(g)
+        dx, dcw = table_gemm_bwd(x, w, g, ctx.precision)
+        return (dx.reshape(ctx.shape).to(ctx.dtypes[0]), dcw.to(ctx.dtypes[1]),
+                None, None)
 
 
-def dsa_value_table(value_t, cw, precision='float32'):
+def dsa_value_table(value_t, cw, precision='float32', value16=None):
     """The per-video table VW = value_t (B, H, S, Dh) . cw (Dh, A) ->
     (B, H, S, A), differentiable (``precision='bfloat16'``: on
-    bf16-rounded operands, forward and backward).  CPU tensors: the plain
-    product under autograd (bf16: the plain bf16 products in
+    bf16-rounded operands, forward and backward; value16, value_t in
+    torch.bfloat16, spares the card a rounding of it).  CPU tensors: the
+    plain product under autograd (bf16: the plain bf16 products in
     :class:`ValueTable`).  CUDA tensors: the table GEMM and, in the
-    backward, its backward (each one launch), or an error."""
+    backward, its backward (each one launch, and in bf16 a rounding of cw
+    and one of G), or an error."""
     if not value_t.is_cuda and not check_precision(precision):
         B, H, S, Dh = value_t.shape
         return table_gemm_ref(value_t.reshape(-1, Dh), cw).reshape(B, H, S, -1)
-    return ValueTable.apply(value_t, cw, precision)
+    return ValueTable.apply(value_t, cw, precision, value16)

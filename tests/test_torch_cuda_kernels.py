@@ -585,6 +585,53 @@ def test_scan_backward_kernel_at_the_train_width(cuda, B, H):
         assert ok, (name, err, float(b.abs().max()))
 
 
+@pytest.mark.parametrize('width', ['small', 'train'])
+@pytest.mark.parametrize('H', [1, 8])
+def test_scan_bf16_kernels_match_the_plain_bf16_scan(cuda, width, H):
+    """K4-bf16 and K5-bf16 (the gates on the tensor cores from the packed
+    bf16 weights, the GEMMs on bf16 operands) against the plain bf16
+    versions (``dsa_bf16.scan_fwd`` / ``scan_bwd``; the backward on
+    K4-bf16's trajectory), in relative L2 against the plain f32 version's
+    distance from the same reference: hs and cs within BF16_FWD_SHARE of
+    the product form (the TPU kernels' bf16 products); at the train width
+    (R = A = H*Dh = 512, B=1, Q=90, K=29) each gradient (but d alpha_b)
+    within BF16_BWD_SHARE of the product form, phase 16's gate; at R = A =
+    H*Dh = 64, B=2, Q=10, K=5, where the table form's own rounding points
+    lie up to 0.55x of f32's distance from the product form, within
+    BF16_MIRROR_BWD of the table form (``table=True``, the kernel's
+    rounding points).  Queries near a tap boundary get a zero cotangent
+    (``near_integer``)."""
+    from chip_smoke import (BF16_BWD_SHARE, BF16_FWD_SHARE, BF16_MIRROR_BWD,
+                            MSDA_LEVELS, rel_l2, scan_inputs,
+                            scan_positions_bf16)
+    from dvc_tpu_torch.ops import dsa_bf16
+    gen = torch.Generator(device=cuda).manual_seed(17 + H)
+    B, Q, K, d = (2, 10, 5, 64) if width == 'small' else (1, 90, 29, 512)
+    args = scan_inputs(gen, B, Q, K, H, R=d, A=d, d=d)
+    L, bf = MSDA_LEVELS, 'bfloat16'
+    launches = dsa_teacher_scan_bwd.launches_bf16
+    hs, cs = dsa_teacher_scan_fwd(*args, L, precision=bf)
+    ref_hs, ref_cs = dsa_teacher_scan_ref(*args, L, precision=bf)
+    f_hs, f_cs = dsa_teacher_scan_ref(*args, L)
+    assert (max(rel_l2(hs, ref_hs), rel_l2(cs, ref_cs))
+            <= BF16_FWD_SHARE * max(rel_l2(f_hs, ref_hs), rel_l2(f_cs, ref_cs)))
+    near = near_integer(scan_positions_bf16(args, hs))
+    g = torch.randn(hs.shape, generator=gen, device=cuda) \
+        * (~near)[:, None, :, None]
+    grads = dsa_teacher_scan_bwd(*args, L, hs, cs, g, precision=bf)
+    torch.cuda.synchronize()
+    assert dsa_teacher_scan_bwd.launches_bf16 == launches + 1
+    small = width == 'small'
+    want = dsa_bf16.scan_bwd(*args, L, hs, cs, g, table=small)
+    f32 = dsa_teacher_scan_bwd_ref(*args, L, f_hs, f_cs, g)
+    share = BF16_MIRROR_BWD if small else BF16_BWD_SHARE
+    for name, a, w, f in zip(NAMES, grads, want, f32):
+        assert torch.isfinite(a).all(), name
+        if name != 'ab':
+            assert rel_l2(a, w) <= share * rel_l2(f, w), (
+                name, rel_l2(a, w), rel_l2(f, w))
+
+
 @pytest.mark.parametrize('B,H', [(1, 1), (2, 1), (8, 1), (16, 1), (1, 8)])
 def test_scan_forward_kernel_at_the_train_width(cuda, B, H):
     """K4 (table value . Wc, then the K-step scan) at R = A = 512, S = 375,
@@ -923,16 +970,19 @@ GEMM_LAYOUTS = [(False, True), (False, False), (True, True)]
 
 
 def _gemm(x, x_by_term, y, y_by_term, M, N, T, out, accumulate=False,
-          work=None):
+          work=None, bf16=False):
     """out (M, N) (+)= X' Y' by dsa::gemm; x and y may be strided views
-    (their row stride is the leading dimension).  Returns the C code."""
+    (their row stride is the leading dimension).  ``bf16``: the bf16-operand
+    mode, on x and y as stored (torch.bfloat16, or float32 that the GEMM's
+    producer rounds).  Returns the C code."""
     from dvc_tpu_torch.ops import _cuda
     if work is None:
         work = _cuda.gemm_work(out.device, (M, N, T))
     code = _cuda.lib().cdll.dvc_dsa_gemm(
         x.data_ptr(), x.stride(0), int(x_by_term), y.data_ptr(), y.stride(0),
         int(y_by_term), M, N, T, int(accumulate), out.data_ptr(),
-        work.data_ptr(), work.numel(), 0, _cuda.stream_ptr(out.device))
+        work.data_ptr(), work.numel(),
+        _cuda.bf16_flags(x, y) if bf16 else 0, _cuda.stream_ptr(out.device))
     torch.cuda.synchronize()
     return code
 
@@ -1010,17 +1060,84 @@ def test_gemm_outer_sum_of_a_strided_operand(cuda, pad):
     assert ok, err
 
 
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
 @pytest.mark.parametrize('layout', GEMM_LAYOUTS, ids=str)
-def test_gemm_is_bitwise_deterministic(cuda, layout):
+def test_gemm_is_bitwise_deterministic(cuda, layout, bf16):
     """Two runs on the same inputs give equal bits: split-K partial tiles
-    are added in chunk order (6000 terms: 16 chunks of the outer sum)."""
+    are added in chunk order (6000 terms: 16 chunks of the outer sum); in
+    the f32 mode and in the bf16 mode on bf16 operands."""
     rng = np.random.default_rng(5)
     M, N, T = (512, 512, 6000) if layout[0] else (2000, 512, 512)
     x, y, _, _ = _gemm_operands(cuda, rng, M, N, T, *layout)
+    if bf16:
+        x, y = x.bfloat16(), y.bfloat16()
     a, b = (torch.empty((M, N), device=cuda) for _ in range(2))
-    assert _gemm(x, layout[0], y, layout[1], M, N, T, a) == 0
-    assert _gemm(x, layout[0], y, layout[1], M, N, T, b) == 0
+    assert _gemm(x, layout[0], y, layout[1], M, N, T, a, bf16=bf16) == 0
+    assert _gemm(x, layout[0], y, layout[1], M, N, T, b, bf16=bf16) == 0
     assert torch.equal(a, b)
+
+
+def _bf16_stored(t, bf16, pad):
+    """t's values rounded to bf16, stored as torch.bfloat16 where ``bf16``
+    (inside a buffer ``pad`` columns wider, as ``_gemm_operands`` stores
+    them), else t as it is (float32)."""
+    if not bf16:
+        return t
+    buf = torch.empty((t.shape[0], t.shape[1] + pad), dtype=torch.bfloat16,
+                      device=t.device)
+    view = buf[:, :t.shape[1]]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize('layout', GEMM_LAYOUTS, ids=str)
+@pytest.mark.parametrize('M,N,T', [(129, 129, 31), (65, 65, 1), (129, 65, 100),
+                                   (37, 5, 3), (5, 3, 0), (1000, 1100, 1000)])
+def test_gemm_bf16_ragged_shapes(cuda, layout, M, N, T):
+    """The bf16-operand mode at shapes that are no multiple of a tile or a
+    slice (1000 x 1100 runs the 128 x 128 tiles), on operands stored in
+    bf16 (rows whole 16-byte chunks: TMA; odd rows: through registers) and
+    in f32 (rounded by the producer), each mix, and with ``accumulate``:
+    against the float64 product of the bf16-rounded operands in units of
+    its products (as ``product_err``; with ``accumulate`` past four f32
+    roundings of the sum with out0) within GEMM_PRODUCT_TOL."""
+    rng = np.random.default_rng(M * N + T + 7)
+    for pad, xb, yb in ((0, True, True), (1, True, True), (0, False, False),
+                        (8, True, False), (0, False, True)):
+        x, y, xp, yp = _gemm_operands(cuda, rng, M, N, T, *layout, pad=pad)
+        x, y = _bf16_stored(x, xb, pad), _bf16_stored(y, yb, pad)
+        out0 = _t(rng.standard_normal((M, N)).astype(np.float32), cuda)
+        xd, yd = xp.bfloat16().double(), yp.bfloat16().double()
+        rss = ((xd * xd) @ (yd * yd)).sqrt()
+        for accumulate in (False, True):
+            out = out0.clone() if accumulate else torch.full(
+                (M, N), float('nan'), device=cuda)
+            assert _gemm(x, layout[0], y, layout[1], M, N, T, out,
+                         accumulate=accumulate, bf16=True) == 0
+            want, slack = xd @ yd, 0.0
+            if accumulate:
+                # out0 + the product: the sum's own f32 roundings (out0,
+                # then each chunk's partial tile) come on top
+                want = want + out0.double()
+                slack = 4 * 2.0 ** -24 * (out0.double().abs() + rss)
+            err = float(((out.double() - want).abs() - slack).clamp_min(0.0)
+                        .div(rss.clamp_min(1e-30)).max())
+            assert err <= GEMM_PRODUCT_TOL, (pad, xb, yb, accumulate, err)
+
+
+def test_gemm_bf16_outer_sum_at_the_scan_shape(cuda):
+    """K5-bf16's hs_prev^T dz at 512 x 2048 over 6,144 terms (128 x 128
+    tiles, four chunks) on bf16 operands: in units of its products within
+    GEMM_PRODUCT_TOL of the float64 product of the same bf16 values."""
+    rng = np.random.default_rng(6145)
+    M, N, T = 512, 2048, 6144
+    assert _plan(cuda, M, N, T)[:2] == (1, 4)
+    x, y, xp, yp = _gemm_operands(cuda, rng, M, N, T, True, True)
+    x, y = x.bfloat16(), y.bfloat16()
+    out = torch.empty((M, N), device=cuda)
+    assert _gemm(x, True, y, True, M, N, T, out, bf16=True) == 0
+    err = product_err(out, x.float().T, y.float())
+    assert err <= GEMM_PRODUCT_TOL, err
 
 
 def test_table_gemm_splits_at_the_b1_shape(cuda):
