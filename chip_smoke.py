@@ -29,10 +29,12 @@ Phases (one or more lines each; the last line is the JSON verdict):
    the word-step kernels (K7-K10, each with VW given; K8's and K10's
    gradients composed with the table's backward) at the stepwise path's
    train (B=1, Q=90) and serve (B=16, Q=100, H=1 and 8) shapes, to the
-   scan's tolerances (``check_step``); then the phase split of the kernels
-   redesigned for the card (K1-K10; ``SPLITS['current']``, one
-   ``[split]`` line per kernel and shape; K3's also times its value rows
-   read through L2 in place of the staged slice).
+   scan's tolerances (``check_step``); then the phase split of the
+   kernels the latest slices redesigned (``FULL_RUN_SPLITS``, K4-K6-bf16;
+   one ``[split]`` line per kernel and shape; ``--split current`` splits
+   every kernel of ``SPLITS['current']``, K1-K10 and their bf16 modes,
+   K3's also with its value rows read through L2 in place of the staged
+   slice).
    Tolerances:
    MSDA forward max abs error <= 1e-4 * max|out|, and each of its
    gradients <= 1e-4 * its max |ref|; greedy tokens equal and log-probs
@@ -1320,6 +1322,44 @@ _CELL_PASS = ('__device__ __forceinline__ float cell_pass(float zi, float zf, fl
               'float zo, float c_prev, float gh, float gc, float (&dz)[4]) {\n'
               '  dz[0] = zi; dz[1] = zf; dz[2] = zg; dz[3] = zo;\n'
               '  return c_prev + gh + gc;\n}\n\n')
+# K4-bf16's and K6-bf16's forward gates on the tensor cores (dsa_common.cuh,
+# gates_fwd_bf16): the staging of x, the product, and the cell replaced by
+# a pass-through of the preactivations; K6-bf16's logits (dsa_greedy.cu,
+# logits_bf16): the product and its online merge replaced by token 0, and
+# the merge alone replaced by keeping the last logit (its index stays a
+# valid token); hvec = h . W_h2att on the
+# tensor cores (attend_hvec_mma, its staging included: the scores then
+# read stale hvec), and before it on the CUDA cores (attend_hvec_taps, the
+# 'cuda_core_bf16' spec)
+_FWD_STAGE = ('dsa_common.cuh', '  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);\n', '')
+_FWD_GATES = ('dsa_common.cuh',
+              '    gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);\n', '')
+_FWD_CELL = ('dsa_common.cuh',
+             '        const float c = sigmoidf_(zf) * c_s[qi * ldR + u] + sigmoidf_(zi) * tanhf(zg);\n'
+             '        const float hv = sigmoidf_(zo) * tanhf(c);\n',
+             '        const float c = zf + zi + zg;\n'
+             '        const float hv = zo + c;\n')
+_LOGITS = ('dsa_greedy.cu',
+           '  hidden_mma<QT>(a.lpack, hg, xb, gg.ldx, [&](int n, int nt, int j, float v) {\n'
+           '    lse_merge(mm[nt][j], ss[nt][j], ii[nt][j], v + __ldg(a.logit_b + n), 1.f, n);\n'
+           '  });\n',
+           '  for (int t = 0; t < NT * 2; ++t) {\n'
+           '    mm[t / 2][t % 2] = 0.f; ss[t / 2][t % 2] = 1.f; ii[t / 2][t % 2] = 0;\n'
+           '  }\n')
+_LOGITS_MERGE = ('dsa_greedy.cu',
+                 '    lse_merge(mm[nt][j], ss[nt][j], ii[nt][j], v + __ldg(a.logit_b + n), 1.f, n);\n',
+                 '    { mm[nt][j] = v; ss[nt][j] = 1.f; ii[nt][j] = n; }\n')
+_HVEC_SCAN = ('dsa_scan.cu', '    //      and ctx\n    if (B16) attend_hvec_mma<QT>(at, sm, xb, gg.ldx);\n',
+              '    //      and ctx\n')
+_HVEC_SCAN_BWD = ('dsa_scan.cu',
+                  '    //      weights, ctx\n    if (at.bf16) attend_hvec_mma<QT>(at, sm, xb, gg.ldx);\n',
+                  '    //      weights, ctx\n')
+_HVEC_GREEDY = ('dsa_greedy.cu', '    if (B16) attend_hvec_mma<QT>(at, sm, xb, gg.ldx);\n', '')
+_HVEC_CUDA_CORE = ('dsa_common.cuh',
+         '  for (int col = tid; col < A; col += kThreads) {\n    float acc[QT] = {};\n'
+         '    rows_dot_col<QT>(s.h, ldR, R, a.h2att_w, A, col, acc);',
+         '  for (int col = tid; col < 0; col += kThreads) {\n    float acc[QT] = {};\n'
+         '    rows_dot_col<QT>(s.h, ldR, R, a.h2att_w, A, col, acc);')
 _MSDA_GATHERS = ('        for (; j + 4 <= n; j += 4)\n'
                  '          gather_points<V, 4>(col, D, P, wl, wh, at, rows, j, left, lvl, acc);\n'
                  '        for (; j < n; ++j)\n'
@@ -1335,6 +1375,29 @@ _MSDA_BWD_FLUSH = ('  if (a.flush == 16) flush_rows<16>(dst, sdv, S, D, HD, a.ad
                    '  else flush_rows<4>(dst, sdv, S, D, HD, a.add);\n')
 _MSDA_BWD_L2 = ('ms_deform_attn.cu', 'const bool stage = 2 * slice <= (size_t)optin;',
                 'const bool stage = false;')
+# the attention phases of the forward kernels K4 and K6, either mode: the
+# per-launch tables, the scores from VW, ctx (the softmax kept)
+_SCAN_FWD_ATTENTION = [
+    ('table VW', [('dsa_scan.cu', '  if (a.at.bf16)\n    e = row_table16(',
+                   '  if (false)\n    e = row_table16('),
+                  ('dsa_scan.cu', '  else\n    e = row_table(value_t, static_cast',
+                   '  else if (false)\n    e = row_table(value_t, static_cast')]),
+    ('scores from VW', [('dsa_scan.cu',
+                         '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
+                         '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
+                         '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n')]),
+    ('ctx', [('dsa_scan.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);\n\n    // ---- z',
+              'attend_softmax<QT>(at, sm);\n\n    // ---- z')]),
+]
+_GREEDY_ATTENTION = [
+    ('tables VW, TW', [('dsa_greedy.cu', '  if (at.bf16) {\n    // value and cw in bf16',
+                        '  if (false) {\n    // value and cw in bf16'),
+                       ('dsa_greedy.cu', '} else if ((e = row_table(value_t,',
+                        '} else if (false && (e = row_table(value_t,')]),
+    ('scores from VW', [('dsa_greedy.cu', '    attend_scores_table<QT>(at, sm, vw_b, ab);\n', '')]),
+    ('ctx', [('dsa_greedy.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);',
+              'attend_softmax<QT>(at, sm);')]),
+]
 SPLITS = {
     'pr5': {
         'dsa_lstm_fwd': ('dsa_step.cu', [
@@ -1415,13 +1478,7 @@ SPLITS = {
             ('gathers', [('ms_deform_attn.cu', _MSDA_GATHERS, '')]),
         ]),
         'dsa_greedy': ('dsa_greedy.cu', [
-            ('tables VW, TW', [('dsa_greedy.cu', '  if (at.bf16) {\n    // value and cw in bf16',
-                                '  if (false) {\n    // value and cw in bf16'),
-                               ('dsa_greedy.cu', '} else if ((e = row_table(value_t,',
-                                '} else if (false && (e = row_table(value_t,')]),
-            ('scores from VW', [('dsa_greedy.cu', '    attend_scores_table<QT>(at, sm, vw_b, ab);\n', '')]),
-            ('ctx', [('dsa_greedy.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);',
-                      'attend_softmax<QT>(at, sm);')]),
+            *_GREEDY_ATTENTION,
             ('h.W_hh + ctx.ctx_w3', [('dsa_greedy.cu',
                                       'add_gates(sm.h, ldR, R, a.w_hh, r, R, z);\n'
                                       '      add_gates(sm.ctx, ldHD, HD, a.ctx_w3, r, R, z);', '')]),
@@ -1453,6 +1510,7 @@ SPLITS = {
             ('table VW', [('dsa_scan.cu', '  e = rb ? row_table16(op16(value16, Dh), op16(cw, A), BHS, Dh, A, vw, st, work, wf)\n'
                            '         : row_table(value_t, cwf, BHS, Dh, A, vw, st, work, wf);\n',
                            '  e = cudaSuccess;\n')]),
+            ('hvec (mma)', [_HVEC_SCAN_BWD]),
             ('gate recompute', [('dsa_scan.cu', _BF16_RECOMPUTE, '')]),
             ('cell backward', [('dsa_scan.cu', 'dc_s[qi * ldR + u] = cell_bwd(',
                                 'dc_s[qi * ldR + u] = cell_pass('),
@@ -1469,17 +1527,24 @@ SPLITS = {
                              'const int N = 0, HD'),
                             ('dsa_scan.cu', 'G16, BHS, Dh, A, dcw', 'G16, 0, Dh, A, dcw')]),
         ]),
+        'dsa_scan_fwd_bf16': ('dsa_scan.cu', [
+            *_SCAN_FWD_ATTENTION,
+            ('hvec (mma)', [_HVEC_SCAN]),
+            ('staging x', [_FWD_STAGE]),
+            ('gates (mma)', [_FWD_GATES]),
+            ('cell', [_FWD_CELL]),
+        ]),
+        'dsa_greedy_bf16': ('dsa_greedy.cu', [
+            *_GREEDY_ATTENTION,
+            ('hvec (mma)', [_HVEC_GREEDY]),
+            ('staging x', [_FWD_STAGE]),
+            ('gates (mma)', [_FWD_GATES]),
+            ('cell', [_FWD_CELL]),
+            ('logits (mma and merge)', [_LOGITS]),
+            ('logits merge', [_LOGITS_MERGE]),
+        ]),
         'dsa_scan_fwd': ('dsa_scan.cu', [
-            ('table VW', [('dsa_scan.cu', '  if (a.at.bf16)\n    e = row_table16(',
-                           '  if (false)\n    e = row_table16('),
-                          ('dsa_scan.cu', '  else\n    e = row_table(value_t, static_cast',
-                           '  else if (false)\n    e = row_table(value_t, static_cast')]),
-            ('scores from VW', [('dsa_scan.cu',
-                                 '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
-                                 '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
-                                 '    attend_softmax_ctx<QT>(at, sm, value_b);\n\n')]),
-            ('ctx', [('dsa_scan.cu', 'attend_softmax_ctx<QT>(at, sm, value_b);\n\n    // ---- z',
-                      'attend_softmax<QT>(at, sm);\n\n    // ---- z')]),
+            *_SCAN_FWD_ATTENTION,
             ('h.W_hh', [('dsa_scan.cu', *_GATES_H)]),
             ('ctx.ctx_w3', [('dsa_scan.cu', *_GATES_CTX)]),
             ('cell', [('dsa_scan.cu', _CELL, _NO_CELL)]),
@@ -1526,6 +1591,25 @@ SPLITS = {
         ]),
     },
 }
+
+# K4-bf16 and K6-bf16 as they were before their tensor-core gates (the f32
+# kernels' code on bf16-rounded operands): run it from a checkout of a tree
+# from before them with this file copied in, python3 chip_smoke.py --split
+# cuda_core_bf16
+SPLITS['cuda_core_bf16'] = {
+    'dsa_scan_fwd_bf16': ('dsa_scan.cu', SPLITS['current']['dsa_scan_fwd'][1]
+                          + [('hvec', [_HVEC_CUDA_CORE])]),
+    'dsa_greedy_bf16': ('dsa_greedy.cu', SPLITS['current']['dsa_greedy'][1]
+                        + [('hvec', [_HVEC_CUDA_CORE])]),
+}
+
+
+# the kernels whose phase split the full run prints: every variant of a
+# split is a build of its whole source, and all of SPLITS['current'] (92
+# builds) took 364 s of a 1,118 s run on an NVIDIA H100 80GB HBM3 machine,
+# so the full run splits the latest slices' kernels and `--split current`
+# the rest on demand
+FULL_RUN_SPLITS = ('dsa_scan_fwd_bf16', 'dsa_greedy_bf16', 'dsa_scan_bwd_bf16')
 
 
 def build_variants(csrc, specs):
@@ -1609,9 +1693,9 @@ def split_cases(kernels):
     (B, Q) = (16, 375), (16, 100), (1, 375) and at (16, 375) on encoder
     locations; K1/K2 at
     the MSDA shapes of ``phase_kernels`` ((B, Q) = (16, 375), (16, 100),
-    (1, 375)); K6 at the serving shape (B=16, Q=100, H=1 and 8); K4 and K5
-    at the train shapes (Q=90, K=29; B=1 and 16 at H=1, B=1 at H=8), K5-bf16
-    at the same shapes; K7-K10
+    (1, 375)); K6 at the serving shape (B=16, Q=100, H=1 and 8), K6-bf16
+    also at B=1; K4 and K5 at the train shapes (Q=90, K=29; B=1 and 16 at
+    H=1, B=1 at H=8), K4-bf16 and K5-bf16 at the same shapes; K7-K10
     (alone, with VW given) at the word-step shapes of ``check_step`` (B=1,
     Q=90, H=1; B=16, Q=100, H=1 and 8)."""
     import torch
@@ -1645,6 +1729,19 @@ def split_cases(kernels):
             args = greedy_inputs(gen, 16, 100, H)
             cases.append(('dsa_greedy', f'B=16 Q=100 H={H}',
                           lambda args=args: dsa_greedy_scan(*args, MSDA_LEVELS, 30)))
+    if 'dsa_greedy_bf16' in kernels:
+        for B, H in ((16, 1), (16, 8), (1, 1), (1, 8)):
+            args = greedy_inputs(gen, B, 100, H)
+            cases.append(('dsa_greedy_bf16', f'B={B} Q=100 H={H}',
+                          lambda args=args: dsa_greedy_scan(*args, MSDA_LEVELS, 30,
+                                                            precision=BF16)))
+    for B, H in ((1, 1), (16, 1), (1, 8)):
+        if 'dsa_scan_fwd_bf16' not in kernels:
+            break
+        args = scan_inputs(gen, B, 90, 29, H)
+        cases.append(('dsa_scan_fwd_bf16', f'B={B} Q=90 K=29 H={H}',
+                      lambda args=args: dsa_teacher_scan_fwd(*args, MSDA_LEVELS,
+                                                             precision=BF16)))
     for B, H in ((1, 1), (16, 1), (1, 8)):
         if 'dsa_scan_bwd_bf16' not in kernels:
             break
@@ -1742,8 +1839,10 @@ TABLE_SHAPES = (('B=1 H=1', 375, 512, 512), ('B=16 H=1', 6000, 512, 512),
 
 def ab_bf16_times():
     """Kernel-only CUDA-event times (ms) of K4-bf16 and K5-bf16 at the
-    train shapes (Q=90, K=29; (B, H) = (1, 1), (16, 1), (1, 8)) and of
-    dsa::gemm's bf16 mode at every shape of OUTER_SUMS and TABLE_SHAPES
+    train shapes (Q=90, K=29; (B, H) = (1, 1), (16, 1), (1, 8)), K4 and K5
+    in f32 beside them, of K6-bf16 and K6 at the serving shapes (Q=100, K=30;
+    (B, H) = (16, 1), (16, 8), (1, 1), (1, 8)), and of dsa::gemm's bf16
+    mode at every shape of OUTER_SUMS and TABLE_SHAPES
     (the table and its backward), as one JSON line: the half of an A/B of
     two trees in one call (``--ab-bf16``; run it from each tree's root in
     turns, old, new, new, old, as ``--ab``).  A tree whose GEMM reads f32
@@ -1753,6 +1852,7 @@ def ab_bf16_times():
     profiler's; ``(device)`` keys: at B=1 the event time is the host's)."""
     import torch
     from dvc_tpu_torch.ops import _cuda
+    from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
     from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
                                             dsa_teacher_scan_fwd)
     from dvc_tpu_torch.ops.dsa_tables import table_gemm, table_gemm_bwd
@@ -1776,6 +1876,18 @@ def ab_bf16_times():
             out[f'dsa_scan_bwd_bf16 B={B} H={H}'] = cuda_ms(
                 lambda: dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g,
                                              precision=BF16), 5)
+            out[f'dsa_scan_fwd B={B} H={H}'] = cuda_ms(
+                lambda: dsa_teacher_scan_fwd(*args, MSDA_LEVELS), 5)
+            hs, cs = dsa_teacher_scan_fwd(*args, MSDA_LEVELS)
+            out[f'dsa_scan_bwd B={B} H={H}'] = cuda_ms(
+                lambda: dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g), 5)
+        for B, H in ((16, 1), (16, 8), (1, 1), (1, 8)):
+            args = greedy_inputs(gen, B, 100, H)
+            out[f'dsa_greedy_bf16 B={B} H={H}'] = cuda_ms(
+                lambda: dsa_greedy_scan(*args, MSDA_LEVELS, 30,
+                                        precision=BF16), 5)
+            out[f'dsa_greedy B={B} H={H}'] = cuda_ms(
+                lambda: dsa_greedy_scan(*args, MSDA_LEVELS, 30), 5)
         calls = {}
         for label, rows, m, n, _ in OUTER_SUMS:
             X, Y = operand(rows, m), operand(rows, n)
@@ -4609,7 +4721,8 @@ def bf16_serve(opt, tmp, card):
     seeded weights at full width, bf16 and f32 in turns (f32, bf16, bf16,
     f32; host clock, 3 batches each after a warm-up): 16 results of
     well-formed events, and in the bf16 runs K1/K2 (f32) and K6-bf16
-    launched, no f32 K6, no plain version.  Returns the bf16 launches of
+    launched, no f32 K6, no plain version; then one batch of each traced
+    (device busy time, window, activities).  Returns the bf16 launches of
     one timed batch."""
     import numpy as np
     import torch
@@ -4642,12 +4755,20 @@ def bf16_serve(opt, tmp, card):
                            ('msda_fwd', 'dsa_greedy_bf16'),
                            ('dsa_greedy',) + STEP_KERNELS + STEP_KERNELS_BF16)
             launches = {k: v // 3 for k, v in counts.items()}
+    traces = {name: trace(f'B=16 {name} caption_batch',
+                          lambda dc=dc: dc.caption_batch(feats, durs,
+                                                         sound_list=sounds))
+              for name, dc in dcs.items()}
     print(f'[bf16] B=16 caption_batch ({card}), host clock, ms per batch '
           f'in the order f32, bf16, bf16, f32: f32 '
           f'{times["f32"][0]:.1f} / {times["f32"][1]:.1f}, bf16 '
-          f'{times["bf16"][0]:.1f} / {times["bf16"][1]:.1f}; 16 results, '
-          f'first "{results[0][0]["sentence"][:40]}..."; bf16 launches a '
-          f'batch {launches}')
+          f'{times["bf16"][0]:.1f} / {times["bf16"][1]:.1f}; traced batch, '
+          f'device busy / window ms, device activities: '
+          + ', '.join(f'{n} {t.get("busy_ms", 0):.3f} / '
+                      f'{t.get("window_ms", 0):.3f}, {t.get("activities", 0)}'
+                      for n, t in traces.items())
+          + f'; 16 results, first "{results[0][0]["sentence"][:40]}..."; '
+          f'bf16 launches a batch {launches}')
     return launches
 
 
@@ -5417,7 +5538,7 @@ def main():
     device = phase_device()
     phase_build()
     kernels = phase_kernels()
-    phase_split('current')
+    phase_split('current', FULL_RUN_SPLITS)
     from dvc_tpu_torch.utils.config import load_config
     opt = load_config(CFG, root=ROOT)
     with tempfile.TemporaryDirectory() as tmp:

@@ -184,6 +184,9 @@ struct AttendArgs {
   int hvec_given;         // hvec and pos are operands (the word steps): dhvec
                           // stays f32 in the bf16 mode
   int ctx_f32;            // ctx is an output (K7): stored f32 in the bf16 mode
+  const uint4* h2att_pack;  // the bf16 mode of K4-K6: W_h2att^T packed in bf16
+                            // (hidden_mma), hvec then on the tensor cores
+                            // (attend_hvec_mma); else null
   Levels lv;
 };
 
@@ -235,15 +238,16 @@ __device__ __forceinline__ float row_offset(const AttendArgs& a,
   return o[0];
 }
 
-// phases 1 and 2 from the hidden state: hvec, and the tap table of every
-// row at pos = base_pos + (h . off_w) * scale_t.  No barrier at the end.
+// phases 1 and 2 from the hidden state: hvec (but where a.h2att_pack is
+// set: attend_hvec_mma has computed it), and the tap table of every row at
+// pos = base_pos + (h . off_w) * scale_t.  No barrier at the end.
 template <int QT = kQT>
 __device__ __forceinline__ void attend_hvec_taps(const AttendArgs& a,
                                                  const AttendSmem& s, int b,
                                                  int q0) {
   const int tid = threadIdx.x, R = a.R, A = a.A, H = a.H, LP = a.LP;
   const int HLP = H * LP, NR = QT * HLP, ldR = pad4(R), ldA = pad4(A);
-  for (int col = tid; col < A; col += kThreads) {
+  for (int col = a.h2att_pack ? A : tid; col < A; col += kThreads) {
     float acc[QT] = {};
     rows_dot_col<QT>(s.h, ldR, R, a.h2att_w, A, col, acc);
     const float bias = a.h2att_b[col];
@@ -665,15 +669,18 @@ __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int 
 }
 
 // ----------------------------------------------------------------------------
-// the gate products of the bf16-operand mode on the tensor cores (K5-bf16)
+// the step's large products in the bf16-operand mode on the tensor cores
+// (K4-bf16, K5-bf16, K6-bf16)
 //
 // Transposed, the step's gate products are (gate or hidden units) x (units)
-// times (units) x (the tile's queries), so the tile's at most 8 queries are
-// the n8 side of mma.sync.m16n8k16 (bf16 in, f32 accumulate) and the
-// weights its 16-row A operand:
+// times (units) x (the tile's queries), so the tile's queries are the n
+// side of mma.sync.m16n8k16 (bf16 in, f32 accumulate; a 16-query tile is
+// two n8 tiles, and each A fragment feeds both) and the weights its 16-row
+// A operand:
 //
 //   z^T (4R, QT)      += P^T (4R, KK) x^T (KK, QT),   x = [h | ctx]
 //   [dh | dctx]^T (KK, QT) = P (KK, 4R) dz^T (4R, QT)
+//   logits^T (V1, QT)  = logit_w^T (V1, R) h^T (R, QT)   (K6-bf16)
 //
 // with KK = R + H*Dh and P = [W_hh; ctx_w3] (KK, 4R), its gate columns in
 // the order of unit blocks: block ub (8 hidden units) holds P's columns
@@ -682,14 +689,20 @@ __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int 
 // zero-padded to GateGeom's Rp units and KKp terms, in the order in which
 // the fragments are read: 16 x 16 tiles of 512 bytes, lane l's 16 bytes
 // the A fragment {a0, a1, a2, a3} of its tile (rows l/4 and l/4 + 8, terms
-// 2(l%4) + {0, 1} and 2(l%4) + {8, 9}), first P^T's tiles (the recompute:
-// m-tiles 2ub and 2ub + 1 hold block ub's gates (i, f) and (g, o)), then
-// P's (the backprop).  A fragments come from L2 as one 16-byte load a lane
+// 2(l%4) + {0, 1} and 2(l%4) + {8, 9}), first P^T's tiles (the recompute
+// of K5-bf16 and the forward of K4-bf16 and K6-bf16: m-tiles 2ub and 2ub +
+// 1 hold block ub's gates (i, f) and (g, o)), then P's (K5-bf16's
+// backprop).  logit_w^T is packed the same way (pack_logit_weights), V1
+// rows padded to V1p (a multiple of 16) and R terms to Rl (a multiple of
+// 64), zeros there.  A fragments come from L2 as one 16-byte load a lane
 // and a tile, with no shared memory; the activations' B fragments are
 // pairs of bf16 from shared memory (x and dz staged in bf16, rows padded
-// by 16 bytes so that the 32 lanes hit 32 banks).  After the recompute the
-// lane (g, q) of the warp holds all four gates of unit ub*8 + g for queries
-// 2q and 2q + 1, and the cell backward runs on the accumulators.
+// by 16 bytes so that the 32 lanes hit 32 banks).  After the gate product
+// the lane (g, q) of the warp holds all four gates of unit ub*8 + g for
+// queries 2q, 2q + 1 (and 8 + 2q, 9 + 2q in a second n8 tile), so the
+// cell and its backward run on the accumulators.  Every user sums a
+// product's k-tiles in the same order from zero, then adds the other
+// terms, so K5-bf16's recompute reproduces K4-bf16's forward bit for bit.
 // ----------------------------------------------------------------------------
 
 // the padded extents of the gate products: Rp units (a multiple of 32, so
@@ -737,18 +750,25 @@ __device__ __forceinline__ void stage_gate_inputs(const float* h, int ldR, const
   }
 }
 
-// acc[t] (D fragments) += the m-tile m0 + t of the packed operand frags
-// (nk k-tiles a row of tiles) times the staged activations act (QT rows of
-// ld bf16, the n8 side; rows past QT read as zero), for t < T.  Each lane
-// keeps kB k-tiles' A fragments in flight.
-template <int QT, int T, int kB>
+// acc[t][nt] (D fragments) += the m-tile m0 + t of the packed operand
+// frags (nk k-tiles a row of tiles) times the staged activations act (QT
+// rows of ld bf16, the n side: n8 tile nt holds rows 8nt..8nt + 7; rows
+// past QT read as zero), for t < T and nt < NT = ceil(QT / 8).  Each lane
+// keeps kB k-tiles' A fragments in flight, each used for the NT n8 tiles.
+template <int QT, int T, int kB, int NT>
 __device__ __forceinline__ void gate_mma(const uint4* __restrict__ frags, int nk, int m0,
                                          const __nv_bfloat16* act, int ld,
-                                         float (&acc)[T][4]) {
+                                         float (&acc)[T][NT][4]) {
+  static_assert(NT == (QT + 7) / 8, "one n8 tile per 8 queries of the tile");
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const uint4* a0 = frags + (size_t)m0 * nk * 32 + lane;
-  const uint32_t* b = reinterpret_cast<const uint32_t*>(act + (g < QT ? g : 0) * ld) + q;
-  const bool on = g < QT;
+  const uint32_t* b[NT];
+  bool on[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    on[nt] = g + 8 * nt < QT;
+    b[nt] = reinterpret_cast<const uint32_t*>(act + (on[nt] ? g + 8 * nt : 0) * ld) + q;
+  }
   for (int k0 = 0; k0 < nk; k0 += kB) {  // nk is a multiple of kB
     uint4 a[kB][T];
 #pragma unroll
@@ -757,17 +777,130 @@ __device__ __forceinline__ void gate_mma(const uint4* __restrict__ frags, int nk
       for (int t = 0; t < T; ++t)
         a[j][t] = __ldg(a0 + ((size_t)t * nk + k0 + j) * 32);
 #pragma unroll
-    for (int j = 0; j < kB; ++j) {
-      const uint32_t b0 = on ? b[(k0 + j) * 8] : 0u, b1 = on ? b[(k0 + j) * 8 + 4] : 0u;
+    for (int j = 0; j < kB; ++j)
 #pragma unroll
-      for (int t = 0; t < T; ++t) mma_bf16_16816(acc[t], a[j][t], b0, b1);
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint32_t b0 = on[nt] ? b[nt][(k0 + j) * 8] : 0u;
+        const uint32_t b1 = on[nt] ? b[nt][(k0 + j) * 8 + 4] : 0u;
+#pragma unroll
+        for (int t = 0; t < T; ++t) mma_bf16_16816(acc[t][nt], a[j][t], b0, b1);
+      }
+  }
+}
+
+// the forward gates of K4-bf16 and K6-bf16: x = [h | ctx] of the tile
+// (rounded f32 in shared memory) staged in bf16 in xb; z = P^T x^T + z0 on
+// the tensor cores from the packed P^T (wr; a warp per unit block); the
+// LSTM cell on the accumulators, which writes c to c_s and the new h,
+// rounded, to h in place (the staged x is what the products read); and
+// out(qi, u, h, c) for each query qi < QT of the tile and unit u < R.
+// z0(qi, u, gate) is the preactivation's other terms.  One barrier, after
+// the staging; none at the end.
+template <int QT, typename Z0, typename Out>
+__device__ __forceinline__ void gates_fwd_bf16(const uint4* __restrict__ wr, const GateGeom& gg,
+                                               float* h, int ldR, const float* ctx, int ldHD,
+                                               __nv_bfloat16* xb, float* c_s, Z0 z0,
+                                               Out out) {
+  constexpr int NT = (QT + 7) / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);
+  __syncthreads();
+  for (int ub = warp; ub < gg.Rp / 8; ub += kWarps) {
+    float acc[2][NT][4] = {};
+    gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);
+    const int u = ub * 8 + g;
+    if (u >= gg.R) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qi = 8 * nt + 2 * q + j;
+        if (qi >= QT) continue;
+        const float zi = acc[0][nt][j] + z0(qi, u, 0), zf = acc[0][nt][2 + j] + z0(qi, u, 1);
+        const float zg = acc[1][nt][j] + z0(qi, u, 2), zo = acc[1][nt][2 + j] + z0(qi, u, 3);
+        const float c = sigmoidf_(zf) * c_s[qi * ldR + u] + sigmoidf_(zi) * tanhf(zg);
+        const float hv = sigmoidf_(zo) * tanhf(c);
+        c_s[qi * ldR + u] = c;
+        h[qi * ldR + u] = round_if(true, hv);
+        out(qi, u, hv, c);
+      }
+  }
+}
+
+// the padded extents of a product h W of the tile's hidden states h (QT, R)
+// and a weight W (R, N) on the tensor cores (hvec's W_h2att, K6-bf16's
+// logit_w), W^T packed in bf16 in fragment order (pack_hidden_weights):
+// its N rows padded to Np (a multiple of 16), its R terms to Rl (a
+// multiple of 64, whole batches of 4 k-tiles), zeros there
+struct HiddenGeom {
+  int N, Np, Rl;
+  __host__ __device__ HiddenGeom(int R, int N_)
+      : N(N_), Np((N_ + 15) / 16 * 16), Rl((R + 63) / 64 * 64) {}
+};
+
+// h (QT rows of rounded f32 in shared memory, stride ldR) staged in bf16
+// into the first Rl columns of xb (row stride ldx), zero past R.  No
+// barrier.
+template <int QT>
+__device__ __forceinline__ void stage_hidden(const float* h, int ldR, int R, int Rl,
+                                             __nv_bfloat16* xb, int ldx) {
+  const int half = Rl / 2;
+  for (int i = threadIdx.x; i < QT * half; i += kThreads) {
+    const int qi = i / half, k = 2 * (i % half);
+    *reinterpret_cast<uint32_t*>(xb + qi * ldx + k) =
+        bf16_pair(k < R ? h[qi * ldR + k] : 0.f, k + 1 < R ? h[qi * ldR + k + 1] : 0.f);
+  }
+}
+
+// (h W)^T = W^T h^T on the tensor cores from the packed W^T (frags) and h
+// as stage_hidden left it in xb, a warp per m-tile of 16 rows of W^T:
+// f(n, nt, j, v) with the product v of row n < N (the lane's rows g and
+// g + 8 of the tile) for the lane's query 8nt + 2(lane % 4) + j (nt < NT,
+// j < 2; a query past QT reads zero h).  No barrier.
+template <int QT, typename F>
+__device__ __forceinline__ void hidden_mma(const uint4* __restrict__ frags, const HiddenGeom& hg,
+                                           const __nv_bfloat16* xb, int ldx, F f) {
+  constexpr int NT = (QT + 7) / 8;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  for (int mt = warp; mt < hg.Np / 16; mt += kWarps) {
+    float acc[1][NT][4] = {};
+    gate_mma<QT, 1, 4>(frags, hg.Rl / 16, mt, xb, ldx, acc);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = mt * 16 + g + 8 * hh;
+      if (n >= hg.N) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) f(n, nt, j, acc[0][nt][2 * hh + j]);
     }
   }
+}
+
+// phase 1 in the bf16 mode of K4-K6 (a.h2att_pack set): h staged in xb
+// (QT rows of ldx bf16), then hvec = h W_h2att + b on the tensor cores.
+// One barrier, after the staging; none at the end.
+template <int QT>
+__device__ __forceinline__ void attend_hvec_mma(const AttendArgs& a, const AttendSmem& s,
+                                                __nv_bfloat16* xb, int ldx) {
+  const int ldA = pad4(a.A), q = threadIdx.x & 3;
+  const HiddenGeom hg(a.R, a.A);
+  stage_hidden<QT>(s.h, pad4(a.R), a.R, hg.Rl, xb, ldx);
+  __syncthreads();
+  hidden_mma<QT>(a.h2att_pack, hg, xb, ldx, [&](int n, int nt, int j, float v) {
+    const int qi = 8 * nt + 2 * q + j;
+    if (qi < QT) s.hvec[qi * ldA + n] = v + a.h2att_b[n];
+  });
 }
 
 // ----------------------------------------------------------------------------
 // host side
 // ----------------------------------------------------------------------------
+
+// a packed bf16 operand of the tensor-core products: given, 16-byte aligned
+static bool packed_operand(const void* p) {
+  return p != nullptr && reinterpret_cast<size_t>(p) % 16 == 0;
+}
 
 // the attention operands that every kernel takes; base_pos, scale, off_w
 // and h2att are set by the kernels that start from the hidden state

@@ -47,17 +47,31 @@
 // shared with the teacher-forcing scan.  The transcendentals are the exact
 // tanhf/expf/logf (no fast-math).
 //
-// K6-bf16 (bf16 != 0, --tpu_compute_dtype bfloat16) is the same kernel in
-// the bf16-operand mode of dsa_common.cuh: the TPU kernel's bf16 variant
-// rounds both operands of hvec, the offsets, the taps, taps Wc, the token
-// share, the gates and the logits to bf16 and accumulates in f32
-// (_make_dot('bfloat16')).  The wrapper passes value and the weights
-// rounded, the tables come from dsa::gemm's bf16 mode, and h and ctx are
-// stored rounded.  One rounding point moves with the table form: the TPU
-// kernel scores bf16(sum_t bf16(w_t) bf16(v_t)) . bf16(Wc), the taps rounded
-// after the lerp; here sum_t bf16(w_t) (bf16(v_t) . bf16(Wc)), a lerp of
-// two rows of the bf16 table, so the taps are never rounded (the gap is
-// measured by tests/test_torch_bf16_kernels.py and chip_smoke.py --bf16).
+// K6-bf16 (bf16 != 0, --tpu_compute_dtype bfloat16) is the kernel's bf16
+// instantiation (B16) in the bf16-operand mode of dsa_common.cuh: the TPU
+// kernel's bf16 variant rounds both operands of hvec, the offsets, the
+// taps, taps Wc, the token share, the gates and the logits to bf16 and
+// accumulates in f32 (_make_dot('bfloat16')).  The wrapper passes value
+// and off_w rounded, the tables come from dsa::gemm's bf16 mode, and h and
+// ctx are stored rounded.  The step's three large products run on the
+// tensor cores as mma.sync.m16n8k16 from weights that the wrapper packs
+// once a launch in bf16 in fragment order (dsa_common.cuh): hvec = h
+// W_h2att (attend_hvec_mma), the gates [h | ctx] [W_hh; ctx_w3]
+// (gates_fwd_bf16, P^T's half of pack_gate_weights; the cell on the
+// accumulators) and the logits h logit_w (logits_bf16: logit_w^T's 1608
+// rows padded to 1616, the padded rows never merged, so that none can win
+// where every real logit is negative).  The tile's queries are the n side:
+// at 16 queries each A fragment feeds two n8 tiles, so a block reads each
+// step's weights once, 6.2 MB in bf16 where the f32 mode reads 13 MB
+// through the CUDA cores' FMAs.  Shared memory: x = [h | ctx] staged in
+// bf16 takes the next h's room (the cell writes h in place; the logits and
+// the next step's hvec restage h there), 208,192 bytes at 16 queries, R =
+// A = 512 and H=8 (172,352 at H=1).  One rounding point moves with the
+// table form: the TPU kernel scores bf16(sum_t bf16(w_t) bf16(v_t)) .
+// bf16(Wc), the taps rounded after the lerp; here sum_t bf16(w_t) (bf16(v_t)
+// . bf16(Wc)), a lerp of two rows of the bf16 table, so the taps are never
+// rounded (the gap is measured by tests/test_torch_bf16_kernels.py and
+// chip_smoke.py --bf16).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -80,6 +94,8 @@ struct GreedyArgs {
   const float* logit_b;   // (V1)
   const float* ctx_w3;    // (H*Dh, 4R)
   const float* w_hh;      // (R, 4R)
+  const uint4* gpack;     // K6-bf16: P^T = [W_hh; ctx_w3]^T packed in bf16 (GateGeom)
+  const uint4* lpack;     // K6-bf16: logit_w^T packed in bf16 (V1p x Rl)
   const float* ab;        // (1): read on the card, so the host never waits
   int* tok;               // (B, K, Q)
   float* lp;              // (B, K, Q)
@@ -145,16 +161,57 @@ __device__ __forceinline__ void cols_dot_rows(const float* x, int ld, int len,
   }
 }
 
+// K6-bf16's logits on the tensor cores: the new h (rounded f32 in h)
+// staged in bf16 in xb (stage_hidden), then logits^T = logit_w^T h^T from
+// the packed logit_w^T (a.lpack: V1 rows padded to 16, R terms to 64;
+// hidden_mma); each lane merges the logits (plus the bias) of its rows and
+// queries into an online (max, sum-exp, first-max index) a query, the
+// padded rows (n >= V1) never merged, so that none can win.  Returns them
+// in m, s, ix at the lane's queries (8nt + 2(lane % 4) + {0, 1}), which
+// the caller leaves empty (s = 0) at the others, for its merge across the
+// lanes and the warps.  One barrier, after the staging.
+template <int QT>
+__device__ __forceinline__ void logits_bf16(const GreedyArgs& a, const GateGeom& gg,
+                                            const float* h, int ldR, __nv_bfloat16* xb,
+                                            float (&m)[QT], float (&s)[QT], int (&ix)[QT]) {
+  constexpr int NT = (QT + 7) / 8;
+  const HiddenGeom hg(gg.R, a.V1);
+  const int q = threadIdx.x & 3;
+  stage_hidden<QT>(h, ldR, gg.R, hg.Rl, xb, gg.ldx);
+  __syncthreads();
+  float mm[NT][2], ss[NT][2];
+  int ii[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) { mm[nt][j] = -INFINITY; ss[nt][j] = 0.f; ii[nt][j] = INT_MAX; }
+  // rows in increasing order within a lane; lse_merge keeps the first
+  // index of a tie in any order
+  hidden_mma<QT>(a.lpack, hg, xb, gg.ldx, [&](int n, int nt, int j, float v) {
+    lse_merge(mm[nt][j], ss[nt][j], ii[nt][j], v + __ldg(a.logit_b + n), 1.f, n);
+  });
+#pragma unroll
+  for (int qq = 0; qq < QT; ++qq)
+    if ((qq % 8) / 2 == q) {
+      m[qq] = mm[qq / 8][qq % 2];
+      s[qq] = ss[qq / 8][qq % 2];
+      ix[qq] = ii[qq / 8][qq % 2];
+    }
+}
+
 // shared-memory layout (floats, then ints), shared by host and device; every
-// row of a (rows, len) region starts 16-byte aligned (stride pad4(len))
+// row of a (rows, len) region starts 16-byte aligned (stride pad4(len)); in
+// the bf16 mode (b16) the next h's room holds the staged x = [h | ctx] in
+// bf16 instead (QT rows of GateGeom::ldx), since the cell writes the new h
+// in place, and then the new h for the logits
 struct Layout {
   int h, hn, c, hvec, ctx, wlo, whi, d, red;  // float offsets
   int lo, hi, tok;                            // int offsets
   int floats, ints;
-  __host__ __device__ Layout(int QT, int R, int A, int HD, int NR) {
+  __host__ __device__ Layout(int QT, int R, int A, int HD, int NR, bool b16) {
     int o = 0;
     h = o;    o += QT * pad4(R);
-    hn = o;   o += QT * pad4(R);
+    hn = o;   o += b16 ? pad4(QT * GateGeom(R, HD).ldx / 2) : QT * pad4(R);
     c = o;    o += QT * pad4(R);
     hvec = o; o += QT * pad4(A);
     ctx = o;  o += QT * pad4(HD);
@@ -172,8 +229,13 @@ struct Layout {
   size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
 };
 
-template <int QT>
-__global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
+// B16: K6-bf16's instantiation (the bf16-operand mode with its products on
+// the tensor cores); the f32 one compiles none of that in.  One block an
+// SM, as its shared memory allows: without that minimum ptxas gives the
+// bf16 instantiations 40-64 registers, too few to keep the mma loops' A
+// fragments in flight (1.4x slower at B = 1)
+template <int QT, bool B16>
+__global__ void __launch_bounds__(kThreads, 1) greedy_kernel(GreedyArgs a) {
   constexpr int LC = QT >= 4 ? 32 / QT : 8;  // vocab columns per thread per pass
   constexpr int kR3 = 3 * QT;   // per-warp floats of the logits reduction
   extern __shared__ float4 smem4[];
@@ -184,8 +246,10 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
   const int R = at.R, A = at.A, H = at.H, Dh = at.Dh;
   const int HD = H * Dh, R4 = 4 * R, NR = QT * H * at.LP;
   const int ldR = pad4(R), ldHD = pad4(HD);
-  const Layout L(QT, R, A, HD, NR);
+  const Layout L(QT, R, A, HD, NR, B16);
+  const GateGeom gg(R, HD);
   float* hn_s = smem + L.hn;
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(hn_s);  // the bf16 mode's x
   float* c_s = smem + L.c;
   float* red_s = smem + L.red;
   int* ints = reinterpret_cast<int*>(smem + L.floats);
@@ -211,7 +275,8 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
   const float ab = __ldg(a.ab);
 
   for (int k = 0; k < a.K; ++k) {
-    // ---- 1-2. hvec and the tap table
+    // ---- 1-2. hvec (K6-bf16: on the tensor cores) and the tap table
+    if (B16) attend_hvec_mma<QT>(at, sm, xb, gg.ldx);
     attend_hvec_taps<QT>(at, sm, b, q0);
     __syncthreads();
     // ---- 3-5. scores from the table, softmax over the LP taps, ctx
@@ -219,8 +284,19 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
     attend_softmax_ctx<QT>(at, sm, value_b);
 
     // ---- 6. z = const_z + TW[tok] + h W_hh + ctx ctx_w3, then the LSTM
-    //         cell; a thread owns hidden unit r (its 4 gate columns)
-    for (int r = tid; r < R; r += kThreads) {
+    //         cell; a thread owns hidden unit r (its 4 gate columns).
+    //         K6-bf16: the products on the tensor cores and the cell on
+    //         their accumulators (gates_fwd_bf16), the new h in place
+    if (B16)
+      gates_fwd_bf16<QT>(
+          a.gpack, gg, sm.h, ldR, sm.ctx, ldHD, xb, c_s,
+          [&](int qi, int u, int gate) {
+            const int qq = min(q0 + qi, at.Q - 1);
+            return a.const_z[((size_t)b * at.Q + qq) * R4 + gate * R + u]
+                   + a.tw[(size_t)tok_s[qi] * R4 + gate * R + u];
+          },
+          [](int, int, float, float) {});
+    for (int r = tid; !B16 && r < R; r += kThreads) {
       float z[4][QT];
 #pragma unroll
       for (int q = 0; q < QT; ++q) {
@@ -240,14 +316,16 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
       }
     }
     __syncthreads();
-    { float* t = sm.h; sm.h = hn_s; hn_s = t; }
+    if (!B16) { float* t = sm.h; sm.h = hn_s; hn_s = t; }
 
     // ---- 7. logits with an online (max, sum-exp, first-max index)
+    //         (K6-bf16: on the tensor cores, logits_bf16)
     float m[QT], s[QT];
     int ix[QT];
 #pragma unroll
     for (int q = 0; q < QT; ++q) { m[q] = -INFINITY; s[q] = 0.f; ix[q] = INT_MAX; }
-    for (int n0 = tid; n0 < a.V1; n0 += kThreads * LC) {
+    if (B16) logits_bf16<QT>(a, gg, sm.h, ldR, xb, m, s, ix);
+    for (int n0 = tid; !B16 && n0 < a.V1; n0 += kThreads * LC) {
       // columns n0, n0 + kThreads, ... in increasing order, so a tie keeps
       // the first index as jnp.argmax does
       float acc[LC][QT] = {};
@@ -294,6 +372,15 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
   }
 }
 
+// the decode kernel of query tile QT (2, 4, 8 or 16) in the mode b16
+static void (*greedy_variant(int QT, bool b16))(GreedyArgs) {
+  if (b16)
+    return QT == 2 ? greedy_kernel<2, true> : QT == 4 ? greedy_kernel<4, true>
+           : QT == 16 ? greedy_kernel<16, true> : greedy_kernel<kQT, true>;
+  return QT == 2 ? greedy_kernel<2, false> : QT == 4 ? greedy_kernel<4, false>
+         : QT == 16 ? greedy_kernel<16, false> : greedy_kernel<kQT, false>;
+}
+
 }  // namespace
 
 // Shapes as in dsa_greedy_scan_ref (dvc_tpu/ops/dsa_greedy.py); ctx_w3 is
@@ -302,11 +389,14 @@ __global__ void __launch_bounds__(kThreads) greedy_kernel(GreedyArgs a) {
 // (B, K, Q).  Scratch: vw (B, H, S, A) and tw (V1, 4R), the tables built
 // here first, and work (work_floats floats) for their split-K partial tiles
 // (see dsa::gemm_as).  shapes: host array of the L level lengths of value's S
-// axis; LP = L * P.  bf16: K6-bf16, with value_t, off_w_h, h2att_w,
-// ctx_w3, w_hh and logit_w given rounded to bf16, and value16 and cw in
-// bf16 (torch.bfloat16) for the table value . Wc (the table embed .
-// token_w rounds its f32 operands in the GEMM's producer); else value16 is
-// unused and cw f32.  Returns cudaGetLastError() of the launches, or
+// axis; LP = L * P.  bf16: K6-bf16, with value_t and off_w_h given
+// rounded to bf16, value16 and cw in bf16 (torch.bfloat16) for the table
+// value . Wc (the table embed . token_w rounds its f32 operands in the
+// GEMM's producer), gpack the packed P^T (pack_gate_weights' first half),
+// lpack the packed logit_w^T and hpack the packed h2att_w^T
+// (pack_hidden_weights), each 16-byte aligned; ctx_w3, w_hh, logit_w and
+// h2att_w are then unread.  Else value16 and the packs are unused and cw
+// f32.  Returns cudaGetLastError() of the launches, or
 // cudaErrorInvalidValue for shapes the kernel does not take.
 extern "C" int dvc_dsa_greedy(
     const float* value_t, const void* value16, const float* base_pos, const float* scale_t,
@@ -314,9 +404,10 @@ extern "C" int dvc_dsa_greedy(
     const float* logit_w, const float* logit_b, const float* off_w_h,
     const float* h2att_w, const float* h2att_b, const void* cw,
     const float* cb, const float* aw, const float* ctx_w3, const float* w_hh,
-    const float* ab, const int* shapes, int* tok, float* lp, float* vw,
-    float* tw, float* work, int B, int H, int S, int Dh, int Q, int LP, int L, int A,
-    int R, int E, int V1, int K, int work_floats, int bf16, void* stream) {
+    const void* gpack, const void* lpack, const void* hpack, const float* ab,
+    const int* shapes, int* tok, float* lp, float* vw, float* tw, float* work, int B,
+    int H, int S, int Dh, int Q, int LP, int L, int A, int R, int E, int V1, int K,
+    int work_floats, int bf16, void* stream) {
   GreedyArgs a;
   AttendArgs& at = a.at;
   if (!fill_attend(&at, value_t, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
@@ -324,18 +415,21 @@ extern "C" int dvc_dsa_greedy(
   at.base_pos = base_pos; at.scale = scale_t;
   at.off_w = off_w_h; at.h2att_w = h2att_w; at.h2att_b = h2att_b;
   at.bf16 = bf16 != 0;
+  if (at.bf16 && !(packed_operand(gpack) && packed_operand(lpack) && packed_operand(hpack)))
+    return (int)cudaErrorInvalidValue;
+  if (at.bf16) at.h2att_pack = static_cast<const uint4*>(hpack);
   a.const_z = const_z; a.vw = vw; a.tw = tw;
   a.logit_w = logit_w; a.logit_b = logit_b;
   a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab; a.tok = tok; a.lp = lp;
+  a.gpack = static_cast<const uint4*>(gpack);
+  a.lpack = static_cast<const uint4*>(lpack);
   a.V1 = V1; a.K = K;
   if (B == 0 || Q == 0 || K == 0) return 0;
   const int QT = query_tile(B, Q, 2, 16);
-  const size_t smem = Layout(QT, R, A, H * Dh, QT * H * LP).bytes();
+  const size_t smem = Layout(QT, R, A, H * Dh, QT * H * LP, at.bf16).bytes();
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = QT == 2 ? set_smem(greedy_kernel<2>, smem)
-                  : QT == 4 ? set_smem(greedy_kernel<4>, smem)
-                  : QT == 16 ? set_smem(greedy_kernel<16>, smem)
-                             : set_smem(greedy_kernel<kQT>, smem);
+  const auto kernel = greedy_variant(QT, at.bf16);
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   // the tables, once per launch
   const size_t wf = work_floats > 0 ? (size_t)work_floats : 0;
@@ -352,13 +446,6 @@ extern "C" int dvc_dsa_greedy(
     return (int)e;
   }
   const dim3 grid((Q + QT - 1) / QT, B);
-  if (QT == 2)
-    greedy_kernel<2><<<grid, kThreads, smem, st>>>(a);
-  else if (QT == 4)
-    greedy_kernel<4><<<grid, kThreads, smem, st>>>(a);
-  else if (QT == 16)
-    greedy_kernel<16><<<grid, kThreads, smem, st>>>(a);
-  else
-    greedy_kernel<kQT><<<grid, kThreads, smem, st>>>(a);
+  kernel<<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -59,36 +59,42 @@
 // lives in dsa_common.cuh, shared with the word-step backward K10 of
 // dsa_step.cu.
 //
-// K4-bf16 and K5-bf16 (bf16 != 0, --tpu_compute_dtype bfloat16) are the same
-// kernels in the bf16-operand mode of dsa_common.cuh: the TPU kernels' bf16
-// variants round both operands of every product of the step and of its
-// backward (the transposed products and the weight gradients' outer sums
-// included) to bf16 and accumulate in f32 (_make_dot('bfloat16')).  The
-// wrapper passes value rounded (f32 for the attention, bf16 for the GEMMs)
-// and the step's weights rounded; every GEMM here runs dsa::gemm's bf16
-// mode on bf16 operands (value, cw, and in the backward h_{k-1} (hs_prev,
-// made in bf16 by the wrapper), the rows that K5-bf16 writes in bf16 for
-// the outer sums (dz16, ctx_all, dhvec_all, doff_all) and G, summed in f32
-// and rounded once after the scan into the table's storage); the
-// activations that the step's products read are stored rounded (h, ctx;
-// in the backward dz, dhvec and doff); hs, cs and dz are written in f32.
+// K4-bf16 and K5-bf16 (bf16 != 0, --tpu_compute_dtype bfloat16) are the
+// kernels in the bf16-operand mode of dsa_common.cuh (K4-bf16 the forward's
+// bf16 instantiation, B16): the TPU kernels' bf16 variants round both
+// operands of every product of the step and of its backward (the
+// transposed products and the weight gradients' outer sums included) to
+// bf16 and accumulate in f32 (_make_dot('bfloat16')).  The wrapper passes
+// value rounded (f32 for the attention, bf16 for the GEMMs) and the step's
+// other weights rounded; every GEMM here runs dsa::gemm's bf16 mode on
+// bf16 operands (value, cw, and in the backward h_{k-1} (hs_prev, made in
+// bf16 by the wrapper), the rows that K5-bf16 writes in bf16 for the outer
+// sums (dz16, ctx_all, dhvec_all, doff_all) and G, summed in f32 and
+// rounded once after the scan into the table's storage); the activations
+// that the step's products read are stored rounded (h, ctx; in the
+// backward dz, dhvec and doff); hs, cs and dz are written in f32.
 //
-// K5-bf16's gates run on the tensor cores (gates_bwd_bf16; the layout in
-// dsa_common.cuh, GateGeom): the recompute z = z_all + [h | ctx] P and the
-// backprop [dh | dctx] = dz P^T as mma.sync.m16n8k16 (bf16 in, f32
-// accumulate) with the tile's queries the n8 side (at B = 1 the tiles
-// hold 2 or 4 queries: 75% or 50% of the n8 columns are padding) and P =
-// [W_hh; ctx_w3] the 16-row A operand, packed once a launch by the wrapper
-// in bf16 in fragment order (ops/dsa_scan.py::pack_gate_weights, 8 MB at R
-// = H*Dh = 512: P^T's tiles, then P's), read as one 16-byte load a lane
-// and tile from L2: 8 MB a block and step, half the f32 weights' 16 MB,
-// and no FMA on the CUDA cores.  The recompute leaves all four gates of a
-// unit and two queries in one lane, so the cell backward runs on the
-// accumulators; x and dz are staged in bf16 (in place of the f32 dz tile,
-// 49,408 bytes for 65,536 at QT = 8, R = A = H*Dh = 512).  The recompute
-// sums in another order than K4-bf16's forward (CUDA-core FMAs on the f32
-// copies of the same bf16 weights), so it differs from it at f32 rounding.
-// A 16-query tile would halve the weight reads but does not fit: the score
+// Both run the step's large products on the tensor cores (the layout in
+// dsa_common.cuh, GateGeom, HiddenGeom) as mma.sync.m16n8k16 (bf16 in, f32
+// accumulate) with the tile's queries the n side and the weights the
+// 16-row A operand, packed once a launch in bf16 in fragment order: P =
+// [W_hh; ctx_w3] (ops/dsa_scan.py::pack_gate_weights, 8 MB at R = H*Dh =
+// 512: P^T's tiles, then P's) and W_h2att^T (pack_hidden_weights, 0.5 MB).
+// DSATeacherScanFunction packs both once in the forward and hands the same
+// tensors to the backward.  K4-bf16 (gates_fwd_bf16): hvec = h W_h2att
+// (attend_hvec_mma) and z = z_all + [h | ctx] P from P^T's half, with the
+// LSTM cell on the accumulators; at 16 queries (B = 16) each A fragment
+// feeds two n8 tiles, so a block reads 4.5 MB of weights a step where the
+// f32 mode reads 9 MB through FMAs on the CUDA cores.  x = [h | ctx] is
+// staged in bf16 in the next h's room (the cell writes the new h in
+// place): 205,056 bytes at 16 queries and H=8.  K5-bf16 (gates_bwd_bf16):
+// the same hvec and recompute, so its recompute sums the same products in
+// the same order as K4-bf16's forward and reproduces it bit for bit; the
+// cell backward on the accumulators; [dh | dctx] = dz P^T from P's half.
+// Its tiles hold at most 8 queries (at B = 1, 2 or 4: 75% or 50% of the n8
+// columns are padding); x and dz are staged in bf16 in place of the f32
+// dz tile (49,408 bytes for 65,536 at QT = 8, R = A = H*Dh = 512).  A
+// 16-query tile would halve its weight reads but does not fit: the score
 // backward's warps own a (query, column part), 8 queries at A = 512.
 //
 // The table form moves rounding points:
@@ -97,10 +103,11 @@
 // backward forms dvalue's scores term as bf16(G) . bf16(Wc)^T and dWc as
 // bf16(value)^T bf16(G), G the lerp-scatter of bf16(du), where the TPU
 // kernel rounds the taps and their gradients (measured in
-// tests/test_torch_bf16_kernels.py and chip_smoke.py --bf16).  Shared memory at R = A = 512, LP = 16: the backward's block
-// of 8 queries 167,440 bytes at cap_nheads 1 and 192,528 at cap_nheads 8
-// in f32 (16,128 fewer in bf16), the forward's of 16 queries 168,960 and
-// 204,800 (the card allows 232,448).  Limits of the backward: A <= 512
+// tests/test_torch_bf16_kernels.py and chip_smoke.py --bf16).  Shared
+// memory at R = A = 512, LP = 16: the backward's block of 8 queries
+// 167,440 bytes at cap_nheads 1 and 192,528 at cap_nheads 8 in f32 (16,128
+// fewer in bf16), the forward's of 16 queries 168,960 and 204,800 (256
+// more in bf16; the card allows 232,448).  Limits of the backward: A <= 512
 // (two float4 column groups per lane and column half), A, Dh and R
 // multiples of 4; of both, the shared memory of a block (checked at
 // launch).
@@ -119,7 +126,7 @@ struct ScanArgs {
   const float* z_all;   // (B, K, Q, 4R)
   const float* ctx_w3;  // (H*Dh, 4R)
   const float* w_hh;    // (R, 4R)
-  const uint4* wpack;   // K5-bf16: [W_hh; ctx_w3] packed in bf16 (GateGeom)
+  const uint4* wpack;   // K4/K5-bf16: [W_hh; ctx_w3] packed in bf16 (GateGeom)
   const float* ab;      // (1)
   int B, K;
 };
@@ -129,15 +136,17 @@ struct ScanArgs {
 // ----------------------------------------------------------------------------
 
 // shared memory of the forward: h, the next h, c, hvec and ctx of the tile
-// (QT rows each) and its tap table
+// (QT rows each) and its tap table; in the bf16 mode (b16) the next h's
+// room holds the staged x = [h | ctx] in bf16 instead (QT rows of
+// GateGeom::ldx), since the cell writes the new h in place
 struct ForwardLayout {
   int h, hn, c, hvec, ctx, wlo, whi, d;  // float offsets
   int lo, hi;                            // int offsets
   int floats, ints;
-  __host__ __device__ ForwardLayout(int QT, int R, int A, int HD, int NR) {
+  __host__ __device__ ForwardLayout(int QT, int R, int A, int HD, int NR, bool b16) {
     int o = 0;
     h = o;    o += QT * pad4(R);
-    hn = o;   o += QT * pad4(R);
+    hn = o;   o += b16 ? pad4(QT * GateGeom(R, HD).ldx / 2) : QT * pad4(R);
     c = o;    o += QT * pad4(R);
     hvec = o; o += QT * pad4(A);
     ctx = o;  o += QT * pad4(HD);
@@ -152,8 +161,13 @@ struct ForwardLayout {
   size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
 };
 
-template <int QT>
-__global__ void __launch_bounds__(kThreads)
+// B16: K4-bf16's instantiation (the bf16-operand mode with its products on
+// the tensor cores); the f32 one compiles none of that in.  One block an
+// SM, as its shared memory allows: without that minimum ptxas gives the
+// bf16 instantiations 64-116 registers (spilling at 8 queries), too few to
+// keep the mma loops' A fragments in flight (1.35x slower at B = 16)
+template <int QT, bool B16>
+__global__ void __launch_bounds__(kThreads, 1)
 scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs,
                 float* __restrict__ cs) {
   extern __shared__ float4 smem4[];
@@ -164,8 +178,10 @@ scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs
   const int R = at.R, A = at.A, H = at.H, Dh = at.Dh, Q = at.Q;
   const int HD = H * Dh, R4 = 4 * R, NR = QT * H * at.LP;
   const int ldR = pad4(R), ldHD = pad4(HD);
-  const ForwardLayout L(QT, R, A, HD, NR);
+  const ForwardLayout L(QT, R, A, HD, NR, B16);
+  const GateGeom gg(R, HD);
   float* hn_s = smem + L.hn;
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(hn_s);  // the bf16 mode's x
   float* c_s = smem + L.c;
   int* ints = reinterpret_cast<int*>(smem + L.floats);
   AttendSmem sm{};
@@ -187,16 +203,33 @@ scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs
   const float ab = __ldg(a.ab);
 
   for (int k = 0; k < a.K; ++k) {
-    // ---- hvec and the tap table from h_{k-1}; the scores from the table,
-    //      the softmax over the LP taps and ctx
+    // ---- hvec (K4-bf16: on the tensor cores) and the tap table from
+    //      h_{k-1}; the scores from the table, the softmax over the LP taps
+    //      and ctx
+    if (B16) attend_hvec_mma<QT>(at, sm, xb, gg.ldx);
     attend_hvec_taps<QT>(at, sm, b, q0);
     __syncthreads();
     attend_scores_table<QT>(at, sm, vw_b, ab);
     attend_softmax_ctx<QT>(at, sm, value_b);
 
     // ---- z = z_all[b, k] + h W_hh + ctx ctx_w3, then the LSTM cell; a
-    //      thread owns hidden unit r (its 4 gate columns)
-    for (int r = tid; r < R; r += kThreads) {
+    //      thread owns hidden unit r (its 4 gate columns).  K4-bf16: the
+    //      products on the tensor cores and the cell on their accumulators
+    //      (gates_fwd_bf16), the new h written in place
+    const size_t bk = (size_t)b * a.K + k;
+    if (B16)
+      gates_fwd_bf16<QT>(
+          a.wpack, gg, sm.h, ldR, sm.ctx, ldHD, xb, c_s,
+          [&](int qi, int u, int gate) {
+            return a.z_all[(bk * Q + min(q0 + qi, Q - 1)) * R4 + gate * R + u];
+          },
+          [&](int qi, int u, float h, float c) {
+            if (q0 + qi >= Q) return;
+            const size_t o = (bk * Q + q0 + qi) * R + u;
+            hs[o] = h;
+            cs[o] = c;
+          });
+    for (int r = tid; !B16 && r < R; r += kThreads) {
       float z[4][QT];
 #pragma unroll
       for (int q = 0; q < QT; ++q) {
@@ -221,7 +254,7 @@ scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs
       }
     }
     __syncthreads();
-    { float* t = sm.h; sm.h = hn_s; hn_s = t; }
+    if (!B16) { float* t = sm.h; sm.h = hn_s; hn_s = t; }
   }
 }
 
@@ -306,7 +339,7 @@ __device__ __forceinline__ void gates_bwd_bf16(const ScanArgs& a, const BwdOut& 
   const uint4* wb = a.wpack + gg.recompute_frags();
   __nv_bfloat16* dz16 = static_cast<__nv_bfloat16*>(o.dz16);
   for (int ub = warp; ub < gg.Rp / 8; ub += kWarps) {
-    float acc[2][4] = {};
+    float acc[2][1][4] = {};
     gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);
     const int u = ub * 8 + g;
 #pragma unroll
@@ -321,8 +354,8 @@ __device__ __forceinline__ void gates_bwd_bf16(const ScanArgs& a, const BwdOut& 
         const float c_prev = o.cs_prev[row * R + u];
         const float gh = valid ? o.g[row * R + u] + dh_s[qi * ldR + u] : 0.f;
         const float gc = valid ? dc_s[qi * ldR + u] : 0.f;
-        dc_s[qi * ldR + u] = cell_bwd(acc[0][j] + zk[0], acc[0][2 + j] + zk[R],
-                                      acc[1][j] + zk[2 * R], acc[1][2 + j] + zk[3 * R],
+        dc_s[qi * ldR + u] = cell_bwd(acc[0][0][j] + zk[0], acc[0][0][2 + j] + zk[R],
+                                      acc[1][0][j] + zk[2 * R], acc[1][0][2 + j] + zk[3 * R],
                                       c_prev, gh, gc, dzg);
         if (valid) {
 #pragma unroll
@@ -339,7 +372,7 @@ __device__ __forceinline__ void gates_bwd_bf16(const ScanArgs& a, const BwdOut& 
   }
   __syncthreads();
   for (int mt = warp; mt < gg.KKp / 16; mt += kWarps) {
-    float acc[1][4] = {};
+    float acc[1][1][4] = {};
     gate_mma<QT, 1, 8>(wb, gg.Rp / 4, mt, dzb, gg.lddz, acc);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -350,9 +383,9 @@ __device__ __forceinline__ void gates_bwd_bf16(const ScanArgs& a, const BwdOut& 
         const int qi = 2 * q + j;
         if (qi >= QT) continue;
         if (uu < R)
-          dh_s[qi * ldR + uu] = acc[0][2 * hh + j];
+          dh_s[qi * ldR + uu] = acc[0][0][2 * hh + j];
         else
-          dctx[qi * ldHD + uu - R] = acc[0][2 * hh + j];
+          dctx[qi * ldHD + uu - R] = acc[0][0][2 * hh + j];
       }
     }
   }
@@ -420,8 +453,10 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
     }
     __syncthreads();
 
-    // ---- recompute the step's attention: hvec, taps, the scores from the
-    //      table, softmax weights, ctx
+    // ---- recompute the step's attention: hvec (K5-bf16: on the tensor
+    //      cores, as K4-bf16), taps, the scores from the table, softmax
+    //      weights, ctx
+    if (at.bf16) attend_hvec_mma<QT>(at, sm, xb, gg.ldx);
     attend_hvec_taps<QT>(at, sm, b, q0);
     __syncthreads();
     attend_scores_table<QT>(at, sm, vw_b, ab);
@@ -536,6 +571,15 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
   if (tid == 0) atomicAdd(o.dab, gs.dab[0]);
 }
 
+// the forward kernel of query tile QT (4, 8 or 16) in the mode b16
+static void (*scan_fwd_variant(int QT, bool b16))(ScanArgs, const float*, float*, float*) {
+  if (b16)
+    return QT == 4 ? scan_fwd_kernel<4, true> : QT == 16 ? scan_fwd_kernel<16, true>
+                                              : scan_fwd_kernel<kQT, true>;
+  return QT == 4 ? scan_fwd_kernel<4, false> : QT == 16 ? scan_fwd_kernel<16, false>
+                                             : scan_fwd_kernel<kQT, false>;
+}
+
 // dsa::fill_attend plus the operands of a step that starts from h
 bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_pos,
                         const float* scale_t, const float* off_w_h, const float* h2att_w,
@@ -559,32 +603,40 @@ bool fill_hidden_attend(AttendArgs* at, const float* value_t, const float* base_
 // vw (B, H, S, A), the table value . Wc built here first, and work
 // (work_floats floats) for its split-K partial tiles (see dsa::gemm_as).  All f32,
 // contiguous, on the current device; shapes is a host array of the L level
-// lengths.  bf16: K4-bf16, with value_t, off_w_h, h2att_w, ctx_w3 and w_hh
-// given rounded to bf16.  Returns cudaGetLastError() of the launches, or
-// cudaErrorInvalidValue for shapes the kernel does not take.
+// lengths.  bf16: K4-bf16, with value_t and off_w_h given rounded to bf16,
+// value16 and cw in bf16 (torch.bfloat16) for the table, wpack the packed
+// gate weights (pack_gate_weights; K5-bf16's, of which it reads P^T's
+// half) and hpack the packed h2att_w^T (pack_hidden_weights), each 16-byte
+// aligned; ctx_w3, w_hh and h2att_w are then unread.
+// Returns cudaGetLastError() of the launches, or cudaErrorInvalidValue for
+// shapes the kernel does not take.
 extern "C" int dvc_dsa_scan_fwd(
     const float* value_t, const void* value16, const float* base_pos, const float* scale_t,
     const float* z_all, const float* off_w_h, const float* h2att_w,
     const float* h2att_b, const void* cw, const float* cb, const float* aw,
-    const float* ab, const float* ctx_w3, const float* w_hh, const int* shapes,
-    float* hs, float* cs, float* vw, float* work, int B, int H, int S, int Dh, int Q,
-    int LP, int L, int A, int R, int K, int work_floats, int bf16, void* stream) {
+    const float* ab, const float* ctx_w3, const float* w_hh, const void* wpack,
+    const void* hpack, const int* shapes, float* hs, float* cs, float* vw, float* work,
+    int B, int H, int S, int Dh, int Q, int LP, int L, int A, int R, int K,
+    int work_floats, int bf16, void* stream) {
   ScanArgs a;
   if (!fill_hidden_attend(&a.at, value_t, base_pos, scale_t, off_w_h, h2att_w,
                           h2att_b, cb, aw, shapes, H, S, Dh, Q, LP, L, A, R))
     return (int)cudaErrorInvalidValue;
   a.at.bf16 = bf16 != 0;
-  a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.wpack = nullptr; a.ab = ab;
+  if (a.at.bf16 && !(packed_operand(wpack) && packed_operand(hpack)))
+    return (int)cudaErrorInvalidValue;
+  if (a.at.bf16) a.at.h2att_pack = static_cast<const uint4*>(hpack);
+  a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab;
+  a.wpack = static_cast<const uint4*>(wpack);
   a.B = B; a.K = K;
   if (B == 0 || Q == 0 || K == 0) return 0;
   // 4 queries at least: on a B = 1 grid 2-query tiles (45 blocks) lose to
   // 4-query ones (23), whose gate products read the weights half as often
   const int QT = query_tile(B, Q, 4, 16);
-  const size_t smem = ForwardLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
+  const size_t smem = ForwardLayout(QT, R, A, H * Dh, QT * H * LP, a.at.bf16).bytes();
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = QT == 4 ? set_smem(scan_fwd_kernel<4>, smem)
-                  : QT == 16 ? set_smem(scan_fwd_kernel<16>, smem)
-                             : set_smem(scan_fwd_kernel<kQT>, smem);
+  const auto kernel = scan_fwd_variant(QT, a.at.bf16);
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   // the table value . Wc, once per launch
   if (a.at.bf16)
@@ -595,12 +647,7 @@ extern "C" int dvc_dsa_scan_fwd(
                   work_floats);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Q + QT - 1) / QT, B);
-  if (QT == 4)
-    scan_fwd_kernel<4><<<grid, kThreads, smem, st>>>(a, vw, hs, cs);
-  else if (QT == 16)
-    scan_fwd_kernel<16><<<grid, kThreads, smem, st>>>(a, vw, hs, cs);
-  else
-    scan_fwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, vw, hs, cs);
+  kernel<<<grid, kThreads, smem, st>>>(a, vw, hs, cs);
   return (int)cudaGetLastError();
 }
 
@@ -615,13 +662,14 @@ extern "C" int dvc_dsa_scan_fwd(
 // work (work_floats floats: dsa::gemm_plan's splits times the output of
 // each GEMM here, the largest of them) for split-K partial tiles.  dh2att_b equals
 // dcb.  A, Dh, R multiples of 4, A <= 512; every operand 16-byte aligned.
-// bf16: K5-bf16, operands as for dvc_dsa_scan_fwd.
+// bf16: K5-bf16, operands as for dvc_dsa_scan_fwd (h2att_w rounded: the
+// backprop dhvec W_h2att^T reads it in f32).
 extern "C" int dvc_dsa_scan_bwd(
     const float* value_t, const void* value16, const float* base_pos, const float* scale_t,
     const float* z_all, const float* off_w_h, const float* h2att_w,
     const float* h2att_b, const void* cw, const float* cb, const float* aw,
     const float* ab, const float* ctx_w3, const float* w_hh, const void* wpack,
-    const void* hs_prev, const float* cs_prev, const float* g,
+    const void* hpack, const void* hs_prev, const float* cs_prev, const float* g,
     const int* shapes, float* dvalue, float* dbase, float* dscale, float* dz, void* dz16,
     float* doffw, float* dh2w, float* dcw, float* dcb, float* daw, float* dab,
     float* dctx_w3, float* dwhh, float* G, void* ctx_all, void* dhvec_all,
@@ -638,8 +686,9 @@ extern "C" int dvc_dsa_scan_bwd(
       reinterpret_cast<size_t>(w_hh) % 16 != 0 || reinterpret_cast<size_t>(ctx_w3) % 16 != 0 ||
       reinterpret_cast<size_t>(h2att_w) % 16 != 0 || reinterpret_cast<size_t>(cb) % 16 != 0 ||
       reinterpret_cast<size_t>(aw) % 16 != 0 ||
-      (rb && reinterpret_cast<size_t>(wpack) % 16 != 0))
+      (rb && !(packed_operand(wpack) && packed_operand(hpack))))
     return (int)cudaErrorInvalidValue;
+  if (rb) a.at.h2att_pack = static_cast<const uint4*>(hpack);
   a.z_all = z_all; a.ctx_w3 = ctx_w3; a.w_hh = w_hh; a.ab = ab;
   a.wpack = static_cast<const uint4*>(wpack);
   a.B = B; a.K = K;

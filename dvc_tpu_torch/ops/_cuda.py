@@ -39,9 +39,9 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     'dvc_msda_fwd': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     'dvc_msda_bwd': [_P] * 7 + [_I] * 7 + [_P, _P],
-    'dvc_dsa_greedy': [_P] * 24 + [_I] * 14 + [_P],
-    'dvc_dsa_scan_fwd': [_P] * 19 + [_I] * 12 + [_P],
-    'dvc_dsa_scan_bwd': [_P] * 38 + [_I] * 12 + [_P],
+    'dvc_dsa_greedy': [_P] * 27 + [_I] * 14 + [_P],
+    'dvc_dsa_scan_fwd': [_P] * 21 + [_I] * 12 + [_P],
+    'dvc_dsa_scan_bwd': [_P] * 39 + [_I] * 12 + [_P],
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 9 + [_P],
     'dvc_dsa_step_bwd': [_P] * 16 + [_I] * 9 + [_P],
     'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 10 + [_P],

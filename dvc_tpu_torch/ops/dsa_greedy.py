@@ -17,7 +17,11 @@ kernel's bf16 variant: every in-kernel product on bf16-rounded operands
 with f32 accumulation.  Its plain version is
 :func:`dvc_tpu_torch.ops.dsa_bf16.greedy_scan`; on the card the same
 kernel runs in its bf16-operand mode (K6-bf16), counted apart in
-``dsa_greedy_scan.launches_bf16``.
+``dsa_greedy_scan.launches_bf16``, with hvec, the gates and the logits on
+the tensor cores from weights packed once a launch
+(:mod:`dvc_tpu_torch.ops.dsa_scan`'s ``pack_gate_weights`` and
+``pack_hidden_weights``; its ``logits_pick_tiles`` mirrors the kernel's
+choice of a token on the CPU).
 
 Arguments, as in the JAX package: value_t (B, H, S, Dh); base_pos
 (B, H, Q, LP) level-relative base positions; scale_t (B, Q, LP); const_z
@@ -208,16 +212,21 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
     ab = torch.as_tensor(ab, dtype=torch.float32, device=value_t.device)
     if ab.numel() != 1:
         raise ValueError('greedy kernel: ab must hold one value')
-    value16 = None
+    value16 = packs = None
     if rb:
         # the operands of the step's products, rounded once; value_t and cw
         # in bf16 for the table value_t . cw (the table embed . token_w
-        # rounds its f32 operands in the GEMM's producer)
+        # rounds its f32 operands in the GEMM's producer); the gate
+        # weights, logit_w and h2att_w packed in bf16 for the tensor cores
+        # (they leave w_hh, ctx_w3, logit_w and h2att_w unread)
         from .dsa_bf16 import bf16, bf16_operand
+        from .dsa_scan import pack_gate_weights, pack_hidden_weights
         value16 = bf16_operand(value_t)
+        packs = (pack_gate_weights(w_hh, ctx_w3, backprop=False),
+                 pack_hidden_weights(logit_w), pack_hidden_weights(h2att_w))
         tensors = tuple(value16.float() if i == 0 else bf16_operand(t)
-                        if i == 11 else bf16(t) if i in (6, 8, 9, 14, 15)
-                        else t for i, t in enumerate(tensors))
+                        if i == 11 else bf16(t) if i == 8 else t
+                        for i, t in enumerate(tensors))
     ptrs = [t.contiguous() for t in (*tensors, ab.reshape(1))]   # kept alive
     dev = value_t.device
     tok = torch.empty((B, K, Q), dtype=torch.int32, device=dev)
@@ -230,10 +239,12 @@ def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
     lib = _cuda.lib()
     _cuda.check(lib.cdll.dvc_dsa_greedy(
         ptrs[0].data_ptr(), 0 if value16 is None else value16.data_ptr(),
-        *(t.data_ptr() for t in ptrs[1:]),
-        _cuda.levels_array(temporal_shapes), tok.data_ptr(), lp.data_ptr(),
-        vw.data_ptr(), tw.data_ptr(), work.data_ptr(), B, H, S, Dh, Q, LP, L,
-        A, R, E, V1, K, work.numel(), int(rb), _cuda.stream_ptr(value_t.device)),
+        *(t.data_ptr() for t in ptrs[1:-1]),
+        *((0, 0, 0) if packs is None else (t.data_ptr() for t in packs)),
+        ptrs[-1].data_ptr(), _cuda.levels_array(temporal_shapes),
+        tok.data_ptr(), lp.data_ptr(), vw.data_ptr(), tw.data_ptr(),
+        work.data_ptr(), B, H, S, Dh, Q, LP, L, A, R, E, V1, K, work.numel(),
+        int(rb), _cuda.stream_ptr(value_t.device)),
         'dvc_dsa_greedy')
     _cuda.count_launch(dsa_greedy_scan, rb)
     return tok, lp

@@ -29,11 +29,16 @@ bf16-rounded operands with f32 accumulation.  Its plain versions are
 :func:`dvc_tpu_torch.ops.dsa_bf16.scan_fwd` and ``scan_bwd`` (on the CPU
 :class:`~dvc_tpu_torch.ops.dsa_bf16.PlainScanBf16` joins them for
 autograd); on the card the same kernels run in their bf16-operand mode
-(K4-bf16, K5-bf16), counted apart in ``launches_bf16``.
+(K4-bf16, K5-bf16), counted apart in ``launches_bf16``, with the step's
+large products on the tensor cores from weights packed once a forward
+and backward (``pack_scan_weights``: ``pack_gate_weights`` and
+``pack_hidden_weights``; ``gate_products_tiles`` and
+``hidden_products_tiles`` mirror those products on the CPU).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _cuda, dsa_bf16
@@ -145,21 +150,32 @@ def _gate_index(R, HD, device):
 _ZERO = {}
 
 
-def pack_gate_weights(w_hh, ctx_w3):
-    """The gate weights of K5-bf16, packed once a launch: W_hh (R, 4R) and
-    ctx_w3 (H, Dh, 4R) rounded to bf16 in the order in which the kernel
-    reads its A fragments (``gate_index``), a flat torch.bfloat16 tensor
-    of 2 x 4Rp x KKp elements (8 MB at R = H*Dh = 512).  Three device
-    activities: the concatenation, the rounding, the gather."""
-    R = w_hh.shape[0]
-    HD = ctx_w3.numel() // (4 * R)
-    dev = w_hh.device
+def _zero(dev):
+    """A one-element zero on ``dev``, the packings' padding, made once."""
     if dev not in _ZERO:
         with torch.inference_mode(False):
             _ZERO[dev] = torch.zeros(1, dtype=torch.float32, device=dev)
+    return _ZERO[dev]
+
+
+def pack_gate_weights(w_hh, ctx_w3, backprop=True):
+    """The gate weights of K4-bf16, K5-bf16 and K6-bf16, packed once a
+    launch: W_hh (R, 4R) and ctx_w3 (H, Dh, 4R) rounded to bf16 in the
+    order in which the kernels read their A fragments (``gate_index``), a
+    flat torch.bfloat16 tensor of 2 x 4Rp x KKp elements (8 MB at R = H*Dh
+    = 512); ``backprop=False``: the first half only, P^T, which the
+    forward kernels read (K6-bf16).  Three device activities: the
+    concatenation, the rounding, the gather."""
+    R = w_hh.shape[0]
+    HD = ctx_w3.numel() // (4 * R)
+    dev = w_hh.device
+    index = gate_index(R, HD, dev)
+    if not backprop:
+        Rp, KKp = gate_geometry(R, HD)
+        index = index[:4 * Rp * KKp]
     with torch.no_grad():       # a kernel operand: its gradient is the kernel's
-        src = torch.cat([w_hh.reshape(-1), ctx_w3.reshape(-1), _ZERO[dev]])
-        return src.to(torch.bfloat16)[gate_index(R, HD, dev)]
+        src = torch.cat([w_hh.reshape(-1), ctx_w3.reshape(-1), _zero(dev)])
+        return src.to(torch.bfloat16)[index]
 
 
 def unpack_gate_weights(packed, R, HD):
@@ -168,68 +184,201 @@ def unpack_gate_weights(packed, R, HD):
     padded (the inverse of the fragment order)."""
     Rp, KKp = gate_geometry(R, HD)
     n = 4 * Rp * KKp
-    out = []
-    for part, (M, K) in ((packed[:n], (4 * Rp, KKp)),
-                         (packed[n:], (KKp, 4 * Rp))):
-        pos = _fragment_order(torch.arange(M * K, device=packed.device)
-                              .reshape(M, K)).reshape(-1)
-        flat = torch.empty(M * K, dtype=packed.dtype, device=packed.device)
-        flat[pos] = part
-        out.append(flat.reshape(M, K))
-    return tuple(out)
+    return (_unfragment(packed[:n], 4 * Rp, KKp),
+            _unfragment(packed[n:], KKp, 4 * Rp))
 
 
-def gate_products_tiles(packed, x, dz, R, HD):
-    """Plain mirror of K5-bf16's gate products as the kernel addresses
-    them: each 16 x 8 tile of z^T = P^T x^T (x (QT, KK) = [h | ctx]) and of
-    [dh | dctx]^T = P dz^T (dz (QT, 4R)) summed over the 16 x 16 A tiles
-    read from the packed fragments (lane l's 8 elements at their rows and
-    terms) and the activations' bf16 pairs, the tile's queries (at most 8)
-    the n8 side, in f32.  Returns (z (QT, 4R) without z_all, in the natural
-    gate order, and [dh | dctx] (QT, KK))."""
-    Rp, KKp = gate_geometry(R, HD)
-    QT = x.shape[0]
-    KK = R + HD
+def _unfragment(part, M, K):
+    """The (M, K) operand whose fragment order (``_fragment_order``) is
+    ``part``."""
+    pos = _fragment_order(torch.arange(M * K, device=part.device)
+                          .reshape(M, K)).reshape(-1)
+    flat = torch.empty(M * K, dtype=part.dtype, device=part.device)
+    flat[pos] = part
+    return flat.reshape(M, K)
+
+
+def hidden_geometry(R, N):
+    """(Np, Rl): the rows and the terms of a packed product h . W of the
+    hidden state (``pack_hidden_weights``), W's N columns padded to a
+    multiple of 16 (an m-tile) and its R rows to one of 64 (batches of 4
+    k-tiles), as the kernels' ``HiddenGeom`` (csrc/dsa_common.cuh)."""
+    return -(-N // 16) * 16, -(-R // 64) * 64
+
+
+_HIDDEN_INDEX = {}
+
+
+def hidden_index(R, N, device):
+    """The source of each bf16 element of a packed W (R, N)
+    (``pack_hidden_weights``) as an index into cat(W.flatten(), [0]) (the
+    last element: the zero padding), made once per (R, N, device): the
+    fragments of W^T (Np, Rl), whose element (n, k) is W[k, n] for n < N
+    and k < R."""
+    key = (R, N, str(device))
+    if key not in _HIDDEN_INDEX:
+        Np, Rl = hidden_geometry(R, N)
+        n = torch.arange(Np, device=device)
+        k = torch.arange(Rl, device=device)
+        flat = torch.where((n[:, None] < N) & (k[None, :] < R),
+                           k[None, :] * N + n[:, None], R * N)
+        with torch.inference_mode(False):      # a normal tensor, reused
+            _HIDDEN_INDEX[key] = _fragment_order(flat).reshape(-1).clone()
+    return _HIDDEN_INDEX[key]
+
+
+def pack_hidden_weights(w):
+    """A weight W (R, N) of a product h . W of the hidden state, packed
+    once a launch for the tensor cores (K6-bf16's logit_w; hvec's h2att_w
+    in K4-K6-bf16): W^T rounded to bf16, zero-padded to (Np, Rl)
+    (``hidden_geometry``), in the fragment order of ``pack_gate_weights``
+    (``hidden_index``), a flat torch.bfloat16 tensor (1.6 MB for logit_w
+    at R = 512, V1 = 1608; 0.5 MB for h2att_w at A = 512).  Three device
+    activities: the concatenation, the rounding, the gather."""
+    R, N = w.shape
+    dev = w.device
+    with torch.no_grad():
+        src = torch.cat([w.reshape(-1), _zero(dev)])
+        return src.to(torch.bfloat16)[hidden_index(R, N, dev)]
+
+
+def unpack_hidden_weights(packed, R, N):
+    """W^T (Np, Rl) in bf16 from ``pack_hidden_weights``' output, zero
+    where padded."""
+    return _unfragment(packed, *hidden_geometry(R, N))
+
+
+def _tile_product(frags, M, K, act):
+    """Plain mirror of ``gate_mma`` (csrc/dsa_common.cuh): the (M, K)
+    operand read as 16 x 16 A tiles from its packed fragments (lane l's 8
+    elements at their rows and terms) times the activations act (QT, <= K)
+    rounded to bf16, the tile's queries the n side in n8 tiles (two at QT =
+    16), each tile's product summed over the k-tiles in order in f32.
+    Returns (M, QT)."""
+    QT = act.shape[0]
+    NT = -(-QT // 8)
     lane = torch.arange(32)
     g, q = lane // 4, 2 * (lane % 4)
     rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], 1)
     cols = torch.stack([q, q + 1, q, q + 1, q + 8, q + 9, q + 8, q + 9], 1)
-    n = 4 * Rp * KKp
-
-    def product(frags, M, K, act):
-        tiles = frags.reshape(M // 16, K // 16, 32, 8).float()
-        b = torch.zeros((K, 8), dtype=torch.float32)
-        b[:act.shape[1], :QT] = act.to(torch.bfloat16).float().T
-        out = torch.zeros((M, 8), dtype=torch.float32)
-        for mt in range(M // 16):
+    tiles = frags.reshape(M // 16, K // 16, 32, 8).float()
+    b = torch.zeros((K, 8 * NT), dtype=torch.float32)
+    b[:act.shape[1], :QT] = act.to(torch.bfloat16).float().T
+    out = torch.zeros((M, 8 * NT), dtype=torch.float32)
+    for mt in range(M // 16):
+        for nt in range(NT):
             d = torch.zeros((16, 8), dtype=torch.float32)
             for kt in range(K // 16):
                 a = torch.zeros((16, 16), dtype=torch.float32)
                 a[rows, cols] = tiles[mt, kt]
-                d += a @ b[kt * 16:(kt + 1) * 16]
-            out[mt * 16:(mt + 1) * 16] = d
-        return out[:, :QT]
+                d += a @ b[kt * 16:(kt + 1) * 16, nt * 8:(nt + 1) * 8]
+            out[mt * 16:(mt + 1) * 16, nt * 8:(nt + 1) * 8] = d
+    return out[:, :QT]
 
-    zt = product(packed[:n], 4 * Rp, KKp, x)              # rows: gate order
+
+def gate_products_tiles(packed, x, dz, R, HD):
+    """Plain mirror of the bf16 gate products as the kernels address them
+    (K4-bf16's and K6-bf16's forward, K5-bf16's recompute and backprop):
+    z^T = P^T x^T (x (QT, KK) = [h | ctx]) and [dh | dctx]^T = P dz^T (dz
+    (QT, 4R)) tile by tile from the packed fragments (``_tile_product``),
+    QT <= 16.  ``dz`` None: the forward only (``packed`` may then be P^T's
+    half alone).  Returns (z (QT, 4R) without its other terms, in the
+    natural gate order, and [dh | dctx] (QT, KK) or None)."""
+    Rp, KKp = gate_geometry(R, HD)
+    QT = x.shape[0]
+    n = 4 * Rp * KKp
+    zt = _tile_product(packed[:n], 4 * Rp, KKp, x)        # rows: gate order
     rho = torch.arange(4 * Rp)
     unit = rho // 32 * 8 + rho % 8
     keep = unit < R
+    col = ((rho % 32) // 8 * R + unit)[keep]
     z = torch.zeros((QT, 4 * R), dtype=torch.float32)
-    z[:, ((rho % 32) // 8 * R + unit)[keep]] = zt[keep].T
+    z[:, col] = zt[keep].T
+    if dz is None:
+        return z, None
     dzp = torch.zeros((QT, 4 * Rp), dtype=torch.float32)
-    dzp[:, keep] = dz[:, ((rho % 32) // 8 * R + unit)[keep]]
-    dxt = product(packed[n:], KKp, 4 * Rp, dzp)
-    return z, dxt[:KK].T
+    dzp[:, keep] = dz[:, col]
+    dxt = _tile_product(packed[n:], KKp, 4 * Rp, dzp)
+    return z, dxt[:R + HD].T
 
 
-def _kernel_operands(args, temporal_shapes, rb=False, pack=False):
+def hidden_products_tiles(packed, h, R, N):
+    """Plain mirror of a product h . W on the tensor cores as the kernels
+    address it (``hidden_mma``: K6-bf16's logits, hvec in K4-K6-bf16):
+    (h W)^T = W^T h^T (h (QT, R), QT <= 16) tile by tile from the packed W^T
+    (``pack_hidden_weights``), the padded rows included.  Returns (QT, Np),
+    without a bias."""
+    Np, Rl = hidden_geometry(R, N)
+    return _tile_product(packed, Np, Rl, h).T
+
+
+def lse_merge(a, b):
+    """Mirror of ``lse_merge`` (csrc/dsa_greedy.cu): (max, sum of exp(x -
+    max), first-max index) a with b merged in; sum 0 marks an empty
+    partial.  f32 arithmetic."""
+    m, s, i = a
+    m2, s2, i2 = b
+    if s2 == 0:
+        return a
+    if s == 0:
+        return b
+    if m2 > m:
+        return m2, s * np.exp(m - m2) + s2, i2
+    return m, s + s2 * np.exp(m2 - m), min(i, i2) if m2 == m else i
+
+
+def logits_pick_tiles(logits, logit_b, V1, warps=16):
+    """Plain mirror of K6-bf16's choice from the logits (QT, V1p) of
+    ``hidden_products_tiles`` as the kernel merges them: warp w takes the
+    m-tiles w, w + warps, ..., its lane (g, q) the rows g and g + 8 of a
+    tile for the queries 2q + {0, 1} (+ 8), each logit (plus the bias)
+    merged into the lane's online (max, sum-exp, first-max index), rows n
+    >= V1 skipped; then the lanes of a warp (the shuffles down by 16, 8,
+    4, 2, 1) and the warps in order.  Returns (tok (QT,) int32, lp (QT,)
+    = max - log(sum-exp))."""
+    QT, V1p = logits.shape
+    one = np.float32(1)
+    empty = (np.float32(-np.inf), np.float32(0), 2 ** 31 - 1)
+    logits, bias = logits.float().numpy(), logit_b.float().numpy()
+    toks, lps = [], []
+    for qi in range(QT):
+        per_warp = []
+        for w in range(warps):
+            lanes = [empty] * 32
+            for mt in range(w, V1p // 16, warps):
+                for lane in range(32):
+                    g, q = lane // 4, lane % 4
+                    if (qi % 8) // 2 != q:
+                        continue
+                    for hh in (0, 1):
+                        n = mt * 16 + g + 8 * hh
+                        if n < V1:
+                            lanes[lane] = lse_merge(
+                                lanes[lane], (logits[qi, n] + bias[n], one, n))
+            for o in (16, 8, 4, 2, 1):
+                lanes = [lse_merge(lanes[i], lanes[i + o]) if i + o < 32
+                         else lanes[i] for i in range(32)]
+            per_warp.append(lanes[0])
+        m, s, i = empty
+        for part in per_warp:
+            m, s, i = lse_merge((m, s, i), part)
+        toks.append(i)
+        lps.append(m - (m + np.log(s)))
+    return (torch.tensor(toks, dtype=torch.int32),
+            torch.from_numpy(np.array(lps, dtype=np.float32)))
+
+
+def _kernel_operands(args, temporal_shapes, rb=False, packs=None,
+                     forward=False):
     """Check the operands of a kernel launch; returns (dims, contiguous
     operands, ab as a one-element device tensor, extras).  Where ``rb``
     (K4-bf16, K5-bf16): value_t and the weights of the step's products
     rounded to bf16, cw in bf16 (the table's GEMM operand only), and extras
-    = (value_t in bf16, for the GEMMs; with ``pack``, K5-bf16, the packed
-    gate weights in place of the rounded w_hh and ctx_w3, which it then
-    leaves unread); else extras = (None, None)."""
+    = (value_t in bf16, for the GEMMs; the packed gate weights and
+    h2att_w, ``packs`` where given (``pack_scan_weights``), else packed
+    here); the kernels then read neither w_hh nor ctx_w3, and the forward
+    (``forward``) not h2att_w either, so those are passed unrounded; else
+    extras = (None, None, None)."""
     (value_t, base_pos, scale_t, z_all, off_w_h, h2att_w, h2att_b, cw, cb,
      aw, ab, ctx_w3, w_hh) = args
     dev = value_t.device
@@ -255,16 +404,17 @@ def _kernel_operands(args, temporal_shapes, rb=False, pack=False):
            if tuple(t.shape) != s]
     if bad or LP % L or sum(temporal_shapes) != S:
         raise ValueError(f'scan kernel: inconsistent shapes of {bad}')
-    extras = (None, None)
+    extras = (None, None, None)
     if rb:
         value16 = dsa_bf16.bf16_operand(value_t)
-        wpack = pack_gate_weights(w_hh, ctx_w3) if pack else None
-        kept = ('value_t', 'cw') + (('ctx_w3', 'w_hh') if pack else ())
+        if packs is None:
+            packs = pack_scan_weights(w_hh, ctx_w3, h2att_w)
+        kept = ('value_t', 'cw', 'ctx_w3', 'w_hh') + ('h2att_w',) * forward
         tensors = [dsa_bf16.bf16(t) if n in dsa_bf16.ROUNDED and n not in kept
                    else t for n, t in zip(NAMES, tensors)]
         tensors[0] = value16.float()
         tensors[7] = dsa_bf16.bf16_operand(cw)
-        extras = (value16, wpack)
+        extras = (value16, *packs)
     # the backward reads rows as float4: a view's storage offset may leave
     # them unaligned, a copy does not
     tensors = [t.contiguous() for t in tensors]
@@ -272,18 +422,27 @@ def _kernel_operands(args, temporal_shapes, rb=False, pack=False):
     return (B, H, S, Dh, Q, LP, L, A, R, K), tensors, extras
 
 
+def pack_scan_weights(w_hh, ctx_w3, h2att_w):
+    """The packed bf16 operands of K4-bf16's and K5-bf16's tensor-core
+    products: (the gate weights, ``pack_gate_weights``; h2att_w,
+    ``pack_hidden_weights``)."""
+    return pack_gate_weights(w_hh, ctx_w3), pack_hidden_weights(h2att_w)
+
+
 def _ptr(t):
     """A tensor's device pointer, or 0 (NULL) for None."""
     return 0 if t is None else t.data_ptr()
 
 
-def dsa_teacher_scan_fwd(*args, precision='float32'):
+def dsa_teacher_scan_fwd(*args, precision='float32', packs=None):
     """(hs, cs) of the scan by the kernel ``dvc_dsa_scan_fwd`` (K4, or
     K4-bf16 under ``precision='bfloat16'``), or an error.  ``args`` = the
-    13 operands (CUDA tensors), temporal_shapes."""
+    13 operands (CUDA tensors), temporal_shapes.  ``packs``: K4-bf16's
+    packed weights (``pack_scan_weights``), else packed here."""
     rb = check_precision(precision)
     *ops, temporal_shapes = args
-    dims, ops, (value16, _) = _kernel_operands(ops, temporal_shapes, rb)
+    dims, ops, (value16, wpack, hpack) = _kernel_operands(
+        ops, temporal_shapes, rb, packs, forward=True)
     B, H, S, Dh, Q, LP, L, A, R, K = dims
     hs = torch.empty((B, K, Q, R), dtype=torch.float32, device=ops[0].device)
     cs = torch.empty_like(hs)
@@ -293,7 +452,7 @@ def dsa_teacher_scan_fwd(*args, precision='float32'):
     work = _cuda.gemm_work(hs.device, (B * H * S, A, Dh))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_fwd(
         ops[0].data_ptr(), _ptr(value16), *(t.data_ptr() for t in ops[1:]),
-        _cuda.levels_array(temporal_shapes),
+        _ptr(wpack), _ptr(hpack), _cuda.levels_array(temporal_shapes),
         hs.data_ptr(), cs.data_ptr(), vw.data_ptr(), work.data_ptr(), *dims,
         work.numel(), int(rb), _cuda.stream_ptr(hs.device)), 'dvc_dsa_scan_fwd')
     _cuda.count_launch(dsa_teacher_scan_fwd, rb)
@@ -304,16 +463,18 @@ dsa_teacher_scan_fwd.launches = 0
 dsa_teacher_scan_fwd.launches_bf16 = 0
 
 
-def dsa_teacher_scan_bwd(*args, precision='float32'):
+def dsa_teacher_scan_bwd(*args, precision='float32', packs=None):
     """The 13 gradients of the scan for the cotangent g (B, K, Q, R) of hs,
     by the kernel ``dvc_dsa_scan_bwd`` (K5, or K5-bf16 under
     ``precision='bfloat16'``), or an error.  ``args`` = the 13 operands
-    (CUDA tensors), temporal_shapes, hs, cs, g."""
+    (CUDA tensors), temporal_shapes, hs, cs, g.  ``packs``: K5-bf16's
+    packed weights (the forward's, ``pack_scan_weights``), else packed
+    here."""
     rb = check_precision(precision)
     *ops, temporal_shapes, hs, cs, g = args
     ab_shape = torch.as_tensor(ops[10]).shape
-    dims, ops, (value16, wpack) = _kernel_operands(ops, temporal_shapes, rb,
-                                                   pack=True)
+    dims, ops, (value16, wpack, hpack) = _kernel_operands(
+        ops, temporal_shapes, rb, packs)
     B, H, S, Dh, Q, LP, L, A, R, K = dims
     if (hs.shape != (B, K, Q, R) or cs.shape != hs.shape
             or g.shape != hs.shape):
@@ -356,7 +517,7 @@ def dsa_teacher_scan_bwd(*args, precision='float32'):
     outs2 = (doffw, dh2w, dcw, dcb, daw, dab, dctx_w3, dwhh)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_scan_bwd(
         ops[0].data_ptr(), _ptr(value16), *(t.data_ptr() for t in ops[1:]),
-        _ptr(wpack), hs_prev.data_ptr(), cs_prev.data_ptr(),
+        _ptr(wpack), _ptr(hpack), hs_prev.data_ptr(), cs_prev.data_ptr(),
         g.data_ptr(), _cuda.levels_array(temporal_shapes),
         *(t.data_ptr() for t in outs), _ptr(dz16),
         *(t.data_ptr() for t in outs2 + scratch), *dims, work.numel(), int(rb),
@@ -375,13 +536,17 @@ dsa_teacher_scan_bwd.launches_bf16 = 0
 class DSATeacherScanFunction(torch.autograd.Function):
     """The scan on the card: forward ``dvc_dsa_scan_fwd``, backward
     ``dvc_dsa_scan_bwd``; the last two arguments are the level table and
-    the precision."""
+    the precision.  In bf16 the gate weights and h2att_w are packed once,
+    in the forward (``pack_scan_weights``; it reads P^T's half of the gate
+    weights), and the backward reuses the packs."""
 
     @staticmethod
     def forward(ctx, *args):
         *ops, temporal_shapes, precision = args
+        ctx.packs = (pack_scan_weights(ops[12], ops[11], ops[5])
+                     if check_precision(precision) else None)
         hs, cs = dsa_teacher_scan_fwd(*ops, temporal_shapes,
-                                      precision=precision)
+                                      precision=precision, packs=ctx.packs)
         ctx.temporal_shapes, ctx.precision = temporal_shapes, precision
         ctx.save_for_backward(*ops, hs, cs)
         return hs
@@ -390,7 +555,8 @@ class DSATeacherScanFunction(torch.autograd.Function):
     def backward(ctx, g):
         *ops, hs, cs = ctx.saved_tensors
         grads = dsa_teacher_scan_bwd(*ops, ctx.temporal_shapes, hs, cs, g,
-                                     precision=ctx.precision)
+                                     precision=ctx.precision,
+                                     packs=ctx.packs)
         return (*grads, None, None)
 
 

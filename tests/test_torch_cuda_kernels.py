@@ -543,6 +543,33 @@ def test_greedy_kernel_at_the_serving_width(cuda, B, H):
     assert float(((lp - ref_lp).abs() * ok).max()) <= 1e-3
 
 
+@pytest.mark.parametrize('B,V1', [(16, 1608), (1, 1608), (16, 45)])
+def test_greedy_bf16_kernel_skips_padded_rows_and_keeps_the_first_tie(cuda, B,
+                                                                      V1):
+    """K6-bf16's logits on the tensor cores with logit_w = 0, so every
+    logit is its bias, all negative, the largest tied at rows 5, 10, 13, 21
+    and 40 (one lane, another lane, other warps): a zero-padded row of the
+    packed logit_w^T (V1 = 1608 pads to 1616, 45 to 48) would win with
+    logit 0, but the kernel picks row 5 at every step (16-query tiles at
+    B = 16, 2-query ones at B = 1), and lp = max - logsumexp(bias) within
+    1e-5."""
+    rng = np.random.default_rng(700 + B + V1)
+    ts = (200, 100, 50, 25)
+    args = list(_wide_args(cuda, rng, B, 1, 100, greedy=True, V1=V1))
+    args[6] = torch.zeros_like(args[6])                           # logit_w
+    bias = -1.0 - torch.rand(V1, device=cuda)
+    bias[[5, 10, 13, 21, 40]] = -0.5
+    args[7] = bias
+    launches = dsa_greedy_scan.launches_bf16
+    with torch.inference_mode():
+        tok, lp = dsa_greedy_scan(*args, ts, 30, precision='bfloat16')
+    torch.cuda.synchronize()
+    assert dsa_greedy_scan.launches_bf16 == launches + 1
+    assert bool((tok == 5).all())
+    want = -0.5 - float(torch.logsumexp(bias.double(), 0))
+    assert float((lp.double() - want).abs().max()) <= 1e-5
+
+
 def _off_boundary(args, hs, g):
     """g with zero rows for every query that has, at any step, a tap
     position within 2e-6 + 2^-23 |pos| of a level-relative integer (from
