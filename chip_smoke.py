@@ -1312,33 +1312,61 @@ _STEP_CELL = ('      const float c = sigmoidf_(z[1][q]) * a.c[o] + '
 # the gate products of K9 and of K10's recompute (gate_preact)
 _STEP_GATES_H = ('  add_gates<QT>(h, pad4(R), R, a.w_hh, r, R, z);\n', '')
 _STEP_GATES_CTX = ('  add_gates<QT>(ctx, pad4(HD), HD, a.ctx_w3, r, R, z);\n', '')
-# K5-bf16's gates on the tensor cores (dsa_scan.cu, gates_bwd_bf16): the
-# recompute's and the backprop's products, and the cell backward replaced
-# by a pass-through of the preactivations
-_BF16_RECOMPUTE = '    gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);\n'
-_BF16_BACKPROP = '    gate_mma<QT, 1, 8>(wb, gg.Rp / 4, mt, dzb, gg.lddz, acc);\n'
-_BF16_GATES = 'template <int QT>\n__device__ __forceinline__ void gates_bwd_bf16('
-_CELL_PASS = ('__device__ __forceinline__ float cell_pass(float zi, float zf, float zg, '
-              'float zo, float c_prev, float gh, float gc, float (&dz)[4]) {\n'
-              '  dz[0] = zi; dz[1] = zf; dz[2] = zg; dz[3] = zo;\n'
-              '  return c_prev + gh + gc;\n}\n\n')
-# K4-bf16's and K6-bf16's forward gates on the tensor cores (dsa_common.cuh,
-# gates_fwd_bf16): the staging of x, the product, and the cell replaced by
-# a pass-through of the preactivations; K6-bf16's logits (dsa_greedy.cu,
+# the attention of K9 and K10 (either mode): the scores from VW, ctx (the
+# softmax kept); K10's outer sums h^T dz and ctx^T dz
+_STEP_FWD_SCORES = ('scores from VW', [
+    ('dsa_step.cu', '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
+                    '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
+     '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n')])
+_STEP_FWD_CTX = ('ctx', [('dsa_step.cu', '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
+                          '  attend_softmax<QT>(at, sm);\n\n')])
+_STEP_BWD_SCORES = ('scores from VW', [
+    ('dsa_step.cu', '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
+                    '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for',
+     '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for')])
+_STEP_BWD_CTX = ('ctx', [('dsa_step.cu', '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for',
+                          '  attend_softmax<QT>(at, sm);\n  for')])
+_STEP_OUTER_SUMS = ('dsa_step.cu', 'const int N = B * Q, HD = H * Dh;',
+                    'const int N = 0, HD = H * Dh;')
+# the gate backward of K5-bf16 and K10-bf16 on the tensor cores
+# (dsa_common.cuh, gates_bwd_bf16): the staging of x, the backprop's
+# product dz . P, and the cell backward replaced by a pass-through of the
+# preactivations (the recompute's product is gate_sums', _FWD_GATES)
+_BWD_STAGE = ('dsa_common.cuh',
+              '  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;\n'
+              '  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);\n',
+              '  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;\n')
+_BF16_BACKPROP = ('dsa_common.cuh',
+                  '    gate_mma<QT, 1, 8>(wb, gg.Rp / 4, mt, dzb, gg.lddz, acc);\n', '')
+_CELL_PASS = [('dsa_common.cuh', 'put(qi, u, cell_bwd(', 'put(qi, u, cell_pass('),
+              ('dsa_common.cuh',
+               'template <int QT, typename Z0, typename Cot, typename Put, typename Back>\n',
+               '__device__ __forceinline__ float cell_pass(float zi, float zf, float zg, '
+               'float zo, float c_prev, float gh, float gc, float (&dz)[4]) {\n'
+               '  dz[0] = zi; dz[1] = zf; dz[2] = zg; dz[3] = zo;\n'
+               '  return c_prev + gh + gc;\n}\n\n'
+               'template <int QT, typename Z0, typename Cot, typename Put, typename Back>\n')]
+# the forward gates of K4-bf16, K6-bf16 and K9-bf16 on the tensor cores
+# (dsa_common.cuh, gates_fwd_bf16): the staging of x, the product (gate_sums,
+# also the recompute of K5-bf16 and K10-bf16), and the cell replaced by a
+# pass-through of the preactivations; K6-bf16's logits (dsa_greedy.cu,
 # logits_bf16): the product and its online merge replaced by token 0, and
 # the merge alone replaced by keeping the last logit (its index stays a
 # valid token); hvec = h . W_h2att on the
 # tensor cores (attend_hvec_mma, its staging included: the scores then
 # read stale hvec), and before it on the CUDA cores (attend_hvec_taps, the
 # 'cuda_core_bf16' spec)
-_FWD_STAGE = ('dsa_common.cuh', '  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);\n', '')
+_FWD_STAGE = ('dsa_common.cuh',
+              '__nv_bfloat16* xb, Z0 z0, C c_prev, Out out) {\n'
+              '  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);\n',
+              '__nv_bfloat16* xb, Z0 z0, C c_prev, Out out) {\n')
 _FWD_GATES = ('dsa_common.cuh',
               '    gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);\n', '')
 _FWD_CELL = ('dsa_common.cuh',
-             '        const float c = sigmoidf_(zf) * c_s[qi * ldR + u] + sigmoidf_(zi) * tanhf(zg);\n'
-             '        const float hv = sigmoidf_(zo) * tanhf(c);\n',
-             '        const float c = zf + zi + zg;\n'
-             '        const float hv = zo + c;\n')
+             '    const float c = sigmoidf_(zf) * c_prev(qi, u) + sigmoidf_(zi) * tanhf(zg);\n'
+             '    const float hv = sigmoidf_(zo) * tanhf(c);\n',
+             '    const float c = zf + zi + zg;\n'
+             '    const float hv = zo + c;\n')
 _LOGITS = ('dsa_greedy.cu',
            '  hidden_mma<QT>(a.lpack, hg, xb, gg.ldx, [&](int n, int nt, int j, float v) {\n'
            '    lse_merge(mm[nt][j], ss[nt][j], ii[nt][j], v + __ldg(a.logit_b + n), 1.f, n);\n'
@@ -1511,11 +1539,9 @@ SPLITS = {
                            '         : row_table(value_t, cwf, BHS, Dh, A, vw, st, work, wf);\n',
                            '  e = cudaSuccess;\n')]),
             ('hvec (mma)', [_HVEC_SCAN_BWD]),
-            ('gate recompute', [('dsa_scan.cu', _BF16_RECOMPUTE, '')]),
-            ('cell backward', [('dsa_scan.cu', 'dc_s[qi * ldR + u] = cell_bwd(',
-                                'dc_s[qi * ldR + u] = cell_pass('),
-                               ('dsa_scan.cu', _BF16_GATES, _CELL_PASS + _BF16_GATES)]),
-            ('dz.W^T', [('dsa_scan.cu', _BF16_BACKPROP, '')]),
+            ('gate recompute', [_FWD_GATES]),
+            ('cell backward', _CELL_PASS),
+            ('dz.W^T', [_BF16_BACKPROP]),
             ('attention', [('dsa_scan.cu',
                             '    attend_scores_table<QT>(at, sm, vw_b, ab);\n'
                             '    attend_softmax_ctx<QT>(at, sm, value_b);\n    for (int i',
@@ -1563,53 +1589,60 @@ SPLITS = {
             *_TABLE_BWD,
         ]),
         'dsa_lstm_fwd': ('dsa_step.cu', [
-            ('scores from VW', [('dsa_step.cu',
-                                 '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
-                                 '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
-                                 '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n')]),
-            ('ctx', [('dsa_step.cu', '  attend_softmax_ctx<QT>(at, sm, value_b);\n\n',
-                      '  attend_softmax<QT>(at, sm);\n\n')]),
+            _STEP_FWD_SCORES, _STEP_FWD_CTX,
             ('h.W_hh', [('dsa_step.cu', *_STEP_GATES_H)]),
             ('ctx.ctx_w3', [('dsa_step.cu', *_STEP_GATES_CTX)]),
             ('cell', [('dsa_step.cu', *_STEP_CELL)]),
         ]),
         'dsa_lstm_bwd': ('dsa_step.cu', [
-            ('scores from VW', [('dsa_step.cu',
-                                 '  attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));\n'
-                                 '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for',
-                                 '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for')]),
-            ('ctx', [('dsa_step.cu', '  attend_softmax_ctx<QT>(at, sm, value_b);\n  for',
-                      '  attend_softmax<QT>(at, sm);\n  for')]),
+            _STEP_BWD_SCORES, _STEP_BWD_CTX,
             ('h.W_hh', [('dsa_step.cu', *_STEP_GATES_H)]),
             ('ctx.ctx_w3', [('dsa_step.cu', *_STEP_GATES_CTX)]),
             ('cell_bwd', [('dsa_step.cu', *_CELL_BWD)]),
             ('dz.W^T', [('dsa_step.cu', 'gates_backprop_rows<QT>(dz_s, R, HD, a.w_hh,',
                          'gates_backprop_rows<QT>(dz_s, R, -R, a.w_hh,')]),
             *_TABLE_BWD,
-            ('outer sums', [('dsa_step.cu', 'const int N = B * Q, HD = H * Dh;',
-                             'const int N = 0, HD = H * Dh;')]),
+            ('outer sums', [_STEP_OUTER_SUMS]),
+        ]),
+        'dsa_lstm_fwd_bf16': ('dsa_step.cu', [
+            _STEP_FWD_SCORES, _STEP_FWD_CTX,
+            ('staging x', [_FWD_STAGE]),
+            ('gates (mma)', [_FWD_GATES]),
+            ('cell', [_FWD_CELL]),
+        ]),
+        'dsa_lstm_bwd_bf16': ('dsa_step.cu', [
+            _STEP_BWD_SCORES, _STEP_BWD_CTX,
+            ('staging x', [_BWD_STAGE]),
+            ('gates (mma)', [_FWD_GATES]),
+            ('cell_bwd', _CELL_PASS),
+            ('dz.P (mma)', [_BF16_BACKPROP]),
+            *_TABLE_BWD,
+            ('outer sums', [_STEP_OUTER_SUMS]),
         ]),
     },
 }
 
-# K4-bf16 and K6-bf16 as they were before their tensor-core gates (the f32
+# the bf16 kernels as they were before their tensor-core gates (the f32
 # kernels' code on bf16-rounded operands): run it from a checkout of a tree
 # from before them with this file copied in, python3 chip_smoke.py --split
-# cuda_core_bf16
+# cuda_core_bf16 (K4-bf16 and K6-bf16: a tree whose K4 has no bf16
+# instantiation; K9-bf16 and K10-bf16: one whose K9 has none)
 SPLITS['cuda_core_bf16'] = {
     'dsa_scan_fwd_bf16': ('dsa_scan.cu', SPLITS['current']['dsa_scan_fwd'][1]
                           + [('hvec', [_HVEC_CUDA_CORE])]),
     'dsa_greedy_bf16': ('dsa_greedy.cu', SPLITS['current']['dsa_greedy'][1]
                         + [('hvec', [_HVEC_CUDA_CORE])]),
+    'dsa_lstm_fwd_bf16': SPLITS['current']['dsa_lstm_fwd'],
+    'dsa_lstm_bwd_bf16': SPLITS['current']['dsa_lstm_bwd'],
 }
 
 
 # the kernels whose phase split the full run prints: every variant of a
 # split is a build of its whole source, and all of SPLITS['current'] (92
 # builds) took 364 s of a 1,118 s run on an NVIDIA H100 80GB HBM3 machine,
-# so the full run splits the latest slices' kernels and `--split current`
+# so the full run splits the latest slice's kernels and `--split current`
 # the rest on demand
-FULL_RUN_SPLITS = ('dsa_scan_fwd_bf16', 'dsa_greedy_bf16', 'dsa_scan_bwd_bf16')
+FULL_RUN_SPLITS = ('dsa_lstm_fwd_bf16', 'dsa_lstm_bwd_bf16')
 
 
 def build_variants(csrc, specs):
@@ -1688,6 +1721,37 @@ def kernel_args(args, lstm):
     return (value_t, vw) + tuple(args[1:i]) + tuple(args[i + 1:])
 
 
+def gate_pack_kw(args):
+    """The keyword arguments that K9-bf16 and K10-bf16 take beside the
+    JAX-boundary operands ``args`` (``step_inputs``' with ``lstm``): the
+    gate weights packed once (``pack_gate_weights(w_hh, ctx_w3)``), in a
+    tree whose wrappers take a pack; none in an older one, whose bf16
+    kernels read ctx_w3 and w_hh (given rounded)."""
+    import inspect
+    from dvc_tpu_torch.ops import dsa_step
+    if 'pack' not in inspect.signature(dsa_step.dsa_lstm_step_fwd).parameters:
+        return {}
+    from dvc_tpu_torch.ops.dsa_scan import pack_gate_weights
+    return {'pack': pack_gate_weights(args[7], args[6])}
+
+
+def bf16_kernel_args(args, lstm):
+    """The bf16 word-step kernels' operands alone from ``step_inputs``':
+    value_t (K9/K10: also ctx_w3 and w_hh, which a tree with the gate pack
+    does not read) rounded to bf16, the table VW in its bf16 mode, then the
+    rest without cw; and their keyword arguments (K9/K10-bf16:
+    ``gate_pack_kw``)."""
+    from dvc_tpu_torch.ops import dsa_bf16
+    from dvc_tpu_torch.ops.dsa_tables import table_gemm
+    i = 8 if lstm else 3
+    ops = [dsa_bf16.bf16(a) if j in ((0, 6, 7) if lstm else (0,)) else a
+           for j, a in enumerate(args)]
+    B, H, S, Dh = args[0].shape
+    vw = table_gemm(ops[0].reshape(-1, Dh), args[i], BF16).reshape(B, H, S, -1)
+    return ([ops[0], vw] + ops[1:i] + ops[i + 1:],
+            gate_pack_kw(args) if lstm else {})
+
+
 def split_cases(kernels):
     """(kernel, shape label, call) of each split of ``kernels``: K3 at
     (B, Q) = (16, 375), (16, 100), (1, 375) and at (16, 375) on encoder
@@ -1697,7 +1761,8 @@ def split_cases(kernels):
     also at B=1; K4 and K5 at the train shapes (Q=90, K=29; B=1 and 16 at
     H=1, B=1 at H=8), K4-bf16 and K5-bf16 at the same shapes; K7-K10
     (alone, with VW given) at the word-step shapes of ``check_step`` (B=1,
-    Q=90, H=1; B=16, Q=100, H=1 and 8)."""
+    Q=90, H=1; B=16, Q=100, H=1 and 8), K9-bf16 and K10-bf16 at
+    STEP_BF16_SHAPES."""
     import torch
     from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
     from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
@@ -1792,6 +1857,22 @@ def split_cases(kernels):
             cases.append(('dsa_lstm_bwd', shape,
                           lambda args=args, gh=gh, gc=gc:
                           dsa_lstm_step_bwd(*args, MSDA_LEVELS, gh, gc)))
+    for B, Q, H in STEP_BF16_SHAPES:
+        if not {'dsa_lstm_fwd_bf16', 'dsa_lstm_bwd_bf16'} & set(kernels):
+            break
+        args, kw = bf16_kernel_args(step_inputs(gen, B, Q, H, True), True)
+        shape = f'B={B} Q={Q} H={H}'
+        if 'dsa_lstm_fwd_bf16' in kernels:
+            cases.append(('dsa_lstm_fwd_bf16', shape, lambda args=args, kw=kw:
+                          dsa_lstm_step_fwd(*args, MSDA_LEVELS, precision=BF16,
+                                            **kw)))
+        if 'dsa_lstm_bwd_bf16' in kernels:
+            gh, gc = (torch.randn((B, Q, 512), generator=gen, device='cuda')
+                      for _ in range(2))
+            cases.append(('dsa_lstm_bwd_bf16', shape,
+                          lambda args=args, kw=kw, gh=gh, gc=gc:
+                          dsa_lstm_step_bwd(*args, MSDA_LEVELS, gh, gc,
+                                            precision=BF16, **kw)))
     return cases
 
 
@@ -1843,18 +1924,24 @@ def ab_bf16_times():
     in f32 beside them, of K6-bf16 and K6 at the serving shapes (Q=100, K=30;
     (B, H) = (16, 1), (16, 8), (1, 1), (1, 8)), and of dsa::gemm's bf16
     mode at every shape of OUTER_SUMS and TABLE_SHAPES
-    (the table and its backward), as one JSON line: the half of an A/B of
-    two trees in one call (``--ab-bf16``; run it from each tree's root in
-    turns, old, new, new, old, as ``--ab``).  A tree whose GEMM reads f32
-    operands in its bf16 mode (no ``_cuda.bf16_flags``) is timed on f32
-    operands, a newer one on torch.bfloat16 ones, as each tree's kernels
-    hand them over.  The GEMM's and the tables' also in device time (the
-    profiler's; ``(device)`` keys: at B=1 the event time is the host's)."""
+    (the table and its backward), of K9-bf16 and K10-bf16 with VW given at
+    STEP_BF16_SHAPES, f32 K9 and K10 beside them, and the device time and
+    device activities of one traced bf16 --dsa_lstm_fuse 1 train step at
+    B=1 and B=16 (``lstm_fuse_step_traces``), as one JSON line: the half of
+    an A/B of two trees in one call (``--ab-bf16``; run it from each tree's
+    root in turns, old, new, new, old, as ``--ab``).  A tree whose GEMM
+    reads f32 operands in its bf16 mode (no ``_cuda.bf16_flags``) is timed
+    on f32 operands, a newer one on torch.bfloat16 ones, and K9/K10-bf16
+    get the gate pack where the tree's wrappers take one
+    (``gate_pack_kw``), as each tree's kernels hand them over.  The GEMM's,
+    the tables' and the word steps' also in device time (the profiler's;
+    ``(device)`` keys: at B=1 the event time is the host's)."""
     import torch
     from dvc_tpu_torch.ops import _cuda
     from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
     from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
                                             dsa_teacher_scan_fwd)
+    from dvc_tpu_torch.ops.dsa_step import dsa_lstm_step_bwd, dsa_lstm_step_fwd
     from dvc_tpu_torch.ops.dsa_tables import table_gemm, table_gemm_bwd
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -1902,10 +1989,62 @@ def ab_bf16_times():
                 lambda x=x, w=w: table_gemm(x, w, BF16))
             calls[f'table_gemm_bwd_bf16 {label}'] = (
                 lambda x=x, w=w, g=g: table_gemm_bwd(x, w, g, BF16))
+        L = MSDA_LEVELS
+        for B, Q, H in STEP_BF16_SHAPES:
+            args = step_inputs(gen, B, Q, H, True)
+            k16, kw = bf16_kernel_args(args, True)
+            k32 = kernel_args(args, True)
+            gh, gc = (torch.randn((B, Q, 512), generator=gen, device='cuda')
+                      for _ in range(2))
+            label = f'B={B} Q={Q} H={H}'
+            calls[f'dsa_lstm_fwd_bf16 {label}'] = (
+                lambda k16=k16, kw=kw:
+                dsa_lstm_step_fwd(*k16, L, precision=BF16, **kw))
+            calls[f'dsa_lstm_bwd_bf16 {label}'] = (
+                lambda k16=k16, kw=kw, gh=gh, gc=gc:
+                dsa_lstm_step_bwd(*k16, L, gh, gc, precision=BF16, **kw))
+            calls[f'dsa_lstm_fwd {label}'] = (
+                lambda k32=k32: dsa_lstm_step_fwd(*k32, L))
+            calls[f'dsa_lstm_bwd {label}'] = (
+                lambda k32=k32, gh=gh, gc=gc:
+                dsa_lstm_step_bwd(*k32, L, gh, gc))
         for key, call in calls.items():
             out[key] = cuda_ms(call, 20)
             out[f'{key} (device)'] = device_ms(call, 20)
+    out.update(lstm_fuse_step_traces())
     print(json.dumps({'ab_bf16': out, 'bf16_stored': bf16_stored}))
+
+
+def lstm_fuse_step_traces(recipe=None, batches=(1, 16)):
+    """One traced bf16 train step through K9-bf16/K10-bf16 (``--dsa_scan_fuse
+    0 --dsa_lstm_fuse 1`` with the bf16 flags) at each B of ``batches``,
+    after a warm-up step, on the synthetic full-width run of ``recipe`` (or
+    one written here): {'lstm_fuse_bf16 B=<B> <busy_ms | activities |
+    idle>': value} (``traced``: device busy ms, device activities, idle
+    share; empty when the profiler saw no device activity)."""
+    import torch
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+    if recipe is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return lstm_fuse_step_traces(
+                write_synthetic_run(tmp, load_config(CFG, root=ROOT)), batches)
+    opt = parse_opts(['--cfg_path', recipe, '--device', DEVICE,
+                      '--dsa_scan_fuse', '0', '--dsa_lstm_fuse', '1',
+                      *BF16_FLAGS], root=ROOT)
+    trainer = Trainer(opt, device=DEVICE)
+    out = {}
+    for B in batches:
+        batch = train_batch(opt, B)
+        trainer.train_step(batch, opt.lr)
+        torch.cuda.synchronize()
+        t = trace(f'B={B} bf16 --dsa_lstm_fuse 1 train step (K9/K10-bf16, '
+                  f'{word_steps(batch)} word steps)',
+                  lambda: trainer.train_step(batch, opt.lr))
+        for k in ('busy_ms', 'activities', 'idle'):
+            if k in t:
+                out[f'lstm_fuse_bf16 B={B} {k}'] = t[k]
+    return out
 
 
 def ab_times():
@@ -5172,8 +5311,9 @@ def check_step_bf16(gen, B, Q, H, lstm):
     alone the limits are BF16_MIRROR_FWD and BF16_MIRROR_BWD, and K7's ctx
     and the backward kernel's dpos and dhvec must not be rounded to bf16
     (``bf16_exact_share`` at most BF16_EXACT_MAX).  The kernels take
-    value_t (K9/K10 also ctx_w3 and w_hh) rounded to bf16 and VW from the
-    table's bf16 mode; the 7 (12) gradients at the JAX boundary are
+    value_t rounded to bf16 and VW from the table's bf16 mode, K9-bf16 and
+    K10-bf16 the gate weights packed once for both (``bf16_kernel_args``); the
+    7 (12) gradients at the JAX boundary are
     composed with the table's bf16 backward (``dsa_*_grads``).  The
     cotangent is zero on the queries with a tap within an ulp of a
     level-relative integer (``near_integer``), where the position's
@@ -5185,17 +5325,16 @@ def check_step_bf16(gen, B, Q, H, lstm):
     import torch
     from dvc_tpu_torch.ops import dsa_bf16
     from dvc_tpu_torch.ops import dsa_step as ds
-    from dvc_tpu_torch.ops.dsa_tables import table_gemm
     args = step_inputs(gen, B, Q, H, lstm)
     L = MSDA_LEVELS
     if lstm:
-        kind, names, cw_i, rounded = 'dsa_lstm', ds.LSTM_NAMES, 8, (0, 6, 7)
+        kind, names = 'dsa_lstm', ds.LSTM_NAMES
         fwd, bwd = ds.dsa_lstm_step_fwd, ds.dsa_lstm_step_bwd
         pf, pb = dsa_bf16.lstm_step_fwd, dsa_bf16.lstm_step_bwd
         ref, bwd_ref = ds.lstm_step_ref, ds.lstm_step_bwd_ref
         grads_of = ds.dsa_lstm_step_grads
     else:
-        kind, names, cw_i, rounded = 'dsa_step', ds.STEP_NAMES, 3, (0,)
+        kind, names = 'dsa_step', ds.STEP_NAMES
         fwd, bwd = ds.dsa_sample_attend_fwd, ds.dsa_sample_attend_bwd
         pf, pb = dsa_bf16.sample_attend_fwd, dsa_bf16.sample_attend_bwd
         ref, bwd_ref = ds.sample_attend_ref, ds.sample_attend_bwd_ref
@@ -5204,15 +5343,12 @@ def check_step_bf16(gen, B, Q, H, lstm):
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
 
-    # the kernels' own operands: (value_t, VW, the rest without cw)
-    ops = [dsa_bf16.bf16(a) if i in rounded else a
-           for i, a in enumerate(args)]
+    # the kernels' own operands: (value_t, VW, the rest without cw), and
+    # K9/K10-bf16's gate pack
     Dh = args[0].shape[-1]
-    vw = table_gemm(ops[0].reshape(-1, Dh), args[cw_i], BF16).reshape(
-        *args[0].shape[:3], -1)
-    kargs = [ops[0], vw] + ops[1:cw_i] + ops[cw_i + 1:]
+    kargs, kw = bf16_kernel_args(args, lstm)
     kargs32 = kernel_args(args, lstm)
-    outs = tup(fwd(*kargs, L, precision=BF16))
+    outs = tup(fwd(*kargs, L, precision=BF16, **kw))
     want, mirror = tup(pf(*args, L)), tup(pf(*args, L, table=True))
     f32 = tup(ref(*args, L))
     fwd_d = {n: max(rel_l2(a, w) for a, w in zip(x, want))
@@ -5226,7 +5362,7 @@ def check_step_bf16(gen, B, Q, H, lstm):
     cot = tuple(torch.randn(o.shape, generator=gen, device='cuda') * mask
                 for o in outs)
     grads = grads_of(*args, L, *cot, precision=BF16)
-    kgrads = bwd(*kargs, L, *cot, precision=BF16)
+    kgrads = bwd(*kargs, L, *cot, precision=BF16, **kw)
     # the outputs that stay f32: K7's ctx, the kernel's dpos and dhvec
     exact = {'dpos': bf16_exact_share(kgrads[2]),
              'dhvec': bf16_exact_share(kgrads[3])}
@@ -5243,10 +5379,10 @@ def check_step_bf16(gen, B, Q, H, lstm):
     worst = max(bwd_d, key=lambda n: bwd_d[n][0] / bwd_d[n][1])
     least = min(bwd_d, key=lambda n: bwd_d[n][3] / bwd_d[n][4])
     off = max(bwd_d, key=lambda n: bwd_d[n][5] / bwd_d[n][6])
-    fwd_ms = cuda_ms(lambda: fwd(*kargs, L, precision=BF16), 20)
+    fwd_ms = cuda_ms(lambda: fwd(*kargs, L, precision=BF16, **kw), 20)
     fwd_f32 = cuda_ms(lambda: fwd(*kargs32, L), 20)
     fwd_plain = cuda_ms(lambda: pf(*args, L), 5)
-    bwd_ms = cuda_ms(lambda: bwd(*kargs, L, *cot, precision=BF16), 20)
+    bwd_ms = cuda_ms(lambda: bwd(*kargs, L, *cot, precision=BF16, **kw), 20)
     bwd_f32 = cuda_ms(lambda: bwd(*kargs32, L, *cot), 20)
     bwd_plain = cuda_ms(lambda: pb(*args, L, *cot), 5)
     macs = word_step_macs(args, lstm, table_given=True)
@@ -5456,8 +5592,9 @@ def bf16_stepwise(recipe, card):
     train runs (``bf16_stepwise_train``); the B=16 train step through
     K7/K8 (--dsa_scan_fuse 0) in f32 and bf16 in turns (f32, bf16, bf16,
     f32; host clock) and one step of each traced (device time, device
-    activities, idle share); one bf16 step of that route on the card
-    against the CPU (``bf16_train_agreement``); ``run_eval`` of the unfused
+    activities, idle share); one traced bf16 step through K9/K10-bf16 at
+    B=1 and B=16 (``lstm_fuse_step_traces``); one bf16 step of the K7/K8
+    route on the card against the CPU (``bf16_train_agreement``); ``run_eval`` of the unfused
     run greedy and sampled (``bf16_stepwise_eval``).  Returns the launches
     of the kernels line: K7/K8-bf16 from the unfused run, K9/K10-bf16 from
     the lstm_fuse run, the tables' from both."""
@@ -5494,6 +5631,10 @@ def bf16_stepwise(recipe, card):
                       f'{t.get("activities", 0)}, '
                       f'{t.get("idle", float("nan")):.3f}'
                       for d, t in traces.items()))
+    lstm = lstm_fuse_step_traces(recipe)
+    print(f'[bf16-stepwise] traced bf16 --dsa_lstm_fuse 1 train step '
+          f'(K9/K10-bf16; {card}), device busy ms, device activities, idle '
+          f'share: ' + ', '.join(f'{k[15:]} {v:.4g}' for k, v in lstm.items()))
     bf16_train_agreement(opts['bf16'], opts['f32'])
     bf16_stepwise_eval(runs['unfused'][2], card)
     unfused, fused = runs['unfused'][0], runs['lstm_fuse'][0]

@@ -670,7 +670,7 @@ __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int 
 
 // ----------------------------------------------------------------------------
 // the step's large products in the bf16-operand mode on the tensor cores
-// (K4-bf16, K5-bf16, K6-bf16)
+// (K4-bf16, K5-bf16, K6-bf16, K9-bf16, K10-bf16)
 //
 // Transposed, the step's gate products are (gate or hidden units) x (units)
 // times (units) x (the tile's queries), so the tile's queries are the n
@@ -684,15 +684,16 @@ __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int 
 //
 // with KK = R + H*Dh and P = [W_hh; ctx_w3] (KK, 4R), its gate columns in
 // the order of unit blocks: block ub (8 hidden units) holds P's columns
-// ub*32 + gate*8 + j for gate (i, f, g, o) of unit ub*8 + j.  The wrapper
-// packs P once a launch in bf16 (ops/dsa_scan.py::pack_gate_weights),
-// zero-padded to GateGeom's Rp units and KKp terms, in the order in which
-// the fragments are read: 16 x 16 tiles of 512 bytes, lane l's 16 bytes
-// the A fragment {a0, a1, a2, a3} of its tile (rows l/4 and l/4 + 8, terms
-// 2(l%4) + {0, 1} and 2(l%4) + {8, 9}), first P^T's tiles (the recompute
-// of K5-bf16 and the forward of K4-bf16 and K6-bf16: m-tiles 2ub and 2ub +
-// 1 hold block ub's gates (i, f) and (g, o)), then P's (K5-bf16's
-// backprop).  logit_w^T is packed the same way (pack_logit_weights), V1
+// ub*32 + gate*8 + j for gate (i, f, g, o) of unit ub*8 + j.  P is packed
+// in bf16 (ops/dsa_scan.py::pack_gate_weights) once a launch of the scan
+// and greedy kernels, once a forward pass of the word steps (K9/K10-bf16:
+// 29 launches a pass), zero-padded to GateGeom's Rp units and KKp terms, in
+// the order in which the fragments are read: 16 x 16 tiles of 512 bytes,
+// lane l's 16 bytes the A fragment {a0, a1, a2, a3} of its tile (rows l/4
+// and l/4 + 8, terms 2(l%4) + {0, 1} and 2(l%4) + {8, 9}), first P^T's
+// tiles (the forwards and the backwards' recompute: m-tiles 2ub and 2ub +
+// 1 hold block ub's gates (i, f) and (g, o)), then P's (the backprop of
+// K5-bf16 and K10-bf16).  logit_w^T is packed the same way (pack_logit_weights), V1
 // rows padded to V1p (a multiple of 16) and R terms to Rl (a multiple of
 // 64), zeros there.  A fragments come from L2 as one 16-byte load a lane
 // and a tile, with no shared memory; the activations' B fragments are
@@ -702,7 +703,8 @@ __device__ __forceinline__ void gates_backprop_rows(const float* dz, int R, int 
 // queries 2q, 2q + 1 (and 8 + 2q, 9 + 2q in a second n8 tile), so the
 // cell and its backward run on the accumulators.  Every user sums a
 // product's k-tiles in the same order from zero, then adds the other
-// terms, so K5-bf16's recompute reproduces K4-bf16's forward bit for bit.
+// terms, so K5-bf16's recompute reproduces K4-bf16's forward, and
+// K10-bf16's K9-bf16's, bit for bit.
 // ----------------------------------------------------------------------------
 
 // the padded extents of the gate products: Rp units (a multiple of 32, so
@@ -788,42 +790,104 @@ __device__ __forceinline__ void gate_mma(const uint4* __restrict__ frags, int nk
   }
 }
 
-// the forward gates of K4-bf16 and K6-bf16: x = [h | ctx] of the tile
-// (rounded f32 in shared memory) staged in bf16 in xb; z = P^T x^T + z0 on
-// the tensor cores from the packed P^T (wr; a warp per unit block); the
-// LSTM cell on the accumulators, which writes c to c_s and the new h,
-// rounded, to h in place (the staged x is what the products read); and
-// out(qi, u, h, c) for each query qi < QT of the tile and unit u < R.
-// z0(qi, u, gate) is the preactivation's other terms.  One barrier, after
-// the staging; none at the end.
-template <int QT, typename Z0, typename Out>
-__device__ __forceinline__ void gates_fwd_bf16(const uint4* __restrict__ wr, const GateGeom& gg,
-                                               float* h, int ldR, const float* ctx, int ldHD,
-                                               __nv_bfloat16* xb, float* c_s, Z0 z0,
-                                               Out out) {
+// z^T = P^T x^T of the staged x (xb: QT rows of gg.ldx bf16) on the tensor
+// cores from the packed P^T (wr), a warp per unit block: f(qi, u, s) with
+// s the four gate sums (i, f, g, o) of unit u, each over the k-tiles in
+// order from zero, for each query qi < QT of the tile and unit u < Rp (u >=
+// R: padding, zero sums).  No barrier.
+template <int QT, typename F>
+__device__ __forceinline__ void gate_sums(const uint4* __restrict__ wr, const GateGeom& gg,
+                                          const __nv_bfloat16* xb, F f) {
   constexpr int NT = (QT + 7) / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);
-  __syncthreads();
   for (int ub = warp; ub < gg.Rp / 8; ub += kWarps) {
     float acc[2][NT][4] = {};
     gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);
-    const int u = ub * 8 + g;
-    if (u >= gg.R) continue;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int qi = 8 * nt + 2 * q + j;
         if (qi >= QT) continue;
-        const float zi = acc[0][nt][j] + z0(qi, u, 0), zf = acc[0][nt][2 + j] + z0(qi, u, 1);
-        const float zg = acc[1][nt][j] + z0(qi, u, 2), zo = acc[1][nt][2 + j] + z0(qi, u, 3);
-        const float c = sigmoidf_(zf) * c_s[qi * ldR + u] + sigmoidf_(zi) * tanhf(zg);
-        const float hv = sigmoidf_(zo) * tanhf(c);
-        c_s[qi * ldR + u] = c;
-        h[qi * ldR + u] = round_if(true, hv);
-        out(qi, u, hv, c);
+        const float s[4] = {acc[0][nt][j], acc[0][nt][2 + j], acc[1][nt][j], acc[1][nt][2 + j]};
+        f(qi, ub * 8 + g, s);
       }
+  }
+}
+
+// the forward gates of K4-bf16, K6-bf16 and K9-bf16: x = [h | ctx] of the
+// tile (rounded f32 in shared memory) staged in bf16 in xb; z = P^T x^T +
+// z0 on the tensor cores (gate_sums; a warp per unit block); the LSTM cell
+// on the accumulators from the cell state c_prev(qi, u), and out(qi, u, h,
+// c) for each query qi < QT of the tile and unit u < R (the staged x is
+// what the products read, so out may write h in place).  z0(qi, u, gate) is
+// the preactivation's other terms.  One barrier, after the staging; none
+// at the end.
+template <int QT, typename Z0, typename C, typename Out>
+__device__ __forceinline__ void gates_fwd_bf16(const uint4* __restrict__ wr, const GateGeom& gg,
+                                               const float* h, int ldR, const float* ctx, int ldHD,
+                                               __nv_bfloat16* xb, Z0 z0, C c_prev, Out out) {
+  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);
+  __syncthreads();
+  gate_sums<QT>(wr, gg, xb, [&](int qi, int u, const float (&s)[4]) {
+    if (u >= gg.R) return;
+    const float zi = s[0] + z0(qi, u, 0), zf = s[1] + z0(qi, u, 1);
+    const float zg = s[2] + z0(qi, u, 2), zo = s[3] + z0(qi, u, 3);
+    const float c = sigmoidf_(zf) * c_prev(qi, u) + sigmoidf_(zi) * tanhf(zg);
+    const float hv = sigmoidf_(zo) * tanhf(c);
+    out(qi, u, hv, c);
+  });
+}
+
+// the gate backward of K5-bf16 and K10-bf16 on the tensor cores: x = [h |
+// ctx] of the tile staged in bf16 in xb; the recompute z = P^T x^T + z0
+// (gate_sums, as gates_fwd_bf16 sums it, so it reproduces the forward bit
+// for bit); the LSTM cell backward on the accumulators, cot(qi, u, c_prev,
+// gh, gc) giving the cell's input state and the cotangents of its outputs
+// (zero for a query past the end) and put(qi, u, dc_prev, dz) storing what
+// the caller keeps; dz staged in bf16 in dzb (QT rows of gg.lddz in
+// unit-block order, zero for padded units); then [dh | dctx]^T = P dz^T
+// from the pack's second half, P's, a warp per m-tile of 16 terms:
+// back(qi, k, v) for each query qi < QT and term k < KK (k < R: dh, else
+// dctx).  Barriers inside, none at the end.
+template <int QT, typename Z0, typename Cot, typename Put, typename Back>
+__device__ __forceinline__ void gates_bwd_bf16(const uint4* __restrict__ wpack, const GateGeom& gg,
+                                               const float* h, int ldR, const float* ctx, int ldHD,
+                                               __nv_bfloat16* xb, __nv_bfloat16* dzb, Z0 z0,
+                                               Cot cot, Put put, Back back) {
+  constexpr int NT = (QT + 7) / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);
+  __syncthreads();
+  gate_sums<QT>(wpack, gg, xb, [&](int qi, int u, const float (&s)[4]) {
+    float dz[4] = {0.f, 0.f, 0.f, 0.f};
+    if (u < gg.R) {
+      float c_prev, gh, gc;
+      cot(qi, u, c_prev, gh, gc);
+      put(qi, u, cell_bwd(s[0] + z0(qi, u, 0), s[1] + z0(qi, u, 1), s[2] + z0(qi, u, 2),
+                          s[3] + z0(qi, u, 3), c_prev, gh, gc, dz), dz);
+    }
+#pragma unroll
+    for (int gt = 0; gt < 4; ++gt)
+      dzb[qi * gg.lddz + u / 8 * 32 + gt * 8 + u % 8] = __float2bfloat16_rn(dz[gt]);
+  });
+  __syncthreads();
+  const uint4* wb = wpack + gg.recompute_frags();
+  for (int mt = warp; mt < gg.KKp / 16; mt += kWarps) {
+    float acc[1][NT][4] = {};
+    gate_mma<QT, 1, 8>(wb, gg.Rp / 4, mt, dzb, gg.lddz, acc);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int k = mt * 16 + g + 8 * hh;
+      if (k >= gg.KK) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qi = 8 * nt + 2 * q + j;
+          if (qi < QT) back(qi, k, acc[0][nt][2 * hh + j]);
+        }
+    }
   }
 }
 

@@ -289,13 +289,17 @@ __global__ void __launch_bounds__(kThreads, 1) greedy_kernel(GreedyArgs a) {
     //         their accumulators (gates_fwd_bf16), the new h in place
     if (B16)
       gates_fwd_bf16<QT>(
-          a.gpack, gg, sm.h, ldR, sm.ctx, ldHD, xb, c_s,
+          a.gpack, gg, sm.h, ldR, sm.ctx, ldHD, xb,
           [&](int qi, int u, int gate) {
             const int qq = min(q0 + qi, at.Q - 1);
             return a.const_z[((size_t)b * at.Q + qq) * R4 + gate * R + u]
                    + a.tw[(size_t)tok_s[qi] * R4 + gate * R + u];
           },
-          [](int, int, float, float) {});
+          [&](int qi, int u) { return c_s[qi * ldR + u]; },
+          [&](int qi, int u, float h, float c) {
+            c_s[qi * ldR + u] = c;
+            sm.h[qi * ldR + u] = round_if(true, h);
+          });
     for (int r = tid; !B16 && r < R; r += kThreads) {
       float z[4][QT];
 #pragma unroll

@@ -87,7 +87,8 @@
 // feeds two n8 tiles, so a block reads 4.5 MB of weights a step where the
 // f32 mode reads 9 MB through FMAs on the CUDA cores.  x = [h | ctx] is
 // staged in bf16 in the next h's room (the cell writes the new h in
-// place): 205,056 bytes at 16 queries and H=8.  K5-bf16 (gates_bwd_bf16):
+// place): 205,056 bytes at 16 queries and H=8.  K5-bf16 (gates_bwd_bf16,
+// shared with the word step's K10-bf16):
 // the same hvec and recompute, so its recompute sums the same products in
 // the same order as K4-bf16's forward and reproduces it bit for bit; the
 // cell backward on the accumulators; [dh | dctx] = dz P^T from P's half.
@@ -219,11 +220,14 @@ scan_fwd_kernel(ScanArgs a, const float* __restrict__ vw, float* __restrict__ hs
     const size_t bk = (size_t)b * a.K + k;
     if (B16)
       gates_fwd_bf16<QT>(
-          a.wpack, gg, sm.h, ldR, sm.ctx, ldHD, xb, c_s,
+          a.wpack, gg, sm.h, ldR, sm.ctx, ldHD, xb,
           [&](int qi, int u, int gate) {
             return a.z_all[(bk * Q + min(q0 + qi, Q - 1)) * R4 + gate * R + u];
           },
+          [&](int qi, int u) { return c_s[qi * ldR + u]; },
           [&](int qi, int u, float h, float c) {
+            c_s[qi * ldR + u] = c;
+            sm.h[qi * ldR + u] = round_if(true, h);
             if (q0 + qi >= Q) return;
             const size_t o = (bk * Q + q0 + qi) * R + u;
             hs[o] = h;
@@ -316,81 +320,6 @@ struct BwdLayout {
   size_t bytes() const { return sizeof(float) * (size_t)floats + sizeof(int) * (size_t)ints; }
 };
 
-// K5-bf16's gates of step k (bk = b*K + k) on the tensor cores
-// (dsa_common.cuh, GateGeom): h and ctx (rounded f32 in shared memory)
-// staged in bf16 in xb; the recompute z = z_all + [h | ctx] P, a warp per
-// unit block; the LSTM cell backward on its accumulators (dz written out in
-// f32 and bf16, and staged in bf16 in dzb, zero for padded units); then
-// [dh | dctx] = dz P^T into dh_s and dctx, a warp per m-tile.  Barriers
-// inside, none at the end.
-template <int QT>
-__device__ __forceinline__ void gates_bwd_bf16(const ScanArgs& a, const BwdOut& o,
-                                               const GateGeom& gg, size_t bk, int q0,
-                                               __nv_bfloat16* xb, __nv_bfloat16* dzb,
-                                               float* dh_s, float* dc_s, float* dctx,
-                                               const float* h, const float* ctx) {
-  const AttendArgs& at = a.at;
-  const int R = at.R, Q = at.Q, R4 = 4 * R, HD = at.H * at.Dh;
-  const int ldR = pad4(R), ldHD = pad4(HD);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  stage_gate_inputs<QT>(h, ldR, ctx, ldHD, gg, xb);
-  __syncthreads();
-  const uint4* wr = a.wpack;
-  const uint4* wb = a.wpack + gg.recompute_frags();
-  __nv_bfloat16* dz16 = static_cast<__nv_bfloat16*>(o.dz16);
-  for (int ub = warp; ub < gg.Rp / 8; ub += kWarps) {
-    float acc[2][1][4] = {};
-    gate_mma<QT, 2, 4>(wr, gg.KKp / 16, 2 * ub, xb, gg.ldx, acc);
-    const int u = ub * 8 + g;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int qi = 2 * q + j;
-      if (qi >= QT) continue;
-      float dzg[4] = {0.f, 0.f, 0.f, 0.f};
-      if (u < R) {
-        const bool valid = q0 + qi < Q;
-        const size_t row = bk * Q + min(q0 + qi, Q - 1);
-        const float* zk = a.z_all + row * R4 + u;
-        const float c_prev = o.cs_prev[row * R + u];
-        const float gh = valid ? o.g[row * R + u] + dh_s[qi * ldR + u] : 0.f;
-        const float gc = valid ? dc_s[qi * ldR + u] : 0.f;
-        dc_s[qi * ldR + u] = cell_bwd(acc[0][0][j] + zk[0], acc[0][0][2 + j] + zk[R],
-                                      acc[1][0][j] + zk[2 * R], acc[1][0][2 + j] + zk[3 * R],
-                                      c_prev, gh, gc, dzg);
-        if (valid) {
-#pragma unroll
-          for (int gt = 0; gt < 4; ++gt) {
-            o.dz[row * R4 + gt * R + u] = dzg[gt];
-            dz16[row * R4 + gt * R + u] = __float2bfloat16_rn(dzg[gt]);
-          }
-        }
-      }
-#pragma unroll
-      for (int gt = 0; gt < 4; ++gt)
-        dzb[qi * gg.lddz + ub * 32 + gt * 8 + g] = __float2bfloat16_rn(dzg[gt]);
-    }
-  }
-  __syncthreads();
-  for (int mt = warp; mt < gg.KKp / 16; mt += kWarps) {
-    float acc[1][1][4] = {};
-    gate_mma<QT, 1, 8>(wb, gg.Rp / 4, mt, dzb, gg.lddz, acc);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int uu = mt * 16 + g + 8 * hh;
-      if (uu >= gg.KK) continue;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qi = 2 * q + j;
-        if (qi >= QT) continue;
-        if (uu < R)
-          dh_s[qi * ldR + uu] = acc[0][0][2 * hh + j];
-        else
-          dctx[qi * ldHD + uu - R] = acc[0][0][2 * hh + j];
-      }
-    }
-  }
-}
-
 template <int QT>
 __global__ void __launch_bounds__(kThreads)
 scan_bwd_kernel(ScanArgs a, BwdOut o) {
@@ -469,7 +398,35 @@ scan_bwd_kernel(ScanArgs a, BwdOut o) {
     // ---- gates from (h_{k-1}, c_{k-1}) and the LSTM cell backward; dz is
     //      written out and staged in dz_s as (QT, 4R) (K5-bf16: all of it
     //      and dz W^T below on the tensor cores, gates_bwd_bf16)
-    if (at.bf16) gates_bwd_bf16<QT>(a, o, gg, bk, q0, xb, dzb, dh_s, dc_s, gs.dctx, sm.h, cx_s);
+    if (at.bf16) {
+      __nv_bfloat16* dz16 = static_cast<__nv_bfloat16*>(o.dz16);
+      gates_bwd_bf16<QT>(
+          a.wpack, gg, sm.h, ldR, cx_s, ldHD, xb, dzb,
+          [&](int qi, int u, int gate) {
+            return a.z_all[(bk * Q + min(q0 + qi, Q - 1)) * R4 + gate * R + u];
+          },
+          [&](int qi, int u, float& c_prev, float& gh, float& gc) {
+            const bool valid = q0 + qi < Q;
+            const size_t row = bk * Q + min(q0 + qi, Q - 1);
+            c_prev = o.cs_prev[row * R + u];
+            gh = valid ? o.g[row * R + u] + dh_s[qi * ldR + u] : 0.f;
+            gc = valid ? dc_s[qi * ldR + u] : 0.f;
+          },
+          [&](int qi, int u, float dc_prev, const float (&dz)[4]) {
+            dc_s[qi * ldR + u] = dc_prev;
+            if (q0 + qi >= Q) return;
+            const size_t row = bk * Q + q0 + qi;
+#pragma unroll
+            for (int gt = 0; gt < 4; ++gt) {
+              o.dz[row * R4 + gt * R + u] = dz[gt];
+              dz16[row * R4 + gt * R + u] = __float2bfloat16_rn(dz[gt]);
+            }
+          },
+          [&](int qi, int k, float v) {
+            if (k < R) dh_s[qi * ldR + k] = v;
+            else gs.dctx[qi * ldHD + k - R] = v;
+          });
+    }
     for (int r = tid; !at.bf16 && r < R; r += kThreads) {
       float z[4][QT];
 #pragma unroll

@@ -61,24 +61,42 @@
 // to bf16 and accumulate in f32 (_make_dot('bfloat16')): the taps M . value
 // (M's lerp weights rounded), the scores taps . Wc, in K9 h . W_hh and
 // ctx . ctx_w3, and in K8 and K10 every transposed product and weight
-// gradient's outer sum.  Here the caller passes value_t, ctx_w3 and w_hh
-// rounded (once per forward pass, not per step) and VW from the table
-// GEMM's bf16 mode; the kernels store rounded the lerp weights, h (load_h),
-// the ctx that K9 and K10 multiply, dz, and the scattered wts * dctx and du;
-// the outer sums h^T dz and ctx^T dz run in the GEMM's bf16 mode.  Where the
-// word steps differ from the scan K4/K5-bf16: hvec, the offsets and ctx .
-// ctx_w (around K7) are f32 products outside the kernel in JAX too, so K7
-// writes ctx unrounded (ctx_f32) and K8 and K10 write dhvec and dpos
-// unrounded (hvec_given).  The table form moves rounding points as in K4-K6
+// gradient's outer sum.  Here the caller passes value_t rounded (once per
+// forward pass, not per step) and VW from the table GEMM's bf16 mode; the
+// kernels store rounded the lerp weights, h (load_h), the ctx that K9 and
+// K10 multiply, dz, and the scattered wts * dctx and du; the outer sums
+// h^T dz and ctx^T dz run in the GEMM's bf16 mode.  Where the word steps
+// differ from the scan K4/K5-bf16: hvec, the offsets and ctx . ctx_w (around
+// K7) are f32 products outside the kernel in JAX too, so K7 writes ctx
+// unrounded (ctx_f32) and K8 and K10 write dhvec and dpos unrounded
+// (hvec_given).  The table form moves rounding points as in K4-K6
 // (dsa_scan.cu): the taps are never rounded before their product with Wc,
 // and dvalue's scores term and dWc come from bf16(G) in the table's
 // backward (measured in tests/test_torch_bf16_step.py and chip_smoke.py
 // --bf16).
 //
+// K9-bf16 and K10-bf16 are instantiations of their own (B16; the f32 ones
+// compile none of this) whose gate products run on the tensor cores as
+// K4-bf16's and K5-bf16's (dsa_common.cuh, GateGeom): mma.sync.m16n8k16
+// from P = [W_hh; ctx_w3] packed in bf16 in fragment order, which the
+// caption head packs once per forward pass (ops/dsa_scan.py::
+// pack_gate_weights, 8 MB at R = H*Dh = 512) and DSALSTMStepFunction hands
+// to K9-bf16 and, for its backward, K10-bf16.  K9-bf16 (gates_fwd_bf16): x =
+// [h | ctx] staged in bf16, z = z0 + [h | ctx] P from P^T's half with the
+// cell on the accumulators (at 16 queries, B = 16, each A fragment feeds
+// two n8 tiles).  K10-bf16 (gates_bwd_bf16, shared with K5-bf16): the same
+// recompute, so it reproduces K9-bf16's gates bit for bit, the cell
+// backward on the accumulators, then [dh | dctx] = dz P from P's half; x
+// and dz staged in bf16 in the room of the f32 dz tile.  Neither reads the
+// f32 w_hh or ctx_w3.
+//
 // Limits of K7-K10: A <= 512 (two float4 column groups per lane and column
 // part in the backwards), A and Dh multiples of 4 (K9, K10 also R), and the
 // shared memory of a block (checked at launch: K10's staged dz, QT x 4R
-// floats, takes most of it).
+// floats in f32 and x and dz in bf16 in K10-bf16, takes most of it).  At R
+// = A = H*Dh = 512 and LP = 16, cap_nheads 1 / 8: K9 at 16 queries 103,424
+// / 139,264 bytes, K9-bf16 136,448 / 172,288; K10 at 8 queries 134,672 /
+// 159,760, K10-bf16 118,544 / 143,632 (the card allows 232,448).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -99,8 +117,9 @@ struct StepArgs {
   const float* z0;      // (B, Q, 4R)   K9/K10
   const float* h;       // (B, Q, R)
   const float* c;       // (B, Q, R)
-  const float* ctx_w3;  // (H*Dh, 4R)
+  const float* ctx_w3;  // (H*Dh, 4R)       the f32 K9/K10
   const float* w_hh;    // (R, 4R)
+  const uint4* wpack;   // K9/K10-bf16: [W_hh; ctx_w3] packed in bf16 (GateGeom)
 };
 
 struct StepGrads {
@@ -182,16 +201,18 @@ __device__ __forceinline__ void store_table_grads(
 // ----------------------------------------------------------------------------
 
 // shared memory of K7 and K9: h (K9; R = 0 for K7), hvec and ctx of the
-// tile (QT rows each) and its tap table
+// tile (QT rows each), in K9-bf16 (b16) x = [h | ctx] staged in bf16 (QT
+// rows of GateGeom::ldx), and the tile's tap table
 struct ForwardLayout {
-  int h, hvec, ctx, wlo, whi, d;  // float offsets
-  int lo, hi;                     // int offsets
+  int h, hvec, ctx, x, wlo, whi, d;  // float offsets
+  int lo, hi;                        // int offsets
   int floats, ints;
-  __host__ __device__ ForwardLayout(int QT, int R, int A, int HD, int NR) {
+  __host__ __device__ ForwardLayout(int QT, int R, int A, int HD, int NR, bool b16 = false) {
     int o = 0;
     h = o;    o += QT * pad4(R);
     hvec = o; o += QT * pad4(A);
     ctx = o;  o += QT * pad4(HD);
+    x = o;    o += b16 ? pad4(QT * GateGeom(R, HD).ldx / 2) : 0;
     wlo = o;  o += pad4(NR);
     whi = o;  o += pad4(NR);
     d = o;    o += pad4(NR);
@@ -235,17 +256,19 @@ step_fwd_kernel(StepArgs a, const float* __restrict__ vw, float* __restrict__ ct
 }
 
 // K9: one step of the scan forward (K4) from the given pos and hvec, with
-// the scores from the table VW = value . Wc
-template <int QT>
-__global__ void __launch_bounds__(kThreads)
-lstm_fwd_kernel(StepArgs a, const float* __restrict__ vw, float* __restrict__ h_out,
-                float* __restrict__ c_out) {
+// the scores from the table VW = value . Wc.  B16: K9-bf16's body, whose
+// gate products run on the tensor cores (gates_fwd_bf16 from the packed
+// P^T, the cell on the accumulators); the f32 body compiles none of that
+template <int QT, bool B16>
+__device__ __forceinline__ void lstm_fwd_step(const StepArgs& a, const float* __restrict__ vw,
+                                              float* __restrict__ h_out,
+                                              float* __restrict__ c_out) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const AttendArgs& at = a.at;
   const int tid = threadIdx.x, b = blockIdx.y, q0 = blockIdx.x * QT;
-  const int H = at.H, Dh = at.Dh, Q = at.Q, R = at.R, S = at.S;
-  const ForwardLayout L(QT, R, at.A, H * Dh, QT * H * at.LP);
+  const int H = at.H, Dh = at.Dh, Q = at.Q, R = at.R, S = at.S, HD = H * Dh;
+  const ForwardLayout L(QT, R, at.A, HD, QT * H * at.LP, B16);
   int* ints = reinterpret_cast<int*>(smem + L.floats);
   AttendSmem sm{};
   sm.h = smem + L.h; sm.hvec = smem + L.hvec; sm.ctx = smem + L.ctx;
@@ -260,8 +283,24 @@ lstm_fwd_kernel(StepArgs a, const float* __restrict__ vw, float* __restrict__ h_
   attend_scores_table<QT>(at, sm, vw_b, __ldg(a.ab));
   attend_softmax_ctx<QT>(at, sm, value_b);
 
+  // K9-bf16: z = z0 + [h | ctx] P on the tensor cores, a warp per unit
+  // block, and the cell on the accumulators (h' and c' written unrounded)
+  if constexpr (B16)
+    gates_fwd_bf16<QT>(
+        a.wpack, GateGeom(R, HD), sm.h, pad4(R), sm.ctx, pad4(HD),
+        reinterpret_cast<__nv_bfloat16*>(smem + L.x),
+        [&](int qi, int u, int gate) {
+          return a.z0[((size_t)b * Q + min(q0 + qi, Q - 1)) * 4 * R + gate * R + u];
+        },
+        [&](int qi, int u) { return a.c[((size_t)b * Q + min(q0 + qi, Q - 1)) * R + u]; },
+        [&](int qi, int u, float h, float c) {
+          if (q0 + qi >= Q) return;
+          const size_t o = ((size_t)b * Q + q0 + qi) * R + u;
+          h_out[o] = h;
+          c_out[o] = c;
+        });
   // a thread owns hidden unit r (its 4 gate columns), as in K4
-  for (int r = tid; r < R; r += kThreads) {
+  for (int r = tid; !B16 && r < R; r += kThreads) {
     float z[4][QT];
     gate_preact<QT>(a, sm.h, sm.ctx, b, q0, r, z);
 #pragma unroll
@@ -273,6 +312,23 @@ lstm_fwd_kernel(StepArgs a, const float* __restrict__ vw, float* __restrict__ h_
       c_out[o] = c;
     }
   }
+}
+
+template <int QT>
+__global__ void __launch_bounds__(kThreads)
+lstm_fwd_kernel(StepArgs a, const float* __restrict__ vw, float* __restrict__ h_out,
+                float* __restrict__ c_out) {
+  lstm_fwd_step<QT, false>(a, vw, h_out, c_out);
+}
+
+// K9-bf16: one block an SM (its shared memory allows no more), so that
+// ptxas gives the mma loops the registers to keep their A fragments in
+// flight, as K4-bf16
+template <int QT>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd16_kernel(StepArgs a, const float* __restrict__ vw, float* __restrict__ h_out,
+                  float* __restrict__ c_out) {
+  lstm_fwd_step<QT, true>(a, vw, h_out, c_out);
 }
 
 // ----------------------------------------------------------------------------
@@ -349,20 +405,22 @@ step_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
 }
 
 // shared memory of K10: h, hvec, ctx (then dhvec) and dctx of the tile (QT
-// rows each), its staged dz (QT, 4R), tap table, softmax weights, d wts and
-// dpos
+// rows each), its staged dz (QT, 4R; in K10-bf16 (b16) x = [h | ctx], then
+// dz, in bf16: QT rows of GateGeom::ldx and lddz), tap table, softmax
+// weights, d wts and dpos
 struct LstmBwdLayout {
   int h, hvec, cx, dctx, dz, wlo, whi, d, ddot, dpos, dab;  // float offsets
   int lo, hi;                                              // int offsets
   int floats, ints;
-  __host__ __device__ LstmBwdLayout(int QT, int R, int A, int HD, int NR) {
+  __host__ __device__ LstmBwdLayout(int QT, int R, int A, int HD, int NR, bool b16) {
     const int CX = pad4(HD) > pad4(A) ? pad4(HD) : pad4(A);
+    const GateGeom gg(R, HD);
     int o = 0;
     h = o;    o += QT * pad4(R);
     hvec = o; o += QT * pad4(A);
     cx = o;   o += QT * CX;
     dctx = o; o += QT * pad4(HD);
-    dz = o;   o += QT * 4 * R;
+    dz = o;   o += b16 ? pad4((QT * (gg.ldx + gg.lddz) + 1) / 2) : QT * 4 * R;
     wlo = o;  o += pad4(NR);
     whi = o;  o += pad4(NR);
     d = o;    o += pad4(NR);
@@ -378,10 +436,13 @@ struct LstmBwdLayout {
 };
 
 // K10: one reverse step of the scan backward (K5) with the given pos, hvec
-// and incoming (gh, gc), with the scores and du from the table VW
-template <int QT>
-__global__ void __launch_bounds__(kThreads)
-lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
+// and incoming (gh, gc), with the scores and du from the table VW.  B16:
+// K10-bf16's body, its gates on the tensor cores (gates_bwd_bf16: the
+// recompute from the packed P^T, the cell backward on the accumulators, [dh
+// | dctx] = dz P from P's half); the f32 body compiles none of that
+template <int QT, bool B16>
+__device__ __forceinline__ void lstm_bwd_step(const StepArgs& a, const StepGrads& o,
+                                              const float* __restrict__ vw) {
   static_assert(kWarps % QT == 0, "warps per query");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -389,9 +450,12 @@ lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
   const int tid = threadIdx.x, b = blockIdx.y, q0 = blockIdx.x * QT;
   const int H = at.H, Dh = at.Dh, Q = at.Q, S = at.S, A = at.A, R = at.R;
   const int HD = H * Dh, R4 = 4 * R, ldHD = pad4(HD);
-  const LstmBwdLayout L(QT, R, A, HD, QT * H * at.LP);
+  const LstmBwdLayout L(QT, R, A, HD, QT * H * at.LP, B16);
+  const GateGeom gg(R, HD);
   float* cx_s = smem + L.cx;
   float* dz_s = smem + L.dz;
+  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(dz_s);  // K10-bf16's staged x
+  __nv_bfloat16* dzb = xb + QT * gg.ldx;                       // and dz
   int* ints = reinterpret_cast<int*>(smem + L.floats);
   AttendSmem sm{};
   sm.h = smem + L.h; sm.hvec = smem + L.hvec; sm.ctx = cx_s;
@@ -424,8 +488,33 @@ lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
   // ---- gates and the LSTM cell backward with the given (gh, gc): a query
   //      past Q gets zero cotangents, so its dz (hence its d ctx and every
   //      gradient it adds) is exactly 0; dz is written out and staged as
-  //      (QT, 4R)
-  for (int r = tid; r < R; r += kThreads) {
+  //      (QT, 4R).  K10-bf16: all of it and dz W^T below on the tensor
+  //      cores, dh written out and d ctx into gs.dctx
+  if constexpr (B16)
+    gates_bwd_bf16<QT>(
+        a.wpack, gg, sm.h, pad4(R), cx_s, ldHD, xb, dzb,
+        [&](int qi, int u, int gate) {
+          return a.z0[((size_t)b * Q + min(q0 + qi, Q - 1)) * R4 + gate * R + u];
+        },
+        [&](int qi, int u, float& c_prev, float& gh, float& gc) {
+          const bool valid = q0 + qi < Q;
+          const size_t row = (size_t)b * Q + min(q0 + qi, Q - 1);
+          c_prev = a.c[row * R + u];
+          gh = valid ? o.gh[row * R + u] : 0.f;
+          gc = valid ? o.gc[row * R + u] : 0.f;
+        },
+        [&](int qi, int u, float dc_prev, const float (&dz)[4]) {
+          if (q0 + qi >= Q) return;
+          const size_t row = (size_t)b * Q + q0 + qi;
+#pragma unroll
+          for (int gt = 0; gt < 4; ++gt) o.dz0[row * R4 + gt * R + u] = dz[gt];
+          o.dc[row * R + u] = dc_prev;
+        },
+        [&](int qi, int k, float v) {
+          if (k >= R) gs.dctx[qi * ldHD + k - R] = v;
+          else if (q0 + qi < Q) o.dh[((size_t)b * Q + q0 + qi) * R + k] = v;
+        });
+  for (int r = tid; !B16 && r < R; r += kThreads) {
     float z[4][QT];
     gate_preact<QT>(a, sm.h, cx_s, b, q0, r, z);
 #pragma unroll
@@ -439,7 +528,7 @@ lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
                                      valid ? o.gc[row * R + r] : 0.f, dzg);
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        dz_s[q * R4 + g * R + r] = round_if(a.at.bf16, dzg[g]);
+        dz_s[q * R4 + g * R + r] = dzg[g];
         if (valid) o.dz0[row * R4 + g * R + r] = dzg[g];
       }
       if (valid) o.dc[row * R + r] = dc_prev;
@@ -449,16 +538,31 @@ lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
 
   // ---- dh = dz W_hh^T (the kernel's h input; the h -> hvec, pos chain is
   //      outside) and d ctx = dz ctx_w3^T
-  gates_backprop_rows<QT>(dz_s, R, HD, a.w_hh, a.ctx_w3, [&](int q, int u, float v) {
-    if (u >= R) gs.dctx[q * ldHD + u - R] = v;
-    else if (q0 + q < Q) o.dh[((size_t)b * Q + q0 + q) * R + u] = v;
-  });
-  __syncthreads();
+  if (!B16) {
+    gates_backprop_rows<QT>(dz_s, R, HD, a.w_hh, a.ctx_w3, [&](int q, int u, float v) {
+      if (u >= R) gs.dctx[q * ldHD + u - R] = v;
+      else if (q0 + q < Q) o.dh[((size_t)b * Q + q0 + q) * R + u] = v;
+    });
+    __syncthreads();
+  }
 
   // ---- attention and sampling backward with g = d ctx, from the table
   attend_backward_table<QT>(at, sm, gs, value_b, vw_b, o.dvalue + (size_t)b * H * S * Dh,
                             o.G + (size_t)b * H * S * A, cols, dcb, daw);
   store_table_grads<QT>(at, gs, cols, dcb, daw, b, q0, o);
+}
+
+template <int QT>
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
+  lstm_bwd_step<QT, false>(a, o, vw);
+}
+
+// K10-bf16: one block an SM, as K9-bf16
+template <int QT>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd16_kernel(StepArgs a, StepGrads o, const float* __restrict__ vw) {
+  lstm_bwd_step<QT, true>(a, o, vw);
 }
 
 bool fill_step(StepArgs* a, const float* value_t, const float* pos,
@@ -572,36 +676,40 @@ extern "C" int dvc_dsa_step_bwd(
 
 // K9: as dvc_dsa_step_fwd, plus z0 (B, Q, 4R), h and c (B, Q, R), ctx_w3 (H*Dh, 4R)
 // and w_hh (R, 4R); h_new and c_new (B, Q, R) are written.  A <= 512; A,
-// Dh and R multiples of 4.
+// Dh and R multiples of 4.  bf16: K9-bf16, with wpack the gate weights
+// packed in bf16 (ops/dsa_scan.py::pack_gate_weights, of which it reads P^T's
+// half; 16-byte aligned) and ctx_w3 and w_hh unread (may be null); in f32
+// wpack must be null.
 extern "C" int dvc_dsa_lstm_fwd(
     const float* value_t, const float* vw, const float* pos, const float* hvec,
     const float* z0, const float* h, const float* c, const float* ctx_w3,
-    const float* w_hh, const float* cb, const float* aw, const float* ab,
-    const int* shapes, float* h_new, float* c_new, int B, int H, int S, int Dh,
-    int Q, int LP, int L, int A, int R, int bf16, void* stream) {
+    const float* w_hh, const void* wpack, const float* cb, const float* aw,
+    const float* ab, const int* shapes, float* h_new, float* c_new, int B, int H,
+    int S, int Dh, int Q, int LP, int L, int A, int R, int bf16, void* stream) {
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
                  A, R, bf16) ||
-      !table_limits(A, Dh, {}) || R % 4 != 0)
+      !table_limits(A, Dh, {}) || R % 4 != 0 ||
+      (a.at.bf16 ? !packed_operand(wpack) : wpack != nullptr))
     return (int)cudaErrorInvalidValue;
   a.z0 = z0; a.h = h; a.c = c; a.ctx_w3 = ctx_w3; a.w_hh = w_hh;
+  a.wpack = static_cast<const uint4*>(wpack);
   if (B == 0 || Q == 0) return 0;
   // as K4: 4 queries at least, 16 where 8-query tiles would take more than
   // a wave
   const int QT = query_tile(B, Q, 4, 16);
-  const size_t smem = ForwardLayout(QT, R, A, H * Dh, QT * H * LP).bytes();
+  const bool b16 = a.at.bf16;
+  const size_t smem = ForwardLayout(QT, R, A, H * Dh, QT * H * LP, b16).bytes();
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = QT == 4 ? set_smem(lstm_fwd_kernel<4>, smem)
-                  : QT == 16 ? set_smem(lstm_fwd_kernel<16>, smem)
-                             : set_smem(lstm_fwd_kernel<kQT>, smem);
+  const auto kernel = b16 ? (QT == 4    ? lstm_fwd16_kernel<4>
+                             : QT == 16 ? lstm_fwd16_kernel<16>
+                                        : lstm_fwd16_kernel<kQT>)
+                          : (QT == 4    ? lstm_fwd_kernel<4>
+                             : QT == 16 ? lstm_fwd_kernel<16>
+                                        : lstm_fwd_kernel<kQT>);
+  cudaError_t e = set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Q + QT - 1) / QT, B);
-  if (QT == 4)
-    lstm_fwd_kernel<4><<<grid, kThreads, smem, st>>>(a, vw, h_new, c_new);
-  else if (QT == 16)
-    lstm_fwd_kernel<16><<<grid, kThreads, smem, st>>>(a, vw, h_new, c_new);
-  else
-    lstm_fwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, vw, h_new, c_new);
+  kernel<<<dim3((Q + QT - 1) / QT, B), kThreads, smem, st>>>(a, vw, h_new, c_new);
   return (int)cudaGetLastError();
 }
 
@@ -613,11 +721,13 @@ extern "C" int dvc_dsa_lstm_fwd(
 // written; scratch ctx_all (B, Q, H*Dh; bf16 in the bf16 mode) and work (work_floats floats, the
 // outer sums' split-K partial tiles).  A <= 512; A, Dh and R multiples of
 // 4; value_t, vw, cb, aw, ctx_w3 and w_hh 16-byte aligned (read as float4).
+// bf16: K10-bf16, with wpack as for dvc_dsa_lstm_fwd (both halves read)
+// and ctx_w3 and w_hh unread (may be null); in f32 wpack must be null.
 extern "C" int dvc_dsa_lstm_bwd(
     const float* value_t, const float* vw, const float* pos, const float* hvec,
     const float* z0, const float* h, const float* c, const float* ctx_w3,
-    const float* w_hh, const float* cb, const float* aw, const float* ab,
-    const float* gh, const float* gc, const int* shapes, float* dvalue,
+    const float* w_hh, const void* wpack, const float* cb, const float* aw,
+    const float* ab, const float* gh, const float* gc, const int* shapes, float* dvalue,
     float* G, float* dpos, float* dhvec, float* dz0, float* dh, float* dc,
     float* dctx_w3, float* dwhh, float* dcb, float* daw, float* dab,
     void* ctx_all, float* work, int B, int H, int S, int Dh, int Q, int LP,
@@ -625,9 +735,11 @@ extern "C" int dvc_dsa_lstm_bwd(
   StepArgs a;
   if (!fill_step(&a, value_t, pos, hvec, cb, aw, ab, shapes, H, S, Dh, Q, LP, L,
                  A, R, bf16) ||
-      !table_limits(A, Dh, {value_t, vw, cb, aw, ctx_w3, w_hh}) || R % 4 != 0)
+      !table_limits(A, Dh, {value_t, vw, cb, aw, ctx_w3, w_hh}) || R % 4 != 0 ||
+      (a.at.bf16 ? !packed_operand(wpack) : wpack != nullptr))
     return (int)cudaErrorInvalidValue;
   a.z0 = z0; a.h = h; a.c = c; a.ctx_w3 = ctx_w3; a.w_hh = w_hh;
+  a.wpack = static_cast<const uint4*>(wpack);
   StepGrads o{};
   o.gh = gh; o.gc = gc; o.dvalue = dvalue; o.G = G; o.dpos = dpos;
   o.dhvec = dhvec; o.dcb = dcb; o.daw = daw; o.dab = dab; o.dz0 = dz0;
@@ -638,20 +750,19 @@ extern "C" int dvc_dsa_lstm_bwd(
   cudaError_t e = cudaSuccess;
   if (B > 0 && Q > 0) {
     // as K5: at most 8 queries a tile (a warp of the score backward owns a
-    // (query, column part)), 2 or 4 on a small grid
+    // (query, column part)), 2 or 4 on a small grid; the layout's bytes
+    // (K10-bf16's staged x and dz included) checked by set_smem
     const int QT = query_tile(B, Q, 2, kQT);
-    const size_t smem = LstmBwdLayout(QT, R, A, HD, QT * H * LP).bytes();
-    e = QT == 2 ? set_smem(lstm_bwd_kernel<2>, smem)
-        : QT == 4 ? set_smem(lstm_bwd_kernel<4>, smem)
-                  : set_smem(lstm_bwd_kernel<kQT>, smem);
-    if (e != cudaSuccess) return (int)e;
-    const dim3 grid((Q + QT - 1) / QT, B);
-    if (QT == 2)
-      lstm_bwd_kernel<2><<<grid, kThreads, smem, st>>>(a, o, vw);
-    else if (QT == 4)
-      lstm_bwd_kernel<4><<<grid, kThreads, smem, st>>>(a, o, vw);
-    else
-      lstm_bwd_kernel<kQT><<<grid, kThreads, smem, st>>>(a, o, vw);
+    const bool b16 = a.at.bf16;
+    const size_t smem = LstmBwdLayout(QT, R, A, HD, QT * H * LP, b16).bytes();
+    const auto kernel = b16 ? (QT == 2   ? lstm_bwd16_kernel<2>
+                               : QT == 4 ? lstm_bwd16_kernel<4>
+                                         : lstm_bwd16_kernel<kQT>)
+                            : (QT == 2   ? lstm_bwd_kernel<2>
+                               : QT == 4 ? lstm_bwd_kernel<4>
+                                         : lstm_bwd_kernel<kQT>);
+    if ((e = set_smem(kernel, smem)) != cudaSuccess) return (int)e;
+    kernel<<<dim3((Q + QT - 1) / QT, B), kThreads, smem, st>>>(a, o, vw);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   if (a.at.bf16) {

@@ -36,9 +36,9 @@ steps then run, as the JAX head dispatches them:
 Under ``--tpu_compute_dtype bfloat16`` (``precision``) each route runs its
 kernels' bf16-operand mode, as the JAX head passes ``att_precision`` to
 them: K4-K6, and on the stepwise path the table and K7/K8 or K9/K10.  On
-the card the stepwise path rounds the kernels' operands value_t (and, for
-K9/K10, ctx_w3 and w_hh) once per forward pass
-(:meth:`DSACaptionHead._stepper`); the products around the kernels
+the card the stepwise path rounds the kernels' operand value_t and, for
+K9/K10, packs the gate weights for their tensor cores once per forward
+pass (:meth:`DSACaptionHead._stepper`); the products around the kernels
 (hvec, the offsets, ``ctx . ctx_w`` and the LSTM layers outside K9) stay
 f32, as in JAX.  On the CPU its plain bf16 word steps take Wc in place of
 the table: the TPU kernels' product form, as the fused scan's plain bf16
@@ -66,6 +66,7 @@ from ..ops import (dsa_greedy_scan, dsa_teacher_scan, greedy_mask_outputs,
                    greedy_pick, lstm_cell, ms_deform_attn_sample_values,
                    step_pos_hvec)
 from ..ops.dsa_bf16 import RoundBf16, bf16_operand
+from ..ops.dsa_scan import pack_gate_weights
 from ..ops.dsa_step import (dsa_lstm_step_core, dsa_lstm_step_table_core,
                             dsa_sample_attend_core,
                             dsa_sample_attend_table_core)
@@ -442,13 +443,14 @@ class DSACaptionHead(_CaptionHead):
     def _step(self, hoisted, kernel_ops, z0, state, temporal_shapes):
         """One word step of the stepwise path (the JAX ``_make_core``'s
         ``run``): kernel_ops the word-step kernels' own operands of
-        ``_stepper`` (value_t, the table VW or None, ctx_w3, w_hh), z0
+        ``_stepper`` (value_t, the table VW or None, K9/K10-bf16's gate
+        pack or None), z0
         (B, Pq, 4R) the token's and query's share of layer 0's
         preactivation, state (h, c), each (num_layers, B, Pq, R).  The
         sampling positions and hvec come from the top layer's h; the context
         joins layer 0's preactivation.  Returns the new state."""
         _, base_pos, scale_t, _, _, (
-            off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, _), geom = \
+            off_w_h, h2att_w, h2att_b, cw, cb, aw, ab, ctx_w3, w_hh), geom = \
             hoisted
         h, c = state
         precision = self.cfg.precision
@@ -457,18 +459,18 @@ class DSACaptionHead(_CaptionHead):
                                self._mean_taps(geom, h[-1], temporal_shapes),
                                ctx_w3)
             return lstm_step_pre(self.core.rnn.layers(), z0 + ctx, h, c)
-        value_k, vw, ctx_w3_k, w_hh_k = kernel_ops
+        value_k, vw, pack = kernel_ops
         pos, hvec = step_pos_hvec(h[-1], base_pos, scale_t, off_w_h, h2att_w,
                                   h2att_b)
         if self.cfg.lstm_fuse and self.fusable:
             if vw is None:
                 h1, c1 = dsa_lstm_step_core(
-                    value_k, pos, hvec, z0, h[0], c[0], ctx_w3_k, w_hh_k, cw,
-                    cb, aw, ab, temporal_shapes, precision)
+                    value_k, pos, hvec, z0, h[0], c[0], ctx_w3, w_hh, cw, cb,
+                    aw, ab, temporal_shapes, precision)
             else:
                 h1, c1 = dsa_lstm_step_table_core(
-                    value_k, vw, pos, hvec, z0, h[0], c[0], ctx_w3_k, w_hh_k,
-                    cb, aw, ab, temporal_shapes, precision)
+                    value_k, vw, pos, hvec, z0, h[0], c[0], ctx_w3, w_hh, cb,
+                    aw, ab, temporal_shapes, precision, pack)
             return h1[None], c1[None]
         if vw is None:
             ctx = dsa_sample_attend_core(value_k, pos, hvec, cw, cb, aw, ab,
@@ -482,18 +484,20 @@ class DSACaptionHead(_CaptionHead):
     def _stepper(self, hoisted, temporal_shapes):
         """The word step of the stepwise path as ``step(z0, state)``, with
         what its kernels read built once per forward pass: the table VW and,
-        under bf16 ``precision`` on the card, the kernels' operands value_t,
-        ctx_w3 and w_hh rounded to bf16 (:class:`~dvc_tpu_torch.ops.
-        dsa_bf16.RoundBf16`, the gradient passed through); ctx_w3 and w_hh
-        only where K9 multiplies them (``lstm_fuse``), since the unfused
-        step's ``ctx . ctx_w`` and LSTM layers are f32 products outside the
-        kernel.  On the CPU in bf16 no table and no rounding here: the plain
-        steps take Wc (the TPU kernels' product form) and round their
-        operands themselves."""
+        under bf16 ``precision`` on the card, value_t rounded to bf16
+        (:class:`~dvc_tpu_torch.ops.dsa_bf16.RoundBf16`, the gradient passed
+        through) and, where K9-bf16/K10-bf16 run (``lstm_fuse``), the gate
+        weights [W_hh; ctx_w3] packed for their tensor cores
+        (``pack_gate_weights``: one pack for all the pass's word steps and
+        their backward; the gradients of ctx_w3 and w_hh come from K10's
+        outer sums).  The unfused step's ``ctx . ctx_w`` and LSTM
+        layers are f32 products outside the kernel.  On the CPU in bf16 no
+        table, rounding or pack here: the plain steps take Wc (the TPU
+        kernels' product form) and round their operands themselves."""
         value_t, _, _, _, _, (*_, ctx_w3, w_hh), geom = hoisted
         kernel_ops = None
         if geom is None:
-            vw = None
+            vw = pack = None
             if self.cfg.precision == 'float32' or value_t.is_cuda:
                 value16 = None
                 if self.cfg.precision == 'bfloat16':
@@ -502,10 +506,9 @@ class DSACaptionHead(_CaptionHead):
                     value16 = bf16_operand(value_t.detach())
                     value_t = RoundBf16.apply(value_t, value16)
                     if self.cfg.lstm_fuse and self.fusable:
-                        ctx_w3, w_hh = (RoundBf16.apply(ctx_w3),
-                                        RoundBf16.apply(w_hh))
+                        pack = pack_gate_weights(w_hh, ctx_w3)
                 vw = self._value_table((value_t,) + hoisted[1:], value16)
-            kernel_ops = (value_t, vw, ctx_w3, w_hh)
+            kernel_ops = (value_t, vw, pack)
         return lambda z0, state: self._step(hoisted, kernel_ops, z0, state,
                                             temporal_shapes)
 

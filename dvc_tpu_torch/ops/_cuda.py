@@ -44,8 +44,8 @@ _SIGNATURES = {
     'dvc_dsa_scan_bwd': [_P] * 39 + [_I] * 12 + [_P],
     'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 9 + [_P],
     'dvc_dsa_step_bwd': [_P] * 16 + [_I] * 9 + [_P],
-    'dvc_dsa_lstm_fwd': [_P] * 15 + [_I] * 10 + [_P],
-    'dvc_dsa_lstm_bwd': [_P] * 29 + [_I] * 11 + [_P],
+    'dvc_dsa_lstm_fwd': [_P] * 16 + [_I] * 10 + [_P],
+    'dvc_dsa_lstm_bwd': [_P] * 30 + [_I] * 11 + [_P],
     'dvc_dsa_table_gemm': [_P] * 4 + [_I] * 5 + [_P],
     'dvc_dsa_table_gemm_bwd': [_P] * 6 + [_I] * 5 + [_P],
     'dvc_dsa_gemm': [_P, _I, _I, _P] + [_I] * 6 + [_P, _P, _LL, _I, _P],

@@ -48,10 +48,17 @@ product form, which rounds its operands itself); the ``*_table_core``
 wrappers (vw given) have no CPU bf16 form.  On the card the same kernels
 run in their bf16-operand mode (K7-bf16 to K10-bf16), counted apart in
 ``launches_bf16``, on the table's bf16 mode.  The kernels, and so the
-``*_table_core`` wrappers, take value_t (and K9/K10 ctx_w3 and w_hh)
-rounded to bf16 by the caller: the caption head once per forward pass
+``*_table_core`` wrappers, take value_t rounded to bf16 by the caller: the
+caption head once per forward pass
 (:class:`~dvc_tpu_torch.ops.dsa_bf16.RoundBf16`), the ``*_core`` and
-``dsa_*_grads`` wrappers at the JAX boundary in each call.
+``dsa_*_grads`` wrappers at the JAX boundary in each call.  K9-bf16 and
+K10-bf16 run their gate products on the tensor cores from ``pack``, the
+gate weights packed in bf16 (:func:`~dvc_tpu_torch.ops.dsa_scan.
+pack_gate_weights` (w_hh, ctx_w3)), which they require, in place of
+ctx_w3 and w_hh (then unread): the caption head packs once per forward
+pass, :class:`DSALSTMStepFunction` hands the forward's pack to the
+backward, and the JAX-boundary wrappers pack once per call.  The f32
+kernels refuse a pack.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ import torch
 
 from . import _cuda, dsa_bf16
 from .dsa_greedy import _level_bounds, attend, check_precision, lstm_cell
+from .dsa_scan import _ptr, gate_geometry, pack_gate_weights
 from .dsa_tables import dsa_value_table, table_gemm, table_gemm_bwd
 
 STEP_NAMES = ('value_t', 'pos', 'hvec', 'cw', 'cb', 'aw', 'ab')
@@ -249,10 +257,11 @@ def dsa_lstm_step_ref(value, offsets, ref_center, offset_scale, hvec, z0, h,
 # the kernels
 # ----------------------------------------------------------------------------
 
-def _operands(names, args, temporal_shapes):
+def _operands(names, args, temporal_shapes, unread=()):
     """Check the operands of a kernel launch, and the limits of the
     kernels' float4 reads; returns (dims, contiguous operands with ab as a
-    one-element device tensor)."""
+    one-element device tensor, None for the operands ``unread``, whose
+    shapes are checked but which the launch does not read)."""
     ops = dict(zip(names, args))
     dev = ops['value_t'].device
     if dev.type != 'cuda':
@@ -281,9 +290,39 @@ def _operands(names, args, temporal_shapes):
                          f'and A, Dh = {Dh} and R = {R} multiples of 4')
     # the kernels read rows as float4: a view's storage offset may leave
     # them unaligned, a copy does not
-    tensors = [ops[n].contiguous() for n in names]
+    tensors = [None if n in unread else ops[n].contiguous() for n in names]
     return ((B, H, S, Dh, Q, LP, L, A, R),
-            [t.clone() if t.data_ptr() % 16 else t for t in tensors])
+            [t.clone() if t is not None and t.data_ptr() % 16 else t
+             for t in tensors])
+
+
+def _gate_pack(pack, rb, dims, dev):
+    """The packed gate weights of a K9/K10 launch: required in bf16 (a
+    flat torch.bfloat16 tensor of ``pack_gate_weights``' size on ``dev``,
+    16-byte aligned), refused in f32.  Nothing is packed here."""
+    if not rb:
+        if pack is not None:
+            raise ValueError('the f32 K9/K10 take ctx_w3 and w_hh, not a '
+                             'gate pack')
+        return None
+    if pack is None:
+        raise ValueError('K9-bf16 and K10-bf16 take the gate weights packed '
+                         'once a forward pass: pack=pack_gate_weights(w_hh, '
+                         'ctx_w3)')
+    H, Dh, R = dims[1], dims[3], dims[8]
+    Rp, KKp = gate_geometry(R, H * Dh)
+    if (pack.dtype != torch.bfloat16 or pack.device != dev
+            or pack.numel() != 8 * Rp * KKp or not pack.is_contiguous()
+            or pack.data_ptr() % 16):
+        raise ValueError(f'K9/K10-bf16: the gate pack must be a contiguous, '
+                         f'16-byte aligned torch.bfloat16 tensor of '
+                         f'{8 * Rp * KKp} elements on {dev} '
+                         f'(pack_gate_weights)')
+    return pack
+
+
+# the operands that K9-bf16 and K10-bf16 read from the pack instead
+_PACKED = ('ctx_w3', 'w_hh')
 
 
 def _zeros(dev, *shape):
@@ -350,20 +389,24 @@ dsa_sample_attend_bwd.launches_bf16 = 0
 
 
 def dsa_lstm_step_fwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
-                      aw, ab, temporal_shapes, precision='float32'):
+                      aw, ab, temporal_shapes, precision='float32',
+                      pack=None):
     """(h_new, c_new) of :func:`lstm_step_table_ref` by the kernel
     ``dvc_dsa_lstm_fwd`` (K9, or K9-bf16 under ``precision='bfloat16'``:
-    value_t, ctx_w3 and w_hh rounded to bf16 by the caller, vw the table's
-    bf16 mode), or an error."""
+    value_t rounded to bf16 by the caller, vw the table's bf16 mode, and
+    ``pack`` = ``pack_gate_weights(w_hh, ctx_w3)``, required, whose P^T
+    half it reads in place of ctx_w3 and w_hh), or an error."""
     rb = check_precision(precision)
     dims, ops = _operands(LSTM_TABLE_NAMES, (value_t, vw, pos, hvec, z0, h, c,
                                              ctx_w3, w_hh, cb, aw, ab),
-                          temporal_shapes)
+                          temporal_shapes, _PACKED if rb else ())
     B, H, S, Dh, Q, LP, L, A, R = dims
     dev = ops[0].device
+    pack = _gate_pack(pack, rb, dims, dev)
     h_new, c_new = _empty(dev, B, Q, R), _empty(dev, B, Q, R)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_lstm_fwd(
-        *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
+        *map(_ptr, ops[:9]), _ptr(pack), *map(_ptr, ops[9:]),
+        _cuda.levels_array(temporal_shapes),
         h_new.data_ptr(), c_new.data_ptr(), B, H, S, Dh, Q, LP, L, A, R,
         int(rb), _cuda.stream_ptr(dev)), 'dvc_dsa_lstm_fwd')
     _cuda.count_launch(dsa_lstm_step_fwd, rb)
@@ -375,19 +418,21 @@ dsa_lstm_step_fwd.launches_bf16 = 0
 
 
 def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
-                      aw, ab, temporal_shapes, gh, gc, precision='float32'):
+                      aw, ab, temporal_shapes, gh, gc, precision='float32',
+                      pack=None):
     """The 12 gradients of K9 for the cotangents gh, gc (B, Q, R) of
     (h_new, c_new), in the order of its operands (value_t's the context's
     term only; vw's G), by the kernel ``dvc_dsa_lstm_bwd`` (K10, or
-    K10-bf16 under ``precision='bfloat16'``, operands as K9-bf16's), or an
-    error."""
+    K10-bf16 under ``precision='bfloat16'``, operands as K9-bf16's: it
+    reads both halves of ``pack``), or an error."""
     rb = check_precision(precision)
     ab_shape = torch.as_tensor(ab).shape
     dims, ops = _operands(LSTM_TABLE_NAMES, (value_t, vw, pos, hvec, z0, h, c,
                                              ctx_w3, w_hh, cb, aw, ab),
-                          temporal_shapes)
+                          temporal_shapes, _PACKED if rb else ())
     B, H, S, Dh, Q, LP, L, A, R = dims
     dev = ops[0].device
+    pack = _gate_pack(pack, rb, dims, dev)
     if tuple(gh.shape) != (B, Q, R) or tuple(gc.shape) != (B, Q, R):
         raise ValueError('word-step kernel: gh and gc must be (B, Q, R)')
     gh = gh.to(torch.float32).contiguous()
@@ -405,7 +450,8 @@ def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
                           if rb else torch.float32)
     scratch = (ctx_all, work)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_lstm_bwd(
-        *(t.data_ptr() for t in ops), gh.data_ptr(), gc.data_ptr(),
+        *map(_ptr, ops[:9]), _ptr(pack), *map(_ptr, ops[9:]), gh.data_ptr(),
+        gc.data_ptr(),
         _cuda.levels_array(temporal_shapes),
         *(t.data_ptr() for t in outs + scratch),
         B, H, S, Dh, Q, LP, L, A, R, work.numel(), int(rb),
@@ -418,19 +464,19 @@ dsa_lstm_step_bwd.launches = 0
 dsa_lstm_step_bwd.launches_bf16 = 0
 
 
-def _boundary_grads(bwd, value_t, cw, *args, precision='float32'):
+def _boundary_grads(bwd, value_t, cw, *args, precision='float32', **kw):
     """(dvalue, the rest of ``bwd``'s gradients, dcw) at the JAX boundary,
     on the card: the table VW = value_t . cw (``table_gemm``), ``bwd(value_t,
     VW, *args)`` (K8 or K10: value_t's context term and G first), and the
     table's backward (``table_gemm_bwd``) for value_t's scores' term and
     cw's gradient; under ``precision='bfloat16'`` each in its bf16 mode,
-    on value_t rounded (``args`` carry ctx_w3 and w_hh rounded for K10)."""
+    on value_t rounded (``kw``: K10-bf16's gate pack)."""
     if check_precision(precision):
         value_t = dsa_bf16.bf16(value_t)
     B, H, S, Dh = value_t.shape
     rows = value_t.reshape(-1, Dh)
     vw = table_gemm(rows, cw, precision).reshape(B, H, S, -1)
-    dvalue, G, *rest = bwd(value_t, vw, *args, precision=precision)
+    dvalue, G, *rest = bwd(value_t, vw, *args, precision=precision, **kw)
     dx, dcw = table_gemm_bwd(rows, cw, G.reshape(-1, G.shape[-1]), precision)
     return dvalue + dx.reshape(dvalue.shape), rest, dcw
 
@@ -453,13 +499,14 @@ def dsa_lstm_step_grads(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb,
     """The 12 gradients at the JAX boundary (the operands of
     :func:`lstm_step_ref`) for the cotangents gh, gc, by the table, K10 and
     the table's backward (each in its bf16 mode under
-    ``precision='bfloat16'``)."""
-    if check_precision(precision):
-        ctx_w3, w_hh = dsa_bf16.bf16(ctx_w3), dsa_bf16.bf16(w_hh)
+    ``precision='bfloat16'``, K10-bf16 on the gate weights packed here,
+    once a call)."""
+    pack = (pack_gate_weights(w_hh, ctx_w3) if check_precision(precision)
+            else None)
     dvalue, rest, dcw = _boundary_grads(dsa_lstm_step_bwd, value_t, cw, pos,
                                         hvec, z0, h, c, ctx_w3, w_hh, cb, aw,
                                         ab, temporal_shapes, gh, gc,
-                                        precision=precision)
+                                        precision=precision, pack=pack)
     return (dvalue, *rest[:7], dcw, *rest[7:])
 
 
@@ -485,21 +532,28 @@ class DSASampleAttendFunction(torch.autograd.Function):
 
 class DSALSTMStepFunction(torch.autograd.Function):
     """K9 forward, K10 backward, over the operands of
-    :func:`lstm_step_table_ref`; the last arguments are the level table
-    and the precision."""
+    :func:`lstm_step_table_ref`; the last arguments are the level table,
+    the precision and the gate pack (bf16: ``pack_gate_weights(w_hh,
+    ctx_w3)``, made by the caller once a forward pass; f32: None), which
+    the forward hands to K9-bf16 and its backward, the same tensor, to
+    K10-bf16.  The gradients of ctx_w3 and w_hh are K10's outer sums; the
+    pack, a kernel operand, has none."""
 
     @staticmethod
     def forward(fctx, *args):
-        *ops, temporal_shapes, precision = args
+        *ops, temporal_shapes, precision, pack = args
         fctx.temporal_shapes, fctx.precision = temporal_shapes, precision
+        fctx.pack = pack
         fctx.save_for_backward(*ops)
-        return dsa_lstm_step_fwd(*ops, temporal_shapes, precision=precision)
+        return dsa_lstm_step_fwd(*ops, temporal_shapes, precision=precision,
+                                 pack=pack)
 
     @staticmethod
     def backward(fctx, gh, gc):
         return (*dsa_lstm_step_bwd(*fctx.saved_tensors, fctx.temporal_shapes,
-                                   gh, gc, precision=fctx.precision),
-                None, None)
+                                   gh, gc, precision=fctx.precision,
+                                   pack=fctx.pack),
+                None, None, None)
 
 
 def _table_core_precision(value_t, precision):
@@ -553,19 +607,21 @@ def dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
 
 
 def dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh,
-                             cb, aw, ab, temporal_shapes, precision='float32'):
+                             cb, aw, ab, temporal_shapes, precision='float32',
+                             pack=None):
     """One fused word step (sampling, attention, LSTM cell) from the table
     vw = value_t . cw, differentiable (vw's gradient is G).  Returns
     (h_new, c_new).  CPU tensors: the plain version
     (:func:`lstm_step_table_ref`; in bf16 an error).  CUDA tensors: K9/K10
-    (f32, or K9-bf16/K10-bf16 under ``precision='bfloat16'``, value_t,
-    ctx_w3 and w_hh given rounded) or an error."""
+    (f32, or K9-bf16/K10-bf16 under ``precision='bfloat16'``, value_t given
+    rounded and ``pack`` = ``pack_gate_weights(w_hh, ctx_w3)``, made once a
+    forward pass, required) or an error."""
     _table_core_precision(value_t, precision)
     args = (value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb, aw,
             torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
     if not value_t.is_cuda:
         return lstm_step_table_ref(*args)
-    return DSALSTMStepFunction.apply(*args, precision)
+    return DSALSTMStepFunction.apply(*args, precision, pack)
 
 
 def dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
@@ -575,8 +631,8 @@ def dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
     version (:func:`lstm_step_ref`; bf16: the plain bf16 product form,
     K9-bf16's and K10-bf16's).  CUDA tensors: the table
     (:func:`dsa_value_table`), then K9/K10 (each in its bf16 mode under
-    ``precision='bfloat16'``, on value_t, ctx_w3 and w_hh rounded here), or
-    an error."""
+    ``precision='bfloat16'``, on value_t rounded and the gate weights packed
+    here, once a call), or an error."""
     rb = check_precision(precision)
     if not value_t.is_cuda:
         if rb:
@@ -587,9 +643,10 @@ def dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
                 tuple(temporal_shapes))
         return lstm_step_ref(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw,
                              cb, aw, ab, temporal_shapes)
+    pack = None
     if rb:
-        value_t, ctx_w3, w_hh = (dsa_bf16.RoundBf16.apply(t)
-                                 for t in (value_t, ctx_w3, w_hh))
+        value_t = dsa_bf16.RoundBf16.apply(value_t)
+        pack = pack_gate_weights(w_hh, ctx_w3)
     return dsa_lstm_step_table_core(
         value_t, dsa_value_table(value_t, cw, precision), pos, hvec, z0, h, c,
-        ctx_w3, w_hh, cb, aw, ab, temporal_shapes, precision)
+        ctx_w3, w_hh, cb, aw, ab, temporal_shapes, precision, pack)

@@ -465,7 +465,8 @@ def test_lstm_step_kernels_refuse_what_they_do_not_implement(cuda):
             _cuda.gemm_work(cuda, (R, 4 * R, B * Q), (H * Dh, 4 * R, B * Q)))
     ab = kargs[11].reshape(1)
     code = _cuda.lib().cdll.dvc_dsa_lstm_bwd(
-        *(t.data_ptr() for t in kargs[:11]), ab.data_ptr(), gh.data_ptr(),
+        *(t.data_ptr() for t in kargs[:9]), None,
+        *(t.data_ptr() for t in kargs[9:11]), ab.data_ptr(), gh.data_ptr(),
         gc.data_ptr(), _cuda.levels_array(ts),
         *(t.data_ptr() for t in outs), B, H, S, Dh, Q, LP, len(ts), A, R,
         outs[-1].numel(), 0, _cuda.stream_ptr(cuda))
@@ -495,6 +496,107 @@ def test_step_kernels_at_the_recipe_width(cuda):
     step = args[:3] + args[8:]
     ctx = dsa_sample_attend_fwd(*_table_args(step), ts)
     assert _close(ctx, sample_attend_ref(*step, ts), 1e-4)[0]
+
+
+# (B, Q) of the bf16 word-step kernels' query tiles on a 132-SM card
+# (query_tile): K9-bf16 4, 4, 8, 16; K10-bf16 2, 4, 8, 8
+LSTM_BF16_TILES = [(1, 13), (4, 40), (8, 64), (17, 64)]
+
+
+@pytest.mark.parametrize('B,Q', LSTM_BF16_TILES)
+def test_lstm_bf16_kernels_match_the_table_mirror(cuda, B, Q):
+    """K9-bf16 and K10-bf16 (their gates on the tensor cores from the gate
+    weights packed once, ``pack_gate_weights``) with VW given against the
+    plain bf16 table-form mirror (``dsa_bf16.lstm_step_fwd`` / ``_bwd`` with
+    ``table=True``, the rounding points they compute), in relative L2
+    against the plain f32 version's distance from the mirror: h' and c'
+    within BF16_MIRROR_FWD, each gradient (but d alpha_b) within
+    BF16_MIRROR_BWD, phase 16's limits; at R = 36 (padded to 64 units), H =
+    2 (K10-bf16's dctx split over two heads) and each query tile the host
+    picks (LSTM_BF16_TILES).  The cotangent is zero on the queries with a
+    tap within an ulp of a level-relative integer."""
+    from chip_smoke import BF16_MIRROR_BWD, BF16_MIRROR_FWD, rel_l2
+    from dvc_tpu_torch.ops import dsa_bf16
+    from dvc_tpu_torch.ops.dsa_scan import pack_gate_weights
+    rng = np.random.default_rng(700 + B)
+    ts, bf = (12, 6), 'bfloat16'
+    args = step_args(cuda, rng, B=B, H=2, Q=Q, R=36, ts=ts, lstm=True)
+    value_t = dsa_bf16.bf16(args[0])
+    vw = table_gemm(value_t.reshape(-1, value_t.shape[-1]), args[8],
+                    bf).reshape(*value_t.shape[:3], -1)
+    kargs = (value_t, vw) + tuple(args[1:8]) + tuple(args[9:])
+    pack = pack_gate_weights(args[7], args[6])
+    launches = (dsa_lstm_step_fwd.launches_bf16,
+                dsa_lstm_step_bwd.launches_bf16)
+    out = dsa_lstm_step_fwd(*kargs, ts, precision=bf, pack=pack)
+    mirror = dsa_bf16.lstm_step_fwd(*args, ts, table=True)
+    f32 = lstm_step_ref(*args, ts)
+    for a, m, f in zip(out, mirror, f32):
+        assert rel_l2(a, m) <= BF16_MIRROR_FWD * rel_l2(f, m), (
+            rel_l2(a, m), rel_l2(f, m))
+    keep = ~near_integer(args[1].double())                 # (B, Q)
+    gh, gc = (torch.sin(3.0 * out[0]) * keep[..., None],
+              torch.cos(2.0 * out[1]) * keep[..., None])
+    grads = dsa_lstm_step_bwd(*kargs, ts, gh, gc, precision=bf, pack=pack)
+    torch.cuda.synchronize()
+    assert (dsa_lstm_step_fwd.launches_bf16,
+            dsa_lstm_step_bwd.launches_bf16) == (launches[0] + 1,
+                                                 launches[1] + 1)
+    # at the JAX boundary (the table and its backward composed): the mirror
+    want = dsa_bf16.lstm_step_bwd(*args, ts, gh, gc, table=True)
+    f32 = lstm_step_bwd_ref(*args, ts, gh, gc)
+    got = dsa_lstm_step_grads(*args, ts, gh, gc, precision=bf)
+    for name, a, w, f in zip(LSTM_NAMES, got, want, f32):
+        assert torch.isfinite(a).all(), name
+        if name != 'ab':
+            assert rel_l2(a, w) <= BF16_MIRROR_BWD * rel_l2(f, w), (
+                name, rel_l2(a, w), rel_l2(f, w))
+    # the kernel's own dz0, dh and dc against the mirror's
+    for name in ('z0', 'h', 'c'):
+        i = LSTM_NAMES.index(name)
+        assert rel_l2(grads[i + 1], want[i]) <= \
+            BF16_MIRROR_BWD * rel_l2(f32[i], want[i]), name
+
+
+def test_lstm_bf16_kernels_require_the_pack(cuda):
+    """K9-bf16 and K10-bf16 take the packed gate weights and nothing else:
+    their wrappers raise without a pack (no repacking, no fallback) or with
+    one of another size, type or device; the f32 kernels refuse a pack; the
+    entry points refuse a null pack in bf16 and a pack in f32."""
+    from dvc_tpu_torch.ops import _cuda
+    from dvc_tpu_torch.ops.dsa_scan import pack_gate_weights
+    rng = np.random.default_rng(710)
+    ts, bf = (12, 6), 'bfloat16'
+    B, H, Q, Dh, A, R, S, LP = 2, 2, 13, 8, 16, 24, 18, 4
+    kargs = _table_args(step_args(cuda, rng, ts=ts, lstm=True))
+    gh = gc = torch.zeros((B, Q, R), device=cuda)
+    pack = pack_gate_weights(kargs[8], kargs[7])
+    launches = (dsa_lstm_step_fwd.launches, dsa_lstm_step_fwd.launches_bf16,
+                dsa_lstm_step_bwd.launches, dsa_lstm_step_bwd.launches_bf16)
+    for bad in (None, pack[:-8], pack.float(), pack.cpu()):
+        with pytest.raises(ValueError, match='pack'):
+            dsa_lstm_step_fwd(*kargs, ts, precision=bf, pack=bad)
+        with pytest.raises(ValueError, match='pack'):
+            dsa_lstm_step_bwd(*kargs, ts, gh, gc, precision=bf, pack=bad)
+    with pytest.raises(ValueError, match='pack'):
+        dsa_lstm_step_fwd(*kargs, ts, pack=pack)
+    with pytest.raises(ValueError, match='pack'):
+        dsa_lstm_step_bwd(*kargs, ts, gh, gc, pack=pack)
+    with pytest.raises(ValueError, match='pack'):
+        dsa_lstm_step_table_core(*kargs, ts, bf)
+    assert launches == (dsa_lstm_step_fwd.launches,
+                        dsa_lstm_step_fwd.launches_bf16,
+                        dsa_lstm_step_bwd.launches,
+                        dsa_lstm_step_bwd.launches_bf16)
+    out = torch.empty((2, B, Q, R), device=cuda)
+    ab = kargs[11].reshape(1)
+    for rb, wp in ((1, None), (0, pack.data_ptr())):
+        code = _cuda.lib().cdll.dvc_dsa_lstm_fwd(
+            *(t.data_ptr() for t in kargs[:9]), wp,
+            *(t.data_ptr() for t in kargs[9:11]), ab.data_ptr(),
+            _cuda.levels_array(ts), out[0].data_ptr(), out[1].data_ptr(), B,
+            H, S, Dh, Q, LP, len(ts), A, R, rb, _cuda.stream_ptr(cuda))
+        assert code == 1                                # cudaErrorInvalidValue
 
 
 def _wide_args(dev, rng, B, H, Q, greedy, K=29, d=512, R=512, A=512, E=512,
