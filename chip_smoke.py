@@ -1622,6 +1622,58 @@ SPLITS = {
     },
 }
 
+# K7-bf16's and K8-bf16's phases (the product form, dsa_step.cu): the taps'
+# staging, the scores (pre = taps . Wc on mma and the tanh on the
+# accumulators), ctx; K8-bf16's d wts, du (pre again, the tanh, du and its
+# sums), dtaps (du . Wc^T on mma, dpos, the dvalue scatter), dcw (mma in
+# the block) and, where the GEMM sums dcw, its outer sum
+_ATTEND16_STAGE = ('dsa_step.cu',
+                   '      *reinterpret_cast<uint4*>(t.taps + (size_t)row * t.g.ldt + (i % c8) * 8) =\n'
+                   '          make_uint4(o[0], o[1], o[2], o[3]);\n', '')
+_ATTEND16_SCORES = ('dsa_step.cu', '  attend16_scores<MT, kRes>(at, t, t.part);\n', '')
+# within the scores and the du phase: the products alone (the accumulators
+# zeroed instead) and the tanh alone (the preactivation passed through)
+_ATTEND16_SCORE_MMA = ('dsa_step.cu', '      taps_wc<MT, kRes>(t, mt0, mtn, j, acc);\n',
+                       '      for (auto& x : acc) for (auto& y : x) for (auto& z : y) z = 0.f;\n')
+_ATTEND16_SCORE_TANH = ('dsa_step.cu',
+                        '            const float a = tanhf(__fadd_rn(__fadd_rn(acc[i][nt][e], '
+                        'e & 1 ? cb.y : cb.x),\n',
+                        '            const float a = (__fadd_rn(__fadd_rn(acc[i][nt][e], '
+                        'e & 1 ? cb.y : cb.x),\n')
+SPLITS['current']['dsa_step_fwd_bf16'] = ('dsa_step.cu', [
+    ('taps staging', [_ATTEND16_STAGE]),
+    ('scores (mma, tanh)', [_ATTEND16_SCORES]),
+    ('scores\' mma', [_ATTEND16_SCORE_MMA]),
+    ('scores\' tanh', [_ATTEND16_SCORE_TANH]),
+    ('ctx', [('dsa_step.cu',
+              '          acc[0] = fmaf(w, lerp_tap(wl, bf_lo(vl[k]), wh, bf_lo(vh[k])), acc[0]);\n'
+              '          acc[1] = fmaf(w, lerp_tap(wl, bf_hi(vl[k]), wh, bf_hi(vh[k])), acc[1]);\n',
+              '')]),
+])
+SPLITS['current']['dsa_step_bwd_bf16'] = ('dsa_step.cu', [
+    ('taps staging', [_ATTEND16_STAGE]),
+    ('scores (mma, tanh)', [_ATTEND16_SCORES]),
+    ('d wts', [('dsa_step.cu',
+                '                acc = fmaf(lerp_tap(wl, bf_lo(lw[e]), wh, bf_lo(hw[e])), d8[2 * e], '
+                'acc);\n'
+                '                acc = fmaf(lerp_tap(wl, bf_hi(lw[e]), wh, bf_hi(hw[e])), d8[2 * e + 1], '
+                'acc);\n', '')]),
+    ('du (mma, tanh, sums)', [('dsa_step.cu',
+                               '      attend16_du<MT, kSmall>(at, t, m0, nmt, ddot, dhvec, dcb, '
+                               'daw);\n', '')]),
+    ('du\'s mma', [('dsa_step.cu',
+                    '      taps_wc<MT, kRes>(t, m0 / 16 + i0, m0 / 16 + nmt, j, acc);\n',
+                    '      for (auto& x : acc) for (auto& y : x) for (auto& z : y) z = 0.f;\n')]),
+    ('du\'s tanh', [('dsa_step.cu', '            const float th = tanhf(__fadd_rn(',
+                     '            const float th = (__fadd_rn(')]),
+    ('dtaps (mma, dpos, dvalue)', [('dsa_step.cu',
+                                    '      attend16_dtaps<MTD, kSmall>(at, t, m0, nmt, q0, dctx, '
+                                    'part, dvalue_b);\n', '')]),
+    ('dcw (mma)', [('dsa_step.cu', '        attend16_dcw(t, m0, nmt, dcw);\n', '')]),
+    ('dcw outer sum', [('dsa_step.cu', 'B * Q * H * LP, Dh, A, dcw, st,',
+                        '0, Dh, A, dcw, st,')]),
+])
+
 # the bf16 kernels as they were before their tensor-core gates (the f32
 # kernels' code on bf16-rounded operands): run it from a checkout of a tree
 # from before them with this file copied in, python3 chip_smoke.py --split
@@ -1642,7 +1694,7 @@ SPLITS['cuda_core_bf16'] = {
 # builds) took 364 s of a 1,118 s run on an NVIDIA H100 80GB HBM3 machine,
 # so the full run splits the latest slice's kernels and `--split current`
 # the rest on demand
-FULL_RUN_SPLITS = ('dsa_lstm_fwd_bf16', 'dsa_lstm_bwd_bf16')
+FULL_RUN_SPLITS = ('dsa_step_fwd_bf16', 'dsa_step_bwd_bf16')
 
 
 def build_variants(csrc, specs):
@@ -1752,6 +1804,30 @@ def bf16_kernel_args(args, lstm):
             gate_pack_kw(args) if lstm else {})
 
 
+def attend16_kernel_args(args):
+    """K7-bf16's and K8-bf16's operands alone from ``step_inputs``' (without
+    ``lstm``) and their keyword arguments: in a tree whose bf16 wrappers
+    take the Wc pack, value_t in torch.bfloat16, no VW, the rest without cw,
+    and {'pack': ``pack_attend_weights(cw)``}; in an older one the table
+    form's (``bf16_kernel_args``)."""
+    from dvc_tpu_torch.ops import dsa_step
+    if not hasattr(dsa_step, 'pack_attend_weights'):
+        return bf16_kernel_args(args, False)
+    from dvc_tpu_torch.ops.dsa_bf16 import bf16_operand
+    return ([bf16_operand(args[0]), None] + list(args[1:3]) + list(args[4:]),
+            {'pack': dsa_step.pack_attend_weights(args[3])})
+
+
+def attend16_macs(args):
+    """MACs of K7-bf16's product form over its B*Q queries (``args``:
+    ``step_inputs``'): each tap row's taps . Wc (Dh*A) and . aw (A), and the
+    context (3*Dh a tap); K8-bf16 does three such products."""
+    value_t, pos = args[:2]
+    B, H, S, Dh = value_t.shape
+    A = args[2].shape[-1]
+    return B * pos.shape[2] * H * pos.shape[3] * (Dh * A + A + 3 * Dh)
+
+
 def split_cases(kernels):
     """(kernel, shape label, call) of each split of ``kernels``: K3 at
     (B, Q) = (16, 375), (16, 100), (1, 375) and at (16, 375) on encoder
@@ -1761,7 +1837,7 @@ def split_cases(kernels):
     also at B=1; K4 and K5 at the train shapes (Q=90, K=29; B=1 and 16 at
     H=1, B=1 at H=8), K4-bf16 and K5-bf16 at the same shapes; K7-K10
     (alone, with VW given) at the word-step shapes of ``check_step`` (B=1,
-    Q=90, H=1; B=16, Q=100, H=1 and 8), K9-bf16 and K10-bf16 at
+    Q=90, H=1; B=16, Q=100, H=1 and 8), K7-bf16 to K10-bf16 at
     STEP_BF16_SHAPES."""
     import torch
     from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
@@ -1858,6 +1934,21 @@ def split_cases(kernels):
                           lambda args=args, gh=gh, gc=gc:
                           dsa_lstm_step_bwd(*args, MSDA_LEVELS, gh, gc)))
     for B, Q, H in STEP_BF16_SHAPES:
+        if not {'dsa_step_fwd_bf16', 'dsa_step_bwd_bf16'} & set(kernels):
+            break
+        args, kw = attend16_kernel_args(step_inputs(gen, B, Q, H, False))
+        shape = f'B={B} Q={Q} H={H}'
+        if 'dsa_step_fwd_bf16' in kernels:
+            cases.append(('dsa_step_fwd_bf16', shape, lambda args=args, kw=kw:
+                          dsa_sample_attend_fwd(*args, MSDA_LEVELS,
+                                                precision=BF16, **kw)))
+        if 'dsa_step_bwd_bf16' in kernels:
+            g = torch.randn((B, H, Q, 512 // H), generator=gen, device='cuda')
+            cases.append(('dsa_step_bwd_bf16', shape,
+                          lambda args=args, kw=kw, g=g:
+                          dsa_sample_attend_bwd(*args, MSDA_LEVELS, g,
+                                                precision=BF16, **kw)))
+    for B, Q, H in STEP_BF16_SHAPES:
         if not {'dsa_lstm_fwd_bf16', 'dsa_lstm_bwd_bf16'} & set(kernels):
             break
         args, kw = bf16_kernel_args(step_inputs(gen, B, Q, H, True), True)
@@ -1925,9 +2016,16 @@ def ab_bf16_times():
     (B, H) = (16, 1), (16, 8), (1, 1), (1, 8)), and of dsa::gemm's bf16
     mode at every shape of OUTER_SUMS and TABLE_SHAPES
     (the table and its backward), of K9-bf16 and K10-bf16 with VW given at
-    STEP_BF16_SHAPES, f32 K9 and K10 beside them, and the device time and
-    device activities of one traced bf16 --dsa_lstm_fuse 1 train step at
-    B=1 and B=16 (``lstm_fuse_step_traces``), as one JSON line: the half of
+    STEP_BF16_SHAPES, f32 K9 and K10 beside them, of K7-bf16 and K8-bf16 at
+    STEP_BF16_SHAPES (f32 K7 and K8 beside them, VW given) as each tree's
+    wrappers take them (VW given, or value16
+    and the Wc pack: ``attend16_kernel_args``), each also with 1/29 of its
+    per-pass work (``+pass/29``: the table's bf16 mode and its backward, or
+    the Wc pack) and, where it returns G, the add of a step's G (``G
+    add``), and the device time and device activities of one traced bf16
+    --dsa_lstm_fuse 1 train step at B=1 and B=16
+    (``lstm_fuse_step_traces``) and of one --dsa_lstm_fuse 0 step at B=16,
+    cap_nheads 1 and 8 (``unfused_step_traces``), as one JSON line: the half of
     an A/B of two trees in one call (``--ab-bf16``; run it from each tree's
     root in turns, old, new, new, old, as ``--ab``).  A tree whose GEMM
     reads f32 operands in its bf16 mode (no ``_cuda.bf16_flags``) is timed
@@ -1941,8 +2039,13 @@ def ab_bf16_times():
     from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan
     from dvc_tpu_torch.ops.dsa_scan import (dsa_teacher_scan_bwd,
                                             dsa_teacher_scan_fwd)
-    from dvc_tpu_torch.ops.dsa_step import dsa_lstm_step_bwd, dsa_lstm_step_fwd
-    from dvc_tpu_torch.ops.dsa_tables import table_gemm, table_gemm_bwd
+    from dvc_tpu_torch.ops import dsa_step
+    from dvc_tpu_torch.ops.dsa_step import (dsa_lstm_step_bwd,
+                                            dsa_lstm_step_fwd,
+                                            dsa_sample_attend_bwd,
+                                            dsa_sample_attend_fwd)
+    from dvc_tpu_torch.ops.dsa_tables import (dsa_value_table, table_gemm,
+                                              table_gemm_bwd)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device='cuda').manual_seed(0)
     bf16_stored = hasattr(_cuda, 'bf16_flags')
@@ -2008,11 +2111,96 @@ def ab_bf16_times():
             calls[f'dsa_lstm_bwd {label}'] = (
                 lambda k32=k32, gh=gh, gc=gc:
                 dsa_lstm_step_bwd(*k32, L, gh, gc))
+        # K7-bf16 and K8-bf16 alone, and beside them the per-pass work a
+        # step carries 1/29 of: the parent's table in its bf16 mode (cw
+        # rounded, the GEMM) for K7 and its backward (G rounded, the GEMM's
+        # backward) for K8, where the tree's K7/K8-bf16 read VW; the Wc
+        # pack for K7 where they read it; and the parent's sum of a step's G
+        # into the others' (an add of (B, H, S, A), once a step)
+        passes = {}
+        for B, Q, H in STEP_BF16_SHAPES:
+            full = step_inputs(gen, B, Q, H, False)
+            k16, kw = attend16_kernel_args(full)
+            g = torch.randn((B, H, Q, 512 // H), generator=gen, device='cuda')
+            label = f'B={B} Q={Q} H={H}'
+            calls[f'dsa_step_fwd_bf16 {label}'] = (
+                lambda k16=k16, kw=kw:
+                dsa_sample_attend_fwd(*k16, L, precision=BF16, **kw))
+            calls[f'dsa_step_bwd_bf16 {label}'] = (
+                lambda k16=k16, kw=kw, g=g:
+                dsa_sample_attend_bwd(*k16, L, g, precision=BF16, **kw))
+            k32 = kernel_args(full, False)    # f32 K7 and K8 (VW given) beside them
+            calls[f'dsa_step_fwd {label}'] = (
+                lambda k32=k32: dsa_sample_attend_fwd(*k32, L))
+            calls[f'dsa_step_bwd {label}'] = (
+                lambda k32=k32, g=g: dsa_sample_attend_bwd(*k32, L, g))
+            value_t, cw = full[0], full[3]
+            if kw:
+                passes[f'dsa_step_fwd_bf16 {label}'] = (
+                    lambda cw=cw: dsa_step.pack_attend_weights(cw))
+                continue
+            x16 = value_t.reshape(-1, value_t.shape[-1]).bfloat16()
+            G = torch.randn((B, H, 375, 512), generator=gen, device='cuda')
+            acc = torch.zeros_like(G)
+            passes[f'dsa_step_fwd_bf16 {label}'] = (
+                lambda value_t=value_t, cw=cw, x16=x16:
+                dsa_value_table(value_t, cw, BF16, x16))
+            passes[f'dsa_step_bwd_bf16 {label}'] = (
+                lambda x16=x16, cw=cw, G=G: table_gemm_bwd(
+                    x16, cw.bfloat16(), G.reshape(x16.shape[0], -1).bfloat16(),
+                    BF16))
+            calls[f'dsa_step_bwd_bf16 {label} G add'] = (
+                lambda acc=acc, G=G: acc.add_(G))
         for key, call in calls.items():
             out[key] = cuda_ms(call, 20)
             out[f'{key} (device)'] = device_ms(call, 20)
+        for key in [k for k in calls if k.startswith('dsa_step_')
+                    and '_bf16 ' in k and not k.endswith('G add')]:
+            share = cuda_ms(passes[key], 20) if key in passes else 0.0
+            out[f'{key} +pass/29'] = out[key] + share / 29
     out.update(lstm_fuse_step_traces())
+    out.update(unfused_step_traces())
     print(json.dumps({'ab_bf16': out, 'bf16_stored': bf16_stored}))
+
+
+def unfused_step_traces(recipe=None, heads=(1, 8), B=16):
+    """One traced bf16 train step through K7/K8-bf16 (``--dsa_scan_fuse 0``
+    with the bf16 flags, ``--dsa_lstm_fuse 0``) at B=16 at each cap_nheads
+    of ``heads``, after a warm-up step, on the synthetic full-width run of
+    ``recipe`` (or one written here): {'unfused_bf16 H=<H> <busy_ms |
+    activities | idle | table launches>': value} (``traced``; the table's
+    launches, forward and backward, in the traced step).  The
+    scheduled-sampling route runs the same word steps."""
+    import torch
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+    if recipe is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return unfused_step_traces(
+                write_synthetic_run(tmp, load_config(CFG, root=ROOT)), heads,
+                B)
+    out = {}
+    for H in heads:
+        opt = parse_opts(['--cfg_path', recipe, '--device', DEVICE,
+                          '--dsa_scan_fuse', '0', '--dsa_lstm_fuse', '0',
+                          *BF16_FLAGS], root=ROOT)
+        opt.cap_nheads = H        # the recipe file (1) overlays the flag
+        trainer = Trainer(opt, device=DEVICE)
+        batch = train_batch(opt, B)
+        trainer.train_step(batch, opt.lr)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = trace(f'B={B} H={H} bf16 --dsa_lstm_fuse 0 train step (K7/K8-bf16, '
+                  f'{word_steps(batch)} word steps)',
+                  lambda: trainer.train_step(batch, opt.lr))
+        launches, _ = read_counts()
+        for k in ('busy_ms', 'activities', 'idle'):
+            if k in t:
+                out[f'unfused_bf16 H={H} {k}'] = t[k]
+        out[f'unfused_bf16 H={H} table launches'] = (
+            launches['table_gemm_bf16'] + launches['table_gemm_bwd_bf16'])
+        del trainer
+    return out
 
 
 def lstm_fuse_step_traces(recipe=None, batches=(1, 16)):
@@ -5272,16 +5460,17 @@ def check_table_bf16(gen, N, k, n, label):
              'bound_ms': bwd_bound[0], 'bound_by': bwd_bound[1]})
 
 
-# the word steps' gradients in the table form against the product form:
+# K9/K10-bf16's gradients in the table form against the product form:
 # nearer than the plain f32 version (a single step's table form lies from
 # the product form at up to 0.85 of f32's distance, value_t's gradient;
 # the scan's sum over K steps at up to 0.37, PERF.md section 6)
 BF16_STEP_GAP = 1.0
-# the word-step kernels against their table mirror, which computes the same
-# rounding points: the outputs within BF16_MIRROR_FWD and each gradient
-# within BF16_MIRROR_BWD of the plain f32 version's distance from the
-# mirror (read on an H100: outputs at most 2e-3 x, gradients 8.4e-2 x,
-# cw's, whose bf16(G) flips where f32 sums differ in the last bit); and
+# the word-step kernels against the plain form that computes their rounding
+# points (K7/K8-bf16: the product form; K9/K10-bf16: the table mirror): the
+# outputs within BF16_MIRROR_FWD and each gradient within BF16_MIRROR_BWD of
+# the plain f32 version's distance from the mirror (read on an H100 for the
+# table form: outputs at most 2e-3 x, gradients 8.4e-2 x, cw's, whose
+# bf16(G) flips where f32 sums differ in the last bit); and
 # K7's ctx and K8's and K10's dpos and dhvec, which JAX leaves unrounded
 # for the f32 products outside the kernels, with at most BF16_EXACT_MAX of
 # their nonzero elements on a bf16 value (an f32 sum lands on one with odds
@@ -5299,29 +5488,29 @@ def bf16_exact_share(x):
 def check_step_bf16(gen, B, Q, H, lstm):
     """K7-bf16 and K8-bf16 (or, with ``lstm``, K9-bf16 and K10-bf16)
     against their plain bf16 versions (``dsa_bf16``'s word steps) at the
-    JAX boundary, in both forms, each held to how far the plain f32
-    version lies from it: the output(s) and each gradient (but d alpha_b)
-    in relative L2.  Against the table form (``table=True``, the rounding
-    points the kernels compute) the kernel's distance is at most
-    BF16_FWD_SHARE (forward) or BF16_BWD_SHARE (each gradient) of f32's;
-    against the product form (the TPU kernels' bf16 products) at most
-    BF16_FWD_SHARE of f32's forward and BF16_STEP_GAP of it for each
-    gradient; and the kernel lies at least BF16_ROUNDS of the product
-    form's distance from f32 (the kernel rounds).  Against the table mirror
-    alone the limits are BF16_MIRROR_FWD and BF16_MIRROR_BWD, and K7's ctx
-    and the backward kernel's dpos and dhvec must not be rounded to bf16
-    (``bf16_exact_share`` at most BF16_EXACT_MAX).  The kernels take
-    value_t rounded to bf16 and VW from the table's bf16 mode, K9-bf16 and
-    K10-bf16 the gate weights packed once for both (``bf16_kernel_args``); the
-    7 (12) gradients at the JAX boundary are
-    composed with the table's bf16 backward (``dsa_*_grads``).  The
+    JAX boundary, each held to how far the plain f32 version lies from it:
+    the output(s) and each gradient (but d alpha_b) in relative L2.  The
+    mirror is the form the kernels compute: K7/K8-bf16 the product form
+    (the TPU kernels' bf16 products) itself, K9/K10-bf16 the table form
+    (``table=True``).  Against the mirror the limits are BF16_MIRROR_FWD
+    (the output(s)) and BF16_MIRROR_BWD (each gradient) of f32's distance,
+    and K7's ctx and the backward kernel's dpos and dhvec must not be
+    rounded to bf16 (``bf16_exact_share`` at most BF16_EXACT_MAX); against
+    the product form K9/K10-bf16 at most BF16_FWD_SHARE of f32's forward
+    and BF16_STEP_GAP of it for each gradient; and the kernel lies at
+    least BF16_ROUNDS of the product form's distance from f32 (the kernel
+    rounds).  K7-bf16 and K8-bf16 take value_t in bf16 and Wc packed once
+    for both (``attend16_kernel_args``), and K8-bf16 returns the 7
+    gradients at the JAX boundary itself (``dsa_sample_attend_grads``
+    calls it); K9-bf16 and K10-bf16 take value_t rounded to bf16, VW from
+    the table's bf16 mode and the gate weights packed once for both
+    (``bf16_kernel_args``), their 12 gradients at the JAX boundary
+    composed with the table's bf16 backward (``dsa_lstm_step_grads``).  The
     cotangent is zero on the queries with a tap within an ulp of a
     level-relative integer (``near_integer``), where the position's
-    gradient jumps.  The table form's plain mirror (``table=True``, what
-    the kernels compute) is printed beside it; times: the kernels alone
-    (VW given) in bf16 and in f32 on the same inputs, and the plain bf16
-    version (the product form).  Returns the forward's and the backward's
-    results."""
+    gradient jumps.  Times: the kernels alone in bf16, the f32 ones (VW
+    given) on the same inputs, and the plain bf16 version (the product
+    form).  Returns the forward's and the backward's results."""
     import torch
     from dvc_tpu_torch.ops import dsa_bf16
     from dvc_tpu_torch.ops import dsa_step as ds
@@ -5343,13 +5532,17 @@ def check_step_bf16(gen, B, Q, H, lstm):
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
 
-    # the kernels' own operands: (value_t, VW, the rest without cw), and
-    # K9/K10-bf16's gate pack
+    # the kernels' own operands and packs: K7/K8-bf16 (value16, no VW, the
+    # rest without cw) and the Wc pack; K9/K10-bf16 (value_t, VW, the rest
+    # without cw) and the gate pack.  The mirror: the form they compute
     Dh = args[0].shape[-1]
-    kargs, kw = bf16_kernel_args(args, lstm)
+    kargs, kw = (bf16_kernel_args(args, lstm) if lstm
+                 else attend16_kernel_args(args))
     kargs32 = kernel_args(args, lstm)
     outs = tup(fwd(*kargs, L, precision=BF16, **kw))
-    want, mirror = tup(pf(*args, L)), tup(pf(*args, L, table=True))
+    want = tup(pf(*args, L))
+    mirror = tup(pf(*args, L, table=True)) if lstm else want
+    mname = 'table mirror' if lstm else 'product form (the kernels\' own)'
     f32 = tup(ref(*args, L))
     fwd_d = {n: max(rel_l2(a, w) for a, w in zip(x, want))
              for n, x in (('kernel', outs), ('f32', f32), ('mirror', mirror))}
@@ -5364,11 +5557,14 @@ def check_step_bf16(gen, B, Q, H, lstm):
     grads = grads_of(*args, L, *cot, precision=BF16)
     kgrads = bwd(*kargs, L, *cot, precision=BF16, **kw)
     # the outputs that stay f32: K7's ctx, the kernel's dpos and dhvec
-    exact = {'dpos': bf16_exact_share(kgrads[2]),
-             'dhvec': bf16_exact_share(kgrads[3])}
+    # (K10's in the order of its operands, K8-bf16's in JAX's)
+    ip = 2 if lstm else 1
+    exact = {'dpos': bf16_exact_share(kgrads[ip]),
+             'dhvec': bf16_exact_share(kgrads[ip + 1])}
     if not lstm:
         exact['ctx'] = bf16_exact_share(outs[0])
-    wgrads, mgrads = pb(*args, L, *cot), pb(*args, L, *cot, table=True)
+    wgrads = pb(*args, L, *cot)
+    mgrads = pb(*args, L, *cot, table=True) if lstm else wgrads
     fgrads = bwd_ref(*args, L, *cot)
     # per gradient: kernel, f32, table mirror against the product form;
     # kernel, product form against f32; kernel, f32 against the mirror
@@ -5385,19 +5581,24 @@ def check_step_bf16(gen, B, Q, H, lstm):
     bwd_ms = cuda_ms(lambda: bwd(*kargs, L, *cot, precision=BF16, **kw), 20)
     bwd_f32 = cuda_ms(lambda: bwd(*kargs32, L, *cot), 20)
     bwd_plain = cuda_ms(lambda: pb(*args, L, *cot), 5)
-    macs = word_step_macs(args, lstm, table_given=True)
-    # value_t, ctx_w3 and w_hh enter products (2 bytes); VW is the table's
-    # f32 output, lerped
-    narrow = (0, 7, 8) if lstm else (0,)
-    fwd_bound = bf16_bound(bf16_bytes(kargs, narrow, outs), macs)
-    bwd_bound = bf16_bound(bf16_bytes(kargs, narrow, (*cot, *kgrads)),
+    if lstm:
+        # value_t, ctx_w3 and w_hh enter products (2 bytes); VW is the
+        # table's f32 output, lerped
+        macs, narrow, pack = word_step_macs(args, lstm, table_given=True), \
+            (0, 7, 8), ()
+    else:
+        # value16 and the Wc pack (bf16), the step's own tensors as stored
+        macs, narrow, pack = attend16_macs(args), (), (kw['pack'],)
+    fwd_bound = bf16_bound(bf16_bytes(kargs, narrow, (*outs, *pack)), macs)
+    bwd_bound = bf16_bound(bf16_bytes(kargs, narrow, (*cot, *kgrads, *pack)),
                            3 * macs)
     shape = (f'B={B} Q={Q} H={H} Dh={Dh} S=375 LP=16 A=512'
-             + (' R=512' if lstm else '') + ', VW given')
+             + (' R=512, VW given' if lstm else ', value16 and the Wc pack '
+                'given'))
     print(f'[bf16] {kind}_fwd_bf16 {shape}: against the plain bf16 version, '
           f'relative L2 kernel {fwd_d["kernel"]:.3e} / plain f32 '
-          f'{fwd_d["f32"]:.3e} / table mirror {fwd_d["mirror"]:.3e} (limit '
-          f'{BF16_FWD_SHARE} x plain f32); against the table mirror, '
+          f'{fwd_d["f32"]:.3e} / {mname} {fwd_d["mirror"]:.3e} (limit '
+          f'{BF16_FWD_SHARE} x plain f32); against the {mname}, '
           f'kernel {fwd_d["kernel-mirror"]:.3e} / plain f32 '
           f'{fwd_d["f32-mirror"]:.3e} (limit {BF16_MIRROR_FWD} x); on a bf16 '
           f'value: ' + ', '.join(f'{k} {v:.1e}' for k, v in exact.items())
@@ -5409,13 +5610,13 @@ def check_step_bf16(gen, B, Q, H, lstm):
           f'({fwd_bound[1]})')
     print(f'[bf16] {kind}_bwd_bf16 {shape}: {int((~keep).sum())} queries '
           f'near a tap boundary get a zero cotangent; gradients against the '
-          f'plain bf16 backward, relative L2 kernel / plain f32 / table '
-          f'mirror (kernel vs mirror): '
+          f'plain bf16 backward, relative L2 kernel / plain f32 / '
+          f'{mname} (kernel vs mirror): '
           + ', '.join(f'{n} {a:.2e}/{f:.2e}/{m:.2e} ({km:.1e})'
                       for n, (a, f, m, _, _, km, _) in bwd_d.items())
           + f' (limit {BF16_STEP_GAP} x plain f32); closest to its f32 '
           f'distance {worst} {bwd_d[worst][0] / bwd_d[worst][1]:.2f} x; '
-          f'against the table mirror, kernel / plain f32 at most '
+          f'against the {mname}, kernel / plain f32 at most '
           f'{bwd_d[off][5] / bwd_d[off][6]:.1e} x ({off}; limit '
           f'{BF16_MIRROR_BWD} x); from the plain f32 backward, kernel / '
           f'plain bf16: ' + ', '.join(f'{n} {a:.2e}/{w:.2e}' for n, (
@@ -5493,11 +5694,12 @@ def bf16_stepwise_train(recipe, card):
     validation each epoch), with the counts set to 0 just before each run
     and read just after: finite losses; the run's word-step pair in its
     bf16 mode (K7-bf16/K8-bf16, or K9-bf16/K10-bf16) as often forward as
-    backward, and the table's bf16 mode, launched; no f32 word-step or
-    table launch, none of the other pair, no plain version; the unfused
-    runs validate through the bf16 word steps (one table a val batch), the
-    scheduled-sampling run trains epoch 0 on K4-bf16/K5-bf16 (5 each),
-    epoch 1 stepwise (5 tables), feeds sampled tokens and validates on
+    backward launched, the table's bf16 mode with K9/K10-bf16 only (K7/K8-bf16
+    compute the product form: no table launch); no f32 word-step or table
+    launch, none of the other pair, no plain version; the unfused runs
+    validate through the bf16 word steps (K9/K10: one table a val batch),
+    the scheduled-sampling run trains epoch 0 on K4-bf16/K5-bf16 (5 each),
+    epoch 1 stepwise on K7/K8-bf16, feeds sampled tokens and validates on
     K6-bf16.  Returns {label: (launches, opt, run folder)}."""
     import math
     import torch
@@ -5528,10 +5730,11 @@ def bf16_stepwise_train(recipe, card):
               f'scheduled-sampling tokens fed {fed}')
         if not all(math.isfinite(v) for v in losses.values()):
             raise AssertionError(f'bf16 stepwise train losses: {losses}')
-        want = ('msda_fwd', 'msda_bwd', f'{fwd}_bf16', 'table_gemm_bf16',
-                'table_gemm_bwd_bf16')
+        tables = ('table_gemm_bf16', 'table_gemm_bwd_bf16')
+        want = ('msda_fwd', 'msda_bwd', f'{fwd}_bf16') + tables * lstm
         zero = STEP_KERNELS + (f'{other[0]}_bf16', f'{other[1]}_bf16',
-                               'dsa_scan_fwd', 'dsa_scan_bwd', 'dsa_greedy')
+                               'dsa_scan_fwd', 'dsa_scan_bwd',
+                               'dsa_greedy') + tables * (not lstm)
         f, b = launches[f'{fwd}_bf16'], launches[f'{bwd}_bf16']
         if epochs == 1:
             # 5 train steps, then the validation's stepwise decodes: more
@@ -5539,15 +5742,15 @@ def bf16_stepwise_train(recipe, card):
             check_launches(f'bf16-stepwise {label}', launches, plain, want,
                            zero + ('dsa_scan_fwd_bf16', 'dsa_scan_bwd_bf16',
                                    'dsa_greedy_bf16'),
-                           {'table_gemm_bwd_bf16': 5})
-            ok = b >= 5 and f > b and launches['table_gemm_bf16'] > 5
+                           {'table_gemm_bwd_bf16': 5} if lstm else {})
+            ok = b >= 5 and f > b and (
+                launches['table_gemm_bf16'] > 5 or not lstm)
         else:
             assert [ss_prob_for_epoch(opt, e) for e in (0, 1)] == \
                 [0.0, SS_PROB]
             check_launches(f'bf16-stepwise {label}', launches, plain,
                            want + ('dsa_greedy_bf16',), zero,
-                           {'dsa_scan_fwd_bf16': 5, 'dsa_scan_bwd_bf16': 5,
-                            'table_gemm_bf16': 5, 'table_gemm_bwd_bf16': 5})
+                           {'dsa_scan_fwd_bf16': 5, 'dsa_scan_bwd_bf16': 5})
             ok = b >= 5 and f == b and fed > 0
         if not ok:
             raise AssertionError(f'[bf16-stepwise {label}] launches '
@@ -5559,9 +5762,9 @@ def bf16_stepwise_train(recipe, card):
 def bf16_stepwise_eval(folder, card):
     """``run_eval`` at --eval_batch_size 16 of the unfused bf16 run (its
     saved options: --dsa_greedy_fuse 0 and the bf16 flags), greedy and with
-    --caption_sample_max 0: max_caption_len K7-bf16 launches and one table
-    (bf16 mode) a batch, no K6 of either mode, no f32 word step, no plain
-    version, finite scores."""
+    --caption_sample_max 0: max_caption_len K7-bf16 launches a batch and no
+    table (K7-bf16 computes the product form), no K6 of either mode, no f32
+    word step, no plain version, finite scores."""
     from dvc_tpu_torch.serve import run_options
     ropt = run_options(folder)
     if (ropt.tpu_compute_dtype, ropt.dsa_greedy_fuse) != (BF16, 0):
@@ -5582,9 +5785,9 @@ def bf16_stepwise_eval(folder, card):
                        + STEP_KERNELS + ('dsa_step_bwd_bf16',
                                          'dsa_lstm_fwd_bf16',
                                          'dsa_lstm_bwd_bf16',
+                                         'table_gemm_bf16',
                                          'table_gemm_bwd_bf16'),
-                       {'dsa_step_fwd_bf16': ropt.max_caption_len * batches,
-                        'table_gemm_bf16': batches})
+                       {'dsa_step_fwd_bf16': ropt.max_caption_len * batches})
 
 
 def bf16_stepwise(recipe, card):
@@ -5597,7 +5800,7 @@ def bf16_stepwise(recipe, card):
     route on the card against the CPU (``bf16_train_agreement``); ``run_eval`` of the unfused
     run greedy and sampled (``bf16_stepwise_eval``).  Returns the launches
     of the kernels line: K7/K8-bf16 from the unfused run, K9/K10-bf16 from
-    the lstm_fuse run, the tables' from both."""
+    the lstm_fuse run, the tables' from both (the unfused run's: none)."""
     import torch
     from dvc_tpu_torch.train import Trainer
     from dvc_tpu_torch.utils.config import parse_opts
@@ -5722,7 +5925,7 @@ def main():
     # stepwise runs' for the table; the bf16 variants': phase 16's bf16
     # train run for K4-bf16 and K5-bf16, its run_eval at B=16 for K6-bf16,
     # its unfused stepwise run for K7-bf16 and K8-bf16, its lstm_fuse run
-    # for K9-bf16 and K10-bf16, both for the table's bf16 mode (their first
+    # for K9-bf16 and K10-bf16 and the table's bf16 mode (their first
     # shapes: K6-bf16 at B=16, H=1, K4/K5-bf16 at B=1, H=1, K7-K10-bf16
     # and the table at B=1, Q=90, H=1)
     kernels.update(bf16_results)

@@ -33,7 +33,8 @@
 // kernels (K7-K10-bf16, dsa_step.cu) are given hvec and pos and return ctx,
 // dhvec and dpos to f32 products outside the kernel (h_top . h2att_w, the
 // offsets, ctx . ctx_w under K7), which the TPU kernels do not round: there
-// dhvec (hvec_given) and K7's ctx (ctx_f32) stay f32.
+// dhvec stays f32 (hvec_given; K7-bf16 and K8-bf16 compute their attention
+// in dsa_step.cu, ctx, dpos and dhvec unrounded).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -183,7 +184,6 @@ struct AttendArgs {
   int bf16;               // the bf16-operand mode (see the top of this file)
   int hvec_given;         // hvec and pos are operands (the word steps): dhvec
                           // stays f32 in the bf16 mode
-  int ctx_f32;            // ctx is an output (K7): stored f32 in the bf16 mode
   const uint4* h2att_pack;  // the bf16 mode of K4-K6: W_h2att^T packed in bf16
                             // (hidden_mma), hvec then on the tensor cores
                             // (attend_hvec_mma); else null
@@ -326,7 +326,7 @@ __device__ __forceinline__ void attend_softmax_ctx(const AttendArgs& a,
                       + s.whi[row] * v[(size_t)s.hi[row] * Dh];
       acc = fmaf(s.d[row], t, acc);
     }
-    s.ctx[q * ldHD + hd] = round_if(a.bf16 && !a.ctx_f32, acc);
+    s.ctx[q * ldHD + hd] = round_if(a.bf16, acc);
   }
   __syncthreads();
 }

@@ -24,7 +24,8 @@ steps then run, as the JAX head dispatches them:
   the top layer's h; the step itself reads the table ``VW = value_t . Wc``
   that the head builds once per forward pass
   (:func:`dvc_tpu_torch.ops.dsa_tables.dsa_value_table`; its backward then
-  runs once per backward pass, on the sum of the steps' gradients):
+  runs once per backward pass, on the sum of the steps' gradients; in bf16
+  only under K9/K10, see below):
   :func:`dvc_tpu_torch.ops.dsa_step.dsa_sample_attend_table_core` with the
   LSTM in tensor ops, or, with ``lstm_fuse`` and one layer,
   :func:`dvc_tpu_torch.ops.dsa_step.dsa_lstm_step_table_core`, the cell
@@ -35,15 +36,17 @@ steps then run, as the JAX head dispatches them:
 
 Under ``--tpu_compute_dtype bfloat16`` (``precision``) each route runs its
 kernels' bf16-operand mode, as the JAX head passes ``att_precision`` to
-them: K4-K6, and on the stepwise path the table and K7/K8 or K9/K10.  On
-the card the stepwise path rounds the kernels' operand value_t and, for
-K9/K10, packs the gate weights for their tensor cores once per forward
-pass (:meth:`DSACaptionHead._stepper`); the products around the kernels
+them: K4-K6, and on the stepwise path K7/K8 (in the TPU kernels' product
+form: no table) or the table and K9/K10.  On the card the stepwise path
+rounds the kernels' operand value_t and packs Wc (K7/K8-bf16) or the gate
+weights (K9/K10-bf16) for their tensor cores once per forward pass
+(:meth:`DSACaptionHead._stepper`); the products around the kernels
 (hvec, the offsets, ``ctx . ctx_w`` and the LSTM layers outside K9) stay
 f32, as in JAX.  On the CPU its plain bf16 word steps take Wc in place of
 the table: the TPU kernels' product form, as the fused scan's plain bf16
-version does, whose rounding points the tests hold to JAX (the card's
-table form lies apart by ROADMAP C's gap).
+version does, whose rounding points the tests hold to JAX; K7/K8-bf16
+compute the same on the card (K9/K10-bf16's table form lies apart by
+ROADMAP C's gap).
 
 The light head's word steps are plain tensor ops, as JAX runs them.
 
@@ -69,7 +72,7 @@ from ..ops.dsa_bf16 import RoundBf16, bf16_operand
 from ..ops.dsa_scan import pack_gate_weights
 from ..ops.dsa_step import (dsa_lstm_step_core, dsa_lstm_step_table_core,
                             dsa_sample_attend_core,
-                            dsa_sample_attend_table_core)
+                            dsa_sample_attend_table_core, pack_attend_weights)
 from ..ops.dsa_tables import dsa_value_table
 from .deformable_transformer import dropout
 
@@ -443,9 +446,9 @@ class DSACaptionHead(_CaptionHead):
     def _step(self, hoisted, kernel_ops, z0, state, temporal_shapes):
         """One word step of the stepwise path (the JAX ``_make_core``'s
         ``run``): kernel_ops the word-step kernels' own operands of
-        ``_stepper`` (value_t, the table VW or None, K9/K10-bf16's gate
-        pack or None), z0
-        (B, Pq, 4R) the token's and query's share of layer 0's
+        ``_stepper`` (value_t, the table VW or None, the pack of K9/K10-bf16
+        or K7/K8-bf16 or None, value_t in torch.bfloat16 for K7/K8-bf16 or
+        None), z0 (B, Pq, 4R) the token's and query's share of layer 0's
         preactivation, state (h, c), each (num_layers, B, Pq, R).  The
         sampling positions and hvec come from the top layer's h; the context
         joins layer 0's preactivation.  Returns the new state."""
@@ -459,7 +462,7 @@ class DSACaptionHead(_CaptionHead):
                                self._mean_taps(geom, h[-1], temporal_shapes),
                                ctx_w3)
             return lstm_step_pre(self.core.rnn.layers(), z0 + ctx, h, c)
-        value_k, vw, pack = kernel_ops
+        value_k, vw, pack, value16 = kernel_ops
         pos, hvec = step_pos_hvec(h[-1], base_pos, scale_t, off_w_h, h2att_w,
                                   h2att_b)
         if self.cfg.lstm_fuse and self.fusable:
@@ -474,7 +477,8 @@ class DSACaptionHead(_CaptionHead):
             return h1[None], c1[None]
         if vw is None:
             ctx = dsa_sample_attend_core(value_k, pos, hvec, cw, cb, aw, ab,
-                                         temporal_shapes, precision)
+                                         temporal_shapes, precision, pack,
+                                         value16)
         else:
             ctx = dsa_sample_attend_table_core(value_k, vw, pos, hvec, cb, aw,
                                                ab, temporal_shapes, precision)
@@ -483,32 +487,38 @@ class DSACaptionHead(_CaptionHead):
 
     def _stepper(self, hoisted, temporal_shapes):
         """The word step of the stepwise path as ``step(z0, state)``, with
-        what its kernels read built once per forward pass: the table VW and,
-        under bf16 ``precision`` on the card, value_t rounded to bf16
-        (:class:`~dvc_tpu_torch.ops.dsa_bf16.RoundBf16`, the gradient passed
-        through) and, where K9-bf16/K10-bf16 run (``lstm_fuse``), the gate
-        weights [W_hh; ctx_w3] packed for their tensor cores
-        (``pack_gate_weights``: one pack for all the pass's word steps and
-        their backward; the gradients of ctx_w3 and w_hh come from K10's
-        outer sums).  The unfused step's ``ctx . ctx_w`` and LSTM
+        what its kernels read built once per forward pass.  f32 on the
+        card: the table VW.  bf16 on the card: value_t in bf16 (value16,
+        ``bf16_operand``) and, where K9-bf16/K10-bf16 run (``lstm_fuse``,
+        one layer), value_t rounded (:class:`~dvc_tpu_torch.ops.dsa_bf16.
+        RoundBf16`, the gradient passed through), the table's bf16 mode from
+        value16 and the gate weights [W_hh; ctx_w3] packed for their tensor
+        cores (``pack_gate_weights``; the gradients of ctx_w3 and w_hh come
+        from K10's outer sums); elsewhere (K7-bf16/K8-bf16: scheduled
+        sampling, the unfused and sampled decodes, multi-layer cores) no
+        table, and Wc packed for theirs (``pack_attend_weights``; cw's
+        gradient is K8-bf16's dcw): one pack for all the pass's word steps
+        and their backward.  The unfused step's ``ctx . ctx_w`` and LSTM
         layers are f32 products outside the kernel.  On the CPU in bf16 no
         table, rounding or pack here: the plain steps take Wc (the TPU
         kernels' product form) and round their operands themselves."""
-        value_t, _, _, _, _, (*_, ctx_w3, w_hh), geom = hoisted
+        value_t, _, _, _, _, (*_, cw, _, _, _, ctx_w3, w_hh), geom = hoisted
         kernel_ops = None
         if geom is None:
-            vw = pack = None
-            if self.cfg.precision == 'float32' or value_t.is_cuda:
-                value16 = None
-                if self.cfg.precision == 'bfloat16':
-                    # value_t in bf16 for the table's GEMM, and as f32 for
-                    # the word-step kernels (the same two roundings)
-                    value16 = bf16_operand(value_t.detach())
+            vw = pack = value16 = None
+            if self.cfg.precision == 'bfloat16' and value_t.is_cuda:
+                value16 = bf16_operand(value_t.detach())
+                if self.cfg.lstm_fuse and self.fusable:
+                    # the table's GEMM reads value16, K9/K10-bf16 the same
+                    # rounding as f32
                     value_t = RoundBf16.apply(value_t, value16)
-                    if self.cfg.lstm_fuse and self.fusable:
-                        pack = pack_gate_weights(w_hh, ctx_w3)
-                vw = self._value_table((value_t,) + hoisted[1:], value16)
-            kernel_ops = (value_t, vw, pack)
+                    pack = pack_gate_weights(w_hh, ctx_w3)
+                    vw = self._value_table((value_t,) + hoisted[1:], value16)
+                else:
+                    pack = pack_attend_weights(cw)
+            elif self.cfg.precision == 'float32':
+                vw = self._value_table(hoisted)
+            kernel_ops = (value_t, vw, pack, value16)
         return lambda z0, state: self._step(hoisted, kernel_ops, z0, state,
                                             temporal_shapes)
 

@@ -10,7 +10,8 @@ from .dsa_step import (dsa_lstm_step_bwd, dsa_lstm_step_core,
                        dsa_lstm_step_fwd, dsa_sample_attend_bwd,
                        dsa_sample_attend_core, dsa_sample_attend_fwd,
                        dsa_sample_attend_table_core, lstm_step_ref,
-                       sample_attend_ref, sample_attend_table_ref)
+                       pack_attend_weights, sample_attend_ref,
+                       sample_attend_table_ref)
 
 __all__ = ['ms_deform_attn', 'ms_deform_attn_bwd', 'ms_deform_attn_ref',
            'ms_deform_attn_sample_values',
@@ -21,5 +22,6 @@ __all__ = ['ms_deform_attn', 'ms_deform_attn_bwd', 'ms_deform_attn_ref',
            'dsa_lstm_step_bwd', 'dsa_lstm_step_core', 'dsa_lstm_step_fwd',
            'dsa_sample_attend_bwd', 'dsa_sample_attend_core',
            'dsa_sample_attend_fwd', 'dsa_sample_attend_table_core',
-           'lstm_step_ref', 'sample_attend_ref', 'sample_attend_table_ref',
+           'lstm_step_ref', 'pack_attend_weights', 'sample_attend_ref',
+           'sample_attend_table_ref',
            'table_gemm', 'table_gemm_ref']

@@ -42,8 +42,9 @@ _SIGNATURES = {
     'dvc_dsa_greedy': [_P] * 27 + [_I] * 14 + [_P],
     'dvc_dsa_scan_fwd': [_P] * 21 + [_I] * 12 + [_P],
     'dvc_dsa_scan_bwd': [_P] * 39 + [_I] * 12 + [_P],
-    'dvc_dsa_step_fwd': [_P] * 9 + [_I] * 9 + [_P],
-    'dvc_dsa_step_bwd': [_P] * 16 + [_I] * 9 + [_P],
+    'dvc_dsa_step_fwd': [_P] * 10 + [_I] * 9 + [_P],
+    'dvc_dsa_step_bwd': [_P] * 21 + [_I] * 10 + [_P],
+    'dvc_dsa_step_dcw_rows': [_I, _I],
     'dvc_dsa_lstm_fwd': [_P] * 16 + [_I] * 10 + [_P],
     'dvc_dsa_lstm_bwd': [_P] * 30 + [_I] * 11 + [_P],
     'dvc_dsa_table_gemm': [_P] * 4 + [_I] * 5 + [_P],

@@ -24,8 +24,10 @@ so those stay unrounded; inside, the taps, the scores, h . W_hh, ctx .
 ctx_w3 and, in the backward, du . Wc^T, taps^T du, M^T dtaps, dz . W_hh^T,
 h^T dz, dz . ctx_w3^T and ctx^T dz take bf16 operands.
 
-``table=True`` mirrors the card's kernels instead (``csrc/dsa_greedy.cu``,
-``csrc/dsa_scan.cu``, ``csrc/dsa_step.cu`` in their bf16-operand mode),
+``table=True`` mirrors the card's table-form kernels instead
+(``csrc/dsa_greedy.cu``, ``csrc/dsa_scan.cu``, K9/K10 of
+``csrc/dsa_step.cu`` in their bf16-operand mode; K7-bf16 and K8-bf16
+compute the product form itself),
 which score a tap as the lerp of two rows of the table bf16(value) .
 bf16(Wc) and so never round the lerped taps; their backward forms dvalue's
 scores term as bf16(G) . bf16(Wc)^T and dWc as bf16(value)^T bf16(G), G
@@ -451,8 +453,9 @@ def _grads(names, args, temporal_shapes, cot, table):
 
 def sample_attend_fwd(*args, table=False):
     """ctx (B, H, Q, Dh) of one word step's sampling and attention with bf16
-    operands (K7-bf16's plain version; ``table=True``: the card kernel's
-    table form).  ``args`` = the 7 operands (``STEP``), temporal_shapes."""
+    operands (K7-bf16's plain version, the form it computes; ``table=True``:
+    the table form, K9/K10-bf16's).  ``args`` = the 7 operands (``STEP``),
+    temporal_shapes."""
     *ops, temporal_shapes = args
     return _word_fwd(*_setup(STEP, ops, temporal_shapes, table))['out']
 

@@ -30,10 +30,11 @@ LSTM cell (``dsa_lstm_step``), each with its backward.
   the table, then the kernels, on the card; ``sample_attend_ref`` /
   ``lstm_step_ref`` on the CPU.
 * :func:`dsa_sample_attend_fwd` and the other three — the kernels alone,
-  with vw given: they take CUDA tensors only and count their launches.
+  with vw given (K7-bf16 and K8-bf16: value16 and the Wc pack): they take
+  CUDA tensors only and count their launches.
   :func:`dsa_sample_attend_grads` / :func:`dsa_lstm_step_grads` compose
   the table, K8 or K10 and the table's backward into the 7 or 12
-  gradients at the JAX boundary.
+  gradients at the JAX boundary (K8-bf16 returns them itself).
 
 The sampling and attention arithmetic is the greedy decode's and the scan's
 (:func:`dvc_tpu_torch.ops.dsa_greedy.attend`).
@@ -45,20 +46,31 @@ the step returns meet f32 products outside.  On CPU tensors the ``*_core``
 wrappers (cw given) run its plain version,
 :class:`~dvc_tpu_torch.ops.dsa_bf16.PlainWordStepBf16` (the TPU kernels'
 product form, which rounds its operands itself); the ``*_table_core``
-wrappers (vw given) have no CPU bf16 form.  On the card the same kernels
-run in their bf16-operand mode (K7-bf16 to K10-bf16), counted apart in
-``launches_bf16``, on the table's bf16 mode.  The kernels, and so the
-``*_table_core`` wrappers, take value_t rounded to bf16 by the caller: the
-caption head once per forward pass
-(:class:`~dvc_tpu_torch.ops.dsa_bf16.RoundBf16`), the ``*_core`` and
-``dsa_*_grads`` wrappers at the JAX boundary in each call.  K9-bf16 and
-K10-bf16 run their gate products on the tensor cores from ``pack``, the
-gate weights packed in bf16 (:func:`~dvc_tpu_torch.ops.dsa_scan.
-pack_gate_weights` (w_hh, ctx_w3)), which they require, in place of
-ctx_w3 and w_hh (then unread): the caption head packs once per forward
-pass, :class:`DSALSTMStepFunction` hands the forward's pack to the
-backward, and the JAX-boundary wrappers pack once per call.  The f32
-kernels refuse a pack.
+wrappers (vw given) have no CPU bf16 form.  On the card the kernels run in
+their bf16 mode, counted apart in ``launches_bf16``:
+
+* K7-bf16 and K8-bf16 compute the product form itself on the tensor cores,
+  with no table and no G: they take value_t in bf16 (``value16``, a
+  torch.bfloat16 tensor) in place of value_t, no vw, and ``pack`` =
+  :func:`pack_attend_weights` (cw), Wc in bf16 in fragment order, which
+  they require; K8-bf16 returns the JAX kernel's seven gradients, dcw
+  among them.  The caption head rounds value_t and packs Wc once per
+  forward pass, :class:`DSASampleAttendFunction` hands both to K7-bf16 and
+  to K8-bf16, and ``dsa_sample_attend_core`` / ``dsa_sample_attend_grads``
+  make them once a call where they are not given.
+  :func:`dsa_sample_attend_table_core` refuses bf16.
+* K9-bf16 and K10-bf16 keep the table form, on the table's bf16 mode and
+  value_t rounded to bf16 by the caller (the caption head once per forward
+  pass, :class:`~dvc_tpu_torch.ops.dsa_bf16.RoundBf16`; the JAX-boundary
+  wrappers in each call); their gate products run on the tensor cores from
+  ``pack``, the gate weights packed in bf16
+  (:func:`~dvc_tpu_torch.ops.dsa_scan.pack_gate_weights` (w_hh, ctx_w3)),
+  which they require, in place of ctx_w3 and w_hh (then unread): the
+  caption head packs once per forward pass, :class:`DSALSTMStepFunction`
+  hands the forward's pack to the backward, and the JAX-boundary wrappers
+  pack once per call.
+
+The f32 kernels refuse a pack.
 """
 
 from __future__ import annotations
@@ -67,7 +79,9 @@ import torch
 
 from . import _cuda, dsa_bf16
 from .dsa_greedy import _level_bounds, attend, check_precision, lstm_cell
-from .dsa_scan import _ptr, gate_geometry, pack_gate_weights
+from .dsa_scan import (_ptr, _tile_product, gate_geometry, hidden_geometry,
+                       pack_gate_weights, pack_hidden_weights,
+                       unpack_hidden_weights)
 from .dsa_tables import dsa_value_table, table_gemm, table_gemm_bwd
 
 STEP_NAMES = ('value_t', 'pos', 'hvec', 'cw', 'cb', 'aw', 'ab')
@@ -257,11 +271,13 @@ def dsa_lstm_step_ref(value, offsets, ref_center, offset_scale, hvec, z0, h,
 # the kernels
 # ----------------------------------------------------------------------------
 
-def _operands(names, args, temporal_shapes, unread=()):
+def _operands(names, args, temporal_shapes, unread=(), value16=False):
     """Check the operands of a kernel launch, and the limits of the
     kernels' float4 reads; returns (dims, contiguous operands with ab as a
     one-element device tensor, None for the operands ``unread``, whose
-    shapes are checked but which the launch does not read)."""
+    shapes are checked but which the launch does not read).  ``value16``:
+    value_t in torch.bfloat16 (K7-bf16, K8-bf16), A and Dh multiples of
+    16."""
     ops = dict(zip(names, args))
     dev = ops['value_t'].device
     if dev.type != 'cuda':
@@ -270,9 +286,11 @@ def _operands(names, args, temporal_shapes, unread=()):
                          'lstm_step_table_ref')
     ops['ab'] = torch.as_tensor(ops['ab'], dtype=torch.float32,
                                 device=dev).reshape(1)
-    if any(t.dtype != torch.float32 or t.device != dev for t in ops.values()):
+    want = {n: torch.bfloat16 if value16 and n == 'value_t' else torch.float32
+            for n in ops}
+    if any(t.dtype != want[n] or t.device != dev for n, t in ops.items()):
         raise TypeError('the word-step kernels take float32 tensors on one '
-                        'device')
+                        'device (K7-bf16 and K8-bf16: value_t in bfloat16)')
     B, H, S, Dh = ops['value_t'].shape
     Q, LP = ops['pos'].shape[2], ops['pos'].shape[3]
     A = ops['hvec'].shape[-1]
@@ -285,7 +303,10 @@ def _operands(names, args, temporal_shapes, unread=()):
     bad = [n for n, t in ops.items() if tuple(t.shape) != expect[n]]
     if bad or LP % L or sum(temporal_shapes) != S:
         raise ValueError(f'word-step kernel: inconsistent shapes of {bad}')
-    if A > 512 or A % 4 or Dh % 4 or R % 4:
+    if value16 and (A % 16 or Dh % 16):
+        raise ValueError(f'K7-bf16/K8-bf16: A = {A} and Dh = {Dh} must be '
+                         f'multiples of 16')
+    if not value16 and (A > 512 or A % 4 or Dh % 4 or R % 4):
         raise ValueError(f'word-step kernel: A = {A} must be at most 512, '
                          f'and A, Dh = {Dh} and R = {R} multiples of 4')
     # the kernels read rows as float4: a view's storage offset may leave
@@ -325,6 +346,105 @@ def _gate_pack(pack, rb, dims, dev):
 _PACKED = ('ctx_w3', 'w_hh')
 
 
+def attend_pack_geometry(Dh, A):
+    """(elements of the Wc pack's first half, of the whole pack) for Wc
+    (Dh, A): ``pack_hidden_weights``' extents of cw and of cw^T."""
+    (n1, k1), (n2, k2) = hidden_geometry(Dh, A), hidden_geometry(A, Dh)
+    return n1 * k1, n1 * k1 + n2 * k2
+
+
+def _b_order(frags):
+    """``pack_hidden_weights``' A fragments (16 bytes a lane: words a0a1,
+    a2a3, a4a5, a6a7) in the kernels' B order: words 0, 2, 1, 3, so that n8
+    tile 2j's two B registers come first, then 2j + 1's (its own inverse)."""
+    return frags.view(torch.int32).reshape(-1, 4)[:, [0, 2, 1, 3]] \
+        .reshape(-1).view(torch.bfloat16)
+
+
+def pack_attend_weights(cw):
+    """Wc (Dh, A) of K7-bf16 and K8-bf16, packed once a forward pass: the
+    B fragments of taps . Wc (``pack_hidden_weights(cw)``: Wc^T, A rows by
+    Dh terms, zero-padded to whole tiles), then those of du . Wc^T
+    (``pack_hidden_weights(cw.T)``: Wc, Dh rows by A terms), in bf16, each
+    lane's 16 bytes in B order (``_b_order``), one flat torch.bfloat16
+    tensor (1 MB at Dh = A = 512, 128 KB at Dh = 64).  The kernels read
+    tile (j, kt) of a half, lane l's 16 bytes, as the B fragments of the n8
+    tiles 2j and 2j + 1 (csrc/dsa_step.cu, ``Attend16Geom``).  Seven device
+    activities."""
+    with torch.no_grad():       # a kernel operand: its gradient is the kernel's
+        return _b_order(torch.cat([pack_hidden_weights(cw),
+                                   pack_hidden_weights(cw.t())]))
+
+
+def unpack_attend_weights(pack, Dh, A):
+    """(Wc^T (A, Dh), Wc (Dh, A)) in bf16 from ``pack_attend_weights``'
+    output (the inverse of the fragment order, the padding dropped)."""
+    first, _ = attend_pack_geometry(Dh, A)
+    frags = _b_order(pack)
+    return (unpack_hidden_weights(frags[:first], Dh, A)[:A, :Dh],
+            unpack_hidden_weights(frags[first:], A, Dh)[:Dh, :A])
+
+
+def attend_products_tiles(pack, taps, du, Dh, A):
+    """Plain mirror of K7-bf16's and K8-bf16's products as the kernels
+    address them: pre = bf16(taps) . Wc (taps (N, Dh)) and, with du (N, A),
+    du . Wc^T from bf16(du), tile by tile from the pack's halves, each
+    16 x 16 tile's product summed over the k-tiles in order in f32
+    (``_tile_product``; the tap rows the n side, as the mma's m side holds
+    them: its sums are the same).  Returns (pre (N, A), dtaps (N, Dh) or
+    None)."""
+    first, _ = attend_pack_geometry(Dh, A)
+    pack = _b_order(pack)
+    Np, Rl = hidden_geometry(Dh, A)
+    pre = torch.cat([_tile_product(pack[:first], Np, Rl, taps[i:i + 16])
+                     for i in range(0, taps.shape[0], 16)], 1)[:A].T
+    if du is None:
+        return pre, None
+    Np, Rl = hidden_geometry(A, Dh)
+    dt = torch.cat([_tile_product(pack[first:], Np, Rl, du[i:i + 16])
+                    for i in range(0, du.shape[0], 16)], 1)[:Dh].T
+    return pre, dt
+
+
+def _attend_pack(pack, rb, dims, dev):
+    """The Wc pack of a K7/K8 launch: required in bf16 (a flat
+    torch.bfloat16 tensor of ``pack_attend_weights``' size on ``dev``,
+    16-byte aligned), refused in f32.  Nothing is packed here."""
+    if not rb:
+        if pack is not None:
+            raise ValueError('the f32 K7/K8 take the table vw, not a Wc pack')
+        return None
+    if pack is None:
+        raise ValueError('K7-bf16 and K8-bf16 take Wc packed once a forward '
+                         'pass: pack=pack_attend_weights(cw)')
+    Dh, A = dims[3], dims[7]
+    _, n = attend_pack_geometry(Dh, A)
+    if (pack.dtype != torch.bfloat16 or pack.device != dev
+            or pack.numel() != n or not pack.is_contiguous()
+            or pack.data_ptr() % 16):
+        raise ValueError(f'K7/K8-bf16: the Wc pack must be a contiguous, '
+                         f'16-byte aligned torch.bfloat16 tensor of {n} '
+                         f'elements on {dev} (pack_attend_weights)')
+    return pack
+
+
+def _step_operands(rb, value_t, vw, rest, temporal_shapes, pack):
+    """(dims, the launch's operands value_t, vw, pos, hvec, cb, aw, ab (vw
+    None in bf16), the Wc pack or None) of K7/K8: f32 the table vw, bf16
+    value_t in torch.bfloat16 and the pack in its place."""
+    if not rb:
+        dims, ops = _operands(STEP_TABLE_NAMES, (value_t, vw, *rest),
+                              temporal_shapes)
+        return dims, ops, _attend_pack(pack, rb, dims, ops[0].device)
+    if vw is not None:
+        raise ValueError('K7-bf16 and K8-bf16 take value_t in bf16 and the '
+                         'Wc pack (pack_attend_weights), not the table vw')
+    dims, ops = _operands(STEP_NAMES[:3] + STEP_NAMES[4:], (value_t, *rest),
+                          temporal_shapes, value16=True)
+    return dims, [ops[0], None] + ops[1:], _attend_pack(pack, rb, dims,
+                                                        ops[0].device)
+
+
 def _zeros(dev, *shape):
     return torch.zeros(shape, dtype=torch.float32, device=dev)
 
@@ -334,21 +454,23 @@ def _empty(dev, *shape):
 
 
 def dsa_sample_attend_fwd(value_t, vw, pos, hvec, cb, aw, ab,
-                          temporal_shapes, precision='float32'):
-    """ctx (B, H, Q, Dh) of :func:`sample_attend_table_ref` by the kernel
-    ``dvc_dsa_step_fwd`` (K7, or K7-bf16 under ``precision='bfloat16'``:
-    value_t rounded to bf16 by the caller, vw the table's bf16 mode), or an
-    error."""
+                          temporal_shapes, precision='float32', pack=None):
+    """ctx (B, H, Q, Dh) by the kernel ``dvc_dsa_step_fwd``: K7, that of
+    :func:`sample_attend_table_ref` on the table vw; or K7-bf16 under
+    ``precision='bfloat16'``, the TPU kernel's product form
+    (``dsa_bf16.sample_attend_fwd``) on value_t given in torch.bfloat16,
+    with vw None and ``pack`` = :func:`pack_attend_weights` (cw),
+    required.  Or an error."""
     rb = check_precision(precision)
-    dims, ops = _operands(STEP_TABLE_NAMES, (value_t, vw, pos, hvec, cb, aw,
-                                             ab), temporal_shapes)
+    dims, ops, pack = _step_operands(rb, value_t, vw, (pos, hvec, cb, aw, ab),
+                                     temporal_shapes, pack)
     B, H, S, Dh, Q, LP, L, A, _ = dims
     dev = ops[0].device
     ctx = _empty(dev, B, H, Q, Dh)
     _cuda.check(_cuda.lib().cdll.dvc_dsa_step_fwd(
-        *(t.data_ptr() for t in ops), _cuda.levels_array(temporal_shapes),
-        ctx.data_ptr(), B, H, S, Dh, Q, LP, L, A, int(rb),
-        _cuda.stream_ptr(dev)), 'dvc_dsa_step_fwd')
+        *map(_ptr, ops[:2]), _ptr(pack), *map(_ptr, ops[2:]),
+        _cuda.levels_array(temporal_shapes), ctx.data_ptr(), B, H, S, Dh, Q,
+        LP, L, A, int(rb), _cuda.stream_ptr(dev)), 'dvc_dsa_step_fwd')
     _cuda.count_launch(dsa_sample_attend_fwd, rb)
     return ctx
 
@@ -358,30 +480,51 @@ dsa_sample_attend_fwd.launches_bf16 = 0
 
 
 def dsa_sample_attend_bwd(value_t, vw, pos, hvec, cb, aw, ab,
-                          temporal_shapes, g, precision='float32'):
-    """The 7 gradients of K7 for the cotangent g (B, H, Q, Dh) of ctx, in
-    the order of its operands (value_t's the context's term only; vw's G),
-    by the kernel ``dvc_dsa_step_bwd`` (K8, or K8-bf16 under
-    ``precision='bfloat16'``, operands as K7-bf16's), or an error."""
+                          temporal_shapes, g, precision='float32', pack=None):
+    """The 7 gradients of K7 for the cotangent g (B, H, Q, Dh) of ctx by the
+    kernel ``dvc_dsa_step_bwd``: K8, in the order of its operands (value_t's
+    the context's term only; vw's G); or K8-bf16 under
+    ``precision='bfloat16'`` (operands as K7-bf16's), the JAX kernel's
+    seven, in the order of ``STEP_NAMES`` (the whole dvalue, dpos, dhvec,
+    dcw, dcb, d alpha_w, d alpha_b), with dcw summed in the kernel's blocks
+    (a warp's share, Dh x A / 16 warps, in 64 registers a thread: Dh <= 64,
+    A <= 512) or by the GEMM's outer sum of the bf16 rows of the taps and
+    of du that it writes (the library's rule, ``dvc_dsa_step_dcw_rows``).
+    Or an error."""
     rb = check_precision(precision)
     ab_shape = torch.as_tensor(ab).shape
-    dims, ops = _operands(STEP_TABLE_NAMES, (value_t, vw, pos, hvec, cb, aw,
-                                             ab), temporal_shapes)
+    dims, ops, pack = _step_operands(rb, value_t, vw, (pos, hvec, cb, aw, ab),
+                                     temporal_shapes, pack)
     B, H, S, Dh, Q, LP, L, A, _ = dims
     dev = ops[0].device
     if tuple(g.shape) != (B, H, Q, Dh):
         raise ValueError('word-step kernel: g must be (B, H, Q, Dh)')
     g = g.to(torch.float32).contiguous()
-    outs = (_zeros(dev, B, H, S, Dh), _zeros(dev, B, H, S, A),
-            _empty(dev, B, H, Q, LP), _empty(dev, B, Q, A), _zeros(dev, A),
-            _zeros(dev, A), _zeros(dev, 1))
+    dvalue, dpos, dhvec = (_zeros(dev, B, H, S, Dh), _empty(dev, B, H, Q, LP),
+                           _empty(dev, B, Q, A))
+    dcb, daw, dab = _zeros(dev, A), _zeros(dev, A), _zeros(dev, 1)
+    G = dcw = rows_t = rows_u = work = None
+    if not rb:
+        G = _zeros(dev, B, H, S, A)
+    else:
+        dcw = _zeros(dev, Dh, A)
+        if _cuda.lib().cdll.dvc_dsa_step_dcw_rows(Dh, A):
+            N = B * Q * H * LP
+            rows_t = torch.empty((N, Dh), dtype=torch.bfloat16, device=dev)
+            rows_u = torch.empty((N, A), dtype=torch.bfloat16, device=dev)
+            work = _cuda.gemm_work(dev, (Dh, A, N))
     _cuda.check(_cuda.lib().cdll.dvc_dsa_step_bwd(
-        *(t.data_ptr() for t in ops), g.data_ptr(),
+        *map(_ptr, ops[:2]), _ptr(pack), *map(_ptr, ops[2:]), g.data_ptr(),
         _cuda.levels_array(temporal_shapes),
-        *(t.data_ptr() for t in outs), B, H, S, Dh, Q, LP, L, A, int(rb),
-        _cuda.stream_ptr(dev)), 'dvc_dsa_step_bwd')
+        *map(_ptr, (dvalue, G, dpos, dhvec, dcw, dcb, daw, dab, rows_t,
+                    rows_u, work)),
+        B, H, S, Dh, Q, LP, L, A, 0 if work is None else work.numel(),
+        int(rb), _cuda.stream_ptr(dev)), 'dvc_dsa_step_bwd')
     _cuda.count_launch(dsa_sample_attend_bwd, rb)
-    return (*outs[:6], outs[6].reshape(ab_shape))
+    dab = dab.reshape(ab_shape)
+    if rb:
+        return dvalue, dpos, dhvec, dcw, dcb, daw, dab
+    return dvalue, G, dpos, dhvec, dcb, daw, dab
 
 
 dsa_sample_attend_bwd.launches = 0
@@ -467,10 +610,10 @@ dsa_lstm_step_bwd.launches_bf16 = 0
 def _boundary_grads(bwd, value_t, cw, *args, precision='float32', **kw):
     """(dvalue, the rest of ``bwd``'s gradients, dcw) at the JAX boundary,
     on the card: the table VW = value_t . cw (``table_gemm``), ``bwd(value_t,
-    VW, *args)`` (K8 or K10: value_t's context term and G first), and the
-    table's backward (``table_gemm_bwd``) for value_t's scores' term and
-    cw's gradient; under ``precision='bfloat16'`` each in its bf16 mode,
-    on value_t rounded (``kw``: K10-bf16's gate pack)."""
+    VW, *args)`` (f32 K8 or K10: value_t's context term and G first), and
+    the table's backward (``table_gemm_bwd``) for value_t's scores' term and
+    cw's gradient; under ``precision='bfloat16'`` (K10-bf16) each in its
+    bf16 mode, on value_t rounded (``kw``: K10-bf16's gate pack)."""
     if check_precision(precision):
         value_t = dsa_bf16.bf16(value_t)
     B, H, S, Dh = value_t.shape
@@ -484,13 +627,16 @@ def _boundary_grads(bwd, value_t, cw, *args, precision='float32', **kw):
 def dsa_sample_attend_grads(value_t, pos, hvec, cw, cb, aw, ab,
                             temporal_shapes, g, precision='float32'):
     """The 7 gradients at the JAX boundary (the operands of
-    :func:`sample_attend_ref`) for the cotangent g, by the table, K8 and
-    the table's backward (each in its bf16 mode under
-    ``precision='bfloat16'``)."""
+    :func:`sample_attend_ref`) for the cotangent g: f32 by the table, K8
+    and the table's backward; under ``precision='bfloat16'`` by K8-bf16
+    alone, on value_t rounded and Wc packed here, once a call."""
+    if check_precision(precision):
+        return dsa_sample_attend_bwd(
+            dsa_bf16.bf16_operand(value_t), None, pos, hvec, cb, aw, ab,
+            temporal_shapes, g, precision, pack=pack_attend_weights(cw))
     dvalue, rest, dcw = _boundary_grads(dsa_sample_attend_bwd, value_t, cw,
                                         pos, hvec, cb, aw, ab,
-                                        temporal_shapes, g,
-                                        precision=precision)
+                                        temporal_shapes, g)
     return (dvalue, *rest[:2], dcw, *rest[2:])
 
 
@@ -510,24 +656,41 @@ def dsa_lstm_step_grads(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb,
     return (dvalue, *rest[:7], dcw, *rest[7:])
 
 
+def _attend_kernel_ops(ops, value16):
+    """The operands that K7/K8 read of DSASampleAttendFunction's: f32 its
+    own (value_t, vw, ...); bf16 value16, no vw, and the rest but cw."""
+    if value16 is None:
+        return ops
+    return (value16, None, *ops[1:3], *ops[4:])
+
+
 class DSASampleAttendFunction(torch.autograd.Function):
-    """K7 forward, K8 backward, over the operands of
-    :func:`sample_attend_table_ref`; the last arguments are the level
-    table and the precision."""
+    """K7 forward, K8 backward.  f32: over the operands of
+    :func:`sample_attend_table_ref` (vw's gradient is G); bf16: over those
+    of :func:`sample_attend_ref` (cw given), K7-bf16 and K8-bf16 reading in
+    place of value_t and cw value16 (value_t in torch.bfloat16) and the Wc
+    pack (``pack_attend_weights(cw)``), both made by the caller once a
+    forward pass, which the forward hands to K7-bf16 and its backward, the
+    same tensors, to K8-bf16; K8-bf16's dvalue and dcw are value_t's and
+    cw's gradients.  The last arguments are the level table, the
+    precision, the pack and value16 (None, None in f32)."""
 
     @staticmethod
     def forward(fctx, *args):
-        *ops, temporal_shapes, precision = args
+        *ops, temporal_shapes, precision, pack, value16 = args
         fctx.temporal_shapes, fctx.precision = temporal_shapes, precision
+        fctx.pack, fctx.value16 = pack, value16
         fctx.save_for_backward(*ops)
-        return dsa_sample_attend_fwd(*ops, temporal_shapes,
-                                     precision=precision)
+        return dsa_sample_attend_fwd(
+            *_attend_kernel_ops(ops, value16), temporal_shapes,
+            precision=precision, pack=pack)
 
     @staticmethod
     def backward(fctx, g):
-        return (*dsa_sample_attend_bwd(*fctx.saved_tensors,
-                                       fctx.temporal_shapes, g,
-                                       precision=fctx.precision), None, None)
+        return (*dsa_sample_attend_bwd(
+            *_attend_kernel_ops(fctx.saved_tensors, fctx.value16),
+            fctx.temporal_shapes, g, precision=fctx.precision,
+            pack=fctx.pack), None, None, None, None)
 
 
 class DSALSTMStepFunction(torch.autograd.Function):
@@ -557,8 +720,9 @@ class DSALSTMStepFunction(torch.autograd.Function):
 
 
 def _table_core_precision(value_t, precision):
-    """The ``*_table_core`` wrappers' precision check: the plain bf16 word
-    steps on the CPU take cw (the ``*_core`` wrappers), not the table."""
+    """:func:`dsa_lstm_step_table_core`'s precision check: the plain bf16
+    word steps on the CPU take cw (the ``*_core`` wrappers), not the
+    table."""
     if check_precision(precision) and not value_t.is_cuda:
         raise NotImplementedError(
             'a bf16 word step on CPU tensors takes cw, not the table: '
@@ -570,40 +734,51 @@ def dsa_sample_attend_table_core(value_t, vw, pos, hvec, cb, aw, ab,
     """One word step's sampling and attention from the table vw =
     value_t . cw, differentiable (vw's gradient is G).  Returns ctx
     (B, H, Q, Dh).  CPU tensors: the plain version
-    (:func:`sample_attend_table_ref`; in bf16 an error).  CUDA tensors:
-    K7/K8 (f32, or K7-bf16/K8-bf16 under ``precision='bfloat16'``, value_t
-    given rounded) or an error."""
-    _table_core_precision(value_t, precision)
+    (:func:`sample_attend_table_ref`); CUDA tensors: K7/K8 or an error.
+    In bf16 an error on either: K7-bf16 and K8-bf16 compute the product
+    form from cw (:func:`dsa_sample_attend_core`)."""
+    if check_precision(precision):
+        raise NotImplementedError(
+            'a bf16 word step takes cw, not the table: K7-bf16 and K8-bf16 '
+            'compute the product form (dsa_sample_attend_core)')
     args = (value_t, vw, pos, hvec, cb, aw,
             torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
     if not value_t.is_cuda:
         return sample_attend_table_ref(*args)
-    return DSASampleAttendFunction.apply(*args, precision)
+    return DSASampleAttendFunction.apply(*args, precision, None, None)
 
 
 def dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
-                           temporal_shapes, precision='float32'):
+                           temporal_shapes, precision='float32', pack=None,
+                           value16=None):
     """One word step's sampling and attention at the kernels' boundary with
     cw given, differentiable.  Returns ctx (B, H, Q, Dh).  CPU tensors: the
     plain version (:func:`sample_attend_ref`; bf16: the plain bf16 product
-    form, K7-bf16's and K8-bf16's).  CUDA tensors: the table
-    (:func:`dsa_value_table`), then K7/K8 (each in its bf16 mode under
-    ``precision='bfloat16'``, on value_t rounded here), or an error."""
+    form, K7-bf16's and K8-bf16's).  CUDA tensors: f32 the table
+    (:func:`dsa_value_table`), then K7/K8; bf16 K7-bf16/K8-bf16 on
+    ``value16`` (value_t in torch.bfloat16) and ``pack``
+    (:func:`pack_attend_weights` (cw)), each made here where not given (the
+    caption head gives both, made once per forward pass); or an error."""
     rb = check_precision(precision)
+    ab = torch.as_tensor(ab, device=pos.device)
     if not value_t.is_cuda:
         if rb:
             sample_attend_ref.calls += 1
             return dsa_bf16.PlainWordStepBf16.apply(
-                value_t, pos, hvec, cw, cb, aw,
-                torch.as_tensor(ab, device=pos.device),
-                tuple(temporal_shapes))
+                value_t, pos, hvec, cw, cb, aw, ab, tuple(temporal_shapes))
         return sample_attend_ref(value_t, pos, hvec, cw, cb, aw, ab,
                                  temporal_shapes)
     if rb:
-        value_t = dsa_bf16.RoundBf16.apply(value_t)
+        if pack is None:
+            pack = pack_attend_weights(cw)
+        if value16 is None:
+            value16 = dsa_bf16.bf16_operand(value_t.detach())
+        return DSASampleAttendFunction.apply(
+            value_t, pos, hvec, cw, cb, aw, ab, tuple(temporal_shapes),
+            precision, pack, value16)
     return dsa_sample_attend_table_core(
-        value_t, dsa_value_table(value_t, cw, precision), pos, hvec, cb, aw,
-        ab, temporal_shapes, precision)
+        value_t, dsa_value_table(value_t, cw), pos, hvec, cb, aw, ab,
+        temporal_shapes)
 
 
 def dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh,

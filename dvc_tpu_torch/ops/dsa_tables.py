@@ -4,9 +4,9 @@ hand-written 3xTF32 GEMM of ``csrc/dsa_gemm.cuh``, and its backward.
 ``dvc_dsa_greedy`` and ``dvc_dsa_scan_fwd``/``_bwd`` build their tables
 (``value_t . Wc`` and ``embed . token_w``) with it inside every launch, so
 their launch counts are its count on those paths.  The word-step kernels
-(K7-K10) take ``VW = value_t . Wc`` as an operand: the caption head builds
-it once per stepwise forward pass with :func:`dsa_value_table`, and its
-backward runs once per backward pass.
+(K7-K10 in f32, K9/K10 in bf16) take ``VW = value_t . Wc`` as an operand:
+the caption head builds it once per stepwise forward pass with
+:func:`dsa_value_table`, and its backward runs once per backward pass.
 
 * :func:`table_gemm` / :func:`table_gemm_bwd` — the kernels
   (``dvc_dsa_table_gemm``, ``dvc_dsa_table_gemm_bwd`` in
@@ -17,8 +17,8 @@ backward runs once per backward pass.
   tensors an autograd Function over the two kernels, on CPU tensors the
   plain product under autograd.
 
-``precision='bfloat16'`` (the word steps under ``--tpu_compute_dtype
-bfloat16``, K7-K10-bf16): the GEMM's bf16-operand mode, every product on
+``precision='bfloat16'`` (the fused word step under ``--tpu_compute_dtype
+bfloat16``, K9/K10-bf16): the GEMM's bf16-operand mode, every product on
 bf16-rounded operands with f32 accumulation, so VW = bf16(value_t) .
 bf16(cw) and its backward bf16(G) . bf16(cw)^T and bf16(value_t)^T .
 bf16(G); the kernels count these launches apart (``launches_bf16``), and

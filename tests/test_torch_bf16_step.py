@@ -17,18 +17,20 @@ gradient within 1e-4 of its largest magnitude, and d alpha_b (zero in
 exact arithmetic) within 1e-5 absolute; sampling points drawn off the tap boundaries
 (``test_torch_dsa_step.make_inputs``).
 
-The card kernels compute the table form (``table=True``: the scores a lerp
-of two rows of bf16(value) . bf16(Wc), the taps never rounded; dvalue's
-scores term and dWc from bf16(G)).  Its gap to the product form is held
-below the plain f32 version's distance from the product form, output by
-output and gradient by gradient (relative L2), and the bf16 versions lie
-a nonzero distance from f32 (they round).
+K9-bf16 and K10-bf16 on the card compute the table form (``table=True``:
+the scores a lerp of two rows of bf16(value) . bf16(Wc), the taps never
+rounded; dvalue's scores term and dWc from bf16(G)); K7-bf16 and K8-bf16
+the product form itself (``tests/test_torch_bf16_step_attend.py``).  The
+table form's gap to the product form is held below the plain f32
+version's distance from the product form, output by output and gradient
+by gradient (relative L2), and the bf16 versions lie a nonzero distance
+from f32 (they round).
 
 The head against JAX, with ``tests/test_torch_bf16_model.py``'s head
 tests' tolerances: the port's CPU head runs the plain bf16 word steps in
-the TPU kernels' product form (the card's table form lies from JAX up to
-1.1x as far as f32 does in the head's weight gradients, ctx2att's and
-alpha_net's), so log-probs within 1e-4 relative L2, weight gradients 1e-3
+the TPU kernels' product form (the card's K9/K10 table form lies from JAX
+up to 1.1x as far as f32 does in the head's weight gradients, ctx2att's
+and alpha_net's), so log-probs within 1e-4 relative L2, weight gradients 1e-3
 (+1e-6 absolute for alpha_net's bias), greedy tokens equal up to a query's
 first near-tie (top-2 logit margin under 1e-3 in the port's decode) and
 their log-probs within 1e-4 there.
@@ -159,8 +161,13 @@ def test_cpu_wrappers_run_the_plain_bf16_versions():
     given) run the plain product form, each counted as its plain version's
     call, no launch; autograd through them gives the bf16 backward (not
     autograd through the forward's roundings); the ``*_table_core``
-    wrappers (vw given) have no CPU bf16 form and raise; the kernels alone
-    take CUDA tensors only, and the precision is checked."""
+    wrappers (vw given) have no CPU bf16 form and raise, the sampling and
+    attention one on the card's route too (K7-bf16 and K8-bf16 take cw);
+    the kernels alone take CUDA tensors only (K7-bf16 and K8-bf16 value_t
+    in bf16 and the Wc pack in place of vw), and the precision is
+    checked."""
+    from dvc_tpu_torch.ops.dsa_step import pack_attend_weights
+    from test_torch_bf16_step_gates import _OnCard
     ops = [to_torch(a) for a in step_ops(2, True, seed=40)]
     step = ops[:3] + ops[8:]
     launches = [(f.launches, f.launches_bf16) for f in (
@@ -181,23 +188,26 @@ def test_cpu_wrappers_run_the_plain_bf16_versions():
         for leaf, w in zip(leaves, bwd(*args, TS, *cot)):
             torch.testing.assert_close(leaf.grad, w.reshape(leaf.shape),
                                        rtol=0, atol=0)
-    # the table-operand wrappers: no CPU bf16 form
+    # the table-operand wrappers: no CPU bf16 form (K7/K8's: none on the
+    # card either)
     vw = dsa_value_table(ops[0], ops[8], BF16)
-    with pytest.raises(NotImplementedError, match='cw'):
-        dsa_sample_attend_table_core(ops[0], vw, *ops[1:3], *ops[9:], TS,
-                                     BF16)
+    for value_t in (ops[0], ops[0].as_subclass(_OnCard)):
+        with pytest.raises(NotImplementedError, match='cw'):
+            dsa_sample_attend_table_core(value_t, vw, *ops[1:3], *ops[9:],
+                                         TS, BF16)
     with pytest.raises(NotImplementedError, match='cw'):
         dsa_lstm_step_table_core(ops[0], vw, *ops[1:8], *ops[9:], TS, BF16)
     assert launches == [(f.launches, f.launches_bf16) for f in (
         dsa_sample_attend_fwd, dsa_sample_attend_bwd, dsa_lstm_step_fwd,
         dsa_lstm_step_bwd, table_gemm, table_gemm_bwd)]
     g = torch.ones(2, 2, 3, ops[0].shape[-1])
-    with pytest.raises(ValueError):
-        dsa_sample_attend_fwd(ops[0], vw, *ops[1:3], *ops[9:], TS,
-                              precision=BF16)
-    with pytest.raises(ValueError):
-        dsa_sample_attend_bwd(ops[0], vw, *ops[1:3], *ops[9:], TS, g,
-                              precision=BF16)
+    value16, pack = dsa_bf16.bf16_operand(ops[0]), pack_attend_weights(ops[8])
+    with pytest.raises(ValueError, match='CUDA'):
+        dsa_sample_attend_fwd(value16, None, *ops[1:3], *ops[9:], TS,
+                              precision=BF16, pack=pack)
+    with pytest.raises(ValueError, match='CUDA'):
+        dsa_sample_attend_bwd(value16, None, *ops[1:3], *ops[9:], TS, g,
+                              precision=BF16, pack=pack)
     with pytest.raises(ValueError):
         dsa_lstm_step_fwd(ops[0], vw, *ops[1:8], *ops[9:], TS,
                           precision=BF16)

@@ -599,6 +599,119 @@ def test_lstm_bf16_kernels_require_the_pack(cuda):
         assert code == 1                                # cudaErrorInvalidValue
 
 
+# (B, Q, H, Dh, A, P): a query's H*LP tap rows padded to 16 (LP = 4, H =
+# 1 and 2), several m-tiles a query (H = 8), dcw by the GEMM (Dh = 128),
+# the recipe's widths at cap_nheads 8 (two column chunks a warp) with the
+# 8-query forward tile and the 4-query backward one (B*ceil(Q/8) >= 132)
+ATTEND_BF16_CASES = [(2, 13, 1, 16, 32, 2), (2, 13, 2, 16, 32, 2),
+                     (1, 9, 8, 16, 48, 2), (2, 7, 1, 128, 32, 4),
+                     (17, 64, 8, 64, 512, 4)]
+
+
+@pytest.mark.parametrize('B,Q,H,Dh,A,P', ATTEND_BF16_CASES)
+def test_sample_attend_bf16_kernels_match_the_product_form(cuda, B, Q, H, Dh,
+                                                           A, P):
+    """K7-bf16 and K8-bf16 (the TPU kernels' product form on the tensor
+    cores, on value_t in bf16 and Wc packed once, ``pack_attend_weights``)
+    against the plain bf16 product form (``dsa_bf16.sample_attend_fwd`` /
+    ``_bwd``), in relative L2 against the plain f32 version's distance from
+    it: ctx within BF16_MIRROR_FWD, each of the seven gradients (but d
+    alpha_b) within BF16_MIRROR_BWD, phase 16's limits; the same through
+    autograd of ``dsa_sample_attend_core``; one ``launches_bf16`` each way a
+    call and no table launch.  The cotangent is zero on the queries with a
+    tap within an ulp of a level-relative integer."""
+    from chip_smoke import BF16_MIRROR_BWD, BF16_MIRROR_FWD, rel_l2
+    from dvc_tpu_torch.ops import dsa_bf16
+    from dvc_tpu_torch.ops.dsa_step import pack_attend_weights
+    rng = np.random.default_rng(730 + Dh + H + B)
+    ts, bf = (12, 6), 'bfloat16'
+    args = step_args(cuda, rng, B=B, H=H, Q=Q, Dh=Dh, A=A, P=P, ts=ts)
+    kargs = (dsa_bf16.bf16_operand(args[0]), None) + args[1:3] + args[4:]
+    pack = pack_attend_weights(args[3])
+    launches = (dsa_sample_attend_fwd.launches_bf16,
+                dsa_sample_attend_bwd.launches_bf16, table_gemm.launches_bf16,
+                table_gemm_bwd.launches_bf16)
+    ctx = dsa_sample_attend_fwd(*kargs, ts, precision=bf, pack=pack)
+    want = dsa_bf16.sample_attend_fwd(*args, ts)
+    f32 = sample_attend_ref(*args, ts)
+    assert rel_l2(ctx, want) <= BF16_MIRROR_FWD * rel_l2(f32, want), (
+        rel_l2(ctx, want), rel_l2(f32, want))
+    keep = ~near_integer(args[1].double())                 # (B, Q)
+    g = torch.sin(3.0 * ctx) * keep[:, None, :, None]
+    grads = dsa_sample_attend_bwd(*kargs, ts, g, precision=bf, pack=pack)
+    torch.cuda.synchronize()
+    assert (dsa_sample_attend_fwd.launches_bf16,
+            dsa_sample_attend_bwd.launches_bf16, table_gemm.launches_bf16,
+            table_gemm_bwd.launches_bf16) == (launches[0] + 1,
+                                              launches[1] + 1,
+                                              *launches[2:])
+    want = dsa_bf16.sample_attend_bwd(*args, ts, g)
+    f32 = sample_attend_bwd_ref(*args, ts, g)
+    leaves = [t.clone().requires_grad_() for t in args]
+    (dsa_sample_attend_core(*leaves, ts, precision=bf) * g).sum().backward()
+    for name, a, c, w, f in zip(STEP_NAMES, grads, leaves, want, f32):
+        assert a.shape == w.shape and torch.isfinite(a).all(), name
+        if name != 'ab':
+            for got in (a, c.grad):
+                assert rel_l2(got, w) <= BF16_MIRROR_BWD * rel_l2(f, w), (
+                    name, rel_l2(got, w), rel_l2(f, w))
+
+
+def test_sample_attend_bf16_kernels_require_the_pack(cuda):
+    """K7-bf16 and K8-bf16 take value_t in bf16 and the Wc pack, and no
+    table: their wrappers raise without a pack (no packing there, no
+    fallback), with one of another size, type or device, with vw or with
+    value_t in f32; the f32 kernels refuse a pack; the table-form wrapper
+    refuses bf16 on the card; the entry point refuses a null pack in bf16
+    and a pack in f32."""
+    from dvc_tpu_torch.ops import _cuda, dsa_bf16
+    from dvc_tpu_torch.ops.dsa_step import pack_attend_weights
+    rng = np.random.default_rng(740)
+    ts, bf = (12, 6), 'bfloat16'
+    B, H, Q, Dh, A, S, LP = 2, 2, 13, 16, 32, 18, 4
+    args = step_args(cuda, rng, B=B, H=H, Q=Q, Dh=Dh, A=A, ts=ts)
+    v16 = dsa_bf16.bf16_operand(args[0])
+    rest = args[1:3] + args[4:]
+    g = torch.zeros((B, H, Q, Dh), device=cuda)
+    pack = pack_attend_weights(args[3])
+    vw = _table_args(args)[1]
+    launches = (dsa_sample_attend_fwd.launches,
+                dsa_sample_attend_fwd.launches_bf16,
+                dsa_sample_attend_bwd.launches,
+                dsa_sample_attend_bwd.launches_bf16)
+    for bad in (None, pack[:-8], pack.float(), pack.cpu()):
+        with pytest.raises(ValueError, match='pack'):
+            dsa_sample_attend_fwd(v16, None, *rest, ts, precision=bf, pack=bad)
+        with pytest.raises(ValueError, match='pack'):
+            dsa_sample_attend_bwd(v16, None, *rest, ts, g, precision=bf,
+                                  pack=bad)
+    with pytest.raises(ValueError, match='vw'):
+        dsa_sample_attend_fwd(v16, vw, *rest, ts, precision=bf, pack=pack)
+    with pytest.raises(TypeError):
+        dsa_sample_attend_fwd(args[0], None, *rest, ts, precision=bf,
+                              pack=pack)
+    with pytest.raises(ValueError, match='pack'):
+        dsa_sample_attend_fwd(args[0], vw, *rest, ts, pack=pack)
+    with pytest.raises(ValueError, match='pack'):
+        dsa_sample_attend_bwd(args[0], vw, *rest, ts, g, pack=pack)
+    with pytest.raises(NotImplementedError, match='dsa_sample_attend_core'):
+        dsa_sample_attend_table_core(args[0], vw, *rest, ts, bf)
+    assert launches == (dsa_sample_attend_fwd.launches,
+                        dsa_sample_attend_fwd.launches_bf16,
+                        dsa_sample_attend_bwd.launches,
+                        dsa_sample_attend_bwd.launches_bf16)
+    ctx = torch.empty((B, H, Q, Dh), device=cuda)
+    ab = args[6].reshape(1)
+    for rb, value, wp in ((1, v16, None), (0, args[0], pack)):
+        code = _cuda.lib().cdll.dvc_dsa_step_fwd(
+            value.data_ptr(), None if rb else vw.data_ptr(),
+            None if wp is None else wp.data_ptr(),
+            *(t.data_ptr() for t in args[1:3] + args[4:6]), ab.data_ptr(),
+            _cuda.levels_array(ts), ctx.data_ptr(), B, H, S, Dh, Q, LP,
+            len(ts), A, rb, _cuda.stream_ptr(cuda))
+        assert code == 1                                # cudaErrorInvalidValue
+
+
 def _wide_args(dev, rng, B, H, Q, greedy, K=29, d=512, R=512, A=512, E=512,
                V1=1608, P=4, ts=(200, 100, 50, 25)):
     """Operands of K6 (``greedy``) or the scan at the caption head's
@@ -891,12 +1004,14 @@ def test_step_backward_copies_a_misaligned_operand(cuda):
         return torch.zeros(shape, device=cuda)
 
     outs = (zeros(B, H, S, Dh), zeros(B, H, S, A), zeros(B, H, Q, LP),
-            zeros(B, Q, A), zeros(A), zeros(A), zeros(1))
+            zeros(B, Q, A), None, zeros(A), zeros(A), zeros(1))
     ab = args[6].reshape(1)
+    ptr = [None if t is None else t.data_ptr() for t in outs]
     code = _cuda.lib().cdll.dvc_dsa_step_bwd(
-        *(t.data_ptr() for t in args[:6]), ab.data_ptr(), g.data_ptr(),
-        _cuda.levels_array(ts), *(t.data_ptr() for t in outs), B, H, S, Dh,
-        Q, LP, len(ts), A, 0, _cuda.stream_ptr(cuda))
+        *(t.data_ptr() for t in args[:2]), None,
+        *(t.data_ptr() for t in args[2:6]), ab.data_ptr(), g.data_ptr(),
+        _cuda.levels_array(ts), *ptr, None, None, None, B, H, S, Dh, Q, LP,
+        len(ts), A, 0, 0, _cuda.stream_ptr(cuda))
     assert code == 1                                    # cudaErrorInvalidValue
 
 
