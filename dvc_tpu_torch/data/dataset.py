@@ -1,10 +1,11 @@
 """Feature-mode dataset and static-shape collation (port of
-``dvc_tpu/data/dataset.py``, numpy only; reference
-``data/video_dataset.py``).
+``dvc_tpu/data/dataset.py``; reference ``data/video_dataset.py``).
 
-Per-video ``.npy`` features are rescaled to ``frame_embedding_num`` rows,
-gt events subsampled to ``gt_proposal_sample_num``, captions tokenized, and
-a batch collated to static shapes: video (B, T, C), gt (B, G, 2), captions
+Per-video ``.npy`` features are read and rescaled to
+``frame_embedding_num`` rows by the native library (``native_io``, built at
+first use), as the JAX dataset reads them where that library is built.
+Gt events are subsampled to ``gt_proposal_sample_num``, captions
+tokenized, and a batch collated to static shapes: video (B, T, C), gt (B, G, 2), captions
 (B, G, Lc), with masks.  :class:`BatchLoader` shuffles and batches a
 dataset, as the JAX ``BatchLoader`` does in one process.  A missing feature file degrades to zeros, and
 invalid-video lists filter keys, as in the reference.
@@ -17,6 +18,7 @@ import os
 
 import numpy as np
 
+from . import native_io
 from .vocabulary import Translator
 
 # per-type feature dims / normalization / filename patterns
@@ -43,10 +45,14 @@ FEATURE_SPECS = {
 
 def read_feature_file(path: str, feat_dim: int, mean=0., var=1.,
                       data_norm=False):
-    """Load one ``.npy`` feature file as f32; (100, feat_dim) zeros when
+    """Load one ``.npy`` feature file as f32 through the native library (a
+    file whose format it refuses, Fortran-ordered or not f4/f8, with
+    ``np.load``, as the JAX dataset does); (100, feat_dim) zeros when
     missing."""
     if os.path.exists(path):
-        feats = np.load(path)
+        feats = native_io.load_npy(path)
+        if feats is None:
+            feats = np.load(path)
     else:
         feats = np.zeros((100, feat_dim), np.float32)
     if data_norm:
@@ -56,23 +62,12 @@ def read_feature_file(path: str, feat_dim: int, mean=0., var=1.,
 
 def resize_feature(feats: np.ndarray, new_size: int,
                    method: str = 'nearest') -> np.ndarray:
-    """Temporal rescale of (T, C) features to ``new_size`` rows: 'nearest'
-    takes row round(x) (numpy's half-to-even), 'linear' lerps rows floor(x)
-    and floor(x) + 1, at x = i * (T - 1) / (new_size - 1)."""
-    orig = len(feats)
-    if orig == 1:
-        return np.repeat(feats.reshape(1, -1), new_size, axis=0)
-    if new_size == 1:
-        x_new = np.zeros(1)
-    else:
-        x_new = np.arange(new_size) * (orig - 1) / (new_size - 1)
-    if method == 'nearest':
-        idx = np.clip(np.round(x_new).astype(np.int64), 0, orig - 1)
-        return feats[idx]
-    lo = np.clip(np.floor(x_new).astype(np.int64), 0, orig - 1)
-    hi = np.clip(lo + 1, 0, orig - 1)
-    w = (x_new - lo)[:, None].astype(np.float32)
-    return feats[lo] * (1 - w) + feats[hi] * w
+    """Temporal rescale of (T, C) features to ``new_size`` rows by the
+    native library: 'nearest' takes row round(x), halves rounded away from
+    zero, 'linear' lerps rows floor(x) and floor(x) + 1, at
+    x = i * (T - 1) / (new_size - 1) (``native_io.resize_feature_ref`` is
+    the same in numpy)."""
+    return native_io.resize_feature(feats, new_size, method)
 
 
 class DenseCaptionDataset:

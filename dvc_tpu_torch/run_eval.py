@@ -7,7 +7,9 @@
 The same flags as ``eval.py``.  The options come from the run folder's
 ``info.json`` (or the one beside ``--eval_checkpoint_path``, else
 ``--cfg_path``); the weights from ``model-{best,last}.pth`` of a port run
-or ``.ckpt`` of a JAX run (``serve.load_run``).  ``--eval_mode eval``
+or ``.ckpt`` of a JAX run (``serve.load_run``), or from
+``--eval_checkpoint_path``, which also takes the reference's own PDVC and
+NewModel ``.pth`` files (``serve.reference_state_dict``).  ``--eval_mode eval``
 writes ``eval_results.json`` with the scores; ``test`` writes
 ``dvc_results.json`` and skips the language metrics, with a fake caption
 file built from ``--test_video_meta_data_csv_path`` where given.  It runs
@@ -93,8 +95,11 @@ def build_parser():
     parser.add_argument('--eval_batch_size', type=int, default=None)
     parser.add_argument('--eval_checkpoint_path', '--eval_model_path',
                         dest='eval_checkpoint_path', type=str, default=None,
-                        help='explicit checkpoint path: a port .pth or a '
-                             'JAX .ckpt')
+                        help='explicit checkpoint path: a port .pth, the '
+                             'reference\'s own PDVC or NewModel .pth '
+                             '({"model": state_dict}, module. prefixes and '
+                             'unused keys dropped as the JAX converters '
+                             'drop them) or a JAX .ckpt')
     parser.add_argument('--eval_transformer_input_type', type=str,
                         default=None, choices=['queries', 'gt_proposals'],
                         help='override the restored transformer_input_type '

@@ -14,7 +14,10 @@ A run folder is what any trainer of either package writes: the port's
 ``model-{best,last}.pth``, a torch ``state_dict``) or the JAX package's
 (``info.json`` and ``model-{best,last}.ckpt``, whose flax params are
 converted with :func:`dvc_tpu_torch.models.convert.from_jax_params` or
-``pdvc_from_jax_params``).  The weights say which model it is: a
+``pdvc_from_jax_params``).  The reference's own PDVC and NewModel
+``.pth`` files load too (``{'model': state_dict, ...}``, keys under
+``module.``): :func:`reference_state_dict` drops what they hold beyond the
+model, as the JAX package's converters do, and any other key raises.  The weights say which model it is: a
 FusionPDVC's keys carry the ``pdvcModel.`` prefix (:func:`make_model`).  ``DenseCaptioner``
 also takes ``(opt, state_dict)`` directly; :func:`load_run` reads a run
 folder for it and for ``dvc_tpu_torch.run_eval``.
@@ -28,6 +31,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 
 import numpy as np
 import torch
@@ -92,14 +96,28 @@ def load_info_json(save_dir: str):
         return json.load(f)
 
 
+def read_pth(path: str) -> dict:
+    """The state_dict of a ``.pth`` as the JAX package reads a reference
+    checkpoint (``load_torch_state_dict``): unpickled in full
+    (``weights_only=False``: the reference's files hold more than
+    tensors), then its ``'model'`` entry, then that one's
+    ``'state_dict'``, else the bare dict."""
+    sd = torch.load(path, map_location='cpu', weights_only=False)
+    for k in ('model', 'state_dict'):
+        if isinstance(sd, dict) and k in sd:
+            sd = sd[k]
+    return sd
+
+
 def load_weights(path: str) -> dict:
-    """The model ``state_dict`` (CPU tensors) of a checkpoint file: the
-    port's ``.pth`` or the JAX package's ``.ckpt`` (flax params converted
-    with :func:`from_jax_params` for a FusionPDVC, whose tree has the
-    fusion blocks, else :func:`pdvc_from_jax_params`)."""
+    """The model ``state_dict`` (CPU tensors) of a checkpoint file: a
+    ``.pth``, the port's or the reference's own (PDVC or NewModel, as
+    :func:`read_pth` reads it; :func:`make_model` drops what the reference
+    saves but never uses), or the JAX package's ``.ckpt`` (flax params
+    converted with :func:`from_jax_params` for a FusionPDVC, whose tree has
+    the fusion blocks, else :func:`pdvc_from_jax_params`)."""
     if path.endswith('.pth'):
-        return torch.load(path, map_location='cpu',
-                          weights_only=True)['model']
+        return read_pth(path)
     params = load_checkpoint(path)['params']
     convert = (from_jax_params if 'visual_sa' in params.get('params', params)
                else pdvc_from_jax_params)
@@ -109,18 +127,69 @@ def load_weights(path: str) -> dict:
 
 def is_fusion_state(state_dict) -> bool:
     """Whether a state_dict is a FusionPDVC's (its PDVC under
-    ``pdvcModel.``, as the JAX ``load_checkpoint`` tells them apart), not a
-    plain PDVC's."""
-    return any(k.startswith('pdvcModel.') for k in state_dict)
+    ``pdvcModel.``, after a ``module.`` prefix, as the JAX
+    ``load_checkpoint`` tells them apart), not a plain PDVC's."""
+    return any(k.startswith(('pdvcModel.', 'module.pdvcModel.'))
+               for k in state_dict)
+
+
+# what the reference saves but never uses, as the JAX converters discard
+# it (dvc_tpu/models/pdvc_converter.py:50-56): the decoder's aliases of the
+# box heads under box refinement, the detr-style two-stage encoder output,
+# a vestigial caption reference head
+_UNUSED_PREFIXES = ('transformer.decoder.bbox_head.', 'transformer.enc_output',
+                    'transformer.reference_points_cap')
+# the caption sampler's attention weights and output projection, created
+# by the reference but dead on its return-value path (:259-262)
+_DEAD_SAMPLER = re.compile(r'(caption_head\.\d+\.core\.deformable_att)\.'
+                           r'(attention_weights|output_proj)\.(weight|bias)$')
+
+
+def reference_state_dict(state_dict, transformer_input_type) -> dict:
+    """``state_dict`` without what the reference's own checkpoints hold
+    beyond the model, as ``convert_pdvc`` / ``convert_fusion`` read them:
+    the ``module.`` prefix; the unused keys above; the dormant branch of
+    ``transformer_input_type`` (the reference builds both
+    ``reference_points`` and ``pos_trans*``, :131-140); the dead sampler
+    keys of a head that has a sampler; a NewModel's HuBERT
+    ``sound_model.*`` (:357-368).  The identity on the port's own weights
+    and on converted JAX ones."""
+    sd = {k[len('module.'):] if k.startswith('module.') else k: v
+          for k, v in state_dict.items()}
+    fusion = is_fusion_state(sd)
+    dormant = ('transformer.reference_points.'
+               if transformer_input_type == 'gt_proposals'
+               else 'transformer.pos_trans')
+
+    prefix = 'pdvcModel.' if fusion else ''
+
+    def unused(key):
+        if fusion and key.startswith('sound_model.'):
+            return True
+        if not key.startswith(prefix):
+            return False
+        k = key[len(prefix):]
+        dead = _DEAD_SAMPLER.match(k)
+        return k.startswith(_UNUSED_PREFIXES + (dormant,)) or (
+            dead is not None
+            and f'{prefix}{dead[1]}.sampling_offsets.weight' in sd)
+    return {k: v for k, v in sd.items() if not unused(k)}
 
 
 def make_model(opt, state_dict, device='cuda'):
     """The model of ``state_dict`` (FusionPDVC or plain PDVC, by its keys)
-    built from ``opt`` on ``device``, the weights loaded with
-    ``strict=True``, in eval mode."""
+    built from ``opt`` on ``device``, in eval mode, with the weights of
+    :func:`reference_state_dict` loaded ``strict=True``; a key that the
+    model does not have raises, naming every such key."""
+    state_dict = reference_state_dict(state_dict, opt.transformer_input_type)
     make = make_fusion_model if is_fusion_state(state_dict) else \
         make_pdvc_model
     model = make(opt, device)
+    unknown = sorted(set(state_dict) - set(model.state_dict()))
+    if unknown:
+        raise ValueError(f'checkpoint tensors that the {type(model).__name__} '
+                         f'of these options does not have (a layout other '
+                         f'than the reference\'s): {unknown}')
     model.load_state_dict(
         {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
          else v for k, v in state_dict.items()}, strict=True)
@@ -131,17 +200,13 @@ def load_pdvc_weights(path: str) -> dict:
     """The PDVC ``state_dict`` (reference layout, CPU tensors) that
     ``--pretrain`` warm-starts from: a plain-PDVC run's JAX ``.ckpt``
     (flax params converted with :func:`pdvc_from_jax_params`), or a ``.pth``
-    holding a PDVC state_dict (bare, or under 'model' or 'state_dict';
-    'module.' prefixes dropped, as the JAX package's ``convert_pdvc``
-    drops them), or the PDVC of a FusionPDVC ``.pth`` (``pdvcModel.*``:
-    the port's own checkpoints)."""
+    holding a PDVC state_dict (as :func:`read_pth` reads it; 'module.'
+    prefixes dropped, as the JAX package's ``convert_pdvc`` drops them), or
+    the PDVC of a FusionPDVC ``.pth`` (``pdvcModel.*``: the port's own
+    checkpoints)."""
     if path.endswith('.pth'):
-        sd = torch.load(path, map_location='cpu', weights_only=True)
-        for k in ('model', 'state_dict'):
-            if isinstance(sd, dict) and k in sd:
-                sd = sd[k]
         sd = {k[len('module.'):] if k.startswith('module.') else k: v
-              for k, v in sd.items()}
+              for k, v in read_pth(path).items()}
         if any(k.startswith('pdvcModel.') for k in sd):
             sd = {k[len('pdvcModel.'):]: v for k, v in sd.items()
                   if k.startswith('pdvcModel.')}
