@@ -24,9 +24,7 @@ serves the best.
 from __future__ import annotations
 
 import json
-import logging
 import os
-import sys
 import time
 
 import numpy as np
@@ -38,37 +36,7 @@ from .serve import load_info_json, load_pdvc_weights
 from .train import (Trainer, filtered_restore, load_checkpoint, multistep_lr,
                     refuse_data_mesh, save_checkpoint, ss_prob_for_epoch)
 from .utils.config import parse_opts
-
-
-def build_folder(opt) -> str:
-    """save_dir/id, renamed id_v_N on a collision, or the folder of
-    ``--start_from`` (reference ``misc/utils.py:105-126``)."""
-    if opt.start_from:
-        save_folder = os.path.join(opt.save_dir, opt.start_from)
-        if not os.path.exists(save_folder):
-            raise FileNotFoundError(f'the folder {save_folder} does not exist')
-        return save_folder
-    save_folder = os.path.join(opt.save_dir, opt.id)
-    n = 1
-    while os.path.exists(save_folder):
-        opt.id = f'{opt.id.split("_v_")[0]}_v_{n}'
-        save_folder = os.path.join(opt.save_dir, opt.id)
-        n += 1
-    os.makedirs(save_folder)
-    return save_folder
-
-
-def create_logger(folder: str, filename: str = 'train.log') -> logging.Logger:
-    logger = logging.getLogger('dvc_tpu_torch')
-    logger.setLevel(logging.DEBUG)
-    logger.handlers.clear()
-    fmt = logging.Formatter('[%(asctime)s] %(message)s',
-                            datefmt='%m-%d %H:%M:%S')
-    for handler in (logging.StreamHandler(sys.stdout),
-                    logging.FileHandler(os.path.join(folder, filename))):
-        handler.setFormatter(fmt)
-        logger.addHandler(handler)
-    return logger
+from .utils.logging import build_folder, create_logger
 
 
 def save_info_json(save_dir: str, info: dict):

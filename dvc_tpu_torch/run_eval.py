@@ -42,11 +42,11 @@ from .data import (BatchLoader, DenseCaptionDataset, FusionBatchLoader,
                    FusionDataset)
 from .data.streaming import StreamingFeatureDataset
 from .eval import evaluate
-from .new_train import create_logger
 from .serve import (is_fusion_state, load_info_json, load_run, make_model,
                     run_options)
 from .train import Trainer
 from .utils.config import load_config
+from .utils.logging import create_logger
 
 
 def create_fake_test_caption_file(metadata_keys, out_path, duration=60.0):

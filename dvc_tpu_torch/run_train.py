@@ -19,7 +19,12 @@ scored by ``dvc_tpu_torch.eval``; ``model-best.pth`` when the score
 (``--criteria_for_best_ckpt dvc``: METEOR + soda_c; ``pc``: the paragraph
 METEOR + CIDEr + Bleu_4) beats the best so far, then ``model-last.pth``,
 ``model-epoch{N}.pth`` under ``--save_all_checkpoint``, and ``info.json``
-with ``val_history`` and ``loss_history``.  ``--start_from <id>
+with ``val_history`` and ``loss_history``.  As ``train.py`` does, it backs
+up ``cfgs/``, the package and the top-level ``.py`` files into
+``<run>/backup`` at start, logs the option table into ``train.log``, and
+writes ``metrics.jsonl`` (``utils/logging.py::MetricsWriter``): ``lr``,
+``videos_per_sec`` and ``train/<loss>`` each epoch and ``val/<score>``
+each validation, at the count of optimizer steps so far.  ``--start_from <id>
 [--start_from_mode best|last]`` resumes a run; ``--pretrain
 full|encoder|decoder --pretrain_path`` warm-starts a new one.
 ``--streaming_features 1 --video_folder <videos>`` featurizes the raw
@@ -44,11 +49,15 @@ from .data import (BatchLoader, DenseCaptionDataset, DevicePrefetchLoader,
 from .data.streaming import StreamingFeatureDataset
 from .eval import evaluate
 from .models import make_pdvc_model
-from .new_train import build_folder, create_logger, pretrain, save_info_json
+from .new_train import pretrain, save_info_json
 from .serve import load_info_json
 from .train import (Trainer, load_checkpoint, multistep_lr, refuse_data_mesh,
                     save_checkpoint, ss_prob_for_epoch)
 from .utils.config import parse_opts
+from .utils.logging import (MetricsWriter, backup_environment,
+                            build_folder, create_logger, print_opt)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def host_losses(losses) -> dict:
@@ -82,6 +91,8 @@ def main(opt, device=None):
         raise ValueError('--streaming_features requires --video_folder')
     save_folder = build_folder(opt)
     logger = create_logger(save_folder)
+    metrics = MetricsWriter(save_folder)
+    backup_environment(save_folder, REPO)
     logger.info(f'save folder: {save_folder}')
     epoch, best_val_score, best_epoch = 0, -1e9, 0
     val_history, loss_history = {}, {}
@@ -124,9 +135,11 @@ def main(opt, device=None):
         trainer.load_state(ck)
         epoch = int(ck['epoch'])
         logger.info(f'resuming from epoch {epoch}')
+    print_opt(opt, logger)
+    logger.info('Start training!')
 
     K = max(int(getattr(opt, 'steps_per_dispatch', 1)), 1)
-    loss_avg = {}
+    loss_avg, iteration = {}, 0
     while epoch < opt.epoch:
         train_loader.set_epoch(epoch)
         ss_prob = ss_prob_for_epoch(opt, epoch)
@@ -164,8 +177,16 @@ def main(opt, device=None):
             n += 1
         dt = time.time() - t0
         loss_avg = {k: round(v / max(n, 1), 3) for k, v in loss_sum.items()}
+        vps = n * opt.batch_size / max(dt, 1e-9)
         logger.info(f'epoch {epoch}: {loss_avg}, {dt:.1f}s '
-                    f'({n * opt.batch_size / max(dt, 1e-9):.2f} videos/s)')
+                    f'({vps:.2f} videos/s)')
+        # the optimizer steps so far (train.py:121-227): one a step, K a
+        # dispatch
+        iteration += n
+        metrics.add_scalar('lr', lr, iteration)
+        metrics.add_scalar('videos_per_sec', vps, iteration)
+        for k, v in sorted(loss_avg.items()):   # JAX's (a pytree's) order
+            metrics.add_scalar(f'train/{k}', v, iteration)
         if opt.streaming_features:
             ex = train_ds.extractor
             logger.info(f'streaming so far: {ex.videos} videos, {ex.clips} '
@@ -191,6 +212,8 @@ def main(opt, device=None):
             current = val_score(opt, scores)
             val_history[epoch] = {k: float(v) for k, v in scores.items()
                                   if np.isscalar(v)}
+            for k, v in val_history[epoch].items():
+                metrics.add_scalar(f'val/{k}', v, iteration)
             logger.info(f'epoch {epoch} val score {current:.4f} '
                         f'(best {best_val_score:.4f})')
             if current > best_val_score:
@@ -205,6 +228,7 @@ def main(opt, device=None):
             'last': {'epoch': epoch, 'opt': opt.to_dict()},
             'best': {'epoch': best_epoch, 'opt': opt.to_dict()},
             'val_history': val_history, 'loss_history': loss_history})
+    metrics.close()
     logger.info('Training done.')
     return save_folder, loss_avg
 
