@@ -1,31 +1,73 @@
 """Dataset of the audio-visual fusion model (port of
-``dvc_tpu/data/fusion_dataset.py``, numpy only; reference
-``NewDataset.py``).
+``dvc_tpu/data/fusion_dataset.py``; reference ``NewDataset.py``).
 
 A :class:`DenseCaptionDataset` whose samples also carry per-clip sound
-features: read from the ``<sound_feature_folder>/<13-char id>.npy`` cache
-(the reference's HuBERT cache), or zeros where a video has none (the
-reference's fallback for missing audio).  The port does not extract sound
-features itself.
+features, found in this order (``load_sound``): the
+``<sound_feature_folder>/<13-char id>.npy`` cache (the reference's HuBERT
+cache); else, given an ``audio_folder`` and an ``extractor``
+(:class:`dvc_tpu_torch.data.audio.HubertExtractor`), HuBERT features of
+the video's ``.mp4``/``.wav``/``.mkv``/``.webm`` file, extracted per clip
+segment and cached; else zeros (the reference's fallback for missing
+audio).
+
+Clip segments come from the TSP metadata or clip CSV of the split
+(``metadata_csv``, else ``--train_csv_filename`` / ``--valid_csv_filename``)
+joined to the annotations by 13-char id as the reference joins them
+(NewDataset.py:54-108): a metadata CSV (filename, fps, video-frames) is
+expanded to clip windows with the eval-dataset formula
+(eval_video_dataset_2.py:91-115); a labeled clip CSV (clip-t-start /
+t-start rows) is used row for row.  Without a CSV the segments are uniform
+windows over the video.
 """
 
 from __future__ import annotations
 
+import csv
 import glob
 import os
 
 import numpy as np
 
+from .audio import HUBERT_DIM, HubertExtractor
 from .dataset import DenseCaptionDataset, collate, resize_feature
+from .video_clips import make_clip_table
 
-HUBERT_DIM = 768
+AUDIO_EXTENSIONS = ('.mp4', '.wav', '.mkv', '.webm')
+
+
+def load_clip_segments_csv(path: str, clip_len: int = 16,
+                           frame_rate: float = 15.0, stride: int = 16):
+    """CSV -> {13-char id: [(t_start, t_end), ...]}: a video metadata table
+    (filename, fps, video-frames) expanded to clip windows (reference
+    eval_video_dataset_2.py:91-115), or a labeled clip table whose rows
+    carry ``clip-t-start`` / ``t-start`` (untrimmed_video_dataset_2.py:
+    75-86)."""
+    segments: dict = {}
+    clip_len_sec = clip_len / float(frame_rate)
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        key13 = os.path.splitext(os.path.basename(r['filename']))[0][:13]
+        if 'video-frames' in r and r.get('video-frames'):
+            clips = make_clip_table(
+                r['filename'], float(r['fps']),
+                int(float(r['video-frames'])), clip_len, frame_rate, stride)
+            segments.setdefault(key13, []).extend(
+                (c.t_start, c.t_end) for c in clips)
+        else:
+            t0 = float(r.get('clip-t-start') or r.get('t-start') or 0.0)
+            segments.setdefault(key13, []).append((t0, t0 + clip_len_sec))
+    return segments
 
 
 class FusionDataset(DenseCaptionDataset):
-    """DenseCaptionDataset + per-video sound features."""
+    """DenseCaptionDataset + per-video sound features.  ``is_training``
+    picks the split's clip CSV."""
 
     def __init__(self, anno_file, feature_folder, translator_json, opt,
-                 seed: int = 0):
+                 seed: int = 0, audio_folder: str | None = None,
+                 extractor: HubertExtractor | None = None,
+                 metadata_csv: str | None = None, is_training: bool = False):
         super().__init__(anno_file, feature_folder, translator_json, opt,
                          seed)
         self.sound_feature_folder = opt.sound_feature_folder
@@ -37,18 +79,49 @@ class FusionDataset(DenseCaptionDataset):
                                             '*.npy'))[:1]:
                 self.sound_dim = int(np.load(p, mmap_mode='r').shape[1])
         self.sound_dim = self.sound_dim or HUBERT_DIM
+        self.audio_folder = audio_folder
+        self.extractor = extractor
+        if metadata_csv is None:
+            metadata_csv = getattr(opt, 'train_csv_filename' if is_training
+                                   else 'valid_csv_filename', None)
+        self.clip_segments = {}
+        if metadata_csv and os.path.exists(metadata_csv):
+            self.clip_segments = load_clip_segments_csv(
+                metadata_csv, clip_len=int(opt.clip_len or 16),
+                frame_rate=float(opt.frame_rate or 15),
+                stride=int(opt.stride or 16))
 
-    def load_sound(self, key: str, n_clips: int) -> np.ndarray:
+    def segments_for(self, key13: str, n_clips: int, duration: float):
+        """Per-clip (start, end) windows: the CSV's (reference
+        NewDataset.py:104-108; cut, or its last repeated, to ``n_clips``),
+        else uniform."""
+        segs = self.clip_segments.get(key13)
+        if segs:
+            return segs[:n_clips] if len(segs) >= n_clips else (
+                segs + [segs[-1]] * (n_clips - len(segs)))
+        return [(i * duration / n_clips, (i + 1) * duration / n_clips)
+                for i in range(n_clips)]
+
+    def load_sound(self, key: str, n_clips: int,
+                   duration: float) -> np.ndarray:
+        key13 = key[:13]
         if self.sound_feature_folder:
-            p = os.path.join(self.sound_feature_folder, key[:13] + '.npy')
+            p = os.path.join(self.sound_feature_folder, key13 + '.npy')
             if os.path.exists(p):
                 return np.load(p).astype(np.float32)
+        if self.extractor and self.audio_folder:
+            for ext in AUDIO_EXTENSIONS:
+                ap = os.path.join(self.audio_folder, key13 + ext)
+                if os.path.exists(ap):
+                    return self.extractor.extract(
+                        ap, self.segments_for(key13, n_clips, duration),
+                        key13)
         return np.zeros((n_clips, self.sound_dim), np.float32)
 
     def __getitem__(self, idx: int):
         s = super().__getitem__(idx)
         n_clips = s['feats'].shape[0]
-        sound = self.load_sound(s['key'], n_clips)
+        sound = self.load_sound(s['key'], n_clips, s['duration'])
         if sound.shape[1] != self.sound_dim:
             raise ValueError(
                 f'sound features for {s["key"]} are {sound.shape[1]}-d but '

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .data import DevicePrefetchLoader, FusionBatchLoader, FusionDataset
+from .data.audio import HubertExtractor
 from .eval import evaluate
 from .serve import load_info_json, load_pdvc_weights
 from .train import (Trainer, filtered_restore, load_checkpoint, multistep_lr,
@@ -66,8 +67,14 @@ def main(opt, device=None):
     refuse_data_mesh(opt)
     save_folder = build_folder(opt)
     logger = create_logger(save_folder)
+    # the extractor of newTrain.py:43-47: given no audio_folder, as there,
+    # it extracts nothing and the cache or zeros feed the sound stream
+    extractor = (HubertExtractor(cache_dir=opt.sound_feature_folder,
+                                 device=device)
+                 if opt.sound_feature_folder else None)
     train_ds = FusionDataset(opt.train_caption_file, opt.visual_feature_folder,
-                             opt.dict_file, opt, seed=opt.seed)
+                             opt.dict_file, opt, seed=opt.seed,
+                             extractor=extractor, is_training=True)
     val_ds = FusionDataset(opt.val_caption_file, opt.visual_feature_folder,
                            opt.dict_file, opt)
     val_loader = FusionBatchLoader(val_ds, opt.batch_size_for_eval, False, opt)

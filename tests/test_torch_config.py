@@ -96,7 +96,9 @@ import dvc_tpu_torch.models, dvc_tpu_torch.ops, dvc_tpu_torch.data
 import dvc_tpu_torch.run_train, dvc_tpu_torch.run_eval
 import dvc_tpu_torch.models.tsp, dvc_tpu_torch.data.streaming
 import dvc_tpu_torch.data.video_clips, dvc_tpu_torch.extract_features
-import dvc_tpu_torch.eval_ete
+import dvc_tpu_torch.eval_ete, dvc_tpu_torch.utils.logging
+import dvc_tpu_torch.data.native_io, dvc_tpu_torch.data.audio
+import dvc_tpu_torch.models.hubert
 pkg = os.path.join(sys.argv[1], 'dvc_tpu') + os.sep
 print(json.dumps(sorted(
     n for n, m in list(sys.modules.items())
