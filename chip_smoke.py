@@ -106,7 +106,10 @@ Phases (one or more lines each; the last line is the JSON verdict):
    the same launch counts, no plain version, one matcher copy a step;
    each run's ms per step of the loop (host clock, steps 2-11, collation
    and upload included) and the idle share of a profiler trace over
-   steps 12-14, with the card's name and power limit.
+   steps 12-14, with the card's name and power limit.  The collation reads
+   and resamples through the native feature-IO library: its call count
+   (``native_io.calls``) must rise in every run, and the B=16 collation ms
+   is printed beside PR 20's (numpy only; not gated).
 11. sampling — phase 6's ``model-best.pth`` served with
    --caption_sample_max 0 on a B=16 batch at temperatures 1.0 and 0.5
    through K7, and 1.0 through K9 (--dsa_lstm_fuse 1): one word-step
@@ -124,7 +127,11 @@ Phases (one or more lines each; the last line is the JSON verdict):
    each), counters set to 0 before each run and read after: (a)
    ``cfgs/yc2_tsp_pdvc.yml`` (LSTM-DSA) one --debug epoch with validation
    (K1-K6 launched, no K7-K10, no plain version; ``epoch1.json`` scored,
-   ``model-best.pth``), ``run_eval`` at B=16 (one K6 launch) and
+   ``model-best.pth``; ``metrics.jsonl`` with ``lr``, ``videos_per_sec``,
+   each ``train/<loss>`` and each ``val/<score>`` at the step count, all
+   finite, ``backup/`` with ``cfgs/`` and ``dvc_tpu_torch/`` but no
+   ``_build/``, the option table in ``train.log``), ``run_eval`` at B=16
+   (one K6 launch) and
    ``DenseCaptioner(folder)``; (b) ``yc2_tsn_pdvcl.yml`` (light head,
    3072-d, 100 queries) the same with K1-K3 only, the light head's word
    loop timed at B=1 and 16, and two val videos' records on the card
@@ -219,6 +226,28 @@ Phases (one or more lines each; the last line is the JSON verdict):
    stepwise step (``bf16_train_agreement``); ``run_eval`` of the
    --dsa_greedy_fuse 0 run greedy and with --caption_sample_max 0 (K7-bf16
    a decode step, one table a batch).
+17. inputs (``--inputs`` runs it alone) — the reference's own
+   checkpoints: the flagship FusionPDVC and ``cfgs/yc2_tsp_pdvc.yml``'s
+   plain PDVC with seeded weights at full width, saved as the reference
+   saves them (``{'model', 'epoch', 'optimizer'}``, keys under
+   ``module.``, with the dead sampler keys, the ``bbox_head`` aliases, the
+   dormant branch, ``enc_output`` and, for the NewModel, a ``sound_model.*``
+   tensor) and as the port saves them; each served for one B=16 batch
+   through ``DenseCaptioner`` (K1/K2 and one K6, no word-step kernel, no
+   plain version), the reference file's tokens and log-probs bitwise
+   those of the port's; ``run_eval --eval_checkpoint_path`` on the
+   reference's file at B=16 (one K6); a file with one unknown key raises.
+   The native feature-IO library's build time, and ``load_npy``,
+   ``resize_feature`` (nearest and linear, 3 -> 5 rows too) and
+   ``load_batch`` equal to their numpy versions on 16 files.  HuBERT-base
+   at full width with seeded weights (no parameter left at 0 or 1), f32
+   with TF32 off: the card against the port's CPU run on 1 s and 3 s
+   segments (relative L2 <= 1e-4), ms a TSP-clip segment at B=1 and 16
+   (CUDA events) and peak memory; ``FusionDataset``'s live-audio route
+   over 16 synthetic stereo 44.1 kHz ``.wav`` files with the card's
+   ``HubertExtractor`` (one corrupt: zeros; the cache written, then read
+   back on a second pass with no model call); a B=16 ``caption_batch``
+   from those sound features (K1/K2 and one K6, no plain version).
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -3431,7 +3460,7 @@ def phase_pipeline(tmp, card):
     import numpy as np
     import torch
     from dvc_tpu_torch import new_train
-    from dvc_tpu_torch.data import FusionBatchLoader
+    from dvc_tpu_torch.data import FusionBatchLoader, native_io
     from dvc_tpu_torch.utils.config import load_config, parse_opts
 
     class Precollated(FusionBatchLoader):
@@ -3464,12 +3493,17 @@ def phase_pipeline(tmp, card):
           f'bucketing; host clock, {card}): collation {costs["collate"]:.1f} '
           f'ms, pageable upload {costs["pageable"]:.2f} ms, pinned upload on '
           f'the copy stream (Trainer.prepare_batch) {costs["pinned"]:.2f} ms')
+    print(f'[pipeline] B=16 collation through the native feature-IO '
+          f'library {costs["collate"]:.1f} ms ({card}); PR 20\'s, numpy '
+          f'only, {PR20_COLLATION_MS} ms (NVIDIA H100 80GB HBM3, 700.00 W; '
+          f'one host-clock sample each, not gated)')
     runs = []
     for prefetch, ahead in PIPELINE_RUNS:
         opt = options(prefetch)
         how = (f'--device_prefetch {prefetch}'
                + (', the epoch collated before it' if ahead else ''))
         reset_counts()
+        native_io.calls = 0
         t0 = time.perf_counter()
         new_train.FusionBatchLoader = Precollated if ahead else \
             FusionBatchLoader
@@ -3485,6 +3519,7 @@ def phase_pipeline(tmp, card):
         seconds = time.perf_counter() - t0
         launches, plain = read_counts()
         copies = matcher_copies()
+        native_calls = native_io.calls
         order = [[key_of(d) for d in step] for step in rec.durations]
         steps = len(rec.entries)
         ms = rec.ms_per_step() if steps > TIMED_STEPS[1] else float('nan')
@@ -3496,10 +3531,11 @@ def phase_pipeline(tmp, card):
               f'{[round(t, 1) for t in rec.step_ms()]} ms; idle share of the '
               f'traced steps {rec.trace.get("idle", float("nan")):.4f}; '
               f'kernel launches {launches}, plain-version calls {plain}, '
-              f'matcher copies {copies}')
+              f'matcher copies {copies}, native feature-IO calls '
+              f'{native_calls}')
         bad = [k for k, v in {**losses, **rec.first}.items()
                if not math.isfinite(v)]
-        if (bad or plain or copies != steps
+        if (bad or plain or copies != steps or native_calls < 1
                 or steps != PIPELINE_VIDEOS // 16
                 or any(None in row for row in order)
                 or min(launches[k] for k in ('msda_fwd', 'msda_bwd',
@@ -3507,7 +3543,8 @@ def phase_pipeline(tmp, card):
                 or any(launches[k] for k in STEP_KERNELS)):
             raise AssertionError(f'pipeline run, {how}: '
                                  f'{steps} steps, losses {losses}, launches '
-                                 f'{launches}, plain {plain}, copies {copies}')
+                                 f'{launches}, plain {plain}, copies {copies}, '
+                                 f'native feature-IO calls {native_calls}')
         runs.append(dict(prefetch=prefetch, ahead=ahead, order=order,
                          first=rec.first, launches=launches, ms=ms,
                          idle=rec.trace.get('idle', float('nan'))))
@@ -3797,6 +3834,48 @@ def plain_train(opt, label, want, zero, card):
     return folder, launches
 
 
+def check_run_folder(folder, label):
+    """``run_train``'s records in ``folder`` (train.py's): metrics.jsonl
+    with ``lr``, ``videos_per_sec`` and each ``train/<loss>`` of every
+    epoch of ``loss_history`` and ``val/<score>`` of every validation of
+    ``val_history``, all finite, at one step count each epoch; ``backup/``
+    with ``cfgs/`` and ``dvc_tpu_torch/``, and no ``_build/`` or
+    ``__pycache__``; the option table in train.log."""
+    import math
+    with open(os.path.join(folder, 'info.json')) as f:
+        info = json.load(f)
+    with open(os.path.join(folder, 'metrics.jsonl')) as f:
+        lines = [json.loads(x) for x in f.read().splitlines()]
+    tags = {}
+    for x in lines:
+        tags.setdefault(x['tag'], []).append(x['step'])
+    steps = tags.get('lr', [])
+    want = {'lr': steps, 'videos_per_sec': steps,
+            **{f'train/{k}': steps for k in
+               {k for v in info['loss_history'].values() for k in v}},
+            **{f'val/{k}': steps[-len(info['val_history']):] for k in
+               {k for v in info['val_history'].values() for k in v}}}
+    backup = os.path.join(folder, 'backup')
+    junk = [d for _, dirs, _ in os.walk(backup) for d in dirs
+            if d in ('_build', '__pycache__')]
+    with open(os.path.join(folder, 'train.log')) as f:
+        table = sum('] | ' in line for line in f)
+    ok = (len(steps) == len(info['loss_history']) and tags == want
+          and all(math.isfinite(x['value']) for x in lines)
+          and all(os.path.isdir(os.path.join(backup, d))
+                  for d in ('cfgs', 'dvc_tpu_torch'))
+          and not junk and table > 100)
+    n_train = sum(t.startswith('train/') for t in want)
+    print(f'[{label}] run folder: metrics.jsonl {len(lines)} lines, lr, '
+          f'videos_per_sec, {n_train} train/ and {len(want) - n_train - 2} '
+          f'val/ tags at steps {steps}, all finite: {ok}; backup/ holds '
+          f'cfgs/ and dvc_tpu_torch/ without _build/: {not junk}; option '
+          f'table rows in train.log: {table}')
+    if not ok:
+        raise AssertionError(f'[{label}] run folder: tags {tags}, want '
+                             f'{want}, junk {junk}, table {table}')
+
+
 def plain_eval_and_serve(folder, label, want, zero, greedy, card):
     """run_eval on the run folder at --eval_batch_size 16 (one batch of
     the VAL_VIDEOS val videos), counted: ``greedy`` K6 launches, the
@@ -4043,6 +4122,7 @@ def phase_plain(tmp, card):
     folder, launches = plain_train(
         opt_a, 'plain-standard', TRUNK + ('dsa_scan_fwd', 'dsa_scan_bwd',
                                           'dsa_greedy'), no_step, card)
+    check_run_folder(folder, 'plain-standard')
     plain_eval_and_serve(folder, 'plain-standard', ('msda_fwd',), no_step,
                          1, card)
     # (b) the light head, 3072-d features, 100 queries
@@ -5878,6 +5958,433 @@ def phase_bf16(tmp, card):
     return kernels, launches
 
 
+# --------------------------------------------------------------------------
+# 17. inputs: the reference's checkpoints, native feature IO, HuBERT
+# --------------------------------------------------------------------------
+
+# the plain recipe whose reference .pth phase 17 serves (phase 13's (a))
+REF_PLAIN = 'standard'
+# phase 10's B=16 collation in PR 20's full run, before the native
+# library (NVIDIA H100 80GB HBM3, 700.00 W; host clock, one sample)
+PR20_COLLATION_MS = 73.5
+HUBERT_SECONDS = (1.0, 3.0)      # the card-vs-CPU segments
+HUBERT_TOL = 1e-4                # relative L2, f32 with TF32 off
+HUBERT_CLIP = 16 / 15            # s: a TSP clip, 16 frames at 15 fps
+AUDIO_VIDEOS = 16
+AUDIO_SR = 44100
+
+
+def reference_pth(state_dict, fusion, input_type, extra=None):
+    """A port ``state_dict`` as the reference's trainers save it: under
+    'model' beside 'epoch' and 'optimizer', every key behind ``module.``,
+    with the tensors the reference saves but never uses (the caption
+    sampler's attention weights and output projection, the decoder's
+    ``bbox_head`` aliases, the dormant ``reference_points`` / ``pos_trans``
+    branch, ``enc_output``, a NewModel's HuBERT ``sound_model.*``) and
+    ``extra``."""
+    import torch
+    pre = 'pdvcModel.' if fusion else ''
+    dead = {}
+    for k, v in state_dict.items():
+        if k.endswith('core.deformable_att.sampling_offsets.weight'):
+            base = k[:-len('sampling_offsets.weight')]
+            d = v.shape[1]
+            for name, rows in (('attention_weights', v.shape[0] // 2),
+                               ('output_proj', d)):
+                dead[f'{base}{name}.weight'] = torch.zeros(rows, d)
+                dead[f'{base}{name}.bias'] = torch.zeros(rows)
+        if k.startswith(pre + 'bbox_head.'):
+            dead[pre + 'transformer.decoder.' + k[len(pre):]] = v
+    d = state_dict[pre + 'transformer.level_embed'].shape[1]
+    if input_type == 'gt_proposals':
+        dormant = {'transformer.reference_points.weight': (1, d),
+                   'transformer.reference_points.bias': (1,)}
+    else:
+        dormant = {'transformer.pos_trans.weight': (2 * d, 2 * d),
+                   'transformer.pos_trans.bias': (2 * d,),
+                   'transformer.pos_trans_norm.weight': (2 * d,),
+                   'transformer.pos_trans_norm.bias': (2 * d,)}
+    dormant['transformer.enc_output.weight'] = (d, d)
+    dead.update({pre + k: torch.zeros(s) for k, s in dormant.items()})
+    if fusion:
+        dead['sound_model.feature_extractor.conv_layers.0.conv.weight'] = \
+            torch.zeros(512, 1, 10)
+    model = {f'module.{k}': v
+             for k, v in {**state_dict, **dead, **(extra or {})}.items()}
+    return {'model': model, 'epoch': 1,
+            'optimizer': {'state': {}, 'param_groups': [{'lr': 5e-5}]}}
+
+
+def serve_counted(dc, feats, durations, sounds=None):
+    """``dc.caption_batch`` with the counts set to 0 just before and read
+    just after, and the model's raw output of that call: (events,
+    launches, plain calls, output, ms by CUDA events)."""
+    captured = {}
+    hook = dc.model.register_forward_hook(
+        lambda m, args, out: captured.update(out))
+    try:
+        reset_counts()
+        events, ms = event_ms(lambda: dc.caption_batch(
+            feats, durations, sound_list=sounds))
+        launches, plain = read_counts()
+    finally:
+        hook.remove()
+    return events, launches, plain, captured, ms
+
+
+def serving_batch(opt, seed, fusion):
+    """16 requests: clip features of 60-400 frames, durations, and (for a
+    FusionPDVC) sound features of every other video."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    C = opt.feature_dim
+    feats = [rng.standard_normal((int(n), C)).astype(np.float32)
+             for n in rng.integers(60, 400, 16)]
+    durations = [float(d) for d in rng.uniform(10, 300, 16)]
+    sounds = ([rng.standard_normal((len(f), C)).astype(np.float32)
+               if i % 2 == 0 else None for i, f in enumerate(feats)]
+              if fusion else None)
+    return feats, durations, sounds
+
+
+def reference_checkpoints(tmp, card):
+    """The flagship FusionPDVC and ``cfgs/yc2_tsp_pdvc.yml``'s plain PDVC,
+    seeded weights at full width, saved as the reference saves them
+    (:func:`reference_pth`) and as the port saves them: each file served
+    for one B=16 batch through ``DenseCaptioner`` (K1/K2 and one K6, no
+    word-step kernel, no plain version), the tokens and log-probs of the
+    reference's file bitwise those of the port's; ``run_eval
+    --eval_checkpoint_path`` on the reference's file at B=16 over the 16
+    val videos (one K6); a file with one unknown key raises.  Returns the
+    FusionPDVC served from the reference's file."""
+    import torch
+    from dvc_tpu_torch.models import make_fusion_model, make_pdvc_model
+    from dvc_tpu_torch.serve import DenseCaptioner, load_weights
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+    no_step = STEP_KERNELS + ('table_gemm', 'table_gemm_bwd')
+    served = None
+    for label, fusion in (('fusion', True), ('plain', False)):
+        if fusion:
+            root = os.path.join(tmp, 'ref_fusion')
+            recipe = write_synthetic_run(root, load_config(CFG, root=ROOT))
+            opt = parse_opts(['--cfg_path', recipe, '--device', DEVICE],
+                             root=ROOT)
+        else:
+            opt = write_plain_run(tmp, REF_PLAIN)
+            root = os.path.join(tmp, f'plain_{REF_PLAIN}')
+        make = make_fusion_model if fusion else make_pdvc_model
+        sd = make(opt, 'cpu', seed=0).state_dict()
+        paths = {'port': os.path.join(root, 'model-best.pth'),
+                 'reference': os.path.join(root, 'reference.pth'),
+                 'unknown key': os.path.join(root, 'unknown.pth')}
+        torch.save({'model': sd, 'epoch': 1}, paths['port'])
+        ref = reference_pth(sd, fusion, opt.transformer_input_type)
+        extra = len(ref['model']) - len(sd)
+        torch.save(ref, paths['reference'])
+        del ref
+        bad_key = ('pdvcModel.' if fusion else '') + 'query_embed.extra'
+        torch.save(reference_pth(sd, fusion, opt.transformer_input_type,
+                                 extra={bad_key: torch.zeros(3)}),
+                   paths['unknown key'])
+        with open(os.path.join(root, 'info.json'), 'w') as f:
+            json.dump({'best': {'epoch': 1, 'opt': opt.to_dict()}}, f)
+        feats, durations, sounds = serving_batch(opt, 7, fusion)
+        outs = {}
+        for name in ('port', 'reference'):
+            dc = DenseCaptioner(opt=opt, state_dict=load_weights(paths[name]),
+                                device=DEVICE)
+            events, launches, plain, out, ms = serve_counted(
+                dc, feats, durations, sounds)
+            for ev, dur in zip(events, durations):
+                check_events(ev, dur)
+            check_launches(f'inputs-{label}', launches, plain,
+                           ('msda_fwd',), no_step, exact={'dsa_greedy': 1})
+            outs[name] = (out['seq'].cpu(), out['cap_prob_eval'].cpu(),
+                          events)
+            print(f'[inputs] {label} ({opt.caption_decoder_type} head, '
+                  f'{card}): DenseCaptioner of the {name}\'s .pth, B=16 '
+                  f'caption_batch {ms:.1f} ms (CUDA events); kernel launches '
+                  f'{launches}, plain-version calls {plain}')
+            if fusion and name == 'reference':
+                served = dc
+            del dc
+        same = (torch.equal(outs['port'][0], outs['reference'][0])
+                and torch.equal(outs['port'][1], outs['reference'][1])
+                and outs['port'][2] == outs['reference'][2])
+        print(f'[inputs] {label}: the reference\'s .pth ({extra} tensors '
+              f'beyond the model, keys under module.) and the port\'s give '
+              f'bitwise equal tokens and log-probs: {same}')
+        if not same:
+            raise AssertionError(f'[inputs] {label}: the reference .pth '
+                                 'served other outputs than the port\'s')
+        path, _, launches, plain, seconds = run_eval_counted([
+            '--eval_save_dir', root, '--eval_folder', 'eval_reference',
+            '--eval_checkpoint_path', paths['reference'], '--eval_batch_size',
+            '16', '--eval_mode', 'test', '--eval_device', DEVICE])
+        check_eval_json(path, VAL_VIDEOS, scored=False)
+        check_launches(f'inputs-{label}', launches, plain, ('msda_fwd',),
+                       no_step, exact={'dsa_greedy': 1})
+        print(f'[inputs] {label}: run_eval --eval_checkpoint_path '
+              f'reference.pth --eval_batch_size 16 ({card}): {seconds:.2f} s '
+              f'(host clock); kernel launches {launches}, plain-version '
+              f'calls {plain}')
+        try:
+            DenseCaptioner(opt=opt, state_dict=load_weights(
+                paths['unknown key']), device=DEVICE)
+        except ValueError as e:
+            if bad_key not in str(e):
+                raise
+            print(f'[inputs] {label}: a .pth with the unknown key {bad_key} '
+                  f'raises: {str(e)[:100]}...')
+        else:
+            raise AssertionError(f'[inputs] {label}: an unknown key loaded')
+    return served
+
+
+def native_feature_io(tmp, card):
+    """The native library against its numpy versions on 16 feature files
+    at the flagship's width (f4 and f8, one Fortran-ordered, which the
+    library refuses, one missing): ``load_npy``, ``resize_feature``
+    ('nearest' and 'linear' to 200 rows, and 3 -> 5 rows), ``load_batch``,
+    each equal; the library's build time and a B=16 load and resample
+    timed against numpy's (host clock)."""
+    import numpy as np
+    from dvc_tpu_torch.data import native_io
+    native_io.lib()
+    print(f'[inputs] native feature IO: libdvc_feature_io.so built from '
+          f'native/feature_io.cpp in {native_io.build_seconds:.2f} s (g++ '
+          f'{" ".join(native_io.CXX_FLAGS)}; 0 where an earlier phase built '
+          f'it) at first use')
+    root = os.path.join(tmp, 'native_io')
+    os.makedirs(root)
+    rng = np.random.default_rng(11)
+    paths = []
+    for i in range(16):
+        x = rng.standard_normal((int(rng.integers(150, 400)), 768))
+        x = x.astype(np.float32) if i % 2 else x
+        paths.append(os.path.join(root, f'v{i}.npy'))
+        np.save(paths[-1], np.asfortranarray(x) if i == 5 else x)
+    paths.append(os.path.join(root, 'missing.npy'))
+    bad = []
+    for p in paths[:-1]:
+        got, want = native_io.load_npy(p), native_io.load_npy_ref(p)
+        if (got is None) != (want is None) or (
+                got is not None and not np.array_equal(got, want)):
+            bad.append(('load_npy', p))
+        x = want if want is not None else np.load(p).astype(np.float32)
+        for method in ('nearest', 'linear'):
+            if not np.array_equal(native_io.resize_feature(x, 200, method),
+                                  native_io.resize_feature_ref(
+                                      x, 200, method)):
+                bad.append(('resize_feature', p, method))
+    x = rng.standard_normal((3, 768)).astype(np.float32)
+    for method in ('nearest', 'linear'):
+        if not np.array_equal(native_io.resize_feature(x, 5, method),
+                              native_io.resize_feature_ref(x, 5, method)):
+            bad.append(('resize_feature 3 -> 5', method))
+    times = {}
+    for method in ('nearest', 'linear'):
+        for name, fn in (('library', native_io.load_batch),
+                         ('numpy', native_io.load_batch_ref)):
+            t0 = time.perf_counter()
+            out = fn(paths, 200, 768, True, method)
+            times[name, method] = (time.perf_counter() - t0) * 1e3
+            if name == 'library':
+                got = out
+        want = native_io.load_batch_ref(paths, 200, 768, True, method)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            bad.append(('load_batch', method))
+    print(f'[inputs] native feature IO vs its numpy versions on 16 files of '
+          f'150-400 x 768 (f4, f8, one Fortran-ordered, one missing): '
+          f'load_npy, resize_feature (nearest, linear, to 200 rows and 3 -> '
+          f'5), load_batch equal: {not bad}; load_batch of the 16 to 200 '
+          f'rows, nearest {times["library", "nearest"]:.1f} ms (numpy '
+          f'{times["numpy", "nearest"]:.1f}), linear '
+          f'{times["library", "linear"]:.1f} ms (numpy '
+          f'{times["numpy", "linear"]:.1f}) (host clock, one run, {card})')
+    if bad:
+        raise AssertionError(f'[inputs] the native library disagrees with '
+                             f'its numpy versions: {bad}')
+
+
+def noisy_hubert(seed=0):
+    """HuBERT-base at full width on the CPU, every parameter moved by
+    seeded noise (no LayerNorm left at 1, no bias at 0)."""
+    import torch
+    from dvc_tpu_torch.models.hubert import Hubert, HubertConfig
+    model = Hubert(HubertConfig(), device='cpu')
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def write_wav(path, seconds, seed):
+    """A stereo 16-bit wave at AUDIO_SR: a tone and noise."""
+    import wave
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * AUDIO_SR)) / AUDIO_SR
+    data = np.stack([0.3 * np.sin(2 * np.pi * (200 + 20 * seed) * t),
+                     0.2 * rng.standard_normal(len(t))], -1)
+    with wave.open(path, 'wb') as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(AUDIO_SR)
+        f.writeframes((np.clip(data, -1, 1) * 32767).astype('<i2').tobytes())
+
+
+def hubert_extraction(tmp, card, dc):
+    """HuBERT-base at full width with seeded weights, f32 with TF32 off:
+    the card against the port's CPU run on segments of HUBERT_SECONDS
+    (relative L2 <= HUBERT_TOL), ms a TSP-clip segment at B=1 and 16 (CUDA
+    events) and the peak memory; then ``FusionDataset``'s live-audio route
+    over AUDIO_VIDEOS synthetic stereo 44.1 kHz ``.wav`` files with the
+    card's ``HubertExtractor`` (one file corrupt: zeros), the cache
+    written, then read back on a second pass without a model call; and
+    ``dc`` (the flagship FusionPDVC) serving a B=16 ``caption_batch`` of
+    those sound features (K1/K2 and one K6, no plain version)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from dvc_tpu_torch.data import FusionDataset
+    from dvc_tpu_torch.data.audio import HUBERT_SR, HubertExtractor
+    from dvc_tpu_torch.utils.config import Config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = os.path.join(tmp, 'hubert')
+    folder = os.path.join(root, 'hubert-base')
+    os.makedirs(folder)
+    model = noisy_hubert()
+    config = model.config
+    with open(os.path.join(folder, 'config.json'), 'w') as f:
+        json.dump(dataclasses.asdict(config), f)
+    torch.save(model.state_dict(), os.path.join(folder, 'pytorch_model.bin'))
+    rng = np.random.default_rng(3)
+    errs = []
+    with torch.no_grad():
+        for seconds in HUBERT_SECONDS:
+            x = torch.from_numpy(rng.standard_normal(
+                (1, int(seconds * HUBERT_SR))).astype(np.float32) * 0.1)
+            want = model(x)
+            model.to(DEVICE)
+            got = model(x.to(DEVICE)).cpu()
+            model.to('cpu')
+            errs.append(rel_l2(got, want))
+        model.to(DEVICE)
+        timed = {}
+        for B in (1, 16):
+            x = torch.randn(B, int(HUBERT_CLIP * HUBERT_SR), device=DEVICE)
+            model(x)
+            if DEVICE != 'cpu':
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            _, ms = event_ms(lambda: [model(x) for _ in range(5)])
+            peak = (torch.cuda.max_memory_allocated() / 2**30
+                    if DEVICE != 'cpu' else float('nan'))
+            timed[B] = (ms / 5 / B, peak)
+    del model
+    print(f'[inputs] HuBERT-base ({config.hidden_size} wide, '
+          f'{config.num_hidden_layers} layers, seeded weights, f32, TF32 '
+          f'off) card vs the port\'s CPU run, segments of '
+          f'{HUBERT_SECONDS} s: relative L2 {[f"{e:.2e}" for e in errs]} '
+          f'(gate {HUBERT_TOL}); a {HUBERT_CLIP:.3f} s segment '
+          f'{timed[1][0]:.2f} ms at B=1, {timed[16][0]:.2f} ms a segment at '
+          f'B=16 (CUDA events), peak memory {timed[1][1]:.2f} / '
+          f'{timed[16][1]:.2f} GiB ({card})')
+    if max(errs) > HUBERT_TOL:
+        raise AssertionError(f'[inputs] HuBERT card vs CPU: {errs}')
+
+    # FusionDataset's live-audio route
+    words = letter_words(dc.opt.vocab_size)
+    os.makedirs(os.path.join(root, 'features'))
+    anno = write_videos(root, 'v_audio', AUDIO_VIDEOS, 9,
+                        dc.opt.feature_dim, words, sound=False)
+    audio = os.path.join(root, 'audio')
+    os.makedirs(audio)
+    for v, (key, entry) in enumerate(anno.items()):
+        seconds = 8.0 + v % 5
+        scale = seconds / entry['duration']
+        entry['duration'] = seconds
+        entry['timestamps'] = [[a * scale, b * scale]
+                               for a, b in entry['timestamps']]
+        wav = os.path.join(audio, key[:13] + '.wav')
+        if v == 3:
+            with open(wav, 'wb') as f:
+                f.write(b'RIFF, but not a wave')
+        else:
+            write_wav(wav, seconds, v)
+    anno_path = os.path.join(root, 'audio.json')
+    with open(anno_path, 'w') as f:
+        json.dump(anno, f)
+    opt = Config({**dc.opt.to_dict(), 'sound_feature_folder': None,
+                  'invalid_video_json': []})
+    extractor = HubertExtractor(cache_dir=os.path.join(root, 'cache'),
+                                model_name=folder, device=DEVICE)
+    calls = [0]
+    extractor._load_model().register_forward_pre_hook(
+        lambda *a: calls.__setitem__(0, calls[0] + 1))
+    passes = []
+    for _ in range(2):
+        ds = FusionDataset(anno_path, [os.path.join(root, 'features')],
+                           opt.dict_file, opt, audio_folder=audio,
+                           extractor=extractor)
+        t0 = time.perf_counter()
+        samples = [ds[i] for i in range(len(ds))]
+        passes.append((samples, time.perf_counter() - t0, calls[0]))
+    (first, s1, c1), (second, s2, c2) = passes
+    cached = sorted(os.listdir(os.path.join(root, 'cache')))
+    segments = sum(len(s['feats']) for s in first)
+    ok = (c1 > 0 and c2 == c1 and len(cached) == AUDIO_VIDEOS - 1
+          and not first[3]['sound'].any()
+          and all(s['sound'].shape == (opt.frame_embedding_num, 768)
+                  and np.isfinite(s['sound']).all() for s in first)
+          and all(np.abs(s['sound']).max() > 0
+                  for i, s in enumerate(first) if i != 3)
+          and all(np.array_equal(a['sound'], b['sound'])
+                  for a, b in zip(first, second)))
+    print(f'[inputs] FusionDataset live audio ({AUDIO_VIDEOS} stereo '
+          f'{AUDIO_SR} Hz .wav files, one corrupt; {segments} segments, '
+          f'uniform windows): first pass {s1:.2f} s with {c1} HuBERT passes '
+          f'on the card, {len(cached)} videos cached; second pass {s2:.2f} s '
+          f'from the cache with {c2 - c1} model calls; the corrupt video\'s '
+          f'sound zeros: {not first[3]["sound"].any()} (host clock, {card})')
+    if not ok:
+        raise AssertionError('[inputs] the live-audio route: calls '
+                             f'{c1}, {c2}, cached {cached}')
+    feats = [s['feats'] for s in first]
+    durations = [s['duration'] for s in first]
+    events, launches, plain, _, ms = serve_counted(
+        dc, feats, durations, [s['sound'] for s in first])
+    for ev, dur in zip(events, durations):
+        check_events(ev, dur)
+    check_launches('inputs-hubert', launches, plain, ('msda_fwd',),
+                   STEP_KERNELS + ('table_gemm', 'table_gemm_bwd'),
+                   exact={'dsa_greedy': 1})
+    print(f'[inputs] B=16 caption_batch from the extracted sound features '
+          f'({card}): {ms:.1f} ms (CUDA events); kernel launches {launches}, '
+          f'plain-version calls {plain}')
+
+
+def phase_inputs(tmp, card):
+    """Phase 17 (``--inputs`` runs it alone): the reference's checkpoints
+    in serving and ``run_eval``, the native feature-IO library, HuBERT
+    extraction on the card."""
+    import torch
+    root = os.path.join(tmp, 'inputs')
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    dc = reference_checkpoints(root, card)
+    native_feature_io(root, card)
+    hubert_extraction(root, card, dc)
+    del dc
+    if DEVICE != 'cpu':
+        torch.cuda.empty_cache()
+    print(f'[inputs] phase 17 took {time.perf_counter() - t0:.1f} s (host '
+          f'clock)')
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -5904,6 +6411,7 @@ def main():
         phase_plain(tmp, device['smi'])
         phase_tsp(tmp, device['smi'])
         phase_tsp_train(tmp, device['smi'])
+        phase_inputs(tmp, device['smi'])
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))
@@ -5997,6 +6505,11 @@ if __name__ == '__main__':
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
             phase_bf16(tmp, card)
+    elif sys.argv[1:2] == ['--inputs']:
+        card = phase_device()['smi']
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_inputs(tmp, card)
     elif sys.argv[1:2] == ['--tsp-train']:
         card = phase_device()['smi']
         with tempfile.TemporaryDirectory() as tmp:

@@ -1,6 +1,8 @@
-"""Host-side data of the port (counterpart of ``dvc_tpu/data``, numpy
-only): feature reading and rescale, the caption datasets and their static
-collation, the vocabulary ``Translator``, and the prefetching loaders."""
+"""Host-side data of the port (counterpart of ``dvc_tpu/data``): feature
+reading and rescale (through the native library, ``native_io``), the
+caption datasets and their static collation, HuBERT sound features
+(``audio``), the vocabulary ``Translator``, and the prefetching
+loaders."""
 
 from .dataset import (BatchLoader, DenseCaptionDataset, collate,
                       resize_feature)

@@ -1,12 +1,15 @@
 """Port parity of the serving path's host-side data helpers: the port's
-``resize_feature`` equals the JAX package's numpy path (exactly: both index
-and lerp in numpy), and its ``Translator`` is the same shared class.
+``resize_feature`` equals the JAX package's with its native library built
+(exactly: both call the library of ``native/feature_io.cpp``), and its
+``Translator`` is the same shared class.
 
-The JAX package also has an optional native resize (``native/``, built by
-``make -C native``) that rounds exact halves away from zero where numpy
-rounds them to even.  The port follows numpy; the two agree at the served
+The library rounds exact halves away from zero; the JAX package's numpy
+path, taken where the library is not built, rounds them to even.  The port
+always takes the library (ROADMAP C); the two rules agree at the served
 length T = 200, where no position falls on a half (199 is prime)."""
 import json
+import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -17,12 +20,25 @@ from dvc_tpu.data.vocabulary import Translator as JaxTranslator
 from dvc_tpu_torch.data import Translator, resize_feature
 
 
+@pytest.fixture(scope='module')
+def jax_native_lib():
+    """The JAX package's native library, built as tests/test_native_io.py
+    builds it."""
+    if not native_io.available():
+        subprocess.run(['make', '-C', os.path.join(os.path.dirname(
+            os.path.dirname(os.path.abspath(__file__))), 'native')],
+            check=True, capture_output=True)
+        native_io._TRIED = False
+        native_io._LIB = None
+    assert native_io.available()
+
+
 @pytest.mark.parametrize('method', ['nearest', 'linear'])
 @pytest.mark.parametrize('orig,new', [(3, 5), (150, 200), (333, 200),
                                       (80, 200), (1, 4), (7, 1), (24, 24)])
-def test_resize_feature_matches_jax(orig, new, method, monkeypatch):
-    """(3, 5) puts rows at half-integer positions (round half to even)."""
-    monkeypatch.setattr(native_io, 'available', lambda: False)
+def test_resize_feature_matches_jax(orig, new, method, jax_native_lib):
+    """(3, 5) puts rows at half-integer positions (rounded away from
+    zero)."""
     feats = np.random.default_rng(orig).standard_normal(
         (orig, 6)).astype(np.float32)
     got = resize_feature(feats, new, method)
