@@ -5,10 +5,11 @@ Per-video ``.npy`` features are read and rescaled to
 ``frame_embedding_num`` rows by the native library (``native_io``, built at
 first use), as the JAX dataset reads them where that library is built.
 Gt events are subsampled to ``gt_proposal_sample_num``, captions
-tokenized, and a batch collated to static shapes: video (B, T, C), gt (B, G, 2), captions
-(B, G, Lc), with masks.  :class:`BatchLoader` shuffles and batches a
-dataset, as the JAX ``BatchLoader`` does in one process.  A missing feature file degrades to zeros, and
-invalid-video lists filter keys, as in the reference.
+tokenized, and a batch collated to static shapes: video (B, T, C), gt
+(B, G, 2), captions (B, G, Lc), with masks.  :class:`BatchLoader`
+shuffles and batches a dataset, as the JAX ``BatchLoader`` does in one
+process.  A missing feature file degrades to zeros, and invalid-video
+lists filter keys, as in the reference.
 """
 
 from __future__ import annotations

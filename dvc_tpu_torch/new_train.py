@@ -11,7 +11,10 @@ reference's restarts: visited video keys are checkpointed every
 Under ``--device_prefetch 1`` (the default) batches are collated in a
 worker thread and uploaded one step ahead (``data.DevicePrefetchLoader``).
 ``--pretrain full|encoder|decoder`` warm-starts the PDVC from the
-plain-PDVC checkpoint ``--pretrain_path`` when not resuming.
+plain-PDVC checkpoint ``--pretrain_path`` when not resuming.  With
+``--sound_feature_folder`` it builds a ``HubertExtractor`` that caches
+there, as ``newTrain.py`` does; given no audio folder, as there, the
+sound stream reads the cache or zeros.
 Every ``save_checkpoint_every`` epochs it validates as ``newTrain.py``
 does: the greedy captions of ``val_caption_file`` into ``epoch{N}.json``,
 scored against ``gt_file_for_eval`` and ``gt_file_for_para_eval``

@@ -17,10 +17,11 @@ converted with :func:`dvc_tpu_torch.models.convert.from_jax_params` or
 ``pdvc_from_jax_params``).  The reference's own PDVC and NewModel
 ``.pth`` files load too (``{'model': state_dict, ...}``, keys under
 ``module.``): :func:`reference_state_dict` drops what they hold beyond the
-model, as the JAX package's converters do, and any other key raises.  The weights say which model it is: a
-FusionPDVC's keys carry the ``pdvcModel.`` prefix (:func:`make_model`).  ``DenseCaptioner``
-also takes ``(opt, state_dict)`` directly; :func:`load_run` reads a run
-folder for it and for ``dvc_tpu_torch.run_eval``.
+model, as the JAX package's converters do, and any other key raises.  The
+weights say which model it is: a FusionPDVC's keys carry the
+``pdvcModel.`` prefix (:func:`make_model`).  ``DenseCaptioner`` also takes
+``(opt, state_dict)`` directly; :func:`load_run` reads a run folder for it
+and for ``dvc_tpu_torch.run_eval``.
 Features are rescaled to the model's frame budget as in the training
 pipeline; the model runs under ``torch.inference_mode()`` on ``device``,
 the card unless the caller asks for the CPU.
