@@ -248,6 +248,38 @@ Phases (one or more lines each; the last line is the JSON verdict):
    ``HubertExtractor`` (one corrupt: zeros; the cache written, then read
    back on a second pass with no model call); a B=16 ``caption_batch``
    from those sound features (K1/K2 and one K6, no plain version).
+18. data parallel (``--ddp`` runs it alone) — ``dvc_tpu_torch.parallel`` on
+   the one card: (a) ``torchrun --standalone --nproc_per_node 1`` running
+   ``new_train``'s entry point with ``--tpu_mesh_data 1`` on a full-width
+   synthetic run of DDP_VIDEOS videos at B=16 (one --debug epoch of 5 steps
+   and its validation): a one-rank NCCL group whose all-reduces (the
+   losses' counts, the gradients' flat buckets, the losses) run on the
+   card; the worker's launch counts of K1-K6 (> 0, no plain version) and
+   its ms a step (host clock, synchronised, steps 2-5) beside the same run
+   without a group, and, in the worker after its run, B=16 steps with the
+   collectives on and off in turns and the gradient sum alone
+   (``world_one_costs``); (b) two gloo ranks, both on cuda:0 (gloo on CUDA
+   tensors, checked), at a global B=16 (8 a rank) for two steps against one
+   process at B=16 on the card, from seeded weights with the sampling
+   offsets moved off the tap boundaries (``off_boundary_``), taking the one
+   process's matching (their own may differ only where its cost is within
+   DDP_TIE_TOL of theirs): the losses (1e-4 relative), the first step's
+   summed gradients (1e-3 relative L2, phase 7's floors) and the parameters
+   after the second step (atol 2e-5 + rtol 1e-3,
+   tests/test_torch_train.py's exceptions) each within the larger of its
+   tolerance and twice the one process's own rounding floor (its step
+   repeated, where atomics differ, and its split arithmetic, each rank's
+   rows in turn with no collective, ``split_steps``, against its
+   whole-batch step), and against that split arithmetic within the larger
+   of the tolerance and twice the repeat's; equal on both ranks; K3-K5
+   launched on each rank; (c) ``r2plus1d_34`` under ``--train-bn 1``
+   (BatchNorm on the global batch's statistics) on two gloo ranks on the
+   card at a global batch of DDP_TSP_BATCH clips against one process, in
+   float64: losses and parameters within (b)'s tolerances, every tensor
+   within DDP_F64_TOL of its largest entry; the float32 comparison beside
+   the one process against itself, not gated (at random weights the float32
+   step is chaotic); (d) ``new_train`` with one rank more than the visible
+   cards raises before it makes a run folder.
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -6385,6 +6417,716 @@ def phase_inputs(tmp, card):
           f'clock)')
 
 
+# --------------------------------------------------------------------------
+# 18. data parallel
+# --------------------------------------------------------------------------
+
+DDP_VIDEOS = 80           # one --debug epoch: 5 steps at B=16
+DDP_BATCH = 16
+DDP_TSP = 'r2plus1d_34'
+DDP_TSP_BATCH = 8         # 4 clips a rank
+DDP_SECONDS = 600         # a rank's or a torchrun worker's time limit
+DDP_LOSS_TOL = 1e-4       # relative, each loss
+DDP_GRAD_TOL = 1e-3       # relative L2 (+ floor), each gradient: phase 7
+DDP_ATOL, DDP_RTOL = 2e-5, 1e-3   # parameters: tests/test_torch_train.py
+DDP_TIE_TOL = 1e-4        # a pinned matching's cost over a rank's own
+DDP_F64_TOL = 1e-8        # float64 TSP: a tensor's max error / its max
+
+
+def ddp_recipe(root):
+    """A full-width synthetic run of DDP_VIDEOS training videos (the
+    validation set of VAL_VIDEOS) at B=DDP_BATCH, dropout off; its
+    recipe."""
+    from dvc_tpu_torch.utils.config import load_config
+    base = write_synthetic_run(root, load_config(CFG, root=ROOT),
+                               n_videos=DDP_VIDEOS)
+    recipe = os.path.join(root, 'ddp.yml')
+    with open(recipe, 'w') as f:
+        json.dump({'base_cfg_path': base, 'batch_size': DDP_BATCH,
+                   'transformer_dropout_prob': 0.0, 'drop_prob': 0.0}, f)
+    return recipe
+
+
+def ddp_worker(out, argv):
+    """``chip_smoke.py --ddp-worker OUT ARGV...``: what ``python -m
+    dvc_tpu_torch.new_train ARGV`` runs (``parse_opts``, the seeds,
+    ``main``), with the launch counts set to 0 before and read after and
+    each train step timed on the host clock between two synchronisations;
+    writes them, the losses and the group's backend to OUT (JSON)."""
+    import numpy as np
+    import torch
+    from dvc_tpu_torch import new_train, parallel
+    from dvc_tpu_torch.train import trainer as trainer_module
+    from dvc_tpu_torch.utils.config import parse_opts
+    opt = parse_opts(argv, root=ROOT)
+    np.random.seed(opt.seed)
+    torch.manual_seed(opt.seed)
+    real = trainer_module.Trainer.train_step
+    steps, backends = [], set()
+
+    def sync():
+        if opt.device != 'cpu':
+            torch.cuda.synchronize()
+
+    def timed(self, *a, **k):
+        sync()
+        t0 = time.perf_counter()
+        losses = real(self, *a, **k)
+        sync()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        backends.add(torch.distributed.get_backend() if parallel.active()
+                     else None)
+        return losses
+
+    trainer_module.Trainer.train_step = timed
+    try:
+        reset_counts()
+        folder, losses = new_train.main(opt)
+        launches, plain = read_counts()
+    finally:
+        trainer_module.Trainer.train_step = real
+    ab = (world_one_costs(opt, os.path.dirname(out))
+          if 'WORLD_SIZE' in os.environ else None)
+    with open(out, 'w') as f:
+        json.dump({'folder': folder, 'losses': losses, 'step_ms': steps,
+                   'backends': sorted(map(str, backends)),
+                   'launches': launches, 'plain': plain, 'ab': ab}, f)
+
+
+def world_one_costs(opt, root, turns=5):
+    """In the torchrun worker after its run: a one-rank group of its own
+    (NCCL on the card; a file store in root) and, in this one process, B=16
+    train steps with the trainer's collectives on and off in turns
+    (``Trainer.data_parallel``; host clock between synchronisations, after
+    two warm-up steps), then the gradient sum alone (host clock and CUDA
+    events): what the collectives cost at world 1 apart from the
+    process."""
+    import torch
+    from dvc_tpu_torch import parallel
+    from dvc_tpu_torch.parallel import mesh
+    from dvc_tpu_torch.train import Trainer
+    dev = torch.device('cpu' if opt.device == 'cpu' else 'cuda')
+
+    def sync():
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+
+    mesh.init_group(torch.device(dev.type, 0) if dev.type == 'cuda' else dev,
+                    'file://' + os.path.join(root, 'costs_store'), 0, 1)
+    try:
+        trainer = Trainer(opt, device=dev)
+        batch = train_batch(opt, DDP_BATCH)
+        for _ in range(2):
+            trainer.train_step(batch, opt.lr)
+        ms = {True: [], False: []}
+        for _ in range(turns):
+            for on in (True, False):
+                trainer.data_parallel = on
+                sync()
+                t0 = time.perf_counter()
+                trainer.train_step(batch, opt.lr)
+                sync()
+                ms[on].append((time.perf_counter() - t0) * 1e3)
+        grads = [p.grad for p in trainer.params]
+        host = []
+        for _ in range(turns):
+            sync()
+            t0 = time.perf_counter()
+            parallel.sum_gradients(grads)
+            sync()
+            host.append((time.perf_counter() - t0) * 1e3)
+        events = (cuda_ms(lambda: parallel.sum_gradients(grads), turns)
+                  if dev.type == 'cuda' else None)
+        return {'with': ms[True], 'without': ms[False], 'sum_host': host,
+                'sum_events': events, 'tensors': len(grads),
+                'bytes': sum(g.numel() * g.element_size() for g in grads)}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_command(cmd, timeout):
+    """``cmd`` in a session of its own (its children included, killed on
+    a timeout); its stdout, or an error with the end of its output."""
+    import signal
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        output, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        raise AssertionError(f'{cmd[:6]}... did not end within {timeout} s')
+    if p.returncode:
+        raise AssertionError(f'{cmd[:6]}... exited {p.returncode}:\n'
+                             f'{output[-4000:]}')
+    return output
+
+
+def ddp_torchrun(root, recipe, card):
+    """18(a): new_train's entry point under ``torchrun --standalone
+    --nproc_per_node 1`` (a one-rank NCCL group) and without a group, each
+    in a process of its own: launches, losses, ms a step."""
+    runs = {}
+    for label, launcher in (
+            ('torchrun', [sys.executable, '-m', 'torch.distributed.run',
+                          '--standalone', '--nproc_per_node', '1']),
+            ('no group', [sys.executable])):
+        out = os.path.join(root, f'{label.replace(" ", "_")}.json')
+        cmd = launcher + [os.path.join(ROOT, 'chip_smoke.py'),
+                          '--ddp-worker', out, '--cfg_path', recipe,
+                          '--debug', '--device', DEVICE,
+                          '--tpu_mesh_data', '1']
+        t0 = time.perf_counter()
+        run_command(cmd, DDP_SECONDS)
+        with open(out) as f:
+            runs[label] = json.load(f)
+        runs[label]['seconds'] = time.perf_counter() - t0
+    group, alone = runs['torchrun'], runs['no group']
+    if group['backends'] != [('nccl' if DEVICE != 'cpu' else 'gloo')] \
+            or alone['backends'] != ['None']:
+        raise AssertionError(f'[ddp] groups {group["backends"]}, '
+                             f'{alone["backends"]}')
+    for label, run in runs.items():
+        check_launches(f'ddp {label}', run['launches'], run['plain'],
+                       ('msda_fwd', 'msda_bwd', 'dsa_scan_fwd',
+                        'dsa_scan_bwd', 'dsa_greedy'), STEP_KERNELS)
+        if len(run['step_ms']) != 5 or not all(
+                math.isfinite(v) for v in run['losses'].values()):
+            raise AssertionError(f'[ddp] {label}: {run}')
+    ms = {k: sum(r['step_ms'][1:]) / len(r['step_ms'][1:])
+          for k, r in runs.items()}
+    err = max(abs(group['losses'][k] - v) / max(abs(v), 1e-6)
+              for k, v in alone['losses'].items())
+    print(f'[ddp] (a) new_train --debug --tpu_mesh_data 1, B={DDP_BATCH} '
+          f'({card}): under torchrun --standalone --nproc_per_node 1 '
+          f'(one-rank {group["backends"][0]} group) '
+          f'{ms["torchrun"]:.1f} ms a step, without a group '
+          f'{ms["no group"]:.1f} ms (host clock, synchronised, mean of '
+          f'steps 2-5; all: '
+          f'{[round(v, 1) for v in group["step_ms"]]} / '
+          f'{[round(v, 1) for v in alone["step_ms"]]}); difference '
+          f'{ms["torchrun"] - ms["no group"]:+.1f} ms; processes '
+          f'{group["seconds"]:.1f} / {alone["seconds"]:.1f} s; the '
+          f'epoch\'s mean losses within {err:.2e} relative of each other')
+    print(f'[ddp] (a) torchrun worker launches {group["launches"]}, plain '
+          f'calls {group["plain"]}')
+    ab = group['ab']
+    mean = {k: sum(ab[k]) / len(ab[k]) for k in ('with', 'without',
+                                                  'sum_host')}
+    print(f'[ddp] (a) in the torchrun worker after its run, one process, a '
+          f'one-rank group ({card}): B={DDP_BATCH} steps with the '
+          f'collectives {mean["with"]:.1f} ms, without '
+          f'{mean["without"]:.1f} ms (host clock, {len(ab["with"])} turns '
+          f'each: {[round(v, 1) for v in ab["with"]]} / '
+          f'{[round(v, 1) for v in ab["without"]]}); the gradient sum alone '
+          f'({ab["tensors"]} tensors, {ab["bytes"] / 2**20:.1f} MiB, '
+          f'{-(-ab["bytes"] // (64 << 20))} buckets) {mean["sum_host"]:.2f} '
+          f'ms host clock, '
+          + (f'{ab["sum_events"]:.3f} ms CUDA events'
+             if ab['sum_events'] is not None else 'no card'))
+    return ms
+
+
+def spawn_ranks(fn, n, root, *args):
+    """``fn(rank, root, *args)`` on n spawned processes; their results
+    (``root/rank{r}.pt``, written by ``fn``).  A rank's failure raises with
+    its traceback; ranks still running after DDP_SECONDS are killed."""
+    import torch
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(root,) + args, nprocs=n, join=False,
+                             start_method='spawn')
+    deadline = time.monotonic() + DDP_SECONDS
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f'[ddp] {fn.__name__}: {n} ranks did not '
+                                 f'end within {DDP_SECONDS} s')
+    return [torch.load(os.path.join(root, f'rank{r}.pt'), weights_only=False)
+            for r in range(n)]
+
+
+def tf32_flags():
+    """This process's TF32 switches (matmul, cuDNN): phase 3 turns both
+    off for the rest of a full run, and a spawned rank starts with
+    PyTorch's defaults (cuDNN's on), so the ranks take the parent's."""
+    import torch
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def gloo_group(rank, root, device, tf32, n=2):
+    """Rank ``rank`` of a gloo group of n meeting at a file store in root,
+    with the TF32 switches ``tf32`` (:func:`tf32_flags`); whether gloo
+    all-reduces a tensor on ``device`` (a CUDA tensor on the card) in this
+    torch build."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        tf32
+    dist.init_process_group('gloo', init_method='file://' + os.path.join(
+        root, 'store'), rank=rank, world_size=n)
+    probe = torch.full((4,), rank + 1.0, device=device)
+    dist.all_reduce(probe)
+    return probe.tolist() == [n * (n + 1) / 2] * 4
+
+
+def matching_cost(cfg, logits, boxes, labels, gt_boxes, gt_mask, col4row):
+    """The total matching cost of ``col4row`` (D', B, G) in each (layer,
+    video), under the matcher's cost matrices of these outputs, (D', B)."""
+    import torch
+    from dvc_tpu_torch.models.matcher import match_cost_matrix
+    col4row = col4row.to(logits.device)
+    out = []
+    for l in range(len(col4row)):
+        C = match_cost_matrix(cfg, logits[l], boxes[l], labels, gt_boxes)
+        idx = col4row[l].clamp(min=0)
+        picked = torch.gather(C, 1, idx[:, None, :])[:, 0]        # (B, G)
+        out.append((picked * (gt_mask & (col4row[l] >= 0))).sum(-1))
+    return torch.stack(out).double().cpu()
+
+
+def recording_matcher(pinned=None, part=None):
+    """``criterion.hungarian_match`` wrapped to keep each call's own
+    matching (on the host) and, with ``pinned`` (a matching a call, (D',
+    B, G)), to return the rows ``part`` of the pinned one instead; (the
+    matchings, the pinned rows' relative excess of cost over the own ones
+    under this run's cost matrices, a function that puts the real one
+    back)."""
+    from dvc_tpu_torch.models import criterion
+    real, seen, excess = criterion.hungarian_match, [], []
+
+    def record(*args):
+        out = real(*args)
+        seen.append(out.cpu())
+        if pinned is None:
+            return out
+        taken = pinned[len(seen) - 1][:, part]
+        own, other = (matching_cost(*args, m) for m in (out, taken))
+        excess.append((other - own) / own.abs().clamp(min=1e-12))
+        return taken.to(out.device)
+    criterion.hungarian_match = record
+    return seen, excess, lambda: setattr(criterion, 'hungarian_match', real)
+
+
+def pdvc_steps(trainer, batches, lr, part=None, pinned=None):
+    """Two optimizer steps (one a batch, ``part`` its rows; ``pinned``:
+    the matchings to take, :func:`recording_matcher`): (losses a step, the
+    first step's gradients, the final parameters, the own matchings, the
+    pinned ones' cost excess), on the host."""
+    seen, excess, restore = recording_matcher(pinned, part)
+    losses, grads = [], None
+    try:
+        for b in batches:
+            if part is not None:
+                b = {k: v[part] for k, v in b.items()}
+            out = trainer.train_step(b, lr)
+            losses.append({k: float(v) for k, v in out.items()})
+            if grads is None:
+                grads = {n: p.grad.cpu() for n, p in
+                         trainer.model.named_parameters()}
+    finally:
+        restore()
+    return losses, grads, {k: v.cpu() for k, v in
+                           trainer.model.state_dict().items()}, seen, excess
+
+
+def split_steps(trainer, batches, lr, pinned, n=2):
+    """The two steps as n ranks take them, in this one process and with
+    no collective: each rank's rows of a global batch forward and backward
+    in turn, with the global batch's counts (from the pinned matching) as
+    the losses' denominators and the gradients accumulated (their sum),
+    then ``Trainer.train_step``'s zero fill, clipping and optimizer step.
+    Returns what :func:`pdvc_steps` returns but the matchings."""
+    import torch
+    from dvc_tpu_torch import parallel
+    from dvc_tpu_torch.models.matcher import matched_mask
+    from dvc_tpu_torch.train.trainer import clip_by_global_norm_
+    losses, grads = [], None
+    for step, batch in enumerate(batches):
+        gt = torch.as_tensor(batch['gt_boxes_mask'])
+        counts = torch.stack(
+            [gt.sum(), torch.tensor(len(gt))]
+            + [matched_mask(m, gt).sum() for m in pinned[step]]).float()
+        counts = counts.to(trainer.device)
+        for group in trainer.optimizer.param_groups:
+            group['lr'] = lr
+        trainer.optimizer.zero_grad(set_to_none=False)
+        sums = {}
+        for r in range(n):
+            part = parallel.rows(len(gt), r, n)
+            _, _, restore = recording_matcher(pinned[step:step + 1], part)
+            try:
+                rows = trainer._device_batch(
+                    {k: v[part] for k, v in batch.items()},
+                    trainer.prepare_batch)
+                _, out = trainer.model.forward_train(rows, trainer.gen, 0.0,
+                                                     lambda c: counts)
+            finally:
+                restore()
+            out['total_loss'] = trainer.total_loss(out)
+            out['total_loss'].backward()
+            for k, v in out.items():
+                sums[k] = sums.get(k, 0.0) + float(v.detach())
+        for p in trainer.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        clip_by_global_norm_([p.grad for p in trainer.params],
+                             trainer.opt.grad_clip)
+        trainer.optimizer.step()
+        losses.append(sums)
+        if grads is None:
+            grads = {k: p.grad.cpu() for k, p in
+                     trainer.model.named_parameters()}
+    return losses, grads, {k: v.cpu() for k, v in
+                           trainer.model.state_dict().items()}
+
+
+def ddp_pdvc_rank(rank, root, device, opt, tf32):
+    """18(b): one of two gloo ranks on ``device`` (cuda:0 for both), from
+    rank 0's weights (root/ref.pt), two steps on its rows of the global
+    batches; writes root/rank{r}.pt."""
+    import torch
+    import torch.distributed as dist
+    from dvc_tpu_torch import parallel
+    from dvc_tpu_torch.train import Trainer
+    gloo_cuda = gloo_group(rank, root, device, tf32)
+    try:
+        ref = torch.load(os.path.join(root, 'ref.pt'), weights_only=False)
+        trainer = Trainer(opt, device=device)
+        if rank == 0:
+            trainer.model.load_state_dict(ref['state'], strict=True)
+        parallel.broadcast_module(trainer.model)
+        reset_counts()
+        losses, grads, state, seen, excess = pdvc_steps(
+            trainer, ref['batches'], opt.lr,
+            parallel.rows(len(ref['batches'][0]['video_tensor'])),
+            ref['matching'])
+        launches, plain = read_counts()
+        torch.save({'losses': losses, 'grads': grads, 'state': state,
+                    'matching': seen, 'excess': excess,
+                    'launches': launches, 'plain': plain,
+                    'gloo_cuda': gloo_cuda},
+                   os.path.join(root, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def exempt_param(name, got, ref):
+    """(got, ref) of a parameter, less the entries whose exact gradient is
+    zero (tests/test_torch_train.py): None for alpha_net's bias, the key
+    third dropped from an in_proj_bias."""
+    if name.endswith('alpha_net.bias'):
+        return None
+    if name.endswith('in_proj_bias'):
+        E = len(ref) // 3
+        keep = [i for i in range(len(ref)) if not E <= i < 2 * E]
+        return got[keep], ref[keep]
+    return got, ref
+
+
+def param_excess(got, ref):
+    """The worst parameter's excess over atol + rtol |ref| (<= 1: within
+    DDP_ATOL + DDP_RTOL), and its name."""
+    worst, name = 0.0, None
+    for k, r in ref.items():
+        if not r.is_floating_point():
+            continue
+        pair = exempt_param(k, got[k].double(), r.double())
+        if pair is None:
+            continue
+        g, r2 = pair
+        e = float(((g - r2).abs() / (DDP_ATOL + DDP_RTOL * r2.abs())).max()) \
+            if r2.numel() else 0.0
+        if e > worst:
+            worst, name = e, k
+    return worst, name
+
+
+def off_boundary_(model, seed=0, scale=1e-2):
+    """Every sampling-offset kernel of ``model`` set to small seeded
+    normal values (tests/test_torch_train.py's ``off_boundary``): the
+    seeded init puts every sampling point exactly on a tap boundary, where
+    the gradient with respect to the location jumps and one ulp picks the
+    side, so that two summation orders (a B=8 and a B=16 launch) may take
+    different sides."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith('sampling_offsets.weight'):
+                p.copy_(torch.randn(p.shape, generator=gen) * scale)
+
+
+DDP_ERRORS = {'loss': ('worst loss relative error', DDP_LOSS_TOL),
+              'grad': ('worst gradient relative L2', DDP_GRAD_TOL),
+              'param': ('final parameters in units of atol + rtol', 1.0)}
+
+
+def step_errors(got, ref):
+    """A two-step run against a reference run, both (losses a step, the
+    first step's gradients or None, the final state): {'loss': the worst
+    loss's relative error, 'grad': the worst gradient's relative L2 error
+    with phase 7's floors, 'param': the final parameters' worst excess in
+    units of atol + rtol |ref|} and {kind: where}."""
+    losses, grads, state = got
+    ref_losses, ref_grads, ref_state = ref
+    err = {'loss': max(abs(losses[i][k] - v) / max(abs(v), 1e-6)
+                       for i, step in enumerate(ref_losses)
+                       for k, v in step.items()), 'grad': 0.0}
+    where = {'grad': None}
+    for n, r in (ref_grads or {}).items():
+        floor = 5e-5 if n.endswith('alpha_net.bias') else 1e-5
+        e = float((grads[n] - r).norm() / (r.norm() + floor / DDP_GRAD_TOL))
+        if e >= err['grad']:
+            err['grad'], where['grad'] = e, n
+    err['param'], where['param'] = param_excess(state, ref_state)
+    return err, where
+
+
+def floor_gates(label, got, floor):
+    """Each error of ``got`` (:func:`step_errors` against a reference run)
+    within the larger of its stated tolerance (DDP_ERRORS) and twice the
+    reference's own rounding floor ``floor`` (errors of the same kinds: the
+    reference against itself, where atomics make no step bitwise
+    repeatable, or against the same arithmetic in another summation
+    order); prints both; whether all are within."""
+    (err, where), (floor, _) = got, floor
+    ok, parts = True, []
+    for kind, (name, tol) in DDP_ERRORS.items():
+        limit = max(tol, 2 * floor[kind])
+        ok &= err[kind] <= limit
+        parts.append(f'{name} {err[kind]:.3g} (floor {floor[kind]:.3g}; '
+                     f'limit {limit:.3g})'
+                     + (f' at {where[kind]}' if where.get(kind)
+                        and err[kind] else ''))
+    print(f'[ddp] {label}: ' + '; '.join(parts))
+    return ok
+
+
+def ddp_pdvc(root, recipe, card):
+    """18(b): two gloo ranks on the one card against one process, from
+    seeded weights with the sampling offsets off the tap boundaries; the
+    one process's step twice, for its own run-to-run error."""
+    import torch
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import parse_opts
+    opt = parse_opts(['--cfg_path', recipe, '--device', DEVICE], root=ROOT)
+    batches = [train_batch(opt, DDP_BATCH),
+               {k: v[::-1].copy() for k, v in
+                train_batch(opt, DDP_BATCH).items()}]
+    runs, seen, initial = [], None, None
+    for split in (False, False, True):
+        trainer = Trainer(opt, device=DEVICE)
+        if initial is None:
+            off_boundary_(trainer.model)
+            initial = {k: v.detach().cpu().clone()
+                       for k, v in trainer.model.state_dict().items()}
+        else:
+            trainer.model.load_state_dict(initial, strict=True)
+        if split:
+            runs.append(split_steps(trainer, batches, opt.lr, seen))
+        else:
+            losses, grads, state, own, _ = pdvc_steps(
+                trainer, batches, opt.lr, slice(None), seen)
+            seen = seen or own
+            runs.append((losses, grads, state))
+        del trainer
+    torch.cuda.empty_cache()
+    torch.save({'state': initial, 'batches': batches, 'matching': seen},
+               os.path.join(root, 'ref.pt'))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ddp_pdvc_rank, 2, root, DEVICE, opt, tf32_flags())
+    seconds = time.perf_counter() - t0
+    own = [torch.cat([r['matching'][i] for r in ranks], 1)
+           for i in range(len(seen))]
+    flips = sum(int((o != m).any(-1).sum()) for o, m in zip(own, seen))
+    rows_all = sum(m.shape[0] * m.shape[1] for m in seen)
+    gap = max(float(e.max()) for r in ranks for e in r['excess'])
+    equal = all(torch.equal(ranks[0]['state'][k], ranks[1]['state'][k])
+                for k in runs[0][2])
+    print(f'[ddp] (b) two gloo ranks on one card (cuda:0 both; gloo '
+          f'all-reduces CUDA tensors in torch {torch.__version__}: '
+          f'{all(r["gloo_cuda"] for r in ranks)}), global B={DDP_BATCH} '
+          f'({DDP_BATCH // 2} a rank), two steps, against one process at '
+          f'B={DDP_BATCH} ({card}): the ranks took the one process\'s '
+          f'matching (their own differs in {flips} of {rows_all} (layer, '
+          f'video) rows, whose cost the taken matching exceeds by at most '
+          f'{gap:.1e} relative under the rank\'s own cost matrices: '
+          f'near-ties where within {DDP_TIE_TOL}, gated); ranks equal '
+          f'{equal}; ranks {seconds:.1f} s (spawn included)')
+    # the one process against itself, and its split arithmetic (each
+    # rank's rows in turn, no collective) against its whole-batch step
+    repeat, split = step_errors(runs[1], runs[0]), step_errors(runs[2],
+                                                              runs[0])
+    floor = ({k: max(repeat[0][k], split[0][k]) for k in repeat[0]}, None)
+    ok = True
+    for r, rank in enumerate(ranks):
+        got = (rank['losses'], rank['grads'], rank['state'])
+        ok &= floor_gates(f'(b) rank {r} against one process (floor: the '
+                          'larger of the one process against itself and '
+                          'its split arithmetic against it)',
+                          step_errors(got, runs[0]), floor)
+        ok &= floor_gates(f'(b) rank {r} against the split arithmetic in '
+                          'one process (floor: the one process against '
+                          'itself)', step_errors(got, runs[2]), repeat)
+    print('[ddp] (b) the one process against itself: '
+          + ', '.join(f'{k} {v:.3g}' for k, v in repeat[0].items())
+          + '; its split arithmetic against it: '
+          + ', '.join(f'{k} {v:.3g} ({split[1].get(k) or "-"})'
+                      for k, v in split[0].items()))
+    for r, rank in enumerate(ranks):
+        print(f'[ddp] (b) rank {r} launches {rank["launches"]}, plain '
+              f'calls {rank["plain"]}')
+        check_launches(f'ddp rank {r}', rank['launches'], rank['plain'],
+                       ('msda_fwd', 'msda_bwd', 'dsa_scan_fwd',
+                        'dsa_scan_bwd'), STEP_KERNELS)
+    if not (ok and equal and gap <= DDP_TIE_TOL
+            and all(r['gloo_cuda'] for r in ranks)):
+        raise AssertionError('[ddp] (b) two ranks and one process disagree')
+
+
+def tsp_steps_on(trainer, state, batches, part=None):
+    """Two TSP steps (iterations 5, 6) on ``batches`` (``part``: their
+    rows): (losses a step, the final floating state on the host)."""
+    losses = []
+    for it, b in zip((5, 6), batches):
+        if part is not None:
+            b = {k: v[part] for k, v in b.items()}
+        state, m = trainer.train_step(state, b, it)
+        losses.append({k: float(v) for k, v in m.items()})
+    return losses, {k: v.detach().cpu() for k, v in
+                    state['model'].state_dict().items()
+                    if v.is_floating_point()}
+
+
+def tsp_trainer_in(opt, device, f64):
+    """A TSPTrainer and its seeded state, in float64 (weights, statistics
+    and compute, as ``tsp_one_step``'s float64 referee) where ``f64``."""
+    import torch
+    from dvc_tpu_torch.train.tsp_trainer import TSPTrainer
+    trainer = TSPTrainer(opt, device)
+    state = trainer.init_state(seed=0)
+    if f64:
+        trainer.dtype = torch.float64
+        state['model'].double()
+    return trainer, state
+
+
+def ddp_tsp_rank(rank, root, device, opt, tf32):
+    """18(c): one of two gloo ranks of the TSP step on ``device`` (cuda:0
+    for both), on its rows of root/ref.pt's batches, in float64 and then
+    in float32."""
+    import torch
+    import torch.distributed as dist
+    from dvc_tpu_torch import parallel
+    gloo_group(rank, root, device, tf32)
+    try:
+        batches = torch.load(os.path.join(root, 'ref.pt'))['batches']
+        part = parallel.rows(len(batches[0]['clip']))
+        out = {}
+        for f64 in (True, False):
+            trainer, state = tsp_trainer_in(opt, device, f64)
+            out[f64] = tsp_steps_on(trainer, state, batches, part)
+            del trainer, state
+        torch.save(out, os.path.join(root, f'rank{rank}.pt'))
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_tsp(root, card):
+    """18(c): TSP under --train-bn 1 on two gloo ranks against one
+    process.  Gated in float64: in float32 the step is chaotic at random
+    weights (ReLU kinks and BatchNorm over few values a channel in the last
+    stages turn ulps into 1e-4-1e-3 of the loss), so a float32 comparison
+    measures that more than the global statistics' sums; it is printed
+    beside the one process's float32 step against itself (not gated)."""
+    import torch
+    opt = tsp_train_opt(DDP_TSP, 'float32', 1)
+    batches = [tsp_clip_batch(DDP_TSP, DDP_TSP_BATCH, 30 + i)
+               for i in range(2)]
+    ref = {}
+    for f64, times in ((True, 1), (False, 2)):
+        for _ in range(times):
+            trainer, state = tsp_trainer_in(opt, DEVICE, f64)
+            ref.setdefault(f64, []).append(tsp_steps_on(trainer, state,
+                                                        batches))
+            del trainer, state
+    torch.cuda.empty_cache()
+    torch.save({'batches': batches}, os.path.join(root, 'ref.pt'))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(ddp_tsp_rank, 2, root, DEVICE, opt, tf32_flags())
+    seconds = time.perf_counter() - t0
+    final = ref[True][0][1]
+    stats = [k for k in final if k.endswith(('running_mean', 'running_var'))]
+    rel = {k: float((ranks[0][True][1][k] - v).abs().max()
+                    / v.abs().max().clamp(min=1e-300))
+           for k, v in final.items()}
+    worst = max(rel, key=rel.get)
+    worst_s = max(stats, key=rel.get)
+    equal = all(torch.equal(r[True][1][k], ranks[0][True][1][k])
+                for r in ranks for k in final)
+    print(f'[ddp] (c) {DDP_TSP} --train-bn 1 in float64 on two gloo ranks on '
+          f'one card at a global batch of {DDP_TSP_BATCH} clips, two steps, '
+          f'against one process ({card}): each tensor\'s max abs error over '
+          f'its max |ref|: worst {rel[worst]:.2e} ({worst}), running '
+          f'statistics {rel[worst_s]:.2e} ({worst_s}; limit '
+          f'{DDP_F64_TOL}); ranks equal {equal}; ranks {seconds:.1f} s '
+          f'(spawn included; both dtypes)')
+    ok = all([floor_gates(f'(c) rank {r} against one process, float64',
+                          step_errors((rank[True][0], None, rank[True][1]),
+                                      (ref[True][0][0], None, final)),
+                          ({k: 0.0 for k in DDP_ERRORS}, None))
+              for r, rank in enumerate(ranks)])
+    f32 = [(a[0], None, a[1]) for a in ref[False]]
+    floor_gates('(c) rank 0 against one process, float32 (not gated; '
+                'floor: the one process against itself)',
+                step_errors((ranks[0][False][0], None, ranks[0][False][1]),
+                            f32[0]), step_errors(f32[1], f32[0]))
+    if not (ok and equal and stats and rel[worst] <= DDP_F64_TOL):
+        raise AssertionError('[ddp] (c) two ranks and one process disagree')
+
+
+def ddp_refusal(root, recipe):
+    """18(d): new_train with one rank more than the visible cards raises
+    before it makes its run folder."""
+    import torch
+    from dvc_tpu_torch.new_train import main as train_main
+    from dvc_tpu_torch.utils.config import parse_opts
+    n = torch.cuda.device_count() + 1 if DEVICE != 'cpu' else 2
+    opt = parse_opts(['--cfg_path', recipe, '--debug', '--device', DEVICE,
+                      '--tpu_mesh_data', str(n)], root=ROOT)
+    opt.save_dir = os.path.join(root, 'refused')
+    opt.batch_size = 2 * n
+    try:
+        train_main(opt)
+    except RuntimeError as e:
+        if os.path.exists(opt.save_dir):
+            raise AssertionError('[ddp] (d) a run folder was made') from e
+        print(f'[ddp] (d) new_train --tpu_mesh_data {n} with '
+              f'{n - 1} visible card(s) raised before any work: {e}')
+        return
+    raise AssertionError(f'[ddp] (d) --tpu_mesh_data {n} did not raise')
+
+
+def phase_ddp(tmp, card):
+    """Phase 18 (``--ddp`` runs it alone): data-parallel training
+    (``dvc_tpu_torch.parallel``) on the one card."""
+    root = os.path.join(tmp, 'ddp')
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    recipe = ddp_recipe(root)
+    ddp_torchrun(root, recipe, card)
+    for sub, run in (('pdvc', lambda d: ddp_pdvc(d, recipe, card)),
+                     ('tsp', lambda d: ddp_tsp(d, card))):
+        os.makedirs(os.path.join(root, sub))
+        run(os.path.join(root, sub))
+    ddp_refusal(root, recipe)
+    print(f'[ddp] phase 18 took {time.perf_counter() - t0:.1f} s (host '
+          f'clock)')
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -6412,6 +7154,7 @@ def main():
         phase_tsp(tmp, device['smi'])
         phase_tsp_train(tmp, device['smi'])
         phase_inputs(tmp, device['smi'])
+        phase_ddp(tmp, device['smi'])
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))
@@ -6510,6 +7253,13 @@ if __name__ == '__main__':
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
             phase_inputs(tmp, card)
+    elif sys.argv[1:2] == ['--ddp']:
+        card = phase_device()['smi']
+        phase_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_ddp(tmp, card)
+    elif sys.argv[1:2] == ['--ddp-worker']:     # OUT new_train-argv...
+        ddp_worker(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:2] == ['--tsp-train']:
         card = phase_device()['smi']
         with tempfile.TemporaryDirectory() as tmp:

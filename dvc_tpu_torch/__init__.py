@@ -19,6 +19,10 @@ module names so the counterpart of each module is easy to find:
                 evaluation loop ``evaluate``
   train/        ``Trainer``: AdamW/Adam step, eval step, LR schedule,
                 checkpoints
+  parallel/     data-parallel training, one process a card (the JAX
+                data mesh's counterpart): each rank's rows, the global
+                sums of the losses' counts, the gradients and BatchNorm's
+                statistics, the launch (spawned ranks or ``torchrun``)
   utils/        box ops and the config system (``cfgs/*.yml``)
   new_train.py  FusionPDVC training with validation
                 (``python -m dvc_tpu_torch.new_train``)

@@ -19,6 +19,8 @@ import os
 
 import numpy as np
 
+from ..parallel.mesh import rows
+from ..parallel.multihost import host_shard_order
 from . import native_io
 from .vocabulary import Translator
 
@@ -124,6 +126,21 @@ class DenseCaptionDataset:
                              f'{opt.feature_dim}')
         return out
 
+    def kept_events(self, n: int) -> set:
+        """The gt events of a video with n that the sample keeps: a random
+        subsample to the static budget, order-preserving (reference
+        video_dataset.py:276-282, applied in train and eval), drawn from
+        the dataset's rng where n exceeds the budget."""
+        g = min(n, self.gt_proposal_sample_num)
+        return (set(self.rng.choice(n, g, replace=False).tolist()) if n > g
+                else set(range(n)))
+
+    def skip(self, idx: int):
+        """Draw what ``self[idx]`` draws and load nothing: a rank that
+        collates other rows of a global batch keeps the rng where the
+        one-process run has it."""
+        self.kept_events(len(self.anno[str(self.keys[idx])]['timestamps']))
+
     def __getitem__(self, idx: int):
         key = str(self.keys[idx])
         feats = self.load_feats(key)
@@ -132,12 +149,8 @@ class DenseCaptionDataset:
         gt_timestamps = entry['timestamps']
         action_labels = entry.get('action_labels', [0] * len(gt_timestamps))
 
-        # random gt subsample to the static budget, order-preserving
-        # (reference video_dataset.py:276-282, applied in train and eval)
         n = len(gt_timestamps)
-        g = min(n, self.gt_proposal_sample_num)
-        keep = (set(self.rng.choice(n, g, replace=False).tolist()) if n > g
-                else set(range(n)))
+        keep = self.kept_events(n)
         captions = [captions[i] for i in range(n) if i in keep]
         gt_timestamps = [gt_timestamps[i] for i in range(n) if i in keep]
         action_labels = [action_labels[i] for i in range(n) if i in keep]
@@ -194,25 +207,54 @@ def collate(samples, T: int, G: int, Lc: int):
                    'raw_timestamps': raw_ts, 'raw_captions': raw_caps}
 
 
+def collate_rows(ds, idxs, part: slice, collate_fn, T: int, G: int,
+                 Lc: int):
+    """The rows ``part`` of the global batch of samples ``idxs``, collated
+    by ``collate_fn``; the other rows are only drawn (``ds.skip``), so the
+    dataset's rng moves as in the one-process run.  ``meta`` is the
+    collated rows', but ``meta['keys']`` the global batch's (the visited
+    videos of a restart)."""
+    samples = []
+    for j, i in enumerate(idxs):
+        if part.start <= j < part.stop:
+            samples.append(ds[int(i)])
+        else:
+            ds.skip(int(i))
+    batch, meta = collate_fn(samples, T, G, Lc)
+    meta['keys'] = [str(ds.keys[int(i)]) for i in idxs]
+    return batch, meta
+
+
 class BatchLoader:
     """Shuffling static-pad batch iterator over a
-    :class:`DenseCaptionDataset` (the JAX ``BatchLoader`` in one process:
-    the same batches in the same order for the same seed).  Epoch e's order
-    is a permutation drawn from ``seed + 1000003 * e``; call
-    :meth:`set_epoch` each epoch (a loader that never has advances its
-    epoch on each pass).  ``drop_last`` (default: ``shuffle``) drops a
-    short last batch; otherwise the last sample is repeated to the static
-    batch size, and ``meta['n_real']`` says how many are real."""
+    :class:`DenseCaptionDataset` (the JAX ``BatchLoader``: the same batches
+    in the same order for the same seed).  Epoch e's order is a permutation
+    drawn from ``seed + 1000003 * e``; call :meth:`set_epoch` each epoch (a
+    loader that never has advances its epoch on each pass).  ``drop_last``
+    (default: ``shuffle``) drops a short last batch; otherwise the last
+    sample is repeated to the static batch size, and ``meta['n_real']``
+    says how many are real.
+
+    ``process_index`` / ``process_count``: the JAX loader's per-host split
+    (``parallel.host_shard_order``: each host its strided slice of the
+    epoch, batches of ``batch_size`` from it).  ``part`` (rank, ranks):
+    each global batch of ``batch_size`` is formed as in one process and
+    only the rank's rows ``parallel.rows`` are collated, the JAX data
+    mesh's ``P('data')`` split."""
 
     def __init__(self, dataset: DenseCaptionDataset, batch_size: int,
                  shuffle: bool, opt, drop_last: bool | None = None,
-                 seed: int = 0):
+                 seed: int = 0, process_index: int | None = None,
+                 process_count: int | None = None, part=(0, 1)):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
         self._epoch_pinned = False
+        self.process_index = process_index
+        self.process_count = process_count
+        self.rows = rows(batch_size, *part)
         self.T = opt.frame_embedding_num
         self.G = opt.gt_proposal_sample_num
         self.Lc = opt.max_caption_len
@@ -222,8 +264,15 @@ class BatchLoader:
         self.epoch = int(epoch)
         self._epoch_pinned = True
 
+    def _per_host(self) -> bool:
+        return self.process_count not in (None, 1) \
+            or self.process_index is not None
+
     def __len__(self):
         n = len(self.ds)
+        if self._per_host():
+            n = len(host_shard_order(n, 0, False, self.seed,
+                                     self.process_index, self.process_count))
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -232,9 +281,15 @@ class BatchLoader:
         epoch = self.epoch
         if not self._epoch_pinned:
             self.epoch += 1
-        order = np.arange(len(self.ds))
-        if self.shuffle:
-            np.random.default_rng(self.seed + 1000003 * epoch).shuffle(order)
+        if self._per_host():
+            order = host_shard_order(len(self.ds), epoch, self.shuffle,
+                                     self.seed, self.process_index,
+                                     self.process_count)
+        else:
+            order = np.arange(len(self.ds))
+            if self.shuffle:
+                np.random.default_rng(
+                    self.seed + 1000003 * epoch).shuffle(order)
         for i in range(len(self)):
             idxs = order[i * self.batch_size:(i + 1) * self.batch_size]
             n_real = len(idxs)
@@ -242,7 +297,7 @@ class BatchLoader:
                 # repeat the last sample to keep the static batch shape
                 idxs = np.concatenate(
                     [idxs, np.repeat(idxs[-1:], self.batch_size - n_real)])
-            batch, meta = collate([self.ds[int(j)] for j in idxs], self.T,
-                                  self.G, self.Lc)
+            batch, meta = collate_rows(self.ds, idxs, self.rows, collate,
+                                       self.T, self.G, self.Lc)
             meta['n_real'] = n_real
             yield batch, meta

@@ -28,8 +28,10 @@ import os
 
 import numpy as np
 
+from ..parallel.mesh import rows
 from .audio import HUBERT_DIM, HubertExtractor
-from .dataset import DenseCaptionDataset, collate, resize_feature
+from .dataset import (DenseCaptionDataset, collate, collate_rows,
+                      resize_feature)
 from .video_clips import make_clip_table
 
 AUDIO_EXTENSIONS = ('.mp4', '.wav', '.mkv', '.webm')
@@ -146,14 +148,18 @@ def fusion_collate(samples, T: int, G: int, Lc: int):
 class FusionBatchLoader:
     """Shuffling batch iterator; ``skip_keys`` holds the videos already
     visited in this epoch, skipped after a restart (reference
-    newTrain.py:289-306)."""
+    newTrain.py:289-306).  ``part`` (rank, ranks): each global batch is
+    formed as in one process and only the rank's rows (``parallel.rows``)
+    are collated, with the global batch's ``meta['keys']``."""
 
     def __init__(self, dataset: FusionDataset, batch_size: int, shuffle: bool,
-                 opt, seed: int = 0, skip_keys: set | None = None):
+                 opt, seed: int = 0, skip_keys: set | None = None,
+                 part=(0, 1)):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
+        self.rows = rows(batch_size, *part)
         self.T = opt.frame_embedding_num
         self.G = opt.gt_proposal_sample_num
         self.Lc = opt.max_caption_len
@@ -184,5 +190,5 @@ class FusionBatchLoader:
                 # repeat the last sample to keep the static batch shape
                 idxs = np.concatenate(
                     [idxs, np.repeat(idxs[-1:], self.batch_size - len(idxs))])
-            samples = [self.ds[int(j)] for j in idxs]
-            yield fusion_collate(samples, self.T, self.G, self.Lc)
+            yield collate_rows(self.ds, idxs, self.rows, fusion_collate,
+                               self.T, self.G, self.Lc)

@@ -63,9 +63,10 @@ def sigmoid_focal_loss(inputs, targets, num_boxes, alpha, gamma):
     return loss.mean(dim=1).sum() / num_boxes
 
 
-def counter_loss(cfg: CriterionConfig, pred_count, gt_count):
+def counter_loss(cfg: CriterionConfig, pred_count, gt_count, n_videos=None):
     """Gaussian-masked BCE over the event-count logits
-    (reference criterion.py:200-220 + loss_labels:67-76)."""
+    (reference criterion.py:200-220 + loss_labels:67-76), averaged over
+    the videos (:func:`batch_mean`)."""
     E1 = pred_count.shape[1]                   # max_eseq_length + 1
     tgt = gt_count.clamp(0, E1 - 1).long()
     onehot = F.one_hot(tgt, E1).to(pred_count.dtype)
@@ -81,14 +82,24 @@ def counter_loss(cfg: CriterionConfig, pred_count, gt_count):
         coef = onehot + ((1 - mask) ** cfg.lloss_beta) * (1 - onehot)
     else:
         coef = torch.ones_like(onehot)
-    return (loss * coef).mean(dim=1).mean()
+    return batch_mean((loss * coef).mean(dim=1), n_videos)
+
+
+def batch_mean(per_video, n_videos=None):
+    """The mean over the batch's videos of ``per_video`` (B,); with
+    ``n_videos`` (the global batch's count) this rank's share of the
+    global batch's mean."""
+    return per_video.mean() if n_videos is None else \
+        per_video.sum() / n_videos
 
 
 def layer_losses(cfg: CriterionConfig, pred_logits, pred_count, pred_boxes,
-                 gt_labels, gt_boxes, gt_mask, num_boxes, col4row):
+                 gt_labels, gt_boxes, gt_mask, num_boxes, col4row,
+                 n_videos=None):
     """Losses of one decoder layer for the matching ``col4row`` (B, G):
     the pair losses over the matched gt slots (:func:`matched_mask`), the
-    event count over every real one, each normalised by ``num_boxes``."""
+    event count over every real one, each normalised by ``num_boxes``;
+    the means over videos by ``n_videos`` where given (:func:`batch_mean`)."""
     B, Nq, K = pred_logits.shape
     m = matched_mask(col4row, gt_mask).to(pred_logits.dtype)
     col4row = col4row.clamp(min=0)
@@ -100,7 +111,7 @@ def layer_losses(cfg: CriterionConfig, pred_logits, pred_count, pred_boxes,
                                  cfg.focal_alpha, cfg.focal_gamma) * Nq
 
     gt_count = gt_mask.sum(-1)
-    loss_counter = counter_loss(cfg, pred_count, gt_count)
+    loss_counter = counter_loss(cfg, pred_count, gt_count, n_videos)
 
     src_boxes = torch.gather(pred_boxes, 1,
                              col4row[..., None].expand(-1, -1, 2))  # (B,G,2)
@@ -121,32 +132,72 @@ def layer_losses(cfg: CriterionConfig, pred_logits, pred_count, pred_boxes,
         loss_self_iou = torch.where(denom > 0, per_video, 0.0).sum()
         # cardinality (log-only; reference criterion.py:80-92)
         card_pred = (pred_logits.argmax(-1) != K - 1).sum(-1)
-        card_err = (card_pred.float() - gt_count.float()).abs().mean()
+        card_err = batch_mean((card_pred.float() - gt_count.float()).abs(),
+                              n_videos)
 
     return {'loss_ce': loss_ce, 'loss_counter': loss_counter,
             'loss_bbox': loss_bbox, 'loss_giou': loss_giou,
             'loss_self_iou': loss_self_iou, 'cardinality_error': card_err}
 
 
-def criterion_forward(cfg: CriterionConfig, outputs, gt_labels, gt_boxes,
-                      gt_mask, aux_loss=True):
-    """Full criterion over the last and (``aux_loss``) earlier decoder
-    layers.  outputs: 'pred_logits' (D, B, Nq, K), 'pred_count' (D, B, E+1),
-    'pred_boxes' (D, B, Nq, 2), stacked over the layers.  Returns (losses,
-    last_idx, aux_idx); aux losses carry the reference's ``_{i}``
-    suffixes."""
+@dataclasses.dataclass
+class Matching:
+    """The matching of the criterion's decoder layers and the batch's
+    counts that normalise the losses: ``idx`` {layer: col4row (B, G)},
+    ``num_boxes`` (the real gt events, at least 1), ``n_matched`` {layer:
+    its matched gt slots, at least 1} (the caption losses' denominators)
+    and ``n_videos`` (None in one process, where the means over videos
+    are taken as they are)."""
+    idx: dict
+    num_boxes: torch.Tensor
+    n_matched: dict
+    n_videos: torch.Tensor | None = None
+
+
+def match_layers(cfg: CriterionConfig, outputs, gt_labels, gt_boxes, gt_mask,
+                 aux_loss=True, global_sum=None) -> Matching:
+    """Every criterion layer's matching (one round trip to the host) and
+    the counts of :class:`Matching`.  ``global_sum`` (``parallel.
+    global_sum`` on a data-parallel rank) sums the counts over the ranks
+    in one all-reduce, so that each rank's losses are its shares of the
+    global batch's."""
     D = outputs['pred_logits'].shape[0]
-    num_boxes = gt_mask.sum().float().clamp(min=1.0)
     layer_ids = list(range(D)) if aux_loss else [D - 1]
-    # every layer's matching in one round trip to the host
     idx = dict(zip(layer_ids, hungarian_match(
         cfg.matcher, outputs['pred_logits'][layer_ids],
         outputs['pred_boxes'][layer_ids], gt_labels, gt_boxes, gt_mask)))
+    counts = torch.stack(
+        [gt_mask.sum(), gt_mask.new_full((), gt_mask.shape[0],
+                                         dtype=torch.long)]
+        + [matched_mask(idx[l], gt_mask).sum() for l in layer_ids]).float()
+    if global_sum is not None:
+        counts = global_sum(counts)
+    return Matching(idx=idx, num_boxes=counts[0].clamp(min=1.0),
+                    n_matched={l: counts[2 + i].clamp(min=1.0)
+                               for i, l in enumerate(layer_ids)},
+                    n_videos=None if global_sum is None else counts[1])
+
+
+def criterion_forward(cfg: CriterionConfig, outputs, gt_labels, gt_boxes,
+                      gt_mask, aux_loss=True,
+                      matching: Matching | None = None):
+    """Full criterion over the last and (``aux_loss``) earlier decoder
+    layers.  outputs: 'pred_logits' (D, B, Nq, K), 'pred_count' (D, B, E+1),
+    'pred_boxes' (D, B, Nq, 2), stacked over the layers; ``matching`` (of
+    :func:`match_layers`) made here when not given.  Returns (losses,
+    last_idx, aux_idx); aux losses carry the reference's ``_{i}``
+    suffixes."""
+    D = outputs['pred_logits'].shape[0]
+    if matching is None:
+        matching = match_layers(cfg, outputs, gt_labels, gt_boxes, gt_mask,
+                                aux_loss)
+    idx = matching.idx
 
     def losses_of(l):
         return layer_losses(cfg, outputs['pred_logits'][l],
                             outputs['pred_count'][l], outputs['pred_boxes'][l],
-                            gt_labels, gt_boxes, gt_mask, num_boxes, idx[l])
+                            gt_labels, gt_boxes, gt_mask, matching.num_boxes,
+                            idx[l], matching.n_videos)
 
     losses = losses_of(D - 1)
     aux_idx = []

@@ -72,10 +72,11 @@ class FusionPDVC(nn.Module):
         (outputs, losses)."""
         return self.pdvcModel.forward_eval(self._fuse(batch), gen)
 
-    def forward_train(self, batch, gen=None, ss_prob=0.0):
+    def forward_train(self, batch, gen=None, ss_prob=0.0, global_sum=None):
         """Train forward (:meth:`PDVC.forward_train`); the fusion blocks
         have no dropout, as in the reference."""
-        return self.pdvcModel.forward_train(self._fuse(batch), gen, ss_prob)
+        return self.pdvcModel.forward_train(self._fuse(batch), gen, ss_prob,
+                                            global_sum)
 
     @torch.no_grad()
     def init_parameters_(self, gen: torch.Generator):

@@ -50,7 +50,7 @@ from ..utils.box_ops import inverse_sigmoid
 from .base_encoder import BaseEncoder
 from .caption_heads import (CaptionHeadConfig, DSACaptionHead,
                             LightCaptionHead, caption_nll, truncate_levels)
-from .criterion import CriterionConfig, criterion_forward
+from .criterion import CriterionConfig, criterion_forward, match_layers
 from .matcher import matched_mask
 from .deformable_transformer import (DecoderLayer, EncoderLayer,
                                      LN_EPS, MSDeformAttn,
@@ -424,7 +424,7 @@ class PDVC(nn.Module):
         out.update(self.caption_sample(hs[-1], refs[-1], *enc, gen=gen))
         return out, losses
 
-    def forward_train(self, batch, gen=None, ss_prob=0.0):
+    def forward_train(self, batch, gen=None, ss_prob=0.0, global_sum=None):
         """Train forward: (outputs, losses).  With ``gen`` (a
         ``torch.Generator`` on the model's device) dropout is on and its
         masks come from it; without, the forward is deterministic.  outputs
@@ -432,7 +432,10 @@ class PDVC(nn.Module):
         matched_indices (B, G); losses every loss of the criterion and the
         caption losses, with the ``_{i}`` suffixes of the aux layers.
         ``ss_prob > 0`` turns scheduled sampling on in the caption head
-        (its draws come from ``gen``)."""
+        (its draws come from ``gen``).  ``global_sum`` (a data-parallel
+        rank's ``parallel.global_sum``) sums the losses' counts over the
+        ranks, so that the losses are the rank's shares of the global
+        batch's (:func:`criterion.match_layers`)."""
         c = self.cfg
         enc, hs, refs, deltas = self.trunk(batch, gen)
         memory, shapes, valid_ratios, mask_flat = enc
@@ -440,25 +443,28 @@ class PDVC(nn.Module):
         # (train_path = not eval_mode and a caption head)
         captions = c.caption_decoder_type != 'none'
         outputs = self.layer_outputs(hs, refs, deltas, train_path=captions)
+        gt = (batch['gt_labels'], batch['gt_boxes'], batch['gt_boxes_mask'])
+        matching = match_layers(c.criterion, outputs, *gt,
+                                aux_loss=c.aux_loss, global_sum=global_sum)
         losses, last_idx, aux_idx = criterion_forward(
-            c.criterion, outputs, batch['gt_labels'], batch['gt_boxes'],
-            batch['gt_boxes_mask'], aux_loss=c.aux_loss)
+            c.criterion, outputs, *gt, aux_loss=c.aux_loss, matching=matching)
         if captions:
             losses.update(self.caption_train_losses(
                 hs, refs, memory, shapes, valid_ratios, mask_flat, batch,
-                last_idx, aux_idx, gen, ss_prob))
+                last_idx, aux_idx, matching.n_matched, gen, ss_prob))
         out = {k: v[-1] for k, v in outputs.items()}
         out['matched_indices'] = last_idx
         return out, losses
 
     def caption_train_losses(self, hs, refs, memory, shapes, valid_ratios,
-                             mask_flat, batch, last_idx, aux_idx, gen,
-                             ss_prob=0.0):
+                             mask_flat, batch, last_idx, aux_idx, n_matched,
+                             gen, ss_prob=0.0):
         """Per-layer teacher-forced caption losses on the matched pairs
-        (reference pdvc.py:294-304), each the mean over the layer's matched
-        gt slots (:func:`matched_mask`).  A shared caption head runs the D
-        layers' pairs as one scan over a (B, D*G) pair axis.  The light
-        head reads the matched queries' features only."""
+        (reference pdvc.py:294-304), each the sum over the layer's matched
+        gt slots (:func:`matched_mask`) over their count ``n_matched``
+        {layer: count} (:class:`criterion.Matching`).  A shared caption
+        head runs the D layers' pairs as one scan over a (B, D*G) pair
+        axis.  The light head reads the matched queries' features only."""
         c = self.cfg
         D = c.dec_layers
         gt_mask = batch['gt_boxes_mask']
@@ -472,7 +478,7 @@ class PDVC(nn.Module):
 
         def mean(per_cap, l_id):
             m = matched_mask(index(l_id), gt_mask).float()
-            return (per_cap * m).sum() / m.sum().clamp(min=1.0)
+            return (per_cap * m).sum() / n_matched[l_id]
 
         def layer_inputs(l_id):
             idx = index(l_id).clamp(min=0)

@@ -60,7 +60,15 @@ class BatchNorm3d(nn.BatchNorm3d):
     ``nn.BatchNorm3d`` updates ``running_var`` with the unbiased variance).
     ``old`` is taken in the input's dtype, as the JAX step casts it, so
     under bfloat16 its term is rounded through bfloat16; the sum and the
-    buffers stay float32.  ``num_batches_tracked`` counts as in torch."""
+    buffers stay float32.  ``num_batches_tracked`` counts as in torch.
+
+    ``global_sum`` (``parallel.all_reduce_sum`` on a data-parallel rank;
+    None, the batch's own statistics, by default) sums the per-channel
+    sums of x and x^2 and the count over the ranks, gradients included,
+    before the mean and the variance: flax's statistics over the global
+    batch, i.e. SyncBatchNorm."""
+
+    global_sum = None
 
     def forward(self, x):
         if not self.training:
@@ -70,8 +78,15 @@ class BatchNorm3d(nn.BatchNorm3d):
         # at least float32, as flax promotes (float64 stays float64)
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3, 4)
-        mean = x32.mean(dims)
-        var = torch.clamp((x32 * x32).mean(dims) - mean * mean, min=0.0)
+        if self.global_sum is None:
+            mean, sq = x32.mean(dims), (x32 * x32).mean(dims)
+        else:
+            C = x32.shape[1]
+            sums = self.global_sum(torch.cat([
+                x32.sum(dims), (x32 * x32).sum(dims),
+                x32.new_full((1,), x32.numel() // C)]))
+            mean, sq = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+        var = torch.clamp(sq - mean * mean, min=0.0)
         shape = (1, -1, 1, 1, 1)
         y = (x32 - mean.view(shape)) * (
             torch.rsqrt(var + self.eps) * self.weight).view(shape)

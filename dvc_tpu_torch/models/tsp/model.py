@@ -99,15 +99,18 @@ class TSPModel(nn.Module):
                 nn.init.zeros_(fc.bias)
 
 
-def tsp_cross_entropy(logits, labels):
+def tsp_cross_entropy(logits, labels, global_sum=None):
     """The mean cross entropy over the labels that are not -1
     (reference TSP/train/train.py:65-76), 0 where every label is -1 (a
     background or padded batch), where ``F.cross_entropy(ignore_index=-1)``
-    would give NaN: the JAX package divides by max(count, 1)."""
+    would give NaN: the JAX package divides by max(count, 1).
+    ``global_sum`` (a data-parallel rank's ``parallel.global_sum``) counts
+    the labels of the global batch, so the loss is the rank's share."""
     valid = labels >= 0
     logp = F.log_softmax(logits, dim=-1)
     picked = logp.gather(-1, labels.clamp(min=0)[:, None])[:, 0]
-    return -(picked * valid).sum() / valid.sum().clamp(min=1)
+    count = valid.sum() if global_sum is None else global_sum(valid.sum())
+    return -(picked * valid).sum() / count.clamp(min=1)
 
 
 def _lecun_normal_(w, gen):

@@ -33,7 +33,8 @@ videos in process (``data/streaming.py``: decode, then the TSP backbone
 the trainer's device) in place of reading ``.npy`` files; the train and
 val sets share one extractor and its cache (``--streaming_cache``).
 ``DenseCaptioner(run_folder)`` serves the best checkpoint and
-``dvc_tpu_torch.run_eval`` evaluates it.
+``dvc_tpu_torch.run_eval`` evaluates it.  ``--tpu_mesh_data N`` trains on
+N data-parallel ranks, as ``new_train`` does (``dvc_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -44,18 +45,21 @@ import time
 import numpy as np
 import torch
 
+from . import parallel
 from .data import (BatchLoader, DenseCaptionDataset, DevicePrefetchLoader,
                    PrefetchLoader)
 from .data.streaming import StreamingFeatureDataset
 from .eval import evaluate
 from .models import make_pdvc_model
 from .new_train import pretrain, save_info_json
+from .parallel import sync_metrics
 from .serve import load_info_json
-from .train import (Trainer, load_checkpoint, multistep_lr, refuse_data_mesh,
-                    save_checkpoint, ss_prob_for_epoch)
+from .train import (Trainer, load_checkpoint, multistep_lr, save_checkpoint,
+                    ss_prob_for_epoch)
 from .utils.config import parse_opts
 from .utils.logging import (MetricsWriter, backup_environment,
-                            build_folder, create_logger, print_opt)
+                            build_folder, create_logger, print_opt,
+                            quiet_logger)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,17 +86,29 @@ def val_score(opt, scores) -> float:
 
 
 def main(opt, device=None):
-    """Train ``opt``'s plain PDVC.  Returns (run folder, the last epoch's
-    mean losses).  ``device`` defaults to ``opt.device`` (the card unless
-    it says 'cpu')."""
+    """Train ``opt``'s plain PDVC on ``--tpu_mesh_data`` ranks
+    (``parallel.run``, as ``new_train.main``).  Returns (run folder, the
+    last epoch's mean losses) of rank 0.  ``device`` defaults to
+    ``opt.device`` (the card unless it says 'cpu')."""
     device = device or ('cpu' if opt.device == 'cpu' else 'cuda')
-    refuse_data_mesh(opt)
     if opt.streaming_features and not opt.video_folder:
         raise ValueError('--streaming_features requires --video_folder')
-    save_folder = build_folder(opt)
-    logger = create_logger(save_folder)
-    metrics = MetricsWriter(save_folder)
-    backup_environment(save_folder, REPO)
+    return parallel.run(train, opt.tpu_mesh_data, opt.batch_size, device,
+                        opt)
+
+
+def train(device, opt):
+    """The training of one rank on ``device`` (:func:`main`): its rows of
+    every global batch; rank 0 alone logs, validates and writes the run
+    folder while the other ranks wait."""
+    is_main = parallel.is_main()
+    save_folder = parallel.from_main(build_folder, opt)
+    if is_main:
+        logger = create_logger(save_folder)
+        metrics = MetricsWriter(save_folder)
+        backup_environment(save_folder, REPO)
+    else:
+        logger, metrics = quiet_logger(), None
     logger.info(f'save folder: {save_folder}')
     epoch, best_val_score, best_epoch = 0, -1e9, 0
     val_history, loss_history = {}, {}
@@ -123,7 +139,8 @@ def main(opt, device=None):
                                      opt.visual_feature_folder, opt.dict_file,
                                      opt, seed=opt.seed)
     train_loader = BatchLoader(train_ds, opt.batch_size, True, opt,
-                               seed=opt.seed)
+                               seed=opt.seed,
+                               part=(parallel.rank(), parallel.world()))
     val_loader = BatchLoader(val_ds, opt.batch_size_for_eval, False, opt)
     trainer = Trainer(opt, device=device,
                       model=make_pdvc_model(opt, device, seed=opt.seed))
@@ -135,7 +152,9 @@ def main(opt, device=None):
         trainer.load_state(ck)
         epoch = int(ck['epoch'])
         logger.info(f'resuming from epoch {epoch}')
-    print_opt(opt, logger)
+    parallel.broadcast_module(trainer.model)
+    if is_main:
+        print_opt(opt, logger)
     logger.info('Start training!')
 
     K = max(int(getattr(opt, 'steps_per_dispatch', 1)), 1)
@@ -176,17 +195,19 @@ def main(opt, device=None):
             add(trainer.train_step(batch, lr, ss_prob))
             n += 1
         dt = time.time() - t0
-        loss_avg = {k: round(v / max(n, 1), 3) for k, v in loss_sum.items()}
+        loss_avg = {k: round(v, 3) for k, v in sync_metrics(
+            {k: v / max(n, 1) for k, v in loss_sum.items()}).items()}
         vps = n * opt.batch_size / max(dt, 1e-9)
         logger.info(f'epoch {epoch}: {loss_avg}, {dt:.1f}s '
                     f'({vps:.2f} videos/s)')
         # the optimizer steps so far (train.py:121-227): one a step, K a
         # dispatch
         iteration += n
-        metrics.add_scalar('lr', lr, iteration)
-        metrics.add_scalar('videos_per_sec', vps, iteration)
-        for k, v in sorted(loss_avg.items()):   # JAX's (a pytree's) order
-            metrics.add_scalar(f'train/{k}', v, iteration)
+        if is_main:
+            metrics.add_scalar('lr', lr, iteration)
+            metrics.add_scalar('videos_per_sec', vps, iteration)
+            for k, v in sorted(loss_avg.items()):   # JAX's (a pytree's) order
+                metrics.add_scalar(f'train/{k}', v, iteration)
         if opt.streaming_features:
             ex = train_ds.extractor
             logger.info(f'streaming so far: {ex.videos} videos, {ex.clips} '
@@ -199,36 +220,39 @@ def main(opt, device=None):
         if epoch % opt.save_checkpoint_every or \
                 epoch < opt.min_epoch_when_save:
             continue
-        dvc_json_path = os.path.join(save_folder, f'epoch{epoch}.json')
-        try:
-            scores, _ = evaluate(trainer, val_loader, dvc_json_path,
-                                 logger=logger, alpha=opt.ec_alpha,
-                                 dvc_eval_version=opt.eval_tool_version,
-                                 debug=opt.debug)
-        except FileNotFoundError as e:
-            logger.warning(f'skipping metric eval (missing gt): {e}')
-            scores = None
-        if scores is not None:
-            current = val_score(opt, scores)
-            val_history[epoch] = {k: float(v) for k, v in scores.items()
-                                  if np.isscalar(v)}
-            for k, v in val_history[epoch].items():
-                metrics.add_scalar(f'val/{k}', v, iteration)
-            logger.info(f'epoch {epoch} val score {current:.4f} '
-                        f'(best {best_val_score:.4f})')
-            if current > best_val_score:
-                best_val_score, best_epoch = current, epoch
-                save_checkpoint(save_folder, 'best', trainer, epoch)
-                logger.info('new best checkpoint saved')
-        save_checkpoint(save_folder, 'last', trainer, epoch)
-        if opt.save_all_checkpoint:
-            save_checkpoint(save_folder, f'epoch{epoch}', trainer, epoch)
-        save_info_json(save_folder, {
-            'best_val_score': best_val_score,
-            'last': {'epoch': epoch, 'opt': opt.to_dict()},
-            'best': {'epoch': best_epoch, 'opt': opt.to_dict()},
-            'val_history': val_history, 'loss_history': loss_history})
-    metrics.close()
+        if is_main:     # rank 0 validates while the other ranks wait
+            dvc_json_path = os.path.join(save_folder, f'epoch{epoch}.json')
+            try:
+                scores, _ = evaluate(trainer, val_loader, dvc_json_path,
+                                     logger=logger, alpha=opt.ec_alpha,
+                                     dvc_eval_version=opt.eval_tool_version,
+                                     debug=opt.debug)
+            except FileNotFoundError as e:
+                logger.warning(f'skipping metric eval (missing gt): {e}')
+                scores = None
+            if scores is not None:
+                current = val_score(opt, scores)
+                val_history[epoch] = {k: float(v) for k, v in scores.items()
+                                      if np.isscalar(v)}
+                for k, v in val_history[epoch].items():
+                    metrics.add_scalar(f'val/{k}', v, iteration)
+                logger.info(f'epoch {epoch} val score {current:.4f} '
+                            f'(best {best_val_score:.4f})')
+                if current > best_val_score:
+                    best_val_score, best_epoch = current, epoch
+                    save_checkpoint(save_folder, 'best', trainer, epoch)
+                    logger.info('new best checkpoint saved')
+            save_checkpoint(save_folder, 'last', trainer, epoch)
+            if opt.save_all_checkpoint:
+                save_checkpoint(save_folder, f'epoch{epoch}', trainer, epoch)
+            save_info_json(save_folder, {
+                'best_val_score': best_val_score,
+                'last': {'epoch': epoch, 'opt': opt.to_dict()},
+                'best': {'epoch': best_epoch, 'opt': opt.to_dict()},
+                'val_history': val_history, 'loss_history': loss_history})
+        parallel.barrier()
+    if is_main:
+        metrics.close()
     logger.info('Training done.')
     return save_folder, loss_avg
 

@@ -24,6 +24,14 @@ stay f32, and the modules cast to bf16 where the flax layers' ``dtype``
 does, so autograd carries the gradients back to the f32 parameters (no
 ``torch.autocast``, whose per-op rules round at other points).
 
+On a data-parallel rank (``parallel``: a process group, one rank a card)
+the step is the JAX data mesh's global-batch step: the batch holds the
+rank's rows, the losses' counts are summed over the ranks (their values
+are the rank's shares of the global batch's), the gradients are summed
+before clipping and the optimizer, which then run alike on every rank, and
+the losses returned are the global batch's.  Without a group no collective
+is issued.
+
 Checkpoints are ``model-{tag}.pth``: the model's ``state_dict`` in the
 reference layout (``load_state_dict(strict=True)`` reads it; the serving
 ``DenseCaptioner`` too), the optimizer state, the epoch and step, and any
@@ -39,8 +47,13 @@ import os
 import numpy as np
 import torch
 
+from .. import parallel
 from ..models import make_fusion_model
 from ..models.criterion import build_weight_dict
+
+# rank r's dropout generator is seeded seed + 1 + r * DROPOUT_SEED_STRIDE,
+# so the ranks' rows draw distinct masks (rank 0's is the one-process seed)
+DROPOUT_SEED_STRIDE = 7919
 
 
 def multistep_lr(opt, epoch: int) -> float:
@@ -100,21 +113,13 @@ def bucket_caption_length(batch, multiple: int = 8, floor: int = 0):
     return out
 
 
-def refuse_data_mesh(opt):
-    """The training drivers' check: a data mesh (``--tpu_mesh_data`` > 1,
-    the JAX Trainer's) is refused, since the port trains in one process.
-    Evaluation of a run trained on a mesh needs none and is not refused."""
-    if getattr(opt, 'tpu_mesh_data', 1) > 1:
-        raise NotImplementedError(
-            f'--tpu_mesh_data {opt.tpu_mesh_data}: the port trains PDVC in '
-            'one process; the data mesh is ROADMAP.md A6')
-
-
 class Trainer:
     """One model, its optimizer and the dropout generator, on ``device``
     (the card unless the caller asks for the CPU): ``model`` (moved to the
     device, as the JAX ``Trainer(opt, model=...)`` takes one), else the
-    FusionPDVC of ``opt`` with seeded weights."""
+    FusionPDVC of ``opt`` with seeded weights.  Made in a process group,
+    it trains as a data-parallel rank (the module's docstring); the caller
+    gives every rank rank 0's weights (``parallel.broadcast_module``)."""
 
     def __init__(self, opt, device='cuda', model=None):
         self.opt = opt
@@ -127,8 +132,9 @@ class Trainer:
         self.optimizer = make_optimizer(opt, self.params)
         # dropout masks come from the trainer's own generator, the eval
         # decode's draws (--caption_sample_max 0) from another
+        self.data_parallel = parallel.active()
         self.gen = torch.Generator(device=self.device).manual_seed(
-            opt.seed + 1)
+            opt.seed + 1 + DROPOUT_SEED_STRIDE * parallel.rank())
         self.sample_gen = torch.Generator(device=self.device).manual_seed(
             opt.seed)
         # uploads run on a stream of their own, so that the next batch's
@@ -197,12 +203,15 @@ class Trainer:
 
     def train_step(self, batch, lr: float, ss_prob: float = 0.0):
         """One optimizer step on a collated numpy batch or one of
-        :meth:`prepare_batch`.  Returns the losses (detached device
-        tensors) with 'total_loss'."""
+        :meth:`prepare_batch` (a data-parallel rank's: its rows of the
+        global batch).  Returns the (global batch's) losses, detached
+        device tensors, with 'total_loss'."""
         for group in self.optimizer.param_groups:
             group['lr'] = lr
         batch = self._device_batch(batch, self.prepare_batch)
-        _, losses = self.model.forward_train(batch, self.gen, ss_prob)
+        _, losses = self.model.forward_train(
+            batch, self.gen, ss_prob,
+            parallel.global_sum if self.data_parallel else None)
         total = self.total_loss(losses)
         self.optimizer.zero_grad(set_to_none=False)
         total.backward()
@@ -210,11 +219,19 @@ class Trainer:
             # an unused parameter still decays, as under optax
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_by_global_norm_([p.grad for p in self.params], self.opt.grad_clip)
+        grads = [p.grad for p in self.params]
+        if self.data_parallel:
+            parallel.sum_gradients(grads)
+        clip_by_global_norm_(grads, self.opt.grad_clip)
         self.optimizer.step()
         self.step += 1
         losses = {k: v.detach() for k, v in losses.items()}
         losses['total_loss'] = total.detach()
+        if self.data_parallel:
+            # the ranks' shares summed: the global batch's losses
+            summed = parallel.global_sum(
+                torch.stack([v.float() for v in losses.values()]))
+            losses = dict(zip(losses, summed.unbind()))
         return losses
 
     def train_steps(self, batches, lr: float, ss_prob: float = 0.0):

@@ -23,7 +23,14 @@ float32 master weights through the cast, and the logits and losses are
 float32.  ``torch.autocast`` would keep LayerNorm and softmax in float32
 and round elsewhere than JAX does.
 
-Only one process: a data mesh (``--mesh-data`` above 1) is refused.
+On a data-parallel rank (``parallel``: a process group, one rank a card)
+the step is the JAX data mesh's global-batch step: each rank's batch holds
+its rows, the heads' cross entropy counts the global batch's labels,
+BatchNorm under ``--train-bn 1`` normalises with the global batch's
+statistics (``BatchNorm3d.global_sum``: SyncBatchNorm, as flax computes
+them over a sharded batch), the gradients are summed before SGD, and the
+metrics returned are the global batch's.  Without a group no collective
+is issued.
 """
 
 from __future__ import annotations
@@ -34,8 +41,10 @@ from bisect import bisect_right
 import torch
 from torch.func import functional_call
 
+from .. import parallel
 from ..models.tsp import (TSPModel, make_tsp_model, tsp_cross_entropy,
                           tsp_weights)
+from ..models.tsp.backbones import BatchNorm3d
 from ..models.tsp.extractor import full_float32
 from ..models.tsp.model import GVF_DIM
 
@@ -91,7 +100,9 @@ class TSPTrainer:
 
     A state is ``{'model', 'optimizer', 'step'}``; batches are dicts of
     host tensors (``clip`` (B, T, H, W, 3) float32, ``gvf``, ``label{i}``),
-    pinned where the device is the card."""
+    pinned where the device is the card.  Made in a process group, it
+    trains as a data-parallel rank (the module's docstring), and
+    :meth:`init_state` gives every rank rank 0's weights."""
 
     def __init__(self, opt, device='cuda', config=None,
                  gvf_dim: int = GVF_DIM):
@@ -99,10 +110,7 @@ class TSPTrainer:
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("TSPTrainer: no CUDA device (pass "
                                "device='cpu' for the CPU)")
-        if getattr(opt, 'tpu_mesh_data', 1) > 1:
-            raise NotImplementedError(
-                f'--mesh-data {opt.tpu_mesh_data}: the port trains TSP in '
-                'one process; the data mesh is ROADMAP.md A6')
+        self.data_parallel = parallel.active()
         self.opt = opt
         self.backbone = getattr(opt, 'backbone_tsp', 'mvit_v2_s')
         self.num_classes = tuple(getattr(opt, 'tsp_num_classes', (1, 2)))
@@ -119,7 +127,9 @@ class TSPTrainer:
     def init_state(self, seed: int = 0, state_dict=None):
         """A state with seeded random weights (torchvision's (2+1)-D
         middle widths), or ``state_dict``'s (their layout inferred, a JAX
-        tree's through ``tsp_from_jax_params``), and a fresh optimizer."""
+        tree's through ``tsp_from_jax_params``), and a fresh optimizer; on
+        a data-parallel rank rank 0's weights, and BatchNorm's statistics
+        summed over the ranks."""
         spec = dict(num_classes=self.num_classes, num_heads=self.num_heads,
                     concat_gvf=self.concat_gvf, config=self.config,
                     gvf_dim=self.gvf_dim)
@@ -133,6 +143,11 @@ class TSPTrainer:
             model.to_empty(device='cpu')
             model.load_state_dict(state_dict, strict=True)
         model = model.to(self.device)
+        if self.data_parallel:
+            parallel.broadcast_module(model)
+            for m in model.modules():
+                if isinstance(m, BatchNorm3d):
+                    m.global_sum = parallel.all_reduce_sum
         opt = self.opt
         optimizer = torch.optim.SGD(
             lr_param_groups(model, getattr(opt, 'backbone_lr', 1e-5),
@@ -197,15 +212,16 @@ class TSPTrainer:
             logits = functional_call(model, params, args)
         return [lg.float() for lg in logits]
 
-    def _losses(self, logits, batch):
-        losses = [tsp_cross_entropy(lg, batch[f'label{i}'])
+    def _losses(self, logits, batch, global_sum=None):
+        losses = [tsp_cross_entropy(lg, batch[f'label{i}'], global_sum)
                   for i, lg in enumerate(logits)]
         return losses, sum(a * l for a, l in zip(self.alphas, losses))
 
     def train_step(self, state, batch, iteration: int):
         """One SGD step at the lr of ``iteration`` (WarmupMultiStepLR with
         warmup_factor 1e-5, reference train.py:286).  Returns the state and
-        ``{'total', 'head0', ...}`` as device scalars."""
+        ``{'total', 'head0', ...}`` (the global batch's) as device
+        scalars."""
         opt = self.opt
         sched = warmup_multistep_lr(
             1.0, iteration, getattr(opt, 'lr_milestones', (4, 6)),
@@ -217,14 +233,24 @@ class TSPTrainer:
             g['lr'] = g['base_lr'] * sched
         model.train(self.train_bn)
         b = self.device_batch(batch)
+        global_sum = parallel.global_sum if self.data_parallel else None
         with self.precision():
-            losses, total = self._losses(self._logits(model, b), b)
+            losses, total = self._losses(self._logits(model, b), b,
+                                         global_sum)
             optimizer.zero_grad(set_to_none=True)
             total.backward()
+            if self.data_parallel:
+                # the parameters with a gradient: the same on every rank
+                parallel.sum_gradients([p.grad for p in model.parameters()
+                                        if p.grad is not None])
             optimizer.step()
         metrics = {'total': total.detach()}
         for i, l in enumerate(losses):
             metrics[f'head{i}'] = l.detach()
+        if global_sum is not None:
+            # the ranks' shares summed: the global batch's losses
+            summed = global_sum(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, summed.unbind()))
         return dict(state, step=state['step'] + 1), metrics
 
     def eval_step(self, state, batch):

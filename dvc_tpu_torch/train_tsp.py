@@ -22,13 +22,19 @@ recipe's ``tsp_checkpoint`` read; ``--resume`` takes one, or a JAX
 ``tsp-last.ckpt`` (weights and SGD momentum converted).  ``metrics.jsonl``
 and ``results.txt`` have the JAX driver's lines.
 
-The card by default (``--device cpu`` for the CPU); one process only:
-``--mesh-data`` above 1 raises.
+The card by default (``--device cpu`` for the CPU).  ``--mesh-data N``
+trains on N data-parallel ranks, one process a card (``dvc_tpu_torch.
+parallel``; spawned here, or one each under ``torchrun --nproc_per_node
+N``): the JAX data mesh's global-batch step, each rank decoding its rows
+of every global batch (the crop and flip draws of all rows made on every
+rank), BatchNorm under ``--train-bn 1`` on the global batch's statistics.
+Rank 0 alone prints, validates and writes ``--output-dir``.
 """
 
 from __future__ import annotations
 
 import argparse
+import builtins
 import json
 import os
 import time
@@ -36,11 +42,13 @@ import time
 import numpy as np
 import torch
 
+from . import parallel
 from .data.prefetch import PrefetchLoader
 from .data.video_clips import (BACKBONE_INPUT, SegmentClipSampler,
                                decode_clip, load_segment_table)
 from .models.tsp import tsp_from_jax_params, tsp_momentum_from_jax
 from .models.tsp.model import GVF_DIM
+from .parallel import sync_metrics
 from .train.tsp_trainer import TSPTrainer
 from .utils.config import load_config
 
@@ -100,8 +108,8 @@ def parse_args(argv=None):
     p.add_argument('--train-only-one-epoch', action='store_true')
     p.add_argument('--print-freq', type=int, default=100)
     p.add_argument('--mesh-data', type=int, default=1,
-                   help='data-parallel width; the port trains in one '
-                        'process (above 1 raises)')
+                   help='data-parallel ranks, one process a card; the '
+                        'batch size is the global batch\'s')
     p.add_argument('--seed', type=int, default=777)
     p.add_argument('--device', type=str, default='cuda',
                    choices=['cuda', 'cpu'],
@@ -158,10 +166,26 @@ class HeadMeters:
         self.loss_sums[-1] += float(total_loss)
         self.loss_n += 1
 
-    def sync(self):
-        """The meters across processes (the reference's
-        ``metric_logger.synchronize_between_processes``): the port trains
-        in one process, so the identity."""
+    def sync(self, process_count=None):
+        """The meters averaged across ``process_count`` ranks (the
+        reference's ``metric_logger.synchronize_between_processes``,
+        train/train.py:113; ``sync_metrics``, by default over the group):
+        accuracies and per-batch losses are ratios of equally scaled sums,
+        so the averaged meters give the same global values.  The identity
+        in one process."""
+        flat = {'loss_n': float(self.loss_n)}
+        for i in range(len(self.cols)):
+            flat[f'correct{i}'] = float(self.correct[i])
+            flat[f'count{i}'] = float(self.counts[i])
+            flat[f'loss{i}'] = float(self.loss_sums[i])
+        flat['loss_total'] = float(self.loss_sums[-1])
+        out = sync_metrics(flat, process_count)
+        self.loss_n = out['loss_n']
+        for i in range(len(self.cols)):
+            self.correct[i] = out[f'correct{i}']
+            self.counts[i] = out[f'count{i}']
+            self.loss_sums[i] = out[f'loss{i}']
+        self.loss_sums[-1] = out['loss_total']
 
     def accuracy(self, i):
         return 100.0 * self.correct[i] / max(self.counts[i], 1)
@@ -198,9 +222,23 @@ def read_resume(path):
 
 
 def main(argv=None):
-    """Runs the driver; returns the final trainer state."""
+    """Runs the driver on ``--mesh-data`` ranks (``parallel.run``);
+    returns rank 0's final trainer state (each rank's own under
+    ``torchrun``)."""
     args = parse_args(argv)
-    os.makedirs(args.output_dir, exist_ok=True)
+    return parallel.run(train, args.mesh_data, args.batch_size, args.device,
+                        args)
+
+
+def train(device, args):
+    """The driver on one rank's ``device``: its rows of every global
+    batch; rank 0 alone prints, validates and writes the output folder
+    while the other ranks wait.  Returns the rank's final state."""
+    is_main = parallel.is_main()
+    # only rank 0 speaks
+    print = builtins.print if is_main else (lambda *a, **k: None)
+    if is_main:
+        os.makedirs(args.output_dir, exist_ok=True)
     mappings = (load_label_mappings(args.label_mapping_jsons)
                 if args.label_mapping_jsons else None)
     segments = load_segment_table(
@@ -247,31 +285,35 @@ def main(argv=None):
     opt.lr_gamma = args.lr_gamma
     opt.lr_warmup_iters = args.lr_warmup_epochs * steps_per_epoch
 
-    trainer = TSPTrainer(opt, args.device, gvf_dim=gvf_dim)
+    trainer = TSPTrainer(opt, device, gvf_dim=gvf_dim)
     pin = trainer.device.type == 'cuda'
     spec = BACKBONE_INPUT[args.backbone]
     rng = np.random.default_rng(args.seed)
     rh, rw = spec['resize']
     ch, cw = spec['crop']
 
-    def make_batch(items, train):
+    def make_batch(items, train, part=slice(0, args.batch_size)):
         """items: list of (segment, clip_t_start). Train applies
         RandomHorizontalFlip + RandomCrop (reference train.py:155-177);
         eval center-crops. Remainder padding carries label -1 everywhere so
         padded rows drop out of both the CE (ignore_index) and the
-        accuracy meters."""
+        accuracy meters.  Only the rows ``part`` (a data-parallel rank's)
+        are decoded; every row's draws are made, as in one process."""
         xs = []
-        for seg, t in items:
+        for j, (seg, t) in enumerate(items):
             if train:
                 off = (int(rng.integers(0, rh - ch + 1)),
                        int(rng.integers(0, rw - cw + 1)))
                 flip = bool(rng.integers(2))
             else:
                 off, flip = None, False
-            xs.append(decode_clip(seg.filename, t, args.clip_len,
-                                  args.frame_rate, spec['resize'],
-                                  spec['crop'], flip=flip, crop_offset=off))
-        while len(xs) < args.batch_size:
+            if part.start <= j < part.stop:
+                xs.append(decode_clip(seg.filename, t, args.clip_len,
+                                      args.frame_rate, spec['resize'],
+                                      spec['crop'], flip=flip,
+                                      crop_offset=off))
+        items, size = items[part], part.stop - part.start
+        while len(xs) < size:
             xs.append(np.zeros_like(xs[0]))
         clip = torch.from_numpy(np.stack(xs))
         batch = {'clip': clip.pin_memory() if pin else clip}
@@ -279,20 +321,19 @@ def main(argv=None):
             gvf = [gvf_table.get(vid_key(seg.filename),
                                  np.zeros(gvf_dim, np.float32))
                    for seg, _ in items]
-            gvf += [np.zeros(gvf_dim, np.float32)] * (args.batch_size
-                                                      - len(items))
+            gvf += [np.zeros(gvf_dim, np.float32)] * (size - len(items))
             batch['gvf'] = torch.from_numpy(
                 np.stack(gvf).astype(np.float32))
         for i in range(n_heads):
             labels = [seg.labels[i] for seg, _ in items]
-            labels += [-1] * (args.batch_size - len(items))
+            labels += [-1] * (size - len(items))
             batch[f'label{i}'] = torch.tensor(labels, dtype=torch.int64)
         return batch
 
     def evaluate(state, epoch):
         """Per-epoch validation with the per-head accuracy meters
         (reference train.py:89-117); clips on the uniform grid
-        (temporal_jittering=False)."""
+        (temporal_jittering=False).  Rank 0's alone."""
         sampler = SegmentClipSampler(
             valid_segments, args.clip_len, args.frame_rate,
             args.clips_per_segment, temporal_jittering=False)
@@ -310,7 +351,7 @@ def main(argv=None):
                           [batch[f'label{k}'].numpy()
                            for k in range(n_heads)],
                           [float(l) for l in losses], float(total))
-        meters.sync()
+        meters.sync(1)      # rank 0 validated alone: the whole val set
         line = meters.results_line(epoch)
         print(line)
         with open(os.path.join(args.output_dir, 'results.txt'), 'a') as f:
@@ -350,10 +391,13 @@ def main(argv=None):
     if args.valid_only:
         if valid_segments is None:
             raise SystemExit('--valid-only needs --valid-csv')
-        evaluate(state, max(start_epoch - 1, 0))
+        if is_main:
+            evaluate(state, max(start_epoch - 1, 0))
+        parallel.barrier()
         return state
 
     metrics_path = os.path.join(args.output_dir, 'metrics.jsonl')
+    part = parallel.rows(args.batch_size)
     for epoch in range(start_epoch, args.epochs):
         order = rng.permutation(len(sampler))
         t0 = time.time()
@@ -365,7 +409,7 @@ def main(argv=None):
                            args.batch_size):
                 items = [sampler.clip_at(j)
                          for j in order[i:i + args.batch_size]]
-                yield make_batch(items, train=True)
+                yield make_batch(items, train=True, part=part)
 
         for batch in PrefetchLoader(batches()):
             state, metrics = trainer.train_step(state, batch, it)
@@ -377,26 +421,29 @@ def main(argv=None):
                 print(f'  epoch {epoch} it {nb}/{len(order)//args.batch_size}'
                       f' total {sums["total"]/nb:.4f}')
         dt = time.time() - t0
-        avg = {k: round(v / max(nb, 1), 4) for k, v in sums.items()}
+        avg = {k: round(v, 4) for k, v in sync_metrics(
+            {k: v / max(nb, 1) for k, v in sums.items()}).items()}
         cps = nb * args.batch_size / max(dt, 1e-9)
         print(f'epoch {epoch}: {avg} ({cps:.1f} clips/s)')
-        save_ckpt(state, 'tsp-last.pth', epoch, it, best_acc)
-        rec = {'epoch': epoch, 'train': avg, 'clips_per_sec': round(cps, 2)}
-        if args.train_only_one_epoch:
+        if is_main:     # the other ranks wait at the barrier
+            save_ckpt(state, 'tsp-last.pth', epoch, it, best_acc)
+            rec = {'epoch': epoch, 'train': avg,
+                   'clips_per_sec': round(cps, 2)}
+            if valid_segments is not None and not args.train_only_one_epoch:
+                acc = evaluate(state, epoch)
+                rec['valid_avg_accuracy'] = round(acc, 3)
+                if acc > best_acc:
+                    best_acc = acc
+                    save_ckpt(state, 'tsp-best.pth', epoch, it, best_acc)
+                    print(f'new best avg accuracy {best_acc:.3f} -> '
+                          'tsp-best.pth')
+                # refresh last so a resume carries this epoch's best_acc
+                save_ckpt(state, 'tsp-last.pth', epoch, it, best_acc)
             with open(metrics_path, 'a') as f:
                 f.write(json.dumps(rec) + '\n')
+        parallel.barrier()
+        if args.train_only_one_epoch:
             break
-        if valid_segments is not None:
-            acc = evaluate(state, epoch)
-            rec['valid_avg_accuracy'] = round(acc, 3)
-            if acc > best_acc:
-                best_acc = acc
-                save_ckpt(state, 'tsp-best.pth', epoch, it, best_acc)
-                print(f'new best avg accuracy {best_acc:.3f} -> tsp-best.pth')
-            # refresh last so a resume carries this epoch's best_acc
-            save_ckpt(state, 'tsp-last.pth', epoch, it, best_acc)
-        with open(metrics_path, 'a') as f:
-            f.write(json.dumps(rec) + '\n')
     print('done')
     return state
 

@@ -67,6 +67,16 @@ def create_logger(folder: str, filename: str = 'train.log') -> logging.Logger:
     return logger
 
 
+def quiet_logger() -> logging.Logger:
+    """A logger that writes nothing: the data-parallel ranks' other than
+    rank 0's, which alone logs and writes the run folder."""
+    logger = logging.getLogger('dvc_tpu_torch.quiet')
+    logger.handlers.clear()
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
+
+
 class MetricsWriter:
     """Scalar metrics of a run (the reference's tensorboardX writer,
     train.py:36,211-213,250-254): ``<folder>/metrics.jsonl``, one

@@ -98,7 +98,8 @@ import dvc_tpu_torch.models.tsp, dvc_tpu_torch.data.streaming
 import dvc_tpu_torch.data.video_clips, dvc_tpu_torch.extract_features
 import dvc_tpu_torch.eval_ete, dvc_tpu_torch.utils.logging
 import dvc_tpu_torch.data.native_io, dvc_tpu_torch.data.audio
-import dvc_tpu_torch.models.hubert
+import dvc_tpu_torch.models.hubert, dvc_tpu_torch.parallel
+import dvc_tpu_torch.train_tsp
 pkg = os.path.join(sys.argv[1], 'dvc_tpu') + os.sep
 print(json.dumps(sorted(
     n for n, m in list(sys.modules.items())

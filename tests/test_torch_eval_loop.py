@@ -326,9 +326,9 @@ def test_run_eval_on_a_jax_run_matches_jax_evaluate(val, jax_run):
 def test_run_eval_evaluates_a_run_trained_on_a_data_mesh(val, jax_run,
                                                         tmp_path):
     """A JAX run trained with ``--tpu_mesh_data 2`` evaluates on one
-    device: the mesh splits only training, which the port's training
-    drivers refuse (``refuse_data_mesh``); run_eval builds its Trainer
-    from the saved options all the same."""
+    device: the mesh splits only training (the port's drivers train it
+    on ranks, ``dvc_tpu_torch.parallel``); run_eval builds its Trainer
+    from the saved options all the same, in one process."""
     folder = str(tmp_path / 'mesh_run')
     shutil.copytree(jax_run, folder)
     path = os.path.join(folder, 'info.json')

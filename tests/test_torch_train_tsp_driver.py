@@ -14,7 +14,9 @@ clips cropped to 32x32 in both packages):
   validation line;
 * the port's ``tsp-best.pth`` of a run from its own seeded weights is
   read by ``extract_features`` as it is;
-* without ``--device cpu`` on a machine with no card the driver raises.
+* without ``--device cpu`` on a machine with no card the driver raises;
+* ``--mesh-data 2`` trains as two gloo ranks (tests/torch_mesh_workers.py),
+  rank 0 alone writing the output folder.
 """
 import csv
 import importlib.util
@@ -27,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_tsp_env import write_video  # noqa: I100
+from torch_mesh_workers import spawn, tsp_driver  # noqa: I100
+from torch_tsp_env import write_video
 
 from dvc_tpu.data import video_clips as jvc
 from dvc_tpu.train import tsp_trainer as jtrain
@@ -193,33 +196,30 @@ def test_no_card_raises(env):
         train_tsp.main(flags + ['--output-dir', str(tmp / 'out')])
 
 
-def test_mesh_data_above_one_raises(env):
+def test_mesh_data_two_trains_on_two_ranks(env):
+    """``train_tsp --mesh-data 2 --train-bn 1`` as two ranks: one output
+    folder, written by rank 0 alone; the ranks' final weights equal and
+    those of tsp-last.pth; its validation line that of a one-process
+    ``--valid-only`` on tsp-last.pth."""
     tmp, flags = env
-    with pytest.raises(NotImplementedError, match='A6'):
-        train_tsp.main(flags + ['--mesh-data', '2', '--device', 'cpu',
-                                '--output-dir', str(tmp / 'out')])
-
-
-def test_head_meters_and_label_mappings_match_jax(tmp_path):
-    """The port's meters give the JAX driver's accuracies, losses and
-    results line on the same updates; the label mappings are JAX's."""
-    spec = importlib.util.spec_from_file_location(
-        'train_tsp_units_jax', os.path.join(ROOT, 'train_tsp.py'))
-    jmod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(jmod)
-    rng = np.random.default_rng(2)
-    cols = ['action-label', 'temporal-region-label']
-    got, want = train_tsp.HeadMeters(cols), jmod.HeadMeters(cols)
-    for _ in range(3):
-        logits = [rng.standard_normal((6, 5)), rng.standard_normal((6, 2))]
-        labels = [rng.integers(-1, 5, 6), rng.integers(-1, 2, 6)]
-        losses = list(rng.random(2))
-        for m in (got, want):
-            m.update(logits, labels, losses, sum(losses))
-    got.sync()
-    assert got.results_line(4) == want.results_line(4)
-    assert got.avg_accuracy() == want.avg_accuracy()
-    path = tmp_path / 'map.json'
-    path.write_text(json.dumps(['grilled cheese', 'pizza']))
-    assert train_tsp.load_label_mappings([str(path)]) == \
-        jmod.load_label_mappings([str(path)])
+    out = tmp / 'out'
+    flags = flags + ['--valid-csv', flags[1], '--device', 'cpu',
+                     '--train-bn', '1']
+    ranks = spawn(tsp_driver, 2, tmp / 'ranks', flags + [
+        '--mesh-data', '2', '--epochs', '1', '--output-dir', str(out)],
+        {'r3d_18': SMALL})
+    for key in ranks[0]:
+        assert torch.equal(ranks[0][key], ranks[1][key]), key
+    assert sorted(os.listdir(out)) == ['metrics.jsonl', 'results.txt',
+                                       'tsp-best.pth', 'tsp-last.pth']
+    ck = torch.load(out / 'tsp-last.pth', weights_only=True)
+    assert (ck['epoch'], ck['iteration']) == (0, 3)
+    for key, v in ranks[0].items():
+        assert torch.equal(ck['model'][key], v), key
+    with open(out / 'metrics.jsonl') as f:
+        assert len(f.read().splitlines()) == 1
+    (line,) = _valid_lines(out / 'results.txt')
+    assert re.findall(r'Accuracy ([0-9.]+)', line)
+    train_tsp.main(flags + ['--valid-only', '--output-dir', str(tmp / 'one'),
+                            '--resume', str(out / 'tsp-last.pth')])
+    assert _valid_lines(tmp / 'one' / 'results.txt') == [line]

@@ -30,6 +30,8 @@ seeds whose three steps meet no such flip (6 frozen, 7 under --train-bn
 and 2.5e-4 (the port) from float64 on these weights, is held to JAX in
 float64 instead (1e-6: JAX keeps the running statistics float32).
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -361,10 +363,45 @@ def test_lr_groups_are_the_jax_multiplier_tree(backbone, request):
     assert bool(stem) == (backbone != 'mvit_v2_s')
 
 
-def test_mesh_data_above_one_raises():
-    with pytest.raises(NotImplementedError, match='A6'):
-        ptrain.TSPTrainer(_opt(port_config, 'r3d_18', tpu_mesh_data=2),
-                          'cpu')
+def test_train_mode_batchnorm_takes_the_global_batch_statistics():
+    """``--mesh-data`` above 1: BatchNorm3d with ``global_sum`` (on a
+    data-parallel rank the sum over the ranks, gradients included) takes
+    the global batch's statistics.  Two ranks that hold the same rows
+    (the sum doubles a rank's sums and its gradient) give one rank's rows
+    of a batch of both: the output, the running statistics, and, once the
+    ranks' gradients are summed, the gradients (rtol 1e-5).  Without it
+    the batch's own statistics (test_train_mode_batchnorm_is_flax)."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((1.0 + 2.0 * rng.standard_normal(
+        (2, 5, 2, 3, 3))).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 5, 2, 3, 3)).astype(
+        np.float32))
+    whole = BatchNorm3d(5, eps=1e-3, momentum=0.1).train()
+    with torch.no_grad():
+        whole.weight.copy_(torch.from_numpy(1 + 0.1 * rng.standard_normal(
+            5).astype(np.float32)))
+        whole.bias.copy_(torch.from_numpy(0.1 * rng.standard_normal(
+            5).astype(np.float32)))
+    rank = copy.deepcopy(whole)
+    rank.global_sum = lambda s: 2 * s
+    assert ptrain.TSPTrainer(_opt(port_config, 'r3d_18', tpu_mesh_data=2),
+                             'cpu').data_parallel is False   # no group here
+    xr, xw = x.clone().requires_grad_(), torch.cat([x, x]).requires_grad_()
+    y = rank(xr)
+    (y * w).sum().backward()
+    yw = whole(xw)
+    (yw * torch.cat([w, w])).sum().backward()
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(y.detach().numpy(), yw[:2].detach().numpy(),
+                               **tol)
+    for name in ('running_mean', 'running_var'):
+        np.testing.assert_allclose(getattr(rank, name).numpy(),
+                                   getattr(whole, name).numpy(), **tol)
+    np.testing.assert_allclose(xr.grad.numpy(), xw.grad[:2].numpy(), **tol)
+    for name in ('weight', 'bias'):       # the two ranks' gradients summed
+        np.testing.assert_allclose(
+            2 * getattr(rank, name).grad.numpy(),
+            getattr(whole, name).grad.numpy(), **tol)
 
 
 def test_a_training_step_after_an_inference_forward(tiny_mvit):
