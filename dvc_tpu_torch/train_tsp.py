@@ -166,26 +166,10 @@ class HeadMeters:
         self.loss_sums[-1] += float(total_loss)
         self.loss_n += 1
 
-    def sync(self, process_count=None):
-        """The meters averaged across ``process_count`` ranks (the
-        reference's ``metric_logger.synchronize_between_processes``,
-        train/train.py:113; ``sync_metrics``, by default over the group):
-        accuracies and per-batch losses are ratios of equally scaled sums,
-        so the averaged meters give the same global values.  The identity
-        in one process."""
-        flat = {'loss_n': float(self.loss_n)}
-        for i in range(len(self.cols)):
-            flat[f'correct{i}'] = float(self.correct[i])
-            flat[f'count{i}'] = float(self.counts[i])
-            flat[f'loss{i}'] = float(self.loss_sums[i])
-        flat['loss_total'] = float(self.loss_sums[-1])
-        out = sync_metrics(flat, process_count)
-        self.loss_n = out['loss_n']
-        for i in range(len(self.cols)):
-            self.correct[i] = out[f'correct{i}']
-            self.counts[i] = out[f'count{i}']
-            self.loss_sums[i] = out[f'loss{i}']
-        self.loss_sums[-1] = out['loss_total']
+    def sync(self):
+        """The meters across processes (the reference's
+        ``metric_logger.synchronize_between_processes``): the identity,
+        since rank 0 validates the whole validation set alone."""
 
     def accuracy(self, i):
         return 100.0 * self.correct[i] / max(self.counts[i], 1)
@@ -351,7 +335,7 @@ def train(device, args):
                           [batch[f'label{k}'].numpy()
                            for k in range(n_heads)],
                           [float(l) for l in losses], float(total))
-        meters.sync(1)      # rank 0 validated alone: the whole val set
+        meters.sync()
         line = meters.results_line(epoch)
         print(line)
         with open(os.path.join(args.output_dir, 'results.txt'), 'a') as f:

@@ -223,3 +223,28 @@ def test_mesh_data_two_trains_on_two_ranks(env):
     train_tsp.main(flags + ['--valid-only', '--output-dir', str(tmp / 'one'),
                             '--resume', str(out / 'tsp-last.pth')])
     assert _valid_lines(tmp / 'one' / 'results.txt') == [line]
+
+
+def test_head_meters_and_label_mappings_match_jax(tmp_path):
+    """The port's meters give the JAX driver's accuracies, losses and
+    results line on the same updates; the label mappings are JAX's."""
+    spec = importlib.util.spec_from_file_location(
+        'train_tsp_units_jax', os.path.join(ROOT, 'train_tsp.py'))
+    jmod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jmod)
+    rng = np.random.default_rng(2)
+    cols = ['action-label', 'temporal-region-label']
+    got, want = train_tsp.HeadMeters(cols), jmod.HeadMeters(cols)
+    for _ in range(3):
+        logits = [rng.standard_normal((6, 5)), rng.standard_normal((6, 2))]
+        labels = [rng.integers(-1, 5, 6), rng.integers(-1, 2, 6)]
+        losses = list(rng.random(2))
+        for m in (got, want):
+            m.update(logits, labels, losses, sum(losses))
+    got.sync()
+    assert got.results_line(4) == want.results_line(4)
+    assert got.avg_accuracy() == want.avg_accuracy()
+    path = tmp_path / 'map.json'
+    path.write_text(json.dumps(['grilled cheese', 'pizza']))
+    assert train_tsp.load_label_mappings([str(path)]) == \
+        jmod.load_label_mappings([str(path)])
