@@ -44,6 +44,18 @@ Phases (one or more lines each; the last line is the JSON verdict):
    decode is not comparable); scan hs and cs <= 1e-4 * max|ref|, each of
    its 13 gradients <= 1e-3 * its max |ref| + 1e-5, with a wider floor for
    the one that is zero in exact arithmetic (``check_scan``).
+   3b. The assignment solver (``[assignment]``; ``--assignment`` runs the
+   build and this alone): the kernel against its plain version on the
+   card at the flagship matcher's (layers, videos, G, Nq) = (3, 16, 30,
+   100) with real counts drawn from 0 to 30, on tied integer costs, with
+   nan / +-inf entries, and at anet's (3, 16, 30, 10), where both G > Nq
+   rules occur (``ASSIGNMENT_CASES``): col4row and the Dijkstra steps
+   exactly equal, every total within 1e-6 relative of scipy's optimum;
+   the kernel's CUDA-event ms, the plain version's, and the host-clock ms
+   of the scipy round trip it replaces (copy, 48 solves, upload).
+   ``--ab-matcher <parent checkout>`` times a B=16 train step and traces
+   one (idle share) in this tree and the parent's in turns, four runs a
+   side (not gated).
 4. serve  — the FusionPDVC of ``cfgs/yc2_newModel_sound.yml`` at full width
    with seeded random weights behind the port's ``DenseCaptioner``: four
    requests of different lengths and durations, with and without sound,
@@ -60,13 +72,18 @@ Phases (one or more lines each; the last line is the JSON verdict):
    losses, the launch counters of the MSDA forward and backward, of the
    scan forward and backward and of the greedy decode must rise, no
    word-step kernel may launch and no plain version may run;
-   ``epoch1.json`` with finite METEOR and soda_c, ``val_history`` in
+   one assignment launch a train step and a val batch, no device-to-host
+   copy in the matcher; ``epoch1.json`` with finite METEOR and soda_c,
+   ``val_history`` in
    ``info.json`` and ``model-best.pth``, which ``DenseCaptioner(folder)``
    (``which='best'``) serves for one request on the card; the total loss
    falls on a repeated batch; the train step timed at B=1 and B=16 and one
    B=16 step traced.
 7. train agreement — one train step's losses and gradients on the card
-   against the CPU plain path (same weights and batch, dropout off).
+   against the CPU plain path (same weights and batch, dropout off), the
+   card taking the CPU's matching of every layer; the card's own matching
+   equal to it or a near-tie (the CPU's within MATCH_TIE_TOL relative of
+   the card's own cost; Hungarian near-ties flip on ulps).
 8. stepwise — the stepwise caption path: ``new_train.main`` for two
    --debug epochs with scheduled sampling from epoch 1 (ss_prob 0.25),
    once through K7/K8 and once with --dsa_lstm_fuse 1 through K9/K10 (the
@@ -86,15 +103,15 @@ Phases (one or more lines each; the last line is the JSON verdict):
    with finite METEOR, soda_c, para_METEOR, Recall and Precision;
    ``--eval_mode test`` writes ``dvc_results.json`` without scores; the
    B=16 run's time split by part (the eval step with a synchronize around
-   it, the matcher's host syncs in it, postprocess, records, and the
+   it, the matcher's calls in it, postprocess, records, and the
    metric stack's dvc, SODA and paragraph parts), with the card's name and
    power limit; one B=16 eval step traced; two val videos evaluated on the
    CPU (plain versions) and on the card, held to phase 5's gates (>= 90%
    of captions identical, timestamps and proposal scores within 1e-3
    relative where they agree), with both runs' METEOR and soda_c printed
-   (not gated).  Each run's matcher makes one device-to-host copy a batch
-   (the matcher's ``copies`` count; phase 6's run one a step and a val
-   batch).
+   (not gated).  Each run's matcher makes one assignment launch a batch
+   and no device-to-host copy (the matcher's ``copies`` count, gated at
+   0; phase 6's run one launch a step and a val batch).
 10. pipeline — the input layer's costs at B=16 (collation, pageable and
    pinned uploads, host clock); then ``new_train.main`` for one epoch at
    B=16 over 320 synthetic training videos (20 steps, no validation), five
@@ -103,7 +120,8 @@ Phases (one or more lines each; the last line is the JSON verdict):
    one step ahead), 0, 0, 1, and 1 with the epoch collated before its
    first step (the loop without collation): the same videos at every
    step, the first step's losses within 1e-6 relative, every loss finite,
-   the same launch counts, no plain version, one matcher copy a step;
+   the same launch counts, no plain version, one assignment launch a step
+   and no matcher copy;
    each run's ms per step of the loop (host clock, steps 2-11, collation
    and upload included) and the idle share of a profiler trace over
    steps 12-14, with the card's name and power limit.  The collation reads
@@ -144,11 +162,11 @@ Phases (one or more lines each; the last line is the JSON verdict):
    decode step, one K7 and one K8 a training word step, one table and its
    backward, no K4-K6 or K9/K10, also under --dsa_lstm_fuse 1) and at
    --att_hid_size 0 (no word-step kernel); (f) phase 7's agreement for
-   (a), (b) and --num_layers 2, the card taking the CPU's matching
-   (Hungarian near-ties flip on ulps); (g) ``Trainer.train_steps`` of two
+   (a), (b) and --num_layers 2; (g) ``Trainer.train_steps`` of two
    batches against two single steps (phase 7's tolerance on the
    parameters, one loss copy) and ``run_train --steps_per_dispatch 2``
-   (one device-to-host loss copy per two steps).
+   (one device-to-host loss copy per two steps), both with one assignment
+   launch a step and no matcher copy.
 14. TSP — feature extraction and streaming (``--tsp`` runs it alone):
    MViTv2-S (16x224x224) and R(2+1)D-34 (16x112x112) at full width with
    seeded weights (no parameter left at 0 or 1), a batch of 32 clips in
@@ -1318,6 +1336,221 @@ def phase_kernels():
         res[f'{kind}_fwd'] = [f for f, _ in steps]
         res[f'{kind}_bwd'] = [b for _, b in steps]
     return res
+
+
+# --------------------------------------------------------------------------
+# 3b. the assignment solver
+# --------------------------------------------------------------------------
+
+# The matcher's problems, (decoder layers, videos, gt slots G, queries Nq):
+# the flagship's three layers with aux loss at B=16, G=30 against Nq=100;
+# integer costs (ties everywhere); nan / +-inf entries; and the anet
+# recipes' G=30 against Nq=10, where videos of <= 10 and of > 10 events
+# take the port's two G > Nq rules.
+ASSIGNMENT_CASES = (('flagship', 3, 16, 30, 100, 'normal'),
+                    ('ties', 3, 16, 30, 100, 'ties'),
+                    ('nonfinite', 3, 16, 30, 100, 'nonfinite'),
+                    ('anet', 3, 16, 30, 10, 'normal'))
+
+
+def assignment_inputs(case, device, seed=0):
+    """One case's costs (D, B, G, Nq) f32 and gt mask (B, G), from numpy:
+    each video's real count drawn from 0 to G (one video of none, one of
+    G), its real slots first as the collation puts them, or (odd videos)
+    scattered over the slots."""
+    import numpy as np
+    import torch
+    _, D, B, G, Nq, kind = case
+    rng = np.random.default_rng(seed)
+    if kind == 'ties':
+        cost = rng.integers(0, 4, (D, B, G, Nq)).astype(np.float32)
+    else:
+        cost = (rng.standard_normal((D, B, G, Nq)) * 3).astype(np.float32)
+    if kind == 'nonfinite':
+        spots = rng.random(cost.shape)
+        cost[spots < 0.01] = np.nan
+        cost[(spots >= 0.01) & (spots < 0.02)] = np.inf
+        cost[(spots >= 0.02) & (spots < 0.03)] = -np.inf
+    counts = rng.integers(0, G + 1, B)
+    counts[:2] = 0, G
+    mask = np.zeros((B, G), bool)
+    for b, n in enumerate(counts):
+        mask[b, rng.permutation(G)[:n] if b % 2 else np.arange(n)] = True
+    return (torch.from_numpy(cost).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+def scipy_round_trip(cost, mask):
+    """What the matcher did before the solver came to the card: the costs
+    and the mask to the host in one copy, scipy on each (layer, video)'s
+    real rows (padded rows given the free columns in order), the indices
+    uploaded.  Returns col4row (D, B, G) int64 on the costs' device."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+    D, B, G, Nq = cost.shape
+    packed = torch.cat([cost.reshape(-1),
+                        mask.float().reshape(-1)]).cpu().numpy()
+    C = np.nan_to_num(packed[:D * B * G * Nq].reshape(D, B, G, Nq),
+                      nan=1e9, posinf=1e9, neginf=-1e9)
+    real = packed[D * B * G * Nq:].reshape(B, G) > 0
+    idx = np.full((D, B, G), -1, np.int64)
+    for layer in range(D):
+        for b in range(B):
+            rows = np.flatnonzero(real[b])
+            r, c = linear_sum_assignment(C[layer, b][rows])
+            idx[layer, b, rows[r]] = c
+            free = np.setdiff1d(np.arange(Nq), c)
+            pad = np.flatnonzero(~real[b])[:len(free)]
+            idx[layer, b, pad] = free[:len(pad)]
+    return torch.from_numpy(idx).to(cost.device)
+
+
+def optimal_totals(cost, mask, col4row):
+    """Per (layer, video): the total cost of the real slots' matched
+    columns (float64) and scipy's optimum on the real rows; the columns
+    must be distinct and as many as min(real slots, Nq)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+    C = np.nan_to_num(cost.cpu().numpy().astype(np.float64), nan=1e9,
+                      posinf=1e9, neginf=-1e9)
+    real, idx = mask.cpu().numpy(), col4row.cpu().numpy()
+    worst = 0.0
+    for layer, b in np.ndindex(*idx.shape[:2]):
+        rows = np.flatnonzero(real[b])
+        got = idx[layer, b, rows]
+        kept = got >= 0
+        used = idx[layer, b][idx[layer, b] >= 0]
+        if (kept.sum() != min(len(rows), C.shape[-1])
+                or len(set(used.tolist())) != len(used)):
+            raise AssertionError(f'assignment of ({layer}, {b}): {idx[layer, b]}')
+        r, c = linear_sum_assignment(C[layer, b][rows])
+        want = C[layer, b][rows][r, c].sum()
+        total = C[layer, b][rows[kept], got[kept]].sum()
+        worst = max(worst, abs(total - want) / max(abs(want), 1.0))
+    return worst
+
+
+ASSIGNMENT_TOTAL_TOL = 1e-6      # relative, float64 sums, against scipy
+
+
+def check_assignment(case):
+    """The kernel against its plain version on the card, exactly equal
+    col4row and Dijkstra steps; its CUDA-event ms, the plain version's and
+    the host-clock ms of the scipy round trip it replaces; the bound (the
+    costs and mask read once, col4row written once, over the HBM rate, or
+    4 operations a relaxation of the steps this run's data needs); the
+    totals against scipy's optimum."""
+    import numpy as np
+    import torch
+    from dvc_tpu_torch.ops.assignment import assignment, assignment_ref
+    label, D, B, G, Nq, _ = case
+    cost, mask = assignment_inputs(case, 'cuda')
+    got, steps = assignment(cost, mask, with_steps=True)
+    want, want_steps = assignment_ref(cost, mask, with_steps=True)
+    torch.cuda.synchronize()
+    diff = int((got != want).sum()) + int((steps != want_steps).sum())
+    ms = cuda_ms(lambda: assignment(cost, mask), 20)
+    plain_ms = cuda_ms(lambda: assignment_ref(cost, mask), 1)
+    scipy_round_trip(cost, mask)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        scipy_round_trip(cost, mask)
+    torch.cuda.synchronize()
+    scipy_ms = (time.perf_counter() - t0) / 5 * 1e3
+    n = mask.sum(1).cpu().numpy()
+    cols = np.where((G > Nq) & (n > Nq), n, Nq)        # each problem's columns
+    steps_np = steps.cpu().numpy()
+    relax = float((steps_np * cols[None, :]).sum())
+    bound_ms, by = bound(nbytes(cost, mask, got),
+                         4.0 * relax)
+    worst = optimal_totals(cost, mask, got)
+    sub = (f'; videos of <= {Nq} events {int((n <= Nq).sum())}, of more '
+           f'{int((n > Nq).sum())}' if G > Nq else '')
+    print(f'[assignment] {label} (D, B, G, Nq) = ({D}, {B}, {G}, {Nq}): '
+          f'kernel vs plain col4row and steps differing in {diff} entries; '
+          f'{D * B} problems, Dijkstra steps {int(steps_np.sum())} in all, '
+          f'{int(steps_np.max())} the longest chain; kernel {ms:.4f} ms, '
+          f'plain {plain_ms:.3f} ms, scipy round trip (copy, {D * B} '
+          f'solves, upload; host clock) {scipy_ms:.3f} ms; bound '
+          f'{bound_ms:.5f} ms ({by}); total cost against scipy\'s optimum '
+          f'{worst:.2e} relative{sub}')
+    if diff or worst > ASSIGNMENT_TOTAL_TOL:
+        raise AssertionError(f'assignment {label}: {diff} entries differ '
+                             f'from the plain version, totals off by {worst}')
+    return {'max_abs_err': float((got - want).abs().max()), 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': by,
+            'library_ms': scipy_ms, 'steps': int(steps_np.sum()),
+            'chain': int(steps_np.max())}
+
+
+def phase_assignment():
+    """Phase 3b: the assignment kernel at every case of
+    ASSIGNMENT_CASES.  Returns {'assignment': [result per case]}."""
+    return {'assignment': [check_assignment(c) for c in ASSIGNMENT_CASES]}
+
+
+AB_MATCHER_REPS = 10          # timed B=16 steps a run, after a warm-up
+
+
+def matcher_ab_run():
+    """The B=16 train step of the flagship at full width in this file's
+    tree (copied into another tree, that tree's): host-clock ms a step
+    (mean of AB_MATCHER_REPS after a warm-up, synchronized at the end) and
+    one traced step's window, device busy ms and idle share (synchronized
+    inside the window), TF32 off as in the full run; one JSON line."""
+    import torch
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe = write_synthetic_run(tmp, load_config(CFG, root=ROOT))
+        opt = parse_opts(['--cfg_path', recipe, '--device', DEVICE],
+                         root=ROOT)
+        trainer = Trainer(opt, device=DEVICE)
+        batch = train_batch(opt, 16)
+        ms, _ = time_steps(trainer, batch, opt.lr, AB_MATCHER_REPS)
+        res = trace('B=16 train_step', lambda: (
+            trainer.train_step(batch, opt.lr), torch.cuda.synchronize()))
+    print(json.dumps({'ab_matcher': {'root': ROOT, 'ms': ms, **res}}))
+
+
+def ab_matcher(parent):
+    """This tree's B=16 train step against the tree at ``parent`` (an
+    unpacked checkout of the parent commit, in a directory that .gitignore
+    lists, e.g. _checkout/parent): this file is copied into it, and
+    ``--ab-matcher-run`` runs in each tree in turns, parent, this, this,
+    parent, twice (four runs a side, a process each).  Prints each run and
+    a summary JSON line; claims nothing."""
+    import shutil
+    shutil.copy(os.path.abspath(__file__), os.path.join(parent,
+                                                         'chip_smoke.py'))
+    runs = {'parent': [], 'this': []}
+    for side in ('parent', 'this', 'this', 'parent') * 2:
+        root = os.path.abspath(parent) if side == 'parent' else ROOT
+        out = subprocess.run(
+            [sys.executable, os.path.join(root, 'chip_smoke.py'),
+             '--ab-matcher-run'], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        if out.returncode:
+            print(out.stdout[-4000:], out.stderr[-4000:])
+            raise RuntimeError(f'--ab-matcher-run in {root} failed')
+        for line in out.stdout.splitlines():
+            if line.startswith('[trace]'):
+                print(f'[ab-matcher] {side}: {line}')
+        r = json.loads([line for line in out.stdout.splitlines()
+                        if line.startswith('{"ab_matcher"')][-1])['ab_matcher']
+        runs[side].append(r)
+        print(f'[ab-matcher] {side}: B=16 train step {r["ms"]:.2f} ms (host '
+              f'clock); traced step window {r.get("window_ms", 0):.2f} ms, '
+              f'device busy {r.get("busy_ms", 0):.2f} ms, idle share '
+              f'{r.get("idle", float("nan")):.4f}')
+    print(json.dumps({'ab_matcher': {
+        side: {k: [r.get(k) for r in rs]
+               for k in ('ms', 'window_ms', 'busy_ms', 'idle', 'activities')}
+        for side, rs in runs.items()}}))
 
 
 # The phase split of the redesigned kernels: each kernel timed as built from
@@ -2506,6 +2739,10 @@ def traced(label):
         print(f'[trace]   {sum(gemm.values()) / 1e3:9.3f} ms  dsa::gemm in all '
               f'(tables, G . Wc^T, outer sums, split sums); the outer sums\' '
               f'kernels (both operands along the terms) {outer / 1e3:.3f} ms')
+    solve = sum(us for n, us in per_name.items() if 'assignment_kernel' in n)
+    if solve:
+        print(f'[trace]   {solve / 1e3:9.3f} ms  {solve / window:.4f} of window  '
+              f'the assignment solver (assignment_kernel)')
     msda = {d: [(us, count[n]) for n, us in per_name.items()
                 if f'msda_{d}_kernel' in n] for d in ('fwd', 'bwd')}
     us = {d: sum(u for u, _ in v) for d, v in msda.items()}
@@ -2710,8 +2947,9 @@ def _counted():
                'dsa_lstm_fwd': ops.dsa_lstm_step_fwd,
                'dsa_lstm_bwd': ops.dsa_lstm_step_bwd,
                'table_gemm': dsa_tables.table_gemm,
-               'table_gemm_bwd': dsa_tables.table_gemm_bwd}
-    plain = (ops.ms_deform_attn_ref, ops.dsa_teacher_scan_ref,
+               'table_gemm_bwd': dsa_tables.table_gemm_bwd,
+               'assignment': ops.assignment}
+    plain = (ops.ms_deform_attn_ref, ops.linear_sum_assignment_ref, ops.dsa_teacher_scan_ref,
              ops.dsa_greedy_scan_ref, ops.sample_attend_ref,
              dsa_step.sample_attend_table_ref, ops.lstm_step_ref,
              dsa_step.lstm_step_table_ref, dsa_tables.table_gemm_ref,
@@ -2741,7 +2979,8 @@ def reset_counts():
 
 
 def matcher_copies():
-    """The matcher's device-to-host copies since reset_counts()."""
+    """The matcher's device-to-host copies since reset_counts() (none
+    since the solver runs on the device; gated at 0)."""
     from dvc_tpu_torch.models.matcher import hungarian_match
     return hungarian_match.copies
 
@@ -2833,11 +3072,13 @@ def phase_train(tmp):
           f'5 steps, validation, checkpoints); mean losses {json.dumps({k: round(v, 4) for k, v in losses.items()})}')
     print(f'[train] kernel launches {launches}, plain-version calls {plain}, '
           f'matcher device-to-host copies {copies} (5 steps, 6 val batches)')
+    one_solve = launches['assignment'] == 5 + 6
     bad = [k for k, v in losses.items() if not math.isfinite(v)]
     if bad or 'loss_caption' not in losses:
         raise AssertionError(f'train losses not finite: {bad}')
-    if copies != 5 + 6:
-        raise AssertionError(f'{copies} matcher copies, not one a step')
+    if copies or not one_solve:
+        raise AssertionError(f'{copies} matcher copies, {launches["assignment"]}'
+                             f' assignment launches: not 0 and one a step')
     if (min(launches[k] for k in ('msda_fwd', 'msda_bwd', 'dsa_scan_fwd',
                                   'dsa_scan_bwd', 'dsa_greedy')) < 1 or plain
             or any(launches[k] for k in STEP_KERNELS)):
@@ -2875,7 +3116,10 @@ def phase_train(tmp):
           f'{ms1:.1f} ms, {1e3 / ms1:.2f} videos/s; B=16 {ms16:.1f} ms, '
           f'{16e3 / ms16:.2f} videos/s; peak device memory '
           f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    trace('B=16 train_step', lambda: trainer.train_step(batch16, opt.lr))
+    # synchronized inside the window: with the matcher on the card the host
+    # returns before the backward has run
+    trace('B=16 train_step', lambda: (trainer.train_step(batch16, opt.lr),
+                                      torch.cuda.synchronize()))
     return launches, opt, folder
 
 
@@ -2883,20 +3127,26 @@ def phase_train(tmp):
 # 7. train agreement
 # --------------------------------------------------------------------------
 
-def phase_train_agreement(opt, label='train-agreement', plain=False,
-                          pin_matching=False):
+MATCH_TIE_TOL = 1e-4      # a pinned matching's cost over the card's own,
+                          # relative, in each (layer, video)
+
+
+def phase_train_agreement(opt, label='train-agreement', plain=False):
     """One train step's forward and backward on the card (kernels) against
-    the CPU plain path, same weights and batch, dropout off: the same
-    matching; every loss within 1e-4 relative (f32 on both, summation orders
-    differ); every parameter's gradient within a relative L2 error of 1e-3
-    + 1e-5 absolute (atomics and summation order), except alpha_net's bias,
-    whose gradient is zero in exact arithmetic (as in ``check_scan``) and
-    whose floor is 5e-5.  ``plain``: a plain PDVC (``run_train``'s
-    model) in place of the FusionPDVC.  ``pin_matching``: the card's step
-    takes the CPU step's matching of every layer, so that a Hungarian
-    near-tie, which a few ulps of the trunk flip (ROADMAP C; at the plain
-    recipe's G = 30 an aux layer's does), cannot move the losses;
-    whether the card's own matching agreed is printed, not gated."""
+    the CPU plain path, same weights and batch, dropout off, the card's
+    step taking the CPU step's matching of every layer: every loss within
+    1e-4 relative (f32 on both, summation orders differ); every
+    parameter's gradient within a relative L2 error of 1e-3 + 1e-5
+    absolute (atomics and summation order), except alpha_net's bias, whose
+    gradient is zero in exact arithmetic (as in ``check_scan``) and whose
+    floor is 5e-5.  The card's own matching is computed too: where it
+    differs from the CPU's it must be a near-tie, the CPU's matching
+    costing at most MATCH_TIE_TOL relative more than the card's own under
+    the card's cost matrices (a few ulps of the trunk flip such ties,
+    ROADMAP C: an aux layer's at the plain recipe's G = 30, and since the
+    matcher runs JAX's f32 solver the flagship's too); whether it is
+    identical is printed.  ``plain``: a plain PDVC (``run_train``'s model)
+    in place of the FusionPDVC."""
     import torch
     from dvc_tpu_torch.models import criterion, make_fusion_model, \
         make_pdvc_model
@@ -2905,33 +3155,39 @@ def phase_train_agreement(opt, label='train-agreement', plain=False,
     batch = bucket_caption_length(train_batch(opt, 1, plain))
     weights = build_weight_dict(opt)
     make = make_pdvc_model if plain else make_fusion_model
-    real, pinned, own = criterion.hungarian_match, [], []
+    real, pinned, own, excess = criterion.hungarian_match, [], [], []
 
     def record(*args):
         pinned.append(real(*args))
         return pinned[-1]
 
     def replay(*args):
-        own.append(real(*args).cpu())
-        return pinned[len(own) - 1].to(args[1].device)
+        mine = real(*args)
+        own.append(mine.cpu())
+        taken = pinned[len(own) - 1].to(mine.device)
+        with torch.no_grad():
+            cost_own, cost_taken = (matching_cost(*args, m)
+                                    for m in (mine, taken))
+        excess.append(float(((cost_taken - cost_own)
+                             / cost_own.abs().clamp(min=1e-12)).max()))
+        return taken
 
     results = {}
-    for dev in ('cpu', DEVICE):
+    for run, dev in (('cpu', 'cpu'), ('card', DEVICE)):
         model = make(opt, dev, seed=0).train()
         tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        if pin_matching:
-            criterion.hungarian_match = record if dev == 'cpu' else replay
+        criterion.hungarian_match = record if run == 'cpu' else replay
         try:
             out, losses = model.forward_train(tb)
         finally:
             criterion.hungarian_match = real
         sum(losses[k] * w for k, w in weights.items()
             if k in losses and w).backward()
-        results[dev] = (out['matched_indices'].cpu(),
+        results[run] = (out['matched_indices'].cpu(),
                         {k: float(v.detach()) for k, v in losses.items()},
                         {n: p.grad.cpu() for n, p in
                          model.named_parameters() if p.grad is not None})
-    (gi, gl, gg), (ci, cl, cg) = results[DEVICE], results['cpu']
+    (gi, gl, gg), (ci, cl, cg) = results['card'], results['cpu']
     loss_err = max(abs(gl[k] - cl[k]) / max(abs(cl[k]), 1e-6) for k in cl)
     floor = {n: (5e-5 if n.endswith('alpha_net.bias') else 1e-5) for n in cg}
     grad_err = {n: float((gg[n] - cg[n]).norm()
@@ -2939,17 +3195,18 @@ def phase_train_agreement(opt, label='train-agreement', plain=False,
     ranked = sorted(grad_err, key=grad_err.get, reverse=True)
     worst = ranked[0]
     same = bool((gi == ci).all())
-    if pin_matching:
-        agree = all(torch.equal(a, b) for a, b in zip(own, pinned))
-        print(f'[{label}] the card ran the CPU\'s matching; its own, every '
-              f'layer: identical {agree} (not gated)')
+    agree = all(torch.equal(a, b.cpu()) for a, b in zip(own, pinned))
+    print(f'[{label}] the card ran the CPU\'s matching; its own, every '
+          f'layer: identical {agree}, the CPU\'s costing at most '
+          f'{max(excess):.2e} relative more under the card\'s costs (gated '
+          f'at {MATCH_TIE_TOL})')
     print(f'[{label}] card vs CPU plain, one B=1 step: matching '
           f'identical {same}; worst loss relative error {loss_err:.2e}; '
           f'worst gradient relative L2 errors over {len(cg)} parameters: '
           + ', '.join(f'{n} {grad_err[n]:.2e} (|grad| '
                       f'{float(cg[n].norm()):.2e})' for n in ranked[:3]))
     if not same or loss_err > 1e-4 or grad_err[worst] > 1e-3 \
-            or sorted(gg) != sorted(cg):
+            or sorted(gg) != sorted(cg) or max(excess) > MATCH_TIE_TOL:
         raise AssertionError('card and CPU disagree on the train step')
 
 
@@ -3263,7 +3520,8 @@ def phase_eval(tmp, folder, card):
               f'kernel launches {launches}, plain-version calls {plain}, '
               f'matcher device-to-host copies {copies} in {batches} batches')
         if (launches['msda_fwd'] < layers * batches
-                or copies != batches or timer.calls['matcher'] != batches
+                or copies or timer.calls['matcher'] != batches
+                or launches['assignment'] != batches
                 or launches['dsa_greedy'] != batches or plain
                 or any(launches[k] for k in STEP_KERNELS + (
                     'msda_bwd', 'dsa_scan_fwd', 'dsa_scan_bwd'))):
@@ -3276,7 +3534,8 @@ def phase_eval(tmp, folder, card):
               f'host-clock s: eval_step {t["eval_step"]:.3f} in '
               f'{timer.calls["eval_step"]} calls (synchronized; of it the '
               f'matcher {t["matcher"]:.3f} in {timer.calls["matcher"]} '
-              f'calls, each waiting for the card and solving on the host); '
+              f'calls, each queuing its cost matrices and one assignment '
+              f'launch); '
               f'postprocess {t["postprocess"]:.3f}; to_dvc_records '
               f'{t["to_dvc_records"]:.3f}; eval_metrics: rerank '
               f'{t["rerank"]:.3f}, dvc {t["dvc"]:.3f}, SODA {t["soda"]:.3f}, '
@@ -3568,7 +3827,8 @@ def phase_pipeline(tmp, card):
               f'{native_calls}')
         bad = [k for k, v in {**losses, **rec.first}.items()
                if not math.isfinite(v)]
-        if (bad or plain or copies != steps or native_calls < 1
+        if (bad or plain or copies or launches['assignment'] != steps
+                or native_calls < 1
                 or steps != PIPELINE_VIDEOS // 16
                 or any(None in row for row in order)
                 or min(launches[k] for k in ('msda_fwd', 'msda_bwd',
@@ -4087,7 +4347,8 @@ def plain_steps_per_dispatch(opt, card):
     (alpha_net's bias; the key third of the self-attention's
     in_proj_bias), as tests/test_torch_train.py; then ``run_train.main``
     --steps_per_dispatch 2 for a --debug epoch (6 steps, no validation):
-    one device-to-host loss copy per two steps."""
+    one device-to-host loss copy per two steps.  Both with one assignment
+    launch a step, no matcher copy and no plain version."""
     import torch
     from dvc_tpu_torch import run_train
     from dvc_tpu_torch.data import BatchLoader, DenseCaptionDataset
@@ -4104,9 +4365,11 @@ def plain_steps_per_dispatch(opt, card):
                     model=make_pdvc_model(gopt, DEVICE, seed=0))
             for _ in range(2)]
     copies = run_train.host_losses.copies
+    reset_counts()
     stacked, ms2 = event_ms(lambda: run_train.host_losses(
         pair[0].train_steps(batches, gopt.lr)))
     one_copy = run_train.host_losses.copies - copies == 1
+    matching = read_counts(), matcher_copies()
     singles = [float(pair[1].train_step(b, gopt.lr)['total_loss'])
                for b in batches]
     worst, name = 0.0, ''
@@ -4125,19 +4388,32 @@ def plain_steps_per_dispatch(opt, card):
           f'CUDA events; one '
           f'loss copy: {one_copy}) vs 2 train_step: summed total loss '
           f'{stacked["total_loss"]:.6f} vs {sum(singles):.6f}; worst '
-          f'parameter relative L2 error {worst:.2e} ({name})')
+          f'parameter relative L2 error {worst:.2e} ({name}); '
+          f'assignment launches {matching[0][0]["assignment"]}, plain-version '
+          f'calls {matching[0][1]}, matcher copies {matching[1]}')
+    if (matching[0][0]['assignment'], matching[0][1], matching[1]) != (2, 0, 0):
+        raise AssertionError(f'train_steps: {matching}, not one assignment '
+                             f'launch a step and no copy')
     if not one_copy or worst > 1e-3 or abs(
             stacked['total_loss'] - sum(singles)) > 1e-4 * abs(sum(singles)):
         raise AssertionError('stacked steps disagree with single steps')
     dopt = Config({**opt.to_dict(), 'steps_per_dispatch': 2,
                    'save_checkpoint_every': 99, 'id': 'dispatch'})
     copies = run_train.host_losses.copies
+    reset_counts()
     _, losses = run_train.main(dopt)
     n = run_train.host_losses.copies - copies
+    launches, plain = read_counts()
     print(f'[plain-dispatch] run_train --steps_per_dispatch 2 --debug: '
-          f'{n} device-to-host loss copies; mean losses {json.dumps(losses)}')
+          f'{n} device-to-host loss copies; assignment launches '
+          f'{launches["assignment"]}, plain-version calls {plain}, matcher '
+          f'copies {matcher_copies()}; mean losses {json.dumps(losses)}')
     if n != 3:
         raise AssertionError(f'{n} loss copies for 6 steps, not 3')
+    if launches['assignment'] != 6 or plain or matcher_copies():
+        raise AssertionError(f'run_train --steps_per_dispatch 2: '
+                             f'{launches}, plain {plain}, not one '
+                             f'assignment launch a step and no copy')
 
 
 def phase_plain(tmp, card):
@@ -4177,7 +4453,7 @@ def phase_plain(tmp, card):
                        (Config({**opt_a.to_dict(), 'num_layers': 2}),
                         'two-layer')):
         phase_train_agreement(opt, f'plain-{label}-train-agreement',
-                              plain=True, pin_matching=True)
+                              plain=True)
     plain_steps_per_dispatch(opt_a, card)
     return launches
 
@@ -7139,6 +7415,7 @@ def main():
     device = phase_device()
     phase_build()
     kernels = phase_kernels()
+    kernels.update(phase_assignment())
     phase_split('current', FULL_RUN_SPLITS)
     from dvc_tpu_torch.utils.config import load_config
     opt = load_config(CFG, root=ROOT)
@@ -7186,7 +7463,10 @@ def main():
     # its unfused stepwise run for K7-bf16 and K8-bf16, its lstm_fuse run
     # for K9-bf16 and K10-bf16 and the table's bf16 mode (their first
     # shapes: K6-bf16 at B=16, H=1, K4/K5-bf16 at B=1, H=1, K7-K10-bf16
-    # and the table at B=1, Q=90, H=1)
+    # and the table at B=1, Q=90, H=1); the assignment solver's: phase 6's
+    # train run (5 steps and 6 validation batches), first shape the
+    # flagship's (3, 16, 30, 100), its library_ms the scipy round trip it
+    # replaces (host clock)
     kernels.update(bf16_results)
     launches = {**bf16_launches,'msda_fwd': eval_launches['msda_fwd'],
                 'dsa_greedy': eval_launches['dsa_greedy'],
@@ -7195,7 +7475,8 @@ def main():
                 **{k: step_launches[lstm][k]
                    for lstm, names in STEPWISE.items() for k in names},
                 **{k: step_launches[False][k] + step_launches[True][k]
-                   for k in ('table_gemm', 'table_gemm_bwd')}}
+                   for k in ('table_gemm', 'table_gemm_bwd')},
+                'assignment': train_launches['assignment']}
     sources = {'msda_fwd': ('ms_deform_attn.cu', 'ms_deform_attn.py:309'),
                'msda_bwd': ('ms_deform_attn.cu', 'ms_deform_attn.py:551'),
                'dsa_scan_fwd': ('dsa_scan.cu', 'dsa_scan.py:149'),
@@ -7215,7 +7496,8 @@ def main():
                'dsa_lstm_fwd_bf16': ('dsa_step.cu', 'dsa_step.py:545'),
                'dsa_lstm_bwd_bf16': ('dsa_step.cu', 'dsa_step.py:566'),
                'table_gemm_bf16': ('dsa_tables.cu', 'dsa_step.py:545'),
-               'table_gemm_bwd_bf16': ('dsa_tables.cu', 'dsa_step.py:566')}
+               'table_gemm_bwd_bf16': ('dsa_tables.cu', 'dsa_step.py:566'),
+               'assignment': ('assignment.cu', 'assignment.py:31')}
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda',
          'source': f'dvc_tpu_torch/csrc/{src}',
@@ -7242,6 +7524,15 @@ if __name__ == '__main__':
     elif sys.argv[1:2] == ['--ab-bf16']:
         phase_device()
         ab_bf16_times()
+    elif sys.argv[1:2] == ['--assignment']:
+        phase_device()
+        phase_build()
+        phase_assignment()
+    elif sys.argv[1:2] == ['--ab-matcher']:     # PARENT_CHECKOUT
+        phase_device()
+        ab_matcher(sys.argv[2])
+    elif sys.argv[1:2] == ['--ab-matcher-run']:
+        matcher_ab_run()
     elif sys.argv[1:2] == ['--gemm']:
         phase_device()
         phase_build()

@@ -6,8 +6,9 @@ module names so the counterpart of each module is easy to find:
   ops/          hand-written CUDA kernels (``csrc/``) behind thin wrappers,
                 each beside its plain PyTorch version: trunk multi-scale
                 deformable attention (forward and backward), the fused
-                greedy caption decode, and the teacher-forcing word scan
-                (forward and backward)
+                greedy caption decode, the teacher-forcing word scan
+                (forward and backward), the word steps, the tables, and
+                the matcher's assignment solver
   models/       PDVC and FusionPDVC eval and train forwards (fusion
                 blocks, conv pyramid, deformable transformer, two-stage
                 queries, the LSTM-DSA and light caption heads), matcher,

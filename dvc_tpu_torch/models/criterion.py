@@ -156,11 +156,11 @@ class Matching:
 
 def match_layers(cfg: CriterionConfig, outputs, gt_labels, gt_boxes, gt_mask,
                  aux_loss=True, global_sum=None) -> Matching:
-    """Every criterion layer's matching (one round trip to the host) and
-    the counts of :class:`Matching`.  ``global_sum`` (``parallel.
-    global_sum`` on a data-parallel rank) sums the counts over the ranks
-    in one all-reduce, so that each rank's losses are its shares of the
-    global batch's."""
+    """Every criterion layer's matching (one solve on the device for all
+    of them, no copy to the host) and the counts of :class:`Matching`.
+    ``global_sum`` (``parallel.global_sum`` on a data-parallel rank) sums
+    the counts over the ranks in one all-reduce, so that each rank's
+    losses are its shares of the global batch's."""
     D = outputs['pred_logits'].shape[0]
     layer_ids = list(range(D)) if aux_loss else [D - 1]
     idx = dict(zip(layer_ids, hungarian_match(

@@ -1,26 +1,29 @@
-"""Hungarian set matcher (port of ``dvc_tpu/models/matcher.py`` and
-``dvc_tpu/ops/assignment.py::masked_assignment``).
+"""Hungarian set matcher (port of ``dvc_tpu/models/matcher.py``).
 
 The focal-class + L1 + gIoU cost matrix is built on the device exactly as
-the reference (``pdvc/matcher.py:84-100``); the assignment is solved on the
-host with scipy's ``linear_sum_assignment``, the reference PDVC's own
-choice (``matcher.py:115-119``).  Gt events are padded to G slots with a
-validity mask: the real rows get their optimal queries, and each padded row
-gets a distinct unused query, which callers mask out (the contract of the
-JAX ``masked_assignment``).  Every decoder layer is matched in one call, as
-the JAX criterion's vmapped matcher: one copy to the host and one upload a
-step.  Matching is not differentiated.
+the reference (``pdvc/matcher.py:84-100``), and the assignment is solved on
+the same device by ``ops/assignment.py`` (on the card its hand-written
+kernel; JAX's Jonker-Volgenant solver in place of the reference's scipy
+call, ``matcher.py:115-119``).  Gt events are padded to G slots with a
+validity mask; padded rows get constant cost and distinct columns, which
+callers mask out (``matched_mask``).  Every decoder layer is matched in one
+call, as the JAX criterion's vmapped matcher: one kernel launch a step and
+no copy to the host.  Matching is not differentiated.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
-from scipy.optimize import linear_sum_assignment
 
+from ..ops.assignment import (assignment, many_to_one_assignment,
+                              masked_assignment)
 from ..utils.box_ops import box_cl_to_xy, generalized_box_iou
+
+__all__ = ['MatcherConfig', 'hungarian_match', 'hungarian_match_m2o',
+           'masked_assignment', 'match_cost_matrix', 'matched_mask',
+           'stacked_cost_matrices']
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,57 +68,43 @@ def stacked_cost_matrices(cfg: MatcherConfig, pred_logits, pred_boxes,
                         for logits, boxes in zip(pred_logits, pred_boxes)])
 
 
-def masked_assignment(cost: np.ndarray, row_mask: np.ndarray) -> np.ndarray:
-    """cost (R, C), row_mask (R,): col4row (R,) int64, optimal over the
-    real rows; padded rows get distinct unused columns in order while
-    there are any.  With more real rows than columns (more gt events than
-    queries) C of them are matched, as the reference's scipy solve on the
-    (Nq, n_gt) matrix matches them, and the rest keep -1, as do padded
-    rows left without a free column (the JAX solver refuses R > C; where
-    R <= C the two agree)."""
-    R, C = cost.shape
-    cost = np.nan_to_num(cost, nan=1e9, posinf=1e9, neginf=-1e9)
-    rows = np.flatnonzero(row_mask)
-    col4row = np.full(R, -1, np.int64)
-    if len(rows):
-        r, c = linear_sum_assignment(cost[rows])
-        col4row[rows[r]] = c
-    free = np.setdiff1d(np.arange(C), col4row[rows])
-    pad = np.flatnonzero(~row_mask)[:len(free)]
-    col4row[pad] = free[:len(pad)]
-    return col4row
-
-
 @torch.no_grad()
 def hungarian_match(cfg: MatcherConfig, pred_logits, pred_boxes, gt_labels,
                     gt_boxes, gt_mask):
-    """Match gt events to queries in every given decoder layer with one
-    round trip to the host.  pred_logits (D', B, Nq, K) and pred_boxes
-    (D', B, Nq, 2) stack the layers; gt_* are (B, G, ...).  Each layer's
-    (B, Nq, G) cost matrix is computed as a single layer's would be (so
-    bit for bit the same), the D' of them and the mask come to the host in
-    one copy, scipy solves each (layer, video), and the indices go back in
-    one upload.  Returns col4row (D', B, G) int64 on the predictions'
-    device: the query assigned to each gt slot (meaningless where
-    ``gt_mask`` is False; -1 for a gt event left unmatched, see
-    :func:`matched_mask`)."""
-    D, B, Nq, _ = pred_logits.shape
-    G = gt_mask.shape[-1]
+    """Match gt events to queries in every given decoder layer in one
+    solve on the predictions' device.  pred_logits (D', B, Nq, K) and
+    pred_boxes (D', B, Nq, 2) stack the layers; gt_* are (B, G, ...).  Each
+    layer's (B, Nq, G) cost matrix is computed as a single layer's would be
+    (so bit for bit the same), and the D' x B problems of G slots x Nq
+    queries go to :func:`ops.assignment.assignment` together (one kernel
+    launch on the card).  Returns col4row (D', B, G) int64 on the
+    predictions' device: the query assigned to each gt slot (meaningless
+    where ``gt_mask`` is False; -1 for a gt event left unmatched where a
+    video has more gt events than queries, see :func:`matched_mask`)."""
     costs = stacked_cost_matrices(cfg, pred_logits, pred_boxes, gt_labels,
                                   gt_boxes)
-    packed = torch.cat([costs.transpose(2, 3).float().reshape(-1),
-                        gt_mask.float().reshape(-1)]).cpu().numpy()
-    hungarian_match.copies += 1
-    C = packed[:D * B * G * Nq].reshape(D, B, G, Nq)
-    mask = packed[D * B * G * Nq:].reshape(B, G) > 0
-    idx = np.stack([[masked_assignment(C[l, b], mask[b]) for b in range(B)]
-                    for l in range(D)])
-    return torch.from_numpy(idx).to(pred_logits.device)
+    return assignment(costs.transpose(2, 3).float(), gt_mask)
 
 
-# device-to-host copies made (one a call), read and reset like the kernels'
-# launch counts
+# device-to-host copies made: none since the solver runs on the device;
+# read and reset like the kernels' launch counts, so a run can show it
 hungarian_match.copies = 0
+
+
+@torch.no_grad()
+def hungarian_match_m2o(cfg: MatcherConfig, pred_logits, pred_boxes,
+                        gt_labels, gt_boxes, gt_mask, rate: int = 4):
+    """Many-to-one match of one decoder layer (the reference's
+    ``rl_indices``, matcher.py:120-123; JAX's ``hungarian_match_m2o``):
+    each gt event gets up to ``rate`` distinct queries from the assignment
+    on the gt-tiled cost matrix.  pred_logits (B, Nq, K), pred_boxes (B,
+    Nq, 2); returns col4row (B, rate, G) int64.  Only the reference's
+    vestigial ``caption_cost_type='rl'`` path would consume it, so nothing
+    on the train path calls it."""
+    cost = match_cost_matrix(cfg, pred_logits, pred_boxes, gt_labels,
+                             gt_boxes)
+    return many_to_one_assignment(cost.transpose(1, 2).float(), gt_mask,
+                                  rate)
 
 
 def matched_mask(col4row, gt_mask):

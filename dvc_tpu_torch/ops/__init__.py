@@ -1,3 +1,6 @@
+from .assignment import (assignment, assignment_ref,
+                         linear_sum_assignment_ref, many_to_one_assignment,
+                         masked_assignment)
 from .ms_deform_attn import (ms_deform_attn, ms_deform_attn_bwd,
                              ms_deform_attn_ref, ms_deform_attn_sample_values)
 from .dsa_greedy import (dsa_greedy_scan, dsa_greedy_scan_ref,
@@ -13,7 +16,9 @@ from .dsa_step import (dsa_lstm_step_bwd, dsa_lstm_step_core,
                        pack_attend_weights, sample_attend_ref,
                        sample_attend_table_ref)
 
-__all__ = ['ms_deform_attn', 'ms_deform_attn_bwd', 'ms_deform_attn_ref',
+__all__ = ['assignment', 'assignment_ref', 'linear_sum_assignment_ref',
+           'many_to_one_assignment', 'masked_assignment',
+           'ms_deform_attn', 'ms_deform_attn_bwd', 'ms_deform_attn_ref',
            'ms_deform_attn_sample_values',
            'dsa_greedy_scan', 'dsa_greedy_scan_ref', 'greedy_mask_outputs',
            'greedy_pick', 'lstm_cell', 'step_pos_hvec',

@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
 BUILD_ROOT = os.path.join(_PKG, '_build')
 SOURCES = ('ms_deform_attn.cu', 'dsa_greedy.cu', 'dsa_scan.cu', 'dsa_step.cu',
-           'dsa_tables.cu', 'dsa_gemm_plan.cc')
+           'dsa_tables.cu', 'dsa_gemm_plan.cc', 'assignment.cu')
 # sm_90a: Hopper.  No -use_fast_math: tanhf/expf/logf stay exact, as the
 # JAX kernels' f32 transcendentals; -Xptxas -v records registers and spills
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -52,6 +52,7 @@ _SIGNATURES = {
     'dvc_dsa_gemm': [_P, _I, _I, _P] + [_I] * 6 + [_P, _P, _LL, _I, _P],
     'dvc_dsa_gemm_work_floats': [_I] * 4,
     'dvc_dsa_gemm_plan': [_I] * 4 + [_P],
+    'dvc_assignment': [_P, _P, _I, _I, _I, _P, _P, _P],
 }
 # the entry points that do not return a CUDA error code (int)
 _RESTYPES = {'dvc_dsa_gemm_work_floats': _LL, 'dvc_dsa_gemm_plan': None}

@@ -34,16 +34,20 @@ cores, through the library's ``dvc_dsa_gemm``) is held to torch.einsum at
 the same tolerance on every operand layout, ragged edges, a strided operand
 and accumulation, at a long term axis also in units of its products
 (``chip_smoke.product_err``) against one-pass TF32, and its outputs are
-bitwise equal from run to run.
+bitwise equal from run to run.  The assignment solver's kernel equals its
+plain version exactly (col4row and the Dijkstra steps: the same f32 adds
+in the same order) at the matcher's shapes and at ragged ones.
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GEMM_PRODUCT_TOL, near_integer, product_err,
+from chip_smoke import (ASSIGNMENT_CASES, GEMM_PRODUCT_TOL,
+                        assignment_inputs, near_integer, product_err,
                         scan_positions, tf32_matmul)
 from dvc_tpu_torch.models.deformable_transformer import \
     encoder_reference_points
+from dvc_tpu_torch.ops.assignment import assignment, assignment_ref
 from dvc_tpu_torch.ops.dsa_greedy import dsa_greedy_scan, dsa_greedy_scan_ref
 from dvc_tpu_torch.ops.dsa_tables import (dsa_value_table, table_gemm,
                                           table_gemm_bwd)
@@ -1427,3 +1431,15 @@ def test_gemm_outer_sum_at_a_long_term_axis_is_f32(cuda):
     unit_err, tf32_err = (product_err(got, xp, yp)
                           for got in (out, tf32_matmul(xp, yp)))
     assert unit_err <= GEMM_PRODUCT_TOL < tf32_err, (unit_err, tf32_err)
+
+
+@pytest.mark.parametrize('case', ASSIGNMENT_CASES + (
+    ('small', 2, 3, 5, 7, 'ties'), ('square', 2, 4, 33, 33, 'ties'),
+    ('wide', 1, 4, 40, 150, 'normal'), ('tall', 2, 8, 40, 3, 'ties')),
+    ids=lambda c: c[0])
+def test_assignment_kernel_matches_plain(cuda, case):
+    cost, mask = assignment_inputs(case, cuda)
+    got, steps = assignment(cost, mask, with_steps=True)
+    want, want_steps = assignment_ref(cost, mask, with_steps=True)
+    assert got.dtype == torch.int64 and tuple(got.shape) == case[1:4]
+    assert torch.equal(got, want) and torch.equal(steps, want_steps)
