@@ -11,8 +11,11 @@ Phases (one or more lines each; the last line is the JSON verdict):
    nvcc (sm_90a) and print the build time and ptxas resource lines.
 3. kernels vs plain — each kernel against its plain PyTorch
    version on the card at the serving and training paths' shapes (TF32
-   off), with errors, CUDA-event times and each kernel's bound (bytes over
-   the HBM rate or f32 operations over the CUDA cores' peak); the tables'
+   off), with errors, CUDA-event times and each kernel's bound (its op's
+   FLOPs and bytes by the least work of the JAX oracle's function, the
+   count functions of ``dvc_tpu_torch/ops``: bytes over the HBM rate or
+   operations over the CUDA cores' f32 peak, ``utils/roofline.py``'s
+   data-sheet rates); the tables'
    GEMM and its backward (the table VW = value . Wc of K7-K10, and
    embed . token_w) and the weight gradients' outer sums that K5 and K10
    run inside their launches (``[kernels] outer_sum``, through the
@@ -30,11 +33,11 @@ Phases (one or more lines each; the last line is the JSON verdict):
    gradients composed with the table's backward) at the stepwise path's
    train (B=1, Q=90) and serve (B=16, Q=100, H=1 and 8) shapes, to the
    scan's tolerances (``check_step``); then the phase split of the
-   kernels the latest slices redesigned (``FULL_RUN_SPLITS``, K4-K6-bf16;
-   one ``[split]`` line per kernel and shape; ``--split current`` splits
-   every kernel of ``SPLITS['current']``, K1-K10 and their bf16 modes,
-   K3's also with its value rows read through L2 in place of the staged
-   slice).
+   kernels the latest slices redesigned (``FULL_RUN_SPLITS``,
+   K7/K8-bf16; one ``[split]`` line per kernel and shape; ``--split
+   current`` splits every kernel of ``SPLITS['current']``, K1-K10 and
+   their bf16 modes, K3's also with its value rows read through L2 in
+   place of the staged slice).
    Tolerances:
    MSDA forward max abs error <= 1e-4 * max|out|, and each of its
    gradients <= 1e-4 * its max |ref|; greedy tokens equal and log-probs
@@ -55,7 +58,9 @@ Phases (one or more lines each; the last line is the JSON verdict):
    of the scipy round trip it replaces (copy, 48 solves, upload).
    ``--ab-matcher <parent checkout>`` times a B=16 train step and traces
    one (idle share) in this tree and the parent's in turns, four runs a
-   side (not gated).
+   side (not gated); ``--ab-step <parent checkout> [new_train option
+   ...]`` times the B=16 stepwise train step (scheduled sampling, by
+   default ``--dsa_lstm_fuse 0``) the same way.
 4. serve  — the FusionPDVC of ``cfgs/yc2_newModel_sound.yml`` at full width
    with seeded random weights behind the port's ``DenseCaptioner``: four
    requests of different lengths and durations, with and without sound,
@@ -312,8 +317,8 @@ Phases (one or more lines each; the last line is the JSON verdict):
    relative L2, cuDNN's TF32 off inside each call and on again after it;
    the control, the card's forward with TF32 forced on inside the drivers'
    ``full_float32``, must read above the gate; (b) ``python -m
-   dvc_tpu_torch.test_and_visualize`` on the card over three cv2-written
-   30 s videos (phase 14's writer): metadata, MViTv2-S float32 features at
+   dvc_tpu_torch.test_and_visualize`` on the card over OWN_VIDEOS (one)
+   cv2-written 30 s video (phase 14's writer): metadata, MViTv2-S float32 features at
    full width from seeded weights saved as a ``.pth``, the fake caption
    file, ``run_eval --eval_mode test`` of a run folder of
    ``cfgs/yc2_tsp_mvit_ete.yml``'s plain PDVC (feature_dim 768, 3+3
@@ -327,6 +332,19 @@ Phases (one or more lines each; the last line is the JSON verdict):
    once a seed, never its plain version; the f32 token divergence at
    sigma 0 at most DIVERGENCE_TOL (1e-3, ``tests/test_greedy_divergence.py``'s
    bound), the other rates printed as measured.
+20. roofline (``--roofline`` runs it alone) — ``utils/roofline.py``'s
+   step count at the flagship of ``bench.py`` (``tools/profile_step.py``'s
+   ``FLAGSHIP``: B=16, T=200, 20 words, cap_nheads 8, 100 queries): (a)
+   one B=2 f32 train step and one eval step counted on the card and on
+   the CPU, FLOPs, bytes and each hand-written op's charge equal; (b) the
+   B=16 train and eval steps in f32 and bf16: the counted FLOPs and the
+   hand-written ops' share, the least bytes, the median of ROOFLINE_TIMED
+   steps (CUDA events, after a warm-up), ``roofline()``'s fields and the
+   bound that sets them, with the card's name and power limit: the card's
+   peak known, 0 < mfu and roofline_pct <= 1; (c) ``python -m
+   dvc_tpu_torch.tools.profile_step --what train --steps 2 --batch 16`` on
+   the card: its JSON names the MSDA forward, K5 and the assignment kernel
+   among the device operations.
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -345,6 +363,7 @@ import subprocess
 import sys
 import tempfile
 import time
+
 
 MSDA_LEVELS = (200, 100, 50, 25)      # T = 200 frames, 4 levels, S = 375
 # the word-step kernels of the stepwise caption path and their table VW
@@ -501,53 +520,46 @@ def greedy_agreement(tok, lp, ref_tok, ref_lp, margin, thr=1e-3):
     return ok, mismatches, lp_err
 
 
-# the card's peaks for bound_ms (NVIDIA's H100 SXM data sheet, dense, at the
-# full 700 W): HBM bytes/s and float32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12     # dense, on the tensor cores
+def nbytes(*tensors):
+    """``utils/roofline.py``'s ``nbytes``.  The port is imported inside
+    functions throughout this file, so that it runs in an older tree
+    (``--ab-step``)."""
+    from dvc_tpu_torch.utils.roofline import nbytes
+    return nbytes(*tensors)
+
+
+def trace(label, fn):
+    """``utils/profiling.py``'s ``trace``."""
+    from dvc_tpu_torch.utils.profiling import trace
+    return trace(label, fn)
 
 
 def bound(n_bytes, flops):
-    """(least ms, what bounds it): the larger of the bytes the function must
-    move (each input read once, each output written once) over the HBM rate
-    and its operations over the f32 peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+    """(least ms, what bounds it) at the H100's f32 rate outside the tensor
+    cores (``utils/roofline.py``'s data-sheet peaks, at 700 W)."""
+    from dvc_tpu_torch.utils.roofline import H100_SXM, least_ms
+    return least_ms(n_bytes, flops, H100_SXM.f32)
 
 
 def tc_bound(n_bytes, flops):
     """(least ms, what bounds it) of a GEMM on the tensor cores at f32
-    accuracy (3xTF32: three TF32 products for each f32 one): the larger of
-    the bytes over the HBM rate and 3 x its operations over the TF32 peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * flops / TF32_FLOP_PER_S * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+    accuracy (3xTF32: three TF32 products for each f32 one)."""
+    from dvc_tpu_torch.utils.roofline import H100_SXM, least_ms
+    return least_ms(n_bytes, 3 * flops, H100_SXM.tf32)
 
 
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def msda_bound(value, loc, attn, out):
-    """Forward: per (b, q, h, l, p, d) two lerp products and a sum (3) plus
-    the attention product and sum (2)."""
-    B, S, H, D = value.shape
-    return bound(nbytes(value, loc, attn, out), 5.0 * loc.numel() * D)
-
-
-def msda_bwd_bound(value, loc, attn, g, grads):
-    """Backward: per (b, q, h, l, p, d) the sample and the tap difference
-    (4), their two products with g and sums (4), and the two dvalue
-    products (4)."""
-    D = value.shape[3]
-    return bound(nbytes(value, loc, attn, g, *grads), 12.0 * loc.numel() * D)
+def bf16_bound(n_bytes, flops):
+    """(least ms, what bounds it) of the same work on bf16 operands: the
+    bytes (``n_bytes`` counts each operand of a product at 2 bytes) and the
+    operations at the tensor cores' bf16 peak."""
+    from dvc_tpu_torch.utils.roofline import H100_SXM, least_ms
+    return least_ms(n_bytes, flops, H100_SXM.bf16)
 
 
 def check_msda(gen, B, Q):
     from dvc_tpu_torch.ops.ms_deform_attn import (ms_deform_attn,
-                                                  ms_deform_attn_ref)
+                                                  ms_deform_attn_ref,
+                                                  msda_cost)
     value, loc, attn = msda_inputs(gen, B, Q)
     out = ms_deform_attn(value, MSDA_LEVELS, loc, attn)
     ref = ms_deform_attn_ref(value, MSDA_LEVELS, loc, attn)
@@ -558,7 +570,8 @@ def check_msda(gen, B, Q):
                        50)
     plain_ms = cuda_ms(
         lambda: ms_deform_attn_ref(value, MSDA_LEVELS, loc, attn), 10)
-    bound_ms, bound_by = msda_bound(value, loc, attn, out)
+    bound_ms, bound_by = bound(*msda_cost(value, MSDA_LEVELS, loc,
+                                          attn)[::-1])
     print(f'[kernels] msda_fwd B={B} Q={Q} S={value.shape[1]} H=8 D=64 '
           f'L=4 P=4: max_abs_err {err:.3e} (tol {tol:.3e}) kernel {ms:.4f} '
           f'ms (device {dev_ms:.4f}) plain {plain_ms:.4f} ms bound '
@@ -578,7 +591,8 @@ def check_msda_bwd(gen, B, Q, encoder=False):
     in another order)."""
     import torch
     from dvc_tpu_torch.ops.ms_deform_attn import (ms_deform_attn_bwd,
-                                                  ms_deform_attn_bwd_ref)
+                                                  ms_deform_attn_bwd_ref,
+                                                  msda_bwd_cost)
     value, loc, attn = (msda_encoder_inputs(gen, B) if encoder
                         else msda_inputs(gen, B, Q))
     Q = loc.shape[1]
@@ -595,7 +609,8 @@ def check_msda_bwd(gen, B, Q, encoder=False):
         lambda: ms_deform_attn_bwd(value, MSDA_LEVELS, loc, attn, g), 50)
     plain_ms = cuda_ms(
         lambda: ms_deform_attn_bwd_ref(value, MSDA_LEVELS, loc, attn, g), 10)
-    bound_ms, bound_by = msda_bwd_bound(value, loc, attn, g, got)
+    bound_ms, bound_by = bound(
+        *msda_bwd_cost(value, MSDA_LEVELS, loc, attn)[::-1])
     where = ' encoder locations' if encoder else ''
     print(f'[kernels] msda_bwd B={B} Q={Q}{where} S={value.shape[1]} H=8 '
           f'D=64 L=4 P=4: max_abs_err {err:.3e}, relative (dvalue, dloc, '
@@ -609,58 +624,10 @@ def check_msda_bwd(gen, B, Q, encoder=False):
             'bound_ms': bound_ms, 'bound_by': bound_by}
 
 
-def lerp_rows_macs(n, B, H, S, LP, Dh, W, per_tap):
-    """Least MACs of one product of a (Dh, W) weight per head with rows that
-    are lerps of two value rows, over n (video, query, step) triples.  Either
-    each triple multiplies its own rows (its H*LP taps when the product is
-    taken per tap, as in the scores' taps . Wc; its H attended rows
-    otherwise, as in ctx . ctx_w3, which first cost 2*Dh per tap to form),
-    or each video multiplies its S value rows once (B*H*S*Dh*W) and each
-    triple then lerps two W-wide rows of that table per tap (2*W)."""
-    direct = n * H * Dh * W * (LP if per_tap else 1)
-    if not per_tap:
-        direct += n * H * LP * 2 * Dh
-    table = B * H * S * Dh * W + n * H * LP * 2 * W
-    return min(direct, table)
-
-
-def step_macs(n, B, H, S, LP, Dh, R, A):
-    """Least MACs of n LSTM-DSA word steps without the token's input share:
-    hvec R*A, offsets R*H*LP, the scores' taps . Wc (``lerp_rows_macs``)
-    and their . aw (A per tap), ctx . ctx_w3 (``lerp_rows_macs``) and
-    h . W_hh R*4R.  Elementwise work (tanh, softmax, the LSTM cell) is left
-    out."""
-    return (n * (R * A + R * H * LP + H * LP * A + R * 4 * R)
-            + lerp_rows_macs(n, B, H, S, LP, Dh, A, True)
-            + lerp_rows_macs(n, B, H, S, LP, Dh, 4 * R, False))
-
-
-def greedy_bound(args, K):
-    """The greedy decode's B*Q*K steps (``step_macs``), plus the token's
-    input share embed[it] . W_ih (E*4R per step, or once per vocabulary
-    row, (V+1)*E*4R, whichever is less) and the logits R*(V+1) per step."""
-    macs, n = greedy_macs(args, K)
-    import torch
-    inputs = [t for t in args if torch.is_tensor(t)]
-    return bound(nbytes(*inputs) + 8 * n, 2.0 * macs)
-
-
-def greedy_macs(args, K):
-    """(MACs, B*Q*K steps) of ``greedy_bound``."""
-    value_t, base_pos, _, const_z, embed = args[:5]
-    B, H, S, Dh = value_t.shape
-    Q, LP = base_pos.shape[2], base_pos.shape[3]
-    V1, E = embed.shape
-    R = const_z.shape[2] // 4
-    A = args[9].shape[1]
-    n = B * Q * K
-    return (step_macs(n, B, H, S, LP, Dh, R, A)
-            + min(n, V1) * E * 4 * R + n * R * V1), n
-
-
 def check_greedy(gen, B, Q, H, K=30):
     from dvc_tpu_torch.ops.dsa_greedy import (dsa_greedy_scan,
-                                              dsa_greedy_scan_ref)
+                                              dsa_greedy_scan_ref,
+                                              greedy_cost)
     args = greedy_inputs(gen, B, Q, H)
     tok, lp = dsa_greedy_scan(*args, MSDA_LEVELS, K)
     ref_tok, ref_lp, margin = dsa_greedy_scan_ref(*args, MSDA_LEVELS, K,
@@ -670,7 +637,7 @@ def check_greedy(gen, B, Q, H, K=30):
     frac = float(ok.float().mean())
     ms = cuda_ms(lambda: dsa_greedy_scan(*args, MSDA_LEVELS, K), 3)
     plain_ms = cuda_ms(lambda: dsa_greedy_scan_ref(*args, MSDA_LEVELS, K), 3)
-    bound_ms, bound_by = greedy_bound(args, K)
+    bound_ms, bound_by = bound(*greedy_cost(*args, MSDA_LEVELS, K)[::-1])
     print(f'[kernels] dsa_greedy B={B} Q={Q} H={H} Dh={512 // H} S=375 LP=16 '
           f'A=R=E=512 V+1=1608 K={K}: compared {frac:.3f} of (b,k,q), '
           f'token mismatches {mismatches}, max |lp diff| {lp_err:.3e}, '
@@ -706,22 +673,6 @@ def scan_inputs(gen, B, Q, K, H, R=512, A=512, d=512, P=4):
             w(R, A, fan_in=R), w(A, fan_in=100), w(Dh, A, fan_in=Dh),
             w(A, fan_in=100), w(A, fan_in=A), torch.tensor(0.05, device=dev),
             w(H, Dh, 4 * R, fan_in=d), w(R, 4 * R, fan_in=R))
-
-
-def scan_macs(args):
-    """(forward, backward) MACs of the whole scan.  Forward: its B*Q*K
-    steps (``step_macs``; z_all already holds the token's share).
-    Backward: three times that, since each product x . W of the step comes
-    back as the recompute (hs and cs are the only stored activations), the
-    input's gradient dy . W^T and the weight's gradient x^T . dy, each of
-    the same size (the tables' forms: value^T G and G . W^T per video, with
-    G the lerp-weighted scatter of the cotangent rows onto the value rows)."""
-    value_t, base_pos, _, z_all = args[:4]
-    B, H, S, Dh = value_t.shape
-    K, Q, LP = z_all.shape[1], z_all.shape[2], base_pos.shape[3]
-    R, A = args[5].shape
-    fwd = step_macs(B * Q * K, B, H, S, LP, Dh, R, A)
-    return fwd, 3 * fwd
 
 
 def scan_positions(args, hs):
@@ -842,6 +793,7 @@ def check_scan(gen, B, Q, K, H):
     backward on its own trajectory."""
     import torch
     from dvc_tpu_torch.ops.dsa_scan import (NAMES, dsa_teacher_scan_bwd,
+                                            scan_bwd_cost, scan_cost,
                                             dsa_teacher_scan_bwd_ref,
                                             dsa_teacher_scan_fwd,
                                             dsa_teacher_scan_ref)
@@ -868,10 +820,8 @@ def check_scan(gen, B, Q, K, H):
         lambda: dsa_teacher_scan_bwd(*args, MSDA_LEVELS, hs, cs, g), 3)
     bwd_plain = cuda_ms(lambda: dsa_teacher_scan_bwd_ref(
         *args, MSDA_LEVELS, hs, cs, g), 3)
-    fwd_macs, bwd_macs = scan_macs(args)
-    inputs = [t for t in args if torch.is_tensor(t)]
-    fwd_bound = bound(nbytes(*inputs, hs, cs), 2.0 * fwd_macs)
-    bwd_bound = bound(nbytes(*inputs, hs, cs, g, *grads), 2.0 * bwd_macs)
+    fwd_bound = bound(*scan_cost(*args)[::-1])
+    bwd_bound = bound(*scan_bwd_cost(*args)[::-1])
     print(f'[kernels] dsa_scan_fwd B={B} Q={Q} K={K} H={H} Dh={512 // H} '
           f'S=375 LP=16 A=R=512: max_abs_err {fwd_err:.3e} (tol '
           f'{fwd_tol:.3e}) kernel {fwd_ms:.3f} ms plain {fwd_plain:.3f} ms '
@@ -1200,25 +1150,23 @@ def step_inputs(gen, B, Q, H, lstm, R=512, A=512, d=512, P=4):
                    w(R, 4 * R, fan_in=R)) + tail
 
 
-def word_step_macs(args, lstm, table_given=False):
-    """Least MACs of one word-step kernel over its B*Q queries (``args``:
-    ``step_inputs``'s): the scores' taps . Wc (``lerp_rows_macs``; with
-    ``table_given``, the kernels alone with VW = value . Wc an operand, a
-    lerp of two VW rows, 2A per tap) and . aw, the context (a lerp of two
-    value rows and a weighted sum per tap, 3*Dh); with the LSTM cell also
-    h . W_hh and ctx . ctx_w3 (4R*(R + H*Dh)).  hvec and the offsets are
-    computed outside the kernels; elementwise work is left out."""
+def step_cost(args, lstm, backward=False, vw_given=False):
+    """(FLOPs, bytes) of one word step (K7, or with ``lstm`` K9) or its
+    backward by the least work of the JAX oracle's function, at
+    ``step_inputs``' operands; ``vw_given``: of the kernel alone, with the
+    table VW = value . Wc an operand (its products left out)."""
+    from dvc_tpu_torch.ops.dsa_step import (lstm_step_bwd_cost,
+                                            lstm_step_cost,
+                                            sample_attend_bwd_cost,
+                                            sample_attend_cost)
     value_t, pos, hvec = args[:3]
-    B, H, S, Dh = value_t.shape
-    Q, LP = pos.shape[2], pos.shape[3]
-    A, n = hvec.shape[-1], B * Q
-    macs = ((n * H * LP * 2 * A if table_given
-             else lerp_rows_macs(n, B, H, S, LP, Dh, A, True))
-            + n * H * LP * (A + 3 * Dh))
+    L = len(MSDA_LEVELS)
     if lstm:
-        R = args[4].shape[-1]
-        macs += n * 4 * R * (R + H * Dh)
-    return macs
+        return (lstm_step_bwd_cost(value_t, pos, hvec, args[4], L, vw_given)
+                if backward else lstm_step_cost(value_t, pos, hvec, args[4],
+                                                vw_given))
+    return (sample_attend_bwd_cost(value_t, pos, hvec, L, vw_given)
+            if backward else sample_attend_cost(value_t, pos, hvec, vw_given))
 
 
 def check_step(gen, B, Q, H, lstm):
@@ -1237,8 +1185,8 @@ def check_step(gen, B, Q, H, lstm):
     floor is check_scan's max(5e-5, 2.5e-10 * N), or 64 unit roundoffs
     times sqrt(N) times the terms' mean magnitude where that is larger (a
     unit-scale random cotangent of ctx makes the terms larger than a train
-    step's).  Bound: ``word_step_macs`` at the f32 peak, the backward three
-    times the forward; bytes at the HBM rate."""
+    step's).  Bound: ``step_cost`` (the least work of the JAX oracle's step
+    and of its VJP, VW given) at the f32 peak and the HBM rate."""
     import torch
     from dvc_tpu_torch.ops import dsa_step as ds
     args = step_inputs(gen, B, Q, H, lstm)
@@ -1282,10 +1230,8 @@ def check_step(gen, B, Q, H, lstm):
     fwd_plain = cuda_ms(lambda: ref(*args, MSDA_LEVELS), 5)
     bwd_ms = cuda_ms(lambda: bwd(*kargs, MSDA_LEVELS, *cot), 20)
     bwd_plain = cuda_ms(lambda: bwd_ref(*args, MSDA_LEVELS, *cot), 5)
-    macs = word_step_macs(args, lstm, table_given=True)
-    inputs = [t for t in kargs if torch.is_tensor(t)]
-    fwd_bound = bound(nbytes(*inputs, *outs), 2.0 * macs)
-    bwd_bound = bound(nbytes(*inputs, *cot, *grads), 6.0 * macs)
+    fwd_bound = bound(*step_cost(args, lstm, vw_given=True)[::-1])
+    bwd_bound = bound(*step_cost(args, lstm, True, vw_given=True)[::-1])
     kind = 'dsa_lstm' if lstm else 'dsa_step'
     shape = (f'B={B} Q={Q} H={H} Dh={512 // H} S=375 LP=16 A=512'
              + (' R=512' if lstm else '') + ', VW given')
@@ -1547,13 +1493,12 @@ def matcher_ab_run():
     print(json.dumps({'ab_matcher': {'root': ROOT, 'ms': ms, **res}}))
 
 
-def ab_matcher(parent):
-    """This tree's B=16 train step against the tree at ``parent`` (an
-    unpacked checkout of the parent commit, in a directory that .gitignore
-    lists, e.g. _checkout/parent): this file is copied into it, and
-    ``--ab-matcher-run`` runs in each tree in turns, parent, this, this,
-    parent, twice (four runs a side, a process each).  Prints each run and
-    a summary JSON line; claims nothing."""
+def in_turns(parent, flag, args=()):
+    """``chip_smoke.py <flag> <args>`` in this tree and in the tree at
+    ``parent`` (an unpacked checkout of the parent commit, in a directory
+    that .gitignore lists, e.g. _checkout/parent), into which this file is
+    copied: parent, this, this, parent, twice (four runs a side, a process
+    each).  Returns each side's runs' stdout."""
     import shutil
     shutil.copy(os.path.abspath(__file__), os.path.join(parent,
                                                          'chip_smoke.py'))
@@ -1561,26 +1506,76 @@ def ab_matcher(parent):
     for side in ('parent', 'this', 'this', 'parent') * 2:
         root = os.path.abspath(parent) if side == 'parent' else ROOT
         out = subprocess.run(
-            [sys.executable, os.path.join(root, 'chip_smoke.py'),
-             '--ab-matcher-run'], cwd=root, capture_output=True, text=True,
-            timeout=600)
+            [sys.executable, os.path.join(root, 'chip_smoke.py'), flag,
+             *args], cwd=root, capture_output=True, text=True, timeout=600)
         if out.returncode:
             print(out.stdout[-4000:], out.stderr[-4000:])
-            raise RuntimeError(f'--ab-matcher-run in {root} failed')
-        for line in out.stdout.splitlines():
-            if line.startswith('[trace]'):
-                print(f'[ab-matcher] {side}: {line}')
-        r = json.loads([line for line in out.stdout.splitlines()
-                        if line.startswith('{"ab_matcher"')][-1])['ab_matcher']
-        runs[side].append(r)
-        print(f'[ab-matcher] {side}: B=16 train step {r["ms"]:.2f} ms (host '
-              f'clock); traced step window {r.get("window_ms", 0):.2f} ms, '
-              f'device busy {r.get("busy_ms", 0):.2f} ms, idle share '
-              f'{r.get("idle", float("nan")):.4f}')
+            raise RuntimeError(f'{flag} in {root} failed')
+        runs[side].append(out.stdout)
+    return runs
+
+
+def last_json(stdout, key):
+    return json.loads([line for line in stdout.splitlines()
+                       if line.startswith('{"' + key)][-1])[key]
+
+
+def ab_matcher(parent):
+    """This tree's B=16 train step against the tree at ``parent``
+    (``in_turns`` of ``--ab-matcher-run``).  Prints each run and a summary
+    JSON line; claims nothing."""
+    runs = {}
+    for side, outs in in_turns(parent, '--ab-matcher-run').items():
+        for out in outs:
+            for line in out.splitlines():
+                if line.startswith('[trace]'):
+                    print(f'[ab-matcher] {side}: {line}')
+            r = last_json(out, 'ab_matcher')
+            runs.setdefault(side, []).append(r)
+            print(f'[ab-matcher] {side}: B=16 train step {r["ms"]:.2f} ms '
+                  f'(host clock); traced step window '
+                  f'{r.get("window_ms", 0):.2f} ms, device busy '
+                  f'{r.get("busy_ms", 0):.2f} ms, idle share '
+                  f'{r.get("idle", float("nan")):.4f}')
     print(json.dumps({'ab_matcher': {
         side: {k: [r.get(k) for r in rs]
                for k in ('ms', 'window_ms', 'busy_ms', 'idle', 'activities')}
         for side, rs in runs.items()}}))
+
+
+def step_ab_run(options):
+    """The flagship's B=16 stepwise train step (scheduled sampling at
+    SS_PROB) at full width under the new_train ``options`` in this file's
+    tree (copied into another tree, that tree's): host-clock ms a step,
+    the mean of AB_MATCHER_REPS after a warm-up, synchronized at the end;
+    one JSON line.  It uses nothing that PR 24's tree lacks."""
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.config import load_config, parse_opts
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe = write_synthetic_run(tmp, load_config(CFG, root=ROOT))
+        opt = parse_opts(['--cfg_path', recipe, '--device', DEVICE,
+                          '--scheduled_sampling_start', '0',
+                          '--basic_ss_prob', str(SS_PROB), *options],
+                         root=ROOT)
+        trainer = Trainer(opt, device=DEVICE)
+        ms, _ = time_steps(trainer, train_batch(opt, 16), opt.lr,
+                           AB_MATCHER_REPS, SS_PROB)
+    print(json.dumps({'ab_step': {'root': ROOT, 'options': options,
+                                  'ms': ms}}))
+
+
+def ab_step(parent, options):
+    """This tree's B=16 stepwise train step (``step_ab_run``) against the
+    tree at ``parent``, in turns (``in_turns``).  Prints each run and a
+    summary JSON line; claims nothing."""
+    ms = {}
+    for side, outs in in_turns(parent, '--ab-step-run', options).items():
+        ms[side] = [last_json(out, 'ab_step')['ms'] for out in outs]
+        for t in ms[side]:
+            print(f'[ab-step] {side}: B=16 stepwise train step '
+                  f'({" ".join(options)}, ss_prob {SS_PROB}) {t:.2f} ms '
+                  f'(host clock)')
+    print(json.dumps({'ab_step': {'options': options, **ms}}))
 
 
 # The phase split of the redesigned kernels: each kernel timed as built from
@@ -2143,16 +2138,6 @@ def attend16_kernel_args(args):
             {'pack': dsa_step.pack_attend_weights(args[3])})
 
 
-def attend16_macs(args):
-    """MACs of K7-bf16's product form over its B*Q queries (``args``:
-    ``step_inputs``'): each tap row's taps . Wc (Dh*A) and . aw (A), and the
-    context (3*Dh a tap); K8-bf16 does three such products."""
-    value_t, pos = args[:2]
-    B, H, S, Dh = value_t.shape
-    A = args[2].shape[-1]
-    return B * pos.shape[2] * H * pos.shape[3] * (Dh * A + A + 3 * Dh)
-
-
 def split_cases(kernels):
     """(kernel, shape label, call) of each split of ``kernels``: K3 at
     (B, Q) = (16, 375), (16, 100), (1, 375) and at (16, 375) on encoder
@@ -2705,81 +2690,6 @@ def make_captioner(opt, tmp):
     state_dict = make_fusion_model(opt, 'cpu', seed=0).state_dict()
     return DenseCaptioner(opt=opt, state_dict=state_dict, dict_file=vocab,
                           device='cuda')
-
-
-def trace(label, fn):
-    """``fn()`` under ``torch.profiler`` (:func:`traced`)."""
-    with traced(label) as result:
-        fn()
-    return result
-
-
-@contextlib.contextmanager
-def traced(label):
-    """The body under ``torch.profiler``: the device time of each kernel as
-    a share of the body's host-clock window, and the share of that window
-    in which no kernel or copy ran on the card.  Yields a dict that gets
-    ``window_ms``, ``busy_ms`` and ``idle`` (empty when the profiler saw
-    no device activity)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    result = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(label):
-            yield result
-        torch.cuda.synchronize()
-    events = prof.events()
-    win = next(e.time_range for e in events if e.name == label
-               and e.device_type == DeviceType.CPU)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in events if e.device_type == DeviceType.CUDA
-                   and e.name != label)
-    window = win.end - win.start
-    if not spans:
-        print('[trace] the profiler recorded no device activity: kernel '
-              'shares and idle share not measured')
-        return
-    busy, covered, per_name, count = 0.0, win.start, {}, {}
-    for t0, t1, name in spans:     # union of the spans inside the window
-        busy += max(min(t1, win.end) - max(t0, covered), 0.0)
-        covered = max(covered, min(t1, win.end))
-        per_name[name] = per_name.get(name, 0.0) + (t1 - t0)
-        count[name] = count.get(name, 0) + 1
-    result.update(window_ms=window / 1e3, busy_ms=busy / 1e3,
-                  idle=1 - busy / window, activities=len(spans))
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f'[trace] {label} under the profiler: window {window / 1e3:.3f} '
-          f'ms, device busy {busy / 1e3:.3f} ms, idle share '
-          f'{1 - busy / window:.4f}, {len(spans)} device activities')
-    for name, us in top:
-        print(f'[trace]   {us / 1e3:9.3f} ms  {us / window:.4f} of window  '
-              f'{name[:90]}')
-    k5 = sum(us for n, us in per_name.items() if 'scan_bwd_kernel' in n)
-    if k5:
-        print(f'[trace]   {k5 / 1e3:9.3f} ms  {k5 / window:.4f} of window  K5 '
-              f'(scan_bwd_kernel; its GEMMs below), {k5 / busy:.4f} of the '
-              f'device time')
-    gemm = {n: us for n, us in per_name.items()
-            if 'gemm_kernel' in n or 'gemm16_kernel' in n
-            or 'split_sum_kernel' in n or 'round_bf16_kernel' in n}
-    if gemm:
-        outer = sum(us for n, us in gemm.items() if 'true, true>' in n)
-        print(f'[trace]   {sum(gemm.values()) / 1e3:9.3f} ms  dsa::gemm in all '
-              f'(tables, G . Wc^T, outer sums, split sums); the outer sums\' '
-              f'kernels (both operands along the terms) {outer / 1e3:.3f} ms')
-    solve = sum(us for n, us in per_name.items() if 'assignment_kernel' in n)
-    if solve:
-        print(f'[trace]   {solve / 1e3:9.3f} ms  {solve / window:.4f} of window  '
-              f'the assignment solver (assignment_kernel)')
-    msda = {d: [(us, count[n]) for n, us in per_name.items()
-                if f'msda_{d}_kernel' in n] for d in ('fwd', 'bwd')}
-    us = {d: sum(u for u, _ in v) for d, v in msda.items()}
-    n = {d: sum(c for _, c in v) for d, v in msda.items()}
-    print(f'[trace]   {(us["fwd"] + us["bwd"]) / 1e3:9.3f} ms  msda in all: '
-          f'forward (K1/K2) {us["fwd"] / 1e3:.3f} ms in {n["fwd"]} launches, '
-          f'backward (K3) {us["bwd"] / 1e3:.3f} ms in {n["bwd"]} launches')
 
 
 def phase_serve(dc):
@@ -3703,6 +3613,7 @@ class StepRecorder:
         import numpy as np
         import torch
         from dvc_tpu_torch.train import Trainer
+        from dvc_tpu_torch.utils.profiling import traced
         self.saved = Trainer.train_step
         original = self.saved
 
@@ -4513,7 +4424,6 @@ TSP_SECONDS = 30           # each synthetic video: 30 s at 30 fps, 27 clips
 TSP_TRAIN_VIDEOS = 8
 TSP_F32_TOL = 1e-3         # card f32 vs CPU f32, relative L2 of the features
 TSP_BF16_TOL = 5e-2        # card bf16 vs card f32, relative L2
-BF16_FLOP_PER_S = 989e12   # dense, on the tensor cores
 
 
 def noisy_tsp_model(name, seed, config=None, **heads):
@@ -4539,42 +4449,6 @@ def noisy_tsp_model(name, seed, config=None, **heads):
                              'rel_pos_w', 'rel_pos_t', 'class_token')):
                 t.copy_(0.1 * torch.randn(t.shape, generator=gen))
     return model
-
-
-def mvit_macs(cfg):
-    """Multiply-adds of one MViTv2 clip from its block table: the patchify
-    conv, and per block the qkv, depthwise pool, score, rel-pos bias,
-    attention-value, projection, skip-projection and MLP products."""
-    from dvc_tpu_torch.models.tsp.backbones import (mvit_block_specs,
-                                                    patch_grid, pooled)
-    thw = patch_grid(cfg)
-    n = thw[0] * thw[1] * thw[2]
-    macs = n * cfg.embed_dim * 3 * 3 * 7 * 7
-    for s in mvit_block_specs(cfg):
-        D = s.out_ch // s.heads
-        q, k = pooled(thw, s.q_stride), pooled(thw, s.kv_stride)
-        lq, lk = q[0] * q[1] * q[2], k[0] * k[1] * k[2]
-        macs += (1 + n) * s.in_ch * 3 * s.out_ch               # qkv
-        macs += s.heads * D * 27 * (lq + 2 * lk)                # pools
-        macs += 2 * s.heads * (1 + lq) * (1 + lk) * D           # q.k, a.v
-        macs += s.heads * lq * D * sum(k)                       # rel-pos
-        macs += (1 + lq) * s.out_ch * s.out_ch                  # project
-        if s.in_ch != s.out_ch:
-            macs += (1 + n) * s.in_ch * s.out_ch                # skip proj
-        macs += 2 * (1 + lq) * s.out_ch * int(s.out_ch * cfg.mlp_ratio)
-        thw, n = q, lq
-    return macs
-
-
-def counted_flops(model, x):
-    """torch.utils.flop_counter's count of one forward (its matmuls and
-    convolutions, 2 per multiply-add)."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-    counter = FlopCounterMode(display=False)
-    with torch.inference_mode(), counter:
-        model(x)
-    return counter.get_total_flops()
 
 
 def tsp_kernel_classes(model, x, card):
@@ -4642,8 +4516,9 @@ def tsp_backbones(card):
     card bf16 against card f32 on the batch."""
     import torch
     from dvc_tpu_torch.models.tsp import FeatureExtractor
-    from dvc_tpu_torch.models.tsp.backbones import MViTConfig
+    from dvc_tpu_torch.models.tsp.backbones import MViTConfig, mvit_macs
     from dvc_tpu_torch.data.video_clips import BACKBONE_INPUT
+    from dvc_tpu_torch.utils.roofline import H100_SXM, forward_flops
     gen = torch.Generator(device=DEVICE).manual_seed(14)
     for name, config in TSP_BACKBONES:
         hw = BACKBONE_INPUT[name]['crop'][0]
@@ -4651,12 +4526,12 @@ def tsp_backbones(card):
         x = torch.randn((TSP_BATCH, TSP_CLIP_LEN, hw, hw, 3), generator=gen,
                         device=DEVICE)
         feats, flops, count = {}, None, ''
-        for dtype, peak in (('float32', F32_FLOP_PER_S),
-                            ('bfloat16', BF16_FLOP_PER_S)):
+        for dtype, peak in (('float32', H100_SXM.f32),
+                            ('bfloat16', H100_SXM.bf16)):
             ex = FeatureExtractor(name, clip_len=TSP_CLIP_LEN, dtype=dtype,
                                   device=DEVICE, config=config, state_dict=sd)
             if flops is None:
-                flops = counted_flops(
+                flops = forward_flops(
                     ex.model, x[:1].permute(0, 4, 1, 2, 3)) * TSP_BATCH
                 count = f'flop counter {flops / 1e12:.3f} TFLOP'
                 if name == 'mvit_v2_s':
@@ -4671,7 +4546,7 @@ def tsp_backbones(card):
             weights = sum(v.numel() * v.element_size()
                           for v in ex.model.state_dict().values())
             t_bytes = (nbytes(x) + weights + TSP_BATCH * ex.feat_dim * 4) \
-                / HBM_BYTES_PER_S * 1e3
+                / H100_SXM.hbm * 1e3
             t_ops = flops / peak * 1e3
             bound_ms, by = max((t_bytes, 'bytes'), (t_ops, 'operations'))
             print(f'[tsp] {name} {TSP_CLIP_LEN}x{hw}x{hw}, B={TSP_BATCH}, '
@@ -4978,8 +4853,9 @@ def tsp_train_step(name, dtype, train_bn, sd, card):
     operations, at 67 TFLOP/s f32 or 989 bf16; or the bytes of the clips
     and of 4 passes over the weights).  Returns the batch size."""
     import torch
-    from dvc_tpu_torch.models.tsp.backbones import MViTConfig
+    from dvc_tpu_torch.models.tsp.backbones import MViTConfig, mvit_macs
     from dvc_tpu_torch.train.tsp_trainer import TSPTrainer
+    from dvc_tpu_torch.utils.roofline import H100_SXM, forward_flops
     trainer = TSPTrainer(tsp_train_opt(name, dtype, train_bn), DEVICE)
     B = TSP_TRAIN_BATCH
     while True:
@@ -5000,12 +4876,12 @@ def tsp_train_step(name, dtype, train_bn, sd, card):
         fwd = 2 * mvit_macs(MViTConfig())
     else:
         model = state['model'].eval()
-        fwd = counted_flops(model, batch['clip'][:1].to(
+        fwd = forward_flops(model, batch['clip'][:1].to(
             DEVICE, torch.float32).permute(0, 4, 1, 2, 3))
     flops = 3 * fwd * B
-    peak_rate = BF16_FLOP_PER_S if dtype == 'bfloat16' else F32_FLOP_PER_S
+    peak_rate = H100_SXM.bf16 if dtype == 'bfloat16' else H100_SXM.f32
     weights = sum(v.numel() * 4 for v in sd.values())
-    t_bytes = (nbytes(batch['clip']) + 4 * weights) / HBM_BYTES_PER_S * 1e3
+    t_bytes = (nbytes(batch['clip']) + 4 * weights) / H100_SXM.hbm * 1e3
     bound_ms, by = max((t_bytes, 'bytes'),
                        (flops / peak_rate * 1e3, 'operations'))
     cut = '' if B == TSP_TRAIN_BATCH else (
@@ -5206,15 +5082,6 @@ def rel_l2(got, want):
     return float((got - want).norm() / want.norm())
 
 
-def bf16_bound(n_bytes, macs):
-    """(least ms, what bounds it) of the same work on bf16 operands: the
-    bytes over the HBM rate (``n_bytes`` counts each operand of a product
-    at 2 bytes) and 2 x the MACs over the tensor cores' bf16 peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * macs / BF16_FLOP_PER_S * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
-
-
 def bf16_bytes(args, operands, others=()):
     """Bytes of the inputs ``args``: the tensors at the indices
     ``operands`` (value and the weights: operands of products) at 2 bytes
@@ -5251,7 +5118,8 @@ def check_greedy_bf16(gen, B, Q, H, K=30):
     import torch
     from dvc_tpu_torch.ops import dsa_bf16
     from dvc_tpu_torch.ops.dsa_greedy import (dsa_greedy_scan,
-                                              dsa_greedy_scan_ref)
+                                              dsa_greedy_scan_ref,
+                                              greedy_cost)
     args = greedy_inputs(gen, B, Q, H)
     L = MSDA_LEVELS
     tok, lp = dsa_greedy_scan(*args, L, K, precision=BF16)
@@ -5273,9 +5141,10 @@ def check_greedy_bf16(gen, B, Q, H, K=30):
     f32_ms = cuda_ms(lambda: dsa_greedy_scan(*args, L, K), 3)
     plain_ms = cuda_ms(lambda: dsa_greedy_scan_ref(*args, L, K,
                                                    precision=BF16), 3)
-    macs, n = greedy_macs(args, K)
+    n = args[0].shape[0] * K * args[3].shape[1]
     bound_ms, bound_by = bf16_bound(
-        bf16_bytes(args, (0, 4, 5, 6, 8, 9, 11, 15, 16)) + 8 * n, macs)
+        bf16_bytes(args, (0, 4, 5, 6, 8, 9, 11, 15, 16)) + 8 * n,
+        greedy_cost(*args, MSDA_LEVELS, K)[0])
     print(f'[bf16] dsa_greedy_bf16 B={B} Q={Q} H={H} K={K}: compared '
           f'{float(same.float().mean()):.3f} of (b,k,q); against the plain '
           f'bf16 version, diverged share kernel {div["kernel"]:.4f} / plain '
@@ -5326,6 +5195,7 @@ def check_scan_bf16(gen, B, Q, K, H):
     import torch
     from dvc_tpu_torch.ops import dsa_bf16
     from dvc_tpu_torch.ops.dsa_scan import (NAMES, dsa_teacher_scan_bwd,
+                                            scan_bwd_cost, scan_cost,
                                             dsa_teacher_scan_bwd_ref,
                                             dsa_teacher_scan_fwd,
                                             dsa_teacher_scan_ref)
@@ -5362,11 +5232,11 @@ def check_scan_bf16(gen, B, Q, K, H):
                                                   precision=BF16), 3)
     bwd_f32 = cuda_ms(lambda: dsa_teacher_scan_bwd(*args, L, hs, cs, g), 3)
     bwd_plain = cuda_ms(lambda: dsa_bf16.scan_bwd(*args, L, hs, cs, g), 3)
-    fwd_macs, bwd_macs = scan_macs(args)
     weights = (0, 4, 5, 7, 11, 12)          # value and the products' weights
-    fwd_bound = bf16_bound(bf16_bytes(args, weights, (hs, cs)), fwd_macs)
+    fwd_bound = bf16_bound(bf16_bytes(args, weights, (hs, cs)),
+                           scan_cost(*args)[0])
     bwd_bound = bf16_bound(bf16_bytes(args, weights, (hs, cs, g, *grads)),
-                           bwd_macs)
+                           scan_bwd_cost(*args)[0])
     print(f'[bf16] dsa_scan_fwd_bf16 B={B} Q={Q} K={K} H={H}: against the '
           f'plain bf16 version, hs/cs relative L2 kernel {fwd["kernel"]:.3e} '
           f'/ plain f32 {fwd["f32"]:.3e} / table mirror {fwd["mirror"]:.3e} '
@@ -5428,7 +5298,7 @@ def check_gemm_bf16(gen, rows, m, n, label):
     f32_ms = cuda_ms(lambda: run_outer_sum(Xf, Yf, torch.empty_like(out),
                                            work), 10)
     library_ms = cuda_ms(lambda: torch.matmul(X.T, Y), 10)
-    bound_ms, bound_by = bf16_bound(nbytes(X, Y, out), rows * m * n)
+    bound_ms, bound_by = bf16_bound(nbytes(X, Y, out), 2 * rows * m * n)
     print(f'[bf16] gemm_bf16 {label} ({rows} x {m})^T ({rows} x {n}): '
           f'in product units {err:.2e} (tol {GEMM_PRODUCT_TOL:.0e}); bf16 '
           f'mode {ms:.4f} ms, f32 mode (3xTF32) {f32_ms:.4f} ms, library '
@@ -5858,9 +5728,9 @@ def check_table_bf16(gen, N, k, n, label):
     bwd_f32 = cuda_ms(lambda: table_gemm_bwd(x, w, g), 20)
     bwd_plain = cuda_ms(lambda: table_gemm_bwd_ref(x, w, g, BF16), 20)
     fwd_bound = bf16_bound(2 * (x.numel() + w.numel()) + nbytes(got),
-                           N * k * n)
+                           2 * N * k * n)
     bwd_bound = bf16_bound(2 * (x.numel() + w.numel() + g.numel())
-                           + nbytes(dx, dw), 2 * N * k * n)
+                           + nbytes(dx, dw), 4 * N * k * n)
     print(f'[bf16] table_gemm_bf16 {label} ({N} x {k}) . ({k} x {n}): in '
           f'product units {errs[0]:.2e} (tol {GEMM_PRODUCT_TOL:.0e}), '
           f'relative L2 from the f32 product {rounds[0]:.2e}; bf16 mode '
@@ -6013,14 +5883,14 @@ def check_step_bf16(gen, B, Q, H, lstm):
     if lstm:
         # value_t, ctx_w3 and w_hh enter products (2 bytes); VW is the
         # table's f32 output, lerped
-        macs, narrow, pack = word_step_macs(args, lstm, table_given=True), \
-            (0, 7, 8), ()
+        narrow, pack = (0, 7, 8), ()
     else:
         # value16 and the Wc pack (bf16), the step's own tensors as stored
-        macs, narrow, pack = attend16_macs(args), (), (kw['pack'],)
-    fwd_bound = bf16_bound(bf16_bytes(kargs, narrow, (*outs, *pack)), macs)
+        narrow, pack = (), (kw['pack'],)
+    fwd_bound = bf16_bound(bf16_bytes(kargs, narrow, (*outs, *pack)),
+                           step_cost(args, lstm, vw_given=lstm)[0])
     bwd_bound = bf16_bound(bf16_bytes(kargs, narrow, (*cot, *kgrads, *pack)),
-                           3 * macs)
+                           step_cost(args, lstm, True, vw_given=lstm)[0])
     shape = (f'B={B} Q={Q} H={H} Dh={Dh} S=375 LP=16 A=512'
              + (' R=512, VW given' if lstm else ', value16 and the Wc pack '
                 'given'))
@@ -7483,7 +7353,9 @@ def phase_ddp(tmp, card):
 # --------------------------------------------------------------------------
 
 PYRAMID_TOL = 1e-5        # the conv pyramid, card vs CPU, relative L2 (f32)
-OWN_VIDEOS = 3            # 30 s each (TSP_SECONDS), phase 14's writer
+# 30 s each (TSP_SECONDS), phase 14's writer: one, since the overlay is
+# drawn on one host thread (about 20 s a video) in a run held to 1,200 s
+OWN_VIDEOS = 1
 OWN_RECIPE = 'cfgs/yc2_tsp_mvit_ete.yml'
 DIVERGENCE_SEEDS = 10     # as tests/test_greedy_divergence.py
 DIVERGENCE_TOL = 1e-3     # f32 at sigma 0: that test's "> 99.9% agree"
@@ -7715,6 +7587,147 @@ def phase_own_video(tmp, card):
           f'(host clock)')
 
 
+# --------------------------------------------------------------------------
+# 20. roofline
+# --------------------------------------------------------------------------
+
+ROOFLINE_TIMED = 10       # CUDA-event steps a reading, after a warm-up
+ROOFLINE_BATCH = 16       # bench.py's BENCH_BATCH
+ROOFLINE_PROFILED = ('msda_fwd_kernel', 'scan_bwd_kernel', 'assignment_kernel')
+
+
+def counted_step(trainer, what, batch):
+    """``utils/roofline.step_costs`` of one train or eval step of ``trainer``
+    on the collated batch (its upload included; it moves no FLOPs)."""
+    from dvc_tpu_torch.utils.roofline import step_costs
+    if what == 'train':
+        return step_costs(lambda b: trainer.train_step(b, trainer.opt.lr),
+                          batch, weights=trainer.params, train=True)
+    return step_costs(trainer.eval_step, batch, weights=trainer.params)
+
+
+def roofline_agreement(device):
+    """(a) One B=2 f32 train step and one eval step of the flagship counted
+    on ``device`` and on the CPU: FLOPs and bytes must be equal."""
+    from dvc_tpu_torch.tools.profile_step import flagship_opt, synthetic_batch
+    from dvc_tpu_torch.train import Trainer
+    opt = flagship_opt()
+    batch = synthetic_batch(opt, 2)
+    sides = {dev: Trainer(opt, device=dev) for dev in (device, 'cpu')}
+    for what in ('train', 'eval'):
+        got = {dev: counted_step(t, what, batch) for dev, t in sides.items()}
+        card, cpu = got[device], got['cpu']
+        ops = {k: v[0] for k, v in card['ops'].items()}
+        print(f'[roofline] (a) B=2 f32 {what} step: {device} '
+              f'{card["flops"]:.6e} FLOP {card["bytes"]:.6e} bytes, cpu '
+              f'{cpu["flops"]:.6e} FLOP '
+              f'{cpu["bytes"]:.6e} bytes; torch ops {card["torch_flops"]:.6e} '
+              f'/ {cpu["torch_flops"]:.6e}; hand-written ops {ops}')
+        if (card['flops'], card['bytes']) != (cpu['flops'], cpu['bytes']) \
+                or card['ops'] != cpu['ops']:
+            raise AssertionError(f'roofline (a): the {what} step counts '
+                                 f'{card} on {device}, {cpu} on the CPU')
+
+
+def step_ms(step, reps=ROOFLINE_TIMED):
+    """Each of ``reps`` calls of ``step`` timed by CUDA events (ms)."""
+    import torch
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in marks:
+        start.record()
+        step()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in marks]
+
+
+def roofline_readings(card, device):
+    """(b) The B=16 flagship's train and eval steps in f32 and bf16:
+    counted FLOPs and least bytes, the median of ROOFLINE_TIMED steps and
+    ``roofline()``'s fields; the card's peak known, 0 < mfu and
+    roofline_pct <= 1."""
+    import statistics
+    from dvc_tpu_torch.tools.profile_step import flagship_opt, synthetic_batch
+    from dvc_tpu_torch.train import Trainer
+    from dvc_tpu_torch.utils.roofline import device_peak, roofline
+    peak = device_peak(device)
+    if peak is None:
+        raise AssertionError(f'roofline: no data-sheet peak for {card}')
+    out = {}
+    for dtype in ('float32', BF16):
+        opt = flagship_opt(tpu_compute_dtype=dtype, fusion_dtype=dtype)
+        batch = synthetic_batch(opt, ROOFLINE_BATCH)
+        trainer = Trainer(opt, device=device)
+        for what in ('train', 'eval'):
+            costs = counted_step(trainer, what, batch)
+            prepared = (trainer.prepare_batch(batch) if what == 'train'
+                        else trainer.prepare_eval_batch(batch))
+            step = ((lambda: trainer.train_step(prepared, opt.lr))
+                    if what == 'train' else
+                    (lambda: trainer.eval_step(prepared)))
+            step()
+            times = step_ms(step)
+            ms = statistics.median(times)
+            fields = roofline(costs, ms / 1e3, device)
+            by = ('operations' if costs['flops'] / peak[0]
+                  >= costs['bytes'] / peak[1] else 'bytes')
+            share = costs['kernel_flops'] / costs['flops']
+            ops = {k: f'{v[0]:.4e}' for k, v in costs['ops'].items()}
+            print(f'[roofline] (b) B={ROOFLINE_BATCH} {dtype} {what} step '
+                  f'({card}): {costs["flops"]:.6e} FLOP counted, '
+                  f'{share:.4f} of them in the hand-written ops {ops}, '
+                  f'{costs["bytes"]:.6e} least bytes; median {ms:.3f} ms of '
+                  f'{len(times)} (CUDA events, {min(times):.3f}-'
+                  f'{max(times):.3f}); {json.dumps(fields)}; bound by {by}')
+            if not (fields and 0 < fields['mfu']
+                    and fields['roofline_pct'] <= 1):
+                raise AssertionError(f'roofline (b) {dtype} {what}: {fields}')
+            out[f'{what}_{dtype}'] = {**fields, 'median_ms': ms,
+                                      'bound_by': by, 'kernel_share': share}
+        del trainer
+    return out
+
+
+def roofline_profile(card):
+    """(c) ``python -m dvc_tpu_torch.tools.profile_step --what train
+    --steps 2 --batch 16`` on the card: its JSON must name the MSDA
+    forward, K5 and the assignment kernel among the device operations."""
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.run(
+            [sys.executable, '-m', 'dvc_tpu_torch.tools.profile_step',
+             '--what', 'train', '--steps', '2', '--batch',
+             str(ROOFLINE_BATCH), '--top', '100000', '--out', out],
+            capture_output=True, text=True, timeout=900, cwd=ROOT)
+        if proc.returncode:
+            raise RuntimeError(f'profile_step failed: {proc.stderr[-3000:]}')
+        summary = json.loads(proc.stdout[proc.stdout.index('{'):])
+    names = [op['name'] for op in summary.get('top_ops_ms', [])]
+    missing = [k for k in ROOFLINE_PROFILED if not any(k in n for n in names)]
+    print(f'[roofline] (c) profile_step --what train --steps 2 --batch '
+          f'{ROOFLINE_BATCH} ({card}): device activity '
+          f'{summary["device_activity"]}, window {summary.get("window_ms")} '
+          f'ms, device busy {summary.get("device_busy_ms")} ms, idle '
+          f'{summary.get("idle")}, {len(names)} kernel names; top 5 '
+          f'{json.dumps(summary.get("top_ops_ms", [])[:5])}')
+    if not summary['device_activity'] or missing:
+        raise AssertionError(f'roofline (c): the tool\'s JSON lacks '
+                             f'{missing or "device activity"}')
+
+
+def phase_roofline(card, device='cuda'):
+    """Phase 20 (``--roofline`` runs it alone): the step count of
+    ``utils/roofline.py`` on the card against the CPU (a), the B=16
+    readings (b), the profiler tool on the card (c)."""
+    t0 = time.perf_counter()
+    roofline_agreement(device)
+    readings = roofline_readings(card, device)
+    roofline_profile(card)
+    print(f'[roofline] phase 20 took {time.perf_counter() - t0:.1f} s (host '
+          f'clock)')
+    return readings
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -7745,6 +7758,7 @@ def main():
         phase_inputs(tmp, device['smi'])
         phase_ddp(tmp, device['smi'])
         phase_own_video(tmp, device['smi'])
+    phase_roofline(device['smi'])
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))
@@ -7838,6 +7852,11 @@ if __name__ == '__main__':
         ab_matcher(sys.argv[2])
     elif sys.argv[1:2] == ['--ab-matcher-run']:
         matcher_ab_run()
+    elif sys.argv[1:2] == ['--ab-step']:    # PARENT_CHECKOUT [option ...]
+        phase_device()
+        ab_step(sys.argv[2], sys.argv[3:] or ['--dsa_lstm_fuse', '0'])
+    elif sys.argv[1:2] == ['--ab-step-run']:
+        step_ab_run(sys.argv[2:])
     elif sys.argv[1:2] == ['--gemm']:
         phase_device()
         phase_build()
@@ -7873,6 +7892,10 @@ if __name__ == '__main__':
         phase_build()
         with tempfile.TemporaryDirectory() as tmp:
             phase_own_video(tmp, card)
+    elif sys.argv[1:2] == ['--roofline']:
+        card = phase_device()['smi']
+        phase_build()
+        phase_roofline(card)
     elif sys.argv[1:2] == ['--tsp-train']:
         card = phase_device()['smi']
         with tempfile.TemporaryDirectory() as tmp:

@@ -300,6 +300,29 @@ def patch_grid(cfg: MViTConfig):
             (cfg.spatial_size - 1) // 4 + 1, (cfg.spatial_size - 1) // 4 + 1)
 
 
+def mvit_macs(cfg: MViTConfig):
+    """Multiply-adds of one MViTv2 clip from its block table: the patchify
+    conv, and per block the qkv, depthwise pool, score, rel-pos bias,
+    attention-value, projection, skip-projection and MLP products."""
+    thw = patch_grid(cfg)
+    n = thw[0] * thw[1] * thw[2]
+    macs = n * cfg.embed_dim * 3 * 3 * 7 * 7
+    for s in mvit_block_specs(cfg):
+        D = s.out_ch // s.heads
+        q, k = pooled(thw, s.q_stride), pooled(thw, s.kv_stride)
+        lq, lk = q[0] * q[1] * q[2], k[0] * k[1] * k[2]
+        macs += (1 + n) * s.in_ch * 3 * s.out_ch               # qkv
+        macs += s.heads * D * 27 * (lq + 2 * lk)                # pools
+        macs += 2 * s.heads * (1 + lq) * (1 + lk) * D           # q.k, a.v
+        macs += s.heads * lq * D * sum(k)                       # rel-pos
+        macs += (1 + lq) * s.out_ch * s.out_ch                  # project
+        if s.in_ch != s.out_ch:
+            macs += (1 + n) * s.in_ch * s.out_ch                # skip proj
+        macs += 2 * (1 + lq) * s.out_ch * int(s.out_ch * cfg.mlp_ratio)
+        thw, n = q, lq
+    return macs
+
+
 def _grid(x, B, thw, C):
     """(B, t*h*w, C) tokens as a contiguous (B, C, t, h, w) grid.  A
     channels-last view would skip the copy, but PyTorch then hands the

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.roofline import charges, nbytes
 from . import _cuda
 
 _INF = float('inf')
@@ -188,12 +189,14 @@ def _more_rows_than_columns(cost, mask):
     return out, steps
 
 
+@charges('assignment', lambda cost, *args, **kw: (0, nbytes(cost)))
 def assignment(cost, mask=None, with_steps=False):
     """col4row (..., R) int64 of cost (..., R, C) under the row mask (...,
     R) (None: every row real), by the rules of the module's docstring.
     CPU tensors: the plain version.  CUDA tensors: the kernel, one launch
     for every problem, or an error.  ``with_steps``: also the Dijkstra
-    steps each problem ran (..., ) int32."""
+    steps each problem ran (..., ) int32.  Charges a counted run its cost
+    matrix's bytes and no FLOPs (``utils/roofline.py``)."""
     if not cost.is_cuda:
         return assignment_ref(cost, mask, with_steps)
     if mask is not None and (not torch.is_tensor(mask)

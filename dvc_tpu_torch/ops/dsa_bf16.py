@@ -42,8 +42,11 @@ dsa_greedy_scan_ref`, :mod:`dvc_tpu_torch.ops.dsa_scan` and
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..utils.roofline import charged
 from .dsa_greedy import _level_bounds, greedy_pick, lstm_cell
 
 # the operands that enter only products: rounded to bf16 once
@@ -381,8 +384,10 @@ class PlainScanBf16(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from .dsa_scan import scan_bwd_cost
         *ops, hs, cs = ctx.saved_tensors
-        return (*scan_bwd(*ops, ctx.temporal_shapes, hs, cs, g), None)
+        with charged('dsa_scan_bwd', lambda: scan_bwd_cost(*ops)):
+            return (*scan_bwd(*ops, ctx.temporal_shapes, hs, cs, g), None)
 
 
 # ----------------------------------------------------------------------------
@@ -501,6 +506,13 @@ class PlainWordStepBf16(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cot):
-        bwd = (lstm_step_bwd if len(ctx.saved_tensors) == len(LSTM)
-               else sample_attend_bwd)
-        return (*bwd(*ctx.saved_tensors, ctx.temporal_shapes, *cot), None)
+        from .dsa_step import lstm_step_bwd_cost, sample_attend_bwd_cost
+        ops, L = ctx.saved_tensors, len(ctx.temporal_shapes)
+        if len(ops) == len(LSTM):
+            bwd, name = lstm_step_bwd, 'dsa_lstm_bwd'
+            cost = functools.partial(lstm_step_bwd_cost, *ops[:3], ops[4], L)
+        else:
+            bwd, name = sample_attend_bwd, 'dsa_step_bwd'
+            cost = functools.partial(sample_attend_bwd_cost, *ops[:3], L)
+        with charged(name, cost):
+            return (*bwd(*ops, ctx.temporal_shapes, *cot), None)

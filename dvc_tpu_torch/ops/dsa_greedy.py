@@ -11,6 +11,9 @@
   tensors go to the plain version.
 * :func:`greedy_mask_outputs` — EOS masking, applied outside the kernel as
   in the JAX package.
+* :func:`greedy_cost` — (FLOPs, bytes) of the decode by the least work of
+  the JAX oracle's function (``utils/roofline.py``), which the wrapper
+  charges to a counted run.
 
 ``precision='bfloat16'`` (``--tpu_compute_dtype bfloat16``) is the TPU
 kernel's bf16 variant: every in-kernel product on bf16-rounded operands
@@ -37,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.roofline import charges, nbytes
 from . import _cuda
 
 PRECISIONS = ('float32', 'bfloat16')
@@ -173,13 +177,54 @@ def greedy_mask_outputs(tok, lp):
     return tok * unfinished, lp
 
 
+def _greedy_dims(value_t, base_pos, embed, h2att_w, w_hh):
+    B, H, S, Dh = value_t.shape
+    return ((B, H, S, Dh, base_pos.shape[2], base_pos.shape[3],
+             h2att_w.shape[1], w_hh.shape[0]), embed.shape)
+
+
+def greedy_flops(value_t, base_pos, embed, h2att_w, w_hh, K):
+    """(products, elementwise) FLOPs of the K-step decode by the least work
+    of the JAX ``dsa_greedy_scan_ref``: K scan steps
+    (``dsa_scan.step_macs``, ``step_elementwise``, ``scores_flops``), the
+    logits h . logit_w (R*(V+1) a query), and the token's row
+    embed[it] . token_w in the lesser of two forms: E*4R a query and step
+    (the oracle's), or the table embed . token_w once ((V+1)*E*4R), whose
+    rows the tokens then pick.  Elementwise, per query and step: the
+    preactivation's extra sum (4R), the logits' bias, max, argmax and
+    log-sum-exp (6 (V+1)) and the token gather (6)."""
+    from .dsa_scan import scores_flops, step_elementwise, step_macs
+    dims, (V1, E) = _greedy_dims(value_t, base_pos, embed, h2att_w, w_hh)
+    B, H, S, Dh, Q, LP, A, R = dims
+    scores = scores_flops(B, H, S, Dh, A, K * B * H * Q * LP)
+    rows = 2 * E * 4 * R * min(K * B * Q, V1)
+    return (K * 2 * (step_macs(*dims) + B * Q * R * V1) + rows + scores[0],
+            K * (step_elementwise(*dims) + B * Q * (4 * R + 6 * V1 + 6))
+            + scores[1])
+
+
+def greedy_cost(value_t, base_pos, scale_t, const_z, embed, token_w,
+                logit_w, logit_b, off_w_h, h2att_w, h2att_b, cw, cb, aw, ab,
+                ctx_w3, w_hh, temporal_shapes, K, precision='float32'):
+    """(FLOPs, bytes) of :func:`dsa_greedy_scan` (the same arguments):
+    :func:`greedy_flops`.  Bytes: the operands read, tok (int32) and lp
+    written once."""
+    B, Q = value_t.shape[0], base_pos.shape[2]
+    ops = (value_t, base_pos, scale_t, const_z, embed, token_w, logit_w,
+           logit_b, off_w_h, h2att_w, h2att_b, cw, cb, aw, ctx_w3, w_hh)
+    return (sum(greedy_flops(value_t, base_pos, embed, h2att_w, w_hh, K)),
+            nbytes(*ops) + 4 + 8 * B * K * Q)
+
+
+@charges('dsa_greedy', greedy_cost)
 def dsa_greedy_scan(value_t, base_pos, scale_t, const_z, embed, token_w,
                     logit_w, logit_b, off_w_h, h2att_w, h2att_b, cw, cb, aw,
                     ab, ctx_w3, w_hh, temporal_shapes, K,
                     precision='float32'):
     """Whole greedy decode.  CPU tensors: the plain version.  CUDA
     tensors: the kernel (forward only; f32, or K6-bf16 under
-    ``precision='bfloat16'``) or an error."""
+    ``precision='bfloat16'``) or an error.  Charges :func:`greedy_cost` to
+    a counted run."""
     rb = check_precision(precision)
     tensors = (value_t, base_pos, scale_t, const_z, embed, token_w, logit_w,
                logit_b, off_w_h, h2att_w, h2att_b, cw, cb, aw, ctx_w3, w_hh)

@@ -14,6 +14,10 @@ backward (port of ``dvc_tpu/ops/dsa_scan.py``).
   plain version.
 * :func:`dsa_teacher_scan_fwd` / :func:`dsa_teacher_scan_bwd` — the two
   kernels alone: they take CUDA tensors only.
+* :func:`scan_cost`, :func:`scan_bwd_cost` — (FLOPs, bytes) of the scan and
+  of its backward by the least work of the JAX oracle's function
+  (``utils/roofline.py``), which
+  the wrappers charge to a counted run.
 
 Arguments, as in the JAX package: value_t (B, H, S, Dh); base_pos
 (B, H, Q, LP) level-relative base positions; scale_t (B, Q, LP); z_all
@@ -41,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.roofline import charged, charges, nbytes
 from . import _cuda, dsa_bf16
 from .dsa_greedy import _level_bounds, attend_step, check_precision, lstm_cell
 
@@ -429,11 +434,101 @@ def pack_scan_weights(w_hh, ctx_w3, h2att_w):
     return pack_gate_weights(w_hh, ctx_w3), pack_hidden_weights(h2att_w)
 
 
+def step_macs(B, H, S, Dh, Q, LP, A, R):
+    """Multiply-adds of one step of the JAX oracles' word loop (the scan's,
+    the greedy decode's) over B videos of Q queries, the scores' taps . Wc
+    aside (:func:`scores_flops`): hvec h . h2att_w, the offsets h . off_w_h,
+    the scores' . aw, ctx, h . W_hh and ctx . ctx_w3."""
+    n = B * H * Q * LP
+    return B * Q * R * (A + H * LP + 4 * R + 4 * H * Dh) + n * (A + Dh)
+
+
+def step_elementwise(B, H, S, Dh, Q, LP, A, R):
+    """Elementwise FLOPs of one such step: per (tap, value column) the tap's
+    gather and lerp (3; the oracles build a one-hot lerp matrix and multiply
+    it with value_t instead); per (tap, score column) the bias adds and
+    tanh (3); per tap the position, floor, weights, clamps, level starts
+    and softmax (18); per (video, query) hvec's bias, the preactivation's
+    sums and the LSTM cell (A + 17R) and the softmax's per-head max (H)."""
+    n = B * H * Q * LP
+    return n * (3 * Dh + 3 * A + 18) + B * Q * (A + 17 * R + H)
+
+
+def scores_flops(B, H, S, Dh, A, taps, backward=False, vw_given=False):
+    """(products, elementwise) FLOPs of the scores' taps . Wc over ``taps``
+    taps of B videos, in the lesser of two forms: each tap's row times Wc
+    (2*Dh*A a tap, the oracles' form), or the table VW = value . Wc once a
+    call (2*B*H*S*Dh*A) and a lerp of two of its rows a tap (3A).  The
+    backward: two products of each size (the rows' and Wc's gradients),
+    and in the table form the lerp's VJP (8A a tap: the cotangent times
+    the two weights, scattered onto VW's rows, and the weights' gradients).
+    ``vw_given``: VW is an operand, the lerp alone."""
+    k = 2 if backward else 1
+    table = (2 * k * B * H * S * Dh * A, (8 if backward else 3) * taps * A)
+    if vw_given:
+        return 0, table[1]
+    return min((2 * k * taps * Dh * A, 0), table, key=sum)
+
+
+def _scan_dims(value_t, base_pos, z_all, h2att_w):
+    B, H, S, Dh = value_t.shape
+    return (B, H, S, Dh, base_pos.shape[2], base_pos.shape[3],
+            h2att_w.shape[1], z_all.shape[3] // 4), z_all.shape[1]
+
+
+def scan_flops(*ops, backward=False):
+    """(products, elementwise) FLOPs of the K-step scan (``ops``: its 13
+    operands) by the least work of the JAX ``dsa_teacher_scan_ref``: K
+    steps of :func:`step_macs` (2 FLOPs a multiply-add) and
+    :func:`step_elementwise`, and :func:`scores_flops`.  The backward, by
+    the oracle's VJP given its residuals: each product of a step comes back
+    as two of its size (the input's and the weight's gradients), so 4 FLOPs
+    a forward multiply-add; elementwise per step: per (tap, value column)
+    the tap's VJP (8, as the gather's in ``ms_deform_attn_ref``) and the
+    taps' cotangent sum (1), per (tap, score column) 5, per tap 15, per
+    (video, query) the cell's backward and the cotangents' sums (19R + 2A
+    + 2LP + 2H), and the sums over the steps of the weights'
+    cotangents."""
+    dims, K = _scan_dims(ops[0], ops[1], ops[3], ops[5])
+    B, H, S, Dh, Q, LP, A, R = dims
+    n = B * H * Q * LP
+    scores = scores_flops(B, H, S, Dh, A, K * n, backward)
+    if not backward:
+        return (K * 2 * step_macs(*dims) + scores[0],
+                K * step_elementwise(*dims) + scores[1])
+    elem = (n * (9 * Dh + 5 * A + 15) + B * Q * (19 * R + 2 * A + 2 * LP
+                                                 + 2 * H)
+            + 4 * H * Dh * R + 4 * R * R + Dh * A + R * A + H * R * LP
+            + 6 * A + 2)
+    return K * 4 * step_macs(*dims) + scores[0], K * elem + scores[1]
+
+
+def scan_cost(*ops):
+    """(FLOPs, bytes) of the K-step scan (``ops``: its 13 operands):
+    :func:`scan_flops`.  Bytes: the operands read and hs, cs written
+    once."""
+    dims, K = _scan_dims(ops[0], ops[1], ops[3], ops[5])
+    B, Q, R = dims[0], dims[4], dims[7]
+    return (sum(scan_flops(*ops)),
+            nbytes(*ops) + 2 * B * K * Q * R * ops[0].element_size())
+
+
+def scan_bwd_cost(*ops):
+    """(FLOPs, bytes) of the scan's backward: :func:`scan_flops`'s.  Bytes:
+    the operands and hs's cotangent read, the 13 gradients written
+    once."""
+    dims, K = _scan_dims(ops[0], ops[1], ops[3], ops[5])
+    B, Q, R = dims[0], dims[4], dims[7]
+    return (sum(scan_flops(*ops, backward=True)),
+            2 * nbytes(*ops) + B * K * Q * R * ops[0].element_size())
+
+
 def _ptr(t):
     """A tensor's device pointer, or 0 (NULL) for None."""
     return 0 if t is None else t.data_ptr()
 
 
+@charges('dsa_scan_fwd', lambda *args, **kw: scan_cost(*args[:-1]))
 def dsa_teacher_scan_fwd(*args, precision='float32', packs=None):
     """(hs, cs) of the scan by the kernel ``dvc_dsa_scan_fwd`` (K4, or
     K4-bf16 under ``precision='bfloat16'``), or an error.  ``args`` = the
@@ -463,6 +558,7 @@ dsa_teacher_scan_fwd.launches = 0
 dsa_teacher_scan_fwd.launches_bf16 = 0
 
 
+@charges('dsa_scan_bwd', lambda *args, **kw: scan_bwd_cost(*args[:13]))
 def dsa_teacher_scan_bwd(*args, precision='float32', packs=None):
     """The 13 gradients of the scan for the cotangent g (B, K, Q, R) of hs,
     by the kernel ``dvc_dsa_scan_bwd`` (K5, or K5-bf16 under
@@ -566,15 +662,19 @@ def dsa_teacher_scan(value_t, base_pos, scale_t, z_all, off_w_h, h2att_w,
     """Whole teacher-forcing scan, differentiable.  Returns hs (B, K, Q, R).
     CPU tensors: the plain version (f32: autograd through it; bf16: the
     plain bf16 forward and backward).  CUDA tensors: the kernels (f32, or
-    K4-bf16 and K5-bf16 under ``precision='bfloat16'``) or an error."""
+    K4-bf16 and K5-bf16 under ``precision='bfloat16'``) or an error.
+    Charges :func:`scan_cost` (and, in the backward,
+    :func:`scan_bwd_cost`) to a counted run."""
     rb = check_precision(precision)
     args = (value_t, base_pos, scale_t, z_all, off_w_h, h2att_w, h2att_b,
             cw, cb, aw, ab, ctx_w3, w_hh)
-    if not value_t.is_cuda:
+    with charged('dsa_scan_fwd', lambda: scan_cost(*args)) as region:
+        if value_t.is_cuda:
+            return DSATeacherScanFunction.apply(
+                *args, tuple(temporal_shapes), precision)
         if rb:
             dsa_teacher_scan_ref.calls += 1
             return dsa_bf16.PlainScanBf16.apply(*args, tuple(temporal_shapes))
-        hs, _ = dsa_teacher_scan_ref(*args, temporal_shapes)
-        return hs
-    return DSATeacherScanFunction.apply(*args, tuple(temporal_shapes),
-                                        precision)
+        return region.plain(
+            'dsa_scan_bwd', lambda: scan_bwd_cost(*args),
+            lambda *a: dsa_teacher_scan_ref(*a, temporal_shapes)[0], *args)

@@ -39,6 +39,12 @@ LSTM cell (``dsa_lstm_step``), each with its backward.
 The sampling and attention arithmetic is the greedy decode's and the scan's
 (:func:`dvc_tpu_torch.ops.dsa_greedy.attend`).
 
+:func:`sample_attend_cost`, :func:`lstm_step_cost` and their backwards'
+are the (FLOPs, bytes) of a step by the least work of the JAX oracles'
+function (``utils/roofline.py``): every wrapper charges them to a counted
+run, whichever form (product, table, bf16) computes the step; the table VW
+charges nothing of its own.
+
 ``precision='bfloat16'`` (``--tpu_compute_dtype bfloat16`` on the stepwise
 path) is the TPU kernels' bf16 variant: every in-kernel product on
 bf16-rounded operands with f32 accumulation; hvec, the positions and what
@@ -75,12 +81,15 @@ The f32 kernels refuse a pack.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..utils.roofline import charged, charges, nbytes
 from . import _cuda, dsa_bf16
 from .dsa_greedy import _level_bounds, attend, check_precision, lstm_cell
 from .dsa_scan import (_ptr, _tile_product, gate_geometry, hidden_geometry,
-                       pack_gate_weights, pack_hidden_weights,
+                       pack_gate_weights, pack_hidden_weights, scores_flops,
                        unpack_hidden_weights)
 from .dsa_tables import dsa_value_table, table_gemm, table_gemm_bwd
 
@@ -265,6 +274,101 @@ def dsa_lstm_step_ref(value, offsets, ref_center, offset_scale, hvec, z0, h,
     return lstm_step_ref(value_t, pos, hvec, z0, h, c,
                          ctx_w.reshape(H, Dh, -1), w_hh, ctx2att_w, ctx2att_b,
                          alpha_w, alpha_b, temporal_shapes)
+
+
+# ----------------------------------------------------------------------------
+# counts
+# ----------------------------------------------------------------------------
+
+def _step_dims(value_t, pos, hvec):
+    B, H, S, Dh = value_t.shape
+    return B, H, S, Dh, pos.shape[2], pos.shape[3], hvec.shape[-1]
+
+
+def _step_bytes(value_t, pos, hvec, A, outs, lstm=0, R=0, grads=None,
+                vw_given=False):
+    """Bytes of a word step by its function: value_t, pos, hvec, cw (or,
+    ``vw_given``, VW), cb, aw, ab (and z0, h, c, ctx_w3, w_hh) read once,
+    ``outs`` elements of f32 written once; with ``grads`` also the
+    cotangents ``outs`` read and a gradient of each operand written."""
+    B, H, S, Dh, Q, LP, _ = _step_dims(value_t, pos, hvec)
+    weights = 4 * ((B * H * S if vw_given else Dh) * A + 2 * A + 1)
+    if lstm:
+        weights += 4 * (B * Q * 6 * R + H * Dh * 4 * R + 4 * R * R)
+    ins = nbytes(value_t, pos, hvec) + weights
+    return 2 * ins + 4 * outs if grads else ins + 4 * outs
+
+
+def step_flops(value_t, pos, hvec, h=None, L=None, vw_given=False):
+    """(products, elementwise) FLOPs of one word step (K7's function; with
+    ``h``, K9's) by the least work of the JAX oracle
+    (``dsa_sample_attend_ref``, ``dsa_lstm_step_ref``), or with ``L`` (the
+    levels) of its VJP given the residuals.  Products, 2 FLOPs a
+    multiply-add: per tap the scores' . aw and its share of the context;
+    with the cell ctx . ctx_w and h . W_hh (4R*(H*Dh + R) a query); the
+    backward two of each size; and the scores' taps . Wc by
+    ``dsa_scan.scores_flops`` (``vw_given``: VW = value . Wc is an operand,
+    as the kernels alone take it).  Elementwise, with n = B*Q*H*LP taps:
+    forward per (tap, score column) the bias adds and tanh (3), per (tap,
+    value column) the gather's lerp (3), per tap the position, floor,
+    weights, clamps, gathers' index wrap and softmax (24), per (video,
+    query, head) the softmax's max, and the cell 17R a query; backward per
+    (tap, value column) the gather's VJP (8, as in ``ms_deform_attn_ref``;
+    the oracle's is a one-hot lerp matrix's) and the taps' cotangent terms
+    (2), per (tap, score column) 5, per tap 25 + L, per (video, query) A +
+    2H + 2L, and the cell's backward 16R a query."""
+    B, H, S, Dh, Q, LP, A = _step_dims(value_t, pos, hvec)
+    n = B * H * Q * LP
+    backward = L is not None
+    macs = n * (A + Dh)
+    cell = 0 if h is None else h.shape[-1]
+    macs += 4 * B * Q * cell * (H * Dh + cell)
+    scores = scores_flops(B, H, S, Dh, A, n, backward, vw_given)
+    if not backward:
+        return (2 * macs + scores[0],
+                n * (3 * A + 3 * Dh + 24) + B * Q * (H + 17 * cell)
+                + scores[1])
+    return (4 * macs + scores[0],
+            n * (25 + L + 5 * A + 10 * Dh) + B * Q * (A + 2 * H + 2 * L
+                                                      + 16 * cell)
+            + scores[1])
+
+
+def sample_attend_cost(value_t, pos, hvec, vw_given=False):
+    """(FLOPs, bytes) of one K7 word step (ctx): :func:`step_flops`."""
+    B, H, S, Dh, Q, LP, A = _step_dims(value_t, pos, hvec)
+    return (sum(step_flops(value_t, pos, hvec, vw_given=vw_given)),
+            _step_bytes(value_t, pos, hvec, A, B * H * Q * Dh,
+                        vw_given=vw_given))
+
+
+def sample_attend_bwd_cost(value_t, pos, hvec, L, vw_given=False):
+    """(FLOPs, bytes) of K7's backward (K8) over L levels:
+    :func:`step_flops`'s."""
+    B, H, S, Dh, Q, LP, A = _step_dims(value_t, pos, hvec)
+    return (sum(step_flops(value_t, pos, hvec, L=L, vw_given=vw_given)),
+            _step_bytes(value_t, pos, hvec, A, B * H * Q * Dh, grads=True,
+                        vw_given=vw_given))
+
+
+def lstm_step_cost(value_t, pos, hvec, h, vw_given=False):
+    """(FLOPs, bytes) of one K9 word step (h_new, c_new):
+    :func:`step_flops` with the cell."""
+    B, H, S, Dh, Q, LP, A = _step_dims(value_t, pos, hvec)
+    R = h.shape[-1]
+    return (sum(step_flops(value_t, pos, hvec, h, vw_given=vw_given)),
+            _step_bytes(value_t, pos, hvec, A, 2 * B * Q * R, True, R,
+                        vw_given=vw_given))
+
+
+def lstm_step_bwd_cost(value_t, pos, hvec, h, L, vw_given=False):
+    """(FLOPs, bytes) of K9's backward (K10): :func:`step_flops`'s with the
+    cell."""
+    B, H, S, Dh, Q, LP, A = _step_dims(value_t, pos, hvec)
+    R = h.shape[-1]
+    return (sum(step_flops(value_t, pos, hvec, h, L, vw_given)),
+            _step_bytes(value_t, pos, hvec, A, 2 * B * Q * R, True, R,
+                        grads=True, vw_given=vw_given))
 
 
 # ----------------------------------------------------------------------------
@@ -453,6 +557,8 @@ def _empty(dev, *shape):
     return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
+@charges('dsa_step_fwd', lambda value_t, vw, pos, hvec, *args, **kw:
+         sample_attend_cost(value_t, pos, hvec))
 def dsa_sample_attend_fwd(value_t, vw, pos, hvec, cb, aw, ab,
                           temporal_shapes, precision='float32', pack=None):
     """ctx (B, H, Q, Dh) by the kernel ``dvc_dsa_step_fwd``: K7, that of
@@ -479,6 +585,8 @@ dsa_sample_attend_fwd.launches = 0
 dsa_sample_attend_fwd.launches_bf16 = 0
 
 
+@charges('dsa_step_bwd', lambda value_t, vw, pos, hvec, cb, aw, ab, shapes,
+         *args, **kw: sample_attend_bwd_cost(value_t, pos, hvec, len(shapes)))
 def dsa_sample_attend_bwd(value_t, vw, pos, hvec, cb, aw, ab,
                           temporal_shapes, g, precision='float32', pack=None):
     """The 7 gradients of K7 for the cotangent g (B, H, Q, Dh) of ctx by the
@@ -531,6 +639,8 @@ dsa_sample_attend_bwd.launches = 0
 dsa_sample_attend_bwd.launches_bf16 = 0
 
 
+@charges('dsa_lstm_fwd', lambda value_t, vw, pos, hvec, z0, h, *args, **kw:
+         lstm_step_cost(value_t, pos, hvec, h))
 def dsa_lstm_step_fwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
                       aw, ab, temporal_shapes, precision='float32',
                       pack=None):
@@ -560,6 +670,9 @@ dsa_lstm_step_fwd.launches = 0
 dsa_lstm_step_fwd.launches_bf16 = 0
 
 
+@charges('dsa_lstm_bwd', lambda value_t, vw, pos, hvec, z0, h, c, ctx_w3,
+         w_hh, cb, aw, ab, shapes, *args, **kw: lstm_step_bwd_cost(
+             value_t, pos, hvec, h, len(shapes)))
 def dsa_lstm_step_bwd(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb,
                       aw, ab, temporal_shapes, gh, gc, precision='float32',
                       pack=None):
@@ -624,6 +737,8 @@ def _boundary_grads(bwd, value_t, cw, *args, precision='float32', **kw):
     return dvalue + dx.reshape(dvalue.shape), rest, dcw
 
 
+@charges('dsa_step_bwd', lambda value_t, pos, hvec, cw, cb, aw, ab, shapes,
+         *args, **kw: sample_attend_bwd_cost(value_t, pos, hvec, len(shapes)))
 def dsa_sample_attend_grads(value_t, pos, hvec, cw, cb, aw, ab,
                             temporal_shapes, g, precision='float32'):
     """The 7 gradients at the JAX boundary (the operands of
@@ -640,6 +755,9 @@ def dsa_sample_attend_grads(value_t, pos, hvec, cw, cb, aw, ab,
     return (dvalue, *rest[:2], dcw, *rest[2:])
 
 
+@charges('dsa_lstm_bwd', lambda value_t, pos, hvec, z0, h, c, ctx_w3, w_hh,
+         cw, cb, aw, ab, shapes, *args, **kw: lstm_step_bwd_cost(
+             value_t, pos, hvec, h, len(shapes)))
 def dsa_lstm_step_grads(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb,
                         aw, ab, temporal_shapes, gh, gc, precision='float32'):
     """The 12 gradients at the JAX boundary (the operands of
@@ -743,9 +861,14 @@ def dsa_sample_attend_table_core(value_t, vw, pos, hvec, cb, aw, ab,
             'compute the product form (dsa_sample_attend_core)')
     args = (value_t, vw, pos, hvec, cb, aw,
             torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
-    if not value_t.is_cuda:
-        return sample_attend_table_ref(*args)
-    return DSASampleAttendFunction.apply(*args, precision, None, None)
+    with charged('dsa_step_fwd', lambda: sample_attend_cost(
+            value_t, pos, hvec)) as region:
+        if value_t.is_cuda:
+            return DSASampleAttendFunction.apply(*args, precision, None, None)
+        bwd = functools.partial(sample_attend_bwd_cost, value_t, pos, hvec,
+                                len(temporal_shapes))
+        return region.plain('dsa_step_bwd', bwd, sample_attend_table_ref,
+                            *args)
 
 
 def dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
@@ -759,26 +882,31 @@ def dsa_sample_attend_core(value_t, pos, hvec, cw, cb, aw, ab,
     ``value16`` (value_t in torch.bfloat16) and ``pack``
     (:func:`pack_attend_weights` (cw)), each made here where not given (the
     caption head gives both, made once per forward pass); or an error."""
-    rb = check_precision(precision)
-    ab = torch.as_tensor(ab, device=pos.device)
-    if not value_t.is_cuda:
+    with charged('dsa_step_fwd', lambda: sample_attend_cost(
+            value_t, pos, hvec)) as region:
+        rb = check_precision(precision)
+        ab = torch.as_tensor(ab, device=pos.device)
+        if not value_t.is_cuda:
+            if rb:
+                sample_attend_ref.calls += 1
+                return dsa_bf16.PlainWordStepBf16.apply(
+                    value_t, pos, hvec, cw, cb, aw, ab, tuple(temporal_shapes))
+            bwd = functools.partial(sample_attend_bwd_cost, value_t, pos,
+                                    hvec, len(temporal_shapes))
+            return region.plain('dsa_step_bwd', bwd, sample_attend_ref,
+                                value_t, pos, hvec, cw, cb, aw, ab,
+                                temporal_shapes)
         if rb:
-            sample_attend_ref.calls += 1
-            return dsa_bf16.PlainWordStepBf16.apply(
-                value_t, pos, hvec, cw, cb, aw, ab, tuple(temporal_shapes))
-        return sample_attend_ref(value_t, pos, hvec, cw, cb, aw, ab,
-                                 temporal_shapes)
-    if rb:
-        if pack is None:
-            pack = pack_attend_weights(cw)
-        if value16 is None:
-            value16 = dsa_bf16.bf16_operand(value_t.detach())
-        return DSASampleAttendFunction.apply(
-            value_t, pos, hvec, cw, cb, aw, ab, tuple(temporal_shapes),
-            precision, pack, value16)
-    return dsa_sample_attend_table_core(
-        value_t, dsa_value_table(value_t, cw), pos, hvec, cb, aw, ab,
-        temporal_shapes)
+            if pack is None:
+                pack = pack_attend_weights(cw)
+            if value16 is None:
+                value16 = dsa_bf16.bf16_operand(value_t.detach())
+            return DSASampleAttendFunction.apply(
+                value_t, pos, hvec, cw, cb, aw, ab, tuple(temporal_shapes),
+                precision, pack, value16)
+        return dsa_sample_attend_table_core(
+            value_t, dsa_value_table(value_t, cw), pos, hvec, cb, aw, ab,
+            temporal_shapes)
 
 
 def dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh,
@@ -794,9 +922,13 @@ def dsa_lstm_step_table_core(value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh,
     _table_core_precision(value_t, precision)
     args = (value_t, vw, pos, hvec, z0, h, c, ctx_w3, w_hh, cb, aw,
             torch.as_tensor(ab, device=pos.device), tuple(temporal_shapes))
-    if not value_t.is_cuda:
-        return lstm_step_table_ref(*args)
-    return DSALSTMStepFunction.apply(*args, precision, pack)
+    with charged('dsa_lstm_fwd', lambda: lstm_step_cost(
+            value_t, pos, hvec, h)) as region:
+        if value_t.is_cuda:
+            return DSALSTMStepFunction.apply(*args, precision, pack)
+        bwd = functools.partial(lstm_step_bwd_cost, value_t, pos, hvec, h,
+                                len(temporal_shapes))
+        return region.plain('dsa_lstm_bwd', bwd, lstm_step_table_ref, *args)
 
 
 def dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
@@ -808,20 +940,25 @@ def dsa_lstm_step_core(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
     (:func:`dsa_value_table`), then K9/K10 (each in its bf16 mode under
     ``precision='bfloat16'``, on value_t rounded and the gate weights packed
     here, once a call), or an error."""
-    rb = check_precision(precision)
-    if not value_t.is_cuda:
+    with charged('dsa_lstm_fwd', lambda: lstm_step_cost(
+            value_t, pos, hvec, h)) as region:
+        rb = check_precision(precision)
+        if not value_t.is_cuda:
+            if rb:
+                lstm_step_ref.calls += 1
+                return dsa_bf16.PlainWordStepBf16.apply(
+                    value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
+                    torch.as_tensor(ab, device=pos.device),
+                    tuple(temporal_shapes))
+            bwd = functools.partial(lstm_step_bwd_cost, value_t, pos, hvec,
+                                    h, len(temporal_shapes))
+            return region.plain('dsa_lstm_bwd', bwd, lstm_step_ref, value_t,
+                                pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb,
+                                aw, ab, temporal_shapes)
+        pack = None
         if rb:
-            lstm_step_ref.calls += 1
-            return dsa_bf16.PlainWordStepBf16.apply(
-                value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw, cb, aw,
-                torch.as_tensor(ab, device=pos.device),
-                tuple(temporal_shapes))
-        return lstm_step_ref(value_t, pos, hvec, z0, h, c, ctx_w3, w_hh, cw,
-                             cb, aw, ab, temporal_shapes)
-    pack = None
-    if rb:
-        value_t = dsa_bf16.RoundBf16.apply(value_t)
-        pack = pack_gate_weights(w_hh, ctx_w3)
-    return dsa_lstm_step_table_core(
-        value_t, dsa_value_table(value_t, cw, precision), pos, hvec, z0, h, c,
-        ctx_w3, w_hh, cb, aw, ab, temporal_shapes, precision, pack)
+            value_t = dsa_bf16.RoundBf16.apply(value_t)
+            pack = pack_gate_weights(w_hh, ctx_w3)
+        return dsa_lstm_step_table_core(
+            value_t, dsa_value_table(value_t, cw, precision), pos, hvec, z0,
+            h, c, ctx_w3, w_hh, cb, aw, ab, temporal_shapes, precision, pack)

@@ -25,12 +25,18 @@ bf16(G); the kernels count these launches apart (``launches_bf16``), and
 on CPU tensors :func:`dsa_value_table` joins the plain bf16 products in an
 autograd Function (autograd through a rounded product would not round the
 backward's operands).
+
+The tables are an implementation choice of the card's word steps: in a
+counted run (``utils/roofline.py``) they charge nothing of their own,
+since the step's count by its function already holds the products
+``taps . cw`` they stand in for.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.roofline import charged, charges
 from . import _cuda
 from .dsa_bf16 import bf16, bf16_operand
 from .dsa_greedy import check_precision
@@ -61,11 +67,12 @@ def _on_one_device(rb, *tensors):
     return _cuda.bf16_flags(*tensors) if rb else 0
 
 
+@charges('table_gemm', (0, 0))
 def table_gemm(x, w, precision='float32'):
     """table (N, n) = x (N, k) . w (k, n), f32 (``precision='bfloat16'``:
     on bf16-rounded operands, each given as float32 or torch.bfloat16).
     CPU tensors: the plain version.  CUDA tensors: the kernel, or an
-    error."""
+    error.  Charges nothing to a counted run."""
     rb = check_precision(precision)
     if not x.is_cuda:
         return table_gemm_ref(x, w, precision)
@@ -101,11 +108,12 @@ def table_gemm_bwd_ref(x, w, g, precision='float32'):
 table_gemm_bwd_ref.calls = 0
 
 
+@charges('table_gemm_bwd', (0, 0))
 def table_gemm_bwd(x, w, g, precision='float32'):
     """The gradients (dx (N, k), dw (k, n)) of table = x . w for its
     cotangent g (N, n), f32 (``precision='bfloat16'``: on bf16-rounded
     operands).  CPU tensors: the plain version.  CUDA tensors: the kernel,
-    or an error."""
+    or an error.  Charges nothing to a counted run."""
     rb = check_precision(precision)
     if not x.is_cuda:
         return table_gemm_bwd_ref(x, w, g, precision)
@@ -172,7 +180,11 @@ def dsa_value_table(value_t, cw, precision='float32', value16=None):
     :class:`ValueTable`).  CUDA tensors: the table GEMM and, in the
     backward, its backward (each one launch, and in bf16 a rounding of cw
     and one of G), or an error."""
-    if not value_t.is_cuda and not check_precision(precision):
+    with charged('table_gemm', (0, 0)) as region:
+        if value_t.is_cuda or check_precision(precision):
+            return ValueTable.apply(value_t, cw, precision, value16)
         B, H, S, Dh = value_t.shape
-        return table_gemm_ref(value_t.reshape(-1, Dh), cw).reshape(B, H, S, -1)
-    return ValueTable.apply(value_t, cw, precision, value16)
+        return region.plain(
+            'table_gemm_bwd', (0, 0),
+            lambda v, w: table_gemm_ref(v.reshape(-1, Dh), w).reshape(
+                B, H, S, -1), value_t, cw)

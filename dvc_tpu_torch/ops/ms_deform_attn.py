@@ -11,6 +11,10 @@
   version.
 * :func:`ms_deform_attn_bwd` — the backward kernel alone: (dvalue, dloc,
   dattn) for an output cotangent, on CUDA tensors only.
+* :func:`msda_cost`, :func:`msda_bwd_cost` — (FLOPs, bytes) of the forward
+  and the backward by the JAX oracle's count (a gather and lerp, its
+  function's least work; ``utils/roofline.py``), which both wrappers
+  charge to a counted run.
 
 Layout, as in the JAX package: value (B, S, H, D) with S = sum of the level
 lengths; sampling locations and attention weights (B, Q, H, L, P); output
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.roofline import charged, charges, nbytes
 from . import _cuda
 
 
@@ -159,16 +164,55 @@ class MSDeformAttnFunction(torch.autograd.Function):
         return dvalue, None, dloc, dattn
 
 
+def msda_cost(value, temporal_shapes, sampling_locations,
+              attention_weights):
+    """(FLOPs, bytes) of the forward: the JAX ``ms_deform_attn_ref``'s
+    arithmetic (a gather and lerp, no product).  With n = B*Q*H*L*P taps:
+    per tap and channel the two lerp products, their sum, the attention
+    product and the sum over P (5); per tap the position, floor, weights,
+    bounds masks, clamps and the gathers' index wrap (24); per level the
+    accumulation of the (B, Q, H, D) output.  Bytes: the three inputs read
+    and the output written once."""
+    B, S, H, D = value.shape
+    n = sampling_locations.numel()
+    L = len(temporal_shapes)
+    flops = 5 * n * D + 24 * n + L * B * sampling_locations.shape[1] * H * D
+    out = B * sampling_locations.shape[1] * H * D * value.element_size()
+    return flops, nbytes(value, sampling_locations, attention_weights) + out
+
+
+def msda_bwd_cost(value, temporal_shapes, sampling_locations,
+                  attention_weights):
+    """(FLOPs, bytes) of the backward: the JAX oracle's VJP given its
+    residuals.  Per tap and channel the cotangent's products with the two
+    taps' weights and the attention, the sums over D, the two gathers'
+    scatter-adds (11); per tap 8, and 2 more a level past the first (the
+    cotangents of the locations and weights joined across levels); the
+    value's cotangent, a (B, S, H, D) sum, once a level.  Bytes: the inputs
+    and the output's cotangent read, the three gradients written once."""
+    B, S, H, D = value.shape
+    n = sampling_locations.numel()
+    L = len(temporal_shapes)
+    flops = 11 * n * D + 8 * n + 2 * (L - 1) * n + L * value.numel()
+    ins = nbytes(value, sampling_locations, attention_weights)
+    g = B * sampling_locations.shape[1] * H * D * value.element_size()
+    return flops, 2 * ins + g
+
+
 def ms_deform_attn(value, temporal_shapes, sampling_locations,
                    attention_weights):
     """Trunk MSDA (zeros mode), differentiable.  CPU tensors: the plain
     version (autograd through it).  CUDA tensors: the kernels (f32) or an
-    error."""
-    if not value.is_cuda:
-        return ms_deform_attn_ref(value, temporal_shapes, sampling_locations,
-                                  attention_weights)
-    return MSDeformAttnFunction.apply(value, tuple(temporal_shapes),
-                                      sampling_locations, attention_weights)
+    error.  Charges :func:`msda_cost` (and, in the backward,
+    :func:`msda_bwd_cost`) to a counted run."""
+    args = (value, temporal_shapes, sampling_locations, attention_weights)
+    with charged('msda_fwd', lambda: msda_cost(*args)) as region:
+        if not value.is_cuda:
+            return region.plain('msda_bwd', lambda: msda_bwd_cost(*args),
+                                ms_deform_attn_ref, *args)
+        return MSDeformAttnFunction.apply(value, tuple(temporal_shapes),
+                                          sampling_locations,
+                                          attention_weights)
 
 
 ms_deform_attn.launches = 0
@@ -185,11 +229,13 @@ def ms_deform_attn_bwd_ref(value, temporal_shapes, sampling_locations,
         return torch.autograd.grad(out, args, g)
 
 
+@charges('msda_bwd', lambda value, shapes, loc, attn, g: msda_bwd_cost(
+    value, shapes, loc, attn))
 def ms_deform_attn_bwd(value, temporal_shapes, sampling_locations,
                        attention_weights, g):
     """(dvalue, dloc, dattn) of the trunk MSDA for the output cotangent g
     (B, Q, H*D), by the kernel ``dvc_msda_bwd`` (CUDA tensors), or an
-    error."""
+    error.  Charges :func:`msda_bwd_cost` to a counted run."""
     dims, (value, loc, attn, g) = _check_kernel_args(
         value, temporal_shapes, sampling_locations, attention_weights, g)
     B, S, Q, H, D, L, P = dims

@@ -104,6 +104,8 @@ import dvc_tpu_torch.utils.precision, dvc_tpu_torch.tools.build_vocab
 import dvc_tpu_torch.tools.check_data, dvc_tpu_torch.tools.make_tsp_groundtruth
 import dvc_tpu_torch.tools.calibrate_meteor
 import dvc_tpu_torch.tools.measure_greedy_divergence
+import dvc_tpu_torch.tools.profile_step, dvc_tpu_torch.utils.roofline
+import dvc_tpu_torch.utils.profiling
 pkg = os.path.join(sys.argv[1], 'dvc_tpu') + os.sep
 print(json.dumps(sorted(
     n for n, m in list(sys.modules.items())
