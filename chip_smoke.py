@@ -345,6 +345,24 @@ Phases (one or more lines each; the last line is the JSON verdict):
    dvc_tpu_torch.tools.profile_step --what train --steps 2 --batch 16`` on
    the card: its JSON names the MSDA forward, K5 and the assignment kernel
    among the device operations.
+21. tools (``--tools`` runs it alone, longer) — the port's measurement
+   tools on the card, each in process through its ``main``, every record
+   naming the card (``nvidia-smi``'s name and power limit) with finite,
+   positive numbers (an overhead may be 0): ``bench_epoch`` at the
+   flagship's widths over TOOLS_EPOCH (64 train and 16 validation videos,
+   2 epochs: ``run_train`` on native-read ``.npy`` features, a
+   validation and a checkpoint an epoch), K1-K6's forward and training
+   kernels and the assignment solver launched (K6 only by the
+   validations), no plain version, native feature-IO calls; the same with
+   ``--loader-only``; ``bench_extract`` on MViTv2-S at B=8 in bf16 and f32
+   (its FLOPs beside the block table's, ``mvit_macs``); ``bench_scaling``
+   at one card, FusionPDVC, with the training kernels launched;
+   ``profile_step --what train --steps 2`` and then ``--summarize-only`` on
+   its folder, the re-read summary equal to the live one (the same
+   operations, ms and idle within TOOLS_REREAD_TOL).  ``--tools`` runs each
+   tool TOOLS_RUNS (3) times at its defaults (``bench_epoch``: 256 + 32
+   videos, 3 epochs), ``bench_epoch --streaming`` once, and prints each
+   figure's median and spread.
 Then a check that neither JAX nor any module of the JAX package
 ``dvc_tpu`` (by name or by file) was imported.
 
@@ -356,6 +374,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -7728,6 +7747,192 @@ def phase_roofline(card, device='cuda'):
     return readings
 
 
+# --------------------------------------------------------------------------
+# 21. tools
+# --------------------------------------------------------------------------
+
+TOOLS_EPOCH = ['--n-videos', '64', '--val-videos', '16', '--epochs', '2']
+TOOLS_RUNS = 3            # each tool's runs under --tools
+TOOLS_REREAD_TOL = 1e-3   # ms (each name, busy, window) and idle share
+EPOCH_KERNELS = TRUNK + ('dsa_scan_fwd', 'dsa_scan_bwd', 'assignment')
+# a record's numbers that may be 0: a difference against a baseline, or a
+# duration rounded to 0.1 s
+TOOLS_ZERO_OK = ('psum_overhead_ms', 'eval_ckpt_overhead_s', 'dataset_gen_s')
+
+
+def check_record(label, rec, named, key='device'):
+    """``rec[key]`` is ``named`` (the card) and every number in ``rec``
+    (lists and nested records included; booleans are no numbers) is
+    finite and positive, or 0 where TOOLS_ZERO_OK allows."""
+    def numbers(x, k):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from numbers(v, k)
+        elif isinstance(x, list):
+            for v in x:
+                yield from numbers(v, k)
+        elif isinstance(x, (int, float)) and not isinstance(x, bool):
+            yield k, x
+    bad = [(k, v) for k, v in numbers(rec, None) if not math.isfinite(v)
+           or v < 0 or (v == 0 and k not in TOOLS_ZERO_OK)]
+    if rec.get(key) != named or bad:
+        raise AssertionError(f'[tools] {label}: {key} {rec.get(key)!r} (want '
+                             f'{named!r}), numbers {bad}')
+
+
+def tools_epoch(root, card, argv, want=()):
+    """``bench_epoch`` with ``argv`` in ``root``: its record, checked, and
+    the kernel launches, plain-version calls and native feature-IO calls
+    of its run; the kernels of ``want`` must have launched, no plain
+    version run, and a training run read its features natively."""
+    from dvc_tpu_torch.data import native_io
+    from dvc_tpu_torch.tools import bench_epoch
+    reset_counts()
+    native_io.calls = 0
+    t0 = time.perf_counter()
+    rec = bench_epoch.main([*argv, '--workdir', root, '--device', DEVICE])
+    seconds = time.perf_counter() - t0
+    launches, plain = read_counts()
+    reads = native_io.calls
+    label = f'bench_epoch {" ".join(argv)}'
+    print(f'[tools] {label} ({card}): {json.dumps(rec)}; {seconds:.1f} s (host '
+          f'clock); launches {launches}, plain-version calls {plain}, native '
+          f'feature-IO calls {reads}')
+    check_record(label, rec, card)
+    if want:
+        check_launches(f'tools: {label}', launches, plain, want, ())
+    if plain or (not rec.get('streaming') and reads < 1):
+        raise AssertionError(f'[tools] {label}: plain-version calls {plain}, '
+                             f'native feature-IO calls {reads}')
+    return rec
+
+
+def tools_extract(card, dtype, argv=()):
+    """``bench_extract`` on MViTv2-S in ``dtype``: its record, checked, with
+    its FLOPs beside twice the block table's multiply-adds."""
+    from dvc_tpu_torch.models.tsp.backbones import MViTConfig, mvit_macs
+    from dvc_tpu_torch.tools import bench_extract
+    rec = bench_extract.main(['--backbone', 'mvit_v2_s', '--dtype', dtype,
+                              '--device', DEVICE, *argv])
+    table = 2 * mvit_macs(MViTConfig()) / 1e9
+    print(f'[tools] bench_extract mvit_v2_s --dtype {dtype} ({card}): '
+          f'{json.dumps(rec)}; block table {table:.3f} GFLOP a clip, the '
+          f'flop counter {(rec["gflops_per_clip"] - table) / table:+.5f} of '
+          'it (the CLS column\'s attention-value product is a broadcast '
+          'multiply)')
+    check_record(f'bench_extract {dtype}', rec, card)
+    if rec['mfu'] is None:
+        raise AssertionError(f'[tools] bench_extract: no peak for {card}')
+    return rec
+
+
+def tools_scaling(card, argv=()):
+    """``bench_scaling`` at one card, FusionPDVC: its summary, checked, with
+    the training kernels launched and no plain version."""
+    from dvc_tpu_torch.tools import bench_scaling
+    reset_counts()
+    rec = bench_scaling.main(['--chips', '1', '--model', 'fusion',
+                              '--device', DEVICE, *argv])
+    launches, plain = read_counts()
+    print(f'[tools] bench_scaling --chips 1 --model fusion ({card}): '
+          f'{json.dumps(rec)}; launches {launches}, plain-version calls '
+          f'{plain}')
+    check_record('bench_scaling', rec, card)
+    check_launches('tools: bench_scaling', launches, plain, EPOCH_KERNELS,
+                   ('dsa_greedy',))
+    return rec
+
+
+def tools_profile(root, card):
+    """``profile_step --what train --steps 2``, then ``--summarize-only`` on
+    its folder: the re-read summary must hold the same operations with
+    the same ms, busy, window and idle share (within TOOLS_REREAD_TOL)."""
+    from dvc_tpu_torch.tools import profile_step
+    base = ['--out', root, '--top', '100000']
+    with contextlib.redirect_stdout(io.StringIO()):     # every name's JSON
+        live = profile_step.main(['--what', 'train', '--steps', '2',
+                                  '--device', DEVICE, *base])
+        again = profile_step.main(['--summarize-only', *base])
+    ops = {k: {op['name']: (op['total_ms'], op['count'])
+               for op in s.get('top_ops_ms', [])}
+           for k, s in (('live', live), ('again', again))}
+    worst = max([abs(ops['live'][n][0] - ops['again'][n][0])
+                 for n in ops['live'] if n in ops['again']]
+                + [abs(live.get(k, 0) - again.get(k, 0))
+                   for k in ('window_ms', 'device_busy_ms', 'idle')])
+    print(f'[tools] profile_step --what train --steps 2 ({card}): device '
+          f'activity {live["device_activity"]}, window {live.get("window_ms")} '
+          f'ms, busy {live.get("device_busy_ms")} ms, idle {live.get("idle")}, '
+          f'{len(ops["live"])} names; --summarize-only: window '
+          f'{again.get("window_ms")} ms, busy {again.get("device_busy_ms")} '
+          f'ms, idle {again.get("idle")}, {len(ops["again"])} names; largest '
+          f'difference {worst:.3g}')
+    counts = {k: {n: v[1] for n, v in o.items()} for k, o in ops.items()}
+    same = ('what', 'steps', 'batch', 'device', 'device_name', 'trace_file',
+            'device_activity', 'activities')
+    if (not live['device_activity'] or counts['live'] != counts['again']
+            or worst > TOOLS_REREAD_TOL
+            or [live[k] for k in same] != [again[k] for k in same]):
+        raise AssertionError(f'[tools] profile_step: the re-read summary '
+                             f'differs: live {live}, re-read {again}')
+    check_record('profile_step', live, card.split(',')[0], 'device_name')
+    return live
+
+
+def spread(label, values):
+    """Prints the median and range of a figure's runs."""
+    import statistics
+    print(f'[tools] {label}: median {statistics.median(values)}, '
+          f'{min(values)}-{max(values)} over {len(values)} runs {values}')
+
+
+def phase_tools(card, full=False):
+    """Phase 21 (``--tools`` runs it alone with ``full``): the port's
+    measurement tools on the card (the module's docstring)."""
+    t0 = time.perf_counter()
+    runs = TOOLS_RUNS if full else 1
+    epoch = [] if full else TOOLS_EPOCH
+    recs = {k: [] for k in ('epoch', 'loader', BF16, 'float32', 'scaling')}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(runs):
+            recs['epoch'].append(tools_epoch(
+                os.path.join(tmp, f'train{i}'), card, epoch,
+                EPOCH_KERNELS + ('dsa_greedy',)))
+            recs['loader'].append(tools_epoch(
+                os.path.join(tmp, f'loader{i}'), card,
+                [*epoch, '--loader-only']))
+        for i in range(runs):
+            for dtype in (BF16, 'float32'):
+                recs[dtype].append(tools_extract(card, dtype))
+            recs['scaling'].append(tools_scaling(card))
+        if full:
+            tools_epoch(os.path.join(tmp, 'streaming'), card, ['--streaming'],
+                        EPOCH_KERNELS + ('dsa_greedy',))
+        tools_profile(os.path.join(tmp, 'profile'), card)
+    if full:
+        for label, key, field in (
+                ('bench_epoch steady-state train videos/s', 'epoch',
+                 'steady_state_train_videos_per_sec'),
+                ('bench_epoch sustained videos/s incl. eval', 'epoch',
+                 'sustained_videos_per_sec_incl_eval'),
+                ('bench_epoch steady epoch wall s', 'epoch',
+                 'steady_epoch_wall_s'),
+                ('bench_epoch --loader-only host videos/s', 'loader',
+                 'host_videos_per_sec'),
+                ('bench_extract bf16 ms a clip', BF16, 'ms_per_clip'),
+                ('bench_extract bf16 mfu', BF16, 'mfu'),
+                ('bench_extract f32 ms a clip', 'float32', 'ms_per_clip'),
+                ('bench_extract f32 mfu', 'float32', 'mfu')):
+            spread(f'{label} ({card})', [r[field] for r in recs[key]])
+        spread(f'bench_scaling 1-card step ms ({card})',
+               [r['rows'][0]['step_ms'] for r in recs['scaling']])
+        spread(f'bench_scaling 1-card videos/s ({card})',
+               [r['rows'][0]['videos_per_sec'] for r in recs['scaling']])
+    print(f'[tools] phase 21 took {time.perf_counter() - t0:.1f} s (host '
+          f'clock)')
+    return recs
+
+
 def main():
     device = phase_device()
     phase_build()
@@ -7759,6 +7964,7 @@ def main():
         phase_ddp(tmp, device['smi'])
         phase_own_video(tmp, device['smi'])
     phase_roofline(device['smi'])
+    phase_tools(device['smi'])
     foreign = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                             'dvc_tpu'))
@@ -7896,6 +8102,10 @@ if __name__ == '__main__':
         card = phase_device()['smi']
         phase_build()
         phase_roofline(card)
+    elif sys.argv[1:2] == ['--tools']:
+        card = phase_device()['smi']
+        phase_build()
+        phase_tools(card, full=True)
     elif sys.argv[1:2] == ['--tsp-train']:
         card = phase_device()['smi']
         with tempfile.TemporaryDirectory() as tmp:

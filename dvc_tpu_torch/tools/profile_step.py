@@ -10,11 +10,17 @@ under ``torch.profiler`` (``utils/profiling.py``).  It writes the Chrome
 trace to ``<out>/trace.json`` and prints, as JSON, the top operations by
 device time with the window's idle share.  Where the profiler recorded no
 device activity (the CPU), the JSON says so and lists no operations: host
-times do not stand in for device times.
+times do not stand in for device times.  ``--frames`` and
+``--max-caption-len`` set T and the caption length (the JAX tool's
+options, ``bench.py``'s 200 and 20 by default).  ``--summarize-only``
+takes no new trace: it reads ``<out>/trace.json`` back (and the capture's
+settings from ``<out>/capture.json``, which a capture writes beside it) and
+prints the same JSON from the trace's events.
 
     python -m dvc_tpu_torch.tools.profile_step --what train|eval \\
-        --out DIR [--steps 8] [--batch 16] [--top 40] [--seed 0] \\
-        [--device cpu]
+        --out DIR [--steps 8] [--batch 16] [--frames 200] \\
+        [--max-caption-len 20] [--top 40] [--seed 0] [--device cpu] \\
+        [--summarize-only]
 """
 
 from __future__ import annotations
@@ -22,13 +28,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 
 import numpy as np
 import torch
 
 from ..utils.config import load_config
-from ..utils.profiling import traced
+from ..utils.profiling import chrome_spans, ranked, summarize, traced
 
 # __graft_entry__.py's _flagship_opt at bench.py's shapes (frame_embedding_num
 # 200, max_caption_len 20, tpu_mesh_data 1); bench.py builds the FusionPDVC
@@ -75,6 +82,10 @@ def synthetic_batch(opt, B, seed=0):
     }
 
 
+# the host range that a capture's steps run in: 'profile_step train x8'
+CAPTURE_LABEL = r'profile_step (train|eval) x(\d+)'
+
+
 def capture(out_dir, what, steps, batch, device='cuda', seed=0, top=40,
             **overrides):
     """Trace ``steps`` steps of ``what`` ('train' or 'eval') at batch size
@@ -102,29 +113,58 @@ def capture(out_dir, what, steps, batch, device='cuda', seed=0, top=40,
     if dev.type == 'cuda':
         torch.cuda.synchronize(dev)
     os.makedirs(out_dir, exist_ok=True)
-    trace_file = os.path.join(out_dir, 'trace.json')
-    label = f'profile_step {what} x{steps}'
-    with traced(label, trace_file) as window:
+    settings = {'what': what, 'steps': steps, 'batch': batch,
+                'device': str(dev),
+                'device_name': (torch.cuda.get_device_name(dev)
+                                if dev.type == 'cuda' else 'cpu'),
+                'trace_file': os.path.join(out_dir, 'trace.json')}
+    with open(os.path.join(out_dir, 'capture.json'), 'w') as f:
+        json.dump(settings, f, indent=1)
+    with traced(f'profile_step {what} x{steps}',
+                settings['trace_file']) as window:
         for _ in range(steps):
             step()
-    summary = {'what': what, 'steps': steps, 'batch': batch,
-               'device': str(dev),
-               'device_name': (torch.cuda.get_device_name(dev)
-                               if dev.type == 'cuda' else 'cpu'),
-               'trace_file': trace_file,
-               'device_activity': bool(window)}
+    return report(settings, window, top)
+
+
+def report(settings, window, top):
+    """The tool's JSON: the capture's ``settings``, whether the profiler saw
+    device activity, and (where it did) :func:`ranked` of ``window``."""
+    summary = {**settings, 'device_activity': bool(window)}
     if not window:
         summary['note'] = ('the profiler recorded no device activity: '
                            'device times, operations and idle share not '
                            'measured')
         return summary
-    ranked = sorted(window['per_name'].items(), key=lambda kv: -kv[1][0])
-    summary.update(
-        window_ms=window['window_ms'], device_busy_ms=window['busy_ms'],
-        idle=window['idle'], activities=window['activities'],
-        top_ops_ms=[{'name': name[:120], 'total_ms': ms, 'count': n}
-                    for name, (ms, n) in ranked[:top]])
+    summary.update(ranked(window, top))
     return summary
+
+
+def summarize_only(out_dir, top=40):
+    """The summary of the capture in ``out_dir`` read back from its Chrome
+    trace (``trace.json``), with no new capture: the window is the host
+    range of the capture's steps (``CAPTURE_LABEL``), the device spans its
+    kernels, copies and fills (:func:`chrome_spans`, then
+    :func:`summarize`); the batch and the device from the capture's
+    ``capture.json``, None without it."""
+    trace_file = os.path.join(out_dir, 'trace.json')
+    with open(trace_file) as f:
+        trace = json.load(f)
+    names = (e.get('name', '') for e in trace.get('traceEvents', ()))
+    found = next(filter(None, (re.fullmatch(CAPTURE_LABEL, n)
+                               for n in names)), None)
+    if found is None:
+        raise ValueError(f'{trace_file} holds no range of a capture')
+    settings = {'what': found[1], 'steps': int(found[2]), 'batch': None,
+                'device': None, 'device_name': None}
+    saved = os.path.join(out_dir, 'capture.json')
+    if os.path.exists(saved):
+        with open(saved) as f:
+            settings.update((k, v) for k, v in json.load(f).items()
+                            if k in settings)
+    settings['trace_file'] = trace_file
+    win, spans = chrome_spans(trace, found[0])
+    return report(settings, summarize(win, spans) if spans else {}, top)
 
 
 def main(argv=None, **overrides):
@@ -136,12 +176,23 @@ def main(argv=None, **overrides):
                    help='directory for the Chrome trace (trace.json)')
     p.add_argument('--steps', type=int, default=8)
     p.add_argument('--batch', type=int, default=16)
+    p.add_argument('--frames', type=int, default=200,
+                   help='T, the frames of a video (frame_embedding_num)')
+    p.add_argument('--max-caption-len', type=int, default=20)
     p.add_argument('--top', type=int, default=40)
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--device', choices=['cuda', 'cpu'], default='cuda')
+    p.add_argument('--summarize-only', action='store_true',
+                   help='no capture: summarise the trace in --out')
     args = p.parse_args(argv)
-    summary = capture(args.out, args.what, args.steps, args.batch,
-                      args.device, args.seed, args.top, **overrides)
+    if args.summarize_only:
+        summary = summarize_only(args.out, args.top)
+    else:
+        summary = capture(args.out, args.what, args.steps, args.batch,
+                          args.device, args.seed, args.top,
+                          **{'frame_embedding_num': args.frames,
+                             'max_caption_len': args.max_caption_len,
+                             **overrides})
     print(json.dumps(summary, indent=1))
     return summary
 

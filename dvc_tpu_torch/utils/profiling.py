@@ -1,18 +1,28 @@
 """A window of work under ``torch.profiler``: the card's busy and idle
-share and each kernel's device time.
+share and each kernel's device time; and the timing helpers the port's
+measurement tools share.
 
 :func:`traced` is what ``chip_smoke.py`` prints its ``[trace]`` lines with
 and what ``python -m dvc_tpu_torch.tools.profile_step`` summarises a step
-with.  Device activity is read from the profiler's CUDA events; where it
-recorded none (the CPU, or a machine whose profiler cannot trace the
+with; :func:`chrome_spans` reads the same spans back from the Chrome trace
+it wrote.  Device activity is read from the profiler's CUDA events; where
+it recorded none (the CPU, or a machine whose profiler cannot trace the
 card) the result says so and no host time stands in for it.
+:func:`two_point_ms` times dependent steps by two loop lengths and
+:func:`card_label` names the card a measurement ran on.
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
+import time
 
 import torch
+
+# the Chrome trace's categories of device activity (kernels and copies);
+# 'gpu_user_annotation', the device shadow of a host range, is none
+DEVICE_CATEGORIES = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 
 def device_spans(events, label):
@@ -35,6 +45,23 @@ def device_spans(events, label):
     return (win.start, win.end), spans
 
 
+def chrome_spans(trace, label):
+    """:func:`device_spans` over a Chrome trace (the loaded JSON that
+    ``export_chrome_trace`` writes): the host range ``label`` and the
+    kernels, copies and fills, each left out where a host event bears its
+    name.  ``label``'s range is None where the trace holds none."""
+    events = [e for e in trace.get('traceEvents', ()) if e.get('ph') == 'X']
+    host = [e for e in events if e.get('cat') not in DEVICE_CATEGORIES
+            and e.get('cat') != 'gpu_user_annotation']
+    names = {e['name'] for e in host}
+    win = next(((e['ts'], e['ts'] + e['dur']) for e in host
+                if e['name'] == label), None)
+    spans = sorted((e['ts'], e['ts'] + e['dur'], e['name']) for e in events
+                   if e.get('cat') in DEVICE_CATEGORIES
+                   and e['name'] not in names)
+    return win, spans
+
+
 def summarize(window, spans):
     """The window's (start, end) and its device ``spans`` (as
     :func:`device_spans` gives them) as ``window_ms``, ``busy_ms`` (the
@@ -51,6 +78,70 @@ def summarize(window, spans):
     return {'window_ms': (end - start) / 1e3, 'busy_ms': busy / 1e3,
             'idle': 1 - busy / (end - start), 'activities': len(spans),
             'per_name': per_name}
+
+
+def ranked(result, top):
+    """The JSON of a :func:`summarize` result: the window, the device's
+    busy ms and idle share, and the ``top`` names by device ms
+    (``top_ops_ms``: name, total_ms, count)."""
+    order = sorted(result['per_name'].items(), key=lambda kv: -kv[1][0])
+    return {'window_ms': result['window_ms'],
+            'device_busy_ms': result['busy_ms'], 'idle': result['idle'],
+            'activities': result['activities'],
+            'top_ops_ms': [{'name': name[:120], 'total_ms': ms, 'count': n}
+                           for name, (ms, n) in order[:top]]}
+
+
+def two_point_ms(step, n1, n2, device, carry):
+    """ms a step by the JAX tools' two-loop-length protocol: ``carry =
+    step(carry)`` n1 times, then n2 times, each once to warm up and once
+    timed, and the difference over n2 - n1 steps, so the cost of starting
+    and ending a run cancels.  Each step takes the last one's output, so
+    the steps are dependent.  On a card the runs are timed by CUDA events
+    on the device's current stream; on the CPU by the host clock.  Returns
+    (ms, the carry after the last run)."""
+    if n2 <= n1:
+        raise ValueError(f'two_point_ms: n2 ({n2}) must exceed n1 ({n1})')
+    device = torch.device(device)
+
+    def run(k):
+        c = carry
+        if device.type != 'cuda':
+            t0 = time.perf_counter()
+            for _ in range(k):
+                c = step(c)
+            return (time.perf_counter() - t0) * 1e3, c
+        stream = torch.cuda.current_stream(device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize(device)
+        start.record(stream)
+        for _ in range(k):
+            c = step(c)
+        end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end), c
+
+    run(n1)
+    run(n2)
+    t1, _ = run(n1)
+    t2, carry = run(n2)
+    return (t2 - t1) / (n2 - n1), carry
+
+
+def card_label(device='cuda'):
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them for
+    ``device``'s index, or 'cpu'.  Raises where nvidia-smi cannot be
+    read: a card's measurement names its card."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return 'cpu'
+    index = device.index if device.index is not None else 0
+    out = subprocess.run(['nvidia-smi', f'--id={index}',
+                          '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip()
 
 
 def trace(label, fn):

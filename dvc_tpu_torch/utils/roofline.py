@@ -80,10 +80,10 @@ _PEAKS = (
 )
 
 
-def device_peak(device=None):
-    """(peak bf16 FLOP/s, HBM bytes/s) of ``device`` (default: the first
-    CUDA device) by its name in the data-sheet table, or None (the CPU, no
-    card, a card not in the table): JAX's ``device_peak``."""
+def device_peaks(device=None):
+    """The :class:`Peaks` of ``device`` (default: the first CUDA device) by
+    its name in the data-sheet table, or None (the CPU, no card, a card not
+    in the table)."""
     if device is None:
         if not torch.cuda.is_available():
             return None
@@ -95,10 +95,14 @@ def device_peak(device=None):
             return None
         device = device.index or 0
     name = torch.cuda.get_device_name(device).lower()
-    for sub, peaks in _PEAKS:
-        if sub in name:
-            return peaks.bf16, peaks.hbm
-    return None
+    return next((peaks for sub, peaks in _PEAKS if sub in name), None)
+
+
+def device_peak(device=None):
+    """(peak bf16 FLOP/s, HBM bytes/s) of ``device`` (:func:`device_peaks`),
+    or None: JAX's ``device_peak``."""
+    peaks = device_peaks(device)
+    return None if peaks is None else (peaks.bf16, peaks.hbm)
 
 
 def least_ms(n_bytes, flops, flop_rate, hbm=H100_SXM.hbm):

@@ -83,7 +83,8 @@ def _imports(path):
 def test_port_module_imports_neither_jax_nor_the_jax_package(path):
     for name in _imports(os.path.join(REPO, path)):
         assert name.split('.')[0] not in ('jax', 'jaxlib', 'flax', 'optax',
-                                          'dvc_tpu'), (path, name)
+                                          'dvc_tpu', 'tests', 'synth'), (
+            path, name)
     # nor does it execute a file of the JAX package by its path
     src = open(os.path.join(REPO, path)).read()
     assert 'spec_from_file_location' not in src and 'load_shared' not in src
@@ -105,12 +106,14 @@ import dvc_tpu_torch.tools.check_data, dvc_tpu_torch.tools.make_tsp_groundtruth
 import dvc_tpu_torch.tools.calibrate_meteor
 import dvc_tpu_torch.tools.measure_greedy_divergence
 import dvc_tpu_torch.tools.profile_step, dvc_tpu_torch.utils.roofline
-import dvc_tpu_torch.utils.profiling
-pkg = os.path.join(sys.argv[1], 'dvc_tpu') + os.sep
+import dvc_tpu_torch.utils.profiling, dvc_tpu_torch.tools.synth
+import dvc_tpu_torch.tools.bench_epoch, dvc_tpu_torch.tools.bench_extract
+import dvc_tpu_torch.tools.bench_scaling
+pkgs = tuple(os.path.join(sys.argv[1], d) + os.sep for d in ('dvc_tpu', 'tests'))
 print(json.dumps(sorted(
     n for n, m in list(sys.modules.items())
-    if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'dvc_tpu')
-    or (getattr(m, '__file__', None) or '').startswith(pkg))))
+    if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'dvc_tpu', 'tests')
+    or (getattr(m, '__file__', None) or '').startswith(pkgs))))
 """
 
 
